@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the areal_tpu serving path.
+
+A second package beside `areal_tpu` (the JAX reference, unchanged): same
+module layout and function names, so each function here has its
+counterpart at the same path in `areal_tpu`.  The port imports `torch`
+and nothing of JAX or of `areal_tpu`; entry points run on the CUDA card
+unless the caller passes ``device="cpu"``.
+
+Slice 1 covers the serving path:
+
+    system/gen_server.py  GenerationServer (POST /generate, GET /health)
+    engines/generator.py  GeneratorEngine.generate -> the serving plane
+    models/transformer.py decode_step_ragged_paged over a paged KV pool
+    ops/attention.py      ragged_paged_attention -> kernels/ (CUDA, sm_90a)
+"""

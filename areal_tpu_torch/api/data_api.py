@@ -1,0 +1,118 @@
+"""Packed sequence batches (port of the parts of areal_tpu/api/data_api.py
+that generation uses: `MicroBatchSpec` and `SequenceSample`'s
+construction, lengths, selection and `unpack`).  Host data stays numpy;
+the engines move it to the device."""
+
+import dataclasses
+import itertools
+from typing import Any, Dict, Hashable, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class MicroBatchSpec:
+    """How to split a batch into micro-batches: `n_mbs` is the minimum
+    number, `max_tokens_per_mb` caps tokens per micro-batch (None = no
+    cap)."""
+
+    n_mbs: int = 1
+    max_tokens_per_mb: Optional[int] = None
+
+
+def _flat2d(xs: Sequence[Sequence[Any]]) -> List[Any]:
+    return list(itertools.chain.from_iterable(xs))
+
+
+@dataclasses.dataclass
+class SequenceSample:
+    """A packed, variable-length batch.
+
+    seqlens[key][i] is the list of sequence lengths that batch element i
+    owns under `key`; data[key] is the concatenation of all those
+    sequences along axis 0 (trailing dims allowed)."""
+
+    keys: Set[str]
+    ids: List[Hashable]
+    seqlens: Dict[str, List[List[int]]]
+    data: Optional[Dict[str, Optional[np.ndarray]]] = None
+    metadata: Dict[str, List[Any]] = dataclasses.field(default_factory=dict)
+    dtypes: Dict[str, Optional[np.dtype]] = dataclasses.field(default_factory=dict)
+    trailing_shapes: Dict[str, Optional[Tuple[int, ...]]] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def __post_init__(self):
+        self.keys = set(self.keys)
+        if len(self.ids) != len(set(self.ids)):
+            raise ValueError(f"duplicate ids: {self.ids}")
+        for k in self.keys:
+            if k not in self.seqlens:
+                raise ValueError(f"missing seqlens for key {k!r}")
+            if len(self.seqlens[k]) != self.bs:
+                raise ValueError(
+                    f"seqlens[{k!r}] has {len(self.seqlens[k])} entries, "
+                    f"batch size is {self.bs}"
+                )
+        if self.data is not None:
+            for k in self.keys:
+                v = self.data.get(k)
+                if v is None:
+                    continue
+                v = np.asarray(v)
+                self.data[k] = v
+                want = sum(sum(s) for s in self.seqlens[k])
+                if v.shape[0] != want:
+                    raise ValueError(
+                        f"data[{k!r}] axis-0 is {v.shape[0]}, seqlens sum to {want}"
+                    )
+                self.dtypes.setdefault(k, v.dtype)
+                self.trailing_shapes.setdefault(k, tuple(v.shape[1:]))
+        for k, v in self.metadata.items():
+            if not isinstance(v, list) or len(v) != self.bs:
+                raise ValueError(
+                    f"metadata[{k!r}] must be a list of length bs={self.bs}"
+                )
+
+    @property
+    def bs(self) -> int:
+        return len(self.ids)
+
+    def total_len(self, key: str) -> int:
+        return sum(sum(s) for s in self.seqlens[key])
+
+    def seqlens_of(self, key: str) -> List[int]:
+        """Flat per-sequence lengths for a key."""
+        return _flat2d(self.seqlens[key])
+
+    def cu_seqlens(self, key: str) -> np.ndarray:
+        """Cumulative sequence boundaries [0, l0, l0+l1, ...] (int32)."""
+        return np.cumsum([0] + self.seqlens_of(key)).astype(np.int32)
+
+    def select_idx(self, indices: Sequence[int]) -> "SequenceSample":
+        """New sample containing the given batch elements, in order."""
+        indices = list(indices)
+        seqlens = {k: [self.seqlens[k][i] for i in indices] for k in self.keys}
+        data = None
+        if self.data is not None:
+            data = {}
+            for k in self.keys:
+                v = self.data.get(k)
+                if v is None:
+                    data[k] = None
+                    continue
+                bounds = np.cumsum([0] + [sum(s) for s in self.seqlens[k]])
+                parts = [v[bounds[i] : bounds[i + 1]] for i in indices]
+                data[k] = np.concatenate(parts, axis=0) if parts else v[:0]
+        return SequenceSample(
+            keys=set(self.keys),
+            ids=[self.ids[i] for i in indices],
+            seqlens=seqlens,
+            data=data,
+            metadata={k: [v[i] for i in indices] for k, v in self.metadata.items()},
+            dtypes=dict(self.dtypes),
+            trailing_shapes=dict(self.trailing_shapes),
+        )
+
+    def unpack(self) -> List["SequenceSample"]:
+        return [self.select_idx([i]) for i in range(self.bs)]

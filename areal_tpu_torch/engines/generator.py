@@ -1,0 +1,828 @@
+"""Generation engine: the unified serving plane over a paged KV pool
+(port of the serving-plane part of areal_tpu/engines/generator.py).
+
+`GeneratorEngine.generate` always runs the serving plane: a fixed slot
+pool where admitted prompts are consumed in `prefill_chunk_tokens` (W)
+sized slices INSIDE the same ragged chunk step that advances live
+decodes, finished rows retire between chunks, and same-prompt repeats (a
+GRPO group's n responses) map the owner's full prompt pages
+copy-on-write.  Each chunk runs `chunk_t` inner steps on the device —
+lane grants, sampling and one `decode_step_ragged_paged` forward each —
+and syncs with the host once, at its end.
+
+Not yet ported (they raise NotImplementedError): speculative decoding
+(spec_decode_k > 0), interrupt/resume, agent episodes, the dense KV
+window (kv_paged=False), the two-program admit path
+(prefill_chunk_tokens=0) and the static path (the port never takes it:
+JAX pins the inflight and static paths to the same greedy tokens).
+"""
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.api.model_api import GenerationHyperparameters
+from areal_tpu_torch.engines.paging import PageAllocator
+from areal_tpu_torch.models import transformer as tfm
+from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops.sampling import sample_token
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the CUDA card; a CUDA device without a card raises.
+    Only an explicit "cpu" runs on the host."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "passes device='cpu'"
+        )
+    return device
+
+
+def _find_stop_end(toks, scan_from: int, stop_seqs) -> Optional[int]:
+    """Earliest index just PAST a completed stop sequence whose match
+    ends after `scan_from` — so a sequence straddling two decode chunks
+    is still caught, exactly once.  None when nothing matches."""
+    best = None
+    for seq in stop_seqs:
+        L = len(seq)
+        if L == 0 or len(toks) < L:
+            continue
+        target = list(seq)
+        for i in range(max(0, scan_from - L + 1), len(toks) - L + 1):
+            if toks[i : i + L] == target:
+                end = i + L
+                if best is None or end < best:
+                    best = end
+                break
+    return best
+
+
+@dataclasses.dataclass
+class _PagedGenSession:
+    """Everything the serving chunk loop carries between chunks, host
+    and device side, for one generate call."""
+
+    gconfig: GenerationHyperparameters
+    generator: torch.Generator  # on the engine's device
+    results: Dict
+    n_slots: int
+    n_pages: int
+    max_pages: int
+    chunk_t: int
+    alloc: PageAllocator
+    pool: tfm.PagedKVCache  # device, updated in place
+    logits_buf: torch.Tensor  # device [n_slots, vocab] f32, updated in place
+    cache_len: np.ndarray
+    gen_count: np.ndarray
+    done_host: np.ndarray
+    active: List[Optional[Tuple[int, int]]]
+    toks_acc: Dict[int, List[int]]
+    logps_acc: Dict[int, List[float]]
+    pending: List
+    slot_prompt: Dict[int, np.ndarray]
+    # Per-row prefill progress: prompt_buf[slot] holds the not-yet-
+    # forwarded prompt remainder, prefill_rem counts tokens still to
+    # consume, prompt_off indexes the next prompt_buf read.  A row with
+    # prefill_rem > 0 is admitting; 0 means decoding.
+    prefill_chunk: int  # W = query lanes per row per inner step
+    prompt_buf: np.ndarray  # [n_slots, pbw] int32
+    prefill_rem: np.ndarray  # [n_slots] int32
+    prompt_off: np.ndarray  # [n_slots] int32
+    slot_hash: Dict[int, bytes]  # prompt hash per owner slot
+    # hash -> owner slot still prefilling it; followers wait for it.
+    inflight_prefix: Dict[bytes, int]
+    peak_live: int = 0
+
+
+class GeneratorEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: Dict[str, Any],
+        device=None,
+        *,
+        eos_token_id: int,
+        pad_token_id: Optional[int] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        max_decode_batch: int = 64,
+        kv_cache_dtype: str = "auto",
+        kv_paged: bool = True,
+        kv_page_size: int = 128,
+        kv_pool_pages: int = 0,
+        prefill_chunk_tokens: int = 8,
+        kv_share_prefix: bool = True,
+        serving_admit_lanes: int = 0,
+    ):
+        if cfg.is_critic:
+            raise ValueError("cannot generate from a critic model")
+        if not kv_paged:
+            raise NotImplementedError(
+                "the dense KV window (kv_paged=False) is not yet ported"
+            )
+        if prefill_chunk_tokens == 0:
+            raise NotImplementedError(
+                "the two-program admit path (prefill_chunk_tokens=0) is not "
+                "yet ported"
+            )
+        if prefill_chunk_tokens < 0:
+            raise ValueError(
+                f"prefill_chunk_tokens must be > 0, got {prefill_chunk_tokens}"
+            )
+        if kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'auto' or 'int8', got {kv_cache_dtype!r}"
+            )
+        if kv_page_size < 1:
+            raise ValueError(f"kv_page_size must be >= 1, got {kv_page_size}")
+        if kv_pool_pages < 0 or serving_admit_lanes < 0:
+            raise ValueError("kv_pool_pages and serving_admit_lanes must be >= 0")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.eos_token_id = int(eos_token_id)
+        self.pad_token_id = int(pad_token_id or eos_token_id)
+        # fp32 on the host (the JAX package forces fp32 on CPU too), bf16
+        # on the card; attention accumulates in fp32 either way.
+        if compute_dtype is None:
+            compute_dtype = (
+                torch.float32 if self.device.type == "cpu" else torch.bfloat16
+            )
+        self.compute_dtype = compute_dtype
+        self.max_decode_batch = int(max_decode_batch)
+        self.kv_cache_dtype = kv_cache_dtype
+        self.kv_page_size = int(kv_page_size)
+        # 0 = auto: every slot at prompt + max_new_tokens.
+        self.kv_pool_pages = int(kv_pool_pages)
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        self.kv_share_prefix = bool(kv_share_prefix)
+        # Lane headroom A of the packed stream (0 = auto, 4 * W).
+        self.serving_admit_lanes = int(serving_admit_lanes)
+        self.serving_lane_budget = 0
+        # Per-generate counters (reset in generate()).  decode_compiles
+        # counts serving-chunk function builds (one per call);
+        # prefill_dispatches counts standalone prefill programs (the
+        # serving plane runs none).  Lane accounting: lanes_dispatched =
+        # chunk steps x T, lanes_live carry a real token, lanes_slack are
+        # budgeted but idle, dead_live_lanes (live lanes mapped to no row)
+        # is structurally 0.
+        self.prefill_dispatches = 0
+        self.decode_compiles = 0
+        self.last_pool_stats: Dict[str, Any] = {}
+        self.lanes_dispatched = 0
+        self.lanes_live = 0
+        self.lanes_slack = 0
+        self.dead_live_lanes = 0
+        # Inner steps (forwards) run over the engine's life — never reset.
+        self.steps_total = 0
+        # Load gauges for the server's /health: (live_slots,
+        # kv_utilization) replaced as one tuple.
+        self.kv_utilization = 0.0
+        self.live_slots = 0
+        self.load_state = (0, 0.0)
+        self.set_params(params)
+
+    # ---------------- weights ----------------
+
+    def set_params(self, params: Dict[str, Any]) -> None:
+        """Place the weights on the engine's device, floats cast to the
+        compute dtype."""
+
+        def place(x):
+            if isinstance(x, dict):
+                return {k: place(v) for k, v in x.items()}
+            x = x.to(self.device)
+            return x.to(self.compute_dtype) if x.is_floating_point() else x
+
+        self.params = place(params)
+
+    # ---------------- capacity (read by the server) ----------------
+
+    @property
+    def page_budget_tokens(self) -> Optional[int]:
+        """Token capacity of an explicitly sized page pool (None when the
+        pool is auto-sized)."""
+        if self.kv_pool_pages == 0:
+            return None
+        return self.kv_pool_pages * self.kv_page_size
+
+    def group_footprint_tokens(
+        self, prompt_len: int, max_new_tokens: int, n: int
+    ) -> int:
+        """Worst-case pool footprint (tokens) of `n` same-prompt requests,
+        CoW-aware: the prompt's full pages are paid once."""
+        plen, mnew, n = int(prompt_len), int(max_new_tokens), int(n)
+        if not self.kv_share_prefix or n <= 1:
+            return n * (plen + mnew)
+        sp = max(0, (plen - 1) // self.kv_page_size)
+        return sp * self.kv_page_size + n * ((plen - sp * self.kv_page_size) + mnew)
+
+    def _set_live_slots(self, n: int) -> None:
+        self.live_slots = int(n)
+        self.load_state = (int(n), self.kv_utilization)
+
+    # ---------------- not yet ported ----------------
+
+    def interrupt(self) -> None:
+        raise NotImplementedError("interrupt/resume_generate is not yet ported")
+
+    def resume_generate(self):
+        raise NotImplementedError("interrupt/resume_generate is not yet ported")
+
+    def episode_start(self, *a, **k):
+        raise NotImplementedError("agent episodes are not yet ported")
+
+    # ---------------- generation ----------------
+
+    def generate(
+        self,
+        sample: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        gconfig: GenerationHyperparameters,
+        prompt_key: str = "packed_prompts",
+        seed: int = 0,
+        inflight: Optional[bool] = None,
+    ) -> SequenceSample:
+        """Group-sample `gconfig.n` responses per prompt through the
+        serving plane (`inflight` is accepted for the JAX signature; every
+        call takes the serving plane).
+
+        Returns a SequenceSample (one element per prompt, `n` sequences
+        per element) with packed_input_ids (prompt + response),
+        packed_logprobs (seqlen-1 per sequence, behaviour logprobs on the
+        response positions), prompt_mask and seq_no_eos_mask."""
+        if gconfig.spec_decode_k > 0:
+            raise NotImplementedError(
+                "speculative decoding (spec_decode_k > 0) is not yet ported"
+            )
+        self.prefill_dispatches = 0
+        self.decode_compiles = 0
+        self.last_pool_stats = {}
+        self.lanes_dispatched = 0
+        self.lanes_live = 0
+        self.lanes_slack = 0
+        self.dead_live_lanes = 0
+        prompt_lens = sample.seqlens_of(prompt_key)
+        bounds = sample.cu_seqlens(prompt_key)
+        prompts = np.asarray(sample.data[prompt_key])
+        n = gconfig.n
+        # Expand xn and sort by length (desc).
+        reqs = []  # (orig_idx, rep, tokens)
+        for i in range(sample.bs):
+            toks = prompts[bounds[i] : bounds[i + 1]]
+            for r in range(n):
+                reqs.append((i, r, toks))
+        order = sorted(range(len(reqs)), key=lambda j: -len(reqs[j][2]))
+        results: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, bool]] = {}
+        self._generate_inflight_serving(
+            [reqs[j] for j in order], gconfig, seed, results
+        )
+        return self._assemble(sample, prompt_key, prompt_lens, results, n)
+
+    def _drain_chunk_outputs(
+        self, out_toks, out_logps, new_done, active, toks_acc, logps_acc,
+        results, done_host, cache_len, max_new: int, on_retire=None,
+        stop_seqs=(),
+    ) -> None:
+        """Append each live slot's chunk output (rows are contiguous,
+        -1-terminated), finish on EOS, a matched stop sequence (the stop
+        tokens stay in the output) or the token budget, and retire
+        finished slots (`on_retire(slot)` recycles their pages)."""
+        for s in range(len(active)):
+            if active[s] is None:
+                continue
+            row = out_toks[s]
+            stop = np.flatnonzero(row < 0)  # -1-terminated within the chunk
+            limit = int(stop[0]) if stop.size else row.shape[0]
+            limit = min(limit, max(0, max_new - len(toks_acc[s])))
+            eos = np.flatnonzero(row[:limit] == self.eos_token_id)
+            if eos.size:  # keep the EOS token itself, drop the tail
+                limit = int(eos[0]) + 1
+            prev_len = len(toks_acc[s])
+            toks_acc[s].extend(row[:limit].tolist())
+            logps_acc[s].extend(out_logps[s, :limit].tolist())
+            cut = (
+                _find_stop_end(toks_acc[s], prev_len, stop_seqs)
+                if stop_seqs
+                else None
+            )
+            if cut is not None:
+                del toks_acc[s][cut:]
+                del logps_acc[s][cut:]
+            finished = (
+                cut is not None
+                or len(toks_acc[s]) >= max_new
+                or (toks_acc[s] and toks_acc[s][-1] == self.eos_token_id)
+            )
+            if finished:
+                i, rep = active[s]
+                gtoks = np.asarray(toks_acc[s], np.int32)
+                glogps = np.asarray(logps_acc[s], np.float32)
+                no_eos = not (len(gtoks) and gtoks[-1] == self.eos_token_id)
+                results[(i, rep)] = (gtoks, glogps, no_eos)
+                active[s] = None
+                done_host[s] = True
+                cache_len[s] = 0
+                if on_retire is not None:
+                    on_retire(s)
+            else:
+                done_host[s] = new_done[s]
+
+    def _accum_pool_stats(
+        self, kind: str, live_tokens: int, allocated_tokens: int
+    ) -> None:
+        """Accumulate per-chunk KV utilization (live tokens / allocated
+        cache tokens) into last_pool_stats."""
+        st = self.last_pool_stats
+        if st.get("kind") != kind:
+            st.clear()
+            st.update(kind=kind, samples=0, live_tokens=0, allocated_tokens=0)
+        st["samples"] += 1
+        st["live_tokens"] += int(live_tokens)
+        st["allocated_tokens"] += int(allocated_tokens)
+        st["utilization"] = st["live_tokens"] / max(st["allocated_tokens"], 1)
+        self.kv_utilization = int(live_tokens) / max(int(allocated_tokens), 1)
+        self.load_state = (self.live_slots, self.kv_utilization)
+
+    # -- the unified serving plane --
+
+    def _paged_kv_dtype(self):
+        return "int8" if self.kv_cache_dtype == "int8" else self.compute_dtype
+
+    def _generate_inflight_serving(self, reqs, gconfig, seed, results) -> None:
+        n_slots = min(self.max_decode_batch, len(reqs))
+        ps = self.kv_page_size
+        chunk_t = min(32, gconfig.max_new_tokens)
+        max_prompt = max(len(t) for (_, _, t) in reqs)
+        max_pages = -(-(max_prompt + gconfig.max_new_tokens + chunk_t) // ps)
+        n_pages = self.kv_pool_pages or n_slots * max_pages
+        pbw = max(max_prompt, 1)
+        dev = self.device
+        st = _PagedGenSession(
+            gconfig=gconfig,
+            generator=torch.Generator(device=dev).manual_seed(int(seed)),
+            results=results,
+            n_slots=n_slots,
+            n_pages=n_pages,
+            max_pages=max_pages,
+            chunk_t=chunk_t,
+            alloc=PageAllocator(n_pages, ps, n_slots, max_pages),
+            pool=tfm.init_paged_kv_cache(
+                self.cfg, n_pages, ps, dtype=self._paged_kv_dtype(), device=dev
+            ),
+            logits_buf=torch.zeros(
+                (n_slots, self.cfg.vocab_size), dtype=torch.float32, device=dev
+            ),
+            cache_len=np.zeros((n_slots,), np.int32),
+            gen_count=np.zeros((n_slots,), np.int32),
+            done_host=np.ones((n_slots,), bool),
+            active=[None] * n_slots,
+            toks_acc={},
+            logps_acc={},
+            pending=list(reversed(reqs)),
+            slot_prompt={},
+            prefill_chunk=self.prefill_chunk_tokens,
+            prompt_buf=np.full((n_slots, pbw), self.pad_token_id, np.int32),
+            prefill_rem=np.zeros((n_slots,), np.int32),
+            prompt_off=np.zeros((n_slots,), np.int32),
+            slot_hash={},
+            inflight_prefix={},
+        )
+        # Bytes per page, the trash page excluded from the pool's count.
+        st.alloc.page_bytes = st.pool.nbytes() // (n_pages + 1)
+        self._run_serving_loop(st)
+
+    def _run_serving_loop(self, st: _PagedGenSession) -> None:
+        """Every iteration admits into free slots (host bookkeeping only),
+        maps pages for the chunk's worst-case advance, privatises any
+        shared page a write could touch, then runs ONE serving chunk in
+        which prefilling rows consume up to W prompt tokens per inner step
+        while decoding rows emit one token."""
+        gconfig = st.gconfig
+        alloc = st.alloc
+        n_slots, ps, chunk_t = st.n_slots, alloc.page_size, st.chunk_t
+        W = st.prefill_chunk
+        pbw = st.prompt_buf.shape[1]
+        chunk_fn = self._get_serving_chunk_fn(
+            n_slots, st.n_pages, st.max_pages, chunk_t, W, pbw, gconfig
+        )
+        dev = self.device
+
+        def to_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        while st.pending or any(a is not None for a in st.active):
+            self._take_admits_serving(st)
+            # Map pages covering this chunk's worst-case advance per live
+            # slot: a prefilling row consumes up to chunk_t*W prompt tokens
+            # (never more than its remainder + the decode steps after it);
+            # a decoding row advances at most chunk_t, clamped to its
+            # remaining budget (over-budget writes are drained away).
+            max_new = gconfig.max_new_tokens
+            for s in range(n_slots):
+                if st.active[s] is not None:
+                    rem = int(st.prefill_rem[s])
+                    left = max(0, max_new - int(st.gen_count[s]))
+                    target = int(st.cache_len[s]) + max(
+                        1, min(chunk_t * W, rem + chunk_t, rem + left)
+                    )
+                    self._reserve_with_evict(alloc, s, target)
+            self._privatize_write_windows(st)
+            self._accum_pool_stats(
+                "paged", int(st.cache_len.sum()), alloc.allocated_pages() * ps
+            )
+            prev_rem = st.prefill_rem.copy()
+            (
+                out_toks, out_logps, new_cache_len, new_gen_count, new_done,
+                new_rem, new_off, lane_acc,
+            ) = chunk_fn(
+                self.params, st.pool, st.logits_buf,
+                to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
+                to_dev(st.prompt_off.astype(np.int64)),
+                to_dev(st.prefill_rem.astype(np.int64)),
+                to_dev(st.cache_len.astype(np.int64)),
+                to_dev(st.gen_count.astype(np.int64)),
+                to_dev(st.done_host), st.generator,
+            )
+            # The chunk's one host sync: the done/eos flags must be exact
+            # before the next admission round.
+            out_toks = out_toks.cpu().numpy()
+            out_logps = out_logps.cpu().numpy()
+            lane_acc = lane_acc.cpu().numpy()
+            new_done = new_done.cpu().numpy()
+            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
+            st.prompt_off = new_off.cpu().numpy().astype(np.int32)
+            self.steps_total += chunk_t
+            self.lanes_dispatched += chunk_t * self.serving_lane_budget
+            self.lanes_live += int(lane_acc[0])
+            self.lanes_slack += int(lane_acc[1])
+            self.dead_live_lanes += int(lane_acc[2])
+
+            # Register prefixes that FINISHED prefilling this chunk before
+            # any retirement can release the owner's pages.
+            if self.kv_share_prefix:
+                for s in range(n_slots):
+                    if (
+                        st.active[s] is not None
+                        and prev_rem[s] > 0
+                        and st.prefill_rem[s] == 0
+                    ):
+                        self._register_prefix(st, s)
+
+            def _retire(s):
+                alloc.release(s)
+                st.slot_prompt.pop(s, None)
+                h = st.slot_hash.pop(s, None)
+                if h is not None and st.inflight_prefix.get(h) == s:
+                    del st.inflight_prefix[h]
+
+            self._drain_chunk_outputs(
+                out_toks, out_logps, new_done, st.active,
+                st.toks_acc, st.logps_acc, st.results, st.done_host,
+                st.cache_len, gconfig.max_new_tokens, on_retire=_retire,
+                stop_seqs=gconfig.stop,
+            )
+        self.last_pool_stats.update(
+            pool_pages=st.n_pages, page_size=ps,
+            pages_recycled=alloc.pages_recycled,
+            peak_pages_used=alloc.peak_pages_used,
+            cow_copies=alloc.cow_copies,
+            shared_mappings=alloc.shared_mappings,
+            prefix_hits=alloc.prefix_hits,
+            prefix_misses=alloc.prefix_misses,
+            peak_live_slots=st.peak_live,
+            pool_bytes=alloc.pool_bytes(),
+            peak_allocated_bytes=alloc.peak_pages_used * alloc.page_bytes,
+        )
+        self._set_live_slots(0)
+
+    def _take_admits_serving(self, st: _PagedGenSession) -> int:
+        """Admission: pure host bookkeeping (the chunk does the prompt
+        forwards).  A request whose prompt hash is in the prefix cache
+        maps the cached FULL prompt pages and re-forwards only the
+        sub-page tail; a request whose hash an in-flight owner is still
+        prefilling WAITS (the owner is live, so waiting cannot deadlock).
+        Raises PagePoolExhausted via reserve() when nothing is live and
+        the head request still cannot fit."""
+        alloc, gconfig = st.alloc, st.gconfig
+        n_slots, ps, chunk_t = st.n_slots, alloc.page_size, st.chunk_t
+        slack = chunk_t
+        admitted = 0
+        for s in range(n_slots):
+            if st.active[s] is not None or not st.pending:
+                continue
+            i, rep, toks = st.pending[-1]
+            toks = np.asarray(toks, np.int32)
+            plen = len(toks)
+            # Only FULL pages are shareable, and the tail keeps >= 1 token
+            # so the follower's re-forward produces its own end-of-prompt
+            # logits: sp = (plen-1)//ps pages cover [0, sp*ps).
+            sp = (plen - 1) // ps
+            h = toks.tobytes() if (self.kv_share_prefix and sp > 0) else None
+            shared = alloc.prefix_lookup(h) if h is not None else None
+            if shared is None and h is not None and h in st.inflight_prefix:
+                break  # wait one chunk for the owner to register
+            if shared is not None:
+                need = alloc.pages_for(plen + slack) - len(shared)
+                if need > len(alloc.free):
+                    alloc.prefix_evict(need)
+                if need > len(alloc.free):
+                    break
+                alloc.share(s, shared)
+                start = sp * ps
+                alloc.reserve(s, plen + slack)
+            else:
+                if not alloc.can_reserve(s, plen + slack):
+                    alloc.prefix_evict(
+                        alloc.pages_for(plen + slack) - int(alloc.used[s])
+                    )
+                if not alloc.can_reserve(s, plen + slack):
+                    break
+                alloc.reserve(s, plen + slack)
+                start = 0
+                if h is not None:
+                    st.inflight_prefix[h] = s
+                    st.slot_hash[s] = h
+            st.pending.pop()
+            st.active[s] = (i, rep)
+            st.cache_len[s] = start
+            st.gen_count[s] = 0
+            st.done_host[s] = False
+            st.toks_acc[s] = []
+            st.logps_acc[s] = []
+            st.slot_prompt[s] = toks
+            rem = plen - start
+            st.prompt_buf[s, :] = self.pad_token_id
+            st.prompt_buf[s, :rem] = toks[start:]
+            st.prefill_rem[s] = rem
+            st.prompt_off[s] = 0
+            admitted += 1
+        if (
+            admitted == 0
+            and st.pending
+            and not any(a is not None for a in st.active)
+        ):
+            # Nothing live to retire and the head request does not fit:
+            # reserve() raises the clean capacity error.
+            free_slot = next(
+                s2 for s2 in range(n_slots) if st.active[s2] is None
+            )
+            alloc.reserve(free_slot, len(st.pending[-1][2]) + slack)
+        self._set_live_slots(sum(a is not None for a in st.active))
+        st.peak_live = max(st.peak_live, self.live_slots)
+        return admitted
+
+    def _register_prefix(self, st: _PagedGenSession, s: int) -> None:
+        """Publish owner slot `s`'s full prompt pages in the prefix cache
+        now that its prefill is complete; a no-op for followers."""
+        h = st.slot_hash.get(s)
+        if h is None:
+            return
+        alloc = st.alloc
+        sp = (len(st.slot_prompt[s]) - 1) // alloc.page_size
+        if sp > 0:
+            alloc.prefix_insert(h, alloc.table[s, :sp])
+        st.inflight_prefix.pop(h, None)
+        del st.slot_hash[s]
+
+    def _reserve_with_evict(
+        self, alloc: PageAllocator, s: int, tokens: int
+    ) -> None:
+        """reserve() that first evicts LRU prefix-cache holds when the
+        free list is short — a live slot's growth outranks cached
+        prefixes."""
+        if not alloc.can_reserve(s, tokens):
+            alloc.prefix_evict(alloc.pages_for(tokens) - int(alloc.used[s]))
+        alloc.reserve(s, tokens)
+
+    def _privatize_write_windows(self, st: _PagedGenSession) -> None:
+        """Copy-on-write safety net before every chunk: privatise any
+        SHARED page inside a live row's write window [cache_len,
+        used*page_size) and copy those pages on the device (eager
+        `copy_pages`, 16 pairs per call, sentinel-padded).  The serving
+        plane never maps a shared page at or past a write cursor, so the
+        steady state is zero pairs."""
+        alloc = st.alloc
+        pairs: List[Tuple[int, int]] = []
+        for s in range(st.n_slots):
+            if st.active[s] is None:
+                continue
+            pairs.extend(
+                alloc.ensure_writable(
+                    s, int(st.cache_len[s]), int(alloc.used[s]) * alloc.page_size
+                )
+            )
+        width = 16
+        for lo in range(0, len(pairs), width):
+            src = np.full((width,), alloc.sentinel, np.int64)
+            dst = np.full((width,), alloc.sentinel, np.int64)
+            for j, (a, b) in enumerate(pairs[lo : lo + width]):
+                src[j], dst[j] = a, b
+            tfm.copy_pages(
+                st.pool,
+                torch.from_numpy(src).to(self.device),
+                torch.from_numpy(dst).to(self.device),
+            )
+
+    def _get_serving_chunk_fn(
+        self, n_slots: int, n_pages: int, max_pages: int, chunk_t: int,
+        W: int, pbw: int, g: GenerationHyperparameters,
+    ):
+        """The serving chunk over a PACKED ragged token stream: chunk_t
+        inner steps, each ONE `decode_step_ragged_paged` forward of a
+        [T]-lane stream in which every row occupies exactly the lanes it
+        needs — a prefilling row up to W prompt tokens, a decoding row its
+        1 sampled token, a done row zero.  Dead lanes are eliminated, not
+        masked: the stream ends at `total` live lanes and the slack tail
+        carries rows >= n_slots whose attention runs no page.
+
+        Lane budget: T = min(n_slots + A, n_slots * W), A the admit-lane
+        headroom (0 = auto, 4 * W).  Every live row gets >= 1 lane; rows
+        wanting more split the spare lanes front to back.
+
+        Everything inside runs on the device: there is no host sync
+        between the inner steps.  The pool and the logits buffer are
+        updated in place.  One build per generate call (`decode_compiles`).
+        Emission is fill-indexed: a row's tokens pack from column 0 of its
+        out row whatever steps it spent prefilling (-1-terminated)."""
+        Wmax = W
+        A = self.serving_admit_lanes or 4 * Wmax
+        T = min(n_slots + A, n_slots * Wmax)
+        self.serving_lane_budget = T
+        cfg = self.cfg
+        eos = self.eos_token_id
+        dev = self.device
+        out_w = chunk_t
+
+        def fn(params, pool, logits, page_table, prompt_buf, prompt_off,
+               prefill_rem, cache_len, gen_count, done, generator):
+            out_toks = torch.full((n_slots, out_w), -1, dtype=torch.long, device=dev)
+            out_logps = torch.zeros((n_slots, out_w), dtype=torch.float32, device=dev)
+            out_fill = torch.zeros((n_slots,), dtype=torch.long, device=dev)
+            # (live lanes, slack lanes, live-but-misassigned lanes).
+            lane_acc = torch.zeros((3,), dtype=torch.long, device=dev)
+            rows = torch.arange(n_slots, device=dev)
+            lanes = torch.arange(Wmax, device=dev)
+            lane_ids = torch.arange(T, device=dev)
+            zero = torch.zeros((), dtype=torch.long, device=dev)
+            if g.min_new_tokens > 0:
+                eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+            for _ in range(chunk_t):
+                is_pref = prefill_rem > 0
+                lg = logits
+                if g.min_new_tokens > 0:
+                    lg = lg.masked_fill(
+                        (gen_count < g.min_new_tokens)[:, None] & eos_col[None, :],
+                        -1e10,
+                    )
+                tok, logp = sample_token(
+                    lg, generator,
+                    temperature=g.temperature, top_k=g.top_k, top_p=g.top_p,
+                    greedy=g.greedy,
+                )
+                emitting = (~done) & (~is_pref)
+                out_toks[rows, out_fill] = torch.where(
+                    emitting, tok, out_toks[rows, out_fill]
+                )
+                out_logps[rows, out_fill] = torch.where(
+                    emitting, logp, out_logps[rows, out_fill]
+                )
+                out_fill = out_fill + emitting.long()
+                # Per-row lane want: done rows 0, prefilling rows their
+                # next W-slice, decoding rows 1.  Everybody gets a base
+                # lane (T >= n_slots); the spare splits front to back.
+                want = torch.where(
+                    done, zero,
+                    torch.where(
+                        is_pref, torch.clamp(prefill_rem, max=W), zero + 1
+                    ),
+                )
+                base = (want > 0).long()
+                extra = want - base
+                spare = T - base.sum()
+                excl = torch.cumsum(extra, 0) - extra
+                c = base + torch.minimum(torch.clamp(spare - excl, min=0), extra)
+                c = torch.where(want > 0, c, zero)
+                # Pack: row r owns stream lanes [starts[r], starts[r]+c[r]).
+                cu = torch.cumsum(c, 0)
+                starts = cu - c
+                total = cu[-1]
+                row_of = torch.searchsorted(cu, lane_ids, right=True)
+                lane_live = lane_ids < total
+                rid = torch.clamp(row_of, max=n_slots - 1)
+                qpos = lane_ids - starts[rid]
+                badlane = lane_live & (
+                    (row_of >= n_slots) | (qpos < 0) | (qpos >= c[rid])
+                )
+                lane_acc += torch.stack([total, T - total, badlane.sum()])
+                # Per-row lane-token slab, gathered into the stream.
+                idx = torch.clamp(prompt_off[:, None] + lanes[None, :], max=pbw - 1)
+                pref_toks = torch.gather(prompt_buf, 1, idx)
+                slab = torch.where(is_pref[:, None], pref_toks, zero)
+                slab[:, 0] = torch.where(is_pref, pref_toks[:, 0], tok)
+                qv = torch.clamp(qpos, 0, Wmax - 1)
+                stream_tok = torch.where(lane_live, slab[rid, qv], zero)
+                stream_pos = torch.where(lane_live, cache_len[rid] + qv, zero)
+                logits_pk, _ = tfm.decode_step_ragged_paged(
+                    params, cfg, stream_tok, stream_pos, pool, page_table, row_of,
+                )  # [T, V]
+                # Next-step carry = each granted row's LAST lane logits;
+                # zero-lane rows keep theirs.
+                last = torch.clamp(starts + c - 1, 0, T - 1)
+                logits.copy_(torch.where((c > 0)[:, None], logits_pk[last], logits))
+                done = torch.where(is_pref, done, done | (tok == eos))
+                # Decode rows advance by their emission (a row emitting
+                # its EOS still wrote that token); done rows stay put.
+                cache_len = cache_len + c
+                gen_count = gen_count + emitting.long()
+                adv = torch.where(is_pref, c, zero)
+                prompt_off = prompt_off + adv
+                prefill_rem = prefill_rem - adv
+            return (
+                out_toks, out_logps, cache_len, gen_count, done, prefill_rem,
+                prompt_off, lane_acc,
+            )
+
+        self.decode_compiles += 1
+        return fn
+
+    # -- output assembly --
+
+    def _assemble(self, sample, prompt_key, prompt_lens, results, n):
+        return assemble_rollout(
+            sample, prompt_key, n,
+            lambda i, r: results[(i, r)],
+            prompt_lens=prompt_lens,
+        )
+
+
+def assemble_rollout(
+    sample: SequenceSample,
+    prompt_key: str,
+    n: int,
+    fetch,  # (prompt_idx, response_idx) -> (gen_tokens, gen_logprobs, no_eos)
+    prompt_lens: Optional[List[int]] = None,
+) -> SequenceSample:
+    """The rollout packing layout: per response, full = prompt + generated
+    tokens; prompt_mask covers the prompt; packed_logprobs has length
+    len(full)-1 with the generated-token logprobs at
+    [pl-1, pl-1+len(gen))."""
+    bs = sample.bs
+    prompts = np.asarray(sample.data[prompt_key])
+    bounds = sample.cu_seqlens(prompt_key)
+    if prompt_lens is None:
+        prompt_lens = [int(bounds[i + 1] - bounds[i]) for i in range(bs)]
+    seq_ids, seq_logps, seq_masks = [], [], []
+    seqlens_full: List[List[int]] = []
+    seqlens_lp: List[List[int]] = []
+    no_eos: List[List[float]] = []
+    for i in range(bs):
+        lens_i, lens_lp_i, noeos_i = [], [], []
+        ptoks = prompts[bounds[i] : bounds[i + 1]]
+        pl = prompt_lens[i]
+        for r in range(n):
+            gtoks, glogps, ne = fetch(i, r)
+            gtoks = np.asarray(gtoks, np.int32)
+            glogps = np.asarray(glogps, np.float32)
+            full = np.concatenate([ptoks, gtoks]).astype(np.int32)
+            seq_ids.append(full)
+            mask = np.zeros(len(full), bool)
+            mask[:pl] = True
+            seq_masks.append(mask)
+            lp = np.zeros(max(len(full) - 1, 0), np.float32)
+            lp[pl - 1 : pl - 1 + len(gtoks)] = glogps
+            seq_logps.append(lp)
+            lens_i.append(len(full))
+            lens_lp_i.append(max(len(full) - 1, 0))
+            noeos_i.append(1.0 if ne else 0.0)
+        seqlens_full.append(lens_i)
+        seqlens_lp.append(lens_lp_i)
+        no_eos.append(noeos_i)
+    return SequenceSample(
+        keys={
+            "packed_input_ids", "packed_logprobs", "prompt_mask",
+            "seq_no_eos_mask",
+        },
+        ids=list(sample.ids),
+        seqlens={
+            "packed_input_ids": seqlens_full,
+            "prompt_mask": [list(x) for x in seqlens_full],
+            "packed_logprobs": seqlens_lp,
+            "seq_no_eos_mask": [[1] * n for _ in range(bs)],
+        },
+        data={
+            "packed_input_ids": np.concatenate(seq_ids),
+            "prompt_mask": np.concatenate(seq_masks),
+            "packed_logprobs": np.concatenate(seq_logps)
+            if seq_logps
+            else np.zeros(0, np.float32),
+            "seq_no_eos_mask": np.asarray(
+                [x for row in no_eos for x in row], np.float32
+            ),
+        },
+    )

@@ -1,0 +1,141 @@
+"""Model architecture config (port of areal_tpu/models/config.py).
+
+Field for field the JAX package's `ModelConfig` and presets; only the
+dtype map names torch dtypes.
+"""
+
+import dataclasses
+
+import torch
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float16": torch.float16,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    n_layers: int
+    hidden_dim: int
+    n_q_heads: int
+    n_kv_heads: int
+    head_dim: int
+    intermediate_dim: int
+    vocab_size: int
+    max_position_embeddings: int = 32768
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    qkv_bias: bool = False  # qwen2-style attention bias
+    tied_embeddings: bool = False
+    is_critic: bool = False
+    param_dtype: str = "bfloat16"
+    # MoE (0 experts = dense MLP)
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    moe_intermediate_dim: int = 0
+    moe_aux_loss_coef: float = 0.001
+    moe_dispatch: str = "grouped"
+    moe_capacity_factor: float = 1.25
+    # ---- architecture family switches ----
+    hidden_act: str = "silu"  # silu | gelu | gelu_tanh
+    norm_type: str = "rms"  # rms | layernorm (layernorm adds bias params)
+    rms_norm_offset: bool = False  # gemma: scale by (1 + w)
+    embed_scale: bool = False  # gemma: embeddings scaled by sqrt(hidden)
+    pos_emb: str = "rope"  # rope | learned (gpt2 wpe)
+    mlp_gated: bool = True  # False = plain fc/act/proj (gpt2)
+    proj_bias: bool = False  # biases on attn-out + mlp matmuls (gpt2)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.param_dtype]
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_q_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+    def as_critic(self) -> "ModelConfig":
+        return dataclasses.replace(self, is_critic=True, tied_embeddings=False)
+
+
+def tiny_config(
+    vocab_size: int = 512,
+    is_critic: bool = False,
+    n_experts: int = 0,
+    param_dtype: str = "float32",
+) -> ModelConfig:
+    """4-layer/64-hidden test model."""
+    return ModelConfig(
+        n_layers=4,
+        hidden_dim=64,
+        n_q_heads=4,
+        n_kv_heads=2,
+        head_dim=16,
+        intermediate_dim=128,
+        vocab_size=vocab_size,
+        max_position_embeddings=1024,
+        qkv_bias=True,
+        is_critic=is_critic,
+        param_dtype=param_dtype,
+        n_experts=n_experts,
+        moe_intermediate_dim=64 if n_experts else 0,
+    )
+
+
+# Published architecture presets (values from the public model cards).
+def qwen2_config(size: str, param_dtype: str = "bfloat16") -> ModelConfig:
+    presets = {
+        # R1-Distill-Qwen uses the qwen2 architecture.
+        "1.5b": dict(
+            n_layers=28, hidden_dim=1536, n_q_heads=12, n_kv_heads=2,
+            head_dim=128, intermediate_dim=8960, vocab_size=151936,
+            rope_theta=10000.0, tied_embeddings=True,
+        ),
+        "7b": dict(
+            n_layers=28, hidden_dim=3584, n_q_heads=28, n_kv_heads=4,
+            head_dim=128, intermediate_dim=18944, vocab_size=152064,
+            rope_theta=10000.0,
+        ),
+        "32b": dict(
+            n_layers=64, hidden_dim=5120, n_q_heads=40, n_kv_heads=8,
+            head_dim=128, intermediate_dim=27648, vocab_size=152064,
+            rope_theta=1000000.0,
+        ),
+    }
+    return ModelConfig(
+        qkv_bias=True,
+        rms_norm_eps=1e-6,
+        max_position_embeddings=131072,
+        param_dtype=param_dtype,
+        **presets[size.lower()],
+    )
+
+
+def llama_config(size: str, param_dtype: str = "bfloat16") -> ModelConfig:
+    presets = {
+        "7b": dict(
+            n_layers=32, hidden_dim=4096, n_q_heads=32, n_kv_heads=32,
+            head_dim=128, intermediate_dim=11008, vocab_size=32000,
+        ),
+        "8b": dict(
+            n_layers=32, hidden_dim=4096, n_q_heads=32, n_kv_heads=8,
+            head_dim=128, intermediate_dim=14336, vocab_size=128256,
+            rope_theta=500000.0,
+        ),
+    }
+    return ModelConfig(
+        qkv_bias=False,
+        rms_norm_eps=1e-5,
+        max_position_embeddings=8192,
+        param_dtype=param_dtype,
+        **presets[size.lower()],
+    )

@@ -1,0 +1,362 @@
+"""The transformer's serving-path forward over a paged KV pool (port of
+the paged half of areal_tpu/models/transformer.py).
+
+- Parameters are a plain dict with per-layer tensors STACKED on a leading
+  axis under "blocks" — the JAX package's layout, so one set of weights
+  can be handed to both (`models/weights.py`).  Layers run as a Python
+  loop over that axis.
+- Dense llama/qwen2-family models (qkv bias, tied embeddings); MoE and
+  the critic head are not ported yet.
+- The KV pool is updated IN PLACE (the JAX package donates it instead).
+  It holds one trash page past its `n_pages` real pages: torch has no
+  drop-mode scatter, so every write the JAX package drops (dead lanes,
+  positions past the page table, sentinel entries) lands on the trash
+  page, which no read reaches — reads clamp sentinels to the last REAL
+  page (`ops/attention.clamp_page_table`).
+"""
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.ops.attention import ragged_paged_attention
+from areal_tpu_torch.ops.norms import apply_rotary, rms_norm, rope_cos_sin
+from areal_tpu_torch.ops.quant import kv_quant
+
+Params = Dict[str, Any]
+
+# The JAX package's out-of-range page index: writes through it drop.
+# Here it (and every index >= n_pages) is routed to the trash page.
+_DROP_PAGE = 2**30
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+
+def init_params(
+    cfg: ModelConfig, seed: int = 0, device="cpu"
+) -> Params:
+    """Random init (truncated-normal fan-in scaling), layer-stacked, made
+    on `device` from a `torch.Generator` seeded with `seed`.  The numbers
+    differ from the JAX package's `init_params` (other generator); hand
+    one set of weights to both with `models/weights.py`."""
+    if cfg.is_moe or cfg.is_critic:
+        raise NotImplementedError("MoE and critic models are not yet ported")
+    device = torch.device(device)
+    dtype = cfg.dtype
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def dense(shape, fan_in):
+        x = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (x * fan_in**-0.5).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    L, D, F_ = cfg.n_layers, cfg.hidden_dim, cfg.intermediate_dim
+    blocks = {
+        "ln1": ones(L, D),
+        "wq": dense((L, D, cfg.q_dim), D),
+        "wk": dense((L, D, cfg.kv_dim), D),
+        "wv": dense((L, D, cfg.kv_dim), D),
+        "wo": dense((L, cfg.q_dim, D), cfg.q_dim),
+        "ln2": ones(L, D),
+    }
+    if cfg.qkv_bias:
+        blocks["bq"] = zeros(L, cfg.q_dim)
+        blocks["bk"] = zeros(L, cfg.kv_dim)
+        blocks["bv"] = zeros(L, cfg.kv_dim)
+    if cfg.norm_type == "layernorm":
+        blocks["ln1_b"] = zeros(L, D)
+        blocks["ln2_b"] = zeros(L, D)
+    if cfg.proj_bias:
+        blocks["bo"] = zeros(L, D)
+        blocks["bproj"] = zeros(L, D)
+        if not cfg.mlp_gated:
+            blocks["bfc"] = zeros(L, F_)
+    blocks["wg"] = dense((L, D, F_), D)
+    if cfg.mlp_gated:
+        blocks["wu"] = dense((L, D, F_), D)
+    blocks["wd"] = dense((L, F_, D), F_)
+
+    params: Params = {
+        "embed": dense((cfg.vocab_size, D), D),
+        "blocks": blocks,
+        "final_ln": ones(D),
+    }
+    if cfg.norm_type == "layernorm":
+        params["final_ln_b"] = zeros(D)
+    if cfg.pos_emb == "learned":
+        params["pos_embed"] = dense((cfg.max_position_embeddings, D), D)
+    if not cfg.tied_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size), D)
+    return params
+
+
+# --------------------------------------------------------------------------
+# Model helpers
+# --------------------------------------------------------------------------
+
+
+def _act(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.hidden_act == "silu":
+        return F.silu(x)
+    if cfg.hidden_act == "gelu":
+        return F.gelu(x, approximate="none")
+    if cfg.hidden_act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown hidden_act {cfg.hidden_act!r}")
+
+
+def _norm(
+    x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], cfg: ModelConfig
+) -> torch.Tensor:
+    if cfg.norm_type == "rms":
+        scale = w.float() + 1.0 if cfg.rms_norm_offset else w
+        return rms_norm(x, scale, cfg.rms_norm_eps)
+    # LayerNorm (gpt2): mean-centered, with bias, fp32 accumulation.
+    dtype = x.dtype
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mean) ** 2, dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + cfg.rms_norm_eps) * w.float()
+    if b is not None:
+        out = out + b.float()
+    return out.to(dtype)
+
+
+def _embed(
+    params: Params, cfg: ModelConfig, tokens: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    # Clamp like jnp.take(mode="clip"): out-of-vocab ids (pad / eos
+    # sentinels) must embed to FINITE values — dead lanes still run the
+    # stack, and NaN there would reach the logits buffer's untouched rows.
+    emb = params["embed"]
+    x = emb[torch.clamp(tokens, 0, emb.shape[0] - 1)]
+    if cfg.embed_scale:  # gemma normalizer, computed in fp32
+        x = (x.float() * (cfg.hidden_dim**0.5)).to(x.dtype)
+    if cfg.pos_emb == "learned":
+        pe = params["pos_embed"]
+        x = x + pe[torch.clamp(positions, 0, pe.shape[0] - 1)]
+    return x
+
+
+def _mlp_dense(h: torch.Tensor, blk: Params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.mlp_gated:
+        gate = _act(h @ blk["wg"], cfg)
+        out = (gate * (h @ blk["wu"])) @ blk["wd"]
+    else:  # plain fc -> act -> proj (gpt2)
+        hmid = h @ blk["wg"]
+        if cfg.proj_bias:
+            hmid = hmid + blk["bfc"]
+        out = _act(hmid, cfg) @ blk["wd"]
+    if cfg.proj_bias:
+        out = out + blk["bproj"]
+    return out
+
+
+def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits [..., V].  The product runs in the weights' dtype (the
+    matmul accumulates in fp32) and is cast after: in bf16 the logits
+    keep bf16 resolution, where the JAX package asks XLA for an fp32
+    result of the same product."""
+    head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
+    return (x @ head).float()
+
+
+def _block_kv(
+    h: torch.Tensor, blk: Params, cfg: ModelConfig, cos: torch.Tensor, sin: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """h [..., D] -> q [..., n_q, d], k/v [..., n_kv, d] (RoPE applied)."""
+    lead = h.shape[:-1]
+    q = h @ blk["wq"]
+    k = h @ blk["wk"]
+    v = h @ blk["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + blk["bq"], k + blk["bk"], v + blk["bv"]
+    q = q.reshape(*lead, cfg.n_q_heads, cfg.head_dim)
+    k = k.reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(*lead, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.pos_emb == "rope":
+        q, k = apply_rotary(q, k, cos, sin)
+    return q, k, v
+
+
+# --------------------------------------------------------------------------
+# Paged KV cache
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-paged KV pool: k/v [L, n_pages + 1, page_size, n_kv, head_dim].
+
+    Page index `n_pages` is the UNMAPPED sentinel.  Here it is also a real
+    (trash) page of the tensors: writes through it, or through any index
+    past it, land there, and no read reaches it.  int8 mode: int8 k/v +
+    bf16 per-(layer, page, slot, head) scales, the quantizer of
+    `ops/quant.py`."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None  # [L, n_pages + 1, ps, n_kv] bf16
+    v_scale: Optional[torch.Tensor] = None
+    page_size: int = 128
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def nbytes(self) -> int:
+        return sum(
+            a.numel() * a.element_size()
+            for a in (self.k, self.v, self.k_scale, self.v_scale)
+            if a is not None
+        )
+
+
+def init_paged_kv_cache(
+    cfg: ModelConfig, n_pages: int, page_size: int, dtype=None, device="cpu"
+) -> PagedKVCache:
+    shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    if dtype in (torch.int8, "int8"):
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            page_size=page_size,
+        )
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        page_size=page_size,
+    )
+
+
+def _page_of(page_table: torch.Tensor, pos: torch.Tensor, page_size: int):
+    """Per-row (page, offset) write coordinates for flat positions `pos`
+    [B] through `page_table` [B, max_pages].  Positions past the table
+    width get `_DROP_PAGE` (the JAX package's drop index), never the
+    clipped last entry."""
+    col = torch.div(pos, page_size, rounding_mode="floor")
+    mp = page_table.shape[1]
+    pages = torch.gather(
+        page_table.long(), 1, torch.clamp(col, 0, mp - 1)[:, None]
+    )[:, 0]
+    pages = torch.where(col >= mp, torch.full_like(pages, _DROP_PAGE), pages)
+    return pages, pos - col * page_size
+
+
+def _cache_update_read(
+    cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor, li: int, idx
+):
+    """Write this layer's new K/V entries [T, n_kv, d] at (page, offset)
+    `idx` in place (quantizing when the pool is int8; indices past the
+    real pages go to the trash page), and return the layer's RAW pool
+    views over the real pages plus its scales (None unless int8)."""
+    page, off = idx
+    page = torch.clamp(page, max=cache.n_pages)
+    n = cache.n_pages
+    if cache.quantized:
+        kq, ks = kv_quant(k)
+        vq, vs = kv_quant(v)
+        cache.k[li].index_put_((page, off), kq)
+        cache.v[li].index_put_((page, off), vq)
+        cache.k_scale[li].index_put_((page, off), ks)
+        cache.v_scale[li].index_put_((page, off), vs)
+        return (
+            cache.k[li, :n], cache.v[li, :n],
+            cache.k_scale[li, :n], cache.v_scale[li, :n],
+        )
+    cache.k[li].index_put_((page, off), k.to(cache.k.dtype))
+    cache.v[li].index_put_((page, off), v.to(cache.v.dtype))
+    return cache.k[li, :n], cache.v[li, :n], None, None
+
+
+def decode_step_ragged_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [T] int — PACKED token stream
+    positions: torch.Tensor,  # [T] int — flat cache position (== RoPE pos)
+    cache: PagedKVCache,
+    page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
+    row_of: torch.Tensor,  # [T] int — owning slot per token; >= B = dead lane
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One forward of a packed [T] stream of query lanes with per-token
+    windows.  Token t writes its K/V at flat position `positions[t]` of
+    slot `row_of[t]` and attends [0, positions[t]] through that slot's
+    page-table row (`ragged_paged_attention`).  Dead lanes (row_of >= B)
+    write only to the trash page, get zero attention, and produce
+    logits the caller never reads.  Returns (fp32 logits [T, V], cache)
+    — the cache is the same object, updated in place."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    t = tokens.shape[0]
+    b = page_table.shape[0]
+    live = row_of < b
+    rid = torch.clamp(row_of.long(), max=b - 1)
+    pt_tok = page_table[rid]  # [T, max_pages]
+    positions = torch.where(live, positions, torch.zeros_like(positions)).long()
+    x = _embed(params, cfg, tokens.long(), positions)  # [T, D]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    wp_page, wp_off = _page_of(pt_tok, positions, cache.page_size)
+    # Dead lanes must not write a real page.
+    wp_page = torch.where(live, wp_page, torch.full_like(wp_page, _DROP_PAGE))
+    # The attention kernel takes int32 tables and windows.
+    pt_attn = pt_tok.to(torch.int32).contiguous()
+    valid_to = torch.where(
+        live, positions + 1, torch.zeros_like(positions)
+    ).to(torch.int32)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [T, h, d]
+        k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
+            cache, k, v, li, (wp_page, wp_off)
+        )
+        attn = ragged_paged_attention(
+            q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to,
+            k_scale=ks_l, v_scale=vs_l,
+        )
+        ao = attn.reshape(t, cfg.q_dim) @ blk["wo"]
+        if cfg.proj_bias:
+            ao = ao + blk["bo"]
+        x = x + ao
+        h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
+        x = x + _mlp_dense(h2, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x), cache
+
+
+def copy_pages(
+    cache: PagedKVCache,
+    src_pages: torch.Tensor,  # [N] int pool page ids (sentinel = padding)
+    dst_pages: torch.Tensor,  # [N] int pool page ids (sentinel = padding)
+) -> PagedKVCache:
+    """Copy whole KV pages src -> dst inside the pool, in place (all
+    layers, one gather + scatter per tensor) — the device half of
+    copy-on-write.  Padding pairs use the sentinel: their gather clamps
+    to a real page and their scatter lands on the trash page."""
+    n = cache.n_pages
+    src = torch.clamp(src_pages.long(), max=n - 1)
+    dst = torch.clamp(dst_pages.long(), max=n)
+    for a in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if a is not None:
+            a[:, dst] = a[:, src]
+    return cache

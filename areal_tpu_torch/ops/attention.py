@@ -1,0 +1,106 @@
+"""Paged decode attention (port of the paged half of
+areal_tpu/ops/attention.py).
+
+`ragged_paged_attention` is the dispatcher: a tensor on the CPU takes the
+plain PyTorch formulation, a CUDA tensor launches the hand-written
+kernel (`areal_tpu_torch/kernels/ragged_paged_attention.py`) or raises.
+There is no opt-in switch: on the card the kernel always runs.
+"""
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -2.3819763e38  # close to bf16 min, the JAX package's mask value
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, 1, n_q, d] — one new token per row
+    k_cache: torch.Tensor,  # [B, S_max, n_kv, d]
+    v_cache: torch.Tensor,  # [B, S_max, n_kv, d]
+    valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
+    valid_to: torch.Tensor,  # [B] int — one past the last valid slot
+    k_scale: Optional[torch.Tensor] = None,  # [B, S_max, n_kv]: int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-token GQA decode attention, plain formulation: query heads
+    grouped per KV head, operands in q's dtype with fp32 products and
+    accumulation, window [valid_from, valid_to).  Rows with an empty
+    window give exact zeros."""
+    if k_scale is not None:
+        from areal_tpu_torch.ops.quant import kv_dequant
+
+        k_cache = kv_dequant(k_cache, k_scale, q.dtype)
+        v_cache = kv_dequant(v_cache, v_scale, q.dtype)
+    b, _, n_q, d = q.shape
+    n_kv = k_cache.shape[2]
+    n_rep = n_q // n_kv
+    qh = q[:, 0].reshape(b, n_kv, n_rep, d)
+    scale = d**-0.5
+    logits = (
+        torch.einsum(
+            "bgrd,bsgd->bgrs", qh.float(), k_cache.to(q.dtype).float()
+        )
+        * scale
+    )  # [B, n_kv, n_rep, S] fp32
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    valid = (idx[None, :] >= valid_from[:, None]) & (
+        idx[None, :] < valid_to.expand(b)[:, None]
+    )  # [B, S]
+    logits = torch.where(
+        valid[:, None, None, :], logits, torch.full_like(logits, NEG_INF)
+    )
+    probs = torch.softmax(logits, dim=-1)
+    # Fully-masked rows (empty live window) softmax into a uniform
+    # distribution over garbage; zero them, matching the kernel.
+    probs = torch.where(
+        valid.any(dim=-1)[:, None, None, None], probs, torch.zeros_like(probs)
+    )
+    out = torch.einsum(
+        "bgrs,bsgd->bgrd", probs.to(v_cache.dtype).float(), v_cache.float()
+    )
+    return out.reshape(b, 1, n_q, d).to(q.dtype)
+
+
+def clamp_page_table(page_table: torch.Tensor, n_pool: int) -> torch.Tensor:
+    """The one sentinel rule for paged reads, shared by the kernel and the
+    plain gather: unmapped entries (>= n_pool) clamp to the LAST pool
+    page so every dereference is legal; the window mask removes what
+    they address (pages are mapped contiguously from position 0)."""
+    return torch.clamp(page_table.long(), max=n_pool - 1)
+
+
+def paged_gather_layer(
+    pool_layer: torch.Tensor,  # [P, ps, ...] one layer's pool view
+    page_table: torch.Tensor,  # [B, max_pages] int (sentinel >= P)
+) -> torch.Tensor:
+    """Gather a row-major dense window [B, max_pages*ps, ...] from the
+    pool through the page table (sentinels clamped, see
+    `clamp_page_table`)."""
+    pt = clamp_page_table(page_table, pool_layer.shape[0])
+    g = pool_layer[pt]  # [B, mp, ps, ...]
+    b, mp, ps = g.shape[:3]
+    return g.reshape(b, mp * ps, *pool_layer.shape[2:])
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,  # [T, n_q, d] — packed token stream
+    k_pool: torch.Tensor,  # [P, ps, n_kv, d] — one layer's pool view
+    v_pool: torch.Tensor,
+    page_table_tok: torch.Tensor,  # [T, max_pages] int — PER-TOKEN tables
+    valid_to: torch.Tensor,  # [T] int — one past each token's window; 0 = dead
+    k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16: int8 pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Ragged paged attention over a PACKED token stream: token t attends
+    its own window [0, valid_to[t]) through its own page-table row; dead
+    lanes (valid_to == 0) give exact zeros.  Returns [T, n_q, d] in
+    q.dtype.  CPU tensors take the plain version, CUDA tensors the
+    hand-written kernel."""
+    from areal_tpu_torch.kernels.ragged_paged_attention import (
+        ragged_paged_attention_kernel,
+    )
+
+    return ragged_paged_attention_kernel(
+        q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale
+    )

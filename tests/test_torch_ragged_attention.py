@@ -1,0 +1,119 @@
+"""The port's ragged paged attention on CPU tensors (its plain version)
+against the JAX package's Pallas kernel `ragged_paged_attention_kernel`
+(run in interpret mode, as tests/test_paged_kv.py runs it) and its XLA
+gather fallback, on the same mixed stream: fp32 at 2e-5, dead lanes
+exactly 0, sentinel pages add no mass, int8 pools at 3e-5.  On the CPU
+the dispatcher never launches the CUDA kernel."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from areal_tpu.ops.attention import ragged_paged_attention as jax_fallback
+from areal_tpu.ops.pallas.paged_attention import ragged_paged_attention_kernel as jax_kernel
+from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+from areal_tpu_torch.ops.attention import ragged_paged_attention
+
+torch.set_num_threads(2)
+
+N_POOL, PS, N_KV, D, REP = 10, 8, 2, 16, 3
+
+
+def _stream(rng):
+    """4 rows: decode (1 lane), prefill slice (4 lanes), spec-style
+    verify (3 lanes), dead row (0 lanes) + 4 slack lanes -> T = 12; the
+    tables carry sentinels (N_POOL) past each row's pages."""
+    k = rng.standard_normal((N_POOL, PS, N_KV, D)).astype(np.float32)
+    v = rng.standard_normal((N_POOL, PS, N_KV, D)).astype(np.float32)
+    pt = np.full((4, 3), N_POOL, np.int32)
+    pt[0] = (0, 1, 2)
+    pt[1, :2] = (3, 4)
+    pt[2, 0] = 5
+    pt[3] = (6, 7, 8)
+    row_of = np.array([0, 1, 1, 1, 1, 2, 2, 2, 4, 4, 4, 4], np.int32)
+    pos = np.array([19, 9, 10, 11, 12, 2, 3, 4, 0, 0, 0, 0], np.int32)
+    live = row_of < 4
+    pt_tok = np.take(pt, np.minimum(row_of, 3), axis=0)
+    vt = np.where(live, pos + 1, 0).astype(np.int32)
+    q = rng.standard_normal((12, N_KV * REP, D)).astype(np.float32)
+    return q, k, v, pt_tok, vt
+
+
+def _port(q, k, v, pt, vt, ks=None, vs=None):
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    return ragged_paged_attention(
+        t(q), t(k), t(v), t(pt), t(vt),
+        None if ks is None else t(ks).to(torch.bfloat16),
+        None if vs is None else t(vs).to(torch.bfloat16),
+    ).numpy()
+
+
+@pytest.fixture
+def stream(rng):
+    return _stream(rng)
+
+
+def test_fp32_matches_jax_kernel_and_fallback(stream):
+    q, k, v, pt, vt = stream
+    args = [jnp.asarray(a) for a in (q, k, v, pt, vt)]
+    out = _port(q, k, v, pt, vt)
+    np.testing.assert_allclose(out, np.asarray(jax_kernel(*args)), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(jax_fallback(*args)), atol=2e-5, rtol=2e-5)
+
+
+def test_dead_lanes_exact_zero(stream):
+    out = _port(*stream)
+    assert float(np.abs(out[8:]).max()) == 0.0
+    assert np.all(np.abs(out[:8]).max(axis=(1, 2)) > 0)  # live lanes are not
+
+
+def test_sentinel_pages_add_no_mass(stream):
+    q, k, v, pt, vt = stream
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[N_POOL - 1] = 1e9
+    v_bad[N_POOL - 1] = 1e9
+    np.testing.assert_array_equal(_port(q, k, v, pt, vt), _port(q, k_bad, v_bad, pt, vt))
+
+
+def test_int8_pool_matches_jax(stream):
+    q, _, _, pt, vt = stream
+    r = np.random.default_rng(3)
+    k8 = r.integers(-127, 128, (N_POOL, PS, N_KV, D)).astype(np.int8)
+    v8 = r.integers(-127, 128, (N_POOL, PS, N_KV, D)).astype(np.int8)
+    ks = (np.abs(r.standard_normal((N_POOL, PS, N_KV))) + 0.1).astype(np.float32)
+    vs = (np.abs(r.standard_normal((N_POOL, PS, N_KV))) + 0.1).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (q, k8, v8, pt, vt)] + [
+        jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16),
+    ]
+    out = _port(q, k8, v8, pt, vt, ks, vs)
+    np.testing.assert_allclose(out, np.asarray(jax_kernel(*jargs)), atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(out, np.asarray(jax_fallback(*jargs)), atol=3e-5, rtol=3e-5)
+
+
+def test_cpu_dispatch_never_launches(stream):
+    before = rpa.LAUNCHES
+    _port(*stream)
+    q, k, v, pt, vt = (torch.from_numpy(np.array(a)) for a in stream)
+    rpa.ragged_paged_attention_kernel(q, k, v, pt, vt)
+    assert rpa.LAUNCHES == before
+
+
+def test_no_fallback_off_the_cpu(stream):
+    """A tensor that is neither on the CPU nor on a CUDA card raises: the
+    wrapper takes the plain version only for CPU tensors."""
+    q, k, v, pt, vt = (torch.from_numpy(np.array(a)).to("meta") for a in stream)
+    with pytest.raises(ValueError, match="device"):
+        rpa.ragged_paged_attention_kernel(q, k, v, pt, vt)
+
+
+def test_window_past_the_table_is_bounded_by_it(stream):
+    """A window longer than max_pages * page_size sees only the pages its
+    table addresses, as in the JAX kernel's grid and gather fallback."""
+    q, k, v, pt, vt = stream
+    vt = vt.copy()
+    vt[0] = 100  # 3 pages of 8 positions in the table
+    args = [jnp.asarray(a) for a in (q, k, v, pt, vt)]
+    out = _port(q, k, v, pt, vt)
+    np.testing.assert_allclose(out, np.asarray(jax_kernel(*args)), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(jax_fallback(*args)), atol=2e-5, rtol=2e-5)
