@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the areal_tpu serving path.
+"""PyTorch/CUDA port of areal_tpu.
 
 A second package beside `areal_tpu` (the JAX reference, unchanged): same
 module layout and function names, so each function here has its
@@ -6,10 +6,18 @@ counterpart at the same path in `areal_tpu`.  The port imports `torch`
 and nothing of JAX or of `areal_tpu`; entry points run on the CUDA card
 unless the caller passes ``device="cpu"``.
 
-Slice 1 covers the serving path:
+Slice 1, the serving path:
 
     system/gen_server.py  GenerationServer (POST /generate, GET /health)
     engines/generator.py  GeneratorEngine.generate -> the serving plane
     models/transformer.py decode_step_ragged_paged over a paged KV pool
     ops/attention.py      ragged_paged_attention -> kernels/ (CUDA, sm_90a)
+
+Slice 2, the GRPO train step:
+
+    interfaces/ppo.py     PPOActorInterface.generate / inference / train_step
+    interfaces/reward.py  MultiTaskRewardInterface (in-process math grading)
+    engines/train.py      TrainEngine.train_batch / forward (AdamW, guard)
+    models/transformer.py hidden_states / per_token_output over packed rows
+    ops/attention.py      packed_attention -> kernels/flash_attention.py
 """

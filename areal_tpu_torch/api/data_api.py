@@ -1,13 +1,16 @@
 """Packed sequence batches (port of the parts of areal_tpu/api/data_api.py
-that generation uses: `MicroBatchSpec` and `SequenceSample`'s
-construction, lengths, selection and `unpack`).  Host data stays numpy;
-the engines move it to the device."""
+that generation and the train step use: `MicroBatchSpec` and
+`SequenceSample`'s construction, lengths, selection, key merging,
+gathering and splitting).  Host data stays numpy; the engines move it to
+the device.  One device: there are no data-plane shards."""
 
 import dataclasses
 import itertools
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+
+from areal_tpu_torch.base import datapack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +119,96 @@ class SequenceSample:
 
     def unpack(self) -> List["SequenceSample"]:
         return [self.select_idx([i]) for i in range(self.bs)]
+
+    @classmethod
+    def gather(cls, samples: Sequence["SequenceSample"]) -> "SequenceSample":
+        """Concatenate samples with the same keys (inverse of split)."""
+        samples = list(samples)
+        if not samples:
+            raise ValueError("cannot gather zero samples")
+        keys = samples[0].keys
+        for s in samples[1:]:
+            if s.keys != keys:
+                raise ValueError(f"key mismatch in gather: {s.keys} vs {keys}")
+        data = None
+        if samples[0].data is not None:
+            data = {}
+            for k in keys:
+                vals = [s.data[k] for s in samples]
+                data[k] = (
+                    None if any(v is None for v in vals)
+                    else np.concatenate([np.asarray(v) for v in vals], axis=0)
+                )
+        dtypes: Dict[str, Optional[np.dtype]] = {}
+        trailing: Dict[str, Optional[Tuple[int, ...]]] = {}
+        for s in samples:
+            for k, v in s.dtypes.items():
+                if v is not None:
+                    dtypes.setdefault(k, v)
+            for k, v in s.trailing_shapes.items():
+                if v is not None:
+                    trailing.setdefault(k, v)
+        return cls(
+            keys=keys,
+            ids=_flat2d([s.ids for s in samples]),
+            seqlens={k: _flat2d([s.seqlens[k] for s in samples]) for k in keys},
+            data=data,
+            metadata={
+                k: _flat2d([s.metadata.get(k, []) for s in samples])
+                for k in samples[0].metadata
+            },
+            dtypes=dtypes,
+            trailing_shapes=trailing,
+        )
+
+    def main_key(self) -> str:
+        """The key with the largest total length (ties broken
+        lexicographically): it carries the token accounting of splits."""
+        return max(sorted(self.keys), key=self.total_len)
+
+    def select_keys(self, keys: Sequence[str]) -> "SequenceSample":
+        keys = set(keys)
+        missing = keys - self.keys
+        if missing:
+            raise KeyError(f"keys not in sample: {missing}")
+        return SequenceSample(
+            keys=keys,
+            ids=list(self.ids),
+            seqlens={k: self.seqlens[k] for k in keys},
+            data=None if self.data is None else {k: self.data[k] for k in keys},
+            metadata={k: list(v) for k, v in self.metadata.items()},
+            dtypes={k: self.dtypes.get(k) for k in keys},
+            trailing_shapes={k: self.trailing_shapes.get(k) for k in keys},
+        )
+
+    def update_(self, other: "SequenceSample") -> None:
+        """Merge keys from `other` (same ids, same order) into self."""
+        if other.ids != self.ids:
+            raise ValueError("update_ requires identical ids in identical order")
+        self.keys |= other.keys
+        self.seqlens.update(other.seqlens)
+        if other.data is not None:
+            if self.data is None:
+                self.data = {}
+            self.data.update(other.data)
+        self.metadata.update(other.metadata)
+        self.dtypes.update(other.dtypes)
+        self.trailing_shapes.update(other.trailing_shapes)
+
+    def split_groups(self, mb_spec: MicroBatchSpec) -> List[List[int]]:
+        """Index groups for micro-batching: FFD under max_tokens_per_mb,
+        at least n_mbs groups."""
+        lens = [sum(self.seqlens[self.main_key()][i]) for i in range(self.bs)]
+        cap = mb_spec.max_tokens_per_mb or (sum(lens) + 1)
+        return datapack.ffd_allocate(lens, capacity=cap, min_groups=mb_spec.n_mbs)
+
+    def split(self, mb_spec: MicroBatchSpec) -> List["SequenceSample"]:
+        return [self.select_idx(g) for g in self.split_groups(mb_spec) if g]
+
+    def split_balanced(self, k: int) -> List["SequenceSample"]:
+        """Exactly k token-balanced, non-empty parts (bs >= k)."""
+        if self.bs < k:
+            raise ValueError(f"cannot split bs={self.bs} into {k} parts")
+        key = self.main_key()
+        lens = [sum(self.seqlens[key][i]) for i in range(self.bs)]
+        return [self.select_idx(g) for g in datapack.partition_balanced(lens, k)]

@@ -25,22 +25,11 @@ import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import GenerationHyperparameters
+from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines.paging import PageAllocator
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops.sampling import sample_token
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; a CUDA device without a card raises.
-    Only an explicit "cpu" runs on the host."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless the caller "
-            "passes device='cpu'"
-        )
-    return device
 
 
 def _find_stop_end(toks, scan_from: int, stop_seqs) -> Optional[int]:

@@ -1,5 +1,6 @@
-"""The transformer's serving-path forward over a paged KV pool (port of
-the paged half of areal_tpu/models/transformer.py).
+"""The transformer (port of areal_tpu/models/transformer.py): the
+packed-row forward that training and inference run, and the serving
+forward over a paged KV pool.
 
 - Parameters are a plain dict with per-layer tensors STACKED on a leading
   axis under "blocks" — the JAX package's layout, so one set of weights
@@ -7,6 +8,12 @@ the paged half of areal_tpu/models/transformer.py).
   loop over that axis.
 - Dense llama/qwen2-family models (qkv bias, tied embeddings); MoE and
   the critic head are not ported yet.
+- Packed rows: [B, S] tokens with segment ids (0 = padding) run through
+  `packed_attention` (the flash kernels on the card).  Remat "full"
+  checkpoints each layer (`torch.utils.checkpoint`, non-reentrant);
+  "dots" and "dots_small" are not ported yet.
+- The LM head gives fp32 logits of the product in the weights' dtype
+  (`ops/functional.matmul_fp32_out`), as the JAX package asks XLA for.
 - The KV pool is updated IN PLACE (the JAX package donates it instead).
   It holds one trash page past its `n_pages` real pages: torch has no
   drop-mode scatter, so every write the JAX package drops (dead lanes,
@@ -20,9 +27,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
-from areal_tpu_torch.ops.attention import ragged_paged_attention
+from areal_tpu_torch.ops.attention import packed_attention, ragged_paged_attention
+from areal_tpu_torch.ops.functional import fused_next_token_logprobs, matmul_fp32_out
 from areal_tpu_torch.ops.norms import apply_rotary, rms_norm, rope_cos_sin
 from areal_tpu_torch.ops.quant import kv_quant
 
@@ -39,15 +49,16 @@ _DROP_PAGE = 2**30
 
 
 def init_params(
-    cfg: ModelConfig, seed: int = 0, device="cpu"
+    cfg: ModelConfig, seed: int = 0, device=None
 ) -> Params:
     """Random init (truncated-normal fan-in scaling), layer-stacked, made
-    on `device` from a `torch.Generator` seeded with `seed`.  The numbers
-    differ from the JAX package's `init_params` (other generator); hand
-    one set of weights to both with `models/weights.py`."""
+    on `device` (the CUDA card unless told otherwise) from a
+    `torch.Generator` seeded with `seed`.  The numbers differ from the
+    JAX package's `init_params` (other generator); hand one set of
+    weights to both with `models/weights.py`."""
     if cfg.is_moe or cfg.is_critic:
         raise NotImplementedError("MoE and critic models are not yet ported")
-    device = torch.device(device)
+    device = resolve_device(device)
     dtype = cfg.dtype
     gen = torch.Generator(device=device).manual_seed(int(seed))
 
@@ -164,13 +175,15 @@ def _mlp_dense(h: torch.Tensor, blk: Params, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
+def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """[D, V] LM-head matrix (transposed embedding when tied)."""
+    return params["embed"].T if cfg.tied_embeddings else params["lm_head"]
+
+
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits [..., V].  The product runs in the weights' dtype (the
-    matmul accumulates in fp32) and is cast after: in bf16 the logits
-    keep bf16 resolution, where the JAX package asks XLA for an fp32
-    result of the same product."""
-    head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
-    return (x @ head).float()
+    """fp32 logits [..., V]: an fp32 result of the product in the
+    weights' dtype, as the JAX package's `preferred_element_type`."""
+    return matmul_fp32_out(x, head_weights(params, cfg))
 
 
 def _block_kv(
@@ -189,6 +202,129 @@ def _block_kv(
     if cfg.pos_emb == "rope":
         q, k = apply_rotary(q, k, cos, sin)
     return q, k, v
+
+
+# --------------------------------------------------------------------------
+# Packed rows: the training and inference forward
+# --------------------------------------------------------------------------
+
+
+def positions_from_segments(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Within-segment positions for packed rows [B, S]: segments are
+    contiguous runs, and the position resets to 0 at each boundary."""
+    s = segment_ids.shape[-1]
+    idx = torch.arange(s, device=segment_ids.device).expand_as(segment_ids)
+    prev = F.pad(segment_ids[..., :-1], (1, 0), value=-1)
+    start_idx = torch.where(segment_ids != prev, idx, torch.zeros_like(idx))
+    return idx - torch.cummax(start_idx, dim=-1).values
+
+
+def _block_forward(
+    x: torch.Tensor,  # [B, S, D]
+    blk: Params,
+    cfg: ModelConfig,
+    segment_ids: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+    q, k, v = _block_kv(h, blk, cfg, cos, sin)
+    attn = packed_attention(q, k, v, segment_ids, causal=True)
+    attn_out = attn.reshape(b, s, cfg.q_dim) @ blk["wo"]
+    if cfg.proj_bias:
+        attn_out = attn_out + blk["bo"]
+    x = x + attn_out
+    h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
+    return x + _mlp_dense(h2, blk, cfg)
+
+
+def _remat_layers(remat) -> bool:
+    """Whether each layer is checkpointed: "full"/True saves nothing and
+    recomputes the layer in backward; "none"/False/None keeps autograd's
+    residuals."""
+    if remat is True or remat == "full":
+        return True
+    if remat in ("dots", "dots_small"):
+        raise NotImplementedError(f"remat policy {remat!r} is not yet ported")
+    if remat not in (False, None, "none"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    return False
+
+
+def _backbone(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    segment_ids: torch.Tensor,
+    positions: torch.Tensor,
+    remat=False,
+) -> torch.Tensor:
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    ckpt = _remat_layers(remat) and torch.is_grad_enabled()
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.long(), positions)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    # unbind, not w[li]: its backward stacks the L layer gradients once,
+    # where L index backwards would each add a full [L, ...] gradient.
+    layers = {name: w.unbind(0) for name, w in params["blocks"].items()}
+    for li in range(cfg.n_layers):
+        blk = {name: ws[li] for name, ws in layers.items()}
+        if ckpt:
+            x = checkpoint(
+                _block_forward, x, blk, cfg, segment_ids, cos, sin,
+                use_reentrant=False,
+            )
+        else:
+            x = _block_forward(x, blk, cfg, segment_ids, cos, sin)
+    return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+
+
+def hidden_states(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    segment_ids: torch.Tensor,  # [B, S] int, 0 = pad
+    positions: Optional[torch.Tensor] = None,
+    remat=False,
+) -> torch.Tensor:
+    """Backbone only: final-normed hidden states [B, S, D], without the
+    LM head (the JAX function also returns the MoE aux loss; the port has
+    no MoE yet)."""
+    if positions is None:
+        positions = positions_from_segments(segment_ids)
+    return _backbone(params, cfg, tokens, segment_ids, positions, remat)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    segment_ids: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    remat=False,
+) -> torch.Tensor:
+    """Full forward over packed rows -> fp32 logits [B, S, V]."""
+    x = hidden_states(params, cfg, tokens, segment_ids, positions, remat)
+    return _head(params, cfg, x)
+
+
+def per_token_output(
+    params: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, S, D] from hidden_states()
+    tokens: torch.Tensor,
+    segment_ids: torch.Tensor,
+    chunk_size: int = 512,
+) -> torch.Tensor:
+    """The engine-facing per-token output [B, S] fp32: fused chunked
+    next-token logprobs, never [B, S, V] logits."""
+    if cfg.is_critic:
+        raise NotImplementedError("the critic value head is not yet ported")
+    return fused_next_token_logprobs(
+        x, head_weights(params, cfg), tokens, segment_ids, chunk_size
+    )
 
 
 # --------------------------------------------------------------------------

@@ -12,10 +12,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from areal_tpu_torch.base.device import resolve_device
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu", dtype=None) -> Dict[str, Any]:
+
+def params_from_numpy(tree: Dict[str, Any], device=None, dtype=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> the same dict of torch tensors on
-    `device`; floating leaves are cast to `dtype` when given."""
+    `device` (the CUDA card unless told otherwise); floating leaves are
+    cast to `dtype` when given."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     x = torch.from_numpy(np.array(tree)).to(device)  # a private copy

@@ -1,10 +1,15 @@
-"""Paged decode attention (port of the paged half of
-areal_tpu/ops/attention.py).
+"""Packed and paged attention (port of areal_tpu/ops/attention.py).
 
-`ragged_paged_attention` is the dispatcher: a tensor on the CPU takes the
+Two dispatchers, each of the same kind: a tensor on the CPU takes the
 plain PyTorch formulation, a CUDA tensor launches the hand-written
-kernel (`areal_tpu_torch/kernels/ragged_paged_attention.py`) or raises.
-There is no opt-in switch: on the card the kernel always runs.
+kernels or raises.  There is no opt-in switch and no fallback: on the
+card the kernels always run.
+
+- `packed_attention`: causal-within-segment attention over packed rows
+  [B, S] (the training and inference forward) -> the flash kernels
+  (`areal_tpu_torch/kernels/flash_attention.py`).
+- `ragged_paged_attention`: the serving stream over a paged KV pool ->
+  `areal_tpu_torch/kernels/ragged_paged_attention.py`.
 """
 
 from typing import Optional
@@ -12,6 +17,63 @@ from typing import Optional
 import torch
 
 NEG_INF = -2.3819763e38  # close to bf16 min, the JAX package's mask value
+
+
+def make_packed_mask(segment_ids: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """[B, S] segment ids -> [B, 1, S, S] boolean mask (True = attend)."""
+    seg_q = segment_ids[:, :, None]
+    seg_k = segment_ids[:, None, :]
+    mask = (seg_q == seg_k) & (seg_q > 0)
+    if causal:
+        idx = torch.arange(segment_ids.shape[-1], device=segment_ids.device)
+        mask = mask & (idx[:, None] >= idx[None, :])
+    return mask[:, None, :, :]
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """[B, S, n_kv, d] -> [B, S, n_kv*n_rep, d] (GQA head expansion)."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def packed_attention_reference(
+    q: torch.Tensor,  # [B, S, n_q, d]
+    k: torch.Tensor,  # [B, S, n_kv, d]
+    v: torch.Tensor,  # [B, S, n_kv, d]
+    segment_ids: torch.Tensor,  # [B, S] int, 0 = pad
+    causal: bool = True,
+) -> torch.Tensor:
+    """The plain version: dense masked softmax in fp32; padding rows give
+    exact zeros.  Returns [B, S, n_q, d] in q's dtype."""
+    n_q, n_kv = q.shape[2], k.shape[2]
+    k = repeat_kv(k, n_q // n_kv)
+    v = repeat_kv(v, n_q // n_kv)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = make_packed_mask(segment_ids, causal=causal)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1)
+    # Fully-masked (padding) rows produce uniform probs; zero them out.
+    probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def packed_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    segment_ids: torch.Tensor,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Attention over packed rows: CPU tensors take the plain version, CUDA
+    tensors the flash kernels (forward K1f; backward K1dq + K1dkv).  A
+    failed build or launch raises."""
+    from areal_tpu_torch.kernels.flash_attention import flash_attention
+
+    return flash_attention(q, k, v, segment_ids, causal=causal)
 
 
 def decode_attention(

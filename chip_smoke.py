@@ -1,35 +1,56 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (`areal_tpu_torch`) once on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--phases build,kernel,serve,parity]
+    python3 chip_smoke.py [--seed 0] [--phases build,kernel,flash,...]
 
-Phases (all by default; any failed check exits non-zero and prints no
-result):
+Phases (all by default, in this order; any failed check exits non-zero
+and prints no result):
 
-1. build   — build every CUDA kernel from the sources in this checkout
-             (nvcc, sm_90a) and print the card's name and power limit.
-2. kernel  — the ragged paged attention kernel against its plain PyTorch
-             version on the card, at qwen2-1.5B's attention shape over a
-             96-lane serving stream (fp32, bf16, int8 pools; dead lanes
-             exactly 0; a poisoned last pool page changes nothing), and
-             its time beside the plain version, one library call and the
-             card's bound.
-3. serve   — the serving path at full qwen2-1.5B size (28 layers, bf16,
-             random weights from --seed): GenerationServer over
-             GeneratorEngine answers 16 concurrent /generate requests
-             (n=4 groups, 128 new tokens); replies and engine counters are
-             checked, and the kernel's launch count must equal 28 x the
-             inner steps the engine ran.
-4. parity  — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
-             engine on the card (the kernel) against the engine on the CPU
-             (the plain path).
+build        — build every CUDA kernel from the sources in this checkout
+               (nvcc, sm_90a, one process per source, all at once) and
+               print the card's name and power limit.
+kernel       — the ragged paged attention kernel (K2) against its plain
+               PyTorch version at qwen2-1.5B's attention shape over a
+               96-lane serving stream (fp32, bf16, int8 pools; dead lanes
+               exactly 0; a poisoned last pool page changes nothing), and
+               its time beside the plain version, one library call and the
+               card's bound.
+flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
+               backward) against the plain version and its autograd at
+               qwen2-1.5B's attention shape over rows of S=2048 packed with
+               segments of 64-640 tokens and one all-padding row, fp32 and
+               bf16 (padding outputs and grads exactly 0), and their times
+               beside the plain version, SDPA with the packed mask and the
+               card's bound.
+serve        — the serving path at full qwen2-1.5B size (28 layers, bf16,
+               random weights from --seed): GenerationServer over
+               GeneratorEngine answers 16 concurrent /generate requests
+               (n=4 groups, 128 new tokens); replies and engine counters
+               are checked, and K2's launch count must equal 28 x the
+               inner steps the engine ran.
+train        — two GRPO steps at full qwen2-1.5B (fp32 masters, bf16
+               compute, remat "full"): PPOActorInterface.generate (K2) ->
+               MultiTaskRewardInterface -> PPOActorInterface.train_step
+               (K1f, K1dq, K1dkv), 8 prompts x n=4, 128 new tokens, the
+               generator taking the trained weights after step 1; the
+               importance ratio and approx-KL, grad_norm and the K1 launch
+               counts are checked, and one train_step is profiled.
+parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
+               engine on the card (K2) against the engine on the CPU (the
+               plain path).
+train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32: the
+               card (K1) against the CPU (plain path): loss, grad_norm and
+               the weights after the step.
 
-The line before the last is one JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.  Needs one CUDA card; imports no JAX.
+`python3 chip_smoke.py --phases build,flash` is the quick call after
+editing a kernel.  The line before the last is one JSON object
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
+CUDA card; imports no JAX.
 """
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -40,7 +61,7 @@ import time
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "serve", "parity")
+PHASES = ("build", "kernel", "flash", "serve", "train", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -267,6 +288,158 @@ def phase_kernel(report, seed):
 
 
 # --------------------------------------------------------------------------
+# Phase: flash attention forward and backward against the plain version
+# --------------------------------------------------------------------------
+
+
+def _packed_rows(rng, b, s, lo=64, hi=640):
+    """Segment ids [b, s]: rows 0..b-2 filled with segments of lo..hi
+    tokens (a row's tail that cannot take a segment of lo stays padding),
+    row b-1 all padding.  Returns (seg, per-segment lengths)."""
+    import numpy as np
+
+    seg = np.zeros((b, s), np.int32)
+    lens = []
+    for r in range(b - 1):
+        off, sid = 0, 1
+        while s - off >= lo:
+            n = min(int(rng.integers(lo, hi + 1)), s - off)
+            seg[r, off : off + n] = sid
+            lens.append(n)
+            off += n
+            sid += 1
+    return seg, lens
+
+
+def _flash_bounds(lens, b, s, hq, hkv, d, elem):
+    """Least times for K1f, K1dq, K1dkv at these segment lengths: the
+    causal-within-segment flops (fwd 4d, dq 6d, dkv 8d per attended pair
+    and q head) at the bf16 tensor rate, against every input read once
+    and every output written once at the HBM rate."""
+    pairs = sum(n * (n + 1) // 2 for n in lens)
+    q_b = b * s * hq * d * elem
+    kv_b = b * s * hkv * d * elem
+    row_b = b * s * hq * 4  # lse or delta
+    seg_b = b * s * 4
+    work = {
+        "fwd": (4 * d * hq * pairs, q_b + 2 * kv_b + seg_b + q_b + row_b),
+        "dq": (6 * d * hq * pairs, 2 * q_b + 2 * kv_b + 2 * row_b + seg_b + q_b),
+        "dkv": (8 * d * hq * pairs, 2 * q_b + 2 * kv_b + 2 * row_b + seg_b + 2 * kv_b),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        ops_ms = flops / BF16_FLOPS * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def phase_flash(report, seed):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.ops.attention import make_packed_mask, packed_attention_reference
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    b, s, hq, hkv, d = 4, 2048, 12, 2, 128
+    seg_np, lens = _packed_rows(rng, b, s)
+    seg = torch.from_numpy(seg_np).to(dev)
+    pad = seg == 0
+    base = {
+        name: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        for name, shape in (
+            ("q", (b, s, hq, d)), ("k", (b, s, hkv, d)), ("v", (b, s, hkv, d)),
+            ("do", (b, s, hq, d)),
+        )
+    }
+    # Tolerances, relative to the largest |plain| value of each output:
+    # fp32 differs only by summation order; bf16 rounds each output once
+    # more (one ulp is 2**-8 of its magnitude).
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    errs = {}
+    for dtype, tol in tols.items():
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        q, k, v = (base[n].to(dtype).requires_grad_(True) for n in ("q", "k", "v"))
+        do = base["do"].to(dtype)
+        fa.reset_launches()
+        o = fa.flash_attention(q, k, v, seg)
+        dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+        torch.cuda.synchronize()
+        check(fa.LAUNCHES == {"fwd": 1, "dq": 1, "dkv": 1},
+              f"{tag}: launches {fa.LAUNCHES}")
+        qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        o_ref = packed_attention_reference(qr, kr, vr, seg)
+        dq_r, dk_r, dv_r = torch.autograd.grad(o_ref, (qr, kr, vr), do)
+        for name, got, want in (
+            ("o", o, o_ref), ("dq", dq, dq_r), ("dk", dk, dk_r), ("dv", dv, dv_r),
+        ):
+            check(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite")
+            err = float((got.float() - want.float()).abs().max())
+            scale = max(1.0, float(want.float().abs().max()))
+            errs[f"{tag}_{name}"] = err
+            log(f"[flash] {tag} {name}: max_abs_err={err:.3e} (tolerance "
+                f"{tol:g} x {scale:.2f})")
+            check(err <= tol * scale, f"{tag} {name} disagrees with the plain version")
+            check(float(got.float()[pad].abs().max()) == 0.0,
+                  f"{tag} {name}: padding positions are not exactly 0")
+        del o_ref, dq_r, dk_r, dv_r
+
+    # Times at the main path's dtype (bf16).
+    q, k, v, do = (base[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
+    seg32 = seg.to(torch.int32).contiguous()
+    o, lse = fa.flash_fwd(q, k, v, seg32, True)
+    delta = fa.flash_delta(o, do)
+    ms = {
+        "fwd": time_cuda(lambda: fa.flash_fwd(q, k, v, seg32, True)),
+        "dq": time_cuda(lambda: fa.flash_dq(q, k, v, seg32, do, lse, delta, True)),
+        "dkv": time_cuda(lambda: fa.flash_dkv(q, k, v, seg32, do, lse, delta, True)),
+    }
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    o_ref = packed_attention_reference(qr, kr, vr, seg)
+    plain_ms = {
+        "fwd": time_cuda(lambda: packed_attention_reference(q, k, v, seg), iters=10),
+        "dq": time_cuda(lambda: torch.autograd.grad(o_ref, (qr,), do, retain_graph=True),
+                        iters=10),
+        "dkv": time_cuda(
+            lambda: torch.autograd.grad(o_ref, (kr, vr), do, retain_graph=True), iters=10
+        ),
+    }
+    del o_ref
+    # Library yardstick: SDPA with the packed boolean mask (GQA native);
+    # its backward yields dq, dk and dv together.
+    mask = make_packed_mask(seg)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    lib_fwd = time_cuda(sdpa, iters=10)
+    o_lib = sdpa()
+    lib_bwd = time_cuda(
+        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dos, retain_graph=True), iters=10
+    )
+    del o_lib
+    bounds = _flash_bounds(lens, b, s, hq, hkv, d, 2)
+    for name in ("fwd", "dq", "dkv"):
+        log(f"[flash] bf16 {name}: kernel_ms={ms[name]:.4f} plain_ms={plain_ms[name]:.4f} "
+            f"bound_ms={bounds[name][0]:.5f} ({bounds[name][1]})")
+    log(f"[flash] SDPA (packed mask, yardstick): fwd {lib_fwd:.4f} ms, bwd (dq+dk+dv) "
+        f"{lib_bwd:.4f} ms, fwd+bwd {lib_fwd + lib_bwd:.4f} ms; {len(lens)} segments, "
+        f"{sum(lens)} real of {b * s} positions")
+    report["flash"] = dict(
+        max_abs_err=errs, ms=ms, plain_ms=plain_ms, bounds=bounds,
+        library_ms={"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd},
+        segments=len(lens), real_tokens=sum(lens),
+    )
+
+
+# --------------------------------------------------------------------------
 # Phase 3: the serving path at full size
 # --------------------------------------------------------------------------
 
@@ -397,7 +570,12 @@ def phase_serve(report, seed):
     )
     out["profile"] = _profile_generate(engine, cfg, rng)
     report["serve"] = out
-    del engine, params
+    # The recording wrapper closes a reference cycle through the engine:
+    # drop it and collect now, or the weights stay allocated through the
+    # later phases (and in their peak-memory readings).
+    del engine.generate
+    del engine, params, server
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -505,6 +683,341 @@ def phase_parity(seed):
     check(lp_err <= 1e-3, f"logprobs differ by {lp_err} > 1e-3")
 
 
+# --------------------------------------------------------------------------
+# Phase: the GRPO train step at full size
+# --------------------------------------------------------------------------
+
+# Bounds on the first-minibatch importance ratio and approx-KL of a step
+# whose behaviour logprobs come from the generator (bf16 weights, K2 over
+# a bf16 pool) and whose recompute runs the trainer (bf16 casts of the
+# same weights, K1f): two bf16 paths through one model differ by bf16
+# rounding only.
+IMP_WEIGHT_TOL = 2e-2
+APPROX_KL_TOL = 2e-2
+
+
+def _train_prompts(rng, cfg, n_prompts):
+    import numpy as np
+
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    lens = [int(rng.integers(64, 513)) for _ in range(n_prompts)]
+    data = rng.integers(0, cfg.vocab_size, sum(lens)).astype(np.int32)
+    ids = [f"q{i}" for i in range(n_prompts)]
+    return SequenceSample(
+        keys={"packed_prompts"}, ids=ids,
+        seqlens={"packed_prompts": [[l] for l in lens]},
+        data={"packed_prompts": data},
+    ), {i: {"task": "math", "solutions": [r"\boxed{7}"]} for i in ids}
+
+
+def _profile_train_step(actor_if, actor, rollout, mb):
+    """Device time by kernel over one train_step under torch.profiler:
+    the card's idle share of its wall time and the K1 kernels' share of
+    the busy time."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        actor_if.train_step(actor, rollout, mb)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels.append((us, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy_s = sum(k[0] for k in kernels) / 1e6
+    flash_s = sum(k[0] for k in kernels if "flash_" in k[2]) / 1e6
+    top = [
+        dict(name=name[:90], ms=us / 1e3, calls=n, share=us / 1e6 / max(busy_s, 1e-12))
+        for us, n, name in kernels[:8]
+    ]
+    log(f"[profile] 1 train_step: wall {wall:.3f} s, device busy {busy_s:.3f} s, "
+        f"idle share {1 - busy_s / wall:.3f}, K1 share of busy "
+        f"{flash_s / max(busy_s, 1e-12):.3f} (profiler on)")
+    for k in top:
+        log(f"[profile]   {k['share']:.3f} {k['ms']:10.2f} ms {k['calls']:7d}x {k['name']}")
+    return dict(wall_s=wall, busy_s=busy_s, idle_share=1 - busy_s / wall,
+                k1_share=flash_s / max(busy_s, 1e-12), top_kernels=top)
+
+
+def phase_train(report, seed):
+    """Two GRPO steps of the port at full qwen2-1.5B: generate (K2) ->
+    reward -> train_step (K1f forward and remat recompute, K1dq/K1dkv
+    backward), the generator taking the trained weights in between."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import (
+        FinetuneSpec, GenerationHyperparameters, Model, OptimizerConfig,
+    )
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.ppo import PPOActorInterface
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = qwen2_config("1.5b")
+    n_prompts, n, max_new = 8, 4, 128
+    t0 = time.monotonic()
+    params = init_params(cfg, seed + 2, device="cuda")
+    train = TrainEngine(
+        cfg, params,
+        optimizer_config=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
+        ftspec=FinetuneSpec(1, 64, n_prompts), remat_policy="full",
+    )
+    gen = GeneratorEngine(cfg, params, eos_token_id=151643)
+    del params
+    torch.cuda.synchronize()
+    check(train.device.type == "cuda" and gen.device.type == "cuda",
+          "the engines are not on the card")
+    log(f"[train] qwen2-1.5b random init, TrainEngine (fp32 masters, bf16 compute, "
+        f"remat full) + GeneratorEngine: {time.monotonic() - t0:.1f} s")
+    tok = CharTokenizer(vocab_size=cfg.vocab_size)
+    actor = Model("actor", train, tok, cfg)
+    gen_model = Model("actor_gen", gen, tok, cfg)
+    actor_if = PPOActorInterface(
+        gconfig=GenerationHyperparameters(n=n, max_new_tokens=max_new, temperature=1.0),
+        n_minibatches=1, disable_value=True, adv_norm=True, kl_ctl=0.0,
+    )
+    mb = MicroBatchSpec()
+    rng = np.random.default_rng(seed + 3)
+    steps = []
+    for step in range(2):
+        prompts, id2info = _train_prompts(rng, cfg, n_prompts)
+        rw_if = MultiTaskRewardInterface(id2info=id2info)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t_gen = time.monotonic()
+        rpa.LAUNCHES = 0
+        rollout = actor_if.generate(gen_model, prompts, mb)
+        torch.cuda.synchronize()
+        t_rw = time.monotonic()
+        k2 = rpa.LAUNCHES
+        rollout.update_(rw_if.inference(actor, rollout, mb))
+        graded = rollout.data["rewards"].copy()
+        # A random model solves nothing: replace the graded scores with
+        # seeded +-5 so the GRPO advantages are non-zero.
+        rollout.data["rewards"] = rng.choice([-5.0, 5.0], size=graded.shape).astype(np.float32)
+        t_train = time.monotonic()
+        fa.reset_launches()
+        stats = actor_if.train_step(actor, rollout, mb)
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        launches = dict(fa.LAUNCHES)
+        chunks = train.last_pack_stats["n_micro_batches"]
+        real = train.last_pack_stats["real_tokens"]
+        grid = train.last_pack_stats["grid_tokens"]
+        iw, akl, gn = stats["importance_weight"], stats["approx_kl"], stats["grad_norm"]
+        rec = dict(
+            step=step + 1, generate_s=t_rw - t_gen, reward_s=t_train - t_rw,
+            train_s=t_end - t_train, k2_launches=k2, launches=launches,
+            micro_batches=chunks, real_tokens=real, grid_tokens=grid,
+            train_tokens_per_s=real / (t_end - t_train),
+            generated_tokens=int((~rollout.data["prompt_mask"].astype(bool)).sum()),
+            graded_correct=int((graded > 0).sum()), importance_weight=iw,
+            approx_kl=akl, grad_norm=gn, loss=stats["loss"],
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        )
+        steps.append(rec)
+        log(f"[train] step {step + 1}: generate {rec['generate_s']:.2f} s "
+            f"({rec['generated_tokens']} tokens, K2 launches {k2}), reward "
+            f"{rec['reward_s']:.3f} s ({rec['graded_correct']}/{graded.size} graded "
+            f"correct; rewards replaced by seeded +-5), train_step "
+            f"{rec['train_s']:.2f} s = {rec['train_tokens_per_s']:.0f} tok/s "
+            f"({real} real of {grid} grid tokens, {chunks} micro-batch); "
+            f"importance_weight={iw:.6f} approx_kl={akl:.3e} grad_norm={gn:.4f} "
+            f"loss={stats['loss']:.4e}; K1 launches {launches}; peak mem "
+            f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB")
+        check(k2 > 0, "generate never launched K2")
+        check(math.isfinite(gn) and gn > 0, f"grad_norm {gn} is not finite and > 0")
+        check(stats["quarantined"] == 0.0, "the step was quarantined")
+        check(abs(iw - 1.0) < IMP_WEIGHT_TOL,
+              f"|importance_weight - 1| = {abs(iw - 1.0)} >= {IMP_WEIGHT_TOL}")
+        check(abs(akl) < APPROX_KL_TOL, f"|approx_kl| = {abs(akl)} >= {APPROX_KL_TOL}")
+        want = {"fwd": cfg.n_layers * 2 * chunks, "dq": cfg.n_layers * chunks,
+                "dkv": cfg.n_layers * chunks}
+        check(launches == want, f"K1 launches {launches} != {want}")
+        if step == 0:
+            # The recompute path: PPOActorInterface.inference ->
+            # TrainEngine.forward (K1f only, no backward) on this rollout.
+            fa.reset_launches()
+            t_inf = time.monotonic()
+            inf = actor_if.inference(actor, rollout, mb)
+            torch.cuda.synchronize()
+            rec["inference_s"] = time.monotonic() - t_inf
+            rec["inference_launches"] = dict(fa.LAUNCHES)
+            lp = inf.data["logprobs"]
+            check(lp.shape == rollout.data["packed_input_ids"].shape
+                  and bool(np.isfinite(lp).all()), "inference logprobs malformed")
+            check(fa.LAUNCHES["fwd"] > 0 and fa.LAUNCHES["dq"] == 0,
+                  f"inference launches {fa.LAUNCHES}")
+            log(f"[train] inference (TrainEngine.forward): {rec['inference_s']:.2f} s, "
+                f"K1 launches {rec['inference_launches']}")
+            gen.set_params(train.get_params())
+    total = {"fwd": 0, "dq": 0, "dkv": 0}
+    for rec in steps:
+        for k in total:
+            total[k] += rec["launches"][k]
+    prof = _profile_train_step(actor_if, actor, rollout, mb)
+    report["train"] = dict(steps=steps, launches=total, profile=prof)
+    del train, gen, actor, gen_model
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity(seed):
+    """One train_batch at qwen2-1.5B width, 2 layers, fp32: the card (K1
+    kernels, cuBLAS) against the CPU (plain versions), same weights and
+    batch, same PPO loss."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.ppo import _mask_count, _ppo_actor_loss_factory
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
+    params = init_params(cfg, seed + 4, device="cpu")
+    rng = np.random.default_rng(seed + 5)
+    lens = [100, 300, 150, 200]
+    total = sum(lens)
+    pmask = np.concatenate([np.arange(l) < l // 3 for l in lens])
+    lmask = np.concatenate([(np.arange(l) >= l // 3 - 1) & (np.arange(l) < l - 1) for l in lens])
+    arrays = dict(
+        packed_input_ids=rng.integers(0, cfg.vocab_size, total).astype(np.int32),
+        prompt_mask=pmask,
+        old_logp=(-12.0 + 0.5 * rng.standard_normal(total)).astype(np.float32),
+        advantages=rng.standard_normal(total).astype(np.float32),
+        loss_mask=lmask.astype(np.float32),
+    )
+    sample = SequenceSample(
+        keys=set(arrays), ids=[f"s{i}" for i in range(len(lens))],
+        seqlens={k: [[l] for l in lens] for k in arrays}, data=arrays,
+    )
+    lr = 1e-5
+    out, after = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = TrainEngine(
+            cfg, params, dev, compute_dtype=torch.float32,
+            optimizer_config=OptimizerConfig(lr=lr, warmup_steps_proportion=0.0),
+            ftspec=FinetuneSpec(1, 8, 8), remat_policy="full",
+        )
+        fa.reset_launches()
+        t0 = time.monotonic()
+        out[dev] = eng.train_batch(
+            sample, MicroBatchSpec(), _ppo_actor_loss_factory(0.2), _mask_count,
+            extra_keys=("old_logp", "advantages", "loss_mask"),
+        )
+        secs = time.monotonic() - t0
+        if dev == "cuda":
+            check(fa.LAUNCHES == {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
+                                  "dkv": cfg.n_layers}, f"card launches {fa.LAUNCHES}")
+        after[dev] = {k: v.detach().cpu() for k, v in _flat_params(eng.get_params())}
+        log(f"[train_parity] {dev}: loss={out[dev]['loss']:.8e} "
+            f"grad_norm={out[dev]['grad_norm']:.8e} ({secs:.1f} s)")
+        del eng
+    before = dict(_flat_params(params))
+    rel = {
+        k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+        for k in ("loss", "grad_norm")
+    }
+    # Adam's first step moves each weight by about lr * sign(g) (plus
+    # decay): compare the two devices' moves.  A gradient element near 0
+    # (|g| ~ eps) may move by a different fraction of lr on each side, so
+    # the bound is on the share of weights whose moves differ by more
+    # than lr / 10, and on the largest difference (2 lr: opposite signs).
+    n_all = n_off = 0
+    worst = 0.0
+    for k, p0 in before.items():
+        d = (after["cuda"][k] - p0) - (after["cpu"][k] - p0)
+        worst = max(worst, float(d.abs().max()))
+        n_off += int((d.abs() > lr / 10).sum())
+        n_all += d.numel()
+    frac = n_off / n_all
+    log(f"[train_parity] 2 layers fp32: loss rel diff {rel['loss']:.2e}, grad_norm "
+        f"rel diff {rel['grad_norm']:.2e} (bound 1e-4); weight moves differing by "
+        f"> lr/10: {n_off} of {n_all} ({frac:.2e}, bound 1e-3); largest "
+        f"{worst:.3e} (bound {2 * lr:g})")
+    check(rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4,
+          f"loss/grad_norm differ card vs CPU: {rel}")
+    check(frac <= 1e-3 and worst <= 2 * lr * (1 + 1e-3),
+          "params after the step differ card vs CPU")
+
+
+def _flat_params(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_params(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _kernels_line(report):
+    k = report.get("kernel", {})
+    s = report.get("serve", {})
+    kernels = [{
+        "name": "ragged_paged_attention",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/ragged_paged_attention.cu",
+        "replaces": "areal_tpu/ops/pallas/paged_attention.py:276",
+        "launches": s.get("launches"),
+        "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
+        "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
+        "max_abs_err_int8": k.get("max_abs_err", {}).get("int8"),
+        "ms": k.get("kernel_ms"),
+        "kernel_ms": k.get("kernel_ms"),
+        "plain_ms": k.get("plain_ms"),
+        "bound_ms": k.get("bound_ms"),
+        "bound_by": k.get("bound_by"),
+        "library_ms": k.get("library_ms"),
+    }]
+    f = report.get("flash", {})
+    launches = report.get("train", {}).get("launches", {})
+    outputs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for name, line in (("fwd", 170), ("dq", 355), ("dkv", 380)):
+        errs = f.get("max_abs_err", {})
+        bound = f.get("bounds", {}).get(name, (None, None))
+        kernels.append({
+            "name": f"flash_attention_{name}",
+            "route": "cuda",
+            "source": "areal_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"areal_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": launches.get(name),
+            "max_abs_err": max(
+                (errs[f"bf16_{o}"] for o in outputs[name] if f"bf16_{o}" in errs),
+                default=None,
+            ),
+            "max_abs_err_fp32": max(
+                (errs[f"fp32_{o}"] for o in outputs[name] if f"fp32_{o}" in errs),
+                default=None,
+            ),
+            "ms": f.get("ms", {}).get(name),
+            "plain_ms": f.get("plain_ms", {}).get(name),
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": f.get("library_ms", {}).get(name),
+        })
+    return kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -525,36 +1038,23 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     t_start = time.monotonic()
-    report = {}  # the kernel and serve phases' numbers for the kernels line
+    report = {}  # each phase's numbers for the kernels line
     if "build" in phases:
         phase_build()
     if "kernel" in phases:
         phase_kernel(report, args.seed)
+    if "flash" in phases:
+        phase_flash(report, args.seed)
     if "serve" in phases:
         phase_serve(report, args.seed)
+    if "train" in phases:
+        phase_train(report, args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
+    if "train_parity" in phases:
+        phase_train_parity(args.seed)
     log(f"[done] {time.monotonic() - t_start:.1f} s")
-
-    k = report.get("kernel", {})
-    s = report.get("serve", {})
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "areal_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "areal_tpu/ops/pallas/paged_attention.py:276",
-        "launches": s.get("launches"),
-        "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
-        "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
-        "max_abs_err_int8": k.get("max_abs_err", {}).get("int8"),
-        "ms": k.get("kernel_ms"),
-        "kernel_ms": k.get("kernel_ms"),
-        "plain_ms": k.get("plain_ms"),
-        "bound_ms": k.get("bound_ms"),
-        "bound_by": k.get("bound_by"),
-        "library_ms": k.get("library_ms"),
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": _kernels_line(report)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

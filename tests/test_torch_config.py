@@ -64,7 +64,7 @@ def test_init_params_layout_matches(variant):
     cfg_j = dataclasses.replace(jcfg.tiny_config(), **variant)
     cfg_t = dataclasses.replace(tcfg.tiny_config(), **variant)
     pj = _leaves(jtfm.init_params(cfg_j, jax.random.PRNGKey(0)))
-    pt = _leaves(ttfm.init_params(cfg_t, seed=0))
+    pt = _leaves(ttfm.init_params(cfg_t, seed=0, device="cpu"))
     assert pj.keys() == pt.keys()
     for k in pj:
         assert tuple(pj[k].shape) == tuple(pt[k].shape), k
@@ -73,7 +73,7 @@ def test_init_params_layout_matches(variant):
 
 def test_init_params_seeded():
     cfg = tcfg.tiny_config()
-    a, b, c = (ttfm.init_params(cfg, seed=s) for s in (3, 3, 4))
+    a, b, c = (ttfm.init_params(cfg, seed=s, device="cpu") for s in (3, 3, 4))
     assert torch.equal(a["blocks"]["wq"], b["blocks"]["wq"])
     assert not torch.equal(a["blocks"]["wq"], c["blocks"]["wq"])
     # Truncated normal at fan-in scale, like the JAX package.
@@ -84,13 +84,13 @@ def test_init_params_seeded():
 def test_params_numpy_roundtrip_exact():
     cfg = jcfg.tiny_config()
     pj = jax.tree.map(np.asarray, jtfm.init_params(cfg, jax.random.PRNGKey(5)))
-    pt = params_from_numpy(pj)
+    pt = params_from_numpy(pj, device="cpu")
     back = params_to_numpy(pt)
     lj, lb = _leaves(pj), _leaves(back)
     assert lj.keys() == lb.keys()
     for k in lj:
         np.testing.assert_array_equal(lj[k], lb[k])
     # bf16 leaves widen to float32 and come back exactly.
-    pb = params_from_numpy(pj, dtype=torch.bfloat16)
-    again = params_from_numpy(params_to_numpy(pb), dtype=torch.bfloat16)
+    pb = params_from_numpy(pj, device="cpu", dtype=torch.bfloat16)
+    again = params_from_numpy(params_to_numpy(pb), device="cpu", dtype=torch.bfloat16)
     assert torch.equal(pb["embed"], again["embed"])

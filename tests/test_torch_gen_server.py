@@ -37,7 +37,7 @@ def params():
 @pytest.fixture(scope="module")
 def engine(params):
     return GeneratorEngine(
-        tiny_config(), params_from_numpy(jax.tree.map(np.asarray, params)),
+        tiny_config(), params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
         "cpu", eos_token_id=EOS,
     )
 
@@ -139,7 +139,7 @@ def test_concurrent_burst_lands_in_one_engine_call(params):
     listen backlog must hold the whole burst inside the batcher's
     linger window."""
     eng = GeneratorEngine(
-        tiny_config(), params_from_numpy(jax.tree.map(np.asarray, params)),
+        tiny_config(), params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
         "cpu", eos_token_id=EOS,
     )
     sizes = []

@@ -38,7 +38,7 @@ COUNTERS = (
 @pytest.fixture(scope="module")
 def weights():
     pj = jtfm.init_params(jtiny(), jax.random.PRNGKey(11))
-    return pj, params_from_numpy(jax.tree.map(np.asarray, pj))
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,7 @@ N_PAGES, PS, MP = 12, 8, 4
 @pytest.fixture(scope="module")
 def weights():
     pj = jtfm.init_params(jtiny(), jax.random.PRNGKey(11))
-    return pj, params_from_numpy(jax.tree.map(np.asarray, pj))
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
 
 
 def _pools(rng, int8):
@@ -180,3 +180,131 @@ def test_mlp_and_norm_variants(weights, rng, act):
         got = ttfm._norm(torch.from_numpy(h), torch.from_numpy(w), torch.from_numpy(b),
                          dataclasses.replace(ct, norm_type=norm))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# The packed-row forward (training and inference) against the JAX package
+# --------------------------------------------------------------------------
+
+
+def _packed_batch(rng, cfg, b=2, s=32):
+    """tests/test_model.py's batch: row 0 holds segments of 10 and 15
+    tokens then padding, row 1 one full segment."""
+    tokens = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    seg = np.zeros((b, s), dtype=np.int32)
+    seg[0, :10] = 1
+    seg[0, 10:25] = 2
+    seg[1, :] = 1
+    return tokens, seg
+
+
+def _fwd(params, tokens, seg, **kw):
+    return ttfm.forward(
+        params, ttiny(), torch.from_numpy(tokens), torch.from_numpy(seg), **kw
+    ).detach().numpy()
+
+
+def test_positions_from_segments_matches_jax():
+    seg = np.asarray([[1, 1, 1, 2, 2, 0, 0], [3, 3, 3, 3, 3, 3, 3]], np.int32)
+    got = ttfm.positions_from_segments(torch.from_numpy(seg)).numpy()
+    np.testing.assert_array_equal(got, [[0, 1, 2, 0, 1, 0, 1], [0, 1, 2, 3, 4, 5, 6]])
+    np.testing.assert_array_equal(
+        got, np.asarray(jtfm.positions_from_segments(jnp.asarray(seg)))
+    )
+
+
+def test_forward_matches_jax(weights, rng):
+    """fp32 logits [B, S, V] over packed rows: atol 1e-5 (the same
+    formulation; attention through each package's plain version)."""
+    pj, pt_ = weights
+    tokens, seg = _packed_batch(rng, ttiny(), s=128)
+    want = jtfm.forward(pj, jtiny(), jnp.asarray(tokens), jnp.asarray(seg))
+    got = _fwd(pt_, tokens, seg)
+    assert got.dtype == np.float32 and got.shape == (2, 128, ttiny().vocab_size)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_per_token_output_matches_jax(weights, rng):
+    """Fused next-token logprobs from the hidden states: atol 1e-5."""
+    pj, pt_ = weights
+    tokens, seg = _packed_batch(rng, ttiny())
+    tj, sj = jnp.asarray(tokens), jnp.asarray(seg)
+    xj, _ = jtfm.hidden_states(pj, jtiny(), tj, sj)
+    want = jtfm.per_token_output(pj, jtiny(), xj, tj, sj, chunk_size=16)
+    tt, st = torch.from_numpy(tokens), torch.from_numpy(seg)
+    with torch.no_grad():
+        xt = ttfm.hidden_states(pt_, ttiny(), tt, st)
+        got = ttfm.per_token_output(pt_, ttiny(), xt, tt, st, chunk_size=16)
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+class TestPackedForward:
+    """Twins of tests/test_model.py TestForward :48-84 and :230."""
+
+    def test_segment_isolation(self, weights, rng):
+        _, pt_ = weights
+        tokens, seg = _packed_batch(rng, ttiny())
+        l1 = _fwd(pt_, tokens, seg)
+        tokens2 = tokens.copy()
+        tokens2[0, :10] = (tokens[0, :10] + 7) % ttiny().vocab_size
+        l2 = _fwd(pt_, tokens2, seg)
+        np.testing.assert_allclose(l1[0, 10:25], l2[0, 10:25], rtol=1e-5, atol=1e-5)
+        assert not np.allclose(l1[0, :10], l2[0, :10])
+
+    def test_causality(self, weights, rng):
+        _, pt_ = weights
+        tokens, seg = _packed_batch(rng, ttiny())
+        l1 = _fwd(pt_, tokens, seg)
+        tokens2 = tokens.copy()
+        tokens2[1, 20] = (tokens[1, 20] + 3) % ttiny().vocab_size
+        l2 = _fwd(pt_, tokens2, seg)
+        np.testing.assert_allclose(l1[1, :20], l2[1, :20], rtol=1e-5, atol=1e-5)
+
+    def test_remat_matches(self, weights, rng):
+        """Remat "full" (per-layer checkpoint) gives the same logits and
+        the same parameter gradients as no remat."""
+        _, pt_ = weights
+        tokens, seg = _packed_batch(rng, ttiny())
+        tt, st = torch.from_numpy(tokens), torch.from_numpy(seg)
+        outs, grads = [], []
+        for remat in (False, "full"):
+            p = {k: v.clone().requires_grad_(True) for k, v in pt_["blocks"].items()}
+            params = {**pt_, "blocks": p}
+            x = ttfm.hidden_states(params, ttiny(), tt, st, remat=remat)
+            lp = ttfm.per_token_output(params, ttiny(), x, tt, st)
+            lp.sum().backward()
+            outs.append(lp.detach().numpy())
+            grads.append({k: v.grad.numpy() for k, v in p.items()})
+        np.testing.assert_allclose(outs[0], outs[1], rtol=1e-6)
+        for k in grads[0]:
+            np.testing.assert_allclose(grads[0][k], grads[1][k], rtol=1e-5, atol=1e-7,
+                                       err_msg=k)
+
+    @pytest.mark.parametrize("remat", ["dots", "dots_small", "bogus"])
+    def test_unported_remat_raises(self, weights, rng, remat):
+        _, pt_ = weights
+        tokens, seg = _packed_batch(rng, ttiny())
+        err = ValueError if remat == "bogus" else NotImplementedError
+        with pytest.raises(err):
+            _fwd(pt_, tokens, seg, remat=remat)
+
+
+def test_head_bf16_gives_fp32_product(rng):
+    """bf16 operands at qwen2-1.5B's width (D=1536, |logit| <= ~4.7): the
+    logits are an fp32 result of the bf16 product, as the JAX package's
+    `preferred_element_type=jnp.float32` gives — not the product rounded
+    to bf16 (about 1.2e-2 off at these magnitudes).  atol 1e-4."""
+    d, v = 1536, 512
+    x = rng.normal(size=(2, 8, d)).astype(np.float32)
+    emb = (rng.normal(size=(v, d)) / np.sqrt(d)).astype(np.float32)
+    cj = dataclasses.replace(jtiny(), hidden_dim=d)
+    ct = dataclasses.replace(ttiny(), hidden_dim=d)
+    pj = {"embed": jnp.asarray(emb, jnp.bfloat16), "lm_head": jnp.asarray(emb.T, jnp.bfloat16)}
+    pt_ = {"embed": torch.from_numpy(emb).to(torch.bfloat16),
+           "lm_head": torch.from_numpy(emb.T.copy()).to(torch.bfloat16)}
+    want = np.asarray(jtfm._head(pj, cj, jnp.asarray(x, jnp.bfloat16)))
+    got = ttfm._head(pt_, ct, torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    assert np.abs(want).max() > 2.0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
