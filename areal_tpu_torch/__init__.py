@@ -19,5 +19,5 @@ Slice 2, the GRPO train step:
     interfaces/reward.py  MultiTaskRewardInterface (in-process math grading)
     engines/train.py      TrainEngine.train_batch / forward (AdamW, guard)
     models/transformer.py hidden_states / per_token_output over packed rows
-    ops/attention.py      packed_attention -> kernels/flash_attention.py
+    kernels/flash_attention.py flash_attention (CUDA, sm_90a; CPU: plain version)
 """

@@ -14,12 +14,12 @@ import numpy as np
 from areal_tpu_torch.api.data_api import SequenceSample
 from areal_tpu_torch.base import datapack
 
-_BUCKET_QUANTUM = 128
+_LARGE_STEP = 1024
 
 
-def bucket_len(n: int, quantum: int = _BUCKET_QUANTUM, large_step: int = 0) -> int:
+def bucket_len(n: int) -> int:
     """Round a row length up: 128, then powers of two up to 1024, then
-    multiples of `large_step` (default quantum * 8 = 1024)."""
+    multiples of 1024."""
     n = max(n, 1)
     if n <= 128:
         return 128
@@ -28,17 +28,7 @@ def bucket_len(n: int, quantum: int = _BUCKET_QUANTUM, large_step: int = 0) -> i
         while p < n:
             p *= 2
         return p
-    step = large_step or quantum * 8
-    return ((n + step - 1) // step) * step
-
-
-def split_sharded(
-    sample: SequenceSample, mb_spec
-) -> List[Tuple[SequenceSample, Optional[List[List[int]]]]]:
-    """Micro-batch split.  On one device there are no data-plane shards,
-    so this is `sample.split(mb_spec)` with no shard blocks (the JAX
-    function's signature, kept for its callers)."""
-    return [(mb, None) for mb in sample.split(mb_spec)]
+    return -(-n // _LARGE_STEP) * _LARGE_STEP
 
 
 @dataclasses.dataclass
@@ -64,13 +54,11 @@ def pack_sample(
     sample: SequenceSample,
     token_key: str,
     extra_keys: Sequence[str] = (),
-    n_rows_multiple: int = 1,
     max_tokens_per_row: Optional[int] = None,
-    row_len: Optional[int] = None,
 ) -> RowPack:
-    """Pack every sequence of `sample[token_key]` into dense rows.  The
-    extra keys must be token-aligned with token_key; the row count is
-    padded with empty rows to a multiple of `n_rows_multiple`."""
+    """Pack every sequence of `sample[token_key]` into dense rows of at
+    least `max_tokens_per_row` capacity (the longest sequence if more).
+    The extra keys must be token-aligned with token_key."""
     lens = sample.seqlens_of(token_key)
     for k in extra_keys:
         if sample.seqlens_of(k) != lens:
@@ -79,12 +67,8 @@ def pack_sample(
             )
     cap = max(max_tokens_per_row or 0, max(lens, default=1))
     groups = datapack.ffd_allocate(lens, capacity=cap)
-    while len(groups) % max(n_rows_multiple, 1):
-        groups.append([])
     n_rows = len(groups)
-    s_pad = row_len or bucket_len(
-        max((sum(lens[i] for i in g) for g in groups), default=1)
-    )
+    s_pad = bucket_len(max((sum(lens[i] for i in g) for g in groups), default=1))
 
     tok_src = np.asarray(sample.data[token_key])
     bounds = sample.cu_seqlens(token_key)

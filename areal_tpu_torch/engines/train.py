@@ -193,7 +193,6 @@ class TrainEngine:
         loss_weight_fn: Callable[[Dict[str, np.ndarray]], float],
         token_key: str = "packed_input_ids",
         extra_keys: Sequence[str] = (),
-        version_steps: int = 0,
     ) -> Dict[str, float]:
         """Accumulate gradients over micro-batches, then one optimizer
         step.  `loss_fn(per_token_logprobs, batch) -> (loss_sum, stats)`
@@ -206,7 +205,7 @@ class TrainEngine:
                 mb, token_key, extra_keys=extra_keys,
                 max_tokens_per_row=mb_spec.max_tokens_per_mb,
             ).arrays
-            for mb, _ in packing.split_sharded(sample, mb_spec)
+            for mb in sample.split(mb_spec)
         ]
         total_weight = max(float(sum(loss_weight_fn(c) for c in chunks)), 1.0)
         real = sum(int((c["segment_ids"] > 0).sum()) for c in chunks)
@@ -275,7 +274,7 @@ class TrainEngine:
         per micro-batch, re-packed token-aligned under `output_key`, in
         the sample's id order."""
         outs = []
-        for mb, _ in packing.split_sharded(sample, mb_spec):
+        for mb in sample.split(mb_spec):
             pk = packing.pack_sample(
                 mb, token_key, extra_keys=extra_keys,
                 max_tokens_per_row=mb_spec.max_tokens_per_mb,

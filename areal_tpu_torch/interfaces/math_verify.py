@@ -1,13 +1,11 @@
 """Hermetic math answer verification (copy of
-areal_tpu/interfaces/math_verify.py without its sympy layer).
+areal_tpu/interfaces/math_verify.py).
 
 Grading: extract the last \\boxed{...} (or final-answer line) from the
 generated text and compare it with each gold solution by normalized
 string, by exact fraction, or by number within a relative 1e-4 (percent-
-flexible); multiple-choice golds grade by letter extraction.  The JAX
-package then tries sympy equivalence for what this cannot decide
-(`math_sympy.py`); that layer is not yet ported, so such answers grade
-as wrong here.
+flexible); multiple-choice golds grade by letter extraction.  What that
+cannot decide falls through to sympy equivalence (`math_sympy.py`).
 """
 
 import re
@@ -194,11 +192,16 @@ def answers_match(pred: str, gold: str) -> bool:
 def verify_math(
     generated_text: str,
     solutions: List[str],
+    use_sympy: bool = True,
     is_choice: Optional[bool] = None,
 ) -> bool:
     """True iff the generated answer matches any gold solution (each gold
-    may itself be a \\boxed{...} wrapper or a raw answer)."""
+    may itself be a \\boxed{...} wrapper or a raw answer).  The cheap
+    string/Fraction path decides most cases; symbolically equivalent forms
+    (intervals, matrices, radicals) fall through to the sympy grader with
+    a hard per-call timeout."""
     pred = extract_answer(generated_text)
+    golds = []
     for sol in solutions:
         gold = extract_boxed(sol)
         if gold is None:
@@ -217,4 +220,13 @@ def verify_math(
             continue
         if pred is not None and answers_match(pred, gold):
             return True
+        golds.append(gold)
+    if pred is None:
+        return False
+    if use_sympy:
+        from areal_tpu_torch.interfaces.math_sympy import answers_match_sympy
+
+        for gold in golds:
+            if answers_match_sympy(pred, gold):
+                return True
     return False

@@ -333,7 +333,6 @@ class PPOActorInterface(ModelInterface):
             stats = model.engine.train_batch(
                 mb, mb_spec, loss_fn=self._loss_fn, loss_weight_fn=_mask_count,
                 token_key="packed_input_ids", extra_keys=extra_keys,
-                version_steps=model.version,
             )
             all_stats.append(stats)
             imp = stats.get("importance_weight", 1.0)

@@ -13,6 +13,8 @@ each kernel's launches and nothing else.
 version (`ops/attention.packed_attention_reference`, differentiated by
 autograd); on CUDA tensors it runs the kernels — forward K1f, backward
 Δ = rowsum(o∘dO) then K1dq and K1dkv — or raises.  There is no fallback.
+`flash_bwd_reference` is the plain version of K1dq and K1dkv: the same
+gradients from the same Δ, dense, in fp32.
 """
 
 import ctypes
@@ -22,7 +24,12 @@ import os
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.ops.attention import packed_attention_reference
+from areal_tpu_torch.ops.attention import (
+    NEG_INF,
+    make_packed_mask,
+    packed_attention_reference,
+    repeat_kv,
+)
 
 SOURCE = os.path.join(build.CSRC_DIR, "flash_attention.cu")
 
@@ -171,6 +178,29 @@ def flash_bwd(q, k, v, seg, o, lse, do, causal: bool):
     delta = flash_delta(o, do)
     dq = flash_dq(q, k, v, seg, do, lse, delta, causal)
     dk, dv = flash_dkv(q, k, v, seg, do, lse, delta, causal)
+    return dq, dk, dv
+
+
+def flash_bwd_reference(q, k, v, seg, do, delta, causal: bool = True):
+    """The plain version of K1dq and K1dkv, dense and in fp32: P from the
+    masked softmax, dS = P∘(dP − Δ)·scale with dP = dO·Vᵀ and the GIVEN
+    Δ [B, S, Hq] (so a bf16 caller passes Δ of its rounded o, as the
+    kernels get it), dq = dS·K, and dk = dSᵀ·Q, dv = Pᵀ·dO summed over
+    each kv head's q heads.  Returns fp32 dq, dk, dv."""
+    n_rep = q.shape[2] // k.shape[2]
+    qf, dof = q.float(), do.float()
+    kf, vf = repeat_kv(k.float(), n_rep), repeat_kv(v.float(), n_rep)
+    scale = q.shape[-1] ** -0.5
+    mask = make_packed_mask(seg, causal=causal)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.float().transpose(1, 2)[..., None]) * scale
+    b, s, hq, d = q.shape
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(b, s, -1, n_rep, d).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, s, -1, n_rep, d).sum(3)
     return dq, dk, dv
 
 

@@ -9,7 +9,7 @@ forward over a paged KV pool.
 - Dense llama/qwen2-family models (qkv bias, tied embeddings); MoE and
   the critic head are not ported yet.
 - Packed rows: [B, S] tokens with segment ids (0 = padding) run through
-  `packed_attention` (the flash kernels on the card).  Remat "full"
+  `flash_attention` (the flash kernels on the card).  Remat "full"
   checkpoints each layer (`torch.utils.checkpoint`, non-reentrant);
   "dots" and "dots_small" are not ported yet.
 - The LM head gives fp32 logits of the product in the weights' dtype
@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
-from areal_tpu_torch.ops.attention import packed_attention, ragged_paged_attention
+from areal_tpu_torch.kernels.flash_attention import flash_attention
+from areal_tpu_torch.ops.attention import ragged_paged_attention
 from areal_tpu_torch.ops.functional import fused_next_token_logprobs, matmul_fp32_out
 from areal_tpu_torch.ops.norms import apply_rotary, rms_norm, rope_cos_sin
 from areal_tpu_torch.ops.quant import kv_quant
@@ -230,7 +231,7 @@ def _block_forward(
     b, s, _ = x.shape
     h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
     q, k, v = _block_kv(h, blk, cfg, cos, sin)
-    attn = packed_attention(q, k, v, segment_ids, causal=True)
+    attn = flash_attention(q, k, v, segment_ids, causal=True)
     attn_out = attn.reshape(b, s, cfg.q_dim) @ blk["wo"]
     if cfg.proj_bias:
         attn_out = attn_out + blk["bo"]

@@ -1,15 +1,15 @@
 """Packed and paged attention (port of areal_tpu/ops/attention.py).
 
-Two dispatchers, each of the same kind: a tensor on the CPU takes the
-plain PyTorch formulation, a CUDA tensor launches the hand-written
-kernels or raises.  There is no opt-in switch and no fallback: on the
-card the kernels always run.
-
-- `packed_attention`: causal-within-segment attention over packed rows
-  [B, S] (the training and inference forward) -> the flash kernels
-  (`areal_tpu_torch/kernels/flash_attention.py`).
-- `ragged_paged_attention`: the serving stream over a paged KV pool ->
-  `areal_tpu_torch/kernels/ragged_paged_attention.py`.
+- The plain versions of packed attention (`make_packed_mask`,
+  `repeat_kv`, `packed_attention_reference`): causal-within-segment
+  attention over packed rows [B, S].  The model calls the flash kernels'
+  wrapper (`areal_tpu_torch/kernels/flash_attention.py`), which takes
+  this plain version for CPU tensors and the kernels for CUDA tensors.
+- `ragged_paged_attention`: the serving stream over a paged KV pool;
+  a tensor on the CPU takes the plain PyTorch formulation, a CUDA tensor
+  launches the hand-written kernel
+  (`areal_tpu_torch/kernels/ragged_paged_attention.py`) or raises.
+  There is no opt-in switch and no fallback.
 """
 
 from typing import Optional
@@ -59,21 +59,6 @@ def packed_attention_reference(
     probs = torch.where(mask.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
-
-
-def packed_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    segment_ids: torch.Tensor,
-    causal: bool = True,
-) -> torch.Tensor:
-    """Attention over packed rows: CPU tensors take the plain version, CUDA
-    tensors the flash kernels (forward K1f; backward K1dq + K1dkv).  A
-    failed build or launch raises."""
-    from areal_tpu_torch.kernels.flash_attention import flash_attention
-
-    return flash_attention(q, k, v, segment_ids, causal=causal)
 
 
 def decode_attention(

@@ -114,10 +114,11 @@ class TestFlashForward:
             tfa.flash_attention(q, k, v, seg)
 
     def test_packed_attention_dispatch(self, rng):
-        """`packed_attention` on CPU tensors is the plain version, exactly."""
+        """`flash_attention` (the model's attention call) on CPU tensors
+        is the plain version, exactly."""
         q, k, v, seg = _t(*_inputs(rng, s=128))
         np.testing.assert_array_equal(
-            tatt.packed_attention(q, k, v, seg).numpy(),
+            tfa.flash_attention(q, k, v, seg).numpy(),
             tatt.packed_attention_reference(q, k, v, seg).numpy(),
         )
 
@@ -161,6 +162,24 @@ class TestFlashBackward:
         for a, b, name in zip(got, want, "qkv"):
             np.testing.assert_allclose(a, np.asarray(b), rtol=1e-3, atol=1e-3,
                                        err_msg=f"d{name}")
+
+    @pytest.mark.parametrize("hq,hkv", [(4, 2), (2, 2)])
+    def test_plain_backward_matches_jax_grad(self, rng, hq, hkv):
+        """`flash_bwd_reference` (the plain version of K1dq and K1dkv) fed
+        Δ = rowsum(o∘dO) of the fp32 output gives jax.grad of JAX's dense
+        reference: atol 1e-5."""
+        q, k, v, seg = _inputs(rng, b=2, s=128, hq=hq, hkv=hkv, d=16)
+        do = rng.normal(size=q.shape).astype(np.float32)
+        qt, kt, vt, st, dot = _t(q, k, v, seg, do)
+        o = tatt.packed_attention_reference(qt, kt, vt, st)
+        got = tfa.flash_bwd_reference(qt, kt, vt, st, dot, tfa.flash_delta(o, dot))
+        sj = jnp.asarray(seg)
+        _, vjp = jax.vjp(lambda q, k, v: jatt.packed_attention_reference(q, k, v, sj),
+                         *map(jnp.asarray, (q, k, v)))
+        for a, b, name in zip(got, vjp(jnp.asarray(do)), "qkv"):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-5,
+                                       err_msg=f"d{name}")
+            assert (a.numpy()[seg == 0] == 0.0).all()
 
     def test_padding_grads_zero(self, rng):
         """Padding positions get exactly 0 in dq, dk and dv."""

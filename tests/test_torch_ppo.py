@@ -19,6 +19,7 @@ from areal_tpu.api.model_api import OptimizerConfig as JOptimizerConfig
 from areal_tpu.base.topology import ParallelConfig, make_mesh
 from areal_tpu.engines.train import TrainEngine as JTrainEngine
 from areal_tpu.interfaces import kl as jkl
+from areal_tpu.interfaces import math_sympy as jms
 from areal_tpu.interfaces import math_verify as jmv
 from areal_tpu.interfaces.ppo import PPOActorInterface as JPPOActorInterface
 from areal_tpu.interfaces.reward import MultiTaskRewardInterface as JReward
@@ -35,6 +36,7 @@ from areal_tpu_torch.data.tokenizer import CharTokenizer
 from areal_tpu_torch.engines.generator import GeneratorEngine
 from areal_tpu_torch.engines.train import TrainEngine
 from areal_tpu_torch.interfaces import kl as tkl
+from areal_tpu_torch.interfaces import math_sympy as tms
 from areal_tpu_torch.interfaces import math_verify as tmv
 from areal_tpu_torch.interfaces.ppo import PPOActorInterface
 from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
@@ -257,9 +259,9 @@ def test_math_rewards_match_jax():
 
 
 class TestMathVerify:
-    """Twins of tests/test_ppo.py TestMathVerify, each also against the
-    JAX package's grader without its sympy layer (which the port does
-    not have)."""
+    """Twins of tests/test_ppo.py TestMathVerify and tests/test_math_sympy.py,
+    each also against the JAX package's grader at its default grading
+    (sympy layer on)."""
 
     @pytest.mark.parametrize("text", [
         r"so \boxed{42}", r"\boxed{\frac{1}{2}}", r"\boxed{a{b}c} later", "no box",
@@ -281,15 +283,47 @@ class TestMathVerify:
     ])
     def test_verify_math(self, text, ok):
         sol = [r"The sum is \boxed{7}."]
-        assert tmv.verify_math(text, sol) == ok == jmv.verify_math(text, sol, use_sympy=False)
+        assert tmv.verify_math(text, sol) == ok == jmv.verify_math(text, sol)
 
     @pytest.mark.parametrize("text,gold", [
         ("The answer is (B). I am sure.", "B"), ("(A) is wrong, the answer is C", "C"),
         ("the answers are A, C and D", "ACD"),
     ])
     def test_choice_golds(self, text, gold):
-        assert tmv.verify_math(text, [gold]) == jmv.verify_math(text, [gold], use_sympy=False)
+        assert tmv.verify_math(text, [gold]) == jmv.verify_math(text, [gold])
         assert tmv.verify_math(text, [gold])
+
+    @pytest.mark.parametrize("pred,gold,ok", [
+        (r"\frac{\sqrt{2}}{2}", r"\frac{1}{\sqrt{2}}", True),
+        (r"2\sqrt{3}", r"\sqrt{12}", True),
+        (r"x^2 - 1", r"(x-1)(x+1)", True),
+        (r"x = 5", r"5", True),
+        (r"(1,2] \cup [3,4)", r"(1,2] \cup [3,4)", True),
+        (r"\{\frac{1}{2}, 2\}", r"\{2, 0.5\}", True),
+        (r"\begin{pmatrix} 1 & \frac{1}{2} \\ 0 & 1 \end{pmatrix}",
+         r"\begin{pmatrix} 1 & 0.5 \\ 0 & 1 \end{pmatrix}", True),
+        ("-34x-45y+20z-100=0", "34x+45y-20z+100=0", True),
+        (r"[0, 1)", r"[0, 1]", False),
+        (r"\frac{22}{7}", r"\pi", False),
+        (r"x = 5", r"4", False),
+    ])
+    def test_sympy_pairs_match_jax(self, pred, gold, ok):
+        """The sympy comparator in-process, port against JAX."""
+        assert tms.sympy_match_worker(pred, gold) == ok == jms.sympy_match_worker(pred, gold)
+        assert tms.latex_to_expr(pred) == jms.latex_to_expr(pred)
+
+    @pytest.mark.parametrize("text,gold", [
+        (r"the answer is \boxed{\frac{\sqrt{2}}{2}}", r"\boxed{\frac{1}{\sqrt{2}}}"),
+        (r"so \boxed{(0.6,2.6667]}", r"\boxed{(\frac{3}{5},\frac{8}{3}]}"),
+        (r"the answer is \boxed{\sqrt{2}}", r"\boxed{2}"),
+    ])
+    def test_default_grading_matches_jax(self, text, gold):
+        """`verify_math` at its default (the sympy stage through the
+        worker process), port against JAX: answers the string/Fraction
+        path cannot decide."""
+        want = jmv.verify_math(text, [gold])
+        assert tmv.verify_math(text, [gold]) == want
+        assert tmv.verify_math(text, [gold], use_sympy=False) is False
 
 
 @pytest.mark.parametrize("observed", [5.0, 0.0, 1.05, 1.0])

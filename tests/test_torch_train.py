@@ -268,13 +268,11 @@ def _random_sample(rng, n, max_len=20):
     return _samples({"packed_input_ids": toks}, lens)
 
 
-@pytest.mark.parametrize("n_rows_multiple,max_tokens", [(1, None), (4, None), (1, 40)])
-def test_pack_sample_matches_jax(rng, n_rows_multiple, max_tokens):
+@pytest.mark.parametrize("max_tokens", [None, 25, 40])
+def test_pack_sample_matches_jax(rng, max_tokens):
     ts, js = _random_sample(rng, 9)
-    got = packing.pack_sample(ts, "packed_input_ids", n_rows_multiple=n_rows_multiple,
-                              max_tokens_per_row=max_tokens)
-    want = jpacking.pack_sample(js, "packed_input_ids", n_rows_multiple=n_rows_multiple,
-                                max_tokens_per_row=max_tokens)
+    got = packing.pack_sample(ts, "packed_input_ids", max_tokens_per_row=max_tokens)
+    want = jpacking.pack_sample(js, "packed_input_ids", max_tokens_per_row=max_tokens)
     assert got.seq_map == want.seq_map and got.row_len == want.row_len
     assert got.row_len % 128 == 0
     for k in want.arrays:
