@@ -10,14 +10,24 @@ copy-on-write.  Each chunk runs `chunk_t` inner steps on the device —
 lane grants, sampling and one `decode_step_ragged_paged` forward each —
 and syncs with the host once, at its end.
 
+Interruptible generation (the in-memory weight push of asynchronous RL):
+`interrupt()` makes the serving loop park at its next chunk boundary,
+and `generate` then returns None; after the caller swaps the weights
+(`set_params`), `resume_generate()` replays each live row's last chunk
+through `decode_step_spec_paged` (K3 on the card) under the CURRENT
+weights — rewriting that tail's KV on its already-mapped pages and
+refreshing the next-token logits — and continues the loop, so a push
+costs one chunk of replay, not a drain and a full re-prefill.
+
 Not yet ported (they raise NotImplementedError): speculative decoding
-(spec_decode_k > 0), interrupt/resume, agent episodes, the dense KV
-window (kv_paged=False), the two-program admit path
-(prefill_chunk_tokens=0) and the static path (the port never takes it:
-JAX pins the inflight and static paths to the same greedy tokens).
+(spec_decode_k > 0), agent episodes, the dense KV window
+(kv_paged=False), the two-program admit path (prefill_chunk_tokens=0)
+and the static path (the port never takes it: JAX pins the inflight and
+static paths to the same greedy tokens).
 """
 
 import dataclasses
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,7 +64,11 @@ def _find_stop_end(toks, scan_from: int, stop_seqs) -> Optional[int]:
 @dataclasses.dataclass
 class _PagedGenSession:
     """Everything the serving chunk loop carries between chunks, host
-    and device side, for one generate call."""
+    and device side, for one generate call — also the parked state of an
+    interrupted call, which `resume_generate()` continues.  The
+    torch.Generator rides along and the replay draws nothing from it, so
+    a resume under unchanged weights is token-identical to an
+    uninterrupted run."""
 
     gconfig: GenerationHyperparameters
     generator: torch.Generator  # on the engine's device
@@ -73,7 +87,10 @@ class _PagedGenSession:
     toks_acc: Dict[int, List[int]]
     logps_acc: Dict[int, List[float]]
     pending: List
+    # Per-slot prompt tokens + last chunk's emission count: together they
+    # define the tail to replay on resume (history = prompt + toks_acc).
     slot_prompt: Dict[int, np.ndarray]
+    last_emit: np.ndarray  # [n_slots] int32
     # Per-row prefill progress: prompt_buf[slot] holds the not-yet-
     # forwarded prompt remainder, prefill_rem counts tokens still to
     # consume, prompt_off indexes the next prompt_buf read.  A row with
@@ -82,10 +99,20 @@ class _PagedGenSession:
     prompt_buf: np.ndarray  # [n_slots, pbw] int32
     prefill_rem: np.ndarray  # [n_slots] int32
     prompt_off: np.ndarray  # [n_slots] int32
+    # First PRIVATE flat position per slot (shared prompt pages end
+    # here): 0 for owners, sp * page_size for prefix-cache followers.
+    # The resume replay never writes below it.
+    shared_from: np.ndarray  # [n_slots] int32
     slot_hash: Dict[int, bytes]  # prompt hash per owner slot
     # hash -> owner slot still prefilling it; followers wait for it.
     inflight_prefix: Dict[bytes, int]
     peak_live: int = 0
+    # Assembly context, stashed by generate() when the call parks so
+    # resume_generate() can return the finished SequenceSample.
+    sample: Optional[SequenceSample] = None
+    prompt_key: str = "packed_prompts"
+    prompt_lens: Optional[List[int]] = None
+    n: int = 1
 
 
 class GeneratorEngine:
@@ -172,19 +199,33 @@ class GeneratorEngine:
         self.kv_utilization = 0.0
         self.live_slots = 0
         self.load_state = (0, 0.0)
+        # Interruptible generation: the event parks the serving loop at
+        # its next chunk boundary; the parked session waits in _session
+        # for resume_generate().  resume_replays counts resumes over the
+        # engine's life.
+        self._interrupt_evt = threading.Event()
+        self._session: Optional[_PagedGenSession] = None
+        self.resume_replays = 0
         self.set_params(params)
 
     # ---------------- weights ----------------
 
     def set_params(self, params: Dict[str, Any]) -> None:
         """Place the weights on the engine's device, floats cast to the
-        compute dtype."""
+        compute dtype.  Never aliases the source: `.to()` returns the
+        same storage when device and dtype already match, and a
+        TrainEngine's optimizer updates its masters in place — under a
+        running generation, were they shared.  Such leaves are copied."""
 
         def place(x):
             if isinstance(x, dict):
                 return {k: place(v) for k, v in x.items()}
-            x = x.to(self.device)
-            return x.to(self.compute_dtype) if x.is_floating_point() else x
+            y = x.to(self.device)
+            if y.is_floating_point():
+                y = y.to(self.compute_dtype)
+            if y.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+                y = y.clone()
+            return y
 
         self.params = place(params)
 
@@ -213,13 +254,27 @@ class GeneratorEngine:
         self.live_slots = int(n)
         self.load_state = (int(n), self.kv_utilization)
 
-    # ---------------- not yet ported ----------------
+    # ---------------- interruption (async weight sync) ----------------
 
     def interrupt(self) -> None:
-        raise NotImplementedError("interrupt/resume_generate is not yet ported")
+        """Ask the running generate() to park at its next chunk boundary.
+        Safe from any thread."""
+        self._interrupt_evt.set()
 
-    def resume_generate(self):
-        raise NotImplementedError("interrupt/resume_generate is not yet ported")
+    def clear_interrupt(self) -> None:
+        self._interrupt_evt.clear()
+
+    @property
+    def interrupted(self) -> bool:
+        """True iff a parked session is waiting for resume_generate()."""
+        return self._session is not None
+
+    @property
+    def interrupt_requested(self) -> bool:
+        """True while an interrupt is pending (set, not yet cleared)."""
+        return self._interrupt_evt.is_set()
+
+    # ---------------- not yet ported ----------------
 
     def episode_start(self, *a, **k):
         raise NotImplementedError("agent episodes are not yet ported")
@@ -242,10 +297,17 @@ class GeneratorEngine:
         Returns a SequenceSample (one element per prompt, `n` sequences
         per element) with packed_input_ids (prompt + response),
         packed_logprobs (seqlen-1 per sequence, behaviour logprobs on the
-        response positions), prompt_mask and seq_no_eos_mask."""
+        response positions), prompt_mask and seq_no_eos_mask — or None
+        when interrupt() parked the call (finish it with
+        resume_generate())."""
         if gconfig.spec_decode_k > 0:
             raise NotImplementedError(
                 "speculative decoding (spec_decode_k > 0) is not yet ported"
+            )
+        if self._session is not None:
+            raise RuntimeError(
+                "an interrupted generation is parked; call "
+                "resume_generate() before starting a new one"
             )
         self.prefill_dispatches = 0
         self.decode_compiles = 0
@@ -269,7 +331,104 @@ class GeneratorEngine:
         self._generate_inflight_serving(
             [reqs[j] for j in order], gconfig, seed, results
         )
+        if self._session is not None:
+            # Parked: stash the assembly context for resume_generate().
+            st = self._session
+            st.sample, st.prompt_key = sample, prompt_key
+            st.prompt_lens, st.n = prompt_lens, n
+            return None
         return self._assemble(sample, prompt_key, prompt_lens, results, n)
+
+    def resume_generate(self) -> Optional[SequenceSample]:
+        """Continue a parked generate() under the engine's CURRENT
+        weights.  Each live row's last chunk of forwarded tokens is
+        replayed through its existing page table (its tail KV rewritten
+        in place, its next-token logits refreshed), then the serving loop
+        continues.  Returns the finished SequenceSample, or None if
+        interrupted again."""
+        st = self._session
+        if st is None:
+            raise RuntimeError("no interrupted generation to resume")
+        self._session = None
+        live = [s for s in range(st.n_slots) if st.active[s] is not None]
+        if live:
+            Q = st.chunk_t
+            tokens = np.full((st.n_slots, Q), self.pad_token_id, np.int64)
+            positions = np.zeros((st.n_slots, Q), np.int64)
+            write_pos0 = np.zeros((st.n_slots,), np.int64)
+            take_idx = np.zeros((st.n_slots,), np.int64)
+            live_mask = np.zeros((st.n_slots,), bool)
+            q_lens = np.zeros((st.n_slots,), np.int64)
+            for s in live:
+                hist = np.concatenate(
+                    [st.slot_prompt[s], np.asarray(st.toks_acc[s], np.int32)]
+                )
+                # One KV per FORWARDED token: a decoding row has all of
+                # hist in cache; a row parked mid-prefill only
+                # hist[:cache_len] (the rest still waits in prompt_buf).
+                L = int(st.cache_len[s])
+                hl = hist[:L]
+                # Replay the last chunk's emissions (>= 1, so the fresh
+                # logits come from a real forward), never below the
+                # slot's private region: shared prompt pages are
+                # read-only.  Padding columns are dead queries.
+                r = int(min(max(int(st.last_emit[s]), 1), Q, L - int(st.shared_from[s])))
+                if r <= 0:
+                    continue  # nothing private to replay
+                tokens[s, :r] = hl[L - r :]
+                write_pos0[s] = L - r
+                positions[s] = (L - r) + np.arange(Q)
+                take_idx[s] = r - 1
+                live_mask[s] = True
+                q_lens[s] = r
+            dev = self.device
+
+            def to_dev(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(a).to(dev)
+
+            self._get_paged_replay_fn()(
+                self.params, to_dev(tokens), to_dev(positions), st.pool,
+                to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
+                to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
+            )
+        self.resume_replays += 1
+        # The push invalidated every cached prompt KV: post-resume
+        # admissions re-prefill under the new weights instead of sharing
+        # stale pages.  Live followers keep their mappings (their whole
+        # history KV is equally pre-push: the accepted approximation of
+        # resuming), and a row live across the push that later finishes
+        # its prefill must not publish its mixed-weight prefix.
+        st.alloc.prefix_clear()
+        st.inflight_prefix.clear()
+        st.slot_hash.clear()
+        if not self._run_serving_loop(st):
+            return None
+        return self._assemble(
+            st.sample, st.prompt_key, st.prompt_lens, st.results, st.n
+        )
+
+    def _get_paged_replay_fn(self):
+        """Teacher-forced tail replay for resume: Q history tokens per
+        row forwarded through the existing page table (KV overwritten in
+        place), next-token logits taken at each live row's last valid
+        query into the logits buffer (in place).  Rows without a replay
+        have q_lens 0: their writes reach only the trash page and their
+        logits rows are kept."""
+        cfg = self.cfg
+
+        def fn(params, tokens, positions, pool, page_table, write_pos0,
+               logits_buf, take_idx, live_mask, q_lens):
+            logits_all, _ = tfm.decode_step_spec_paged(
+                params, cfg, tokens, positions, pool, page_table, write_pos0,
+                q_lens=q_lens,
+            )  # [B, Q, V]
+            fresh = torch.gather(
+                logits_all, 1,
+                take_idx[:, None, None].expand(-1, 1, logits_all.shape[-1]),
+            )[:, 0]
+            logits_buf.copy_(torch.where(live_mask[:, None], fresh, logits_buf))
+
+        return fn
 
     def _drain_chunk_outputs(
         self, out_toks, out_logps, new_done, active, toks_acc, logps_acc,
@@ -373,10 +532,12 @@ class GeneratorEngine:
             logps_acc={},
             pending=list(reversed(reqs)),
             slot_prompt={},
+            last_emit=np.zeros((n_slots,), np.int32),
             prefill_chunk=self.prefill_chunk_tokens,
             prompt_buf=np.full((n_slots, pbw), self.pad_token_id, np.int32),
             prefill_rem=np.zeros((n_slots,), np.int32),
             prompt_off=np.zeros((n_slots,), np.int32),
+            shared_from=np.zeros((n_slots,), np.int32),
             slot_hash={},
             inflight_prefix={},
         )
@@ -384,12 +545,14 @@ class GeneratorEngine:
         st.alloc.page_bytes = st.pool.nbytes() // (n_pages + 1)
         self._run_serving_loop(st)
 
-    def _run_serving_loop(self, st: _PagedGenSession) -> None:
+    def _run_serving_loop(self, st: _PagedGenSession) -> bool:
         """Every iteration admits into free slots (host bookkeeping only),
         maps pages for the chunk's worst-case advance, privatises any
         shared page a write could touch, then runs ONE serving chunk in
         which prefilling rows consume up to W prompt tokens per inner step
-        while decoding rows emit one token."""
+        while decoding rows emit one token.  Interruptible at the top of
+        each iteration: returns False parked (the session waits in
+        `_session`), True finished."""
         gconfig = st.gconfig
         alloc = st.alloc
         n_slots, ps, chunk_t = st.n_slots, alloc.page_size, st.chunk_t
@@ -404,6 +567,9 @@ class GeneratorEngine:
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
         while st.pending or any(a is not None for a in st.active):
+            if self._interrupt_evt.is_set():
+                self._session = st
+                return False
             self._take_admits_serving(st)
             # Map pages covering this chunk's worst-case advance per live
             # slot: a prefilling row consumes up to chunk_t*W prompt tokens
@@ -423,6 +589,7 @@ class GeneratorEngine:
             self._accum_pool_stats(
                 "paged", int(st.cache_len.sum()), alloc.allocated_pages() * ps
             )
+            prev_gen = st.gen_count.copy()
             prev_rem = st.prefill_rem.copy()
             (
                 out_toks, out_logps, new_cache_len, new_gen_count, new_done,
@@ -446,6 +613,7 @@ class GeneratorEngine:
             st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
             st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
             st.prompt_off = new_off.cpu().numpy().astype(np.int32)
+            st.last_emit = st.gen_count - prev_gen
             self.steps_total += chunk_t
             self.lanes_dispatched += chunk_t * self.serving_lane_budget
             self.lanes_live += int(lane_acc[0])
@@ -489,6 +657,7 @@ class GeneratorEngine:
             peak_allocated_bytes=alloc.peak_pages_used * alloc.page_bytes,
         )
         self._set_live_slots(0)
+        return True
 
     def _take_admits_serving(self, st: _PagedGenSession) -> int:
         """Admission: pure host bookkeeping (the chunk does the prompt
@@ -545,6 +714,8 @@ class GeneratorEngine:
             st.toks_acc[s] = []
             st.logps_acc[s] = []
             st.slot_prompt[s] = toks
+            st.shared_from[s] = start
+            st.last_emit[s] = 0
             rem = plen - start
             st.prompt_buf[s, :] = self.pad_token_id
             st.prompt_buf[s, :rem] = toks[start:]

@@ -148,6 +148,12 @@ class PageAllocator:
         self.used[slot] = len(pages)
         self.peak_pages_used = max(self.peak_pages_used, self.allocated_pages())
 
+    def is_shared(self, slot: int, page_idx: int) -> bool:
+        """Whether the page at `slot`'s table entry `page_idx` is mapped
+        by another slot or held by the prefix cache too."""
+        p = int(self.table[slot, page_idx])
+        return p != self.sentinel and int(self.refcount[p]) > 1
+
     def ensure_writable(
         self, slot: int, lo_tok: int, hi_tok: int
     ) -> List[Tuple[int, int]]:
@@ -213,3 +219,13 @@ class PageAllocator:
                 self._unref(int(p))
             evicted += 1
         return evicted
+
+    def prefix_clear(self) -> int:
+        """Drop every prefix-cache hold (a weight update invalidates all
+        cached KV).  Returns entries dropped."""
+        n = len(self._prefix_cache)
+        while self._prefix_cache:
+            _, pages = self._prefix_cache.popitem(last=False)
+            for p in pages:
+                self._unref(int(p))
+        return n

@@ -68,12 +68,13 @@ def _launcher():
     return lib, fn  # the CDLL stays referenced with its function
 
 
-def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
-    dev = q.device
-    tensors = {
-        "q": q, "k_pool": k_pool, "v_pool": v_pool,
-        "page_table_tok": page_table_tok, "valid_to": valid_to,
-    }
+def check_paged_inputs(q, k_pool, v_pool, k_scale, v_scale, q_dims, **index):
+    """The checks the paged attention kernels (K2, K3) share: q float32
+    or bfloat16 with `q_dims` dims and a head_dim the kernels take; pools
+    [P, ps, n_kv, d] of one of float32/bfloat16/int8, with bfloat16
+    [P, ps, n_kv] scales exactly when int8; `index` tensors int32; every
+    tensor contiguous on q's device."""
+    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool, **index}
     quant = k_pool.dtype == torch.int8
     if quant:
         if k_scale is None or v_scale is None:
@@ -82,8 +83,8 @@ def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
     elif k_scale is not None or v_scale is not None:
         raise ValueError("k_scale/v_scale are only taken with an int8 pool")
     for name, x in tensors.items():
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -97,17 +98,18 @@ def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
         k_scale.dtype != torch.bfloat16 or v_scale.dtype != torch.bfloat16
     ):
         raise TypeError("int8 pool scales must be bfloat16")
-    if page_table_tok.dtype != torch.int32 or valid_to.dtype != torch.int32:
-        raise TypeError("page_table_tok and valid_to must be int32")
-    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+    for name, x in index.items():
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32")
+    if q.dim() != q_dims or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(
-            f"want q [T, n_q, d] and pools [P, ps, n_kv, d], got "
+            f"want q with {q_dims} dims and pools [P, ps, n_kv, d], got "
             f"{tuple(q.shape)}, {tuple(k_pool.shape)}, {tuple(v_pool.shape)}"
         )
-    t, n_q, d = q.shape
+    n_q, d = q.shape[-2:]
     n_pool, ps, n_kv, d_kv = k_pool.shape
-    if n_pool < 1 or ps < 1 or page_table_tok.shape[-1] < 1:
-        raise ValueError("the pool and the page table must not be empty")
+    if n_pool < 1 or ps < 1:
+        raise ValueError("the pool must not be empty")
     if d != d_kv or d not in _HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got {d}/{d_kv}")
     if n_q % n_kv or n_q // n_kv > _MAX_REP:
@@ -115,18 +117,27 @@ def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
             f"n_q={n_q} must be a multiple of n_kv={n_kv}, at most "
             f"{_MAX_REP} per kv head"
         )
-    if page_table_tok.dim() != 2 or page_table_tok.shape[0] != t:
-        raise ValueError(
-            f"page_table_tok must be [T={t}, max_pages], got "
-            f"{tuple(page_table_tok.shape)}"
-        )
-    if tuple(valid_to.shape) != (t,):
-        raise ValueError(f"valid_to must be [T={t}], got {tuple(valid_to.shape)}")
     if quant and (
         tuple(k_scale.shape) != (n_pool, ps, n_kv)
         or tuple(v_scale.shape) != (n_pool, ps, n_kv)
     ):
         raise ValueError("int8 pool scales must be [P, ps, n_kv]")
+
+
+def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
+    check_paged_inputs(
+        q, k_pool, v_pool, k_scale, v_scale, 3,
+        page_table_tok=page_table_tok, valid_to=valid_to,
+    )
+    t = q.shape[0]
+    if (page_table_tok.dim() != 2 or page_table_tok.shape[0] != t
+            or page_table_tok.shape[1] < 1):
+        raise ValueError(
+            f"page_table_tok must be [T={t}, max_pages >= 1], got "
+            f"{tuple(page_table_tok.shape)}"
+        )
+    if tuple(valid_to.shape) != (t,):
+        raise ValueError(f"valid_to must be [T={t}], got {tuple(valid_to.shape)}")
 
 
 def ragged_paged_attention_kernel(

@@ -14,6 +14,9 @@ forward over a paged KV pool.
   "dots" and "dots_small" are not ported yet.
 - The LM head gives fp32 logits of the product in the weights' dtype
   (`ops/functional.matmul_fp32_out`), as the JAX package asks XLA for.
+- The serving forwards over the paged pool: `decode_step_ragged_paged`
+  (the packed lane stream, K2's wrapper) and `decode_step_spec_paged`
+  (Q tokens per slot, the resume replay, K3's wrapper).
 - The KV pool is updated IN PLACE (the JAX package donates it instead).
   It holds one trash page past its `n_pages` real pages: torch has no
   drop-mode scatter, so every write the JAX package drops (dead lanes,
@@ -32,7 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.kernels.flash_attention import flash_attention
-from areal_tpu_torch.ops.attention import ragged_paged_attention
+from areal_tpu_torch.kernels.paged_chunk_attention import paged_decode_attention_chunk
+from areal_tpu_torch.kernels.ragged_paged_attention import ragged_paged_attention_kernel
 from areal_tpu_torch.ops.functional import fused_next_token_logprobs, matmul_fp32_out
 from areal_tpu_torch.ops.norms import apply_rotary, rms_norm, rope_cos_sin
 from areal_tpu_torch.ops.quant import kv_quant
@@ -387,16 +391,18 @@ def init_paged_kv_cache(
 
 def _page_of(page_table: torch.Tensor, pos: torch.Tensor, page_size: int):
     """Per-row (page, offset) write coordinates for flat positions `pos`
-    [B] through `page_table` [B, max_pages].  Positions past the table
-    width get `_DROP_PAGE` (the JAX package's drop index), never the
-    clipped last entry."""
-    col = torch.div(pos, page_size, rounding_mode="floor")
+    ([B] or [B, Q]) through `page_table` [B, max_pages].  Positions past
+    the table width get `_DROP_PAGE` (the JAX package's drop index),
+    never the clipped last entry."""
+    pos2 = pos if pos.dim() == 2 else pos[:, None]
+    col = torch.div(pos2, page_size, rounding_mode="floor")
     mp = page_table.shape[1]
-    pages = torch.gather(
-        page_table.long(), 1, torch.clamp(col, 0, mp - 1)[:, None]
-    )[:, 0]
+    pages = torch.gather(page_table.long(), 1, torch.clamp(col, 0, mp - 1))
     pages = torch.where(col >= mp, torch.full_like(pages, _DROP_PAGE), pages)
-    return pages, pos - col * page_size
+    off = pos2 - col * page_size
+    if pos.dim() == 1:
+        return pages[:, 0], off[:, 0]
+    return pages, off
 
 
 def _cache_update_read(
@@ -437,7 +443,7 @@ def decode_step_ragged_paged(
     """One forward of a packed [T] stream of query lanes with per-token
     windows.  Token t writes its K/V at flat position `positions[t]` of
     slot `row_of[t]` and attends [0, positions[t]] through that slot's
-    page-table row (`ragged_paged_attention`).  Dead lanes (row_of >= B)
+    page-table row (`ragged_paged_attention_kernel`).  Dead lanes (row_of >= B)
     write only to the trash page, get zero attention, and produce
     logits the caller never reads.  Returns (fp32 logits [T, V], cache)
     — the cache is the same object, updated in place."""
@@ -467,11 +473,72 @@ def decode_step_ragged_paged(
         k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
             cache, k, v, li, (wp_page, wp_off)
         )
-        attn = ragged_paged_attention(
+        attn = ragged_paged_attention_kernel(
             q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to,
             k_scale=ks_l, v_scale=vs_l,
         )
         ao = attn.reshape(t, cfg.q_dim) @ blk["wo"]
+        if cfg.proj_bias:
+            ao = ao + blk["bo"]
+        x = x + ao
+        h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
+        x = x + _mlp_dense(h2, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x), cache
+
+
+def decode_step_spec_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, Q] int — Q consecutive tokens per row
+    positions: torch.Tensor,  # [B, Q] int — RoPE positions
+    cache: PagedKVCache,
+    page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
+    write_pos0: torch.Tensor,  # [B] int — flat position of tokens[:, 0]
+    q_lens: Optional[torch.Tensor] = None,  # [B] int — live queries per row
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Q consecutive tokens per row in one forward: k/v written at flat
+    positions write_pos0 .. write_pos0 + Q - 1 through the page table,
+    query i attending [0, write_pos0 + 1 + i) (`paged_decode_attention_chunk`,
+    K3 on the card).  With `q_lens` the step is ragged: row b's queries
+    i >= q_lens[b] are dead — their K/V writes go to the trash page only
+    (never a clamped real page, which may belong to another sequence)
+    and their attention gives zeros; their logits are garbage the caller
+    ignores.  Returns (fp32 logits [B, Q, V], cache) — the cache is the
+    same object, updated in place."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    b, q_len = tokens.shape
+    dev = tokens.device
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.reshape(-1).long(), positions.reshape(-1))
+    x = x.reshape(b, q_len, cfg.hidden_dim)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    write_pos0 = write_pos0.long()
+    col = write_pos0[:, None] + torch.arange(q_len, device=dev)[None, :]
+    wp_page, wp_off = _page_of(page_table, col, cache.page_size)
+    if q_lens is not None:
+        dead = torch.arange(q_len, device=dev)[None, :] >= q_lens.long()[:, None]
+        wp_page = torch.where(dead, torch.full_like(wp_page, _DROP_PAGE), wp_page)
+    idx = (wp_page.reshape(-1), wp_off.reshape(-1))
+    # The attention kernel takes int32 tables, windows and query counts.
+    pt_attn = page_table.to(torch.int32).contiguous()
+    valid_to0 = (write_pos0 + 1).to(torch.int32)
+    ql_attn = None if q_lens is None else q_lens.to(torch.int32).contiguous()
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, Q, h, d]
+        k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
+            cache, k.reshape(b * q_len, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b * q_len, cfg.n_kv_heads, cfg.head_dim), li, idx,
+        )
+        attn = paged_decode_attention_chunk(
+            q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to0,
+            k_scale=ks_l, v_scale=vs_l, q_lens=ql_attn,
+        )
+        ao = attn.reshape(b, q_len, cfg.q_dim) @ blk["wo"]
         if cfg.proj_bias:
             ao = ao + blk["bo"]
         x = x + ao

@@ -5,11 +5,12 @@
   attention over packed rows [B, S].  The model calls the flash kernels'
   wrapper (`areal_tpu_torch/kernels/flash_attention.py`), which takes
   this plain version for CPU tensors and the kernels for CUDA tensors.
-- `ragged_paged_attention`: the serving stream over a paged KV pool;
-  a tensor on the CPU takes the plain PyTorch formulation, a CUDA tensor
-  launches the hand-written kernel
-  (`areal_tpu_torch/kernels/ragged_paged_attention.py`) or raises.
-  There is no opt-in switch and no fallback.
+- The plain versions of decode attention over a dense window
+  (`decode_attention`, Q=1; `decode_attention_chunk`, Q queries per row,
+  ragged with `q_lens`) and the paged gather (`clamp_page_table`,
+  `paged_gather_layer`).  The paged attention kernels' wrappers
+  (`kernels/ragged_paged_attention.py`, `kernels/paged_chunk_attention.py`)
+  build their plain versions from these; the model calls the wrappers.
 """
 
 from typing import Optional
@@ -109,6 +110,59 @@ def decode_attention(
     return out.reshape(b, 1, n_q, d).to(q.dtype)
 
 
+def decode_attention_chunk(
+    q: torch.Tensor,  # [B, Q, n_q, d] — Q consecutive new tokens per row
+    k_cache: torch.Tensor,  # [B, S_max, n_kv, d]
+    v_cache: torch.Tensor,  # [B, S_max, n_kv, d]
+    valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
+    valid_to0: torch.Tensor,  # [B] int — one past query 0's last visible slot
+    k_scale: Optional[torch.Tensor] = None,  # [B, S_max, n_kv]: int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+    q_lens: Optional[torch.Tensor] = None,  # [B] int — live queries per row
+) -> torch.Tensor:
+    """Multi-query decode attention, plain formulation: query i attends
+    the window [valid_from, valid_to0 + i), the causal extension of
+    `decode_attention` to Q consecutive positions.  With `q_lens` the
+    chunk is ragged: only queries i < q_lens[row] are live, and dead
+    queries (and live ones with an empty window) give exact zeros."""
+    if k_scale is not None:
+        from areal_tpu_torch.ops.quant import kv_dequant
+
+        k_cache = kv_dequant(k_cache, k_scale, q.dtype)
+        v_cache = kv_dequant(v_cache, v_scale, q.dtype)
+    b, nq_tok, n_q, d = q.shape
+    n_kv = k_cache.shape[2]
+    n_rep = n_q // n_kv
+    qh = q.reshape(b, nq_tok, n_kv, n_rep, d)
+    scale = d**-0.5
+    logits = (
+        torch.einsum(
+            "bqgrd,bsgd->bgqrs", qh.float(), k_cache.to(q.dtype).float()
+        )
+        * scale
+    )  # [B, n_kv, Q, n_rep, S] fp32
+    idx = torch.arange(k_cache.shape[1], device=q.device)
+    qi = torch.arange(nq_tok, device=q.device)
+    valid = (idx[None, None, :] >= valid_from.expand(b)[:, None, None]) & (
+        idx[None, None, :]
+        < (valid_to0.expand(b)[:, None] + qi[None, :])[:, :, None]
+    )  # [B, Q, S]
+    if q_lens is not None:
+        valid = valid & (qi[None, :, None] < q_lens.expand(b)[:, None, None])
+    logits = torch.where(
+        valid[:, None, :, None, :], logits, torch.full_like(logits, NEG_INF)
+    )
+    probs = torch.softmax(logits, dim=-1)
+    # Fully-masked queries: zero, as in decode_attention.
+    probs = torch.where(
+        valid.any(dim=-1)[:, None, :, None, None], probs, torch.zeros_like(probs)
+    )
+    out = torch.einsum(
+        "bgqrs,bsgd->bqgrd", probs.to(v_cache.dtype).float(), v_cache.float()
+    )
+    return out.reshape(b, nq_tok, n_q, d).to(q.dtype)
+
+
 def clamp_page_table(page_table: torch.Tensor, n_pool: int) -> torch.Tensor:
     """The one sentinel rule for paged reads, shared by the kernel and the
     plain gather: unmapped entries (>= n_pool) clamp to the LAST pool
@@ -128,26 +182,3 @@ def paged_gather_layer(
     g = pool_layer[pt]  # [B, mp, ps, ...]
     b, mp, ps = g.shape[:3]
     return g.reshape(b, mp * ps, *pool_layer.shape[2:])
-
-
-def ragged_paged_attention(
-    q: torch.Tensor,  # [T, n_q, d] — packed token stream
-    k_pool: torch.Tensor,  # [P, ps, n_kv, d] — one layer's pool view
-    v_pool: torch.Tensor,
-    page_table_tok: torch.Tensor,  # [T, max_pages] int — PER-TOKEN tables
-    valid_to: torch.Tensor,  # [T] int — one past each token's window; 0 = dead
-    k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16: int8 pool
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Ragged paged attention over a PACKED token stream: token t attends
-    its own window [0, valid_to[t]) through its own page-table row; dead
-    lanes (valid_to == 0) give exact zeros.  Returns [T, n_q, d] in
-    q.dtype.  CPU tensors take the plain version, CUDA tensors the
-    hand-written kernel."""
-    from areal_tpu_torch.kernels.ragged_paged_attention import (
-        ragged_paged_attention_kernel,
-    )
-
-    return ragged_paged_attention_kernel(
-        q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale
-    )

@@ -1,12 +1,22 @@
 """Generation service: a batching HTTP server around a GeneratorEngine
-(port of areal_tpu/system/gen_server.py; this slice serves
-``POST /generate`` and ``GET /health`` with the JAX server's JSON wire
-format, so the JAX package's `LLMAPIClient` talks to it unchanged).
+(port of areal_tpu/system/gen_server.py; it serves ``POST /generate``,
+``POST /pause``, ``POST /resume`` and ``GET /health`` with the JAX
+server's JSON wire format, so the JAX package's `LLMAPIClient` talks to
+it unchanged).
 
 Concurrent /generate requests are MERGED by a collector thread into
 shared engine calls: client-side fan-out gets cross-request batching.
-ZMQ, weight updates, pause/resume, episodes and the command-line entry
-point are not yet ported.
+
+`update_weights_inmem` is the interruptible in-memory weight push of
+asynchronous RL: the running generate call parks at its next chunk
+boundary, the weights are swapped under the engine lock, and the call
+resumes on its existing KV pages (one chunk of replay instead of a full
+drain).  Each response carries `version_start`, the weight version its
+sampling started on, and `version`, the one it finished on.
+
+Not yet ported: `/update_weights` from a checkpoint on disk,
+`/param_push`, the ZMQ transport, episodes, fault injection and the
+command-line entry point.
 """
 
 import dataclasses
@@ -22,6 +32,7 @@ import numpy as np
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import GenerationHyperparameters
+from areal_tpu_torch.base import integrity
 
 logger = logging.getLogger("areal_tpu_torch.gen_server")
 
@@ -74,8 +85,17 @@ class GenerationServer:
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
         self._stop = threading.Event()
         self._seed = 0
-        # One engine call at a time.
+        # One engine call at a time; the weight swap takes it too.
         self._engine_lock = threading.Lock()
+        # Pause/resume: set while a weight push (or a /pause) holds the
+        # server; a parked generate call waits on _resume_cond.
+        self._pause_evt = threading.Event()
+        self._resume_cond = threading.Condition()
+        # One in-memory push at a time.
+        self._update_mutex = threading.Lock()
+        self.inmem_updates = 0
+        # Guards version and the pause flag as /health reads them.
+        self._health_lock = threading.Lock()
         self._token = token
         if not token and host not in ("127.0.0.1", "localhost", "::1"):
             raise ValueError(
@@ -112,6 +132,12 @@ class GenerationServer:
                     req = json.loads(self.rfile.read(n))
                     if self.path == "/generate":
                         self._send(200, srv._handle_generate(req))
+                    elif self.path == "/pause":
+                        srv.pause()
+                        self._send(200, {"paused": True, "version": srv.version})
+                    elif self.path == "/resume":
+                        srv.resume()
+                        self._send(200, {"paused": False, "version": srv.version})
                     else:
                         self._send(404, {"error": "unknown path"})
                 except Exception as e:  # noqa: BLE001 — report to client
@@ -137,15 +163,81 @@ class GenerationServer:
         replaced tuple."""
         eng = self.engine
         live, kvu = eng.load_state
+        with self._health_lock:
+            version = self.version
+            paused = self._pause_evt.is_set()
         return {
             "status": "ok",
-            "version": self.version,
+            "version": version,
             "queue_depth": self._queue.qsize(),
             "live_slots": int(live),
             "kv_utilization": float(kvu),
             "capacity": int(eng.max_decode_batch),
-            "paused": False,
+            "paused": paused,
         }
+
+    # ---------------- pause / resume / in-memory weight push ----------------
+
+    def pause(self) -> None:
+        """Stop decoding at the next chunk boundary: the running generate
+        call parks (releasing the engine lock) and new batches wait until
+        resume()."""
+        with self._health_lock:
+            self._pause_evt.set()
+        self.engine.interrupt()
+
+    def resume(self) -> None:
+        with self._health_lock:
+            self._pause_evt.clear()
+        self.engine.clear_interrupt()
+        with self._resume_cond:
+            self._resume_cond.notify_all()
+
+    def update_weights_inmem(self, params, checksum=None, version=None) -> int:
+        """Interruptible in-memory weight push: pause at a chunk boundary,
+        swap `params` into the engine under the engine lock, bump the
+        version, resume — interrupted requests continue on their existing
+        KV pages.
+
+        `version` sets the ABSOLUTE serving version; a push at or behind
+        the current one is a no-op.  Without it the version bumps by one.
+        `checksum` (`integrity.params_checksum` at the pusher) is verified
+        BEFORE the swap: a mismatch raises `integrity.WeightChecksumError`
+        and the server keeps serving its previous weights.  Returns the
+        version now served."""
+        if version is not None:
+            with self._health_lock:
+                if int(version) <= self.version:
+                    return self.version
+        with self._update_mutex:
+            if checksum is not None:
+                integrity.verify_checksum(params, checksum)
+            self.pause()
+            try:
+                with self._engine_lock:
+                    with self._health_lock:
+                        if version is not None and int(version) <= self.version:
+                            # Another push of this (or a newer) version
+                            # landed while this one waited on the mutex.
+                            return self.version
+                    self.engine.set_params(params)
+                    with self._health_lock:
+                        self.version = self.version + 1 if version is None else int(version)
+                        v = self.version
+                    self.inmem_updates += 1
+            finally:
+                self.resume()
+        logger.info(f"weights updated in memory -> version {v}")
+        return v
+
+    def _await_resume(self) -> None:
+        """Block a parked _run_subgroup until resume(); the caller does
+        not hold the engine lock (the weight swap needs it)."""
+        while self._pause_evt.is_set():
+            if self._stop.is_set():
+                raise RuntimeError("generation server shutting down")
+            with self._resume_cond:
+                self._resume_cond.wait(timeout=0.2)
 
     # ---------------- request handling ----------------
 
@@ -254,6 +346,10 @@ class GenerationServer:
 
     def _run_subgroup(self, group: List[_Pending]):
         try:
+            # Wait out a pause before dispatch, so a batch arriving
+            # mid-push does not race the swap for the engine lock.
+            if self._pause_evt.is_set():
+                self._await_resume()
             g = group[0].gconfig
             # Internal ids are positional: client qids may collide.
             uids = [f"u{i}" for i in range(len(group))]
@@ -269,13 +365,29 @@ class GenerationServer:
             )
             self._seed += 1
             seed = group[0].seed if group[0].seed is not None else self._seed
-            with self._engine_lock:
-                version = self.version
+            self._engine_lock.acquire()
+            locked = True
+            try:
+                version_start = self.version
                 out = self.engine.generate(sample, MicroBatchSpec(), g, seed=seed)
+                while out is None:
+                    # Parked by pause(): free the engine for the weight
+                    # swap, wait for resume(), continue the interrupted
+                    # call on its existing KV pages.
+                    self._engine_lock.release()
+                    locked = False
+                    self._await_resume()
+                    self._engine_lock.acquire()
+                    locked = True
+                    out = self.engine.resume_generate()
+                version = self.version
+            finally:
+                if locked:
+                    self._engine_lock.release()
             per_id = {s.ids[0]: s for s in out.unpack()}
             for uid, p in zip(uids, group):
                 p.result = _extract_output(
-                    per_id[uid], len(p.prompt_ids), g.n, version
+                    per_id[uid], len(p.prompt_ids), g.n, version, version_start
                 )
         except Exception as e:  # noqa: BLE001 — fail the whole group
             logger.exception("generation batch failed")

@@ -14,7 +14,12 @@ kernel       — the ragged paged attention kernel (K2) against its plain
                96-lane serving stream (fp32, bf16, int8 pools; dead lanes
                exactly 0; a poisoned last pool page changes nothing), and
                its time beside the plain version, one library call and the
-               card's bound.
+               card's bound.  Then the paged chunk attention kernel (K3)
+               at the resume replay's shape (64 slots of 32 queries,
+               windows 64-640, ragged q_lens with some 0): fp32, bf16 and
+               int8 pools, each output row within a tolerance of its own
+               magnitude, dead queries exactly 0, a poisoned last pool
+               page changing nothing, and its times.
 flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                backward) against the plain version and its autograd on
                fp32 copies of the same inputs, at qwen2-1.5B's attention
@@ -41,6 +46,22 @@ train        — two GRPO steps at full qwen2-1.5B (fp32 masters, bf16
                rollout's logprobs (each response token held against the
                generator's), and K1f/K1dq/K1dkv are held against the plain
                version on layer 0's q/k/v at the step's packed [B, S].
+push         — the in-memory weight push mid-generation at full qwen2-1.5B
+               (28 layers, bf16): GenerationServer serves 16 GRPO requests
+               (n=4, prompts 64-512, 128 new tokens) while
+               update_weights_inmem pushes new random weights with their
+               checksum; the call parks at a chunk boundary, the weights
+               are swapped, every live row's last chunk is replayed
+               through K3 and the call finishes on its pages.  Spanned
+               requests (version 0 -> 1), K3 launches = 28 x replays, the
+               change against an uninterrupted old-weights run, and a
+               refused bad-checksum push are checked.
+resume_parity — park at the second serving chunk and resume under
+               unchanged weights at full qwen2-1.5B (rows decoding, a row
+               mid-prefill, a follower mapping shared prompt pages): each
+               replayed row's logits (K3) against the ones before the
+               replay (K2), and in fp32 greedy tokens identical to an
+               uninterrupted run.
 parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
                engine on the card (K2) against the engine on the CPU (the
                plain path).
@@ -67,7 +88,8 @@ import time
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "flash", "serve", "train", "parity", "train_parity")
+PHASES = ("build", "kernel", "flash", "serve", "push", "resume_parity", "train",
+          "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -290,6 +312,149 @@ def phase_kernel(report, seed):
     report["kernel"] = dict(
         max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, T=T,
+    )
+    _kernel_k3(report, seed)
+
+
+def _replay_slots(seed):
+    """The resume replay's shape at qwen2-1.5B width: B=64 slots of
+    Q=chunk_t=32 queries; slot b has L forwarded tokens (64..640) and
+    replays its last r (0..32, some 0), so query i attends
+    [0, L - r + 1 + i) and valid_to0 = L - r + 1.  Each slot maps
+    ceil(L / 128) pages of a shuffled pool, then sentinels; the last pool
+    page is never mapped, so poisoning it must change nothing."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 21)
+    b, nq_tok, n_q, n_kv, d, ps = 64, 32, 12, 2, 128, 128
+    L = rng.integers(64, 641, b)
+    L[:4] = (64, 127, 128, 640)
+    r = rng.integers(0, nq_tok + 1, b)
+    r[:8] = (32, 1, 0, 32, 0, 17, 32, 5)
+    r = np.minimum(r, L)
+    mp = -(-(640 + nq_tok) // ps)
+    pages = [-(-int(x) // ps) for x in L]
+    n_pool = sum(pages) + 8
+    perm = rng.permutation(n_pool - 1)  # page n_pool-1 stays unmapped
+    pt = np.full((b, mp), n_pool, np.int32)
+    used = 0
+    for s, k in enumerate(pages):
+        pt[s, :k] = perm[used : used + k]
+        used += k
+    return dict(
+        q=rng.standard_normal((b, nq_tok, n_q, d)).astype(np.float32),
+        k=rng.standard_normal((n_pool, ps, n_kv, d)).astype(np.float32),
+        v=rng.standard_normal((n_pool, ps, n_kv, d)).astype(np.float32),
+        k8=rng.integers(-127, 128, (n_pool, ps, n_kv, d)).astype(np.int8),
+        v8=rng.integers(-127, 128, (n_pool, ps, n_kv, d)).astype(np.int8),
+        ks=(np.abs(rng.standard_normal((n_pool, ps, n_kv))) * 0.01 + 0.002).astype(np.float32),
+        vs=(np.abs(rng.standard_normal((n_pool, ps, n_kv))) * 0.01 + 0.002).astype(np.float32),
+        pt=pt, hi0=(L - r + 1).astype(np.int32), ql=r.astype(np.int32),
+    )
+
+
+def _k3_bound(s, elem_bytes):
+    """Least time for K3 on these slots: the flops of QK and PV over every
+    live query's window at the bf16 tensor rate, against each slot's
+    unique K/V positions (its widest live window, read once for all its
+    queries and heads), q in, out back and the tables at the HBM rate."""
+    b, nq_tok, n_q, d = s["q"].shape
+    n_kv = s["k"].shape[2]
+    cap = s["pt"].shape[1] * s["k"].shape[1]
+    flops = kv_pos = 0
+    for hi0, ql in zip(s["hi0"].tolist(), s["ql"].tolist()):
+        for i in range(ql):
+            flops += 4 * d * n_q * min(hi0 + i, cap)
+        if ql > 0:
+            kv_pos += min(hi0 + ql - 1, cap)
+    nbytes = (2 * kv_pos * n_kv * d * elem_bytes + 2 * s["q"].size * elem_bytes
+              + s["pt"].size * 4 + 2 * b * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _kernel_k3(report, seed):
+    """K3 against its plain version at the replay's shape, fp32, bf16 and
+    an int8 pool: each output row (one position's head vector) within
+    FLASH_ROW_TOL of that row's largest |plain| value (see _row_err), the
+    plain version taken on fp32 copies of the same rounded inputs; dead
+    queries and q_lens-0 slots exactly 0; a poisoned last pool page
+    changes nothing.  Then times at bf16 beside the plain version, SDPA on
+    the gathered windows with the boolean mask, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.ops.attention import paged_gather_layer
+
+    dev = torch.device("cuda")
+    s = _replay_slots(seed)
+    t = {key: torch.from_numpy(val).to(dev) for key, val in s.items()}
+    pt, hi0, ql = t["pt"], t["hi0"], t["ql"]
+    b, nq_tok = s["q"].shape[:2]
+    dead = torch.arange(nq_tok, device=dev)[None, :] >= ql[:, None]  # [B, Q]
+    ks, vs = t["ks"].to(torch.bfloat16), t["vs"].to(torch.bfloat16)
+    bf = torch.bfloat16
+    cases = {
+        "fp32": (t["q"], t["k"], t["v"], None, None, FLASH_ROW_TOL["fp32"]),
+        "bf16": (t["q"].to(bf), t["k"].to(bf), t["v"].to(bf), None, None,
+                 FLASH_ROW_TOL["bf16"]),
+        "int8": (t["q"], t["k8"], t["v8"], ks, vs, FLASH_ROW_TOL["fp32"]),
+    }
+    errs = {}
+    for name, (q, k, v, ksc, vsc, tol) in cases.items():
+        out = pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ksc, vsc, q_lens=ql)
+        f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+        ref = pca.paged_chunk_attention_reference(
+            q.float(), f32(k), f32(v), pt, hi0, ksc, vsc, q_lens=ql
+        )
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"K3 {name}: non-finite output")
+        rel, err = _row_err(out, ref)
+        errs[name], errs[f"{name}_row"] = err, rel
+        log(f"[kernel] K3 {name}: row_err={rel:.3e} (tolerance {tol:.3e}) "
+            f"max_abs_err={err:.3e}")
+        check(rel <= tol, f"K3 {name} disagrees with the plain version")
+        check(float(out.float()[dead].abs().max()) == 0.0,
+              f"K3 {name}: dead queries are not exactly 0")
+        k_bad, v_bad = k.clone(), v.clone()
+        if k.dtype == torch.int8:
+            k_bad[-1], v_bad[-1] = 127, 127
+            ks_bad, vs_bad = ksc.clone(), vsc.clone()
+            ks_bad[-1], vs_bad[-1] = 1e9, 1e9
+        else:
+            k_bad[-1], v_bad[-1] = 1e9, 1e9
+            ks_bad, vs_bad = ksc, vsc
+        out_bad = pca.paged_decode_attention_chunk(
+            q, k_bad, v_bad, pt, hi0, ks_bad, vs_bad, q_lens=ql
+        )
+        check(torch.equal(out, out_bad),
+              f"K3 {name}: poisoning the last pool page changed the output")
+    # Times at the main path's dtype (bf16 q and pool).
+    q, k, v = cases["bf16"][:3]
+    kernel_ms = time_cuda(lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, q_lens=ql))
+    plain_ms = time_cuda(
+        lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, q_lens=ql), iters=10
+    )
+    # Library yardstick: one SDPA call over the gathered windows with the
+    # boolean mask (query i of slot b sees [0, hi0[b] + i) while i < ql[b]).
+    kc = paged_gather_layer(k, pt).transpose(1, 2).contiguous()  # [B, n_kv, S, d]
+    vc = paged_gather_layer(v, pt).transpose(1, 2).contiguous()
+    pos = torch.arange(kc.shape[2], device=dev)
+    qi = torch.arange(nq_tok, device=dev)
+    mask = (pos[None, None, :] < (hi0[:, None] + qi[None, :])[:, :, None]) & ~dead[:, :, None]
+    q4 = q.transpose(1, 2).contiguous()  # [B, n_q, Q, d]
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask[:, None], enable_gqa=True
+    ), iters=10)
+    bound_ms, bound_by = _k3_bound(s, 2)
+    log(f"[kernel] K3 bf16 B={b} Q={nq_tok}: kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}); {int((~dead).sum())} live queries")
+    report["k3"] = dict(
+        max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
@@ -679,6 +844,334 @@ def _profile_generate(engine, cfg, rng):
         log(f"[profile]   {k['share']:.3f} {k['ms']:10.2f} ms {k['calls']:7d}x {k['name']}")
     return dict(wall_s=wall, busy_s=busy_s, idle_share=1 - busy_s / wall,
                 inner_steps=steps, top_kernels=top)
+
+
+# --------------------------------------------------------------------------
+# Phase: the in-memory weight push mid-generation, at full size
+# --------------------------------------------------------------------------
+
+
+def _burst(url, prompts, n, max_new, seed, timeout=900.0):
+    """POST every prompt at once (one batched engine call: same gconfig
+    and seed); returns (replies, errors)."""
+    start = threading.Barrier(len(prompts))
+    replies, errors = [None] * len(prompts), []
+
+    def client(i):
+        start.wait(timeout=60.0)
+        try:
+            replies[i] = _post(url + "/generate", dict(
+                qid=f"q{i}", prompt_ids=prompts[i], n=n, max_new_tokens=max_new,
+                temperature=1.0, seed=seed,
+            ))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(f"q{i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    return threads, replies, errors
+
+
+def phase_push(report, seed):
+    """GenerationServer at full qwen2-1.5B (28 layers, bf16) serving 16
+    GRPO requests (n=4, prompts 64-512, 128 new tokens, one seed) while
+    `update_weights_inmem` pushes init_params(seed + 1) with its checksum
+    once live rows have run past their first chunk.  The running call
+    parks, the weights are swapped, each live row's last chunk is replayed
+    through K3, and the call finishes on its existing pages.  The same
+    burst under the old weights, uninterrupted, is the reference.  Then a
+    push with a wrong checksum is refused and version 1 keeps serving."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.base import integrity
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    cfg = qwen2_config("1.5b")
+    n_req, n, max_new = 16, 4, 128
+    engine = GeneratorEngine(cfg, init_params(cfg, seed, device="cuda"), eos_token_id=151643)
+    check(engine.device.type == "cuda", "the engine is not on the card")
+    chunk_t = min(32, max_new)
+    rng = np.random.default_rng(seed + 13)
+    prompts = [
+        rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+        for _ in range(n_req)
+    ]
+    # Time the swap and each replay (host clock, synchronized).
+    timing = {"swap_s": [], "replay_s": []}
+    real_set, real_replay = engine.set_params, engine._get_paged_replay_fn
+
+    def timed_set(params):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        real_set(params)
+        torch.cuda.synchronize()
+        timing["swap_s"].append(time.monotonic() - t0)
+
+    def timed_replay():
+        fn = real_replay()
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            fn(*a)
+            torch.cuda.synchronize()
+            timing["replay_s"].append(time.monotonic() - t0)
+
+        return run
+
+    # Neither runs before the push: the reference burst is not affected.
+    engine.set_params, engine._get_paged_replay_fn = timed_set, timed_replay
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=500.0)
+    try:
+        t0 = time.monotonic()
+        threads, ref, errors = _burst(server.url, prompts, n, max_new, seed + 14)
+        for th in threads:
+            th.join(timeout=900.0)
+        ref_s = time.monotonic() - t0
+        check(not errors and all(r is not None for r in ref), f"reference burst: {errors}")
+        check(all(r["version"] == r["version_start"] == 0 for r in ref),
+              "the reference burst did not run on version 0")
+        new = init_params(cfg, seed + 1, device="cuda")
+        checksum = integrity.params_checksum(new)
+        pca.LAUNCHES = rpa.LAUNCHES = 0
+        replays0, steps0 = engine.resume_replays, engine.steps_total
+        t0 = time.monotonic()
+        threads, replies, errors = _burst(server.url, prompts, n, max_new, seed + 14)
+        deadline = time.monotonic() + 600.0
+        while time.monotonic() < deadline:
+            live = json.loads(urllib.request.urlopen(server.url + "/health").read())["live_slots"]
+            if live > 0 and engine.steps_total - steps0 >= 2 * chunk_t:
+                break
+            time.sleep(0.01)
+        steps_at_push = engine.steps_total - steps0
+        check(steps_at_push >= 2 * chunk_t, "generation never ran two chunks")
+        t_push = time.monotonic()
+        version = server.update_weights_inmem(new, checksum=checksum)
+        push_s = time.monotonic() - t_push
+        del new
+        for th in threads:
+            th.join(timeout=900.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k3, k2 = pca.LAUNCHES, rpa.LAUNCHES
+        replays = engine.resume_replays - replays0
+        steps = engine.steps_total - steps0
+        check(not errors and all(r is not None for r in replies), f"push burst: {errors}")
+        health = json.loads(urllib.request.urlopen(server.url + "/health").read())
+        # A push with a corrupted checksum is refused; version 1 serves on.
+        bad = checksum.copy()
+        bad[2] *= 1.01
+        try:
+            server.update_weights_inmem(init_params(cfg, seed + 2, device="cuda"), checksum=bad)
+            refused = False
+        except integrity.WeightChecksumError:
+            refused = True
+        after = _post(server.url + "/generate", dict(
+            qid="after", prompt_ids=prompts[0][:64], n=1, max_new_tokens=8, greedy=True,
+        ))
+    finally:
+        del engine.set_params, engine._get_paged_replay_fn  # the timing wrappers
+        server.close()
+    check(version == 1, f"the push returned version {version}")
+    n_tok = n_spanned = n_changed = 0
+    for i, (r, r0) in enumerate(zip(replies, ref)):
+        check(len(r["output_ids"]) == n, f"q{i}: {len(r['output_ids'])} outputs")
+        for ids, lps in zip(r["output_ids"], r["output_logprobs"]):
+            check(len(ids) == max_new or (ids and ids[-1] == 151643),
+                  f"q{i}: {len(ids)} tokens and no EOS")
+            check(len(lps) == len(ids) and all(math.isfinite(x) for x in lps),
+                  f"q{i}: logprobs malformed")
+            n_tok += len(ids)
+        if r["version_start"] == 0 and r["version"] == 1:
+            n_spanned += 1
+            n_changed += r["output_ids"] != r0["output_ids"]
+    log(f"[push] reference burst (old weights, uninterrupted) {ref_s:.2f} s; push burst "
+        f"{wall:.2f} s, {n_tok} tokens; push after {steps_at_push} inner steps took "
+        f"{push_s:.3f} s (swap {sum(timing['swap_s']):.3f} s, replays "
+        f"{[round(x, 4) for x in timing['replay_s']]} s); resume_replays={replays}, "
+        f"K3 launches={k3} ({cfg.n_layers} x {replays}), K2 launches={k2} "
+        f"({cfg.n_layers} x {steps} inner steps); spanned requests {n_spanned}/{n_req}, "
+        f"of which {n_changed} differ from the old-weights run; health after: "
+        f"paused={health['paused']} version={health['version']}; bad-checksum push "
+        f"refused={refused}, then version {after['version']}")
+    check(n_spanned >= 1, "no request spanned the push (version_start 0, version 1)")
+    check(n_changed >= 1, "no spanned request changed under the new weights")
+    check(not health["paused"] and health["version"] == 1, f"health after the push {health}")
+    check(replays >= 1, "the push replayed nothing")
+    check(k3 == cfg.n_layers * replays, f"K3 launches {k3} != {cfg.n_layers} x {replays}")
+    check(k2 == cfg.n_layers * steps, f"K2 launches {k2} != {cfg.n_layers} x {steps}")
+    check(refused, "a push with a wrong checksum was not refused")
+    check(after["version"] == after["version_start"] == 1 and len(after["output_ids"][0]) == 8,
+          f"after the refused push: {after['version']}, {after['version_start']}")
+    report["push"] = dict(
+        launches=k3, k2_launches=k2, resume_replays=replays, push_s=push_s,
+        swap_s=timing["swap_s"], replay_s=timing["replay_s"], wall_s=wall,
+        reference_s=ref_s, tokens=n_tok, steps_at_push=steps_at_push,
+        inner_steps=steps, spanned=n_spanned, changed=n_changed,
+    )
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# Phase: resume under unchanged weights, at full size
+# --------------------------------------------------------------------------
+
+# The bf16 bound of resume_parity: each replayed row's logits before the
+# replay (K2's forward in the serving chunk) against after it (K3's
+# recompute of the same position), relative to the row's largest |logit|.
+# Two bf16 paths through one model (other GEMM shapes, so other
+# roundings of the same K/V): the first reading on the H100 was 1.56e-2;
+# the bound is under 3x that.  fp32 read 1.9e-6 against its 1e-4.
+RESUME_BF16_TOL = 4.5e-2
+
+
+def _resume_parity_run(cfg, params, dtype, sample, g):
+    """One uninterrupted greedy generate and one parked at the second
+    serving chunk, then resumed under unchanged weights.  Returns (the
+    uninterrupted output, the resumed output, logits_buf before and
+    after the replay, the replayed rows, what the park found)."""
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+
+    eng = GeneratorEngine(cfg, params, compute_dtype=dtype, eos_token_id=151643)
+    ref = eng.generate(sample, MicroBatchSpec(), g, seed=0)
+    real_get, real_replay = eng._get_serving_chunk_fn, eng._get_paged_replay_fn
+    calls, cap = {"n": 0}, {}
+
+    def hooked(*a, **kw):
+        fn = real_get(*a, **kw)
+
+        def wrapped(*fa, **fkw):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                eng.interrupt()
+            return fn(*fa, **fkw)
+
+        return wrapped
+
+    def captured():
+        fn = real_replay()
+
+        def run(*a):
+            cap["before"] = a[6].clone()
+            fn(*a)
+            cap["after"] = a[6].clone()
+            cap["live"] = a[8].clone()
+
+        return run
+
+    eng._get_serving_chunk_fn, eng._get_paged_replay_fn = hooked, captured
+    check(eng.generate(sample, MicroBatchSpec(), g, seed=0) is None,
+          "the interrupted generate did not park")
+    st = eng._session
+    live = [s for s in range(st.n_slots) if st.active[s] is not None]
+    park = dict(
+        decoding=sum(int(st.prefill_rem[s] == 0) for s in live),
+        prefilling=sum(int(st.prefill_rem[s] > 0) for s in live),
+        followers=sum(int(st.shared_from[s] > 0 and st.alloc.is_shared(s, 0)) for s in live),
+    )
+    eng.clear_interrupt()
+    out = eng.resume_generate()
+    torch.cuda.synchronize()
+    check(out is not None and eng.resume_replays == 1, "the resume did not finish")
+    del eng
+    return ref, out, cap["before"], cap["after"], cap["live"], park
+
+
+def _log_first_flip(ref, res):
+    """Print, for each sequence whose greedy tokens differ, the first
+    differing position, both tokens and the logit gap there: the two
+    chosen tokens' logprobs in their own runs, whose histories agree up
+    to that position."""
+    oa = ob = lpa = lpb = 0  # token and logprob offsets of each run
+    for ln_a, ln_b in zip(ref.seqlens["packed_input_ids"], res.seqlens["packed_input_ids"]):
+        for la, lb in zip(ln_a, ln_b):
+            a = ref.data["packed_input_ids"][oa : oa + la]
+            b = res.data["packed_input_ids"][ob : ob + lb]
+            m = min(la, lb)
+            diff = (a[:m] != b[:m]).nonzero()[0]
+            if len(diff):
+                j = int(diff[0])  # token j's logprob is entry j - 1
+                ga = float(ref.data["packed_logprobs"][lpa + j - 1])
+                gb = float(res.data["packed_logprobs"][lpb + j - 1])
+                log(f"[resume_parity] token {j} of a sequence: {int(a[j])} (logprob "
+                    f"{ga:.6f}) vs {int(b[j])} (logprob {gb:.6f}); gap {ga - gb:.3e}")
+            oa, ob, lpa, lpb = oa + la, ob + lb, lpa + la - 1, lpb + lb - 1
+
+
+def phase_resume_parity(report, seed):
+    """Park at the second serving chunk and resume under UNCHANGED weights
+    at full qwen2-1.5B (28 layers), with rows decoding, a row mid-prefill
+    and a same-prompt follower mapping its owner's prompt pages.  Each
+    replayed row's logits after the replay (K3) are held against the
+    ones before it (K2, the uninterrupted run's next-token logits):
+    relative 1e-4 in fp32, RESUME_BF16_TOL in bf16; in fp32 the greedy
+    tokens equal the uninterrupted run's."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import SequenceSample
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(seed + 17)
+    cfg = qwen2_config("1.5b", param_dtype="float32")
+    # A 560-token prompt is still prefilling after two chunks (8 prompt
+    # tokens a row per inner step); the 200-token prompt appears twice, so
+    # its second copy maps the first's full prompt page once that one
+    # has finished its prefill (the prefix cache of a GRPO group).
+    lens = (560, 200, 200, 40)
+    toks = [rng.integers(0, cfg.vocab_size, l) for l in lens[:2]]
+    toks = [toks[0], toks[1], toks[1].copy(), rng.integers(0, cfg.vocab_size, lens[3])]
+    sample = SequenceSample(
+        keys={"packed_prompts"}, ids=[f"p{i}" for i in range(len(lens))],
+        seqlens={"packed_prompts": [[l] for l in lens]},
+        data={"packed_prompts": np.concatenate(toks).astype(np.int32)},
+    )
+    g = GenerationHyperparameters(n=1, max_new_tokens=48, greedy=True)
+    params = init_params(cfg, seed + 3, device="cuda")
+    out = {}
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        ref, res, before, after, live, park = _resume_parity_run(cfg, params, dtype, sample, g)
+        gc.collect()  # the run's engine and its hooks
+        torch.cuda.empty_cache()
+        rows = live.nonzero()[:, 0]
+        diff = (after[rows] - before[rows]).abs().amax(-1)
+        rel = float((diff / before[rows].abs().amax(-1)).max())
+        same = (ref.seqlens["packed_input_ids"] == res.seqlens["packed_input_ids"]
+                and np.array_equal(ref.data["packed_input_ids"], res.data["packed_input_ids"]))
+        log(f"[resume_parity] {tag}: park found {park}; {len(rows)} rows replayed; "
+            f"logits after/before the replay: relative {rel:.3e}; greedy tokens "
+            f"identical to the uninterrupted run: {same}")
+        check(park["decoding"] > 0 and park["prefilling"] > 0 and park["followers"] > 0,
+              f"{tag}: the park did not find decoding, prefilling and follower rows")
+        out[tag] = dict(logits_rel=rel, tokens_identical=same, park=park, rows=len(rows))
+        if tag == "fp32":
+            check(rel <= 1e-4, f"fp32 replay logits differ by {rel:.3e} relative")
+            if not same:
+                _log_first_flip(ref, res)
+            check(same, "fp32 greedy tokens after the resume differ from the uninterrupted run")
+        else:
+            check(rel <= RESUME_BF16_TOL,
+                  f"bf16 replay logits differ by {rel:.3e} > {RESUME_BF16_TOL}")
+    report["resume_parity"] = out
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -1133,6 +1626,26 @@ def _kernels_line(report):
             "bound_by": bound[1],
             "library_ms": f.get("library_ms", {}).get(name),
         })
+    k3 = report.get("k3", {})
+    errs = k3.get("max_abs_err", {})
+    kernels.append({
+        "name": "paged_chunk_attention",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/paged_chunk_attention.cu",
+        "replaces": "areal_tpu/ops/pallas/paged_attention.py:194",
+        "launches": report.get("push", {}).get("launches"),
+        "max_abs_err": errs.get("bf16"),
+        "row_err": errs.get("bf16_row"),
+        "max_abs_err_fp32": errs.get("fp32"),
+        "row_err_fp32": errs.get("fp32_row"),
+        "max_abs_err_int8": errs.get("int8"),
+        "row_err_int8": errs.get("int8_row"),
+        "ms": k3.get("kernel_ms"),
+        "plain_ms": k3.get("plain_ms"),
+        "bound_ms": k3.get("bound_ms"),
+        "bound_by": k3.get("bound_by"),
+        "library_ms": k3.get("library_ms"),
+    })
     return kernels
 
 
@@ -1165,6 +1678,10 @@ def main() -> int:
         phase_flash(report, args.seed)
     if "serve" in phases:
         phase_serve(report, args.seed)
+    if "push" in phases:
+        phase_push(report, args.seed)
+    if "resume_parity" in phases:
+        phase_resume_parity(report, args.seed)
     if "train" in phases:
         phase_train(report, args.seed)
     if "parity" in phases:

@@ -4,6 +4,7 @@ equals the JAX engine's (twin of tests/test_gen_server.py's round trip)."""
 
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -194,3 +195,154 @@ def test_wire_dataclasses_match_jax():
     inp = tm.APIGenerateInput(qid="q", prompt_ids=[1, 2, 3], gconfig=g)
     out = tm.APIGenerateOutput.from_input(inp)
     assert out.prompt_len == 3 and out.output_lens == []
+
+
+# --------------------------------------------------------------------------
+# Pause / resume and the in-memory weight push (twins of the
+# TestAsyncServing cases in tests/test_gen_server.py)
+# --------------------------------------------------------------------------
+
+
+def _torch_params(key):
+    return params_from_numpy(
+        jax.tree.map(np.asarray, jtfm.init_params(jtiny(), jax.random.PRNGKey(key))),
+        device="cpu",
+    )
+
+
+def test_pause_parks_generation_until_resume(server):
+    client = LLMAPIClient(server.url)
+    client.pause()
+    assert client.health()["paused"] is True
+    g = GenerationHyperparameters(n=1, max_new_tokens=4, greedy=True)
+    box = {}
+
+    def run():
+        box["out"] = client.generate(APIGenerateInput(qid="p", prompt_ids=[10, 11, 12], gconfig=g))
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=0.3)  # parked: no reply while paused
+    assert th.is_alive() and "out" not in box
+    client.resume()
+    th.join(timeout=60)
+    assert not th.is_alive()
+    assert len(box["out"].output_ids[0]) == 4
+    assert client.health()["paused"] is False
+
+
+def test_update_weights_inmem_bumps_version(params):
+    eng = GeneratorEngine(
+        tiny_config(), params_from_numpy(jax.tree.map(np.asarray, params), device="cpu"),
+        "cpu", eos_token_id=EOS,
+    )
+    srv = GenerationServer(eng, max_wait_ms=2.0)
+    try:
+        client = LLMAPIClient(srv.url)
+        g = GenerationHyperparameters(n=1, max_new_tokens=8, greedy=True)
+        inp = APIGenerateInput(qid="q", prompt_ids=list(range(10, 20)), gconfig=g)
+        before = client.generate(inp)
+        assert before.version == before.version_start == 0
+        assert srv.update_weights_inmem(_torch_params(99)) == srv.version == 1
+        after = client.generate(inp)
+        assert after.version == after.version_start == 1
+        assert before.output_ids != after.output_ids
+        assert client.health()["paused"] is False
+        # An absolute version at or behind the current one is a no-op.
+        assert srv.update_weights_inmem(_torch_params(98), version=1) == 1
+        assert srv.inmem_updates == 1
+        assert srv.update_weights_inmem(_torch_params(98), version=5) == 5
+    finally:
+        srv.close()
+
+
+def test_inmem_push_interrupts_and_resumes_inflight():
+    """A weight push lands mid-decode: the running call parks at a chunk
+    boundary, the weights are swapped, and the requests finish on their
+    existing KV pages under the new version, keeping their start
+    version."""
+    eng = GeneratorEngine(tiny_config(), _torch_params(11), "cpu", eos_token_id=EOS,
+                          max_decode_batch=2)
+    srv = GenerationServer(eng, max_wait_ms=20.0)
+    try:
+        client = LLMAPIClient(srv.url)
+        g = GenerationHyperparameters(n=1, max_new_tokens=96, greedy=True)
+        inps = [
+            APIGenerateInput(qid=f"q{i}", prompt_ids=[10 + i, 11, 12, 13], gconfig=g)
+            for i in range(4)
+        ]
+        box = {}
+
+        def run():
+            box["outs"] = client.generate_batch(inps)
+
+        th = threading.Thread(target=run)
+        th.start()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and client.health()["live_slots"] == 0:
+            time.sleep(0.002)
+        assert client.health()["live_slots"] > 0, "decode never started"
+        # The push waits for the running call to park and free the engine
+        # lock: run it in a thread too, so a lock that is never released
+        # fails the test instead of hanging it.
+        pushed = {}
+        pusher = threading.Thread(
+            target=lambda: pushed.update(v=srv.update_weights_inmem(_torch_params(99)))
+        )
+        pusher.start()
+        pusher.join(timeout=120)
+        assert not pusher.is_alive() and pushed["v"] == 1
+        th.join(timeout=120)
+        assert not th.is_alive()
+        outs = box["outs"]
+        assert len(outs) == 4
+        spanned = [o for o in outs if o.version_start == 0 and o.version == 1]
+        assert spanned, [(o.qid, o.version_start, o.version) for o in outs]
+        assert eng.resume_replays >= 1
+        for o in outs:
+            assert len(o.output_ids[0]) == len(o.output_logprobs[0]) >= 1
+    finally:
+        srv.close()
+
+
+def test_params_checksum_matches_jax(params):
+    """The port's checksum of its tree equals the JAX package's of the
+    same numpy weights, leaf for leaf, and verifies against it."""
+    from areal_tpu.base import integrity as jint
+    from areal_tpu_torch.base import integrity as tint
+
+    host = jax.tree.map(np.asarray, params)
+    want = jint.params_checksum(host)
+    got = tint.params_checksum(params_from_numpy(host, device="cpu"))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert tint.checksum_matches(got, jint.params_checksum(params))
+    tint.verify_checksum(params_from_numpy(host, device="cpu"), want)
+    assert np.array_equal(tint.params_checksum(host), want)
+
+
+def test_corrupted_push_is_refused_and_old_weights_serve(params):
+    from areal_tpu.base import integrity as jint
+    from areal_tpu_torch.base import integrity as tint
+
+    eng = GeneratorEngine(tiny_config(), _torch_params(11), "cpu", eos_token_id=EOS)
+    srv = GenerationServer(eng, max_wait_ms=2.0)
+    try:
+        client = LLMAPIClient(srv.url)
+        inp = APIGenerateInput(
+            qid="q", prompt_ids=list(range(10, 20)),
+            gconfig=GenerationHyperparameters(n=1, max_new_tokens=6, greedy=True),
+        )
+        new = _torch_params(99)
+        good = jint.params_checksum(jax.tree.map(np.asarray, jtfm.init_params(jtiny(), jax.random.PRNGKey(99))))
+        assert srv.update_weights_inmem(new, checksum=good) == 1
+        served = client.generate(inp)
+        bad = _torch_params(77)
+        bad["blocks"]["wq"] = bad["blocks"]["wq"] * 1.5
+        with pytest.raises(tint.WeightChecksumError):
+            srv.update_weights_inmem(bad, checksum=tint.params_checksum(_torch_params(77)))
+        assert srv.version == 1 and client.health()["paused"] is False
+        again = client.generate(inp)
+        assert again.version == again.version_start == 1
+        assert again.output_ids == served.output_ids
+    finally:
+        srv.close()

@@ -13,7 +13,6 @@ import torch
 from areal_tpu.ops.attention import ragged_paged_attention as jax_fallback
 from areal_tpu.ops.pallas.paged_attention import ragged_paged_attention_kernel as jax_kernel
 from areal_tpu_torch.kernels import ragged_paged_attention as rpa
-from areal_tpu_torch.ops.attention import ragged_paged_attention
 
 torch.set_num_threads(2)
 
@@ -42,7 +41,7 @@ def _stream(rng):
 
 def _port(q, k, v, pt, vt, ks=None, vs=None):
     t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
-    return ragged_paged_attention(
+    return rpa.ragged_paged_attention_kernel(
         t(q), t(k), t(v), t(pt), t(vt),
         None if ks is None else t(ks).to(torch.bfloat16),
         None if vs is None else t(vs).to(torch.bfloat16),
