@@ -88,19 +88,22 @@ def params_checksum(tree: Any) -> np.ndarray:
     return np.asarray(head + norms, np.float64)
 
 
-def checksum_matches(
-    a: np.ndarray, b: np.ndarray, rtol: float = 1e-4, atol: float = 1e-5
-) -> bool:
-    """True iff two checksums describe the same params content; the
-    tolerances absorb reduction-order differences between devices and
-    libraries, far below any rescaled or shifted leaf."""
+# Checksum tolerances: they absorb reduction-order differences between
+# devices and libraries, far below any rescaled or shifted leaf.
+CHECKSUM_RTOL = 1e-4
+CHECKSUM_ATOL = 1e-5
+
+
+def checksum_matches(a: np.ndarray, b: np.ndarray) -> bool:
+    """True iff two checksums describe the same params content, within
+    CHECKSUM_RTOL / CHECKSUM_ATOL."""
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     if a.shape != b.shape or a.shape[0] < 2:
         return False
     if a[0] != b[0] or a[1] != b[1]:
         return False
-    return bool(np.allclose(a, b, rtol=rtol, atol=atol))
+    return bool(np.allclose(a, b, rtol=CHECKSUM_RTOL, atol=CHECKSUM_ATOL))
 
 
 def verify_checksum(tree: Any, expected: np.ndarray) -> None:

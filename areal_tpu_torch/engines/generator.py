@@ -201,8 +201,8 @@ class GeneratorEngine:
         self.load_state = (0, 0.0)
         # Interruptible generation: the event parks the serving loop at
         # its next chunk boundary; the parked session waits in _session
-        # for resume_generate().  resume_replays counts resumes over the
-        # engine's life.
+        # for resume_generate().  resume_replays counts the resumes that
+        # replayed at least one live row (each one runs K3 once per layer).
         self._interrupt_evt = threading.Event()
         self._session: Optional[_PagedGenSession] = None
         self.resume_replays = 0
@@ -391,7 +391,7 @@ class GeneratorEngine:
                 to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
                 to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
             )
-        self.resume_replays += 1
+            self.resume_replays += 1
         # The push invalidated every cached prompt KV: post-resume
         # admissions re-prefill under the new weights instead of sharing
         # stale pages.  Live followers keep their mappings (their whole

@@ -41,22 +41,19 @@ def paged_chunk_attention_reference(
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # [B, max_pages] (sentinel >= P)
     valid_to0: torch.Tensor,  # [B] — one past query 0's window
+    q_lens: torch.Tensor,  # [B] live queries per row
     k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16: int8 pool
     v_scale: Optional[torch.Tensor] = None,
-    q_lens: Optional[torch.Tensor] = None,  # [B] live queries per row
 ) -> torch.Tensor:
     """The plain version: gather each slot's window through its page row
     (`paged_gather_layer`), then `decode_attention_chunk`."""
-    b = q.shape[0]
     k_cache = paged_gather_layer(k_pool, page_table)
     v_cache = paged_gather_layer(v_pool, page_table)
     ks = None if k_scale is None else paged_gather_layer(k_scale, page_table)
     vs = None if v_scale is None else paged_gather_layer(v_scale, page_table)
     return decode_attention_chunk(
-        q, k_cache, v_cache,
-        torch.zeros((b,), dtype=torch.long, device=q.device),
-        valid_to0.long(), k_scale=ks, v_scale=vs,
-        q_lens=None if q_lens is None else q_lens.long(),
+        q, k_cache, v_cache, valid_to0.long(), q_lens.long(),
+        k_scale=ks, v_scale=vs,
     )
 
 
@@ -94,22 +91,20 @@ def paged_decode_attention_chunk(
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # [B, max_pages] int32 (sentinel >= P)
     valid_to0: torch.Tensor,  # [B] int32 — one past query 0's window
+    q_lens: torch.Tensor,  # [B] int32 — live queries per row
     k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16 (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
-    q_lens: Optional[torch.Tensor] = None,  # [B] int32; None = all Q live
 ) -> torch.Tensor:
     """[B, Q, n_q, d] in q's dtype.  CPU tensors: the plain version.  CUDA
     tensors: the sm_90a kernel, on the current stream, or an error."""
     global LAUNCHES
     if q.device.type == "cpu":
         return paged_chunk_attention_reference(
-            q, k_pool, v_pool, page_table, valid_to0, k_scale, v_scale, q_lens
+            q, k_pool, v_pool, page_table, valid_to0, q_lens, k_scale, v_scale
         )
     if q.device.type != "cuda":
         raise ValueError(f"no paged_decode_attention_chunk for device {q.device}")
     b, nq_tok, n_q, d = q.shape
-    if q_lens is None:
-        q_lens = torch.full((b,), nq_tok, dtype=torch.int32, device=q.device)
     _check(q, k_pool, v_pool, page_table, valid_to0, q_lens, k_scale, v_scale)
     n_pool, ps, n_kv, _ = k_pool.shape
     out = torch.empty_like(q)

@@ -495,12 +495,12 @@ def decode_step_spec_paged(
     cache: PagedKVCache,
     page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
     write_pos0: torch.Tensor,  # [B] int — flat position of tokens[:, 0]
-    q_lens: Optional[torch.Tensor] = None,  # [B] int — live queries per row
+    q_lens: torch.Tensor,  # [B] int — live queries per row
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Q consecutive tokens per row in one forward: k/v written at flat
     positions write_pos0 .. write_pos0 + Q - 1 through the page table,
     query i attending [0, write_pos0 + 1 + i) (`paged_decode_attention_chunk`,
-    K3 on the card).  With `q_lens` the step is ragged: row b's queries
+    K3 on the card).  The step is ragged: row b's queries
     i >= q_lens[b] are dead — their K/V writes go to the trash page only
     (never a clamped real page, which may belong to another sequence)
     and their attention gives zeros; their logits are garbage the caller
@@ -517,14 +517,13 @@ def decode_step_spec_paged(
     write_pos0 = write_pos0.long()
     col = write_pos0[:, None] + torch.arange(q_len, device=dev)[None, :]
     wp_page, wp_off = _page_of(page_table, col, cache.page_size)
-    if q_lens is not None:
-        dead = torch.arange(q_len, device=dev)[None, :] >= q_lens.long()[:, None]
-        wp_page = torch.where(dead, torch.full_like(wp_page, _DROP_PAGE), wp_page)
+    dead = torch.arange(q_len, device=dev)[None, :] >= q_lens.long()[:, None]
+    wp_page = torch.where(dead, torch.full_like(wp_page, _DROP_PAGE), wp_page)
     idx = (wp_page.reshape(-1), wp_off.reshape(-1))
     # The attention kernel takes int32 tables, windows and query counts.
     pt_attn = page_table.to(torch.int32).contiguous()
     valid_to0 = (write_pos0 + 1).to(torch.int32)
-    ql_attn = None if q_lens is None else q_lens.to(torch.int32).contiguous()
+    ql_attn = q_lens.to(torch.int32).contiguous()
     blocks = params["blocks"]
     for li in range(cfg.n_layers):
         blk = {name: w[li] for name, w in blocks.items()}
@@ -535,8 +534,8 @@ def decode_step_spec_paged(
             v.reshape(b * q_len, cfg.n_kv_heads, cfg.head_dim), li, idx,
         )
         attn = paged_decode_attention_chunk(
-            q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to0,
-            k_scale=ks_l, v_scale=vs_l, q_lens=ql_attn,
+            q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to0, ql_attn,
+            k_scale=ks_l, v_scale=vs_l,
         )
         ao = attn.reshape(b, q_len, cfg.q_dim) @ blk["wo"]
         if cfg.proj_bias:

@@ -114,17 +114,16 @@ def decode_attention_chunk(
     q: torch.Tensor,  # [B, Q, n_q, d] — Q consecutive new tokens per row
     k_cache: torch.Tensor,  # [B, S_max, n_kv, d]
     v_cache: torch.Tensor,  # [B, S_max, n_kv, d]
-    valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
     valid_to0: torch.Tensor,  # [B] int — one past query 0's last visible slot
+    q_lens: torch.Tensor,  # [B] int — live queries per row
     k_scale: Optional[torch.Tensor] = None,  # [B, S_max, n_kv]: int8 cache
     v_scale: Optional[torch.Tensor] = None,
-    q_lens: Optional[torch.Tensor] = None,  # [B] int — live queries per row
 ) -> torch.Tensor:
     """Multi-query decode attention, plain formulation: query i attends
-    the window [valid_from, valid_to0 + i), the causal extension of
-    `decode_attention` to Q consecutive positions.  With `q_lens` the
-    chunk is ragged: only queries i < q_lens[row] are live, and dead
-    queries (and live ones with an empty window) give exact zeros."""
+    the window [0, valid_to0 + i), the causal extension of
+    `decode_attention` to Q consecutive positions.  The chunk is ragged:
+    only queries i < q_lens[row] are live, and dead queries (and live
+    ones with an empty window) give exact zeros."""
     if k_scale is not None:
         from areal_tpu_torch.ops.quant import kv_dequant
 
@@ -143,12 +142,9 @@ def decode_attention_chunk(
     )  # [B, n_kv, Q, n_rep, S] fp32
     idx = torch.arange(k_cache.shape[1], device=q.device)
     qi = torch.arange(nq_tok, device=q.device)
-    valid = (idx[None, None, :] >= valid_from.expand(b)[:, None, None]) & (
-        idx[None, None, :]
-        < (valid_to0.expand(b)[:, None] + qi[None, :])[:, :, None]
-    )  # [B, Q, S]
-    if q_lens is not None:
-        valid = valid & (qi[None, :, None] < q_lens.expand(b)[:, None, None])
+    valid = (
+        idx[None, None, :] < (valid_to0[:, None] + qi[None, :])[:, :, None]
+    ) & (qi[None, :, None] < q_lens[:, None, None])  # [B, Q, S]
     logits = torch.where(
         valid[:, None, :, None, :], logits, torch.full_like(logits, NEG_INF)
     )

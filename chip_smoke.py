@@ -357,7 +357,9 @@ def _k3_bound(s, elem_bytes):
     """Least time for K3 on these slots: the flops of QK and PV over every
     live query's window at the bf16 tensor rate, against each slot's
     unique K/V positions (its widest live window, read once for all its
-    queries and heads), q in, out back and the tables at the HBM rate."""
+    queries and heads), the live queries' q in (a dead query's output is
+    0 whatever its q holds), every output row back and the tables at the
+    HBM rate."""
     b, nq_tok, n_q, d = s["q"].shape
     n_kv = s["k"].shape[2]
     cap = s["pt"].shape[1] * s["k"].shape[1]
@@ -367,7 +369,8 @@ def _k3_bound(s, elem_bytes):
             flops += 4 * d * n_q * min(hi0 + i, cap)
         if ql > 0:
             kv_pos += min(hi0 + ql - 1, cap)
-    nbytes = (2 * kv_pos * n_kv * d * elem_bytes + 2 * s["q"].size * elem_bytes
+    nbytes = (2 * kv_pos * n_kv * d * elem_bytes
+              + int(s["ql"].sum()) * n_q * d * elem_bytes + s["q"].size * elem_bytes
               + s["pt"].size * 4 + 2 * b * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
@@ -404,10 +407,10 @@ def _kernel_k3(report, seed):
     }
     errs = {}
     for name, (q, k, v, ksc, vsc, tol) in cases.items():
-        out = pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ksc, vsc, q_lens=ql)
+        out = pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql, ksc, vsc)
         f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
         ref = pca.paged_chunk_attention_reference(
-            q.float(), f32(k), f32(v), pt, hi0, ksc, vsc, q_lens=ql
+            q.float(), f32(k), f32(v), pt, hi0, ql, ksc, vsc
         )
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K3 {name}: non-finite output")
@@ -427,15 +430,15 @@ def _kernel_k3(report, seed):
             k_bad[-1], v_bad[-1] = 1e9, 1e9
             ks_bad, vs_bad = ksc, vsc
         out_bad = pca.paged_decode_attention_chunk(
-            q, k_bad, v_bad, pt, hi0, ks_bad, vs_bad, q_lens=ql
+            q, k_bad, v_bad, pt, hi0, ql, ks_bad, vs_bad
         )
         check(torch.equal(out, out_bad),
               f"K3 {name}: poisoning the last pool page changed the output")
     # Times at the main path's dtype (bf16 q and pool).
     q, k, v = cases["bf16"][:3]
-    kernel_ms = time_cuda(lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, q_lens=ql))
+    kernel_ms = time_cuda(lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql))
     plain_ms = time_cuda(
-        lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, q_lens=ql), iters=10
+        lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, ql), iters=10
     )
     # Library yardstick: one SDPA call over the gathered windows with the
     # boolean mask (query i of slot b sees [0, hi0[b] + i) while i < ql[b]).

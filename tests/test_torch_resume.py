@@ -12,6 +12,7 @@ whole budget and the interrupt lands mid-flight):
 - interrupted at chunk 2, given the same NEW weights and resumed, the
   port and the JAX engine emit identical greedy tokens, logprobs within
   1e-5;
+- a resume with no live row replays nothing;
 - `set_params` never aliases its source."""
 
 import jax
@@ -137,6 +138,24 @@ def test_interrupted_resume_is_token_identical(weights):
     eng.clear_interrupt()
     out = eng.resume_generate()
     assert out is not None and eng.resume_replays == 1 and not eng.interrupted
+    _assert_same(ref, out)
+
+
+def test_resume_before_any_admission_replays_nothing(weights):
+    """An interrupt already pending when generate() starts parks it before
+    any slot is admitted: the resume has no live row, runs no replay
+    (resume_replays stays 0, unlike the reference's count of resumes)
+    and the tokens equal the uninterrupted run's."""
+    _, ts = _samples((5, 7))
+    g = GenerationHyperparameters(n=1, max_new_tokens=12, greedy=True)
+    ref = _port_engine(weights["old"][1]).generate(ts, MicroBatchSpec(), g, seed=0)
+    eng = _port_engine(weights["old"][1])
+    eng.interrupt()
+    assert eng.generate(ts, MicroBatchSpec(), g, seed=0) is None
+    assert all(a is None for a in eng._session.active)
+    eng.clear_interrupt()
+    out = eng.resume_generate()
+    assert out is not None and eng.resume_replays == 0 and not eng.interrupted
     _assert_same(ref, out)
     with pytest.raises(RuntimeError, match="no interrupted generation"):
         eng.resume_generate()
