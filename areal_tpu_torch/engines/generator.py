@@ -1,14 +1,26 @@
-"""Generation engine: the unified serving plane over a paged KV pool
-(port of the serving-plane part of areal_tpu/engines/generator.py).
+"""Generation engine: the static path and the unified serving plane over
+a paged KV pool (port of areal_tpu/engines/generator.py).
 
-`GeneratorEngine.generate` always runs the serving plane: a fixed slot
-pool where admitted prompts are consumed in `prefill_chunk_tokens` (W)
-sized slices INSIDE the same ragged chunk step that advances live
-decodes, finished rows retire between chunks, and same-prompt repeats (a
-GRPO group's n responses) map the owner's full prompt pages
-copy-on-write.  Each chunk runs `chunk_t` inner steps on the device —
-lane grants, sampling and one `decode_step_ragged_paged` forward each —
-and syncs with the host once, at its end.
+`GeneratorEngine.generate` chooses its path as the JAX engine does: stop
+sequences go to the serving plane; otherwise, unless the caller says,
+a call with more requests than `max_decode_batch`, or with more than
+`static_path_max_new` new tokens, goes to the serving plane and every
+other call takes the static path.
+
+The static path (`_generate_chunk`): length-sorted chunks of at most
+`max_decode_batch` requests, each one program over a dense KV cache —
+right-aligned prompts, one `prefill` (K1f on the card), then one
+`decode_step` (K4 on the card) per token until every row is done or the
+token budget is spent.
+
+The serving plane: a fixed slot pool where admitted prompts are
+consumed in `prefill_chunk_tokens` (W) sized slices INSIDE the same
+ragged chunk step that advances live decodes, finished rows retire
+between chunks, and same-prompt repeats (a GRPO group's n responses) map
+the owner's full prompt pages copy-on-write.  Each chunk runs `chunk_t`
+inner steps on the device — lane grants, sampling and one
+`decode_step_ragged_paged` forward each — and syncs with the host once,
+at its end.
 
 Interruptible generation (the in-memory weight push of asynchronous RL):
 `interrupt()` makes the serving loop park at its next chunk boundary,
@@ -17,13 +29,14 @@ and `generate` then returns None; after the caller swaps the weights
 through `decode_step_spec_paged` (K3 on the card) under the CURRENT
 weights — rewriting that tail's KV on its already-mapped pages and
 refreshing the next-token logits — and continues the loop, so a push
-costs one chunk of replay, not a drain and a full re-prefill.
+costs one chunk of replay, not a drain and a full re-prefill.  A static
+call is one program: it ignores interrupt() and finishes whole, as in
+the JAX package.
 
 Not yet ported (they raise NotImplementedError): speculative decoding
-(spec_decode_k > 0), agent episodes, the dense KV window
-(kv_paged=False), the two-program admit path (prefill_chunk_tokens=0)
-and the static path (the port never takes it: JAX pins the inflight and
-static paths to the same greedy tokens).
+(spec_decode_k > 0), agent episodes, the dense KV window of the
+inflight path (kv_paged=False) and the two-program admit path
+(prefill_chunk_tokens=0).
 """
 
 import dataclasses
@@ -36,6 +49,7 @@ import torch
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import GenerationHyperparameters
 from areal_tpu_torch.base.device import resolve_device
+from areal_tpu_torch.engines.packing import bucket_len
 from areal_tpu_torch.engines.paging import PageAllocator
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
@@ -169,6 +183,10 @@ class GeneratorEngine:
             )
         self.compute_dtype = compute_dtype
         self.max_decode_batch = int(max_decode_batch)
+        # Token budget above which generate() leaves the static path even
+        # when every request fits one chunk: the static program allocates
+        # its whole window up front and decodes without a chunk boundary.
+        self.static_path_max_new = 2048
         self.kv_cache_dtype = kv_cache_dtype
         self.kv_page_size = int(kv_page_size)
         # 0 = auto: every slot at prompt + max_new_tokens.
@@ -192,8 +210,12 @@ class GeneratorEngine:
         self.lanes_live = 0
         self.lanes_slack = 0
         self.dead_live_lanes = 0
-        # Inner steps (forwards) run over the engine's life — never reset.
+        # Serving-plane inner steps (forwards) run over the engine's life,
+        # and the static path's chunks (one prefill each) and decode steps
+        # — never reset.
         self.steps_total = 0
+        self.static_chunks = 0
+        self.static_decode_steps = 0
         # Load gauges for the server's /health: (live_slots,
         # kv_utilization) replaced as one tuple.
         self.kv_utilization = 0.0
@@ -290,9 +312,11 @@ class GeneratorEngine:
         seed: int = 0,
         inflight: Optional[bool] = None,
     ) -> SequenceSample:
-        """Group-sample `gconfig.n` responses per prompt through the
-        serving plane (`inflight` is accepted for the JAX signature; every
-        call takes the serving plane).
+        """Group-sample `gconfig.n` responses per prompt, on the static
+        path or the serving plane (module docstring): `inflight=True`
+        asks for the serving plane, `False` for the static path, None
+        leaves the choice to the engine; stop sequences always take the
+        serving plane.
 
         Returns a SequenceSample (one element per prompt, `n` sequences
         per element) with packed_input_ids (prompt + response),
@@ -328,6 +352,22 @@ class GeneratorEngine:
                 reqs.append((i, r, toks))
         order = sorted(range(len(reqs)), key=lambda j: -len(reqs[j][2]))
         results: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, bool]] = {}
+        if gconfig.stop:
+            # Stop sequences are matched on the host at chunk boundaries,
+            # and a static program has none.
+            inflight = True
+        elif inflight is None:
+            inflight = (
+                len(reqs) > self.max_decode_batch
+                or gconfig.max_new_tokens > self.static_path_max_new
+            )
+        if not inflight:
+            generator = torch.Generator(device=self.device).manual_seed(int(seed))
+            b_cap = self.max_decode_batch
+            for start in range(0, len(order), b_cap):
+                chunk = [reqs[j] for j in order[start : start + b_cap]]
+                self._generate_chunk(chunk, gconfig, generator, results)
+            return self._assemble(sample, prompt_key, prompt_lens, results, n)
         self._generate_inflight_serving(
             [reqs[j] for j in order], gconfig, seed, results
         )
@@ -910,6 +950,102 @@ class GeneratorEngine:
 
         self.decode_compiles += 1
         return fn
+
+    # -- the static path --
+
+    def _generate_chunk(self, chunk, gconfig, generator, results) -> None:
+        """One fixed-shape chunk of requests: right-aligned prompts, so
+        every row's next token lands at the same cache slot (sp + step)."""
+        b = len(chunk)
+        sp = bucket_len(max(len(t) for (_, _, t) in chunk))
+        s_total = bucket_len(sp + gconfig.max_new_tokens)
+        prompt_tok = np.full((b, sp), self.pad_token_id, np.int64)
+        prompt_len = np.zeros((b,), np.int64)
+        for r, (_, _, toks) in enumerate(chunk):
+            prompt_tok[r, sp - len(toks) :] = toks
+            prompt_len[r] = len(toks)
+        toks, logps, gen_len = self._static_program(
+            prompt_tok, prompt_len, sp, s_total, gconfig, generator
+        )
+        for r, (i, rep, _) in enumerate(chunk):
+            gl = int(gen_len[r])
+            no_eos = gl == gconfig.max_new_tokens and (
+                gl == 0 or toks[r, gl - 1] != self.eos_token_id
+            )
+            results[(i, rep)] = (toks[r, :gl], logps[r, :gl], no_eos)
+
+    @torch.inference_mode()
+    def _static_program(
+        self, prompt_tok: np.ndarray, prompt_len: np.ndarray, sp: int,
+        s_total: int, g: GenerationHyperparameters, generator: torch.Generator,
+    ):
+        """Prefill, then the decode loop over a dense [L, B, s_total]
+        cache.  Step t samples every row's token from the carried logits
+        (EOS masked with -1e10 while t < min_new_tokens); a done row
+        emits EOS into the cache and 0 into the outputs, and its emission
+        count stops; then one `decode_step` writes slot sp + t at RoPE
+        position prompt_len + t and attends [sp - prompt_len, sp + t].
+
+        The loop ends when every row is done or after max_new samples.
+        The host reads the done flag once per step, of the step just
+        sampled, while that step's forward is already queued: the card
+        never waits for the host, and the last forward's logits, as in
+        the JAX program, go unread.  After the last sample no forward is
+        run.  Done rows change no output, so the results do not depend
+        on when the flag is read.  Returns host arrays (tokens [B,
+        max_new], logprobs [B, max_new], emitted counts [B])."""
+        cfg, dev, eos = self.cfg, self.device, self.eos_token_id
+        max_new = g.max_new_tokens
+        b = prompt_tok.shape[0]
+        tok_in = torch.from_numpy(prompt_tok).to(dev)
+        plen = torch.from_numpy(prompt_len).to(dev)
+        valid_from = sp - plen  # [B] first live cache slot
+        seg = (torch.arange(sp, device=dev)[None, :] >= valid_from[:, None]).long()
+        cache = tfm.init_kv_cache(cfg, b, s_total, dtype=self.compute_dtype, device=dev)
+        logits, cache = tfm.prefill(self.params, cfg, tok_in, seg, cache)
+        self.static_chunks += 1
+        out_toks = torch.zeros((b, max_new), dtype=torch.long, device=dev)
+        out_logps = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        gen_len = torch.zeros((b,), dtype=torch.long, device=dev)
+        eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+        on_card = dev.type == "cuda"
+        if on_card:
+            all_done = torch.empty((), dtype=torch.bool, pin_memory=True)
+            flag_ready = torch.cuda.Event()
+        for step in range(max_new):
+            lg = logits
+            if step < g.min_new_tokens:
+                lg = lg.masked_fill(eos_col[None, :], -1e10)
+            tok, logp = sample_token(
+                lg, generator, temperature=g.temperature, top_k=g.top_k,
+                top_p=g.top_p, greedy=g.greedy,
+            )
+            tok = torch.where(done, eos, tok)
+            out_toks[:, step] = torch.where(done, 0, tok)
+            out_logps[:, step] = torch.where(done, 0.0, logp)
+            gen_len += (~done).long()
+            done = done | (tok == eos)
+            if step + 1 == max_new:
+                break
+            if on_card:
+                all_done.copy_(done.all(), non_blocking=True)
+                flag_ready.record()
+            logits, cache = tfm.decode_step(
+                self.params, cfg, tok, plen + step, cache, sp + step, valid_from
+            )
+            self.static_decode_steps += 1
+            if on_card:
+                flag_ready.synchronize()
+                finished = bool(all_done)
+            else:
+                finished = bool(done.all())
+            if finished:
+                break
+        return (
+            out_toks.cpu().numpy(), out_logps.cpu().numpy(),
+            gen_len.cpu().numpy(),
+        )
 
     # -- output assembly --
 

@@ -169,7 +169,7 @@ class PPOActorInterface(ModelInterface):
     early_stop_kl: Optional[float] = None
     disable_value: bool = False  # GRPO mode; the critic branch is not ported
     adv_norm: bool = True
-    group_adv_norm: bool = False
+    group_adv_norm: bool = False  # acts only with the critic
     mask_no_eos_with_zero: bool = False
     behav_imp_weight_cap: Optional[float] = None
 
@@ -287,20 +287,12 @@ class PPOActorInterface(ModelInterface):
         if ref_logp is not None and klv != 0.0:
             adv_full += -klv * (old_logp - ref_logp) * loss_mask
 
-        if self.adv_norm:
-            m = loss_mask > 0
-            if self.group_adv_norm:
-                for gi in set(group_of):
-                    gm = np.zeros_like(m)
-                    for si, (lo, hi) in enumerate(seq_slices):
-                        if group_of[si] == gi:
-                            gm[lo:hi] = m[lo:hi]
-                    if gm.any():
-                        vals = adv_full[gm]
-                        adv_full[gm] = (vals - vals.mean()) / (vals.std() + 1e-5)
-            elif m.any():
-                vals = adv_full[m]
-                adv_full[m] = (vals - vals.mean()) / (vals.std() + 1e-5)
+        # Normalized over the whole batch: group_adv_norm acts only with a
+        # critic (the JAX package's `batch_norm`), and GRPO has none.
+        m = loss_mask > 0
+        if self.adv_norm and m.any():
+            vals = adv_full[m]
+            adv_full[m] = (vals - vals.mean()) / (vals.std() + 1e-5)
 
         train_sample = sample.select_keys({"packed_input_ids", "prompt_mask"})
         aligned = {"old_logp": old_logp, "advantages": adv_full, "loss_mask": loss_mask}

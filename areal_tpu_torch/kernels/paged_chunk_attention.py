@@ -46,13 +46,15 @@ def paged_chunk_attention_reference(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version: gather each slot's window through its page row
-    (`paged_gather_layer`), then `decode_attention_chunk`."""
+    (`paged_gather_layer`), then `decode_attention_chunk` over windows
+    that start at position 0."""
     k_cache = paged_gather_layer(k_pool, page_table)
     v_cache = paged_gather_layer(v_pool, page_table)
     ks = None if k_scale is None else paged_gather_layer(k_scale, page_table)
     vs = None if v_scale is None else paged_gather_layer(v_scale, page_table)
     return decode_attention_chunk(
-        q, k_cache, v_cache, valid_to0.long(), q_lens.long(),
+        q, k_cache, v_cache, torch.zeros_like(valid_to0, dtype=torch.long),
+        valid_to0.long(), q_lens.long(),
         k_scale=ks, v_scale=vs,
     )
 

@@ -1,6 +1,7 @@
 """The transformer (port of areal_tpu/models/transformer.py): the
-packed-row forward that training and inference run, and the serving
-forward over a paged KV pool.
+packed-row forward that training and inference run, the static generate
+path's forwards over a dense KV cache, and the serving forward over a
+paged KV pool.
 
 - Parameters are a plain dict with per-layer tensors STACKED on a leading
   axis under "blocks" — the JAX package's layout, so one set of weights
@@ -14,6 +15,12 @@ forward over a paged KV pool.
   "dots" and "dots_small" are not ported yet.
 - The LM head gives fp32 logits of the product in the weights' dtype
   (`ops/functional.matmul_fp32_out`), as the JAX package asks XLA for.
+- The static generate path over a dense cache `KVCache` [L, B, S, ...]
+  with right-aligned prompts: `prefill` (packed attention through the
+  flash kernels' wrapper, each layer's K/V written to cache[:, :, :S])
+  and `decode_step` (one write at a slot shared by every row, attention
+  through K4's wrapper over [valid_from, slot]).  The dense cache is
+  updated IN PLACE.  Its int8 form is not ported yet.
 - The serving forwards over the paged pool: `decode_step_ragged_paged`
   (the packed lane stream, K2's wrapper) and `decode_step_spec_paged`
   (Q tokens per slot, the resume replay, K3's wrapper).
@@ -34,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.kernels.decode_attention import decode_attention_kernel
 from areal_tpu_torch.kernels.flash_attention import flash_attention
 from areal_tpu_torch.kernels.paged_chunk_attention import paged_decode_attention_chunk
 from areal_tpu_torch.kernels.ragged_paged_attention import ragged_paged_attention_kernel
@@ -209,6 +217,19 @@ def _block_kv(
     return q, k, v
 
 
+def _attn_mlp(
+    x: torch.Tensor, attn: torch.Tensor, blk: Params, cfg: ModelConfig
+) -> torch.Tensor:
+    """The rest of a layer after attention: output projection, residual,
+    norm, MLP, residual.  attn [..., n_q, d], x [..., D]."""
+    ao = attn.reshape(*x.shape[:-1], cfg.q_dim) @ blk["wo"]
+    if cfg.proj_bias:
+        ao = ao + blk["bo"]
+    x = x + ao
+    h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
+    return x + _mlp_dense(h2, blk, cfg)
+
+
 # --------------------------------------------------------------------------
 # Packed rows: the training and inference forward
 # --------------------------------------------------------------------------
@@ -232,16 +253,10 @@ def _block_forward(
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> torch.Tensor:
-    b, s, _ = x.shape
     h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
     q, k, v = _block_kv(h, blk, cfg, cos, sin)
     attn = flash_attention(q, k, v, segment_ids, causal=True)
-    attn_out = attn.reshape(b, s, cfg.q_dim) @ blk["wo"]
-    if cfg.proj_bias:
-        attn_out = attn_out + blk["bo"]
-    x = x + attn_out
-    h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
-    return x + _mlp_dense(h2, blk, cfg)
+    return _attn_mlp(x, attn, blk, cfg)
 
 
 def _remat_layers(remat) -> bool:
@@ -330,6 +345,111 @@ def per_token_output(
     return fused_next_token_logprobs(
         x, head_weights(params, cfg), tokens, segment_ids, chunk_size
     )
+
+
+# --------------------------------------------------------------------------
+# Dense KV cache: the static generate path
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense per-layer KV cache: k/v [L, B, S_max, n_kv, head_dim], row b
+    holding its right-aligned prompt and then its generated tokens."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_kv_cache(
+    cfg: ModelConfig, batch: int, s_max: int, dtype=None, device=None
+) -> KVCache:
+    """A zeroed dense cache on `device` (the CUDA card unless told
+    otherwise), in `dtype` (default the model's)."""
+    dtype = dtype or cfg.dtype
+    if dtype in (torch.int8, "int8"):
+        raise NotImplementedError("the int8 dense KV cache is not yet ported")
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int — one sequence per row
+    segment_ids: torch.Tensor,  # [B, S] int — 1 where valid, 0 pad
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompts through the model, writing each layer's K/V to
+    cache[:, :, :S] (in place), and return fp32 logits [B, V] at each
+    row's LAST valid position only (the distribution over the first
+    generated token).  Attention is `flash_attention` (K1f on the card),
+    causal within each row's segment; padding positions give zeros."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    b, s = tokens.shape
+    positions = positions_from_segments(segment_ids).long()
+    x = _embed(params, cfg, tokens.long(), positions)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, S, h, d]
+        cache.k[li, :, :s] = k.to(cache.k.dtype)
+        cache.v[li, :, :s] = v.to(cache.v.dtype)
+        attn = flash_attention(q, k, v, segment_ids, causal=True)
+        x = _attn_mlp(x, attn, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    # Each row's last valid position (right- or left-aligned rows alike),
+    # gathered before the head: [B, V] logits, never [B, S, V].
+    idx = torch.arange(s, device=tokens.device)
+    last = torch.amax(torch.where(segment_ids > 0, idx, 0), dim=-1)
+    x_last = x[torch.arange(b, device=tokens.device), last]
+    return _head(params, cfg, x_last), cache
+
+
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] int — current token per row
+    positions: torch.Tensor,  # [B] int — its RoPE position per row
+    cache: KVCache,
+    slot: int,  # cache slot written for ALL rows
+    valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step: write each row's new K/V at cache slot `slot`
+    (the same for every row: prompts are right-aligned), attend over the
+    live window [valid_from, slot] through `decode_attention_kernel` (K4
+    on the card), and return fp32 logits [B, V] and the cache — the same
+    object, updated in place."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    b = tokens.shape[0]
+    slot = int(slot)
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.long(), positions)[:, None, :]  # [B, 1, D]
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    # The attention kernel takes int32 windows.
+    vf = valid_from.to(torch.int32).contiguous()
+    vt = torch.full((b,), slot + 1, dtype=torch.int32, device=tokens.device)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
+        cache.k[li, :, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[li, :, slot] = v[:, 0].to(cache.v.dtype)
+        attn = decode_attention_kernel(
+            q.contiguous(), cache.k[li], cache.v[li], vf, vt
+        )
+        x = _attn_mlp(x, attn, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x)[:, 0], cache
 
 
 # --------------------------------------------------------------------------
@@ -449,7 +569,6 @@ def decode_step_ragged_paged(
     — the cache is the same object, updated in place."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not yet ported")
-    t = tokens.shape[0]
     b = page_table.shape[0]
     live = row_of < b
     rid = torch.clamp(row_of.long(), max=b - 1)
@@ -477,12 +596,7 @@ def decode_step_ragged_paged(
             q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to,
             k_scale=ks_l, v_scale=vs_l,
         )
-        ao = attn.reshape(t, cfg.q_dim) @ blk["wo"]
-        if cfg.proj_bias:
-            ao = ao + blk["bo"]
-        x = x + ao
-        h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
-        x = x + _mlp_dense(h2, blk, cfg)
+        x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
     return _head(params, cfg, x), cache
 
@@ -537,12 +651,7 @@ def decode_step_spec_paged(
             q.contiguous(), k_pool_l, v_pool_l, pt_attn, valid_to0, ql_attn,
             k_scale=ks_l, v_scale=vs_l,
         )
-        ao = attn.reshape(b, q_len, cfg.q_dim) @ blk["wo"]
-        if cfg.proj_bias:
-            ao = ao + blk["bo"]
-        x = x + ao
-        h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
-        x = x + _mlp_dense(h2, blk, cfg)
+        x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
     return _head(params, cfg, x), cache
 

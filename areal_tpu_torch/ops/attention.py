@@ -8,9 +8,11 @@
 - The plain versions of decode attention over a dense window
   (`decode_attention`, Q=1; `decode_attention_chunk`, Q queries per row,
   ragged with `q_lens`) and the paged gather (`clamp_page_table`,
-  `paged_gather_layer`).  The paged attention kernels' wrappers
+  `paged_gather_layer`).  The dense decode kernel's wrapper
+  (`kernels/decode_attention.py`) takes `decode_attention_chunk` as its
+  plain version; the paged attention kernels' wrappers
   (`kernels/ragged_paged_attention.py`, `kernels/paged_chunk_attention.py`)
-  build their plain versions from these; the model calls the wrappers.
+  build theirs from these.  The model calls the wrappers.
 """
 
 from typing import Optional
@@ -114,13 +116,14 @@ def decode_attention_chunk(
     q: torch.Tensor,  # [B, Q, n_q, d] — Q consecutive new tokens per row
     k_cache: torch.Tensor,  # [B, S_max, n_kv, d]
     v_cache: torch.Tensor,  # [B, S_max, n_kv, d]
+    valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
     valid_to0: torch.Tensor,  # [B] int — one past query 0's last visible slot
     q_lens: torch.Tensor,  # [B] int — live queries per row
     k_scale: Optional[torch.Tensor] = None,  # [B, S_max, n_kv]: int8 cache
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Multi-query decode attention, plain formulation: query i attends
-    the window [0, valid_to0 + i), the causal extension of
+    the window [valid_from, valid_to0 + i), the causal extension of
     `decode_attention` to Q consecutive positions.  The chunk is ragged:
     only queries i < q_lens[row] are live, and dead queries (and live
     ones with an empty window) give exact zeros."""
@@ -143,8 +146,10 @@ def decode_attention_chunk(
     idx = torch.arange(k_cache.shape[1], device=q.device)
     qi = torch.arange(nq_tok, device=q.device)
     valid = (
-        idx[None, None, :] < (valid_to0[:, None] + qi[None, :])[:, :, None]
-    ) & (qi[None, :, None] < q_lens[:, None, None])  # [B, Q, S]
+        (idx[None, None, :] >= valid_from[:, None, None])
+        & (idx[None, None, :] < (valid_to0[:, None] + qi[None, :])[:, :, None])
+        & (qi[None, :, None] < q_lens[:, None, None])
+    )  # [B, Q, S]
     logits = torch.where(
         valid[:, None, :, None, :], logits, torch.full_like(logits, NEG_INF)
     )

@@ -19,7 +19,14 @@ kernel       — the ragged paged attention kernel (K2) against its plain
                windows 64-640, ragged q_lens with some 0): fp32, bf16 and
                int8 pools, each output row within a tolerance of its own
                magnitude, dead queries exactly 0, a poisoned last pool
-               page changing nothing, and its times.
+               page changing nothing, and its times.  Then the dense
+               decode attention kernel (K4) at the static path's decode
+               shape (32 rows of S=1024, prompts 64-512 right-aligned at
+               512, window to 576), a Q=4 chunk, a 1280 window and rows
+               with empty windows: fp32, bf16 and int8 caches, each output
+               row within a tolerance of its own magnitude, empty windows
+               exactly 0, poisoned positions outside every window changing
+               nothing, and its times.
 flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                backward) against the plain version and its autograd on
                fp32 copies of the same inputs, at qwen2-1.5B's attention
@@ -34,9 +41,21 @@ serve        — the serving path at full qwen2-1.5B size (28 layers, bf16,
                GeneratorEngine answers 16 concurrent /generate requests
                (n=4 groups, 128 new tokens); replies and engine counters
                are checked, and K2's launch count must equal 28 x the
-               inner steps the engine ran.
+               inner steps the engine ran.  The engine's
+               static_path_max_new is 0, so by the JAX package's own rule
+               every call takes the serving plane (as in push and
+               resume_parity).
+static       — the static generate path at full qwen2-1.5B: the same
+               burst (64 requests) through GenerationServer over a
+               default engine, which takes the static path (prefill with
+               K1f, then one decode_step with K4 per token); replies are
+               checked, K1f launches = 28 x static chunks, K4 launches =
+               28 x decode steps, K2 launches 0; tokens/s, the prefill
+               and decode step times, peak memory and a profiled call's
+               K4 and idle shares are printed.
 train        — two GRPO steps at full qwen2-1.5B (fp32 masters, bf16
-               compute, remat "full"): PPOActorInterface.generate (K2) ->
+               compute, remat "full"): PPOActorInterface.generate (the
+               static path: K1f prefill, K4 decode) ->
                MultiTaskRewardInterface -> PPOActorInterface.train_step
                (K1f, K1dq, K1dkv), 8 prompts x n=4, 128 new tokens, the
                generator taking the trained weights after step 1; the
@@ -63,8 +82,9 @@ resume_parity — park at the second serving chunk and resume under
                replay (K2), and in fp32 greedy tokens identical to an
                uninterrupted run.
 parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
-               engine on the card (K2) against the engine on the CPU (the
-               plain path).
+               engine on the card against the engine on the CPU (the
+               plain path), on the serving plane (inflight=True, K2) and
+               on the static path (inflight=False, K1f and K4).
 train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32: the
                card (K1) against the CPU (plain path): loss, grad_norm and
                the weights after the step.
@@ -88,8 +108,8 @@ import time
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernel", "flash", "serve", "push", "resume_parity", "train",
-          "parity", "train_parity")
+PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
+          "train", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -314,6 +334,7 @@ def phase_kernel(report, seed):
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, T=T,
     )
     _kernel_k3(report, seed)
+    _kernel_k4(report, seed)
 
 
 def _replay_slots(seed):
@@ -456,6 +477,179 @@ def _kernel_k3(report, seed):
         f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
         f"bound_ms={bound_ms:.5f} ({bound_by}); {int((~dead).sum())} live queries")
     report["k3"] = dict(
+        max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+    )
+
+
+def _k4_cases(seed):
+    """K4's inputs at qwen2-1.5B's attention shape (Hq=12, Hkv=2, D=128).
+    decode: the static path's decode step — 32 rows of a S=1024 cache,
+    prompts of 64..512 right-aligned at 512 (valid_from = 512 - prompt),
+    64 tokens generated, so the window ends at valid_to = 576.  chunk:
+    the same rows with Q=4 queries, the last seeing to 576.  w1280: a
+    window of 1280 positions (no tile of 32 or block of 512 divides what
+    the rows see), rows 2 and 3 empty.  empty: Q=2, rows 0-2 empty for
+    both queries, row 3 for its first query only.  Returns {name: (q
+    [B, Q, 12, 128], valid_from [B], valid_to0 [B], S)}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 31)
+    n_q, d = 12, 128
+    plen = rng.integers(64, 513, 32)
+    plen[:2] = (64, 512)
+    vf = (512 - plen).astype(np.int32)
+    cases = {
+        "decode": (1, vf, np.full(32, 576, np.int32), 1024),
+        "chunk": (4, vf, np.full(32, 573, np.int32), 1024),
+    }
+    vf_w = rng.integers(0, 256, 4).astype(np.int32)
+    vt_w = np.array([1280, 1031, 0, 5], np.int32)
+    vf_w[3] = 9  # rows 2 and 3: valid_from >= valid_to
+    cases["w1280"] = (1, vf_w, vt_w, 1280)
+    vf_e = rng.integers(0, 300, 8).astype(np.int32)
+    vt_e = rng.integers(300, 1000, 8).astype(np.int32)
+    vf_e[:3] = (1000, 1023, 700)
+    vt_e[:3] = (40, 1000, 699)  # every query of rows 0-2 empty
+    vf_e[3], vt_e[3] = 500, 500  # query 0 empty, query 1 sees [500, 501)
+    cases["empty"] = (2, vf_e, vt_e, 1024)
+    return {
+        name: (rng.standard_normal((len(f), nq, n_q, d)).astype(np.float32), f, t, S)
+        for name, (nq, f, t, S) in cases.items()
+    }
+
+
+def _k4_windows(vf, vt0, nq, S):
+    """[B, Q, S] bool: query i of row b sees [vf[b], vt0[b] + i) within S."""
+    import torch
+
+    pos = torch.arange(S, device=vf.device)
+    hi = (vt0[:, None] + torch.arange(nq, device=vf.device)[None, :]).clamp(max=S)
+    return (pos[None, None, :] >= vf[:, None, None]) & (pos[None, None, :] < hi[:, :, None])
+
+
+def _k4_bound(vf, vt0, nq, S, n_q, n_kv, d, elem_bytes):
+    """Least time for K4 on these rows (a float cache): the flops of QK
+    and PV over each query's live window at the bf16 tensor rate, against
+    each row's live K/V positions (the union of its queries' windows,
+    read once for all its queries and heads), q in, out back and the two
+    window bounds, at the HBM rate."""
+    flops = kv_pos = 0
+    for f, t in zip(vf.tolist(), vt0.tolist()):
+        lens = [max(0, min(t + i, S) - max(f, 0)) for i in range(nq)]
+        flops += sum(4 * d * n_q * n for n in lens)
+        kv_pos += max(lens)
+    b = len(vf)
+    nbytes = (2 * kv_pos * n_kv * d * elem_bytes
+              + 2 * b * nq * n_q * d * elem_bytes + 2 * b * 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _kernel_k4(report, seed):
+    """K4 against its plain version (`decode_attention_chunk` with every
+    query live) on fp32 copies of the same inputs, for each case of
+    _k4_cases and fp32, bf16 and int8 caches: each output row within
+    FLASH_ROW_TOL of that row's largest |plain| value (int8: the fp32
+    bound), empty windows exactly 0, K/V poisoned at every position
+    outside every window of its row changing nothing.  Then, at the
+    decode case in bf16, the times of K4, its plain version and SDPA on
+    the same dense window with the boolean mask, and the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.ops.attention import decode_attention_chunk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 32)
+    bf = torch.bfloat16
+    n_kv, d = 2, 128
+    errs, n_zero = {}, 0
+    for cname, (q_np, vf_np, vt_np, S) in _k4_cases(seed).items():
+        b, nq = q_np.shape[:2]
+        shape = (b, S, n_kv, d)
+        base = {
+            "q": torch.from_numpy(q_np).to(dev),
+            "k": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+            "v": torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev),
+            "k8": torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev),
+            "v8": torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev),
+            "ks": torch.from_numpy(np.abs(rng.standard_normal(shape[:3])) * 0.01 + 0.002)
+                  .to(dev).to(bf),
+            "vs": torch.from_numpy(np.abs(rng.standard_normal(shape[:3])) * 0.01 + 0.002)
+                  .to(dev).to(bf),
+        }
+        vf, vt = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+        win = _k4_windows(vf, vt, nq, S)  # [B, Q, S]
+        empty = ~win.any(-1)  # [B, Q]
+        outside = ~win.any(1)  # [B, S]: no query of the row sees it
+        full = torch.full((b,), nq, dtype=torch.long, device=dev)
+        cases = {
+            "fp32": (base["q"], base["k"], base["v"], None, None, FLASH_ROW_TOL["fp32"]),
+            "bf16": (base["q"].to(bf), base["k"].to(bf), base["v"].to(bf), None, None,
+                     FLASH_ROW_TOL["bf16"]),
+            "int8": (base["q"], base["k8"], base["v8"], base["ks"], base["vs"],
+                     FLASH_ROW_TOL["fp32"]),
+        }
+        for tname, (q, k, v, ksc, vsc, tol) in cases.items():
+            out = da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc)
+            f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+            ref = decode_attention_chunk(
+                q.float(), f32(k), f32(v), vf.long(), vt.long(), full, ksc, vsc
+            )
+            torch.cuda.synchronize()
+            tag = f"{cname} {tname}"
+            check(bool(torch.isfinite(out).all()), f"K4 {tag}: non-finite output")
+            rel, err = _row_err(out, ref)
+            errs[f"{tname}_{cname}"], errs[f"{tname}_{cname}_row"] = err, rel
+            check(rel <= tol, f"K4 {tag} disagrees with the plain version: {rel:.3e}")
+            if bool(empty.any()):
+                check(float(out.float()[empty].abs().max()) == 0.0,
+                      f"K4 {tag}: empty windows are not exactly 0")
+                n_zero += int(empty.sum())
+            k_bad, v_bad = k.clone(), v.clone()
+            ks_bad, vs_bad = ksc, vsc
+            if k.dtype == torch.int8:
+                k_bad[outside], v_bad[outside] = 127, 127
+                ks_bad, vs_bad = ksc.clone(), vsc.clone()
+                ks_bad[outside], vs_bad[outside] = 1e9, 1e9
+            else:
+                k_bad[outside], v_bad[outside] = 1e9, 1e9
+            out_bad = da.decode_attention_chunk_kernel(q, k_bad, v_bad, vf, vt, ks_bad, vs_bad)
+            check(torch.equal(out, out_bad),
+                  f"K4 {tag}: poisoning positions outside every window changed the output")
+            log(f"[kernel] K4 {tag}: B={b} Q={nq} S={S} row_err={rel:.3e} (tolerance "
+                f"{tol:.3e}) max_abs_err={err:.3e}")
+    log(f"[kernel] K4: {n_zero} empty-window query rows exactly 0; poisoned positions "
+        f"outside every window changed nothing")
+    # Times at the static path's decode shape, bf16 q and cache.
+    q_np, vf_np, vt_np, S = _k4_cases(seed)["decode"]
+    b = q_np.shape[0]
+    q = torch.from_numpy(q_np).to(dev).to(bf)
+    k, v = (torch.from_numpy(rng.standard_normal((b, S, n_kv, d)).astype(np.float32))
+            .to(dev).to(bf) for _ in range(2))
+    vf, vt = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+    full = torch.full((b,), 1, dtype=torch.long, device=dev)
+    kernel_ms = time_cuda(lambda: da.decode_attention_kernel(q, k, v, vf, vt))
+    plain_ms = time_cuda(
+        lambda: decode_attention_chunk(q, k, v, vf.long(), vt.long(), full), iters=10
+    )
+    # Library yardstick: SDPA over the same dense window, boolean mask,
+    # GQA native.
+    mask = _k4_windows(vf, vt, 1, S)[:, None]  # [B, 1, 1, S]
+    q4 = q.transpose(1, 2).contiguous()  # [B, 12, 1, D]
+    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask, enable_gqa=True
+    ), iters=10)
+    bound_ms, bound_by = _k4_bound(vf_np, vt_np, 1, S, 12, n_kv, d, 2)
+    log(f"[kernel] K4 bf16 decode B={b} S={S}: kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
+        f"({bound_by}); {int((vt_np - vf_np).sum())} live positions")
+    report["k4"] = dict(
         max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
     )
@@ -695,6 +889,9 @@ def phase_serve(report, seed):
         f"{time.monotonic() - t0:.1f} s")
     engine = GeneratorEngine(cfg, params, eos_token_id=151643)
     check(engine.device.type == "cuda", "the engine is not on the card")
+    # By the JAX package's rule a burst whose max_new_tokens exceeds
+    # static_path_max_new takes the serving plane: at 0 every call does.
+    engine.static_path_max_new = 0
     per_call = []
     real_generate = engine.generate
 
@@ -791,7 +988,7 @@ def phase_serve(report, seed):
         f"inner steps={steps}; K2 launches={launches}; lanes T={engine.serving_lane_budget}; "
         f"peak mem={peak / 2**30:.2f} GiB"
     )
-    out["profile"] = _profile_generate(engine, cfg, rng)
+    out["profile"] = _profile_generate(engine, cfg, rng, "ragged_paged_attention")
     report["serve"] = out
     # The recording wrapper closes a reference cycle through the engine:
     # drop it and collect now, or the weights stay allocated through the
@@ -802,10 +999,11 @@ def phase_serve(report, seed):
     torch.cuda.empty_cache()
 
 
-def _profile_generate(engine, cfg, rng):
+def _profile_generate(engine, cfg, rng, attention):
     """Device time by kernel over one smaller generate call (4 prompts of
-    128 tokens x n=4, 32 new tokens) under torch.profiler, and the card's
-    idle share of that call's wall time."""
+    128 tokens x n=4, 32 new tokens) under torch.profiler: the card's
+    idle share of that call's wall time and the share of busy time of
+    the kernels whose name holds `attention`."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -818,7 +1016,7 @@ def _profile_generate(engine, cfg, rng):
         seqlens={"packed_prompts": [[128]] * 4}, data={"packed_prompts": data},
     )
     g = GenerationHyperparameters(n=4, max_new_tokens=32, temperature=1.0)
-    steps0 = engine.steps_total
+    steps0, decode0 = engine.steps_total, engine.static_decode_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -835,18 +1033,137 @@ def _profile_generate(engine, cfg, rng):
         kernels.append((us, e.count, e.key))
     kernels.sort(reverse=True)
     busy_s = sum(k[0] for k in kernels) / 1e6
+    attn_s = sum(k[0] for k in kernels if attention in k[2]) / 1e6
     top = [
         dict(name=name[:90], ms=us / 1e3, calls=n, share=us / 1e6 / max(busy_s, 1e-12))
         for us, n, name in kernels[:8]
     ]
     steps = engine.steps_total - steps0
-    log(f"[profile] 1 generate call, {steps} inner steps: wall {wall:.3f} s, "
-        f"device busy {busy_s:.3f} s, idle share {1 - busy_s / wall:.3f} "
-        f"(profiler on)")
+    decode = engine.static_decode_steps - decode0
+    share = attn_s / max(busy_s, 1e-12)
+    log(f"[profile] 1 generate call, {steps} serving inner steps, {decode} static decode "
+        f"steps: wall {wall:.3f} s, device busy {busy_s:.3f} s, idle share "
+        f"{1 - busy_s / wall:.3f}, {attention} share of busy {share:.3f} (profiler on)")
     for k in top:
         log(f"[profile]   {k['share']:.3f} {k['ms']:10.2f} ms {k['calls']:7d}x {k['name']}")
     return dict(wall_s=wall, busy_s=busy_s, idle_share=1 - busy_s / wall,
-                inner_steps=steps, top_kernels=top)
+                inner_steps=steps, static_decode_steps=decode,
+                attention_share=share, top_kernels=top)
+
+
+# --------------------------------------------------------------------------
+# Phase: the static generate path at full size
+# --------------------------------------------------------------------------
+
+
+def _timed(module, name, times):
+    """Wrap module.name so each call records a pair of CUDA events into
+    times (no synchronisation); returns the original for restoring."""
+    import torch
+
+    real = getattr(module, name)
+
+    def run(*a, **k):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        out = real(*a, **k)
+        t1.record()
+        times.append((t0, t1))
+        return out
+
+    setattr(module, name, run)
+    return real
+
+
+def phase_static(report, seed):
+    """The serve phase's burst (16 requests x n=4, prompts 64-512, 128 new
+    tokens, the same prompts) through GenerationServer over a DEFAULT
+    engine at full qwen2-1.5B: 64 requests fit max_decode_batch and 128
+    new tokens fit static_path_max_new, so the call takes the static
+    path — one prefill (K1f) and one decode_step (K4) per token.  The
+    launch counts are set to 0 just before the burst and read just
+    after it."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    cfg = qwen2_config("1.5b")
+    n_req, n, max_new = 16, 4, 128
+    engine = GeneratorEngine(cfg, init_params(cfg, seed, device="cuda"), eos_token_id=151643)
+    check(engine.device.type == "cuda", "the engine is not on the card")
+    rng = np.random.default_rng(seed)
+    prompts = [
+        rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+        for _ in range(n_req)
+    ]
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=500.0)
+    pre_t, dec_t = [], []
+    real_pre = _timed(tfm, "prefill", pre_t)
+    real_dec = _timed(tfm, "decode_step", dec_t)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        da.LAUNCHES = rpa.LAUNCHES = 0
+        chunks0, steps0 = engine.static_chunks, engine.static_decode_steps
+        t0 = time.monotonic()
+        threads, replies, errors = _burst(server.url, prompts, n, max_new, seed + 15)
+        for th in threads:
+            th.join(timeout=900.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        k1 = dict(fa.LAUNCHES)
+        k4, k2 = da.LAUNCHES, rpa.LAUNCHES
+        chunks = engine.static_chunks - chunks0
+        steps = engine.static_decode_steps - steps0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tfm.prefill, tfm.decode_step = real_pre, real_dec
+        server.close()
+    prefill_s = sum(a.elapsed_time(b) for a, b in pre_t) / 1e3
+    decode_s = sum(a.elapsed_time(b) for a, b in dec_t) / 1e3
+    check(not errors and all(r is not None for r in replies), f"requests failed: {errors}")
+    n_tok = 0
+    for i, r in enumerate(replies):
+        check(len(r["output_ids"]) == n, f"q{i}: {len(r['output_ids'])} outputs")
+        check(r["version"] == r["version_start"] == 0, f"q{i}: version {r['version']}")
+        for ids, lps in zip(r["output_ids"], r["output_logprobs"]):
+            check(0 < len(ids) <= max_new, f"q{i}: {len(ids)} tokens")
+            check(len(ids) == max_new or ids[-1] == 151643, f"q{i}: short without EOS")
+            check(len(lps) == len(ids), f"q{i}: logprobs/ids length mismatch")
+            check(all(math.isfinite(x) and x <= 0 for x in lps), f"q{i}: bad logprob")
+            check(all(0 <= x < cfg.vocab_size for x in ids), f"q{i}: id out of vocab")
+            n_tok += len(ids)
+    log(f"[static] {n_req} requests x n={n}: {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tok/s; {chunks} static chunk(s), {steps} decode steps; "
+        f"prefill {prefill_s:.3f} s, decode {decode_s:.3f} s = "
+        f"{1e3 * decode_s / max(steps, 1):.3f} ms a step (CUDA events around each call); "
+        f"launches K1f {k1['fwd']} (dq {k1['dq']}, dkv {k1['dkv']}), K4 {k4}, K2 {k2}; "
+        f"peak mem {peak / 2**30:.2f} GiB")
+    check(chunks >= 1 and steps >= 1, "the burst did not take the static path")
+    check(k1 == {"fwd": cfg.n_layers * chunks, "dq": 0, "dkv": 0},
+          f"K1 launches {k1} != {cfg.n_layers} x {chunks} static chunks")
+    check(k4 == cfg.n_layers * steps, f"K4 launches {k4} != {cfg.n_layers} x {steps}")
+    check(k2 == 0, f"the static path launched K2 {k2} times")
+    out = dict(
+        requests=n_req, n=n, max_new_tokens=max_new, tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall, static_chunks=chunks, decode_steps=steps,
+        prefill_s=prefill_s, decode_s=decode_s, decode_step_ms=1e3 * decode_s / max(steps, 1),
+        launches=k4, k1f_launches=k1["fwd"], peak_mem_bytes=peak,
+    )
+    out["profile"] = _profile_generate(engine, cfg, rng, "decode_attention")
+    report["static"] = out
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -900,6 +1217,7 @@ def phase_push(report, seed):
     n_req, n, max_new = 16, 4, 128
     engine = GeneratorEngine(cfg, init_params(cfg, seed, device="cuda"), eos_token_id=151643)
     check(engine.device.type == "cuda", "the engine is not on the card")
+    engine.static_path_max_new = 0  # the serving plane, which can park
     chunk_t = min(32, max_new)
     rng = np.random.default_rng(seed + 13)
     prompts = [
@@ -1048,6 +1366,7 @@ def _resume_parity_run(cfg, params, dtype, sample, g):
     from areal_tpu_torch.engines.generator import GeneratorEngine
 
     eng = GeneratorEngine(cfg, params, compute_dtype=dtype, eos_token_id=151643)
+    eng.static_path_max_new = 0  # the serving plane, which can park
     ref = eng.generate(sample, MicroBatchSpec(), g, seed=0)
     real_get, real_replay = eng._get_serving_chunk_fn, eng._get_paged_replay_fn
     calls, cap = {"n": 0}, {}
@@ -1189,6 +1508,8 @@ def phase_parity(seed):
     from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.api.model_api import GenerationHyperparameters
     from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
     from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
@@ -1212,26 +1533,33 @@ def phase_parity(seed):
 
     g = GenerationHyperparameters(n=2, max_new_tokens=16, greedy=True)
     kw = dict(eos_token_id=151643, kv_page_size=128, prefill_chunk_tokens=8)
-    outs, secs = {}, {}
-    for dev in ("cuda", "cpu"):
-        eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32, **kw)
-        rpa.LAUNCHES = 0
-        t0 = time.monotonic()
-        outs[dev] = eng.generate(sample(), MicroBatchSpec(), g)
-        secs[dev] = time.monotonic() - t0
-        if dev == "cuda":
-            check(rpa.LAUNCHES > 0, "the card's engine never launched the kernel")
-        del eng
-    a, b = outs["cuda"], outs["cpu"]
-    same = (
-        a.seqlens["packed_input_ids"] == b.seqlens["packed_input_ids"]
-        and np.array_equal(a.data["packed_input_ids"], b.data["packed_input_ids"])
-    )
-    lp_err = float(np.abs(a.data["packed_logprobs"] - b.data["packed_logprobs"]).max())
-    log(f"[parity] 2 layers fp32 greedy: tokens identical={same}, "
-        f"max logprob diff={lp_err:.2e} (cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)")
-    check(same, "greedy tokens differ between the card and the CPU")
-    check(lp_err <= 1e-3, f"logprobs differ by {lp_err} > 1e-3")
+    for inflight, path in ((True, "serving plane"), (False, "static path")):
+        outs, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32, **kw)
+            fa.reset_launches()
+            da.LAUNCHES = rpa.LAUNCHES = 0
+            t0 = time.monotonic()
+            outs[dev] = eng.generate(sample(), MicroBatchSpec(), g, inflight=inflight)
+            secs[dev] = time.monotonic() - t0
+            if dev == "cuda" and inflight:
+                check(rpa.LAUNCHES == cfg.n_layers * eng.steps_total > 0,
+                      f"serving plane: K2 launches {rpa.LAUNCHES}")
+            elif dev == "cuda":
+                check(fa.LAUNCHES["fwd"] == cfg.n_layers * eng.static_chunks > 0
+                      and da.LAUNCHES == cfg.n_layers * eng.static_decode_steps > 0,
+                      f"static path: K1f launches {fa.LAUNCHES['fwd']}, K4 {da.LAUNCHES}")
+            del eng
+        a, b = outs["cuda"], outs["cpu"]
+        same = (
+            a.seqlens["packed_input_ids"] == b.seqlens["packed_input_ids"]
+            and np.array_equal(a.data["packed_input_ids"], b.data["packed_input_ids"])
+        )
+        lp_err = float(np.abs(a.data["packed_logprobs"] - b.data["packed_logprobs"]).max())
+        log(f"[parity] {path}, 2 layers fp32 greedy: tokens identical={same}, max logprob "
+            f"diff={lp_err:.2e} (cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)")
+        check(same, f"{path}: greedy tokens differ between the card and the CPU")
+        check(lp_err <= 1e-3, f"{path}: logprobs differ by {lp_err} > 1e-3")
 
 
 # --------------------------------------------------------------------------
@@ -1363,9 +1691,11 @@ def _train_recompute(actor_if, actor, rollout, mb):
 
 
 def phase_train(report, seed):
-    """Two GRPO steps of the port at full qwen2-1.5B: generate (K2) ->
-    reward -> train_step (K1f forward and remat recompute, K1dq/K1dkv
-    backward), the generator taking the trained weights in between."""
+    """Two GRPO steps of the port at full qwen2-1.5B: generate (32
+    requests, the static path as in the JAX package: K1f prefill, K4
+    decode) -> reward -> train_step (K1f forward and remat recompute,
+    K1dq/K1dkv backward), the generator taking the trained weights in
+    between."""
     import numpy as np
     import torch
 
@@ -1378,6 +1708,7 @@ def phase_train(report, seed):
     from areal_tpu_torch.engines.train import TrainEngine
     from areal_tpu_torch.interfaces.ppo import PPOActorInterface
     from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.kernels import decode_attention as da
     from areal_tpu_torch.kernels import flash_attention as fa
     from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.models.config import qwen2_config
@@ -1415,11 +1746,16 @@ def phase_train(report, seed):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t_gen = time.monotonic()
-        rpa.LAUNCHES = 0
+        fa.reset_launches()
+        da.LAUNCHES = rpa.LAUNCHES = 0
+        chunks0, dsteps0 = gen.static_chunks, gen.static_decode_steps
         rollout = actor_if.generate(gen_model, prompts, mb)
         torch.cuda.synchronize()
         t_rw = time.monotonic()
-        k2 = rpa.LAUNCHES
+        gen_k1 = dict(fa.LAUNCHES)
+        k4, k2 = da.LAUNCHES, rpa.LAUNCHES
+        gen_chunks = gen.static_chunks - chunks0
+        gen_steps = gen.static_decode_steps - dsteps0
         rollout.update_(rw_if.inference(actor, rollout, mb))
         graded = rollout.data["rewards"].copy()
         # A random model solves nothing: replace the graded scores with
@@ -1444,7 +1780,8 @@ def phase_train(report, seed):
         iw, akl, gn = stats["importance_weight"], stats["approx_kl"], stats["grad_norm"]
         rec = dict(
             step=step + 1, generate_s=t_rw - t_gen, reward_s=t_rw_end - t_rw,
-            train_s=t_end - t_train, k2_launches=k2, launches=launches,
+            train_s=t_end - t_train, k4_launches=k4, gen_k1f_launches=gen_k1["fwd"],
+            static_chunks=gen_chunks, decode_steps=gen_steps, launches=launches,
             micro_batches=chunks, real_tokens=real, grid_tokens=grid,
             train_tokens_per_s=real / (t_end - t_train),
             generated_tokens=int((~rollout.data["prompt_mask"].astype(bool)).sum()),
@@ -1456,7 +1793,8 @@ def phase_train(report, seed):
             rec.update(inference)
         steps.append(rec)
         log(f"[train] step {step + 1}: generate {rec['generate_s']:.2f} s "
-            f"({rec['generated_tokens']} tokens, K2 launches {k2}), reward "
+            f"({rec['generated_tokens']} tokens; static path: {gen_chunks} chunk(s), "
+            f"{gen_steps} decode steps, K1f launches {gen_k1['fwd']}, K4 {k4}, K2 {k2}), reward "
             f"{rec['reward_s']:.3f} s ({rec['graded_correct']}/{graded.size} graded "
             f"correct; rewards replaced by seeded +-5), train_step "
             f"{rec['train_s']:.2f} s = {rec['train_tokens_per_s']:.0f} tok/s "
@@ -1464,7 +1802,11 @@ def phase_train(report, seed):
             f"importance_weight={iw:.6f} approx_kl={akl:.3e} grad_norm={gn:.4f} "
             f"loss={stats['loss']:.4e}; K1 launches {launches}; peak mem "
             f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB")
-        check(k2 > 0, "generate never launched K2")
+        check(gen_chunks >= 1 and k2 == 0, "generate did not take the static path")
+        check(gen_k1 == {"fwd": cfg.n_layers * gen_chunks, "dq": 0, "dkv": 0},
+              f"generate's K1 launches {gen_k1} != {cfg.n_layers} x {gen_chunks} chunks")
+        check(k4 == cfg.n_layers * gen_steps,
+              f"generate's K4 launches {k4} != {cfg.n_layers} x {gen_steps} decode steps")
         check(math.isfinite(gn) and gn > 0, f"grad_norm {gn} is not finite and > 0")
         check(stats["quarantined"] == 0.0, "the step was quarantined")
         check(abs(iw - 1.0) < IMP_WEIGHT_TOL,
@@ -1649,6 +1991,26 @@ def _kernels_line(report):
         "bound_by": k3.get("bound_by"),
         "library_ms": k3.get("library_ms"),
     })
+    k4 = report.get("k4", {})
+    errs = k4.get("max_abs_err", {})
+    kernels.append({
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "areal_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "areal_tpu/ops/pallas/decode_attention.py:145",
+        "launches": report.get("static", {}).get("launches"),
+        "max_abs_err": errs.get("bf16_decode"),
+        "row_err": errs.get("bf16_decode_row"),
+        "max_abs_err_fp32": errs.get("fp32_decode"),
+        "row_err_fp32": errs.get("fp32_decode_row"),
+        "max_abs_err_int8": errs.get("int8_decode"),
+        "row_err_int8": errs.get("int8_decode_row"),
+        "ms": k4.get("kernel_ms"),
+        "plain_ms": k4.get("plain_ms"),
+        "bound_ms": k4.get("bound_ms"),
+        "bound_by": k4.get("bound_by"),
+        "library_ms": k4.get("library_ms"),
+    })
     return kernels
 
 
@@ -1681,6 +2043,8 @@ def main() -> int:
         phase_flash(report, args.seed)
     if "serve" in phases:
         phase_serve(report, args.seed)
+    if "static" in phases:
+        phase_static(report, args.seed)
     if "push" in phases:
         phase_push(report, args.seed)
     if "resume_parity" in phases:

@@ -1,0 +1,175 @@
+"""The port's dense decode attention (K4) against the JAX package on the
+CPU: twins of TestDecodeAttentionKernel in tests/test_flash_attention.py.
+
+K4's plain versions — `ops/attention.decode_attention` (Q=1) and the
+kernel wrapper on CPU tensors, which is `decode_attention_chunk` with
+every query live — against the Pallas kernels `decode_attention_kernel`
+and `decode_attention_chunk_kernel` in interpret mode (as the JAX
+package's own tests run them): fp32 within atol/rtol 2e-5, an int8 cache
+with scales within 3e-4 (the JAX tests' bounds between their two paths);
+rows whose window is empty exactly 0 on both sides."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from areal_tpu.models.transformer import kv_quant as jax_kv_quant
+from areal_tpu.ops.pallas.decode_attention import (
+    decode_attention_chunk_kernel as jax_chunk_kernel,
+)
+from areal_tpu.ops.pallas.decode_attention import decode_attention_kernel as jax_kernel
+from areal_tpu_torch.kernels import decode_attention as da
+from areal_tpu_torch.ops.attention import decode_attention
+
+torch.set_num_threads(2)
+
+
+def _mk(rng, b=4, s=256, nq=8, nkv=2, d=128, nq_tok=1):
+    q = rng.standard_normal((b, nq_tok, nq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, nkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, nkv, d)).astype(np.float32)
+    lo = rng.integers(0, s // 4, b).astype(np.int32)
+    hi = rng.integers(s // 2, s, b).astype(np.int32)
+    return q, k, v, lo, hi
+
+
+def _t(a, dtype=None):
+    x = torch.from_numpy(np.array(a))
+    return x if dtype is None else x.to(dtype)
+
+
+def _port_kernel(q, k, v, lo, hi, ks=None, vs=None):
+    bf = torch.bfloat16
+    return da.decode_attention_chunk_kernel(
+        _t(q), _t(k), _t(v), _t(lo), _t(hi),
+        None if ks is None else _t(ks, bf), None if vs is None else _t(vs, bf),
+    ).numpy()
+
+
+def _port_plain_q1(q, k, v, lo, hi, ks=None, vs=None):
+    bf = torch.bfloat16
+    return decode_attention(
+        _t(q), _t(k), _t(v), _t(lo).long(), _t(hi).long(),
+        None if ks is None else _t(ks, bf), None if vs is None else _t(vs, bf),
+    ).numpy()
+
+
+def _jax(q, k, v, lo, hi, ks=None, vs=None, chunk=False, **kw):
+    fn = jax_chunk_kernel if chunk else jax_kernel
+    return np.asarray(fn(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lo),
+        jnp.asarray(hi),
+        k_scale=None if ks is None else jnp.asarray(ks, jnp.bfloat16),
+        v_scale=None if vs is None else jnp.asarray(vs, jnp.bfloat16), **kw,
+    ))
+
+
+@pytest.mark.parametrize("form", ["wrapper", "plain_q1"])
+def test_matches_jax_kernel(rng, form):
+    q, k, v, lo, hi = _mk(rng)
+    want = _jax(q, k, v, lo, hi, block_k=64)
+    port = _port_kernel if form == "wrapper" else _port_plain_q1
+    np.testing.assert_allclose(port(q, k, v, lo, hi), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("form", ["wrapper", "plain_q1"])
+def test_matches_jax_kernel_int8(rng, form):
+    q, k, v, lo, hi = _mk(rng)
+    kq, ks = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(k)))
+    vq, vs = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(v)))
+    ks, vs = ks.astype(np.float32), vs.astype(np.float32)  # exact bf16 values
+    want = _jax(q, kq, vq, lo, hi, ks, vs, block_k=64)
+    port = _port_kernel if form == "wrapper" else _port_plain_q1
+    np.testing.assert_allclose(
+        port(q, kq, vq, lo, hi, ks, vs), want, rtol=3e-4, atol=3e-4
+    )
+
+
+def test_scalar_valid_to(rng):
+    """JAX's generator passes one valid_to for every row; the port's
+    wrapper takes it per row."""
+    q, k, v, lo, _ = _mk(rng)
+    want = np.asarray(jax_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lo),
+        jnp.int32(200), block_k=64,
+    ))
+    hi = np.full((q.shape[0],), 200, np.int32)
+    np.testing.assert_allclose(_port_kernel(q, k, v, lo, hi), want, rtol=2e-5, atol=2e-5)
+
+
+def test_default_block_on_bucketed_window(rng):
+    """A 1280 window, which the default 512 block does not divide: JAX
+    halves its block; the port has no block to fit."""
+    q, k, v, lo, hi = _mk(rng, b=2, s=1280)
+    want = _jax(q, k, v, lo, hi)
+    np.testing.assert_allclose(_port_kernel(q, k, v, lo, hi), want, rtol=2e-5, atol=2e-5)
+
+
+def test_chunk_kernel_matches_jax(rng):
+    b, s, Q = 3, 256, 4
+    q, k, v, _, _ = _mk(rng, b=b, s=s, nq_tok=Q)
+    lo = rng.integers(0, 32, b).astype(np.int32)
+    hi0 = rng.integers(64, s - Q, b).astype(np.int32)
+    want = _jax(q, k, v, lo, hi0, chunk=True, block_k=64)
+    np.testing.assert_allclose(_port_kernel(q, k, v, lo, hi0), want, rtol=2e-5, atol=2e-5)
+
+
+def test_empty_window_rows_exactly_zero(rng):
+    """valid_from >= valid_to: exact zeros on both sides, the live row
+    real and equal."""
+    s = 128
+    q, k, v, _, _ = _mk(rng, b=4, s=s)
+    lo = np.array([0, 64, s, 100], np.int32)
+    hi = np.array([64, 64, 64, 40], np.int32)  # rows 1-3 empty
+    empty = lo >= hi
+    want = _jax(q, k, v, lo, hi, block_k=64)
+    got = _port_kernel(q, k, v, lo, hi)
+    assert (got[empty] == 0).all() and (want[empty] == 0).all()
+    assert np.abs(got[~empty]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_empty_window_rows_exactly_zero_chunk(rng):
+    """Chunk form: query i sees [valid_from, valid_to0 + i), so a row
+    with valid_from >= valid_to0 + Q - 1 has every query empty, and row
+    2 here has its first queries empty and its last live."""
+    s, Q = 128, 3
+    q, k, v, _, _ = _mk(rng, b=3, s=s, nq_tok=Q)
+    lo = np.array([0, s, 31], np.int32)
+    to0 = np.array([64, 64, 30], np.int32)
+    want = _jax(q, k, v, lo, to0, chunk=True, block_k=64)
+    got = _port_kernel(q, k, v, lo, to0)
+    assert (got[1] == 0).all() and (got[2, :2] == 0).all()
+    assert (want[1] == 0).all() and np.abs(got[2, 2]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_wrapper_launches_nothing(rng):
+    q, k, v, lo, hi = _mk(rng, b=2, s=64)
+    before = da.LAUNCHES
+    _port_kernel(q, k, v, lo, hi)
+    da.decode_attention_kernel(_t(q), _t(k), _t(v), _t(lo), _t(hi))
+    assert da.LAUNCHES == before
+    with pytest.raises(ValueError, match="B, 1"):
+        da.decode_attention_kernel(_t(q).repeat(1, 2, 1, 1), _t(k), _t(v), _t(lo), _t(hi))
+
+
+@pytest.mark.parametrize("bad", ["lo_dtype", "lo_shape", "rows", "scales", "head_dim"])
+def test_card_input_checks(rng, bad):
+    """What the kernel reads through raw pointers is checked before a
+    launch (the checks run on any device)."""
+    q, k, v, lo, hi = (_t(x) for x in _mk(rng, b=2, s=64))
+    ks = vs = None
+    if bad == "lo_dtype":
+        lo = lo.long()
+    elif bad == "lo_shape":
+        lo = lo[:1]
+    elif bad == "rows":
+        k, v = k[:1], v[:1]
+    elif bad == "scales":
+        ks = vs = torch.ones(k.shape[:3], dtype=torch.bfloat16)
+    else:
+        q, k, v = q[..., :32], k[..., :32], v[..., :32]
+    with pytest.raises((ValueError, TypeError)):
+        da._check(q.contiguous(), k.contiguous(), v.contiguous(), lo, hi, ks, vs)

@@ -263,6 +263,11 @@ def test_inmem_push_interrupts_and_resumes_inflight():
     version."""
     eng = GeneratorEngine(tiny_config(), _torch_params(11), "cpu", eos_token_id=EOS,
                           max_decode_batch=2)
+    # The four requests may reach the engine in several calls, and a call
+    # of up to max_decode_batch requests would take the static path,
+    # which cannot park: by the JAX engine's rule (more new tokens than
+    # static_path_max_new go inflight) every call takes the serving plane.
+    eng.static_path_max_new = 0
     srv = GenerationServer(eng, max_wait_ms=20.0)
     try:
         client = LLMAPIClient(srv.url)
@@ -303,6 +308,73 @@ def test_inmem_push_interrupts_and_resumes_inflight():
             assert len(o.output_ids[0]) == len(o.output_logprobs[0]) >= 1
     finally:
         srv.close()
+
+
+def test_push_during_a_static_call_drains():
+    """Twin of the JAX server's drain rule: a burst that fits one static
+    chunk runs as one program, which cannot park.  A push landing while
+    it runs waits for it: the call finishes whole under the old weights
+    (its greedy tokens equal an undisturbed old-weights run's, every
+    reply carries version_start == version == 0), then the swap lands,
+    no interrupt is left set, and the next call serves version 1."""
+    eng = GeneratorEngine(tiny_config(), _torch_params(11), "cpu", eos_token_id=EOS)
+    # One request of n=3, so the burst is one engine call however busy
+    # the host is.
+    g = GenerationHyperparameters(n=3, max_new_tokens=12, greedy=True)
+    inp = APIGenerateInput(qid="q", prompt_ids=[10, 11, 12, 13, 14, 15], gconfig=g)
+    ref_eng = GeneratorEngine(tiny_config(), _torch_params(11), "cpu", eos_token_id=EOS)
+    paths, started = [], threading.Event()
+    real_static, real_serving = eng._generate_chunk, eng._generate_inflight_serving
+
+    def held_static(*a, **k):
+        # Hold the first program until the push has asked the engine to
+        # park.
+        paths.append("static")
+        if not started.is_set():
+            started.set()
+            deadline = time.monotonic() + 60
+            while not eng.interrupt_requested and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert eng.interrupt_requested, "the push never asked to park"
+        return real_static(*a, **k)
+
+    def serving(*a, **k):
+        paths.append("inflight")
+        return real_serving(*a, **k)
+
+    eng._generate_chunk, eng._generate_inflight_serving = held_static, serving
+    srv = GenerationServer(eng, max_wait_ms=20.0)
+    ref_srv = GenerationServer(ref_eng, max_wait_ms=20.0)
+    try:
+        client = LLMAPIClient(srv.url)
+        box = {}
+        th = threading.Thread(target=lambda: box.update(out=client.generate(inp)))
+        th.start()
+        assert started.wait(timeout=60), "the static call never started"
+        pushed = {}
+        pusher = threading.Thread(
+            target=lambda: pushed.update(v=srv.update_weights_inmem(_torch_params(99)))
+        )
+        pusher.start()
+        pusher.join(timeout=120)
+        th.join(timeout=120)
+        assert not pusher.is_alive() and not th.is_alive()
+        assert pushed["v"] == srv.version == 1
+        assert paths == ["static"]
+        out = box["out"]
+        assert out.version_start == out.version == 0
+        assert len(out.output_ids) == 3
+        assert out.output_ids == LLMAPIClient(ref_srv.url).generate(inp).output_ids
+        assert eng.resume_replays == 0 and not eng.interrupted
+        assert not eng.interrupt_requested
+        assert client.health()["paused"] is False
+        after = client.generate(inp)
+        assert after.version_start == after.version == 1
+        assert paths == ["static", "static"]
+        assert after.output_ids != out.output_ids
+    finally:
+        srv.close()
+        ref_srv.close()
 
 
 def test_params_checksum_matches_jax(params):

@@ -1,9 +1,16 @@
-"""The port's serving plane against the JAX package's on the CPU, one set
-of tiny_config weights: `GeneratorEngine(kv_paged=True, kv_page_size=8,
-prefill_chunk_tokens=4, max_decode_batch=2)` with `inflight=True` on the
-JAX side.  Greedy tokens are identical, behaviour logprobs agree within
-1e-4, and the lane / page-sharing counters are equal (twins of the
-serving-plane tests in tests/test_paged_kv.py)."""
+"""The port's generation engine against the JAX package's on the CPU,
+one set of tiny_config weights: `GeneratorEngine(kv_paged=True,
+kv_page_size=8, prefill_chunk_tokens=4, max_decode_batch=2)`.
+
+- The serving plane, `inflight=True` on the JAX side: greedy tokens are
+  identical, behaviour logprobs agree within 1e-4, and the lane /
+  page-sharing counters are equal (twins of the serving-plane tests in
+  tests/test_paged_kv.py).
+- The static path, `inflight=False` on both sides: greedy tokens
+  identical, logprobs within 1e-4, `seq_no_eos_mask` equal,
+  `min_new_tokens` honoured; it equals the port's serving plane on
+  greedy tokens (twin of tests/test_generator.py's static/inflight
+  test); both engines choose the same path for the same call."""
 
 import jax
 import numpy as np
@@ -190,10 +197,13 @@ def test_small_pool_waits_for_pages(weights, mesh):
     _assert_same(oj, ot)
     assert te.last_pool_stats["pages_recycled"] == je.last_pool_stats["pages_recycled"] > 0
     _, ts = _samples((40,))
+    # One request fits a static chunk, which has no page pool: ask for
+    # the serving plane, whose pool is too small for it.
     with pytest.raises(PagePoolExhausted):
         GeneratorEngine(tiny_config(), weights[1], "cpu", eos_token_id=EOS,
                         kv_pool_pages=2, **KW).generate(
-            ts, MicroBatchSpec(), GenerationHyperparameters(max_new_tokens=4)
+            ts, MicroBatchSpec(), GenerationHyperparameters(max_new_tokens=4),
+            inflight=True,
         )
 
 
@@ -217,3 +227,188 @@ def test_default_device_is_the_card(weights):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         GeneratorEngine(tiny_config(), weights[1], eos_token_id=EOS)
+
+
+# --------------------------------------------------------------------------
+# The static path
+# --------------------------------------------------------------------------
+
+
+def _static_pair(weights, mesh, lens, n, max_new, eos=EOS, **g):
+    pj, pt = weights
+    js, ts = _samples(lens)
+    je = JEngine(jtiny(), pj, mesh, eos_token_id=eos, kv_paged=True, **KW)
+    te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=eos, **KW)
+    oj = je.generate(js, JSpec(), JGen(n=n, max_new_tokens=max_new, **g), inflight=False)
+    ot = te.generate(ts, MicroBatchSpec(),
+                     GenerationHyperparameters(n=n, max_new_tokens=max_new, **g),
+                     inflight=False)
+    return je, te, oj, ot
+
+
+def _response_lens(out, prompt_lens, n):
+    return [
+        full - prompt_lens[i]
+        for i, row in enumerate(out.seqlens["packed_input_ids"]) for full in row
+    ][: len(prompt_lens) * n]
+
+
+def test_static_path_matches_jax_static(weights, mesh):
+    """5 requests in length-sorted chunks of max_decode_batch=2 (three
+    programs): greedy tokens identical, logprobs within 1e-4, the no-EOS
+    mask and prompt mask equal; the engine counters read JAX's after a
+    static call; one prefill per chunk and one decode step per token
+    but the last."""
+    max_new = 8
+    je, te, oj, ot = _static_pair(weights, mesh, LENS, n=1, max_new=max_new, greedy=True)
+    _assert_same(oj, ot)
+    for c in COUNTERS:
+        assert getattr(te, c) == getattr(je, c), c
+    assert te.last_pool_stats == je.last_pool_stats == {}
+    assert te.steps_total == 0 and te.static_chunks == 3
+    # Chunks in descending prompt length: (11, 9), (6, 5), (4,).  Each
+    # runs min(its longest response, max_new - 1) forwards.
+    gl = dict(zip(LENS, _response_lens(ot, LENS, 1)))
+    chunks = [(11, 9), (6, 5), (4,)]
+    assert te.static_decode_steps == sum(
+        min(max(gl[p] for p in c), max_new - 1) for c in chunks
+    )
+
+
+def test_static_min_new_tokens_masks_eos(weights, mesh):
+    """An EOS that greedy decoding reaches at the second token: without
+    min_new_tokens the response stops there; with min_new_tokens=4 both
+    packages mask it for 4 steps and agree."""
+    _, _, _, ot = _static_pair(weights, mesh, (6, 9), n=2, max_new=8, greedy=True)
+    eos = int(ot.data["packed_input_ids"][6 + 1])  # prompt 0, token 1
+    _, _, oj, ot = _static_pair(weights, mesh, (6, 9), n=2, max_new=8, eos=eos,
+                                greedy=True)
+    _assert_same(oj, ot)
+    assert _response_lens(ot, (6, 9), 2)[0] == 2
+    _, _, oj, ot = _static_pair(weights, mesh, (6, 9), n=2, max_new=8, eos=eos,
+                                greedy=True, min_new_tokens=4)
+    _assert_same(oj, ot)
+    toks = ot.data["packed_input_ids"]
+    off = 0
+    for full, pl in zip([x for row in ot.seqlens["packed_input_ids"] for x in row],
+                        (6, 6, 9, 9)):
+        resp = toks[off + pl : off + full]
+        assert len(resp) >= 4 and eos not in resp[:4].tolist()
+        off += full
+
+
+def test_static_path_equals_serving_plane(weights):
+    """The port's two paths on one engine: greedy tokens identical,
+    logprobs within 2e-4 (the JAX test's bound), no-EOS masks equal."""
+    _, pt = weights
+    _, ts = _samples(LENS)
+    eng = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+    g = GenerationHyperparameters(n=1, max_new_tokens=8, greedy=True)
+    out_static = eng.generate(ts, MicroBatchSpec(), g, inflight=False)
+    assert eng.decode_compiles == 0
+    out_inflight = eng.generate(ts, MicroBatchSpec(), g, inflight=True)
+    assert eng.decode_compiles == 1
+    assert out_inflight.ids == out_static.ids
+    np.testing.assert_array_equal(
+        out_inflight.data["packed_input_ids"], out_static.data["packed_input_ids"]
+    )
+    np.testing.assert_allclose(
+        out_inflight.data["packed_logprobs"], out_static.data["packed_logprobs"],
+        rtol=2e-4, atol=2e-4,
+    )
+    np.testing.assert_array_equal(
+        out_inflight.data["seq_no_eos_mask"], out_static.data["seq_no_eos_mask"]
+    )
+
+
+class _Routed(Exception):
+    pass
+
+
+def _record_path(eng, static_name, inflight_name):
+    """Replace the engine's two path entries with recorders that stop the
+    call: the route is what is under test, not the generation."""
+    taken = []
+
+    def rec(name):
+        def fn(*a, **k):
+            taken.append(name)
+            raise _Routed
+
+        return fn
+
+    setattr(eng, static_name, rec("static"))
+    setattr(eng, inflight_name, rec("inflight"))
+    return taken
+
+
+# (request lengths, n, inflight argument, generation overrides,
+#  static_path_max_new on both engines)
+ROUTES = {
+    "requests_over_batch": ((5, 7), 2, None, {}, None),
+    "requests_fit_batch": ((5, 7), 1, None, {}, None),
+    "max_new_over_static_budget": ((5,), 1, None, dict(max_new_tokens=6), 4),
+    "max_new_at_static_budget": ((5,), 1, None, dict(max_new_tokens=6), 6),
+    "stop_sequences": ((5,), 1, False, dict(stop=((1, 2),)), None),
+    "explicit_static_over_batch": ((5, 7, 9), 1, False, {}, None),
+    "explicit_inflight": ((5,), 1, True, {}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTES))
+def test_path_choice_matches_jax(weights, mesh, case):
+    lens, n, inflight, gover, budget = ROUTES[case]
+    pj, pt = weights
+    js, ts = _samples(lens)
+    je = JEngine(jtiny(), pj, mesh, eos_token_id=EOS, kv_paged=True, **KW)
+    te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+    if budget is not None:
+        je.static_path_max_new = te.static_path_max_new = budget
+    j_taken = _record_path(je, "_generate_chunk", "_generate_inflight")
+    t_taken = _record_path(te, "_generate_chunk", "_generate_inflight_serving")
+    g = dict(dict(n=n, max_new_tokens=4, greedy=True), **gover)
+    with pytest.raises(_Routed):
+        je.generate(js, JSpec(), JGen(**g), inflight=inflight)
+    with pytest.raises(_Routed):
+        te.generate(ts, MicroBatchSpec(), GenerationHyperparameters(**g),
+                    inflight=inflight)
+    assert t_taken == j_taken[:1] and len(t_taken) == 1
+    want = {"requests_fit_batch": "static", "max_new_at_static_budget": "static",
+            "explicit_static_over_batch": "static"}.get(case, "inflight")
+    assert t_taken == [want]
+
+
+def test_spec_decoding_still_raises_on_either_path(weights, mesh):
+    """JAX sends spec decoding to its inflight path; the port has not
+    ported it and says so whatever `inflight` asks for."""
+    pj, pt = weights
+    js, ts = _samples((5,))
+    je = JEngine(jtiny(), pj, mesh, eos_token_id=EOS, kv_paged=True, **KW)
+    j_taken = _record_path(je, "_generate_chunk", "_generate_inflight")
+    with pytest.raises(_Routed):
+        je.generate(js, JSpec(), JGen(spec_decode_k=2), inflight=False)
+    assert j_taken == ["inflight"]
+    te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+    for inflight in (None, False, True):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            te.generate(ts, MicroBatchSpec(), GenerationHyperparameters(spec_decode_k=2),
+                        inflight=inflight)
+
+
+def test_static_sampling_is_seeded_and_well_formed(weights):
+    _, pt = weights
+    _, ts = _samples((7, 12))
+    eng = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+    g = GenerationHyperparameters(n=3, max_new_tokens=10, temperature=0.9, top_p=0.95)
+    a = eng.generate(ts, MicroBatchSpec(), g, seed=5, inflight=False)
+    b = eng.generate(ts, MicroBatchSpec(), g, seed=5, inflight=False)
+    c = eng.generate(ts, MicroBatchSpec(), g, seed=6, inflight=False)
+    np.testing.assert_array_equal(a.data["packed_input_ids"], b.data["packed_input_ids"])
+    np.testing.assert_array_equal(a.data["packed_logprobs"], b.data["packed_logprobs"])
+    assert not np.array_equal(a.data["packed_input_ids"], c.data["packed_input_ids"])
+    lp = a.data["packed_logprobs"]  # 0 on prompt positions
+    assert np.isfinite(lp).all() and (lp <= 0).all()
+    ids = a.data["packed_input_ids"]
+    assert ids.min() >= 0 and ids.max() < 512
+    assert all(len(row) == 3 for row in a.seqlens["packed_input_ids"])
+    assert eng.decode_compiles == 0 and eng.static_chunks == 9  # 3 calls x 3 chunks

@@ -148,10 +148,14 @@ def test_resume_before_any_admission_replays_nothing(weights):
     and the tokens equal the uninterrupted run's."""
     _, ts = _samples((5, 7))
     g = GenerationHyperparameters(n=1, max_new_tokens=12, greedy=True)
-    ref = _port_engine(weights["old"][1]).generate(ts, MicroBatchSpec(), g, seed=0)
+    # Two requests fit a static chunk, which cannot park: ask for the
+    # serving plane.
+    ref = _port_engine(weights["old"][1]).generate(
+        ts, MicroBatchSpec(), g, seed=0, inflight=True
+    )
     eng = _port_engine(weights["old"][1])
     eng.interrupt()
-    assert eng.generate(ts, MicroBatchSpec(), g, seed=0) is None
+    assert eng.generate(ts, MicroBatchSpec(), g, seed=0, inflight=True) is None
     assert all(a is None for a in eng._session.active)
     eng.clear_interrupt()
     out = eng.resume_generate()

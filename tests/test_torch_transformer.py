@@ -308,3 +308,77 @@ def test_head_bf16_gives_fp32_product(rng):
     assert got.dtype == torch.float32
     assert np.abs(want).max() > 2.0
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# The static generate path's forwards over a dense cache against the JAX
+# package (twins of tests/test_model.py's TestDecode cases)
+# --------------------------------------------------------------------------
+
+
+def _right_aligned(rng, lens, sp):
+    tokens = np.full((len(lens), sp), 7, np.int32)  # pad = the engine's EOS
+    seg = np.zeros((len(lens), sp), np.int32)
+    for r, n in enumerate(lens):
+        tokens[r, sp - n :] = rng.integers(8, jtiny().vocab_size, n)
+        seg[r, sp - n :] = 1
+    return tokens, seg
+
+
+@pytest.mark.parametrize("lens", [(5, 16, 11), (16, 16)])
+def test_prefill_and_decode_step_match_jax(weights, rng, lens):
+    """Right-aligned rows of different lengths: `prefill` then 8
+    `decode_step`s on the same tokens.  Each logits [B, V] within atol
+    1e-4 of JAX's, and the whole dense cache, leaf by leaf, within fp32
+    rounding (atol 1e-5) of JAX's, its slots past the last write still
+    exactly 0.  Each row's step logits also equal the port's full
+    forward on that row's own sequence (2e-4, test_model.py's bound)."""
+    pj, pt_ = weights
+    b, sp, total = len(lens), 16, 24
+    tokens, seg = _right_aligned(rng, lens, sp)
+    gen = rng.integers(8, jtiny().vocab_size, (b, total - sp)).astype(np.int32)
+    jc = jtfm.init_kv_cache(jtiny(), b, total, dtype=jnp.float32)
+    tc = ttfm.init_kv_cache(ttiny(), b, total, dtype=torch.float32, device="cpu")
+    jl, jc = jtfm.prefill(pj, jtiny(), jnp.asarray(tokens), jnp.asarray(seg), jc)
+    tl, tc2 = ttfm.prefill(pt_, ttiny(), torch.from_numpy(tokens), torch.from_numpy(seg), tc)
+    assert tc2 is tc and tl.dtype == torch.float32 and tuple(tl.shape) == (b, 512)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+    valid_from = np.asarray([sp - n for n in lens], np.int32)
+    step_logits = []
+    for step in range(total - sp):
+        pos = np.asarray([n + step for n in lens], np.int32)
+        jl, jc = jtfm.decode_step(
+            pj, jtiny(), jnp.asarray(gen[:, step]), jnp.asarray(pos), jc,
+            jnp.int32(sp + step), jnp.asarray(valid_from),
+        )
+        tl, _ = ttfm.decode_step(
+            pt_, ttiny(), torch.from_numpy(gen[:, step]), torch.from_numpy(pos), tc,
+            sp + step, torch.from_numpy(valid_from),
+        )
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0,
+                                   err_msg=f"step {step}")
+        step_logits.append(tl.numpy())
+        if step == 3:  # slots past the last write are untouched
+            assert (tc.k[:, :, sp + step + 1 :] == 0).all()
+            assert (tc.v[:, :, sp + step + 1 :] == 0).all()
+    for name in ("k", "v"):
+        np.testing.assert_allclose(
+            getattr(tc, name).numpy(), np.asarray(getattr(jc, name)), atol=1e-5, rtol=0,
+            err_msg=name,
+        )
+    for r, n in enumerate(lens):
+        seq = np.concatenate([tokens[r, sp - n :], gen[r]])[None]
+        full = _fwd(pt_, seq, np.ones_like(seq))[0]
+        for step in range(total - sp):
+            np.testing.assert_allclose(
+                step_logits[step][r], full[n + step], atol=2e-4, rtol=2e-4,
+                err_msg=f"row {r} step {step}",
+            )
+
+
+def test_init_kv_cache_shape_and_int8_not_ported():
+    c = ttfm.init_kv_cache(ttiny(), 3, 40, dtype=torch.float32, device="cpu")
+    assert tuple(c.k.shape) == (4, 3, 40, 2, 16) == tuple(c.v.shape)
+    assert (c.k == 0).all() and (c.v == 0).all()
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttfm.init_kv_cache(ttiny(), 3, 40, dtype="int8", device="cpu")
