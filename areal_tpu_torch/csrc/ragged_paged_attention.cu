@@ -4,72 +4,53 @@
 // `_ragged_stream_kernel` in areal_tpu/ops/pallas/paged_attention.py.
 // Token t of the stream attends its own window [0, valid_to[t]) of the
 // sequence it belongs to, addressed through its own page-table row
-// page_table[t, :].  Unmapped entries (>= n_pool) clamp to the last pool
-// page; the window mask removes every position they address.  Dead lanes
-// (valid_to == 0) run no tile at all and write exact zeros.  int8 pools
+// page_table[t, :]; the table bounds the window (min(valid_to,
+// max_pages * page_size)).  Unmapped entries (>= n_pool) clamp to the
+// last pool page; the window removes every position they address.  Dead
+// lanes (valid_to == 0) load nothing and write exact zeros.  int8 pools
 // carry one bf16 scale per (page, slot, kv head).
 //
 // What bounds it on an H100: the bytes of K/V read.  A decode lane does
-// 4 * rep * head_dim flops per 2 * head_dim * elem_bytes of K/V it reads
-// (rep = n_q / n_kv query heads per kv head), far below the card's
-// ~295 flops/byte ridge, so time is bytes over 3.35 TB/s at best.  The
-// design does three things about that:
-//   * one thread block per (token, kv head) serves all `rep` query heads
-//     of that kv head from ONE read of each K/V tile (GQA in-kernel, no
-//     repeat of K/V);
-//   * the loop runs only over the tiles below valid_to, so a short
-//     window reads only its own positions and a dead lane reads nothing;
-//   * scores, the online softmax and P.V stay in shared memory and
-//     registers (fp32); only the output row goes back to device memory.
-// This first version stages tiles with plain loads and computes on the
-// CUDA cores; tensor cores (wgmma), TMA and splitting long windows over
-// several blocks are later work.
+// 4 * rep * head_dim flops per 2 * head_dim * elem_bytes of K/V (rep =
+// n_q / n_kv = 6 at qwen2-1.5B: 6 flops per bf16 byte), far under the
+// card's ~295 flops/byte ridge, so time is bytes over 3.35 TB/s at best.
+// The design (split_kv_attention.cuh):
+//   * split-KV: the grid is (T, n_kv, n_splits); block (t, g, z) serves
+//     the `rep` query heads of kv head g of token t (GQA in-kernel: one
+//     read of K/V for all of them) over a span of `span_pages` whole pages
+//     (256 positions at page_size 128), so a 2048-position window is
+//     eight blocks in parallel instead of one block walking 64 tiles.
+//     n_splits = ceil(max_pages / span_pages) comes from shapes alone; a
+//     span past the lane's window returns at once with an empty partial.
+//     A second kernel, launched by the same C entry point, merges the
+//     partials (one launch count per call in the wrapper).  A separate
+//     merge, rather than a last-block-done counter, keeps the kernels free
+//     of a zeroed counter buffer and of fences, and its order is fixed,
+//     so results are bit-for-bit repeatable.
+//   * bytes in flight: each warp walks its tiles of 16 positions with a
+//     2-stage ring of 16-byte cp.async copies (one position of one kv head
+//     is head_dim contiguous elements, 256 B in bf16); the block reads its
+//     pages' indices once into shared memory, not once per element.
+//   * bf16 tensor cores: Q.K^T and P.V as mma.sync.m16n8k16 bf16 tiles,
+//     the 6 heads padded to 16 rows (not wgmma: 64 rows minimum).  fp32
+//     and int8 pools keep fp32 CUDA-core products in the same structure.
+// Shared memory (bf16, head_dim 128): 4 KB of q + 64 KB of rings + 1 KB
+// of page indices a block, so three blocks share an SM.  Registers and
+// spills of every variant: `nvcc -Xptxas -v`, printed by chip_smoke.py's
+// build phase.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by areal_tpu_torch/kernels/ragged_paged_attention.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "split_kv_attention.cuh"
 
 namespace {
 
-constexpr int kTile = 32;      // positions per tile: one per warp lane
-constexpr int kThreads = 128;  // four warps per block
-constexpr int kMaxRep = 16;    // query heads per kv head
-constexpr float kNegInf = -1e30f;
+using namespace splitkv;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
+constexpr int kMaxSpanPages = 256;
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// Grid: (T, n_kv).  Block: kThreads.  Shared memory is static:
-// (kMaxRep + kTile) * (D + 1) + kTile * D + kMaxRep * (kTile + 1) floats,
-// 43 KB at D = 128.
+// Grid: (T, n_kv, n_splits).  Block: kThreads.
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
     const QT* __restrict__ q,            // [T, n_q, D]
@@ -80,188 +61,121 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
     const int* __restrict__ page_table,  // [T, max_pages]
     const int* __restrict__ valid_to,    // [T]
     QT* __restrict__ out,                // [T, n_q, D]
+    float* __restrict__ part,            // partials, or nullptr (one span)
     int n_q, int n_kv, int n_pool, int page_size, int max_pages,
-    float scale) {
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int DP = D + 1;  // padded row: conflict-free column reads
-  constexpr int kAccPer = (kMaxRep * D + kThreads - 1) / kThreads;
-
-  __shared__ float q_s[kMaxRep * DP];
-  __shared__ float k_s[kTile * DP];
-  __shared__ float v_s[kTile * D];
-  __shared__ float p_s[kMaxRep * (kTile + 1)];  // scores, then probs
-  __shared__ float m_s[kMaxRep];
-  __shared__ float l_s[kMaxRep];
-  __shared__ float a_s[kMaxRep];
+    int span_pages, float scale_log2) {
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int pages_s[kMaxSpanPages];
 
   const int t = blockIdx.x;
   const int g = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int split = blockIdx.z;
   const int rep = n_q / n_kv;
-  // The table addresses max_pages pages: a longer window sees only them
-  // (as the Pallas grid and the plain gather do).
-  const int vt = min(valid_to[t], max_pages * page_size);
-
-  // This block's rep query rows: heads [g*rep, (g+1)*rep) of token t.
-  const QT* q_tok = q + (static_cast<size_t>(t) * n_q + g * rep) * D;
-  for (int i = tid; i < rep * D; i += kThreads) {
-    q_s[(i / D) * DP + (i % D)] = to_float(q_tok[i]);
+  const int vt = max(0, min(valid_to[t], max_pages * page_size));
+  const int page0 = split * span_pages;
+  const int begin = page0 * page_size;
+  const int end = min(begin + span_pages * page_size, vt);
+  if (begin < end) {
+    // This span's page indices, once a page (sentinel clamp); visible to
+    // the loads after attend_span's first barrier.
+    const int* pt_row = page_table + static_cast<size_t>(t) * max_pages;
+    for (int i = threadIdx.x; i < span_pages && page0 + i < max_pages; i += kThreads)
+      pages_s[i] = min(pt_row[page0 + i], n_pool - 1);
   }
-  if (tid < rep) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
+  const size_t row0 = static_cast<size_t>(t) * n_q + g * rep;
+  attend_span<QT, KT, D>(
+      k_pool, v_pool, k_scale, v_scale,
+      [&](int r) { return q + (row0 + r) * D; },
+      [&](int r) { return row0 + r; },
+      [&](int pos) {
+        const int local = pos - begin;
+        const int pi = local / page_size;
+        return (static_cast<size_t>(pages_s[pi]) * page_size + (local - pi * page_size)) *
+                   n_kv + g;
+      },
+      [&](int r) { return r < rep ? vt : 0; }, rep, begin, end, scale_log2,
+      out, part, split, gridDim.z, gridDim.x * n_q, smem);
+}
 
-  float acc[kAccPer];
-#pragma unroll
-  for (int e = 0; e < kAccPer; ++e) acc[e] = 0.f;
+template <typename QT, int D>
+__global__ void __launch_bounds__(kThreads) ragged_paged_attention_merge_kernel(
+    const float* __restrict__ part, QT* __restrict__ out, int R, int n_splits) {
+  merge_rows<QT, D>(part, out, R, n_splits);
+}
 
-  const int* pt_row = page_table + static_cast<size_t>(t) * max_pages;
-  for (int tile0 = 0; tile0 < vt; tile0 += kTile) {
-    const int nvalid = min(kTile, vt - tile0);
-    __syncthreads();  // the previous tile's readers are done
-
-    // Stage K/V of positions [tile0, tile0 + nvalid) as fp32 (dequantized
-    // for int8 pools); positions past the window are zero-filled, never
-    // read from the pool.
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int j = i / D;
-      const int d = i % D;
-      float kx = 0.f;
-      float vx = 0.f;
-      if (j < nvalid) {
-        const int pos = tile0 + j;
-        const int pi = pos / page_size;
-        const int page = min(pt_row[pi], n_pool - 1);  // sentinel clamp
-        const size_t slot =
-            (static_cast<size_t>(page) * page_size + (pos - pi * page_size)) *
-                n_kv + g;
-        kx = to_float(k_pool[slot * D + d]);
-        vx = to_float(v_pool[slot * D + d]);
-        if (kQuant) {
-          kx *= __bfloat162float(k_scale[slot]);
-          vx *= __bfloat162float(v_scale[slot]);
-        }
-      }
-      k_s[j * DP + d] = kx;
-      v_s[j * D + d] = vx;
-    }
-    __syncthreads();
-
-    // Scores s[r, j] = q_r . k_j * scale; a warp covers one row r.
-    for (int i = tid; i < rep * kTile; i += kThreads) {
-      const int r = i / kTile;
-      const int j = i % kTile;
-      float s = kNegInf;
-      if (j < nvalid) {
-        float dot = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot += q_s[r * DP + d] * k_s[j * DP + d];
-        s = dot * scale;
-      }
-      p_s[r * (kTile + 1) + j] = s;
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per row, one lane per position.
-    for (int r = warp; r < rep; r += kThreads / 32) {
-      const float s = p_s[r * (kTile + 1) + lane];
-      float tmax = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, tmax);
-      const float p = lane < nvalid ? expf(s - m_new) : 0.f;
-      float psum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      p_s[r * (kTile + 1) + lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + psum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc[r, d] = acc[r, d] * alpha_r + sum_j p[r, j] * v[j, d].
-#pragma unroll
-    for (int e = 0; e < kAccPer; ++e) {
-      const int i = tid + e * kThreads;
-      if (i < rep * D) {
-        const int r = i / D;
-        const int d = i % D;
-        float sum = 0.f;
-        for (int j = 0; j < nvalid; ++j)
-          sum += p_s[r * (kTile + 1) + j] * v_s[j * D + d];
-        acc[e] = acc[e] * a_s[r] + sum;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Dead lanes ran no tile: 0 / 1e-30 gives exact zeros.
-  QT* o_tok = out + (static_cast<size_t>(t) * n_q + g * rep) * D;
-#pragma unroll
-  for (int e = 0; e < kAccPer; ++e) {
-    const int i = tid + e * kThreads;
-    if (i < rep * D) {
-      o_tok[i] = from_float<QT>(acc[e] / fmaxf(l_s[i / D], 1e-30f));
-    }
-  }
+template <typename QT, typename KT, int D>
+int launch_d(const void* q, const void* k_pool, const void* v_pool,
+             const void* k_scale, const void* v_scale, const void* page_table,
+             const void* valid_to, void* out, void* scratch, int T, int n_q,
+             int n_kv, int n_pool, int page_size, int max_pages, int span_pages,
+             int n_splits, float scale, cudaStream_t stream) {
+  constexpr int kSmem = Plan<QT, KT, D>::kSmemBytes;
+  auto* kernel = ragged_paged_attention_kernel<QT, KT, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* part = n_splits > 1 ? static_cast<float*>(scratch) : nullptr;
+  kernel<<<dim3(T, n_kv, n_splits), kThreads, kSmem, stream>>>(
+      static_cast<const QT*>(q), static_cast<const KT*>(k_pool),
+      static_cast<const KT*>(v_pool),
+      static_cast<const __nv_bfloat16*>(k_scale),
+      static_cast<const __nv_bfloat16*>(v_scale),
+      static_cast<const int*>(page_table), static_cast<const int*>(valid_to),
+      static_cast<QT*>(out), part, n_q, n_kv, n_pool, page_size, max_pages,
+      span_pages, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
+  const int R = T * n_q;
+  ragged_paged_attention_merge_kernel<QT, D>
+      <<<(R + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          part, static_cast<QT*>(out), R, n_splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT>
 int launch_typed(const void* q, const void* k_pool, const void* v_pool,
                  const void* k_scale, const void* v_scale,
                  const void* page_table, const void* valid_to, void* out,
-                 int T, int n_q, int n_kv, int head_dim, int n_pool,
-                 int page_size, int max_pages, float scale,
-                 cudaStream_t stream) {
-  const dim3 grid(T, n_kv);
-  const dim3 block(kThreads);
-#define RPA_LAUNCH(D)                                                       \
-  ragged_paged_attention_kernel<QT, KT, D><<<grid, block, 0, stream>>>(     \
-      static_cast<const QT*>(q), static_cast<const KT*>(k_pool),            \
-      static_cast<const KT*>(v_pool),                                       \
-      static_cast<const __nv_bfloat16*>(k_scale),                           \
-      static_cast<const __nv_bfloat16*>(v_scale),                           \
-      static_cast<const int*>(page_table), static_cast<const int*>(valid_to), \
-      static_cast<QT*>(out), n_q, n_kv, n_pool, page_size, max_pages, scale)
-  if (head_dim == 64) {
-    RPA_LAUNCH(64);
-  } else if (head_dim == 128) {
-    RPA_LAUNCH(128);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef RPA_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+                 void* scratch, int T, int n_q, int n_kv, int head_dim,
+                 int n_pool, int page_size, int max_pages, int span_pages,
+                 int n_splits, float scale, cudaStream_t stream) {
+#define RPA_ARGS                                                           \
+  q, k_pool, v_pool, k_scale, v_scale, page_table, valid_to, out, scratch, \
+      T, n_q, n_kv, n_pool, page_size, max_pages, span_pages, n_splits,    \
+      scale, stream
+  if (head_dim == 64) return launch_d<QT, KT, 64>(RPA_ARGS);
+  if (head_dim == 128) return launch_d<QT, KT, 128>(RPA_ARGS);
+#undef RPA_ARGS
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).
-// Returns 0 or the cudaError_t of the launch.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only).  The
+// caller chooses the split: span_pages pages a block, n_splits blocks a
+// (token, kv head), covering the table (span_pages * n_splits >=
+// max_pages); with n_splits > 1, `scratch` holds n_splits * T * n_q *
+// (head_dim + 2) floats of partials.  Returns 0 or the cudaError_t of a
+// launch.
 extern "C" int ragged_paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* page_table,
-    const void* valid_to, void* out, int T, int n_q, int n_kv, int head_dim,
-    int n_pool, int page_size, int max_pages, int q_dtype, int kv_dtype,
-    float scale, void* stream) {
+    const void* valid_to, void* out, void* scratch, int T, int n_q, int n_kv,
+    int head_dim, int n_pool, int page_size, int max_pages, int span_pages,
+    int n_splits, int q_dtype, int kv_dtype, float scale, void* stream) {
   if (T == 0) return 0;
-  if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv > kMaxRep) {
+  if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv > kMaxRep ||
+      span_pages < 1 || span_pages > kMaxSpanPages || n_splits < 1 ||
+      n_splits > 65535 ||
+      static_cast<long long>(span_pages) * n_splits < max_pages ||
+      (n_splits > 1 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RPA_ARGS                                                          \
-  q, k_pool, v_pool, k_scale, v_scale, page_table, valid_to, out, T, n_q, \
-      n_kv, head_dim, n_pool, page_size, max_pages, scale, s
+#define RPA_ARGS                                                           \
+  q, k_pool, v_pool, k_scale, v_scale, page_table, valid_to, out, scratch, \
+      T, n_q, n_kv, head_dim, n_pool, page_size, max_pages, span_pages,    \
+      n_splits, scale, s
   if (q_dtype == 0) {
     if (kv_dtype == 0) return launch_typed<float, float>(RPA_ARGS);
     if (kv_dtype == 1) return launch_typed<float, __nv_bfloat16>(RPA_ARGS);

@@ -3,9 +3,10 @@
 Each `areal_tpu_torch/csrc/*.cu` file has a plain C interface and is
 compiled on its own by `nvcc` for Hopper (sm_90a) into
 `areal_tpu_torch/_build/<name>-<hash>.so`, where the hash covers the
-source and the flags: an edited source rebuilds, an unchanged one is
-reused.  Nothing is compiled when a module is imported; the kernel
-wrappers call `build_library` the first time they launch.
+source, the shared headers (`csrc/*.cuh`) and the flags: an edited
+source or header rebuilds, an unchanged one is reused.  Nothing is
+compiled when a module is imported; the kernel wrappers call
+`build_library` the first time they launch.
 
     python -m areal_tpu_torch.kernels.build   # build every kernel now
 """
@@ -54,8 +55,10 @@ def nvcc() -> str:
 
 def library_path(source: str) -> str:
     h = hashlib.sha256()
-    with open(source, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

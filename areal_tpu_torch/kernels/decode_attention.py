@@ -10,7 +10,13 @@ is the chunk form's call, as in the JAX package, so one kernel body
 serves both and a masking fix cannot split them.  The kernel is
 hand-written CUDA C++ for Hopper (`areal_tpu_torch/csrc/decode_attention.cu`),
 built by `nvcc` at first launch (`kernels/build.py`) and bound through
-ctypes.  `LAUNCHES` counts the kernel's launches and nothing else.
+ctypes.  `LAUNCHES` counts the wrapper's calls that launched the kernel
+and nothing else.  The kernel is split-KV: each (row, kv head, query
+tile) is served by `n_splits` blocks of SPLIT_POSITIONS positions from
+`valid_from` (`split_plan`, from S alone), and a merge kernel launched by
+the same C entry point combines their partials.
+`decode_attention_chunk_split_reference` is that arithmetic in plain
+PyTorch, for the tests and `chip_smoke.py`.
 
 On a CPU tensor the wrapper computes the plain version
 (`ops/attention.decode_attention_chunk` with every query live); on a
@@ -25,14 +31,48 @@ from typing import Optional
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.kernels.ragged_paged_attention import check_paged_inputs
-from areal_tpu_torch.ops.attention import decode_attention_chunk
+from areal_tpu_torch.kernels.ragged_paged_attention import (
+    check_aligned,
+    check_paged_inputs,
+)
+from areal_tpu_torch.ops.attention import decode_attention_chunk, split_window_attention
 
 SOURCE = os.path.join(build.CSRC_DIR, "decode_attention.cu")
 
 LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SPLIT_POSITIONS = 256  # positions a block covers
+
+
+def split_plan(s: int):
+    """(span, n_splits): the kernel's blocks per (row, kv head, query
+    tile) each cover `span` positions from valid_from, and together any
+    window of the S-position cache.  Shapes only: no device read."""
+    return SPLIT_POSITIONS, -(-s // SPLIT_POSITIONS)
+
+
+def decode_attention_chunk_split_reference(
+    q: torch.Tensor,  # [B, Q, n_q, d]
+    k_cache: torch.Tensor,  # [B, S, n_kv, d]
+    v_cache: torch.Tensor,
+    valid_from: torch.Tensor,  # [B]
+    valid_to0: torch.Tensor,  # [B]
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    span: int,  # positions a split covers (the kernel: SPLIT_POSITIONS)
+) -> torch.Tensor:
+    """The kernel's split-KV arithmetic in plain PyTorch: each row's
+    window cut into spans of `span` positions from valid_from, one
+    partial (o, m, l) a span, then the merge.  For the tests and
+    chip_smoke.py; the wrapper's CPU path is the plain version."""
+    qi = torch.arange(q.shape[1], device=q.device)
+    valid_to_q = (valid_to0.long()[:, None] + qi[None, :]).clamp(max=k_cache.shape[1])
+    return split_window_attention(
+        q, k_cache, v_cache, valid_from.long().clamp(min=0), valid_to_q, span,
+        k_scale=k_scale, v_scale=v_scale,
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,7 +80,7 @@ def _launcher():
     lib = ctypes.CDLL(build.build_library(SOURCE))
     fn = lib.decode_attention_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -75,7 +115,10 @@ def decode_attention_chunk_kernel(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[B, Q, n_q, d] in q's dtype.  CPU tensors: the plain version.  CUDA
-    tensors: the sm_90a kernel, on the current stream, or an error."""
+    tensors: the sm_90a kernel, on the current stream, or an error.
+    One call adds one to LAUNCHES: the split pass and, when S takes more
+    than one span, the merge launched after it.  Nothing is read from the
+    device on the host."""
     global LAUNCHES
     if q.device.type == "cpu":
         b, nq_tok = q.shape[:2]
@@ -86,9 +129,17 @@ def decode_attention_chunk_kernel(
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
     _check(q, k_cache, v_cache, valid_from, valid_to0, k_scale, v_scale)
+    check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
     b, nq_tok, n_q, d = q.shape
     _, s, n_kv, _ = k_cache.shape
+    span, n_splits = split_plan(s)
     out = torch.empty_like(q)
+    scratch = None  # partials: o [n_splits, B*Q*n_q, d], then m and l
+    if n_splits > 1:
+        scratch = torch.empty(
+            n_splits * out.numel() // d * (d + 2), dtype=torch.float32,
+            device=q.device,
+        )
     _, launch = _launcher()
     with torch.cuda.device(q.device):
         rc = launch(
@@ -96,7 +147,8 @@ def decode_attention_chunk_kernel(
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             valid_from.data_ptr(), valid_to0.data_ptr(), out.data_ptr(),
-            b, nq_tok, n_q, n_kv, d, s,
+            scratch.data_ptr() if scratch is not None else None,
+            b, nq_tok, n_q, n_kv, d, s, span, n_splits,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )

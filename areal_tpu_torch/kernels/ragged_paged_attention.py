@@ -4,8 +4,14 @@ Replaces the TPU kernel `ragged_paged_attention_kernel`
 (areal_tpu/ops/pallas/paged_attention.py).  The kernel is hand-written
 CUDA C++ for Hopper (`areal_tpu_torch/csrc/ragged_paged_attention.cu`),
 built by `nvcc` at first launch (`kernels/build.py`) and bound through
-ctypes.  `LAUNCHES` counts the kernel's launches and nothing else, so a
-run can show that its main path went through the kernel.
+ctypes.  `LAUNCHES` counts the wrapper's calls that launched the kernel
+and nothing else, so a run can show that its main path went through it.
+
+The kernel is split-KV: each (token, kv head) is served by `n_splits`
+blocks, each over a span of whole pages (`split_plan`, from the table's
+shape alone), and a merge kernel launched by the same C entry point
+combines their partials.  `ragged_paged_attention_split_reference` is
+that arithmetic in plain PyTorch, for the tests and `chip_smoke.py`.
 
 On a CPU tensor the wrapper computes the plain version
 (`ragged_paged_attention_reference`); on a CUDA tensor it launches the
@@ -20,7 +26,11 @@ from typing import Optional
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.ops.attention import decode_attention, paged_gather_layer
+from areal_tpu_torch.ops.attention import (
+    decode_attention,
+    paged_gather_layer,
+    split_window_attention,
+)
 
 SOURCE = os.path.join(build.CSRC_DIR, "ragged_paged_attention.cu")
 
@@ -29,6 +39,17 @@ LAUNCHES = 0
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_REP = 16  # kMaxRep in the CUDA source
 _HEAD_DIMS = (64, 128)
+# Positions a block covers, rounded to whole pages (kMaxSpanPages = 256 in
+# the CUDA source bounds the pages a span).
+SPLIT_POSITIONS = 256
+
+
+def split_plan(max_pages: int, page_size: int):
+    """(span_pages, n_splits): the kernel's blocks per (token, kv head)
+    each cover `span_pages` whole pages, about SPLIT_POSITIONS positions,
+    and together the whole table.  Shapes only: no device read."""
+    span_pages = max(1, SPLIT_POSITIONS // page_size)
+    return span_pages, -(-max_pages // span_pages)
 
 
 def ragged_paged_attention_reference(
@@ -56,12 +77,40 @@ def ragged_paged_attention_reference(
     return out[:, 0]
 
 
+def ragged_paged_attention_split_reference(
+    q: torch.Tensor,  # [T, n_q, d]
+    k_pool: torch.Tensor,  # [P, ps, n_kv, d]
+    v_pool: torch.Tensor,
+    page_table_tok: torch.Tensor,  # [T, max_pages] (sentinel >= P)
+    valid_to: torch.Tensor,  # [T]; 0 = dead lane
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    span: int,  # positions a split covers (the kernel: span_pages * ps)
+) -> torch.Tensor:
+    """The kernel's split-KV arithmetic in plain PyTorch: each token's
+    window (bounded by its table) cut into spans of `span` positions from
+    0, one partial (o, m, l) a span, then the merge.  For the tests and
+    chip_smoke.py; the wrapper's CPU path is the plain version."""
+    k_cache = paged_gather_layer(k_pool, page_table_tok)  # [T, mp*ps, ...]
+    v_cache = paged_gather_layer(v_pool, page_table_tok)
+    ks = None if k_scale is None else paged_gather_layer(k_scale, page_table_tok)
+    vs = None if v_scale is None else paged_gather_layer(v_scale, page_table_tok)
+    t = q.shape[0]
+    out = split_window_attention(
+        q[:, None], k_cache, v_cache,
+        torch.zeros((t,), dtype=torch.long, device=q.device),
+        valid_to.long()[:, None], span, k_scale=ks, v_scale=vs,
+    )
+    return out[:, 0]
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = ctypes.CDLL(build.build_library(SOURCE))
     fn = lib.ragged_paged_attention_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
         + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -124,6 +173,14 @@ def check_paged_inputs(q, k_pool, v_pool, k_scale, v_scale, q_dims, **index):
         raise ValueError("int8 pool scales must be [P, ps, n_kv]")
 
 
+def check_aligned(**tensors):
+    """The split-KV kernels (K2, K4) copy q and K/V rows as 16-byte
+    vectors: each tensor must start on a 16-byte boundary."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale):
     check_paged_inputs(
         q, k_pool, v_pool, k_scale, v_scale, 3,
@@ -150,7 +207,10 @@ def ragged_paged_attention_kernel(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[T, n_q, d] in q's dtype.  CPU tensors: the plain version.  CUDA
-    tensors: the sm_90a kernel, on the current stream, or an error."""
+    tensors: the sm_90a kernel, on the current stream, or an error.
+    One call adds one to LAUNCHES: the split pass and, when the table
+    takes more than one span, the merge launched after it.  Nothing is
+    read from the device on the host."""
     global LAUNCHES
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
@@ -159,9 +219,17 @@ def ragged_paged_attention_kernel(
     if q.device.type != "cuda":
         raise ValueError(f"no ragged_paged_attention for device {q.device}")
     _check(q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale)
+    check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
     t, n_q, d = q.shape
     n_pool, ps, n_kv, _ = k_pool.shape
+    mp = page_table_tok.shape[1]
+    span_pages, n_splits = split_plan(mp, ps)
     out = torch.empty_like(q)
+    scratch = None  # partials: o [n_splits, T*n_q, d], then m and l
+    if n_splits > 1:
+        scratch = torch.empty(
+            n_splits * t * n_q * (d + 2), dtype=torch.float32, device=q.device
+        )
     _, launch = _launcher()
     with torch.cuda.device(q.device):
         rc = launch(
@@ -169,7 +237,8 @@ def ragged_paged_attention_kernel(
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             page_table_tok.data_ptr(), valid_to.data_ptr(), out.data_ptr(),
-            t, n_q, n_kv, d, n_pool, ps, page_table_tok.shape[1],
+            scratch.data_ptr() if scratch is not None else None,
+            t, n_q, n_kv, d, n_pool, ps, mp, span_pages, n_splits,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pool.dtype],
             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream,
         )

@@ -490,8 +490,12 @@ class PagedKVCache:
 
 
 def init_paged_kv_cache(
-    cfg: ModelConfig, n_pages: int, page_size: int, dtype=None, device="cpu"
+    cfg: ModelConfig, n_pages: int, page_size: int, dtype=None, device=None
 ) -> PagedKVCache:
+    """A zeroed page pool of n_pages + 1 pages (the last is the trash
+    page) on `device` (the CUDA card unless told otherwise), in `dtype`
+    (default the model's; "int8" adds bf16 scales)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, n_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype or cfg.dtype
     if dtype in (torch.int8, "int8"):

@@ -13,8 +13,12 @@
   plain version; the paged attention kernels' wrappers
   (`kernels/ragged_paged_attention.py`, `kernels/paged_chunk_attention.py`)
   build theirs from these.  The model calls the wrappers.
+- `split_window_attention`: the split-KV arithmetic of K2 and K4 (partials
+  per span, then the merge), which the tests and chip_smoke.py hold
+  against the plain versions and the kernels.
 """
 
+import math
 from typing import Optional
 
 import torch
@@ -162,6 +166,59 @@ def decode_attention_chunk(
         "bgqrs,bsgd->bqgrd", probs.to(v_cache.dtype).float(), v_cache.float()
     )
     return out.reshape(b, nq_tok, n_q, d).to(q.dtype)
+
+
+def split_window_attention(
+    q: torch.Tensor,  # [B, Q, n_q, d]
+    k_cache: torch.Tensor,  # [B, S, n_kv, d]
+    v_cache: torch.Tensor,  # [B, S, n_kv, d]
+    valid_from: torch.Tensor,  # [B] int >= 0 — first valid slot per row
+    valid_to_q: torch.Tensor,  # [B, Q] int — one past each query's last slot
+    span: int,  # positions a split covers, counted from valid_from
+    k_scale: Optional[torch.Tensor] = None,  # [B, S, n_kv]: int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Split-KV (flash-decoding) attention, plain formulation: the model
+    of the split kernels K2 and K4.  Each query's window [valid_from,
+    valid_to_q) is cut at valid_from + z * span; span z gives a partial
+    (m_z = its largest logit, l_z = sum of exp(logit - m_z), o_z = the
+    unnormalised P.V with P in V's dtype), and the merge rescales every
+    partial with l_z > 0 by exp(m_z - m), sums, and divides by max(l,
+    1e-30): a query no span saw gives exact zeros, and an empty span adds
+    no mass."""
+    if k_scale is not None:
+        from areal_tpu_torch.ops.quant import kv_dequant
+
+        k_cache = kv_dequant(k_cache, k_scale, q.dtype)
+        v_cache = kv_dequant(v_cache, v_scale, q.dtype)
+    b, nq_tok, n_q, d = q.shape
+    s, n_kv = k_cache.shape[1], k_cache.shape[2]
+    qh = q.reshape(b, nq_tok, n_kv, n_q // n_kv, d)
+    logits = torch.einsum(
+        "bqgrd,bsgd->bgqrs", qh.float(), k_cache.to(q.dtype).float()
+    ) * d**-0.5  # [B, n_kv, Q, n_rep, S] fp32
+    idx = torch.arange(s, device=q.device)
+    valid = (idx[None, None, :] >= valid_from[:, None, None]) & (
+        idx[None, None, :] < valid_to_q[:, :, None]
+    )  # [B, Q, S]
+    split_of = torch.div(
+        idx[None, :] - valid_from[:, None], span, rounding_mode="floor"
+    )  # [B, S]
+    v32 = v_cache.float()
+    ms, ls, outs = [], [], []
+    for z in range(-(-s // span)):
+        live = (valid & (split_of == z)[:, None, :])[:, None, :, None, :]
+        m = torch.where(live, logits, torch.full_like(logits, -math.inf)).amax(-1)
+        p = torch.where(live, torch.exp(logits - m[..., None]), torch.zeros_like(logits))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        outs.append(torch.einsum("bgqrs,bsgd->bgqrd", p.to(v_cache.dtype).float(), v32))
+    m, l = torch.stack(ms), torch.stack(ls)  # [n_splits, B, n_kv, Q, n_rep]
+    m_all = torch.where(l > 0, m, torch.full_like(m, -math.inf)).amax(0)
+    f = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(m))
+    o = (f[..., None] * torch.stack(outs)).sum(0)
+    o = o / (f * l).sum(0).clamp(min=1e-30)[..., None]
+    return o.permute(0, 2, 1, 3, 4).reshape(b, nq_tok, n_q, d).to(q.dtype)
 
 
 def clamp_page_table(page_table: torch.Tensor, n_pool: int) -> torch.Tensor:

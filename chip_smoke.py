@@ -10,23 +10,30 @@ build        — build every CUDA kernel from the sources in this checkout
                (nvcc, sm_90a, one process per source, all at once) and
                print the card's name and power limit.
 kernel       — the ragged paged attention kernel (K2) against its plain
-               PyTorch version at qwen2-1.5B's attention shape over a
-               96-lane serving stream (fp32, bf16, int8 pools; dead lanes
-               exactly 0; a poisoned last pool page changes nothing), and
-               its time beside the plain version, one library call and the
-               card's bound.  Then the paged chunk attention kernel (K3)
-               at the resume replay's shape (64 slots of 32 queries,
+               PyTorch version and its split reference at qwen2-1.5B's
+               attention shape over a 96-lane serving stream (fp32, bf16,
+               int8 pools; dead lanes exactly 0; a poisoned last pool page
+               changes nothing), over windows at its span's edges +-1 and
+               over a one-span table; one call under
+               torch.cuda.set_sync_debug_mode("error"); its time beside
+               the plain version, one library call and the card's bound
+               (device time from CUDA-graph replays, and the eager call's
+               time with its host work).  Then the paged chunk attention
+               kernel (K3) at the resume replay's shape (64 slots of 32 queries,
                windows 64-640, ragged q_lens with some 0): fp32, bf16 and
                int8 pools, each output row within a tolerance of its own
                magnitude, dead queries exactly 0, a poisoned last pool
                page changing nothing, and its times.  Then the dense
                decode attention kernel (K4) at the static path's decode
                shape (32 rows of S=1024, prompts 64-512 right-aligned at
-               512, window to 576), a Q=4 chunk, a 1280 window and rows
-               with empty windows: fp32, bf16 and int8 caches, each output
-               row within a tolerance of its own magnitude, empty windows
-               exactly 0, poisoned positions outside every window changing
-               nothing, and its times.
+               512, window to 576), a Q=4 chunk, a 1280 window, rows
+               with empty windows, windows at its span's edges +-1 and a
+               one-span cache: fp32, bf16 and int8 caches, each output
+               row within a tolerance of its own magnitude of its plain
+               version and of its split reference, empty windows exactly
+               0, poisoned positions outside every window changing
+               nothing; one call under the sync debug mode; and its times
+               at 32 rows and at the static phase's 64.
 flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                backward) against the plain version and its autograd on
                fp32 copies of the same inputs, at qwen2-1.5B's attention
@@ -90,7 +97,8 @@ train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32: the
                the weights after the step.
 
 `python3 chip_smoke.py --phases build,flash` is the quick call after
-editing a kernel.  The line before the last is one JSON object
+editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
+K4 (about 20 s of command on an H100).  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -143,9 +151,101 @@ def time_cuda(fn, warmup: int = 5, iters: int = 25) -> float:
     return times[len(times) // 2]
 
 
+def time_graph(fn, iters: int = 50) -> float:
+    """Device milliseconds of one `fn()`: the call captured once in a CUDA
+    graph, replayed `iters` times between two CUDA events.  Unlike
+    time_cuda, no host work of the call (Python, checks, launches) is in
+    the reading, so a call the host cannot keep the card busy with still
+    reads its device time."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def timings(fn, plain, library, iters=25) -> dict:
+    """A kernel's wrapper, its plain version and its library yardstick on
+    the same inputs: device time (graph replays) and the time of an eager
+    call (CUDA events around it, host work included) of each."""
+    out = {}
+    for key, f in (("kernel", fn), ("plain", plain), ("library", library)):
+        out[f"{key}_ms"] = time_graph(f)
+        out[f"{key}_eager_ms"] = time_cuda(f, iters=iters)
+    return out
+
+
+def no_host_sync(name: str, fn) -> None:
+    """One call of a wrapper under torch.cuda.set_sync_debug_mode("error"):
+    a host read of a device tensor inside it fails the run."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        check(False, f"{name}: the wrapper synchronised with the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[kernel] {name}: one call under set_sync_debug_mode('error'): no host sync")
+
+
 # --------------------------------------------------------------------------
 # Phase 1: build
 # --------------------------------------------------------------------------
+
+
+def _ptxas_lines(log_text):
+    """One line per compiled kernel from nvcc's -Xptxas -v report: its
+    name (demangled with c++filt where the toolkit host has it), registers,
+    spill stores/loads and static shared memory."""
+    import re
+    import shutil
+
+    rows, name, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", m.group(2))
+            rows.append([name, f"{m.group(1)} registers, {spill or 'spills ?'}"
+                         + (f", {smem.group(1)} B static smem" if smem else "")])
+            name = None
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True,
+            text=True, timeout=60,
+        ).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return [f"{n}: {rest}" for n, rest in rows]
+
+
 
 
 def phase_build():
@@ -156,9 +256,8 @@ def phase_build():
     secs = time.monotonic() - t0
     for name, r in info.items():
         log(f"[build] {name} -> {os.path.relpath(r['path'], REPO)}")
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build]   {line.strip()}")
+        for line in _ptxas_lines(r["log"]):
+            log(f"[build]   {line}")
     log(f"[build] seconds={secs:.2f}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,19 +271,20 @@ def phase_build():
 # --------------------------------------------------------------------------
 
 
-def _stream(seed):
+def _stream(seed, fixed=(1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100), mp=16):
     """A 96-lane serving stream at qwen2-1.5B's attention shape: 56 decode
     lanes and 4 prefill slices of 8 lanes with windows of 1..2048 that
     cross page boundaries (one decode window, 2100, runs past its 16-page
     table, which then bounds it), then 8 dead lanes; page tables carry
     sentinel entries past each row's mapped pages.  The last pool page is
-    never mapped, so poisoning it must change nothing."""
+    never mapped, so poisoning it must change nothing.  `fixed` gives the
+    first decode lanes' windows, `mp` the table's pages."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n_q, n_kv, d, ps, mp = 12, 2, 128, 128, 16
+    n_q, n_kv, d, ps = 12, 2, 128, 128
     rows = []  # (positions of the row's lanes)
-    fixed = [1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100]
+    fixed = list(fixed)
     for i in range(56):
         vt = fixed[i] if i < len(fixed) else int(rng.integers(1, 2049))
         rows.append([vt - 1])
@@ -245,46 +345,53 @@ def _bound(s, elem_bytes):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_kernel(report, seed):
+K2_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 1e-3}  # max abs error
+
+
+def _hold_k2(tag, s, poison):
+    """K2 on stream `s` against its plain version and its split reference
+    (at the kernel's own span) on the same inputs, fp32, bf16 and int8
+    pools, each within K2_TOL; window-0 lanes exactly 0; with `poison`,
+    the never-mapped last pool page set to 1e9 (127 and scale 1e9 for
+    int8) changing nothing.  Returns {dtype: error} and the tensors."""
     import torch
-    import torch.nn.functional as F
 
     from areal_tpu_torch.kernels import ragged_paged_attention as rpa
-    from areal_tpu_torch.ops.attention import paged_gather_layer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    s = _stream(seed)
+    bf = torch.bfloat16
     t = {key: torch.from_numpy(val).to(dev) for key, val in s.items()
          if key != "n_live"}
-    n_live = s["n_live"]
-    ks = t["ks"].to(torch.bfloat16)
-    vs = t["vs"].to(torch.bfloat16)
+    ks, vs = t["ks"].to(bf), t["vs"].to(bf)
     cases = {
-        "fp32": (t["q"], t["k"], t["v"], None, None, 1e-4),
-        "bf16": (
-            t["q"].to(torch.bfloat16), t["k"].to(torch.bfloat16),
-            t["v"].to(torch.bfloat16), None, None, 2e-2,
-        ),
-        "int8": (t["q"], t["k8"], t["v8"], ks, vs, 1e-3),
+        "fp32": (t["q"], t["k"], t["v"], None, None),
+        "bf16": (t["q"].to(bf), t["k"].to(bf), t["v"].to(bf), None, None),
+        "int8": (t["q"], t["k8"], t["v8"], ks, vs),
     }
+    ps, mp = s["k"].shape[1], s["pt"].shape[1]
+    span_pages, n_splits = rpa.split_plan(mp, ps)
+    dead = t["vt"] == 0
     errs = {}
-    for name, (q, k, v, ksc, vsc, tol) in cases.items():
-        out = rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"], ksc, vsc)
-        ref = rpa.ragged_paged_attention_reference(
-            q, k, v, t["pt"], t["vt"], ksc, vsc
-        )
+    for name, (q, k, v, ksc, vsc) in cases.items():
+        tol = K2_TOL[name]
+        args = (q, k, v, t["pt"], t["vt"], ksc, vsc)
+        out = rpa.ragged_paged_attention_kernel(*args)
+        ref = rpa.ragged_paged_attention_reference(*args)
+        split = rpa.ragged_paged_attention_split_reference(*args, span=span_pages * ps)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+        check(bool(torch.isfinite(out).all()), f"K2 {tag} {name}: non-finite kernel output")
         err = float((out.float() - ref.float()).abs().max())
-        errs[name] = err
-        log(f"[kernel] {name}: max_abs_err={err:.3e} (tolerance {tol:g})")
-        check(err <= tol, f"{name} kernel disagrees with the plain version")
-        check(
-            float(out[n_live:].float().abs().max()) == 0.0,
-            f"{name}: dead lanes are not exactly 0",
-        )
+        err_s = float((out.float() - split.float()).abs().max())
+        errs[name], errs[f"{name}_split"] = err, err_s
+        log(f"[kernel] K2 {tag} {name}: max_abs_err={err:.3e} against the plain version, "
+            f"{err_s:.3e} against the split reference (tolerance {tol:g}; {n_splits} "
+            f"span(s) of {span_pages} page(s))")
+        check(err <= tol, f"K2 {tag} {name} disagrees with the plain version")
+        check(err_s <= tol, f"K2 {tag} {name} disagrees with the split reference")
+        check(float(out[dead].float().abs().max()) == 0.0,
+              f"K2 {tag} {name}: dead lanes are not exactly 0")
+        if not poison:
+            continue
         # Poison the never-mapped last page: a sentinel-clamped read that
         # leaked mass would change the output.
         k_bad, v_bad = k.clone(), v.clone()
@@ -300,17 +407,34 @@ def phase_kernel(report, seed):
         )
         check(
             torch.equal(out, out_bad),
-            f"{name}: poisoning the last pool page changed the output",
+            f"K2 {tag} {name}: poisoning the last pool page changed the output",
         )
-    # Times at the main path's dtype (bf16 q and pool).
+    return errs, t, cases
+
+
+def phase_kernel(report, seed):
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.ops.attention import paged_gather_layer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    s = _stream(seed)
+    errs, t, cases = _hold_k2("stream", s, poison=True)
+    # Windows at the 256-position span's edges, +-1; and a 2-page table
+    # (one span: the split pass writes the output, no merge) whose longer
+    # windows run past it.
+    edges = _stream(seed + 7, fixed=(255, 256, 257, 511, 512, 513, 767, 768, 769, 1, 2))
+    for tag, es in (("span edges", edges), ("one span", _stream(seed + 8, mp=2))):
+        e, _, _ = _hold_k2(tag, es, poison=False)
+        errs.update({f"{tag}_{key}": val for key, val in e.items()})
     q, k, v = cases["bf16"][:3]
-    kernel_ms = time_cuda(
-        lambda: rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"])
-    )
-    plain_ms = time_cuda(
-        lambda: rpa.ragged_paged_attention_reference(q, k, v, t["pt"], t["vt"])
-    )
-    # Library yardstick: one SDPA call over the pre-gathered windows.
+    no_host_sync("K2", lambda: rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"]))
+    # Times at the main path's dtype (bf16 q and pool).  Library
+    # yardstick: one SDPA call over the pre-gathered windows.
     T, n_q, d = q.shape
     n_kv = k.shape[2]
     kc = paged_gather_layer(k, t["pt"]).transpose(1, 2)  # [T, n_kv, S, d]
@@ -321,20 +445,80 @@ def phase_kernel(report, seed):
         torch.arange(kc.shape[2], device=dev)[None, :] < t["vt"][:, None]
     )[:, None, None, :]
     q4 = q[:, :, None, :]
-    library_ms = time_cuda(
-        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)
+    times = timings(
+        lambda: rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"]),
+        lambda: rpa.ragged_paged_attention_reference(q, k, v, t["pt"], t["vt"]),
+        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask),
     )
     bound_ms, bound_by = _bound(s, 2)
     log(
-        f"[kernel] bf16 T={T}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})"
+        f"[kernel] K2 bf16 T={T}: kernel_ms={times['kernel_ms']:.4f} "
+        f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+        f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
+        f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
+        f"bound_ms={bound_ms:.5f} ({bound_by})"
     )
-    report["kernel"] = dict(
-        max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, T=T,
-    )
+    report["kernel"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by,
+                            T=T, **times)
     _kernel_k3(report, seed)
     _kernel_k4(report, seed)
+    _split_sweep(report, seed)
+
+
+def _split_sweep(report, seed):
+    """K2 (the 96-lane stream) and K4 (the 32-row decode case), bf16:
+    device time (graph replays) at spans around the wrappers' own, and
+    one profiled call of each at its own span, split into the split pass
+    and the merge kernel."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    s = _stream(seed)
+    q2, k2, v2 = (torch.from_numpy(s[key]).to(dev).to(bf) for key in ("q", "k", "v"))
+    pt, vt2 = torch.from_numpy(s["pt"]).to(dev), torch.from_numpy(s["vt"]).to(dev)
+    q_np, vf_np, vt_np, S = _k4_cases(seed)["decode"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q4 = torch.from_numpy(q_np).to(dev).to(bf)
+    k4, v4 = (torch.randn((32, S, 2, 128), generator=gen, device=dev).to(bf)
+              for _ in range(2))
+    vf, vt4 = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+    runs = (
+        ("K2", rpa, lambda: rpa.ragged_paged_attention_kernel(q2, k2, v2, pt, vt2),
+         (128, 256, 512)),
+        ("K4", da, lambda: da.decode_attention_kernel(q4, k4, v4, vf, vt4),
+         (64, 128, 256)),
+    )
+    out = {}
+    for name, mod, fn, spans in runs:
+        own = mod.SPLIT_POSITIONS
+        try:
+            for span in spans:
+                mod.SPLIT_POSITIONS = span
+                out[f"{name}_span{span}_ms"] = time_graph(fn)
+        finally:
+            mod.SPLIT_POSITIONS = own
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        parts = {"split": 0.0, "merge": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "attention" in e.key:
+                us = getattr(e, "self_device_time_total", None)
+                us = e.self_cuda_time_total if us is None else us
+                parts["merge" if "merge" in e.key else "split"] += us / 20
+        out[f"{name}_split_us"], out[f"{name}_merge_us"] = parts["split"], parts["merge"]
+        log(f"[kernel] {name} spans (positions: device ms) "
+            + ", ".join(f"{sp}: {out[f'{name}_span{sp}_ms']:.4f}" for sp in spans)
+            + f"; at its own span {own}, one call = split pass {parts['split']:.1f} us"
+            f" + merge {parts['merge']:.1f} us (profiler)")
+    report["split_sweep"] = out
 
 
 def _replay_slots(seed):
@@ -490,8 +674,11 @@ def _k4_cases(seed):
     the same rows with Q=4 queries, the last seeing to 576.  w1280: a
     window of 1280 positions (no tile of 32 or block of 512 divides what
     the rows see), rows 2 and 3 empty.  empty: Q=2, rows 0-2 empty for
-    both queries, row 3 for its first query only.  Returns {name: (q
-    [B, Q, 12, 128], valid_from [B], valid_to0 [B], S)}."""
+    both queries, row 3 for its first query only.  edges: windows of the
+    256-position span +-1 (and 2 spans +-1, 1 and 0 positions) from
+    random starts.  one_span: S=256, a single span (the split pass writes
+    the output, no merge), Q=2, row 2's first query empty.  Returns
+    {name: (q [B, Q, 12, 128], valid_from [B], valid_to0 [B], S)}."""
     import numpy as np
 
     rng = np.random.default_rng(seed + 31)
@@ -513,6 +700,11 @@ def _k4_cases(seed):
     vt_e[:3] = (40, 1000, 699)  # every query of rows 0-2 empty
     vf_e[3], vt_e[3] = 500, 500  # query 0 empty, query 1 sees [500, 501)
     cases["empty"] = (2, vf_e, vt_e, 1024)
+    vf_s = rng.integers(0, 200, 8).astype(np.int32)
+    lens = np.array([255, 256, 257, 511, 512, 513, 1, 0], np.int32)
+    cases["edges"] = (1, vf_s, vf_s + lens, 1024)
+    cases["one_span"] = (2, np.array([0, 5, 100, 250], np.int32),
+                         np.array([255, 200, 100, 255], np.int32), 256)
     return {
         name: (rng.standard_normal((len(f), nq, n_q, d)).astype(np.float32), f, t, S)
         for name, (nq, f, t, S) in cases.items()
@@ -549,12 +741,13 @@ def _k4_bound(vf, vt0, nq, S, n_q, n_kv, d, elem_bytes):
 
 def _kernel_k4(report, seed):
     """K4 against its plain version (`decode_attention_chunk` with every
-    query live) on fp32 copies of the same inputs, for each case of
-    _k4_cases and fp32, bf16 and int8 caches: each output row within
-    FLASH_ROW_TOL of that row's largest |plain| value (int8: the fp32
-    bound), empty windows exactly 0, K/V poisoned at every position
-    outside every window of its row changing nothing.  Then, at the
-    decode case in bf16, the times of K4, its plain version and SDPA on
+    query live) and its split reference (at the kernel's span) on fp32
+    copies of the same inputs, for each case of _k4_cases and fp32, bf16
+    and int8 caches: each output row within FLASH_ROW_TOL of that row's
+    largest |plain| value (int8: the fp32 bound), empty windows exactly
+    0, K/V poisoned at every position outside every window of its row
+    changing nothing.  Then, at the decode case in bf16 (B=32, and the
+    static phase's B=64), the times of K4, its plain version and SDPA on
     the same dense window with the boolean mask, and the bound."""
     import numpy as np
     import torch
@@ -570,6 +763,7 @@ def _kernel_k4(report, seed):
     errs, n_zero = {}, 0
     for cname, (q_np, vf_np, vt_np, S) in _k4_cases(seed).items():
         b, nq = q_np.shape[:2]
+        span, n_splits = da.split_plan(S)
         shape = (b, S, n_kv, d)
         base = {
             "q": torch.from_numpy(q_np).to(dev),
@@ -600,12 +794,19 @@ def _kernel_k4(report, seed):
             ref = decode_attention_chunk(
                 q.float(), f32(k), f32(v), vf.long(), vt.long(), full, ksc, vsc
             )
+            split = da.decode_attention_chunk_split_reference(
+                q.float(), f32(k), f32(v), vf, vt, ksc, vsc, span=span
+            )
             torch.cuda.synchronize()
             tag = f"{cname} {tname}"
             check(bool(torch.isfinite(out).all()), f"K4 {tag}: non-finite output")
             rel, err = _row_err(out, ref)
+            rel_s, _ = _row_err(out, split)
             errs[f"{tname}_{cname}"], errs[f"{tname}_{cname}_row"] = err, rel
+            errs[f"{tname}_{cname}_split_row"] = rel_s
             check(rel <= tol, f"K4 {tag} disagrees with the plain version: {rel:.3e}")
+            check(rel_s <= tol,
+                  f"K4 {tag} disagrees with the split reference: {rel_s:.3e}")
             if bool(empty.any()):
                 check(float(out.float()[empty].abs().max()) == 0.0,
                       f"K4 {tag}: empty windows are not exactly 0")
@@ -621,38 +822,50 @@ def _kernel_k4(report, seed):
             out_bad = da.decode_attention_chunk_kernel(q, k_bad, v_bad, vf, vt, ks_bad, vs_bad)
             check(torch.equal(out, out_bad),
                   f"K4 {tag}: poisoning positions outside every window changed the output")
-            log(f"[kernel] K4 {tag}: B={b} Q={nq} S={S} row_err={rel:.3e} (tolerance "
-                f"{tol:.3e}) max_abs_err={err:.3e}")
+            log(f"[kernel] K4 {tag}: B={b} Q={nq} S={S} ({n_splits} span(s)) "
+                f"row_err={rel:.3e}, against the split reference {rel_s:.3e} "
+                f"(tolerance {tol:.3e}) max_abs_err={err:.3e}")
     log(f"[kernel] K4: {n_zero} empty-window query rows exactly 0; poisoned positions "
         f"outside every window changed nothing")
-    # Times at the static path's decode shape, bf16 q and cache.
+    # Times at the static path's decode shape, bf16 q and cache: the
+    # decode case's 32 rows, then 64 rows (the static phase's batch) with
+    # the same window rule.  Library yardstick: SDPA over the same dense
+    # window, boolean mask, GQA native.
     q_np, vf_np, vt_np, S = _k4_cases(seed)["decode"]
-    b = q_np.shape[0]
-    q = torch.from_numpy(q_np).to(dev).to(bf)
-    k, v = (torch.from_numpy(rng.standard_normal((b, S, n_kv, d)).astype(np.float32))
-            .to(dev).to(bf) for _ in range(2))
-    vf, vt = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
-    full = torch.full((b,), 1, dtype=torch.long, device=dev)
-    kernel_ms = time_cuda(lambda: da.decode_attention_kernel(q, k, v, vf, vt))
-    plain_ms = time_cuda(
-        lambda: decode_attention_chunk(q, k, v, vf.long(), vt.long(), full), iters=10
-    )
-    # Library yardstick: SDPA over the same dense window, boolean mask,
-    # GQA native.
-    mask = _k4_windows(vf, vt, 1, S)[:, None]  # [B, 1, 1, S]
-    q4 = q.transpose(1, 2).contiguous()  # [B, 12, 1, D]
-    kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask, enable_gqa=True
-    ), iters=10)
-    bound_ms, bound_by = _k4_bound(vf_np, vt_np, 1, S, 12, n_kv, d, 2)
-    log(f"[kernel] K4 bf16 decode B={b} S={S}: kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} "
-        f"({bound_by}); {int((vt_np - vf_np).sum())} live positions")
-    report["k4"] = dict(
-        max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-    )
+    plen = rng.integers(64, 513, 64)
+    per_b = {32: (q_np, vf_np, vt_np),
+             64: (rng.standard_normal((64, 1, 12, d)).astype(np.float32),
+                  (512 - plen).astype(np.int32), np.full(64, 576, np.int32))}
+    for b, (q_np, vf_np, vt_np) in per_b.items():
+        q = torch.from_numpy(q_np).to(dev).to(bf)
+        k, v = (torch.from_numpy(rng.standard_normal((b, S, n_kv, d)).astype(np.float32))
+                .to(dev).to(bf) for _ in range(2))
+        vf, vt = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+        full = torch.full((b,), 1, dtype=torch.long, device=dev)
+        if b == 32:
+            no_host_sync("K4", lambda: da.decode_attention_kernel(q, k, v, vf, vt))
+        mask = _k4_windows(vf, vt, 1, S)[:, None]  # [B, 1, 1, S]
+        q4 = q.transpose(1, 2).contiguous()  # [B, 12, 1, D]
+        kc, vc = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        times = timings(
+            lambda: da.decode_attention_kernel(q, k, v, vf, vt),
+            lambda: decode_attention_chunk(q, k, v, vf.long(), vt.long(), full),
+            lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                   enable_gqa=True),
+            iters=10,
+        )
+        bound_ms, bound_by = _k4_bound(vf_np, vt_np, 1, S, 12, n_kv, d, 2)
+        log(f"[kernel] K4 bf16 decode B={b} S={S}: kernel_ms={times['kernel_ms']:.4f} "
+            f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+            f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
+            f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
+            f"bound_ms={bound_ms:.5f} ({bound_by}); {int((vt_np - vf_np).sum())} live "
+            f"positions")
+        if b == 32:
+            report["k4"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by,
+                                **times)
+        else:
+            report["k4"]["b64"] = dict(bound_ms=bound_ms, **times)
 
 
 # --------------------------------------------------------------------------
@@ -1930,14 +2143,17 @@ def _kernels_line(report):
         "replaces": "areal_tpu/ops/pallas/paged_attention.py:276",
         "launches": s.get("launches"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
+        "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
         "max_abs_err_int8": k.get("max_abs_err", {}).get("int8"),
         "ms": k.get("kernel_ms"),
-        "kernel_ms": k.get("kernel_ms"),
+        "eager_ms": k.get("kernel_eager_ms"),
         "plain_ms": k.get("plain_ms"),
+        "plain_eager_ms": k.get("plain_eager_ms"),
         "bound_ms": k.get("bound_ms"),
         "bound_by": k.get("bound_by"),
         "library_ms": k.get("library_ms"),
+        "library_eager_ms": k.get("library_eager_ms"),
     }]
     f = report.get("flash", {})
     train = report.get("train", {})
@@ -2005,11 +2221,18 @@ def _kernels_line(report):
         "row_err_fp32": errs.get("fp32_decode_row"),
         "max_abs_err_int8": errs.get("int8_decode"),
         "row_err_int8": errs.get("int8_decode_row"),
+        "row_err_split": errs.get("bf16_decode_split_row"),
         "ms": k4.get("kernel_ms"),
+        "eager_ms": k4.get("kernel_eager_ms"),
         "plain_ms": k4.get("plain_ms"),
+        "plain_eager_ms": k4.get("plain_eager_ms"),
         "bound_ms": k4.get("bound_ms"),
         "bound_by": k4.get("bound_by"),
         "library_ms": k4.get("library_ms"),
+        "library_eager_ms": k4.get("library_eager_ms"),
+        "b64_ms": k4.get("b64", {}).get("kernel_ms"),
+        "b64_library_ms": k4.get("b64", {}).get("library_ms"),
+        "b64_bound_ms": k4.get("b64", {}).get("bound_ms"),
     })
     return kernels
 

@@ -1,8 +1,11 @@
 """The port's small host-side copies against the JAX package's: stat
 merging, the anomaly verdict bits, the byte tokenizer and the interface
-registry."""
+registry; and the rule that the port's entry points run on the CUDA
+card unless the caller asks for the CPU."""
 
+import numpy as np
 import pytest
+import torch
 
 from areal_tpu.base import integrity as jintegrity
 from areal_tpu.base.stats import merge_stats as jmerge
@@ -11,7 +14,11 @@ from areal_tpu_torch.api import model_api
 from areal_tpu_torch.base import integrity
 from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.data.tokenizer import CharTokenizer
+from areal_tpu_torch.engines.generator import GeneratorEngine
 from areal_tpu_torch.interfaces.ppo import PPOActorInterface
+from areal_tpu_torch.models import transformer as tfm
+from areal_tpu_torch.models.config import tiny_config
+from areal_tpu_torch.models.weights import params_from_numpy
 
 
 @pytest.mark.parametrize("parts", [
@@ -50,3 +57,31 @@ def test_interface_registry():
     assert isinstance(ai, PPOActorInterface) and ai.n_minibatches == 2
     with pytest.raises(ValueError):
         model_api.register_interface("ppo_actor", PPOActorInterface)
+
+
+_ENTRY_POINTS = {
+    "init_params": lambda cfg, **kw: tfm.init_params(cfg, 0, **kw)["embed"],
+    "params_from_numpy": lambda cfg, **kw: params_from_numpy(
+        {"w": np.ones((2, 3), np.float32)}, **kw
+    )["w"],
+    "init_kv_cache": lambda cfg, **kw: tfm.init_kv_cache(cfg, 2, 16, **kw).k,
+    "init_paged_kv_cache": lambda cfg, **kw: tfm.init_paged_kv_cache(cfg, 4, 8, **kw).k,
+    "GeneratorEngine": lambda cfg, **kw: GeneratorEngine(
+        cfg, tfm.init_params(cfg, 0, device="cpu"), eos_token_id=1, **kw
+    ),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRY_POINTS))
+def test_entry_point_runs_on_the_card_unless_told(entry):
+    """Called without `device`, each entry point resolves to the CUDA
+    card: on a host without one it raises resolve_device's error rather
+    than falling back to the CPU; `device="cpu"` runs on the host."""
+    call = _ENTRY_POINTS[entry]
+    cfg = tiny_config()
+    if torch.cuda.is_available():
+        assert call(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(cfg)
+    assert call(cfg, device="cpu").device.type == "cpu"

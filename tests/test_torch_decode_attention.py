@@ -7,7 +7,14 @@ every query live — against the Pallas kernels `decode_attention_kernel`
 and `decode_attention_chunk_kernel` in interpret mode (as the JAX
 package's own tests run them): fp32 within atol/rtol 2e-5, an int8 cache
 with scales within 3e-4 (the JAX tests' bounds between their two paths);
-rows whose window is empty exactly 0 on both sides."""
+rows whose window is empty exactly 0 on both sides.
+
+The CUDA kernel is split-KV; its arithmetic (a partial per span of the
+window from valid_from, then the merge) is
+`decode_attention_chunk_split_reference`, held here in fp32 against the
+same Pallas kernels and the plain version at the same tolerances, with
+split boundaries mid-window, on window edges, at exactly one span and at
+windows of 0 and 1."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -173,3 +180,92 @@ def test_card_input_checks(rng, bad):
         q, k, v = q[..., :32], k[..., :32], v[..., :32]
     with pytest.raises((ValueError, TypeError)):
         da._check(q.contiguous(), k.contiguous(), v.contiguous(), lo, hi, ks, vs)
+
+
+# --- the split-KV arithmetic of the CUDA kernel ----------------------------
+
+
+def _split(q, k, v, lo, hi, ks=None, vs=None, *, span):
+    bf = torch.bfloat16
+    return da.decode_attention_chunk_split_reference(
+        _t(q), _t(k), _t(v), _t(lo), _t(hi),
+        None if ks is None else _t(ks, bf), None if vs is None else _t(vs, bf),
+        span=span,
+    ).numpy()
+
+
+def _edge_rows(rng, s=256):
+    """Windows of 0, 1, 64 +- 1 and the whole cache from random starts."""
+    lo = np.array([0, 7, 3, 5, 0, 100, 200, 255], np.int32)
+    lens = np.array([s, 1, 63, 64, 65, 0, 56, 1], np.int32)
+    q, k, v, _, _ = _mk(rng, b=len(lo), s=s)
+    return q, k, v, lo, lo + lens
+
+
+@pytest.mark.parametrize("span", [64, 50, 256, 16, 1])
+def test_split_reference_matches_jax_kernel(rng, span):
+    """Spans that end on the 64-position Pallas block (64, 16), fall
+    mid-block (50), cover the whole cache in one span (256) and hold one
+    position each (1)."""
+    q, k, v, lo, hi = _edge_rows(rng)
+    want = _jax(q, k, v, lo, hi, block_k=64)
+    got = _split(q, k, v, lo, hi, span=span)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _port_kernel(q, k, v, lo, hi), rtol=2e-5, atol=2e-5)
+    empty = lo >= hi
+    assert (got[empty] == 0).all() and (want[empty] == 0).all()
+    assert (np.abs(got[~empty]).max(axis=(1, 2, 3)) > 0).all()
+
+
+@pytest.mark.parametrize("span", [64, 50, 256])
+def test_split_reference_chunk_matches_jax(rng, span):
+    """Chunk form: query i sees [valid_from, valid_to0 + i); row 1 has
+    every query empty, row 2 its first two."""
+    s, Q = 256, 3
+    q, k, v, _, _ = _mk(rng, b=4, s=s, nq_tok=Q)
+    lo = np.array([0, s, 31, 10], np.int32)
+    to0 = np.array([64, 64, 30, 200], np.int32)
+    want = _jax(q, k, v, lo, to0, chunk=True, block_k=64)
+    got = _split(q, k, v, lo, to0, span=span)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _port_kernel(q, k, v, lo, to0), rtol=2e-5, atol=2e-5)
+    assert (got[1] == 0).all() and (got[2, :2] == 0).all()
+
+
+@pytest.mark.parametrize("span", [64, 50])
+def test_split_reference_int8_cache(rng, span):
+    """int8 cache with bf16 scales: the JAX tests' 3e-4 bound."""
+    q, k, v, lo, hi = _edge_rows(rng)
+    kq, ks = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(k)))
+    vq, vs = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(v)))
+    ks, vs = ks.astype(np.float32), vs.astype(np.float32)
+    want = _jax(q, kq, vq, lo, hi, ks, vs, block_k=64)
+    got = _split(q, kq, vq, lo, hi, ks, vs, span=span)
+    np.testing.assert_allclose(got, want, rtol=3e-4, atol=3e-4)
+    np.testing.assert_allclose(
+        got, _port_kernel(q, kq, vq, lo, hi, ks, vs), rtol=3e-4, atol=3e-4
+    )
+    assert (got[lo >= hi] == 0).all()
+
+
+def test_split_reference_empty_splits_add_no_mass(rng):
+    """64 more positions past every window add a span with no mass, and
+    K/V poisoned outside every window change nothing."""
+    q, k, v, lo, hi = _edge_rows(rng)
+    base = _split(q, k, v, lo, hi, span=64)
+    pad = rng.standard_normal((k.shape[0], 64) + k.shape[2:]).astype(np.float32)
+    wide = [np.concatenate([x, pad], axis=1) for x in (k, v)]
+    np.testing.assert_allclose(_split(q, *wide, lo, hi, span=64), base, atol=1e-6, rtol=1e-6)
+    pos = np.arange(k.shape[1])
+    outside = (pos[None, :] < lo[:, None]) | (pos[None, :] >= hi[:, None])
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[outside] = v_bad[outside] = 1e9
+    np.testing.assert_array_equal(_split(q, k_bad, v_bad, lo, hi, span=64), base)
+
+
+def test_split_plan_from_shapes_alone():
+    """Spans of 256 positions covering the S-position cache."""
+    assert da.split_plan(1024) == (256, 4)
+    assert da.split_plan(1280) == (256, 5)
+    assert da.split_plan(256) == (256, 1)
+    assert da.split_plan(257) == (256, 2)

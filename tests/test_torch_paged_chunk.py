@@ -183,7 +183,9 @@ def _pools(rng, int8):
         k = rng.standard_normal(shape).astype(np.float32)
         v = rng.standard_normal(shape).astype(np.float32)
         jc = jtfm.PagedKVCache(k=jnp.asarray(k), v=jnp.asarray(v), page_size=PS)
-    tc = ttfm.init_paged_kv_cache(ttiny(), N_PAGES, PS, dtype="int8" if int8 else torch.float32)
+    tc = ttfm.init_paged_kv_cache(
+        ttiny(), N_PAGES, PS, dtype="int8" if int8 else torch.float32, device="cpu"
+    )
     tc.k[:, :N_PAGES] = torch.from_numpy(k)
     tc.v[:, :N_PAGES] = torch.from_numpy(v)
     if int8:

@@ -3,7 +3,16 @@ against the JAX package's Pallas kernel `ragged_paged_attention_kernel`
 (run in interpret mode, as tests/test_paged_kv.py runs it) and its XLA
 gather fallback, on the same mixed stream: fp32 at 2e-5, dead lanes
 exactly 0, sentinel pages add no mass, int8 pools at 3e-5.  On the CPU
-the dispatcher never launches the CUDA kernel."""
+the dispatcher never launches the CUDA kernel.
+
+The CUDA kernel is split-KV; its arithmetic (a partial per span of the
+window, then the merge) is `ragged_paged_attention_split_reference`,
+held here in fp32 against the same JAX kernels and the plain version at
+the same tolerances, with split boundaries on a page edge, mid-page, at
+exactly one span, past the table (a 2100 window over 16 pages of 16)
+and at windows of 0 and 1."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +125,120 @@ def test_window_past_the_table_is_bounded_by_it(stream):
     out = _port(q, k, v, pt, vt)
     np.testing.assert_allclose(out, np.asarray(jax_kernel(*args)), atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(out, np.asarray(jax_fallback(*args)), atol=2e-5, rtol=2e-5)
+
+
+# --- the split-KV arithmetic of the CUDA kernel ----------------------------
+
+LONG_PS, LONG_MP, LONG_POOL = 16, 16, 40
+
+
+def _long_stream(rng):
+    """7 lanes over tables of 16 pages of 16 (S = 256): a 2100 window
+    (bounded by its table), windows of 1, 0, 255, 40 (mid-page), 16 (one
+    page) and 17; sentinels past each lane's pages; pool page
+    LONG_POOL - 1 never mapped."""
+    vt = np.array([2100, 1, 0, 255, 40, 16, 17], np.int32)
+    perm = rng.permutation(LONG_POOL - 1)
+    pt = np.full((len(vt), LONG_MP), LONG_POOL, np.int32)
+    used = 0
+    for i, w in enumerate(vt):
+        n = min(LONG_MP, -(-int(w) // LONG_PS))
+        pt[i, :n] = np.resize(perm, used + n)[used:]
+        used = (used + n) % (LONG_POOL - 1)
+    k = rng.standard_normal((LONG_POOL, LONG_PS, N_KV, D)).astype(np.float32)
+    v = rng.standard_normal((LONG_POOL, LONG_PS, N_KV, D)).astype(np.float32)
+    q = rng.standard_normal((len(vt), N_KV * REP, D)).astype(np.float32)
+    return q, k, v, pt, vt
+
+
+def _int8(shape_pool, seed):
+    r = np.random.default_rng(seed)
+    k8 = r.integers(-127, 128, shape_pool).astype(np.int8)
+    v8 = r.integers(-127, 128, shape_pool).astype(np.int8)
+    ks = (np.abs(r.standard_normal(shape_pool[:3])) + 0.1).astype(np.float32)
+    vs = (np.abs(r.standard_normal(shape_pool[:3])) + 0.1).astype(np.float32)
+    return k8, v8, ks, vs
+
+
+@functools.lru_cache(maxsize=None)
+def _long_case(int8):
+    """The long stream and the JAX Pallas kernel's output on it (computed
+    once: its interpret-mode grid is 7 x 2 x 16 steps)."""
+    q, k, v, pt, vt = _long_stream(np.random.default_rng(11))
+    ks = vs = None
+    if int8:
+        k, v, ks, vs = _int8(k.shape, 12)
+    jargs = [jnp.asarray(a) for a in (q, k, v, pt, vt)]
+    if int8:
+        jargs += [jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16)]
+    return (q, k, v, pt, vt, ks, vs), np.asarray(jax_kernel(*jargs))
+
+
+def _split(q, k, v, pt, vt, ks=None, vs=None, *, span):
+    t = lambda a: None if a is None else torch.from_numpy(np.array(a))  # noqa: E731
+    bf = torch.bfloat16
+    return rpa.ragged_paged_attention_split_reference(
+        t(q), t(k), t(v), t(pt), t(vt),
+        None if ks is None else t(ks).to(bf), None if vs is None else t(vs).to(bf),
+        span=span,
+    ).numpy()
+
+
+@pytest.mark.parametrize("span", [8, 5, 24, 3, 1])
+def test_split_reference_matches_jax_and_plain(stream, span):
+    """The 3-page (24-position) tables of the mixed stream: spans on a
+    page edge (8), mid-page (5, 3), exactly one span (24) and one
+    position a span (1, most spans empty)."""
+    q, k, v, pt, vt = stream
+    args = [jnp.asarray(a) for a in (q, k, v, pt, vt)]
+    out = _split(q, k, v, pt, vt, span=span)
+    np.testing.assert_allclose(out, np.asarray(jax_kernel(*args)), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, np.asarray(jax_fallback(*args)), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, _port(q, k, v, pt, vt), atol=2e-5, rtol=2e-5)
+    assert float(np.abs(out[8:]).max()) == 0.0  # dead lanes
+
+
+@pytest.mark.parametrize("span", [16, 40, 256, 7])
+def test_split_reference_past_the_table(span):
+    """Windows of 2100 over 16 pages (bounded by the table), 0, 1, 255,
+    40, 16 and 17: spans of one page, 2.5 pages (boundaries mid-page),
+    the whole table (one span) and 7 positions, against the Pallas
+    kernel and the plain version."""
+    (q, k, v, pt, vt, _, _), want = _long_case(False)
+    out = _split(q, k, v, pt, vt, span=span)
+    np.testing.assert_allclose(out, want, atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(out, _port(q, k, v, pt, vt), atol=2e-5, rtol=2e-5)
+    assert (out[vt == 0] == 0).all() and np.abs(out[vt == 1]).max() > 0
+
+
+@pytest.mark.parametrize("span", [16, 40, 256])
+def test_split_reference_int8_pool(span):
+    """int8 pools with bf16 scales, dequantized in fp32: the Pallas
+    kernel's 3e-5 bound."""
+    (q, k8, v8, pt, vt, ks, vs), want = _long_case(True)
+    out = _split(q, k8, v8, pt, vt, ks, vs, span=span)
+    np.testing.assert_allclose(out, want, atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(out, _port(q, k8, v8, pt, vt, ks, vs), atol=3e-5, rtol=3e-5)
+    assert (out[vt == 0] == 0).all()
+
+
+def test_split_reference_empty_splits_add_no_mass(stream):
+    """Widening every table by 8 sentinel pages adds spans past every
+    window: they must add no mass, and the sentinel-clamped last page
+    (poisoned) must not leak in."""
+    q, k, v, pt, vt = stream
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[N_POOL - 1] = v_bad[N_POOL - 1] = 1e9
+    wide = np.concatenate([pt, np.full((pt.shape[0], 8), N_POOL, np.int32)], axis=1)
+    base = _split(q, k, v, pt, vt, span=PS)
+    np.testing.assert_allclose(_split(q, k_bad, v_bad, wide, vt, span=PS), base,
+                               atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(_split(q, k_bad, v_bad, pt, vt, span=PS), base)
+
+
+def test_split_plan_from_shapes_alone():
+    """Whole pages of about 256 positions a span, covering the table."""
+    assert rpa.split_plan(16, 128) == (2, 8)
+    assert rpa.split_plan(3, 8) == (32, 1)
+    assert rpa.split_plan(17, 128) == (2, 9)
+    assert rpa.split_plan(4, 512) == (1, 4)
