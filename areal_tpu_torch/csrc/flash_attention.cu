@@ -4,7 +4,8 @@
 // Replaces the TPU kernels of areal_tpu/ops/pallas/flash_attention.py:
 //   flash_fwd_kernel  <- `_fwd` / `_fwd_kernel`   (K1f, o and logsumexp)
 //   flash_dq_kernel   <- `_bwd` / `_dq_kernel`    (K1dq)
-//   flash_dkv_kernel  <- `_bwd` / `_dkv_kernel`   (K1dkv)
+//   flash_dkv_kernel  <- `_bwd` / `_dkv_kernel`   (K1dkv, fp32)
+//   dkv::flash_dkv_mma_kernel <- the same, bf16 (K1dkv on the tensor cores)
 //
 // Layout: q [B, S, Hq, D], k/v [B, S, Hkv, D] (the model's own layout, no
 // transposes), segment ids [B, S] int32 (0 = padding), lse and delta
@@ -22,14 +23,15 @@
 // What bounds it on an H100: at the main path's shapes (segments of
 // 64..640 tokens, D = 128) the bytes of q/k/v/o (each read or written
 // once) at the HBM rate, some 20 us per call at B=4 x S=2048; the flops
-// of the attended pairs at the bf16 tensor-core rate are smaller.  This
-// first version is held by neither: it computes on the CUDA cores in
-// fp32 (every input is widened to fp32 in shared memory, all sums are
-// fp32), one 64x64 tile pair at a time, each thread owning a 4x4 block
-// of scores and a 4x(D/16) block of the output; scores and
-// probabilities never leave shared memory, and only the attended tile
-// pairs are computed.  Tensor cores (mma.sync or wgmma on bf16 tiles),
-// TMA and double buffering are later work.
+// of the attended pairs at the bf16 tensor-core rate are smaller.  K1f,
+// K1dq and the fp32 K1dkv are first versions held by neither: they
+// compute on the CUDA cores in fp32 (every input is widened to fp32 in
+// shared memory, all sums are fp32), one 64x64 tile pair at a time, each
+// thread owning a 4x4 block of scores and a 4x(D/16) block of the
+// output; scores and probabilities never leave shared memory, and only
+// the attended tile pairs are computed.  The bf16 K1dkv runs its four
+// products as bf16 mma.sync tiles fed through a cp.async ring (see
+// `namespace dkv`); K1f and K1dq get the same treatment next.
 //
 // The backward recomputes P from the saved logsumexp, as the Pallas
 // kernels do: dq walks the key tiles of one query tile; dk/dv walk, for
@@ -43,6 +45,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -536,6 +542,306 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1dkv for bf16, the main path, on the tensor cores.  Grid (ceil(S/64),
+// Hkv, B), dkv::kThreads.  A block owns key rows [k0, k0 + 64) of kv head
+// hk in row b, one m16 tile per warp, and keeps dK and dV of its rows in
+// fp32 mma accumulators (16 x D per warp) while it walks the group's rep
+// q-heads and, for each, the query tiles that survive the causal and
+// segment-overlap skips (`tiles_overlap`, listed once per block).  The
+// group sum stays in registers: no atomics, no per-q-head buffer, and
+// results repeat bitwise.  K and V are loaded once; each surviving
+// (q-head, query tile) pair's Q and dO tiles (bf16, 64 x D, swizzled),
+// segment ids, lse and delta come through a 2-stage cp.async ring, so the
+// next pair loads while the current one is computed.  Per pair and warp:
+//   S^T = K Q^T and dP^T = V dO^T (K, V a fragments and Q, dO b fragments
+//     by ldmatrix),
+//   P^T = exp2(S^T scale log2e - lse log2e) under the mask,
+//   dS^T = P^T (dP^T - delta) scale,
+//   dV += P^T dO and dK += dS^T Q: P^T and dS^T are rounded to bf16 in
+//     registers and used as a fragments as they lie (the accumulator
+//     layout is the a layout); dO and Q are b fragments by ldmatrix.trans.
+// Padding rows and columns are masked, so they give exact zeros.
+// ---------------------------------------------------------------------------
+namespace dkv {
+
+using tiles::a_chunk;
+using tiles::a_row;
+using tiles::b_chunk;
+using tiles::b_row;
+using tiles::cp_async16;
+using tiles::cp_async4;
+using tiles::cp_async_commit;
+using tiles::cp_async_wait;
+using tiles::kLog2e;
+using tiles::ldsm_x4;
+using tiles::ldsm_x4_trans;
+using tiles::mma_bf16;
+using tiles::pack_bf16;
+using tiles::smem_u32;
+using bf16 = __nv_bfloat16;
+
+constexpr int kKeys = 64;  // key rows per block: one m16 tile per warp
+constexpr int kQ = 64;     // query rows per staged tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+
+template <int D>
+struct Plan {
+  using KV = tiles::Tile<bf16, D, true, kKeys>;
+  using Q = tiles::Tile<bf16, D, true, kQ>;
+  // A ring stage: Q and dO tiles, then segment ids, lse and delta.
+  static constexpr int kStage = 2 * Q::kBytes + 3 * kQ * 4;
+  // Shared memory before the per-call tail of 2 * nq ints (flags, list).
+  static constexpr int kFixedBytes = 2 * KV::kBytes + kStages * kStage;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ seg,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int S, int Hq, int Hkv, float scale, int causal) {
+  using P = Plan<D>;
+  using KV = typename P::KV;
+  using QT = typename P::Q;
+  extern __shared__ __align__(16) char smem[];
+  __shared__ int n_live_s;
+  const int nq = (S + kQ - 1) / kQ;
+  char* k_s = smem;
+  char* v_s = k_s + KV::kBytes;
+  char* ring = v_s + KV::kBytes;
+  int* flags = reinterpret_cast<int*>(ring + kStages * P::kStage);
+  int* live = flags + nq;
+
+  const int kt = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  const int rep = Hq / Hkv;
+  const int k0 = kt * kKeys;
+  const int* seg_row = seg + static_cast<size_t>(b) * S;
+
+  // Which query tiles can hold an attended pair with this key tile: each
+  // warp takes the segment range of the key tile and of every 4th query
+  // tile; warp 0 then lists the live ones in order.
+  auto tile_range = [&](int row0, int& lo, int& hi) {
+    lo = 0x7fffffff;
+    hi = 0;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int s = row0 + lane + 32 * e;
+      const int id = s < S ? seg_row[s] : 0;
+      if (id > 0) lo = min(lo, id);
+      hi = max(hi, id);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+    }
+  };
+  int klo, khi;
+  tile_range(k0, klo, khi);
+  const int qt0 = causal ? kt : 0;
+  for (int qt = qt0 + warp; qt < nq; qt += kWarps) {
+    int qlo, qhi;
+    tile_range(qt * kQ, qlo, qhi);
+    if (lane == 0) flags[qt] = qhi > 0 && khi > 0 && klo <= qhi && khi >= qlo;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int c = qt0; c < nq; c += 32) {
+      const bool f = c + lane < nq && flags[c + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      if (f) live[count + __popc(m & ((1u << lane) - 1u))] = c + lane;
+      count += __popc(m);
+    }
+    if (lane == 0) n_live_s = count;
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+  const int n_items = rep * n_live;  // (q-head, query tile) pairs
+
+  // Pair `it` (q-head it / n_live, the (it % n_live)-th live query tile)
+  // into its ring stage; rows past S are zero-filled.
+  auto load = [&](int it) {
+    const int gi = it / n_live;
+    const int q0 = live[it - gi * n_live] * kQ;
+    const int h = hk * rep + gi;
+    char* q_st = ring + (it % kStages) * P::kStage;
+    char* do_st = q_st + QT::kBytes;
+    int* seg_st = reinterpret_cast<int*>(do_st + QT::kBytes);
+    float* lse_st = reinterpret_cast<float*>(seg_st + kQ);
+    float* delta_st = lse_st + kQ;
+    for (int i = tid; i < kQ * QT::kChunks; i += kThreads) {
+      const int r = i / QT::kChunks;
+      const int c = i % QT::kChunks;
+      const bool ok = q0 + r < S;
+      const size_t off = ((static_cast<size_t>(b) * S + q0 + (ok ? r : 0)) * Hq + h) * D;
+      cp_async16(smem_u32(q_st + QT::offset(r, c)),
+                 reinterpret_cast<const char*>(q + off) + c * 16, ok);
+      cp_async16(smem_u32(do_st + QT::offset(r, c)),
+                 reinterpret_cast<const char*>(dout + off) + c * 16, ok);
+    }
+    if (tid < kQ) {
+      const bool ok = q0 + tid < S;
+      const int s = ok ? q0 + tid : 0;
+      const size_t at = (static_cast<size_t>(b) * S + s) * Hq + h;
+      cp_async4(smem_u32(seg_st + tid), seg_row + s, ok);
+      cp_async4(smem_u32(lse_st + tid), lse + at, ok);
+      cp_async4(smem_u32(delta_st + tid), delta + at, ok);
+    }
+  };
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+
+  if (n_items > 0) {
+    for (int i = tid; i < kKeys * KV::kChunks; i += kThreads) {
+      const int r = i / KV::kChunks;
+      const int c = i % KV::kChunks;
+      const bool ok = k0 + r < S;
+      const size_t off = ((static_cast<size_t>(b) * S + k0 + (ok ? r : 0)) * Hkv + hk) * D;
+      cp_async16(smem_u32(k_s + KV::offset(r, c)),
+                 reinterpret_cast<const char*>(k + off) + c * 16, ok);
+      cp_async16(smem_u32(v_s + KV::offset(r, c)),
+                 reinterpret_cast<const char*>(v + off) + c * 16, ok);
+    }
+    load(0);
+    cp_async_commit();
+    // This thread's key rows, k0 + warp * 16 + g8 and + 8: segment ids.
+    const int kr = k0 + warp * 16 + g8;
+    const int sk0 = kr < S ? seg_row[kr] : 0;
+    const int sk1 = kr + 8 < S ? seg_row[kr + 8] : 0;
+    const float scale_log2 = scale * kLog2e;
+
+    for (int it = 0; it < n_items; ++it) {
+      cp_async_wait<0>();
+      __syncthreads();  // pair `it` is visible; every warp is done with it - 1
+      if (it + 1 < n_items) load(it + 1);
+      cp_async_commit();
+
+      const int q0 = live[it % n_live] * kQ;
+      const char* q_st = ring + (it % kStages) * P::kStage;
+      const char* do_st = q_st + QT::kBytes;
+      const int* seg_st = reinterpret_cast<const int*>(do_st + QT::kBytes);
+      const float* lse_st = reinterpret_cast<const float*>(seg_st + kQ);
+      const float* delta_st = lse_st + kQ;
+
+      // S^T and dP^T: this warp's 16 key rows x the tile's kQ queries.
+      float st[kQ / 8][4], dpt[kQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(smem_u32(k_s + KV::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))), ka);
+        ldsm_x4(smem_u32(v_s + KV::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))), va);
+#pragma unroll
+        for (int np = 0; np < kQ / 16; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(smem_u32(q_st + QT::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
+          mma_bf16(st[2 * np], ka, bb[0], bb[1]);
+          mma_bf16(st[2 * np + 1], ka, bb[2], bb[3]);
+          ldsm_x4(smem_u32(do_st + QT::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
+          mma_bf16(dpt[2 * np], va, bb[0], bb[1]);
+          mma_bf16(dpt[2 * np + 1], va, bb[2], bb[3]);
+        }
+      }
+      // P^T and dS^T in place.  Element (n, 2 hf + e): key row kr + 8 hf,
+      // query column n * 8 + 2 t4 + e.
+#pragma unroll
+      for (int n = 0; n < kQ / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qi = n * 8 + 2 * t4 + e;
+          const int sq = seg_st[qi];
+          const float lse2 = lse_st[qi] * kLog2e;
+          const float dl = delta_st[qi];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const bool ok = sq > 0 && sq == (hf ? sk1 : sk0) &&
+                            (!causal || q0 + qi >= kr + 8 * hf);
+            const float p = ok ? exp2f(st[n][2 * hf + e] * scale_log2 - lse2) : 0.f;
+            st[n][2 * hf + e] = p;
+            dpt[n][2 * hf + e] = p * (dpt[n][2 * hf + e] - dl) * scale;
+          }
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, one k16 step of queries at a time.
+#pragma unroll
+      for (int kq = 0; kq < kQ / 16; ++kq) {
+        const uint32_t pa[4] = {
+            pack_bf16(st[2 * kq][0], st[2 * kq][1]), pack_bf16(st[2 * kq][2], st[2 * kq][3]),
+            pack_bf16(st[2 * kq + 1][0], st[2 * kq + 1][1]),
+            pack_bf16(st[2 * kq + 1][2], st[2 * kq + 1][3])};
+        const uint32_t da[4] = {
+            pack_bf16(dpt[2 * kq][0], dpt[2 * kq][1]), pack_bf16(dpt[2 * kq][2], dpt[2 * kq][3]),
+            pack_bf16(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]),
+            pack_bf16(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3])};
+#pragma unroll
+        for (int nn = 0; nn < D / 16; ++nn) {
+          uint32_t bb[4];
+          ldsm_x4_trans(smem_u32(do_st + QT::offset(kq * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
+                        bb);
+          mma_bf16(dva[2 * nn], pa, bb[0], bb[1]);
+          mma_bf16(dva[2 * nn + 1], pa, bb[2], bb[3]);
+          ldsm_x4_trans(smem_u32(q_st + QT::offset(kq * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
+                        bb);
+          mma_bf16(dka[2 * nn], da, bb[0], bb[1]);
+          mma_bf16(dka[2 * nn + 1], da, bb[2], bb[3]);
+        }
+      }
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // every warp is done with the ring: stage 0 holds the output
+
+  // dK and dV of this warp's rows into stage 0 as bf16 tiles, then
+  // 16-byte stores of whole rows (rows past S are not written).
+  char* dk_st = ring;
+  char* dv_st = ring + QT::kBytes;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int r = warp * 16 + g8;
+    const int at0 = QT::offset(r, nt) + 4 * t4;
+    const int at1 = QT::offset(r + 8, nt) + 4 * t4;
+    *reinterpret_cast<uint32_t*>(dk_st + at0) = pack_bf16(dka[nt][0], dka[nt][1]);
+    *reinterpret_cast<uint32_t*>(dk_st + at1) = pack_bf16(dka[nt][2], dka[nt][3]);
+    *reinterpret_cast<uint32_t*>(dv_st + at0) = pack_bf16(dva[nt][0], dva[nt][1]);
+    *reinterpret_cast<uint32_t*>(dv_st + at1) = pack_bf16(dva[nt][2], dva[nt][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 16 * QT::kChunks / 32; ++e) {
+    const int i = e * 32 + lane;
+    const int r = warp * 16 + i / QT::kChunks;
+    const int c = i % QT::kChunks;
+    if (k0 + r < S) {
+      const size_t off = ((static_cast<size_t>(b) * S + k0 + r) * Hkv + hk) * D;
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dk + off) + c * 16) =
+          *reinterpret_cast<const uint4*>(dk_st + QT::offset(r, c));
+      *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dv + off) + c * 16) =
+          *reinterpret_cast<const uint4*>(dv_st + QT::offset(r, c));
+    }
+  }
+}
+
+}  // namespace dkv
+
 // Shared-memory bytes of each kernel at head dim D.
 constexpr size_t tile_bytes(int D) { return sizeof(float) * kTile * (D + 1); }
 constexpr size_t score_bytes() { return sizeof(float) * kTile * kPS; }
@@ -596,16 +902,31 @@ template <typename T, int D>
 int dkv_typed(const void* q, const void* k, const void* v, const int* seg,
               const void* dout, const float* lse, const float* delta, void* dk,
               void* dv, Dims a, cudaStream_t st) {
-  auto kernel = flash_dkv_kernel<T, D>;
-  cudaError_t e = allow_smem(kernel, dkv_smem(D));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.S + kTile - 1) / kTile, a.Hkv, a.B);
-  kernel<<<grid, kThreads, dkv_smem(D), st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seg, static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), a.S, a.Hq, a.Hkv, a.scale,
-      a.causal);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+    auto kernel = dkv::flash_dkv_mma_kernel<D>;
+    const int nq = (a.S + dkv::kQ - 1) / dkv::kQ;
+    const size_t smem = dkv::Plan<D>::kFixedBytes + 2 * sizeof(int) * nq;
+    cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.S + dkv::kKeys - 1) / dkv::kKeys, a.Hkv, a.B);
+    kernel<<<grid, dkv::kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), seg, static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), a.S, a.Hq, a.Hkv, a.scale,
+        a.causal);
+    return static_cast<int>(cudaGetLastError());
+  } else {  // fp32: CUDA cores (card-vs-CPU checks hold it at 1e-4)
+    auto kernel = flash_dkv_kernel<T, D>;
+    cudaError_t e = allow_smem(kernel, dkv_smem(D));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid((a.S + kTile - 1) / kTile, a.Hkv, a.B);
+    kernel<<<grid, kThreads, dkv_smem(D), st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), seg, static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dk), static_cast<T*>(dv), a.S, a.Hq, a.Hkv, a.scale,
+        a.causal);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 bool valid(int B, int S, int Hq, int Hkv) {

@@ -5,93 +5,108 @@
 // b carries Q queries; query i attends flat positions
 // [0, valid_to0[b] + i) of the slot's sequence through page_table[b, :],
 // and only queries i < q_lens[b] are live.  Dead queries write exact
-// zeros; a slot with q_lens 0 reads no page.  Unmapped table entries
-// (>= n_pool) clamp to the last pool page, as `clamp_page_table` does;
-// the window mask removes every position they address, and positions at
-// or past a block's widest live window are never loaded.  int8 pools
-// carry one bf16 scale per (page, slot, kv head), applied in-kernel.
-// Softmax and accumulation are fp32; the output is in q's dtype.
+// zeros; a block whose rows are all dead reads no page.  Unmapped table
+// entries (>= n_pool) clamp to the last pool page, as `clamp_page_table`
+// does; the window mask removes every position they address, and
+// positions at or past a block's widest live window are never loaded.
+// int8 pools carry one bf16 scale per (page, slot, kv head), applied
+// in-kernel.  Softmax and accumulation are fp32; the output is in q's
+// dtype.
 //
-// What bounds it on an H100: the bytes of K/V read.  A slot's Q queries
-// and its rep = n_q / n_kv query heads all read the same K/V window, so
-// the work is 4 * Q * rep * head_dim flops per 2 * head_dim * elem_bytes
-// of K/V — at Q = 32, rep = 6 about 190 flops per bf16 byte, under the
-// card's ~295 flops/byte ridge.  The design keeps K/V traffic to one read
-// per block:
-//   * the Pallas grid (b, kv_head, page) carried m/l/acc across its
-//     sequential page steps; here one block per (slot, kv head, query
-//     tile) loops over its pages itself, so m/l/acc stay in registers
-//     and shared memory for the whole window;
-//   * a query tile is kRows / rep queries, all rep heads each (kRows
-//     rows): a K/V tile staged in shared memory once serves every row
-//     (GQA in-kernel, no repeat of K/V).  Tiling Q fills the 132 SMs
-//     (64 slots x 2 kv heads x 4 tiles = 512 blocks at qwen2-1.5B, Q=32);
-//   * the block loads its own page indices and stops at the last
-//     position its widest live query sees, so short windows read only
-//     their own pages and dead tiles read none;
-//   * the scores are register-tiled (4 rows x 2 positions a thread) and
-//     P.V too (8 rows x head_dim/32 columns a thread), so each shared
-//     memory read feeds several fp32 FMAs.
-// This first version stages tiles with plain loads and computes on the
-// CUDA cores in fp32; tensor cores (mma/wgmma), TMA and splitting long
-// windows across blocks are later work.
+// What bounds it on an H100: the bytes of K/V read, nearly.  A slot's Q
+// queries and its rep = n_q / n_kv query heads all read the same K/V
+// window, so the work is 4 * Q * rep * head_dim flops per
+// 2 * head_dim * elem_bytes of K/V — at Q = 32, rep = 6 about 190 flops
+// per bf16 byte, under the card's ~295 flops/byte ridge but close to it,
+// so the products have to run on the tensor cores.  The design:
+//   * the rows of a (slot, kv head) are flattened across queries, as the
+//     Pallas kernel's qh layout has them: row r is query r / rep, head
+//     g * rep + r % rep.  A block takes 64 consecutive rows, one m16 tile
+//     per warp across four warps (Q = 32, rep = 6: 192 rows = exactly 3
+//     blocks per (slot, kv head), no idle row); each row keeps its own
+//     limit min(valid_to0 + i, max_pages * page_size), 0 when dead;
+//   * one K/V ring in shared memory serves all four warps: tiles of
+//     kPos = 32 positions, kStages = 3 deep, filled by 16-byte cp.async
+//     copies (one page-table lookup per copied row chunk, never per
+//     element), so the next tiles' loads are in flight while the current
+//     one is computed, and each tile costs one block barrier.  The walk
+//     stops at the block's widest live window; positions past it are
+//     zero-filled (source size 0);
+//   * bf16 q with a bf16 pool (the main path): Q.K^T and P.V are
+//     mma.sync.m16n8k16 bf16 tiles with fp32 accumulators, fed by
+//     ldmatrix from XOR-swizzled tiles; the online softmax runs in the
+//     log2 domain (exp2f), and P goes to bf16 for P.V;
+//   * every other type pair (fp32 pools, int8 pools with bf16 scales,
+//     mixed q/pool types) takes the same rows, ring and walk with fp32
+//     CUDA-core products, so its tolerances hold;
+//   * each warp owns its rows for the whole window: no cross-warp merge
+//     and no split-KV (windows are <= ~700 positions on the replay path,
+//     and 384 blocks of 128 threads fill the 132 SMs).
+// A row that sees no position keeps l = 0 and a zero accumulator, so
+// 0 / max(l, 1e-30) gives exact zeros.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by areal_tpu_torch/kernels/paged_chunk_attention.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 32;      // key positions per tile
-constexpr int kRows = 64;      // query rows (query x head) per block
-constexpr int kThreads = 256;  // eight warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRep = 16;    // query heads per kv head
-constexpr float kNegInf = -1e30f;
+using namespace tiles;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
+constexpr int kRows = 64;     // flattened (query, head) rows per block
+constexpr int kWarps = 4;     // one m16 tile of rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPos = 32;      // key positions per ring stage
+constexpr int kStages = 3;
+constexpr int kMaxRep = 16;   // query heads per kv head
+
+template <typename QT, typename KT, int D>
+struct Plan {
+  static constexpr bool kMma = std::is_same<QT, __nv_bfloat16>::value &&
+                               std::is_same<KT, __nv_bfloat16>::value;
+  using KV = Tile<KT, D, kMma, kPos>;
+  using QTile = Tile<__nv_bfloat16, D, true, kRows>;  // tensor-core q rows
+  // Shared memory: q rows (bf16 swizzled, or fp32 for the CUDA cores;
+  // the tensor-core path stages its output there at the end), then
+  // (CUDA-core only) per-warp probabilities and rescales, then the ring.
+  static constexpr int kQBytes = kMma ? QTile::kBytes : kRows * D * 4;
+  static constexpr int kPFloats = 16 * (kPos + 1) + 16;
+  static constexpr int kPBytes = kMma ? 0 : kWarps * kPFloats * 4;
+  static constexpr int kRingBytes = kStages * 2 * KV::kBytes;
+  static constexpr int kSmemBytes = kQBytes + kPBytes + kRingBytes;
+  static_assert(kPos * KV::kChunks % kThreads == 0, "whole copies per thread");
+};
+
+// The ring walk: the first kStages - 1 tiles are requested up front;
+// then, per tile, wait until it has landed, one barrier (the tile is
+// visible, and every warp is done with the stage the next request
+// overwrites), request tile t + kStages - 1, compute tile t.
+template <typename Load>
+__device__ __forceinline__ void ring_prologue(int n_tiles, Load load) {
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load(s);
+    cp_async_commit();
+  }
 }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return static_cast<float>(x);
+template <typename Load, typename Step>
+__device__ __forceinline__ void ring_loop(int n_tiles, Load load, Step step) {
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
+    cp_async_commit();
+    step(t);
+  }
+  cp_async_wait<0>();
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// Shared memory of one block, in floats.
-template <int D>
-constexpr int smem_floats() {
-  return kRows * (D + 1)          // q rows (padded)
-         + kTile * (D + 1)        // K tile (padded)
-         + kTile * D              // V tile
-         + kRows * (kTile + 1)    // scores, then probabilities
-         + 3 * kRows;             // m, l, alpha per row
-}
-
-// Grid: (B, n_kv, ceil(Q / q_tile)).  Block: kThreads.  Row r of a block
-// is query i0 + r / rep, head g * rep + r % rep.
+// Grid: (B, n_kv, ceil(Q * rep / kRows)).  Block: kThreads.  Row r of a
+// block is flattened row r0 + r of its (slot, kv head): query
+// (r0 + r) / rep, head g * rep + (r0 + r) % rep.
 template <typename QT, typename KT, int D>
 __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     const QT* __restrict__ q,            // [B, Q, n_q, D]
@@ -104,191 +119,322 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     const int* __restrict__ q_lens,      // [B]
     QT* __restrict__ out,                // [B, Q, n_q, D]
     int nq_tok, int n_q, int n_kv, int n_pool, int page_size, int max_pages,
-    int q_tile, float scale) {
+    float scale) {
+  using P = Plan<QT, KT, D>;
+  using KV = typename P::KV;
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int DP = D + 1;  // padded row: conflict-free column reads
-  constexpr int kDN = D / 32;  // output columns per lane
-  constexpr int kRowsPerWarp = kRows / kWarps;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kRows * DP;
-  float* v_s = k_s + kTile * DP;
-  float* p_s = v_s + kTile * D;
-  float* m_s = p_s + kRows * (kTile + 1);
-  float* l_s = m_s + kRows;
-  float* a_s = l_s + kRows;
+  extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.x;
   const int g = blockIdx.y;
-  const int i0 = blockIdx.z * q_tile;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int rep = n_q / n_kv;
-  const int rows = min(q_tile, nq_tok - i0) * rep;
+  const int r0 = blockIdx.z * kRows;
+  const int rows = min(kRows, nq_tok * rep - r0);
   const int ql = min(max(q_lens[b], 0), nq_tok);
   const int hi0 = valid_to0[b];
   // The table addresses max_pages pages: a longer window sees only them
   // (as the Pallas grid and the plain gather do).
   const int cap = max_pages * page_size;
-  // One past row r's last visible position; 0 for padding rows and dead
-  // queries.
+  // One past block row r's last visible position; 0 for padding rows
+  // and dead queries.
   auto limit = [&](int r) -> int {
     if (r >= rows) return 0;
-    const int i = i0 + r / rep;
+    const int i = (r0 + r) / rep;
     return i < ql ? max(0, min(hi0 + i, cap)) : 0;
   };
   // The block's widest live window: its last live query's.
-  const int last_live = min(ql, i0 + rows / rep) - 1;
-  const int kv_end = last_live >= i0 ? max(0, min(hi0 + last_live, cap)) : 0;
-
-  const size_t q_row0 = (static_cast<size_t>(b) * nq_tok + i0) * n_q + g * rep;
-  for (int idx = tid; idx < kRows * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx % D;
-    float x = 0.f;
-    if (r < rows) {
-      x = to_float(q[(q_row0 + static_cast<size_t>(r / rep) * n_q + r % rep) * D + d]);
-    }
-    q_s[r * DP + d] = x;
+  const int i_last = min(ql - 1, (r0 + rows - 1) / rep);
+  const int kv_end = i_last >= r0 / rep ? max(0, min(hi0 + i_last, cap)) : 0;
+  // Element offset of block row r in q and out.
+  auto row_off = [&](int r) -> size_t {
+    const int fr = r0 + r;
+    return ((static_cast<size_t>(b) * nq_tok + fr / rep) * n_q + g * rep + fr % rep) * D;
+  };
+  if (kv_end == 0) {  // every row is dead or sees nothing: read no page
+    for (int i = tid; i < rows * D; i += kThreads)
+      out[row_off(i / D) + i % D] = from_float<QT>(0.f);
+    return;
   }
-  if (tid < kRows) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[kRowsPerWarp][kDN];
-#pragma unroll
-  for (int m = 0; m < kRowsPerWarp; ++m)
-#pragma unroll
-    for (int n = 0; n < kDN; ++n) acc[m][n] = 0.f;
-
-  // Score micro-tile of this thread: rows tr + 16 a, positions tc + 16 c.
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  int lim_sc[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) lim_sc[a] = limit(tr + 16 * a);
 
   const int* pt_row = page_table + static_cast<size_t>(b) * max_pages;
-  for (int tile0 = 0; tile0 < kv_end; tile0 += kTile) {
-    const int nvalid = min(kTile, kv_end - tile0);
-    __syncthreads();  // the previous tile's readers are done
+  // Row of position pos in a [*, n_kv, D] pool view (sentinels clamped).
+  auto slot = [&](int pos) -> size_t {
+    const int pi = pos / page_size;
+    const int page = min(pt_row[pi], n_pool - 1);
+    return (static_cast<size_t>(page) * page_size + (pos - pi * page_size)) * n_kv + g;
+  };
+  char* q_s = smem;
+  float* p_s = reinterpret_cast<float*>(smem + P::kQBytes) + warp * P::kPFloats;
+  char* ring = smem + P::kQBytes + P::kPBytes;
+  // Tile t into its ring stage: 16-byte chunks of whole position rows,
+  // neighbouring threads on neighbouring chunks; positions at or past
+  // kv_end are zero-filled, never read.
+  auto load = [&](int t) {
+    char* kt = ring + (t % kStages) * 2 * KV::kBytes;
+    char* vt = kt + KV::kBytes;
+    const int p0 = t * kPos;
+    constexpr int kPer = kPos * KV::kChunks / kThreads;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = e * kThreads + tid;
+      const int j = i / KV::kChunks;
+      const int c = i % KV::kChunks;
+      const bool ok = p0 + j < kv_end;
+      const size_t off = (ok ? slot(p0 + j) : 0) * D;
+      cp_async16(smem_u32(kt + KV::offset(j, c)),
+                 reinterpret_cast<const char*>(k_pool + off) + c * 16, ok);
+      cp_async16(smem_u32(vt + KV::offset(j, c)),
+                 reinterpret_cast<const char*>(v_pool + off) + c * 16, ok);
+    }
+  };
+  const int n_tiles = (kv_end + kPos - 1) / kPos;
+  const float scale_log2 = scale * kLog2e;
+  // The widest window among this warp's rows: tiles past it are skipped.
+  int wlim = 0;
+  for (int r = 0; r < 16; ++r) wlim = max(wlim, limit(warp * 16 + r));
 
-    // Stage K/V of positions [tile0, tile0 + nvalid) as fp32 (dequantized
-    // for int8 pools); the rest of the tile is zero-filled, never read
-    // from the pool.
-    for (int idx = tid; idx < kTile * D; idx += kThreads) {
-      const int j = idx / D;
-      const int d = idx % D;
-      float kx = 0.f;
-      float vx = 0.f;
-      if (j < nvalid) {
-        const int pos = tile0 + j;
-        const int pi = pos / page_size;
-        const int page = min(pt_row[pi], n_pool - 1);  // sentinel clamp
-        const size_t slot =
-            (static_cast<size_t>(page) * page_size + (pos - pi * page_size)) *
-                n_kv + g;
-        kx = to_float(k_pool[slot * D + d]);
-        vx = to_float(v_pool[slot * D + d]);
-        if (kQuant) {
-          kx *= __bfloat162float(k_scale[slot]);
-          vx *= __bfloat162float(v_scale[slot]);
+  if constexpr (P::kMma) {
+    using QTile = typename P::QTile;
+    const int g8 = lane >> 2;
+    const int t4 = lane & 3;
+    // q rows as a swizzled bf16 tile, padding rows 0.
+    for (int i = tid; i < kRows * QTile::kChunks; i += kThreads) {
+      const int r = i / QTile::kChunks;
+      const int c = i % QTile::kChunks;
+      const bool ok = r < rows;
+      cp_async16(smem_u32(q_s + QTile::offset(r, c)),
+                 reinterpret_cast<const char*>(q + row_off(ok ? r : 0)) + c * 16, ok);
+    }
+    cp_async_commit();
+    ring_prologue(n_tiles, load);
+    cp_async_wait<kStages - 1>();  // the q group has landed
+    __syncthreads();
+    uint32_t qa[D / 16][4];  // this warp's q fragments, every k16 step
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(smem_u32(q_s + QTile::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))),
+              qa[kk]);
+    const int lim0 = limit(warp * 16 + g8);
+    const int lim1 = limit(warp * 16 + g8 + 8);
+    float o[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    ring_loop(n_tiles, load, [&](int t) {
+      const int p0 = t * kPos;
+      if (p0 >= wlim) return;  // warp-uniform: no row of this warp sees the tile
+      const char* kt = ring + (t % kStages) * 2 * KV::kBytes;
+      const char* vt = kt + KV::kBytes;
+      // S = Q K^T over the tile's kPos positions (n8 tiles of positions).
+      float s[kPos / 8][4];
+#pragma unroll
+      for (int n = 0; n < kPos / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < kPos / 16; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(smem_u32(kt + KV::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
+          mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
+          mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
         }
       }
-      k_s[j * DP + d] = kx;
-      v_s[j * D + d] = vx;
-    }
-    __syncthreads();
-
-    // Scores s[r, j] = q_r . k_j * scale, masked to each row's window.
-    {
-      float sc[4][2];
+      // Mask to each row's limit, then the online softmax (a row's
+      // scores sit in the 4 threads of a quad).
+      float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) sc[a][0] = sc[a][1] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float k0 = k_s[tc * DP + d];
-        const float k1 = k_s[(tc + 16) * DP + d];
+      for (int n = 0; n < kPos / 8; ++n) {
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float qa = q_s[(tr + 16 * a) * DP + d];
-          sc[a][0] += qa * k0;
-          sc[a][1] += qa * k1;
+        for (int e = 0; e < 2; ++e) {
+          const int pos = p0 + n * 8 + 2 * t4 + e;
+          s[n][e] = pos < lim0 ? s[n][e] * scale_log2 : kNegInf;
+          s[n][2 + e] = pos < lim1 ? s[n][2 + e] * scale_log2 : kNegInf;
+          mx0 = fmaxf(mx0, s[n][e]);
+          mx1 = fmaxf(mx1, s[n][2 + e]);
         }
       }
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      const float a0 = exp2f(m0 - mn0);
+      const float a1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      // A row that has seen no position yet keeps p = 0 (exp2f(0) of two
+      // sentinels would be 1); once live, masked scores give exp2f(-1e30).
+      const bool live0 = mn0 > kNegInf;
+      const bool live1 = mn1 > kNegInf;
+      l0 *= a0;
+      l1 *= a1;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = tc + 16 * c;
-          const bool valid = j < nvalid && tile0 + j < lim_sc[a];
-          p_s[(tr + 16 * a) * (kTile + 1) + j] = valid ? sc[a][c] * scale : kNegInf;
+      for (int n = 0; n < kPos / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[n][e] = live0 ? exp2f(s[n][e] - mn0) : 0.f;
+          s[n][2 + e] = live1 ? exp2f(s[n][2 + e] - mn1) : 0.f;
+          l0 += s[n][e];
+          l1 += s[n][2 + e];
         }
       }
-    }
-    __syncthreads();
-
-    // Online softmax, one warp per row, one lane per position.
-    for (int r = warp; r < kRows; r += kWarps) {
-      const bool valid = lane < nvalid && tile0 + lane < limit(r);
-      const float s = p_s[r * (kTile + 1) + lane];
-      float tmax = valid ? s : kNegInf;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, tmax);
-      const float p = valid ? expf(s - m_new) : 0.f;
-      float psum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      p_s[r * (kTile + 1) + lane] = p;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[r] = alpha;
-        l_s[r] = alpha * l_s[r] + psum;
-        m_s[r] = m_new;
+      for (int nt = 0; nt < D / 8; ++nt) {
+        o[nt][0] *= a0;
+        o[nt][1] *= a0;
+        o[nt][2] *= a1;
+        o[nt][3] *= a1;
       }
-    }
-    __syncthreads();
-
-    // acc[r, d] = acc[r, d] * alpha_r + sum_j p[r, j] * v[j, d]; this
-    // warp's rows are warp + kWarps m, its lane's columns lane + 32 n.
+      // O += P V: two neighbouring score tiles are the bf16 a fragment of
+      // one k16 step of positions.
 #pragma unroll
-    for (int m = 0; m < kRowsPerWarp; ++m) {
-      const float alpha = a_s[warp + kWarps * m];
+      for (int kp = 0; kp < kPos / 16; ++kp) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kp][0], s[2 * kp][1]), pack_bf16(s[2 * kp][2], s[2 * kp][3]),
+            pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]),
+            pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3])};
 #pragma unroll
-      for (int n = 0; n < kDN; ++n) acc[m][n] *= alpha;
-    }
-    for (int j = 0; j < nvalid; ++j) {
-      float vv[kDN];
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) vv[n] = v_s[j * D + lane + 32 * n];
-#pragma unroll
-      for (int m = 0; m < kRowsPerWarp; ++m) {
-        const float p = p_s[(warp + kWarps * m) * (kTile + 1) + j];
-#pragma unroll
-        for (int n = 0; n < kDN; ++n) acc[m][n] += p * vv[n];
+        for (int nn = 0; nn < D / 16; ++nn) {
+          uint32_t bb[4];
+          ldsm_x4_trans(smem_u32(vt + KV::offset(kp * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
+                        bb);
+          mma_bf16(o[2 * nn], pa, bb[0], bb[1]);
+          mma_bf16(o[2 * nn + 1], pa, bb[2], bb[3]);
+        }
       }
-    }
-  }
-  __syncthreads();
+    });
 
-  // Rows that saw no position (dead queries, empty windows, a q_lens-0
-  // slot) divide 0 by 1e-30: exact zeros.
 #pragma unroll
-  for (int m = 0; m < kRowsPerWarp; ++m) {
-    const int r = warp + kWarps * m;
-    if (r < rows) {
-      const float l = fmaxf(l_s[r], 1e-30f);
-      QT* o_row = out + (q_row0 + static_cast<size_t>(r / rep) * n_q + r % rep) * D;
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    // Normalise into this warp's own q rows (no other warp reads them
+    // any more), then 16-byte stores of whole rows.  A row that saw no
+    // position has o = 0: exact zeros.
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        o_row[lane + 32 * n] = from_float<QT>(acc[m][n] / l);
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const int r = warp * 16 + g8;
+      *reinterpret_cast<uint32_t*>(q_s + QTile::offset(r, nt) + 4 * t4) =
+          pack_bf16(o[nt][0] * inv0, o[nt][1] * inv0);
+      *reinterpret_cast<uint32_t*>(q_s + QTile::offset(r + 8, nt) + 4 * t4) =
+          pack_bf16(o[nt][2] * inv1, o[nt][3] * inv1);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 16 * QTile::kChunks / 32; ++e) {
+      const int i = e * 32 + lane;
+      const int r = warp * 16 + i / QTile::kChunks;
+      const int c = i % QTile::kChunks;
+      if (r < rows)
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(out + row_off(r)) + c * 16) =
+            *reinterpret_cast<const uint4*>(q_s + QTile::offset(r, c));
+    }
+  } else {
+    // The CUDA-core walk: lane = position p0 + lane of the tile for the
+    // scores of all 16 rows of this warp; lane = columns lane + 32 n for
+    // P.V.  m and l of every row are kept by every lane.
+    constexpr int kDN = D / 32;
+    float* qf = reinterpret_cast<float*>(q_s);
+    for (int i = tid; i < kRows * D; i += kThreads) {
+      const int r = i / D;
+      qf[i] = r < rows ? to_float(q[row_off(r) + i % D]) : 0.f;
+    }
+    ring_prologue(n_tiles, load);  // the loop's first barrier publishes qf
+    float* a_s = p_s + 16 * (kPos + 1);
+    int lim[16];
+    float m[16], l[16], o[16][kDN];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      lim[r] = limit(warp * 16 + r);
+      m[r] = kNegInf;
+      l[r] = 0.f;
+#pragma unroll
+      for (int n = 0; n < kDN; ++n) o[r][n] = 0.f;
+    }
+    ring_loop(n_tiles, load, [&](int t) {
+      const int p0 = t * kPos;
+      if (p0 >= wlim) return;
+      const char* kt = ring + (t % kStages) * 2 * KV::kBytes;
+      const char* vt = kt + KV::kBytes;
+      const int pos = p0 + lane;
+      float ksc = 1.f, vsc = 1.f;
+      if constexpr (kQuant) {  // int8: dequantize with the bf16 scales in fp32
+        const bool ok = pos < kv_end;
+        const size_t sl = ok ? slot(pos) : 0;
+        ksc = ok ? __bfloat162float(k_scale[sl]) : 0.f;
+        vsc = ok ? __bfloat162float(v_scale[sl]) : 0.f;
+      }
+      float sc[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) sc[r] = 0.f;
+      const char* krow = kt + KV::offset(lane, 0);
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = load4<KT>(krow + d * static_cast<int>(sizeof(KT)));
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float4 qv = *reinterpret_cast<const float4*>(qf + (warp * 16 + r) * D + d);
+          sc[r] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float s = pos < lim[r] ? sc[r] * ksc * scale_log2 : kNegInf;
+        float mx = s;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[r], mx);
+        const float alpha = exp2f(m[r] - mn);
+        const float p = mn > kNegInf ? exp2f(s - mn) : 0.f;
+        float psum = p;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, off);
+        l[r] = l[r] * alpha + psum;
+        m[r] = mn;
+        p_s[r * (kPos + 1) + lane] = p * vsc;
+        if (lane == 0) a_s[r] = alpha;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float alpha = a_s[r];
+#pragma unroll
+        for (int n = 0; n < kDN; ++n) o[r][n] *= alpha;
+      }
+#pragma unroll 2
+      for (int j = 0; j < kPos; ++j) {
+        const KT* vrow = reinterpret_cast<const KT*>(vt + KV::offset(j, 0));
+        float vv[kDN];
+#pragma unroll
+        for (int n = 0; n < kDN; ++n) vv[n] = to_float(vrow[lane + 32 * n]);
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float p = p_s[r * (kPos + 1) + j];
+#pragma unroll
+          for (int n = 0; n < kDN; ++n) o[r][n] += p * vv[n];
+        }
+      }
+      __syncwarp();  // p_s and a_s are free again
+    });
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int row = warp * 16 + r;
+      if (row < rows) {
+        const float inv = 1.f / fmaxf(l[r], 1e-30f);
+        QT* o_row = out + row_off(row);
+#pragma unroll
+        for (int n = 0; n < kDN; ++n) o_row[lane + 32 * n] = from_float<QT>(o[r][n] * inv);
       }
     }
   }
@@ -301,9 +447,8 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool,
              int nq_tok, int n_q, int n_kv, int n_pool, int page_size,
              int max_pages, float scale, cudaStream_t stream) {
   const int rep = n_q / n_kv;
-  const int q_tile = kRows / rep;
-  const dim3 grid(B, n_kv, (nq_tok + q_tile - 1) / q_tile);
-  const size_t smem = smem_floats<D>() * sizeof(float);
+  const dim3 grid(B, n_kv, (nq_tok * rep + kRows - 1) / kRows);
+  const size_t smem = Plan<QT, KT, D>::kSmemBytes;
   auto* kernel = paged_chunk_attention_kernel<QT, KT, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -316,7 +461,7 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const __nv_bfloat16*>(v_scale),
       static_cast<const int*>(page_table), static_cast<const int*>(valid_to0),
       static_cast<const int*>(q_lens), static_cast<QT*>(out), nq_tok, n_q,
-      n_kv, n_pool, page_size, max_pages, q_tile, scale);
+      n_kv, n_pool, page_size, max_pages, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,7 +493,8 @@ extern "C" int paged_chunk_attention_launch(
     int max_pages, int q_dtype, int kv_dtype, float scale, void* stream) {
   if (B == 0 || nq_tok == 0) return 0;
   if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv > kMaxRep ||
-      n_pool <= 0 || page_size <= 0 || max_pages <= 0) {
+      n_pool <= 0 || page_size <= 0 || max_pages <= 0 ||
+      (nq_tok * (n_q / n_kv) + kRows - 1) / kRows > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -35,13 +35,13 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
 
+#include "mma_tiles.cuh"
+
 namespace splitkv {
+
+using namespace tiles;
 
 constexpr int kRows = 16;   // query rows per block: one m16 tile
 constexpr int kTile = 16;   // positions per warp tile: one k16 step of P.V
@@ -49,121 +49,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;  // K/V tiles in flight per warp
 constexpr int kMaxRep = 16;
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <>
-__device__ __forceinline__ float to_float<int8_t>(int8_t x) {
-  return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// Four consecutive elements of a staged row as fp32.
-template <typename T>
-__device__ __forceinline__ float4 load4(const char* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const char* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const char* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-template <>
-__device__ __forceinline__ float4 load4<int8_t>(const char* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4(c.x, c.y, c.z, c.w);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// One tile of kTile rows of D elements in shared memory.  Tensor-core
-// tiles are unpadded with their 16-byte chunks XOR-swizzled by row, so
-// the eight rows an ldmatrix reads sit in eight distinct bank groups;
-// CUDA-core tiles pad each row by 16 bytes instead.
+// One warp tile of kTile positions (see tiles::Tile).
 template <typename T, int D, bool kSwizzle>
-struct Tile {
-  static constexpr int kRowBytes = D * static_cast<int>(sizeof(T));
-  static constexpr int kChunks = kRowBytes / 16;
-  static constexpr int kStride = kSwizzle ? kRowBytes : kRowBytes + 16;
-  static constexpr int kBytes = kTile * kStride;
-  static_assert(kRowBytes % 16 == 0, "rows must be whole 16-byte chunks");
-  static_assert(!kSwizzle || kChunks >= 8, "the swizzle needs 8 chunks a row");
-  static __device__ __forceinline__ int offset(int row, int chunk) {
-    return row * kStride + ((kSwizzle ? (chunk ^ (row & 7)) : chunk) << 4);
-  }
-};
+using Tile = tiles::Tile<T, D, kSwizzle, kTile>;
 
 template <typename QT, typename KT, int D>
 struct Plan {
@@ -215,10 +104,8 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
   // Q fragments for every k16 step, once (q rows form a tile like K's).
   uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int row = (lane & 7) + (((lane >> 3) & 1) << 3);
-    ldsm_x4(smem_u32(q_s + KV::offset(row, kk * 2 + (lane >> 4))), qa[kk]);
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(smem_u32(q_s + KV::offset(a_row(lane), kk * 2 + a_chunk(lane))), qa[kk]);
   const int lim0 = min(limit(g), end);
   const int lim1 = min(limit(g + 8), end);
   float o[D / 8][4];
@@ -245,8 +132,7 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t b[4];
-      const int pos = (lane & 7) + ((lane >> 4) << 3);
-      ldsm_x4(smem_u32(kt + KV::offset(pos, kk * 2 + ((lane >> 3) & 1))), b);
+      ldsm_x4(smem_u32(kt + KV::offset(b_row(lane), kk * 2 + b_chunk(lane))), b);
       mma_bf16(s[0], qa[kk], b[0], b[1]);
       mma_bf16(s[1], qa[kk], b[2], b[3]);
     }
@@ -302,8 +188,7 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
 #pragma unroll
     for (int nn = 0; nn < D / 16; ++nn) {
       uint32_t b[4];
-      const int pos = (lane & 7) + (((lane >> 3) & 1) << 3);
-      ldsm_x4_trans(smem_u32(vt + KV::offset(pos, nn * 2 + (lane >> 4))), b);
+      ldsm_x4_trans(smem_u32(vt + KV::offset(a_row(lane), nn * 2 + a_chunk(lane))), b);
       mma_bf16(o[2 * nn], pa, b[0], b[1]);
       mma_bf16(o[2 * nn + 1], pa, b[2], b[3]);
     }

@@ -14,16 +14,20 @@ version (`ops/attention.packed_attention_reference`, differentiated by
 autograd); on CUDA tensors it runs the kernels — forward K1f, backward
 Δ = rowsum(o∘dO) then K1dq and K1dkv — or raises.  There is no fallback.
 `flash_bwd_reference` is the plain version of K1dq and K1dkv: the same
-gradients from the same Δ, dense, in fp32.
+gradients from the same Δ, dense, in fp32.  `flash_dkv_bf16_reference`
+is the bf16 K1dkv kernel's own arithmetic (P and dS rounded to bf16
+before its products), for the tests and `chip_smoke.py`.
 """
 
 import ctypes
 import functools
+import math
 import os
 
 import torch
 
 from areal_tpu_torch.kernels import build
+from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned
 from areal_tpu_torch.ops.attention import (
     NEG_INF,
     make_packed_mask,
@@ -157,12 +161,15 @@ def flash_dq(q, k, v, seg, do, lse, delta, causal: bool):
 
 
 def flash_dkv(q, k, v, seg, do, lse, delta, causal: bool):
-    """K1dkv: dk, dv in k's dtype, summed over each kv head's q heads."""
+    """K1dkv: dk, dv in k's dtype, summed over each kv head's q heads.
+    bf16 runs on the tensor cores (`flash_dkv_bf16_reference` is its
+    arithmetic), fp32 on the CUDA cores."""
+    ptrs = _bwd_ptrs(q, k, v, seg, do, lse, delta)
+    check_aligned(q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        _launch("dkv", *_bwd_ptrs(q, k, v, seg, do, lse, delta), dk.data_ptr(),
-                dv.data_ptr(), *_dims(q, k, causal))
+        _launch("dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal))
     return dk, dv
 
 
@@ -202,6 +209,32 @@ def flash_bwd_reference(q, k, v, seg, do, delta, causal: bool = True):
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(b, s, -1, n_rep, d).sum(3)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, s, -1, n_rep, d).sum(3)
     return dq, dk, dv
+
+
+def flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta, causal: bool = True):
+    """The bf16 K1dkv kernel's arithmetic, dense, in plain PyTorch: from
+    the GIVEN lse [B, S, Hq] (the forward's) and Δ, P = 2^(S·scale·log2e
+    − lse·log2e) under the mask and dS = P∘(dP − Δ)·scale in fp32; then P
+    and dS are rounded to bf16, as the kernel rounds them for its two
+    tensor-core products, before dv = Pᵀ·dO and dk = dSᵀ·Q (fp32 sums),
+    summed over each kv head's q heads.  q, k, v and do enter with the
+    values they hold (bf16 on the kernel's path).  Returns fp32 dk, dv."""
+    n_rep = q.shape[2] // k.shape[2]
+    qf, dof = q.float(), do.float()
+    kf, vf = repeat_kv(k.float(), n_rep), repeat_kv(v.float(), n_rep)
+    b, s, _, d = q.shape
+    scale = d**-0.5
+    log2e = math.log2(math.e)
+    mask = make_packed_mask(seg, causal=causal)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    lse2 = lse.float().transpose(1, 2)[..., None] * log2e
+    p = torch.where(mask, torch.exp2(logits * (scale * log2e) - lse2), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.float().transpose(1, 2)[..., None]) * scale
+    p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(b, s, -1, n_rep, d).sum(3)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, s, -1, n_rep, d).sum(3)
+    return dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

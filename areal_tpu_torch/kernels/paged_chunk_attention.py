@@ -15,17 +15,22 @@ counts the kernel's launches and nothing else.
 On a CPU tensor the wrapper computes the plain version
 (`paged_chunk_attention_reference`); on a CUDA tensor it launches the
 kernel or raises — there is no fallback.
+`paged_chunk_attention_tiled_reference` is the kernel's own arithmetic
+(tiles of TILE_POSITIONS positions, online softmax in the log2 domain,
+bf16 P on the tensor-core path) in plain PyTorch, for the tests and
+`chip_smoke.py`.
 """
 
 import ctypes
 import functools
+import math
 import os
 from typing import Optional
 
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.kernels.ragged_paged_attention import check_paged_inputs
+from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned, check_paged_inputs
 from areal_tpu_torch.ops.attention import decode_attention_chunk, paged_gather_layer
 
 SOURCE = os.path.join(build.CSRC_DIR, "paged_chunk_attention.cu")
@@ -33,6 +38,7 @@ SOURCE = os.path.join(build.CSRC_DIR, "paged_chunk_attention.cu")
 LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+TILE_POSITIONS = 32  # key positions per ring stage of the kernel (kPos)
 
 
 def paged_chunk_attention_reference(
@@ -57,6 +63,69 @@ def paged_chunk_attention_reference(
         valid_to0.long(), q_lens.long(),
         k_scale=ks, v_scale=vs,
     )
+
+
+def paged_chunk_attention_tiled_reference(
+    q: torch.Tensor,  # [B, Q, n_q, d]
+    k_pool: torch.Tensor,  # [P, ps, n_kv, d]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages] (sentinel >= P)
+    valid_to0: torch.Tensor,  # [B]
+    q_lens: torch.Tensor,  # [B]
+    k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16: int8 pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch.  A slot's rows are
+    flattened across queries (row r = query r // rep, head r % rep of its
+    kv group), as the kernel's 64-row blocks take them; a row's result
+    does not depend on the block it falls in.  Row r sees positions
+    [0, min(valid_to0 + i, max_pages * page_size)) while its query i <
+    q_lens, none otherwise.  Scores are in the log2 domain, and the
+    window is walked in tiles of TILE_POSITIONS from 0 with an online
+    softmax: m = the running maximum, l = l * 2^(m_old - m) + sum(p),
+    o = o * 2^(m_old - m) + P.V.  P goes to bf16 before P.V when q and
+    the pool are both bf16 (the tensor-core path); every other type pair
+    stays in fp32, with int8 pools dequantized by their scales.  A row
+    that sees no position gives exact zeros.  Returns fp32 [B, Q, n_q, d]:
+    the kernel's output before it is rounded to q's dtype."""
+    b, nq_tok, n_q, d = q.shape
+    n_kv = k_pool.shape[2]
+    rep = n_q // n_kv
+    bf16_path = q.dtype == torch.bfloat16 and k_pool.dtype == torch.bfloat16
+    kc = paged_gather_layer(k_pool, page_table).float()  # [B, S, n_kv, d]
+    vc = paged_gather_layer(v_pool, page_table).float()
+    if k_scale is not None:
+        kc = kc * paged_gather_layer(k_scale, page_table).float()[..., None]
+        vc = vc * paged_gather_layer(v_scale, page_table).float()[..., None]
+    s_len = kc.shape[1]
+    qf = q.float().reshape(b, nq_tok, n_kv, rep, d).permute(0, 2, 1, 3, 4)
+    qf = qf.reshape(b, n_kv, nq_tok * rep, d)
+    qi = torch.arange(nq_tok, device=q.device).repeat_interleave(rep)  # [R]
+    lim = torch.where(
+        qi[None, :] < q_lens.long()[:, None],
+        (valid_to0.long()[:, None] + qi[None, :]).clamp(0, s_len),
+        0,
+    )  # [B, R]
+    scores = torch.einsum("bgrd,bsgd->bgrs", qf, kc) * (d**-0.5 * math.log2(math.e))
+    seen = torch.arange(s_len, device=q.device)[None, None, :] < lim[:, None, :, None]
+    neg = torch.tensor(-1e30, device=q.device)
+    m = torch.full(qf.shape[:3], -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    tile = TILE_POSITIONS
+    for t0 in range(0, s_len, tile):
+        s = torch.where(seen[..., t0 : t0 + tile], scores[..., t0 : t0 + tile], neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where((m_new > -1e30)[..., None], torch.exp2(s - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        if bf16_path:
+            p = p.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("bgrs,bsgd->bgrd", p, vc[:, t0 : t0 + tile])
+        m = m_new
+    o = o / l.clamp(min=1e-30)[..., None]
+    o = o.reshape(b, n_kv, nq_tok, rep, d).permute(0, 2, 1, 3, 4)
+    return o.reshape(b, nq_tok, n_q, d)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +154,7 @@ def _check(q, k_pool, v_pool, page_table, valid_to0, q_lens, k_scale, v_scale):
     for name, x in (("valid_to0", valid_to0), ("q_lens", q_lens)):
         if tuple(x.shape) != (b,):
             raise ValueError(f"{name} must be [B={b}], got {tuple(x.shape)}")
+    check_aligned(q=q, k_pool=k_pool, v_pool=v_pool)
 
 
 def paged_decode_attention_chunk(

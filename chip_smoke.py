@@ -20,10 +20,14 @@ kernel       — the ragged paged attention kernel (K2) against its plain
                (device time from CUDA-graph replays, and the eager call's
                time with its host work).  Then the paged chunk attention
                kernel (K3) at the resume replay's shape (64 slots of 32 queries,
-               windows 64-640, ragged q_lens with some 0): fp32, bf16 and
-               int8 pools, each output row within a tolerance of its own
-               magnitude, dead queries exactly 0, a poisoned last pool
-               page changing nothing, and its times.  Then the dense
+               windows 64-640, ragged q_lens with some 0) and on edge slots
+               (Q=13 and Q=1; windows ending at tile and page edges and
+               past the table; a ragged and an all-dead slot): fp32, bf16
+               and int8 pools, each output row within a tolerance of its
+               own magnitude of its plain version and of its tiled model,
+               dead queries exactly 0, a poisoned last pool page changing
+               nothing; one call under the sync debug mode; and its times
+               (device and eager, as for K2).  Then the dense
                decode attention kernel (K4) at the static path's decode
                shape (32 rows of S=1024, prompts 64-512 right-aligned at
                512, window to 576), a Q=4 chunk, a 1280 window, rows
@@ -40,9 +44,12 @@ flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                shape over rows of S=2048 packed with segments of 64-640
                tokens and one all-padding row, fp32 and bf16 (each output
                row within a tolerance of its own magnitude; padding
-               outputs and grads exactly 0), and their times beside the
-               plain version, SDPA with the packed mask and the card's
-               bound.
+               outputs and grads exactly 0); K1dkv also on S=256 rows of
+               segments of 1-129 tokens (rep 6 and 1, causal and not)
+               and, in bf16, against its model (P and dS in bf16); one
+               call of each under the sync debug mode; and their times
+               (device and eager) beside the plain version, SDPA with the
+               packed mask and the card's bound.
 serve        — the serving path at full qwen2-1.5B size (28 layers, bf16,
                random weights from --seed): GenerationServer over
                GeneratorEngine answers 16 concurrent /generate requests
@@ -521,29 +528,19 @@ def _split_sweep(report, seed):
     report["split_sweep"] = out
 
 
-def _replay_slots(seed):
-    """The resume replay's shape at qwen2-1.5B width: B=64 slots of
-    Q=chunk_t=32 queries; slot b has L forwarded tokens (64..640) and
-    replays its last r (0..32, some 0), so query i attends
-    [0, L - r + 1 + i) and valid_to0 = L - r + 1.  Each slot maps
-    ceil(L / 128) pages of a shuffled pool, then sentinels; the last pool
-    page is never mapped, so poisoning it must change nothing."""
+def _k3_slots(rng, nq_tok, hi0, ql, n_pages, mp, n_q=12, n_kv=2, d=128, ps=128):
+    """K3's inputs at qwen2-1.5B width: slot s maps n_pages[s] pages of a
+    shuffled pool, then sentinels; query i of slot s attends [0, hi0[s] +
+    i) while i < ql[s].  The last pool page is never mapped, so poisoning
+    it must change nothing."""
     import numpy as np
 
-    rng = np.random.default_rng(seed + 21)
-    b, nq_tok, n_q, n_kv, d, ps = 64, 32, 12, 2, 128, 128
-    L = rng.integers(64, 641, b)
-    L[:4] = (64, 127, 128, 640)
-    r = rng.integers(0, nq_tok + 1, b)
-    r[:8] = (32, 1, 0, 32, 0, 17, 32, 5)
-    r = np.minimum(r, L)
-    mp = -(-(640 + nq_tok) // ps)
-    pages = [-(-int(x) // ps) for x in L]
-    n_pool = sum(pages) + 8
+    b = len(hi0)
+    n_pool = sum(n_pages) + 8
     perm = rng.permutation(n_pool - 1)  # page n_pool-1 stays unmapped
     pt = np.full((b, mp), n_pool, np.int32)
     used = 0
-    for s, k in enumerate(pages):
+    for s, k in enumerate(n_pages):
         pt[s, :k] = perm[used : used + k]
         used += k
     return dict(
@@ -554,8 +551,44 @@ def _replay_slots(seed):
         v8=rng.integers(-127, 128, (n_pool, ps, n_kv, d)).astype(np.int8),
         ks=(np.abs(rng.standard_normal((n_pool, ps, n_kv))) * 0.01 + 0.002).astype(np.float32),
         vs=(np.abs(rng.standard_normal((n_pool, ps, n_kv))) * 0.01 + 0.002).astype(np.float32),
-        pt=pt, hi0=(L - r + 1).astype(np.int32), ql=r.astype(np.int32),
+        pt=pt, hi0=np.asarray(hi0, np.int32), ql=np.asarray(ql, np.int32),
     )
+
+
+def _replay_slots(seed):
+    """The resume replay's shape at qwen2-1.5B width: B=64 slots of
+    Q=chunk_t=32 queries; slot b has L forwarded tokens (64..640) and
+    replays its last r (0..32, some 0), so query i attends
+    [0, L - r + 1 + i) and valid_to0 = L - r + 1.  Each slot maps
+    ceil(L / 128) pages of a shuffled pool."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 21)
+    b, nq_tok, ps = 64, 32, 128
+    L = rng.integers(64, 641, b)
+    L[:4] = (64, 127, 128, 640)
+    r = rng.integers(0, nq_tok + 1, b)
+    r[:8] = (32, 1, 0, 32, 0, 17, 32, 5)
+    r = np.minimum(r, L)
+    mp = -(-(640 + nq_tok) // ps)
+    return _k3_slots(rng, nq_tok, L - r + 1, r, [-(-int(x) // ps) for x in L], mp)
+
+
+def _k3_edge_slots(seed, nq_tok):
+    """K3's edge cases at qwen2-1.5B width, page 128, a 6-page table (768
+    positions), against the kernel's 64-row blocks and 32-position tiles:
+    8 slots of Q=13 queries (78 rows: one full block and one partial,
+    straddling queries) or of Q=1.  The last live query's window ends at
+    32 (a tile edge), 128 (a page edge), 129, 256, past the table (800,
+    bounded to 768), at 13 in a ragged slot (2 of Q live), at 1, and
+    nowhere in an all-dead slot (q_lens 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 22 + nq_tok)
+    last = np.array([32, 128, 129, 256, 800, 13, 1, 300])
+    ql = np.minimum(np.array([13, 13, 13, 13, 13, 2, 1, 0]), nq_tok)
+    pages = [-(-min(int(x), 768) // 128) if n else 0 for x, n in zip(last, ql)]
+    return _k3_slots(rng, nq_tok, last - np.maximum(ql - 1, 0), ql, pages, 6)
 
 
 def _k3_bound(s, elem_bytes):
@@ -582,25 +615,23 @@ def _k3_bound(s, elem_bytes):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _kernel_k3(report, seed):
-    """K3 against its plain version at the replay's shape, fp32, bf16 and
-    an int8 pool: each output row (one position's head vector) within
-    FLASH_ROW_TOL of that row's largest |plain| value (see _row_err), the
-    plain version taken on fp32 copies of the same rounded inputs; dead
-    queries and q_lens-0 slots exactly 0; a poisoned last pool page
-    changes nothing.  Then times at bf16 beside the plain version, SDPA on
-    the gathered windows with the boolean mask, and the bound."""
+def _hold_k3(tag, s):
+    """K3 on slots `s` (see _k3_slots) in fp32, bf16 and with an int8
+    pool, each output row (one position's head vector) within
+    FLASH_ROW_TOL of that row's largest |value| (see _row_err) of its
+    plain version, taken on fp32 copies of the same rounded inputs, and of
+    its tiled model (`paged_chunk_attention_tiled_reference`, the kernel's
+    own tiles and bf16 P); dead queries and q_lens-0 slots exactly 0; a
+    poisoned last pool page changes nothing.  Returns (errors, the cases,
+    the device tensors)."""
     import torch
-    import torch.nn.functional as F
 
     from areal_tpu_torch.kernels import paged_chunk_attention as pca
-    from areal_tpu_torch.ops.attention import paged_gather_layer
 
     dev = torch.device("cuda")
-    s = _replay_slots(seed)
     t = {key: torch.from_numpy(val).to(dev) for key, val in s.items()}
     pt, hi0, ql = t["pt"], t["hi0"], t["ql"]
-    b, nq_tok = s["q"].shape[:2]
+    nq_tok = s["q"].shape[1]
     dead = torch.arange(nq_tok, device=dev)[None, :] >= ql[:, None]  # [B, Q]
     ks, vs = t["ks"].to(torch.bfloat16), t["vs"].to(torch.bfloat16)
     bf = torch.bfloat16
@@ -617,15 +648,19 @@ def _kernel_k3(report, seed):
         ref = pca.paged_chunk_attention_reference(
             q.float(), f32(k), f32(v), pt, hi0, ql, ksc, vsc
         )
+        tiled = pca.paged_chunk_attention_tiled_reference(q, k, v, pt, hi0, ql, ksc, vsc)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(out).all()), f"K3 {name}: non-finite output")
+        check(bool(torch.isfinite(out).all()), f"K3 {tag} {name}: non-finite output")
         rel, err = _row_err(out, ref)
-        errs[name], errs[f"{name}_row"] = err, rel
-        log(f"[kernel] K3 {name}: row_err={rel:.3e} (tolerance {tol:.3e}) "
-            f"max_abs_err={err:.3e}")
-        check(rel <= tol, f"K3 {name} disagrees with the plain version")
-        check(float(out.float()[dead].abs().max()) == 0.0,
-              f"K3 {name}: dead queries are not exactly 0")
+        rel_t, _ = _row_err(out, tiled)
+        errs[name], errs[f"{name}_row"], errs[f"{name}_tiled_row"] = err, rel, rel_t
+        log(f"[kernel] K3 {tag} {name}: row_err={rel:.3e}, against the tiled model "
+            f"{rel_t:.3e} (tolerance {tol:.3e}) max_abs_err={err:.3e}")
+        check(rel <= tol, f"K3 {tag} {name} disagrees with the plain version")
+        check(rel_t <= tol, f"K3 {tag} {name} disagrees with the tiled model")
+        if bool(dead.any()):
+            check(float(out.float()[dead].abs().max()) == 0.0,
+                  f"K3 {tag} {name}: dead queries are not exactly 0")
         k_bad, v_bad = k.clone(), v.clone()
         if k.dtype == torch.int8:
             k_bad[-1], v_bad[-1] = 127, 127
@@ -638,13 +673,33 @@ def _kernel_k3(report, seed):
             q, k_bad, v_bad, pt, hi0, ql, ks_bad, vs_bad
         )
         check(torch.equal(out, out_bad),
-              f"K3 {name}: poisoning the last pool page changed the output")
-    # Times at the main path's dtype (bf16 q and pool).
+              f"K3 {tag} {name}: poisoning the last pool page changed the output")
+    return errs, cases, t
+
+
+def _kernel_k3(report, seed):
+    """K3 held (see _hold_k3) at the replay's shape and on the edge slots
+    at Q=13 and Q=1; one call under the sync debug mode; then, at the
+    replay's shape in bf16, the times of K3, its plain version and SDPA on
+    the gathered windows with the boolean mask (device time from graph
+    replays, and eager calls), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.ops.attention import paged_gather_layer
+
+    dev = torch.device("cuda")
+    s = _replay_slots(seed)
+    errs, cases, t = _hold_k3("replay", s)
+    for nq_tok in (13, 1):
+        e, _, _ = _hold_k3(f"edges Q={nq_tok}", _k3_edge_slots(seed, nq_tok))
+        errs.update({f"edges{nq_tok}_{key}": val for key, val in e.items()})
+    pt, hi0, ql = t["pt"], t["hi0"], t["ql"]
+    b, nq_tok = s["q"].shape[:2]
+    dead = torch.arange(nq_tok, device=dev)[None, :] >= ql[:, None]
     q, k, v = cases["bf16"][:3]
-    kernel_ms = time_cuda(lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql))
-    plain_ms = time_cuda(
-        lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, ql), iters=10
-    )
+    no_host_sync("K3", lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql))
     # Library yardstick: one SDPA call over the gathered windows with the
     # boolean mask (query i of slot b sees [0, hi0[b] + i) while i < ql[b]).
     kc = paged_gather_layer(k, pt).transpose(1, 2).contiguous()  # [B, n_kv, S, d]
@@ -653,17 +708,20 @@ def _kernel_k3(report, seed):
     qi = torch.arange(nq_tok, device=dev)
     mask = (pos[None, None, :] < (hi0[:, None] + qi[None, :])[:, :, None]) & ~dead[:, :, None]
     q4 = q.transpose(1, 2).contiguous()  # [B, n_q, Q, d]
-    library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask[:, None], enable_gqa=True
-    ), iters=10)
-    bound_ms, bound_by = _k3_bound(s, 2)
-    log(f"[kernel] K3 bf16 B={b} Q={nq_tok}: kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-        f"bound_ms={bound_ms:.5f} ({bound_by}); {int((~dead).sum())} live queries")
-    report["k3"] = dict(
-        max_abs_err=errs, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+    times = timings(
+        lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql),
+        lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, ql),
+        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask[:, None],
+                                               enable_gqa=True),
+        iters=10,
     )
+    bound_ms, bound_by = _k3_bound(s, 2)
+    log(f"[kernel] K3 bf16 B={b} Q={nq_tok}: kernel_ms={times['kernel_ms']:.4f} "
+        f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+        f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
+        f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
+        f"bound_ms={bound_ms:.5f} ({bound_by}); {int((~dead).sum())} live queries")
+    report["k3"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by, **times)
 
 
 def _k4_cases(seed):
@@ -986,6 +1044,66 @@ def _hold_flash(tag, q, k, v, seg, do, row_tol):
     return out
 
 
+def _flash_edges(seed):
+    """K1dkv on three rows of S=256 (D=128) packed with segments of 1,
+    63, 64 and 65 positions then padding; 127 and 129; 128 then padding;
+    rep 6 (Hq=12, Hkv=2) and rep 1 (Hq=Hkv=2), causal and not, fp32 and
+    bf16: dk, dv given the lse of K1f and Δ of its o, each row within
+    FLASH_ROW_TOL of its plain version (flash_bwd_reference) and, in
+    bf16, of the kernel's model (flash_dkv_bf16_reference); padding rows
+    exactly 0.  Returns the largest row errors."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 9)
+    seg_np = np.zeros((3, 256), np.int32)
+    for r, lens in enumerate(((1, 63, 64, 65), (127, 129), (128,))):
+        off = 0
+        for sid, n in enumerate(lens, 1):
+            seg_np[r, off : off + n] = sid
+            off += n
+    seg = torch.from_numpy(seg_np).to(dev)
+    pad = seg == 0
+    worst = {}
+    for hq, hkv in ((12, 2), (2, 2)):
+        base = [torch.from_numpy(rng.standard_normal((3, 256, h, 128)).astype(np.float32))
+                .to(dev) for h in (hq, hkv, hkv, hq)]
+        for causal in (True, False):
+            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                q, k, v, do = (x.to(dtype) for x in base)
+                o, lse = fa.flash_fwd(q, k, v, seg, causal)
+                delta = fa.flash_delta(o, do)
+                dk, dv = fa.flash_dkv(q, k, v, seg, do, lse, delta, causal)
+                _, rk, rv = fa.flash_bwd_reference(q, k, v, seg, do, delta, causal)
+                held = [("plain", rk, rv)]
+                if dtype == torch.bfloat16:
+                    held.append(("bf16 model", *fa.flash_dkv_bf16_reference(
+                        q, k, v, seg, do, lse, delta, causal)))
+                torch.cuda.synchronize()
+                name = f"rep{hq // hkv} {'causal' if causal else 'full'} {tag}"
+                parts = []
+                for ref_name, wk, wv in held:
+                    for out, got, want in (("dk", dk, wk), ("dv", dv, wv)):
+                        rel, _ = _row_err(got, want)
+                        key = f"{tag}_{out}" + ("_model" if ref_name != "plain" else "")
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                        parts.append(f"{out} {rel:.3e}")
+                        check(rel <= FLASH_ROW_TOL[tag],
+                              f"K1dkv edges {name}: {out} disagrees with the {ref_name}: "
+                              f"{rel:.3e}")
+                for out, got in (("dk", dk), ("dv", dv)):
+                    check(bool(torch.isfinite(got).all()), f"K1dkv edges {name}: {out} non-finite")
+                    check(float(got.float()[pad].abs().max()) == 0.0,
+                          f"K1dkv edges {name}: {out} at padding is not exactly 0")
+                log(f"[flash] K1dkv edges {name}: row_err against "
+                    + ", ".join(f"{r[0]}" for r in held) + ": " + ", ".join(parts)
+                    + f" (tolerance {FLASH_ROW_TOL[tag]:.3e}); padding exactly 0")
+    return worst
+
+
 def phase_flash(report, seed):
     import numpy as np
     import torch
@@ -1018,30 +1136,35 @@ def phase_flash(report, seed):
         for name, (rel, err) in held.items():
             errs[f"{tag}_{name}"] = err
             errs[f"{tag}_{name}_row"] = rel
+    errs.update({f"edges_{key}": val for key, val in _flash_edges(seed).items()})
 
-    # Times at the main path's dtype (bf16).
+    # The main path's dtype (bf16): the tensor-core K1dkv against its
+    # model, the sync checks, then the times.
     q, k, v, do = (base[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
     seg32 = seg.to(torch.int32).contiguous()
     o, lse = fa.flash_fwd(q, k, v, seg32, True)
     delta = fa.flash_delta(o, do)
-    ms = {
-        "fwd": time_cuda(lambda: fa.flash_fwd(q, k, v, seg32, True)),
-        "dq": time_cuda(lambda: fa.flash_dq(q, k, v, seg32, do, lse, delta, True)),
-        "dkv": time_cuda(lambda: fa.flash_dkv(q, k, v, seg32, do, lse, delta, True)),
+    dk, dv = fa.flash_dkv(q, k, v, seg32, do, lse, delta, True)
+    mk, mv = fa.flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta)
+    for name, got, want in (("dk", dk, mk), ("dv", dv, mv)):
+        rel, _ = _row_err(got, want)
+        errs[f"bf16_{name}_model_row"] = rel
+        log(f"[flash] bf16 {name} against the kernel's model (flash_dkv_bf16_reference): "
+            f"row_err={rel:.3e} (tolerance {FLASH_ROW_TOL['bf16']:.3e})")
+        check(rel <= FLASH_ROW_TOL["bf16"], f"bf16 {name} disagrees with the kernel's model")
+    del dk, dv, mk, mv
+    kernels = {
+        "fwd": lambda: fa.flash_fwd(q, k, v, seg32, True),
+        "dq": lambda: fa.flash_dq(q, k, v, seg32, do, lse, delta, True),
+        "dkv": lambda: fa.flash_dkv(q, k, v, seg32, do, lse, delta, True),
     }
-    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
-    o_ref = packed_attention_reference(qr, kr, vr, seg)
-    plain_ms = {
-        "fwd": time_cuda(lambda: packed_attention_reference(q, k, v, seg), iters=10),
-        "dq": time_cuda(lambda: torch.autograd.grad(o_ref, (qr,), do, retain_graph=True),
-                        iters=10),
-        "dkv": time_cuda(
-            lambda: torch.autograd.grad(o_ref, (kr, vr), do, retain_graph=True), iters=10
-        ),
-    }
-    del o_ref
-    # Library yardstick: SDPA with the packed boolean mask (GQA native);
-    # its backward yields dq, dk and dv together.
+    for name, fn in kernels.items():
+        no_host_sync(f"K1{name}", fn)
+    # Plain versions: packed_attention_reference (fwd) and
+    # flash_bwd_reference (dq, dk and dv together, given Δ).  Library
+    # yardstick: SDPA with the packed boolean mask (GQA native); its
+    # backward (dq, dk and dv together) is the graph of forward+backward
+    # less the forward's.
     mask = make_packed_mask(seg)
     qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     dos = do.transpose(1, 2).contiguous()
@@ -1049,22 +1172,34 @@ def phase_flash(report, seed):
     def sdpa():
         return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
 
-    lib_fwd = time_cuda(sdpa, iters=10)
-    o_lib = sdpa()
-    lib_bwd = time_cuda(
-        lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dos, retain_graph=True), iters=10
-    )
-    del o_lib
+    def plain_bwd():
+        return fa.flash_bwd_reference(q, k, v, seg, do, delta)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+
+    times = {
+        "fwd": timings(kernels["fwd"], lambda: packed_attention_reference(q, k, v, seg),
+                       sdpa, iters=10),
+        "dq": timings(kernels["dq"], plain_bwd, sdpa_fwd_bwd, iters=10),
+        "dkv": timings(kernels["dkv"], plain_bwd, sdpa_fwd_bwd, iters=10),
+    }
+    for name in ("dq", "dkv"):
+        for key in ("library_ms", "library_eager_ms"):
+            times[name][key] -= times["fwd"][key]
     bounds = _flash_bounds(lens, b, s, hq, hkv, d, 2)
     for name in ("fwd", "dq", "dkv"):
-        log(f"[flash] bf16 {name}: kernel_ms={ms[name]:.4f} plain_ms={plain_ms[name]:.4f} "
-            f"bound_ms={bounds[name][0]:.5f} ({bounds[name][1]})")
-    log(f"[flash] SDPA (packed mask, yardstick): fwd {lib_fwd:.4f} ms, bwd (dq+dk+dv) "
-        f"{lib_bwd:.4f} ms, fwd+bwd {lib_fwd + lib_bwd:.4f} ms; {len(lens)} segments, "
+        t = times[name]
+        log(f"[flash] bf16 {name}: kernel_ms={t['kernel_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={t['library_ms']:.4f} (device, graph replays); eager calls "
+            f"kernel={t['kernel_eager_ms']:.4f} plain={t['plain_eager_ms']:.4f} "
+            f"library={t['library_eager_ms']:.4f}; bound_ms={bounds[name][0]:.5f} "
+            f"({bounds[name][1]})")
+    log(f"[flash] (plain dq/dkv = flash_bwd_reference, dq+dk+dv; library fwd = SDPA, "
+        f"library dq/dkv = SDPA's backward, dq+dk+dv); {len(lens)} segments, "
         f"{sum(lens)} real of {b * s} positions")
     report["flash"] = dict(
-        max_abs_err=errs, ms=ms, plain_ms=plain_ms, bounds=bounds,
-        library_ms={"fwd": lib_fwd, "dq": lib_bwd, "dkv": lib_bwd},
+        max_abs_err=errs, times=times, bounds=bounds,
         segments=len(lens), real_tokens=sum(lens),
     )
 
@@ -2133,6 +2268,11 @@ def _flat_params(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def _worst(vals):
+    vals = [v for v in vals if v is not None]
+    return max(vals) if vals else None
+
+
 def _kernels_line(report):
     k = report.get("kernel", {})
     s = report.get("serve", {})
@@ -2163,29 +2303,30 @@ def _kernels_line(report):
     for name, line in (("fwd", 170), ("dq", 355), ("dkv", 380)):
         errs = f.get("max_abs_err", {})
         bound = f.get("bounds", {}).get(name, (None, None))
-
-        def worst(keys):
-            vals = [v for v in keys if v is not None]
-            return max(vals) if vals else None
-
+        t = f.get("times", {}).get(name, {})
         kernels.append({
             "name": f"flash_attention_{name}",
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"areal_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": launches.get(name),
-            "max_abs_err": worst(errs.get(f"bf16_{o}") for o in outputs[name]),
-            "row_err": worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
-            "max_abs_err_fp32": worst(errs.get(f"fp32_{o}") for o in outputs[name]),
-            "row_err_fp32": worst(errs.get(f"fp32_{o}_row") for o in outputs[name]),
-            "row_err_train_shape": worst(
+            "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
+            "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
+            "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
+            "row_err_fp32": _worst(errs.get(f"fp32_{o}_row") for o in outputs[name]),
+            "row_err_train_shape": _worst(
                 at_train[o][0] if o in at_train else None for o in outputs[name]
             ),
-            "ms": f.get("ms", {}).get(name),
-            "plain_ms": f.get("plain_ms", {}).get(name),
+            "row_err_edges": _worst(errs.get(f"edges_bf16_{o}") for o in outputs[name]),
+            "row_err_model": _worst(errs.get(f"bf16_{o}_model_row") for o in outputs[name]),
+            "ms": t.get("kernel_ms"),
+            "eager_ms": t.get("kernel_eager_ms"),
+            "plain_ms": t.get("plain_ms"),
+            "plain_eager_ms": t.get("plain_eager_ms"),
             "bound_ms": bound[0],
             "bound_by": bound[1],
-            "library_ms": f.get("library_ms", {}).get(name),
+            "library_ms": t.get("library_ms"),
+            "library_eager_ms": t.get("library_eager_ms"),
         })
     k3 = report.get("k3", {})
     errs = k3.get("max_abs_err", {})
@@ -2201,11 +2342,16 @@ def _kernels_line(report):
         "row_err_fp32": errs.get("fp32_row"),
         "max_abs_err_int8": errs.get("int8"),
         "row_err_int8": errs.get("int8_row"),
+        "row_err_tiled": errs.get("bf16_tiled_row"),
+        "row_err_edges": _worst(errs.get(f"edges{n}_bf16_row") for n in (13, 1)),
         "ms": k3.get("kernel_ms"),
+        "eager_ms": k3.get("kernel_eager_ms"),
         "plain_ms": k3.get("plain_ms"),
+        "plain_eager_ms": k3.get("plain_eager_ms"),
         "bound_ms": k3.get("bound_ms"),
         "bound_by": k3.get("bound_by"),
         "library_ms": k3.get("library_ms"),
+        "library_eager_ms": k3.get("library_eager_ms"),
     })
     k4 = report.get("k4", {})
     errs = k4.get("max_abs_err", {})

@@ -2,8 +2,13 @@
 fp32: the plain version (`packed_attention_reference`, `make_packed_mask`,
 `repeat_kv`) and `flash_attention`'s CPU path with its autograd grads,
 held against JAX's dense reference and against JAX's Pallas flash kernel
-in interpret mode (as tests/test_flash_attention.py runs it).  The CUDA
+in interpret mode (as tests/test_flash_attention.py runs it).  The bf16
+K1dkv kernel's own arithmetic, `flash_dkv_bf16_reference` (P and dS
+rounded to bf16 before its products), is held against jax.vjp through
+the Pallas kernels over segments of 1 to 129 positions.  The CUDA
 kernels themselves run only on the card (chip_smoke.py's flash phase)."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -193,3 +198,62 @@ class TestFlashBackward:
 def test_launch_counters_start_at_zero():
     tfa.reset_launches()
     assert tfa.LAUNCHES == {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+def _dkv_rows(rng, hq, hkv, d=16):
+    """S=256 in three rows: segments of 1, 63, 64 and 65 positions then
+    63 of padding; 127 and 129; 128 then 128 of padding.  q, k, v and dO
+    hold bf16 values (the kernel's inputs), as fp32."""
+    b, s = 3, 256
+    seg = np.zeros((b, s), np.int32)
+    for r, lens in enumerate(((1, 63, 64, 65), (127, 129), (128,))):
+        off = 0
+        for sid, n in enumerate(lens, 1):
+            seg[r, off : off + n] = sid
+            off += n
+    arrays = [rng.normal(size=(b, s, h, d)).astype(np.float32) for h in (hq, hkv, hkv, hq)]
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).float().numpy() for a in arrays)
+    return q, k, v, do, seg
+
+
+def _row_err(got, want):
+    """Largest per-row error relative to the row's largest |want| (rows
+    under the output's RMS take the RMS), as chip_smoke.py measures."""
+    err = np.abs(got - want).max(-1)
+    mag = np.abs(want).max(-1)
+    live = want[mag > 0]
+    rms = float(np.sqrt(np.mean(live**2))) if live.size else 1.0
+    return float((err / np.maximum(mag, rms)).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(6, 1), (2, 2)])
+def test_dkv_bf16_reference_matches_jax(rng, hq, hkv, causal):
+    """dk, dv of `flash_dkv_bf16_reference` (given the fp32 lse and Δ of
+    the fp32 forward) against jax.vjp through the Pallas kernels in
+    interpret mode: each row within 2^-7 of its largest value (P and dS
+    are rounded to bf16 before the products, as on the card; chip_smoke's
+    bf16 tolerance); padding rows exactly 0."""
+    q, k, v, do, seg = _dkv_rows(rng, hq, hkv)
+    qt, kt, vt, dot, st = _t(q, k, v, do, seg)
+    o = tatt.packed_attention_reference(qt, kt, vt, st, causal=causal)
+    logits = torch.einsum(
+        "bqhd,bkhd->bhqk", qt, tatt.repeat_kv(kt, hq // hkv)
+    ) * q.shape[-1] ** -0.5
+    mask = tatt.make_packed_mask(st, causal=causal)
+    lse = torch.logsumexp(torch.where(mask, logits, -math.inf), -1).transpose(1, 2)
+    dk, dv = tfa.flash_dkv_bf16_reference(
+        qt, kt, vt, st, dot, lse, tfa.flash_delta(o, dot), causal=causal
+    )
+    sj = jnp.asarray(seg)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jflash(q, k, v, sj, causal=causal, block_q=64, block_k=64),
+        *map(jnp.asarray, (q, k, v)),
+    )
+    _, want_dk, want_dv = vjp(jnp.asarray(do))
+    for got, want, name in ((dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        got = got.numpy()
+        assert _row_err(got, np.asarray(want)) <= 2**-7, name
+        assert (got[seg == 0] == 0.0).all(), name
+    # (dk of a one-position segment is 0 in exact arithmetic: dS = 0 there)
+    assert (np.abs(dv.numpy()[seg > 0]).max(-1) > 0).all()

@@ -7,6 +7,14 @@ runs it, against the JAX package on the CPU.
   on gathered pages: fp32 at atol/rtol 2e-5 (JAX's own bound between its
   two paths); dead queries and q_lens-0 slots exactly 0; an int8 pool at
   3e-5; a poisoned clamp-target page changes nothing.
+- The kernel's own arithmetic, `paged_chunk_attention_tiled_reference`
+  (flattened rows, 32-position tiles, online softmax in the log2 domain,
+  bf16 P on the tensor-core path), against the Pallas kernel in
+  interpret mode at n_q=12, n_kv=2 over windows ending at tile and page
+  edges, at Q=13 and Q=1, fp32 (2e-5), int8 (3e-5) and bf16 inputs (each
+  output row within 2^-7 of its largest value: P is rounded to bf16);
+  dead queries, an all-dead slot and a poisoned clamp-target page as
+  above.
 - `decode_step_spec_paged` with q_lens against JAX's on one set of
   tiny_config weights and one pool: live-query logits at atol 1e-5, the
   real pool pages equal, the positions of dead queries untouched."""
@@ -150,6 +158,100 @@ def test_no_fallback_off_the_cpu(slots):
     q, k, v, pt, hi0, ql = (torch.from_numpy(np.array(a)).to("meta") for a in slots)
     with pytest.raises(ValueError, match="device"):
         pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql)
+
+
+# --------------------------------------------------------------------------
+# The kernel's tiled arithmetic
+# --------------------------------------------------------------------------
+
+E_NQ, E_NKV, E_D, E_PS, E_MP, E_POOL = 12, 2, 16, 16, 6, 24
+
+
+def _edge_slots(rng, nq_tok, dtype):
+    """Six slots at n_q=12, n_kv=2 (rep 6: 13 queries are 78 rows, which
+    straddle queries and the kernel's 64-row blocks), page 16, against
+    the kernel's 32-position tiles.  The last live query's window ends at
+    32 (a tile and page edge), 48 (a page edge inside a tile), 64, past
+    the table's 96 positions (which bound it), at 13 in a ragged slot (2
+    of Q live) and nowhere in an all-dead slot (q_lens 0).  Page E_POOL-1
+    is never mapped: the clamp target of every sentinel entry."""
+    last = np.array([32, 48, 64, 102, 13, 42], np.int32)  # last live window
+    ql = np.minimum(np.array([13, 13, 13, 13, 2, 0], np.int32), nq_tok)
+    hi0 = (last - np.maximum(ql - 1, 0)).astype(np.int32)
+    pages = [-(-min(int(x), E_PS * E_MP) // E_PS) for x in last[:5]] + [0]
+    perm = rng.permutation(E_POOL - 1)
+    pt = np.full((6, E_MP), E_POOL, np.int32)
+    used = 0
+    for s, n in enumerate(pages):
+        pt[s, :n] = perm[used : used + n]
+        used += n
+    q = rng.standard_normal((6, nq_tok, E_NQ, E_D)).astype(np.float32)
+    shape = (E_POOL, E_PS, E_NKV, E_D)
+    if dtype == "int8":
+        k = rng.integers(-127, 128, shape).astype(np.int8)
+        v = rng.integers(-127, 128, shape).astype(np.int8)
+        ks = (np.abs(rng.standard_normal(shape[:3])) * 0.02 + 0.01).astype(np.float32)
+        vs = (np.abs(rng.standard_normal(shape[:3])) * 0.02 + 0.01).astype(np.float32)
+        # the scales as bf16 holds them, so both packages read the same
+        ks, vs = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (ks, vs))
+        return q, k, v, pt, hi0, ql, ks, vs
+    k = rng.standard_normal(shape).astype(np.float32)
+    v = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bf16":  # bf16 values, held as fp32 for the Pallas kernel
+        q, k, v = (torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v))
+    return q, k, v, pt, hi0, ql, None, None
+
+
+def _tiled(q, k, v, pt, hi0, ql, ks, vs, dtype):
+    cast = (lambda x: torch.from_numpy(x).to(torch.bfloat16)) if dtype == "bf16" else torch.from_numpy
+    scale = (lambda x: None if x is None else torch.from_numpy(x).to(torch.bfloat16))
+    return pca.paged_chunk_attention_tiled_reference(
+        cast(q), cast(k), cast(v), *(torch.from_numpy(a) for a in (pt, hi0, ql)),
+        scale(ks), scale(vs),
+    ).numpy()
+
+
+def _row_err(got, want):
+    """Largest per-row error relative to the row's largest |want| (rows
+    under the output's RMS take the RMS), as chip_smoke.py measures."""
+    err = np.abs(got - want).max(-1)
+    mag = np.abs(want).max(-1)
+    live = want[mag > 0]
+    rms = float(np.sqrt(np.mean(live**2))) if live.size else 1.0
+    return float((err / np.maximum(mag, rms)).max())
+
+
+@pytest.mark.parametrize("nq_tok", [13, 1])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_tiled_reference_matches_jax_kernel(rng, dtype, nq_tok):
+    q, k, v, pt, hi0, ql, ks, vs = _edge_slots(rng, nq_tok, dtype)
+    got = _tiled(q, k, v, pt, hi0, ql, ks, vs, dtype)
+    jscale = (lambda x: None if x is None else jnp.asarray(x, jnp.bfloat16))
+    want = np.asarray(jax_kernel(
+        *(jnp.asarray(a) for a in (q, k, v, pt, hi0)), jscale(ks), jscale(vs),
+        q_lens=jnp.asarray(ql),
+    ))
+    if dtype == "bf16":
+        assert _row_err(got, want) <= 2**-7
+    else:
+        tol = 3e-5 if dtype == "int8" else 2e-5
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_tiled_reference_zeros_and_poison(rng, dtype):
+    """Dead queries and the all-dead slot are exactly 0; live rows are
+    not; filling the clamp-target page with huge values changes
+    nothing, bitwise."""
+    q, k, v, pt, hi0, ql, ks, vs = _edge_slots(rng, 13, dtype)
+    out = _tiled(q, k, v, pt, hi0, ql, ks, vs, dtype)
+    live = np.arange(13)[None, :] < ql[:, None]
+    assert float(np.abs(out[~live]).max()) == 0.0
+    assert (np.abs(out[live]).max(-1) > 0).all()
+    k_bad, v_bad = k.copy(), v.copy()
+    k_bad[E_POOL - 1] = 127 if dtype == "int8" else 1e9
+    v_bad[E_POOL - 1] = 127 if dtype == "int8" else 1e9
+    np.testing.assert_array_equal(out, _tiled(q, k_bad, v_bad, pt, hi0, ql, ks, vs, dtype))
 
 
 # --------------------------------------------------------------------------
