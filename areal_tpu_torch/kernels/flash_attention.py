@@ -14,9 +14,13 @@ version (`ops/attention.packed_attention_reference`, differentiated by
 autograd); on CUDA tensors it runs the kernels — forward K1f, backward
 Δ = rowsum(o∘dO) then K1dq and K1dkv — or raises.  There is no fallback.
 `flash_bwd_reference` is the plain version of K1dq and K1dkv: the same
-gradients from the same Δ, dense, in fp32.  `flash_dkv_bf16_reference`
-is the bf16 K1dkv kernel's own arithmetic (P and dS rounded to bf16
-before its products), for the tests and `chip_smoke.py`.
+gradients from the same Δ, dense, in fp32.  The bf16 kernels run on the
+tensor cores, and their own arithmetic is modelled for the tests and
+`chip_smoke.py`: `flash_fwd_bf16_reference` (the online softmax over
+64-key tiles, P rounded to bf16 before P·V), `flash_dq_bf16_reference`
+(dS split into a bf16 hi + lo pair before dS·K) and
+`flash_dkv_bf16_reference` (P and dS rounded to bf16 before their
+products).
 """
 
 import ctypes
@@ -131,8 +135,11 @@ def _dims(q, k, causal):
 
 
 def flash_fwd(q, k, v, seg, causal: bool):
-    """K1f: (o [B, S, Hq, D] in q's dtype, lse [B, S, Hq] fp32)."""
+    """K1f: (o [B, S, Hq, D] in q's dtype, lse [B, S, Hq] fp32).  bf16
+    runs on the tensor cores (`flash_fwd_bf16_reference` is its
+    arithmetic), fp32 on the CUDA cores."""
     _check_buffers(seg, q, k, v)
+    check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -152,11 +159,14 @@ def _bwd_ptrs(q, k, v, seg, do, lse, delta):
 
 
 def flash_dq(q, k, v, seg, do, lse, delta, causal: bool):
-    """K1dq: dq in q's dtype."""
+    """K1dq: dq in q's dtype.  bf16 runs on the tensor cores
+    (`flash_dq_bf16_reference` is its arithmetic), fp32 on the CUDA
+    cores."""
+    ptrs = _bwd_ptrs(q, k, v, seg, do, lse, delta)
+    check_aligned(q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _launch("dq", *_bwd_ptrs(q, k, v, seg, do, lse, delta), dq.data_ptr(),
-                *_dims(q, k, causal))
+        _launch("dq", *ptrs, dq.data_ptr(), *_dims(q, k, causal))
     return dq
 
 
@@ -211,19 +221,55 @@ def flash_bwd_reference(q, k, v, seg, do, delta, causal: bool = True):
     return dq, dk, dv
 
 
-def flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta, causal: bool = True):
-    """The bf16 K1dkv kernel's arithmetic, dense, in plain PyTorch: from
-    the GIVEN lse [B, S, Hq] (the forward's) and Δ, P = 2^(S·scale·log2e
-    − lse·log2e) under the mask and dS = P∘(dP − Δ)·scale in fp32; then P
-    and dS are rounded to bf16, as the kernel rounds them for its two
-    tensor-core products, before dv = Pᵀ·dO and dk = dSᵀ·Q (fp32 sums),
-    summed over each kv head's q heads.  q, k, v and do enter with the
-    values they hold (bf16 on the kernel's path).  Returns fp32 dk, dv."""
+KEY_TILE = 64  # keys per tile of the bf16 forward kernel's walk
+KERNEL_NEG = -1e30  # the kernels' mask value, and the lse of a row that attends nothing
+
+
+def flash_fwd_bf16_reference(q, k, v, seg, causal: bool = True):
+    """The bf16 K1f kernel's arithmetic in plain PyTorch: the online
+    softmax over tiles of KEY_TILE keys in order, in the log2 domain
+    (scores S·scale·log2e, masked to -1e30; running max m, α = 2^(m_old −
+    m)), with l summing the fp32 probabilities and P rounded to bf16
+    before P·V (fp32 sums).  q, k and v enter with the values they hold
+    (bf16 on the kernel's path).  Returns fp32 o [B, S, Hq, D] (0 on rows
+    that attend nothing) and lse [B, S, Hq] = m·ln 2 + ln l (-1e30 there)."""
+    n_rep = q.shape[2] // k.shape[2]
+    qf = q.float()
+    kf, vf = repeat_kv(k.float(), n_rep), repeat_kv(v.float(), n_rep)
+    b, s, hq, d = q.shape
+    scale_log2 = d**-0.5 * math.log2(math.e)
+    mask = make_packed_mask(seg, causal=causal)  # [B, 1, S, S]
+    m = torch.full((b, hq, s, 1), KERNEL_NEG, device=q.device)
+    l = torch.zeros((b, hq, s, 1), device=q.device)
+    acc = torch.zeros((b, hq, s, d), device=q.device)
+    for k0 in range(0, s, KEY_TILE):
+        kt, vt = kf[:, k0 : k0 + KEY_TILE], vf[:, k0 : k0 + KEY_TILE]
+        st = torch.einsum("bqhd,bkhd->bhqk", qf, kt) * scale_log2
+        st = torch.where(mask[..., k0 : k0 + KEY_TILE], st, KERNEL_NEG)
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(m_new > KERNEL_NEG, torch.exp2(st - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(), vt
+        )
+        m = m_new
+    live = l > 0
+    o = torch.where(live, acc / torch.where(live, l, 1.0), 0.0)
+    lse = torch.where(live, m * math.log(2.0) + torch.log(torch.where(live, l, 1.0)),
+                      KERNEL_NEG)
+    return o.transpose(1, 2), lse[..., 0].transpose(1, 2)
+
+
+def _bf16_p_ds(q, k, v, seg, do, lse, delta, causal):
+    """The bf16 backward kernels' P and dS, dense and in fp32 [B, Hq, S,
+    S]: from the GIVEN lse [B, S, Hq] (the forward's) and Δ, P = 2^(S·scale
+    ·log2e − lse·log2e) under the mask and dS = P∘(dP − Δ)·scale.  Also
+    returns q, dO and the repeated k as fp32."""
     n_rep = q.shape[2] // k.shape[2]
     qf, dof = q.float(), do.float()
     kf, vf = repeat_kv(k.float(), n_rep), repeat_kv(v.float(), n_rep)
-    b, s, _, d = q.shape
-    scale = d**-0.5
+    scale = q.shape[-1] ** -0.5
     log2e = math.log2(math.e)
     mask = make_packed_mask(seg, causal=causal)
     logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
@@ -231,7 +277,32 @@ def flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta, causal: bool = True):
     p = torch.where(mask, torch.exp2(logits * (scale * log2e) - lse2), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta.float().transpose(1, 2)[..., None]) * scale
+    return p, ds, qf, dof, kf
+
+
+def flash_dq_bf16_reference(q, k, v, seg, do, lse, delta, causal: bool = True):
+    """The bf16 K1dq kernel's arithmetic, dense, in plain PyTorch: dS as
+    in `_bf16_p_ds`, split as the kernel splits it for its tensor-core
+    products into hi = bf16(dS) and lo = bf16(dS − hi), then dq = hi·K +
+    lo·K (fp32 sums).  q, k, v and do enter with the values they hold
+    (bf16 on the kernel's path).  Returns fp32 dq."""
+    _, ds, _, _, kf = _bf16_p_ds(q, k, v, seg, do, lse, delta, causal)
+    hi = ds.to(torch.bfloat16).float()
+    lo = (ds - hi).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", hi, kf) + torch.einsum("bhqk,bkhd->bqhd", lo, kf)
+
+
+def flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta, causal: bool = True):
+    """The bf16 K1dkv kernel's arithmetic, dense, in plain PyTorch: P and
+    dS as in `_bf16_p_ds`, rounded to bf16 as the kernel rounds them for
+    its two tensor-core products, then dv = Pᵀ·dO and dk = dSᵀ·Q (fp32
+    sums), summed over each kv head's q heads.  q, k, v and do enter with
+    the values they hold (bf16 on the kernel's path).  Returns fp32 dk,
+    dv."""
+    p, ds, qf, dof, _ = _bf16_p_ds(q, k, v, seg, do, lse, delta, causal)
     p, ds = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    b, s, hq, d = q.shape
+    n_rep = hq // k.shape[2]
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf).reshape(b, s, -1, n_rep, d).sum(3)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof).reshape(b, s, -1, n_rep, d).sum(3)
     return dk, dv

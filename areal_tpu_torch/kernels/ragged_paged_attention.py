@@ -175,7 +175,8 @@ def check_paged_inputs(q, k_pool, v_pool, k_scale, v_scale, q_dims, **index):
 
 def check_aligned(**tensors):
     """The kernels that copy rows as 16-byte vectors (K2, K3, K4 and the
-    bf16 K1dkv): each tensor must start on a 16-byte boundary."""
+    flash kernels K1f, K1dq, K1dkv): each tensor must start on a 16-byte
+    boundary."""
     for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")

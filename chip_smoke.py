@@ -44,10 +44,13 @@ flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                shape over rows of S=2048 packed with segments of 64-640
                tokens and one all-padding row, fp32 and bf16 (each output
                row within a tolerance of its own magnitude; padding
-               outputs and grads exactly 0); K1dkv also on S=256 rows of
-               segments of 1-129 tokens (rep 6 and 1, causal and not)
-               and, in bf16, against its model (P and dS in bf16); one
-               call of each under the sync debug mode; and their times
+               outputs and grads exactly 0), and in bf16 against the
+               kernels' models (o and lse: the online softmax with P in
+               bf16; dq: dS as a bf16 hi + lo pair; dk, dv: P and dS in
+               bf16); all three also at their edges (S=256 rows of
+               segments of 1-129 tokens, rep 6 and 1, causal and not; an
+               S=40 row; D=64), lse against the dense logsumexp; one call
+               of each under the sync debug mode; and their times
                (device and eager) beside the plain version, SDPA with the
                packed mask and the card's bound.
 serve        — the serving path at full qwen2-1.5B size (28 layers, bf16,
@@ -1044,63 +1047,122 @@ def _hold_flash(tag, q, k, v, seg, do, row_tol):
     return out
 
 
+# lse is fp32 in every kernel and in its plain version (the dense
+# logsumexp of the same rounded inputs): they differ by summation order.
+# Tolerance on |got - want| / max(1, |want|), over rows that attend.
+FLASH_LSE_TOL = 1e-4
+
+
+def _dense_lse(q, k, seg, causal):
+    """logsumexp of each row's masked fp32 logits, [B, S, Hq]."""
+    import torch
+
+    from areal_tpu_torch.ops.attention import make_packed_mask, repeat_kv
+
+    logits = torch.einsum(
+        "bqhd,bkhd->bhqk", q.float(), repeat_kv(k.float(), q.shape[2] // k.shape[2])
+    ) * q.shape[-1] ** -0.5
+    mask = make_packed_mask(seg, causal=causal)
+    return torch.logsumexp(torch.where(mask, logits, -math.inf), -1).transpose(1, 2)
+
+
+def _lse_err(got, want, seg):
+    real = (seg > 0)[..., None].expand_as(want)
+    diff = (got.float() - want.float()).abs() / want.float().abs().clamp_min(1.0)
+    return float(diff[real].max())
+
+
 def _flash_edges(seed):
-    """K1dkv on three rows of S=256 (D=128) packed with segments of 1,
-    63, 64 and 65 positions then padding; 127 and 129; 128 then padding;
-    rep 6 (Hq=12, Hkv=2) and rep 1 (Hq=Hkv=2), causal and not, fp32 and
-    bf16: dk, dv given the lse of K1f and Δ of its o, each row within
-    FLASH_ROW_TOL of its plain version (flash_bwd_reference) and, in
-    bf16, of the kernel's model (flash_dkv_bf16_reference); padding rows
-    exactly 0.  Returns the largest row errors."""
+    """K1f, K1dq and K1dkv at their edges: three rows of S=256 packed with
+    segments of 1, 63, 64 and 65 positions then padding; 127 and 129; 128
+    then padding; rep 6 (Hq=12, Hkv=2) and rep 1 (Hq=Hkv=2), causal and
+    not, at D=128; one row of S=40 (segments of 1, 23 and 9 then padding:
+    a tail shorter than a tile), rep 2 (Hq=4, Hkv=2), causal and not; and
+    the S=256 rows at D=64, rep 6, causal; each in fp32 and bf16 (the
+    bf16 forward runs 3, 2 or 1 q heads a block for rep 6, 2 and 1).  o,
+    lse, then dq and dk, dv given that lse and Δ of that o: each row within
+    FLASH_ROW_TOL of its plain version (packed_attention_reference,
+    flash_bwd_reference) and, in bf16, of the kernels' models
+    (flash_fwd_bf16_reference, flash_dq_bf16_reference,
+    flash_dkv_bf16_reference); lse within FLASH_LSE_TOL of the dense
+    logsumexp (and of the model's in bf16); padding rows exactly 0, and
+    lse -1e30 there.  Returns the largest row errors."""
     import numpy as np
     import torch
 
     from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.ops.attention import packed_attention_reference
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 9)
-    seg_np = np.zeros((3, 256), np.int32)
-    for r, lens in enumerate(((1, 63, 64, 65), (127, 129), (128,))):
-        off = 0
-        for sid, n in enumerate(lens, 1):
-            seg_np[r, off : off + n] = sid
-            off += n
-    seg = torch.from_numpy(seg_np).to(dev)
-    pad = seg == 0
+
+    def rows(s, layouts):
+        seg_np = np.zeros((len(layouts), s), np.int32)
+        for r, lens in enumerate(layouts):
+            off = 0
+            for sid, n in enumerate(lens, 1):
+                seg_np[r, off : off + n] = sid
+                off += n
+        return torch.from_numpy(seg_np).to(dev)
+
+    seg256 = rows(256, ((1, 63, 64, 65), (127, 129), (128,)))
+    seg40 = rows(40, ((1, 23, 9),))
+    cases = [(seg256, hq, hkv, 128, causal) for hq, hkv in ((12, 2), (2, 2))
+             for causal in (True, False)]
+    cases += [(seg40, 4, 2, 128, causal) for causal in (True, False)]
+    cases += [(seg256, 12, 2, 64, True)]
     worst = {}
-    for hq, hkv in ((12, 2), (2, 2)):
-        base = [torch.from_numpy(rng.standard_normal((3, 256, h, 128)).astype(np.float32))
+    for seg, hq, hkv, d, causal in cases:
+        b, s = seg.shape
+        pad = seg == 0
+        base = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
                 .to(dev) for h in (hq, hkv, hkv, hq)]
-        for causal in (True, False):
-            for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-                q, k, v, do = (x.to(dtype) for x in base)
-                o, lse = fa.flash_fwd(q, k, v, seg, causal)
-                delta = fa.flash_delta(o, do)
-                dk, dv = fa.flash_dkv(q, k, v, seg, do, lse, delta, causal)
-                _, rk, rv = fa.flash_bwd_reference(q, k, v, seg, do, delta, causal)
-                held = [("plain", rk, rv)]
-                if dtype == torch.bfloat16:
-                    held.append(("bf16 model", *fa.flash_dkv_bf16_reference(
-                        q, k, v, seg, do, lse, delta, causal)))
-                torch.cuda.synchronize()
-                name = f"rep{hq // hkv} {'causal' if causal else 'full'} {tag}"
-                parts = []
-                for ref_name, wk, wv in held:
-                    for out, got, want in (("dk", dk, wk), ("dv", dv, wv)):
-                        rel, _ = _row_err(got, want)
-                        key = f"{tag}_{out}" + ("_model" if ref_name != "plain" else "")
-                        worst[key] = max(worst.get(key, 0.0), rel)
-                        parts.append(f"{out} {rel:.3e}")
-                        check(rel <= FLASH_ROW_TOL[tag],
-                              f"K1dkv edges {name}: {out} disagrees with the {ref_name}: "
-                              f"{rel:.3e}")
-                for out, got in (("dk", dk), ("dv", dv)):
-                    check(bool(torch.isfinite(got).all()), f"K1dkv edges {name}: {out} non-finite")
-                    check(float(got.float()[pad].abs().max()) == 0.0,
-                          f"K1dkv edges {name}: {out} at padding is not exactly 0")
-                log(f"[flash] K1dkv edges {name}: row_err against "
-                    + ", ".join(f"{r[0]}" for r in held) + ": " + ", ".join(parts)
-                    + f" (tolerance {FLASH_ROW_TOL[tag]:.3e}); padding exactly 0")
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, do = (x.to(dtype) for x in base)
+            o, lse = fa.flash_fwd(q, k, v, seg, causal)
+            delta = fa.flash_delta(o, do)
+            dq = fa.flash_dq(q, k, v, seg, do, lse, delta, causal)
+            dk, dv = fa.flash_dkv(q, k, v, seg, do, lse, delta, causal)
+            got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+            rq, rk, rv = fa.flash_bwd_reference(q, k, v, seg, do, delta, causal)
+            held = [("plain", {
+                "o": packed_attention_reference(q.float(), k.float(), v.float(), seg,
+                                                causal=causal),
+                "dq": rq, "dk": rk, "dv": rv}, _dense_lse(q, k, seg, causal))]
+            if dtype == torch.bfloat16:
+                mo, mlse = fa.flash_fwd_bf16_reference(q, k, v, seg, causal)
+                mk, mv = fa.flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta, causal)
+                held.append(("bf16 model", {
+                    "o": mo, "dq": fa.flash_dq_bf16_reference(q, k, v, seg, do, lse, delta,
+                                                              causal),
+                    "dk": mk, "dv": mv}, mlse))
+            torch.cuda.synchronize()
+            name = f"S={s} D={d} rep{hq // hkv} {'causal' if causal else 'full'} {tag}"
+            parts = []
+            for ref_name, want, want_lse in held:
+                suffix = "_model" if ref_name != "plain" else ""
+                for out, g in got.items():
+                    rel, _ = _row_err(g, want[out])
+                    key = f"{tag}_{out}{suffix}"
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    parts.append(f"{out} {rel:.3e}")
+                    check(rel <= FLASH_ROW_TOL[tag],
+                          f"K1 edges {name}: {out} disagrees with the {ref_name}: {rel:.3e}")
+                lerr = _lse_err(lse, want_lse, seg)
+                worst[f"{tag}_lse{suffix}"] = max(worst.get(f"{tag}_lse{suffix}", 0.0), lerr)
+                parts.append(f"lse {lerr:.3e}")
+                check(lerr <= FLASH_LSE_TOL,
+                      f"K1 edges {name}: lse disagrees with the {ref_name}: {lerr:.3e}")
+            for out, g in got.items():
+                check(bool(torch.isfinite(g).all()), f"K1 edges {name}: {out} non-finite")
+                check(float(g.float()[pad].abs().max()) == 0.0,
+                      f"K1 edges {name}: {out} at padding is not exactly 0")
+            check(bool((lse[pad] == fa.KERNEL_NEG).all()),
+                  f"K1 edges {name}: lse at padding is not -1e30")
+            log(f"[flash] K1 edges {name}: row_err against "
+                + ", ".join(r[0] for r in held) + ": " + ", ".join(parts)
+                + f" (tolerance {FLASH_ROW_TOL[tag]:.3e}, lse {FLASH_LSE_TOL:g}); "
+                "padding exactly 0")
     return worst
 
 
@@ -1138,21 +1200,37 @@ def phase_flash(report, seed):
             errs[f"{tag}_{name}_row"] = rel
     errs.update({f"edges_{key}": val for key, val in _flash_edges(seed).items()})
 
-    # The main path's dtype (bf16): the tensor-core K1dkv against its
-    # model, the sync checks, then the times.
+    # The main path's dtype (bf16): the tensor-core kernels against their
+    # models, the sync checks, then the times.
     q, k, v, do = (base[n].to(torch.bfloat16) for n in ("q", "k", "v", "do"))
     seg32 = seg.to(torch.int32).contiguous()
     o, lse = fa.flash_fwd(q, k, v, seg32, True)
     delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq(q, k, v, seg32, do, lse, delta, True)
     dk, dv = fa.flash_dkv(q, k, v, seg32, do, lse, delta, True)
-    mk, mv = fa.flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta)
-    for name, got, want in (("dk", dk, mk), ("dv", dv, mv)):
-        rel, _ = _row_err(got, want)
-        errs[f"bf16_{name}_model_row"] = rel
-        log(f"[flash] bf16 {name} against the kernel's model (flash_dkv_bf16_reference): "
-            f"row_err={rel:.3e} (tolerance {FLASH_ROW_TOL['bf16']:.3e})")
-        check(rel <= FLASH_ROW_TOL["bf16"], f"bf16 {name} disagrees with the kernel's model")
-    del dk, dv, mk, mv
+    mo, mlse = fa.flash_fwd_bf16_reference(q, k, v, seg)
+    lerr = _lse_err(lse, mlse, seg)
+    errs["bf16_lse_model"] = lerr
+    log(f"[flash] bf16 lse against the kernel's model (flash_fwd_bf16_reference): "
+        f"err={lerr:.3e} (tolerance {FLASH_LSE_TOL:g})")
+    check(lerr <= FLASH_LSE_TOL, "bf16 lse disagrees with the kernel's model")
+    models = {
+        "flash_fwd_bf16_reference": lambda: {"o": mo},
+        "flash_dq_bf16_reference": lambda: {
+            "dq": fa.flash_dq_bf16_reference(q, k, v, seg, do, lse, delta)},
+        "flash_dkv_bf16_reference": lambda: dict(zip(
+            ("dk", "dv"), fa.flash_dkv_bf16_reference(q, k, v, seg, do, lse, delta))),
+    }
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    for model, outputs in models.items():
+        for name, want in outputs().items():
+            rel, _ = _row_err(got[name], want)
+            errs[f"bf16_{name}_model_row"] = rel
+            log(f"[flash] bf16 {name} against the kernel's model ({model}): "
+                f"row_err={rel:.3e} (tolerance {FLASH_ROW_TOL['bf16']:.3e})")
+            check(rel <= FLASH_ROW_TOL["bf16"],
+                  f"bf16 {name} disagrees with the kernel's model")
+    del got, dq, dk, dv, mo, mlse
     kernels = {
         "fwd": lambda: fa.flash_fwd(q, k, v, seg32, True),
         "dq": lambda: fa.flash_dq(q, k, v, seg32, do, lse, delta, True),
@@ -1943,8 +2021,10 @@ def _train_prompts(rng, cfg, n_prompts):
 
 def _profile_train_step(actor_if, actor, rollout, mb):
     """Device time by kernel over one train_step under torch.profiler:
-    the card's idle share of its wall time and the K1 kernels' share of
-    the busy time."""
+    the card's idle share of its wall time, the K1 kernels' share of the
+    busy time and each K1 kernel's device time a call."""
+    import re
+
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -1969,13 +2049,22 @@ def _profile_train_step(actor_if, actor, rollout, mb):
         dict(name=name[:90], ms=us / 1e3, calls=n, share=us / 1e6 / max(busy_s, 1e-12))
         for us, n, name in kernels[:8]
     ]
+    # Each K1 kernel's device time a call at the step's own packed shape.
+    k1 = [
+        dict(name=re.search(r"flash_\w+", name).group(0), ms=us / 1e3, calls=n,
+             ms_per_call=us / 1e3 / max(n, 1))
+        for us, n, name in kernels if "flash_" in name
+    ]
     log(f"[profile] 1 train_step: wall {wall:.3f} s, device busy {busy_s:.3f} s, "
         f"idle share {1 - busy_s / wall:.3f}, K1 share of busy "
         f"{flash_s / max(busy_s, 1e-12):.3f} (profiler on)")
     for k in top:
         log(f"[profile]   {k['share']:.3f} {k['ms']:10.2f} ms {k['calls']:7d}x {k['name']}")
+    for k in k1:
+        log(f"[profile]   K1 {k['name']}: {k['ms']:.2f} ms in {k['calls']} launches = "
+            f"{k['ms_per_call']:.4f} ms a call")
     return dict(wall_s=wall, busy_s=busy_s, idle_share=1 - busy_s / wall,
-                k1_share=flash_s / max(busy_s, 1e-12), top_kernels=top)
+                k1_share=flash_s / max(busy_s, 1e-12), top_kernels=top, k1_per_call=k1)
 
 
 def _train_recompute(actor_if, actor, rollout, mb):
@@ -2304,7 +2393,7 @@ def _kernels_line(report):
         errs = f.get("max_abs_err", {})
         bound = f.get("bounds", {}).get(name, (None, None))
         t = f.get("times", {}).get(name, {})
-        kernels.append({
+        entry = {
             "name": f"flash_attention_{name}",
             "route": "cuda",
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
@@ -2318,6 +2407,8 @@ def _kernels_line(report):
                 at_train[o][0] if o in at_train else None for o in outputs[name]
             ),
             "row_err_edges": _worst(errs.get(f"edges_bf16_{o}") for o in outputs[name]),
+            "row_err_edges_model": _worst(
+                errs.get(f"edges_bf16_{o}_model") for o in outputs[name]),
             "row_err_model": _worst(errs.get(f"bf16_{o}_model_row") for o in outputs[name]),
             "ms": t.get("kernel_ms"),
             "eager_ms": t.get("kernel_eager_ms"),
@@ -2327,7 +2418,11 @@ def _kernels_line(report):
             "bound_by": bound[1],
             "library_ms": t.get("library_ms"),
             "library_eager_ms": t.get("library_eager_ms"),
-        })
+        }
+        if name == "fwd":  # lse against the dense logsumexp and the model
+            entry["lse_err_edges"] = _worst(errs.get(f"edges_{d}_lse") for d in ("bf16", "fp32"))
+            entry["lse_err_model"] = errs.get("bf16_lse_model")
+        kernels.append(entry)
     k3 = report.get("k3", {})
     errs = k3.get("max_abs_err", {})
     kernels.append({

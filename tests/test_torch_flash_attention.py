@@ -3,10 +3,14 @@ fp32: the plain version (`packed_attention_reference`, `make_packed_mask`,
 `repeat_kv`) and `flash_attention`'s CPU path with its autograd grads,
 held against JAX's dense reference and against JAX's Pallas flash kernel
 in interpret mode (as tests/test_flash_attention.py runs it).  The bf16
-K1dkv kernel's own arithmetic, `flash_dkv_bf16_reference` (P and dS
-rounded to bf16 before its products), is held against jax.vjp through
-the Pallas kernels over segments of 1 to 129 positions.  The CUDA
-kernels themselves run only on the card (chip_smoke.py's flash phase)."""
+kernels' own arithmetic is held against the Pallas kernels over segments
+of 1 to 129 positions: `flash_fwd_bf16_reference` (the online softmax
+over 64-key tiles, P rounded to bf16 before P·V) against the forward,
+`flash_dq_bf16_reference` (dS split into a bf16 hi + lo pair before
+dS·K) and
+`flash_dkv_bf16_reference` (P and dS rounded to bf16 before their
+products) against jax.vjp.  The CUDA kernels themselves run only on the
+card (chip_smoke.py's flash phase)."""
 
 import math
 
@@ -226,6 +230,63 @@ def _row_err(got, want):
     return float((err / np.maximum(mag, rms)).max())
 
 
+def _dense_lse(qt, kt, st, causal):
+    """logsumexp of each row's masked fp32 logits, [B, S, Hq] (-inf on
+    rows that attend nothing)."""
+    logits = torch.einsum(
+        "bqhd,bkhd->bhqk", qt, tatt.repeat_kv(kt, qt.shape[2] // kt.shape[2])
+    ) * qt.shape[-1] ** -0.5
+    mask = tatt.make_packed_mask(st, causal=causal)
+    return torch.logsumexp(torch.where(mask, logits, -math.inf), -1).transpose(1, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(6, 1), (2, 2)])
+def test_fwd_bf16_reference_matches_jax(rng, hq, hkv, causal):
+    """o of `flash_fwd_bf16_reference` against the Pallas forward in
+    interpret mode: each row within 2^-7 of its largest value (P is
+    rounded to bf16 before P·V, as on the card; chip_smoke's bf16
+    tolerance); padding rows exactly 0.  Its lse against the dense
+    logsumexp within 1e-5 (fp32 in both, sums in another order), -1e30
+    at padding."""
+    q, k, v, _, seg = _dkv_rows(rng, hq, hkv)
+    qt, kt, vt, st = _t(q, k, v, seg)
+    o, lse = tfa.flash_fwd_bf16_reference(qt, kt, vt, st, causal=causal)
+    want = jflash(*map(jnp.asarray, (q, k, v, seg)), causal=causal, block_q=64, block_k=64)
+    o = o.numpy()
+    assert _row_err(o, np.asarray(want)) <= 2**-7
+    assert (o[seg == 0] == 0.0).all()
+    real = seg > 0
+    want_lse = _dense_lse(qt, kt, st, causal).numpy()
+    np.testing.assert_allclose(lse.numpy()[real], want_lse[real], rtol=0, atol=1e-5)
+    assert (lse.numpy()[~real] == tfa.KERNEL_NEG).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(6, 1), (2, 2)])
+def test_dq_bf16_reference_matches_jax(rng, hq, hkv, causal):
+    """dq of `flash_dq_bf16_reference` (given the fp32 lse and Δ of the
+    fp32 forward) against jax.vjp through the Pallas kernels in
+    interpret mode: each row within 2^-7 of its largest value (dS is split
+    into a bf16 hi + lo pair before dS·K, as on the card); padding rows
+    exactly 0."""
+    q, k, v, do, seg = _dkv_rows(rng, hq, hkv)
+    qt, kt, vt, dot, st = _t(q, k, v, do, seg)
+    o = tatt.packed_attention_reference(qt, kt, vt, st, causal=causal)
+    dq = tfa.flash_dq_bf16_reference(
+        qt, kt, vt, st, dot, _dense_lse(qt, kt, st, causal), tfa.flash_delta(o, dot),
+        causal=causal,
+    ).numpy()
+    sj = jnp.asarray(seg)
+    _, vjp = jax.vjp(
+        lambda q, k, v: jflash(q, k, v, sj, causal=causal, block_q=64, block_k=64),
+        *map(jnp.asarray, (q, k, v)),
+    )
+    want_dq = np.asarray(vjp(jnp.asarray(do))[0])
+    assert _row_err(dq, want_dq) <= 2**-7
+    assert (dq[seg == 0] == 0.0).all()
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("hq,hkv", [(6, 1), (2, 2)])
 def test_dkv_bf16_reference_matches_jax(rng, hq, hkv, causal):
@@ -237,13 +298,9 @@ def test_dkv_bf16_reference_matches_jax(rng, hq, hkv, causal):
     q, k, v, do, seg = _dkv_rows(rng, hq, hkv)
     qt, kt, vt, dot, st = _t(q, k, v, do, seg)
     o = tatt.packed_attention_reference(qt, kt, vt, st, causal=causal)
-    logits = torch.einsum(
-        "bqhd,bkhd->bhqk", qt, tatt.repeat_kv(kt, hq // hkv)
-    ) * q.shape[-1] ** -0.5
-    mask = tatt.make_packed_mask(st, causal=causal)
-    lse = torch.logsumexp(torch.where(mask, logits, -math.inf), -1).transpose(1, 2)
     dk, dv = tfa.flash_dkv_bf16_reference(
-        qt, kt, vt, st, dot, lse, tfa.flash_delta(o, dot), causal=causal
+        qt, kt, vt, st, dot, _dense_lse(qt, kt, st, causal), tfa.flash_delta(o, dot),
+        causal=causal,
     )
     sj = jnp.asarray(seg)
     _, vjp = jax.vjp(
