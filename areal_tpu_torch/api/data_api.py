@@ -195,6 +195,22 @@ class SequenceSample:
         self.dtypes.update(other.dtypes)
         self.trailing_shapes.update(other.trailing_shapes)
 
+    def remap_keys_(self, mapping: Dict[str, str]) -> None:
+        """Rename keys in place (a dataflow's output key remapping, e.g.
+        the reference model's `logprobs` -> `packed_ref_logprobs`)."""
+        for old, new in mapping.items():
+            if old not in self.keys:
+                continue
+            self.keys.discard(old)
+            self.keys.add(new)
+            self.seqlens[new] = self.seqlens.pop(old)
+            if self.data is not None and old in self.data:
+                self.data[new] = self.data.pop(old)
+            if old in self.dtypes:
+                self.dtypes[new] = self.dtypes.pop(old)
+            if old in self.trailing_shapes:
+                self.trailing_shapes[new] = self.trailing_shapes.pop(old)
+
     def split_groups(self, mb_spec: MicroBatchSpec) -> List[List[int]]:
         """Index groups for micro-batching: FFD under max_tokens_per_mb,
         at least n_mbs groups."""

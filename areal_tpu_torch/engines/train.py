@@ -13,8 +13,12 @@
   the optimizer state bit-identical (`torch.where` on a device flag, so
   the step needs no host decision).  The step's scalars and the loss
   function's stats leave the device in ONE transfer per call.
+- A critic config trains its value head the same way: `loss_fn` gets
+  the [B, S] fp32 values instead of logprobs.
+- `offload()` (`engines/offload.HostOffloadMixin`) moves the masters and
+  Adam's `mu`/`nu` to host memory; the next call restores them.
 - The tunable sentinels (grad-norm spike, update-norm ceiling),
-  streamed accumulation, offload and pipeline schedules are not ported.
+  streamed accumulation and pipeline schedules are not ported.
 """
 
 import math
@@ -28,6 +32,7 @@ from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
 from areal_tpu_torch.base import integrity
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines import packing
+from areal_tpu_torch.engines.offload import HostOffloadMixin
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 
@@ -86,7 +91,53 @@ def _cast_tree(tree: Params, dtype: torch.dtype) -> Params:
     return _map_tree(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
-class TrainEngine:
+def model_out(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+              remat) -> torch.Tensor:
+    """The per-token model output [B, S] fp32 of a packed batch: a
+    critic's values, else next-token logprobs (`per_token_output`)."""
+    x = tfm.hidden_states(
+        params, cfg, batch["tokens"], batch["segment_ids"],
+        positions=batch["positions"], remat=remat,
+    )
+    return tfm.per_token_output(params, cfg, x, batch["tokens"], batch["segment_ids"])
+
+
+def device_batch(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+@torch.no_grad()
+def forward_sample(
+    run: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+    device: torch.device,
+    sample: SequenceSample,
+    mb_spec: MicroBatchSpec,
+    output_key: str,
+    token_key: str,
+    extra_keys: Sequence[str],
+) -> SequenceSample:
+    """The engines' forward contract: `run(batch) -> [B, S]` per packed
+    micro-batch, re-packed token-aligned under `output_key`, in the
+    sample's id order."""
+    outs = []
+    for mb in sample.split(mb_spec):
+        pk = packing.pack_sample(
+            mb, token_key, extra_keys=extra_keys,
+            max_tokens_per_row=mb_spec.max_tokens_per_mb,
+        )
+        dense = run(device_batch(pk.arrays, device))
+        outs.append(SequenceSample(
+            keys={output_key},
+            ids=list(mb.ids),
+            seqlens={output_key: [list(s) for s in mb.seqlens[token_key]]},
+            data={output_key: pk.unpack(dense.float().cpu().numpy())},
+        ))
+    result = SequenceSample.gather(outs)
+    order = {i: n for n, i in enumerate(result.ids)}
+    return result.select_idx([order[i] for i in sample.ids])
+
+
+class TrainEngine(HostOffloadMixin):
     """fp32 master params + AdamW state on one device."""
 
     def __init__(
@@ -99,8 +150,8 @@ class TrainEngine:
         compute_dtype: torch.dtype = torch.bfloat16,
         remat_policy: str = "full",
     ):
-        if cfg.is_moe or cfg.is_critic:
-            raise NotImplementedError("MoE and critic training are not yet ported")
+        if cfg.is_moe:
+            raise NotImplementedError("MoE training is not yet ported")
         tfm._remat_layers(remat_policy)  # reject unknown / unported policies now
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -123,30 +174,31 @@ class TrainEngine:
     # ---------------- params ----------------
 
     def get_params(self) -> Params:
+        self._ensure_loaded()
         return _map_tree(lambda p: p.detach(), self.params)
 
     def set_params(self, params: Params) -> None:
         """Replace the masters (fp32 copies on the engine's device); the
-        optimizer state is kept."""
+        optimizer state is kept (restored first if offloaded)."""
+        self._ensure_loaded()
         self.params = _map_tree(
             lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(True),
             params,
         )
 
+    # ---------------- offload (HostOffloadMixin + optimizer state) ----
+
+    def _offload_state(self):
+        return (self.params, self._mu, self._nu)
+
+    def _restore_state(self, state) -> None:
+        params, self._mu, self._nu = state
+        self.params = _map_tree(lambda x: x.requires_grad_(True), params)
+
+    def _drop_state(self) -> None:
+        self.params = self._mu = self._nu = None
+
     # ---------------- steps ----------------
-
-    def _device_batch(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
-
-    def _model_out(self, batch: Dict[str, torch.Tensor], remat) -> torch.Tensor:
-        pc = _cast_tree(self.params, self.compute_dtype)
-        x = tfm.hidden_states(
-            pc, self.cfg, batch["tokens"], batch["segment_ids"],
-            positions=batch["positions"], remat=remat,
-        )
-        return tfm.per_token_output(
-            pc, self.cfg, x, batch["tokens"], batch["segment_ids"]
-        )
 
     @torch.no_grad()
     def _guarded_step(self, loss_sum: torch.Tensor) -> torch.Tensor:
@@ -195,11 +247,12 @@ class TrainEngine:
         extra_keys: Sequence[str] = (),
     ) -> Dict[str, float]:
         """Accumulate gradients over micro-batches, then one optimizer
-        step.  `loss_fn(per_token_logprobs, batch) -> (loss_sum, stats)`
-        returns a SUM over its tokens; `loss_weight_fn(arrays)` weighs each
-        micro-batch (e.g. its loss-token count), so the gradient is the
-        full-batch mean.  Stats ending in `_sum` are summed and divided by
+        step.  `loss_fn(per_token_output, batch) -> (loss_sum, stats)`
+        (logprobs, or a critic's values) returns a SUM over its tokens;
+        `loss_weight_fn(arrays)` weighs each micro-batch (e.g. its
+        loss-token count), so the gradient is the full-batch mean.  Stats ending in `_sum` are summed and divided by
         the total weight (the suffix dropped); others are averaged."""
+        self._ensure_loaded()
         chunks = [
             packing.pack_sample(
                 mb, token_key, extra_keys=extra_keys,
@@ -221,9 +274,10 @@ class TrainEngine:
         for _, p in _leaves(self.params):
             p.grad = None
         for arrays in chunks:
-            batch = self._device_batch(arrays)
+            batch = device_batch(arrays, self.device)
             with torch.enable_grad():
-                loss, stats = loss_fn(self._model_out(batch, self.remat_policy), batch)
+                pc = _cast_tree(self.params, self.compute_dtype)
+                loss, stats = loss_fn(model_out(pc, self.cfg, batch, self.remat_policy), batch)
                 (loss * scale).backward()
             losses.append(loss.detach().float() * scale)
             all_stats.append({k: v.detach().float() for k, v in stats.items()})
@@ -260,7 +314,6 @@ class TrainEngine:
                 out[k] = v
         return out
 
-    @torch.no_grad()
     def forward(
         self,
         sample: SequenceSample,
@@ -270,23 +323,13 @@ class TrainEngine:
         token_key: str = "packed_input_ids",
         extra_keys: Sequence[str] = (),
     ) -> SequenceSample:
-        """Forward only: `post_fn(per_token_logprobs, batch) -> [B, S]`
-        per micro-batch, re-packed token-aligned under `output_key`, in
-        the sample's id order."""
-        outs = []
-        for mb in sample.split(mb_spec):
-            pk = packing.pack_sample(
-                mb, token_key, extra_keys=extra_keys,
-                max_tokens_per_row=mb_spec.max_tokens_per_mb,
-            )
-            batch = self._device_batch(pk.arrays)
-            dense = post_fn(self._model_out(batch, remat=False), batch)
-            outs.append(SequenceSample(
-                keys={output_key},
-                ids=list(mb.ids),
-                seqlens={output_key: [list(s) for s in mb.seqlens[token_key]]},
-                data={output_key: pk.unpack(dense.float().cpu().numpy())},
-            ))
-        result = SequenceSample.gather(outs)
-        order = {i: n for n, i in enumerate(result.ids)}
-        return result.select_idx([order[i] for i in sample.ids])
+        """Forward only (`forward_sample`): `post_fn(per_token_output,
+        batch) -> [B, S]` per micro-batch, under the current masters cast
+        to the compute dtype."""
+        self._ensure_loaded()
+        with torch.no_grad():
+            pc = _cast_tree(self.params, self.compute_dtype)
+        return forward_sample(
+            lambda b: post_fn(model_out(pc, self.cfg, b, remat=False), b),
+            self.device, sample, mb_spec, output_key, token_key, extra_keys,
+        )

@@ -1,15 +1,21 @@
-"""The PPO/GRPO actor (port of `PPOActorInterface` and the actor loss of
-areal_tpu/interfaces/ppo.py).
+"""The PPO/GRPO actor and critic (port of `PPOActorInterface`,
+`PPOCriticInterface` and their losses in areal_tpu/interfaces/ppo.py).
 
 - generate: group sampling through the generator engine;
-- inference: recompute token logprobs with `TrainEngine.forward`;
-- train_step: terminal rewards -> GRPO group-normalized advantages
-  (`disable_value`), optional KL penalty against `packed_ref_logprobs`,
-  advantage normalization (global or per group), then minibatched
-  clipped-PPO updates through `TrainEngine.train_batch`; optionally the
-  decoupled objective (`behav_imp_weight_cap`) with a proximal forward.
+- inference: recompute token logprobs (actor; on an `InferenceEngine`
+  these are the reference model's) / values (critic, denormalized under
+  `value_norm`) with the engine's `forward`;
+- train_step: KL-shaped per-token rewards (terminal score, or dense
+  per-token scores) -> GAE over each response window with the critic's
+  values, or GRPO group-normalized advantages (`disable_value`);
+  advantage normalization (over the batch, or per group with a critic);
+  then minibatched clipped-PPO updates through `TrainEngine.train_batch`;
+  optionally the decoupled objective (`behav_imp_weight_cap`) with a
+  proximal forward.  The critic trains its value head on the GAE
+  returns (clipped value loss), normalized by running moments under
+  `value_norm`.
 
-The critic / GAE branch, the batch-level anomaly sentinels and streamed
+The batch-level anomaly sentinels, checkpoint saving and streamed
 training are not yet ported.
 
 Alignment (set by the generator): every per-token key is aligned with
@@ -31,6 +37,8 @@ from areal_tpu_torch.api.model_api import (
     register_interface,
 )
 from areal_tpu_torch.interfaces.kl import make_kl_controller
+from areal_tpu_torch.interfaces.value_norm import make_value_norm
+from areal_tpu_torch.ops.gae import gae_packed
 
 logger = logging.getLogger("areal_tpu_torch.ppo")
 
@@ -74,8 +82,31 @@ def _ppo_actor_loss_factory(
     return loss_fn
 
 
+def _ppo_critic_loss_factory(value_eps_clip: float):
+    """Clipped value loss over the critic's values [B, S] fp32."""
+
+    def loss_fn(values, batch):
+        mask = batch["loss_mask"] > 0
+        old_v = batch["old_values"]
+        ret = batch["returns"]
+        v_clip = old_v + torch.clamp(values - old_v, -value_eps_clip, value_eps_clip)
+        l1 = torch.square(values - ret)
+        l2 = torch.square(v_clip - ret)
+        loss = 0.5 * torch.where(mask, torch.maximum(l1, l2), 0.0).sum()
+        return loss, {
+            "value_loss_sum": loss,
+            "value_clip_ratio_sum": (mask & (l2 > l1)).sum().float(),
+        }
+
+    return loss_fn
+
+
 def _logprob_post(logp, batch):
     return logp  # the engine already emits masked next-token logprobs [B, S]
+
+
+def _value_post(values, batch):
+    return torch.where(batch["segment_ids"] > 0, values, 0.0)
 
 
 def _mask_count(arrays) -> float:
@@ -148,6 +179,38 @@ def _select_group_seqs(sample: SequenceSample, keep) -> SequenceSample:
     )
 
 
+def _response_gae(layout, seq_slices, rewards, values, no_eos, gamma, lam, device):
+    """GAE over each sequence's response window [lo, hi), the windows
+    packed end to end.  A window's bootstrap is the value at its
+    sequence's LAST token times `seq_no_eos_mask`: 0 for a sequence that
+    ended with EOS, V(s_L) for a truncated one.  Runs on `device`;
+    returns (advantages, returns) full-length aligned, 0 off the windows."""
+    total = len(rewards)
+    adv_full = np.zeros(total, np.float32)
+    ret_full = np.zeros(total, np.float32)
+    parts = []
+    for si, (lo, hi) in enumerate(seq_slices):
+        n = hi - lo
+        if n == 0:
+            continue
+        s, L, _ = layout[si]
+        boot = np.zeros(n, np.float32)
+        boot[-1] = no_eos[si] * values[s + L - 1]
+        parts.append((rewards[lo:hi], values[lo:hi], np.full(n, si + 1, np.int32), boot))
+    if not parts:
+        return adv_full, ret_full
+    r, v, seg, boot = (
+        torch.from_numpy(np.concatenate(col)).to(device) for col in zip(*parts)
+    )
+    adv, ret = torch.stack(gae_packed(r, v, seg, boot, gamma, lam)).cpu().numpy()
+    off = 0
+    for lo, hi in seq_slices:
+        adv_full[lo:hi] = adv[off : off + hi - lo]
+        ret_full[lo:hi] = ret[off : off + hi - lo]
+        off += hi - lo
+    return adv_full, ret_full
+
+
 @dataclasses.dataclass
 class PPOActorInterface(ModelInterface):
     gconfig: GenerationHyperparameters = dataclasses.field(
@@ -162,15 +225,22 @@ class PPOActorInterface(ModelInterface):
     # Best-of-k: sample `generation_size` responses per prompt, train on
     # the top `gconfig.n` by reward (ties toward longer responses).
     generation_size: Optional[int] = None
+    discount: float = 1.0
+    gae_lambda: float = 1.0
     max_reward_clip: float = 5.0
     reward_scaling: float = 1.0
     reward_bias: float = 0.0
     early_stop_imp_ratio: Optional[float] = None
     early_stop_kl: Optional[float] = None
-    disable_value: bool = False  # GRPO mode; the critic branch is not ported
+    disable_value: bool = False  # GRPO mode: no critic
     adv_norm: bool = True
     group_adv_norm: bool = False  # acts only with the critic
     mask_no_eos_with_zero: bool = False
+    # Per-token rewards (value mode only): key "dense_rewards", one score
+    # per token aligned with packed_input_ids, in place of the terminal
+    # scalar; reward_delta earns consecutive-score differences instead.
+    use_dense_reward: bool = False
+    reward_delta: bool = True
     behav_imp_weight_cap: Optional[float] = None
 
     def __post_init__(self):
@@ -227,13 +297,10 @@ class PPOActorInterface(ModelInterface):
     def _prepare_train_sample(
         self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec
     ):
-        """Best-of-k filtering, KL-shaped GRPO advantages, advantage
-        normalization, and the packed train sample with its aligned keys.
-        Returns (train_sample, extra_keys, aux)."""
-        if not self.disable_value:
-            raise NotImplementedError(
-                "the critic / GAE branch (disable_value=False) is not yet ported"
-            )
+        """Best-of-k filtering, KL-shaped rewards, GAE (with the critic's
+        `values`) or GRPO advantages, advantage normalization, and the
+        packed train sample with its aligned keys.  Returns
+        (train_sample, extra_keys, aux)."""
         if self.generation_size is not None and self.generation_size > self.gconfig.n:
             sample = self._filter_best_of_k(sample)
         klv = self._kl_ctl.value
@@ -264,35 +331,97 @@ class PPOActorInterface(ModelInterface):
         no_eos = np.asarray(sample.data["seq_no_eos_mask"], np.float32)
         if self.mask_no_eos_with_zero:
             scores = scores * (1.0 - no_eos)
+        dense = None
+        if self.use_dense_reward:
+            if self.disable_value:
+                raise ValueError(
+                    "use_dense_reward requires the value (critic) mode: GRPO "
+                    "group advantages are defined on scalar scores"
+                )
+            if "dense_rewards" not in sample.keys:
+                raise ValueError(
+                    "use_dense_reward needs a 'dense_rewards' key (one score "
+                    "per token, aligned with packed_input_ids)"
+                )
+            dense = np.asarray(sample.data["dense_rewards"], np.float32)
+            if len(dense) != total:
+                raise ValueError(
+                    f"dense_rewards must align with packed_input_ids: got "
+                    f"{len(dense)} scores for {total} tokens"
+                )
+            dense = np.clip(
+                (dense + self.reward_bias) * self.reward_scaling,
+                -self.max_reward_clip, self.max_reward_clip,
+            )
 
         # Loss positions t in [pl-1, L-2]: each predicts a response token.
         loss_mask = np.zeros(total, np.float32)
-        adv_full = np.zeros(total, np.float32)
         seq_slices = []
         for s, L, pl in layout:
             lo, hi = s + max(pl - 1, 0), s + L - 1
             loss_mask[lo:hi] = 1.0
             seq_slices.append((lo, hi))
 
-        # GRPO: the group-normalized terminal score over the response.
-        groups: Dict[int, list] = {}
-        for si in range(len(layout)):
-            groups.setdefault(group_of[si], []).append(si)
-        adv_seq = np.zeros(len(layout), np.float32)
-        for sis in groups.values():
-            g_scores = scores[sis]
-            adv_seq[sis] = (g_scores - g_scores.mean()) / (g_scores.std() + 1e-5)
-        for si, (lo, hi) in enumerate(seq_slices):
-            adv_full[lo:hi] = adv_seq[si]
-        if ref_logp is not None and klv != 0.0:
-            adv_full += -klv * (old_logp - ref_logp) * loss_mask
+        if self.disable_value:
+            # GRPO: the group-normalized terminal score over the response.
+            groups: Dict[int, list] = {}
+            for si in range(len(layout)):
+                groups.setdefault(group_of[si], []).append(si)
+            adv_seq = np.zeros(len(layout), np.float32)
+            for sis in groups.values():
+                g_scores = scores[sis]
+                adv_seq[sis] = (g_scores - g_scores.mean()) / (g_scores.std() + 1e-5)
+            adv_full = np.zeros(total, np.float32)
+            for si, (lo, hi) in enumerate(seq_slices):
+                adv_full[lo:hi] = adv_seq[si]
+            if ref_logp is not None and klv != 0.0:
+                adv_full += -klv * (old_logp - ref_logp) * loss_mask
+        else:
+            # Per-token rewards: the KL penalty on every response token,
+            # plus the terminal score at the last one (or, dense, token
+            # t+1's score or its delta at transition t); then GAE with
+            # the critic's values.
+            rewards = np.zeros(total, np.float32)
+            if ref_logp is not None and klv != 0.0:
+                rewards -= klv * (old_logp - ref_logp)
+            for si, (lo, hi) in enumerate(seq_slices):
+                if dense is not None:
+                    gain = dense[lo + 1 : hi + 1]
+                    if self.reward_delta:
+                        gain = gain - dense[lo:hi]
+                    if self.mask_no_eos_with_zero:
+                        gain = gain * (1.0 - no_eos[si])
+                    rewards[lo:hi] += gain
+                elif hi > lo:
+                    rewards[hi - 1] += scores[si]
+            rewards *= loss_mask
+            values = (
+                np.asarray(sample.data["values"], np.float32)
+                if "values" in sample.keys
+                else np.zeros(total, np.float32)
+            )
+            adv_full, _ = _response_gae(
+                layout, seq_slices, rewards, values, no_eos,
+                self.discount, self.gae_lambda, model.engine.device,
+            )
 
-        # Normalized over the whole batch: group_adv_norm acts only with a
-        # critic (the JAX package's `batch_norm`), and GRPO has none.
+        # Normalized over the whole batch, or per group with a critic
+        # (`group_adv_norm` does not act on GRPO advantages, which are
+        # group-normalized already).
         m = loss_mask > 0
-        if self.adv_norm and m.any():
-            vals = adv_full[m]
-            adv_full[m] = (vals - vals.mean()) / (vals.std() + 1e-5)
+        if self.adv_norm:
+            if self.group_adv_norm and not self.disable_value:
+                for gi in set(group_of):
+                    gm = np.zeros_like(m)
+                    for si, (lo, hi) in enumerate(seq_slices):
+                        if group_of[si] == gi:
+                            gm[lo:hi] = m[lo:hi]
+                    if gm.any():
+                        vals = adv_full[gm]
+                        adv_full[gm] = (vals - vals.mean()) / (vals.std() + 1e-5)
+            elif m.any():
+                vals = adv_full[m]
+                adv_full[m] = (vals - vals.mean()) / (vals.std() + 1e-5)
 
         train_sample = sample.select_keys({"packed_input_ids", "prompt_mask"})
         aligned = {"old_logp": old_logp, "advantages": adv_full, "loss_mask": loss_mask}
@@ -357,4 +486,128 @@ class PPOActorInterface(ModelInterface):
         return out
 
 
+@dataclasses.dataclass
+class PPOCriticInterface(ModelInterface):
+    n_minibatches: int = 4
+    value_eps_clip: float = 0.2
+    discount: float = 1.0
+    gae_lambda: float = 1.0
+    max_reward_clip: float = 5.0
+    kl_ctl: float = 0.0
+    # Running mean/std normalization of the returns: the head learns
+    # normalized targets, and `inference` denormalizes its predictions.
+    value_norm: bool = False
+    value_norm_type: str = "exp"  # "exp" | "ma"
+    value_norm_beta: float = 0.99995
+    value_norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        self._loss_fn = _ppo_critic_loss_factory(self.value_eps_clip)
+        self.rms = (
+            make_value_norm(self.value_norm_type, self.value_norm_beta, self.value_norm_eps)
+            if self.value_norm
+            else None
+        )
+
+    def state_dict(self) -> Dict[str, float]:
+        # A restored head trained on normalized targets needs its moments,
+        # or inference would denormalize with the identity.
+        return self.rms.state_dict() if self.value_norm else {}
+
+    def load_state_dict(self, sd) -> None:
+        if self.value_norm and sd:
+            self.rms.load_state_dict(sd)
+
+    def save(self, model: Model, save_dir: str) -> None:
+        raise NotImplementedError(
+            "critic checkpoints need HF checkpoint IO (ROADMAP queue 1, item 3)"
+        )
+
+    def train_stream_begin(self, *args, **kwargs):
+        raise NotImplementedError("streamed training (ROADMAP queue 1, item 6)")
+
+    train_stream_chunk = train_stream_end = train_stream_begin
+
+    def inference(
+        self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> SequenceSample:
+        out = model.engine.forward(
+            sample, mb_spec, post_fn=_value_post, output_key="values",
+            token_key="packed_input_ids",
+        )
+        if self.value_norm:
+            # Hand real-scale values to the consumers (the actor's GAE and
+            # this interface's own train_step).
+            out.data["values"] = self.rms.denormalize(
+                np.asarray(out.data["values"], np.float32)
+            )
+        return out
+
+    def _prepare_train_sample(
+        self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> SequenceSample:
+        """KL-shaped rewards -> GAE returns -> (under value_norm: the
+        running moments updated with this batch's returns, then returns
+        and old values normalized) -> the packed train sample."""
+        layout, _ = _extract_layout(sample)
+        total = sum(L for (_, L, _) in layout)
+        old_logp = _seq_align_minus1(sample, "packed_logprobs")
+        ref_logp = (
+            _seq_align_minus1(sample, "packed_ref_logprobs")
+            if "packed_ref_logprobs" in sample.keys
+            else None
+        )
+        values = np.asarray(sample.data["values"], np.float32)
+        scores = np.clip(
+            np.asarray(sample.data["rewards"], np.float32),
+            -self.max_reward_clip, self.max_reward_clip,
+        )
+        no_eos = np.asarray(sample.data["seq_no_eos_mask"], np.float32)
+
+        rewards = np.zeros(total, np.float32)
+        loss_mask = np.zeros(total, np.float32)
+        if ref_logp is not None and self.kl_ctl != 0.0:
+            rewards -= self.kl_ctl * (old_logp - ref_logp)
+        seq_slices = []
+        for si, (s, L, pl) in enumerate(layout):
+            lo, hi = s + max(pl - 1, 0), s + L - 1
+            loss_mask[lo:hi] = 1.0
+            if hi > lo:
+                rewards[hi - 1] += scores[si]
+            seq_slices.append((lo, hi))
+        rewards *= loss_mask
+        _, returns = _response_gae(
+            layout, seq_slices, rewards, values, no_eos,
+            self.discount, self.gae_lambda, model.engine.device,
+        )
+        if self.value_norm:
+            # The old values are normalized too, so the clip window lives
+            # in the targets' space.
+            self.rms.update(returns, mask=loss_mask)
+            returns = self.rms.normalize(returns)
+            values = self.rms.normalize(values)
+
+        train_sample = sample.select_keys({"packed_input_ids", "prompt_mask"})
+        _add_aligned_keys(train_sample, {
+            "old_values": values, "returns": returns, "loss_mask": loss_mask,
+        })
+        return train_sample
+
+    def train_step(
+        self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> Dict[str, float]:
+        train_sample = self._prepare_train_sample(model, sample, mb_spec)
+        all_stats = [
+            model.engine.train_batch(
+                mb, mb_spec, loss_fn=self._loss_fn, loss_weight_fn=_mask_count,
+                token_key="packed_input_ids",
+                extra_keys=("old_values", "returns", "loss_mask"),
+            )
+            for mb in train_sample.split_balanced(min(self.n_minibatches, train_sample.bs))
+        ]
+        model.inc_version()
+        return {k: float(np.mean([s[k] for s in all_stats])) for k in all_stats[0]}
+
+
 register_interface("ppo_actor", PPOActorInterface)
+register_interface("ppo_critic", PPOCriticInterface)

@@ -7,14 +7,16 @@ paged KV pool.
   axis under "blocks" — the JAX package's layout, so one set of weights
   can be handed to both (`models/weights.py`).  Layers run as a Python
   loop over that axis.
-- Dense llama/qwen2-family models (qkv bias, tied embeddings); MoE and
-  the critic head are not ported yet.
+- Dense llama/qwen2-family models (qkv bias, tied embeddings); a
+  critic (`cfg.is_critic`) swaps the LM head for a scalar value head
+  `value_head` [D, 1].  MoE is not ported yet.
 - Packed rows: [B, S] tokens with segment ids (0 = padding) run through
   `flash_attention` (the flash kernels on the card).  Remat "full"
   checkpoints each layer (`torch.utils.checkpoint`, non-reentrant);
   "dots" and "dots_small" are not ported yet.
-- The LM head gives fp32 logits of the product in the weights' dtype
-  (`ops/functional.matmul_fp32_out`), as the JAX package asks XLA for.
+- The LM head gives fp32 logits, and the value head fp32 values, of the
+  product in the weights' dtype (`ops/functional.matmul_fp32_out`), as
+  the JAX package asks XLA for.
 - The static generate path over a dense cache `KVCache` [L, B, S, ...]
   with right-aligned prompts: `prefill` (packed attention through the
   flash kernels' wrapper, each layer's K/V written to cache[:, :, :S])
@@ -69,8 +71,8 @@ def init_params(
     `torch.Generator` seeded with `seed`.  The numbers differ from the
     JAX package's `init_params` (other generator); hand one set of
     weights to both with `models/weights.py`."""
-    if cfg.is_moe or cfg.is_critic:
-        raise NotImplementedError("MoE and critic models are not yet ported")
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
     device = resolve_device(device)
     dtype = cfg.dtype
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -121,7 +123,9 @@ def init_params(
         params["final_ln_b"] = zeros(D)
     if cfg.pos_emb == "learned":
         params["pos_embed"] = dense((cfg.max_position_embeddings, D), D)
-    if not cfg.tied_embeddings:
+    if cfg.is_critic:
+        params["value_head"] = dense((D, 1), D)
+    elif not cfg.tied_embeddings:
         params["lm_head"] = dense((D, cfg.vocab_size), D)
     return params
 
@@ -194,8 +198,11 @@ def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits [..., V]: an fp32 result of the product in the
-    weights' dtype, as the JAX package's `preferred_element_type`."""
+    """fp32 logits [..., V], or a critic's fp32 values [...]: an fp32
+    result of the product in the weights' dtype, as the JAX package's
+    `preferred_element_type`."""
+    if cfg.is_critic:
+        return matmul_fp32_out(x, params["value_head"])[..., 0]
     return matmul_fp32_out(x, head_weights(params, cfg))
 
 
@@ -325,7 +332,8 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     remat=False,
 ) -> torch.Tensor:
-    """Full forward over packed rows -> fp32 logits [B, S, V]."""
+    """Full forward over packed rows -> fp32 logits [B, S, V] (a
+    critic's values [B, S])."""
     x = hidden_states(params, cfg, tokens, segment_ids, positions, remat)
     return _head(params, cfg, x)
 
@@ -338,10 +346,11 @@ def per_token_output(
     segment_ids: torch.Tensor,
     chunk_size: int = 512,
 ) -> torch.Tensor:
-    """The engine-facing per-token output [B, S] fp32: fused chunked
-    next-token logprobs, never [B, S, V] logits."""
+    """The engine-facing per-token output [B, S] fp32: a critic's
+    values, else fused chunked next-token logprobs, never [B, S, V]
+    logits."""
     if cfg.is_critic:
-        raise NotImplementedError("the critic value head is not yet ported")
+        return _head(params, cfg, x)
     return fused_next_token_logprobs(
         x, head_weights(params, cfg), tokens, segment_ids, chunk_size
     )

@@ -82,6 +82,24 @@ train        — two GRPO steps at full qwen2-1.5B (fp32 masters, bf16
                rollout's logprobs (each response token held against the
                generator's), and K1f/K1dq/K1dkv are held against the plain
                version on layer 0's q/k/v at the step's packed [B, S].
+ppo          — two full PPO steps of ppo-math at qwen2-1.5B with all four
+               models: the actor (TrainEngine + GeneratorEngine), a critic
+               (TrainEngine on the value head, value norm "exp") and a
+               reference model (InferenceEngine on the actor's initial
+               weights, offloaded to host memory after each call);
+               kl_ctl 0.1.  Each step: generate (static path) -> reward
+               (seeded +-5) -> ref_inf (K1f) -> critic_inf (K1f) -> actor
+               train_step -> critic train_step (K1f, K1dq, K1dkv) -> the
+               generator takes the actor's weights.  Step 1: each
+               response token's ref logprob within 0.125 of the
+               generator's and their mean within 1e-2, importance ratio
+               and approx-KL as in train, value_loss finite, the critic's
+               grad_norm > 0.  Step 2: step 1's sample through the ref
+               after its offload round trips gives step 1's logprobs bit
+               for bit, and the ref is farther from the behaviour policy
+               than at step 1.  K1 launches per model call = 28 x its
+               micro-batches (x (2, 1, 1) for a train step); each call's
+               seconds, peak memory and the value-norm moments printed.
 push         — the in-memory weight push mid-generation at full qwen2-1.5B
                (28 layers, bf16): GenerationServer serves 16 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
@@ -102,13 +120,15 @@ parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
                engine on the card against the engine on the CPU (the
                plain path), on the serving plane (inflight=True, K2) and
                on the static path (inflight=False, K1f and K4).
-train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32: the
-               card (K1) against the CPU (plain path): loss, grad_norm and
-               the weights after the step.
+train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
+               the actor (PPO loss) and of a critic (value loss): the card
+               (K1) against the CPU (plain path): loss, grad_norm and the
+               weights after the step.
 
 `python3 chip_smoke.py --phases build,flash` is the quick call after
 editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
-K4 (about 20 s of command on an H100).  The line before the last is one JSON object
+K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
+step with the critic and the reference model.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -127,7 +147,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "parity", "train_parity")
+          "train", "ppo", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -2264,89 +2284,340 @@ def phase_train(report, seed):
     torch.cuda.empty_cache()
 
 
+# Bound of the ppo phase's step-1 check between the ref's logprobs
+# (InferenceEngine, bf16 casts of the actor's initial weights, K1f) and
+# the generator's behaviour logprobs: the mean over response tokens of
+# |ref_logp - old_logp|, two bf16 paths through one model.  The same
+# comparison for the trainer's recompute (train phase) reads 9.8e-3 to
+# 1.0e-2 on the H100, the ref's 1.01e-2; the bound is 3x that, as the
+# train phase's are.  The ref is also held bit for bit against the
+# trainer's own recompute, the same bf16 computation on the same weights.
+REF_LOGP_MEAN_TOL = 3e-2
+
+
+def _k1_check(tag, launches, n_layers, n_mbs, train):
+    """K1 launches of one MFC: n_layers x micro-batches forwards, and for
+    a train step (remat "full") a second forward, one dq and one dkv."""
+    want = ({"fwd": 2 * n_layers * n_mbs, "dq": n_layers * n_mbs, "dkv": n_layers * n_mbs}
+            if train else {"fwd": n_layers * n_mbs, "dq": 0, "dkv": 0})
+    check(launches == want, f"{tag}: K1 launches {launches} != {want}")
+
+
+def phase_ppo(report, seed):
+    """Two full PPO steps of `ppo-math` at qwen2-1.5B with all four
+    models: the actor (TrainEngine + GeneratorEngine), a critic
+    (TrainEngine on the value head) and a reference model (an
+    InferenceEngine on the actor's initial weights, offloaded to host
+    memory after each call).  Each step: generate (static path) ->
+    reward (seeded +-5) -> ref_inf -> critic_inf -> actor train_step ->
+    critic train_step -> the generator takes the actor's weights."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import (
+        FinetuneSpec, GenerationHyperparameters, Model, OptimizerConfig,
+    )
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.engines.inference import InferenceEngine
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.ppo import (
+        PPOActorInterface, PPOCriticInterface, _extract_layout, _seq_align_minus1,
+    )
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = qwen2_config("1.5b")
+    ccfg = cfg.as_critic()
+    n_prompts, n, max_new = 8, 4, 128
+    # ppo-math's actor and critic lr (areal_tpu/experiments/common.py).
+    oc = OptimizerConfig(lr=2e-5, warmup_steps_proportion=0.0)
+    ft = FinetuneSpec(1, 64, n_prompts)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed + 6, device="cuda")
+    train = TrainEngine(cfg, params, optimizer_config=oc, ftspec=ft, remat_policy="full")
+    gen = GeneratorEngine(cfg, params, eos_token_id=151643)
+    del params
+    # The ref from the trainer's live masters: set_params must copy, or
+    # the ref would follow the actor's in-place updates.
+    ref = InferenceEngine(cfg, train.get_params())
+    cparams = init_params(ccfg, seed + 7, device="cuda")
+    critic = TrainEngine(ccfg, cparams, optimizer_config=oc, ftspec=ft, remat_policy="full")
+    del cparams
+    torch.cuda.synchronize()
+    check(all(e.device.type == "cuda" for e in (train, gen, ref, critic)),
+          "the engines are not on the card")
+    check(ref.compute_dtype == torch.bfloat16 and "value_head" in critic.params
+          and "lm_head" not in critic.params, "ref dtype or critic head wrong")
+    resident = torch.cuda.memory_allocated()
+    log(f"[ppo] qwen2-1.5b actor (TrainEngine + GeneratorEngine), critic (TrainEngine, "
+        f"value head [{ccfg.hidden_dim}, 1]), ref (InferenceEngine, bf16): "
+        f"{time.monotonic() - t0:.1f} s, {resident / 2**30:.2f} GiB resident")
+    tok = CharTokenizer(vocab_size=cfg.vocab_size)
+    actor = Model("actor", train, tok, cfg)
+    gen_model = Model("actor_gen", gen, tok, cfg)
+    ref_model = Model("ref", ref, tok, cfg)
+    critic_model = Model("critic", critic, tok, ccfg)
+    actor_if = PPOActorInterface(
+        gconfig=GenerationHyperparameters(n=n, max_new_tokens=max_new, temperature=1.0),
+        n_minibatches=1, disable_value=False, adv_norm=True, kl_ctl=0.1,
+    )
+    critic_if = PPOCriticInterface(n_minibatches=1, value_norm=True, value_norm_type="exp",
+                                   kl_ctl=0.1)
+    mb = MicroBatchSpec()
+    rng = np.random.default_rng(seed + 8)
+    steps, step1 = [], {}
+    for step in range(2):
+        rec = dict(step=step + 1)
+        prompts, id2info = _train_prompts(rng, cfg, n_prompts)
+        torch.cuda.reset_peak_memory_stats()
+
+        def mfc(name, fn):
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            da.LAUNCHES = rpa.LAUNCHES = 0
+            t = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            rec[f"{name}_s"] = time.monotonic() - t
+            rec[f"{name}_launches"] = dict(fa.LAUNCHES)
+            return out
+
+        chunks0, dsteps0 = gen.static_chunks, gen.static_decode_steps
+        rollout = mfc("generate", lambda: actor_if.generate(gen_model, prompts, mb))
+        k4 = da.LAUNCHES
+        gen_chunks = gen.static_chunks - chunks0
+        gen_steps = gen.static_decode_steps - dsteps0
+        check(gen_chunks >= 1 and rpa.LAUNCHES == 0, "generate did not take the static path")
+        check(rec["generate_launches"] == {"fwd": cfg.n_layers * gen_chunks, "dq": 0, "dkv": 0}
+              and k4 == cfg.n_layers * gen_steps,
+              f"generate: K1 {rec['generate_launches']}, K4 {k4}")
+        rollout.update_(MultiTaskRewardInterface(id2info=id2info).inference(actor, rollout, mb))
+        rollout.data["rewards"] = rng.choice(
+            [-5.0, 5.0], size=rollout.data["rewards"].shape).astype(np.float32)
+        n_mbs = len(rollout.split(mb))
+
+        # ref_inf (the JAX package's ppo-math: the actor interface's
+        # inference on the ref, logprobs renamed), then its offload hook.
+        ref_out = mfc("ref_inf", lambda: actor_if.inference(ref_model, rollout, mb))
+        _k1_check("ref_inf", rec["ref_inf_launches"], cfg.n_layers, n_mbs, train=False)
+        ref_out.remap_keys_({"logprobs": "packed_ref_logprobs"})
+        rollout.update_(ref_out)
+        if step == 0:
+            # Before the actor's update its TrainEngine.forward (bf16
+            # casts of the same masters) is the ref's computation.
+            mine = actor_if.inference(actor, rollout, mb).data["logprobs"]
+            rec["ref_equals_trainer_recompute"] = bool(
+                np.array_equal(mine, rollout.data["packed_ref_logprobs"]))
+        before = torch.cuda.memory_allocated()
+        mfc("ref_offload", ref.offload)
+        rec["ref_offload_freed_bytes"] = before - torch.cuda.memory_allocated()
+        check(ref.params is None and rec["ref_offload_freed_bytes"] > 2.5e9,
+              f"ref offload freed {rec['ref_offload_freed_bytes']} bytes")
+
+        values = mfc("critic_inf", lambda: critic_if.inference(critic_model, rollout, mb))
+        _k1_check("critic_inf", rec["critic_inf_launches"], cfg.n_layers, n_mbs, train=False)
+        v = values.data["values"]
+        check(v.shape == rollout.data["packed_input_ids"].shape and bool(np.isfinite(v).all()),
+              "critic values malformed")
+        rollout.update_(values)
+
+        stats = mfc("actor_train", lambda: actor_if.train_step(actor, rollout, mb))
+        _k1_check("actor_train", rec["actor_train_launches"], cfg.n_layers,
+                  train.last_pack_stats["n_micro_batches"], train=True)
+        cstats = mfc("critic_train", lambda: critic_if.train_step(critic_model, rollout, mb))
+        _k1_check("critic_train", rec["critic_train_launches"], cfg.n_layers,
+                  critic.last_pack_stats["n_micro_batches"], train=True)
+        mfc("set_params", lambda: gen.set_params(train.get_params()))
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+        old_lp = _seq_align_minus1(rollout, "packed_logprobs")
+        ref_lp = rollout.data["packed_ref_logprobs"]
+        resp = np.zeros(len(old_lp), bool)
+        for s0, length, pl in _extract_layout(rollout)[0]:
+            resp[s0 + max(pl - 1, 0) : s0 + length - 1] = True
+        diff = np.abs(ref_lp - old_lp)[resp]
+        mean_v, std_v = critic_if.rms.mean_std()
+        iw, akl = stats["importance_weight"], stats["approx_kl"]
+        rec.update(
+            ref_logp_max=float(diff.max()), ref_logp_mean=float(diff.mean()),
+            importance_weight=iw, approx_kl=akl, ref_kl=stats["ref_kl"],
+            actor_loss=stats["actor_loss"], actor_grad_norm=stats["grad_norm"],
+            value_loss=cstats["value_loss"], value_clip_ratio=cstats["value_clip_ratio"],
+            critic_grad_norm=cstats["grad_norm"], value_norm_mean=mean_v,
+            value_norm_std=std_v, values_mean=float(v[resp].mean()),
+            values_std=float(v[resp].std()), micro_batches=n_mbs,
+            train_micro_batches=train.last_pack_stats["n_micro_batches"],
+            real_tokens=train.last_pack_stats["real_tokens"],
+            grid_tokens=train.last_pack_stats["grid_tokens"],
+            static_chunks=gen_chunks, decode_steps=gen_steps, k4_launches=k4,
+        )
+        log(f"[ppo] step {step + 1}: generate {rec['generate_s']:.2f} s ({gen_chunks} static "
+            f"chunk(s), {gen_steps} decode steps), ref_inf {rec['ref_inf_s']:.3f} s + offload "
+            f"{rec['ref_offload_s']:.3f} s ({rec['ref_offload_freed_bytes'] / 2**30:.2f} GiB "
+            f"freed), critic_inf {rec['critic_inf_s']:.3f} s, actor train "
+            f"{rec['actor_train_s']:.2f} s, critic train {rec['critic_train_s']:.2f} s, "
+            f"set_params {rec['set_params_s']:.2f} s; peak mem "
+            f"{rec['peak_mem_bytes'] / 2**30:.2f} GiB")
+        log(f"[ppo] step {step + 1}: K1 launches ref_inf {rec['ref_inf_launches']}, critic_inf "
+            f"{rec['critic_inf_launches']}, actor train {rec['actor_train_launches']}, critic "
+            f"train {rec['critic_train_launches']} ({n_mbs} forward micro-batch(es), "
+            f"{rec['train_micro_batches']} train micro-batch(es) of {rec['real_tokens']} real / "
+            f"{rec['grid_tokens']} grid tokens)")
+        log(f"[ppo] step {step + 1}: |ref_logp - old_logp| over {diff.size} response tokens: "
+            f"max {rec['ref_logp_max']:.4e}, mean {rec['ref_logp_mean']:.4e}; "
+            f"importance_weight={iw:.6f} approx_kl={akl:.3e} ref_kl={stats['ref_kl']:.4e} "
+            f"actor grad_norm={stats['grad_norm']:.4f}; value_loss={cstats['value_loss']:.4e} "
+            f"value_clip_ratio={cstats['value_clip_ratio']:.3f} critic grad_norm="
+            f"{cstats['grad_norm']:.4f}; value norm mean={mean_v:.6f} std={std_v:.6f}; "
+            f"values (real scale) mean={rec['values_mean']:.4f} std={rec['values_std']:.4f}")
+        check(stats["quarantined"] == 0.0 and cstats["quarantined"] == 0.0,
+              "a step was quarantined")
+        check(math.isfinite(cstats["value_loss"]), f"value_loss {cstats['value_loss']}")
+        check(math.isfinite(cstats["grad_norm"]) and cstats["grad_norm"] > 0,
+              f"critic grad_norm {cstats['grad_norm']} is not finite and > 0")
+        check(math.isfinite(stats["grad_norm"]) and stats["grad_norm"] > 0,
+              f"actor grad_norm {stats['grad_norm']} is not finite and > 0")
+        if step == 0:
+            log(f"[ppo] step 1: ref logprobs equal the trainer's recompute bit for bit: "
+                f"{rec['ref_equals_trainer_recompute']}")
+            check(rec["ref_equals_trainer_recompute"],
+                  "the ref's logprobs differ from the trainer's recompute")
+            check(abs(stats["ref_kl"]) < APPROX_KL_TOL,
+                  f"|ref_kl| = {abs(stats['ref_kl'])} >= {APPROX_KL_TOL}")
+            check(rec["ref_logp_max"] < TOKEN_LOGP_TOL,
+                  f"a token's ref logprob differs by {rec['ref_logp_max']}")
+            check(rec["ref_logp_mean"] < REF_LOGP_MEAN_TOL,
+                  f"mean |ref - behavior logp| {rec['ref_logp_mean']} >= {REF_LOGP_MEAN_TOL}")
+            check(abs(iw - 1.0) < IMP_WEIGHT_TOL,
+                  f"|importance_weight - 1| = {abs(iw - 1.0)} >= {IMP_WEIGHT_TOL}")
+            check(abs(akl) < APPROX_KL_TOL, f"|approx_kl| = {abs(akl)} >= {APPROX_KL_TOL}")
+            step1 = dict(rollout=rollout, ref_lp=ref_lp.copy())
+        else:
+            # The ref went to host memory after step 1's call and came
+            # back for this step's: step 1's sample through it again gives
+            # step 1's logprobs bit for bit.
+            again = actor_if.inference(ref_model, step1["rollout"], mb).data["logprobs"]
+            same = bool(np.array_equal(again, step1["ref_lp"]))
+            rec["ref_round_trip_bitwise"] = same
+            log(f"[ppo] ref after the offload round trip: step 1's sample again, "
+                f"bit-identical={same}; the actor moved: mean |ref - behavior logp| "
+                f"{rec['ref_logp_mean']:.4e} against step 1's {steps[0]['ref_logp_mean']:.4e}")
+            check(same, "the ref's logprobs changed across the offload round trip")
+            check(rec["ref_logp_mean"] > steps[0]["ref_logp_mean"] and stats["ref_kl"] != 0.0,
+                  "the KL term did not grow: the actor has not moved from the ref")
+        steps.append(rec)
+    launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    for rec in steps:
+        for name in ("ref_inf", "critic_inf", "actor_train", "critic_train"):
+            for k in launches:
+                launches[k] += rec[f"{name}_launches"][k]
+    report["ppo"] = dict(steps=steps, launches=launches, resident_bytes=resident)
+    del train, gen, ref, critic, actor, gen_model, ref_model, critic_model, step1
+    torch.cuda.empty_cache()
+
+
 def phase_train_parity(seed):
     """One train_batch at qwen2-1.5B width, 2 layers, fp32: the card (K1
     kernels, cuBLAS) against the CPU (plain versions), same weights and
-    batch, same PPO loss."""
+    batch, same loss: the actor's PPO loss, then a critic's clipped value
+    loss on the value head."""
     import numpy as np
     import torch
 
     from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
     from areal_tpu_torch.engines.train import TrainEngine
-    from areal_tpu_torch.interfaces.ppo import _mask_count, _ppo_actor_loss_factory
+    from areal_tpu_torch.interfaces.ppo import (
+        _mask_count, _ppo_actor_loss_factory, _ppo_critic_loss_factory,
+    )
     from areal_tpu_torch.kernels import flash_attention as fa
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
-    params = init_params(cfg, seed + 4, device="cpu")
+    base = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
     rng = np.random.default_rng(seed + 5)
     lens = [100, 300, 150, 200]
     total = sum(lens)
     pmask = np.concatenate([np.arange(l) < l // 3 for l in lens])
     lmask = np.concatenate([(np.arange(l) >= l // 3 - 1) & (np.arange(l) < l - 1) for l in lens])
     arrays = dict(
-        packed_input_ids=rng.integers(0, cfg.vocab_size, total).astype(np.int32),
+        packed_input_ids=rng.integers(0, base.vocab_size, total).astype(np.int32),
         prompt_mask=pmask,
         old_logp=(-12.0 + 0.5 * rng.standard_normal(total)).astype(np.float32),
         advantages=rng.standard_normal(total).astype(np.float32),
         loss_mask=lmask.astype(np.float32),
+        old_values=(0.5 * rng.standard_normal(total)).astype(np.float32),
+        returns=rng.standard_normal(total).astype(np.float32),
     )
     sample = SequenceSample(
         keys=set(arrays), ids=[f"s{i}" for i in range(len(lens))],
         seqlens={k: [[l] for l in lens] for k in arrays}, data=arrays,
     )
     lr = 1e-5
-    out, after = {}, {}
-    for dev in ("cuda", "cpu"):
-        eng = TrainEngine(
-            cfg, params, dev, compute_dtype=torch.float32,
-            optimizer_config=OptimizerConfig(lr=lr, warmup_steps_proportion=0.0),
-            ftspec=FinetuneSpec(1, 8, 8), remat_policy="full",
-        )
-        fa.reset_launches()
-        t0 = time.monotonic()
-        out[dev] = eng.train_batch(
-            sample, MicroBatchSpec(), _ppo_actor_loss_factory(0.2), _mask_count,
-            extra_keys=("old_logp", "advantages", "loss_mask"),
-        )
-        secs = time.monotonic() - t0
-        if dev == "cuda":
-            check(fa.LAUNCHES == {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
-                                  "dkv": cfg.n_layers}, f"card launches {fa.LAUNCHES}")
-        after[dev] = {k: v.detach().cpu() for k, v in _flat_params(eng.get_params())}
-        log(f"[train_parity] {dev}: loss={out[dev]['loss']:.8e} "
-            f"grad_norm={out[dev]['grad_norm']:.8e} ({secs:.1f} s)")
-        del eng
-    before = dict(_flat_params(params))
-    rel = {
-        k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
-        for k in ("loss", "grad_norm")
-    }
-    # Adam's first step moves each weight by about lr * sign(g) (plus
-    # decay): compare the two devices' moves.  A gradient element near 0
-    # (|g| ~ eps) may move by a different fraction of lr on each side, so
-    # the bound is on the share of weights whose moves differ by more
-    # than lr / 10, and on the largest difference (2 lr: opposite signs).
-    n_all = n_off = 0
-    worst = 0.0
-    for k, p0 in before.items():
-        d = (after["cuda"][k] - p0) - (after["cpu"][k] - p0)
-        worst = max(worst, float(d.abs().max()))
-        n_off += int((d.abs() > lr / 10).sum())
-        n_all += d.numel()
-    frac = n_off / n_all
-    log(f"[train_parity] 2 layers fp32: loss rel diff {rel['loss']:.2e}, grad_norm "
-        f"rel diff {rel['grad_norm']:.2e} (bound 1e-4); weight moves differing by "
-        f"> lr/10: {n_off} of {n_all} ({frac:.2e}, bound 1e-3); largest "
-        f"{worst:.3e} (bound {2 * lr:g})")
-    check(rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4,
-          f"loss/grad_norm differ card vs CPU: {rel}")
-    check(frac <= 1e-3 and worst <= 2 * lr * (1 + 1e-3),
-          "params after the step differ card vs CPU")
+    runs = (
+        ("actor", base, seed + 4, _ppo_actor_loss_factory(0.2),
+         ("old_logp", "advantages", "loss_mask")),
+        ("critic", base.as_critic(), seed + 9, _ppo_critic_loss_factory(0.2),
+         ("old_values", "returns", "loss_mask")),
+    )
+    for kind, cfg, pseed, loss_fn, extra_keys in runs:
+        params = init_params(cfg, pseed, device="cpu")
+        out, after = {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = TrainEngine(
+                cfg, params, dev, compute_dtype=torch.float32,
+                optimizer_config=OptimizerConfig(lr=lr, warmup_steps_proportion=0.0),
+                ftspec=FinetuneSpec(1, 8, 8), remat_policy="full",
+            )
+            fa.reset_launches()
+            t0 = time.monotonic()
+            out[dev] = eng.train_batch(
+                sample, MicroBatchSpec(), loss_fn, _mask_count, extra_keys=extra_keys,
+            )
+            secs = time.monotonic() - t0
+            if dev == "cuda":
+                check(fa.LAUNCHES == {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
+                                      "dkv": cfg.n_layers},
+                      f"{kind}: card launches {fa.LAUNCHES}")
+            after[dev] = {k: v.detach().cpu() for k, v in _flat_params(eng.get_params())}
+            log(f"[train_parity] {kind} {dev}: loss={out[dev]['loss']:.8e} "
+                f"grad_norm={out[dev]['grad_norm']:.8e} ({secs:.1f} s)")
+            del eng
+        before = dict(_flat_params(params))
+        rel = {
+            k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+            for k in ("loss", "grad_norm")
+        }
+        # Adam's first step moves each weight by about lr * sign(g) (plus
+        # decay): compare the two devices' moves.  A gradient element near
+        # 0 (|g| ~ eps) may move by a different fraction of lr on each
+        # side, so the bound is on the share of weights whose moves differ
+        # by more than lr / 10, and on the largest difference (2 lr:
+        # opposite signs).
+        n_all = n_off = 0
+        worst = 0.0
+        for k, p0 in before.items():
+            d = (after["cuda"][k] - p0) - (after["cpu"][k] - p0)
+            worst = max(worst, float(d.abs().max()))
+            n_off += int((d.abs() > lr / 10).sum())
+            n_all += d.numel()
+        frac = n_off / n_all
+        log(f"[train_parity] {kind}, 2 layers fp32: loss rel diff {rel['loss']:.2e}, "
+            f"grad_norm rel diff {rel['grad_norm']:.2e} (bound 1e-4); weight moves differing "
+            f"by > lr/10: {n_off} of {n_all} ({frac:.2e}, bound 1e-3); largest "
+            f"{worst:.3e} (bound {2 * lr:g})")
+        check(rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4,
+              f"{kind}: loss/grad_norm differ card vs CPU: {rel}")
+        check(frac <= 1e-3 and worst <= 2 * lr * (1 + 1e-3),
+              f"{kind}: params after the step differ card vs CPU")
 
 
 def _flat_params(tree, prefix=""):
@@ -2387,6 +2658,7 @@ def _kernels_line(report):
     f = report.get("flash", {})
     train = report.get("train", {})
     launches = train.get("launches", {})
+    ppo_launches = report.get("ppo", {}).get("launches", {})
     at_train = train.get("steps", [{}])[0].get("train_shape_errs", {})
     outputs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
     for name, line in (("fwd", 170), ("dq", 355), ("dkv", 380)):
@@ -2399,6 +2671,7 @@ def _kernels_line(report):
             "source": "areal_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"areal_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": launches.get(name),
+            "launches_ppo": ppo_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -2515,6 +2788,8 @@ def main() -> int:
         phase_resume_parity(report, args.seed)
     if "train" in phases:
         phase_train(report, args.seed)
+    if "ppo" in phases:
+        phase_ppo(report, args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
     if "train_parity" in phases:

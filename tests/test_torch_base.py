@@ -15,7 +15,9 @@ from areal_tpu_torch.base import integrity
 from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.data.tokenizer import CharTokenizer
 from areal_tpu_torch.engines.generator import GeneratorEngine
-from areal_tpu_torch.interfaces.ppo import PPOActorInterface
+from areal_tpu_torch.engines.inference import InferenceEngine
+from areal_tpu_torch.engines.train import TrainEngine
+from areal_tpu_torch.interfaces.ppo import PPOActorInterface, PPOCriticInterface
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import tiny_config
 from areal_tpu_torch.models.weights import params_from_numpy
@@ -57,6 +59,8 @@ def test_interface_registry():
     assert isinstance(ai, PPOActorInterface) and ai.n_minibatches == 2
     with pytest.raises(ValueError):
         model_api.register_interface("ppo_actor", PPOActorInterface)
+    ci = model_api.make_interface("ppo_critic", value_norm=True)
+    assert isinstance(ci, PPOCriticInterface) and ci.value_norm
 
 
 _ENTRY_POINTS = {
@@ -68,6 +72,15 @@ _ENTRY_POINTS = {
     "init_paged_kv_cache": lambda cfg, **kw: tfm.init_paged_kv_cache(cfg, 4, 8, **kw).k,
     "GeneratorEngine": lambda cfg, **kw: GeneratorEngine(
         cfg, tfm.init_params(cfg, 0, device="cpu"), eos_token_id=1, **kw
+    ),
+    "init_params_critic": lambda cfg, **kw: tfm.init_params(
+        cfg.as_critic(), 0, **kw
+    )["value_head"],
+    "InferenceEngine": lambda cfg, **kw: InferenceEngine(
+        cfg, tfm.init_params(cfg, 0, device="cpu"), **kw
+    ),
+    "TrainEngine_critic": lambda cfg, **kw: TrainEngine(
+        cfg.as_critic(), tfm.init_params(cfg.as_critic(), 0, device="cpu"), **kw
     ),
 }
 

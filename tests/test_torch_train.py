@@ -1,7 +1,7 @@
 """The port's TrainEngine against the JAX package's, fp32 on the CPU, on
 one set of weights: the lr schedule against optax, one `train_batch` of
-the PPO actor loss (loss, grad_norm, update_norm, stats, weights after
-the step), twins of tests/test_engine.py :193 (micro-batch invariance),
+the PPO actor loss and of a critic's clipped value loss (loss,
+grad_norm, update_norm, stats, weights after the step), twins of tests/test_engine.py :193 (micro-batch invariance),
 :246 (fused logprobs) and :279 (forward alignment), the non-finite guard
 (bit-identical state), and the packing / data helpers the engine uses."""
 
@@ -21,6 +21,7 @@ from areal_tpu.engines import packing as jpacking
 from areal_tpu.engines.train import TrainEngine as JTrainEngine
 from areal_tpu.engines.train import make_lr_schedule as jschedule
 from areal_tpu.interfaces.ppo import _ppo_actor_loss_factory as jloss_factory
+from areal_tpu.interfaces.ppo import _ppo_critic_loss_factory as jcritic_loss_factory
 from areal_tpu.models import transformer as jtfm
 from areal_tpu.models.config import tiny_config as jtiny
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
@@ -28,7 +29,11 @@ from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
 from areal_tpu_torch.base import datapack, integrity
 from areal_tpu_torch.engines import packing
 from areal_tpu_torch.engines.train import TrainEngine, make_lr_schedule
-from areal_tpu_torch.interfaces.ppo import _mask_count, _ppo_actor_loss_factory
+from areal_tpu_torch.interfaces.ppo import (
+    _mask_count,
+    _ppo_actor_loss_factory,
+    _ppo_critic_loss_factory,
+)
 from areal_tpu_torch.models import transformer as ttfm
 from areal_tpu_torch.models.config import tiny_config as ttiny
 from areal_tpu_torch.models.weights import params_from_numpy, params_to_numpy
@@ -135,6 +140,43 @@ def test_train_batch_matches_jax(jparams, rng, clip):
         for k in pj:
             np.testing.assert_allclose(pt[k], pj[k], atol=lr / 100, rtol=0, err_msg=k)
     assert te.opt_count == 2 and te.host_transfers == 2
+
+
+def test_critic_train_batch_matches_jax(rng):
+    """Two train_batch calls of a critic (value head) with the clipped
+    value loss on the same weights and batches as the JAX engine: loss
+    and stats rtol 1e-5, grad and update norms rtol 1e-4, weights after
+    each step within lr/100 of JAX's."""
+    lr = 1e-3
+    oc = dict(lr=lr, warmup_steps_proportion=0.0, weight_decay=0.05)
+    w = jax.tree.map(np.asarray, jtfm.init_params(jtiny(is_critic=True), jax.random.PRNGKey(8)))
+    mesh = make_mesh(ParallelConfig.from_str("d1"), jax.devices()[:1])
+    je = JTrainEngine(jtiny(is_critic=True), _jp(w), mesh,
+                      optimizer_config=JOptimizerConfig(**oc), ftspec=JFinetuneSpec(1, 8, 8))
+    te = TrainEngine(ttiny(is_critic=True), _tparams(w), "cpu",
+                     optimizer_config=OptimizerConfig(**oc), ftspec=FinetuneSpec(1, 8, 8))
+    keys = ("old_values", "returns", "loss_mask")
+    for _ in range(2):
+        lens = [int(x) for x in rng.integers(6, 40, 5)]
+        arrays = _ppo_arrays(rng, lens, ttiny().vocab_size)
+        total = sum(lens)
+        arrays["old_values"] = (0.3 * rng.standard_normal(total)).astype(np.float32)
+        arrays["returns"] = rng.standard_normal(total).astype(np.float32)
+        ts, js = _samples(arrays, lens)
+        want = je.train_batch(js, JMicroBatchSpec(n_mbs=2), jcritic_loss_factory(0.2),
+                              _mask_count, extra_keys=keys)
+        got = te.train_batch(ts, MicroBatchSpec(n_mbs=2), _ppo_critic_loss_factory(0.2),
+                             _mask_count, extra_keys=keys)
+        assert set(got) == set(want) and {"value_loss", "value_clip_ratio"} <= set(got)
+        for k in want:
+            tol = 1e-4 if k.endswith("norm") else 1e-5
+            np.testing.assert_allclose(got[k], want[k], rtol=tol, atol=1e-7, err_msg=k)
+        assert got["grad_norm"] > 0
+        pj = _flat(je.get_params())
+        pt = _flat(params_to_numpy(te.get_params()))
+        assert set(pj) == set(pt) and "value_head" in pt
+        for k in pj:
+            np.testing.assert_allclose(pt[k], pj[k], atol=lr / 100, rtol=0, err_msg=k)
 
 
 def test_train_batch_mb_invariance(jparams, rng):
@@ -255,8 +297,8 @@ def test_nonfinite_step_leaves_state_bit_identical(jparams, rng, poison):
 def test_engine_rejects_unported_configs(jparams):
     with pytest.raises(NotImplementedError):
         TrainEngine(ttiny(), _tparams(jparams), "cpu", remat_policy="dots")
-    with pytest.raises(NotImplementedError):
-        TrainEngine(ttiny(is_critic=True), _tparams(jparams), "cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TrainEngine(ttiny(n_experts=4), _tparams(jparams), "cpu")
 
 
 # ---------------- packing and data helpers ----------------

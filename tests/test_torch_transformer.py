@@ -239,6 +239,44 @@ def test_per_token_output_matches_jax(weights, rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def critic_weights():
+    pj = jtfm.init_params(jtiny(is_critic=True), jax.random.PRNGKey(12))
+    return pj, params_from_numpy(jax.tree.map(np.asarray, pj), device="cpu")
+
+
+def test_critic_init_params_leaves_match_jax(critic_weights):
+    """A critic's params: the JAX leaves and shapes, `value_head` [D, 1]
+    in place of any LM head."""
+    pj, _ = critic_weights
+    got = ttfm.init_params(ttiny(is_critic=True), 0, device="cpu")
+    want = jax.tree.map(np.asarray, pj)
+    assert set(got) == set(want) and set(got["blocks"]) == set(want["blocks"])
+    assert tuple(got["value_head"].shape) == (ttiny().hidden_dim, 1)
+    assert "lm_head" not in got
+    for k in want["blocks"]:
+        assert tuple(got["blocks"][k].shape) == want["blocks"][k].shape, k
+
+
+def test_critic_forward_matches_jax(critic_weights, rng):
+    """A critic's values [B, S] fp32 from `forward` and from
+    `per_token_output` over the hidden states: atol 1e-5."""
+    pj, pt_ = critic_weights
+    jcfg, tcfg = jtiny(is_critic=True), ttiny(is_critic=True)
+    tokens, seg = _packed_batch(rng, tcfg, s=64)
+    tj, sj = jnp.asarray(tokens), jnp.asarray(seg)
+    tt, st = torch.from_numpy(tokens), torch.from_numpy(seg)
+    want = np.asarray(jtfm.forward(pj, jcfg, tj, sj))
+    xj, _ = jtfm.hidden_states(pj, jcfg, tj, sj)
+    want_pto = np.asarray(jtfm.per_token_output(pj, jcfg, xj, tj, sj))
+    with torch.no_grad():
+        got = ttfm.forward(pt_, tcfg, tt, st)
+        got_pto = ttfm.per_token_output(pt_, tcfg, ttfm.hidden_states(pt_, tcfg, tt, st), tt, st)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 64)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got_pto.numpy(), want_pto, atol=1e-5, rtol=0)
+
+
 class TestPackedForward:
     """Twins of tests/test_model.py TestForward :48-84 and :230."""
 
@@ -288,6 +326,24 @@ class TestPackedForward:
         err = ValueError if remat == "bogus" else NotImplementedError
         with pytest.raises(err):
             _fwd(pt_, tokens, seg, remat=remat)
+
+
+def test_value_head_bf16_gives_fp32_product(rng):
+    """A critic's value head in bf16 at qwen2-1.5B's width: the values
+    are an fp32 result of the bf16 product, as the JAX package's einsum
+    with `preferred_element_type=jnp.float32` gives.  atol 1e-4."""
+    d = 1536
+    x = rng.normal(size=(2, 8, d)).astype(np.float32)
+    w = (4.0 * rng.normal(size=(d, 1)) / np.sqrt(d)).astype(np.float32)
+    cj = dataclasses.replace(jtiny(is_critic=True), hidden_dim=d)
+    ct = dataclasses.replace(ttiny(is_critic=True), hidden_dim=d)
+    want = np.asarray(jtfm._head({"value_head": jnp.asarray(w, jnp.bfloat16)}, cj,
+                                 jnp.asarray(x, jnp.bfloat16)))
+    got = ttfm._head({"value_head": torch.from_numpy(w).to(torch.bfloat16)}, ct,
+                     torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 8)
+    assert np.abs(want).max() > 2.0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
 
 
 def test_head_bf16_gives_fp32_product(rng):
