@@ -27,4 +27,25 @@ Slice 3, the in-memory weight push mid-generation:
     engines/generator.py  interrupt -> park at a chunk boundary -> resume_generate
     models/transformer.py decode_step_spec_paged (the tail replay)
     kernels/paged_chunk_attention.py (CUDA, sm_90a; CPU: plain version)
+
+Slice 4, the static generate path:
+
+    engines/generator.py  generate -> prefill + decode_step over a dense cache
+    kernels/decode_attention.py (CUDA, sm_90a; CPU: plain version)
+
+Slices 5-7 redesigned every kernel for Hopper's tensor cores.
+
+Slice 8, the critic and the reference model:
+
+    interfaces/ppo.py     PPOCriticInterface, value-mode PPOActorInterface
+    engines/inference.py  InferenceEngine; engines/offload.py host offload
+    ops/gae.py            GAE as a log-depth scan; interfaces/value_norm.py
+
+Slice 9, the system's own entry point:
+
+    apps/quickstart.py    python -m areal_tpu_torch.apps.quickstart ppo-math
+    experiments/common.py build_ppo_math -> run_experiment
+    system/master.py      MasterWorker: the DFG's synchronous step
+    system/worker.py      ModelWorker: models, data cache, dataset loader
+    models/hf/            HF checkpoint IO (llama, qwen2; own safetensors IO)
 """

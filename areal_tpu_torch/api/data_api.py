@@ -1,11 +1,14 @@
-"""Packed sequence batches (port of the parts of areal_tpu/api/data_api.py
-that generation and the train step use: `MicroBatchSpec` and
-`SequenceSample`'s construction, lengths, selection, key merging,
-gathering and splitting).  Host data stays numpy; the engines move it to
-the device.  One device: there are no data-plane shards."""
+"""Packed sequence batches and the dataset registry (port of the parts of
+areal_tpu/api/data_api.py that generation, the train step, the master's
+buffer and the data loader use: `MicroBatchSpec`, `SequenceSample`'s
+construction, lengths, selection, key merging, gathering, splitting and
+metadata-only copies, and `DatasetAbstraction` with its registry).  Host
+data stays numpy; the engines move it to the device.  One device: there
+are no data-plane shards."""
 
 import dataclasses
 import itertools
+import json
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -120,6 +123,19 @@ class SequenceSample:
     def unpack(self) -> List["SequenceSample"]:
         return [self.select_idx([i]) for i in range(self.bs)]
 
+    def meta(self) -> "SequenceSample":
+        """Metadata-only copy (the master's currency): no data, the
+        layout, dtypes and trailing shapes kept."""
+        return SequenceSample(
+            keys=set(self.keys),
+            ids=list(self.ids),
+            seqlens={k: [list(s) for s in v] for k, v in self.seqlens.items()},
+            data=None,
+            metadata={k: list(v) for k, v in self.metadata.items()},
+            dtypes=dict(self.dtypes),
+            trailing_shapes=dict(self.trailing_shapes),
+        )
+
     @classmethod
     def gather(cls, samples: Sequence["SequenceSample"]) -> "SequenceSample":
         """Concatenate samples with the same keys (inverse of split)."""
@@ -228,3 +244,43 @@ class SequenceSample:
         key = self.main_key()
         lens = [sum(self.seqlens[key][i]) for i in range(self.bs)]
         return [self.select_idx(g) for g in datapack.partition_balanced(lens, k)]
+
+
+# ---------------- dataset registry ----------------
+
+
+@dataclasses.dataclass
+class DatasetAbstraction:
+    """String-keyed dataset factory spec."""
+
+    type_: str
+    args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+ALL_DATASET_CLASSES: Dict[str, Any] = {}
+
+
+def register_dataset(name: str, cls) -> None:
+    if name in ALL_DATASET_CLASSES:
+        raise ValueError(f"dataset {name!r} already registered")
+    ALL_DATASET_CLASSES[name] = cls
+
+
+def make_dataset(spec: DatasetAbstraction, seed: int, dp_rank: int, world_size: int,
+                 tokenizer=None):
+    cls = ALL_DATASET_CLASSES[spec.type_]
+    return cls(seed=seed, dp_rank=dp_rank, world_size=world_size, tokenizer=tokenizer,
+               **spec.args)
+
+
+def load_shuffle_split_dataset(
+    path: str, seed: int, dp_rank: int, world_size: int
+) -> List[Dict[str, Any]]:
+    """Load a jsonl dataset, shuffle it with numpy's `default_rng(seed)`
+    (as the JAX package does, so both read rows in one order) and return
+    this dp_rank's contiguous shard."""
+    with open(path) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    order = np.random.default_rng(seed).permutation(len(rows))
+    shard = np.array_split(order, world_size)[dp_rank]
+    return [rows[i] for i in shard]

@@ -1,0 +1,15 @@
+"""Experiment launcher (port of `run_experiment_inproc` in
+areal_tpu/apps/main.py): the workers in this process.  The ZMQ
+multi-process runtime with its recover loop is not yet ported (ROADMAP
+queue 1, items 4 and 7)."""
+
+from areal_tpu_torch.experiments.common import ExperimentPlan
+
+
+def run_experiment_inproc(plan: ExperimentPlan, tokenizer=None, device=None):
+    """Every worker in this process, on `device` (the CUDA card unless
+    told otherwise); returns the per-step stats."""
+    from areal_tpu_torch.experiments.common import run_experiment
+
+    _, stats = run_experiment(plan, tokenizer=tokenizer, device=device)
+    return stats

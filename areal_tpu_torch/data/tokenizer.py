@@ -1,11 +1,32 @@
-"""A hermetic byte-level tokenizer (copy of `CharTokenizer` in
-areal_tpu/data/tokenizer.py): encode/decode, eos/pad ids, vocab_size."""
+"""Tokenizer loading (port of areal_tpu/data/tokenizer.py).
+
+`load_hf_tokenizer("char:<n>")` gives the hermetic byte-level
+`CharTokenizer` (needs nothing installed); any other path loads a
+HuggingFace tokenizer through `transformers`, imported only then."""
 
 from typing import List
 
 
+def load_hf_tokenizer(path: str):
+    if path.startswith("char:"):
+        return CharTokenizer(vocab_size=int(path.split(":", 1)[1]))
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise RuntimeError(
+            f"loading the tokenizer at {path!r} needs the `transformers` package, "
+            "which is not installed; pass a 'char:<vocab_size>' tokenizer path "
+            "for the byte-level tokenizer"
+        ) from e
+    tok = AutoTokenizer.from_pretrained(path, use_fast=True)
+    if tok.pad_token_id is None:
+        tok.pad_token = tok.eos_token
+    return tok
+
+
 class CharTokenizer:
-    """Byte-level over UTF-8: ids 0..255 are bytes, then the specials."""
+    """Byte-level over UTF-8: ids 0..255 are bytes, then the specials
+    (a copy of `CharTokenizer` in areal_tpu/data/tokenizer.py)."""
 
     def __init__(self, vocab_size: int = 512):
         self._byte_vocab = 256

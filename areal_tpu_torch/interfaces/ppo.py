@@ -15,8 +15,9 @@
   returns (clipped value loss), normalized by running moments under
   `value_norm`.
 
-The batch-level anomaly sentinels, checkpoint saving and streamed
-training are not yet ported.
+Both save HF checkpoint dirs (`interfaces/sft.SFTInterface.save`; the
+critic's keeps its value head).  The batch-level anomaly sentinels and
+streamed training are not yet ported.
 
 Alignment (set by the generator): every per-token key is aligned with
 packed_input_ids; index t carries the quantity for predicting token t+1.
@@ -37,6 +38,7 @@ from areal_tpu_torch.api.model_api import (
     register_interface,
 )
 from areal_tpu_torch.interfaces.kl import make_kl_controller
+from areal_tpu_torch.interfaces.sft import SFTInterface
 from areal_tpu_torch.interfaces.value_norm import make_value_norm
 from areal_tpu_torch.ops.gae import gae_packed
 
@@ -485,6 +487,9 @@ class PPOActorInterface(ModelInterface):
         )
         return out
 
+    def save(self, model: Model, save_dir: str) -> None:
+        SFTInterface().save(model, save_dir)
+
 
 @dataclasses.dataclass
 class PPOCriticInterface(ModelInterface):
@@ -519,9 +524,9 @@ class PPOCriticInterface(ModelInterface):
             self.rms.load_state_dict(sd)
 
     def save(self, model: Model, save_dir: str) -> None:
-        raise NotImplementedError(
-            "critic checkpoints need HF checkpoint IO (ROADMAP queue 1, item 3)"
-        )
+        # The trained value head goes into the checkpoint too
+        # (`value_head.weight`), so a critic reloads as it was saved.
+        SFTInterface().save(model, save_dir)
 
     def train_stream_begin(self, *args, **kwargs):
         raise NotImplementedError("streamed training (ROADMAP queue 1, item 6)")

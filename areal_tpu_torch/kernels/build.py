@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -27,6 +28,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills on stderr
 )
+
+
+# Two MFCs may launch kernels from two threads at once (the master runs
+# each in a thread of its own), and `+= 1` is a read-modify-write.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, key: str) -> None:
+    """Add one to `counts[key]` under a lock: a kernel module's
+    `LAUNCHES` (`count_launch(globals(), "LAUNCHES")`) or one entry of a
+    dict of counts."""
+    with _LAUNCH_LOCK:
+        counts[key] += 1
 
 
 def sources() -> List[str]:

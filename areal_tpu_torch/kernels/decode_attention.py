@@ -119,7 +119,6 @@ def decode_attention_chunk_kernel(
     One call adds one to LAUNCHES: the split pass and, when S takes more
     than one span, the merge launched after it.  Nothing is read from the
     device on the host."""
-    global LAUNCHES
     if q.device.type == "cpu":
         b, nq_tok = q.shape[:2]
         return decode_attention_chunk(
@@ -154,7 +153,7 @@ def decode_attention_chunk_kernel(
         )
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    build.count_launch(globals(), "LAUNCHES")
     return out
 
 

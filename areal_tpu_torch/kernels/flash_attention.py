@@ -125,7 +125,7 @@ def _launch(name: str, *args) -> None:
     rc = fns[name](*args)
     if rc != 0:
         raise RuntimeError(f"flash attention {name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    build.count_launch(LAUNCHES, name)
 
 
 def _dims(q, k, causal):

@@ -169,7 +169,6 @@ def paged_decode_attention_chunk(
 ) -> torch.Tensor:
     """[B, Q, n_q, d] in q's dtype.  CPU tensors: the plain version.  CUDA
     tensors: the sm_90a kernel, on the current stream, or an error."""
-    global LAUNCHES
     if q.device.type == "cpu":
         return paged_chunk_attention_reference(
             q, k_pool, v_pool, page_table, valid_to0, q_lens, k_scale, v_scale
@@ -196,5 +195,5 @@ def paged_decode_attention_chunk(
         raise RuntimeError(
             f"paged_chunk_attention kernel launch failed: cudaError {rc}"
         )
-    LAUNCHES += 1
+    build.count_launch(globals(), "LAUNCHES")
     return out

@@ -212,7 +212,6 @@ def ragged_paged_attention_kernel(
     One call adds one to LAUNCHES: the split pass and, when the table
     takes more than one span, the merge launched after it.  Nothing is
     read from the device on the host."""
-    global LAUNCHES
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_pool, v_pool, page_table_tok, valid_to, k_scale, v_scale
@@ -247,5 +246,5 @@ def ragged_paged_attention_kernel(
         raise RuntimeError(
             f"ragged_paged_attention kernel launch failed: cudaError {rc}"
         )
-    LAUNCHES += 1
+    build.count_launch(globals(), "LAUNCHES")
     return out

@@ -100,6 +100,24 @@ ppo          — two full PPO steps of ppo-math at qwen2-1.5B with all four
                than at step 1.  K1 launches per model call = 28 x its
                micro-batches (x (2, 1, 1) for a train step); each call's
                seconds, peak memory and the value-norm moments printed.
+quickstart   — the system's own entry point at qwen2-1.5B: a seeded random
+               checkpoint written by the port's save_hf_checkpoint (fp32,
+               two shards and an index; free disk checked first), 64 math
+               rows written here, then `quickstart.main(["ppo-math", ...])`
+               in this process with a ref model from the same checkpoint,
+               kl_ctl 0.1, 8 prompts x 4 responses, 128 new tokens, two
+               steps and a save at step 2 (rewards replaced by seeded +-5).
+               The master runs the DFG: generate (static path) -> reward
+               and ref_inf -> actor train_step -> the generator's weight
+               sync.  Checked: three checkpoint loads; step 1's first
+               minibatch importance ratio and approx-KL and the ref's
+               logprobs against the behaviour policy's (the three loads
+               hold one set of weights); finite stats; the launches of
+               each step equal to 28 x the engines' calls of each MFC in
+               the DFG (K2, K3 0); the saved checkpoint's keys, shapes and
+               fp32; a non-zero update within AdamW's bound.  Step and
+               per-MFC seconds, MFU, peak and resident memory, checkpoint
+               write, load and save seconds are printed.
 push         — the in-memory weight push mid-generation at full qwen2-1.5B
                (28 layers, bf16): GenerationServer serves 16 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
@@ -128,7 +146,8 @@ train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
 `python3 chip_smoke.py --phases build,flash` is the quick call after
 editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
 K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
-step with the critic and the reference model.  The line before the last is one JSON object
+step with the critic and the reference model, `--phases build,quickstart`
+for the quickstart entry point.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -141,13 +160,14 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "parity", "train_parity")
+          "train", "ppo", "quickstart", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -289,6 +309,11 @@ def phase_build():
         for line in _ptxas_lines(r["log"]):
             log(f"[build]   {line}")
     log(f"[build] seconds={secs:.2f}")
+    log_card()
+
+
+def log_card() -> None:
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -2522,6 +2547,394 @@ def phase_ppo(report, seed):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# quickstart: the system's own entry point
+# --------------------------------------------------------------------------
+
+QUICKSTART_DIR = os.path.join(REPO, ".quickstart_tmp")
+
+
+def _math_rows(rng, n):
+    """n math rows written here (nothing is downloaded), prompts of 64-512
+    bytes: a sum to compute, padded with words."""
+    words = "the quick brown fox jumps over lazy dog math proof integer prime sum".split()
+    rows = []
+    for i in range(n):
+        a, b = (int(x) for x in rng.integers(1, 1000, 2))
+        text = f"Compute {a} + {b}. "
+        target = int(rng.integers(64, 513))
+        while len(text) < target:
+            text += words[int(rng.integers(len(words)))] + " "
+        rows.append({"query_id": f"q{i}", "prompt": text[:target], "task": "math",
+                     "solutions": [f"\\boxed{{{a + b}}}"]})
+    return rows
+
+
+def _adamw_bound(lrs, beta1, beta2, weight_decay, w_max):
+    """The most AdamW can move one element in updates at learning rates
+    `lrs`: update t moves it by at most lr_t (c_t + wd |w|), where
+    c_t = sqrt(sum_i a_i^2 / b_i) bounds |m_hat / sqrt(v_hat)| (Cauchy-
+    Schwarz over the bias-corrected weights a_i of the gradients in the
+    first moment and b_i of their squares in the second; eps only
+    shrinks it)."""
+    total, w = 0.0, w_max
+    for t, lr in enumerate(lrs, start=1):
+        c2 = sum(
+            ((1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t)) ** 2
+            / ((1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t))
+            for i in range(1, t + 1)
+        )
+        step = lr * (math.sqrt(c2) + weight_decay * w)
+        total, w = total + step, w + step
+    return total
+
+
+def _shard_headers(path):
+    from areal_tpu_torch.models.hf import safetensors_io
+
+    out = {}
+    for f in sorted(os.listdir(path)):
+        if f.endswith(".safetensors"):
+            header, _ = safetensors_io.read_header(os.path.join(path, f))
+            header.pop("__metadata__", None)
+            out.update(header)
+    return out
+
+
+def phase_quickstart(report, seed):
+    """`python -m areal_tpu_torch.apps.quickstart ppo-math` at qwen2-1.5B,
+    in this process: a seeded random checkpoint written by the port's
+    save_hf_checkpoint (fp32, two shards and an index), 64 math rows
+    written here, then quickstart.main over them with a ref model from the
+    same checkpoint, KL control, 8 prompts x 4 responses, 128 new tokens,
+    two steps and a save at step 2.  The graded rewards (all -5 for a
+    random model, so no update) are replaced by seeded +-5."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.api.config import ModelInterfaceType
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.engines.inference import InferenceEngine
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces import sft
+    from areal_tpu_torch.interfaces.ppo import (
+        PPOActorInterface, _extract_layout, _seq_align_minus1,
+    )
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.models.hf import safetensors_io
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.master import MasterWorker
+
+    cfg = qwen2_config("1.5b")
+    n_prompts, n, max_new, n_steps = 8, 4, 128, 2
+    rng = np.random.default_rng(seed + 20)
+    os.makedirs(QUICKSTART_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=QUICKSTART_DIR)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    try:
+        # Two fp32 copies of the model (the checkpoint, the step-2 save)
+        # and the margin the trial's logs need.
+        need = 2 * 4 * (cfg.vocab_size * cfg.hidden_dim + cfg.n_layers * (
+            2 * cfg.hidden_dim * cfg.q_dim + 2 * cfg.hidden_dim * cfg.kv_dim
+            + 3 * cfg.hidden_dim * cfg.intermediate_dim)) + 2 * 2**30
+        free = shutil.disk_usage(work).free
+        log(f"[quickstart] disk: {free / 2**30:.1f} GiB free under {QUICKSTART_DIR}, "
+            f"{need / 2**30:.1f} GiB needed")
+        check(free >= need, f"only {free / 2**30:.1f} GiB free for the quickstart phase's "
+              f"checkpoints; {need / 2**30:.1f} GiB needed")
+        ckpt = os.path.join(work, "ckpt")
+        t = time.monotonic()
+        params = init_params(cfg, seed + 21, device="cuda")
+        hf.save_hf_checkpoint(ckpt, cfg, params, model_type="qwen2")
+        del params
+        torch.cuda.empty_cache()
+        write_s = time.monotonic() - t
+        files = sorted(os.listdir(ckpt))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+        shards = [f for f in files if f.endswith(".safetensors")]
+        log(f"[quickstart] wrote a seeded random qwen2-1.5b checkpoint with "
+            f"save_hf_checkpoint: {ckpt_bytes / 1e9:.3f} GB fp32 in {write_s:.2f} s "
+            f"({ckpt_bytes / 1e9 / write_s:.2f} GB/s): {files}")
+        check(len(shards) == 2 and "model.safetensors.index.json" in files,
+              f"the checkpoint is not two shards and an index: {files}")
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(rng, 64):
+                f.write(json.dumps(row) + "\n")
+
+        # Instrumentation: per-step records from the engines' own calls.
+        rec = {"steps": [], "loads": [], "saves": []}
+        cur = {}
+
+        def counts():
+            return dict(fa.LAUNCHES, k4=da.LAUNCHES, k2=rpa.LAUNCHES, k3=pca.LAUNCHES)
+
+        def on_step(orig):
+            async def execute_step(self):
+                torch.cuda.synchronize()
+                if not rec["steps"]:
+                    rec["resident_bytes"] = torch.cuda.memory_allocated()
+                    rec["plan_nodes"] = [(nd.name, nd.interface_type) for nd in self.dfg.nodes]
+                torch.cuda.reset_peak_memory_stats()
+                cur.clear()
+                cur.update(gen_chunks=0, decode_steps=0, ref_fwd_mbs=0, train_fwd_mbs=0,
+                           train_calls=[], counts0=counts())
+                stats = await orig(self)
+                torch.cuda.synchronize()
+                c1 = counts()
+                cur["launches"] = {k: c1[k] - cur["counts0"][k] for k in c1}
+                cur["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+                cur["stats"] = stats
+                rec["steps"].append(dict(cur))
+                return stats
+            return execute_step
+
+        def on_generate(orig):
+            @functools.wraps(orig)
+            def generate(self, *a, **k):
+                c0, s0 = self.static_chunks, self.static_decode_steps
+                out = orig(self, *a, **k)
+                cur["gen_chunks"] += self.static_chunks - c0
+                cur["decode_steps"] += self.static_decode_steps - s0
+                return out
+            return generate
+
+        def on_forward(key):
+            def make(orig):
+                @functools.wraps(orig)
+                def forward(self, sample, mb_spec, *a, **k):
+                    cur[key] += len(sample.split(mb_spec))
+                    return orig(self, sample, mb_spec, *a, **k)
+                return forward
+            return make
+
+        def on_train_batch(orig):
+            @functools.wraps(orig)
+            def train_batch(self, *a, **k):
+                lr = self.lr_schedule(self.opt_count)
+                out = orig(self, *a, **k)
+                cur["train_calls"].append(dict(
+                    stats=out, mbs=self.last_pack_stats["n_micro_batches"], lr=lr,
+                    oc=self.optimizer_config))
+                return out
+            return train_batch
+
+        def on_actor_train(orig):
+            @functools.wraps(orig)
+            def train_step(self, model, sample, mb_spec):
+                old_lp = _seq_align_minus1(sample, "packed_logprobs")
+                ref_lp = _seq_align_minus1(sample, "packed_ref_logprobs")
+                resp = np.zeros(len(old_lp), bool)
+                for s0, length, pl in _extract_layout(sample)[0]:
+                    resp[s0 + max(pl - 1, 0): s0 + length - 1] = True
+                diff = np.abs(ref_lp - old_lp)[resp]
+                cur["ref_logp_max"], cur["ref_logp_mean"] = float(diff.max()), float(diff.mean())
+                cur["response_tokens"] = int(resp.sum())
+                return orig(self, model, sample, mb_spec)
+            return train_step
+
+        def on_reward(orig):
+            @functools.wraps(orig)
+            def inference(self, model, sample, mb_spec):
+                out = orig(self, model, sample, mb_spec)
+                cur["graded_rewards"] = out.data["rewards"].tolist()
+                out.data["rewards"] = rng.choice(
+                    [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+                return out
+            return inference
+
+        def on_load(orig):
+            @functools.wraps(orig)
+            def load(*a, **k):
+                t0 = time.monotonic()
+                out = orig(*a, **k)
+                torch.cuda.synchronize()
+                rec["loads"].append(time.monotonic() - t0)
+                return out
+            return load
+
+        def on_save(orig):
+            @functools.wraps(orig)
+            def save(self, model, save_dir):
+                t0 = time.monotonic()
+                orig(self, model, save_dir)
+                rec["saves"].append((save_dir, time.monotonic() - t0))
+            return save
+
+        wrap(MasterWorker, "execute_step", on_step)
+        wrap(GeneratorEngine, "generate", on_generate)
+        wrap(InferenceEngine, "forward", on_forward("ref_fwd_mbs"))
+        wrap(TrainEngine, "forward", on_forward("train_fwd_mbs"))
+        wrap(TrainEngine, "train_batch", on_train_batch)
+        wrap(PPOActorInterface, "train_step", on_actor_train)
+        wrap(MultiTaskRewardInterface, "inference", on_reward)
+        wrap(hf, "load_hf_checkpoint", on_load)
+        wrap(sft.SFTInterface, "save", on_save)
+
+        argv = [
+            "ppo-math", "--model.path", ckpt, "--dataset.path", data,
+            "--tokenizer-path", f"char:{cfg.vocab_size}", "--ref-path", ckpt,
+            "--kl-ctl", "0.1", "--batch-size", str(n_prompts), "--group-size", str(n),
+            "--max-new-tokens", str(max_new), "--benchmark-steps", str(n_steps),
+            "--save-freq-steps", str(n_steps), "--fileroot", os.path.join(work, "trial"),
+            "--seed", str(seed + 22),
+        ]
+        log(f"[quickstart] python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+        log("[quickstart] the graded rewards are replaced by seeded +-5 (a random model's "
+            "are all -5, which gives GRPO no advantage)")
+        try:
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            da.LAUNCHES = rpa.LAUNCHES = pca.LAUNCHES = 0
+            t = time.monotonic()
+            stats = quickstart.main(argv)
+            torch.cuda.synchronize()
+            trial_s = time.monotonic() - t
+            total = counts()
+        finally:
+            for owner, name, orig in reversed(restore):
+                setattr(owner, name, orig)
+        check(len(stats) == n_steps and len(rec["steps"]) == n_steps,
+              f"{len(stats)} steps of stats, {len(rec['steps'])} recorded")
+        check(len(rec["loads"]) == 3, f"{len(rec['loads'])} checkpoint loads, want 3 "
+              "(actor, actor_gen, ref)")
+        nodes = rec["plan_nodes"]
+        log(f"[quickstart] DFG: {[f'{nm} ({it.value})' for nm, it in nodes]}; "
+            f"checkpoint loads {['%.2f s' % s for s in rec['loads']]}; trial {trial_s:.1f} s; "
+            f"resident after setup {rec['resident_bytes'] / 2**30:.2f} GiB")
+        L = cfg.n_layers
+        steps_out = []
+        for i, st in enumerate(rec["steps"]):
+            s = st["stats"]
+            check(all(math.isfinite(v) for v in s.values()),
+                  f"step {i + 1}: non-finite stats {[k for k, v in s.items() if not math.isfinite(v)]}")
+            check(s["actor_train/quarantined"] == 0.0, f"step {i + 1} was quarantined")
+            # The launches each MFC of the DFG must make, from the
+            # engines' own calls: generate one prefill (K1f) a static
+            # chunk and one K4 a decode step; ref_inf one K1f a forward
+            # micro-batch; each train_batch of actor_train two forwards
+            # (remat "full"), one dq and one dkv a micro-batch.
+            train_mbs = sum(c["mbs"] for c in st["train_calls"])
+            per_node = {}
+            for name, itype in nodes:
+                if itype == ModelInterfaceType.GENERATE:
+                    per_node[name] = dict(fwd=L * st["gen_chunks"], k4=L * st["decode_steps"])
+                elif itype == ModelInterfaceType.TRAIN_STEP:
+                    per_node[name] = dict(fwd=L * (2 * train_mbs + st["train_fwd_mbs"]),
+                                          dq=L * train_mbs, dkv=L * train_mbs)
+                elif name == "ref_inf":
+                    per_node[name] = dict(fwd=L * st["ref_fwd_mbs"])
+            want = {k: sum(d.get(k, 0) for d in per_node.values())
+                    for k in ("fwd", "dq", "dkv", "k4")}
+            want.update(k2=0, k3=0)
+            log(f"[quickstart] step {i + 1}: launches {st['launches']}; from the DFG "
+                f"{per_node} ({st['gen_chunks']} static chunk(s), {st['decode_steps']} decode "
+                f"steps, {st['ref_fwd_mbs']} ref micro-batch(es), {len(st['train_calls'])} "
+                f"minibatch train_batch call(s) of {train_mbs} micro-batch(es))")
+            check(st["launches"] == want, f"step {i + 1}: launches {st['launches']} != {want}")
+            check(st["gen_chunks"] == 1 and 1 <= st["decode_steps"] <= max_new - 1,
+                  f"step {i + 1}: generate took {st['gen_chunks']} static chunks, "
+                  f"{st['decode_steps']} decode steps")
+            first = st["train_calls"][0]["stats"]
+            mfc = {k.split("/")[0]: v for k, v in s.items() if k.endswith("/perf/time_s")}
+            rec_out = dict(
+                step_s=s["time/step_s"], mfc_s=mfc,
+                train_mfu=s.get("actor_train/perf/mfu"),
+                generate_mfu=s.get("actor_gen/perf/mfu"), ref_mfu=s.get("ref_inf/perf/mfu"),
+                train_tflops=s["actor_train/perf/tflops"],
+                peak_mem_bytes=st["peak_mem_bytes"], launches=st["launches"],
+                first_importance_weight=first["importance_weight"],
+                first_approx_kl=first["approx_kl"],
+                importance_weight=s["actor_train/importance_weight"],
+                approx_kl=s["actor_train/approx_kl"], ref_kl=s["actor_train/ref_kl"],
+                ref_logp_max=st["ref_logp_max"], ref_logp_mean=st["ref_logp_mean"],
+                actor_loss=s["actor_train/actor_loss"], grad_norm=s["actor_train/grad_norm"],
+                decode_steps=st["decode_steps"], train_micro_batches=train_mbs,
+            )
+            steps_out.append(rec_out)
+            log(f"[quickstart] step {i + 1}: {s['time/step_s']:.2f} s; by MFC (s) "
+                f"{ {k: round(v, 3) for k, v in mfc.items()} }; MFU actor_train "
+                f"{rec_out['train_mfu']}, actor_gen {rec_out['generate_mfu']}, ref_inf "
+                f"{rec_out['ref_mfu']}; peak {st['peak_mem_bytes'] / 2**30:.2f} GiB")
+            log(f"[quickstart] step {i + 1}: first minibatch importance_weight="
+                f"{first['importance_weight']:.6f} approx_kl={first['approx_kl']:.3e}; step "
+                f"importance_weight={s['actor_train/importance_weight']:.6f} approx_kl="
+                f"{s['actor_train/approx_kl']:.3e} ref_kl={s['actor_train/ref_kl']:.3e}; "
+                f"|ref - behaviour logp| over {st['response_tokens']} response tokens: max "
+                f"{st['ref_logp_max']:.4e} mean {st['ref_logp_mean']:.4e}; actor_loss="
+                f"{s['actor_train/actor_loss']:.4e} grad_norm={s['actor_train/grad_norm']:.4f}")
+            if i == 0:
+                # Before any update actor, generator and ref hold the
+                # checkpoint's weights: the first minibatch's ratio is 1.
+                check(abs(first["importance_weight"] - 1.0) < IMP_WEIGHT_TOL,
+                      f"|importance_weight - 1| = {abs(first['importance_weight'] - 1.0)}")
+                check(abs(first["approx_kl"]) < APPROX_KL_TOL,
+                      f"|approx_kl| = {abs(first['approx_kl'])}")
+                check(abs(s["actor_train/ref_kl"]) < APPROX_KL_TOL,
+                      f"|ref_kl| = {abs(s['actor_train/ref_kl'])}")
+                check(st["ref_logp_max"] < TOKEN_LOGP_TOL and st["ref_logp_mean"] < REF_LOGP_MEAN_TOL,
+                      f"|ref - behaviour logp| max {st['ref_logp_max']}, mean {st['ref_logp_mean']}")
+
+        check(total == {k: sum(st["launches"][k] for st in rec["steps"]) for k in total}
+              and all(total[k] > 0 for k in ("fwd", "dq", "dkv", "k4")),
+              f"launches over the trial {total}: outside the steps, or a kernel never ran")
+
+        # The step-2 save: the checkpoint's keys and shapes, fp32, and the
+        # update: non-zero, within what AdamW can move an element.
+        check(len(rec["saves"]) == 1, f"saves: {rec['saves']}")
+        saved, save_s = rec["saves"][0]
+        want_h, got_h = _shard_headers(ckpt), _shard_headers(saved)
+        check({k: v["shape"] for k, v in got_h.items()} == {k: v["shape"] for k, v in want_h.items()},
+              "the saved checkpoint's tensors differ from the loaded one's")
+        check({v["dtype"] for v in got_h.values()} == {"F32"}, "the saved checkpoint is not fp32")
+        updates = [c for st in rec["steps"] for c in st["train_calls"]
+                   if c["stats"]["quarantined"] == 0.0]
+        oc = updates[0]["oc"]
+        lrs = [c["lr"] for c in updates]
+        before, after = {}, {}
+        for path, into in ((ckpt, before), (saved, after)):
+            for f in sorted(os.listdir(path)):
+                if f.endswith(".safetensors"):
+                    into.update(safetensors_io.load_file(os.path.join(path, f)))
+        largest, worst = 0.0, 0.0
+        for name, w0 in before.items():
+            w0 = w0.cuda()
+            delta = float((after[name].cuda() - w0).abs().max())
+            bound = _adamw_bound(lrs, oc.beta1, oc.beta2, oc.weight_decay, float(w0.abs().max()))
+            largest, worst = max(largest, delta), max(worst, delta / bound)
+            check(delta <= bound, f"{name}: moved {delta}, more than AdamW's bound {bound}")
+        del before, after
+        log(f"[quickstart] step-2 save: {saved} in {save_s:.2f} s; {len(updates)} AdamW updates "
+            f"at lr {lrs[0]:g}: largest change {largest:.3e}, at most {worst:.3f} of its "
+            f"tensor's bound")
+        check(largest > 0.0, "the saved weights equal the loaded ones: no update")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["quickstart"] = dict(
+        steps=steps_out, launches=total, resident_bytes=rec["resident_bytes"],
+        ckpt_write_s=write_s, ckpt_bytes=ckpt_bytes, ckpt_load_s=rec["loads"],
+        save_s=save_s, trial_s=trial_s, largest_update=largest,
+    )
+
+
 def phase_train_parity(seed):
     """One train_batch at qwen2-1.5B width, 2 layers, fp32: the card (K1
     kernels, cuBLAS) against the CPU (plain versions), same weights and
@@ -2634,6 +3047,7 @@ def _worst(vals):
 
 
 def _kernels_line(report):
+    qs_launches = report.get("quickstart", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -2642,6 +3056,7 @@ def _kernels_line(report):
         "source": "areal_tpu_torch/csrc/ragged_paged_attention.cu",
         "replaces": "areal_tpu/ops/pallas/paged_attention.py:276",
         "launches": s.get("launches"),
+        "launches_quickstart": qs_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -2672,6 +3087,7 @@ def _kernels_line(report):
             "replaces": f"areal_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": launches.get(name),
             "launches_ppo": ppo_launches.get(name),
+            "launches_quickstart": qs_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -2704,6 +3120,7 @@ def _kernels_line(report):
         "source": "areal_tpu_torch/csrc/paged_chunk_attention.cu",
         "replaces": "areal_tpu/ops/pallas/paged_attention.py:194",
         "launches": report.get("push", {}).get("launches"),
+        "launches_quickstart": qs_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -2729,6 +3146,7 @@ def _kernels_line(report):
         "source": "areal_tpu_torch/csrc/decode_attention.cu",
         "replaces": "areal_tpu/ops/pallas/decode_attention.py:145",
         "launches": report.get("static", {}).get("launches"),
+        "launches_quickstart": qs_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -2790,11 +3208,14 @@ def main() -> int:
         phase_train(report, args.seed)
     if "ppo" in phases:
         phase_ppo(report, args.seed)
+    if "quickstart" in phases:
+        phase_quickstart(report, args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
     if "train_parity" in phases:
         phase_train_parity(args.seed)
     log(f"[done] {time.monotonic() - t_start:.1f} s")
+    log_card()  # again here: a long run's output may keep only its tail
     print(json.dumps({"kernels": _kernels_line(report)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

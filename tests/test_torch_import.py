@@ -93,3 +93,39 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _smoke(str(tmp_path))
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_quickstart_runs_without_safetensors_or_transformers(tmp_path):
+    """The card has neither `safetensors` nor `transformers`: in a fresh
+    interpreter where both (and JAX) fail to import, the port writes a
+    checkpoint and the quickstart CLI runs a tiny ppo-math trial on it
+    with the byte tokenizer (CPU)."""
+    rows = tmp_path / "math.jsonl"
+    rows.write_text("".join(
+        f'{{"query_id": "q{i}", "prompt": "Compute {i} + 1. ", "task": "math", '
+        f'"solutions": ["\\\\boxed{{{i + 1}}}"]}}\n' for i in range(4)
+    ))
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'areal_tpu', 'safetensors', 'transformers'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
+        "from areal_tpu_torch.apps import quickstart\n"
+        "from areal_tpu_torch.models import transformer as tfm\n"
+        "from areal_tpu_torch.models.config import tiny_config\n"
+        "from areal_tpu_torch.models.hf import registry as hf\n"
+        "cfg = tiny_config()\n"
+        f"ckpt = {str(tmp_path / 'ckpt')!r}\n"
+        "hf.save_hf_checkpoint(ckpt, cfg, tfm.init_params(cfg, 0, device='cpu'))\n"
+        "stats = quickstart.main(['ppo-math', '--model.path', ckpt, '--dataset.path',\n"
+        f"    {str(rows)!r}, '--tokenizer-path', 'char:512', '--batch-size', '2',\n"
+        "    '--group-size', '2', '--max-new-tokens', '4', '--benchmark-steps', '1',\n"
+        f"    '--fileroot', {str(tmp_path / 'trial')!r}], device='cpu')\n"
+        "assert len(stats) == 1\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert '"actor_train/actor_loss"' in r.stdout.strip().splitlines()[-1]

@@ -266,8 +266,6 @@ def test_inference_matches_jax(weights, rollout):
 
 def test_unported_branches_raise(weights, critic_weights, tmp_path):
     critic = _port_critic(critic_weights)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        PPOCriticInterface().save(critic, str(tmp_path))
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         PPOCriticInterface().train_stream_begin(critic, MicroBatchSpec())
     with pytest.raises(NotImplementedError):
