@@ -48,4 +48,11 @@ Slice 9, the system's own entry point:
     system/master.py      MasterWorker: the DFG's synchronous step
     system/worker.py      ModelWorker: models, data cache, dataset loader
     models/hf/            HF checkpoint IO (llama, qwen2; own safetensors IO)
+
+Slice 10, recovery, the EMA reference model and the difficulty filter:
+
+    base/recover.py       recover checkpoints: manifest, atomic flip, RecoverInfo
+    system/master.py      recover saves, restart and restore, quarantine rollback
+    system/worker.py      EMA param sync, data cursors, dataset filter
+    engines/train.py      TrainEngine.save/load_optimizer_state
 """

@@ -1,7 +1,8 @@
 """Experiment launcher (port of `run_experiment_inproc` in
-areal_tpu/apps/main.py): the workers in this process.  The ZMQ
-multi-process runtime with its recover loop is not yet ported (ROADMAP
-queue 1, items 4 and 7)."""
+areal_tpu/apps/main.py): the workers in this process; a trial with a
+recover checkpoint on its fileroot resumes from it.  The ZMQ
+multi-process runtime with its worker-death recover loop is not yet
+ported (ROADMAP queue 1, item 7)."""
 
 from areal_tpu_torch.experiments.common import ExperimentPlan
 

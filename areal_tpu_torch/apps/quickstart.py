@@ -5,17 +5,23 @@
         --model.path /ckpts/qwen2-1.5b --dataset.path math.jsonl \\
         --tokenizer-path char:151936 --ref-path /ckpts/qwen2-1.5b --kl-ctl 0.1
 
-The flags are the JAX package's.  The trial runs in this process on the
-CUDA card: every model on one worker, `build_ppo_math` -> `run_experiment`
--> the master's synchronous steps; the last step's stats are printed as
-one JSON line.  Flags whose features the port does not have yet exit
-with a message naming the ROADMAP item that brings them; so does the
-`sft` experiment.
+The flags are the JAX package's, and `--config <yaml>` sets their
+defaults from a file (keys spelled as the flags, e.g. `model.path`,
+`batch-size`; flags on the command line win).  The trial runs in this
+process on the CUDA card: every model on one worker, `build_ppo_math` ->
+`run_experiment` -> the master's synchronous steps; the last step's
+stats are printed as one JSON line.  With `--ckpt-freq-steps N` the
+master writes a recover checkpoint every N steps; rerunning the same
+command (the same `--fileroot`, experiment and trial name) resumes the
+trial from the last one.  Flags whose features the port does not have
+yet exit with a message naming the ROADMAP item that brings them; so
+does the `sft` experiment.
 """
 
 import argparse
 import json
 import logging
+import sys
 
 from areal_tpu_torch.api.config import ModelAbstraction
 from areal_tpu_torch.api.data_api import DatasetAbstraction, MicroBatchSpec
@@ -28,23 +34,19 @@ logger = logging.getLogger("areal_tpu_torch.quickstart")
 # Flags of the JAX CLI whose features are not yet ported: any value but
 # the flag's default exits, naming the item (ROADMAP queue 1).
 _UNPORTED_FLAGS = {
-    "config": "item 4 (YAML option files)",
     "chip": "item 10 (the allocation search)",
     "search_devices": "item 10 (the allocation search)",
-    "ckpt_freq_steps": "item 4 (recover checkpoints)",
     "launcher": "item 10 (scheduler/)",
     "tpu_name": "item 10 (scheduler/)",
     "tpu_zone": "item 10 (scheduler/)",
     "tpu_project": "item 10 (scheduler/)",
     "tpu_num_hosts": "item 10 (scheduler/)",
     "multiprocess": "item 7 (the ZMQ transport)",
-    "recover_retries": "item 4 (recovery)",
-    "mfc_timeout_s": "item 4 (recovery)",
+    "recover_retries": "item 7 (worker-death recovery over the multi-process runtime)",
+    "mfc_timeout_s": "item 7 (worker-death recovery over the multi-process runtime)",
     "worker_heartbeat_s": "item 7 (the ZMQ transport)",
-    "max_recoveries": "item 4 (recovery)",
     "anomaly_grad_norm_mult": "item 6 (the tunable sentinels)",
     "anomaly_update_norm_max": "item 6 (the tunable sentinels)",
-    "max_consecutive_quarantines": "item 4 (recovery)",
     "no_weight_push_checksum": "item 7 (cross-worker weight pushes)",
     "eval_data": "item 10 (scheduler/evaluator.py)",
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
@@ -52,8 +54,6 @@ _UNPORTED_FLAGS = {
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
     "gen_server_url": "item 7 (remote generation servers)",
-    "ref_ema_eta": "item 4 (EMA weight sync)",
-    "kv_cache_dtype": "item 5.1 (int8 KV on the static path)",
     "no_paged_kv": "item 5.1 (the dense KV window)",
     "fuse_rew_ref": "item 6 (interfaces/fused.py)",
     "spec_decode_k": "item 5.2 (speculative decoding)",
@@ -77,7 +77,9 @@ _UNPORTED_FLAGS = {
 
 
 def _add_common(p: argparse.ArgumentParser):
-    p.add_argument("--config", default=None, help="not yet ported")
+    p.add_argument("--config", default=None,
+                   help="YAML file of option defaults (keys = flag names, e.g. 'model.path:'); "
+                        "flags on the command line override it")
     p.add_argument("--model.path", dest="model_path", required=True, help="HF checkpoint dir")
     p.add_argument("--dataset.path", dest="dataset_path", required=True,
                    help="jsonl dataset path")
@@ -97,7 +99,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--trial-name", default="trial0")
     p.add_argument("--fileroot", default="/tmp/areal_tpu_torch")
     p.add_argument("--save-freq-steps", type=int, default=None)
-    p.add_argument("--ckpt-freq-steps", type=int, default=None, help="not yet ported")
+    p.add_argument("--ckpt-freq-steps", type=int, default=None,
+                   help="write a recover checkpoint every N steps; rerunning the same "
+                        "command resumes from the last one")
     p.add_argument("--benchmark-steps", type=int, default=None)
     p.add_argument("--launcher", default="local", choices=("local", "slurm", "tpu-pod"),
                    help="only 'local' is ported")
@@ -109,10 +113,14 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--recover-retries", type=int, default=0, help="not yet ported")
     p.add_argument("--mfc-timeout-s", type=float, default=None, help="not yet ported")
     p.add_argument("--worker-heartbeat-s", type=float, default=5.0, help="not yet ported")
-    p.add_argument("--max-recoveries", type=int, default=3, help="not yet ported")
+    p.add_argument("--max-recoveries", type=int, default=3,
+                   help="rollbacks to the recover checkpoint the master absorbs before "
+                        "exiting non-zero")
     p.add_argument("--anomaly-grad-norm-mult", type=float, default=0.0, help="not yet ported")
     p.add_argument("--anomaly-update-norm-max", type=float, default=0.0, help="not yet ported")
-    p.add_argument("--max-consecutive-quarantines", type=int, default=3, help="not yet ported")
+    p.add_argument("--max-consecutive-quarantines", type=int, default=3,
+                   help="consecutive quarantined steps before the master rolls back to the "
+                        "last recover checkpoint (0 = never)")
     p.add_argument("--no-weight-push-checksum", action="store_true", help="not yet ported")
     p.add_argument("--eval-data", default=None, help="not yet ported")
     p.add_argument("--eval-max-new-tokens", type=int, default=256, help="not yet ported")
@@ -137,9 +145,11 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
                          "the top --group-size by reward")
     pp.add_argument("--early-stop-imp-ratio", type=float, default=None)
     pp.add_argument("--early-stop-kl", type=float, default=None)
-    pp.add_argument("--ref-ema-eta", type=float, default=None, help="not yet ported")
+    pp.add_argument("--ref-ema-eta", type=float, default=None,
+                    help="EMA-update the ref toward the actor each step")
     pp.add_argument("--kv-cache-dtype", default="auto", choices=("auto", "int8"),
-                    help="only 'auto' is ported")
+                    help="int8: the serving plane's KV pool in int8 (the static path "
+                         "ignores it, as the JAX package's does)")
     pp.add_argument("--no-paged-kv", action="store_true", help="not yet ported")
     pp.add_argument("--kv-page-size", type=int, default=128,
                     help="tokens per KV page in the serving plane's pool")
@@ -180,11 +190,12 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--mixture-adaptive", action="store_true", help="not yet ported")
 
 
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
+def _refuse_unported(defaults, args) -> None:
     """Exit, naming the ROADMAP item, on a flag whose feature is not yet
-    ported."""
+    ported: any value but the flag's own default (`defaults`, taken
+    before a YAML file replaces them) exits."""
     for dest, item in _UNPORTED_FLAGS.items():
-        if hasattr(args, dest) and getattr(args, dest) != parser.get_default(dest):
+        if hasattr(args, dest) and getattr(args, dest) != defaults.get(dest):
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"{flag} is not yet ported (ROADMAP queue 1, {item})")
     if args.allocation == "search":
@@ -202,10 +213,46 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
                          "(ROADMAP queue 1, item 5.3)")
 
 
+def _apply_yaml_config(parser: argparse.ArgumentParser, argv):
+    """Pre-read --config <yaml> and install its values as the parser's
+    defaults (flags on the command line still win).  YAML keys use the
+    flag spelling ('model.path', 'batch-size') or the python dest
+    ('model_path')."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--config", default=None)
+    known, _ = pre.parse_known_args(argv)
+    if not known.config:
+        return
+    try:
+        import yaml
+    except ImportError as e:
+        raise SystemExit(
+            f"--config {known.config}: reading a YAML option file needs the PyYAML "
+            "package (`yaml`), which is not installed; pass the options as flags"
+        ) from e
+    with open(known.config) as f:
+        raw = yaml.safe_load(f) or {}
+    dests = {a.dest for a in parser._actions}
+    mapped = {}
+    for key, val in raw.items():
+        dest = key.replace("-", "_")
+        if dest not in dests:
+            dest = key.replace(".", "_").replace("-", "_")
+        if dest not in dests:
+            raise SystemExit(f"--config: unknown option {key!r}")
+        mapped[dest] = val
+    parser.set_defaults(**mapped)
+    # Values from the file satisfy required flags.
+    for a in parser._actions:
+        if a.dest in mapped and a.required:
+            a.required = False
+
+
 def _ctrl(args) -> ExperimentSaveEvalControl:
     return ExperimentSaveEvalControl(
         total_train_epochs=args.epochs,
         save_freq_steps=args.save_freq_steps,
+        ckpt_freq_steps=args.ckpt_freq_steps,
         benchmark_steps=args.benchmark_steps,
     )
 
@@ -241,7 +288,11 @@ def cmd_ppo_math(args, device=None):
         actor=ModelAbstraction("hf", {"path": args.model_path}),
         ref=ModelAbstraction("hf", {"path": args.ref_path}) if args.ref_path else None,
         ppo_kwargs=ppo_kwargs,
+        ref_ema_eta=args.ref_ema_eta,
         offload_ref=args.offload_ref,
+        gen_backend_args=(
+            {"kv_cache_dtype": args.kv_cache_dtype} if args.kv_cache_dtype != "auto" else {}
+        ),
         kv_page_size=args.kv_page_size,
         kv_pool_pages=args.kv_pool_pages,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
@@ -262,6 +313,8 @@ def cmd_ppo_math(args, device=None):
         experiment_name=args.experiment_name or "ppo-math",
         trial_name=args.trial_name,
         fileroot=args.fileroot,
+        max_recoveries=args.max_recoveries,
+        max_consecutive_quarantines=args.max_consecutive_quarantines,
     )
     plan = exps.build_ppo_math(cfg)
     for wc in plan.worker_configs:
@@ -279,13 +332,20 @@ def main(argv=None, device=None):
     ps = sub.add_parser("sft", help="supervised fine-tuning (not yet ported)")
     _add_common(ps)
     ps.add_argument("--max-seqlen", type=int, default=4096)
-    ps.set_defaults(fn=cmd_sft, parser=ps)
+    ps.set_defaults(fn=cmd_sft)
     pp = sub.add_parser("ppo-math", help="PPO/GRPO with verified math rewards")
     _add_common(pp)
     _add_ppo_math(pp)
-    pp.set_defaults(fn=cmd_ppo_math, parser=pp)
+    pp.set_defaults(fn=cmd_ppo_math)
+    # YAML defaults on whichever subcommand was chosen.
+    raw_argv = list(argv if argv is not None else sys.argv[1:])
+    defaults = {}
+    if raw_argv and raw_argv[0] in ("sft", "ppo-math"):
+        sub_parser = {"sft": ps, "ppo-math": pp}[raw_argv[0]]
+        defaults = {a.dest: a.default for a in sub_parser._actions}
+        _apply_yaml_config(sub_parser, raw_argv[1:])
     args = p.parse_args(argv)
-    _refuse_unported(args.parser, args)
+    _refuse_unported(defaults, args)
     return args.fn(args, device=device)
 
 

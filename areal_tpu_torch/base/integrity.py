@@ -12,10 +12,14 @@ The weight checksum is a cheap per-leaf L2-norm vector (plus leaf and
 element counts) stamped by the pusher and verified by the receiver
 before a weight swap: a corrupted push is refused, not served.  Leaves
 are taken in sorted-key order, as `jax.tree.leaves` orders a dict, so a
-checksum taken on the JAX package's tree verifies against the port's."""
+checksum taken on the JAX package's tree verifies against the port's.
+
+A quarantined step goes into the master's ledger as a `QuarantineEntry`
+(step, verdict, its kinds, the step's data ids)."""
 
 import collections
-from typing import Any, List
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +119,28 @@ def verify_checksum(tree: Any, expected: np.ndarray) -> None:
             f"(expected {np.asarray(expected)[:4]}..., got {got[:4]}...); "
             "the payload was corrupted in flight — retry the push"
         )
+
+
+# ---------------- quarantine ledger entries ----------------
+
+
+@dataclasses.dataclass
+class QuarantineEntry:
+    """One quarantined step, kept in RecoverInfo's ledger."""
+
+    step: int
+    verdict: int
+    kinds: Tuple[str, ...]
+    ids: Tuple[str, ...] = ()
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def quarantine_entry(step: int, verdict: float, ids: Optional[List[str]] = None) -> QuarantineEntry:
+    return QuarantineEntry(
+        step=int(step),
+        verdict=int(verdict),
+        kinds=tuple(verdict_kinds(verdict)),
+        ids=tuple(str(i) for i in (ids or ())),
+    )

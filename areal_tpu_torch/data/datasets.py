@@ -7,7 +7,9 @@ areal_tpu/data/datasets.py).  The jsonl contracts are the JAX package's:
 
 Rows are shuffled and batches ordered with numpy's `default_rng` as in
 the JAX package, so both packages see the same batches in the same order.
-Code rows (`"task": "code"`) are kept, as JAX keeps them, but grading
+`filter` (the master's difficulty filter) removes ids from a math
+dataset; the loader then drops the snapshot permutation's indices past
+the shrunken dataset, as the JAX loader does.  Code rows (`"task": "code"`) are kept, as JAX keeps them, but grading
 them is not yet ported (`interfaces/reward.py`)."""
 
 import json
@@ -77,16 +79,22 @@ class PromptDataset:
             data={"packed_prompts": p},
         )
 
+    def filter(self, to_remove_ids) -> int:
+        """Drop samples by id; returns the number removed.  A plain
+        prompt dataset removes nothing."""
+        return 0
+
 
 class MathCodePromptDataset(PromptDataset):
     """RL math/code prompts with their verification rows (`id2info`) and
     each item's task in its metadata.  Rows whose task is unknown or whose
-    solutions are malformed are dropped.  (The difficulty filter,
-    `filter`, comes with the master's dataset filter, ROADMAP queue 1,
-    item 4.)"""
+    solutions are malformed are dropped.  `filter` removes the ids the
+    difficulty filter flags, at most `max_filter_percentage` of the
+    dataset a call (1.0: uncapped)."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, max_filter_percentage: float = 1.0, **kwargs):
         super().__init__(*args, **kwargs)
+        self.max_filter_percentage = max_filter_percentage
         self.id2info: Dict[str, Dict] = {}
         keep = []
         for i, row in enumerate(self.metadata_rows):
@@ -117,16 +125,38 @@ class MathCodePromptDataset(PromptDataset):
         s.metadata = {"task": [self.id2info[self.ids[idx]]["task"]]}
         return s
 
+    def filter(self, to_remove_ids) -> int:
+        to_remove = set(map(str, to_remove_ids))
+        if not to_remove:
+            return 0
+        n_max = int(len(self.ids) * self.max_filter_percentage)
+        removed = 0
+        keep = []
+        for i, qid in enumerate(self.ids):
+            if qid in to_remove and removed < n_max:
+                removed += 1
+                continue
+            keep.append(i)
+        self.ids = [self.ids[i] for i in keep]
+        self.prompts = [self.prompts[i] for i in keep]
+        self.metadata_rows = [self.metadata_rows[i] for i in keep]
+        logger.info(f"filtered {removed} prompts; {len(self.ids)} remain")
+        return removed
+
 
 class PackedDataLoader:
     """Deterministic shuffling batch iterator: epoch e visits the items in
     `default_rng(seed + e).permutation`, `batch_size` at a time, each
-    batch gathered into one SequenceSample."""
+    batch gathered into one SequenceSample.  The permutation is drawn
+    when the epoch starts: if the difficulty filter shrinks the dataset
+    mid-epoch, indices past its new length are dropped (so a batch may
+    come up short, and later positions index the shrunken list)."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.drop_last = drop_last
         self._epoch = 0
 
     def __iter__(self):
@@ -134,7 +164,11 @@ class PackedDataLoader:
         order = np.random.default_rng(self.seed + self._epoch).permutation(n)
         self._epoch += 1
         for i in range(0, n, self.batch_size):
-            idx = [int(j) for j in order[i : i + self.batch_size]]
+            idx = [int(j) for j in order[i : i + self.batch_size] if j < len(self.dataset)]
+            if not idx:
+                continue
+            if self.drop_last and len(idx) < self.batch_size:
+                return
             yield SequenceSample.gather([self.dataset[j] for j in idx])
 
 

@@ -17,6 +17,11 @@
   the [B, S] fp32 values instead of logprobs.
 - `offload()` (`engines/offload.HostOffloadMixin`) moves the masters and
   Adam's `mu`/`nu` to host memory; the next call restores them.
+- `save_optimizer_state`/`load_optimizer_state` write and read `mu`,
+  `nu` and the update count (the schedule's and Adam's position) as one
+  safetensors file (`models/hf/safetensors_io`), a leaf at a time; the
+  round trip is bit for bit.  The format is the port's own (the JAX
+  package pickles optax's state).
 - The tunable sentinels (grad-norm spike, update-norm ceiling),
   streamed accumulation and pipeline schedules are not ported.
 """
@@ -35,6 +40,7 @@ from areal_tpu_torch.engines import packing
 from areal_tpu_torch.engines.offload import HostOffloadMixin
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.models.hf import safetensors_io
 
 Params = Dict[str, Any]
 
@@ -185,6 +191,36 @@ class TrainEngine(HostOffloadMixin):
             lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(True),
             params,
         )
+
+    # ---------------- optimizer state ----------------
+
+    def save_optimizer_state(self, path: str) -> None:
+        """Write Adam's moments (`mu.<leaf>`, `nu.<leaf>`, fp32) and the
+        update count (metadata `opt_count`) to `path`.  An offloaded
+        engine is reloaded first, as every engine call does."""
+        self._ensure_loaded()
+        tensors = {f"mu.{n}": t for n, t in _leaves(self._mu)}
+        tensors.update({f"nu.{n}": t for n, t in _leaves(self._nu)})
+        safetensors_io.save_file(tensors, path, metadata={"opt_count": str(self.opt_count)})
+
+    def load_optimizer_state(self, path: str) -> None:
+        """Copy the moments and the update count saved by
+        `save_optimizer_state` into this engine, bit for bit."""
+        self._ensure_loaded()
+        header, _ = safetensors_io.read_header(path)
+        saved = safetensors_io.load_file(path)
+        want = {f"{kind}.{n}" for kind in ("mu", "nu") for n, _ in _leaves(self.params)}
+        if set(saved) != want:
+            raise ValueError(
+                f"{path}: optimizer state for other params (missing "
+                f"{sorted(want - set(saved))[:4]}, unexpected {sorted(set(saved) - want)[:4]})"
+            )
+        with torch.no_grad():
+            for kind, tree in (("mu", self._mu), ("nu", self._nu)):
+                for n, t in _leaves(tree):
+                    t.copy_(saved[f"{kind}.{n}"])
+        del saved
+        self.opt_count = int(header["__metadata__"]["opt_count"])
 
     # ---------------- offload (HostOffloadMixin + optimizer state) ----
 

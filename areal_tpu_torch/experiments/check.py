@@ -53,19 +53,14 @@ def check_gconfig(g: GenerationHyperparameters) -> None:
 def unported_options(cfg):
     """(option, ROADMAP item) for each option the config sets that the
     port does not have yet."""
-    gen_args = cfg.gen_backend_args
     checks = (
         (cfg.rollout_ahead != 0, "rollout_ahead", "queue 1, item 7"),
         (cfg.max_head_offpolicyness is not None, "max_head_offpolicyness", "queue 1, item 7"),
         (cfg.pipeline_overlap, "pipeline_overlap", "queue 1, item 6"),
-        (bool(cfg.dataset_filter), "dataset_filter", "queue 1, item 4"),
-        (cfg.ctrl.ckpt_freq_steps is not None, "ctrl.ckpt_freq_steps (recover checkpoints)",
-         "queue 1, item 4"),
         (cfg.gen_server_url is not None, "gen_server_url", "queue 1, item 7"),
         (cfg.inmem_weight_sync, "inmem_weight_sync", "queue 1, item 7"),
         (cfg.param_push_tree, "param_push_tree", "queue 1, item 7"),
         (cfg.fuse_rew_ref, "fuse_rew_ref", "queue 1, item 6"),
-        (cfg.ref_ema_eta is not None, "ref_ema_eta", "queue 1, item 4"),
         (cfg.verifier_pool, "verifier_pool", "queue 1, item 7"),
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
          "queue 1, item 7"),
@@ -81,9 +76,6 @@ def unported_options(cfg):
          "train_backend_args.master_dtype (the port keeps fp32 masters)", "queue 1, item 6"),
         (cfg.train_backend_args.get("remat_policy") in ("dots", "dots_small"),
          "train_backend_args.remat_policy dots/dots_small", "queue 1, item 6"),
-        (gen_args.get("kv_cache_dtype", "auto") != "auto",
-         "gen_backend_args.kv_cache_dtype (an int8 KV cache on the static path)",
-         "queue 1, item 5.1"),
     )
     return [(name, item) for bad, name, item in checks if bad]
 
@@ -121,3 +113,13 @@ def check_ppo_math(cfg) -> None:
         _fail(f"kv_pool_pages must be >= 0 (0 = auto-size), got {cfg.kv_pool_pages}")
     if cfg.prefill_chunk_tokens is not None and cfg.prefill_chunk_tokens < 0:
         _fail(f"prefill_chunk_tokens must be >= 0, got {cfg.prefill_chunk_tokens}")
+    if cfg.max_recoveries < 0:
+        _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
+    if cfg.max_consecutive_quarantines < 0:
+        _fail(f"max_consecutive_quarantines must be >= 0 (0 disables rollback "
+              f"escalation), got {cfg.max_consecutive_quarantines}")
+    if cfg.dataset_filter:
+        lo = cfg.dataset_filter.get("min_accuracy", 0.0)
+        hi = cfg.dataset_filter.get("max_accuracy", 1.0)
+        if not 0.0 <= lo < hi <= 1.0:
+            _fail(f"dataset_filter accuracy band [{lo}, {hi}] must satisfy 0 <= min < max <= 1")

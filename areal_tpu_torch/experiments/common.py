@@ -4,7 +4,8 @@ in areal_tpu/experiments/common.py).
 
 `build_ppo_math` builds the JAX package's ppo-math dataflow: generate ->
 {reward, ref, critic inference} -> actor and critic train steps, the
-generator taking the actor's weights after each train step.  Every model
+generator taking the actor's weights after each train step (and, with
+`ref_ema_eta`, the reference model moving toward them).  Every model
 lives on one worker on one device.  The options the port does not have
 yet stay in `PPOMathConfig` with their "off" defaults and fail
 `check_ppo_math` when set (see `experiments/check.unported_options`).
@@ -44,6 +45,13 @@ class ExperimentPlan:
     experiment_name: str = "exp"
     trial_name: str = "trial"
     fileroot: str = "/tmp/areal_tpu_torch/trial"
+    # {"min_accuracy": .., "max_accuracy": ..} -> dynamic difficulty
+    # filtering of prompts by per-step group accuracy.
+    difficulty_filter: Optional[Dict[str, float]] = None
+    # Rollbacks the master absorbs, and the quarantine streak that
+    # triggers one (see system/master.py).
+    max_recoveries: int = 3
+    max_consecutive_quarantines: int = 3
 
 
 @dataclasses.dataclass
@@ -87,13 +95,20 @@ class PPOMathConfig:
     experiment_name: str = "ppo-math"
     trial_name: str = "trial"
     fileroot: str = "/tmp/areal_tpu_torch/trial"
-    # ---- not yet ported: check_ppo_math refuses a value other than these ----
+    # Dynamic difficulty filtering: {"min_accuracy", "max_accuracy"}.
     dataset_filter: Optional[Dict[str, float]] = None
+    # EMA-update the reference model toward the actor after each train
+    # step (ref <- eta * actor + (1 - eta) * ref).  None: a frozen ref.
+    ref_ema_eta: Optional[float] = None
+    # Rollbacks to the recover checkpoint the master absorbs, and the
+    # quarantine streak that triggers one (0: never).
+    max_recoveries: int = 3
+    max_consecutive_quarantines: int = 3
+    # ---- not yet ported: check_ppo_math refuses a value other than these ----
     rollout_ahead: int = 0
     max_head_offpolicyness: Optional[int] = None
     pipeline_overlap: bool = False
     fuse_rew_ref: bool = False
-    ref_ema_eta: Optional[float] = None
     gen_server_url: Optional[str] = None
     inmem_weight_sync: bool = False
     param_push_tree: bool = False
@@ -192,6 +207,16 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             mb_spec=cfg.mb_spec,
         ))
         train_inputs.append("values")
+    # After training, the generator takes the fresh weights.
+    train_post_hooks = [ParamReallocHook(target=actor_gen)]
+    if cfg.ref_ema_eta is not None:
+        if ref is None:
+            raise ValueError("ref_ema_eta requires a ref model")
+        train_post_hooks.append(ParamReallocHook(target=ref, eta=cfg.ref_ema_eta))
+        if cfg.offload_ref:
+            # The EMA update reloads the ref onto the card; push it back
+            # to host memory so offload_ref keeps its memory free.
+            train_post_hooks.append(OffloadHook(target=ref))
     nodes.append(MFCDef(
         name="actor_train",
         model_name=actor,
@@ -200,8 +225,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         input_keys=tuple(train_inputs),
         n_seqs=cfg.batch_size,
         mb_spec=cfg.mb_spec,
-        # After training, the generator takes the fresh weights.
-        post_hooks=[ParamReallocHook(target=actor_gen)],
+        post_hooks=train_post_hooks,
     ))
     if critic is not None:
         nodes.append(MFCDef(
@@ -268,13 +292,17 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         experiment_name=cfg.experiment_name,
         trial_name=cfg.trial_name,
         fileroot=cfg.fileroot,
+        difficulty_filter=cfg.dataset_filter,
+        max_recoveries=cfg.max_recoveries,
+        max_consecutive_quarantines=cfg.max_consecutive_quarantines,
     )
 
 
 def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
     """In-process runner: build the workers on `device` (the CUDA card
-    unless told otherwise), drive the master loop to completion.
-    Returns (master, per-step stats)."""
+    unless told otherwise), drive the master loop to completion.  A
+    trial with recover info on its fileroot resumes from it.  Returns
+    (master, per-step stats)."""
     from areal_tpu_torch.system.master import InProcessPool, MasterWorker
     from areal_tpu_torch.system.worker import ModelWorker
 
@@ -288,6 +316,9 @@ def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
         fileroot=plan.fileroot,
         experiment_name=plan.experiment_name,
         trial_name=plan.trial_name,
+        difficulty_filter=plan.difficulty_filter,
+        max_recoveries=plan.max_recoveries,
+        max_consecutive_quarantines=plan.max_consecutive_quarantines,
     )
     master.load_recover_info()
     stats = asyncio.run(master.run())

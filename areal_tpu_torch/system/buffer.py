@@ -35,6 +35,10 @@ class SequenceBuffer:
     def stats(self) -> Dict[str, int]:
         return {"size": len(self._entries)}
 
+    def clear(self) -> None:
+        """Forget every entry (an aborted step)."""
+        self._entries.clear()
+
     async def put_batch(self, sample: SequenceSample) -> None:
         """Register a batch's entries (new ids) or merge its keys into
         existing ones."""

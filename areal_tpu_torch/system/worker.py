@@ -5,11 +5,17 @@ requests.
 
 One worker holds every model of a trial on one device: `device` (the
 CUDA card unless told otherwise) is where each engine is built.  The
-requests the synchronous PPO step sends are handled: `spec`, `fetch`,
-`mfc`, `param_sync` (eta 1: a copy), `save`, `offload`, `clear_cache`
-and `ping`.  The cross-worker planes (data and param transfers), the
-streamed train requests, recovery and the dataset filter are not yet
-ported (ROADMAP queue 1, items 4, 6 and 7).
+requests the synchronous PPO step sends are handled: `spec`, `fetch`
+(topped up to a full batch when the loader's comes up short), `mfc`,
+`param_sync` (a copy, or with eta < 1 the EMA of the reference model),
+`save`, `offload`, `clear_cache` and `ping`; so are the difficulty
+filter's `data_accuracy` and `filter_dataset`, and the worker half of
+recovery: `model_versions`/`set_model_versions`, `save_optimizer`,
+`load_model`, `data_state`/`load_data_state` (each loader's resumable
+(epoch, cursor) position, `_Cycler`) and
+`interface_state`/`load_interface_state`.  The cross-worker planes
+(data and param transfers) and the streamed train requests are not yet
+ported (ROADMAP queue 1, items 6 and 7).
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
@@ -25,10 +31,12 @@ before a train step.
 import contextlib
 import dataclasses
 import logging
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from areal_tpu_torch.api.config import (
@@ -120,11 +128,26 @@ def _build_engine(shard: ModelShardSpec, cfg, params, device, config: WorkerConf
     )
 
 
+def ema_mix(a: torch.Tensor, b: torch.Tensor, eta: float) -> torch.Tensor:
+    """`eta * a + (1 - eta) * b` as the JAX package computes it on a
+    leaf: each Python-float coefficient takes the dtype of the leaf it
+    scales (JAX's weak typing: `1 - eta` is rounded to bf16 before it
+    scales a bf16 ref leaf, whose product stays bf16), the sum is in the
+    wider dtype (fp32), and the result is cast to b's dtype, as
+    `set_params` would.  Not `torch.lerp`, which rounds differently."""
+    scaled = torch.tensor(1 - eta, dtype=b.dtype) * b
+    return (torch.tensor(eta, dtype=a.dtype) * a + scaled).to(b.dtype)
+
+
 class _Cycler:
-    """Endless epoch iterator over a PackedDataLoader."""
+    """Endless epoch iterator over a PackedDataLoader, with a resumable
+    (epoch, cursor) position: shuffling is seeded per epoch, so replaying
+    `cursor` batches restores the exact data stream."""
 
     def __init__(self, loader):
         self.loader = loader
+        self.epoch = 0
+        self.cursor = 0  # batches already yielded in the current epoch
         self._it = None
 
     def __iter__(self):
@@ -135,9 +158,26 @@ class _Cycler:
             if self._it is None:
                 self._it = iter(self.loader)
             try:
-                return next(self._it)
+                batch = next(self._it)
+                self.cursor += 1
+                return batch
             except StopIteration:
                 self._it = None
+                self.epoch += 1
+                self.cursor = 0
+
+    def state_dict(self):
+        return {"epoch": self.epoch, "cursor": self.cursor}
+
+    def load_state_dict(self, state):
+        self.epoch = int(state["epoch"])
+        self.cursor = 0
+        # PackedDataLoader advances its epoch on each __iter__: align it,
+        # then replay the batches already consumed in this epoch.
+        self.loader._epoch = self.epoch
+        self._it = None
+        for _ in range(int(state["cursor"])):
+            next(self)
 
 
 class ModelWorker:
@@ -199,8 +239,30 @@ class ModelWorker:
         return {"dataset_size": sum(sizes), "steps_per_epoch": (sum(sizes) + bs - 1) // bs}
 
     def _handle_fetch(self, req):
-        """Load the next dataset batch into the cache; return its metadata."""
-        batch = next(self.dataloaders[req.get("dataset_index", 0)])
+        """Load the next dataset batch into the cache; return its metadata.
+        A batch comes up short at an epoch's end (a dataset whose size is
+        not a multiple of the batch size) or after the difficulty filter
+        shrank the dataset: top it up from the stream so the master's
+        buffer, which waits for exactly n_seqs, never stalls."""
+        dl_idx = req.get("dataset_index", 0)
+        dl = self.dataloaders[dl_idx]
+        singles: List[SequenceSample] = []
+        have = set()
+        attempts = 0
+        while len(singles) < self.config.batch_size:
+            if attempts > 16:
+                raise RuntimeError(
+                    f"dataset {dl_idx} cannot fill a batch of "
+                    f"{self.config.batch_size} (filtered too far?)"
+                )
+            attempts += 1
+            for one in next(dl).unpack():
+                # A top-up can repeat ids (an epoch wrap on a shrunken
+                # dataset); the cache and the buffer are keyed by id.
+                if one.ids[0] not in have:
+                    have.add(one.ids[0])
+                    singles.append(one)
+        batch = SequenceSample.gather(singles)
         with self._cache_lock:
             for one in batch.unpack():
                 self.data_cache[one.ids[0]] = one
@@ -295,18 +357,117 @@ class ModelWorker:
 
     def _handle_param_sync(self, req):
         """Copy the weights of model `src` into model `dst` (the
-        generator's weight sync after a train step)."""
-        if float(req.get("eta", 1.0)) < 1.0:
-            raise NotImplementedError(
-                "EMA param sync (eta < 1, ref_ema_eta) is not yet ported (ROADMAP queue 1, item 4)"
-            )
-        self.models[req["dst"]].engine.set_params(self.models[req["src"]].engine.get_params())
+        generator's weight sync after a train step), or with eta < 1 move
+        `dst` toward `src` (the EMA reference model, `ema_mix`), one leaf
+        at a time, then `dst.set_params`."""
+        src = self.models[req["src"]].engine
+        dst = self.models[req["dst"]].engine
+        eta = float(req.get("eta", 1.0))
+        if eta >= 1.0:
+            dst.set_params(src.get_params())
+            return {}
+        sp, dp = src.get_params(), dst.get_params()
+
+        def mix(a, b):
+            if isinstance(b, dict):
+                return {k: mix(a[k], b[k]) for k in b}
+            return ema_mix(a, b, eta)
+
+        with torch.no_grad():
+            mixed = mix(sp, dp)
+        del sp, dp
+        dst.set_params(mixed)
         return {}
 
     def _handle_save(self, req):
         key = req["model_name"]
         self.interfaces[key].save(self.models[key], req["save_dir"])
         return {"path": req["save_dir"]}
+
+    # ---------------- recovery ----------------
+
+    def _handle_load_model(self, req):
+        """Restore a model's weights (fp32, as the recover checkpoint
+        stores the masters) and its optimizer state from a checkpoint
+        dir: the worker half of a trial's recovery."""
+        from areal_tpu_torch.models.hf import registry as hf
+
+        key = req["model_name"]
+        model = self.models[key]
+        _, params = hf.load_hf_checkpoint(
+            req["ckpt_dir"],
+            is_critic=bool(model.config is not None and model.config.is_critic),
+            dtype=torch.float32,
+            device=self.device,
+        )
+        model.engine.set_params(params)
+        del params
+        opt = req.get("optimizer_path")
+        if opt and os.path.exists(opt) and hasattr(model.engine, "load_optimizer_state"):
+            model.engine.load_optimizer_state(opt)
+        return {}
+
+    def _handle_save_optimizer(self, req):
+        eng = self.models[req["model_name"]].engine
+        os.makedirs(os.path.dirname(req["path"]), exist_ok=True)
+        eng.save_optimizer_state(req["path"])
+        return {}
+
+    def _handle_data_state(self, req):
+        return {"states": [dl.state_dict() for dl in self.dataloaders]}
+
+    def _handle_load_data_state(self, req):
+        for dl, sd in zip(self.dataloaders, req["states"]):
+            dl.load_state_dict(sd)
+        return {}
+
+    def _handle_interface_state(self, req):
+        """Algorithm state per model (the KL controller, the value-norm
+        moments) for recover checkpoints."""
+        out = {}
+        for key, iface in self.interfaces.items():
+            sd = iface.state_dict()
+            if sd:
+                out[key] = sd
+        return {"states": out}
+
+    def _handle_load_interface_state(self, req):
+        for key, sd in (req.get("states") or {}).items():
+            if key in self.interfaces:
+                self.interfaces[key].load_state_dict(sd)
+        return {}
+
+    def _handle_model_versions(self, req):
+        """Each model's weight version (the generator's is its sampling
+        seed), inventoried into the recover checkpoint."""
+        return {"versions": {k: int(m.version) for k, m in self.models.items()}}
+
+    def _handle_set_model_versions(self, req):
+        for k, v in (req.get("versions") or {}).items():
+            if k in self.models:
+                self.models[k].version = int(v)
+        return {}
+
+    # ---------------- difficulty filter ----------------
+
+    def _handle_data_accuracy(self, req):
+        """Each id's share of positive rewards over its group (the input
+        to the difficulty filter)."""
+        out = {}
+        with self._cache_lock:
+            for sid in req["ids"]:
+                entry = self.data_cache.get(sid)
+                if entry is None or "rewards" not in entry.keys:
+                    continue
+                r = np.asarray(entry.data["rewards"], np.float32)
+                out[sid] = float((r > 0).mean()) if r.size else 0.0
+        return {"accuracy": out}
+
+    def _handle_filter_dataset(self, req):
+        removed = 0
+        for ds in self.datasets:
+            removed += int(ds.filter(req["ids"]) or 0)
+        return {"removed": removed}
 
     def _handle_offload(self, req):
         """Host-offload a model's device state (OffloadHook); the engine

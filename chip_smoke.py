@@ -118,6 +118,21 @@ quickstart   — the system's own entry point at qwen2-1.5B: a seeded random
                fp32; a non-zero update within AdamW's bound.  Step and
                per-MFC seconds, MFU, peak and resident memory, checkpoint
                write, load and save seconds are printed.
+recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
+               quickstart trial with the EMA reference model
+               (--ref-ema-eta 0.9 --offload-ref) and the difficulty filter,
+               run uninterrupted for three steps (U), for one step with a
+               recover checkpoint (R1), and rerun under R1's trial name
+               (R2: restores step 1, runs steps 2-3); free disk checked
+               first (~25 GiB).  Checked: every EMA bit for bit and the ref
+               back on host, the filter's exact drop set and the loader's
+               top-up, R1's manifest, R2's restore of R1's masters, Adam
+               state, ref, versions, controls and filter state bit for bit,
+               R2's steps fetching U's ids with U's tokens and stats (U's
+               and R1's step-1 masters compared bit for bit first), and
+               each step's launches = 28 x the engines' calls.  The save's
+               and restore's seconds, each trial's steps and the peak are
+               printed.
 push         — the in-memory weight push mid-generation at full qwen2-1.5B
                (28 layers, bf16): GenerationServer serves 16 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
@@ -147,7 +162,8 @@ train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
 editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
 K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
 step with the critic and the reference model, `--phases build,quickstart`
-for the quickstart entry point.  The line before the last is one JSON object
+for the quickstart entry point, `--phases build,recover` for
+kill-and-resume.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -167,7 +183,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "parity", "train_parity")
+          "train", "ppo", "quickstart", "recover", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -2601,6 +2617,208 @@ def _shard_headers(path):
     return out
 
 
+def _trial_counts():
+    """Every kernel's launch count so far."""
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+
+    return dict(fa.LAUNCHES, k4=da.LAUNCHES, k2=rpa.LAUNCHES, k3=pca.LAUNCHES)
+
+
+def _reset_counts():
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+
+    fa.reset_launches()
+    da.LAUNCHES = rpa.LAUNCHES = pca.LAUNCHES = 0
+
+
+def _fp32_model_bytes(cfg):
+    """Bytes of a dense model's fp32 weights (tied embeddings)."""
+    return 4 * (cfg.vocab_size * cfg.hidden_dim + cfg.n_layers * (
+        2 * cfg.hidden_dim * cfg.q_dim + 2 * cfg.hidden_dim * cfg.kv_dim
+        + 3 * cfg.hidden_dim * cfg.intermediate_dim))
+
+
+def _check_disk(tag, path, need):
+    import shutil
+
+    free = shutil.disk_usage(path).free
+    log(f"{tag} disk: {free / 2**30:.1f} GiB free under {path}, {need / 2**30:.1f} GiB needed")
+    check(free >= need, f"{tag} only {free / 2**30:.1f} GiB free for the phase's "
+          f"checkpoints; {need / 2**30:.1f} GiB needed")
+
+
+def _write_random_checkpoint(tag, work, cfg, seed):
+    """A seeded random checkpoint written by the port's
+    save_hf_checkpoint into work/ckpt (fp32, two shards and an index);
+    returns (path, seconds, bytes)."""
+    import torch
+
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.models.transformer import init_params
+
+    ckpt = os.path.join(work, "ckpt")
+    t = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    hf.save_hf_checkpoint(ckpt, cfg, params, model_type="qwen2")
+    del params
+    torch.cuda.empty_cache()
+    write_s = time.monotonic() - t
+    files = sorted(os.listdir(ckpt))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+    shards = [f for f in files if f.endswith(".safetensors")]
+    log(f"{tag} wrote a seeded random qwen2-1.5b checkpoint with save_hf_checkpoint: "
+        f"{ckpt_bytes / 1e9:.3f} GB fp32 in {write_s:.2f} s "
+        f"({ckpt_bytes / 1e9 / write_s:.2f} GB/s): {files}")
+    check(len(shards) == 2 and "model.safetensors.index.json" in files,
+          f"the checkpoint is not two shards and an index: {files}")
+    return ckpt, write_s, ckpt_bytes
+
+
+def _record_checkpoint_io(wrap, rec):
+    """Time every checkpoint load (rec["loads"]: seconds) and every
+    interface save (rec["saves"]: (dir, seconds))."""
+    import functools
+
+    import torch
+
+    from areal_tpu_torch.interfaces import sft
+    from areal_tpu_torch.models.hf import registry as hf
+
+    def on_load(orig):
+        @functools.wraps(orig)
+        def load(*a, **k):
+            t0 = time.monotonic()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            rec["loads"].append(time.monotonic() - t0)
+            return out
+        return load
+
+    def on_save(orig):
+        @functools.wraps(orig)
+        def save(self, model, save_dir):
+            t0 = time.monotonic()
+            orig(self, model, save_dir)
+            rec["saves"].append((save_dir, time.monotonic() - t0))
+        return save
+
+    wrap(hf, "load_hf_checkpoint", on_load)
+    wrap(sft.SFTInterface, "save", on_save)
+
+
+def _record_trial_steps(wrap, rec, cur):
+    """Wrap (through `wrap`, which records what to restore) the master's
+    step and the engines' calls, so each step of a `quickstart.main`
+    trial appends a record to rec["steps"]: its number, the kernels'
+    launches in the step, the static chunks and decode steps generate
+    ran, the forward micro-batches of the ref and of the train engine,
+    each train_batch call's stats, micro-batches and lr, and the step's
+    peak memory.  `cur` is the step in progress."""
+    import functools
+
+    import torch
+
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.engines.inference import InferenceEngine
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.system.master import MasterWorker
+
+    def on_step(orig):
+        async def execute_step(self):
+            torch.cuda.synchronize()
+            if "resident_bytes" not in rec:
+                rec["resident_bytes"] = torch.cuda.memory_allocated()
+                rec["plan_nodes"] = [(nd.name, nd.interface_type) for nd in self.dfg.nodes]
+            torch.cuda.reset_peak_memory_stats()
+            cur.clear()
+            cur.update(step=self.step_info.global_step + 1, gen_chunks=0, decode_steps=0,
+                       ref_fwd_mbs=0, train_fwd_mbs=0, train_calls=[],
+                       counts0=_trial_counts())
+            stats = await orig(self)
+            torch.cuda.synchronize()
+            c1 = _trial_counts()
+            cur["launches"] = {k: c1[k] - cur["counts0"][k] for k in c1}
+            cur["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            cur["stats"] = stats
+            rec["steps"].append(dict(cur))
+            return stats
+        return execute_step
+
+    def on_generate(orig):
+        @functools.wraps(orig)
+        def generate(self, *a, **k):
+            c0, s0 = self.static_chunks, self.static_decode_steps
+            out = orig(self, *a, **k)
+            cur["gen_chunks"] += self.static_chunks - c0
+            cur["decode_steps"] += self.static_decode_steps - s0
+            return out
+        return generate
+
+    def on_forward(key):
+        def make(orig):
+            @functools.wraps(orig)
+            def forward(self, sample, mb_spec, *a, **k):
+                cur[key] += len(sample.split(mb_spec))
+                return orig(self, sample, mb_spec, *a, **k)
+            return forward
+        return make
+
+    def on_train_batch(orig):
+        @functools.wraps(orig)
+        def train_batch(self, *a, **k):
+            lr = self.lr_schedule(self.opt_count)
+            out = orig(self, *a, **k)
+            cur["train_calls"].append(dict(
+                stats=out, mbs=self.last_pack_stats["n_micro_batches"], lr=lr,
+                oc=self.optimizer_config))
+            return out
+        return train_batch
+
+    wrap(MasterWorker, "execute_step", on_step)
+    wrap(GeneratorEngine, "generate", on_generate)
+    wrap(InferenceEngine, "forward", on_forward("ref_fwd_mbs"))
+    wrap(TrainEngine, "forward", on_forward("train_fwd_mbs"))
+    wrap(TrainEngine, "train_batch", on_train_batch)
+
+
+def _check_step_launches(tag, step, st, nodes, n_layers, max_new):
+    """A step's launches (st: one record of _record_trial_steps) against
+    the launches each MFC of the DFG `nodes` must make, from the engines'
+    own calls: generate one prefill (K1f) a static chunk and one K4 a
+    decode step; ref_inf one K1f a forward micro-batch; each train_batch
+    of actor_train two forwards (remat "full"), one dq and one dkv a
+    micro-batch.  K2 and K3 (the serving plane) run no time."""
+    from areal_tpu_torch.api.config import ModelInterfaceType
+
+    L = n_layers
+    train_mbs = sum(c["mbs"] for c in st["train_calls"])
+    per_node = {}
+    for name, itype in nodes:
+        if itype == ModelInterfaceType.GENERATE:
+            per_node[name] = dict(fwd=L * st["gen_chunks"], k4=L * st["decode_steps"])
+        elif itype == ModelInterfaceType.TRAIN_STEP:
+            per_node[name] = dict(fwd=L * (2 * train_mbs + st["train_fwd_mbs"]),
+                                  dq=L * train_mbs, dkv=L * train_mbs)
+        elif name == "ref_inf":
+            per_node[name] = dict(fwd=L * st["ref_fwd_mbs"])
+    want = {k: sum(d.get(k, 0) for d in per_node.values()) for k in ("fwd", "dq", "dkv", "k4")}
+    want.update(k2=0, k3=0)
+    log(f"{tag} step {step}: launches {st['launches']}; from the DFG {per_node} "
+        f"({st['gen_chunks']} static chunk(s), {st['decode_steps']} decode steps, "
+        f"{st['ref_fwd_mbs']} ref micro-batch(es), {len(st['train_calls'])} minibatch "
+        f"train_batch call(s) of {train_mbs} micro-batch(es))")
+    check(st["launches"] == want, f"{tag} step {step}: launches {st['launches']} != {want}")
+    check(st["gen_chunks"] == 1 and 1 <= st["decode_steps"] <= max_new - 1,
+          f"{tag} step {step}: generate took {st['gen_chunks']} static chunks, "
+          f"{st['decode_steps']} decode steps")
+
+
 def phase_quickstart(report, seed):
     """`python -m areal_tpu_torch.apps.quickstart ppo-math` at qwen2-1.5B,
     in this process: a seeded random checkpoint written by the port's
@@ -2616,24 +2834,12 @@ def phase_quickstart(report, seed):
     import torch
 
     from areal_tpu_torch.apps import quickstart
-    from areal_tpu_torch.api.config import ModelInterfaceType
-    from areal_tpu_torch.engines.generator import GeneratorEngine
-    from areal_tpu_torch.engines.inference import InferenceEngine
-    from areal_tpu_torch.engines.train import TrainEngine
-    from areal_tpu_torch.interfaces import sft
     from areal_tpu_torch.interfaces.ppo import (
         PPOActorInterface, _extract_layout, _seq_align_minus1,
     )
     from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
-    from areal_tpu_torch.kernels import decode_attention as da
-    from areal_tpu_torch.kernels import flash_attention as fa
-    from areal_tpu_torch.kernels import paged_chunk_attention as pca
-    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.models.config import qwen2_config
-    from areal_tpu_torch.models.hf import registry as hf
     from areal_tpu_torch.models.hf import safetensors_io
-    from areal_tpu_torch.models.transformer import init_params
-    from areal_tpu_torch.system.master import MasterWorker
 
     cfg = qwen2_config("1.5b")
     n_prompts, n, max_new, n_steps = 8, 4, 128, 2
@@ -2650,29 +2856,8 @@ def phase_quickstart(report, seed):
     try:
         # Two fp32 copies of the model (the checkpoint, the step-2 save)
         # and the margin the trial's logs need.
-        need = 2 * 4 * (cfg.vocab_size * cfg.hidden_dim + cfg.n_layers * (
-            2 * cfg.hidden_dim * cfg.q_dim + 2 * cfg.hidden_dim * cfg.kv_dim
-            + 3 * cfg.hidden_dim * cfg.intermediate_dim)) + 2 * 2**30
-        free = shutil.disk_usage(work).free
-        log(f"[quickstart] disk: {free / 2**30:.1f} GiB free under {QUICKSTART_DIR}, "
-            f"{need / 2**30:.1f} GiB needed")
-        check(free >= need, f"only {free / 2**30:.1f} GiB free for the quickstart phase's "
-              f"checkpoints; {need / 2**30:.1f} GiB needed")
-        ckpt = os.path.join(work, "ckpt")
-        t = time.monotonic()
-        params = init_params(cfg, seed + 21, device="cuda")
-        hf.save_hf_checkpoint(ckpt, cfg, params, model_type="qwen2")
-        del params
-        torch.cuda.empty_cache()
-        write_s = time.monotonic() - t
-        files = sorted(os.listdir(ckpt))
-        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
-        shards = [f for f in files if f.endswith(".safetensors")]
-        log(f"[quickstart] wrote a seeded random qwen2-1.5b checkpoint with "
-            f"save_hf_checkpoint: {ckpt_bytes / 1e9:.3f} GB fp32 in {write_s:.2f} s "
-            f"({ckpt_bytes / 1e9 / write_s:.2f} GB/s): {files}")
-        check(len(shards) == 2 and "model.safetensors.index.json" in files,
-              f"the checkpoint is not two shards and an index: {files}")
+        _check_disk("[quickstart]", work, 2 * _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, write_s, ckpt_bytes = _write_random_checkpoint("[quickstart]", work, cfg, seed + 21)
         data = os.path.join(work, "math.jsonl")
         with open(data, "w") as f:
             for row in _math_rows(rng, 64):
@@ -2681,59 +2866,7 @@ def phase_quickstart(report, seed):
         # Instrumentation: per-step records from the engines' own calls.
         rec = {"steps": [], "loads": [], "saves": []}
         cur = {}
-
-        def counts():
-            return dict(fa.LAUNCHES, k4=da.LAUNCHES, k2=rpa.LAUNCHES, k3=pca.LAUNCHES)
-
-        def on_step(orig):
-            async def execute_step(self):
-                torch.cuda.synchronize()
-                if not rec["steps"]:
-                    rec["resident_bytes"] = torch.cuda.memory_allocated()
-                    rec["plan_nodes"] = [(nd.name, nd.interface_type) for nd in self.dfg.nodes]
-                torch.cuda.reset_peak_memory_stats()
-                cur.clear()
-                cur.update(gen_chunks=0, decode_steps=0, ref_fwd_mbs=0, train_fwd_mbs=0,
-                           train_calls=[], counts0=counts())
-                stats = await orig(self)
-                torch.cuda.synchronize()
-                c1 = counts()
-                cur["launches"] = {k: c1[k] - cur["counts0"][k] for k in c1}
-                cur["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-                cur["stats"] = stats
-                rec["steps"].append(dict(cur))
-                return stats
-            return execute_step
-
-        def on_generate(orig):
-            @functools.wraps(orig)
-            def generate(self, *a, **k):
-                c0, s0 = self.static_chunks, self.static_decode_steps
-                out = orig(self, *a, **k)
-                cur["gen_chunks"] += self.static_chunks - c0
-                cur["decode_steps"] += self.static_decode_steps - s0
-                return out
-            return generate
-
-        def on_forward(key):
-            def make(orig):
-                @functools.wraps(orig)
-                def forward(self, sample, mb_spec, *a, **k):
-                    cur[key] += len(sample.split(mb_spec))
-                    return orig(self, sample, mb_spec, *a, **k)
-                return forward
-            return make
-
-        def on_train_batch(orig):
-            @functools.wraps(orig)
-            def train_batch(self, *a, **k):
-                lr = self.lr_schedule(self.opt_count)
-                out = orig(self, *a, **k)
-                cur["train_calls"].append(dict(
-                    stats=out, mbs=self.last_pack_stats["n_micro_batches"], lr=lr,
-                    oc=self.optimizer_config))
-                return out
-            return train_batch
+        _record_trial_steps(wrap, rec, cur)
 
         def on_actor_train(orig):
             @functools.wraps(orig)
@@ -2759,33 +2892,9 @@ def phase_quickstart(report, seed):
                 return out
             return inference
 
-        def on_load(orig):
-            @functools.wraps(orig)
-            def load(*a, **k):
-                t0 = time.monotonic()
-                out = orig(*a, **k)
-                torch.cuda.synchronize()
-                rec["loads"].append(time.monotonic() - t0)
-                return out
-            return load
-
-        def on_save(orig):
-            @functools.wraps(orig)
-            def save(self, model, save_dir):
-                t0 = time.monotonic()
-                orig(self, model, save_dir)
-                rec["saves"].append((save_dir, time.monotonic() - t0))
-            return save
-
-        wrap(MasterWorker, "execute_step", on_step)
-        wrap(GeneratorEngine, "generate", on_generate)
-        wrap(InferenceEngine, "forward", on_forward("ref_fwd_mbs"))
-        wrap(TrainEngine, "forward", on_forward("train_fwd_mbs"))
-        wrap(TrainEngine, "train_batch", on_train_batch)
         wrap(PPOActorInterface, "train_step", on_actor_train)
         wrap(MultiTaskRewardInterface, "inference", on_reward)
-        wrap(hf, "load_hf_checkpoint", on_load)
-        wrap(sft.SFTInterface, "save", on_save)
+        _record_checkpoint_io(wrap, rec)
 
         argv = [
             "ppo-math", "--model.path", ckpt, "--dataset.path", data,
@@ -2800,13 +2909,12 @@ def phase_quickstart(report, seed):
             "are all -5, which gives GRPO no advantage)")
         try:
             torch.cuda.synchronize()
-            fa.reset_launches()
-            da.LAUNCHES = rpa.LAUNCHES = pca.LAUNCHES = 0
+            _reset_counts()
             t = time.monotonic()
             stats = quickstart.main(argv)
             torch.cuda.synchronize()
             trial_s = time.monotonic() - t
-            total = counts()
+            total = _trial_counts()
         finally:
             for owner, name, orig in reversed(restore):
                 setattr(owner, name, orig)
@@ -2825,32 +2933,7 @@ def phase_quickstart(report, seed):
             check(all(math.isfinite(v) for v in s.values()),
                   f"step {i + 1}: non-finite stats {[k for k, v in s.items() if not math.isfinite(v)]}")
             check(s["actor_train/quarantined"] == 0.0, f"step {i + 1} was quarantined")
-            # The launches each MFC of the DFG must make, from the
-            # engines' own calls: generate one prefill (K1f) a static
-            # chunk and one K4 a decode step; ref_inf one K1f a forward
-            # micro-batch; each train_batch of actor_train two forwards
-            # (remat "full"), one dq and one dkv a micro-batch.
-            train_mbs = sum(c["mbs"] for c in st["train_calls"])
-            per_node = {}
-            for name, itype in nodes:
-                if itype == ModelInterfaceType.GENERATE:
-                    per_node[name] = dict(fwd=L * st["gen_chunks"], k4=L * st["decode_steps"])
-                elif itype == ModelInterfaceType.TRAIN_STEP:
-                    per_node[name] = dict(fwd=L * (2 * train_mbs + st["train_fwd_mbs"]),
-                                          dq=L * train_mbs, dkv=L * train_mbs)
-                elif name == "ref_inf":
-                    per_node[name] = dict(fwd=L * st["ref_fwd_mbs"])
-            want = {k: sum(d.get(k, 0) for d in per_node.values())
-                    for k in ("fwd", "dq", "dkv", "k4")}
-            want.update(k2=0, k3=0)
-            log(f"[quickstart] step {i + 1}: launches {st['launches']}; from the DFG "
-                f"{per_node} ({st['gen_chunks']} static chunk(s), {st['decode_steps']} decode "
-                f"steps, {st['ref_fwd_mbs']} ref micro-batch(es), {len(st['train_calls'])} "
-                f"minibatch train_batch call(s) of {train_mbs} micro-batch(es))")
-            check(st["launches"] == want, f"step {i + 1}: launches {st['launches']} != {want}")
-            check(st["gen_chunks"] == 1 and 1 <= st["decode_steps"] <= max_new - 1,
-                  f"step {i + 1}: generate took {st['gen_chunks']} static chunks, "
-                  f"{st['decode_steps']} decode steps")
+            _check_step_launches("[quickstart]", i + 1, st, nodes, L, max_new)
             first = st["train_calls"][0]["stats"]
             mfc = {k.split("/")[0]: v for k, v in s.items() if k.endswith("/perf/time_s")}
             rec_out = dict(
@@ -2865,7 +2948,8 @@ def phase_quickstart(report, seed):
                 approx_kl=s["actor_train/approx_kl"], ref_kl=s["actor_train/ref_kl"],
                 ref_logp_max=st["ref_logp_max"], ref_logp_mean=st["ref_logp_mean"],
                 actor_loss=s["actor_train/actor_loss"], grad_norm=s["actor_train/grad_norm"],
-                decode_steps=st["decode_steps"], train_micro_batches=train_mbs,
+                decode_steps=st["decode_steps"],
+                train_micro_batches=sum(c["mbs"] for c in st["train_calls"]),
             )
             steps_out.append(rec_out)
             log(f"[quickstart] step {i + 1}: {s['time/step_s']:.2f} s; by MFC (s) "
@@ -2933,6 +3017,420 @@ def phase_quickstart(report, seed):
         ckpt_write_s=write_s, ckpt_bytes=ckpt_bytes, ckpt_load_s=rec["loads"],
         save_s=save_s, trial_s=trial_s, largest_update=largest,
     )
+
+
+# --------------------------------------------------------------------------
+# recover: kill-and-resume, the EMA reference model and the difficulty filter
+# --------------------------------------------------------------------------
+
+RECOVER_DIR = os.path.join(REPO, ".recover_tmp")
+RECOVER_ETA = 0.9
+RECOVER_FILTER = {"min_accuracy": 0.25, "max_accuracy": 0.75}
+# Step 2's reward groups: the first 3 prompts of the batch score 4/4, the
+# next 2 score 0/4 (the expected drop set); every other group 2/4.
+RECOVER_ALL_GOOD, RECOVER_ALL_BAD = 3, 2
+# Resumed against uninterrupted, when the step-1 masters agree bit for
+# bit: every step-2/3 stat within this relative difference.
+RESUME_STATS_RTOL = 1e-6
+
+
+def _leaf_fingerprints(tree):
+    """Per-leaf fingerprints of a tensor tree on the card, to compare two
+    states bit for bit without a copy: each leaf's dtype, shape, and two
+    int64 sums over its raw words (the words, and each word times its
+    index mod 65521, plus 1), taken in chunks."""
+    import torch
+
+    out = {}
+    for name, x in _flat_params(tree):
+        w = x.detach().contiguous().view(-1)
+        w = w.view(torch.int32 if w.element_size() == 4 else torch.int16)
+        s0 = torch.zeros((), dtype=torch.int64, device=w.device)
+        s1 = torch.zeros((), dtype=torch.int64, device=w.device)
+        for i in range(0, w.numel(), 1 << 24):
+            c = w[i:i + (1 << 24)].to(torch.int64)
+            idx = torch.arange(i, i + c.numel(), device=w.device, dtype=torch.int64) % 65521 + 1
+            s0 += c.sum()
+            s1 += (c * idx).sum()
+        out[name] = (str(x.dtype), tuple(x.shape), int(s0), int(s1))
+    return out
+
+
+def _trial_state(master):
+    """What a recover checkpoint must carry over, read from a master and
+    its one worker: counters, controls (their elapsed seconds aside),
+    the filter's ids, the versions, the dataset's ids, and fingerprints
+    of the actor's fp32 masters and Adam moments and of the ref."""
+    w = master.pool.workers[0]
+    actor = w.models["actor@0"].engine
+    ref = w.models["ref@0"].engine
+    ref_params = ref.get_params()
+    out = dict(
+        step_info=dataclasses.asdict(master.step_info),
+        ctl={name: {k: v for k, v in ctl.state_dict().items() if k != "elapsed"}
+             for name, ctl in (("save", master.save_ctl), ("ckpt", master.ckpt_ctl))},
+        filtered_ids=list(master._filtered_ids),
+        versions={k: m.version for k, m in w.models.items()},
+        dataset_ids=list(w.datasets[0].ids),
+        opt_count=actor.opt_count,
+        masters=_leaf_fingerprints(actor.params),
+        mu=_leaf_fingerprints(actor._mu),
+        nu=_leaf_fingerprints(actor._nu),
+        ref=_leaf_fingerprints(ref_params),
+    )
+    ref.offload()  # as the trial left it
+    return out
+
+
+def phase_recover(report, seed):
+    """Kill-and-resume at qwen2-1.5B (28 layers, full width), through
+    `quickstart.main(["ppo-math", ...])` in this process: the quickstart
+    phase's trial (a seeded random fp32 checkpoint in two shards, 64 math
+    rows, `char:151936`, a ref, `--kl-ctl 0.1`, 8 prompts x 4, 128 new
+    tokens) with `--ref-ema-eta 0.9 --offload-ref` and the difficulty
+    filter (`dataset_filter` {min 0.25, max 0.75}, which the CLI has no
+    flag for: set by wrapping build_ppo_math).  Rewards are seeded +-5,
+    2 of 4 positive in every group but at step 2, where the batch's first
+    3 prompts score 4/4 and the next 2 score 0/4: the filter must drop
+    exactly those 5.  Three trials:
+
+    U   uninterrupted, three steps, no recover save;
+    R1  one step with `--ckpt-freq-steps 1` (a recover checkpoint at 1);
+    R2  the same trial name rerun to step 3: it restores step 1 and runs
+        steps 2 and 3, with no recover save (so no `.prev`).
+
+    (The drop comes at step 2, after the restart: a drop before a
+    checkpoint makes the restored data cursor replay a permutation of the
+    shrunken dataset, as the JAX package's does, and the resumed batches
+    then differ from U's; the CPU tests pin that behaviour.)
+
+    Checked: after every EMA (each step, and the restore's replay) each
+    ref leaf equals 0.9 * actor + 0.1 * ref_before bit for bit (the
+    coefficients in each leaf's dtype, as JAX's weak typing does) and the
+    ref is back on host at the step's end; the filter drops exactly the 5
+    expected ids at step 2, no dropped id comes back, every fetch holds
+    >= 8 unique ids; R1's recover dir validates its manifest; R2 restores
+    R1's fp32 masters, Adam moments, update count, ref, versions, step
+    account, controls and filter state bit for bit; R2's steps 2 and 3
+    fetch U's ids; U's and R1's step-1 masters are compared bit for bit
+    and, where they agree, R2's tokens equal U's and its stats agree
+    within RESUME_STATS_RTOL (the port's kernels use no atomics); each
+    step's launches equal 28 x the engines' calls of each MFC."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.base import recover
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.system.master import MasterWorker
+    from areal_tpu_torch.system.worker import ModelWorker, _Cycler
+
+    cfg = qwen2_config("1.5b")
+    n_prompts, n, max_new = 8, 4, 128
+    L = cfg.n_layers
+    os.makedirs(RECOVER_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=RECOVER_DIR)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    rec, cur = {}, {}
+    phase = {"ema": [], "times": {}, "states": {}, "host_step1": None, "in_restore": False}
+    trials = {}
+    try:
+        model = _fp32_model_bytes(cfg)
+        # The input checkpoint, the recover checkpoint (weights and both
+        # Adam moments) and a margin.
+        _check_disk("[recover]", work, 4 * model + 2 * 2**30)
+        ckpt, write_s, ckpt_bytes = _write_random_checkpoint("[recover]", work, cfg, seed + 40)
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(np.random.default_rng(seed + 41), 64):
+                f.write(json.dumps(row) + "\n")
+
+        _record_trial_steps(wrap, rec, cur)
+        _record_checkpoint_io(wrap, rec)
+
+        def on_build(orig):
+            @functools.wraps(orig)
+            def build_ppo_math(c, *a, **k):
+                c.dataset_filter = dict(RECOVER_FILTER)
+                return orig(c, *a, **k)
+            return build_ppo_math
+
+        def on_reward(orig):
+            @functools.wraps(orig)
+            def inference(self, model, sample, mb_spec):
+                out = orig(self, model, sample, mb_spec)
+                groups = [len(g) for g in sample.seqlens["packed_input_ids"]]
+                step = cur["step"]
+                r = np.random.default_rng([seed + 42, step])
+                rewards = []
+                for gi, k in enumerate(groups):
+                    if step == 2 and gi < RECOVER_ALL_GOOD:
+                        rewards += [5.0] * k
+                    elif step == 2 and gi < RECOVER_ALL_GOOD + RECOVER_ALL_BAD:
+                        rewards += [-5.0] * k
+                    else:
+                        rewards += list(r.permutation([5.0] * (k // 2) + [-5.0] * (k - k // 2)))
+                out.data["rewards"] = np.asarray(rewards, np.float32)
+                cur["reward_ids"] = list(sample.ids)
+                cur["tokens"] = np.asarray(sample.data["packed_input_ids"]).copy()
+                return out
+            return inference
+
+        def on_fetch(orig):
+            @functools.wraps(orig)
+            def fetch(self, req):
+                cur["loader_batches"] = 0
+                out = orig(self, req)
+                cur["fetch_ids"] = list(out["meta"].ids)
+                return out
+            return fetch
+
+        def on_cycler_next(orig):
+            @functools.wraps(orig)
+            def nxt(self):
+                if "loader_batches" in cur:
+                    cur["loader_batches"] += 1
+                return orig(self)
+            return nxt
+
+        def on_param_sync(orig):
+            @functools.wraps(orig)
+            def param_sync(self, req):
+                if req["dst"] != "ref@0":
+                    return orig(self, req)
+                ref = self.models["ref@0"].engine
+                before = {k: v.clone() for k, v in _flat_params(ref.get_params())}
+                out = orig(self, req)
+                actor = dict(_flat_params(self.models[req["src"]].engine.get_params()))
+                bad, worst = [], 0.0
+                for k, after in _flat_params(ref.get_params()):
+                    b, a = before.pop(k), actor[k]
+                    # JAX's weak typing: each coefficient in its leaf's dtype.
+                    want = (torch.tensor(req["eta"], dtype=a.dtype) * a
+                            + torch.tensor(1 - req["eta"], dtype=b.dtype) * b).to(b.dtype)
+                    if not torch.equal(after, want):
+                        bad.append(k)
+                        worst = max(worst, float((after.float() - want.float()).abs().max()))
+                phase["ema"].append(dict(
+                    trial=phase["trial"], step="restore" if phase["in_restore"] else cur["step"],
+                    eta=req["eta"], bad=bad, worst=worst))
+                return out
+            return param_sync
+
+        def on_step_end(orig):
+            async def execute_step(self):
+                stats = await orig(self)
+                ref = self.pool.workers[0].models["ref@0"].engine
+                rec["steps"][-1].update(ref_offloaded=ref._host_offload is not None,
+                                        filtered=list(self._filtered_ids))
+                if phase["trial"] in ("U", "R1") and rec["steps"][-1]["step"] == 1:
+                    actor = self.pool.workers[0].models["actor@0"].engine
+                    phase["states"][phase["trial"] + "_step1"] = _leaf_fingerprints(actor.params)
+                    if phase["trial"] == "U":
+                        phase["host_step1"] = {k: v.detach().to("cpu", copy=True)
+                                               for k, v in _flat_params(actor.params)}
+                    else:
+                        phase["step1_gap"] = max(
+                            float((v.detach() - phase["host_step1"][k].cuda()).abs().max())
+                            for k, v in _flat_params(actor.params))
+                        phase["host_step1"] = None
+                return stats
+            return execute_step
+
+        def on_run(orig):
+            async def run(self):
+                out = await orig(self)
+                phase["states"][phase["trial"] + "_exit"] = _trial_state(self)
+                return out
+            return run
+
+        def on_restore(orig):
+            async def restore_worker_state(self):
+                t0 = time.monotonic()
+                phase["in_restore"] = True
+                await orig(self)
+                phase["in_restore"] = False
+                torch.cuda.synchronize()
+                phase["times"]["restore_s"] = time.monotonic() - t0
+                phase["states"]["R2_restored"] = _trial_state(self)
+            return restore_worker_state
+
+        def on_save_recover(orig):
+            async def save_recover(self, step):
+                t0 = time.monotonic()
+                await orig(self, step)
+                phase["times"]["recover_save_s"] = time.monotonic() - t0
+            return save_recover
+
+        wrap(exps, "build_ppo_math", on_build)
+        wrap(MultiTaskRewardInterface, "inference", on_reward)
+        wrap(ModelWorker, "_handle_fetch", on_fetch)
+        wrap(_Cycler, "__next__", on_cycler_next)
+        wrap(ModelWorker, "_handle_param_sync", on_param_sync)
+        wrap(MasterWorker, "execute_step", on_step_end)
+        wrap(MasterWorker, "run", on_run)
+        wrap(MasterWorker, "_restore_worker_state", on_restore)
+        wrap(MasterWorker, "_save_recover", on_save_recover)
+
+        fileroot = os.path.join(work, "trial")
+        base_argv = [
+            "ppo-math", "--model.path", ckpt, "--dataset.path", data,
+            "--tokenizer-path", f"char:{cfg.vocab_size}", "--ref-path", ckpt,
+            "--kl-ctl", "0.1", "--batch-size", str(n_prompts), "--group-size", str(n),
+            "--max-new-tokens", str(max_new), "--ref-ema-eta", str(RECOVER_ETA),
+            "--offload-ref", "--fileroot", fileroot, "--seed", str(seed + 43),
+        ]
+        plan = (("U", ["--benchmark-steps", "3", "--trial-name", "uninterrupted"]),
+                ("R1", ["--benchmark-steps", "1", "--trial-name", "killed",
+                        "--ckpt-freq-steps", "1"]),
+                ("R2", ["--benchmark-steps", "3", "--trial-name", "killed"]))
+        log(f"[recover] python -m areal_tpu_torch.apps.quickstart {' '.join(base_argv)} "
+            f"with dataset_filter={RECOVER_FILTER}; trials {dict(plan)}")
+        torch.cuda.synchronize()
+        _reset_counts()
+        try:
+            for name, extra in plan:
+                phase["trial"] = name
+                rec.clear()
+                rec.update(steps=[], loads=[], saves=[])
+                c0 = _trial_counts()
+                t = time.monotonic()
+                stats = quickstart.main(base_argv + extra)
+                torch.cuda.synchronize()
+                c1 = _trial_counts()
+                trials[name] = dict(
+                    stats=stats, steps=list(rec["steps"]), loads=list(rec["loads"]),
+                    saves=list(rec["saves"]), seconds=time.monotonic() - t,
+                    launches={k: c1[k] - c0[k] for k in c1},
+                    resident_bytes=rec.get("resident_bytes"), nodes=rec.get("plan_nodes"),
+                )
+                gc.collect()
+                torch.cuda.empty_cache()
+                log(f"[recover] trial {name}: {len(stats)} step(s) in "
+                    f"{trials[name]['seconds']:.1f} s; checkpoint loads "
+                    f"{['%.2f s' % s for s in rec['loads']]}; card memory after "
+                    f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            total = _trial_counts()
+        finally:
+            for owner, name, orig in reversed(restore):
+                setattr(owner, name, orig)
+
+        # ---- every step: stats, launches, EMA, offload, fetches ----
+        for name, tr in trials.items():
+            check(len(tr["stats"]) == {"U": 3, "R1": 1, "R2": 2}[name],
+                  f"[recover] trial {name}: {len(tr['stats'])} steps")
+            check(tr["launches"] == {k: sum(st["launches"][k] for st in tr["steps"])
+                                     for k in tr["launches"]},
+                  f"[recover] trial {name}: launches outside its steps {tr['launches']}")
+            for st in tr["steps"]:
+                s, i = st["stats"], st["step"]
+                check(all(math.isfinite(v) for v in s.values()),
+                      f"[recover] {name} step {i}: non-finite stats")
+                check(s["actor_train/quarantined"] == 0.0, f"[recover] {name} step {i} quarantined")
+                _check_step_launches(f"[recover] {name}", i, st, tr["nodes"], L, max_new)
+                check(st["ref_offloaded"], f"[recover] {name} step {i}: the ref is not on host")
+                ids = st["fetch_ids"]
+                check(len(ids) == len(set(ids)) >= n_prompts and len(st["reward_ids"]) == n_prompts,
+                      f"[recover] {name} step {i}: fetched {ids}, graded {st['reward_ids']}")
+                mfc = {k.split("/")[0]: round(v, 3) for k, v in s.items()
+                       if k.endswith("/perf/time_s")}
+                log(f"[recover] {name} step {i}: {s['time/step_s']:.2f} s; by MFC (s) {mfc}; "
+                    f"peak {st['peak_mem_bytes'] / 2**30:.2f} GiB; fetched {len(ids)} ids in "
+                    f"{st['loader_batches']} loader batch(es); filtered so far "
+                    f"{len(st['filtered'])}")
+        ema_bad = [e for e in phase["ema"] if e["bad"]]
+        log(f"[recover] EMA checks: {[(e['trial'], e['step']) for e in phase['ema']]}; "
+            f"leaves off the exact mix: {ema_bad}")
+        check(len(phase["ema"]) == 3 + 1 + 3 and not ema_bad,
+              f"[recover] EMA not bit for bit (or not 7 calls): {ema_bad or phase['ema']}")
+
+        # ---- the filter ----
+        u2, u3 = trials["U"]["steps"][1], trials["U"]["steps"][2]
+        expected = u2["reward_ids"][:RECOVER_ALL_GOOD + RECOVER_ALL_BAD]
+        log(f"[recover] filter: expected drop {expected}; U dropped {u2['filtered']}; "
+            f"step-3 fetch {u3['fetch_ids']}")
+        check(trials["U"]["steps"][0]["filtered"] == [] and u2["filtered"] == expected,
+              f"[recover] U's filter dropped {u2['filtered']}, want {expected}")
+        check(not set(expected) & set(u3["fetch_ids"]) and not set(expected) & set(
+            trials["R2"]["steps"][1]["fetch_ids"]), "[recover] a dropped id was fetched again")
+        st_u = phase["states"]["U_exit"]
+        check(len(st_u["dataset_ids"]) == 64 - len(expected)
+              and not set(expected) & set(st_u["dataset_ids"]),
+              f"[recover] U's dataset holds {len(st_u['dataset_ids'])} rows")
+
+        # ---- the recover checkpoint and the round trip ----
+        base = os.path.join(fileroot, "checkpoints", "ppo-math", "killed", "actor@0",
+                            "recover_checkpoint")
+        manifest = recover.validate_manifest(base)
+        check(manifest is not None and manifest["step"] == 1,
+              f"[recover] R1's recover checkpoint {base} does not validate: {manifest}")
+        check(not os.path.exists(base + recover.PREV_SUFFIX)
+              and sorted(os.listdir(os.path.dirname(base))) == ["recover_checkpoint"],
+              f"[recover] {os.listdir(os.path.dirname(base))} beside the checkpoint")
+        rc_bytes = sum(f["size"] for f in manifest["files"])
+        log(f"[recover] R1's recover checkpoint: {rc_bytes / 1e9:.3f} GB in "
+            f"{len(manifest['files'])} files, saved in {phase['times']['recover_save_s']:.2f} s "
+            f"({rc_bytes / 1e9 / phase['times']['recover_save_s']:.2f} GB/s); R2's restore "
+            f"{phase['times']['restore_s']:.2f} s ({rc_bytes / 1e9 / phase['times']['restore_s']:.2f} "
+            f"GB/s); manifest versions {manifest['model_versions']}")
+        r1, r2 = phase["states"]["R1_exit"], phase["states"]["R2_restored"]
+        for key in ("masters", "mu", "nu", "opt_count", "ref", "versions", "step_info", "ctl",
+                    "filtered_ids", "dataset_ids"):
+            check(r1[key] == r2[key], f"[recover] R2's restored {key} differs from R1's at exit")
+        log(f"[recover] R2 restored R1's state bit for bit: masters, mu, nu "
+            f"({len(r1['masters'])} leaves each), opt_count {r1['opt_count']}, the ref, "
+            f"versions {r1['versions']}, step {r1['step_info']}, controls {r1['ctl']}")
+
+        # ---- resumed against uninterrupted ----
+        same = phase["states"]["U_step1"] == phase["states"]["R1_step1"]
+        log(f"[recover] U's and R1's step-1 masters bitwise equal: {same} (largest "
+            f"difference {phase['step1_gap']:.3e})")
+        for (su, sr) in zip(trials["U"]["steps"][1:], trials["R2"]["steps"]):
+            check(su["fetch_ids"] == sr["fetch_ids"],
+                  f"[recover] step {sr['step']}: R2 fetched {sr['fetch_ids']}, U {su['fetch_ids']}")
+        worst = {}
+        for (su, sr) in zip(trials["U"]["steps"][1:], trials["R2"]["steps"]):
+            for k, v in su["stats"].items():
+                if "/perf/" in k or "/time/" in k or k.startswith("time/"):
+                    continue
+                d = abs(sr["stats"][k] - v) / max(abs(v), 1e-30)
+                worst[k] = max(worst.get(k, 0.0), d)
+        tokens_equal = [np.array_equal(su["tokens"], sr["tokens"])
+                        for su, sr in zip(trials["U"]["steps"][1:], trials["R2"]["steps"])]
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+        log(f"[recover] R2 against U at steps 2-3: tokens equal {tokens_equal}; largest "
+            f"relative stat differences {top}")
+        check(same, f"[recover] U's and R1's step-1 masters differ (by up to "
+              f"{phase['step1_gap']:.3e}): the train step is not deterministic on the card")
+        check(all(tokens_equal) and max(worst.values()) <= RESUME_STATS_RTOL,
+              f"[recover] the resumed trial left the uninterrupted one: tokens {tokens_equal}, "
+              f"stats {top}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps_s = {name: [st["stats"]["time/step_s"] for st in tr["steps"]]
+               for name, tr in trials.items()}
+    report["recover"] = dict(
+        launches=total, ckpt_write_s=write_s, ckpt_bytes=ckpt_bytes,
+        recover_bytes=rc_bytes, times=phase["times"], steps_s=steps_s,
+        peak_mem_bytes=max(st["peak_mem_bytes"] for tr in trials.values() for st in tr["steps"]),
+        trial_s={name: tr["seconds"] for name, tr in trials.items()},
+    )
+    log(f"[recover] step seconds {steps_s}; peak {report['recover']['peak_mem_bytes'] / 2**30:.2f} "
+        f"GiB; launches over the phase {total}")
+    log_card()
 
 
 def phase_train_parity(seed):
@@ -3048,6 +3546,7 @@ def _worst(vals):
 
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
+    rc_launches = report.get("recover", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -3057,6 +3556,7 @@ def _kernels_line(report):
         "replaces": "areal_tpu/ops/pallas/paged_attention.py:276",
         "launches": s.get("launches"),
         "launches_quickstart": qs_launches.get("k2"),
+        "launches_recover": rc_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -3088,6 +3588,7 @@ def _kernels_line(report):
             "launches": launches.get(name),
             "launches_ppo": ppo_launches.get(name),
             "launches_quickstart": qs_launches.get(name),
+            "launches_recover": rc_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -3121,6 +3622,7 @@ def _kernels_line(report):
         "replaces": "areal_tpu/ops/pallas/paged_attention.py:194",
         "launches": report.get("push", {}).get("launches"),
         "launches_quickstart": qs_launches.get("k3"),
+        "launches_recover": rc_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -3147,6 +3649,7 @@ def _kernels_line(report):
         "replaces": "areal_tpu/ops/pallas/decode_attention.py:145",
         "launches": report.get("static", {}).get("launches"),
         "launches_quickstart": qs_launches.get("k4"),
+        "launches_recover": rc_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -3210,6 +3713,8 @@ def main() -> int:
         phase_ppo(report, args.seed)
     if "quickstart" in phases:
         phase_quickstart(report, args.seed)
+    if "recover" in phases:
+        phase_recover(report, args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
     if "train_parity" in phases:

@@ -72,6 +72,7 @@ def _graph(plan):
 GRAPH_CASES = {
     "grpo": dict(ref=False, critic=False, offload_ref=False),
     "grpo_ref_offload": dict(ref=True, critic=False, offload_ref=True),
+    "grpo_ref_ema_offload": dict(ref=True, critic=False, offload_ref=True, ref_ema_eta=0.9),
     "value": dict(ref=True, critic=True, offload_ref=False),
 }
 
@@ -87,6 +88,7 @@ def test_ppo_graph_matches_jax(case):
         ref=JModelAbstraction("random", {"config": jtiny()}) if kw["ref"] else None,
         dataset=JDatasetAbstraction("prompt", {"dataset_builder": rows}),
         ppo_kwargs={"kl_ctl": 0.1} if kw["ref"] else {}, offload_ref=kw["offload_ref"],
+        ref_ema_eta=kw.get("ref_ema_eta"),
     )
     tcfg = exps.PPOMathConfig(
         actor=ModelAbstraction("random", {"config": ttiny()}),
@@ -95,11 +97,16 @@ def test_ppo_graph_matches_jax(case):
         ref=ModelAbstraction("random", {"config": ttiny()}) if kw["ref"] else None,
         dataset=DatasetAbstraction("prompt", {"dataset_builder": rows}),
         ppo_kwargs={"kl_ctl": 0.1} if kw["ref"] else {}, offload_ref=kw["offload_ref"],
+        ref_ema_eta=kw.get("ref_ema_eta"),
     )
     got, want = _graph(exps.build_ppo_math(tcfg)), _graph(jexps.build_ppo_math(jcfg))
     assert got == want
     nodes = {n["name"]: n for n in got[0]}
-    assert nodes["actor_train"]["post"] == [("ParamReallocHook", "actor_gen@0", 1.0)]
+    post = [("ParamReallocHook", "actor_gen@0", 1.0)]
+    if kw.get("ref_ema_eta"):
+        # The EMA, then (with offload_ref) the ref back to host memory.
+        post += [("ParamReallocHook", "ref@0", kw["ref_ema_eta"]), ("OffloadHook", "ref@0", None)]
+    assert nodes["actor_train"]["post"] == post
     assert (nodes.get("ref_inf", {}).get("post") == [("OffloadHook", None, None)]) == (
         kw["offload_ref"])
 
@@ -162,11 +169,8 @@ def test_offload_ref_e2e(tmp_path):
     ("rollout_ahead", 1, "item 7"),
     ("max_head_offpolicyness", 0, "item 7"),
     ("pipeline_overlap", True, "item 6"),
-    ("dataset_filter", {"min_accuracy": 0.1}, "item 4"),
-    ("ctrl", ExperimentSaveEvalControl(ckpt_freq_steps=1), "item 4"),
     ("gen_server_url", "http://localhost:1", "item 7"),
     ("fuse_rew_ref", True, "item 6"),
-    ("ref_ema_eta", 0.5, "item 4"),
     ("verifier_pool", True, "item 7"),
     ("mixture_weights", {"math": 1.0}, "item 7"),
     ("placement", {"actor_gen": 1}, "items 7 and 8"),
@@ -175,7 +179,6 @@ def test_offload_ref_e2e(tmp_path):
     ("episode_max_turns", 2, "item 5.4"),
     ("kv_paged", False, "item 5.1"),
     ("prefill_chunk_tokens", 0, "item 5.3"),
-    ("gen_backend_args", {"kv_cache_dtype": "int8"}, "item 5.1"),
     ("train_backend_args", {"master_dtype": "bfloat16"}, "item 6"),
     ("train_backend_args", {"remat_policy": "dots"}, "item 6"),
     ("gconfig", GenerationHyperparameters(spec_decode_k=2), "item 5.2"),
@@ -186,23 +189,76 @@ def test_unported_options_raise(tmp_path, option, value, item):
         exps.build_ppo_math(cfg)
 
 
+# The options the port refused before it had them, each now running a
+# trial on the CPU: the difficulty filter, recover checkpoints, the EMA
+# reference model and an int8 KV pool (which the static path ignores and
+# the serving plane honours, as in the JAX package).
+FORMERLY_UNPORTED = [
+    ("dataset_filter", {"min_accuracy": 0.1}),
+    ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
+    ("ref_ema_eta", 0.5),
+    ("gen_backend_args", {"kv_cache_dtype": "int8"}),
+]
+
+
+@pytest.mark.parametrize("option,value", FORMERLY_UNPORTED,
+                         ids=[o for o, _ in FORMERLY_UNPORTED])
+def test_formerly_unported_options_run(tmp_path, option, value):
+    tok = CharTokenizer(512)
+    cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
+    master, stats = exps.run_experiment(exps.build_ppo_math(cfg, tok), tokenizer=tok,
+                                        device="cpu")
+    assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
+    worker = master.pool.workers[0]
+    if option == "ctrl":
+        base = master._ckpt_dir(master._train_rpcs[0], "recover_checkpoint")
+        assert os.path.isdir(base) and os.path.isdir(base + ".prev")
+    if option == "gen_backend_args":
+        assert worker.models["actor_gen@0"].engine.kv_cache_dtype == "int8"
+
+
 def test_master_refuses_more_than_one_worker(tmp_path):
+    """More than one worker is refused; recover checkpoints
+    (`ckpt_freq_steps`) are not."""
     plan = exps.build_ppo_math(_e2e_cfg(tmp_path, "grpo"))
     with pytest.raises(NotImplementedError, match="items 7 and 8"):
         MasterWorker(plan.dfg, InProcessPool([object(), object()]), plan.model_placement,
                      [0], plan.ctrl, fileroot=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        MasterWorker(plan.dfg, InProcessPool([object()]), plan.model_placement, [0],
-                     ExperimentSaveEvalControl(ckpt_freq_steps=2), fileroot=str(tmp_path))
+    master = MasterWorker(plan.dfg, InProcessPool([object()]), plan.model_placement, [0],
+                          ExperimentSaveEvalControl(ckpt_freq_steps=2), fileroot=str(tmp_path))
+    assert master.ckpt_ctl.frequency_steps == 2
 
 
 def test_param_sync_eta_below_one_raises(tmp_path):
+    """An EMA sync (eta < 1), which the port once refused, now mixes: a
+    post-hook with eta 0.5 onto the reference model leaves it exactly at
+    `0.5 * actor + 0.5 * ref_before` after each step."""
+    from areal_tpu_torch.system import worker as tworker
+
     tok = CharTokenizer(512)
     plan = exps.build_ppo_math(_e2e_cfg(tmp_path, "grpo"), tok)
-    plan.dfg.nodes[-1].post_hooks = [ParamReallocHook(target=plan.dfg.nodes[0].model_name,
-                                                      eta=0.5)]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        exps.run_experiment(plan, tokenizer=tok, device="cpu")
+    ref = next(n.model_name for n in plan.dfg.nodes if n.name == "ref_inf")
+    plan.dfg.nodes[-1].post_hooks = [ParamReallocHook(target=ref, eta=0.5)]
+    seen = []
+    orig = tworker.ModelWorker._handle_param_sync
+
+    def param_sync(self, req):
+        before = {k: v.clone() for k, v in _flat(self.models[req["dst"]].engine.params)}
+        out = orig(self, req)
+        actor = {k: v.clone() for k, v in _flat(self.models[req["src"]].engine.get_params())}
+        seen.append((req["eta"], {k: (v.clone(), actor[k], before[k])
+                                  for k, v in _flat(self.models[req["dst"]].engine.params)}))
+        return out
+
+    tworker.ModelWorker._handle_param_sync = param_sync
+    try:
+        _, stats = exps.run_experiment(plan, tokenizer=tok, device="cpu")
+    finally:
+        tworker.ModelWorker._handle_param_sync = orig
+    assert len(stats) == 2 and [eta for eta, _ in seen] == [0.5, 0.5]
+    for _, leaves in seen:
+        for k, (after, actor, before) in leaves.items():
+            assert torch.equal(after, 0.5 * actor + 0.5 * before), k
 
 
 # ---------------- two-step parity against the JAX package ----------------

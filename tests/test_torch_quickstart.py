@@ -3,7 +3,9 @@ tests/test_quickstart_cli.py:49): `quickstart.main(["ppo-math", ...],
 device="cpu")` runs a tiny trial from a checkpoint the JAX package wrote,
 with a ref model, KL control and the byte tokenizer, prints the last
 step's stats and saves the actor; every flag whose feature is not yet
-ported exits naming its ROADMAP item."""
+ported exits naming its ROADMAP item.  The flags ported since run a
+trial; rerunning a command with recover checkpoints resumes it; and
+`--config` YAML files parse to the JAX CLI's arguments."""
 
 import json
 import os
@@ -17,6 +19,7 @@ from areal_tpu.models import transformer as jtfm
 from areal_tpu.models.config import tiny_config as jtiny
 from areal_tpu.models.hf import registry as jhf
 from areal_tpu_torch.apps import quickstart
+from areal_tpu_torch.base import recover
 from areal_tpu_torch.models.hf import registry as hf
 from tests import fixtures
 
@@ -74,29 +77,23 @@ def test_quickstart_defaults_to_the_card(tmp_path, ckpt_dir, data_path):
 
 
 UNPORTED = [
-    (["--config", "x.yaml"], "item 4"),
     (["--allocation", "d2"], "item 8"),
     (["--allocation", "search"], "item 10"),
     (["--chip", "v5p"], "item 10"),
     (["--search-devices", "8"], "item 10"),
-    (["--ckpt-freq-steps", "1"], "item 4"),
     (["--launcher", "slurm"], "item 10"),
     (["--tpu-name", "x"], "item 10"),
     (["--multiprocess"], "item 7"),
-    (["--recover-retries", "1"], "item 4"),
-    (["--mfc-timeout-s", "60"], "item 4"),
+    (["--recover-retries", "1"], "item 7"),
+    (["--mfc-timeout-s", "60"], "item 7"),
     (["--worker-heartbeat-s", "2"], "item 7"),
-    (["--max-recoveries", "1"], "item 4"),
     (["--anomaly-grad-norm-mult", "3"], "item 6"),
     (["--anomaly-update-norm-max", "1"], "item 6"),
-    (["--max-consecutive-quarantines", "1"], "item 4"),
     (["--no-weight-push-checksum"], "item 7"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
     (["--gen-server-url", "http://localhost:1"], "item 7"),
-    (["--ref-ema-eta", "0.5"], "item 4"),
-    (["--kv-cache-dtype", "int8"], "item 5.1"),
     (["--no-paged-kv"], "item 5.1"),
     (["--prefill-chunk-tokens", "0"], "item 5.3"),
     (["--master-dtype", "bfloat16"], "item 6"),
@@ -142,3 +139,105 @@ def test_sft_exits(tmp_path, ckpt_dir, data_path):
 def test_flag_combinations_exit(tmp_path, ckpt_dir, data_path, flags, message):
     with pytest.raises(SystemExit, match=message):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
+
+
+# The flags the port refused before it had them, each now running a
+# trial (see tests/test_torch_recover.py for their parity with the JAX
+# package).
+FORMERLY_UNPORTED = [
+    ["--ckpt-freq-steps", "1"],
+    ["--max-recoveries", "1"],
+    ["--max-consecutive-quarantines", "1"],
+    ["--ref-path", "{ckpt}", "--ref-ema-eta", "0.5", "--offload-ref"],
+    ["--kv-cache-dtype", "int8"],
+    ["--config", "{yaml}"],
+]
+
+
+@pytest.mark.parametrize("flags", FORMERLY_UNPORTED,
+                         ids=[f[2] if f[0] == "--ref-path" else f[0] for f in FORMERLY_UNPORTED])
+def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
+    cfg = tmp_path / "options.yaml"
+    cfg.write_text("batch-size: 4\nlr: 1.0e-4\nckpt_freq_steps: 2\n")
+    flags = [f.format(ckpt=ckpt_dir, yaml=cfg) for f in flags]
+    stats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
+    assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
+    recover_dir = os.path.join(tmp_path, "checkpoints", "ppo-math", "trial0", "actor@0",
+                               "recover_checkpoint")
+    assert os.path.isdir(recover_dir) == (flags[0] in ("--ckpt-freq-steps", "--config"))
+
+
+def test_rerun_resumes_the_trial(tmp_path, ckpt_dir, data_path):
+    """A trial with recover checkpoints, stopped after step 1, resumes
+    when the same command is run again with more steps: only step 2 runs,
+    from the step-1 checkpoint."""
+    argv = _argv(ckpt_dir, data_path, tmp_path, "--ckpt-freq-steps", "1")
+    first = argv[:argv.index("--benchmark-steps") + 1] + ["1"] + argv[
+        argv.index("--benchmark-steps") + 2:]
+    assert len(quickstart.main(first, device="cpu")) == 1
+    info = recover.load(recover.recover_root(str(tmp_path), "ppo-math", "trial0"))
+    assert info.last_step_info.global_step == 1
+    stats = quickstart.main(argv, device="cpu")
+    assert len(stats) == 1 and np.isfinite(stats[0]["actor_train/actor_loss"])
+    info = recover.load(recover.recover_root(str(tmp_path), "ppo-math", "trial0"))
+    assert info.last_step_info.global_step == 2
+
+
+def _parsed(mod, argv, monkeypatch):
+    """The argparse namespace each package's main() hands its ppo-math
+    command."""
+    got = {}
+    monkeypatch.setattr(mod, "cmd_ppo_math", lambda args, **_: got.update(vars(args)))
+    mod.main(argv)
+    got.pop("fn")
+    return got
+
+
+def test_yaml_config_parses_as_jax(tmp_path, ckpt_dir, data_path, monkeypatch):
+    """A YAML option file (flag spellings and python dests; required
+    flags satisfied from the file; a flag on the command line wins) gives
+    the port the JAX CLI's arguments."""
+    from areal_tpu.apps import quickstart as jquickstart
+
+    cfg = tmp_path / "options.yaml"
+    cfg.write_text(
+        f"model.path: {ckpt_dir}\ndataset.path: {data_path}\nbatch-size: 16\n"
+        "group_size: 8\nlr: 3.0e-6\nckpt-freq-steps: 5\nref-ema-eta: 0.99\n"
+        "max_consecutive_quarantines: 1\n"
+    )
+    # (--fileroot: each package's default names the package.)
+    argv = ["ppo-math", "--config", str(cfg), "--batch-size", "4", "--fileroot", str(tmp_path)]
+    got = _parsed(quickstart, argv, monkeypatch)
+    want = _parsed(jquickstart, argv, monkeypatch)
+    assert got == want
+    assert (got["batch_size"], got["group_size"], got["lr"]) == (4, 8, 3e-6)
+    assert (got["ckpt_freq_steps"], got["ref_ema_eta"], got["model_path"]) == (5, 0.99, ckpt_dir)
+
+
+def test_yaml_config_unknown_key_exits(tmp_path, ckpt_dir, data_path):
+    cfg = tmp_path / "options.yaml"
+    cfg.write_text("batch-size: 4\nno-such-option: 1\n")
+    with pytest.raises(SystemExit, match="unknown option 'no-such-option'"):
+        quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
+                        device="cpu")
+
+
+def test_yaml_config_cannot_set_an_unported_flag(tmp_path, ckpt_dir, data_path):
+    cfg = tmp_path / "options.yaml"
+    cfg.write_text("rollout-ahead: 1\n")
+    with pytest.raises(SystemExit, match="--rollout-ahead is not yet ported"):
+        quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
+                        device="cpu")
+
+
+def test_yaml_config_without_pyyaml_exits_clearly(tmp_path, ckpt_dir, data_path, monkeypatch):
+    """Where PyYAML is not installed (the card's machine), --config fails
+    with a sentence naming the package, not an ImportError."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises ImportError
+    cfg = tmp_path / "options.yaml"
+    cfg.write_text("batch-size: 4\n")
+    with pytest.raises(SystemExit, match="needs the PyYAML package"):
+        quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
+                        device="cpu")
