@@ -54,9 +54,7 @@ _UNPORTED_FLAGS = {
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
     "gen_server_url": "item 7 (remote generation servers)",
-    "no_paged_kv": "item 5.1 (the dense KV window)",
     "fuse_rew_ref": "item 6 (interfaces/fused.py)",
-    "spec_decode_k": "item 5.2 (speculative decoding)",
     "rollout_ahead": "item 7 (asynchronous RL)",
     "max_head_offpolicyness": "item 7 (asynchronous RL)",
     "replay_capacity": "item 7 (asynchronous RL)",
@@ -148,16 +146,17 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--ref-ema-eta", type=float, default=None,
                     help="EMA-update the ref toward the actor each step")
     pp.add_argument("--kv-cache-dtype", default="auto", choices=("auto", "int8"),
-                    help="int8: the serving plane's KV pool in int8 (the static path "
+                    help="int8: the inflight paths' KV cache in int8 (the static path "
                          "ignores it, as the JAX package's does)")
-    pp.add_argument("--no-paged-kv", action="store_true", help="not yet ported")
+    pp.add_argument("--no-paged-kv", action="store_true",
+                    help="the dense inflight KV window instead of the paged pool")
     pp.add_argument("--kv-page-size", type=int, default=128,
                     help="tokens per KV page in the serving plane's pool")
     pp.add_argument("--kv-pool-pages", type=int, default=0,
                     help="serving plane's KV pool in pages (0 = auto-size)")
     pp.add_argument("--prefill-chunk-tokens", type=int, default=None,
-                    help="serving plane: prompt tokens per row per inner step (0, the "
-                         "two-program admit, is not yet ported)")
+                    help="serving plane: prompt tokens per row per inner step (0: the "
+                         "two-program admit path, a prefill program then decode chunks)")
     pp.add_argument("--no-kv-share-prefix", action="store_true",
                     help="no copy-on-write prompt page sharing across a group")
     pp.add_argument("--master-dtype", default=None, choices=(None, "float32", "bfloat16"),
@@ -167,7 +166,8 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--fuse-rew-ref", action="store_true", help="not yet ported")
     pp.add_argument("--offload-ref", action="store_true",
                     help="host-offload the ref params between steps")
-    pp.add_argument("--spec-decode-k", type=int, default=0, help="not yet ported")
+    pp.add_argument("--spec-decode-k", type=int, default=0,
+                    help="speculative decoding: n-gram drafts per step (0 = off)")
     pp.add_argument("--rollout-ahead", type=int, default=0, choices=(0, 1),
                     help="not yet ported")
     pp.add_argument("--max-head-offpolicyness", type=int, default=None, help="not yet ported")
@@ -208,9 +208,6 @@ def _refuse_unported(defaults, args) -> None:
         raise SystemExit("--master-dtype bfloat16 is not yet ported (ROADMAP queue 1, item 6)")
     if getattr(args, "remat", None) in ("dots", "dots_small"):
         raise SystemExit(f"--remat {args.remat} is not yet ported (ROADMAP queue 1, item 6)")
-    if getattr(args, "prefill_chunk_tokens", None) == 0:
-        raise SystemExit("--prefill-chunk-tokens 0 (the two-program admit) is not yet ported "
-                         "(ROADMAP queue 1, item 5.3)")
 
 
 def _apply_yaml_config(parser: argparse.ArgumentParser, argv):
@@ -293,6 +290,7 @@ def cmd_ppo_math(args, device=None):
         gen_backend_args=(
             {"kv_cache_dtype": args.kv_cache_dtype} if args.kv_cache_dtype != "auto" else {}
         ),
+        kv_paged=False if args.no_paged_kv else None,
         kv_page_size=args.kv_page_size,
         kv_pool_pages=args.kv_pool_pages,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
@@ -302,7 +300,7 @@ def cmd_ppo_math(args, device=None):
         optimizer=OptimizerConfig(lr=args.lr),
         gconfig=GenerationHyperparameters(
             n=args.group_size, max_new_tokens=args.max_new_tokens,
-            temperature=args.temperature,
+            temperature=args.temperature, spec_decode_k=args.spec_decode_k,
         ),
         reward_backend=args.reward_backend,
         batch_size=args.batch_size,

@@ -1,5 +1,6 @@
-"""Generation engine: the static path and the unified serving plane over
-a paged KV pool (port of areal_tpu/engines/generator.py).
+"""Generation engine: the static path, the unified serving plane over a
+paged KV pool, and the other inflight modes of the JAX engine (port of
+areal_tpu/engines/generator.py).
 
 `GeneratorEngine.generate` chooses its path as the JAX engine does: stop
 sequences go to the serving plane; otherwise, unless the caller says,
@@ -33,10 +34,27 @@ costs one chunk of replay, not a drain and a full re-prefill.  A static
 call is one program: it ignores interrupt() and finishes whole, as in
 the JAX package.
 
-Not yet ported (they raise NotImplementedError): speculative decoding
-(spec_decode_k > 0), agent episodes, the dense KV window of the
-inflight path (kv_paged=False) and the two-program admit path
-(prefill_chunk_tokens=0).
+The other inflight modes, chosen as the JAX engine chooses them
+(`_generate_inflight`):
+- kv_paged=False, the dense window: a [L, n_slots, S] cache that grows
+  by doubling buckets (`cache_copy_bytes` counts the copies); admissions
+  are one batched `prefill_into_slots` (K1f) per refill, then chunks of
+  `decode_step_inflight` (K4 at Q=1), in bf16 or with an int8 cache.
+  With spec_decode_k = K > 0 each step is one `decode_step_spec` (K4 at
+  Q = K+1) over the pending token and K n-gram drafts
+  (`ops/ngram.propose_ngram`), verified exactly by
+  `ops/sampling.spec_accept`.
+- kv_paged=True with prefill_chunk_tokens=0, the two-program paged
+  path: one batched `prefill_into_pages` (K1f) per refill, then chunks
+  of `decode_step_paged` (K3 at Q=1).  Spec decoding there raises
+  ValueError, as in the JAX package: it rides the serving plane, where a
+  speculating row forwards its pending token and K drafts as K+1 lanes
+  of the packed stream (K2).
+Every chunk runs its steps on the device with done rows masked, and the
+host reads its results once, at its end.
+
+Not yet ported: agent episodes (ROADMAP queue 1, item 5.4), which
+raise NotImplementedError.
 """
 
 import dataclasses
@@ -53,7 +71,8 @@ from areal_tpu_torch.engines.packing import bucket_len
 from areal_tpu_torch.engines.paging import PageAllocator
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
-from areal_tpu_torch.ops.sampling import sample_token
+from areal_tpu_torch.ops.ngram import propose_ngram
+from areal_tpu_torch.ops.sampling import sample_token, spec_accept
 
 
 def _find_stop_end(toks, scan_from: int, stop_seqs) -> Optional[int]:
@@ -73,6 +92,57 @@ def _find_stop_end(toks, scan_from: int, stop_seqs) -> Optional[int]:
                     best = end
                 break
     return best
+
+
+def _spec_emit(
+    cfg, g, eos, rows, logits, drafts, generator, pending, cache_len, gen_count,
+    done, out_toks, out_logps, out_fill, out_w, tokens_buf, buf_w, active=None,
+    n_valid=None,
+):
+    """One speculative step's bookkeeping after its forward, shared by the
+    dense window and the serving plane so their emission cannot diverge:
+    the min_new_tokens EOS mask, exact verification (`spec_accept`),
+    truncation at the first EOS (kept), and appends to the chunk's output
+    buffers and the history buffer.
+
+    `active` [B] (default ~done) marks the rows that emit this step;
+    `n_valid` [B] is each row's count of forwarded positions (ragged
+    verification).  out_toks/out_logps (logical width out_w) and
+    tokens_buf (logical width buf_w) are written in place and carry K + 1
+    scratch columns past their logical width: the entries past a row's
+    emission count, which the JAX package writes as no-ops or drops, land
+    there.  Returns (pending, cache_len, gen_count, done, out_fill)."""
+    K = g.spec_decode_k
+    dev = logits.device
+    if active is None:
+        active = ~done
+    j_idx = torch.arange(K + 1, device=dev)[None, :]
+    if g.min_new_tokens > 0:
+        not_enough = (gen_count[:, None] + j_idx) < g.min_new_tokens
+        eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+        logits = logits.masked_fill(not_enough[:, :, None] & eos_col[None, None, :], -1e10)
+    emitted, logps, n_emit = spec_accept(
+        logits, drafts, generator, temperature=g.temperature, top_k=g.top_k,
+        top_p=g.top_p, greedy=g.greedy, n_valid=n_valid,
+    )
+    n_emit = torch.where(active, n_emit, 0)
+    # Truncate at the first EOS (inclusive).
+    is_eos = (emitted == eos) & (j_idx < n_emit[:, None])
+    eos_pos = torch.amin(torch.where(is_eos, j_idx, K + 1), dim=1)
+    n_emit = torch.minimum(n_emit, eos_pos + 1)
+    new_done = done | (active & is_eos.any(dim=1))
+    valid = j_idx < n_emit[:, None]
+    cols = torch.where(valid, out_fill[:, None] + j_idx, out_w + j_idx)
+    out_toks[rows[:, None], cols] = torch.where(valid, emitted, -1)
+    out_logps[rows[:, None], cols] = torch.where(valid, logps, 0.0)
+    # History: the emitted tokens sit at positions cache_len + 1 ...
+    bcols = torch.where(
+        valid, torch.clamp(cache_len[:, None] + 1 + j_idx, max=buf_w - 1), buf_w + j_idx
+    )
+    tokens_buf[rows[:, None], bcols] = emitted
+    new_pending = torch.gather(emitted, 1, torch.clamp(n_emit - 1, 0, K)[:, None])[:, 0]
+    pending = torch.where(done | (n_emit == 0), pending, new_pending)
+    return pending, cache_len + n_emit, gen_count + n_emit, new_done, out_fill + n_emit
 
 
 @dataclasses.dataclass
@@ -121,6 +191,12 @@ class _PagedGenSession:
     # hash -> owner slot still prefilling it; followers wait for it.
     inflight_prefix: Dict[bytes, int]
     peak_live: int = 0
+    # Speculative decoding on the serving plane: the device history
+    # buffer (prompt + emitted tokens, read by the in-chunk n-gram
+    # proposer; K + 1 scratch columns past its width buf_w) and each
+    # row's sampled but not yet forwarded token.
+    tokens_buf: Optional[torch.Tensor] = None  # [n_slots, buf_w + K + 1]
+    pending_tok: Optional[torch.Tensor] = None  # [n_slots]
     # Assembly context, stashed by generate() when the call parks so
     # resume_generate() can return the finished SequenceSample.
     sample: Optional[SequenceSample] = None
@@ -150,18 +226,10 @@ class GeneratorEngine:
     ):
         if cfg.is_critic:
             raise ValueError("cannot generate from a critic model")
-        if not kv_paged:
-            raise NotImplementedError(
-                "the dense KV window (kv_paged=False) is not yet ported"
-            )
-        if prefill_chunk_tokens == 0:
-            raise NotImplementedError(
-                "the two-program admit path (prefill_chunk_tokens=0) is not "
-                "yet ported"
-            )
         if prefill_chunk_tokens < 0:
             raise ValueError(
-                f"prefill_chunk_tokens must be > 0, got {prefill_chunk_tokens}"
+                "prefill_chunk_tokens must be >= 0 (0 = the two-program "
+                f"admit path), got {prefill_chunk_tokens}"
             )
         if kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(
@@ -188,6 +256,8 @@ class GeneratorEngine:
         # its whole window up front and decodes without a chunk boundary.
         self.static_path_max_new = 2048
         self.kv_cache_dtype = kv_cache_dtype
+        # False: the dense inflight window instead of the paged pool.
+        self.kv_paged = bool(kv_paged)
         self.kv_page_size = int(kv_page_size)
         # 0 = auto: every slot at prompt + max_new_tokens.
         self.kv_pool_pages = int(kv_pool_pages)
@@ -197,22 +267,27 @@ class GeneratorEngine:
         self.serving_admit_lanes = int(serving_admit_lanes)
         self.serving_lane_budget = 0
         # Per-generate counters (reset in generate()).  decode_compiles
-        # counts serving-chunk function builds (one per call);
+        # counts decode-chunk function builds: the serving chunk once per
+        # loop, the other modes once per distinct shape in the call (the
+        # dense window rebuilds per bucket, as the JAX engine recompiles);
         # prefill_dispatches counts standalone prefill programs (the
-        # serving plane runs none).  Lane accounting: lanes_dispatched =
+        # serving plane runs none); cache_copy_bytes counts the dense
+        # window's growth copies.  Lane accounting: lanes_dispatched =
         # chunk steps x T, lanes_live carry a real token, lanes_slack are
         # budgeted but idle, dead_live_lanes (live lanes mapped to no row)
         # is structurally 0.
         self.prefill_dispatches = 0
         self.decode_compiles = 0
+        self.cache_copy_bytes = 0
+        self._chunk_fns: Dict[tuple, Any] = {}
         self.last_pool_stats: Dict[str, Any] = {}
         self.lanes_dispatched = 0
         self.lanes_live = 0
         self.lanes_slack = 0
         self.dead_live_lanes = 0
-        # Serving-plane inner steps (forwards) run over the engine's life,
-        # and the static path's chunks (one prefill each) and decode steps
-        # — never reset.
+        # Inner steps (decode forwards) of every inflight mode run over
+        # the engine's life, and the static path's chunks (one prefill
+        # each) and decode steps — never reset.
         self.steps_total = 0
         self.static_chunks = 0
         self.static_decode_steps = 0
@@ -299,10 +374,13 @@ class GeneratorEngine:
     # ---------------- not yet ported ----------------
 
     def episode_start(self, *a, **k):
-        raise NotImplementedError("agent episodes are not yet ported")
+        raise NotImplementedError(
+            "agent episodes are not yet ported (ROADMAP queue 1, item 5.4)"
+        )
 
     # ---------------- generation ----------------
 
+    @torch.no_grad()
     def generate(
         self,
         sample: SequenceSample,
@@ -324,17 +402,17 @@ class GeneratorEngine:
         response positions), prompt_mask and seq_no_eos_mask — or None
         when interrupt() parked the call (finish it with
         resume_generate())."""
-        if gconfig.spec_decode_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_decode_k > 0) is not yet ported"
-            )
         if self._session is not None:
             raise RuntimeError(
                 "an interrupted generation is parked; call "
                 "resume_generate() before starting a new one"
             )
+        if gconfig.n < 1:
+            raise ValueError(f"gconfig.n must be >= 1, got {gconfig.n}")
         self.prefill_dispatches = 0
         self.decode_compiles = 0
+        self.cache_copy_bytes = 0
+        self._chunk_fns = {}
         self.last_pool_stats = {}
         self.lanes_dispatched = 0
         self.lanes_live = 0
@@ -352,9 +430,10 @@ class GeneratorEngine:
                 reqs.append((i, r, toks))
         order = sorted(range(len(reqs)), key=lambda j: -len(reqs[j][2]))
         results: Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, bool]] = {}
-        if gconfig.stop:
-            # Stop sequences are matched on the host at chunk boundaries,
-            # and a static program has none.
+        if gconfig.spec_decode_k > 0 or gconfig.stop:
+            # Speculative decoding lives on the inflight paths; stop
+            # sequences are matched on the host at chunk boundaries, and a
+            # static program has none.
             inflight = True
         elif inflight is None:
             inflight = (
@@ -368,9 +447,7 @@ class GeneratorEngine:
                 chunk = [reqs[j] for j in order[start : start + b_cap]]
                 self._generate_chunk(chunk, gconfig, generator, results)
             return self._assemble(sample, prompt_key, prompt_lens, results, n)
-        self._generate_inflight_serving(
-            [reqs[j] for j in order], gconfig, seed, results
-        )
+        self._generate_inflight([reqs[j] for j in order], gconfig, seed, results)
         if self._session is not None:
             # Parked: stash the assembly context for resume_generate().
             st = self._session
@@ -379,6 +456,7 @@ class GeneratorEngine:
             return None
         return self._assemble(sample, prompt_key, prompt_lens, results, n)
 
+    @torch.no_grad()
     def resume_generate(self) -> Optional[SequenceSample]:
         """Continue a parked generate() under the engine's CURRENT
         weights.  Each live row's last chunk of forwarded tokens is
@@ -421,27 +499,28 @@ class GeneratorEngine:
                 take_idx[s] = r - 1
                 live_mask[s] = True
                 q_lens[s] = r
-            dev = self.device
-
-            def to_dev(a: np.ndarray) -> torch.Tensor:
-                return torch.from_numpy(a).to(dev)
-
+            to_dev = self._to_dev
             self._get_paged_replay_fn()(
                 self.params, to_dev(tokens), to_dev(positions), st.pool,
                 to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
                 to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
             )
             self.resume_replays += 1
-        # The push invalidated every cached prompt KV: post-resume
-        # admissions re-prefill under the new weights instead of sharing
-        # stale pages.  Live followers keep their mappings (their whole
-        # history KV is equally pre-push: the accepted approximation of
-        # resuming), and a row live across the push that later finishes
-        # its prefill must not publish its mixed-weight prefix.
-        st.alloc.prefix_clear()
-        st.inflight_prefix.clear()
-        st.slot_hash.clear()
-        if not self._run_serving_loop(st):
+        if st.prefill_chunk == 0:  # the two-program paged path
+            finished = self._run_paged_loop(st)
+        else:
+            # The push invalidated every cached prompt KV: post-resume
+            # admissions re-prefill under the new weights instead of
+            # sharing stale pages.  Live followers keep their mappings
+            # (their whole history KV is equally pre-push: the accepted
+            # approximation of resuming), and a row live across the push
+            # that later finishes its prefill must not publish its
+            # mixed-weight prefix.
+            st.alloc.prefix_clear()
+            st.inflight_prefix.clear()
+            st.slot_hash.clear()
+            finished = self._run_serving_loop(st)
+        if not finished:
             return None
         return self._assemble(
             st.sample, st.prompt_key, st.prompt_lens, st.results, st.n
@@ -537,17 +616,17 @@ class GeneratorEngine:
 
     # -- the unified serving plane --
 
-    def _paged_kv_dtype(self):
-        return "int8" if self.kv_cache_dtype == "int8" else self.compute_dtype
-
     def _generate_inflight_serving(self, reqs, gconfig, seed, results) -> None:
         n_slots = min(self.max_decode_batch, len(reqs))
         ps = self.kv_page_size
         chunk_t = min(32, gconfig.max_new_tokens)
+        K = gconfig.spec_decode_k
         max_prompt = max(len(t) for (_, _, t) in reqs)
-        max_pages = -(-(max_prompt + gconfig.max_new_tokens + chunk_t) // ps)
+        # A speculating row writes up to K draft positions past its chunk.
+        max_pages = -(-(max_prompt + gconfig.max_new_tokens + chunk_t + K) // ps)
         n_pages = self.kv_pool_pages or n_slots * max_pages
         pbw = max(max_prompt, 1)
+        buf_w = max_prompt + gconfig.max_new_tokens + K + 2
         dev = self.device
         st = _PagedGenSession(
             gconfig=gconfig,
@@ -559,7 +638,7 @@ class GeneratorEngine:
             chunk_t=chunk_t,
             alloc=PageAllocator(n_pages, ps, n_slots, max_pages),
             pool=tfm.init_paged_kv_cache(
-                self.cfg, n_pages, ps, dtype=self._paged_kv_dtype(), device=dev
+                self.cfg, n_pages, ps, dtype=self._kv_dtype(), device=dev
             ),
             logits_buf=torch.zeros(
                 (n_slots, self.cfg.vocab_size), dtype=torch.float32, device=dev
@@ -580,6 +659,8 @@ class GeneratorEngine:
             shared_from=np.zeros((n_slots,), np.int32),
             slot_hash={},
             inflight_prefix={},
+            tokens_buf=torch.zeros((n_slots, buf_w + K + 1), dtype=torch.long, device=dev),
+            pending_tok=torch.zeros((n_slots,), dtype=torch.long, device=dev),
         )
         # Bytes per page, the trash page excluded from the pool's count.
         st.alloc.page_bytes = st.pool.nbytes() // (n_pages + 1)
@@ -601,28 +682,28 @@ class GeneratorEngine:
         chunk_fn = self._get_serving_chunk_fn(
             n_slots, st.n_pages, st.max_pages, chunk_t, W, pbw, gconfig
         )
-        dev = self.device
-
-        def to_dev(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
+        to_dev = self._to_dev
         while st.pending or any(a is not None for a in st.active):
             if self._interrupt_evt.is_set():
                 self._session = st
                 return False
             self._take_admits_serving(st)
             # Map pages covering this chunk's worst-case advance per live
-            # slot: a prefilling row consumes up to chunk_t*W prompt tokens
-            # (never more than its remainder + the decode steps after it);
-            # a decoding row advances at most chunk_t, clamped to its
-            # remaining budget (over-budget writes are drained away).
+            # slot: a prefilling row consumes up to chunk_t*Wmax prompt
+            # tokens (never more than its remainder + the decode steps
+            # after it); a decoding row advances at most chunk_t (plain)
+            # or chunk_t*(K+1) (spec), clamped to its remaining budget + K
+            # draft positions (over-budget writes go to the trash page
+            # and their tokens are drained away).
             max_new = gconfig.max_new_tokens
+            K = gconfig.spec_decode_k
+            Wmax = max(W, K + 1)
             for s in range(n_slots):
                 if st.active[s] is not None:
                     rem = int(st.prefill_rem[s])
                     left = max(0, max_new - int(st.gen_count[s]))
                     target = int(st.cache_len[s]) + max(
-                        1, min(chunk_t * W, rem + chunk_t, rem + left)
+                        1, min(chunk_t * Wmax, rem + chunk_t * (K + 1), rem + left + K)
                     )
                     self._reserve_with_evict(alloc, s, target)
             self._privatize_write_windows(st)
@@ -641,7 +722,7 @@ class GeneratorEngine:
                 to_dev(st.prefill_rem.astype(np.int64)),
                 to_dev(st.cache_len.astype(np.int64)),
                 to_dev(st.gen_count.astype(np.int64)),
-                to_dev(st.done_host), st.generator,
+                to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
             )
             # The chunk's one host sync: the done/eos flags must be exact
             # before the next admission round.
@@ -709,7 +790,8 @@ class GeneratorEngine:
         the head request still cannot fit."""
         alloc, gconfig = st.alloc, st.gconfig
         n_slots, ps, chunk_t = st.n_slots, alloc.page_size, st.chunk_t
-        slack = chunk_t
+        # A speculating row may write K draft positions past its chunk.
+        slack = chunk_t + gconfig.spec_decode_k
         admitted = 0
         for s in range(n_slots):
             if st.active[s] is not None or not st.pending:
@@ -837,32 +919,41 @@ class GeneratorEngine:
         inner steps, each ONE `decode_step_ragged_paged` forward of a
         [T]-lane stream in which every row occupies exactly the lanes it
         needs — a prefilling row up to W prompt tokens, a decoding row its
-        1 sampled token, a done row zero.  Dead lanes are eliminated, not
+        1 sampled token (K+1 with spec_decode_k = K: its pending token and
+        K n-gram drafts), a done row zero.  Dead lanes are eliminated, not
         masked: the stream ends at `total` live lanes and the slack tail
         carries rows >= n_slots whose attention runs no page.
 
-        Lane budget: T = min(n_slots + A, n_slots * W), A the admit-lane
-        headroom (0 = auto, 4 * W).  Every live row gets >= 1 lane; rows
-        wanting more split the spare lanes front to back.
+        Lane budget: T = min(n_slots + A, n_slots * Wmax), Wmax = max(W,
+        K+1), A the admit-lane headroom (0 = auto, 4 * Wmax).  Every live
+        row gets >= 1 lane; rows wanting more split the spare lanes front
+        to back, and a speculating row granted c < K+1 lanes verifies only
+        its first c - 1 drafts (`spec_accept`'s n_valid).
 
         Everything inside runs on the device: there is no host sync
-        between the inner steps.  The pool and the logits buffer are
-        updated in place.  One build per generate call (`decode_compiles`).
-        Emission is fill-indexed: a row's tokens pack from column 0 of its
-        out row whatever steps it spent prefilling (-1-terminated)."""
-        Wmax = W
+        between the inner steps.  The pool, the logits buffer and (spec)
+        the history buffer and pending tokens are updated in place.  One
+        build per loop (`decode_compiles`).  Emission is fill-indexed: a
+        row's tokens pack from column 0 of its out row whatever steps it
+        spent prefilling (-1-terminated)."""
+        K = g.spec_decode_k
+        Wmax = max(W, K + 1)
         A = self.serving_admit_lanes or 4 * Wmax
         T = min(n_slots + A, n_slots * Wmax)
         self.serving_lane_budget = T
         cfg = self.cfg
         eos = self.eos_token_id
         dev = self.device
-        out_w = chunk_t
+        # A spec row emits up to K+1 tokens per inner step, plus one fresh
+        # first token the step it leaves prefill; K+1 scratch columns past
+        # out_w take the writes of emissions past a row's count.
+        out_w = chunk_t * (K + 1) + 1 if K > 0 else chunk_t
 
         def fn(params, pool, logits, page_table, prompt_buf, prompt_off,
-               prefill_rem, cache_len, gen_count, done, generator):
-            out_toks = torch.full((n_slots, out_w), -1, dtype=torch.long, device=dev)
-            out_logps = torch.zeros((n_slots, out_w), dtype=torch.float32, device=dev)
+               prefill_rem, cache_len, gen_count, done, tokens_buf, pending_buf,
+               generator):
+            out_toks = torch.full((n_slots, out_w + K + 1), -1, dtype=torch.long, device=dev)
+            out_logps = torch.zeros((n_slots, out_w + K + 1), dtype=torch.float32, device=dev)
             out_fill = torch.zeros((n_slots,), dtype=torch.long, device=dev)
             # (live lanes, slack lanes, live-but-misassigned lanes).
             lane_acc = torch.zeros((3,), dtype=torch.long, device=dev)
@@ -872,6 +963,9 @@ class GeneratorEngine:
             zero = torch.zeros((), dtype=torch.long, device=dev)
             if g.min_new_tokens > 0:
                 eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+            if K > 0:
+                buf_w = tokens_buf.shape[1] - (K + 1)
+                pending = pending_buf
             for _ in range(chunk_t):
                 is_pref = prefill_rem > 0
                 lg = logits
@@ -885,7 +979,13 @@ class GeneratorEngine:
                     temperature=g.temperature, top_k=g.top_k, top_p=g.top_p,
                     greedy=g.greedy,
                 )
-                emitting = (~done) & (~is_pref)
+                if K > 0:
+                    # The carried sample only seeds rows fresh out of
+                    # prefill (their first pending token, emitted now);
+                    # speculating rows emit through spec_accept below.
+                    emitting = (~done) & (~is_pref) & (gen_count == 0)
+                else:
+                    emitting = (~done) & (~is_pref)
                 out_toks[rows, out_fill] = torch.where(
                     emitting, tok, out_toks[rows, out_fill]
                 )
@@ -893,13 +993,24 @@ class GeneratorEngine:
                     emitting, logp, out_logps[rows, out_fill]
                 )
                 out_fill = out_fill + emitting.long()
+                if K > 0:
+                    done = done | (emitting & (tok == eos))
+                    gen_count = gen_count + emitting.long()
+                    pending = torch.where(emitting, tok, pending)
+                    # A speculating row keeps cache_len = plen + gen_count
+                    # - 1, with its pending token at tokens_buf[cache_len].
+                    bp0 = torch.clamp(cache_len, 0, buf_w - 1)
+                    tokens_buf[rows, bp0] = torch.where(emitting, tok, tokens_buf[rows, bp0])
+                    drafts = propose_ngram(
+                        tokens_buf[:, :buf_w], cache_len + 1, K, g.spec_ngram
+                    )  # [n_slots, K]
                 # Per-row lane want: done rows 0, prefilling rows their
-                # next W-slice, decoding rows 1.  Everybody gets a base
+                # next W-slice, decoding rows K+1.  Everybody gets a base
                 # lane (T >= n_slots); the spare splits front to back.
                 want = torch.where(
                     done, zero,
                     torch.where(
-                        is_pref, torch.clamp(prefill_rem, max=W), zero + 1
+                        is_pref, torch.clamp(prefill_rem, max=W), zero + K + 1
                     ),
                 )
                 base = (want > 0).long()
@@ -923,8 +1034,21 @@ class GeneratorEngine:
                 # Per-row lane-token slab, gathered into the stream.
                 idx = torch.clamp(prompt_off[:, None] + lanes[None, :], max=pbw - 1)
                 pref_toks = torch.gather(prompt_buf, 1, idx)
-                slab = torch.where(is_pref[:, None], pref_toks, zero)
-                slab[:, 0] = torch.where(is_pref, pref_toks[:, 0], tok)
+                if K > 0:
+                    dec = torch.cat([pending[:, None], drafts], dim=1)
+                    if Wmax > K + 1:
+                        dec = torch.nn.functional.pad(dec, (0, Wmax - (K + 1)))
+                    slab = torch.where(is_pref[:, None], pref_toks, dec)
+                    # Prefilling rows record their granted prompt slice in
+                    # the history buffer (the n-gram proposer reads it).
+                    lv = is_pref[:, None] & (lanes[None, :] < c[:, None])
+                    bcols = torch.clamp(cache_len[:, None] + lanes[None, :], 0, buf_w - 1)
+                    tokens_buf[rows[:, None], bcols] = torch.where(
+                        lv, pref_toks, tokens_buf[rows[:, None], bcols]
+                    )
+                else:
+                    slab = torch.where(is_pref[:, None], pref_toks, zero)
+                    slab[:, 0] = torch.where(is_pref, pref_toks[:, 0], tok)
                 qv = torch.clamp(qpos, 0, Wmax - 1)
                 stream_tok = torch.where(lane_live, slab[rid, qv], zero)
                 stream_pos = torch.where(lane_live, cache_len[rid] + qv, zero)
@@ -935,21 +1059,601 @@ class GeneratorEngine:
                 # zero-lane rows keep theirs.
                 last = torch.clamp(starts + c - 1, 0, T - 1)
                 logits.copy_(torch.where((c > 0)[:, None], logits_pk[last], logits))
-                done = torch.where(is_pref, done, done | (tok == eos))
-                # Decode rows advance by their emission (a row emitting
-                # its EOS still wrote that token); done rows stay put.
-                cache_len = cache_len + c
-                gen_count = gen_count + emitting.long()
+                if K > 0:
+                    # Row r's K+1 spec positions are lanes starts[r] ..
+                    # starts[r] + K, of which the first c[r] were forwarded.
+                    gidx = torch.clamp(
+                        starts[:, None] + torch.arange(K + 1, device=dev)[None, :],
+                        0, T - 1,
+                    )
+                    active = (~done) & (~is_pref) & (c > 0)
+                    pending, cache_len_s, gen_count, done, out_fill = _spec_emit(
+                        cfg, g, eos, rows, logits_pk[gidx], drafts, generator,
+                        pending, cache_len, gen_count, done, out_toks, out_logps,
+                        out_fill, out_w, tokens_buf, buf_w, active=active, n_valid=c,
+                    )
+                    cache_len = torch.where(is_pref, cache_len + c, cache_len_s)
+                else:
+                    done = torch.where(is_pref, done, done | (tok == eos))
+                    # Decode rows advance by their emission (a row emitting
+                    # its EOS still wrote that token); done rows stay put.
+                    cache_len = cache_len + c
+                    gen_count = gen_count + emitting.long()
                 adv = torch.where(is_pref, c, zero)
                 prompt_off = prompt_off + adv
                 prefill_rem = prefill_rem - adv
+            if K > 0:
+                pending_buf.copy_(pending)
             return (
-                out_toks, out_logps, cache_len, gen_count, done, prefill_rem,
-                prompt_off, lane_acc,
+                out_toks[:, :out_w], out_logps[:, :out_w], cache_len, gen_count,
+                done, prefill_rem, prompt_off, lane_acc,
             )
 
         self.decode_compiles += 1
         return fn
+
+    # -- the dense inflight window --
+
+    def _generate_inflight(self, reqs, gconfig, seed, results) -> None:
+        """A fixed slot pool: finished rows retire and pending requests
+        join between decode chunks.  The mode follows the JAX engine:
+        the serving plane (paged, prefill_chunk_tokens > 0), the
+        two-program paged path (prefill_chunk_tokens = 0), or the dense
+        window (kv_paged=False), plain or speculative."""
+        if self.kv_paged:
+            if self.prefill_chunk_tokens > 0:
+                return self._generate_inflight_serving(reqs, gconfig, seed, results)
+            if gconfig.spec_decode_k > 0:
+                raise ValueError(
+                    "spec_decode_k > 0 over the paged pool requires the "
+                    "serving plane (prefill_chunk_tokens > 0)"
+                )
+            return self._generate_inflight_plain_paged(reqs, gconfig, seed, results)
+        if gconfig.spec_decode_k > 0:
+            return self._generate_inflight_spec(reqs, gconfig, seed, results)
+        return self._generate_inflight_plain(reqs, gconfig, seed, results)
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _chunk_fn(self, sig, build):
+        """The decode-chunk function of signature `sig`, built (and
+        counted in decode_compiles) once per generate call."""
+        fn = self._chunk_fns.get(sig)
+        if fn is None:
+            fn = self._chunk_fns[sig] = build()
+            self.decode_compiles += 1
+        return fn
+
+    def _kv_dtype(self):
+        """Every inflight mode's KV cache dtype (the static path keeps the
+        compute dtype, as in the JAX package)."""
+        return "int8" if self.kv_cache_dtype == "int8" else self.compute_dtype
+
+    def _generate_inflight_plain(self, reqs, gconfig, seed, results) -> None:
+        n_slots = min(self.max_decode_batch, len(reqs))
+        max_prompt = max(len(t) for (_, _, t) in reqs)
+        chunk_t = min(32, gconfig.max_new_tokens)
+        # The window starts at the smallest bucket covering the prompts and
+        # grows through buckets as rows lengthen: every decode step reads
+        # the whole window, so depth it does not need yet is wasted.
+        cur_w = bucket_len(max_prompt + chunk_t)
+        dev = self.device
+        cache = tfm.init_kv_cache(
+            self.cfg, n_slots, cur_w, dtype=self._kv_dtype(), device=dev
+        )
+        logits_buf = torch.zeros((n_slots, self.cfg.vocab_size), dtype=torch.float32, device=dev)
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        cache_len = np.zeros((n_slots,), np.int32)
+        gen_count = np.zeros((n_slots,), np.int32)
+        done_host = np.ones((n_slots,), bool)  # empty slots count as done
+        active: List[Optional[Tuple[int, int]]] = [None] * n_slots
+        toks_acc: Dict[int, List[int]] = {}
+        logps_acc: Dict[int, List[float]] = {}
+        pending = list(reversed(reqs))  # pop() takes the longest first
+        while pending or any(a is not None for a in active):
+            # Refill every free slot with ONE batched prefill.
+            admits = self._take_admits(active, pending, n_slots)
+            if admits:
+                rows, plens, slots = self._pack_admits(admits, n_slots)
+                logits, _ = tfm.prefill_into_slots(
+                    self.params, self.cfg, self._to_dev(rows), self._to_dev(plens),
+                    cache, torch.from_numpy(slots),
+                )
+                keep = slots < n_slots
+                logits_buf[self._to_dev(slots[keep])] = logits[self._to_dev(np.flatnonzero(keep))]
+                self.prefill_dispatches += 1
+                for s, i, rep, toks in admits:
+                    cache_len[s] = len(toks)
+                    gen_count[s] = 0
+                    done_host[s] = False
+                    active[s] = (i, rep)
+                    toks_acc[s] = []
+                    logps_acc[s] = []
+            # Grow the window when the next chunk could overflow it: by
+            # doubling, so copies stay O(log length).  Retired slots have
+            # cache_len 0 and drive no growth.
+            old_bytes = cache.nbytes()
+            cache, new_w = self._grow_kv_cache(cache, cur_w, int(cache_len.max()) + chunk_t)
+            if new_w != cur_w:
+                self.cache_copy_bytes += old_bytes
+                cur_w = new_w
+            self._accum_pool_stats("dense", int(cache_len.sum()), n_slots * cur_w)
+            decode_fn = self._get_inflight_decode_fn(n_slots, cur_w, chunk_t, gconfig)
+            out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
+                self.params, cache, logits_buf, self._to_dev(cache_len.astype(np.int64)),
+                self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
+                generator,
+            )
+            # The chunk's one host sync.
+            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+            cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+            gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            self.steps_total += chunk_t
+            self._drain_chunk_outputs(
+                out_toks, out_logps, new_done.cpu().numpy(), active, toks_acc,
+                logps_acc, results, done_host, cache_len, gconfig.max_new_tokens,
+                stop_seqs=gconfig.stop,
+            )
+        self._set_live_slots(0)
+
+    def _take_admits(self, active, pending, n_slots):
+        """Assign pending requests to free slots, longest prompt first
+        (`pending` is sorted ascending, so pop() takes the longest)."""
+        admits = []
+        for s in range(n_slots):
+            if active[s] is None and pending:
+                i, rep, toks = pending.pop()
+                admits.append((s, i, rep, toks))
+        self._set_live_slots(sum(a is not None for a in active) + len(admits))
+        return admits
+
+    def _pack_admits(self, admits, n_slots):
+        """One refill's admissions as arrays, in the JAX engine's layout:
+        SP buckets to the longest admitted prompt and M to the next power
+        of two, padding rows carrying one pad token and the out-of-range
+        slot id n_slots.  `prefill_into_slots` selects the padding rows
+        out before its forward, so they cost nothing here."""
+        sp = bucket_len(max(len(t) for (_, _, _, t) in admits))
+        m = 1
+        while m < len(admits):
+            m *= 2
+        rows = np.full((m, sp), self.pad_token_id, np.int64)
+        plens = np.ones((m,), np.int64)
+        slots = np.full((m,), n_slots, np.int64)
+        for j, (s, _, _, toks) in enumerate(admits):
+            rows[j, : len(toks)] = toks
+            plens[j] = len(toks)
+            slots[j] = s
+        return rows, plens, slots
+
+    def _plain_decode_chunk(self, sig, n_slots: int, chunk_t: int,
+                            g: GenerationHyperparameters, forward):
+        """A plain (one token a row) decode chunk: chunk_t steps of sample
+        -> `forward(params, tokens, cache_len, kv, *aux)` on the device,
+        done rows masked (they re-write their current position with EOS,
+        past their window), the logits buffer carried in place.  The
+        dense window and the two-program paged path differ only in
+        `forward`."""
+        cfg, eos, dev = self.cfg, self.eos_token_id, self.device
+
+        def build():
+            def fn(params, kv, logits_buf, cache_len, gen_count, done, generator, *aux):
+                out_toks = torch.full((n_slots, chunk_t), -1, dtype=torch.long, device=dev)
+                out_logps = torch.zeros((n_slots, chunk_t), dtype=torch.float32, device=dev)
+                logits = logits_buf
+                eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+                for t in range(chunk_t):
+                    lg = logits
+                    if g.min_new_tokens > 0:
+                        lg = lg.masked_fill(
+                            (gen_count < g.min_new_tokens)[:, None] & eos_col[None, :],
+                            -1e10,
+                        )
+                    tok, logp = sample_token(
+                        lg, generator, temperature=g.temperature, top_k=g.top_k,
+                        top_p=g.top_p, greedy=g.greedy,
+                    )
+                    out_toks[:, t] = torch.where(done, -1, tok)
+                    out_logps[:, t] = torch.where(done, 0.0, logp)
+                    logits, _ = forward(params, torch.where(done, eos, tok), cache_len, kv, *aux)
+                    live = (~done).long()
+                    done = done | (tok == eos)
+                    cache_len = cache_len + live
+                    gen_count = gen_count + live
+                logits_buf.copy_(logits)
+                return out_toks, out_logps, cache_len, gen_count, done
+
+            return fn
+
+        return self._chunk_fn(
+            sig + (n_slots, chunk_t, g.min_new_tokens, g.greedy, g.top_p, g.top_k,
+                   g.temperature),
+            build,
+        )
+
+    def _get_inflight_decode_fn(
+        self, n_slots: int, s_max: int, chunk_t: int, g: GenerationHyperparameters
+    ):
+        """The dense window's decode chunk over `decode_step_inflight`:
+        each row writes at its cache_len, clamped into the window.  One
+        build per window width."""
+        cfg = self.cfg
+
+        def forward(params, tok, cache_len, cache):
+            return tfm.decode_step_inflight(
+                params, cfg, tok, cache_len, cache,
+                slots=torch.clamp(cache_len, max=s_max - 1),
+                valid_to=torch.clamp(cache_len + 1, max=s_max),
+            )
+
+        return self._plain_decode_chunk(("inflight", s_max), n_slots, chunk_t, g, forward)
+
+    @staticmethod
+    def _grow_kv_cache(cache, cur_w: int, need: int):
+        """Doubling window growth (a copy into a zeroed wider cache);
+        no-op when `need` fits."""
+        if need <= cur_w:
+            return cache, cur_w
+        new_w = bucket_len(max(need, 2 * cur_w))
+
+        def grow(a):
+            if a is None:
+                return None
+            out = torch.zeros(
+                (*a.shape[:2], new_w, *a.shape[3:]), dtype=a.dtype, device=a.device
+            )
+            out[:, :, :cur_w] = a
+            return out
+
+        return (
+            tfm.KVCache(
+                k=grow(cache.k), v=grow(cache.v),
+                k_scale=grow(cache.k_scale), v_scale=grow(cache.v_scale),
+            ),
+            new_w,
+        )
+
+    # -- speculative decoding on the dense window --
+
+    def _generate_inflight_spec(self, reqs, g, seed, results) -> None:
+        """The dense window with speculative decoding: each step forwards
+        [pending, K drafts] in ONE `decode_step_spec` (the weights read
+        once for up to K+1 tokens); drafts come from n-gram lookup in the
+        row's own history and are verified exactly (`spec_accept`), so
+        the emitted distribution is plain sampling's.  Admission samples
+        each row's first (pending) token right after its prefill."""
+        K = g.spec_decode_k
+        n_slots = min(self.max_decode_batch, len(reqs))
+        max_prompt = max(len(t) for (_, _, t) in reqs)
+        n_steps = max(1, min(32, g.max_new_tokens) // (K + 1))
+        step_cap = n_steps * (K + 1)
+        cur_w = bucket_len(max_prompt + step_cap + K + 1)
+        dev = self.device
+        cache = tfm.init_kv_cache(
+            self.cfg, n_slots, cur_w, dtype=self._kv_dtype(), device=dev
+        )
+        # History buffer (prompt + emitted tokens) of width cur_w + K + 2,
+        # plus K + 1 scratch columns (see _spec_emit).
+        tokens_buf = torch.zeros((n_slots, cur_w + 2 * K + 3), dtype=torch.long, device=dev)
+        pending = torch.zeros((n_slots,), dtype=torch.long, device=dev)
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+        cache_len = np.zeros((n_slots,), np.int32)
+        gen_count = np.zeros((n_slots,), np.int32)
+        done_host = np.ones((n_slots,), bool)
+        active: List[Optional[Tuple[int, int]]] = [None] * n_slots
+        toks_acc: Dict[int, List[int]] = {}
+        logps_acc: Dict[int, List[float]] = {}
+        pending_list = list(reversed(reqs))
+        while pending_list or any(a is not None for a in active):
+            admits = self._take_admits(active, pending_list, n_slots)
+            if admits:
+                rows, plens, slots = self._pack_admits(admits, n_slots)
+                toks0, logps0 = self._spec_admit(
+                    g, rows, plens, cache, tokens_buf, pending, slots, generator
+                )
+                self.prefill_dispatches += 1
+                # One host sync per refill: the done flag must be exact
+                # before the next chunk.
+                toks0, logps0 = toks0.cpu().numpy(), logps0.cpu().numpy()
+                for j, (s, i, rep, toks) in enumerate(admits):
+                    t0 = int(toks0[j])
+                    cache_len[s] = len(toks)
+                    gen_count[s] = 1  # the sampled pending token
+                    done_host[s] = t0 == self.eos_token_id
+                    active[s] = (i, rep)
+                    toks_acc[s] = [t0]
+                    logps_acc[s] = [float(logps0[j])]
+            # A chunk adds up to step_cap entries (+K scratch).
+            old_bytes = cache.nbytes()
+            cache, new_w = self._grow_kv_cache(
+                cache, cur_w, int(cache_len.max()) + step_cap + K + 1
+            )
+            if new_w != cur_w:
+                self.cache_copy_bytes += old_bytes
+                grown = torch.zeros(
+                    (n_slots, new_w + 2 * K + 3), dtype=torch.long, device=dev
+                )
+                grown[:, : cur_w + K + 2] = tokens_buf[:, : cur_w + K + 2]
+                tokens_buf, cur_w = grown, new_w
+            self._accum_pool_stats("dense", int(cache_len.sum()), n_slots * cur_w)
+            fn = self._get_spec_decode_fn(n_slots, cur_w, n_steps, g)
+            out_toks, out_logps, new_cache_len, new_gen_count, new_done = fn(
+                self.params, cache, tokens_buf, pending,
+                self._to_dev(cache_len.astype(np.int64)),
+                self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
+                generator,
+            )
+            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+            cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+            gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            self.steps_total += n_steps
+            self._drain_chunk_outputs(
+                out_toks, out_logps, new_done.cpu().numpy(), active, toks_acc,
+                logps_acc, results, done_host, cache_len, g.max_new_tokens,
+                stop_seqs=g.stop,
+            )
+        self._set_live_slots(0)
+
+    def _spec_admit(self, g, rows, plens, cache, tokens_buf, pending, slots, generator):
+        """The dense spec path's batched admission: prefill every admitted
+        prompt into its row (`prefill_into_slots`), sample its first
+        pending token (EOS masked under min_new_tokens), and record prompt
+        and token in the history buffer and `pending` (in place).
+        Returns the device tokens and logprobs [M]; padding rows' are
+        garbage."""
+        cfg, dev = self.cfg, self.device
+        rows_d = self._to_dev(rows)
+        logits, _ = tfm.prefill_into_slots(
+            self.params, cfg, rows_d, self._to_dev(plens), cache, torch.from_numpy(slots)
+        )
+        if g.min_new_tokens > 0:
+            eos_col = torch.arange(cfg.vocab_size, device=dev) == self.eos_token_id
+            logits = logits.masked_fill(eos_col[None, :], -1e10)
+        tok, logp = sample_token(
+            logits, generator, temperature=g.temperature, top_k=g.top_k,
+            top_p=g.top_p, greedy=g.greedy,
+        )
+        keep = np.flatnonzero(slots < pending.shape[0])
+        keep_d, dst = self._to_dev(keep), self._to_dev(slots[keep])
+        tokens_buf[dst, : rows.shape[1]] = rows_d[keep_d]
+        tokens_buf[dst, self._to_dev(plens[keep])] = tok[keep_d]
+        pending[dst] = tok[keep_d]
+        return tok, logp
+
+    def _get_spec_decode_fn(
+        self, n_slots: int, s_max: int, n_steps: int, g: GenerationHyperparameters
+    ):
+        """The dense spec chunk: n_steps steps of propose -> one
+        `decode_step_spec` over [pending, drafts] at slots0 = cache_len
+        (clamped to s_max - 1 - K; done rows forward EOS) -> `_spec_emit`,
+        all on the device.  The history buffer and `pending` are updated
+        in place."""
+        K = g.spec_decode_k
+        cfg, eos, dev = self.cfg, self.eos_token_id, self.device
+        out_w = n_steps * (K + 1)
+        buf_w = s_max + K + 2
+
+        def build():
+            def fn(params, cache, tokens_buf, pending_buf, cache_len, gen_count, done,
+                   generator):
+                out_toks = torch.full((n_slots, out_w + K + 1), -1, dtype=torch.long,
+                                      device=dev)
+                out_logps = torch.zeros((n_slots, out_w + K + 1), dtype=torch.float32,
+                                        device=dev)
+                out_fill = torch.zeros((n_slots,), dtype=torch.long, device=dev)
+                rows = torch.arange(n_slots, device=dev)
+                qi = torch.arange(K + 1, device=dev)
+                pending = pending_buf
+                for _ in range(n_steps):
+                    drafts = propose_ngram(
+                        tokens_buf[:, :buf_w], cache_len + 1, K, g.spec_ngram
+                    )  # [B, K]
+                    inputs = torch.cat([pending[:, None], drafts], dim=1)
+                    slots0 = torch.clamp(cache_len, max=s_max - 1 - K)
+                    logits, _ = tfm.decode_step_spec(
+                        params, cfg, torch.where(done[:, None], eos, inputs),
+                        slots0[:, None] + qi[None, :], cache, slots0,
+                    )  # [B, K+1, V]
+                    pending, cache_len, gen_count, done, out_fill = _spec_emit(
+                        cfg, g, eos, rows, logits, drafts, generator, pending,
+                        cache_len, gen_count, done, out_toks, out_logps, out_fill,
+                        out_w, tokens_buf, buf_w,
+                    )
+                pending_buf.copy_(pending)
+                return out_toks[:, :out_w], out_logps[:, :out_w], cache_len, gen_count, done
+
+            return fn
+
+        sig = ("spec_decode", n_slots, s_max, n_steps, K, g.spec_ngram,
+               g.min_new_tokens, g.greedy, g.top_p, g.top_k, g.temperature)
+        return self._chunk_fn(sig, build)
+
+    # -- the two-program paged path --
+
+    def _generate_inflight_plain_paged(self, reqs, gconfig, seed, results) -> None:
+        """The plain inflight loop over a paged pool, admissions as their
+        own program: the pool and the decode chunk keep one shape for the
+        whole call, window growth is a host-side page append, and retired
+        slots' pages are recycled into new admits."""
+        n_slots = min(self.max_decode_batch, len(reqs))
+        ps = self.kv_page_size
+        chunk_t = min(32, gconfig.max_new_tokens)
+        max_prompt = max(len(t) for (_, _, t) in reqs)
+        # Page-table width: the worst-case footprint of a slot (prompt +
+        # the whole budget + a chunk of slack past the live length).
+        max_pages = -(-(max_prompt + gconfig.max_new_tokens + chunk_t) // ps)
+        n_pages = self.kv_pool_pages or n_slots * max_pages
+        dev = self.device
+        st = _PagedGenSession(
+            gconfig=gconfig,
+            generator=torch.Generator(device=dev).manual_seed(int(seed)),
+            results=results,
+            n_slots=n_slots,
+            n_pages=n_pages,
+            max_pages=max_pages,
+            chunk_t=chunk_t,
+            alloc=PageAllocator(n_pages, ps, n_slots, max_pages),
+            pool=tfm.init_paged_kv_cache(
+                self.cfg, n_pages, ps, dtype=self._kv_dtype(), device=dev
+            ),
+            logits_buf=torch.zeros(
+                (n_slots, self.cfg.vocab_size), dtype=torch.float32, device=dev
+            ),
+            cache_len=np.zeros((n_slots,), np.int32),
+            gen_count=np.zeros((n_slots,), np.int32),
+            done_host=np.ones((n_slots,), bool),
+            active=[None] * n_slots,
+            toks_acc={},
+            logps_acc={},
+            pending=list(reversed(reqs)),
+            slot_prompt={},
+            last_emit=np.zeros((n_slots,), np.int32),
+            prefill_chunk=0,  # no prompt slices in the chunk: resume() reads it
+            prompt_buf=np.zeros((n_slots, 1), np.int32),
+            prefill_rem=np.zeros((n_slots,), np.int32),
+            prompt_off=np.zeros((n_slots,), np.int32),
+            shared_from=np.zeros((n_slots,), np.int32),
+            slot_hash={},
+            inflight_prefix={},
+        )
+        st.alloc.page_bytes = st.pool.nbytes() // (n_pages + 1)
+        self._run_paged_loop(st)
+
+    def _run_paged_loop(self, st: _PagedGenSession) -> bool:
+        """The two-program chunk loop, interruptible at the top of every
+        iteration like the serving loop: returns False parked (the session
+        waits in `_session`), True finished."""
+        gconfig = st.gconfig
+        alloc = st.alloc
+        n_slots, ps, chunk_t = st.n_slots, alloc.page_size, st.chunk_t
+        decode_fn = self._get_paged_decode_fn(
+            n_slots, st.n_pages, st.max_pages, chunk_t, gconfig
+        )
+        while st.pending or any(a is not None for a in st.active):
+            if self._interrupt_evt.is_set():
+                self._session = st
+                return False
+            admits = self._take_admits_paged(st.active, st.pending, n_slots, alloc, chunk_t)
+            if admits:
+                rows, plens, slots, page_rows = self._pack_admits_paged(
+                    admits, n_slots, alloc
+                )
+                # Padding rows (slot n_slots, sentinel pages) never run.
+                keep = np.flatnonzero(slots < n_slots)
+                logits, _ = tfm.prefill_into_pages(
+                    self.params, self.cfg, self._to_dev(rows[keep]),
+                    self._to_dev(plens[keep]), st.pool, self._to_dev(page_rows[keep]),
+                )
+                st.logits_buf[self._to_dev(slots[keep])] = logits
+                self.prefill_dispatches += 1
+                for s, i, rep, toks in admits:
+                    st.cache_len[s] = len(toks)
+                    st.gen_count[s] = 0
+                    st.done_host[s] = False
+                    st.active[s] = (i, rep)
+                    st.toks_acc[s] = []
+                    st.logps_acc[s] = []
+                    st.slot_prompt[s] = np.asarray(toks, np.int32)
+            # Map pages covering the next chunk of every live slot: a host
+            # int append, no device copy.
+            for s in range(n_slots):
+                if st.active[s] is not None:
+                    alloc.reserve(s, int(st.cache_len[s]) + chunk_t)
+            self._accum_pool_stats(
+                "paged", int(st.cache_len.sum()), alloc.allocated_pages() * ps
+            )
+            prev_gen = st.gen_count.copy()
+            out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
+                self.params, st.pool, st.logits_buf,
+                self._to_dev(st.cache_len.astype(np.int64)),
+                self._to_dev(st.gen_count.astype(np.int64)), self._to_dev(st.done_host),
+                st.generator, self._to_dev(alloc.table),
+            )
+            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            # Tokens each slot emitted this chunk: the tail a resume replays.
+            st.last_emit = st.gen_count - prev_gen
+            self.steps_total += chunk_t
+
+            def _retire(s):
+                alloc.release(s)
+                st.slot_prompt.pop(s, None)
+
+            self._drain_chunk_outputs(
+                out_toks, out_logps, new_done.cpu().numpy(), st.active,
+                st.toks_acc, st.logps_acc, st.results, st.done_host,
+                st.cache_len, gconfig.max_new_tokens, on_retire=_retire,
+                stop_seqs=gconfig.stop,
+            )
+        self.last_pool_stats.update(
+            pool_pages=st.n_pages, page_size=ps,
+            pages_recycled=alloc.pages_recycled,
+            peak_pages_used=alloc.peak_pages_used,
+            pool_bytes=alloc.pool_bytes(),
+            peak_allocated_bytes=alloc.peak_pages_used * alloc.page_bytes,
+        )
+        self._set_live_slots(0)
+        return True
+
+    def _take_admits_paged(self, active, pending, n_slots, alloc, slack):
+        """`_take_admits` against the page budget: a request is admitted
+        only when the allocator can map its prompt plus `slack` decode
+        tokens; otherwise it waits for retirements.  Raises
+        PagePoolExhausted when nothing is live and the head request still
+        cannot fit."""
+        admits = []
+        for s in range(n_slots):
+            if active[s] is None and pending:
+                plen = len(pending[-1][2])
+                if not alloc.can_reserve(s, plen + slack):
+                    break
+                i, rep, toks = pending.pop()
+                alloc.reserve(s, plen + slack)
+                admits.append((s, i, rep, toks))
+        if not admits and pending and not any(a is not None for a in active):
+            free_slot = next(s for s in range(n_slots) if active[s] is None)
+            alloc.reserve(free_slot, len(pending[-1][2]) + slack)  # raises
+        self._set_live_slots(sum(a is not None for a in active) + len(admits))
+        return admits
+
+    def _pack_admits_paged(self, admits, n_slots, alloc):
+        """`_pack_admits` with SP a whole number of pages, and each row's
+        pool pages (sentinel past its prompt, and on padding rows)."""
+        rows, plens, slots = self._pack_admits(admits, n_slots)
+        ps = alloc.page_size
+        sp = rows.shape[1]
+        if sp % ps:
+            rows = np.pad(rows, [(0, 0), (0, ps - sp % ps)],
+                          constant_values=self.pad_token_id)
+            sp = rows.shape[1]
+        page_rows = np.full((rows.shape[0], sp // ps), alloc.sentinel, np.int64)
+        for j, (s, _, _, toks) in enumerate(admits):
+            n = alloc.pages_for(len(toks))
+            page_rows[j, :n] = alloc.table[s, :n]
+        return rows, plens, slots, page_rows
+
+    def _get_paged_decode_fn(
+        self, n_slots: int, n_pages: int, max_pages: int, chunk_t: int,
+        g: GenerationHyperparameters,
+    ):
+        """The two-program path's decode chunk over `decode_step_paged`
+        (its page table the chunk's extra argument).  Done rows keep
+        re-writing their current position, still mapped until the slot
+        retires; the reserve() before each chunk maps every other write.
+        Its shape depends only on the pool: one build per call."""
+        cfg = self.cfg
+
+        def forward(params, tok, cache_len, pool, page_table):
+            return tfm.decode_step_paged(
+                params, cfg, tok, cache_len, pool, page_table, cache_len, cache_len + 1
+            )
+
+        return self._plain_decode_chunk(
+            ("paged_inflight", n_pages, max_pages), n_slots, chunk_t, g, forward
+        )
+
 
     # -- the static path --
 

@@ -69,9 +69,6 @@ def unported_options(cfg):
         (bool(cfg.anomaly_grad_norm_mult), "anomaly_grad_norm_mult", "queue 1, item 6"),
         (bool(cfg.anomaly_update_norm_max), "anomaly_update_norm_max", "queue 1, item 6"),
         (cfg.episode_max_turns > 0, "episode_max_turns", "queue 1, item 5.4"),
-        (cfg.gconfig.spec_decode_k > 0, "gconfig.spec_decode_k", "queue 1, item 5.2"),
-        (cfg.kv_paged is False, "kv_paged=False", "queue 1, item 5.1"),
-        (cfg.prefill_chunk_tokens == 0, "prefill_chunk_tokens=0", "queue 1, item 5.3"),
         ("master_dtype" in cfg.train_backend_args,
          "train_backend_args.master_dtype (the port keeps fp32 masters)", "queue 1, item 6"),
         (cfg.train_backend_args.get("remat_policy") in ("dots", "dots_small"),

@@ -4,7 +4,9 @@ plain version.
 Replaces the TPU kernel `paged_decode_attention_chunk_kernel`
 (areal_tpu/ops/pallas/paged_attention.py, body `_paged_chunk_kernel`)
 and the function that dispatches to it, `paged_decode_attention_chunk`
-(areal_tpu/ops/attention.py).  Slot b carries Q queries; query i attends
+(areal_tpu/ops/attention.py), and the kernel's Q=1 entry point
+`paged_decode_attention_kernel` (the same file): here too the chunk
+kernel with one live query per slot, so one body serves both.  Slot b carries Q queries; query i attends
 flat positions [0, valid_to0[b] + i) through `page_table[b]`, and only
 queries i < q_lens[b] are live (dead ones give exact zeros).  The kernel
 is hand-written CUDA C++ for Hopper
@@ -31,7 +33,11 @@ import torch
 
 from areal_tpu_torch.kernels import build
 from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned, check_paged_inputs
-from areal_tpu_torch.ops.attention import decode_attention_chunk, paged_gather_layer
+from areal_tpu_torch.ops.attention import (
+    decode_attention_chunk,
+    paged_decode_attention,
+    paged_gather_layer,
+)
 
 SOURCE = os.path.join(build.CSRC_DIR, "paged_chunk_attention.cu")
 
@@ -197,3 +203,28 @@ def paged_decode_attention_chunk(
         )
     build.count_launch(globals(), "LAUNCHES")
     return out
+
+
+def paged_decode_attention_kernel(
+    q: torch.Tensor,  # [B, 1, n_q, d] float32/bfloat16
+    k_pool: torch.Tensor,  # [P, ps, n_kv, d] float32/bfloat16/int8
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages] int32 (sentinel >= P)
+    valid_to: torch.Tensor,  # [B] int32 — one past the last valid position
+    k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16 (int8 pool)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-token paged decode attention: the chunk kernel at Q=1 with
+    every slot's query live, query 0 seeing [0, valid_to).  CPU tensors:
+    the plain version (`ops/attention.paged_decode_attention`).  A launch
+    counts in LAUNCHES, as the chunk form's does."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"want q [B, 1, n_q, d], got {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return paged_decode_attention(
+            q, k_pool, v_pool, page_table, valid_to, k_scale, v_scale
+        )
+    q_lens = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+    return paged_decode_attention_chunk(
+        q, k_pool, v_pool, page_table, valid_to, q_lens, k_scale, v_scale
+    )

@@ -22,10 +22,20 @@ paged KV pool.
   flash kernels' wrapper, each layer's K/V written to cache[:, :, :S])
   and `decode_step` (one write at a slot shared by every row, attention
   through K4's wrapper over [valid_from, slot]).  The dense cache is
-  updated IN PLACE.  Its int8 form is not ported yet.
+  updated IN PLACE.
+- The dense inflight window (left-aligned rows at their own depths):
+  `prefill_into_slots` (one batched prefill scattered into the admitted
+  rows), `decode_step_inflight` (a write at each row's own slot, K4 at
+  Q=1 over [0, valid_to)) and `decode_step_spec` (Q = K+1 tokens per
+  row, K4's chunk form).  Its int8 form keeps int8 codes and bf16
+  per-(layer, row, slot, head) scales (`ops/quant.py`); `prefill(
+  quantize_kv=True)` quantizes once and attends over the dequantized
+  values, so every read sees dequant(quant(fresh)).
 - The serving forwards over the paged pool: `decode_step_ragged_paged`
   (the packed lane stream, K2's wrapper) and `decode_step_spec_paged`
-  (Q tokens per slot, the resume replay, K3's wrapper).
+  (Q tokens per slot, the resume replay, K3's wrapper); the two-program
+  admit path's `prefill_into_pages` and `decode_step_paged` (one token
+  per slot, K3's Q=1 wrapper).
 - The KV pool is updated IN PLACE (the JAX package donates it instead).
   It holds one trash page past its `n_pages` real pages: torch has no
   drop-mode scatter, so every write the JAX package drops (dead lanes,
@@ -45,11 +55,15 @@ from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.kernels.decode_attention import decode_attention_kernel
 from areal_tpu_torch.kernels.flash_attention import flash_attention
-from areal_tpu_torch.kernels.paged_chunk_attention import paged_decode_attention_chunk
+from areal_tpu_torch.kernels.decode_attention import decode_attention_chunk_kernel
+from areal_tpu_torch.kernels.paged_chunk_attention import (
+    paged_decode_attention_chunk,
+    paged_decode_attention_kernel,
+)
 from areal_tpu_torch.kernels.ragged_paged_attention import ragged_paged_attention_kernel
 from areal_tpu_torch.ops.functional import fused_next_token_logprobs, matmul_fp32_out
 from areal_tpu_torch.ops.norms import apply_rotary, rms_norm, rope_cos_sin
-from areal_tpu_torch.ops.quant import kv_quant
+from areal_tpu_torch.ops.quant import kv_dequant, kv_quant
 
 Params = Dict[str, Any]
 
@@ -364,22 +378,47 @@ def per_token_output(
 @dataclasses.dataclass
 class KVCache:
     """Dense per-layer KV cache: k/v [L, B, S_max, n_kv, head_dim], row b
-    holding its right-aligned prompt and then its generated tokens."""
+    holding its prompt and then its generated tokens.  int8 mode: int8
+    k/v and bf16 per-(layer, row, slot, head) scales [L, B, S_max, n_kv],
+    so `k_scale[li]` is the [B, S, n_kv] that K4 takes."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def s_max(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def nbytes(self) -> int:
+        return sum(
+            a.numel() * a.element_size()
+            for a in (self.k, self.v, self.k_scale, self.v_scale)
+            if a is not None
+        )
 
 
 def init_kv_cache(
     cfg: ModelConfig, batch: int, s_max: int, dtype=None, device=None
 ) -> KVCache:
     """A zeroed dense cache on `device` (the CUDA card unless told
-    otherwise), in `dtype` (default the model's)."""
+    otherwise), in `dtype` (default the model's; "int8" adds bf16
+    scales)."""
     dtype = dtype or cfg.dtype
-    if dtype in (torch.int8, "int8"):
-        raise NotImplementedError("the int8 dense KV cache is not yet ported")
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    if dtype in (torch.int8, "int8"):
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -392,14 +431,23 @@ def prefill(
     tokens: torch.Tensor,  # [B, S] int — one sequence per row
     segment_ids: torch.Tensor,  # [B, S] int — 1 where valid, 0 pad
     cache: KVCache,
+    quantize_kv: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompts through the model, writing each layer's K/V to
     cache[:, :, :S] (in place), and return fp32 logits [B, V] at each
     row's LAST valid position only (the distribution over the first
     generated token).  Attention is `flash_attention` (K1f on the card),
-    causal within each row's segment; padding positions give zeros."""
+    causal within each row's segment; padding positions give zeros.
+
+    quantize_kv=True (an int8 cache) quantizes each layer's fresh K/V
+    once, writes those codes and scales, and attends over their
+    dequantized values: the prefill then sees what every later read of
+    the cache sees.  A dequantized value is never quantized again
+    (round(126 s / 127 / s') flips codes)."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not yet ported")
+    if quantize_kv != cache.quantized:
+        raise ValueError("quantize_kv must be set exactly when the cache is int8")
     b, s = tokens.shape
     positions = positions_from_segments(segment_ids).long()
     x = _embed(params, cfg, tokens.long(), positions)
@@ -409,8 +457,15 @@ def prefill(
         blk = {name: w[li] for name, w in blocks.items()}
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, S, h, d]
-        cache.k[li, :, :s] = k.to(cache.k.dtype)
-        cache.v[li, :, :s] = v.to(cache.v.dtype)
+        if quantize_kv:
+            kq, ksc = kv_quant(k)
+            vq, vsc = kv_quant(v)
+            cache.k[li, :, :s], cache.k_scale[li, :, :s] = kq, ksc
+            cache.v[li, :, :s], cache.v_scale[li, :, :s] = vq, vsc
+            k, v = kv_dequant(kq, ksc, k.dtype), kv_dequant(vq, vsc, v.dtype)
+        else:
+            cache.k[li, :, :s] = k.to(cache.k.dtype)
+            cache.v[li, :, :s] = v.to(cache.v.dtype)
         attn = flash_attention(q, k, v, segment_ids, causal=True)
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
@@ -459,6 +514,161 @@ def decode_step(
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
     return _head(params, cfg, x)[:, 0], cache
+
+
+def _dense_update_read(cache: KVCache, k: torch.Tensor, v: torch.Tensor, li: int, idx):
+    """Write this layer's new K/V entries at (row, slot) `idx` of the
+    dense cache in place (quantizing when it is int8), and return the
+    layer's raw views [B, S, n_kv, d] plus its scales (None unless int8).
+    Every index must be in range: the callers clamp their slots."""
+    if cache.quantized:
+        kq, ks = kv_quant(k)
+        vq, vs = kv_quant(v)
+        cache.k[li].index_put_(idx, kq)
+        cache.v[li].index_put_(idx, vq)
+        cache.k_scale[li].index_put_(idx, ks)
+        cache.v_scale[li].index_put_(idx, vs)
+        return cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li]
+    cache.k[li].index_put_(idx, k.to(cache.k.dtype))
+    cache.v[li].index_put_(idx, v.to(cache.v.dtype))
+    return cache.k[li], cache.v[li], None, None
+
+
+def decode_step_inflight(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] int
+    positions: torch.Tensor,  # [B] int — RoPE positions
+    cache: KVCache,
+    slots: torch.Tensor,  # [B] int — per-row cache write slot
+    valid_to: torch.Tensor,  # [B] int — one past the last valid slot (incl. new)
+) -> Tuple[torch.Tensor, KVCache]:
+    """Decode step with PER-ROW write slots (left-aligned rows at their
+    own depths, the inflight window): each row's new K/V is written at
+    (row, slots[row]) (int8 codes and scales for an int8 cache), then it
+    attends [0, valid_to) through `decode_attention_kernel` (K4 at Q=1 on
+    the card).  Returns fp32 logits [B, V] and the cache, updated in
+    place.  The JAX function's `unroll` (a layer loop the XLA compiler
+    could alias) has no counterpart: here the layers are always a Python
+    loop over in-place views."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    b = tokens.shape[0]
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.long(), positions)[:, None, :]  # [B, 1, D]
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    idx = (torch.arange(b, device=tokens.device), slots.long())
+    # The attention kernel takes int32 windows.
+    vf = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
+    vt = valid_to.to(torch.int32)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
+        k_l, v_l, ks_l, vs_l = _dense_update_read(cache, k[:, 0], v[:, 0], li, idx)
+        attn = decode_attention_kernel(
+            q.contiguous(), k_l, v_l, vf, vt, k_scale=ks_l, v_scale=vs_l
+        )
+        x = _attn_mlp(x, attn, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x)[:, 0], cache
+
+
+def decode_step_spec(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, Q] int — pending token + Q-1 drafts per row
+    positions: torch.Tensor,  # [B, Q] int — RoPE positions
+    cache: KVCache,
+    slots0: torch.Tensor,  # [B] int — write slot of tokens[:, 0]
+) -> Tuple[torch.Tensor, KVCache]:
+    """Speculative decode step: Q consecutive tokens per row in one
+    forward, their K/V written at slots0 .. slots0 + Q - 1 (in range: the
+    caller clamps slots0 to S - Q), query j attending [0, slots0 + 1 + j)
+    through `decode_attention_chunk_kernel` (K4's chunk form on the card).
+    Each layer writes before it reads, so rejected drafts' stale entries
+    past a row's accepted prefix are overwritten when those positions are
+    consumed for real.  Returns fp32 logits [B, Q, V] (logits[:, j] = the
+    next-token distribution after tokens[:, :j+1]) and the cache, updated
+    in place."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    b, q_len = tokens.shape
+    dev = tokens.device
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.reshape(-1).long(), positions.reshape(-1))
+    x = x.reshape(b, q_len, cfg.hidden_dim)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    slots0 = slots0.long()
+    idx = (
+        torch.arange(b, device=dev)[:, None].expand(b, q_len),
+        slots0[:, None] + torch.arange(q_len, device=dev)[None, :],
+    )
+    vf = torch.zeros((b,), dtype=torch.int32, device=dev)
+    vt0 = (slots0 + 1).to(torch.int32)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, Q, h, d]
+        k_l, v_l, ks_l, vs_l = _dense_update_read(cache, k, v, li, idx)
+        attn = decode_attention_chunk_kernel(
+            q.contiguous(), k_l, v_l, vf, vt0, k_scale=ks_l, v_scale=vs_l
+        )
+        x = _attn_mlp(x, attn, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x), cache
+
+
+def _prefill_row_cache(cfg: ModelConfig, m: int, sp: int, cache) -> KVCache:
+    """Scratch per-row dense cache for a batched admission prefill, in
+    the target's quantization (int8 codes and scales when the target is
+    int8, so the scatters move codes verbatim)."""
+    dtype = "int8" if cache.quantized else cache.k.dtype
+    return init_kv_cache(cfg, m, sp, dtype=dtype, device=cache.k.device)
+
+
+def prefill_into_slots(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [M, SP] int — left-aligned prompts (padding right)
+    prompt_lens: torch.Tensor,  # [M] int
+    cache: KVCache,  # [L, n_slots, S_max, h, d]
+    slot_rows: torch.Tensor,  # [M] int — target cache row per prompt
+) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill M requests into their cache rows in one forward; returns
+    fp32 logits [M, V] at each row's last prompt token.  Rows whose
+    `slot_rows` entry is out of range (>= n_slots) are padding: they are
+    selected out BEFORE the forward (torch has no drop-mode scatter, and
+    a clamped index would overwrite a live row), and their logits are 0.
+    `slot_rows` is read on the host, so pass it on the CPU (as the engine
+    does) and nothing waits for the card.  An int8 cache gets the codes
+    the prefill computed, never re-quantized values."""
+    m, sp = tokens.shape
+    dev = tokens.device
+    rows = slot_rows.to("cpu").long()
+    keep = torch.nonzero((rows >= 0) & (rows < cache.k.shape[1]))[:, 0]
+    logits_all = torch.zeros((m, cfg.vocab_size), dtype=torch.float32, device=dev)
+    if keep.numel() == 0:
+        return logits_all, cache
+    keep_dev = keep.to(dev)
+    if keep.numel() < m:
+        tokens, prompt_lens = tokens[keep_dev], prompt_lens[keep_dev]
+    seg = (
+        torch.arange(sp, device=dev)[None, :] < prompt_lens.long()[:, None]
+    ).long()
+    row_cache = _prefill_row_cache(cfg, keep.numel(), sp, cache)
+    logits, row_cache = prefill(
+        params, cfg, tokens, seg, row_cache, quantize_kv=cache.quantized
+    )
+    dst = rows[keep].to(dev)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a = getattr(cache, name)
+        if a is not None:
+            a[:, dst, :sp] = getattr(row_cache, name)
+    logits_all[keep_dev] = logits
+    return logits_all, cache
 
 
 # --------------------------------------------------------------------------
@@ -667,6 +877,85 @@ def decode_step_spec_paged(
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
     return _head(params, cfg, x), cache
+
+
+def decode_step_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B] int
+    positions: torch.Tensor,  # [B] int — RoPE positions
+    cache: PagedKVCache,
+    page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
+    write_pos: torch.Tensor,  # [B] int — flat cache position to write
+    valid_to: torch.Tensor,  # [B] int — one past the last valid position
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """`decode_step_inflight` over the paged pool (the two-program admit
+    path's decode step): each row's K/V written at (page_table[row,
+    pos // ps], pos % ps) (writes through a sentinel go to the trash
+    page), attention over [0, valid_to) through the page table with
+    `paged_decode_attention_kernel` (K3 at Q=1 on the card).  Returns fp32
+    logits [B, V] and the pool, updated in place."""
+    if cfg.is_moe:
+        raise NotImplementedError("MoE models are not yet ported")
+    positions = positions.long()
+    x = _embed(params, cfg, tokens.long(), positions)[:, None, :]  # [B, 1, D]
+    cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    idx = _page_of(page_table, write_pos.long(), cache.page_size)
+    # The attention kernel takes int32 tables and windows.
+    pt_attn = page_table.to(torch.int32).contiguous()
+    vt = valid_to.to(torch.int32)
+    blocks = params["blocks"]
+    for li in range(cfg.n_layers):
+        blk = {name: w[li] for name, w in blocks.items()}
+        h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+        q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
+        k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
+            cache, k[:, 0], v[:, 0], li, idx
+        )
+        attn = paged_decode_attention_kernel(
+            q.contiguous(), k_pool_l, v_pool_l, pt_attn, vt,
+            k_scale=ks_l, v_scale=vs_l,
+        )
+        x = _attn_mlp(x, attn, blk, cfg)
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return _head(params, cfg, x)[:, 0], cache
+
+
+def prefill_into_pages(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [M, SP] int — left-aligned prompts, SP % page_size == 0
+    prompt_lens: torch.Tensor,  # [M] int
+    cache: PagedKVCache,
+    page_rows: torch.Tensor,  # [M, SP // page_size] int — pool page ids
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """`prefill_into_slots` for the paged pool: one batched forward of M
+    admitted prompts, whose per-row caches are cut into page_size chunks
+    and scattered to their pool pages.  `page_rows` entries >= n_pages
+    (the sentinel: chunks past a prompt, padding rows) go to the trash
+    page, which no read reaches.  The tail of a prompt's last page holds
+    the padding's K/V until decode writes overwrite it; `valid_to` masks
+    it meanwhile.  Returns fp32 logits [M, V] at each row's last prompt
+    token and the pool, updated in place."""
+    m, sp = tokens.shape
+    ps = cache.page_size
+    if sp % ps:
+        raise ValueError(f"prefill width {sp} not a multiple of page_size {ps}")
+    dev = tokens.device
+    seg = (
+        torch.arange(sp, device=dev)[None, :] < prompt_lens.long()[:, None]
+    ).long()
+    row_cache = _prefill_row_cache(cfg, m, sp, cache)
+    logits, row_cache = prefill(
+        params, cfg, tokens, seg, row_cache, quantize_kv=cache.quantized
+    )
+    flat = torch.clamp(page_rows.reshape(-1).long(), max=cache.n_pages)
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a = getattr(cache, name)
+        if a is not None:
+            r = getattr(row_cache, name)  # [L, M, SP, ...] -> [L, M * SP/ps, ps, ...]
+            a[:, flat] = r.reshape(r.shape[0], m * (sp // ps), ps, *r.shape[3:])
+    return logits, cache
 
 
 def copy_pages(

@@ -13,6 +13,11 @@
   plain version; the paged attention kernels' wrappers
   (`kernels/ragged_paged_attention.py`, `kernels/paged_chunk_attention.py`)
   build theirs from these.  The model calls the wrappers.
+- `paged_decode_attention`: single-query decode through a page table,
+  plain formulation (the gather, then `decode_attention` over windows
+  from position 0): the JAX function's non-kernel branch and the plain
+  version of K3's Q=1 wrapper (`kernels/paged_chunk_attention.py
+  paged_decode_attention_kernel`), which `decode_step_paged` calls.
 - `split_window_attention`: the split-KV arithmetic of K2 and K4 (partials
   per span, then the merge), which the tests and chip_smoke.py hold
   against the plain versions and the kernels.
@@ -240,3 +245,25 @@ def paged_gather_layer(
     g = pool_layer[pt]  # [B, mp, ps, ...]
     b, mp, ps = g.shape[:3]
     return g.reshape(b, mp * ps, *pool_layer.shape[2:])
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, n_q, d]
+    k_pool: torch.Tensor,  # [P, ps, n_kv, d] — one layer's pool view
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, max_pages] int (sentinel >= P)
+    valid_to: torch.Tensor,  # [B] int — one past the last valid position
+    k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv]: int8 pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-token decode attention through a page table, plain
+    formulation: paged rows are left-aligned from flat position 0, so the
+    window is [0, valid_to)."""
+    ks = None if k_scale is None else paged_gather_layer(k_scale, page_table)
+    vs = None if v_scale is None else paged_gather_layer(v_scale, page_table)
+    return decode_attention(
+        q, paged_gather_layer(k_pool, page_table),
+        paged_gather_layer(v_pool, page_table),
+        torch.zeros_like(valid_to, dtype=torch.long), valid_to.long(),
+        k_scale=ks, v_scale=vs,
+    )

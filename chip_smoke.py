@@ -37,7 +37,14 @@ kernel       — the ragged paged attention kernel (K2) against its plain
                version and of its split reference, empty windows exactly
                0, poisoned positions outside every window changing
                nothing; one call under the sync debug mode; and its times
-               at 32 rows and at the static phase's 64.
+               at 32 rows and at the static phase's 64.  Then the forms
+               the generator's other inflight modes run: K3's Q=1 entry
+               point (the two-program path's decode step; 16 and 64 slots,
+               windows 64-640, fp32/bf16/int8 pools, against the chunk
+               form and the plain paged_decode_attention), K4 at Q=1 over
+               an int8 cache and at Q=5 (dense spec, K=4), 16 rows of a
+               1024 window; each with one call under the sync debug mode
+               and its times beside the plain version, SDPA and the bound.
 flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                backward) against the plain version and its autograd on
                fp32 copies of the same inputs, at qwen2-1.5B's attention
@@ -149,10 +156,29 @@ resume_parity — park at the second serving chunk and resume under
                replayed row's logits (K3) against the ones before the
                replay (K2), and in fp32 greedy tokens identical to an
                uninterrupted run.
+genmodes     — the generator's other inflight modes at full qwen2-1.5B in
+               bf16: the serve burst's first 8 prompts (x n=4, 128 new
+               tokens, greedy) through GenerationServer over engines of
+               16 slots,
+               (a) the dense window (kv_paged=False) in bf16 and int8,
+               (b) dense spec K=4, (c) the two-program paged path
+               (prefill_chunk_tokens=0) in bf16 and int8, (d) spec K=4 on
+               the serving plane, then (e) one quickstart ppo-math step
+               with --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8.
+               Replies, launches (K4 = 28 x decode steps in (a), (b); K3
+               = 28 x decode steps in (c); K2 = 28 x inner steps in (d);
+               K1f = 28 x prefill dispatches; the rest 0), one decode
+               chunk of each mode under the sync debug mode, and int8
+               against bf16 token agreement >= 0.85 (teacher-forced along
+               the bf16 run) are checked; tokens/s,
+               the decode step's time, spec acceptance, cache copy bytes
+               and peak memory are printed.
 parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
                engine on the card against the engine on the CPU (the
-               plain path), on the serving plane (inflight=True, K2) and
-               on the static path (inflight=False, K1f and K4).
+               plain path), on the serving plane (inflight=True, K2), on
+               the static path (inflight=False, K1f and K4) and in each
+               mode of genmodes (a)-(d); every full-precision mode's
+               tokens equal the static path's.
 train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
                the actor (PPO loss) and of a critic (value loss): the card
                (K1) against the CPU (plain path): loss, grad_norm and the
@@ -163,7 +189,8 @@ editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
 K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
 step with the critic and the reference model, `--phases build,quickstart`
 for the quickstart entry point, `--phases build,recover` for
-kill-and-resume.  The line before the last is one JSON object
+kill-and-resume, `--phases build,kernel,parity,genmodes` for the
+generator's other inflight modes.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -183,7 +210,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "recover", "parity", "train_parity")
+          "train", "ppo", "quickstart", "recover", "genmodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -532,7 +559,9 @@ def phase_kernel(report, seed):
     report["kernel"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by,
                             T=T, **times)
     _kernel_k3(report, seed)
+    _kernel_k3_q1(report, seed)
     _kernel_k4(report, seed)
+    _kernel_k4_inflight(report, seed)
     _split_sweep(report, seed)
 
 
@@ -842,19 +871,20 @@ def _k4_windows(vf, vt0, nq, S):
     return (pos[None, None, :] >= vf[:, None, None]) & (pos[None, None, :] < hi[:, :, None])
 
 
-def _k4_bound(vf, vt0, nq, S, n_q, n_kv, d, elem_bytes):
-    """Least time for K4 on these rows (a float cache): the flops of QK
-    and PV over each query's live window at the bf16 tensor rate, against
-    each row's live K/V positions (the union of its queries' windows,
-    read once for all its queries and heads), q in, out back and the two
-    window bounds, at the HBM rate."""
+def _k4_bound(vf, vt0, nq, S, n_q, n_kv, d, elem_bytes, kv_bytes=None):
+    """Least time for K4 on these rows: the flops of QK and PV over each
+    query's live window at the bf16 tensor rate, against each row's live
+    K/V positions (the union of its queries' windows, read once for all
+    its queries and heads; `kv_bytes` a position and kv head of K, and of
+    V, default d * elem_bytes), q in, out back and the two window bounds,
+    at the HBM rate."""
     flops = kv_pos = 0
     for f, t in zip(vf.tolist(), vt0.tolist()):
         lens = [max(0, min(t + i, S) - max(f, 0)) for i in range(nq)]
         flops += sum(4 * d * n_q * n for n in lens)
         kv_pos += max(lens)
     b = len(vf)
-    nbytes = (2 * kv_pos * n_kv * d * elem_bytes
+    nbytes = (2 * kv_pos * n_kv * (kv_bytes or d * elem_bytes)
               + 2 * b * nq * n_q * d * elem_bytes + 2 * b * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
@@ -988,6 +1018,146 @@ def _kernel_k4(report, seed):
                                 **times)
         else:
             report["k4"]["b64"] = dict(bound_ms=bound_ms, **times)
+
+
+def _kernel_k3_q1(report, seed):
+    """K3's Q=1 entry point (`paged_decode_attention_kernel`: the
+    two-program path's decode attention, one live query a slot) at the
+    paged-decode shape: 16 and 64 slots, windows 64-640 over shuffled
+    pages of 128, a 6-page table.  The chunk form at Q=1 held as
+    _hold_k3 holds it (fp32, bf16, int8 pools; poisoned last page); the
+    wrapper equal to it and within FLASH_ROW_TOL of the plain
+    `paged_decode_attention`; one call under the sync debug mode; then in
+    bf16 the times of the wrapper, the plain version and SDPA over the
+    gathered windows, beside the bound."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.ops.attention import paged_decode_attention, paged_gather_layer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 41)
+    out = {}
+    for b in (16, 64):
+        L = rng.integers(64, 641, b)
+        L[:2] = (64, 640)
+        s = _k3_slots(rng, 1, L, np.ones(b, np.int32), [-(-int(x) // 128) for x in L], 6)
+        errs, cases, t = _hold_k3(f"Q=1 B={b}", s)
+        pt, vt = t["pt"], t["hi0"]
+        for name, (q, k, v, ksc, vsc, tol) in cases.items():
+            got = pca.paged_decode_attention_kernel(q, k, v, pt, vt, ksc, vsc)
+            chunk = pca.paged_decode_attention_chunk(q, k, v, pt, vt, t["ql"], ksc, vsc)
+            f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+            plain = paged_decode_attention(q.float(), f32(k), f32(v), pt, vt, ksc, vsc)
+            rel, err = _row_err(got, plain)
+            errs[f"{name}_q1_row"], errs[f"{name}_q1"] = rel, err
+            check(torch.equal(got, chunk), f"K3 Q=1 B={b} {name}: the wrapper is not the "
+                  "chunk kernel at Q=1")
+            check(rel <= tol, f"K3 Q=1 B={b} {name} disagrees with paged_decode_attention: "
+                  f"{rel:.3e}")
+        q, k, v = cases["bf16"][:3]
+        no_host_sync(f"K3 Q=1 B={b}", lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt))
+        kc = paged_gather_layer(k, pt).transpose(1, 2).contiguous()  # [B, n_kv, S, d]
+        vc = paged_gather_layer(v, pt).transpose(1, 2).contiguous()
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :] < vt[:, None])[:, None, None, :]
+        q4 = q.transpose(1, 2).contiguous()  # [B, n_q, 1, d]
+        times = timings(
+            lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt),
+            lambda: paged_decode_attention(q, k, v, pt, vt),
+            lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True),
+            iters=10,
+        )
+        bound_ms, bound_by = _k3_bound(s, 2)
+        log(f"[kernel] K3 Q=1 bf16 B={b}: kernel_ms={times['kernel_ms']:.4f} "
+            f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+            f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
+            f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
+            f"bound_ms={bound_ms:.5f} ({bound_by}); {int(L.sum())} live positions")
+        out[b] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by, **times)
+    report["k3"]["q1"] = out
+
+
+def _kernel_k4_inflight(report, seed):
+    """K4 at the dense inflight window's shapes: 16 left-aligned rows of a
+    S=1024 cache, windows [0, L) with L 64-640.  Q=1 with bf16 q over an
+    int8 cache and bf16 scales (decode_step_inflight's int8 form), and Q=5
+    in bf16 (decode_step_spec at K=4: query j sees [0, L + j)).  Each held
+    against `decode_attention_chunk` on the same inputs (q in fp32) within
+    the bf16 row tolerance, positions past every window poisoned changing
+    nothing; one call under the sync debug mode; then the times of K4,
+    its plain version and SDPA (over the window dequantized to bf16 for
+    the int8 case), beside the bound (int8: one byte a K/V element plus
+    its row's bf16 scale)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.ops.attention import decode_attention_chunk
+    from areal_tpu_torch.ops.quant import kv_dequant
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 42)
+    b, S, n_q, n_kv, d = GENMODE_SLOTS, 1024, 12, 2, 128
+    bf = torch.bfloat16
+    L = rng.integers(64, 641, b).astype(np.int32)
+    L[:2] = (64, 640)
+    vf = torch.zeros(b, dtype=torch.int32, device=dev)
+    vt = torch.from_numpy(L).to(dev)
+    shape = (b, S, n_kv, d)
+    k8 = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+    v8 = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+    ks, vs = (torch.from_numpy(np.abs(rng.standard_normal(shape[:3])) * 0.01 + 0.002)
+              .to(dev).to(bf) for _ in range(2))
+    k16, v16 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(bf)
+                for _ in range(2))
+    out = {}
+    for tag, nq, k, v, ksc, vsc in (("int8_q1", 1, k8, v8, ks, vs),
+                                    ("q5", 5, k16, v16, None, None)):
+        q = torch.from_numpy(rng.standard_normal((b, nq, n_q, d)).astype(np.float32)).to(dev)
+        q = q.to(bf)
+        full = torch.full((b,), nq, dtype=torch.long, device=dev)
+        got = da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc)
+        f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+        plain = decode_attention_chunk(q.float(), f32(k), f32(v), vf.long(), vt.long(), full,
+                                       ksc, vsc)
+        rel, err = _row_err(got, plain)
+        check(bool(torch.isfinite(got).all()), f"K4 {tag}: non-finite output")
+        check(rel <= FLASH_ROW_TOL["bf16"], f"K4 {tag} disagrees with the plain version: "
+              f"{rel:.3e}")
+        outside = ~_k4_windows(vf, vt, nq, S).any(1)  # [B, S]
+        k_bad, v_bad = k.clone(), v.clone()
+        k_bad[outside], v_bad[outside] = (127, 127) if k.dtype == torch.int8 else (1e4, 1e4)
+        check(torch.equal(got, da.decode_attention_chunk_kernel(q, k_bad, v_bad, vf, vt,
+                                                               ksc, vsc)),
+              f"K4 {tag}: poisoning positions outside every window changed the output")
+        no_host_sync(f"K4 {tag}", lambda: da.decode_attention_chunk_kernel(q, k, v, vf, vt,
+                                                                          ksc, vsc))
+        kd = kv_dequant(k, ksc, bf) if ksc is not None else k
+        vd = kv_dequant(v, vsc, bf) if vsc is not None else v
+        kc, vc = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+        mask = _k4_windows(vf, vt, nq, S)[:, None]  # [B, 1, Q, S]
+        q4 = q.transpose(1, 2).contiguous()
+        times = timings(
+            lambda: da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc),
+            lambda: decode_attention_chunk(q, k, v, vf.long(), vt.long(), full, ksc, vsc),
+            lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True),
+            iters=10,
+        )
+        kv_bytes = d + 2 if k.dtype == torch.int8 else 2 * d
+        bound_ms, bound_by = _k4_bound(np.zeros(b, np.int32), L, nq, S, n_q, n_kv, d, 2,
+                                       kv_bytes=kv_bytes)
+        log(f"[kernel] K4 {tag} B={b} Q={nq} S={S}: row_err={rel:.3e} (tolerance "
+            f"{FLASH_ROW_TOL['bf16']:.3e}) max_abs_err={err:.3e}; kernel_ms="
+            f"{times['kernel_ms']:.4f} plain_ms={times['plain_ms']:.4f} library_ms="
+            f"{times['library_ms']:.4f} (device, graph replays); eager calls kernel="
+            f"{times['kernel_eager_ms']:.4f} plain={times['plain_eager_ms']:.4f} library="
+            f"{times['library_eager_ms']:.4f}; bound_ms={bound_ms:.5f} ({bound_by})")
+        out[tag] = dict(row_err=rel, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                        **times)
+    report["k4"].update(out)
 
 
 # --------------------------------------------------------------------------
@@ -1658,9 +1828,10 @@ def phase_static(report, seed):
 # --------------------------------------------------------------------------
 
 
-def _burst(url, prompts, n, max_new, seed, timeout=900.0):
+def _burst(url, prompts, n, max_new, seed, timeout=900.0, **options):
     """POST every prompt at once (one batched engine call: same gconfig
-    and seed); returns (replies, errors)."""
+    and seed), with request `options` (greedy, spec_decode_k, ...) beside
+    the sampling defaults; returns (threads, replies, errors)."""
     start = threading.Barrier(len(prompts))
     replies, errors = [None] * len(prompts), []
 
@@ -1668,8 +1839,8 @@ def _burst(url, prompts, n, max_new, seed, timeout=900.0):
         start.wait(timeout=60.0)
         try:
             replies[i] = _post(url + "/generate", dict(
-                qid=f"q{i}", prompt_ids=prompts[i], n=n, max_new_tokens=max_new,
-                temperature=1.0, seed=seed,
+                dict(qid=f"q{i}", prompt_ids=prompts[i], n=n, max_new_tokens=max_new,
+                     temperature=1.0, seed=seed), **options,
             ))
         except Exception as e:  # noqa: BLE001 — reported by the caller
             errors.append(f"q{i}: {e!r}")
@@ -1988,16 +2159,35 @@ def phase_resume_parity(report, seed):
 # --------------------------------------------------------------------------
 
 
+# (label, engine options, inflight, request options, the attention
+# kernel a decode step launches once per layer) for phase_parity.
+PARITY_MODES = (
+    ("serving plane", {}, True, {}, "k2"),
+    ("static path", {}, False, {}, "k4"),
+    ("dense window", dict(kv_paged=False), True, {}, "k4"),
+    ("dense window int8", dict(kv_paged=False, kv_cache_dtype="int8"), True, {}, "k4"),
+    ("dense spec K=4", dict(kv_paged=False), True, dict(spec_decode_k=4), "k4"),
+    ("two-program paged", dict(prefill_chunk_tokens=0), True, {}, "k3"),
+    ("two-program paged int8", dict(prefill_chunk_tokens=0, kv_cache_dtype="int8"), True, {},
+     "k3"),
+    ("serving spec K=4", {}, True, dict(spec_decode_k=4), "k2"),
+)
+
+
 def phase_parity(seed):
+    """Greedy tokens at qwen2-1.5B width and 2 layers in fp32 (TF32 off),
+    each mode of PARITY_MODES on the card against the same mode on the
+    CPU (the plain path): tokens identical, logprobs within 1e-3, and the
+    card's launches = 2 layers x the engine's own steps (the static path:
+    K1f per chunk, K4 per decode step; every other mode: K1f per prefill
+    dispatch and its decode kernel per step).  Every full-precision
+    mode's tokens equal the static path's, on the card and on the CPU."""
     import numpy as np
     import torch
 
     from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.api.model_api import GenerationHyperparameters
     from areal_tpu_torch.engines.generator import GeneratorEngine
-    from areal_tpu_torch.kernels import decode_attention as da
-    from areal_tpu_torch.kernels import flash_attention as fa
-    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
 
@@ -2018,24 +2208,28 @@ def phase_parity(seed):
             data={"packed_prompts": data.copy()},
         )
 
-    g = GenerationHyperparameters(n=2, max_new_tokens=16, greedy=True)
     kw = dict(eos_token_id=151643, kv_page_size=128, prefill_chunk_tokens=8)
-    for inflight, path in ((True, "serving plane"), (False, "static path")):
+    tokens = {}
+    for path, ekw, inflight, gkw, kernel in PARITY_MODES:
+        g = GenerationHyperparameters(n=2, max_new_tokens=16, greedy=True, **gkw)
         outs, secs = {}, {}
         for dev in ("cuda", "cpu"):
-            eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32, **kw)
-            fa.reset_launches()
-            da.LAUNCHES = rpa.LAUNCHES = 0
+            eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
+                                  **dict(kw, **ekw))
+            _reset_counts()
             t0 = time.monotonic()
             outs[dev] = eng.generate(sample(), MicroBatchSpec(), g, inflight=inflight)
             secs[dev] = time.monotonic() - t0
-            if dev == "cuda" and inflight:
-                check(rpa.LAUNCHES == cfg.n_layers * eng.steps_total > 0,
-                      f"serving plane: K2 launches {rpa.LAUNCHES}")
-            elif dev == "cuda":
-                check(fa.LAUNCHES["fwd"] == cfg.n_layers * eng.static_chunks > 0
-                      and da.LAUNCHES == cfg.n_layers * eng.static_decode_steps > 0,
-                      f"static path: K1f launches {fa.LAUNCHES['fwd']}, K4 {da.LAUNCHES}")
+            if dev == "cuda":
+                counts, L = _trial_counts(), cfg.n_layers
+                if inflight:
+                    want = dict(fwd=L * eng.prefill_dispatches, dq=0, dkv=0, k2=0, k3=0, k4=0)
+                    want[kernel] = L * eng.steps_total
+                else:
+                    want = dict(fwd=L * eng.static_chunks, dq=0, dkv=0, k2=0, k3=0,
+                                k4=L * eng.static_decode_steps)
+                check(counts == want and counts[kernel] > 0,
+                      f"{path}: launches {counts} != {want}")
             del eng
         a, b = outs["cuda"], outs["cpu"]
         same = (
@@ -2047,6 +2241,14 @@ def phase_parity(seed):
             f"diff={lp_err:.2e} (cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)")
         check(same, f"{path}: greedy tokens differ between the card and the CPU")
         check(lp_err <= 1e-3, f"{path}: logprobs differ by {lp_err} > 1e-3")
+        tokens[path] = {dev: o.data["packed_input_ids"] for dev, o in outs.items()}
+    static = tokens["static path"]
+    for path, toks in tokens.items():
+        if "int8" in path:
+            continue
+        same = all(np.array_equal(toks[dev], static[dev]) for dev in ("cuda", "cpu"))
+        log(f"[parity] {path} against the static path: tokens identical={same}")
+        check(same, f"{path}: greedy tokens differ from the static path's")
 
 
 # --------------------------------------------------------------------------
@@ -3531,6 +3733,433 @@ def phase_train_parity(seed):
               f"{kind}: params after the step differ card vs CPU")
 
 
+# --------------------------------------------------------------------------
+# genmodes: the generator's other inflight modes at full size
+# --------------------------------------------------------------------------
+
+# (name, engine options, request options, the attention kernel a decode
+# step of the mode launches once per layer)
+GENMODES = (
+    ("dense", dict(kv_paged=False), {}, "k4"),
+    ("dense_int8", dict(kv_paged=False, kv_cache_dtype="int8"), {}, "k4"),
+    ("dense_spec", dict(kv_paged=False), dict(spec_decode_k=4), "k4"),
+    ("paged2", dict(prefill_chunk_tokens=0), {}, "k3"),
+    ("paged2_int8", dict(prefill_chunk_tokens=0, kv_cache_dtype="int8"), {}, "k3"),
+    ("serving_spec", {}, dict(spec_decode_k=4), "k2"),
+)
+# The decode-chunk getter of each mode's loop.
+GENMODE_CHUNK_GETTER = {
+    "dense": "_get_inflight_decode_fn", "dense_int8": "_get_inflight_decode_fn",
+    "dense_spec": "_get_spec_decode_fn", "paged2": "_get_paged_decode_fn",
+    "paged2_int8": "_get_paged_decode_fn", "serving_spec": "_get_serving_chunk_fn",
+}
+GENMODE_SLOTS = 16
+INT8_AGREEMENT = 0.85  # tests/test_generator.py:316's bound
+
+
+def _genmode_run(name, cfg, params, prompts, n, max_new, ekw, gkw, kernel, seed):
+    """One mode: the burst (every prompt at once, n greedy responses of
+    max_new tokens, the mode's request options) through GenerationServer
+    over an engine with GENMODE_SLOTS slots.  The launch counts are set
+    to 0 just before the burst and read just after it.  The mode's second
+    decode chunk runs under torch.cuda.set_sync_debug_mode("error"); CUDA
+    events bracket every chunk; a speculative step's emitted tokens are
+    summed on the card."""
+    import torch
+
+    from areal_tpu_torch.engines import generator as gen_mod
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    engine = GeneratorEngine(cfg, params, eos_token_id=151643,
+                             max_decode_batch=GENMODE_SLOTS, **ekw)
+    check(engine.device.type == "cuda", f"[genmodes] {name}: the engine is not on the card")
+    engine.static_path_max_new = 0  # every mode is an inflight one
+    calls, chunk_ev, held = [], [], {}
+    real_generate = engine.generate
+
+    def generate(sample, *a, **k):
+        out = real_generate(sample, *a, **k)
+        calls.append(dict(prefill_dispatches=engine.prefill_dispatches,
+                          cache_copy_bytes=engine.cache_copy_bytes,
+                          decode_compiles=engine.decode_compiles,
+                          dead_live_lanes=engine.dead_live_lanes))
+        return out
+
+    getter_name = GENMODE_CHUNK_GETTER[name]
+    real_getter = getattr(engine, getter_name)
+
+    def getter(*a, **k):
+        fn = real_getter(*a, **k)
+
+        def run(*fa, **fk):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            hold = len(chunk_ev) == 1  # the second chunk: kernels loaded, warm
+            if hold:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            ev[0].record()
+            try:
+                out = fn(*fa, **fk)
+            except RuntimeError as e:
+                if hold:
+                    held["error"] = repr(e)
+                raise
+            finally:
+                if hold:
+                    torch.cuda.set_sync_debug_mode(0)
+            ev[1].record()
+            if hold:
+                held["ok"] = True
+            chunk_ev.append(ev)
+            return out
+
+        return run
+
+    spec_acc = torch.zeros(2, dtype=torch.long, device=engine.device)  # (emitted, row-steps)
+    real_emit = gen_mod._spec_emit
+
+    def spec_emit(*a, **k):
+        out = real_emit(*a, **k)
+        gen0, gen1 = a[9], out[2]  # gen_count before and after the step
+        emitted = gen1 - gen0
+        spec_acc.add_(torch.stack([emitted.sum(), (emitted > 0).sum()]))
+        return out
+
+    engine.generate = generate
+    setattr(engine, getter_name, getter)
+    gen_mod._spec_emit = spec_emit
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=500.0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = engine.steps_total
+        _reset_counts()
+        t0 = time.monotonic()
+        threads, replies, errors = _burst(server.url, prompts, n, max_new, seed,
+                                          greedy=True, **gkw)
+        for th in threads:
+            th.join(timeout=900.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _trial_counts()
+        steps = engine.steps_total - steps0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        gen_mod._spec_emit = real_emit
+        server.close()
+    check(held.get("ok") and "error" not in held,
+          f"[genmodes] {name}: a decode chunk synchronised with the host: {held}")
+    check(not errors and all(r is not None for r in replies),
+          f"[genmodes] {name}: requests failed: {errors[:3]}")
+    n_tok, outputs = 0, []
+    for i, r in enumerate(replies):
+        check(len(r["output_ids"]) == n, f"[genmodes] {name} q{i}: {len(r['output_ids'])} outputs")
+        for ids, lps in zip(r["output_ids"], r["output_logprobs"]):
+            check(0 < len(ids) <= max_new, f"[genmodes] {name} q{i}: {len(ids)} tokens")
+            check(len(ids) == max_new or ids[-1] == 151643,
+                  f"[genmodes] {name} q{i}: short without EOS")
+            check(len(lps) == len(ids), f"[genmodes] {name} q{i}: logprobs/ids lengths")
+            check(all(math.isfinite(x) and x <= 1e-6 for x in lps),
+                  f"[genmodes] {name} q{i}: bad logprob")
+            check(all(0 <= x < cfg.vocab_size for x in ids), f"[genmodes] {name} q{i}: bad id")
+            n_tok += len(ids)
+        outputs.append(r["output_ids"])
+    prefill = sum(c["prefill_dispatches"] for c in calls)
+    L = cfg.n_layers
+    want = dict(fwd=L * prefill, dq=0, dkv=0, k2=0, k3=0, k4=0)
+    want[kernel] = L * steps
+    chunk_ms = sum(a.elapsed_time(b) for a, b in chunk_ev)
+    emitted, row_steps = (int(x) for x in spec_acc.tolist())
+    K = gkw.get("spec_decode_k", 0)
+    out = dict(
+        requests=len(prompts), n=n, max_new_tokens=max_new, generate_calls=len(calls),
+        tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall, steps=steps,
+        chunks=len(chunk_ev), chunk_s=chunk_ms / 1e3, decode_step_ms=chunk_ms / max(steps, 1),
+        prefill_dispatches=prefill,
+        cache_copy_bytes=sum(c["cache_copy_bytes"] for c in calls),
+        decode_compiles=sum(c["decode_compiles"] for c in calls),
+        launches=counts, peak_mem_bytes=peak, outputs=outputs,
+    )
+    if K:
+        out.update(tokens_per_spec_step=emitted / max(row_steps, 1),
+                   acceptance=(emitted - row_steps) / max(K * row_steps, 1))
+    log(f"[genmodes] {name}: {len(prompts)} requests x n={n} greedy{f' K={K}' if K else ''}: "
+        f"{n_tok} tokens in {wall:.2f} s = {out['tokens_per_s']:.1f} tok/s; {steps} decode "
+        f"steps in {len(chunk_ev)} chunks, {out['decode_step_ms']:.3f} ms a step (CUDA events "
+        f"around each chunk); prefill dispatches {prefill}; cache copy bytes "
+        f"{out['cache_copy_bytes']}; chunk builds {out['decode_compiles']}; generate calls "
+        f"{len(calls)}; launches {counts}; peak mem {peak / 2**30:.2f} GiB"
+        + (f"; {out['tokens_per_spec_step']:.3f} tokens a verify step, acceptance "
+           f"{out['acceptance']:.3f}" if K else ""))
+    check(counts == want, f"[genmodes] {name}: launches {counts} != {want}")
+    check(steps > 0 and counts[kernel] > 0, f"[genmodes] {name}: the mode ran no decode step")
+    check(all(c["dead_live_lanes"] == 0 for c in calls), f"[genmodes] {name}: dead live lanes")
+    log(f"[genmodes] {name}: chunk 2 of {len(chunk_ev)} ran under "
+        f"set_sync_debug_mode('error'): no host sync")
+    del engine.generate, server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _agreement(a, b):
+    """Token agreement of two runs' outputs as tests/test_generator.py:316
+    counts it (prompt + response of every sequence, positionally, where
+    the lengths match), and over the responses alone."""
+    import numpy as np
+
+    same = total = r_same = r_total = 0
+    first_flip = []
+    for (prompt, outs_a), outs_b in zip(a, b):
+        for x, y in zip(outs_a, outs_b):
+            m = min(len(x), len(y))
+            eq = np.asarray(x[:m]) == np.asarray(y[:m])
+            r_same, r_total = r_same + int(eq.sum()), r_total + max(len(x), len(y))
+            same, total = same + len(prompt) + int(eq.sum()), total + len(prompt) + max(len(x), len(y))
+            first_flip.append(int(np.argmin(eq)) if not eq.all() else m)
+    return same / total, r_same / r_total, first_flip
+
+
+def _teacher_forced(cfg, params, prompts, outputs, paged):
+    """Greedy tokens of the bf16 and of the int8 model along the bf16
+    run's responses (each prompt's first), teacher-forced through the
+    engine's own forwards: one batched prefill (K1f), then one decode step
+    a position (dense: `decode_step_inflight`, K4; paged:
+    `decode_step_paged`, K3) fed the bf16 run's token.  Returns (the
+    fraction of response positions where the int8 model's token equals
+    the bf16 model's, the fraction where the bf16 model's equals the bf16
+    run's own)."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models import transformer as tfm
+
+    dev = params["embed"].device
+    b = len(prompts)
+    resp = [o[0] for o in outputs]
+    n_new = min(len(r) for r in resp)
+    plens = np.array([len(p) for p in prompts])
+    sp = 128 * -(-int(plens.max()) // 128)
+    rows = np.zeros((b, sp), np.int64)
+    for i, p in enumerate(prompts):
+        rows[i, : len(p)] = p
+    rows_d, plens_d = torch.from_numpy(rows).to(dev), torch.from_numpy(plens).to(dev)
+    resp_d = torch.tensor([r[:n_new] for r in resp], device=dev)
+    mp = -(-(sp + n_new) // 128)
+    preds = []
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, "int8"):
+            if paged:
+                kv = tfm.init_paged_kv_cache(cfg, b * mp, 128, dtype=dtype, device=dev)
+                table = torch.arange(b * mp, device=dev).reshape(b, mp)
+                logits, _ = tfm.prefill_into_pages(params, cfg, rows_d, plens_d, kv,
+                                                   table[:, : sp // 128])
+            else:
+                kv = tfm.init_kv_cache(cfg, b, sp + n_new, dtype=dtype, device=dev)
+                logits, _ = tfm.prefill_into_slots(params, cfg, rows_d, plens_d, kv,
+                                                   torch.arange(b))
+            out = [logits.argmax(-1)]
+            for t in range(n_new - 1):
+                tok, pos = resp_d[:, t], plens_d + t
+                if paged:
+                    logits, _ = tfm.decode_step_paged(params, cfg, tok, pos, kv, table, pos,
+                                                      pos + 1)
+                else:
+                    logits, _ = tfm.decode_step_inflight(params, cfg, tok, pos, kv, slots=pos,
+                                                         valid_to=pos + 1)
+                out.append(logits.argmax(-1))
+            preds.append(torch.stack(out, 1).cpu().numpy())
+            del kv
+    run = np.asarray([r[:n_new] for r in resp])
+    return float((preds[0] == preds[1]).mean()), float((preds[0] == run).mean())
+
+
+def _genmode_quickstart(seed):
+    """(e) One `quickstart ppo-math` step at qwen2-1.5B with
+    --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8: generate takes
+    the dense window's spec path over an int8 cache.  8 prompts x 4
+    responses, 128 new tokens, rewards replaced by seeded +-5 (a random
+    model's are all -5).  Launches: K4 = 28 x the inflight decode steps,
+    K1f = 28 x (prefill dispatches + 2 train forwards a micro-batch + the
+    train engine's forward micro-batches), K1dq = K1dkv = 28 x train
+    micro-batches, K2 = K3 = 0."""
+    import functools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = qwen2_config("1.5b")
+    rng = np.random.default_rng(seed + 50)
+    os.makedirs(QUICKSTART_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="genmodes-", dir=QUICKSTART_DIR)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    try:
+        _check_disk("[genmodes]", work, _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, _, _ = _write_random_checkpoint("[genmodes]", work, cfg, seed + 51)
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(rng, 16):
+                f.write(json.dumps(row) + "\n")
+        rec = {"steps": [], "loads": [], "saves": []}
+        cur = {}
+        _record_trial_steps(wrap, rec, cur)
+        modes = []
+
+        def on_generate(orig):
+            @functools.wraps(orig)
+            def generate(self, *a, **k):
+                s0 = self.steps_total
+                out = orig(self, *a, **k)
+                cur["inflight_steps"] = cur.get("inflight_steps", 0) + self.steps_total - s0
+                cur["prefill"] = cur.get("prefill", 0) + self.prefill_dispatches
+                return out
+            return generate
+
+        def on_spec(orig):
+            @functools.wraps(orig)
+            def spec(self, *a, **k):
+                modes.append((self.kv_paged, self.kv_cache_dtype))
+                return orig(self, *a, **k)
+            return spec
+
+        def on_reward(orig):
+            @functools.wraps(orig)
+            def inference(self, model, sample, mb_spec):
+                out = orig(self, model, sample, mb_spec)
+                out.data["rewards"] = rng.choice(
+                    [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+                return out
+            return inference
+
+        wrap(GeneratorEngine, "generate", on_generate)
+        wrap(GeneratorEngine, "_generate_inflight_spec", on_spec)
+        wrap(MultiTaskRewardInterface, "inference", on_reward)
+        argv = [
+            "ppo-math", "--model.path", ckpt, "--dataset.path", data,
+            "--tokenizer-path", f"char:{cfg.vocab_size}", "--batch-size", "8",
+            "--group-size", "4", "--max-new-tokens", "128", "--benchmark-steps", "1",
+            "--fileroot", os.path.join(work, "trial"), "--seed", str(seed + 52),
+            "--no-paged-kv", "--spec-decode-k", "4", "--kv-cache-dtype", "int8",
+        ]
+        log(f"[genmodes] (e) python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+        try:
+            torch.cuda.synchronize()
+            _reset_counts()
+            t = time.monotonic()
+            stats = quickstart.main(argv)
+            torch.cuda.synchronize()
+            trial_s = time.monotonic() - t
+            total = _trial_counts()
+        finally:
+            for owner, name, orig in reversed(restore):
+                setattr(owner, name, orig)
+        check(len(stats) == 1 and len(rec["steps"]) == 1, f"[genmodes] (e): {len(stats)} steps")
+        check(modes == [(False, "int8")], f"[genmodes] (e): spec path calls {modes}")
+        st, s = rec["steps"][0], stats[0]
+        check(all(math.isfinite(v) for v in s.values()), "[genmodes] (e): non-finite stats")
+        L, mbs = cfg.n_layers, sum(c["mbs"] for c in st["train_calls"])
+        want = dict(fwd=L * (st["prefill"] + 2 * mbs + st["train_fwd_mbs"]), dq=L * mbs,
+                    dkv=L * mbs, k2=0, k3=0, k4=L * st["inflight_steps"])
+        log(f"[genmodes] (e) 1 step: {s['time/step_s']:.2f} s (generate "
+            f"{s.get('actor_gen/perf/time_s', float('nan')):.2f} s); {st['inflight_steps']} "
+            f"dense spec decode steps, {st['prefill']} prefill dispatches, {mbs} train "
+            f"micro-batches; launches {st['launches']}; peak {st['peak_mem_bytes'] / 2**30:.2f} "
+            f"GiB; trial {trial_s:.1f} s")
+        check(st["launches"] == want and total == want and want["k4"] > 0,
+              f"[genmodes] (e): launches {st['launches']} (trial {total}) != {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(step_s=s["time/step_s"], generate_s=s.get("actor_gen/perf/time_s"),
+                decode_steps=st["inflight_steps"], prefill_dispatches=st["prefill"],
+                launches=total, peak_mem_bytes=st["peak_mem_bytes"], trial_s=trial_s)
+
+
+def phase_genmodes(report, seed):
+    """The serve phase's burst cut to its first 8 prompts (64-512 tokens,
+    n=4: 32 requests, 128 new tokens, greedy) through GenerationServer at
+    full qwen2-1.5B in bf16, in each inflight mode of GENMODES with 16
+    slots (two waves, so admissions and retirements cycle): (a) the dense
+    window in bf16 and with an int8 cache, (b) dense spec K=4, (c) the
+    two-program paged path in bf16 and int8, (d) spec K=4 on the serving
+    plane; then (e) one
+    quickstart ppo-math step with --no-paged-kv --spec-decode-k 4
+    --kv-cache-dtype int8.  Checked per mode: the replies, the launches
+    (K4 = 28 x decode steps in (a) and (b), K3 = 28 x decode steps in (c),
+    K2 = 28 x inner steps in (d), K1f = 28 x prefill dispatches, every
+    other kernel 0), no host sync inside a chunk; int8 against bf16 token
+    agreement >= 0.85 teacher-forced along the bf16 run (`_teacher_forced`;
+    the free-running count of tests/test_generator.py:316 is printed)."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = qwen2_config("1.5b")
+    n_req, n, max_new = 8, 4, 128
+    rng = np.random.default_rng(seed)
+    prompts = [  # the serve phase's prompts, its first n_req of 16
+        rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+        for _ in range(16)
+    ][:n_req]
+    t_phase = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    modes = {}
+    for name, ekw, gkw, kernel in GENMODES:
+        modes[name] = _genmode_run(name, cfg, params, prompts, n, max_new, ekw, gkw,
+                                   kernel, seed + 60)
+    # int8 against bf16.  Free-running greedy outputs diverge for good at
+    # their first near-tie flip (random weights give nearly flat logits),
+    # so they are counted for the record; the check is the
+    # teacher-forced agreement, token by token along the bf16 run.
+    agreement = {}
+    for bf, q8, paged in (("dense", "dense_int8", False), ("paged2", "paged2_int8", True),
+                          ("dense", "paged2", None)):
+        packed, resp, flips = _agreement(
+            list(zip(prompts, modes[bf]["outputs"])), modes[q8]["outputs"])
+        agreement[q8 if paged is not None else "paged2_vs_dense"] = rec = dict(
+            packed=packed, responses=resp, first_flip_median=float(np.median(flips)))
+        log(f"[genmodes] {q8} against {bf}, free-running greedy: token agreement "
+            f"{packed:.4f} over prompt + response (tests/test_generator.py:316's count), "
+            f"{resp:.4f} over the responses; first differing response position: median "
+            f"{int(np.median(flips))}, min {min(flips)} of {max_new}")
+        if paged is None:
+            continue
+        tf, tf_self = _teacher_forced(cfg, params, prompts, modes[bf]["outputs"], paged)
+        rec.update(teacher_forced=tf, bf16_reproduced=tf_self)
+        log(f"[genmodes] {q8} against {bf}, teacher-forced along the {bf} run's responses: "
+            f"token agreement {tf:.4f}; the bf16 model's own tokens reproduced at {tf_self:.4f}")
+        check(tf >= INT8_AGREEMENT, f"[genmodes] {q8}: teacher-forced agreement {tf} < "
+              f"{INT8_AGREEMENT}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    quick = _genmode_quickstart(seed)
+    launches = {k: sum(m["launches"][k] for m in modes.values()) + quick["launches"][k]
+                for k in quick["launches"]}
+    secs = time.monotonic() - t_phase
+    log(f"[genmodes] launches over the phase {launches}; {secs:.1f} s")
+    for m in modes.values():
+        m.pop("outputs")
+    report["genmodes"] = dict(modes=modes, agreement=agreement, quickstart=quick,
+                              launches=launches, seconds=secs)
+
+
 def _flat_params(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -3547,6 +4176,7 @@ def _worst(vals):
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
+    gm_launches = report.get("genmodes", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -3557,6 +4187,7 @@ def _kernels_line(report):
         "launches": s.get("launches"),
         "launches_quickstart": qs_launches.get("k2"),
         "launches_recover": rc_launches.get("k2"),
+        "launches_genmodes": gm_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -3589,6 +4220,7 @@ def _kernels_line(report):
             "launches_ppo": ppo_launches.get(name),
             "launches_quickstart": qs_launches.get(name),
             "launches_recover": rc_launches.get(name),
+            "launches_genmodes": gm_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -3623,6 +4255,7 @@ def _kernels_line(report):
         "launches": report.get("push", {}).get("launches"),
         "launches_quickstart": qs_launches.get("k3"),
         "launches_recover": rc_launches.get("k3"),
+        "launches_genmodes": gm_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -3640,6 +4273,15 @@ def _kernels_line(report):
         "library_ms": k3.get("library_ms"),
         "library_eager_ms": k3.get("library_eager_ms"),
     })
+    for b, q1 in k3.get("q1", {}).items():  # the Q=1 entry point (decode_step_paged)
+        kernels[-1].update({
+            f"q1_b{b}_max_abs_err": q1["max_abs_err"].get("bf16_q1"),
+            f"q1_b{b}_row_err": q1["max_abs_err"].get("bf16_q1_row"),
+            f"q1_b{b}_row_err_int8": q1["max_abs_err"].get("int8_q1_row"),
+            f"q1_b{b}_ms": q1["kernel_ms"], f"q1_b{b}_eager_ms": q1["kernel_eager_ms"],
+            f"q1_b{b}_plain_ms": q1["plain_ms"], f"q1_b{b}_library_ms": q1["library_ms"],
+            f"q1_b{b}_bound_ms": q1["bound_ms"], f"q1_b{b}_bound_by": q1["bound_by"],
+        })
     k4 = report.get("k4", {})
     errs = k4.get("max_abs_err", {})
     kernels.append({
@@ -3650,6 +4292,7 @@ def _kernels_line(report):
         "launches": report.get("static", {}).get("launches"),
         "launches_quickstart": qs_launches.get("k4"),
         "launches_recover": rc_launches.get("k4"),
+        "launches_genmodes": gm_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -3669,6 +4312,15 @@ def _kernels_line(report):
         "b64_library_ms": k4.get("b64", {}).get("library_ms"),
         "b64_bound_ms": k4.get("b64", {}).get("bound_ms"),
     })
+    for tag in ("int8_q1", "q5"):  # the dense inflight window's forms
+        f = k4.get(tag)
+        if f:
+            kernels[-1].update({
+                f"{tag}_max_abs_err": f["max_abs_err"], f"{tag}_row_err": f["row_err"],
+                f"{tag}_ms": f["kernel_ms"], f"{tag}_eager_ms": f["kernel_eager_ms"],
+                f"{tag}_plain_ms": f["plain_ms"], f"{tag}_library_ms": f["library_ms"],
+                f"{tag}_bound_ms": f["bound_ms"], f"{tag}_bound_by": f["bound_by"],
+            })
     return kernels
 
 
@@ -3715,6 +4367,8 @@ def main() -> int:
         phase_quickstart(report, args.seed)
     if "recover" in phases:
         phase_recover(report, args.seed)
+    if "genmodes" in phases:
+        phase_genmodes(report, args.seed)
     if "parity" in phases:
         phase_parity(args.seed)
     if "train_parity" in phases:

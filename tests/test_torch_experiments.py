@@ -177,11 +177,8 @@ def test_offload_ref_e2e(tmp_path):
     ("anomaly_kl_max", 1.0, "item 6"),
     ("anomaly_grad_norm_mult", 2.0, "item 6"),
     ("episode_max_turns", 2, "item 5.4"),
-    ("kv_paged", False, "item 5.1"),
-    ("prefill_chunk_tokens", 0, "item 5.3"),
     ("train_backend_args", {"master_dtype": "bfloat16"}, "item 6"),
     ("train_backend_args", {"remat_policy": "dots"}, "item 6"),
-    ("gconfig", GenerationHyperparameters(spec_decode_k=2), "item 5.2"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -191,13 +188,17 @@ def test_unported_options_raise(tmp_path, option, value, item):
 
 # The options the port refused before it had them, each now running a
 # trial on the CPU: the difficulty filter, recover checkpoints, the EMA
-# reference model and an int8 KV pool (which the static path ignores and
-# the serving plane honours, as in the JAX package).
+# reference model, an int8 KV pool (which the static path ignores and
+# the inflight paths honour, as in the JAX package), the dense KV window,
+# the two-program admit path and speculative decoding.
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
     ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
     ("ref_ema_eta", 0.5),
     ("gen_backend_args", {"kv_cache_dtype": "int8"}),
+    ("kv_paged", False),
+    ("prefill_chunk_tokens", 0),
+    ("gconfig", GenerationHyperparameters(n=2, max_new_tokens=8, spec_decode_k=2)),
 ]
 
 
@@ -213,8 +214,15 @@ def test_formerly_unported_options_run(tmp_path, option, value):
     if option == "ctrl":
         base = master._ckpt_dir(master._train_rpcs[0], "recover_checkpoint")
         assert os.path.isdir(base) and os.path.isdir(base + ".prev")
+    engine = worker.models["actor_gen@0"].engine
     if option == "gen_backend_args":
-        assert worker.models["actor_gen@0"].engine.kv_cache_dtype == "int8"
+        assert engine.kv_cache_dtype == "int8"
+    if option == "kv_paged":
+        assert engine.kv_paged is False
+    if option == "prefill_chunk_tokens":
+        assert engine.prefill_chunk_tokens == 0
+    if option == "gconfig":
+        assert engine.steps_total > 0  # spec decoding takes the inflight path
 
 
 def test_master_refuses_more_than_one_worker(tmp_path):

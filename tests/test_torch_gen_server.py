@@ -101,8 +101,9 @@ def test_health_reports_load(server):
 
 def test_errors_reach_the_client(server):
     client = LLMAPIClient(server.url)
-    g = GenerationHyperparameters(n=1, max_new_tokens=4, spec_decode_k=2)
-    with pytest.raises(RuntimeError, match="not yet ported"):
+    # A malformed request the engine refuses: zero responses per prompt.
+    g = GenerationHyperparameters(n=0, max_new_tokens=4)
+    with pytest.raises(RuntimeError, match="gconfig.n must be >= 1"):
         client.generate(APIGenerateInput(qid="q", prompt_ids=[9, 10, 11], gconfig=g))
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(server.url + "/nope")
@@ -113,6 +114,43 @@ def test_errors_reach_the_client(server):
         gconfig=GenerationHyperparameters(n=1, max_new_tokens=3, greedy=True),
     ))
     assert len(ok.output_ids[0]) == 3
+
+
+def test_spec_request_succeeds(server):
+    """A request with spec_decode_k > 0 is served, and its greedy tokens
+    are the plain request's."""
+    client = LLMAPIClient(server.url)
+    outs = [
+        client.generate(APIGenerateInput(
+            qid=f"q{k}", prompt_ids=[9, 10, 11, 9, 10], gconfig=GenerationHyperparameters(
+                n=2, max_new_tokens=6, greedy=True, spec_decode_k=k, spec_ngram=2),
+        ))
+        for k in (0, 3)
+    ]
+    assert outs[1].output_ids == outs[0].output_ids
+    assert all(len(ids) == 6 for ids in outs[1].output_ids)
+
+
+def test_spec_ngram_reaches_the_engine(server):
+    """A request's spec_decode_k and spec_ngram reach the engine's
+    GenerationHyperparameters (the JAX server reads both,
+    areal_tpu/system/gen_server.py:820-821)."""
+    seen = []
+    real = server.engine.generate
+
+    def record(sample, mb_spec, g, *a, **k):
+        seen.append(g)
+        return real(sample, mb_spec, g, *a, **k)
+
+    server.engine.generate = record
+    try:
+        LLMAPIClient(server.url).generate(APIGenerateInput(
+            qid="q", prompt_ids=[9, 10, 11], gconfig=GenerationHyperparameters(
+                n=1, max_new_tokens=3, greedy=True, spec_decode_k=2, spec_ngram=5),
+        ))
+    finally:
+        del server.engine.generate
+    assert [(g.spec_decode_k, g.spec_ngram) for g in seen] == [(2, 5)]
 
 
 def test_token_auth(engine):

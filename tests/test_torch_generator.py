@@ -208,16 +208,27 @@ def test_small_pool_waits_for_pages(weights, mesh):
 
 
 def test_unported_paths_raise(weights):
+    """Agent episodes (ROADMAP queue 1, item 5.4) still raise.  The modes
+    of items 5.1-5.3, which raised here before, now run and give the
+    serving plane's greedy tokens: speculative decoding, the dense window
+    (kv_paged=False) and the two-program admit path
+    (prefill_chunk_tokens=0)."""
     _, pt = weights
-    _, ts = _samples((5,))
+    _, ts = _samples((5, 9))
     eng = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.generate(ts, MicroBatchSpec(), GenerationHyperparameters(spec_decode_k=2))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5.4"):
         eng.episode_start()
-    for bad in (dict(kv_paged=False), dict(prefill_chunk_tokens=0)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **bad)
+    g = GenerationHyperparameters(max_new_tokens=6, greedy=True)
+    want = eng.generate(ts, MicroBatchSpec(), g, inflight=True)
+    outs = [eng.generate(ts, MicroBatchSpec(), g.new(spec_decode_k=2))]
+    for kw in (dict(kv_paged=False), dict(prefill_chunk_tokens=0)):
+        e = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS,
+                            **dict(KW, **kw))
+        outs.append(e.generate(ts, MicroBatchSpec(), g, inflight=True))
+    for out in outs:
+        np.testing.assert_array_equal(
+            out.data["packed_input_ids"], want.data["packed_input_ids"]
+        )
 
 
 def test_default_device_is_the_card(weights):
@@ -379,20 +390,29 @@ def test_path_choice_matches_jax(weights, mesh, case):
 
 
 def test_spec_decoding_still_raises_on_either_path(weights, mesh):
-    """JAX sends spec decoding to its inflight path; the port has not
-    ported it and says so whatever `inflight` asks for."""
+    """JAX sends spec decoding to its inflight path whatever `inflight`
+    asks; the port, which raised here before it had spec decoding, now
+    does the same, with the JAX engine's greedy tokens."""
     pj, pt = weights
-    js, ts = _samples((5,))
+    js, ts = _samples((5, 9))
+    g = dict(n=1, max_new_tokens=6, greedy=True, spec_decode_k=2)
     je = JEngine(jtiny(), pj, mesh, eos_token_id=EOS, kv_paged=True, **KW)
     j_taken = _record_path(je, "_generate_chunk", "_generate_inflight")
     with pytest.raises(_Routed):
-        je.generate(js, JSpec(), JGen(spec_decode_k=2), inflight=False)
+        je.generate(js, JSpec(), JGen(**g), inflight=False)
     assert j_taken == ["inflight"]
-    te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
     for inflight in (None, False, True):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            te.generate(ts, MicroBatchSpec(), GenerationHyperparameters(spec_decode_k=2),
+        te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+        t_taken = _record_path(te, "_generate_chunk", "_generate_inflight")
+        with pytest.raises(_Routed):
+            te.generate(ts, MicroBatchSpec(), GenerationHyperparameters(**g),
                         inflight=inflight)
+        assert t_taken == ["inflight"]
+    je = JEngine(jtiny(), pj, mesh, eos_token_id=EOS, kv_paged=True, **KW)
+    te = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
+    _assert_same(je.generate(js, JSpec(), JGen(**g), inflight=False),
+                 te.generate(ts, MicroBatchSpec(), GenerationHyperparameters(**g),
+                             inflight=False))
 
 
 def test_static_sampling_is_seeded_and_well_formed(weights):

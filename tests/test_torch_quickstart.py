@@ -94,12 +94,9 @@ UNPORTED = [
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
     (["--gen-server-url", "http://localhost:1"], "item 7"),
-    (["--no-paged-kv"], "item 5.1"),
-    (["--prefill-chunk-tokens", "0"], "item 5.3"),
     (["--master-dtype", "bfloat16"], "item 6"),
     (["--remat", "dots"], "item 6"),
     (["--fuse-rew-ref"], "item 6"),
-    (["--spec-decode-k", "2"], "item 5.2"),
     (["--rollout-ahead", "1"], "item 7"),
     (["--max-head-offpolicyness", "0"], "item 7"),
     (["--replay-capacity", "8"], "item 7"),
@@ -151,6 +148,9 @@ FORMERLY_UNPORTED = [
     ["--ref-path", "{ckpt}", "--ref-ema-eta", "0.5", "--offload-ref"],
     ["--kv-cache-dtype", "int8"],
     ["--config", "{yaml}"],
+    ["--no-paged-kv"],
+    ["--prefill-chunk-tokens", "0"],
+    ["--spec-decode-k", "2"],
 ]
 
 
@@ -241,3 +241,55 @@ def test_yaml_config_without_pyyaml_exits_clearly(tmp_path, ckpt_dir, data_path,
     with pytest.raises(SystemExit, match="needs the PyYAML package"):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
                         device="cpu")
+
+
+def test_genmodes_step_matches_jax(tmp_path, ckpt_dir, data_path, monkeypatch, capsys):
+    """One ppo-math step through both packages' CLI with the dense window,
+    spec decoding and an int8 cache (`--no-paged-kv --spec-decode-k 2
+    --kv-cache-dtype int8`), greedy generation and the query-id reward of
+    tests/test_torch_experiments.py's parity case: the port takes the
+    dense spec path, the graded tokens are equal, and every actor_train
+    stat is within the parity case's rtol 1e-4, atol 1e-6."""
+    import dataclasses
+
+    from areal_tpu.api.config import ModelInterfaceAbstraction as JInterface
+    from areal_tpu.apps import quickstart as jquickstart
+    from areal_tpu_torch.api.config import ModelInterfaceAbstraction
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from tests.test_torch_experiments import _PARITY_REWARD, _SEEN
+
+    for mod, interface in ((jquickstart.exps, JInterface),
+                           (quickstart.exps, ModelInterfaceAbstraction)):
+        def build(cfg, *a, _real=mod.build_ppo_math, _interface=interface, **k):
+            cfg = dataclasses.replace(cfg, gconfig=cfg.gconfig.new(greedy=True),
+                                      reward_interface=_interface(_PARITY_REWARD))
+            return _real(cfg, *a, **k)
+
+        monkeypatch.setattr(mod, "build_ppo_math", build)
+    spec_calls = []
+    real_spec = GeneratorEngine._generate_inflight_spec
+
+    def spec(self, *a, **k):
+        spec_calls.append(self.kv_cache_dtype)
+        return real_spec(self, *a, **k)
+
+    monkeypatch.setattr(GeneratorEngine, "_generate_inflight_spec", spec)
+    _SEEN["jax"].clear()
+    _SEEN["port"].clear()
+    flags = ["--no-paged-kv", "--spec-decode-k", "2", "--kv-cache-dtype", "int8",
+             "--benchmark-steps", "1"]  # the later flag wins
+    capsys.readouterr()
+    jquickstart.main(_argv(ckpt_dir, data_path, tmp_path / "jax", *flags))
+    jstats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    tstats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path / "port", *flags),
+                             device="cpu")
+    assert len(tstats) == 1 and spec_calls == ["int8"]
+    assert len(_SEEN["port"]) == len(_SEEN["jax"]) == 1
+    (tids, ttoks), (jids, jtoks) = _SEEN["port"][0], _SEEN["jax"][0]
+    assert tids == jids
+    np.testing.assert_array_equal(ttoks, jtoks)
+    keys = [k for k in tstats[0] if k.startswith("actor_train/")
+            and "/perf/" not in k and "/time/" not in k]
+    assert len(keys) > 10
+    for k in keys:
+        np.testing.assert_allclose(tstats[0][k], jstats[k], rtol=1e-4, atol=1e-6, err_msg=k)

@@ -436,5 +436,15 @@ def test_init_kv_cache_shape_and_int8_not_ported():
     c = ttfm.init_kv_cache(ttiny(), 3, 40, dtype=torch.float32, device="cpu")
     assert tuple(c.k.shape) == (4, 3, 40, 2, 16) == tuple(c.v.shape)
     assert (c.k == 0).all() and (c.v == 0).all()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfm.init_kv_cache(ttiny(), 3, 40, dtype="int8", device="cpu")
+    # The int8 cache, refused here before it was ported, now has the JAX
+    # package's layout: int8 codes and bf16 [L, B, S, n_kv] scales, less
+    # than 0.6 of the bf16 cache's bytes (tests/test_generator.py:348).
+    q = ttfm.init_kv_cache(ttiny(), 3, 40, dtype="int8", device="cpu")
+    j = jtfm.init_kv_cache(jtiny(), 3, 40, dtype="int8")
+    assert q.quantized and not c.quantized
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = getattr(q, name), getattr(j, name)
+        assert tuple(a.shape) == b.shape and str(a.dtype).split(".")[1] == b.dtype.name
+        assert (a == 0).all()
+    b16 = ttfm.init_kv_cache(ttiny(), 3, 40, dtype=torch.bfloat16, device="cpu")
+    assert q.nbytes() < 0.6 * b16.nbytes()
