@@ -38,11 +38,16 @@
 //     2-stage ring of 16-byte cp.async copies (one position of one kv head
 //     is head_dim contiguous elements, 256 B in bf16);
 //   * bf16 tensor cores: Q.K^T and P.V as mma.sync.m16n8k16 bf16 tiles
-//     (not wgmma: 64 rows minimum, 58 idle at decode).  fp32 and int8
-//     caches keep fp32 CUDA-core products in the same structure.
-// Shared memory (bf16, head_dim 128): 4 KB of q + 64 KB of rings a block,
-// so three blocks share an SM.  Registers and spills of every variant:
-// `nvcc -Xptxas -v`, printed by chip_smoke.py's build phase.
+//     (not wgmma: 64 rows minimum, 58 idle at decode), for bf16 q over a
+//     bf16 cache and over an int8 cache (int8 tiles in the ring, widened
+//     to bf16 in registers; s_k on the scores, P' = bf16(P * s_v)).  fp32
+//     caches and fp32 q keep fp32 CUDA-core products in the same
+//     structure.
+// Shared memory (head_dim 128): 4 KB of q + 64 KB of rings a block for a
+// bf16 cache, so three blocks share an SM; 41 KB for an int8 cache (its
+// 32 KB of rings lie under the 35 KB merge area, then 1 KB of scales).
+// Registers and spills of every variant: `nvcc -Xptxas -v`, printed by
+// chip_smoke.py's build phase.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by areal_tpu_torch/kernels/decode_attention.py).

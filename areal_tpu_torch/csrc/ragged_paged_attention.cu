@@ -1,7 +1,10 @@
 // Ragged paged attention over a packed token stream, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `ragged_paged_attention_kernel` /
-// `_ragged_stream_kernel` in areal_tpu/ops/pallas/paged_attention.py.
+// `_ragged_stream_kernel` in areal_tpu/ops/pallas/paged_attention.py, and
+// serves the same file's `paged_decode_attention_kernel` (the chunk
+// kernel at Q=1, one token a slot over its page row: the same function),
+// which the two-program paged path's decode step calls.
 // Token t of the stream attends its own window [0, valid_to[t]) of the
 // sequence it belongs to, addressed through its own page-table row
 // page_table[t, :]; the table bounds the window (min(valid_to,
@@ -32,12 +35,16 @@
 //     is head_dim contiguous elements, 256 B in bf16); the block reads its
 //     pages' indices once into shared memory, not once per element.
 //   * bf16 tensor cores: Q.K^T and P.V as mma.sync.m16n8k16 bf16 tiles,
-//     the 6 heads padded to 16 rows (not wgmma: 64 rows minimum).  fp32
-//     and int8 pools keep fp32 CUDA-core products in the same structure.
-// Shared memory (bf16, head_dim 128): 4 KB of q + 64 KB of rings + 1 KB
-// of page indices a block, so three blocks share an SM.  Registers and
-// spills of every variant: `nvcc -Xptxas -v`, printed by chip_smoke.py's
-// build phase.
+//     the 6 heads padded to 16 rows (not wgmma: 64 rows minimum), for bf16
+//     q over a bf16 pool and over an int8 pool (int8 tiles in the ring,
+//     widened to bf16 in registers; s_k on the scores, P' = bf16(P *
+//     s_v)).  fp32 pools and fp32 q keep fp32 CUDA-core products in the
+//     same structure.
+// Shared memory (head_dim 128): 4 KB of q + 64 KB of rings + 1 KB of page
+// indices a block for a bf16 pool, so three blocks share an SM; 42 KB for
+// an int8 pool (its rings lie under the 35 KB merge area; 1 KB of
+// scales).  Registers and spills of every variant: `nvcc -Xptxas -v`,
+// printed by chip_smoke.py's build phase.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by areal_tpu_torch/kernels/ragged_paged_attention.py).

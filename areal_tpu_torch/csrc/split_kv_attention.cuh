@@ -16,14 +16,29 @@
 // (the call has one span) or an fp32 partial (o unnormalised, m, l) for
 // `merge_rows` to combine across spans.
 //
-// bf16 q with a bf16 cache (the main path): Q.K^T and P.V are
-// mma.sync.m16n8k16 bf16 tiles with fp32 accumulators, fed by ldmatrix
-// from XOR-swizzled tiles (conflict-free); P goes to bf16 for P.V, as in
-// flash attention.  Not wgmma: its 64-row minimum would leave 58 of 64
-// rows idle at decode (rep = 6 heads), and these kernels are bounded by
-// bytes, not by the tensor rate.  Every other type pair (fp32 caches, int8
-// caches with bf16 scales, mixed q/cache types) takes the same spans, ring
-// and loads with fp32 CUDA-core products, so its tolerances hold.
+// bf16 q with a bf16 or an int8 cache (the main paths): Q.K^T and P.V
+// are mma.sync.m16n8k16 bf16 tiles with fp32 accumulators; P goes to bf16
+// for P.V, as in flash attention.  Not wgmma: its 64-row minimum would
+// leave 58 of 64 rows idle at decode (rep = 6 heads), and these kernels
+// are bounded by bytes, not by the tensor rate.  A bf16 cache feeds the
+// products by ldmatrix from XOR-swizzled tiles (conflict-free).  An int8
+// cache keeps its ring in int8 (half the bytes, the same 16-byte cp.async
+// copies) and each thread reads its K and V bytes straight from the
+// swizzled tile into registers and widens them to bf16 there, exactly
+// (an int8 fits bf16's 8-bit significand).  The contraction order is
+// free, so Q.K^T takes the head dims in an order that makes each
+// thread's K bytes contiguous, and P.V gives each thread the n8 column
+// of its 16 contiguous V bytes (the output columns are permuted back in
+// the merge area).  The scales stay in fp32 outside the products: each
+// score is multiplied by its position's s_k before the online max, P.V
+// takes P' = bf16(P * s_v), and l sums the unscaled P.  A tile's 16
+// scale pairs travel in its cp.async group: each lane copies the aligned
+// 4-byte word that holds one scale (a scale is 2 bytes at an
+// n_kv-strided, possibly odd, element), and a ballot records which half
+// of each word it is.
+// Every other type pair (fp32 caches, fp32 q, mixed q/cache types) takes
+// the same spans, ring and loads with fp32 CUDA-core products, so its
+// tolerances hold.
 //
 // Positions past `end` are zero-filled (cp.async with a source size of 0),
 // never read from the cache; positions inside [begin, end) but outside a
@@ -49,6 +64,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;  // K/V tiles in flight per warp
 constexpr int kMaxRep = 16;
+constexpr int kMergePad = 8;  // floats after each merge-area row
 
 // One warp tile of kTile positions (see tiles::Tile).
 template <typename T, int D, bool kSwizzle>
@@ -56,25 +72,57 @@ using Tile = tiles::Tile<T, D, kSwizzle, kTile>;
 
 template <typename QT, typename KT, int D>
 struct Plan {
+  static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   static constexpr bool kMma = std::is_same<QT, __nv_bfloat16>::value &&
-                               std::is_same<KT, __nv_bfloat16>::value;
-  using KV = Tile<KT, D, kMma>;
+                               (std::is_same<KT, __nv_bfloat16>::value || kQuant);
+  // Tensor-core tiles are swizzled where a row holds the 8 chunks the
+  // swizzle needs (all but int8 at head_dim 64, whose rows are padded).
+  using KV = Tile<KT, D, kMma && D * sizeof(KT) >= 128>;
+  using QTile = Tile<__nv_bfloat16, D, true>;  // q rows on the tensor cores
   // Shared memory: q rows, then (CUDA-core only) per-warp probabilities
   // and rescales, then the K/V rings, which the cross-warp merge reuses.
   static constexpr int kQBytes = kRows * D * (kMma ? 2 : 4);
   static constexpr int kPFloats = kRows * (kTile + 1) + kRows;
   static constexpr int kPBytes = kMma ? 0 : kWarps * kPFloats * 4;
   static constexpr int kRingBytes = kWarps * kStages * 2 * KV::kBytes;
-  static constexpr int kMergeBytes = (kWarps * kRows * D + 3 * kWarps * kRows + kRows) * 4;
-  static constexpr int kSmemBytes =
-      kQBytes + kPBytes + (kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes);
+  static constexpr int kMergeBytes =
+      (kWarps * kRows * (D + kMergePad) + 3 * kWarps * kRows + kRows) * 4;
+  static constexpr int kSpanBytes = kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes;
+  // int8 on the tensor cores: each ring stage's scale words (see
+  // attend_span's `load`), after the rings.
+  static constexpr int kScaleWords = 2 * kTile + 1;
+  static constexpr int kScaleBytes = kMma && kQuant ? kWarps * kStages * kScaleWords * 4 : 0;
+  static constexpr int kSmemBytes = kQBytes + kPBytes + kSpanBytes + kScaleBytes;
 };
 
+// int8 -> fp32, exactly: byte k of a word whose bytes were biased by
+// 0x80 (x ^ 0x80 = x + 128) becomes the fp32 2^23 + x + 128 (one byte
+// permute), less 2^23 + 128.
+__device__ __forceinline__ float i8_float(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+}
+
+// The 16 bytes at p as four words, each biased for i8_float.
+__device__ __forceinline__ void lds_i8x16(const char* p, uint32_t* w) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  w[0] = u.x ^ 0x80808080u;
+  w[1] = u.y ^ 0x80808080u;
+  w[2] = u.z ^ 0x80808080u;
+  w[3] = u.w ^ 0x80808080u;
+}
+__device__ __forceinline__ void lds_i8x8(const char* p, uint32_t* w) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  w[0] = u.x ^ 0x80808080u;
+  w[1] = u.y ^ 0x80808080u;
+}
 
 // Merge area (floats), laid over the rings once every warp is done:
-// o [kWarps][kRows][D], m, l and rescale factors [kWarps][kRows], l [kRows].
+// o [kWarps][kRows][kStride], m, l and rescale factors [kWarps][kRows],
+// l [kRows].  The padded rows keep a warp's float2 stores of its mma
+// fragments (rows g and g + 8, columns 2 t4 + [0, 2)) off shared banks.
 template <int D>
 struct Merge {
+  static constexpr int kStride = D + kMergePad;
   float* o;
   float* m;
   float* l;
@@ -82,30 +130,50 @@ struct Merge {
   float* row_l;
   __device__ explicit Merge(char* base)
       : o(reinterpret_cast<float*>(base)),
-        m(o + kWarps * kRows * D),
+        m(o + kWarps * kRows * kStride),
         l(m + kWarps * kRows),
         f(l + kWarps * kRows),
         row_l(f + kWarps * kRows) {}
 };
 
-// The tensor-core walk (bf16 q and cache): rows g and g + 8 of the m16
-// tile are this thread's (g = lane / 4), as in the mma fragments.
-template <int D, typename Load, typename Limit>
+// The tensor-core walk (bf16 q over a bf16 or an int8 cache): rows g and
+// g + 8 of the m16 tile are this thread's (g = lane / 4), as in the mma
+// fragments.  `load(it)` issues tile it's copies; `scale_stage(it)` is
+// an int8 tile's scale words in shared memory: s_k of position j at
+// [j], s_v at [16 + j], then a mask whose bit w says that word w holds
+// its scale in its high half.
+template <typename KT, int D, typename Load, typename ScaleStage, typename Limit>
 __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
                                          int mine, int begin, int end,
                                          Limit limit, float scale_log2,
-                                         Load load, Merge<D> mg) {
-  using KV = Tile<__nv_bfloat16, D, true>;
+                                         Load load, ScaleStage scale_stage, Merge<D> mg) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  using KV = typename Plan<__nv_bfloat16, KT, D>::KV;
+  using QTile = typename Plan<__nv_bfloat16, KT, D>::QTile;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t4 = lane & 3;
 
-  // Q fragments for every k16 step, once (q rows form a tile like K's).
+  // Q fragments for every k16 step, once.  int8: step kk of thread t4
+  // takes head dims t4 * D / 4 + 4 kk + [0, 4), so that its K bytes of
+  // every step are one contiguous run; q follows that order.
   uint32_t qa[D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(smem_u32(q_s + KV::offset(a_row(lane), kk * 2 + a_chunk(lane))), qa[kk]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (kQuant) {
+      const int e = t4 * (D / 4) + kk * 4;
+      const uint2 r0 = *reinterpret_cast<const uint2*>(q_s + QTile::offset(g, e / 8) + (e % 8) * 2);
+      const uint2 r1 =
+          *reinterpret_cast<const uint2*>(q_s + QTile::offset(g + 8, e / 8) + (e % 8) * 2);
+      qa[kk][0] = r0.x;
+      qa[kk][1] = r1.x;
+      qa[kk][2] = r0.y;
+      qa[kk][3] = r1.y;
+    } else {  // q rows form a tile like K's
+      ldsm_x4(smem_u32(q_s + QTile::offset(a_row(lane), kk * 2 + a_chunk(lane))), qa[kk]);
+    }
+  }
   const int lim0 = min(limit(g), end);
   const int lim1 = min(limit(g + 8), end);
   float o[D / 8][4];
@@ -129,12 +197,47 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
     float s[2][4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    float ksc[2][2] = {}, vsc[2][2] = {};  // int8: this thread's positions' scales
+    if constexpr (kQuant) {
+      // Positions g and g + 8 are this thread's n8 columns: D / 4 bytes of
+      // each, from byte t4 * D / 4.
+      uint32_t kw[2][D / 16];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t b[4];
-      ldsm_x4(smem_u32(kt + KV::offset(b_row(lane), kk * 2 + b_chunk(lane))), b);
-      mma_bf16(s[0], qa[kk], b[0], b[1]);
-      mma_bf16(s[1], qa[kk], b[2], b[3]);
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < D / 64; ++i)
+          lds_i8x16(kt + KV::offset(g + 8 * n, t4 * (D / 64) + i), &kw[n][4 * i]);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const uint32_t w = kw[n][kk];
+          mma_bf16(s[n], qa[kk], pack_bf16(i8_float(w, 0), i8_float(w, 1)),
+                   pack_bf16(i8_float(w, 2), i8_float(w, 3)));
+        }
+      }
+      const uint32_t* st = scale_stage(it);
+      const uint32_t high = st[2 * kTile];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = n * 8 + 2 * t4 + e;
+          const uint32_t kword = st[j];
+          const uint32_t vword = st[kTile + j];
+          ksc[n][e] = __uint_as_float((high >> j) & 1 ? kword & 0xffff0000u : kword << 16);
+          vsc[n][e] = __uint_as_float((high >> (kTile + j)) & 1 ? vword & 0xffff0000u
+                                                                : vword << 16);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t b[4];
+        ldsm_x4(smem_u32(kt + KV::offset(b_row(lane), kk * 2 + b_chunk(lane))), b);
+        mma_bf16(s[0], qa[kk], b[0], b[1]);
+        mma_bf16(s[1], qa[kk], b[2], b[3]);
+      }
     }
     // Mask to each row's limit, then the online softmax (a row's 16
     // scores sit in the 4 threads of a quad).
@@ -144,8 +247,13 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int pos = p0 + n * 8 + 2 * t4 + e;
-        s[n][e] = pos < lim0 ? s[n][e] * scale_log2 : kNegInf;
-        s[n][2 + e] = pos < lim1 ? s[n][2 + e] * scale_log2 : kNegInf;
+        if constexpr (kQuant) {
+          s[n][e] = pos < lim0 ? s[n][e] * ksc[n][e] * scale_log2 : kNegInf;
+          s[n][2 + e] = pos < lim1 ? s[n][2 + e] * ksc[n][e] * scale_log2 : kNegInf;
+        } else {
+          s[n][e] = pos < lim0 ? s[n][e] * scale_log2 : kNegInf;
+          s[n][2 + e] = pos < lim1 ? s[n][2 + e] * scale_log2 : kNegInf;
+        }
         mx0 = fmaxf(mx0, s[n][e]);
         mx1 = fmaxf(mx1, s[n][2 + e]);
       }
@@ -182,15 +290,48 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
       o[nt][2] *= a1;
       o[nt][3] *= a1;
     }
-    // O += P V: the score accumulators are the A fragment of P (bf16).
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    if constexpr (kQuant) {
+      // O += P' V with P' = P * s_v as bf16: the score accumulators are the
+      // A fragment.  This thread's B column of n8 tile nt is head dim
+      // g * D / 8 + nt of positions 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9.
 #pragma unroll
-    for (int nn = 0; nn < D / 16; ++nn) {
-      uint32_t b[4];
-      ldsm_x4_trans(smem_u32(vt + KV::offset(a_row(lane), nn * 2 + a_chunk(lane))), b);
-      mma_bf16(o[2 * nn], pa, b[0], b[1]);
-      mma_bf16(o[2 * nn + 1], pa, b[2], b[3]);
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[n][e] *= vsc[n][e];
+          s[n][2 + e] *= vsc[n][e];
+        }
+      }
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      uint32_t vw[4][D / 32];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 2 * t4 + (r & 1) + (r >> 1) * 8;
+        if constexpr (D / 8 == 16) {
+          lds_i8x16(vt + KV::offset(row, g), vw[r]);
+        } else {
+          lds_i8x8(vt + KV::offset(row, g >> 1) + (g & 1) * 8, vw[r]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int wi = nt / 4;
+        const int k = nt % 4;
+        mma_bf16(o[nt], pa, pack_bf16(i8_float(vw[0][wi], k), i8_float(vw[1][wi], k)),
+                 pack_bf16(i8_float(vw[2][wi], k), i8_float(vw[3][wi], k)));
+      }
+    } else {
+      // O += P V: the score accumulators are the A fragment of P (bf16).
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+      for (int nn = 0; nn < D / 16; ++nn) {
+        uint32_t b[4];
+        ldsm_x4_trans(smem_u32(vt + KV::offset(a_row(lane), nn * 2 + a_chunk(lane))), b);
+        mma_bf16(o[2 * nn], pa, b[0], b[1]);
+        mma_bf16(o[2 * nn + 1], pa, b[2], b[3]);
+      }
     }
     __syncwarp();  // every lane is done with this stage before it refills
     if (it + kStages < mine) load(it + kStages);
@@ -203,14 +344,15 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   __syncthreads();  // every ring is drained: the merge area may cover it
-  float* mo = mg.o + warp * kRows * D;
+  // The accumulators in fragment order: column nt * 8 + c of a row holds
+  // n8 tile nt's column c (int8: head dim c * D / 8 + nt, which the
+  // block's merge puts back in place).
+  float* mo = mg.o + warp * kRows * Merge<D>::kStride;
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt) {
-    const int col = nt * 8 + 2 * t4;
-    mo[g * D + col] = o[nt][0];
-    mo[g * D + col + 1] = o[nt][1];
-    mo[(g + 8) * D + col] = o[nt][2];
-    mo[(g + 8) * D + col + 1] = o[nt][3];
+    float* at = mo + g * Merge<D>::kStride + nt * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(at) = make_float2(o[nt][0], o[nt][1]);
+    *reinterpret_cast<float2*>(at + 8 * Merge<D>::kStride) = make_float2(o[nt][2], o[nt][3]);
   }
   if (t4 == 0) {
     mg.m[warp * kRows + g] = m0;
@@ -220,7 +362,7 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
   }
 }
 
-// The CUDA-core walk (fp32 or int8 caches, mixed types): lane = position
+// The CUDA-core walk (fp32 caches, fp32 q, mixed types): lane = position
 // j of the tile (lane % 16) for rows h * 8 .. h * 8 + 7 (h = lane / 16)
 // in the scores; lane = columns lane + 32 n for all 16 rows in P.V.
 template <typename KT, int D, typename Load, typename Limit, typename Slot>
@@ -329,11 +471,11 @@ __device__ __forceinline__ void walk_core(
   }
   cp_async_wait<0>();
   __syncthreads();  // every ring is drained: the merge area may cover it
-  float* mo = mg.o + warp * kRows * D;
+  float* mo = mg.o + warp * kRows * Merge<D>::kStride;
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int n = 0; n < kDN; ++n) mo[r * D + lane + 32 * n] = o[r][n];
+    for (int n = 0; n < kDN; ++n) mo[r * Merge<D>::kStride + lane + 32 * n] = o[r][n];
   if (j == 0) {
 #pragma unroll
     for (int rr = 0; rr < 8; ++rr) {
@@ -360,6 +502,7 @@ __device__ __forceinline__ void attend_span(
     int R, char* smem) {
   using P = Plan<QT, KT, D>;
   using KV = typename P::KV;
+  using QTile = typename P::QTile;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -384,11 +527,11 @@ __device__ __forceinline__ void attend_span(
   float* p_s = reinterpret_cast<float*>(smem + P::kQBytes) + warp * P::kPFloats;
   char* ring = smem + P::kQBytes + P::kPBytes;
   if constexpr (P::kMma) {  // q rows as a swizzled bf16 tile, padding rows 0
-    for (int i = tid; i < kRows * KV::kChunks; i += kThreads) {
-      const int r = i / KV::kChunks;
-      const int c = i % KV::kChunks;
+    for (int i = tid; i < kRows * QTile::kChunks; i += kThreads) {
+      const int r = i / QTile::kChunks;
+      const int c = i % QTile::kChunks;
       const bool ok = r < rows;
-      cp_async16(smem_u32(q_s + KV::offset(r, c)),
+      cp_async16(smem_u32(q_s + QTile::offset(r, c)),
                  reinterpret_cast<const char*>(q_row(ok ? r : 0)) + c * 16, ok);
     }
     cp_async_commit();
@@ -405,6 +548,10 @@ __device__ __forceinline__ void attend_span(
   const int n_tiles = (end - begin + kTile - 1) / kTile;
   const int mine = warp < n_tiles ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
   char* wring = ring + warp * (kStages * 2 * KV::kBytes);
+  // int8 on the tensor cores: this warp's scale words of ring stage it.
+  uint32_t* wscale = reinterpret_cast<uint32_t*>(ring + P::kSpanBytes) +
+                     warp * kStages * P::kScaleWords;
+  auto scale_stage = [=](int it) { return wscale + (it % kStages) * P::kScaleWords; };
   // Tile `it` of this warp into its ring stage: each lane copies 16-byte
   // chunks of whole position rows (neighbouring lanes, neighbouring
   // chunks); positions at or past `end` are zero-filled.
@@ -425,14 +572,27 @@ __device__ __forceinline__ void attend_span(
       cp_async16(smem_u32(vt + KV::offset(jr, c)),
                  reinterpret_cast<const char*>(v + off) + c * 16, ok);
     }
+    if constexpr (P::kMma && P::kQuant) {
+      // The tile's scales: lane l copies the aligned word holding position
+      // l % 16's s_k (l < 16) or s_v (l >= 16), 0 past `end`; the word
+      // lies inside the scales' allocation, whose blocks are 4-byte
+      // multiples.  The ballot says which half holds each scale.
+      uint32_t* st = scale_stage(it);
+      const int pos = p0 + (lane & 15);
+      const bool ok = pos < end;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(
+          (lane < kTile ? k_scale : v_scale) + (ok ? slot(pos) : 0));
+      cp_async4(smem_u32(st + lane), reinterpret_cast<const void*>(a & ~uintptr_t(3)), ok);
+      const uint32_t high = __ballot_sync(0xffffffffu, (a & 2) != 0);
+      if (lane == 0) st[2 * kTile] = high;
+    }
   };
   Merge<D> mg(ring);
   if constexpr (P::kMma) {
-    walk_mma<D>(q_s, wring, mine, begin, end, limit, scale_log2, load, mg);
+    walk_mma<KT, D>(q_s, wring, mine, begin, end, limit, scale_log2, load, scale_stage, mg);
   } else {
-    walk_core<KT, D>(reinterpret_cast<const float*>(q_s), p_s, wring, mine,
-                     begin, end, limit, slot, k_scale, v_scale, scale_log2,
-                     load, mg);
+    walk_core<KT, D>(reinterpret_cast<const float*>(q_s), p_s, wring, mine, begin, end,
+                     limit, slot, k_scale, v_scale, scale_log2, load, mg);
   }
   __syncthreads();
 
@@ -460,11 +620,12 @@ __device__ __forceinline__ void attend_span(
   __syncthreads();
   for (int i = tid; i < rows * D; i += kThreads) {
     const int r = i / D;
-    const int c = i % D;
+    const int sc = i % D;  // merge-area column; c: its head dim (int8: see walk_mma)
+    const int c = P::kMma && P::kQuant ? (sc % 8) * (D / 8) + sc / 8 : sc;
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      acc += mg.f[w * kRows + r] * mg.o[(w * kRows + r) * D + c];
+      acc += mg.f[w * kRows + r] * mg.o[(w * kRows + r) * Merge<D>::kStride + sc];
     if (part != nullptr) {
       part[(split_rows + out_row(r)) * D + c] = acc;
     } else {

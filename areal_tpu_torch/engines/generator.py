@@ -46,10 +46,10 @@ The other inflight modes, chosen as the JAX engine chooses them
   `ops/sampling.spec_accept`.
 - kv_paged=True with prefill_chunk_tokens=0, the two-program paged
   path: one batched `prefill_into_pages` (K1f) per refill, then chunks
-  of `decode_step_paged` (K3 at Q=1).  Spec decoding there raises
-  ValueError, as in the JAX package: it rides the serving plane, where a
-  speculating row forwards its pending token and K drafts as K+1 lanes
-  of the packed stream (K2).
+  of `decode_step_paged` (K2's kernel, one token a slot).  Spec decoding
+  there raises ValueError, as in the JAX package: it rides the serving
+  plane, where a speculating row forwards its pending token and K
+  drafts as K+1 lanes of the packed stream (K2).
 Every chunk runs its steps on the device with done rows masked, and the
 host reads its results once, at its end.
 

@@ -63,9 +63,11 @@ def decode_attention_chunk_split_reference(
     *,
     span: int,  # positions a split covers (the kernel: SPLIT_POSITIONS)
 ) -> torch.Tensor:
-    """The kernel's split-KV arithmetic in plain PyTorch: each row's
-    window cut into spans of `span` positions from valid_from, one
-    partial (o, m, l) a span, then the merge.  For the tests and
+    """The kernel's split-KV arithmetic in plain PyTorch
+    (`ops/attention.split_window_attention`): each row's window cut into
+    spans of `span` positions from valid_from, each walked as the
+    kernel's warps walk it, one partial (o, m, l) a span, then the merge;
+    fp32, before the kernel's rounding to q's dtype.  For the tests and
     chip_smoke.py; the wrapper's CPU path is the plain version."""
     qi = torch.arange(q.shape[1], device=q.device)
     valid_to_q = (valid_to0.long()[:, None] + qi[None, :]).clamp(max=k_cache.shape[1])

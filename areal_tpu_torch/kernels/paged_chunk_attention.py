@@ -4,15 +4,19 @@ plain version.
 Replaces the TPU kernel `paged_decode_attention_chunk_kernel`
 (areal_tpu/ops/pallas/paged_attention.py, body `_paged_chunk_kernel`)
 and the function that dispatches to it, `paged_decode_attention_chunk`
-(areal_tpu/ops/attention.py), and the kernel's Q=1 entry point
-`paged_decode_attention_kernel` (the same file): here too the chunk
-kernel with one live query per slot, so one body serves both.  Slot b carries Q queries; query i attends
+(areal_tpu/ops/attention.py).  Slot b carries Q queries; query i attends
 flat positions [0, valid_to0[b] + i) through `page_table[b]`, and only
 queries i < q_lens[b] are live (dead ones give exact zeros).  The kernel
 is hand-written CUDA C++ for Hopper
 (`areal_tpu_torch/csrc/paged_chunk_attention.cu`), built by `nvcc` at
 first launch (`kernels/build.py`) and bound through ctypes.  `LAUNCHES`
-counts the kernel's launches and nothing else.
+counts the kernel's launches and nothing else.  The same file's Q=1
+entry point `paged_decode_attention_kernel` (the chunk kernel at Q=1 in
+the JAX package) computes the ragged stream attention's function with
+one token a slot, so here it is K2's split-KV kernel
+(`kernels/ragged_paged_attention.py`), which serves one query a slot
+with every SM busy, where the chunk kernel's 64-row blocks would hold 6
+live rows each.
 
 On a CPU tensor the wrapper computes the plain version
 (`paged_chunk_attention_reference`); on a CUDA tensor it launches the
@@ -32,12 +36,12 @@ from typing import Optional
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned, check_paged_inputs
-from areal_tpu_torch.ops.attention import (
-    decode_attention_chunk,
-    paged_decode_attention,
-    paged_gather_layer,
+from areal_tpu_torch.kernels.ragged_paged_attention import (
+    check_aligned,
+    check_paged_inputs,
+    ragged_paged_attention_kernel,
 )
+from areal_tpu_torch.ops.attention import decode_attention_chunk, paged_gather_layer
 
 SOURCE = os.path.join(build.CSRC_DIR, "paged_chunk_attention.cu")
 
@@ -214,17 +218,15 @@ def paged_decode_attention_kernel(
     k_scale: Optional[torch.Tensor] = None,  # [P, ps, n_kv] bf16 (int8 pool)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Single-token paged decode attention: the chunk kernel at Q=1 with
-    every slot's query live, query 0 seeing [0, valid_to).  CPU tensors:
-    the plain version (`ops/attention.paged_decode_attention`).  A launch
-    counts in LAUNCHES, as the chunk form's does."""
+    """Single-token paged decode attention: slot b's one query sees [0,
+    valid_to[b]) through page_table[b], bounded by the table; a parked
+    slot (valid_to 0) gives exact zeros.  That is the ragged stream
+    attention with one token a slot, so this is K2's wrapper
+    (`ragged_paged_attention_kernel`) on q[:, 0]: its split-KV kernel on
+    the card, its launches counted in that module's LAUNCHES (not in
+    this one's), and its plain version on CPU tensors."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"want q [B, 1, n_q, d], got {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return paged_decode_attention(
-            q, k_pool, v_pool, page_table, valid_to, k_scale, v_scale
-        )
-    q_lens = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
-    return paged_decode_attention_chunk(
-        q, k_pool, v_pool, page_table, valid_to, q_lens, k_scale, v_scale
-    )
+    return ragged_paged_attention_kernel(
+        q[:, 0], k_pool, v_pool, page_table, valid_to, k_scale, v_scale
+    )[:, None]

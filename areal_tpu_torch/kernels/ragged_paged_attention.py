@@ -1,16 +1,19 @@
 """Ragged paged attention: the CUDA kernel's wrapper and its plain version.
 
 Replaces the TPU kernel `ragged_paged_attention_kernel`
-(areal_tpu/ops/pallas/paged_attention.py).  The kernel is hand-written
-CUDA C++ for Hopper (`areal_tpu_torch/csrc/ragged_paged_attention.cu`),
+(areal_tpu/ops/pallas/paged_attention.py), and serves that file's
+`paged_decode_attention_kernel` too (through
+`kernels/paged_chunk_attention.py`: one token a slot).  The kernel is
+hand-written CUDA C++ for Hopper
+(`areal_tpu_torch/csrc/ragged_paged_attention.cu`),
 built by `nvcc` at first launch (`kernels/build.py`) and bound through
 ctypes.  `LAUNCHES` counts the wrapper's calls that launched the kernel
 and nothing else, so a run can show that its main path went through it.
 
 The kernel is split-KV: each (token, kv head) is served by `n_splits`
-blocks, each over a span of whole pages (`split_plan`, from the table's
-shape alone), and a merge kernel launched by the same C entry point
-combines their partials.  `ragged_paged_attention_split_reference` is
+blocks, each over a span of whole pages (`split_plan`, from the shapes
+alone), and a merge kernel launched by the same C entry point combines
+their partials.  `ragged_paged_attention_split_reference` is
 that arithmetic in plain PyTorch, for the tests and `chip_smoke.py`.
 
 On a CPU tensor the wrapper computes the plain version
@@ -42,13 +45,21 @@ _HEAD_DIMS = (64, 128)
 # Positions a block covers, rounded to whole pages (kMaxSpanPages = 256 in
 # the CUDA source bounds the pages a span).
 SPLIT_POSITIONS = 256
+# The H100's SMs: a grid of fewer blocks leaves SMs idle, so it takes
+# shorter spans (split_plan).
+SPLIT_MIN_BLOCKS = 132
 
 
-def split_plan(max_pages: int, page_size: int):
+def split_plan(max_pages: int, page_size: int, pairs: int = 0):
     """(span_pages, n_splits): the kernel's blocks per (token, kv head)
     each cover `span_pages` whole pages, about SPLIT_POSITIONS positions,
-    and together the whole table.  Shapes only: no device read."""
+    and together the whole table.  Given `pairs` (tokens x kv heads), the
+    span halves while the grid would hold fewer than SPLIT_MIN_BLOCKS
+    blocks (16 one-token slots of a 6-page table: one-page spans).
+    Shapes only: no device read."""
     span_pages = max(1, SPLIT_POSITIONS // page_size)
+    while pairs and span_pages > 1 and pairs * -(-max_pages // span_pages) < SPLIT_MIN_BLOCKS:
+        span_pages //= 2
     return span_pages, -(-max_pages // span_pages)
 
 
@@ -88,10 +99,13 @@ def ragged_paged_attention_split_reference(
     *,
     span: int,  # positions a split covers (the kernel: span_pages * ps)
 ) -> torch.Tensor:
-    """The kernel's split-KV arithmetic in plain PyTorch: each token's
-    window (bounded by its table) cut into spans of `span` positions from
-    0, one partial (o, m, l) a span, then the merge.  For the tests and
-    chip_smoke.py; the wrapper's CPU path is the plain version."""
+    """The kernel's split-KV arithmetic in plain PyTorch
+    (`ops/attention.split_window_attention`): each token's window
+    (bounded by its table) cut into spans of `span` positions from 0,
+    each walked as the kernel's warps walk it, one partial (o, m, l) a
+    span, then the merge; fp32, before the kernel's rounding to q's
+    dtype.  For the tests and chip_smoke.py; the wrapper's CPU path is
+    the plain version."""
     k_cache = paged_gather_layer(k_pool, page_table_tok)  # [T, mp*ps, ...]
     v_cache = paged_gather_layer(v_pool, page_table_tok)
     ks = None if k_scale is None else paged_gather_layer(k_scale, page_table_tok)
@@ -223,7 +237,7 @@ def ragged_paged_attention_kernel(
     t, n_q, d = q.shape
     n_pool, ps, n_kv, _ = k_pool.shape
     mp = page_table_tok.shape[1]
-    span_pages, n_splits = split_plan(mp, ps)
+    span_pages, n_splits = split_plan(mp, ps, t * n_kv)
     out = torch.empty_like(q)
     scratch = None  # partials: o [n_splits, T*n_q, d], then m and l
     if n_splits > 1:

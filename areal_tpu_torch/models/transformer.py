@@ -893,7 +893,7 @@ def decode_step_paged(
     path's decode step): each row's K/V written at (page_table[row,
     pos // ps], pos % ps) (writes through a sentinel go to the trash
     page), attention over [0, valid_to) through the page table with
-    `paged_decode_attention_kernel` (K3 at Q=1 on the card).  Returns fp32
+    `paged_decode_attention_kernel` (K2's kernel on the card).  Returns fp32
     logits [B, V] and the pool, updated in place."""
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not yet ported")

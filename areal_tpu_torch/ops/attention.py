@@ -15,12 +15,15 @@
   build theirs from these.  The model calls the wrappers.
 - `paged_decode_attention`: single-query decode through a page table,
   plain formulation (the gather, then `decode_attention` over windows
-  from position 0): the JAX function's non-kernel branch and the plain
-  version of K3's Q=1 wrapper (`kernels/paged_chunk_attention.py
-  paged_decode_attention_kernel`), which `decode_step_paged` calls.
-- `split_window_attention`: the split-KV arithmetic of K2 and K4 (partials
-  per span, then the merge), which the tests and chip_smoke.py hold
-  against the plain versions and the kernels.
+  from position 0): the JAX function's non-kernel branch, the same
+  arithmetic as the plain version of K3's Q=1 wrapper
+  (`kernels/paged_chunk_attention.py paged_decode_attention_kernel`, which
+  `decode_step_paged` calls and which runs K2's kernel).
+- `split_window_attention`: the split-KV arithmetic of K2 and K4 (a
+  block's warps walking a span tile by tile, partials per span, then the
+  merge; the int8 scales and bf16 P' of the tensor-core path), which the
+  tests and chip_smoke.py hold against the plain versions and the
+  kernels.
 """
 
 import math
@@ -173,6 +176,13 @@ def decode_attention_chunk(
     return out.reshape(b, nq_tok, n_q, d).to(q.dtype)
 
 
+# The split kernels' walk (csrc/split_kv_attention.cuh): a block's warps
+# and the positions of a warp tile.
+SPLIT_WARPS = 4
+SPLIT_TILE = 16
+LOG2E = math.log2(math.e)
+
+
 def split_window_attention(
     q: torch.Tensor,  # [B, Q, n_q, d]
     k_cache: torch.Tensor,  # [B, S, n_kv, d]
@@ -183,47 +193,81 @@ def split_window_attention(
     k_scale: Optional[torch.Tensor] = None,  # [B, S, n_kv]: int8 cache
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Split-KV (flash-decoding) attention, plain formulation: the model
-    of the split kernels K2 and K4.  Each query's window [valid_from,
-    valid_to_q) is cut at valid_from + z * span; span z gives a partial
-    (m_z = its largest logit, l_z = sum of exp(logit - m_z), o_z = the
-    unnormalised P.V with P in V's dtype), and the merge rescales every
-    partial with l_z > 0 by exp(m_z - m), sums, and divides by max(l,
-    1e-30): a query no span saw gives exact zeros, and an empty span adds
-    no mass."""
-    if k_scale is not None:
-        from areal_tpu_torch.ops.quant import kv_dequant
-
-        k_cache = kv_dequant(k_cache, k_scale, q.dtype)
-        v_cache = kv_dequant(v_cache, v_scale, q.dtype)
+    """Split-KV (flash-decoding) attention: the model of the split
+    kernels K2 and K4, their arithmetic in plain PyTorch.  Each query's
+    window [valid_from, valid_to_q) is cut at valid_from + z * span; a
+    block walks span z with SPLIT_WARPS warps, warp w taking its tiles w,
+    w + 4, ... of SPLIT_TILE positions with an online softmax in the log2
+    domain: score = (q . k) * s_k * d^-0.5 * log2(e), m the running
+    maximum, l = l * 2^(m_old - m) + sum(p), o = o * 2^(m_old - m) +
+    P'.v with P' = p * s_v (s_k = s_v = 1 without scales).  K and V enter
+    in their own type (int8 as its integer codes), and P' is rounded to
+    bf16 where the kernel runs on the tensor cores (bf16 q over a bf16 or
+    an int8 cache).  The warps merge rescaled to their largest m, then the
+    spans (each with l > 0, rescaled to the largest m) sum and divide by
+    max(l, 1e-30): a query no span saw gives exact zeros, and an empty
+    span adds no mass.  Returns fp32 [B, Q, n_q, d]: the kernel's output
+    before its rounding to q's dtype."""
     b, nq_tok, n_q, d = q.shape
     s, n_kv = k_cache.shape[1], k_cache.shape[2]
-    qh = q.reshape(b, nq_tok, n_kv, n_q // n_kv, d)
-    logits = torch.einsum(
-        "bqgrd,bsgd->bgqrs", qh.float(), k_cache.to(q.dtype).float()
-    ) * d**-0.5  # [B, n_kv, Q, n_rep, S] fp32
-    idx = torch.arange(s, device=q.device)
-    valid = (idx[None, None, :] >= valid_from[:, None, None]) & (
-        idx[None, None, :] < valid_to_q[:, :, None]
-    )  # [B, Q, S]
-    split_of = torch.div(
-        idx[None, :] - valid_from[:, None], span, rounding_mode="floor"
-    )  # [B, S]
-    v32 = v_cache.float()
-    ms, ls, outs = [], [], []
-    for z in range(-(-s // span)):
-        live = (valid & (split_of == z)[:, None, :])[:, None, :, None, :]
-        m = torch.where(live, logits, torch.full_like(logits, -math.inf)).amax(-1)
-        p = torch.where(live, torch.exp(logits - m[..., None]), torch.zeros_like(logits))
-        ms.append(m)
-        ls.append(p.sum(-1))
-        outs.append(torch.einsum("bgqrs,bsgd->bgqrd", p.to(v_cache.dtype).float(), v32))
-    m, l = torch.stack(ms), torch.stack(ls)  # [n_splits, B, n_kv, Q, n_rep]
-    m_all = torch.where(l > 0, m, torch.full_like(m, -math.inf)).amax(0)
-    f = torch.where(l > 0, torch.exp(m - m_all), torch.zeros_like(m))
-    o = (f[..., None] * torch.stack(outs)).sum(0)
-    o = o / (f * l).sum(0).clamp(min=1e-30)[..., None]
-    return o.permute(0, 2, 1, 3, 4).reshape(b, nq_tok, n_q, d).to(q.dtype)
+    rep = n_q // n_kv
+    dev = q.device
+    mma = q.dtype == torch.bfloat16 and k_cache.dtype in (torch.bfloat16, torch.int8)
+    n_z = -(-s // span)
+    n_tiles = -(-span // SPLIT_TILE)
+    n_t = -(-n_tiles // SPLIT_WARPS)  # tiles of a span a warp walks
+    # Position of (span z, step t, warp w, slot j) in each row: [B, Z, T, W, J].
+    z = torch.arange(n_z, device=dev)[:, None, None, None]
+    t = torch.arange(n_t, device=dev)[None, :, None, None]
+    w = torch.arange(SPLIT_WARPS, device=dev)[None, None, :, None]
+    j = torch.arange(SPLIT_TILE, device=dev)[None, None, None, :]
+    off = (t * SPLIT_WARPS + w) * SPLIT_TILE + j  # within the span
+    pos = valid_from.long()[:, None, None, None, None] + z * span + off
+    ok = (off < span) & (pos < s)
+    idx = torch.where(ok, pos, torch.zeros_like(pos)).reshape(b, -1)  # [B, N]
+    rows = torch.arange(b, device=dev)[:, None]
+    kg, vg = k_cache[rows, idx].float(), v_cache[rows, idx].float()  # [B, N, n_kv, d]
+    qh = q.float().reshape(b, nq_tok, n_kv, rep, d)
+    score = torch.einsum("bqgrd,bngd->bgqrn", qh, kg)  # [B, n_kv, Q, rep, N]
+    if k_scale is not None:
+        score = score * k_scale[rows, idx].float().transpose(1, 2)[:, :, None, None, :]
+    scale_log2 = float(torch.tensor(d**-0.5) * torch.tensor(LOG2E))  # fp32, as the kernel
+    score = score * scale_log2
+    seen = (ok.reshape(b, 1, -1) & (idx[:, None, :] < valid_to_q.long()[:, :, None])
+            & (idx[:, None, :] >= valid_from.long()[:, None, None]))  # [B, Q, N]
+    neg = torch.tensor(-1e30, device=dev)  # the kernel's sentinel
+    score = torch.where(seen[:, None, :, None, :], score, neg)
+    score = score.reshape(b, n_kv, nq_tok, rep, n_z, n_t, SPLIT_WARPS, SPLIT_TILE)
+    vg = vg.reshape(b, n_z, n_t, SPLIT_WARPS, SPLIT_TILE, n_kv, d)
+    vs = None
+    if v_scale is not None:  # [B, n_kv, 1, 1, Z, T, W, J]
+        vs = v_scale[rows, idx].float().transpose(1, 2)
+        vs = vs.reshape(b, n_kv, 1, 1, n_z, n_t, SPLIT_WARPS, SPLIT_TILE)
+    m = torch.full(score.shape[:5] + (SPLIT_WARPS,), -1e30, device=dev)
+    l = torch.zeros_like(m)
+    o = torch.zeros(m.shape + (d,), device=dev)
+    for ti in range(n_t):
+        sc = score[:, :, :, :, :, ti]  # [B, n_kv, Q, rep, Z, W, J]
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where((m_new > -1e30)[..., None], torch.exp2(sc - m_new[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        if vs is not None:
+            p = p * vs[:, :, :, :, :, ti]
+        if mma:
+            p = p.to(torch.bfloat16).float()
+        o = o * alpha[..., None] + torch.einsum("bgqrzwj,bzwjgd->bgqrzwd", p, vg[:, :, ti])
+        m = m_new
+    # The block's warps, then the spans.
+    m_blk = m.amax(-1)  # [B, n_kv, Q, rep, Z]
+    f = torch.exp2(m - m_blk[..., None])
+    l_blk = (f * l).sum(-1)
+    o_blk = (f[..., None] * o).sum(-2)
+    live = l_blk > 0
+    m_all = torch.where(live, m_blk, neg).amax(-1)
+    f = torch.where(live, torch.exp2(m_blk - m_all[..., None]), 0.0)
+    out = (f[..., None] * o_blk).sum(-2) / (f * l_blk).sum(-1).clamp(min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, nq_tok, n_q, d)
 
 
 def clamp_page_table(page_table: torch.Tensor, n_pool: int) -> torch.Tensor:

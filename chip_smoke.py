@@ -39,12 +39,17 @@ kernel       — the ragged paged attention kernel (K2) against its plain
                nothing; one call under the sync debug mode; and its times
                at 32 rows and at the static phase's 64.  Then the forms
                the generator's other inflight modes run: K3's Q=1 entry
-               point (the two-program path's decode step; 16 and 64 slots,
-               windows 64-640, fp32/bf16/int8 pools, against the chunk
-               form and the plain paged_decode_attention), K4 at Q=1 over
-               an int8 cache and at Q=5 (dense spec, K=4), 16 rows of a
-               1024 window; each with one call under the sync debug mode
-               and its times beside the plain version, SDPA and the bound.
+               point (the two-program path's decode step, which runs K2's
+               kernel; 16 and 64 slots, windows 64-640, fp32/bf16/int8
+               pools and bf16 q over int8, equal to K2's wrapper and held
+               against the plain paged_decode_attention), K4 at Q=1 and
+               Q=5 with bf16 q over an int8 cache and at Q=5 in bf16
+               (dense spec, K=4), 16 rows of a 1024 window; each with one
+               call under the sync debug mode and its times beside the
+               plain version, SDPA and the bound.  bf16 q over an int8
+               cache or pool (the tensor-core int8 path of K2 and K4) is
+               held in every K2 and K4 case against the plain version
+               and, within MODEL_TOL, its split reference.
 flash        — the flash attention kernels (K1f forward, K1dq and K1dkv
                backward) against the plain version and its autograd on
                fp32 copies of the same inputs, at qwen2-1.5B's attention
@@ -165,8 +170,8 @@ genmodes     — the generator's other inflight modes at full qwen2-1.5B in
                (prefill_chunk_tokens=0) in bf16 and int8, (d) spec K=4 on
                the serving plane, then (e) one quickstart ppo-math step
                with --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8.
-               Replies, launches (K4 = 28 x decode steps in (a), (b); K3
-               = 28 x decode steps in (c); K2 = 28 x inner steps in (d);
+               Replies, launches (K4 = 28 x decode steps in (a), (b); K2
+               = 28 x decode steps in (c) and 28 x inner steps in (d);
                K1f = 28 x prefill dispatches; the rest 0), one decode
                chunk of each mode under the sync debug mode, and int8
                against bf16 token agreement >= 0.85 (teacher-forced along
@@ -421,10 +426,12 @@ def _stream(seed, fixed=(1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100),
     )
 
 
-def _bound(s, elem_bytes):
+def _bound(s, elem_bytes, kv_bytes=None):
     """Least time for the call: unique K/V bytes the windows need (each
-    position once, though many lanes of a row read it), q in, out back,
-    tables; against the flops of QK and PV at the bf16 tensor rate."""
+    position once, though many lanes of a row read it; `kv_bytes` a
+    position and kv head of K, and of V, default d * elem_bytes), q in,
+    out back, tables; against the flops of QK and PV at the bf16 tensor
+    rate."""
     ps = s["k"].shape[1]
     n_kv, d = s["k"].shape[2], s["k"].shape[3]
     n_q = s["q"].shape[1]
@@ -436,7 +443,7 @@ def _bound(s, elem_bytes):
         for j in range(-(-int(vt) // ps)):
             page = int(row[j])
             need[page] = max(need.get(page, 0), min(ps, vt - j * ps))
-    kv_bytes = 2 * sum(need.values()) * n_kv * d * elem_bytes
+    kv_bytes = 2 * sum(need.values()) * n_kv * (kv_bytes or d * elem_bytes)
     io_bytes = 2 * s["q"].size * elem_bytes + s["pt"].size * 4 + s["vt"].size * 4
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS * 1e3
@@ -449,7 +456,10 @@ K2_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 1e-3}  # max abs error
 def _hold_k2(tag, s, poison):
     """K2 on stream `s` against its plain version and its split reference
     (at the kernel's own span) on the same inputs, fp32, bf16 and int8
-    pools, each within K2_TOL; window-0 lanes exactly 0; with `poison`,
+    pools (fp32 q), each within K2_TOL; bf16 q over the int8 pool (the
+    tensor-core int8 path) within FLASH_ROW_TOL["bf16"] of the plain
+    version on an fp32 copy of q and within MODEL_TOL of the split
+    reference (`_model_err`); window-0 lanes exactly 0; with `poison`,
     the never-mapped last pool page set to 1e9 (127 and scale 1e9 for
     int8) changing nothing.  Returns {dtype: error} and the tensors."""
     import torch
@@ -465,27 +475,42 @@ def _hold_k2(tag, s, poison):
         "fp32": (t["q"], t["k"], t["v"], None, None),
         "bf16": (t["q"].to(bf), t["k"].to(bf), t["v"].to(bf), None, None),
         "int8": (t["q"], t["k8"], t["v8"], ks, vs),
+        "bf16q_int8": (t["q"].to(bf), t["k8"], t["v8"], ks, vs),
     }
     ps, mp = s["k"].shape[1], s["pt"].shape[1]
-    span_pages, n_splits = rpa.split_plan(mp, ps)
+    span_pages, n_splits = rpa.split_plan(mp, ps, s["q"].shape[0] * s["k"].shape[2])
     dead = t["vt"] == 0
     errs = {}
     for name, (q, k, v, ksc, vsc) in cases.items():
-        tol = K2_TOL[name]
         args = (q, k, v, t["pt"], t["vt"], ksc, vsc)
         out = rpa.ragged_paged_attention_kernel(*args)
-        ref = rpa.ragged_paged_attention_reference(*args)
         split = rpa.ragged_paged_attention_split_reference(*args, span=span_pages * ps)
+        quant_mma = name == "bf16q_int8"
+        ref = rpa.ragged_paged_attention_reference(q.float() if quant_mma else q, *args[1:])
         torch.cuda.synchronize()
         check(bool(torch.isfinite(out).all()), f"K2 {tag} {name}: non-finite kernel output")
-        err = float((out.float() - ref.float()).abs().max())
-        err_s = float((out.float() - split.float()).abs().max())
-        errs[name], errs[f"{name}_split"] = err, err_s
-        log(f"[kernel] K2 {tag} {name}: max_abs_err={err:.3e} against the plain version, "
-            f"{err_s:.3e} against the split reference (tolerance {tol:g}; {n_splits} "
-            f"span(s) of {span_pages} page(s))")
-        check(err <= tol, f"K2 {tag} {name} disagrees with the plain version")
-        check(err_s <= tol, f"K2 {tag} {name} disagrees with the split reference")
+        spans = f"{n_splits} span(s) of {span_pages} page(s)"
+        if quant_mma:
+            rel, err = _row_err(out, ref)
+            rel_m = _model_err(out, split)
+            errs[name], errs[f"{name}_row"], errs[f"{name}_model"] = err, rel, rel_m
+            log(f"[kernel] K2 {tag} {name}: row_err={rel:.3e} against the plain version "
+                f"(tolerance {FLASH_ROW_TOL['bf16']:.3e}), {rel_m:.3e} against the split "
+                f"reference beyond the output's rounding (tolerance {MODEL_TOL:g}); "
+                f"max_abs_err={err:.3e}; {spans}")
+            check(rel <= FLASH_ROW_TOL["bf16"], f"K2 {tag} {name} disagrees with the plain "
+                  f"version: {rel:.3e}")
+            check(rel_m <= MODEL_TOL, f"K2 {tag} {name} disagrees with the split reference: "
+                  f"{rel_m:.3e}")
+        else:
+            tol = K2_TOL[name]
+            err = float((out.float() - ref.float()).abs().max())
+            err_s = float((out.float() - split.float()).abs().max())
+            errs[name], errs[f"{name}_split"] = err, err_s
+            log(f"[kernel] K2 {tag} {name}: max_abs_err={err:.3e} against the plain version, "
+                f"{err_s:.3e} against the split reference (tolerance {tol:g}; {spans})")
+            check(err <= tol, f"K2 {tag} {name} disagrees with the plain version")
+            check(err_s <= tol, f"K2 {tag} {name} disagrees with the split reference")
         check(float(out[dead].float().abs().max()) == 0.0,
               f"K2 {tag} {name}: dead lanes are not exactly 0")
         if not poison:
@@ -516,10 +541,12 @@ def phase_kernel(report, seed):
 
     from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.ops.attention import paged_gather_layer
+    from areal_tpu_torch.ops.quant import kv_dequant
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    bf = torch.bfloat16
     s = _stream(seed)
     errs, t, cases = _hold_k2("stream", s, poison=True)
     # Windows at the 256-position span's edges, +-1; and a 2-page table
@@ -558,6 +585,30 @@ def phase_kernel(report, seed):
     )
     report["kernel"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by,
                             T=T, **times)
+    # bf16 q over the int8 pool (the serving plane with an int8 cache):
+    # SDPA over the same windows dequantized to bf16; the bound reads one
+    # byte a K/V element and its bf16 scale.
+    q8, k8, v8, ks8, vs8 = cases["bf16q_int8"]
+    no_host_sync("K2 bf16q_int8", lambda: rpa.ragged_paged_attention_kernel(
+        q8, k8, v8, t["pt"], t["vt"], ks8, vs8))
+    kd = kv_dequant(paged_gather_layer(k8, t["pt"]), paged_gather_layer(ks8, t["pt"]), bf)
+    vd = kv_dequant(paged_gather_layer(v8, t["pt"]), paged_gather_layer(vs8, t["pt"]), bf)
+    kd = kd.transpose(1, 2).repeat_interleave(n_q // n_kv, dim=1).contiguous()
+    vd = vd.transpose(1, 2).repeat_interleave(n_q // n_kv, dim=1).contiguous()
+    times8 = timings(
+        lambda: rpa.ragged_paged_attention_kernel(q8, k8, v8, t["pt"], t["vt"], ks8, vs8),
+        lambda: rpa.ragged_paged_attention_reference(q8, k8, v8, t["pt"], t["vt"], ks8, vs8),
+        lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask),
+    )
+    bound8, by8 = _bound(s, 2, kv_bytes=d + 2)
+    log(
+        f"[kernel] K2 bf16q_int8 T={T}: kernel_ms={times8['kernel_ms']:.4f} "
+        f"plain_ms={times8['plain_ms']:.4f} library_ms={times8['library_ms']:.4f} "
+        f"(device, graph replays); eager calls kernel={times8['kernel_eager_ms']:.4f} "
+        f"plain={times8['plain_eager_ms']:.4f} library={times8['library_eager_ms']:.4f}; "
+        f"bound_ms={bound8:.5f} ({by8})"
+    )
+    report["kernel"]["bf16q_int8"] = dict(bound_ms=bound8, bound_by=by8, **times8)
     _kernel_k3(report, seed)
     _kernel_k3_q1(report, seed)
     _kernel_k4(report, seed)
@@ -566,10 +617,12 @@ def phase_kernel(report, seed):
 
 
 def _split_sweep(report, seed):
-    """K2 (the 96-lane stream) and K4 (the 32-row decode case), bf16:
-    device time (graph replays) at spans around the wrappers' own, and
-    one profiled call of each at its own span, split into the split pass
-    and the merge kernel."""
+    """K2 (the 96-lane stream) and K4 (the 32-row decode case), bf16, and
+    K2 at K3's Q=1 shape (16 slots; bf16, and bf16 q over int8): device
+    time (graph replays) at forced spans around the wrappers' own, and
+    one profiled call of each at its own plan's span, split into the
+    split pass and the merge kernel."""
+    import numpy as np
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -586,21 +639,44 @@ def _split_sweep(report, seed):
     k4, v4 = (torch.randn((32, S, 2, 128), generator=gen, device=dev).to(bf)
               for _ in range(2))
     vf, vt4 = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+    # K2 at K3's Q=1 shape (16 slots, windows 64-640, a 6-page table of
+    # 128: the two-program path's decode step), bf16 and bf16 q over int8.
+    rng = np.random.default_rng(seed + 41)
+    L = rng.integers(64, 641, 16)
+    L[:2] = (64, 640)
+    sl = _k3_slots(rng, 1, L, np.ones(16, np.int32), [-(-int(x) // 128) for x in L], 6)
+    q1 = torch.from_numpy(sl["q"][:, 0]).to(dev).to(bf)
+    k1, v1 = (torch.from_numpy(sl[key]).to(dev).to(bf) for key in ("k", "v"))
+    k18, v18 = (torch.from_numpy(sl[key]).to(dev) for key in ("k8", "v8"))
+    ks1, vs1 = (torch.from_numpy(sl[key]).to(dev).to(bf) for key in ("ks", "vs"))
+    pt1, vt1 = torch.from_numpy(sl["pt"]).to(dev), torch.from_numpy(sl["hi0"]).to(dev)
+    own2 = rpa.split_plan(pt.shape[1], 128, q2.shape[0] * 2)[0] * 128
+    own1 = rpa.split_plan(pt1.shape[1], 128, 16 * 2)[0] * 128
     runs = (
         ("K2", rpa, lambda: rpa.ragged_paged_attention_kernel(q2, k2, v2, pt, vt2),
-         (128, 256, 512)),
+         (128, 256, 512), own2),
         ("K4", da, lambda: da.decode_attention_kernel(q4, k4, v4, vf, vt4),
-         (64, 128, 256)),
+         (64, 128, 256), da.SPLIT_POSITIONS),
+        ("K2 Q=1 B=16", rpa, lambda: rpa.ragged_paged_attention_kernel(q1, k1, v1, pt1, vt1),
+         (128, 256, 384), own1),
+        ("K2 Q=1 B=16 bf16q_int8", rpa,
+         lambda: rpa.ragged_paged_attention_kernel(q1, k18, v18, pt1, vt1, ks1, vs1),
+         (128, 256, 384), own1),
     )
     out = {}
-    for name, mod, fn, spans in runs:
-        own = mod.SPLIT_POSITIONS
+    for name, mod, fn, spans, own in runs:
+        # Each span forced: K2's plan keeps it whatever the grid's size.
+        saved = {key: getattr(mod, key) for key in ("SPLIT_POSITIONS", "SPLIT_MIN_BLOCKS")
+                 if hasattr(mod, key)}
         try:
             for span in spans:
                 mod.SPLIT_POSITIONS = span
+                if "SPLIT_MIN_BLOCKS" in saved:
+                    mod.SPLIT_MIN_BLOCKS = 0
                 out[f"{name}_span{span}_ms"] = time_graph(fn)
         finally:
-            mod.SPLIT_POSITIONS = own
+            for key, val in saved.items():
+                setattr(mod, key, val)
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -684,13 +760,14 @@ def _k3_edge_slots(seed, nq_tok):
     return _k3_slots(rng, nq_tok, last - np.maximum(ql - 1, 0), ql, pages, 6)
 
 
-def _k3_bound(s, elem_bytes):
+def _k3_bound(s, elem_bytes, kv_bytes=None):
     """Least time for K3 on these slots: the flops of QK and PV over every
     live query's window at the bf16 tensor rate, against each slot's
     unique K/V positions (its widest live window, read once for all its
-    queries and heads), the live queries' q in (a dead query's output is
-    0 whatever its q holds), every output row back and the tables at the
-    HBM rate."""
+    queries and heads; `kv_bytes` a position and kv head of K, and of V,
+    default d * elem_bytes), the live queries' q in (a dead query's
+    output is 0 whatever its q holds), every output row back and the
+    tables at the HBM rate."""
     b, nq_tok, n_q, d = s["q"].shape
     n_kv = s["k"].shape[2]
     cap = s["pt"].shape[1] * s["k"].shape[1]
@@ -700,7 +777,7 @@ def _k3_bound(s, elem_bytes):
             flops += 4 * d * n_q * min(hi0 + i, cap)
         if ql > 0:
             kv_pos += min(hi0 + ql - 1, cap)
-    nbytes = (2 * kv_pos * n_kv * d * elem_bytes
+    nbytes = (2 * kv_pos * n_kv * (kv_bytes or d * elem_bytes)
               + int(s["ql"].sum()) * n_q * d * elem_bytes + s["q"].size * elem_bytes
               + s["pt"].size * 4 + 2 * b * 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -815,6 +892,42 @@ def _kernel_k3(report, seed):
         f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
         f"bound_ms={bound_ms:.5f} ({bound_by}); {int((~dead).sum())} live queries")
     report["k3"] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by, **times)
+    # bf16 q over the int8 pool at the replay shape (fp32 CUDA-core
+    # products): within the bf16 row tolerance of the plain version (fp32
+    # copy of q) and of the tiled model; SDPA over the windows
+    # dequantized to bf16; the bound reads one byte a K/V element and its
+    # bf16 scale.
+    from areal_tpu_torch.ops.quant import kv_dequant
+
+    k8, v8, ks8, vs8 = cases["int8"][1:5]
+    got = pca.paged_decode_attention_chunk(q, k8, v8, pt, hi0, ql, ks8, vs8)
+    rel, err = _row_err(got, pca.paged_chunk_attention_reference(q.float(), k8, v8, pt, hi0,
+                                                                  ql, ks8, vs8))
+    rel_t, _ = _row_err(got, pca.paged_chunk_attention_tiled_reference(q, k8, v8, pt, hi0, ql,
+                                                                        ks8, vs8))
+    check(rel <= FLASH_ROW_TOL["bf16"], f"K3 replay bf16q_int8 disagrees with the plain "
+          f"version: {rel:.3e}")
+    check(rel_t <= FLASH_ROW_TOL["bf16"], f"K3 replay bf16q_int8 disagrees with the tiled "
+          f"model: {rel_t:.3e}")
+    kd = kv_dequant(paged_gather_layer(k8, pt), paged_gather_layer(ks8, pt), torch.bfloat16)
+    vd = kv_dequant(paged_gather_layer(v8, pt), paged_gather_layer(vs8, pt), torch.bfloat16)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    times8 = timings(
+        lambda: pca.paged_decode_attention_chunk(q, k8, v8, pt, hi0, ql, ks8, vs8),
+        lambda: pca.paged_chunk_attention_reference(q, k8, v8, pt, hi0, ql, ks8, vs8),
+        lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask[:, None],
+                                               enable_gqa=True),
+        iters=10,
+    )
+    bound8, by8 = _k3_bound(s, 2, kv_bytes=q.shape[-1] + 2)
+    log(f"[kernel] K3 bf16q_int8 B={b} Q={nq_tok}: row_err={rel:.3e}, against the tiled "
+        f"model {rel_t:.3e} (tolerance {FLASH_ROW_TOL['bf16']:.3e}); kernel_ms="
+        f"{times8['kernel_ms']:.4f} plain_ms={times8['plain_ms']:.4f} library_ms="
+        f"{times8['library_ms']:.4f} (device, graph replays); eager calls kernel="
+        f"{times8['kernel_eager_ms']:.4f} plain={times8['plain_eager_ms']:.4f} library="
+        f"{times8['library_eager_ms']:.4f}; bound_ms={bound8:.5f} ({by8})")
+    report["k3"]["bf16q_int8"] = dict(row_err=rel, max_abs_err=err, row_err_tiled=rel_t,
+                                      bound_ms=bound8, bound_by=by8, **times8)
 
 
 def _k4_cases(seed):
@@ -898,7 +1011,9 @@ def _kernel_k4(report, seed):
     and int8 caches: each output row within FLASH_ROW_TOL of that row's
     largest |plain| value (int8: the fp32 bound), empty windows exactly
     0, K/V poisoned at every position outside every window of its row
-    changing nothing.  Then, at the decode case in bf16 (B=32, and the
+    changing nothing; bf16 q over the int8 cache (the tensor-core int8
+    path) also, within the bf16 row tolerance of the plain version and
+    within MODEL_TOL of the split reference.  Then, at the decode case in bf16 (B=32, and the
     static phase's B=64), the times of K4, its plain version and SDPA on
     the same dense window with the boolean mask, and the bound."""
     import numpy as np
@@ -939,6 +1054,8 @@ def _kernel_k4(report, seed):
                      FLASH_ROW_TOL["bf16"]),
             "int8": (base["q"], base["k8"], base["v8"], base["ks"], base["vs"],
                      FLASH_ROW_TOL["fp32"]),
+            "bf16q_int8": (base["q"].to(bf), base["k8"], base["v8"], base["ks"], base["vs"],
+                           FLASH_ROW_TOL["bf16"]),
         }
         for tname, (q, k, v, ksc, vsc, tol) in cases.items():
             out = da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc)
@@ -946,18 +1063,22 @@ def _kernel_k4(report, seed):
             ref = decode_attention_chunk(
                 q.float(), f32(k), f32(v), vf.long(), vt.long(), full, ksc, vsc
             )
+            # The split reference takes the kernel's own q: its type picks
+            # the arithmetic (bf16 q over int8 runs on the tensor cores).
+            quant_mma = tname == "bf16q_int8"
             split = da.decode_attention_chunk_split_reference(
-                q.float(), f32(k), f32(v), vf, vt, ksc, vsc, span=span
+                q if quant_mma else q.float(), f32(k), f32(v), vf, vt, ksc, vsc, span=span
             )
             torch.cuda.synchronize()
             tag = f"{cname} {tname}"
             check(bool(torch.isfinite(out).all()), f"K4 {tag}: non-finite output")
             rel, err = _row_err(out, ref)
-            rel_s, _ = _row_err(out, split)
+            rel_s = _model_err(out, split) if quant_mma else _row_err(out, split)[0]
+            tol_s = MODEL_TOL if quant_mma else tol
             errs[f"{tname}_{cname}"], errs[f"{tname}_{cname}_row"] = err, rel
             errs[f"{tname}_{cname}_split_row"] = rel_s
             check(rel <= tol, f"K4 {tag} disagrees with the plain version: {rel:.3e}")
-            check(rel_s <= tol,
+            check(rel_s <= tol_s,
                   f"K4 {tag} disagrees with the split reference: {rel_s:.3e}")
             if bool(empty.any()):
                 check(float(out.float()[empty].abs().max()) == 0.0,
@@ -975,8 +1096,10 @@ def _kernel_k4(report, seed):
             check(torch.equal(out, out_bad),
                   f"K4 {tag}: poisoning positions outside every window changed the output")
             log(f"[kernel] K4 {tag}: B={b} Q={nq} S={S} ({n_splits} span(s)) "
-                f"row_err={rel:.3e}, against the split reference {rel_s:.3e} "
-                f"(tolerance {tol:.3e}) max_abs_err={err:.3e}")
+                f"row_err={rel:.3e} (tolerance {tol:.3e}), against the split reference "
+                f"{rel_s:.3e} (tolerance {tol_s:.3e}"
+                + (", beyond the output's rounding" if quant_mma else "")
+                + f") max_abs_err={err:.3e}")
     log(f"[kernel] K4: {n_zero} empty-window query rows exactly 0; poisoned positions "
         f"outside every window changed nothing")
     # Times at the static path's decode shape, bf16 q and cache: the
@@ -1022,22 +1145,29 @@ def _kernel_k4(report, seed):
 
 def _kernel_k3_q1(report, seed):
     """K3's Q=1 entry point (`paged_decode_attention_kernel`: the
-    two-program path's decode attention, one live query a slot) at the
-    paged-decode shape: 16 and 64 slots, windows 64-640 over shuffled
-    pages of 128, a 6-page table.  The chunk form at Q=1 held as
-    _hold_k3 holds it (fp32, bf16, int8 pools; poisoned last page); the
-    wrapper equal to it and within FLASH_ROW_TOL of the plain
-    `paged_decode_attention`; one call under the sync debug mode; then in
-    bf16 the times of the wrapper, the plain version and SDPA over the
-    gathered windows, beside the bound."""
+    two-program path's decode attention, one query a slot), which runs
+    K2's kernel, at the paged-decode shape: 16 and 64 slots, windows
+    64-640 over shuffled pages of 128, a 6-page table.  The chunk kernel
+    at Q=1 held as _hold_k3 holds it (fp32, bf16, int8 pools with fp32 q;
+    poisoned last page); then for those and for bf16 q over the int8
+    pool (decode_step_paged's int8 form) the wrapper equal to K2's
+    wrapper on the same inputs and within the row tolerance of the plain
+    `paged_decode_attention` (on an fp32 copy of q), the bf16-q int8 form
+    also within MODEL_TOL of K2's split reference; one call under the
+    sync debug mode; then, for bf16 and bf16 q over int8, the times of
+    the wrapper, the plain version and SDPA over the gathered windows
+    (dequantized to bf16 for int8), beside the bound."""
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
     from areal_tpu_torch.ops.attention import paged_decode_attention, paged_gather_layer
+    from areal_tpu_torch.ops.quant import kv_dequant
 
     dev = torch.device("cuda")
+    bf = torch.bfloat16
     rng = np.random.default_rng(seed + 41)
     out = {}
     for b in (16, 64):
@@ -1046,50 +1176,80 @@ def _kernel_k3_q1(report, seed):
         s = _k3_slots(rng, 1, L, np.ones(b, np.int32), [-(-int(x) // 128) for x in L], 6)
         errs, cases, t = _hold_k3(f"Q=1 B={b}", s)
         pt, vt = t["pt"], t["hi0"]
+        q8 = cases["bf16"][0]
+        k8, v8, ks8, vs8 = cases["int8"][1:5]
+        cases["bf16q_int8"] = (q8, k8, v8, ks8, vs8, FLASH_ROW_TOL["bf16"])
+        span_pages, _ = rpa.split_plan(pt.shape[1], k8.shape[1], b * k8.shape[2])
         for name, (q, k, v, ksc, vsc, tol) in cases.items():
             got = pca.paged_decode_attention_kernel(q, k, v, pt, vt, ksc, vsc)
-            chunk = pca.paged_decode_attention_chunk(q, k, v, pt, vt, t["ql"], ksc, vsc)
+            k2 = rpa.ragged_paged_attention_kernel(q[:, 0], k, v, pt, vt, ksc, vsc)[:, None]
             f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
             plain = paged_decode_attention(q.float(), f32(k), f32(v), pt, vt, ksc, vsc)
             rel, err = _row_err(got, plain)
             errs[f"{name}_q1_row"], errs[f"{name}_q1"] = rel, err
-            check(torch.equal(got, chunk), f"K3 Q=1 B={b} {name}: the wrapper is not the "
-                  "chunk kernel at Q=1")
+            check(torch.equal(got, k2), f"K3 Q=1 B={b} {name}: the wrapper is not K2's "
+                  "kernel on the same inputs")
             check(rel <= tol, f"K3 Q=1 B={b} {name} disagrees with paged_decode_attention: "
                   f"{rel:.3e}")
-        q, k, v = cases["bf16"][:3]
-        no_host_sync(f"K3 Q=1 B={b}", lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt))
-        kc = paged_gather_layer(k, pt).transpose(1, 2).contiguous()  # [B, n_kv, S, d]
-        vc = paged_gather_layer(v, pt).transpose(1, 2).contiguous()
-        mask = (torch.arange(kc.shape[2], device=dev)[None, :] < vt[:, None])[:, None, None, :]
-        q4 = q.transpose(1, 2).contiguous()  # [B, n_q, 1, d]
-        times = timings(
-            lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt),
-            lambda: paged_decode_attention(q, k, v, pt, vt),
-            lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask, enable_gqa=True),
-            iters=10,
-        )
-        bound_ms, bound_by = _k3_bound(s, 2)
-        log(f"[kernel] K3 Q=1 bf16 B={b}: kernel_ms={times['kernel_ms']:.4f} "
-            f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
-            f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
-            f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
-            f"bound_ms={bound_ms:.5f} ({bound_by}); {int(L.sum())} live positions")
-        out[b] = dict(max_abs_err=errs, bound_ms=bound_ms, bound_by=bound_by, **times)
+            if name == "bf16q_int8":
+                model = rpa.ragged_paged_attention_split_reference(
+                    q[:, 0], k, v, pt, vt, ksc, vsc, span=span_pages * k.shape[1])[:, None]
+                rel_m = _model_err(got, model)
+                errs[f"{name}_q1_model"] = rel_m
+                check(rel_m <= MODEL_TOL, f"K3 Q=1 B={b} {name} disagrees with K2's split "
+                      f"reference: {rel_m:.3e}")
+            log(f"[kernel] K3 Q=1 B={b} {name}: the wrapper is K2's kernel (equal); row_err="
+                f"{rel:.3e} against paged_decode_attention (tolerance {tol:.3e})"
+                + (f", {rel_m:.3e} against K2's split reference beyond the output's rounding "
+                   f"(tolerance {MODEL_TOL:g})" if name == "bf16q_int8" else ""))
+        res = dict(max_abs_err=errs)
+        for name in ("bf16", "bf16q_int8"):
+            q, k, v, ksc, vsc = cases[name][:5]
+            no_host_sync(f"K3 Q=1 B={b} {name}",
+                         lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt, ksc, vsc))
+            kc, vc = paged_gather_layer(k, pt), paged_gather_layer(v, pt)  # [B, S, n_kv, d]
+            if ksc is not None:
+                kc = kv_dequant(kc, paged_gather_layer(ksc, pt), bf)
+                vc = kv_dequant(vc, paged_gather_layer(vsc, pt), bf)
+            kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+            mask = (torch.arange(kc.shape[2], device=dev)[None, :] < vt[:, None])[:, None, None, :]
+            q4 = q.transpose(1, 2).contiguous()  # [B, n_q, 1, d]
+            times = timings(
+                lambda: pca.paged_decode_attention_kernel(q, k, v, pt, vt, ksc, vsc),
+                lambda: paged_decode_attention(q, k, v, pt, vt, ksc, vsc),
+                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                       enable_gqa=True),
+                iters=10,
+            )
+            bound_ms, bound_by = _k3_bound(s, 2, kv_bytes=k.shape[-1] + 2 if ksc is not None
+                                           else None)
+            log(f"[kernel] K3 Q=1 {name} B={b}: kernel_ms={times['kernel_ms']:.4f} "
+                f"plain_ms={times['plain_ms']:.4f} library_ms={times['library_ms']:.4f} "
+                f"(device, graph replays); eager calls kernel={times['kernel_eager_ms']:.4f} "
+                f"plain={times['plain_eager_ms']:.4f} library={times['library_eager_ms']:.4f}; "
+                f"bound_ms={bound_ms:.5f} ({bound_by}); {int(L.sum())} live positions")
+            entry = dict(bound_ms=bound_ms, bound_by=bound_by, **times)
+            if name == "bf16":
+                res.update(entry)
+            else:
+                res[name] = entry
+        out[b] = res
     report["k3"]["q1"] = out
 
 
 def _kernel_k4_inflight(report, seed):
     """K4 at the dense inflight window's shapes: 16 left-aligned rows of a
-    S=1024 cache, windows [0, L) with L 64-640.  Q=1 with bf16 q over an
-    int8 cache and bf16 scales (decode_step_inflight's int8 form), and Q=5
-    in bf16 (decode_step_spec at K=4: query j sees [0, L + j)).  Each held
-    against `decode_attention_chunk` on the same inputs (q in fp32) within
-    the bf16 row tolerance, positions past every window poisoned changing
-    nothing; one call under the sync debug mode; then the times of K4,
-    its plain version and SDPA (over the window dequantized to bf16 for
-    the int8 case), beside the bound (int8: one byte a K/V element plus
-    its row's bf16 scale)."""
+    S=1024 cache, windows [0, L) with L 64-640.  Q=1 and Q=5 with bf16 q
+    over an int8 cache and bf16 scales (decode_step_inflight's and
+    decode_step_spec's int8 forms), and Q=5 in bf16 (decode_step_spec at
+    K=4: query j sees [0, L + j)).  Each held against
+    `decode_attention_chunk` on the same inputs (q in fp32) within the
+    bf16 row tolerance, the int8 forms also within MODEL_TOL of the split
+    reference, positions past every window poisoned changing nothing;
+    one call under the sync debug mode; then the times of K4, its plain
+    version and SDPA (over the window dequantized to bf16 for the int8
+    forms), beside the bound (int8: one byte a K/V element plus its row's
+    bf16 scale)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1114,7 +1274,9 @@ def _kernel_k4_inflight(report, seed):
     k16, v16 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev).to(bf)
                 for _ in range(2))
     out = {}
+    span = da.split_plan(S)[0]
     for tag, nq, k, v, ksc, vsc in (("int8_q1", 1, k8, v8, ks, vs),
+                                    ("int8_q5", 5, k8, v8, ks, vs),
                                     ("q5", 5, k16, v16, None, None)):
         q = torch.from_numpy(rng.standard_normal((b, nq, n_q, d)).astype(np.float32)).to(dev)
         q = q.to(bf)
@@ -1127,6 +1289,12 @@ def _kernel_k4_inflight(report, seed):
         check(bool(torch.isfinite(got).all()), f"K4 {tag}: non-finite output")
         check(rel <= FLASH_ROW_TOL["bf16"], f"K4 {tag} disagrees with the plain version: "
               f"{rel:.3e}")
+        rel_m = None
+        if ksc is not None:  # the tensor-core int8 path against its model
+            rel_m = _model_err(got, da.decode_attention_chunk_split_reference(
+                q, k, v, vf, vt, ksc, vsc, span=span))
+            check(rel_m <= MODEL_TOL, f"K4 {tag} disagrees with the split reference: "
+                  f"{rel_m:.3e}")
         outside = ~_k4_windows(vf, vt, nq, S).any(1)  # [B, S]
         k_bad, v_bad = k.clone(), v.clone()
         k_bad[outside], v_bad[outside] = (127, 127) if k.dtype == torch.int8 else (1e4, 1e4)
@@ -1150,13 +1318,16 @@ def _kernel_k4_inflight(report, seed):
         bound_ms, bound_by = _k4_bound(np.zeros(b, np.int32), L, nq, S, n_q, n_kv, d, 2,
                                        kv_bytes=kv_bytes)
         log(f"[kernel] K4 {tag} B={b} Q={nq} S={S}: row_err={rel:.3e} (tolerance "
-            f"{FLASH_ROW_TOL['bf16']:.3e}) max_abs_err={err:.3e}; kernel_ms="
+            f"{FLASH_ROW_TOL['bf16']:.3e})"
+            + (f", against the split reference {rel_m:.3e} beyond the output's rounding "
+               f"(tolerance {MODEL_TOL:g})" if rel_m is not None else "")
+            + f" max_abs_err={err:.3e}; kernel_ms="
             f"{times['kernel_ms']:.4f} plain_ms={times['plain_ms']:.4f} library_ms="
             f"{times['library_ms']:.4f} (device, graph replays); eager calls kernel="
             f"{times['kernel_eager_ms']:.4f} plain={times['plain_eager_ms']:.4f} library="
             f"{times['library_eager_ms']:.4f}; bound_ms={bound_ms:.5f} ({bound_by})")
-        out[tag] = dict(row_err=rel, max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                        **times)
+        out[tag] = dict(row_err=rel, max_abs_err=err, model_err=rel_m, bound_ms=bound_ms,
+                        bound_by=bound_by, **times)
     report["k4"].update(out)
 
 
@@ -1227,6 +1398,30 @@ def _row_err(got, want):
     live = w[mag > 0]
     rms = float(live.square().mean().sqrt()) if live.numel() else 1.0
     return float((err / mag.clamp_min(rms)).max()), float(err.max())
+
+
+# The split kernels' bf16-q int8 forms against their model
+# (`split_window_attention`, fp32): the kernel's result before its one
+# rounding to bf16 within MODEL_TOL of the row's magnitude.
+MODEL_TOL = 1e-3
+
+
+def _model_err(got, model):
+    """Largest row error of a bf16 kernel output against its fp32 model
+    beyond the output's rounding: each element's |got - model| less half
+    a bf16 ulp of the larger of the two magnitudes, over the row's
+    largest |model| (rows under the output's RMS take the RMS, as in
+    _row_err)."""
+    import torch
+
+    g, w = got.detach().float(), model.detach().float()
+    _, exp = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    half_ulp = torch.ldexp(torch.ones_like(w), exp - 9)  # bf16: 8 significant bits
+    err = ((g - w).abs() - half_ulp).clamp_min(0).amax(-1)
+    mag = w.abs().amax(-1)
+    live = w[mag > 0]
+    rms = float(live.square().mean().sqrt()) if live.numel() else 1.0
+    return float((err / mag.clamp_min(rms)).max())
 
 
 def _hold_flash(tag, q, k, v, seg, do, row_tol):
@@ -2167,9 +2362,9 @@ PARITY_MODES = (
     ("dense window", dict(kv_paged=False), True, {}, "k4"),
     ("dense window int8", dict(kv_paged=False, kv_cache_dtype="int8"), True, {}, "k4"),
     ("dense spec K=4", dict(kv_paged=False), True, dict(spec_decode_k=4), "k4"),
-    ("two-program paged", dict(prefill_chunk_tokens=0), True, {}, "k3"),
+    ("two-program paged", dict(prefill_chunk_tokens=0), True, {}, "k2"),
     ("two-program paged int8", dict(prefill_chunk_tokens=0, kv_cache_dtype="int8"), True, {},
-     "k3"),
+     "k2"),
     ("serving spec K=4", {}, True, dict(spec_decode_k=4), "k2"),
 )
 
@@ -3743,8 +3938,8 @@ GENMODES = (
     ("dense", dict(kv_paged=False), {}, "k4"),
     ("dense_int8", dict(kv_paged=False, kv_cache_dtype="int8"), {}, "k4"),
     ("dense_spec", dict(kv_paged=False), dict(spec_decode_k=4), "k4"),
-    ("paged2", dict(prefill_chunk_tokens=0), {}, "k3"),
-    ("paged2_int8", dict(prefill_chunk_tokens=0, kv_cache_dtype="int8"), {}, "k3"),
+    ("paged2", dict(prefill_chunk_tokens=0), {}, "k2"),
+    ("paged2_int8", dict(prefill_chunk_tokens=0, kv_cache_dtype="int8"), {}, "k2"),
     ("serving_spec", {}, dict(spec_decode_k=4), "k2"),
 )
 # The decode-chunk getter of each mode's loop.
@@ -4099,8 +4294,8 @@ def phase_genmodes(report, seed):
     plane; then (e) one
     quickstart ppo-math step with --no-paged-kv --spec-decode-k 4
     --kv-cache-dtype int8.  Checked per mode: the replies, the launches
-    (K4 = 28 x decode steps in (a) and (b), K3 = 28 x decode steps in (c),
-    K2 = 28 x inner steps in (d), K1f = 28 x prefill dispatches, every
+    (K4 = 28 x decode steps in (a) and (b), K2 = 28 x decode steps in (c)
+    and 28 x inner steps in (d), K1f = 28 x prefill dispatches, every
     other kernel 0), no host sync inside a chunk; int8 against bf16 token
     agreement >= 0.85 teacher-forced along the bf16 run (`_teacher_forced`;
     the free-running count of tests/test_generator.py:316 is printed)."""
@@ -4201,6 +4396,17 @@ def _kernels_line(report):
         "library_ms": k.get("library_ms"),
         "library_eager_ms": k.get("library_eager_ms"),
     }]
+    k8 = k.get("bf16q_int8")
+    if k8:  # bf16 q over an int8 pool: the tensor-core int8 path
+        errs = k.get("max_abs_err", {})
+        kernels[-1].update({
+            "bf16q_int8_max_abs_err": errs.get("bf16q_int8"),
+            "bf16q_int8_row_err": errs.get("bf16q_int8_row"),
+            "bf16q_int8_model_err": errs.get("bf16q_int8_model"),
+            "bf16q_int8_ms": k8["kernel_ms"], "bf16q_int8_eager_ms": k8["kernel_eager_ms"],
+            "bf16q_int8_plain_ms": k8["plain_ms"], "bf16q_int8_library_ms": k8["library_ms"],
+            "bf16q_int8_bound_ms": k8["bound_ms"], "bf16q_int8_bound_by": k8["bound_by"],
+        })
     f = report.get("flash", {})
     train = report.get("train", {})
     launches = train.get("launches", {})
@@ -4273,14 +4479,33 @@ def _kernels_line(report):
         "library_ms": k3.get("library_ms"),
         "library_eager_ms": k3.get("library_eager_ms"),
     })
-    for b, q1 in k3.get("q1", {}).items():  # the Q=1 entry point (decode_step_paged)
+    c8 = k3.get("bf16q_int8")
+    if c8:  # the chunk form, bf16 q over an int8 pool, at the replay shape
         kernels[-1].update({
+            "bf16q_int8_row_err": c8["row_err"], "bf16q_int8_row_err_tiled": c8["row_err_tiled"],
+            "bf16q_int8_ms": c8["kernel_ms"], "bf16q_int8_eager_ms": c8["kernel_eager_ms"],
+            "bf16q_int8_plain_ms": c8["plain_ms"], "bf16q_int8_library_ms": c8["library_ms"],
+            "bf16q_int8_bound_ms": c8["bound_ms"], "bf16q_int8_bound_by": c8["bound_by"],
+        })
+    # The Q=1 entry point (decode_step_paged) runs K2's kernel: its
+    # numbers stand on this row, its launches on K2's.
+    for b, q1 in k3.get("q1", {}).items():
+        e8 = q1.get("bf16q_int8", {})
+        kernels[-1].update({
+            f"q1_b{b}_route": "ragged_paged_attention",
             f"q1_b{b}_max_abs_err": q1["max_abs_err"].get("bf16_q1"),
             f"q1_b{b}_row_err": q1["max_abs_err"].get("bf16_q1_row"),
             f"q1_b{b}_row_err_int8": q1["max_abs_err"].get("int8_q1_row"),
+            f"q1_b{b}_row_err_bf16q_int8": q1["max_abs_err"].get("bf16q_int8_q1_row"),
+            f"q1_b{b}_model_err_bf16q_int8": q1["max_abs_err"].get("bf16q_int8_q1_model"),
             f"q1_b{b}_ms": q1["kernel_ms"], f"q1_b{b}_eager_ms": q1["kernel_eager_ms"],
             f"q1_b{b}_plain_ms": q1["plain_ms"], f"q1_b{b}_library_ms": q1["library_ms"],
             f"q1_b{b}_bound_ms": q1["bound_ms"], f"q1_b{b}_bound_by": q1["bound_by"],
+            f"q1_b{b}_bf16q_int8_ms": e8.get("kernel_ms"),
+            f"q1_b{b}_bf16q_int8_eager_ms": e8.get("kernel_eager_ms"),
+            f"q1_b{b}_bf16q_int8_plain_ms": e8.get("plain_ms"),
+            f"q1_b{b}_bf16q_int8_library_ms": e8.get("library_ms"),
+            f"q1_b{b}_bf16q_int8_bound_ms": e8.get("bound_ms"),
         })
     k4 = report.get("k4", {})
     errs = k4.get("max_abs_err", {})
@@ -4300,6 +4525,12 @@ def _kernels_line(report):
         "max_abs_err_int8": errs.get("int8_decode"),
         "row_err_int8": errs.get("int8_decode_row"),
         "row_err_split": errs.get("bf16_decode_split_row"),
+        "row_err_bf16q_int8": _worst(v for key, v in errs.items()
+                                     if key.startswith("bf16q_int8_") and key.endswith("_row")
+                                     and not key.endswith("split_row")),
+        "model_err_bf16q_int8": _worst(v for key, v in errs.items()
+                                       if key.startswith("bf16q_int8_")
+                                       and key.endswith("_split_row")),
         "ms": k4.get("kernel_ms"),
         "eager_ms": k4.get("kernel_eager_ms"),
         "plain_ms": k4.get("plain_ms"),
@@ -4312,11 +4543,12 @@ def _kernels_line(report):
         "b64_library_ms": k4.get("b64", {}).get("library_ms"),
         "b64_bound_ms": k4.get("b64", {}).get("bound_ms"),
     })
-    for tag in ("int8_q1", "q5"):  # the dense inflight window's forms
+    for tag in ("int8_q1", "int8_q5", "q5"):  # the dense inflight window's forms
         f = k4.get(tag)
         if f:
             kernels[-1].update({
                 f"{tag}_max_abs_err": f["max_abs_err"], f"{tag}_row_err": f["row_err"],
+                f"{tag}_model_err": f["model_err"],
                 f"{tag}_ms": f["kernel_ms"], f"{tag}_eager_ms": f["kernel_eager_ms"],
                 f"{tag}_plain_ms": f["plain_ms"], f"{tag}_library_ms": f["library_ms"],
                 f"{tag}_bound_ms": f["bound_ms"], f"{tag}_bound_by": f["bound_by"],

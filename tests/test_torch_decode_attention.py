@@ -269,3 +269,81 @@ def test_split_plan_from_shapes_alone():
     assert da.split_plan(1280) == (256, 5)
     assert da.split_plan(256) == (256, 1)
     assert da.split_plan(257) == (256, 2)
+
+
+# --- bf16 q over an int8 cache: the tensor-core int8 path ------------------
+
+
+def _row_err(got, want):
+    """Largest per-row error relative to the row's largest |want| (rows
+    under the output's RMS take the RMS), as chip_smoke.py measures."""
+    err = np.abs(got - want).max(-1)
+    mag = np.abs(want).max(-1)
+    live = want[mag > 0]
+    rms = float(np.sqrt(np.mean(live**2))) if live.size else 1.0
+    return float((err / np.maximum(mag, rms)).max())
+
+
+def _bf16(a):
+    """The bf16 value of each element, held as fp32."""
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _split_bf16q(q, k, v, lo, hi, ks, vs, *, span):
+    bf = torch.bfloat16
+    return da.decode_attention_chunk_split_reference(
+        _t(q, bf), _t(k), _t(v), _t(lo), _t(hi), _t(ks, bf), _t(vs, bf), span=span,
+    ).numpy()
+
+
+@pytest.mark.parametrize("nq_tok", [1, 5])
+@pytest.mark.parametrize("span", [64, 50])
+def test_split_reference_bf16q_int8_matches_jax(rng, nq_tok, span):
+    """The model of the int8 tensor-core path (bf16 q, the scores scaled
+    by s_k, P' = bf16(P s_v), l over the unscaled P) against the Pallas
+    chunk kernel in interpret mode on an fp32 copy of the same bf16 q:
+    within the bf16 row tolerance 2^-7.  Windows end mid-span and on
+    span edges; rows 0 and 5 see nothing (exactly 0 on both sides)."""
+    s = 256
+    lo = np.array([200, 7, 3, 5, 0, 100, 31, 1], np.int32)
+    hi0 = np.array([40, 8, 70, 69, 256 - nq_tok, 100 - nq_tok, 150, 129], np.int32)
+    q, k, v, _, _ = _mk(rng, b=len(lo), s=s, nq_tok=nq_tok)
+    q = _bf16(q)
+    kq, ks = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(k)))
+    vq, vs = (np.asarray(x) for x in jax_kv_quant(jnp.asarray(v)))
+    ks, vs = ks.astype(np.float32), vs.astype(np.float32)
+    want = _jax(q, kq, vq, lo, hi0, ks, vs, chunk=True, block_k=64)
+    got = _split_bf16q(q, kq, vq, lo, hi0, ks, vs, span=span)
+    assert _row_err(got, want) <= 2**-7
+    empty = lo[:, None] >= hi0[:, None] + np.arange(nq_tok)[None, :]  # [B, Q]
+    assert empty[0].all() and empty[5].all()
+    assert (got[empty] == 0).all() and (want[empty] == 0).all()
+    assert (np.abs(got[~empty]).max(-1) > 0).all()
+
+
+def test_split_reference_int8_unit_scales_is_the_bf16_path(rng):
+    """With every scale 1, bf16 q over the int8 codes is the bf16 path on
+    the same values (int8 is exact in bf16): bit for bit."""
+    q, k, v, lo, hi = _edge_rows(rng)
+    k8 = rng.integers(-127, 128, k.shape).astype(np.int8)
+    v8 = rng.integers(-127, 128, v.shape).astype(np.int8)
+    ones = np.ones(k.shape[:3], np.float32)
+    bf = torch.bfloat16
+    want = da.decode_attention_chunk_split_reference(
+        _t(q, bf), _t(k8, bf), _t(v8, bf), _t(lo), _t(hi), span=64,
+    ).numpy()
+    np.testing.assert_array_equal(_split_bf16q(q, k8, v8, lo, hi, ones, ones, span=64), want)
+
+
+def test_split_reference_bf16q_int8_poison_outside_windows(rng):
+    """Codes and scales poisoned outside every window change nothing."""
+    q, k, v, lo, hi = _edge_rows(rng)
+    kq, ks = (np.asarray(x).copy() for x in jax_kv_quant(jnp.asarray(k)))
+    vq, vs = (np.asarray(x).copy() for x in jax_kv_quant(jnp.asarray(v)))
+    ks, vs = ks.astype(np.float32), vs.astype(np.float32)
+    base = _split_bf16q(q, kq, vq, lo, hi, ks, vs, span=64)
+    pos = np.arange(k.shape[1])
+    outside = (pos[None, :] < lo[:, None]) | (pos[None, :] >= hi[:, None])
+    kq[outside], vq[outside] = 127, 127
+    ks[outside], vs[outside] = 1e9, 1e9
+    np.testing.assert_array_equal(_split_bf16q(q, kq, vq, lo, hi, ks, vs, span=64), base)

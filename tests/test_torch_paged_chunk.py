@@ -15,6 +15,10 @@ runs it, against the JAX package on the CPU.
   output row within 2^-7 of its largest value: P is rounded to bf16);
   dead queries, an all-dead slot and a poisoned clamp-target page as
   above.
+- K3's Q=1 entry point (`paged_decode_attention_kernel`, which runs K2)
+  on the CPU against the Pallas `paged_decode_attention_kernel` in
+  interpret mode: sentinel pages, a parked slot, a window past the
+  table; fp32 at 2e-5, an int8 pool at 3e-4.
 - `decode_step_spec_paged` with q_lens against JAX's on one set of
   tiny_config weights and one pool: live-query logits at atol 1e-5, the
   real pool pages equal, the positions of dead queries untouched."""
@@ -30,7 +34,9 @@ from areal_tpu.models.config import tiny_config as jtiny
 from areal_tpu.ops.attention import decode_attention_chunk as jax_chunk
 from areal_tpu.ops.attention import paged_gather_layer as jax_gather
 from areal_tpu.ops.pallas.paged_attention import paged_decode_attention_chunk_kernel as jax_kernel
+from areal_tpu.ops.pallas.paged_attention import paged_decode_attention_kernel as jax_q1_kernel
 from areal_tpu_torch.kernels import paged_chunk_attention as pca
+from areal_tpu_torch.kernels import ragged_paged_attention as rpa
 from areal_tpu_torch.models import transformer as ttfm
 from areal_tpu_torch.models.config import tiny_config as ttiny
 from areal_tpu_torch.models.weights import params_from_numpy
@@ -158,6 +164,47 @@ def test_no_fallback_off_the_cpu(slots):
     q, k, v, pt, hi0, ql = (torch.from_numpy(np.array(a)).to("meta") for a in slots)
     with pytest.raises(ValueError, match="device"):
         pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_q1_entry_matches_jax_kernel(int8):
+    """K3's Q=1 entry point on the CPU (K2's plain version, which it runs)
+    against the JAX package's `paged_decode_attention_kernel` (the chunk
+    kernel at Q=1) in interpret mode: slot 0 on two pages then
+    sentinels, slot 1 parked (valid_to 0, a sentinel table), slot 2's
+    window past its table (bounded by it), slot 3 one position; fp32 at
+    2e-5, an int8 pool at 3e-4; the parked slot exactly 0 on both sides;
+    no launch counted."""
+    r = np.random.default_rng(7)
+    pt = np.full((4, MP), N_POOL, np.int32)
+    pt[0, :2] = (4, 9)
+    pt[2] = (0, 7, 3, 10)
+    pt[3, 0] = 2
+    vt = np.array([13, 0, 40, 1], np.int32)
+    q = r.standard_normal((4, 1, N_KV * REP, D)).astype(np.float32)
+    ks = vs = tks = tvs = None
+    if int8:
+        k = r.integers(-127, 128, (N_POOL, PS, N_KV, D)).astype(np.int8)
+        v = r.integers(-127, 128, (N_POOL, PS, N_KV, D)).astype(np.int8)
+        ks, vs = (jnp.asarray(np.abs(r.standard_normal((N_POOL, PS, N_KV))) * 0.02 + 0.01,
+                              jnp.bfloat16) for _ in range(2))
+        tks, tvs = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+                    for x in (ks, vs))
+    else:
+        k = r.standard_normal((N_POOL, PS, N_KV, D)).astype(np.float32)
+        v = r.standard_normal((N_POOL, PS, N_KV, D)).astype(np.float32)
+    want = np.asarray(jax_q1_kernel(*(jnp.asarray(a) for a in (q, k, v, pt, vt)), ks, vs))
+    k2_before, k3_before = rpa.LAUNCHES, pca.LAUNCHES
+    args = [torch.from_numpy(a) for a in (q, k, v, pt, vt)] + [tks, tvs]
+    got = pca.paged_decode_attention_kernel(*args).numpy()
+    tol = 3e-4 if int8 else 2e-5
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    assert (got[1] == 0).all() and (want[1] == 0).all()
+    assert (np.abs(got[[0, 2, 3]]).max(axis=(1, 2, 3)) > 0).all()
+    np.testing.assert_array_equal(
+        got[:, 0], rpa.ragged_paged_attention_reference(args[0][:, 0], *args[1:]).numpy()
+    )
+    assert (rpa.LAUNCHES, pca.LAUNCHES) == (k2_before, k3_before)
 
 
 # --------------------------------------------------------------------------

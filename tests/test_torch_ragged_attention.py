@@ -242,3 +242,82 @@ def test_split_plan_from_shapes_alone():
     assert rpa.split_plan(3, 8) == (32, 1)
     assert rpa.split_plan(17, 128) == (2, 9)
     assert rpa.split_plan(4, 512) == (1, 4)
+
+
+# --- bf16 q over an int8 pool: the tensor-core int8 path -------------------
+
+
+def _row_err(got, want):
+    """Largest per-row error relative to the row's largest |want| (rows
+    under the output's RMS take the RMS), as chip_smoke.py measures."""
+    err = np.abs(got - want).max(-1)
+    mag = np.abs(want).max(-1)
+    live = want[mag > 0]
+    rms = float(np.sqrt(np.mean(live**2))) if live.size else 1.0
+    return float((err / np.maximum(mag, rms)).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _long_case_bf16q():
+    """The long stream's int8 pool with q rounded to bf16, and the JAX
+    Pallas kernel's output on an fp32 copy of that q (computed once)."""
+    (q, k8, v8, pt, vt, ks, vs), _ = _long_case(True)
+    q = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+    jargs = [jnp.asarray(a) for a in (q, k8, v8, pt, vt)]
+    jargs += [jnp.asarray(ks, jnp.bfloat16), jnp.asarray(vs, jnp.bfloat16)]
+    return (q, k8, v8, pt, vt, ks, vs), np.asarray(jax_kernel(*jargs))
+
+
+@pytest.mark.parametrize("span", [16, 40, 256])
+def test_split_reference_bf16q_int8_matches_jax(span):
+    """The model of the int8 tensor-core path (bf16 q, scores scaled by
+    s_k, P' = bf16(P s_v), l over the unscaled P) against the Pallas
+    kernel in interpret mode on an fp32 copy of the same q: within the
+    bf16 row tolerance 2^-7, over windows past the table, of 0 and 1,
+    ending mid-page and mid-span; dead lanes exactly 0."""
+    (q, k8, v8, pt, vt, ks, vs), want = _long_case_bf16q()
+    bf = torch.bfloat16
+    got = rpa.ragged_paged_attention_split_reference(
+        torch.from_numpy(q).to(bf), *(torch.from_numpy(a) for a in (k8, v8, pt, vt)),
+        torch.from_numpy(ks).to(bf), torch.from_numpy(vs).to(bf), span=span,
+    ).numpy()
+    assert _row_err(got, want) <= 2**-7
+    assert (got[vt == 0] == 0).all() and (want[vt == 0] == 0).all()
+    assert (np.abs(got[vt > 0]).max(-1) > 0).all()
+
+
+def test_split_reference_bf16q_int8_sentinel_pages_add_no_mass(stream):
+    """bf16 q over an int8 pool: the sentinel-clamped last page, its codes
+    and scales poisoned, changes nothing; 8 sentinel pages more add
+    spans with no mass."""
+    q, _, _, pt, vt = stream
+    k8, v8, ks, vs = (a.copy() for a in _int8((N_POOL, PS, N_KV, D), 5))
+    bf = torch.bfloat16
+
+    def split(k8, v8, ks, vs, pt):
+        return rpa.ragged_paged_attention_split_reference(
+            torch.from_numpy(q).to(bf), *(torch.from_numpy(a) for a in (k8, v8, pt, vt)),
+            torch.from_numpy(ks).to(bf), torch.from_numpy(vs).to(bf), span=PS,
+        ).numpy()
+
+    base = split(k8, v8, ks, vs, pt)
+    k8[N_POOL - 1] = v8[N_POOL - 1] = 127
+    ks[N_POOL - 1] = vs[N_POOL - 1] = 1e9
+    wide = np.concatenate([pt, np.full((pt.shape[0], 8), N_POOL, np.int32)], axis=1)
+    np.testing.assert_array_equal(split(k8, v8, ks, vs, pt), base)
+    np.testing.assert_array_equal(split(k8, v8, ks, vs, wide), base)
+    assert float(np.abs(base[8:]).max()) == 0.0
+
+
+def test_split_plan_shortens_spans_of_small_grids():
+    """Given the (token, kv head) pairs, the span halves while the grid
+    would hold fewer than SPLIT_MIN_BLOCKS blocks: 16 one-token slots of a
+    6-page table of 128 (K3's Q=1 entry point) take one-page spans, 64
+    slots and the 96-lane stream keep two."""
+    assert rpa.SPLIT_MIN_BLOCKS == 132
+    assert rpa.split_plan(6, 128, 16 * 2) == (1, 6)
+    assert rpa.split_plan(6, 128, 64 * 2) == (2, 3)
+    assert rpa.split_plan(16, 128, 96 * 2) == (2, 8)
+    assert rpa.split_plan(6, 16, 8) == (1, 6)  # 16 pages of 16 halve to 1
+    assert rpa.split_plan(64, 16, 8) == (2, 32)  # 16 -> 8 -> 4 -> 2 pages
+    assert rpa.split_plan(3, 8) == rpa.split_plan(3, 8, 0) == (32, 1)
