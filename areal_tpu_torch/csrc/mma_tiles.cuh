@@ -1,7 +1,8 @@
 // Building blocks of the port's tensor-core attention kernels (sm_90a):
 // asynchronous global -> shared copies (cp.async), ldmatrix, the bf16
-// mma.sync.m16n8k16 product with fp32 accumulators, and the shared-memory
-// tile these read, with its 16-byte chunks XOR-swizzled by row.  Included
+// mma.sync.m16n8k16 product with fp32 accumulators, the shared-memory
+// tile these read, with its 16-byte chunks XOR-swizzled by row, and the
+// int8 cache's widening and scale copies.  Included
 // by split_kv_attention.cuh (K2, K4), paged_chunk_attention.cu (K3) and
 // flash_attention.cu (K1dkv).
 
@@ -120,6 +121,44 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// int8 -> fp32, exactly: byte k of a word whose bytes were biased by
+// 0x80 (x ^ 0x80 = x + 128) becomes the fp32 2^23 + x + 128 (one byte
+// permute), less 2^23 + 128.  Every int8 is exact in bf16 too (8-bit
+// significand), so the tensor-core paths widen int8 tiles this way.
+__device__ __forceinline__ float i8_float(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+}
+
+// The 16 (8) bytes at p as four (two) words, each biased for i8_float.
+__device__ __forceinline__ void lds_i8x16(const char* p, uint32_t* w) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  w[0] = u.x ^ 0x80808080u;
+  w[1] = u.y ^ 0x80808080u;
+  w[2] = u.z ^ 0x80808080u;
+  w[3] = u.w ^ 0x80808080u;
+}
+__device__ __forceinline__ void lds_i8x8(const char* p, uint32_t* w) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  w[0] = u.x ^ 0x80808080u;
+  w[1] = u.y ^ 0x80808080u;
+}
+
+// One bf16 scale of an int8 cache into shared memory, in the caller's
+// cp.async group: a scale is 2 bytes at an n_kv-strided, possibly odd,
+// element, which no cp.async can copy alone, so this copies the aligned
+// 4-byte word that holds it (inside the scales' allocation, whose
+// blocks are 4-byte multiples; zero-filled when !valid) and returns
+// whether the scale is the word's high half.  scale_of reads it back.
+__device__ __forceinline__ bool cp_async_scale(uint32_t dst, const __nv_bfloat16* src,
+                                               bool valid) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  cp_async4(dst, reinterpret_cast<const void*>(a & ~uintptr_t(3)), valid);
+  return (a & 2) != 0;
+}
+__device__ __forceinline__ float scale_of(uint32_t word, bool high) {
+  return __uint_as_float(high ? word & 0xffff0000u : word << 16);
 }
 
 // The row and chunk (added to a block's first row and first chunk) that

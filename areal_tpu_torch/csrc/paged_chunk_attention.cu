@@ -18,7 +18,11 @@
 // window, so the work is 4 * Q * rep * head_dim flops per
 // 2 * head_dim * elem_bytes of K/V — at Q = 32, rep = 6 about 190 flops
 // per bf16 byte, under the card's ~295 flops/byte ridge but close to it,
-// so the products have to run on the tensor cores.  The design:
+// so the products have to run on the tensor cores.  An int8 pool moves
+// one byte an element plus a bf16 scale a (position, kv head), about
+// half the K/V bytes, which doubles the flops a K/V byte: there the
+// products on the tensor cores and the widening of the codes are the
+// cost.  The design:
 //   * the rows of a (slot, kv head) are flattened across queries, as the
 //     Pallas kernel's qh layout has them: row r is query r / rep, head
 //     g * rep + r % rep.  A block takes 64 consecutive rows, one m16 tile
@@ -36,9 +40,24 @@
 //     mma.sync.m16n8k16 bf16 tiles with fp32 accumulators, fed by
 //     ldmatrix from XOR-swizzled tiles; the online softmax runs in the
 //     log2 domain (exp2f), and P goes to bf16 for P.V;
-//   * every other type pair (fp32 pools, int8 pools with bf16 scales,
-//     mixed q/pool types) takes the same rows, ring and walk with fp32
-//     CUDA-core products, so its tolerances hold;
+//   * bf16 q with an int8 pool (the resume replay of an int8 serving
+//     plane): the same blocks, walk and products; the ring holds int8
+//     tiles (half the bytes, the same 16-byte copies), and each tile's
+//     bf16 scales travel in its cp.async group (warp 0 copies the words
+//     holding s_k, warp 1 those holding s_v; a ballot marks which half).
+//     The four warps share each tile, so the block widens it once:
+//     every thread turns 8 codes into one 16-byte chunk of a swizzled
+//     bf16 tile (exact: an int8 fits bf16's significand), one more
+//     barrier a tile, and the bf16 ldmatrix walk reads it.  The
+//     scales stay in fp32 outside the products, as in split-KV: each
+//     score is multiplied by its position's s_k before the online max,
+//     l sums the unscaled P, and P.V takes P' = bf16(P * s_v).  Each
+//     warp widening the ring tile in registers instead (split-KV's walk)
+//     widens every element four times a block and measured slower
+//     (scripts/k3_int8_registers.py times that variant);
+//   * every other type pair (fp32 pools, fp32 q over int8, bf16 q over
+//     fp32) takes the same rows, ring and walk with fp32 CUDA-core
+//     products, so its tolerances hold;
 //   * each warp owns its rows for the whole window: no cross-warp merge
 //     and no split-KV (windows are <= ~700 positions on the replay path,
 //     and 384 blocks of 128 threads fill the 132 SMs).
@@ -65,19 +84,34 @@ constexpr int kMaxRep = 16;   // query heads per kv head
 
 template <typename QT, typename KT, int D>
 struct Plan {
+  static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   static constexpr bool kMma = std::is_same<QT, __nv_bfloat16>::value &&
-                               std::is_same<KT, __nv_bfloat16>::value;
-  using KV = Tile<KT, D, kMma, kPos>;
+                               (std::is_same<KT, __nv_bfloat16>::value || kQuant);
+  // int8 on the tensor cores: the block widens each ring tile into a
+  // bf16 tile that the bf16 walk reads.
+  static constexpr bool kWide = kMma && kQuant;
+  // Tensor-core ring tiles are swizzled where a row holds the 8 chunks
+  // the swizzle needs (all but int8 at head_dim 64, whose rows are padded).
+  using KV = Tile<KT, D, kMma && D * sizeof(KT) >= 128, kPos>;
+  using Wide = Tile<__nv_bfloat16, D, true, kPos>;  // a widened int8 tile
   using QTile = Tile<__nv_bfloat16, D, true, kRows>;  // tensor-core q rows
   // Shared memory: q rows (bf16 swizzled, or fp32 for the CUDA cores;
   // the tensor-core path stages its output there at the end), then
-  // (CUDA-core only) per-warp probabilities and rescales, then the ring.
+  // (CUDA-core only) per-warp probabilities and rescales, then the ring,
+  // then (kWide) the widened K and V tiles, then (int8 on the tensor
+  // cores) each stage's scale words: s_k of position j at [j], s_v at
+  // [kPos + j], then two masks whose bit j says that word j (kPos + j)
+  // holds its scale in its high half.
   static constexpr int kQBytes = kMma ? QTile::kBytes : kRows * D * 4;
   static constexpr int kPFloats = 16 * (kPos + 1) + 16;
   static constexpr int kPBytes = kMma ? 0 : kWarps * kPFloats * 4;
   static constexpr int kRingBytes = kStages * 2 * KV::kBytes;
-  static constexpr int kSmemBytes = kQBytes + kPBytes + kRingBytes;
+  static constexpr int kScaleWords = 2 * kPos + 2;
+  static constexpr int kScaleBytes = kMma && kQuant ? kStages * kScaleWords * 4 : 0;
+  static constexpr int kWideBytes = kWide ? 2 * Wide::kBytes : 0;
+  static constexpr int kSmemBytes = kQBytes + kPBytes + kRingBytes + kWideBytes + kScaleBytes;
   static_assert(kPos * KV::kChunks % kThreads == 0, "whole copies per thread");
+  static_assert(kPos == 32, "one lane a position in the scale copies");
 };
 
 // The ring walk: the first kStages - 1 tiles are requested up front;
@@ -122,7 +156,6 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     float scale) {
   using P = Plan<QT, KT, D>;
   using KV = typename P::KV;
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.x;
@@ -169,9 +202,12 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
   char* q_s = smem;
   float* p_s = reinterpret_cast<float*>(smem + P::kQBytes) + warp * P::kPFloats;
   char* ring = smem + P::kQBytes + P::kPBytes;
+  char* wide = ring + P::kRingBytes;
+  uint32_t* scales = reinterpret_cast<uint32_t*>(wide + P::kWideBytes);
   // Tile t into its ring stage: 16-byte chunks of whole position rows,
   // neighbouring threads on neighbouring chunks; positions at or past
-  // kv_end are zero-filled, never read.
+  // kv_end are zero-filled, never read.  int8 on the tensor cores: warp
+  // 0 copies the tile's s_k words (a lane a position), warp 1 its s_v.
   auto load = [&](int t) {
     char* kt = ring + (t % kStages) * 2 * KV::kBytes;
     char* vt = kt + KV::kBytes;
@@ -189,6 +225,18 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
       cp_async16(smem_u32(vt + KV::offset(j, c)),
                  reinterpret_cast<const char*>(v_pool + off) + c * 16, ok);
     }
+    if constexpr (P::kMma && P::kQuant) {
+      if (warp < 2) {
+        uint32_t* st = scales + (t % kStages) * P::kScaleWords;
+        const int pos = p0 + lane;
+        const bool ok = pos < kv_end;
+        const bool high = cp_async_scale(smem_u32(st + warp * kPos + lane),
+                                         (warp == 0 ? k_scale : v_scale) + (ok ? slot(pos) : 0),
+                                         ok);
+        const uint32_t mask = __ballot_sync(0xffffffffu, high);
+        if (lane == 0) st[2 * kPos + warp] = mask;
+      }
+    }
   };
   const int n_tiles = (kv_end + kPos - 1) / kPos;
   const float scale_log2 = scale * kLog2e;
@@ -198,6 +246,9 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 
   if constexpr (P::kMma) {
     using QTile = typename P::QTile;
+    using Wide = typename P::Wide;
+    // The tile the ldmatrix walk reads: the ring's (bf16) or the widened one.
+    using BT = typename std::conditional<P::kWide, Wide, KV>::type;
     const int g8 = lane >> 2;
     const int t4 = lane & 3;
     // q rows as a swizzled bf16 tile, padding rows 0.
@@ -212,7 +263,8 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     ring_prologue(n_tiles, load);
     cp_async_wait<kStages - 1>();  // the q group has landed
     __syncthreads();
-    uint32_t qa[D / 16][4];  // this warp's q fragments, every k16 step
+    // This warp's q fragments, every k16 step.
+    uint32_t qa[D / 16][4];
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       ldsm_x4(smem_u32(q_s + QTile::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))),
@@ -226,9 +278,34 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 
     ring_loop(n_tiles, load, [&](int t) {
       const int p0 = t * kPos;
-      if (p0 >= wlim) return;  // warp-uniform: no row of this warp sees the tile
       const char* kt = ring + (t % kStages) * 2 * KV::kBytes;
       const char* vt = kt + KV::kBytes;
+      if constexpr (P::kWide) {
+        // The block widens the tile once: each thread turns 8 int8 codes
+        // into one 16-byte bf16 chunk (exactly), K then V; one barrier
+        // publishes them.  The ring_loop barrier of the next tile keeps
+        // the widened tiles until every warp is done with them.
+        constexpr int kOut = 2 * kPos * Wide::kChunks;
+#pragma unroll
+        for (int e = 0; e < kOut / kThreads; ++e) {
+          const int i = e * kThreads + tid;
+          const int h = i / (kPos * Wide::kChunks);  // 0: K, 1: V
+          const int j = (i / Wide::kChunks) % kPos;
+          const int c = i % Wide::kChunks;
+          uint32_t w[2];
+          lds_i8x8((h ? vt : kt) + KV::offset(j, c / 2) + (c % 2) * 8, w);
+          uint4 x;
+          x.x = pack_bf16(i8_float(w[0], 0), i8_float(w[0], 1));
+          x.y = pack_bf16(i8_float(w[0], 2), i8_float(w[0], 3));
+          x.z = pack_bf16(i8_float(w[1], 0), i8_float(w[1], 1));
+          x.w = pack_bf16(i8_float(w[1], 2), i8_float(w[1], 3));
+          *reinterpret_cast<uint4*>(wide + h * Wide::kBytes + Wide::offset(j, c)) = x;
+        }
+        __syncthreads();
+        kt = wide;
+        vt = wide + Wide::kBytes;
+      }
+      if (p0 >= wlim) return;  // warp-uniform: no row of this warp sees the tile
       // S = Q K^T over the tile's kPos positions (n8 tiles of positions).
       float s[kPos / 8][4];
 #pragma unroll
@@ -238,9 +315,26 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 #pragma unroll
         for (int np = 0; np < kPos / 16; ++np) {
           uint32_t bb[4];
-          ldsm_x4(smem_u32(kt + KV::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
+          ldsm_x4(smem_u32(kt + BT::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
           mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
           mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+        }
+      }
+      // int8: this thread's positions' scales, s_k on the scores before
+      // the maximum, s_v on P after l has summed it.
+      float ksc[kPos / 8][2], vsc[kPos / 8][2];
+      if constexpr (P::kQuant) {
+        const uint32_t* st = scales + (t % kStages) * P::kScaleWords;
+        const uint32_t khigh = st[2 * kPos];
+        const uint32_t vhigh = st[2 * kPos + 1];
+#pragma unroll
+        for (int n = 0; n < kPos / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = n * 8 + 2 * t4 + e;
+            ksc[n][e] = scale_of(st[j], (khigh >> j) & 1);
+            vsc[n][e] = scale_of(st[kPos + j], (vhigh >> j) & 1);
+          }
         }
       }
       // Mask to each row's limit, then the online softmax (a row's
@@ -251,8 +345,9 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int pos = p0 + n * 8 + 2 * t4 + e;
-          s[n][e] = pos < lim0 ? s[n][e] * scale_log2 : kNegInf;
-          s[n][2 + e] = pos < lim1 ? s[n][2 + e] * scale_log2 : kNegInf;
+          const float sl = P::kQuant ? ksc[n][e] * scale_log2 : scale_log2;
+          s[n][e] = pos < lim0 ? s[n][e] * sl : kNegInf;
+          s[n][2 + e] = pos < lim1 ? s[n][2 + e] * sl : kNegInf;
           mx0 = fmaxf(mx0, s[n][e]);
           mx1 = fmaxf(mx1, s[n][2 + e]);
         }
@@ -282,6 +377,10 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
           s[n][2 + e] = live1 ? exp2f(s[n][2 + e] - mn1) : 0.f;
           l0 += s[n][e];
           l1 += s[n][2 + e];
+          if constexpr (P::kQuant) {  // P' = P * s_v, rounded to bf16 below
+            s[n][e] *= vsc[n][e];
+            s[n][2 + e] *= vsc[n][e];
+          }
         }
       }
 #pragma unroll
@@ -302,8 +401,8 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 #pragma unroll
         for (int nn = 0; nn < D / 16; ++nn) {
           uint32_t bb[4];
-          ldsm_x4_trans(smem_u32(vt + KV::offset(kp * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
-                        bb);
+          ldsm_x4_trans(
+              smem_u32(vt + BT::offset(kp * 16 + a_row(lane), nn * 2 + a_chunk(lane))), bb);
           mma_bf16(o[2 * nn], pa, bb[0], bb[1]);
           mma_bf16(o[2 * nn + 1], pa, bb[2], bb[3]);
         }
@@ -315,11 +414,11 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
       l0 += __shfl_xor_sync(0xffffffffu, l0, off);
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    // Normalise into this warp's own q rows (no other warp reads them
-    // any more), then 16-byte stores of whole rows.  A row that saw no
-    // position has o = 0: exact zeros.
+    // A row that saw no position has o = 0: exact zeros.
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    // Normalise into this warp's own q rows (no other warp reads them
+    // any more), then 16-byte stores of whole rows.
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) {
       const int r = warp * 16 + g8;
@@ -367,7 +466,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
       const char* vt = kt + KV::kBytes;
       const int pos = p0 + lane;
       float ksc = 1.f, vsc = 1.f;
-      if constexpr (kQuant) {  // int8: dequantize with the bf16 scales in fp32
+      if constexpr (P::kQuant) {  // int8: dequantize with the bf16 scales in fp32
         const bool ok = pos < kv_end;
         const size_t sl = ok ? slot(pos) : 0;
         ksc = ok ? __bfloat162float(k_scale[sl]) : 0.f;
@@ -490,7 +589,8 @@ extern "C" int paged_chunk_attention_launch(
     const void* k_scale, const void* v_scale, const void* page_table,
     const void* valid_to0, const void* q_lens, void* out, int B, int nq_tok,
     int n_q, int n_kv, int head_dim, int n_pool, int page_size,
-    int max_pages, int q_dtype, int kv_dtype, float scale, void* stream) {
+    int max_pages, int q_dtype, int kv_dtype, float scale,
+    void* stream) {
   if (B == 0 || nq_tok == 0) return 0;
   if (n_kv <= 0 || n_q % n_kv != 0 || n_q / n_kv > kMaxRep ||
       n_pool <= 0 || page_size <= 0 || max_pages <= 0 ||

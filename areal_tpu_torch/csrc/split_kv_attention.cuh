@@ -95,27 +95,6 @@ struct Plan {
   static constexpr int kSmemBytes = kQBytes + kPBytes + kSpanBytes + kScaleBytes;
 };
 
-// int8 -> fp32, exactly: byte k of a word whose bytes were biased by
-// 0x80 (x ^ 0x80 = x + 128) becomes the fp32 2^23 + x + 128 (one byte
-// permute), less 2^23 + 128.
-__device__ __forceinline__ float i8_float(uint32_t biased, int k) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | k)) - 8388736.f;
-}
-
-// The 16 bytes at p as four words, each biased for i8_float.
-__device__ __forceinline__ void lds_i8x16(const char* p, uint32_t* w) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  w[0] = u.x ^ 0x80808080u;
-  w[1] = u.y ^ 0x80808080u;
-  w[2] = u.z ^ 0x80808080u;
-  w[3] = u.w ^ 0x80808080u;
-}
-__device__ __forceinline__ void lds_i8x8(const char* p, uint32_t* w) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  w[0] = u.x ^ 0x80808080u;
-  w[1] = u.y ^ 0x80808080u;
-}
-
 // Merge area (floats), laid over the rings once every warp is done:
 // o [kWarps][kRows][kStride], m, l and rescale factors [kWarps][kRows],
 // l [kRows].  The padded rows keep a warp's float2 stores of its mma
@@ -225,9 +204,8 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
           const int j = n * 8 + 2 * t4 + e;
           const uint32_t kword = st[j];
           const uint32_t vword = st[kTile + j];
-          ksc[n][e] = __uint_as_float((high >> j) & 1 ? kword & 0xffff0000u : kword << 16);
-          vsc[n][e] = __uint_as_float((high >> (kTile + j)) & 1 ? vword & 0xffff0000u
-                                                                : vword << 16);
+          ksc[n][e] = scale_of(kword, (high >> j) & 1);
+          vsc[n][e] = scale_of(vword, (high >> (kTile + j)) & 1);
         }
       }
     } else {
@@ -573,18 +551,16 @@ __device__ __forceinline__ void attend_span(
                  reinterpret_cast<const char*>(v + off) + c * 16, ok);
     }
     if constexpr (P::kMma && P::kQuant) {
-      // The tile's scales: lane l copies the aligned word holding position
-      // l % 16's s_k (l < 16) or s_v (l >= 16), 0 past `end`; the word
-      // lies inside the scales' allocation, whose blocks are 4-byte
-      // multiples.  The ballot says which half holds each scale.
+      // The tile's scales: lane l copies the word holding position
+      // l % 16's s_k (l < 16) or s_v (l >= 16), 0 past `end`
+      // (cp_async_scale); the ballot says which half holds each scale.
       uint32_t* st = scale_stage(it);
       const int pos = p0 + (lane & 15);
       const bool ok = pos < end;
-      const uintptr_t a = reinterpret_cast<uintptr_t>(
-          (lane < kTile ? k_scale : v_scale) + (ok ? slot(pos) : 0));
-      cp_async4(smem_u32(st + lane), reinterpret_cast<const void*>(a & ~uintptr_t(3)), ok);
-      const uint32_t high = __ballot_sync(0xffffffffu, (a & 2) != 0);
-      if (lane == 0) st[2 * kTile] = high;
+      const bool high = cp_async_scale(
+          smem_u32(st + lane), (lane < kTile ? k_scale : v_scale) + (ok ? slot(pos) : 0), ok);
+      const uint32_t mask = __ballot_sync(0xffffffffu, high);
+      if (lane == 0) st[2 * kTile] = mask;
     }
   };
   Merge<D> mg(ring);

@@ -93,20 +93,29 @@ def paged_chunk_attention_tiled_reference(
     q_lens, none otherwise.  Scores are in the log2 domain, and the
     window is walked in tiles of TILE_POSITIONS from 0 with an online
     softmax: m = the running maximum, l = l * 2^(m_old - m) + sum(p),
-    o = o * 2^(m_old - m) + P.V.  P goes to bf16 before P.V when q and
-    the pool are both bf16 (the tensor-core path); every other type pair
+    o = o * 2^(m_old - m) + P.V.  On the tensor-core paths P goes to
+    bf16 before P.V: bf16 q over a bf16 pool, and bf16 q over an int8
+    pool, where K and V stay integer codes (exact in bf16), each score is
+    multiplied by its position's s_k before the maximum, l sums the
+    unscaled P and P.V takes P' = bf16(P * s_v).  Every other type pair
     stays in fp32, with int8 pools dequantized by their scales.  A row
     that sees no position gives exact zeros.  Returns fp32 [B, Q, n_q, d]:
     the kernel's output before it is rounded to q's dtype."""
     b, nq_tok, n_q, d = q.shape
     n_kv = k_pool.shape[2]
     rep = n_q // n_kv
-    bf16_path = q.dtype == torch.bfloat16 and k_pool.dtype == torch.bfloat16
+    bf16_path = q.dtype == torch.bfloat16 and k_pool.dtype in (torch.bfloat16, torch.int8)
     kc = paged_gather_layer(k_pool, page_table).float()  # [B, S, n_kv, d]
     vc = paged_gather_layer(v_pool, page_table).float()
+    ks = vs = None  # [B, n_kv, 1, S]: the scales the tensor-core walk applies
     if k_scale is not None:
-        kc = kc * paged_gather_layer(k_scale, page_table).float()[..., None]
-        vc = vc * paged_gather_layer(v_scale, page_table).float()[..., None]
+        ksg = paged_gather_layer(k_scale, page_table).float()  # [B, S, n_kv]
+        vsg = paged_gather_layer(v_scale, page_table).float()
+        if bf16_path:
+            ks, vs = (x.permute(0, 2, 1)[:, :, None, :] for x in (ksg, vsg))
+        else:
+            kc = kc * ksg[..., None]
+            vc = vc * vsg[..., None]
     s_len = kc.shape[1]
     qf = q.float().reshape(b, nq_tok, n_kv, rep, d).permute(0, 2, 1, 3, 4)
     qf = qf.reshape(b, n_kv, nq_tok * rep, d)
@@ -116,7 +125,9 @@ def paged_chunk_attention_tiled_reference(
         (valid_to0.long()[:, None] + qi[None, :]).clamp(0, s_len),
         0,
     )  # [B, R]
-    scores = torch.einsum("bgrd,bsgd->bgrs", qf, kc) * (d**-0.5 * math.log2(math.e))
+    scale_log2 = d**-0.5 * math.log2(math.e)
+    scores = torch.einsum("bgrd,bsgd->bgrs", qf, kc)
+    scores = scores * (scale_log2 if ks is None else ks * scale_log2)
     seen = torch.arange(s_len, device=q.device)[None, None, :] < lim[:, None, :, None]
     neg = torch.tensor(-1e30, device=q.device)
     m = torch.full(qf.shape[:3], -1e30, device=q.device)
@@ -129,6 +140,8 @@ def paged_chunk_attention_tiled_reference(
         alpha = torch.exp2(m - m_new)
         p = torch.where((m_new > -1e30)[..., None], torch.exp2(s - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(-1)
+        if vs is not None:
+            p = p * vs[..., t0 : t0 + tile]
         if bf16_path:
             p = p.to(torch.bfloat16).float()
         o = o * alpha[..., None] + torch.einsum("bgrs,bsgd->bgrd", p, vc[:, t0 : t0 + tile])

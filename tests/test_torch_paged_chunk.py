@@ -14,7 +14,10 @@ runs it, against the JAX package on the CPU.
   edges, at Q=13 and Q=1, fp32 (2e-5), int8 (3e-5) and bf16 inputs (each
   output row within 2^-7 of its largest value: P is rounded to bf16);
   dead queries, an all-dead slot and a poisoned clamp-target page as
-  above.
+  above.  bf16 q over an int8 pool (the replay's tensor-core walk: codes
+  in the products, s_k on the scores, P' = bf16(P * s_v), l over the
+  unscaled P) against the Pallas kernel and the plain version at 2^-7,
+  and apart from the fp32 walk (it rounds P').
 - K3's Q=1 entry point (`paged_decode_attention_kernel`, which runs K2)
   on the CPU against the Pallas `paged_decode_attention_kernel` in
   interpret mode: sentinel pages, a parked slot, a window past the
@@ -234,7 +237,9 @@ def _edge_slots(rng, nq_tok, dtype):
         used += n
     q = rng.standard_normal((6, nq_tok, E_NQ, E_D)).astype(np.float32)
     shape = (E_POOL, E_PS, E_NKV, E_D)
-    if dtype == "int8":
+    if dtype == "bf16q_int8":  # bf16 q values, held as fp32 for the Pallas kernel
+        q = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+    if dtype in ("int8", "bf16q_int8"):
         k = rng.integers(-127, 128, shape).astype(np.int8)
         v = rng.integers(-127, 128, shape).astype(np.int8)
         ks = (np.abs(rng.standard_normal(shape[:3])) * 0.02 + 0.01).astype(np.float32)
@@ -250,11 +255,12 @@ def _edge_slots(rng, nq_tok, dtype):
 
 
 def _tiled(q, k, v, pt, hi0, ql, ks, vs, dtype):
-    cast = (lambda x: torch.from_numpy(x).to(torch.bfloat16)) if dtype == "bf16" else torch.from_numpy
-    scale = (lambda x: None if x is None else torch.from_numpy(x).to(torch.bfloat16))
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    cast = bf if dtype == "bf16" else torch.from_numpy
+    scale = (lambda x: None if x is None else bf(x))
     return pca.paged_chunk_attention_tiled_reference(
-        cast(q), cast(k), cast(v), *(torch.from_numpy(a) for a in (pt, hi0, ql)),
-        scale(ks), scale(vs),
+        bf(q) if dtype == "bf16q_int8" else cast(q), cast(k), cast(v),
+        *(torch.from_numpy(a) for a in (pt, hi0, ql)), scale(ks), scale(vs),
     ).numpy()
 
 
@@ -269,7 +275,7 @@ def _row_err(got, want):
 
 
 @pytest.mark.parametrize("nq_tok", [13, 1])
-@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8", "bf16q_int8"])
 def test_tiled_reference_matches_jax_kernel(rng, dtype, nq_tok):
     q, k, v, pt, hi0, ql, ks, vs = _edge_slots(rng, nq_tok, dtype)
     got = _tiled(q, k, v, pt, hi0, ql, ks, vs, dtype)
@@ -278,14 +284,16 @@ def test_tiled_reference_matches_jax_kernel(rng, dtype, nq_tok):
         *(jnp.asarray(a) for a in (q, k, v, pt, hi0)), jscale(ks), jscale(vs),
         q_lens=jnp.asarray(ql),
     ))
-    if dtype == "bf16":
+    if dtype in ("bf16", "bf16q_int8"):
+        # P (bf16 q over int8: P' = P * s_v) is rounded to bf16, the Pallas
+        # kernel's stays fp32
         assert _row_err(got, want) <= 2**-7
     else:
         tol = 3e-5 if dtype == "int8" else 2e-5
         np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8", "bf16q_int8"])
 def test_tiled_reference_zeros_and_poison(rng, dtype):
     """Dead queries and the all-dead slot are exactly 0; live rows are
     not; filling the clamp-target page with huge values changes
@@ -296,9 +304,36 @@ def test_tiled_reference_zeros_and_poison(rng, dtype):
     assert float(np.abs(out[~live]).max()) == 0.0
     assert (np.abs(out[live]).max(-1) > 0).all()
     k_bad, v_bad = k.copy(), v.copy()
-    k_bad[E_POOL - 1] = 127 if dtype == "int8" else 1e9
-    v_bad[E_POOL - 1] = 127 if dtype == "int8" else 1e9
+    k_bad[E_POOL - 1] = 127 if k.dtype == np.int8 else 1e9
+    v_bad[E_POOL - 1] = 127 if k.dtype == np.int8 else 1e9
     np.testing.assert_array_equal(out, _tiled(q, k_bad, v_bad, pt, hi0, ql, ks, vs, dtype))
+
+
+@pytest.mark.parametrize("nq_tok", [13, 1])
+def test_tiled_reference_bf16q_int8_matches_plain(rng, nq_tok):
+    """The model of bf16 q over an int8 pool (the replay's tensor-core
+    walk) against the plain version on an fp32 copy of q, each output row
+    within 2^-7 of its largest value (chip_smoke's bf16 row tolerance: P'
+    is rounded to bf16); dead rows exactly 0 on both."""
+    q, k, v, pt, hi0, ql, ks, vs = _edge_slots(rng, nq_tok, "bf16q_int8")
+    got = _tiled(q, k, v, pt, hi0, ql, ks, vs, "bf16q_int8")
+    want = _port(q, k, v, pt, hi0, ql, ks, vs)
+    assert _row_err(got, want) <= 2**-7
+    dead = np.arange(nq_tok)[None, :] >= ql[:, None]
+    assert float(np.abs(got[dead]).max(initial=0.0)) == 0.0
+    assert float(np.abs(want[dead]).max(initial=0.0)) == 0.0
+
+
+def test_tiled_reference_bf16q_int8_rounds_p(rng):
+    """The int8 tensor-core walk rounds P' = P * s_v to bf16: its model
+    differs from the fp32 walk over the same bf16 q values and codes (fp32
+    q over the int8 pool, which the kernel computes on the CUDA cores),
+    by more than fp32 rounding and within the bf16 row tolerance."""
+    q, k, v, pt, hi0, ql, ks, vs = _edge_slots(rng, 13, "bf16q_int8")
+    tc = _tiled(q, k, v, pt, hi0, ql, ks, vs, "bf16q_int8")
+    fp = _tiled(q, k, v, pt, hi0, ql, ks, vs, "int8")
+    err = _row_err(tc, fp)
+    assert 1e-4 < err <= 2**-7
 
 
 # --------------------------------------------------------------------------
