@@ -1,9 +1,14 @@
 """Model/algorithm API (port of areal_tpu/api/model_api.py): generation
 request/config dataclasses with the JAX package's fields and wire names,
+`SlotGoneError`, the stdlib-HTTP `LLMAPIClient` of a generation server,
 the optimizer and finetune specs, the `Model` bundle, and the
 `ModelInterface` registry."""
 
 import dataclasses
+import json
+import os
+import urllib.error
+import urllib.request
 from typing import Any, Dict, Optional
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
@@ -21,7 +26,7 @@ class GenerationHyperparameters:
     top_p: float = 1.0
     top_k: int = 0  # 0 = disabled
     temperature: float = 1.0
-    # Speculative decoding: not yet ported (the engine raises for k > 0).
+    # Speculative decoding: K n-gram drafts a step, verified exactly.
     spec_decode_k: int = 0
     spec_ngram: int = 3
     # Stop sequences: tuple of token-id tuples; a row whose tail matches
@@ -34,6 +39,21 @@ class GenerationHyperparameters:
 
     def new(self, **kwargs):
         return dataclasses.replace(self, **kwargs)
+
+
+class SlotGoneError(RuntimeError):
+    """An episode continuation targeted a slot the serving side no longer
+    holds (evicted under pool pressure, released, or the server
+    restarted).  Typed, not a silent fresh admission, so the episode
+    controller recovers deliberately: it re-admits the full
+    conversation, which the prefix cache turns into a tail prefill.
+    Raised by the engine; clients rebuild it from the server's
+    ``{"error_type": "slot_gone"}`` reply (HTTP 409)."""
+
+    def __init__(self, episode_id: str, reason: str = "unknown"):
+        super().__init__(f"episode {episode_id!r}: slot gone ({reason})")
+        self.episode_id = episode_id
+        self.reason = reason
 
 
 @dataclasses.dataclass
@@ -74,6 +94,126 @@ class APIGenerateOutput:
     @property
     def output_lens(self) -> list:
         return [len(x) for x in self.output_ids]
+
+
+class LLMAPIClient:
+    """Client of a GenerationServer over HTTP (standard library only),
+    speaking the JAX package's wire format: `generate`, `pause`,
+    `resume`, `health` and the agent episode ops.
+
+        client = LLMAPIClient("http://127.0.0.1:8091")
+        out = client.generate(APIGenerateInput(qid="q", prompt_ids=[1, 2],
+                                               gconfig=GenerationHyperparameters()))
+        turn = client.episode_start("ep0", prompt_ids, gconfig, token_budget=2048)
+    """
+
+    def __init__(self, url: str, timeout_s: float = 7200.0, token: str = ""):
+        self.url = url.rstrip("/")
+        self.timeout_s = timeout_s
+        self.token = token or os.environ.get("AREAL_GEN_TOKEN", "")
+
+    def _post(self, path: str, payload: Dict, trace_id: Optional[str] = None) -> Dict:
+        headers = {"Content-Type": "application/json"}
+        if self.token:
+            headers["X-Areal-Token"] = self.token
+        if trace_id:
+            headers["X-Areal-Trace"] = trace_id
+        req = urllib.request.Request(
+            self.url + path, data=json.dumps(payload).encode(), headers=headers
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
+                out = json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            # The server's error body ({"error": ...}, or the typed
+            # slot_gone payload) says more than the status line.
+            try:
+                body = json.loads(e.read())
+            except Exception:  # noqa: BLE001 — no JSON body
+                body = {}
+            if body.get("error_type") == "slot_gone":
+                raise SlotGoneError(
+                    str(body.get("episode_id", "")), str(body.get("reason", "unknown"))
+                ) from e
+            raise RuntimeError(
+                f"generation server {path} failed: HTTP {e.code} {body.get('error', '')}"
+            ) from e
+        if "error" in out:
+            raise RuntimeError(f"generation server error: {out['error']}")
+        return out
+
+    def health(self) -> Dict:
+        with urllib.request.urlopen(self.url + "/health", timeout=30.0) as r:
+            return json.loads(r.read())
+
+    def generate(self, inp: APIGenerateInput) -> APIGenerateOutput:
+        g = inp.gconfig
+        out = self._post(
+            "/generate",
+            {
+                "qid": inp.qid,
+                "prompt_ids": [int(t) for t in inp.prompt_ids],
+                "n": g.n,
+                "max_new_tokens": g.max_new_tokens,
+                "min_new_tokens": g.min_new_tokens,
+                "greedy": g.greedy,
+                "top_p": g.top_p,
+                "top_k": g.top_k,
+                "temperature": g.temperature,
+                "spec_decode_k": g.spec_decode_k,
+                "spec_ngram": g.spec_ngram,
+                "stop": [list(s) for s in g.stop],
+                "seed": inp.seed,
+            },
+            trace_id=inp.trace_id,
+        )
+        return APIGenerateOutput(
+            qid=inp.qid,
+            prompt_ids=list(inp.prompt_ids),
+            output_ids=out["output_ids"],
+            output_logprobs=out["output_logprobs"],
+            no_eos=out["no_eos"],
+            version=int(out.get("version", 0)),
+            version_start=int(out.get("version_start", out.get("version", 0))),
+        )
+
+    def pause(self) -> Dict:
+        """Park in-flight decoding at the next chunk boundary."""
+        return self._post("/pause", {})
+
+    def resume(self) -> Dict:
+        return self._post("/resume", {})
+
+    # Agent episodes: multi-turn tool use on the server's parked KV
+    # pages.  episode_extend raises SlotGoneError when the server
+    # reclaimed the episode's slot; the controller then starts the full
+    # conversation again.
+
+    def episode_start(
+        self, episode_id: str, prompt_ids, gconfig: GenerationHyperparameters,
+        token_budget: int = 0, seed: int = 0, trace_id: Optional[str] = None,
+    ) -> Dict:
+        return self._post(
+            "/episode",
+            {
+                "op": "start",
+                "episode_id": episode_id,
+                "prompt_ids": [int(t) for t in prompt_ids],
+                "gconfig": dataclasses.asdict(gconfig),
+                "token_budget": int(token_budget),
+                "seed": int(seed),
+            },
+            trace_id=trace_id,
+        )
+
+    def episode_extend(self, episode_id: str, obs_ids) -> Dict:
+        return self._post(
+            "/episode",
+            {"op": "extend", "episode_id": episode_id, "obs_ids": [int(t) for t in obs_ids]},
+        )
+
+    def episode_release(self, episode_id: str) -> Dict:
+        return self._post("/episode", {"op": "release", "episode_id": episode_id})
 
 
 @dataclasses.dataclass

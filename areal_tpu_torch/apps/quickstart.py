@@ -65,9 +65,6 @@ _UNPORTED_FLAGS = {
     "overlap_window": "item 6 (the streamed train API)",
     "pipeline_chunk_seqs": "item 6 (the streamed train API)",
     "anomaly_kl_max": "item 6 (the batch sentinels)",
-    "episode_max_turns": "item 5.4 (agent episodes)",
-    "episode_token_budget": "item 5.4 (agent episodes)",
-    "tool_timeout_s": "item 5.4 (agent episodes)",
     "verifier_pool": "item 7 (the verifier fleet)",
     "mixture_weight": "item 7 (task mixtures)",
     "mixture_adaptive": "item 7 (task mixtures)",
@@ -179,9 +176,13 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--overlap-window", type=int, default=2, help="not yet ported")
     pp.add_argument("--pipeline-chunk-seqs", type=int, default=1, help="not yet ported")
     pp.add_argument("--anomaly-kl-max", type=float, default=None, help="not yet ported")
-    pp.add_argument("--episode-max-turns", type=int, default=0, help="not yet ported")
-    pp.add_argument("--episode-token-budget", type=int, default=0, help="not yet ported")
-    pp.add_argument("--tool-timeout-s", type=float, default=10.0, help="not yet ported")
+    pp.add_argument("--episode-max-turns", type=int, default=0,
+                    help="agent episodes: max assistant turns (carried to the config; the "
+                         "in-process trial runs single-shot rollouts, as the JAX CLI does)")
+    pp.add_argument("--episode-token-budget", type=int, default=0,
+                    help="agent episodes: transcript token cap per episode (0 = engine default)")
+    pp.add_argument("--tool-timeout-s", type=float, default=10.0,
+                    help="agent episodes: wall-clock bound on each tool call")
     pp.add_argument("--reward-backend", default="",
                     help="force one reward backend (only 'math' grading is ported)")
     pp.add_argument("--verifier-pool", action="store_true", help="not yet ported")
@@ -313,6 +314,9 @@ def cmd_ppo_math(args, device=None):
         fileroot=args.fileroot,
         max_recoveries=args.max_recoveries,
         max_consecutive_quarantines=args.max_consecutive_quarantines,
+        episode_max_turns=args.episode_max_turns,
+        episode_token_budget=args.episode_token_budget,
+        tool_timeout_s=args.tool_timeout_s,
     )
     plan = exps.build_ppo_math(cfg)
     for wc in plan.worker_configs:

@@ -1,0 +1,189 @@
+"""Fault injection at named points (a trimmed port of
+areal_tpu/base/faults.py): the spec grammar, `FaultInjector.parse`,
+`from_env` and `fire`.
+
+    AREAL_FAULTS="error@point=tool:calculator&times=1"  # break one tool call
+    AREAL_FAULTS="slow@ms=50&p=0.5, error@p=0.05"       # combined
+
+Grammar (commas or whitespace separate faults; ``&`` separates params)::
+
+    FAULT := KIND ["@" PARAM ("&" PARAM)*]      PARAM := KEY "=" VALUE
+    KIND  := kill | hang | slow | error | nan | corrupt_push
+
+Params: ``t`` (arm delay: seconds, or with an ``s``/``ms`` suffix),
+``p`` (per-call probability), ``ms`` (the latency of ``slow``),
+``point`` (one injection point; default all), ``skip`` (ignore the
+first N matching calls), ``times`` (fire at most N times, 0 =
+unlimited).  At a ``fire(point)`` call ``slow`` sleeps, ``error`` raises
+:class:`FaultError` and ``hang`` blocks until :meth:`release` or its
+cap.  The passive kinds (``kill``, ``nan``, ``corrupt_push``) parse but
+never fire here: their host-side checks (`kill_point`, `kill_due`,
+`poison`) come with ROADMAP queue 1 item 7.  The probability stream is
+seeded from ``AREAL_FAULTS_SEED`` (default 0).
+"""
+
+import dataclasses
+import logging
+import os
+import random
+import re
+import threading
+import time
+from typing import List, Optional, Sequence
+
+logger = logging.getLogger("areal_tpu_torch.faults")
+
+KINDS = ("kill", "hang", "slow", "error", "nan", "corrupt_push")
+PASSIVE_KINDS = ("kill", "nan", "corrupt_push")
+POISON_KINDS = ("nan", "corrupt_push")
+ENV_SPEC = "AREAL_FAULTS"
+ENV_SEED = "AREAL_FAULTS_SEED"
+
+
+class FaultError(RuntimeError):
+    """Raised at an injection point by an ``error`` fault (and by a
+    ``hang`` that was released or hit its cap)."""
+
+
+_DURATION_RE = re.compile(r"^(?P<num>[0-9]*\.?[0-9]+)(?P<unit>ms|s)?$")
+
+
+def _parse_duration_s(text: str) -> float:
+    m = _DURATION_RE.match(text.strip())
+    if not m:
+        raise ValueError(f"unparseable duration {text!r} (want e.g. 5s, 500ms, 2.5)")
+    v = float(m.group("num"))
+    return v / 1000.0 if m.group("unit") == "ms" else v
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    kind: str
+    arm_after_s: float = 0.0
+    prob: float = 1.0
+    latency_s: float = 0.0
+    point: str = ""
+    skip: int = 0
+    times: int = 0
+
+    def matches(self, point: str, elapsed_s: float) -> bool:
+        if elapsed_s < self.arm_after_s:
+            return False
+        return not self.point or self.point == point
+
+
+def parse_faults(text: str) -> List[FaultSpec]:
+    """Parse a fault spec, validating every clause up front: an error
+    names the clause at fault."""
+    specs: List[FaultSpec] = []
+    for raw in re.split(r"[,\s]+", text.strip()):
+        if not raw:
+            continue
+        kind, _, params = raw.partition("@")
+        if kind not in KINDS:
+            raise ValueError(f"bad fault clause {raw!r}: unknown kind {kind!r} (one of {KINDS})")
+        kw = dict(kind=kind)
+        for param in params.split("&") if params else ():
+            key, sep, val = param.partition("=")
+            if not sep:
+                raise ValueError(
+                    f"bad fault clause {raw!r}: malformed param {param!r} (want KEY=VALUE)"
+                )
+            try:
+                if key == "t":
+                    kw["arm_after_s"] = _parse_duration_s(val)
+                elif key == "p":
+                    kw["prob"] = float(val)
+                    if not 0.0 <= kw["prob"] <= 1.0:
+                        raise ValueError(f"probability {val!r} out of [0, 1]")
+                elif key == "ms":
+                    kw["latency_s"] = float(val) / 1000.0
+                elif key == "point":
+                    kw["point"] = val
+                elif key in ("skip", "times"):
+                    kw[key] = int(val)
+                    if kw[key] < 0:
+                        raise ValueError(f"{key} must be >= 0, got {val!r}")
+                else:
+                    raise ValueError(
+                        f"unknown param {key!r} (one of t, p, ms, point, skip, times)"
+                    )
+            except ValueError as e:
+                if raw in str(e):
+                    raise
+                raise ValueError(f"bad fault clause {raw!r}: {e}") from None
+        if kind != "slow" and kw.get("latency_s"):
+            raise ValueError(f"bad fault clause {raw!r}: ms= only applies to slow")
+        if kind in POISON_KINDS and not kw.get("point"):
+            raise ValueError(
+                f"bad fault clause {raw!r}: {kind} needs point= (a data boundary)"
+            )
+        specs.append(FaultSpec(**kw))
+    if not specs:
+        raise ValueError(f"empty fault spec {text!r}")
+    return specs
+
+
+class FaultInjector:
+    """Applies a list of :class:`FaultSpec` at named injection points;
+    thread-safe (`fire` is called from request and tool threads)."""
+
+    def __init__(self, specs: Sequence[FaultSpec], seed: Optional[int] = None,
+                 hang_max_s: float = 300.0):
+        self.specs = list(specs)
+        if seed is None:
+            seed = int(os.environ.get(ENV_SEED, "0"))
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        self.hang_max_s = hang_max_s
+        self._released = threading.Event()
+        self._t0 = time.monotonic()
+        self._match_counts = {}
+
+    @classmethod
+    def parse(cls, text: str, **kw) -> "FaultInjector":
+        return cls(parse_faults(text), **kw)
+
+    @classmethod
+    def from_env(cls, environ=None, **kw) -> Optional["FaultInjector"]:
+        """Injector from ``AREAL_FAULTS``, or None when it is unset or empty."""
+        spec = (environ or os.environ).get(ENV_SPEC, "").strip()
+        return cls.parse(spec, **kw) if spec else None
+
+    def elapsed_s(self) -> float:
+        return time.monotonic() - self._t0
+
+    def _eligible(self, idx: int, spec: FaultSpec) -> bool:
+        """Count the matching call and apply skip, times and p: the spec
+        may fire on call numbers (skip, skip + times]."""
+        with self._lock:
+            n = self._match_counts[idx] = self._match_counts.get(idx, 0) + 1
+            if n <= spec.skip or (spec.times and n > spec.skip + spec.times):
+                return False
+            return spec.prob >= 1.0 or self._rng.random() < spec.prob
+
+    def fire(self, point: str) -> None:
+        """Apply every armed active fault matching ``point``: may sleep
+        (``slow``), block (``hang``) or raise :class:`FaultError`
+        (``error``); returns normally when nothing fires."""
+        elapsed = self.elapsed_s()
+        for i, s in enumerate(self.specs):
+            if s.kind in PASSIVE_KINDS or not s.matches(point, elapsed):
+                continue
+            if not self._eligible(i, s):
+                continue
+            if s.kind == "slow":
+                time.sleep(s.latency_s)
+            elif s.kind == "hang":
+                logger.warning(f"FAULT hang at point {point!r}")
+                if not self._released.wait(timeout=self.hang_max_s):
+                    raise FaultError(
+                        f"hang fault at {point!r} exceeded the {self.hang_max_s}s safety cap"
+                    )
+                raise FaultError(f"hang fault at {point!r} released")
+            elif s.kind == "error":
+                raise FaultError(f"injected error at {point!r}")
+
+    def release(self) -> None:
+        """Unblock every ``hang`` in flight."""
+        self._released.set()

@@ -53,8 +53,15 @@ The other inflight modes, chosen as the JAX engine chooses them
 Every chunk runs its steps on the device with done rows masked, and the
 host reads its results once, at its end.
 
-Not yet ported: agent episodes (ROADMAP queue 1, item 5.4), which
-raise NotImplementedError.
+Agent episodes (`episode_start/extend/resume/release`): multi-turn tool
+use on an engine-lifetime serving session whose geometry the first
+episode fixes.  Each assistant turn decodes through the serving chunk
+(K2) until a stop sequence, EOS or a budget; the slot then parks with
+its KV pages held, the observation is chunk-prefilled onto the same
+pages, and the next turn forwards only the observation.  Parked slots
+ride the packed stream as done rows (zero lanes).  A push during a turn
+parks it (the call returns None); `episode_resume` replays the slot's
+last chunk tail through K3 under the new weights and continues.
 """
 
 import dataclasses
@@ -65,10 +72,10 @@ import numpy as np
 import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model_api import GenerationHyperparameters
+from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines.packing import bucket_len
-from areal_tpu_torch.engines.paging import PageAllocator
+from areal_tpu_torch.engines.paging import PageAllocator, PagePoolExhausted
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.ops.ngram import propose_ngram
@@ -146,6 +153,27 @@ def _spec_emit(
 
 
 @dataclasses.dataclass
+class _EpisodeSlot:
+    """Host bookkeeping of one live episode pinned to a serving slot.
+    The transcript lives in the shared session (`slot_prompt[s]` holds
+    every forwarded token, the page table its KV); this is the episode's
+    state machine: turns, the per-turn budget, and whether an interrupt
+    parked it mid-turn."""
+
+    ep_id: str
+    slot: int
+    gconfig: GenerationHyperparameters
+    token_budget: int  # max transcript tokens
+    turns: int = 0
+    seq: int = 0  # LRU tick, bumped at every admission; eviction takes the min
+    turn_start_len: int = 0  # transcript tokens when this turn began
+    last_admit_tokens: int = 0  # teacher-forced tokens of this call
+    turn_max_new: int = 0  # the turn's budget after the clamp
+    budget_limited: bool = False  # turn_max_new was clamped by the budget
+    parked_mid_turn: bool = False  # an interrupt parked it inside a turn
+
+
+@dataclasses.dataclass
 class _PagedGenSession:
     """Everything the serving chunk loop carries between chunks, host
     and device side, for one generate call — also the parked state of an
@@ -203,6 +231,15 @@ class _PagedGenSession:
     prompt_key: str = "packed_prompts"
     prompt_lens: Optional[List[int]] = None
     n: int = 1
+    # Agent episodes (the engine-lifetime session only): ep_id ->
+    # _EpisodeSlot of every episode pinning a slot (active[s] holds its
+    # ep_id), the LRU tick source, the default per-episode token budget,
+    # and the serving chunk functions built for it, by signature, each
+    # with its lane budget T.
+    episodes: Optional[Dict[str, "_EpisodeSlot"]] = None
+    ep_seq: int = 0
+    ep_budget: int = 0
+    chunk_fns: Optional[Dict[tuple, Tuple[Any, int]]] = None
 
 
 class GeneratorEngine:
@@ -303,6 +340,14 @@ class GeneratorEngine:
         self._interrupt_evt = threading.Event()
         self._session: Optional[_PagedGenSession] = None
         self.resume_replays = 0
+        # Agent episodes: the engine-lifetime serving session they pin
+        # slots in, made by the first episode_start(); its counters are
+        # never reset.
+        self._ep_session: Optional[_PagedGenSession] = None
+        self.episodes_started = 0
+        self.episodes_evicted = 0
+        self.episode_prefix_hits = 0
+        self.episode_prefix_misses = 0
         self.set_params(params)
 
     # ---------------- weights ----------------
@@ -368,15 +413,9 @@ class GeneratorEngine:
 
     @property
     def interrupt_requested(self) -> bool:
-        """True while an interrupt is pending (set, not yet cleared)."""
+        """True while an interrupt is pending (set, not yet cleared):
+        episode drivers wait for it to clear before episode_resume()."""
         return self._interrupt_evt.is_set()
-
-    # ---------------- not yet ported ----------------
-
-    def episode_start(self, *a, **k):
-        raise NotImplementedError(
-            "agent episodes are not yet ported (ROADMAP queue 1, item 5.4)"
-        )
 
     # ---------------- generation ----------------
 
@@ -1091,6 +1130,518 @@ class GeneratorEngine:
 
         self.decode_compiles += 1
         return fn
+
+    # -- agent episodes (multi-turn tool use on parked KV pages) --
+
+    def _require_serving_plane(self) -> None:
+        if not (self.kv_paged and self.prefill_chunk_tokens > 0):
+            raise RuntimeError(
+                "episodes require the serving plane: kv_paged=True and "
+                "prefill_chunk_tokens > 0"
+            )
+
+    def _episode_session_get(
+        self, gconfig: GenerationHyperparameters, token_budget: int, seed: int
+    ) -> _PagedGenSession:
+        """The engine-lifetime episode session (one slot pool and one
+        page pool shared by every live episode), made at first use.  The
+        first episode fixes its geometry, so the serving chunk is built
+        once for a whole multi-episode run (`decode_compiles`)."""
+        if self._ep_session is not None:
+            return self._ep_session
+        n_slots = self.max_decode_batch
+        ps = self.kv_page_size
+        chunk_t = min(32, gconfig.max_new_tokens)
+        budget = int(token_budget) or 2048
+        # The admission width bounds any one teacher-forced slab; a
+        # re-admission after SlotGone is the widest (the whole budget).
+        pbw = budget
+        K = gconfig.spec_decode_k
+        max_pages = -(-(budget + chunk_t + K) // ps)
+        n_pages = self.kv_pool_pages or n_slots * max_pages
+        dev = self.device
+        st = _PagedGenSession(
+            gconfig=gconfig,
+            generator=torch.Generator(device=dev).manual_seed(int(seed)),
+            results={},
+            n_slots=n_slots,
+            n_pages=n_pages,
+            max_pages=max_pages,
+            chunk_t=chunk_t,
+            alloc=PageAllocator(n_pages, ps, n_slots, max_pages),
+            pool=tfm.init_paged_kv_cache(
+                self.cfg, n_pages, ps, dtype=self._kv_dtype(), device=dev
+            ),
+            logits_buf=torch.zeros(
+                (n_slots, self.cfg.vocab_size), dtype=torch.float32, device=dev
+            ),
+            cache_len=np.zeros((n_slots,), np.int32),
+            gen_count=np.zeros((n_slots,), np.int32),
+            done_host=np.ones((n_slots,), bool),
+            active=[None] * n_slots,
+            toks_acc={},
+            logps_acc={},
+            pending=[],
+            slot_prompt={},
+            last_emit=np.zeros((n_slots,), np.int32),
+            prefill_chunk=max(1, self.prefill_chunk_tokens),
+            prompt_buf=np.full((n_slots, pbw), self.pad_token_id, np.int32),
+            prefill_rem=np.zeros((n_slots,), np.int32),
+            prompt_off=np.zeros((n_slots,), np.int32),
+            shared_from=np.zeros((n_slots,), np.int32),
+            slot_hash={},
+            inflight_prefix={},
+            # The history buffer's logical width is the JAX engine's,
+            # budget + K + 2, plus the K + 1 scratch columns.
+            tokens_buf=torch.zeros(
+                (n_slots, budget + 2 * K + 3), dtype=torch.long, device=dev
+            ),
+            pending_tok=torch.zeros((n_slots,), dtype=torch.long, device=dev),
+            episodes={},
+            ep_budget=budget,
+            chunk_fns={},
+        )
+        st.alloc.page_bytes = st.pool.nbytes() // (n_pages + 1)
+        self._ep_session = st
+        return st
+
+    @torch.no_grad()
+    def episode_start(
+        self, ep_id: str, prompt_ids, gconfig: GenerationHyperparameters,
+        token_budget: int = 0, seed: int = 0,
+    ) -> Optional[Dict[str, Any]]:
+        """Open an episode: pin a serving slot, admit the conversation
+        through the serving chunk (the longest page-aligned transcript
+        prefix already published rides the prefix cache: shared system
+        prompts and re-admissions after SlotGone both land here), decode
+        turn 0 until a stop sequence, EOS or a budget, then park the slot
+        with its KV pages held.  Returns the turn dict, or None when an
+        interrupt parked the call mid-turn (episode_resume() goes on)."""
+        self._require_serving_plane()
+        st = self._episode_session_get(gconfig, token_budget, seed)
+        if ep_id in st.episodes:
+            raise ValueError(f"episode {ep_id!r} already live")
+        toks = np.asarray([int(t) for t in prompt_ids], np.int32)
+        budget = int(token_budget) or st.ep_budget
+        if len(toks) == 0:
+            raise ValueError("episode_start needs a non-empty prompt")
+        if len(toks) + 1 > budget:
+            raise ValueError(
+                f"episode prompt ({len(toks)} tokens) leaves no room in the "
+                f"token budget ({budget})"
+            )
+        if len(toks) > st.prompt_buf.shape[1]:
+            raise ValueError(
+                f"episode prompt ({len(toks)} tokens) exceeds the admission "
+                f"width ({st.prompt_buf.shape[1]})"
+            )
+        s = self._episode_free_slot(st)
+        ep = _EpisodeSlot(ep_id=ep_id, slot=s, gconfig=gconfig, token_budget=budget)
+        st.episodes[ep_id] = ep
+        self.episodes_started += 1
+        self._episode_admit(st, ep, toks, fresh=True)
+        return self._run_episode_turn(st, ep)
+
+    @torch.no_grad()
+    def episode_extend(self, ep_id: str, obs_ids) -> Optional[Dict[str, Any]]:
+        """Append a tool result onto the episode's SAME slot (a
+        chunked-prefill admission over its live pages: nothing in cache
+        is forwarded again) and decode the next turn.  Raises
+        SlotGoneError when the slot was reclaimed; the controller then
+        re-admits the full conversation through episode_start."""
+        st = self._ep_session
+        if st is None or ep_id not in st.episodes:
+            raise SlotGoneError(
+                ep_id, "engine has no episode session" if st is None else "slot reclaimed"
+            )
+        ep = st.episodes[ep_id]
+        if ep.parked_mid_turn:
+            raise RuntimeError(
+                f"episode {ep_id!r} is parked mid-turn; call episode_resume() first"
+            )
+        obs = np.asarray([int(t) for t in obs_ids], np.int32)
+        if len(obs) == 0:
+            raise ValueError("episode_extend needs a non-empty observation")
+        if len(obs) > st.prompt_buf.shape[1]:
+            raise ValueError(
+                f"observation ({len(obs)} tokens) exceeds the admission width "
+                f"({st.prompt_buf.shape[1]})"
+            )
+        if ep.token_budget and int(st.cache_len[ep.slot]) + len(obs) + 1 > ep.token_budget:
+            # The observation alone busts the budget: a terminal
+            # zero-token turn and no admission (the slot keeps its pages
+            # until release).
+            ep.turns += 1
+            return {
+                "episode_id": ep.ep_id,
+                "turn_index": ep.turns - 1,
+                "tokens": [],
+                "logprobs": [],
+                "stop_reason": "budget",
+                "transcript_len": int(st.cache_len[ep.slot]),
+                "prefill_tokens": 0,
+                "shared_prefix_tokens": int(st.shared_from[ep.slot]),
+                "slot": ep.slot,
+            }
+        self._episode_admit(st, ep, obs, fresh=False)
+        return self._run_episode_turn(st, ep)
+
+    @torch.no_grad()
+    def episode_resume(self, ep_id: str) -> Optional[Dict[str, Any]]:
+        """Continue a mid-turn-parked episode under the CURRENT weights:
+        replay the slot's last chunk tail through its page table (K3,
+        one live row of resume_generate's replay), drop the prefix cache
+        (KV of the old weights must not be shared into new admissions),
+        then go on with the turn.  `resume_replays` counts the replays
+        that ran."""
+        st = self._ep_session
+        if st is None or ep_id not in st.episodes:
+            raise SlotGoneError(
+                ep_id, "engine has no episode session" if st is None else "slot reclaimed"
+            )
+        ep = st.episodes[ep_id]
+        if not ep.parked_mid_turn:
+            raise RuntimeError(f"episode {ep_id!r} is not parked mid-turn")
+        ep.parked_mid_turn = False
+        s = ep.slot
+        Q = st.chunk_t
+        hist = np.concatenate([st.slot_prompt[s], np.asarray(st.toks_acc[s], np.int32)])
+        L = int(st.cache_len[s])
+        r = int(min(max(int(st.last_emit[s]), 1), Q, L - int(st.shared_from[s])))
+        if r > 0:
+            tokens = np.full((st.n_slots, Q), self.pad_token_id, np.int64)
+            positions = np.zeros((st.n_slots, Q), np.int64)
+            write_pos0 = np.zeros((st.n_slots,), np.int64)
+            take_idx = np.zeros((st.n_slots,), np.int64)
+            live_mask = np.zeros((st.n_slots,), bool)
+            q_lens = np.zeros((st.n_slots,), np.int64)
+            tokens[s, :r] = hist[L - r : L]
+            write_pos0[s] = L - r
+            positions[s] = (L - r) + np.arange(Q)
+            take_idx[s] = r - 1
+            live_mask[s] = True
+            q_lens[s] = r
+            to_dev = self._to_dev
+            self._get_paged_replay_fn()(
+                self.params, to_dev(tokens), to_dev(positions), st.pool,
+                to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
+                to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
+            )
+            self.resume_replays += 1
+        st.alloc.prefix_clear()
+        st.inflight_prefix.clear()
+        st.slot_hash.clear()
+        return self._run_episode_turn(st, ep)
+
+    def episode_release(self, ep_id: str) -> bool:
+        """Retire an episode: release its pages (prefix-cache holds on its
+        published transcript prefixes survive) and free the slot.  False
+        when the episode is already gone."""
+        st = self._ep_session
+        if st is None or ep_id not in st.episodes:
+            return False
+        self._drop_episode(st, st.episodes[ep_id])
+        return True
+
+    def episode_stats(self) -> Dict[str, Any]:
+        """The episode plane's load and counters."""
+        st = self._ep_session
+        out = {
+            "active": 0,
+            "parked_mid_turn": 0,
+            "started": self.episodes_started,
+            "evicted": self.episodes_evicted,
+            "prefix_hits": self.episode_prefix_hits,
+            "prefix_misses": self.episode_prefix_misses,
+        }
+        if st is not None:
+            out["active"] = len(st.episodes)
+            out["parked_mid_turn"] = sum(e.parked_mid_turn for e in st.episodes.values())
+            out["pool_pages"] = st.n_pages
+            out["pages_allocated"] = st.alloc.allocated_pages()
+        return out
+
+    def _episode_free_slot(self, st: _PagedGenSession) -> int:
+        for s in range(st.n_slots):
+            if st.active[s] is None:
+                return s
+        # Every slot is pinned: reclaim the least recently admitted
+        # parked episode; its controller gets SlotGoneError next time and
+        # re-admits through the prefix cache.
+        if not self._evict_parked_episode(st):
+            raise RuntimeError("no free episode slot and nothing parked to evict")
+        return next(s for s in range(st.n_slots) if st.active[s] is None)
+
+    def _evict_parked_episode(self, st: _PagedGenSession, exclude: str = "") -> bool:
+        """Reclaim the LRU parked episode's slot and pages.  Episodes
+        parked mid-turn are exempt: their resume owns the slot."""
+        cands = [
+            ep for ep in st.episodes.values()
+            if not ep.parked_mid_turn and ep.ep_id != exclude
+        ]
+        if not cands:
+            return False
+        self._drop_episode(st, min(cands, key=lambda e: e.seq))
+        self.episodes_evicted += 1
+        return True
+
+    def _drop_episode(self, st: _PagedGenSession, ep: _EpisodeSlot) -> None:
+        s = ep.slot
+        st.alloc.release(s)
+        st.active[s] = None
+        st.done_host[s] = True
+        st.cache_len[s] = 0
+        st.gen_count[s] = 0
+        st.prefill_rem[s] = 0
+        st.prompt_off[s] = 0
+        st.last_emit[s] = 0
+        st.shared_from[s] = 0
+        st.slot_prompt.pop(s, None)
+        st.toks_acc.pop(s, None)
+        st.logps_acc.pop(s, None)
+        st.episodes.pop(ep.ep_id, None)
+
+    def _reserve_or_evict_parked(self, st: _PagedGenSession, ep: _EpisodeSlot,
+                                 tokens: int) -> None:
+        """reserve() for an episode's slot; when the pool is short even
+        after the prefix cache gave way, evict the LRU parked episode
+        and try once more."""
+        try:
+            self._reserve_with_evict(st.alloc, ep.slot, tokens)
+        except PagePoolExhausted:
+            if not self._evict_parked_episode(st, exclude=ep.ep_id):
+                raise
+            self._reserve_with_evict(st.alloc, ep.slot, tokens)
+
+    def _episode_admit(
+        self, st: _PagedGenSession, ep: _EpisodeSlot, toks: np.ndarray, fresh: bool
+    ) -> None:
+        """Admission, host bookkeeping only (the serving chunk does the
+        forwards).  fresh=True maps a slot for a whole conversation: the
+        LONGEST published page-aligned prefix of it is mapped
+        copy-on-write and only the tail is teacher-forced.  fresh=False
+        appends an observation onto the slot's live pages from position
+        cache_len on, overwriting any tail KV a stop rewind left."""
+        alloc = st.alloc
+        s = ep.slot
+        ps = alloc.page_size
+        g = ep.gconfig
+        # Pages past the transcript for the chunk's decode steps and the
+        # K draft positions a speculating row writes past its last token.
+        slack = st.chunk_t + g.spec_decode_k
+        st.ep_seq += 1
+        ep.seq = st.ep_seq
+        if fresh:
+            plen = len(toks)
+            start = 0
+            if self.kv_share_prefix and plen > ps:
+                # Longest first: the first hit is the best.  The tail keeps
+                # >= 1 token, so the re-forward gives this conversation's
+                # own next-token logits.
+                for k in range((plen - 1) // ps, 0, -1):
+                    shared = alloc.prefix_lookup(b"ep:" + toks[: k * ps].tobytes())
+                    if shared is None:
+                        continue
+                    need = alloc.pages_for(plen + slack) - len(shared)
+                    if need > len(alloc.free):
+                        alloc.prefix_evict(need)
+                    if need > len(alloc.free):
+                        break  # too tight to grow past the shared pages
+                    alloc.share(s, shared)
+                    start = k * ps
+                    break
+            if start > 0:
+                self.episode_prefix_hits += 1
+            else:
+                self.episode_prefix_misses += 1
+            self._reserve_or_evict_parked(st, ep, plen + slack)
+            st.active[s] = ep.ep_id
+            st.cache_len[s] = start
+            st.shared_from[s] = start
+            st.slot_prompt[s] = toks
+            rem = plen - start
+        else:
+            # Teacher-force everything past the KV cursor.  With K > 0 the
+            # cursor parked ONE short of the transcript (its last token
+            # was a pending spec token with no KV yet, see
+            # _finish_episode_turn): it goes with the observation.
+            st.slot_prompt[s] = np.concatenate([st.slot_prompt[s], toks])
+            start = int(st.cache_len[s])
+            toks = st.slot_prompt[s][start:]
+            rem = len(toks)
+        st.toks_acc[s] = []
+        st.logps_acc[s] = []
+        st.gen_count[s] = 0
+        st.done_host[s] = False
+        st.prompt_buf[s, :] = self.pad_token_id
+        st.prompt_buf[s, :rem] = toks[len(toks) - rem :]
+        st.prefill_rem[s] = rem
+        st.prompt_off[s] = 0
+        st.last_emit[s] = 0
+        ep.last_admit_tokens = rem
+        ep.turn_start_len = start + rem
+        # The turn's budget, clamped so the transcript never outgrows the
+        # episode's token budget (the page reservation and the admission
+        # width rely on that bound).
+        left = ep.token_budget - ep.turn_start_len if ep.token_budget else g.max_new_tokens
+        ep.turn_max_new = max(0, min(g.max_new_tokens, left))
+        ep.budget_limited = ep.turn_max_new < g.max_new_tokens
+
+    def _episode_chunk_fn(self, st: _PagedGenSession, g: GenerationHyperparameters):
+        """The session's serving chunk for `g`, built once per signature
+        (the JAX engine's compile cache) with its lane budget."""
+        W, pbw = st.prefill_chunk, st.prompt_buf.shape[1]
+        sig = (st.n_slots, st.n_pages, st.max_pages, st.chunk_t, W, pbw,
+               g.spec_decode_k, g.spec_ngram, g.min_new_tokens, g.greedy, g.top_p,
+               g.top_k, g.temperature, self.serving_admit_lanes)
+        if sig not in st.chunk_fns:
+            fn = self._get_serving_chunk_fn(
+                st.n_slots, st.n_pages, st.max_pages, st.chunk_t, W, pbw, g
+            )
+            st.chunk_fns[sig] = (fn, self.serving_lane_budget)
+        fn, self.serving_lane_budget = st.chunk_fns[sig]
+        return fn
+
+    def _run_episode_turn(
+        self, st: _PagedGenSession, ep: _EpisodeSlot
+    ) -> Optional[Dict[str, Any]]:
+        """Run serving chunks until THIS episode's turn ends (a stop
+        sequence, EOS, the turn's length or the episode's budget).  Other
+        episodes' slots ride along as done rows: zero lanes.  Checks the
+        interrupt at every chunk boundary: a weight push parks the turn
+        in place (returns None) and episode_resume() replays the last
+        chunk tail on the same pages before going on."""
+        g = ep.gconfig
+        s = ep.slot
+        alloc = st.alloc
+        chunk_t, W = st.chunk_t, st.prefill_chunk
+        chunk_fn = self._episode_chunk_fn(st, g)
+        max_new = ep.turn_max_new
+        K = g.spec_decode_k
+        Wmax = max(W, K + 1)
+        to_dev = self._to_dev
+        reason = None
+        while reason is None:
+            if self._interrupt_evt.is_set():
+                ep.parked_mid_turn = True
+                return None
+            rem = int(st.prefill_rem[s])
+            left = max(0, max_new - int(st.gen_count[s]))
+            target = int(st.cache_len[s]) + max(
+                1, min(chunk_t * Wmax, rem + chunk_t * (K + 1), rem + left + K)
+            )
+            self._reserve_or_evict_parked(st, ep, target)
+            self._privatize_write_windows(st)
+            self._accum_pool_stats(
+                "paged", int(st.cache_len.sum()), alloc.allocated_pages() * alloc.page_size
+            )
+            prev_gen = st.gen_count.copy()
+            (
+                out_toks, out_logps, new_cache_len, new_gen_count, new_done,
+                new_rem, new_off, lane_acc,
+            ) = chunk_fn(
+                self.params, st.pool, st.logits_buf,
+                to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
+                to_dev(st.prompt_off.astype(np.int64)),
+                to_dev(st.prefill_rem.astype(np.int64)),
+                to_dev(st.cache_len.astype(np.int64)),
+                to_dev(st.gen_count.astype(np.int64)),
+                to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
+            )
+            # The chunk's one host sync, at its boundary.
+            out_toks = out_toks.cpu().numpy()
+            out_logps = out_logps.cpu().numpy()
+            lane_acc = lane_acc.cpu().numpy()
+            st.done_host = new_done.cpu().numpy()
+            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
+            st.prompt_off = new_off.cpu().numpy().astype(np.int32)
+            st.last_emit = st.gen_count - prev_gen
+            self.steps_total += chunk_t
+            self.lanes_dispatched += chunk_t * self.serving_lane_budget
+            self.lanes_live += int(lane_acc[0])
+            self.lanes_slack += int(lane_acc[1])
+            self.dead_live_lanes += int(lane_acc[2])
+            # Drain THIS slot only (parked rows emit nothing).
+            row = out_toks[s]
+            term = np.flatnonzero(row < 0)
+            limit = int(term[0]) if term.size else row.shape[0]
+            limit = min(limit, max(0, max_new - len(st.toks_acc[s])))
+            eos_at = np.flatnonzero(row[:limit] == self.eos_token_id)
+            if eos_at.size:
+                limit = int(eos_at[0]) + 1
+            prev_len = len(st.toks_acc[s])
+            st.toks_acc[s].extend(row[:limit].tolist())
+            st.logps_acc[s].extend(out_logps[s, :limit].tolist())
+            cut = _find_stop_end(st.toks_acc[s], prev_len, g.stop) if g.stop else None
+            if cut is not None:
+                del st.toks_acc[s][cut:]
+                del st.logps_acc[s][cut:]
+                reason = "stop"
+            elif st.toks_acc[s] and st.toks_acc[s][-1] == self.eos_token_id:
+                reason = "eos"
+            elif int(st.prefill_rem[s]) == 0 and len(st.toks_acc[s]) >= max_new:
+                reason = "budget" if ep.budget_limited else "length"
+        return self._finish_episode_turn(st, ep, reason)
+
+    def _finish_episode_turn(
+        self, st: _PagedGenSession, ep: _EpisodeSlot, reason: str
+    ) -> Dict[str, Any]:
+        s = ep.slot
+        kept = len(st.toks_acc[s])
+        # Rewind: tokens sampled past the kept boundary (after a stop
+        # sequence, or over the turn's budget) left KV the transcript no
+        # longer covers.  Pulling cache_len back is host bookkeeping:
+        # attention never reads past a row's cursor, and the next
+        # admission teacher-forces over those positions in place.  With
+        # spec decoding the last kept token may still be PENDING (no KV
+        # yet): park one short, and the next admission forwards it.
+        if ep.gconfig.spec_decode_k > 0:
+            st.cache_len[s] = ep.turn_start_len + max(0, kept - 1)
+        else:
+            st.cache_len[s] = ep.turn_start_len + kept
+        st.done_host[s] = True
+        st.prefill_rem[s] = 0
+        turn_toks = [int(t) for t in st.toks_acc[s]]
+        turn_lps = [float(x) for x in st.logps_acc[s]]
+        if turn_toks:
+            st.slot_prompt[s] = np.concatenate(
+                [st.slot_prompt[s], np.asarray(turn_toks, np.int32)]
+            )
+        st.toks_acc[s] = []
+        st.logps_acc[s] = []
+        ep.turns += 1
+        self._episode_publish_prefix(st, s)
+        self._set_live_slots(len(st.episodes))
+        return {
+            "episode_id": ep.ep_id,
+            "turn_index": ep.turns - 1,
+            "tokens": turn_toks,
+            "logprobs": turn_lps,
+            "stop_reason": reason,
+            "transcript_len": int(ep.turn_start_len + kept),
+            "prefill_tokens": int(ep.last_admit_tokens),
+            "shared_prefix_tokens": int(st.shared_from[s]),
+            "slot": s,
+        }
+
+    def _episode_publish_prefix(self, st: _PagedGenSession, s: int) -> None:
+        """Publish the slot's page-aligned transcript prefix, so a later
+        conversation that shares it (another episode with the same system
+        prompt, or this transcript re-admitted after SlotGone) maps the
+        pages instead of prefilling them.  Keys are the prefix's int32
+        token bytes, page-aligned, so an admission probes longest first."""
+        if not self.kv_share_prefix:
+            return
+        alloc = st.alloc
+        sp = int(st.cache_len[s]) // alloc.page_size
+        if sp <= 0:
+            return
+        alloc.prefix_insert(
+            b"ep:" + st.slot_prompt[s][: sp * alloc.page_size].tobytes(),
+            alloc.table[s, :sp],
+        )
 
     # -- the dense inflight window --
 

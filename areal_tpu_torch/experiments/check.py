@@ -68,7 +68,6 @@ def unported_options(cfg):
         (cfg.anomaly_kl_max is not None, "anomaly_kl_max", "queue 1, item 6"),
         (bool(cfg.anomaly_grad_norm_mult), "anomaly_grad_norm_mult", "queue 1, item 6"),
         (bool(cfg.anomaly_update_norm_max), "anomaly_update_norm_max", "queue 1, item 6"),
-        (cfg.episode_max_turns > 0, "episode_max_turns", "queue 1, item 5.4"),
         ("master_dtype" in cfg.train_backend_args,
          "train_backend_args.master_dtype (the port keeps fp32 masters)", "queue 1, item 6"),
         (cfg.train_backend_args.get("remat_policy") in ("dots", "dots_small"),

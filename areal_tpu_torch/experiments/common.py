@@ -119,7 +119,13 @@ class PPOMathConfig:
     anomaly_grad_norm_mult: float = 0.0
     anomaly_update_norm_max: float = 0.0
     anomaly_kl_max: Optional[float] = None
+    # Agent episodes (system/episode.py): carried as the JAX package
+    # carries them.  No code of the in-process trial reads them there
+    # either; only an episode runner on the rollout controller (ROADMAP
+    # queue 1 item 7) drives episodes.
     episode_max_turns: int = 0
+    episode_token_budget: int = 0
+    tool_timeout_s: float = 10.0
 
 
 def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:

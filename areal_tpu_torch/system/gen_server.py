@@ -1,8 +1,8 @@
 """Generation service: a batching HTTP server around a GeneratorEngine
 (port of areal_tpu/system/gen_server.py; it serves ``POST /generate``,
-``POST /pause``, ``POST /resume`` and ``GET /health`` with the JAX
-server's JSON wire format, so the JAX package's `LLMAPIClient` talks to
-it unchanged).
+``POST /episode``, ``POST /pause``, ``POST /resume`` and ``GET /health``
+with the JAX server's JSON wire format, so both packages' `LLMAPIClient`
+talk to it unchanged).
 
 Concurrent /generate requests are MERGED by a collector thread into
 shared engine calls: client-side fan-out gets cross-request batching.
@@ -14,9 +14,15 @@ resumes on its existing KV pages (one chunk of replay instead of a full
 drain).  Each response carries `version_start`, the weight version its
 sampling started on, and `version`, the one it finished on.
 
+`POST /episode` (`handle_episode`) runs agent episodes, one turn a
+request, on the engine slot that holds the episode's KV pages; a turn a
+push parks resumes on its pages.  A continuation on a reclaimed slot
+gets HTTP 409 with ``{"error_type": "slot_gone"}``.  Faults
+(`base/faults.py`, ``AREAL_FAULTS``) fire at the ``episode`` point.
+
 Not yet ported: `/update_weights` from a checkpoint on disk,
-`/param_push`, the ZMQ transport, episodes, fault injection and the
-command-line entry point.
+`/param_push`, `/metrics`, the ZMQ transport, the other fault points and
+the command-line entry point.
 """
 
 import dataclasses
@@ -31,10 +37,18 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model_api import GenerationHyperparameters
-from areal_tpu_torch.base import integrity
+from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
+from areal_tpu_torch.base import integrity, metrics
+from areal_tpu_torch.base.faults import FaultInjector
 
 logger = logging.getLogger("areal_tpu_torch.gen_server")
+
+# Episode continuations refused because the engine reclaimed the slot:
+# each costs the controller a full-conversation re-admission.
+_M_EPISODE_SLOT_LOST = metrics.default_registry().counter(
+    "areal_gen_episode_slot_lost_total",
+    "episode continuations rejected: slot reclaimed",
+)
 
 
 @dataclasses.dataclass
@@ -77,8 +91,11 @@ class GenerationServer:
         max_wait_ms: float = 5.0,
         max_batch: int = 256,
         token: str = "",
+        faults: Optional[FaultInjector] = None,
     ):
         self.engine = engine
+        # Chaos: defaults to the AREAL_FAULTS spec (None when unset).
+        self._faults = faults if faults is not None else FaultInjector.from_env()
         self.version = 0
         self.max_wait_ms = max_wait_ms
         self.max_batch = max_batch
@@ -132,6 +149,8 @@ class GenerationServer:
                     req = json.loads(self.rfile.read(n))
                     if self.path == "/generate":
                         self._send(200, srv._handle_generate(req))
+                    elif self.path == "/episode":
+                        self._send(200, srv.handle_episode(req))
                     elif self.path == "/pause":
                         srv.pause()
                         self._send(200, {"paused": True, "version": srv.version})
@@ -140,6 +159,13 @@ class GenerationServer:
                         self._send(200, {"paused": False, "version": srv.version})
                     else:
                         self._send(404, {"error": "unknown path"})
+                except SlotGoneError as e:
+                    # Typed, not a silent fresh admission: the controller
+                    # decides to re-admit the conversation.
+                    self._send(409, {
+                        "error": str(e), "error_type": "slot_gone",
+                        "episode_id": e.episode_id, "reason": e.reason,
+                    })
                 except Exception as e:  # noqa: BLE001 — report to client
                     logger.exception("request failed")
                     self._send(500, {"error": repr(e)})
@@ -271,6 +297,72 @@ class GenerationServer:
             raise RuntimeError(p.error)
         return p.result
 
+    def handle_episode(self, req: Dict) -> Dict:
+        """Agent episode ops (start/extend/release), one turn a request,
+        pinned to the engine slot that holds the episode's KV pages.
+
+        Runs on the request's own thread, not through the collector: an
+        episode op needs ITS slot, and the engine lock already serializes
+        it against batched generates and weight swaps.  A push parks the
+        turn at a chunk boundary; the loop below frees the engine for the
+        swap and resumes the SAME turn on its pages.  An op on a
+        reclaimed slot raises SlotGoneError (HTTP 409) and counts in
+        ``areal_gen_episode_slot_lost_total``."""
+        if self._faults is not None:
+            self._faults.fire("episode")
+        eng = self.engine
+        op = str(req.get("op", ""))
+        ep_id = str(req.get("episode_id", ""))
+        if not ep_id:
+            raise ValueError("episode op needs a non-empty episode_id")
+        if op == "release":
+            with self._engine_lock:
+                released = bool(eng.episode_release(ep_id))
+            return {"episode_id": ep_id, "released": released, "version": self.version}
+        if op == "start":
+            g = GenerationHyperparameters(**req.get("gconfig", {}))
+            prompt_ids = [int(t) for t in req.get("prompt_ids", [])]
+            budget = int(req.get("token_budget", 0))
+            seed = int(req.get("seed", 0))
+
+            def first():
+                return eng.episode_start(ep_id, prompt_ids, g, token_budget=budget, seed=seed)
+        elif op == "extend":
+            obs = [int(t) for t in req.get("obs_ids", [])]
+
+            def first():
+                return eng.episode_extend(ep_id, obs)
+        else:
+            raise ValueError(f"unknown episode op {op!r}")
+        try:
+            if self._pause_evt.is_set():
+                self._await_resume()
+            self._engine_lock.acquire()
+            locked = True
+            try:
+                version_start = self.version
+                out = first()
+                while out is None:
+                    # Parked by pause(): free the engine for the swap,
+                    # then resume THIS turn on its pages.
+                    self._engine_lock.release()
+                    locked = False
+                    self._await_resume()
+                    self._engine_lock.acquire()
+                    locked = True
+                    out = eng.episode_resume(ep_id)
+                version = self.version
+            finally:
+                if locked:
+                    self._engine_lock.release()
+        except SlotGoneError:
+            _M_EPISODE_SLOT_LOST.inc()
+            raise
+        out = dict(out)
+        out["version"] = version
+        out["version_start"] = version_start
+        return out
+
     # ---------------- batching collector ----------------
 
     def _collect_loop(self):
@@ -399,6 +491,8 @@ class GenerationServer:
 
     def close(self):
         self._stop.set()
+        if self._faults is not None:
+            self._faults.release()  # hung requests fail now, not at the cap
         self._http.shutdown()
         self._http.server_close()
         self._collector_thread.join(timeout=5.0)

@@ -178,12 +178,34 @@ genmodes     — the generator's other inflight modes at full qwen2-1.5B in
                the bf16 run) are checked; tokens/s,
                the decode step's time, spec acceptance, cache copy bytes
                and peak memory are printed.
+episodes     — agent episodes at full qwen2-1.5B in bf16 through
+               GenerationServer's POST /episode and the port's
+               LLMAPIClient: (a) 8 calculator episodes (the serve burst's
+               first 8 prompts; 3 turns, 32 new tokens a turn, a
+               2048-token budget, observations of at most 6 tokens) on
+               their own client threads, (b) python_exec once, (c) a
+               SlotGone re-admission mapping the published prefix, (d)
+               LRU eviction on a 7-page pool, (e) a weight push mid-turn
+               (park, swap, episode_resume's K3 replay); (f) (a) and (e)
+               over an int8 pool.  The stop set is probed so that turns 1
+               and 2 of each episode end at their first token, and those
+               turns must equal the probes' tokens and logprobs while
+               every position past a rewound cursor is poisoned.
+               Checked: turn accounting (observation prefills, transcript
+               lengths, versions), K2 = 28 x inner steps, K3 = 28 x
+               replays, K1f and K4 0, one chunk build, no host sync in a
+               chunk; turn latency, tokens/s, the step time, observation
+               prefill against transcript tokens and peak memory printed.
 parity       — greedy tokens at qwen2-1.5B width and 2 layers in fp32: the
                engine on the card against the engine on the CPU (the
                plain path), on the serving plane (inflight=True, K2), on
                the static path (inflight=False, K1f and K4) and in each
                mode of genmodes (a)-(d); every full-precision mode's
-               tokens equal the static path's.
+               tokens equal the static path's.  Then one episode (two
+               turns, SlotGone, a re-admission, a push mid-turn and
+               episode_resume) on the card against the CPU: turns
+               identical, logprobs within 1e-3, K2 = 2 x inner steps and
+               K3 = 2 x replays.
 train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
                the actor (PPO loss) and of a critic (value loss): the card
                (K1) against the CPU (plain path): loss, grad_norm and the
@@ -195,7 +217,8 @@ K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
 step with the critic and the reference model, `--phases build,quickstart`
 for the quickstart entry point, `--phases build,recover` for
 kill-and-resume, `--phases build,kernel,parity,genmodes` for the
-generator's other inflight modes.  The line before the last is one JSON object
+generator's other inflight modes, `--phases build,episodes,parity` for
+agent episodes.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -215,7 +238,8 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "recover", "genmodes", "parity", "train_parity")
+          "train", "ppo", "quickstart", "recover", "genmodes", "episodes", "parity",
+          "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -1880,7 +1904,9 @@ def _profile_generate(engine, cfg, rng, attention):
     """Device time by kernel over one smaller generate call (4 prompts of
     128 tokens x n=4, 32 new tokens) under torch.profiler: the card's
     idle share of that call's wall time and the share of busy time of
-    the kernels whose name holds `attention`."""
+    the kernels whose name holds `attention`.  CUDA activity only: the
+    host ops' events added nothing read here and tripled the trace's
+    collection time (about 100 s of the serve phase on an H100 host)."""
     import torch
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
@@ -1895,13 +1921,15 @@ def _profile_generate(engine, cfg, rng, attention):
     g = GenerationHyperparameters(n=4, max_new_tokens=32, temperature=1.0)
     steps0, decode0 = engine.steps_total, engine.static_decode_steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         engine.generate(sample, MicroBatchSpec(), g, seed=1)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    averages = prof.key_averages()
+    trace_s = time.monotonic() - t0 - wall  # the profiler's own collection and averaging
     kernels = []
-    for e in prof.key_averages():
+    for e in averages:
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -1920,7 +1948,8 @@ def _profile_generate(engine, cfg, rng, attention):
     share = attn_s / max(busy_s, 1e-12)
     log(f"[profile] 1 generate call, {steps} serving inner steps, {decode} static decode "
         f"steps: wall {wall:.3f} s, device busy {busy_s:.3f} s, idle share "
-        f"{1 - busy_s / wall:.3f}, {attention} share of busy {share:.3f} (profiler on)")
+        f"{1 - busy_s / wall:.3f}, {attention} share of busy {share:.3f} (profiler on; its "
+        f"trace took {trace_s:.1f} s to collect and average)")
     for k in top:
         log(f"[profile]   {k['share']:.3f} {k['ms']:10.2f} ms {k['calls']:7d}x {k['name']}")
     return dict(wall_s=wall, busy_s=busy_s, idle_share=1 - busy_s / wall,
@@ -2499,6 +2528,97 @@ def phase_parity(seed):
         same = all(np.array_equal(toks[dev], static[dev]) for dev in ("cuda", "cpu"))
         log(f"[parity] {path} against the static path: tokens identical={same}")
         check(same, f"{path}: greedy tokens differ from the static path's")
+    _episode_parity(cfg, params, kw, seed)
+
+
+def _episode_parity(cfg, params, kw, seed):
+    """The episode mode of phase_parity: one episode's script on the card
+    and on the CPU (2 slots): a turn, an observation's turn, release, the
+    typed SlotGone, a re-admission of the full transcript (prefix hit),
+    then an observation's turn parked after its first chunk, new weights,
+    episode_resume (K3).  Tokens identical, logprobs within 1e-3, every
+    other field of every turn equal; the card's launches K2 = 2 layers x
+    inner steps, K3 = 2 x replays, the others 0."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models.transformer import init_params
+
+    rng = np.random.default_rng(seed + 91)
+    prompt = rng.integers(0, cfg.vocab_size, 150).tolist()
+    new_params = init_params(cfg, seed + 1, device="cpu")
+    g = GenerationHyperparameters(n=1, max_new_tokens=16, greedy=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
+                              max_decode_batch=2, **kw)
+        real = eng._episode_chunk_fn
+        armed = {"left": None}
+
+        def chunk_fn(st, gc_, eng=eng, real=real, armed=armed):
+            fn = real(st, gc_)
+
+            def run(*a, **k):
+                out = fn(*a, **k)
+                if armed["left"] is not None:
+                    armed["left"] -= 1
+                    if armed["left"] == 0:
+                        eng.interrupt()  # a push arriving after this chunk
+                return out
+
+            return run
+
+        eng._episode_chunk_fn = chunk_fn
+        _reset_counts()
+        steps0 = eng.steps_total
+        t0 = time.monotonic()
+        out = [eng.episode_start("p", prompt, g, token_budget=512)]
+        out.append(eng.episode_extend("p", [11, 12, 13]))
+        eng.episode_release("p")
+        try:
+            eng.episode_extend("p", [14])
+            gone = False
+        except SlotGoneError:
+            gone = True
+        transcript = prompt + out[0]["tokens"] + [11, 12, 13] + out[1]["tokens"] + [14]
+        out.append(eng.episode_start("p", transcript, g, token_budget=512))
+        armed["left"] = 1
+        out.append(eng.episode_extend("p", [15, 16]))
+        eng.set_params(new_params)
+        eng.clear_interrupt()
+        out.append(eng.episode_resume("p"))
+        secs = time.monotonic() - t0
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, L = _trial_counts(), cfg.n_layers
+            steps, replays = eng.steps_total - steps0, eng.resume_replays
+            want = dict(fwd=0, dq=0, dkv=0, k2=L * steps, k3=L * replays, k4=0)
+            check(counts == want and replays == 1,
+                  f"[parity] episode: launches {counts} != {want} (replays {replays})")
+        runs[dev] = dict(out=out, gone=gone, secs=secs, stats=eng.episode_stats())
+        del eng
+    a, b = runs["cuda"], runs["cpu"]
+    same = a["gone"] and b["gone"] and a["stats"] == b["stats"]
+    lp_err = 0.0
+    for ta, tb in zip(a["out"], b["out"]):
+        if ta is None or tb is None:
+            same = same and ta is None and tb is None
+            continue
+        same = same and ta["tokens"] == tb["tokens"] and all(
+            ta[k] == tb[k] for k in ta if k not in ("tokens", "logprobs"))
+        if ta["logprobs"] and len(ta["logprobs"]) == len(tb["logprobs"]):
+            lp_err = max(lp_err, float(np.abs(np.subtract(ta["logprobs"], tb["logprobs"])).max()))
+    turns = [t for t in a["out"] if t is not None]
+    log(f"[parity] episode (start, extend, SlotGone, re-admission sharing "
+        f"{turns[2]['shared_prefix_tokens']} tokens, a push mid-turn and episode_resume), "
+        f"2 layers fp32 greedy: turns identical={same}, max logprob diff={lp_err:.2e}; reasons "
+        f"{[t['stop_reason'] for t in turns]} (cuda {a['secs']:.1f} s, cpu {b['secs']:.1f} s)")
+    check(same, "[parity] episode: the card's turns differ from the CPU's")
+    check(lp_err <= 1e-3, f"[parity] episode: logprobs differ by {lp_err} > 1e-3")
+    check(a["out"][3] is None and turns[2]["shared_prefix_tokens"] > 0,
+          "[parity] episode: no mid-turn park or no prefix hit")
 
 
 # --------------------------------------------------------------------------
@@ -4410,6 +4530,549 @@ def phase_genmodes(report, seed):
                               launches=launches, seconds=secs)
 
 
+# --------------------------------------------------------------------------
+# Phase: agent episodes at full size
+# --------------------------------------------------------------------------
+
+EP_SLOTS = 16  # the engine's max_decode_batch: the episode session's slots
+EP_MAX_NEW = 32  # new tokens an assistant turn, so a chunk is 32 inner steps
+EP_BUDGET = 2048  # transcript tokens an episode
+EP_TURNS = 3  # assistant turns an episode (the controller's max_turns)
+EP_EOS = 151643
+# Turns 1-2 of each calculator episode against the one-token probes of
+# the same steps on an engine of the same geometry: the same kernels on
+# the same inputs, so equal to fp32 rounding; a read of a poisoned
+# position (1e9) would move a logprob by orders of magnitude more.
+PROBE_LOGP_TOL = 1e-5
+
+
+def _ep_parse(toks):
+    """The agents leg's token-level tool-call convention
+    (scripts/check_async.py:2688): a stop turn calls the calculator on
+    operands read off its last tokens."""
+    from areal_tpu_torch.system.episode import ToolCall
+
+    a, b = (list(toks) * 2)[-2:]
+    return ToolCall("calculator", f"{a % 9} + {b % 9}")
+
+
+def _ep_encode(call, text, ok):
+    """Observation tokens: the result's characters, at most 6."""
+    return [8 + (ord(c) % 16) for c in text][:6] or [8]
+
+
+class _TurnLog:
+    """An episode client that records each raw turn dict and its HTTP
+    latency (the controller's Turn records carry neither)."""
+
+    def __init__(self, inner):
+        self.inner, self.outs, self.lat = inner, [], []
+
+    def version(self):
+        return self.inner.version()
+
+    def _rec(self, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        self.lat.append(time.monotonic() - t0)
+        self.outs.append(dict(out))
+        return out
+
+    def start(self, ep_id, ids):
+        return self._rec(self.inner.start, ep_id, ids)
+
+    def extend(self, ep_id, ids):
+        return self._rec(self.inner.extend, ep_id, ids)
+
+    def release(self, ep_id):
+        self.inner.release(ep_id)
+
+
+def _ep_stops(tag, cfg, params, prompts, ekw):
+    """A small stop set under which each calculator episode's first two
+    assistant turns end at their first token: the greedy token after each
+    prompt (A) and after prompt + A + A's observation (B).  Read by
+    episodes of one-token turns on an engine of the episodes' geometry (16
+    slots, W=8, the same pool, lane budget and token budget) without
+    prefix sharing: a turn's inner steps do not depend on where its chunks
+    end, so A and B are the tokens the episodes sample."""
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.episode import ToolExecutor
+
+    t0 = time.monotonic()
+    eng = GeneratorEngine(cfg, params, eos_token_id=EP_EOS, max_decode_batch=EP_SLOTS,
+                          kv_share_prefix=False, **ekw)
+    g = GenerationHyperparameters(n=1, max_new_tokens=1, greedy=True)
+    tools = ToolExecutor(register_builtins=True)
+    probes = []  # per prompt: (A, its logprob, B, its logprob)
+    for i, p in enumerate(prompts):
+        a = eng.episode_start(f"cal{i}", p, g, token_budget=EP_BUDGET)
+        call = _ep_parse(a["tokens"])
+        b = eng.episode_extend(f"cal{i}", _ep_encode(call, tools.run(call), True))
+        eng.episode_release(f"cal{i}")
+        probes.append((a["tokens"][0], a["logprobs"][0], b["tokens"][0], b["logprobs"][0]))
+    del eng
+    gc.collect()
+    toks = sorted({t for a, _, b, _ in probes for t in (a, b)})
+    log(f"[episodes] {tag}: stop set of {len(toks)} single tokens from one-token probe "
+        f"turns ({time.monotonic() - t0:.1f} s)")
+    return tuple((t,) for t in toks), probes
+
+
+def _ep_poison_hook(engine, rec):
+    """After every turn's rewind, poison the slot's positions at and past
+    its cursor on its mapped pages (bf16: 1e9; int8: code 127 at scale
+    1e9, as the kernel phase poisons): the next admission teacher-forces
+    over them and no read may reach the rest."""
+    import torch
+
+    real = engine._finish_episode_turn
+
+    def finish(st, ep, reason):
+        out = real(st, ep, reason)
+        s, alloc, pool = ep.slot, st.alloc, st.pool
+        ps, lo = alloc.page_size, int(st.cache_len[s])
+        huge = 127 if pool.k.dtype == torch.int8 else 1e9
+        for j in range(lo // ps, int(alloc.used[s])):
+            page, off = int(alloc.table[s, j]), max(lo - j * ps, 0)
+            if int(alloc.refcount[page]) != 1:  # shared pages are read-only
+                continue
+            pool.k[:, page, off:] = huge
+            pool.v[:, page, off:] = huge
+            if pool.k_scale is not None:
+                pool.k_scale[:, page, off:] = 1e9
+                pool.v_scale[:, page, off:] = 1e9
+            rec["poisoned"] += ps - off
+        return out
+
+    engine._finish_episode_turn = finish
+
+
+def _ep_chunk_hook(engine, rec):
+    """Wrap the engine's serving chunk: CUDA events around every chunk,
+    the session's second chunk under set_sync_debug_mode("error"), and,
+    once `rec["hold"]` is set, the next chunk held after it runs until a
+    push has asked the engine to park (so the push lands mid-turn)."""
+    import torch
+
+    real = engine._episode_chunk_fn
+
+    def chunk_fn(st, g):
+        fn = real(st, g)
+
+        def run(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            sync_hold = len(rec["events"]) == 1
+            if sync_hold:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            ev[0].record()
+            try:
+                out = fn(*a, **k)
+            except RuntimeError as e:
+                if sync_hold:
+                    rec["sync_error"] = repr(e)
+                raise
+            finally:
+                if sync_hold:
+                    torch.cuda.set_sync_debug_mode(0)
+            ev[1].record()
+            if sync_hold:
+                rec["sync_ok"] = True
+            rec["events"].append(ev)
+            if rec.get("hold") and not rec["in_turn"].is_set():
+                rec["in_turn"].set()
+                deadline = time.monotonic() + 120
+                while not engine.interrupt_requested and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            return out
+
+        return run
+
+    engine._episode_chunk_fn = chunk_fn
+
+
+def _ep_calc(tag, url, prompts, stops, probes):
+    """(a): one calculator episode a prompt, each on its own client thread
+    through the port's LLMAPIClient (ServerEpisodeClient), max_turns 3.
+    Checked: every episode ends with at least 2 assistant turns ending in
+    a stop, and those two turns are the probe's tokens with its logprobs
+    (within PROBE_LOGP_TOL: the same steps over a pool whose positions
+    past each rewound cursor are poisoned), turn 2 on prefills exactly its
+    observation, every transcript_len adds up, every turn ran on
+    version 0."""
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, LLMAPIClient
+    from areal_tpu_torch.system.episode import (
+        EpisodeController, ServerEpisodeClient, ToolExecutor,
+    )
+
+    g = GenerationHyperparameters(n=1, max_new_tokens=EP_MAX_NEW, greedy=True, stop=stops)
+    tools = ToolExecutor(timeout_s=10.0)
+    logs = [_TurnLog(ServerEpisodeClient(LLMAPIClient(url), g, token_budget=EP_BUDGET))
+            for _ in prompts]
+    eps, errors = [None] * len(prompts), []
+    start = threading.Barrier(len(prompts))
+
+    def run(i):
+        start.wait(timeout=60.0)
+        try:
+            ctl = EpisodeController(logs[i], tools, _ep_parse, _ep_encode, max_turns=EP_TURNS)
+            eps[i] = ctl.run_episode(f"{tag}-{i}", prompts[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{tag}-{i}: {e!r}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600.0)
+    wall = time.monotonic() - t0
+    check(not errors and all(ep is not None for ep in eps), f"[episodes] {tag}: {errors}")
+    n_tok = obs_prefill = transcript_tokens = 0
+    stop_turns, probe_err = [], 0.0
+    for i, (ep, lg) in enumerate(zip(eps, logs)):
+        a_turns = [t for t in ep.turns if t.role == "assistant"]
+        stop_turns.append(sum(t.stop_reason == "stop" for t in a_turns))
+        for k, (tok, lp) in enumerate((probes[i][:2], probes[i][2:])):
+            turn = a_turns[k]
+            check(turn.tokens == [tok] and turn.stop_reason == "stop",
+                  f"[episodes] {tag}-{i} turn {k}: {turn.tokens[:4]} ({turn.stop_reason}), "
+                  f"the probe read [{tok}]")
+            probe_err = max(probe_err, abs(turn.logprobs[0] - lp))
+        check(ep.status == "done" and len(lg.outs) == len(a_turns) and ep.slot_lost == 0,
+              f"[episodes] {tag}-{i}: {ep.status}, {len(lg.outs)} turns logged")
+        check(stop_turns[-1] >= 2, f"[episodes] {tag}-{i}: {stop_turns[-1]} stop turns "
+              f"({[t.stop_reason for t in a_turns]})")
+        length = len(prompts[i])
+        for k, out in enumerate(lg.outs):
+            turn = a_turns[k]
+            if k > 0:
+                obs = ep.turns[2 * k - 1].tokens
+                check(out["prefill_tokens"] == len(obs), f"[episodes] {tag}-{i} turn {k}: "
+                      f"prefilled {out['prefill_tokens']} for a {len(obs)}-token observation")
+                length += len(obs)
+                obs_prefill += out["prefill_tokens"]
+            length += len(turn.tokens)
+            check(out["transcript_len"] == length, f"[episodes] {tag}-{i} turn {k}: "
+                  f"transcript_len {out['transcript_len']} != {length}")
+            check(out["version"] == out["version_start"] == 0, f"[episodes] {tag}-{i}: version")
+            check(len(turn.logprobs) == len(turn.tokens)
+                  and all(math.isfinite(x) and x <= 1e-6 for x in turn.logprobs),
+                  f"[episodes] {tag}-{i} turn {k}: bad logprobs")
+            check(all(0 <= t < 151936 for t in turn.tokens), f"[episodes] {tag}-{i}: bad id")
+            n_tok += len(turn.tokens)
+        check(ep.transcript() == prompts[i] + ep.response_text_tokens(), f"[episodes] {tag}-{i}")
+        transcript_tokens += len(ep.transcript())
+    check(probe_err <= PROBE_LOGP_TOL, f"[episodes] {tag}: turns 1-2 logprobs {probe_err:.3e} "
+          f"from the probe's")
+    lat = sorted(x for lg in logs for x in lg.lat)
+    out = dict(
+        episodes=len(eps), turns=len(lat), stop_turns=stop_turns, probe_logp_err=probe_err,
+        stop_reasons=[ep.stop_reason for ep in eps], tokens=n_tok, wall_s=wall,
+        tokens_per_s=n_tok / wall, turn_p50_s=lat[len(lat) // 2],
+        turn_p90_s=lat[min(len(lat) - 1, math.ceil(0.9 * len(lat)) - 1)],
+        obs_prefill_tokens=obs_prefill, transcript_tokens=transcript_tokens,
+        transcripts={ep.episode_id: ep.transcript() for ep in eps},
+    )
+    log(f"[episodes] {tag}: {len(eps)} calculator episodes on {len(eps)} client threads: "
+        f"{len(lat)} assistant turns ({sum(stop_turns)} ending in a stop; per episode "
+        f"{stop_turns}), {n_tok} tokens in {wall:.2f} s = {out['tokens_per_s']:.1f} tok/s; turn "
+        f"latency p50 {out['turn_p50_s']:.3f} s, p90 {out['turn_p90_s']:.3f} s; observation "
+        f"prefill {obs_prefill} tokens against {transcript_tokens} transcript tokens; turns 1-2 "
+        f"equal the probe's tokens, logprobs within {probe_err:.3e}")
+    return out
+
+
+def _ep_push(tag, engine, server, rec, cfg, seed):
+    """(e): a mid-turn in-memory push.  An episode whose first turn needs
+    several chunks (a 400-token prompt, no stop) is held after its first
+    chunk; update_weights_inmem(init_params(seed + 1)) then parks the
+    turn, swaps the weights and resumes it: episode_resume replays the
+    slot's last chunk tail (K3) and the turn ends under version 1."""
+    import numpy as np
+
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, LLMAPIClient
+    from areal_tpu_torch.base import integrity
+    from areal_tpu_torch.models.transformer import init_params
+
+    rng = np.random.default_rng(seed + 71)
+    prompt = rng.integers(0, cfg.vocab_size, 400).tolist()
+    g = GenerationHyperparameters(n=1, max_new_tokens=EP_MAX_NEW, greedy=True)
+    new = init_params(cfg, seed + 1, device="cuda")
+    checksum = integrity.params_checksum(new)
+    replays0 = engine.resume_replays
+    box = {}
+    rec["hold"] = True
+
+    def run():
+        try:
+            box["turn"] = LLMAPIClient(server.url).episode_start(
+                f"{tag}-push", prompt, g, token_budget=EP_BUDGET)
+        except Exception as e:  # noqa: BLE001 — reported below
+            box["error"] = repr(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    check(rec["in_turn"].wait(timeout=300), f"[episodes] {tag}: the push episode never ran")
+    t0 = time.monotonic()
+    version = server.update_weights_inmem(new, checksum=checksum)
+    push_s = time.monotonic() - t0
+    th.join(timeout=300.0)
+    rec["hold"] = False
+    del new
+    check(not th.is_alive() and "error" not in box, f"[episodes] {tag}: push episode {box}")
+    turn = box["turn"]
+    replays = engine.resume_replays - replays0
+    log(f"[episodes] {tag}: push mid-turn took {push_s:.3f} s -> version {version}; the turn "
+        f"resumed with {replays} replay(s) and ended '{turn['stop_reason']}' with "
+        f"{len(turn['tokens'])} tokens, versions {turn['version_start']} -> {turn['version']}")
+    check(version == 1 and (turn["version_start"], turn["version"]) == (0, 1),
+          f"[episodes] {tag}: the turn did not span the push: {turn['version_start']}, "
+          f"{turn['version']}")
+    check(replays == 1, f"[episodes] {tag}: {replays} replays")
+    check(engine.episode_stats()["parked_mid_turn"] == 0 and not engine.interrupt_requested,
+          f"[episodes] {tag}: left parked")
+    check(len(turn["tokens"]) == EP_MAX_NEW and turn["transcript_len"] == 400 + EP_MAX_NEW,
+          f"[episodes] {tag}: push turn {len(turn['tokens'])} tokens")
+    return dict(push_s=push_s, replays=replays)
+
+
+def _ep_engine_run(tag, cfg, params, prompts, seed, stops, probes, ekw, extra=None):
+    """One engine of the episodes phase: (a) the calculator episodes, the
+    caller's `extra` steps, then (e) the push; the launch counts are set
+    to 0 just before and read just after, and held to the engine's own
+    inner steps (K2) and replays (K3)."""
+    import torch
+
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    engine = GeneratorEngine(cfg, params, eos_token_id=EP_EOS, max_decode_batch=EP_SLOTS, **ekw)
+    check(engine.device.type == "cuda", "[episodes] the engine is not on the card")
+    rec = {"events": [], "in_turn": threading.Event(), "poisoned": 0}
+    _ep_chunk_hook(engine, rec)
+    _ep_poison_hook(engine, rec)
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=2.0)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0, replays0 = engine.steps_total, engine.resume_replays
+        _reset_counts()
+        out = _ep_calc(tag, server.url, prompts, stops, probes)
+        if extra is not None:
+            out.update(extra(engine, server, out))
+        out.update(_ep_push(tag, engine, server, rec, cfg, seed))
+        torch.cuda.synchronize()
+        counts = _trial_counts()
+        steps = engine.steps_total - steps0
+        replays = engine.resume_replays - replays0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.close()
+    L = cfg.n_layers
+    want = dict(fwd=0, dq=0, dkv=0, k2=L * steps, k3=L * replays, k4=0)
+    chunk_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+    st = engine._ep_session
+    out.update(inner_steps=steps, resume_replays=replays, launches=counts, peak_mem_bytes=peak,
+               chunks=len(rec["events"]), decode_step_ms=chunk_ms / max(steps, 1),
+               chunk_builds=engine.decode_compiles, stats=engine.episode_stats(),
+               poisoned_positions=rec["poisoned"])
+    log(f"[episodes] {tag}: {steps} inner steps in {len(rec['events'])} chunks, "
+        f"{out['decode_step_ms']:.3f} ms a step (CUDA events around each chunk); "
+        f"{rec['poisoned']} positions past rewound cursors poisoned; chunk builds "
+        f"{engine.decode_compiles}; resume_replays {replays}; launches {counts}; stats "
+        f"{out['stats']}; peak mem {peak / 2**30:.2f} GiB")
+    check(counts == want, f"[episodes] {tag}: launches {counts} != {want}")
+    check(replays >= 1 and counts["k3"] > 0, f"[episodes] {tag}: no K3 replay")
+    check(engine.decode_compiles == 1 and len(st.chunk_fns) == 1,
+          f"[episodes] {tag}: the serving chunk was built {engine.decode_compiles} times")
+    check(rec.get("sync_ok") and "sync_error" not in rec,
+          f"[episodes] {tag}: a chunk synchronised with the host: {rec.get('sync_error')}")
+    check(engine.dead_live_lanes == 0, f"[episodes] {tag}: dead live lanes")
+    log(f"[episodes] {tag}: chunk 2 of {len(rec['events'])} ran under "
+        f"set_sync_debug_mode('error'): no host sync")
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ep_tools_and_readmit(engine, server, calc, py_prompt, stops):
+    """(b) python_exec once, in a two-turn episode whose first turn ends
+    on the stop set (its prompt was probed with the others); (c) a
+    re-admission after SlotGone: an (a) episode, already released, is
+    extended (typed 409, the slot-lost counter up by one), then started
+    again with its full transcript: it maps its published pages and
+    prefills the tail."""
+    from areal_tpu_torch.api.model_api import (
+        GenerationHyperparameters, LLMAPIClient, SlotGoneError,
+    )
+    from areal_tpu_torch.base import metrics
+    from areal_tpu_torch.system.episode import (
+        EpisodeController, ServerEpisodeClient, ToolCall, ToolExecutor,
+    )
+
+    api = LLMAPIClient(server.url)
+    g = GenerationHyperparameters(n=1, max_new_tokens=EP_MAX_NEW, greedy=True)
+    seen = {}
+
+    def parse_py(toks):
+        a, b = (list(toks) * 2)[-2:]
+        seen["want"] = str(a % 9 + b % 9)
+        return ToolCall("python_exec", f"print({a % 9} + {b % 9})")
+
+    def encode(call, text, ok):
+        seen.update(text=text, ok=ok)
+        return _ep_encode(call, text.strip(), ok)
+
+    tools = ToolExecutor(timeout_s=10.0)
+    ep = EpisodeController(ServerEpisodeClient(api, g.new(stop=stops), token_budget=EP_BUDGET),
+                           tools, parse_py, encode, max_turns=2)
+    t0 = time.monotonic()
+    episode = ep.run_episode("py-0", py_prompt)
+    py_s = time.monotonic() - t0
+    tool_turns = [t for t in episode.turns if t.role == "tool"]
+    check(len(tool_turns) == 1 and tool_turns[0].tool_name == "python_exec",
+          f"[episodes] (b) py-0 ran no python_exec turn: {[t.role for t in episode.turns]}")
+    t = tool_turns[0]
+    log(f"[episodes] (b) python_exec in episode py-0: ok={t.tool_ok} in "
+        f"{t.tool_latency_s:.3f} s, output {seen['text'][:80]!r} (want {seen['want']}); "
+        f"episode ended '{episode.stop_reason}'")
+    check(t.tool_latency_s < 12.0, "[episodes] (b) python_exec did not finish within its timeout")
+    check((t.tool_ok and seen["text"].strip() == seen["want"])
+          or (not t.tool_ok and seen["text"].startswith("tool error (")),
+          f"[episodes] (b) python_exec: {seen}")
+    counter = metrics.default_registry().get("areal_gen_episode_slot_lost_total")
+    lost0 = counter.get()
+    transcript = calc["transcripts"]["calc-0"]
+    try:
+        api.episode_extend("calc-0", [9])
+        gone = False
+    except SlotGoneError:
+        gone = True
+    check(gone and counter.get() == lost0 + 1,
+          f"[episodes] (c) extend after release: typed={gone}, counter {lost0} -> {counter.get()}")
+    turn = api.episode_start("calc-0", transcript, g, token_budget=EP_BUDGET)
+    shared = turn["shared_prefix_tokens"]
+    api.episode_release("calc-0")
+    log(f"[episodes] (c) SlotGone (HTTP 409) on calc-0, then its {len(transcript)}-token "
+        f"transcript re-admitted: {shared} tokens mapped from the prefix cache, "
+        f"{turn['prefill_tokens']} prefilled")
+    check(shared > 0 and turn["prefill_tokens"] == len(transcript) - shared,
+          f"[episodes] (c) re-admission: shared {shared}, prefilled {turn['prefill_tokens']}")
+    return dict(python_exec_s=py_s, readmit_shared=shared,
+                readmit_prefill=turn["prefill_tokens"], readmit_transcript=len(transcript))
+
+
+def _ep_eviction(cfg, params, seed):
+    """(d): LRU eviction under a tight pool (kv_pool_pages=7 of 128
+    tokens; three 300-token episodes need 3 pages each).  The third start
+    evicts the least recently admitted parked episode, whose extend then
+    gets the typed SlotGone; its re-admission evicts the next."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.model_api import (
+        GenerationHyperparameters, LLMAPIClient, SlotGoneError,
+    )
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    rng = np.random.default_rng(seed + 83)
+    prompts = [rng.integers(0, cfg.vocab_size, 300).tolist() for _ in range(3)]
+    engine = GeneratorEngine(cfg, params, eos_token_id=EP_EOS, max_decode_batch=EP_SLOTS,
+                             kv_pool_pages=7)
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=2.0)
+    g = GenerationHyperparameters(n=1, max_new_tokens=EP_MAX_NEW, greedy=True)
+    try:
+        api = LLMAPIClient(server.url)
+        t0 = time.monotonic()
+        steps0 = engine.steps_total
+        _reset_counts()
+        turns = [api.episode_start(f"ev-{i}", p, g, token_budget=EP_BUDGET)
+                 for i, p in enumerate(prompts)]
+        after_three = engine.episode_stats()
+        try:
+            api.episode_extend("ev-0", [9])
+            gone = False
+        except SlotGoneError:
+            gone = True
+        again = api.episode_start("ev-0", prompts[0] + turns[0]["tokens"] + [9], g,
+                                  token_budget=EP_BUDGET)
+        torch.cuda.synchronize()
+        counts, steps = _trial_counts(), engine.steps_total - steps0
+        secs = time.monotonic() - t0
+        final = engine.episode_stats()
+    finally:
+        server.close()
+    log(f"[episodes] (d) pool of 7 pages: after three starts {after_three}; ev-0 extend typed "
+        f"SlotGone={gone}; its re-admission prefilled {again['prefill_tokens']} tokens; final "
+        f"{final}; {steps} inner steps, launches {counts}; {secs:.1f} s")
+    L = cfg.n_layers
+    check(after_three["evicted"] == 1 and gone, f"[episodes] (d) eviction: {after_three}, {gone}")
+    check(final["evicted"] == 2 and final["active"] == 2, f"[episodes] (d) final {final}")
+    check(counts == dict(fwd=0, dq=0, dkv=0, k2=L * steps, k3=0, k4=0),
+          f"[episodes] (d) launches {counts}")
+    check(engine.decode_compiles == 1, "[episodes] (d) chunk builds")
+    del engine, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stats=final, inner_steps=steps, launches=counts, seconds=secs)
+
+
+def phase_episodes(report, seed):
+    """Agent episodes at full qwen2-1.5B (28 layers, bf16, random weights
+    from --seed) through GenerationServer's POST /episode and the port's
+    LLMAPIClient: (a) 8 calculator episodes (the serve burst's first 8
+    prompts, 64-512 tokens; max_turns 3, 32 new tokens a turn, a 2048-token
+    budget, observations of at most 6 tokens), each on its own client
+    thread; (b) python_exec once; (c) a SlotGone re-admission that maps
+    the published prefix; (d) LRU eviction under a tight pool; (e) a
+    mid-turn in-memory push (park, swap, episode_resume's K3 replay); (f)
+    (a) and (e) again over an int8 pool.  Checked: replies and turn
+    accounting, at least 2 stop turns an episode, launches K2 = 28 x
+    inner steps and K3 = 28 x replays (>= 1 in (e) and (f)), K1f and K4
+    0, one chunk build, no host sync in a chunk."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    cfg = qwen2_config("1.5b")
+    rng = np.random.default_rng(seed)
+    prompts = [  # the serve phase's prompts, its first 8 of 16
+        rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+        for _ in range(16)
+    ][:8]
+    t_phase = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    runs = {}
+    py_prompt = np.random.default_rng(seed + 79).integers(0, cfg.vocab_size, 120).tolist()
+    for tag, ekw in (("calc", {}), ("calc_int8", dict(kv_cache_dtype="int8"))):
+        if tag == "calc":
+            stops, probes = _ep_stops(tag, cfg, params, prompts + [py_prompt], ekw)
+
+            def extra(engine, server, calc, stops=stops):
+                return _ep_tools_and_readmit(engine, server, calc, py_prompt, stops)
+        else:
+            (stops, probes), extra = _ep_stops(tag, cfg, params, prompts, ekw), None
+        runs[tag] = _ep_engine_run(tag, cfg, params, prompts, seed, stops, probes, ekw,
+                                   extra=extra)
+        runs[tag].pop("transcripts")
+        if tag == "calc":
+            runs["evict"] = _ep_eviction(cfg, params, seed)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["calc"]["launches"]}
+    secs = time.monotonic() - t_phase
+    log(f"[episodes] launches over the phase {launches}; {secs:.1f} s")
+    report["episodes"] = dict(runs=runs, launches=launches, seconds=secs)
+
+
 def _flat_params(tree, prefix=""):
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -4427,6 +5090,7 @@ def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
     gm_launches = report.get("genmodes", {}).get("launches", {})
+    ep_launches = report.get("episodes", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -4439,6 +5103,7 @@ def _kernels_line(report):
         "launches_recover": rc_launches.get("k2"),
         "launches_genmodes": gm_launches.get("k2"),
         "launches_push_int8": report.get("push_int8", {}).get("k2_launches"),
+        "launches_episodes": ep_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -4483,6 +5148,7 @@ def _kernels_line(report):
             "launches_quickstart": qs_launches.get(name),
             "launches_recover": rc_launches.get(name),
             "launches_genmodes": gm_launches.get(name),
+            "launches_episodes": ep_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -4519,6 +5185,7 @@ def _kernels_line(report):
         "launches_quickstart": qs_launches.get("k3"),
         "launches_recover": rc_launches.get("k3"),
         "launches_genmodes": gm_launches.get("k3"),
+        "launches_episodes": ep_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -4579,6 +5246,7 @@ def _kernels_line(report):
         "launches_quickstart": qs_launches.get("k4"),
         "launches_recover": rc_launches.get("k4"),
         "launches_genmodes": gm_launches.get("k4"),
+        "launches_episodes": ep_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -4638,34 +5306,28 @@ def main() -> int:
     sys.path.insert(0, REPO)
     t_start = time.monotonic()
     report = {}  # each phase's numbers for the kernels line
-    if "build" in phases:
-        phase_build()
-    if "kernel" in phases:
-        phase_kernel(report, args.seed)
-    if "flash" in phases:
-        phase_flash(report, args.seed)
-    if "serve" in phases:
-        phase_serve(report, args.seed)
-    if "static" in phases:
-        phase_static(report, args.seed)
-    if "push" in phases:
-        phase_push(report, args.seed)
-    if "resume_parity" in phases:
-        phase_resume_parity(report, args.seed)
-    if "train" in phases:
-        phase_train(report, args.seed)
-    if "ppo" in phases:
-        phase_ppo(report, args.seed)
-    if "quickstart" in phases:
-        phase_quickstart(report, args.seed)
-    if "recover" in phases:
-        phase_recover(report, args.seed)
-    if "genmodes" in phases:
-        phase_genmodes(report, args.seed)
-    if "parity" in phases:
-        phase_parity(args.seed)
-    if "train_parity" in phases:
-        phase_train_parity(args.seed)
+    runners = {
+        "build": phase_build,
+        "kernel": lambda: phase_kernel(report, args.seed),
+        "flash": lambda: phase_flash(report, args.seed),
+        "serve": lambda: phase_serve(report, args.seed),
+        "static": lambda: phase_static(report, args.seed),
+        "push": lambda: phase_push(report, args.seed),
+        "resume_parity": lambda: phase_resume_parity(report, args.seed),
+        "train": lambda: phase_train(report, args.seed),
+        "ppo": lambda: phase_ppo(report, args.seed),
+        "quickstart": lambda: phase_quickstart(report, args.seed),
+        "recover": lambda: phase_recover(report, args.seed),
+        "genmodes": lambda: phase_genmodes(report, args.seed),
+        "episodes": lambda: phase_episodes(report, args.seed),
+        "parity": lambda: phase_parity(args.seed),
+        "train_parity": lambda: phase_train_parity(args.seed),
+    }
+    for name in PHASES:  # in this order, whatever the order asked
+        if name in phases:
+            t0 = time.monotonic()
+            runners[name]()
+            log(f"[time] {name}: {time.monotonic() - t0:.1f} s")
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     log_card()  # again here: a long run's output may keep only its tail
     print(json.dumps({"kernels": _kernels_line(report)}), flush=True)

@@ -176,7 +176,6 @@ def test_offload_ref_e2e(tmp_path):
     ("placement", {"actor_gen": 1}, "items 7 and 8"),
     ("anomaly_kl_max", 1.0, "item 6"),
     ("anomaly_grad_norm_mult", 2.0, "item 6"),
-    ("episode_max_turns", 2, "item 5.4"),
     ("train_backend_args", {"master_dtype": "bfloat16"}, "item 6"),
     ("train_backend_args", {"remat_policy": "dots"}, "item 6"),
 ])
@@ -190,7 +189,8 @@ def test_unported_options_raise(tmp_path, option, value, item):
 # trial on the CPU: the difficulty filter, recover checkpoints, the EMA
 # reference model, an int8 KV pool (which the static path ignores and
 # the inflight paths honour, as in the JAX package), the dense KV window,
-# the two-program admit path and speculative decoding.
+# the two-program admit path, speculative decoding and the agent-episode
+# options (carried, read by no code of the in-process trial: see below).
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
     ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
@@ -199,6 +199,9 @@ FORMERLY_UNPORTED = [
     ("kv_paged", False),
     ("prefill_chunk_tokens", 0),
     ("gconfig", GenerationHyperparameters(n=2, max_new_tokens=8, spec_decode_k=2)),
+    ("episode_max_turns", 2),
+    ("episode_token_budget", 64),
+    ("tool_timeout_s", 1.0),
 ]
 
 
@@ -223,6 +226,59 @@ def test_formerly_unported_options_run(tmp_path, option, value):
         assert engine.prefill_chunk_tokens == 0
     if option == "gconfig":
         assert engine.steps_total > 0  # spec decoding takes the inflight path
+
+
+EPISODE_OPTIONS = dict(episode_max_turns=2, episode_token_budget=64, tool_timeout_s=1.0)
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_episode_options_leave_the_trial_unchanged(tmp_path, package):
+    """A behaviour of the reference, pinned in both packages: the three
+    agent-episode options are carried by PPOMathConfig and read by no code
+    of the in-process trial (only an episode runner on the rollout
+    controller drives episodes), so the same trial with and without them
+    gives equal stats."""
+    rows = fixtures.build_math_rows(8, seed=4)
+    if package == "jax":
+        from areal_tpu.api.config import ModelAbstraction as JMA
+
+        def cfg(sub, **kw):
+            return jexps.PPOMathConfig(
+                actor=JMA("random", {"config": jtiny()}), ref=JMA("random", {"config": jtiny()}),
+                dataset=JDatasetAbstraction(
+                    "math_code_prompt", {"dataset_builder": lambda: rows, "max_length": 64}),
+                reward_interface_args={"id2info": {r["query_id"]: r for r in rows}},
+                gconfig=JGenerationHyperparameters(n=2, max_new_tokens=8),
+                ppo_kwargs={"n_minibatches": 2, "kl_ctl": 0.1},
+                optimizer=JOptimizerConfig(lr=1e-4, warmup_steps_proportion=0.0),
+                batch_size=4, total_train_epochs=1, ctrl=JCtrl(benchmark_steps=2),
+                fileroot=str(tmp_path / sub), **kw,
+            )
+
+        def run(c):
+            tok = fixtures.make_tokenizer()
+            return jexps.run_experiment(jexps.build_ppo_math(c, tok), tokenizer=tok)[1]
+    else:
+        def cfg(sub, **kw):
+            return _e2e_cfg(tmp_path / sub, "grpo", **kw)
+
+        def run(c):
+            tok = CharTokenizer(512)
+            return exps.run_experiment(exps.build_ppo_math(c, tok), tokenizer=tok,
+                                       device="cpu")[1]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU kernels then reduce in one order
+    try:
+        plain = run(cfg("plain"))
+        with_opts = run(cfg("episodes", **EPISODE_OPTIONS))
+    finally:
+        torch.set_num_threads(threads)
+    assert len(plain) == len(with_opts) == 2
+    for a, b in zip(plain, with_opts):
+        keys = [k for k in a if "/perf/" not in k and "/time" not in k and "time/" not in k]
+        assert set(keys) <= set(b) and len(keys) > 10
+        assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
 
 
 def test_master_refuses_more_than_one_worker(tmp_path):

@@ -456,3 +456,149 @@ def test_corrupted_push_is_refused_and_old_weights_serve(params):
         assert again.output_ids == served.output_ids
     finally:
         srv.close()
+
+
+# --------------------------------------------------------------------------
+# Agent episodes over HTTP (twins of TestEpisodeServing in
+# tests/test_gen_server.py): the port's client and the JAX package's both
+# drive POST /episode on the port's server.
+# --------------------------------------------------------------------------
+
+EP_EOS = jtiny().vocab_size + 7  # outside the vocab: turns end on stops
+
+
+def _episode_server(**ekw):
+    eng = GeneratorEngine(tiny_config(), _torch_params(13), "cpu", eos_token_id=EP_EOS,
+                          kv_page_size=8, prefill_chunk_tokens=4, max_decode_batch=2, **ekw)
+    return eng, GenerationServer(eng, max_wait_ms=2.0)
+
+
+def _clients(url):
+    from areal_tpu_torch.api import model_api as tapi
+
+    return {"port": (tapi.LLMAPIClient(url), tapi.GenerationHyperparameters,
+                     tapi.SlotGoneError),
+            "jax": (LLMAPIClient(url), GenerationHyperparameters,
+                    __import__("areal_tpu.api.model_api", fromlist=["x"]).SlotGoneError)}
+
+
+@pytest.fixture(scope="module")
+def ep_env():
+    eng, srv = _episode_server()
+    rng = np.random.default_rng(7)
+    prompt = [int(x) for x in rng.integers(8, jtiny().vocab_size, size=10)]
+    probe = LLMAPIClient(srv.url).generate(APIGenerateInput(
+        qid="probe", prompt_ids=prompt,
+        gconfig=GenerationHyperparameters(n=1, max_new_tokens=8, greedy=True),
+    ))
+    yield srv, prompt, [int(t) for t in probe.output_ids[0]]
+    srv.close()
+
+
+@pytest.mark.parametrize("who", ["port", "jax"])
+def test_http_episode_lifecycle(ep_env, who):
+    """start -> extend -> release through either package's client: turn 0
+    ends on the probe's stop pair (kept in the turn), turn 1 prefills
+    only the observation, and the transcript adds up."""
+    srv, prompt, toks = ep_env
+    client, G, _ = _clients(srv.url)[who]
+    g = G(n=1, max_new_tokens=8, greedy=True, stop=(tuple(toks[2:4]),))
+    t1 = client.episode_start(f"ep-{who}", prompt, g, token_budget=64)
+    assert t1["stop_reason"] == "stop"
+    assert t1["tokens"][-2:] == toks[2:4] and t1["tokens"] == toks[: len(t1["tokens"])]
+    assert t1["version"] == t1["version_start"] == 0
+    obs = [int(x) + 1 for x in prompt[:3]]
+    t2 = client.episode_extend(f"ep-{who}", obs)
+    assert t2["prefill_tokens"] == len(obs)
+    assert t2["transcript_len"] == len(prompt) + len(t1["tokens"]) + len(obs) + len(t2["tokens"])
+    assert len(t2["logprobs"]) == len(t2["tokens"])
+    assert client.episode_release(f"ep-{who}")["released"] is True
+    assert client.episode_release(f"ep-{who}")["released"] is False
+
+
+@pytest.mark.parametrize("who", ["port", "jax"])
+def test_http_continuation_on_reclaimed_slot_is_typed(ep_env, who):
+    """A continuation after release gets HTTP 409 with the slot_gone body,
+    which either client raises as its SlotGoneError; the server's
+    slot-lost counter goes up by one."""
+    from areal_tpu_torch.base import metrics
+
+    srv, prompt, toks = ep_env
+    client, G, Gone = _clients(srv.url)[who]
+    g = G(n=1, max_new_tokens=8, greedy=True, stop=(tuple(toks[2:4]),))
+    client.episode_start(f"gone-{who}", prompt, g, token_budget=64)
+    client.episode_release(f"gone-{who}")
+    counter = metrics.default_registry().get("areal_gen_episode_slot_lost_total")
+    lost0 = counter.get()
+    with pytest.raises(Gone) as ei:
+        client.episode_extend(f"gone-{who}", [9, 10])
+    assert ei.value.episode_id == f"gone-{who}" and ei.value.reason == "slot reclaimed"
+    assert counter.get() == lost0 + 1
+    req = urllib.request.Request(
+        srv.url + "/episode", headers={"Content-Type": "application/json"},
+        data=json.dumps({"op": "extend", "episode_id": "nobody", "obs_ids": [1]}).encode(),
+    )
+    with pytest.raises(urllib.error.HTTPError) as he:
+        urllib.request.urlopen(req, timeout=30)
+    assert he.value.code == 409
+    assert json.loads(he.value.read())["error_type"] == "slot_gone"
+
+
+def test_push_during_an_episode_turn_and_a_generate_burst():
+    """A push lands while an episode turn runs and a /generate burst waits
+    for the engine: the turn parks mid-turn, the burst's call parks, the
+    weights swap, the turn resumes on its pages (one K3 replay) and ends
+    under version 1, the burst finishes, and no interrupt or parked
+    session is left behind."""
+    eng, srv = _episode_server()
+    eng.static_path_max_new = 0  # the burst takes the serving plane, which parks
+    in_turn = threading.Event()
+    real_chunk_fn = eng._episode_chunk_fn
+
+    def chunk_fn(st, g):
+        fn = real_chunk_fn(st, g)
+
+        def run(*a, **k):
+            out = fn(*a, **k)
+            if not in_turn.is_set():  # hold the turn after its first chunk
+                in_turn.set()
+                deadline = time.monotonic() + 60
+                while not eng.interrupt_requested and time.monotonic() < deadline:
+                    time.sleep(0.005)
+            return out
+
+        return run
+
+    eng._episode_chunk_fn = chunk_fn
+    try:
+        client = LLMAPIClient(srv.url)
+        g = GenerationHyperparameters(n=1, max_new_tokens=48, greedy=True)
+        box = {}
+        ep = threading.Thread(target=lambda: box.update(turn=client.episode_start(
+            "ep-push", list(range(20, 41)), g, token_budget=128)))
+        ep.start()
+        assert in_turn.wait(timeout=60), "the episode turn never ran a chunk"
+        inps = [APIGenerateInput(qid=f"q{i}", prompt_ids=[10 + i, 11, 12, 13], gconfig=g)
+                for i in range(3)]
+        burst = threading.Thread(target=lambda: box.update(outs=client.generate_batch(inps)))
+        burst.start()
+        time.sleep(0.3)  # the burst's call is queued behind the engine lock
+        pushed = {}
+        pusher = threading.Thread(
+            target=lambda: pushed.update(v=srv.update_weights_inmem(_torch_params(99))))
+        pusher.start()
+        for th in (pusher, ep, burst):
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in (pusher, ep, burst))
+        assert pushed["v"] == srv.version == 1
+        turn = box["turn"]
+        assert (turn["version_start"], turn["version"]) == (0, 1)
+        assert turn["stop_reason"] == "length" and len(turn["tokens"]) == 48
+        assert eng.resume_replays == 1  # the turn's replay; the burst had no live row
+        for o in box["outs"]:
+            assert o.version == 1 and len(o.output_ids[0]) == 48
+        assert not eng.interrupted and not eng.interrupt_requested
+        assert eng.episode_stats()["parked_mid_turn"] == 0
+        assert client.health()["paused"] is False
+    finally:
+        srv.close()

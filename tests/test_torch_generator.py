@@ -208,18 +208,23 @@ def test_small_pool_waits_for_pages(weights, mesh):
 
 
 def test_unported_paths_raise(weights):
-    """Agent episodes (ROADMAP queue 1, item 5.4) still raise.  The modes
-    of items 5.1-5.3, which raised here before, now run and give the
-    serving plane's greedy tokens: speculative decoding, the dense window
-    (kv_paged=False) and the two-program admit path
+    """Every path of ROADMAP queue 1 item 5 that raised here now runs.
+    Agent episodes (item 5.4): a one-turn episode's greedy tokens are the
+    serving plane's for the same prompt (tests/test_torch_episode_engine.py
+    holds them against the JAX engine).  The modes of items 5.1-5.3 give
+    the serving plane's greedy tokens: speculative decoding, the dense
+    window (kv_paged=False) and the two-program admit path
     (prefill_chunk_tokens=0)."""
     _, pt = weights
     _, ts = _samples((5, 9))
     eng = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5.4"):
-        eng.episode_start()
     g = GenerationHyperparameters(max_new_tokens=6, greedy=True)
     want = eng.generate(ts, MicroBatchSpec(), g, inflight=True)
+    prompt = np.asarray(ts.data["packed_prompts"])[:5].tolist()
+    turn = eng.episode_start("e", prompt, g, token_budget=64)
+    full = np.asarray(want.data["packed_input_ids"])
+    assert turn["tokens"] == full[5 : 5 + len(turn["tokens"])].tolist()
+    assert turn["prefill_tokens"] == 5 and eng.episode_release("e")
     outs = [eng.generate(ts, MicroBatchSpec(), g.new(spec_decode_k=2))]
     for kw in (dict(kv_paged=False), dict(prefill_chunk_tokens=0)):
         e = GeneratorEngine(tiny_config(), pt, "cpu", eos_token_id=EOS,

@@ -107,9 +107,6 @@ UNPORTED = [
     (["--overlap-window", "3"], "item 6"),
     (["--pipeline-chunk-seqs", "2"], "item 6"),
     (["--anomaly-kl-max", "1.0"], "item 6"),
-    (["--episode-max-turns", "2"], "item 5.4"),
-    (["--episode-token-budget", "64"], "item 5.4"),
-    (["--tool-timeout-s", "1"], "item 5.4"),
     (["--verifier-pool"], "item 7"),
     (["--mixture-weight", "math=1"], "item 7"),
     (["--mixture-adaptive"], "item 7"),
@@ -151,6 +148,9 @@ FORMERLY_UNPORTED = [
     ["--no-paged-kv"],
     ["--prefill-chunk-tokens", "0"],
     ["--spec-decode-k", "2"],
+    ["--episode-max-turns", "2"],
+    ["--episode-token-budget", "64"],
+    ["--tool-timeout-s", "1"],
 ]
 
 
