@@ -1,21 +1,26 @@
-"""Quickstart CLI: `python -m areal_tpu_torch.apps.quickstart ppo-math [options]`
-(port of areal_tpu/apps/quickstart.py, the in-process `ppo-math` trial).
+"""Quickstart CLI: `python -m areal_tpu_torch.apps.quickstart {sft,ppo-math} [options]`
+(port of areal_tpu/apps/quickstart.py, the in-process `sft` and
+`ppo-math` trials).
 
+    python -m areal_tpu_torch.apps.quickstart sft \\
+        --model.path /ckpts/qwen2-1.5b --dataset.path sft.jsonl \\
+        --tokenizer-path char:151936 --batch-size 8 --save-freq-steps 100
     python -m areal_tpu_torch.apps.quickstart ppo-math \\
         --model.path /ckpts/qwen2-1.5b --dataset.path math.jsonl \\
-        --tokenizer-path char:151936 --ref-path /ckpts/qwen2-1.5b --kl-ctl 0.1
+        --tokenizer-path char:151936 --ref-path /ckpts/qwen2-1.5b --kl-ctl 0.1 \\
+        --pipeline-overlap --overlap-window 2 --pipeline-chunk-seqs 2
 
 The flags are the JAX package's, and `--config <yaml>` sets their
 defaults from a file (keys spelled as the flags, e.g. `model.path`,
 `batch-size`; flags on the command line win).  The trial runs in this
-process on the CUDA card: every model on one worker, `build_ppo_math` ->
-`run_experiment` -> the master's synchronous steps; the last step's
+process on the CUDA card: every model on one worker, `build_sft` or
+`build_ppo_math` -> `run_experiment` -> the master's steps (with
+`--pipeline-overlap`, streamed in chunks); the last step's
 stats are printed as one JSON line.  With `--ckpt-freq-steps N` the
 master writes a recover checkpoint every N steps; rerunning the same
 command (the same `--fileroot`, experiment and trial name) resumes the
 trial from the last one.  Flags whose features the port does not have
-yet exit with a message naming the ROADMAP item that brings them; so
-does the `sft` experiment.
+yet exit with a message naming the ROADMAP item that brings them.
 """
 
 import argparse
@@ -45,8 +50,6 @@ _UNPORTED_FLAGS = {
     "recover_retries": "item 7 (worker-death recovery over the multi-process runtime)",
     "mfc_timeout_s": "item 7 (worker-death recovery over the multi-process runtime)",
     "worker_heartbeat_s": "item 7 (the ZMQ transport)",
-    "anomaly_grad_norm_mult": "item 6 (the tunable sentinels)",
-    "anomaly_update_norm_max": "item 6 (the tunable sentinels)",
     "no_weight_push_checksum": "item 7 (cross-worker weight pushes)",
     "eval_data": "item 10 (scheduler/evaluator.py)",
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
@@ -61,10 +64,6 @@ _UNPORTED_FLAGS = {
     "inmem_weight_sync": "item 7 (remote generation servers)",
     "param_push_tree": "item 7 (the param store)",
     "param_push_fanout": "item 7 (the param store)",
-    "pipeline_overlap": "item 6 (the streamed train API)",
-    "overlap_window": "item 6 (the streamed train API)",
-    "pipeline_chunk_seqs": "item 6 (the streamed train API)",
-    "anomaly_kl_max": "item 6 (the batch sentinels)",
     "verifier_pool": "item 7 (the verifier fleet)",
     "mixture_weight": "item 7 (task mixtures)",
     "mixture_adaptive": "item 7 (task mixtures)",
@@ -111,8 +110,13 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--max-recoveries", type=int, default=3,
                    help="rollbacks to the recover checkpoint the master absorbs before "
                         "exiting non-zero")
-    p.add_argument("--anomaly-grad-norm-mult", type=float, default=0.0, help="not yet ported")
-    p.add_argument("--anomaly-update-norm-max", type=float, default=0.0, help="not yet ported")
+    p.add_argument("--anomaly-grad-norm-mult", type=float, default=0.0,
+                   help="quarantine a train step whose grad norm exceeds this multiple of "
+                        "the engine's running EWMA (must be > 1; 0 = off; non-finite "
+                        "loss/grads always quarantine)")
+    p.add_argument("--anomaly-update-norm-max", type=float, default=0.0,
+                   help="quarantine a train step whose optimizer update norm exceeds this "
+                        "ceiling (0 = off)")
     p.add_argument("--max-consecutive-quarantines", type=int, default=3,
                    help="consecutive quarantined steps before the master rolls back to the "
                         "last recover checkpoint (0 = never)")
@@ -172,10 +176,14 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--inmem-weight-sync", action="store_true", help="not yet ported")
     pp.add_argument("--param-push-tree", action="store_true", help="not yet ported")
     pp.add_argument("--param-push-fanout", type=int, default=2, help="not yet ported")
-    pp.add_argument("--pipeline-overlap", action="store_true", help="not yet ported")
-    pp.add_argument("--overlap-window", type=int, default=2, help="not yet ported")
-    pp.add_argument("--pipeline-chunk-seqs", type=int, default=1, help="not yet ported")
-    pp.add_argument("--anomaly-kl-max", type=float, default=None, help="not yet ported")
+    pp.add_argument("--pipeline-overlap", action="store_true",
+                    help="stream each step through the graph in chunks of prompts")
+    pp.add_argument("--overlap-window", type=int, default=2,
+                    help="chunks in flight (1 = the barrier path, bit for bit)")
+    pp.add_argument("--pipeline-chunk-seqs", type=int, default=1, help="prompts a chunk")
+    pp.add_argument("--anomaly-kl-max", type=float, default=None,
+                    help="quarantine a batch whose mean |logp - ref logp| over response "
+                         "tokens exceeds this")
     pp.add_argument("--episode-max-turns", type=int, default=0,
                     help="agent episodes: max assistant turns (carried to the config; the "
                          "in-process trial runs single-shot rollouts, as the JAX CLI does)")
@@ -255,14 +263,40 @@ def _ctrl(args) -> ExperimentSaveEvalControl:
     )
 
 
+def _run(plan, args, device):
+    from areal_tpu_torch.apps import main as runner
+
+    for wc in plan.worker_configs:
+        wc.tokenizer_path = args.tokenizer_path or args.model_path
+    stats = runner.run_experiment_inproc(plan, device=device)
+    print(json.dumps(stats[-1] if stats else {}), flush=True)
+    return stats
+
+
 def cmd_sft(args, device=None):
-    raise SystemExit("sft is not yet ported: it needs SFT's train step "
-                     "(ROADMAP queue 1, item 6)")
+    cfg = exps.SFTConfig(
+        model=ModelAbstraction("hf", {"path": args.model_path}),
+        dataset=DatasetAbstraction(
+            "prompt_answer", {"dataset_path": args.dataset_path, "max_length": args.max_seqlen}
+        ),
+        optimizer=OptimizerConfig(lr=args.lr),
+        batch_size=args.batch_size,
+        total_train_epochs=args.epochs,
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=args.max_tokens_per_mb),
+        ctrl=_ctrl(args),
+        seed=args.seed,
+        experiment_name=args.experiment_name or "sft",
+        trial_name=args.trial_name,
+        fileroot=args.fileroot,
+        max_recoveries=args.max_recoveries,
+        anomaly_grad_norm_mult=args.anomaly_grad_norm_mult,
+        anomaly_update_norm_max=args.anomaly_update_norm_max,
+        max_consecutive_quarantines=args.max_consecutive_quarantines,
+    )
+    return _run(exps.build_sft(cfg), args, device)
 
 
 def cmd_ppo_math(args, device=None):
-    from areal_tpu_torch.apps import main as runner
-
     ppo_kwargs = {}
     if args.kl_ctl:
         if not args.ref_path:
@@ -314,16 +348,17 @@ def cmd_ppo_math(args, device=None):
         fileroot=args.fileroot,
         max_recoveries=args.max_recoveries,
         max_consecutive_quarantines=args.max_consecutive_quarantines,
+        pipeline_overlap=args.pipeline_overlap,
+        overlap_window=args.overlap_window,
+        pipeline_chunk_seqs=args.pipeline_chunk_seqs,
+        anomaly_grad_norm_mult=args.anomaly_grad_norm_mult,
+        anomaly_update_norm_max=args.anomaly_update_norm_max,
+        anomaly_kl_max=args.anomaly_kl_max,
         episode_max_turns=args.episode_max_turns,
         episode_token_budget=args.episode_token_budget,
         tool_timeout_s=args.tool_timeout_s,
     )
-    plan = exps.build_ppo_math(cfg)
-    for wc in plan.worker_configs:
-        wc.tokenizer_path = args.tokenizer_path or args.model_path
-    stats = runner.run_experiment_inproc(plan, device=device)
-    print(json.dumps(stats[-1] if stats else {}), flush=True)
-    return stats
+    return _run(exps.build_ppo_math(cfg), args, device)
 
 
 def main(argv=None, device=None):
@@ -331,7 +366,7 @@ def main(argv=None, device=None):
     unless told otherwise).  Returns the per-step stats."""
     p = argparse.ArgumentParser(prog="areal_tpu_torch.apps.quickstart")
     sub = p.add_subparsers(dest="exp", required=True)
-    ps = sub.add_parser("sft", help="supervised fine-tuning (not yet ported)")
+    ps = sub.add_parser("sft", help="supervised fine-tuning")
     _add_common(ps)
     ps.add_argument("--max-seqlen", type=int, default=4096)
     ps.set_defaults(fn=cmd_sft)

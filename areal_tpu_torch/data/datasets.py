@@ -1,7 +1,9 @@
-"""RL prompt datasets and the packed batch loader (port of
-`PromptDataset`, `MathCodePromptDataset` and `PackedDataLoader` in
-areal_tpu/data/datasets.py).  The jsonl contracts are the JAX package's:
+"""SFT and RL prompt datasets and the packed batch loader (port of
+`PromptAnswerDataset`, `PromptDataset`, `MathCodePromptDataset` and
+`PackedDataLoader` in areal_tpu/data/datasets.py).  The jsonl contracts
+are the JAX package's:
 
+- SFT rows:        {"id", "prompt", "answer"}
 - RL prompt rows:  {"query_id" | "id", "prompt"}
 - math rows:       {"query_id", "prompt", "task": "math", "solutions": [...]}
 
@@ -24,6 +26,66 @@ from areal_tpu_torch.api.data_api import SequenceSample
 logger = logging.getLogger("areal_tpu_torch.datasets")
 
 
+def _load_rows(dataset_path, dataset_builder, seed, dp_rank, world_size) -> List[Dict[str, Any]]:
+    """This rank's shuffled share of the jsonl rows (or of the builder's)."""
+    if dataset_path is not None:
+        return data_api.load_shuffle_split_dataset(dataset_path, seed, dp_rank, world_size)
+    if dataset_builder is None:
+        raise ValueError("need dataset_path or dataset_builder")
+    rows = dataset_builder()
+    order = np.random.default_rng(seed).permutation(len(rows))
+    shard = np.array_split(order, world_size)[dp_rank]
+    return [rows[i] for i in shard]
+
+
+class PromptAnswerDataset:
+    """SFT rows: each item is a bs=1 SequenceSample of prompt + answer +
+    EOS tokens cut to `max_length` (`packed_input_ids`, int32) and
+    `prompt_mask` (bool, True on the prompt's tokens, which the loss
+    leaves out)."""
+
+    def __init__(
+        self,
+        seed: int,
+        dp_rank: int,
+        world_size: int,
+        tokenizer,
+        max_length: int = 1024,
+        dataset_path: Optional[str] = None,
+        dataset_builder: Optional[Callable[[], List[Dict]]] = None,
+    ):
+        rows = _load_rows(dataset_path, dataset_builder, seed, dp_rank, world_size)
+        self.ids: List[str] = []
+        self.tokens: List[np.ndarray] = []
+        self.prompt_masks: List[np.ndarray] = []
+        eos = tokenizer.eos_token_id
+        for x in rows:
+            n_prompt = len(tokenizer.encode(x["prompt"]))
+            full = (list(tokenizer.encode(x["prompt"] + x["answer"])) + [eos])[:max_length]
+            mask = np.zeros(len(full), dtype=bool)
+            mask[: min(n_prompt, len(full))] = True
+            self.ids.append(str(x["id"]))
+            self.tokens.append(np.asarray(full, dtype=np.int32))
+            self.prompt_masks.append(mask)
+        logger.info(f"PromptAnswerDataset: {len(self.ids)} seqs on dp_rank {dp_rank}/{world_size}")
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, idx: int) -> SequenceSample:
+        toks, mask = self.tokens[idx], self.prompt_masks[idx]
+        return SequenceSample(
+            keys={"packed_input_ids", "prompt_mask"},
+            ids=[self.ids[idx]],
+            seqlens={"packed_input_ids": [[len(toks)]], "prompt_mask": [[len(toks)]]},
+            data={"packed_input_ids": toks, "prompt_mask": mask},
+        )
+
+    def filter(self, to_remove_ids) -> int:
+        """A static dataset: removes nothing."""
+        return 0
+
+
 class PromptDataset:
     """Map-style dataset over jsonl rows; each item is a bs=1
     SequenceSample with key `packed_prompts`."""
@@ -42,7 +104,7 @@ class PromptDataset:
         self.dp_rank = dp_rank
         self.world_size = world_size
         self.tokenizer = tokenizer
-        rows = self._load_rows(dataset_path, dataset_builder)
+        rows = _load_rows(dataset_path, dataset_builder, seed, dp_rank, world_size)
         self.ids: List[str] = []
         self.prompts: List[np.ndarray] = []
         self.metadata_rows: List[Dict[str, Any]] = []
@@ -54,18 +116,6 @@ class PromptDataset:
             self.ids.append(qid)
             self.prompts.append(np.asarray(ids, dtype=np.int32))
             self.metadata_rows.append(x)
-
-    def _load_rows(self, dataset_path, dataset_builder) -> List[Dict[str, Any]]:
-        if dataset_path is not None:
-            return data_api.load_shuffle_split_dataset(
-                dataset_path, self.seed, self.dp_rank, self.world_size
-            )
-        if dataset_builder is None:
-            raise ValueError("need dataset_path or dataset_builder")
-        rows = dataset_builder()
-        order = np.random.default_rng(self.seed).permutation(len(rows))
-        shard = np.array_split(order, self.world_size)[self.dp_rank]
-        return [rows[i] for i in shard]
 
     def __len__(self):
         return len(self.ids)
@@ -172,5 +222,6 @@ class PackedDataLoader:
             yield SequenceSample.gather([self.dataset[j] for j in idx])
 
 
+data_api.register_dataset("prompt_answer", PromptAnswerDataset)
 data_api.register_dataset("prompt", PromptDataset)
 data_api.register_dataset("math_code_prompt", MathCodePromptDataset)

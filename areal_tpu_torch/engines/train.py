@@ -9,10 +9,26 @@
   by 1 / total loss weight, then takes one guarded optimizer step:
   global-norm clipping, then decoupled AdamW with decay on every leaf,
   at the lr of an optax-semantics schedule (count 0 for the first
-  update).  A non-finite loss or gradient norm leaves the parameters and
-  the optimizer state bit-identical (`torch.where` on a device flag, so
-  the step needs no host decision).  The step's scalars and the loss
-  function's stats leave the device in ONE transfer per call.
+  update).  The step is guarded: a non-finite loss or gradient norm
+  (always), a gradient norm above `anomaly_grad_norm_mult` x the running
+  EWMA of clean steps' norms (once `anomaly_ewma_warmup` clean steps
+  have been seen), an update norm above `anomaly_update_norm_max`, or an
+  external trip (the streamed step's batch sentinel) leaves the
+  parameters and the optimizer state bit-identical (`torch.where` on a
+  device flag, so the step needs no host decision).  The guard's (EWMA,
+  clean-step count) pair lives on the device, moves only on clean steps
+  and, as in the JAX package, is in no checkpoint.  With the update-norm
+  ceiling set, a first pass over the leaves computes the update norm and
+  the second recomputes the same update and commits it.  The step's
+  scalars and the loss function's stats leave the device in ONE
+  transfer per call.
+- Streamed accumulation (`train_stream_begin/chunk/end`): each chunk's
+  gradients accumulate UNSCALED into `p.grad` (the total loss weight is
+  known only when the stream closes); `train_stream_end` scales the sum
+  once by 1 / total weight and takes the guarded step.  This equals the
+  barrier path's per-micro-batch scaling up to float reassociation; the
+  master's overlap window 1 keeps the barrier path bit for bit by never
+  streaming.
 - A critic config trains its value head the same way: `loss_fn` gets
   the [B, S] fp32 values instead of logprobs.
 - `offload()` (`engines/offload.HostOffloadMixin`) moves the masters and
@@ -22,8 +38,7 @@
   safetensors file (`models/hf/safetensors_io`), a leaf at a time; the
   round trip is bit for bit.  The format is the port's own (the JAX
   package pickles optax's state).
-- The tunable sentinels (grad-norm spike, update-norm ceiling),
-  streamed accumulation and pipeline schedules are not ported.
+- Pipeline schedules (a mesh's pipe axis) are not ported.
 """
 
 import math
@@ -155,7 +170,18 @@ class TrainEngine(HostOffloadMixin):
         ftspec: Optional[FinetuneSpec] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
         remat_policy: str = "full",
+        # The tunable sentinels (0 = off): quarantine a step whose grad
+        # norm exceeds this multiple (> 1) of the clean steps' EWMA, or
+        # whose update norm exceeds this ceiling.
+        anomaly_grad_norm_mult: float = 0.0,
+        anomaly_update_norm_max: float = 0.0,
+        anomaly_ewma_warmup: int = 5,
     ):
+        if 0.0 < anomaly_grad_norm_mult <= 1.0:
+            raise ValueError(
+                "anomaly_grad_norm_mult must be > 1 when set (got "
+                f"{anomaly_grad_norm_mult}); 0 disables the spike sentinel"
+            )
         if cfg.is_moe:
             raise NotImplementedError("MoE training is not yet ported")
         tfm._remat_layers(remat_policy)  # reject unknown / unported policies now
@@ -174,6 +200,12 @@ class TrainEngine(HostOffloadMixin):
         self._mu = _map_tree(torch.zeros_like, self.params)
         self._nu = _map_tree(torch.zeros_like, self.params)
         self.opt_count = 0  # updates applied (the schedule's and Adam's count)
+        self.anomaly_grad_norm_mult = float(anomaly_grad_norm_mult)
+        self.anomaly_update_norm_max = float(anomaly_update_norm_max)
+        self.anomaly_ewma_warmup = int(anomaly_ewma_warmup)
+        # (EWMA of clean steps' grad norms, clean-step count), fp32 on the
+        # device; made at the first step.
+        self._guard_state: Optional[torch.Tensor] = None
         self.host_transfers = 0
         self.last_pack_stats: Dict[str, float] = {}
 
@@ -237,9 +269,11 @@ class TrainEngine(HostOffloadMixin):
     # ---------------- steps ----------------
 
     @torch.no_grad()
-    def _guarded_step(self, loss_sum: torch.Tensor) -> torch.Tensor:
-        """Clip, AdamW, and commit only when the loss and the gradient
-        norm are finite.  Returns [loss_sum, grad_norm, update_norm,
+    def _guarded_step(self, loss_sum: torch.Tensor, scale: Optional[float] = None,
+                      ext_trip: bool = False) -> torch.Tensor:
+        """Clip, AdamW, and commit only on a clean verdict with no
+        external trip; `scale` multiplies the gradients first (the
+        streamed step).  Returns [loss_sum, grad_norm, update_norm,
         verdict] on the device."""
         oc = self.optimizer_config
         names = [n for n, _ in _leaves(self.params)]
@@ -249,29 +283,62 @@ class TrainEngine(HostOffloadMixin):
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
         }
+        if scale is not None:  # in place: the gradients die with the step
+            for g in grads.values():
+                g.mul_(scale)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[n])) for n in names))
-        ok = torch.isfinite(gnorm) & torch.isfinite(loss_sum)
         lr = self.lr_schedule(self.opt_count)
         count = self.opt_count + 1
         bc1 = 1.0 - oc.beta1**count
         bc2 = 1.0 - oc.beta2**count
         clip = oc.gradient_clipping
-        usq = torch.zeros((), dtype=torch.float32, device=self.device)
-        for n in names:
+
+        def adamw(n):
             p, g, mu, nu = params[n], grads[n], mus[n], nus[n]
             if clip and clip > 0:
                 g = torch.where(gnorm < clip, g, g / gnorm * clip)
             mu_new = (1.0 - oc.beta1) * g + oc.beta1 * mu
             nu_new = (1.0 - oc.beta2) * torch.square(g) + oc.beta2 * nu
             upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + oc.eps)
-            upd = (upd + oc.weight_decay * p) * -lr
-            usq += torch.sum(torch.square(upd))
+            return mu_new, nu_new, (upd + oc.weight_decay * p) * -lr
+
+        if self._guard_state is None:
+            self._guard_state = torch.zeros(2, dtype=torch.float32, device=self.device)
+        ewma, n_clean = self._guard_state[0], self._guard_state[1]
+        finite = torch.isfinite(gnorm) & torch.isfinite(loss_sum)
+        verdict = torch.where(finite, 0.0, float(integrity.NONFINITE))
+        if self.anomaly_grad_norm_mult > 0.0:
+            # A NaN norm compares False: a non-finite step is not also a spike.
+            spike = (n_clean >= self.anomaly_ewma_warmup) & (
+                gnorm > self.anomaly_grad_norm_mult * ewma)
+            verdict = verdict + torch.where(spike, float(integrity.GRAD_SPIKE), 0.0)
+        unorm = None
+        if self.anomaly_update_norm_max > 0.0:
+            # The ceiling must be judged before anything is written.
+            unorm = torch.sqrt(sum(torch.sum(torch.square(adamw(n)[2])) for n in names))
+            ceil = finite & (unorm > self.anomaly_update_norm_max)
+            verdict = verdict + torch.where(ceil, float(integrity.UPDATE_NORM), 0.0)
+        ok = verdict == 0.0
+        if ext_trip:
+            ok = torch.zeros_like(ok)
+        usq = torch.zeros((), dtype=torch.float32, device=self.device)
+        for n in names:
+            p, mu, nu = params[n], mus[n], nus[n]
+            mu_new, nu_new, upd = adamw(n)
+            if unorm is None:
+                usq += torch.sum(torch.square(upd))
             p.copy_(torch.where(ok, p + upd, p))
             mu.copy_(torch.where(ok, mu_new, mu))
             nu.copy_(torch.where(ok, nu_new, nu))
             p.grad = None
-        verdict = torch.where(ok, 0.0, float(integrity.NONFINITE))
-        return torch.stack([loss_sum.float(), gnorm.float(), torch.sqrt(usq), verdict])
+        if unorm is None:
+            unorm = torch.sqrt(usq)
+        # The EWMA follows CLEAN steps only: a quarantined spike must not
+        # drag the baseline up.
+        new_ewma = torch.where(
+            ok, torch.where(n_clean > 0, 0.9 * ewma + 0.1 * gnorm, gnorm), ewma)
+        self._guard_state = torch.stack([new_ewma, n_clean + ok.float()])
+        return torch.stack([loss_sum.float(), gnorm.float(), unorm, verdict])
 
     def train_batch(
         self,
@@ -348,6 +415,124 @@ class TrainEngine(HostOffloadMixin):
                 out[k[: -len("_sum")]] = v / total_weight
             else:
                 out[k] = v
+        return out
+
+    # ---------------- streamed accumulation ----------------
+    #
+    #   state = engine.train_stream_begin()
+    #   for chunk: engine.train_stream_chunk(state, chunk, ...)
+    #   out = engine.train_stream_end(state)   # the one optimizer step
+
+    def train_stream_begin(self) -> Dict[str, Any]:
+        """Open a streamed accumulation: the gradient sum starts at zero.
+        Returns the stream's mutable state."""
+        self._ensure_loaded()
+        for _, p in _leaves(self.params):
+            p.grad = None
+        return {
+            "loss_sums": [],
+            "stat_sums": {},
+            "weight": 0.0,
+            "n_micro_batches": 0,
+            "n_chunks": 0,
+            "real_tokens": 0,
+            "grid_tokens": 0,
+        }
+
+    def train_stream_chunk(
+        self,
+        state: Dict[str, Any],
+        sample: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        loss_fn: Callable,
+        loss_weight_fn: Callable[[Dict[str, np.ndarray]], float],
+        token_key: str = "packed_input_ids",
+        extra_keys: Sequence[str] = (),
+    ) -> Dict[str, float]:
+        """Accumulate one chunk's gradients, unscaled, into `p.grad`.
+        Returns the chunk's raw stat sums (keys keep their `_sum`
+        suffix), `chunk_weight`, `chunk_loss_sum` and
+        `chunk_micro_batches`, after one host transfer."""
+        self._ensure_loaded()
+        chunks = [
+            packing.pack_sample(
+                mb, token_key, extra_keys=extra_keys,
+                max_tokens_per_row=mb_spec.max_tokens_per_mb,
+            ).arrays
+            for mb in sample.split(mb_spec)
+        ]
+        chunk_weight = float(sum(loss_weight_fn(c) for c in chunks))
+        losses, all_stats = [], []
+        for arrays in chunks:
+            batch = device_batch(arrays, self.device)
+            with torch.enable_grad():
+                pc = _cast_tree(self.params, self.compute_dtype)
+                loss, stats = loss_fn(model_out(pc, self.cfg, batch, self.remat_policy), batch)
+                loss.backward()
+            losses.append(loss.detach().float())
+            all_stats.append({k: v.detach().float() for k, v in stats.items()})
+            state["real_tokens"] += int((arrays["segment_ids"] > 0).sum())
+            state["grid_tokens"] += int(arrays["segment_ids"].size)
+        chunk_loss, chunk_stats = 0.0, {}
+        if losses:
+            keys = list(all_stats[0])
+            host = torch.stack([torch.stack(losses).sum()] + [
+                torch.stack([s[k] for s in all_stats]).sum() for k in keys
+            ]).double().cpu().numpy()  # the chunk's one host sync
+            self.host_transfers += 1
+            chunk_loss = float(host[0])
+            chunk_stats = {k: float(host[1 + i]) for i, k in enumerate(keys)}
+        state["weight"] += chunk_weight
+        state["loss_sums"].append(chunk_loss)
+        state["n_micro_batches"] += len(chunks)
+        state["n_chunks"] += 1
+        for k, v in chunk_stats.items():
+            state["stat_sums"][k] = state["stat_sums"].get(k, 0.0) + v
+        return {
+            **chunk_stats,
+            "chunk_weight": chunk_weight,
+            "chunk_loss_sum": chunk_loss,
+            "chunk_micro_batches": float(len(chunks)),
+        }
+
+    def train_stream_end(self, state: Dict[str, Any], quarantine: bool = False) -> Dict[str, float]:
+        """Close the stream: scale the gradient sum by 1 / total weight
+        and take the guarded step.  `quarantine` (a batch sentinel
+        tripped mid-stream) discards the sum: the parameters and the
+        optimizer state come back bit-identical."""
+        if state["n_chunks"] == 0:
+            raise ValueError("train_stream_end before any train_stream_chunk")
+        self._ensure_loaded()
+        total_weight = max(state["weight"], 1.0)
+        loss_sum = torch.full((), sum(state["loss_sums"]), dtype=torch.float32, device=self.device)
+        packed = self._guarded_step(loss_sum, scale=1.0 / total_weight, ext_trip=quarantine)
+        self.last_pack_stats = {
+            "real_tokens": state["real_tokens"],
+            "grid_tokens": state["grid_tokens"],
+            "pack_efficiency": state["real_tokens"] / max(state["grid_tokens"], 1),
+            "n_micro_batches": state["n_micro_batches"],
+        }
+        host = packed.double().cpu().numpy()  # the one host sync
+        self.host_transfers += 1
+        verdict = float(host[3])
+        if verdict:
+            integrity.record_anomaly(verdict)
+        elif not quarantine:
+            self.opt_count += 1
+        out: Dict[str, float] = {
+            "loss": float(sum(state["loss_sums"])) / total_weight,
+            "grad_norm": float(host[1]),
+            "update_norm": float(host[2]),
+            "anomaly_verdict": verdict,
+            "quarantined": 1.0 if (verdict or quarantine) else 0.0,
+            "n_micro_batches": float(state["n_micro_batches"]),
+            "n_stream_chunks": float(state["n_chunks"]),
+        }
+        for k, v in state["stat_sums"].items():
+            if k.endswith("_sum"):
+                out[k[: -len("_sum")]] = v / total_weight
+            else:
+                out[k] = v / max(state["n_micro_batches"], 1)
         return out
 
     def forward(

@@ -1,5 +1,6 @@
 """Experiment-config validation, run before any device work (port of
-`check_ppo_math` and the checks it calls in areal_tpu/experiments/check.py).
+`check_sft`, `check_ppo_math` and the checks they call in
+areal_tpu/experiments/check.py).
 
 A misconfigured trial fails at build time with a sentence naming the
 knob.  Options of `PPOMathConfig` that the port does not have yet fail
@@ -56,7 +57,6 @@ def unported_options(cfg):
     checks = (
         (cfg.rollout_ahead != 0, "rollout_ahead", "queue 1, item 7"),
         (cfg.max_head_offpolicyness is not None, "max_head_offpolicyness", "queue 1, item 7"),
-        (cfg.pipeline_overlap, "pipeline_overlap", "queue 1, item 6"),
         (cfg.gen_server_url is not None, "gen_server_url", "queue 1, item 7"),
         (cfg.inmem_weight_sync, "inmem_weight_sync", "queue 1, item 7"),
         (cfg.param_push_tree, "param_push_tree", "queue 1, item 7"),
@@ -65,15 +65,48 @@ def unported_options(cfg):
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
          "queue 1, item 7"),
         (bool(cfg.placement), "placement (more than one worker)", "queue 1, items 7 and 8"),
-        (cfg.anomaly_kl_max is not None, "anomaly_kl_max", "queue 1, item 6"),
-        (bool(cfg.anomaly_grad_norm_mult), "anomaly_grad_norm_mult", "queue 1, item 6"),
-        (bool(cfg.anomaly_update_norm_max), "anomaly_update_norm_max", "queue 1, item 6"),
+        (cfg.ppo_kwargs.get("anomaly_imp_ratio_max") is not None,
+         "ppo_kwargs.anomaly_imp_ratio_max", "queue 1, item 7"),
         ("master_dtype" in cfg.train_backend_args,
          "train_backend_args.master_dtype (the port keeps fp32 masters)", "queue 1, item 6"),
         (cfg.train_backend_args.get("remat_policy") in ("dots", "dots_small"),
          "train_backend_args.remat_policy dots/dots_small", "queue 1, item 6"),
     )
     return [(name, item) for bad, name, item in checks if bad]
+
+
+def check_anomaly(cfg) -> None:
+    """The sentinels' knobs (engines/train.py, interfaces/ppo.py) and the
+    master's quarantine escalation."""
+    mult = getattr(cfg, "anomaly_grad_norm_mult", 0.0)
+    if mult < 0:
+        _fail(f"anomaly_grad_norm_mult must be >= 0 (0 disables the grad-spike sentinel), "
+              f"got {mult}")
+    if 0.0 < mult <= 1.0:
+        # A multiplier at or below the running mean would quarantine
+        # routine steps.
+        _fail(f"anomaly_grad_norm_mult must be > 1 when enabled (it multiplies the running "
+              f"grad-norm EWMA), got {mult}")
+    unorm = getattr(cfg, "anomaly_update_norm_max", 0.0)
+    if unorm < 0:
+        _fail(f"anomaly_update_norm_max must be >= 0 (0 disables the update-norm ceiling), "
+              f"got {unorm}")
+    kl_max = getattr(cfg, "anomaly_kl_max", None)
+    if kl_max is not None and kl_max <= 0:
+        _fail(f"anomaly_kl_max must be > 0 (omit it to disable the KL sentinel), got {kl_max}")
+    mcq = getattr(cfg, "max_consecutive_quarantines", 3)
+    if mcq < 0:
+        _fail(f"max_consecutive_quarantines must be >= 0 (0 disables rollback escalation), "
+              f"got {mcq}")
+
+
+def check_sft(cfg) -> None:
+    """Checks for SFTConfig."""
+    check_optimizer(cfg.optimizer)
+    check_anomaly(cfg)
+    check_model_path("model", cfg.model)
+    if cfg.max_recoveries < 0:
+        _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
 
 
 def check_ppo_math(cfg) -> None:
@@ -85,6 +118,12 @@ def check_ppo_math(cfg) -> None:
         ))
     check_optimizer(cfg.optimizer)
     check_gconfig(cfg.gconfig)
+    check_anomaly(cfg)
+    if cfg.pipeline_overlap:
+        if cfg.overlap_window < 1:
+            _fail(f"overlap_window must be >= 1, got {cfg.overlap_window}")
+        if cfg.pipeline_chunk_seqs < 1:
+            _fail(f"pipeline_chunk_seqs must be >= 1, got {cfg.pipeline_chunk_seqs}")
     for role, spec in (("actor", cfg.actor), ("ref", cfg.ref), ("critic", cfg.critic)):
         check_model_path(role, spec)
     kw = cfg.ppo_kwargs
@@ -111,9 +150,6 @@ def check_ppo_math(cfg) -> None:
         _fail(f"prefill_chunk_tokens must be >= 0, got {cfg.prefill_chunk_tokens}")
     if cfg.max_recoveries < 0:
         _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
-    if cfg.max_consecutive_quarantines < 0:
-        _fail(f"max_consecutive_quarantines must be >= 0 (0 disables rollback "
-              f"escalation), got {cfg.max_consecutive_quarantines}")
     if cfg.dataset_filter:
         lo = cfg.dataset_filter.get("min_accuracy", 0.0)
         hi = cfg.dataset_filter.get("max_accuracy", 1.0)

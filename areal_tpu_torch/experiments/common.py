@@ -1,8 +1,12 @@
 """Experiment builders: user config -> (DFG, workers, placement) (port of
-`ExperimentPlan`, `PPOMathConfig`, `build_ppo_math` and `run_experiment`
-in areal_tpu/experiments/common.py).
+`ExperimentPlan`, `SFTConfig`, `build_sft`, `PPOMathConfig`,
+`build_ppo_math` and `run_experiment` in areal_tpu/experiments/common.py).
 
-`build_ppo_math` builds the JAX package's ppo-math dataflow: generate ->
+`build_sft` builds the one-node SFT dataflow (a TRAIN_STEP of the "sft"
+interface over `prompt_answer` rows).  The engine's sentinels
+(`anomaly_grad_norm_mult`, `anomaly_update_norm_max`) reach the train
+engines of both plans; PPO's `anomaly_kl_max` reaches the actor
+interface.  `build_ppo_math` builds the JAX package's ppo-math dataflow: generate ->
 {reward, ref, critic inference} -> actor and critic train steps, the
 generator taking the actor's weights after each train step (and, with
 `ref_ema_eta`, the reference model moving toward them).  Every model
@@ -52,6 +56,88 @@ class ExperimentPlan:
     # triggers one (see system/master.py).
     max_recoveries: int = 3
     max_consecutive_quarantines: int = 3
+    # The pipeline-overlapped step (see system/master.py).
+    pipeline_overlap: bool = False
+    overlap_window: int = 2
+    pipeline_chunk_seqs: int = 1
+
+
+@dataclasses.dataclass
+class SFTConfig:
+    model: ModelAbstraction
+    dataset: DatasetAbstraction
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    batch_size: int = 8
+    total_train_epochs: int = 1
+    mb_spec: MicroBatchSpec = dataclasses.field(default_factory=MicroBatchSpec)
+    ctrl: ExperimentSaveEvalControl = dataclasses.field(
+        default_factory=ExperimentSaveEvalControl
+    )
+    seed: int = 1
+    experiment_name: str = "sft"
+    trial_name: str = "trial"
+    fileroot: str = "/tmp/areal_tpu_torch/trial"
+    max_recoveries: int = 3
+    # The engine's sentinels (0: off): the grad-norm spike multiplier
+    # over the clean steps' EWMA (> 1 when set) and the update-norm
+    # ceiling; and the quarantine streak that rolls back.
+    anomaly_grad_norm_mult: float = 0.0
+    anomaly_update_norm_max: float = 0.0
+    max_consecutive_quarantines: int = 3
+
+
+def build_sft(cfg: SFTConfig, tokenizer=None) -> ExperimentPlan:
+    """One TRAIN_STEP node of the "sft" interface over the dataset's
+    `packed_input_ids` and `prompt_mask`."""
+    from areal_tpu_torch.experiments.check import check_sft
+
+    check_sft(cfg)
+    model_name = ModelName("default", 0)
+    sft_if = ModelInterfaceAbstraction("sft")
+    node = MFCDef(
+        name="trainDefault",
+        model_name=model_name,
+        interface_type=ModelInterfaceType.TRAIN_STEP,
+        interface_impl=sft_if,
+        input_keys=("packed_input_ids", "prompt_mask"),
+        n_seqs=cfg.batch_size,
+        mb_spec=cfg.mb_spec,
+    )
+    shard = ModelShardSpec(
+        name=model_name, model=cfg.model,
+        backend=ModelBackendAbstraction("train", _anomaly_backend_args(cfg)),
+        interface=sft_if, optimizer=cfg.optimizer,
+    )
+    ftspec = FinetuneSpec(total_train_epochs=cfg.total_train_epochs,
+                          train_batch_size=cfg.batch_size)
+    worker = WorkerConfig(
+        worker_index=0, shards=[shard], datasets=[cfg.dataset], batch_size=cfg.batch_size,
+        seed=cfg.seed, ftspec=ftspec,
+    )
+    cfg.ctrl.total_train_epochs = cfg.total_train_epochs
+    return ExperimentPlan(
+        dfg=build_graph([node]),
+        worker_configs=[worker],
+        model_placement={str(model_name): 0},
+        data_worker_ids=[0],
+        ctrl=cfg.ctrl,
+        experiment_name=cfg.experiment_name,
+        trial_name=cfg.trial_name,
+        fileroot=cfg.fileroot,
+        max_recoveries=cfg.max_recoveries,
+        max_consecutive_quarantines=cfg.max_consecutive_quarantines,
+    )
+
+
+def _anomaly_backend_args(cfg, base: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """A train backend's args with the config's engine sentinels folded
+    in (an explicit entry of `base` wins)."""
+    args: Dict[str, Any] = dict(base or {})
+    if cfg.anomaly_grad_norm_mult:
+        args.setdefault("anomaly_grad_norm_mult", cfg.anomaly_grad_norm_mult)
+    if cfg.anomaly_update_norm_max:
+        args.setdefault("anomaly_update_norm_max", cfg.anomaly_update_norm_max)
+    return args
 
 
 @dataclasses.dataclass
@@ -104,10 +190,21 @@ class PPOMathConfig:
     # quarantine streak that triggers one (0: never).
     max_recoveries: int = 3
     max_consecutive_quarantines: int = 3
+    # The pipeline-overlapped step: chunks of pipeline_chunk_seqs prompts
+    # stream through generate -> reward/ref -> train grad accumulation,
+    # overlap_window chunks in flight, one optimizer step after the last
+    # chunk (window 1: the barrier path, bit for bit).
+    pipeline_overlap: bool = False
+    overlap_window: int = 2
+    pipeline_chunk_seqs: int = 1
+    # The tunable sentinels: the engine's grad-norm spike multiplier and
+    # update-norm ceiling (0: off), the actor's KL ceiling (None: off).
+    anomaly_grad_norm_mult: float = 0.0
+    anomaly_update_norm_max: float = 0.0
+    anomaly_kl_max: Optional[float] = None
     # ---- not yet ported: check_ppo_math refuses a value other than these ----
     rollout_ahead: int = 0
     max_head_offpolicyness: Optional[int] = None
-    pipeline_overlap: bool = False
     fuse_rew_ref: bool = False
     gen_server_url: Optional[str] = None
     inmem_weight_sync: bool = False
@@ -116,9 +213,6 @@ class PPOMathConfig:
     mixture_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
     mixture_adaptive: bool = False
     placement: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    anomaly_grad_norm_mult: float = 0.0
-    anomaly_update_norm_max: float = 0.0
-    anomaly_kl_max: Optional[float] = None
     # Agent episodes (system/episode.py): carried as the JAX package
     # carries them.  No code of the in-process trial reads them there
     # either; only an episode runner on the rollout controller (ROADMAP
@@ -144,6 +238,9 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
 
     ppo_kwargs = dict(cfg.ppo_kwargs)
     ppo_kwargs.setdefault("disable_value", disable_value)
+    if cfg.anomaly_kl_max is not None:
+        ppo_kwargs.setdefault("anomaly_kl_max", cfg.anomaly_kl_max)
+    train_backend_args = _anomaly_backend_args(cfg, cfg.train_backend_args)
     use_dense = bool(ppo_kwargs.get("use_dense_reward"))
     if use_dense and cfg.reward_interface is None:
         raise ValueError(
@@ -258,7 +355,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
     shards = [
         ModelShardSpec(
             name=actor, model=cfg.actor,
-            backend=ModelBackendAbstraction("train", dict(cfg.train_backend_args)),
+            backend=ModelBackendAbstraction("train", dict(train_backend_args)),
             interface=actor_if, optimizer=cfg.optimizer,
         ),
         ModelShardSpec(
@@ -279,7 +376,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
     if critic is not None:
         shards.append(ModelShardSpec(
             name=critic, model=cfg.critic,
-            backend=ModelBackendAbstraction("train", dict(cfg.train_backend_args)),
+            backend=ModelBackendAbstraction("train", dict(train_backend_args)),
             interface=critic_if, optimizer=cfg.optimizer,
         ))
     ftspec = FinetuneSpec(total_train_epochs=cfg.total_train_epochs,
@@ -301,6 +398,9 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         difficulty_filter=cfg.dataset_filter,
         max_recoveries=cfg.max_recoveries,
         max_consecutive_quarantines=cfg.max_consecutive_quarantines,
+        pipeline_overlap=cfg.pipeline_overlap,
+        overlap_window=cfg.overlap_window,
+        pipeline_chunk_seqs=cfg.pipeline_chunk_seqs,
     )
 
 
@@ -325,6 +425,9 @@ def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
         difficulty_filter=plan.difficulty_filter,
         max_recoveries=plan.max_recoveries,
         max_consecutive_quarantines=plan.max_consecutive_quarantines,
+        pipeline_overlap=plan.pipeline_overlap,
+        overlap_window=plan.overlap_window,
+        pipeline_chunk_seqs=plan.pipeline_chunk_seqs,
     )
     master.load_recover_info()
     stats = asyncio.run(master.run())

@@ -16,8 +16,18 @@
   `value_norm`.
 
 Both save HF checkpoint dirs (`interfaces/sft.SFTInterface.save`; the
-critic's keeps its value head).  The batch-level anomaly sentinels and
-streamed training are not yet ported.
+critic's keeps its value head).  The actor's batch sentinels
+(`anomaly_kl_max`: the mean |logp - ref_logp| over response tokens;
+`anomaly_degenerate_variance`: every GRPO group's scores constant)
+judge each batch on host data before any gradient work: a tripped
+batch is quarantined whole.  Both interfaces also train streamed
+(`train_stream_begin/chunk/end`, the master's pipeline-overlapped
+step): each retired rollout chunk's advantages are computed over the
+chunk and its gradients accumulate in the engine; the one optimizer
+step comes at the stream's end, and a sentinel tripped mid-stream
+makes the engine discard the accumulated sum.  `anomaly_imp_ratio_max`
+(the behaviour weight's bounds) comes with asynchronous RL (ROADMAP
+queue 1, item 7).
 
 Alignment (set by the generator): every per-token key is aligned with
 packed_input_ids; index t carries the quantity for predicting token t+1.
@@ -37,6 +47,8 @@ from areal_tpu_torch.api.model_api import (
     ModelInterface,
     register_interface,
 )
+from areal_tpu_torch.base import integrity
+from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.interfaces.kl import make_kl_controller
 from areal_tpu_torch.interfaces.sft import SFTInterface
 from areal_tpu_torch.interfaces.value_norm import make_value_norm
@@ -113,6 +125,19 @@ def _value_post(values, batch):
 
 def _mask_count(arrays) -> float:
     return float((arrays["loss_mask"] > 0).sum())
+
+
+def _stream_chunk_stats(raw: Dict[str, float]) -> Dict[str, float]:
+    """An engine chunk's raw sums as means over its loss weight, each
+    with its `_denominator` (for `merge_stats`)."""
+    w = max(raw.pop("chunk_weight"), 1.0)
+    stats = {"loss": raw.pop("chunk_loss_sum") / w, "loss_denominator": w}
+    raw.pop("chunk_micro_batches", None)
+    for k, v in raw.items():
+        base = k[: -len("_sum")] if k.endswith("_sum") else k
+        stats[base] = v / w
+        stats[base + "_denominator"] = w
+    return stats
 
 
 def _extract_layout(sample: SequenceSample):
@@ -244,13 +269,33 @@ class PPOActorInterface(ModelInterface):
     use_dense_reward: bool = False
     reward_delta: bool = True
     behav_imp_weight_cap: Optional[float] = None
+    # Batch sentinels, judged before any gradient work (None / False:
+    # off).  anomaly_imp_ratio_max is refused until item 7.
+    anomaly_kl_max: Optional[float] = None
+    anomaly_imp_ratio_max: Optional[float] = None
+    anomaly_degenerate_variance: bool = False
 
     def __post_init__(self):
+        if self.anomaly_imp_ratio_max is not None:
+            raise NotImplementedError(
+                "anomaly_imp_ratio_max is not yet ported (ROADMAP queue 1, item 7: "
+                "asynchronous RL's behaviour logprobs)"
+            )
         self._kl_ctl = make_kl_controller(
             self.kl_ctl, self.kl_adaptive, self.adaptive_kl_target,
             self.adaptive_kl_horizon,
         )
         self._loss_fn = _ppo_actor_loss_factory(self.eps_clip, self.behav_imp_weight_cap)
+
+    def _batch_verdict(self, aux) -> int:
+        """OR of the batch sentinels' verdict bits (0: clean)."""
+        v = 0
+        kl = aux.get("kl_abs_mean")
+        if self.anomaly_kl_max is not None and kl is not None and kl > self.anomaly_kl_max:
+            v |= integrity.KL_BLOWUP
+        if self.anomaly_degenerate_variance and aux.get("degenerate_var"):
+            v |= integrity.DEGENERATE_VAR
+        return v
 
     def state_dict(self) -> Dict[str, float]:
         return self._kl_ctl.state_dict() if self.kl_adaptive else {}
@@ -364,14 +409,18 @@ class PPOActorInterface(ModelInterface):
             loss_mask[lo:hi] = 1.0
             seq_slices.append((lo, hi))
 
+        degenerate_var = None
         if self.disable_value:
             # GRPO: the group-normalized terminal score over the response.
             groups: Dict[int, list] = {}
             for si in range(len(layout)):
                 groups.setdefault(group_of[si], []).append(si)
             adv_seq = np.zeros(len(layout), np.float32)
+            degenerate_var = len(groups) > 0
             for sis in groups.values():
                 g_scores = scores[sis]
+                if g_scores.std() > 0:
+                    degenerate_var = False
                 adv_seq[sis] = (g_scores - g_scores.mean()) / (g_scores.std() + 1e-5)
             adv_full = np.zeros(total, np.float32)
             for si, (lo, hi) in enumerate(seq_slices):
@@ -432,6 +481,10 @@ class PPOActorInterface(ModelInterface):
             aligned["prox_logp"] = prox_logp
             extra_keys = extra_keys + ("prox_logp",)
         _add_aligned_keys(train_sample, aligned)
+        mt = float(loss_mask.sum())
+        kl_abs_mean = None
+        if ref_logp is not None and mt > 0:
+            kl_abs_mean = float((np.abs(old_logp - ref_logp) * loss_mask).sum() / mt)
         aux = {
             "klv": klv,
             "n_seqs": len(layout),
@@ -440,6 +493,8 @@ class PPOActorInterface(ModelInterface):
             "ref_logp": ref_logp,
             "scores": scores,
             "no_eos": no_eos,
+            "kl_abs_mean": kl_abs_mean,
+            "degenerate_var": degenerate_var,
         }
         return train_sample, extra_keys, aux
 
@@ -450,6 +505,25 @@ class PPOActorInterface(ModelInterface):
             model, sample, mb_spec
         )
         loss_mask, old_logp, ref_logp = aux["loss_mask"], aux["old_logp"], aux["ref_logp"]
+        verdict = self._batch_verdict(aux)
+        if verdict:
+            # Quarantined before any gradient work: no minibatch of this
+            # batch reaches the optimizer.
+            integrity.record_anomaly(verdict)
+            logger.warning(
+                f"batch sentinel quarantined train step: {integrity.verdict_kinds(verdict)} "
+                f"(kl_abs_mean={aux['kl_abs_mean']} degenerate_var={aux['degenerate_var']})"
+            )
+            model.inc_version()
+            return {
+                "anomaly_verdict": float(verdict),
+                "quarantined": 1.0,
+                "task_reward": float(aux["scores"].mean()),
+                "no_eos_ratio": float(aux["no_eos"].mean()),
+                "n_response_tokens": float(loss_mask.sum()),
+                "kl_ctl_value": aux["klv"],
+                "n_minibatches_skipped": float(min(self.n_minibatches, train_sample.bs)),
+            }
         all_stats, n_skipped = [], 0
         mbs_list = train_sample.split_balanced(min(self.n_minibatches, train_sample.bs))
         for mi, mb in enumerate(mbs_list):
@@ -484,6 +558,115 @@ class PPOActorInterface(ModelInterface):
             kl_ctl_value=aux["klv"],
             ref_kl=ref_kl,
             n_minibatches_skipped=float(n_skipped),
+        )
+        return out
+
+    # ------------- streamed (pipeline-overlapped) train -------------
+
+    def train_stream_begin(self, model: Model, mb_spec: MicroBatchSpec) -> Dict:
+        """Open a streamed train step: chunks arrive through
+        `train_stream_chunk` as their rollouts retire, and the one
+        optimizer step fires in `train_stream_end`."""
+        return {
+            "engine": model.engine.train_stream_begin(),
+            "chunk_stats": [],
+            "kl_num": 0.0,
+            "kl_den": 0.0,
+            "n_seqs": 0,
+            "score_sum": 0.0,
+            "score_n": 0,
+            "no_eos_sum": 0.0,
+            "no_eos_n": 0,
+            "resp_tokens": 0.0,
+            "klv": self._kl_ctl.value,
+            "stopped": False,
+            "n_chunks_skipped": 0,
+            # A batch sentinel's trip: stop accumulating, and make the
+            # engine discard the partial sum at the stream's end.
+            "quarantine_verdict": 0,
+        }
+
+    def train_stream_chunk(
+        self, model: Model, state: Dict, sample: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> Dict[str, float]:
+        """One retired chunk: its advantages (normalized over the chunk)
+        and its gradients.  Returns the chunk's stats with `*_denominator`
+        weights, so `merge_stats` gives the step's token-weighted means."""
+        if state["stopped"]:
+            state["n_chunks_skipped"] += 1
+            return {"n_chunks_skipped": 1.0}
+        train_sample, extra_keys, aux = self._prepare_train_sample(model, sample, mb_spec)
+        verdict = self._batch_verdict(aux)
+        if verdict:
+            state["stopped"] = True
+            state["quarantine_verdict"] |= verdict
+            state["n_chunks_skipped"] += 1
+            integrity.record_anomaly(verdict)
+            logger.warning(
+                f"batch sentinel quarantined stream chunk {len(state['chunk_stats']) + 1}: "
+                f"{integrity.verdict_kinds(verdict)}; the step's accumulated gradient "
+                "will be discarded"
+            )
+            return {"n_chunks_skipped": 1.0, "anomaly_verdict": float(verdict)}
+        stats = _stream_chunk_stats(model.engine.train_stream_chunk(
+            state["engine"], train_sample, mb_spec, loss_fn=self._loss_fn,
+            loss_weight_fn=_mask_count, token_key="packed_input_ids", extra_keys=extra_keys,
+        ))
+        loss_mask, old_logp, ref_logp = aux["loss_mask"], aux["old_logp"], aux["ref_logp"]
+        mt = float(loss_mask.sum())
+        if ref_logp is not None and mt > 0:
+            state["kl_num"] += float(((old_logp - ref_logp) * loss_mask).sum())
+            state["kl_den"] += mt
+        state["n_seqs"] += aux["n_seqs"]
+        state["score_sum"] += float(aux["scores"].sum())
+        state["score_n"] += len(aux["scores"])
+        state["no_eos_sum"] += float(aux["no_eos"].sum())
+        state["no_eos_n"] += len(aux["no_eos"])
+        state["resp_tokens"] += mt
+        state["chunk_stats"].append(stats)
+        imp = stats.get("importance_weight", 1.0)
+        akl = abs(stats.get("approx_kl", 0.0))
+        if (
+            self.early_stop_imp_ratio is not None and imp > self.early_stop_imp_ratio
+        ) or (self.early_stop_kl is not None and akl > self.early_stop_kl):
+            state["stopped"] = True
+            logger.warning(
+                f"early stop after stream chunk {len(state['chunk_stats'])}: "
+                f"importance_weight={imp:.3f} approx_kl={akl:.4f}; the remaining "
+                "chunks accumulate no gradient"
+            )
+        return stats
+
+    def train_stream_end(self, model: Model, state: Dict, mb_spec: MicroBatchSpec) -> Dict[str, float]:
+        """The one optimizer step over the streamed sum, and the merged stats."""
+        verdict = int(state["quarantine_verdict"])
+        if verdict and state["engine"]["n_chunks"] == 0:
+            # Tripped before any chunk reached the engine: nothing to
+            # discard, no optimizer step.
+            eng_out: Dict[str, float] = {
+                "grad_norm": 0.0, "update_norm": 0.0, "n_micro_batches": 0.0,
+                "n_stream_chunks": 0.0,
+            }
+        else:
+            eng_out = model.engine.train_stream_end(state["engine"], quarantine=bool(verdict))
+        model.inc_version()
+        out = merge_stats(state["chunk_stats"]) if state["chunk_stats"] else {}
+        # The engine's totals win for the keys both report.
+        out.update(eng_out)
+        if verdict:
+            out["anomaly_verdict"] = float(int(out.get("anomaly_verdict", 0.0)) | verdict)
+            out["quarantined"] = 1.0
+        ref_kl = 0.0
+        if state["kl_den"] > 0:
+            ref_kl = state["kl_num"] / state["kl_den"]
+            self._kl_ctl.update(ref_kl, n_steps=state["n_seqs"])
+        out.update(
+            task_reward=state["score_sum"] / max(state["score_n"], 1),
+            no_eos_ratio=state["no_eos_sum"] / max(state["no_eos_n"], 1),
+            n_response_tokens=state["resp_tokens"],
+            kl_ctl_value=state["klv"],
+            ref_kl=ref_kl,
+            n_minibatches_skipped=float(state["n_chunks_skipped"]),
         )
         return out
 
@@ -528,10 +711,29 @@ class PPOCriticInterface(ModelInterface):
         # (`value_head.weight`), so a critic reloads as it was saved.
         SFTInterface().save(model, save_dir)
 
-    def train_stream_begin(self, *args, **kwargs):
-        raise NotImplementedError("streamed training (ROADMAP queue 1, item 6)")
+    def train_stream_begin(self, model: Model, mb_spec: MicroBatchSpec) -> Dict:
+        return {"engine": model.engine.train_stream_begin(), "chunk_stats": []}
 
-    train_stream_chunk = train_stream_end = train_stream_begin
+    def train_stream_chunk(
+        self, model: Model, state: Dict, sample: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> Dict[str, float]:
+        """One retired chunk's returns (the value-norm moments updated
+        with the chunk's) and its gradients."""
+        train_sample = self._prepare_train_sample(model, sample, mb_spec)
+        stats = _stream_chunk_stats(model.engine.train_stream_chunk(
+            state["engine"], train_sample, mb_spec, loss_fn=self._loss_fn,
+            loss_weight_fn=_mask_count, token_key="packed_input_ids",
+            extra_keys=("old_values", "returns", "loss_mask"),
+        ))
+        state["chunk_stats"].append(stats)
+        return stats
+
+    def train_stream_end(self, model: Model, state: Dict, mb_spec: MicroBatchSpec) -> Dict[str, float]:
+        eng_out = model.engine.train_stream_end(state["engine"])
+        model.inc_version()
+        out = merge_stats(state["chunk_stats"]) if state["chunk_stats"] else {}
+        out.update(eng_out)
+        return out
 
     def inference(
         self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec

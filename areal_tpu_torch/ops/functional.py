@@ -112,3 +112,36 @@ def masked_normalization(
     var = (torch.square(xf - mean) * m).sum() / n
     out = (xf - mean) * torch.rsqrt(var + eps)
     return torch.where(mask.bool(), out, 0.0)
+
+
+def _answer_label_mask(segment_ids: torch.Tensor, prompt_mask: torch.Tensor) -> torch.Tensor:
+    """True at position t when it predicts a real next token (t+1) that
+    is not a prompt token: `shifted_label_mask` minus the positions
+    whose label is in the prompt.  [B, S] bool."""
+    label_is_prompt = F.pad(prompt_mask[:, 1:].bool(), (0, 1), value=True)
+    return shifted_label_mask(segment_ids) & ~label_is_prompt
+
+
+def sft_loss(logp: torch.Tensor, batch):
+    """Sum of the next-token NLL over answer tokens (the engine's
+    per-token logprobs [B, S]; prompt and padding excluded, and so is
+    every position whose label (t+1) is a prompt token).  Returns
+    (nll_sum, stats); pair it with `sft_label_count` as the loss weight."""
+    mask = _answer_label_mask(batch["segment_ids"], batch["prompt_mask"])
+    nll = -(logp * mask).sum()
+    n = torch.clamp(mask.sum(), min=1)
+    return nll, {"nll_sum": nll, "n_tokens": n.float()}
+
+
+def sft_label_count(arrays) -> float:
+    """The host-side loss weight of a packed micro-batch (numpy arrays):
+    the number of positions `sft_loss` counts."""
+    import numpy as np
+
+    seg = arrays["segment_ids"]
+    nxt = np.pad(seg[:, 1:], ((0, 0), (0, 1)), constant_values=0)
+    shift_ok = (seg > 0) & (seg == nxt)
+    label_is_prompt = np.pad(
+        arrays["prompt_mask"][:, 1:].astype(bool), ((0, 0), (0, 1)), constant_values=True
+    )
+    return float((shift_ok & ~label_is_prompt).sum())

@@ -26,11 +26,21 @@ rewound, the interfaces' state restored.  A streak of quarantined steps
 rolls back to the last valid recover checkpoint, within the
 `max_recoveries` budget.
 
+`pipeline_overlap` streams a step through the graph in chunks of
+`pipeline_chunk_seqs` prompts, `overlap_window` chunks in flight
+(`_execute_step_streamed`): while chunk i trains, chunk i+1 may still
+generate.  Window 1 runs the unchanged per-node path in topological
+order, bit for bit the barrier step.  Each step's `pipeline` stats
+(and the `areal_master_pipeline_*` gauges) give each stage's fill and
+bubble.  Unlike the JAX master it releases no aliased generator before
+a stream (the port's generator never aliases the trainer's weights) and
+opens no trace spans (ROADMAP queue 1, item 10).
+
 One worker hosts every model (a single device).  Not yet ported, and
 refused where a plan asks for them: placements over more than one
 worker (ROADMAP queue 1, items 7 and 8), worker-death recovery and the
-asynchronous and streamed step branches (`rollout_ahead`,
-`max_head_offpolicyness`, `pipeline_overlap`; items 6 and 7).
+asynchronous step branches (`rollout_ahead`, `max_head_offpolicyness`;
+item 7).
 """
 
 import asyncio
@@ -39,12 +49,13 @@ import json
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from areal_tpu_torch.api.config import ModelInterfaceType
 from areal_tpu_torch.api.dfg import DFG, MFCDef, OffloadHook, ParamReallocHook
-from areal_tpu_torch.base import integrity, recover, timeutil
+from areal_tpu_torch.base import integrity, metrics, recover, timeutil
 from areal_tpu_torch.base.monitor import StatsLogger
+from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.system.buffer import SequenceBuffer
 
 logger = logging.getLogger("areal_tpu_torch.master")
@@ -109,6 +120,12 @@ class MasterWorker:
         # Consecutive quarantined steps that escalate to a rollback onto
         # the last valid recover checkpoint (0: only count them).
         max_consecutive_quarantines: int = 3,
+        # The pipeline-overlapped step: chunks of pipeline_chunk_seqs
+        # prompts, overlap_window of them in flight (1: the barrier path
+        # in topological order, bit for bit).
+        pipeline_overlap: bool = False,
+        overlap_window: int = 2,
+        pipeline_chunk_seqs: int = 1,
     ):
         if (pool.n_workers != 1 or set(model_placement.values()) != {0}
                 or list(data_worker_ids) != [0]):
@@ -149,6 +166,33 @@ class MasterWorker:
         self._train_rpcs = [
             n for n in dfg.nodes if n.interface_type == ModelInterfaceType.TRAIN_STEP
         ]
+        self.pipeline_overlap = bool(pipeline_overlap)
+        self.overlap_window = int(overlap_window)
+        self.pipeline_chunk_seqs = int(pipeline_chunk_seqs)
+        if self.pipeline_overlap and self.overlap_window < 1:
+            raise ValueError(f"overlap_window must be >= 1, got {overlap_window}")
+        if self.pipeline_overlap and self.pipeline_chunk_seqs < 1:
+            raise ValueError(f"pipeline_chunk_seqs must be >= 1, got {pipeline_chunk_seqs}")
+        # The GENERATE nodes fed by the dataset alone: the streamed step
+        # needs one to chunk.
+        self._source_nodes = [
+            n for n in dfg.nodes
+            if n.interface_type == ModelInterfaceType.GENERATE
+            and all(dfg.data_producers.get(k) is None for k in n.input_keys)
+        ]
+        reg = metrics.default_registry()
+        self._m_pipe_fill = reg.gauge(
+            "areal_master_pipeline_fill_ratio",
+            "last streamed step: stage busy seconds / step window", ("stage",),
+        )
+        self._m_pipe_bubble = reg.gauge(
+            "areal_master_pipeline_bubble_seconds",
+            "last streamed step: stage idle seconds inside its active span", ("stage",),
+        )
+        self._m_pipe_chunks = reg.counter(
+            "areal_master_pipeline_chunks_total",
+            "rollout chunks streamed through the pipelined step path",
+        )
 
     # ---------------- lifecycle ----------------
 
@@ -268,7 +312,9 @@ class MasterWorker:
     async def _abort_step(self) -> None:
         """Forget the step's data before a rollback, so the replayed step
         starts from a clean buffer.  (The JAX master also cancels its
-        prefetches and drops open train streams: the port has neither.)"""
+        prefetches and drops open train streams: the port has no
+        prefetch, and its streams close within the step that opens
+        them.)"""
         self.buffer.clear()
         self._graded_ids = []
 
@@ -277,9 +323,12 @@ class MasterWorker:
     async def execute_step(self) -> Dict[str, float]:
         results: Dict[str, Dict[str, float]] = {}
         self._graded_ids = []
-        await asyncio.gather(
-            self._load_data(), *[self._run_mfc(node, results) for node in self.dfg.nodes]
-        )
+        if self.pipeline_overlap and self._source_nodes:
+            await self._execute_step_streamed(results)
+        else:
+            await asyncio.gather(
+                self._load_data(), *[self._run_mfc(node, results) for node in self.dfg.nodes]
+            )
         if self.difficulty_filter:
             await self._apply_difficulty_filter()
         await self._clear_worker_caches()
@@ -291,7 +340,7 @@ class MasterWorker:
             merged[f"buffer/{k}"] = float(v)
         return merged
 
-    async def _load_data(self) -> None:
+    async def _load_data(self) -> List[str]:
         resps = await asyncio.gather(
             *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
         )
@@ -300,6 +349,129 @@ class MasterWorker:
             await self.buffer.put_batch(r["meta"])
             ids.extend(r["meta"].ids)
         self._last_data_ids = ids
+        return ids
+
+    # ---------------- the pipeline-overlapped step ----------------
+
+    async def _execute_step_streamed(self, results: Dict) -> None:
+        """One step as a chunked dataflow: the batch is split into chunks
+        of `pipeline_chunk_seqs` prompts, and each chunk runs the graph
+        in topological order as one task (generate, then the reward and
+        the reference model, then a TRAIN node's gradient accumulation),
+        `overlap_window` chunks in flight.  A lock per node keeps one
+        engine's calls apart, so stages overlap across chunks, never
+        within one.  TRAIN nodes open a stream at their first chunk,
+        accumulate each chunk, and take their one optimizer step after
+        the last; post-hooks (the weight sync) run once, after it.
+        Window 1 runs the whole batch through the unchanged per-node
+        `_run_mfc` path, node after node: the bit-exact gate."""
+        t_step0 = time.monotonic()
+        ids = await self._load_data()
+        order = [n for lvl in self.dfg.topological_order() for n in lvl]
+        spans: Dict[str, List[Tuple[float, float]]] = {n.name: [] for n in order}
+
+        if self.overlap_window <= 1:
+            for node in order:
+                t0 = time.monotonic()
+                await self._run_mfc(node, results)
+                spans[node.name].append((t0, time.monotonic()))
+            self._m_pipe_chunks.inc()
+            self._emit_pipeline_stats(results, spans, t_step0, 1)
+            return
+
+        k = self.pipeline_chunk_seqs
+        chunks = [ids[i : i + k] for i in range(0, len(ids), k)]
+        sem = asyncio.Semaphore(self.overlap_window)
+        locks = {n.name: asyncio.Lock() for n in order}
+        started: set = set()
+        node_stats: Dict[str, List[Dict]] = {n.name: [] for n in order}
+
+        async def run_chunk(chunk_ids: List[str]) -> None:
+            async with sem:
+                for node in order:
+                    key = str(node.model_name)
+                    worker = self.placement[key]
+                    is_train = node.interface_type == ModelInterfaceType.TRAIN_STEP
+                    async with locks[node.name]:
+                        if node.name not in started:
+                            started.add(node.name)
+                            for hook in node.pre_hooks:
+                                await self._run_hook(hook, node)
+                            if is_train:
+                                await self.pool.request(worker, {
+                                    "type": "mfc_stream_begin", "model_name": key,
+                                    "mb_spec": node.mb_spec,
+                                })
+                        t0 = time.monotonic()
+                        if is_train:
+                            resp = await self.pool.request(worker, {
+                                "type": "mfc_stream_chunk", "model_name": key,
+                                "ids": chunk_ids, "input_keys": list(node.input_keys),
+                                "input_key_remap": dict(node.input_key_remap),
+                                "mb_spec": node.mb_spec,
+                            })
+                        else:
+                            resp = await self._dispatch_mfc(node, chunk_ids)
+                        node_stats[node.name].append(resp.get("stats") or {})
+                        spans[node.name].append((t0, time.monotonic()))
+            self._m_pipe_chunks.inc()
+
+        await asyncio.gather(*[run_chunk(c) for c in chunks])
+
+        # Close the streams (each TRAIN node's one optimizer step), then
+        # the post-hooks in graph order: the weight sync fires once, after
+        # the whole gradient sum, as on the barrier path.
+        for node in order:
+            key = str(node.model_name)
+            if node.interface_type == ModelInterfaceType.TRAIN_STEP:
+                t0 = time.monotonic()
+                resp = await self.pool.request(self.placement[key], {
+                    "type": "mfc_stream_end", "model_name": key, "mb_spec": node.mb_spec,
+                })
+                spans[node.name].append((t0, time.monotonic()))
+                results[node.name] = resp.get("stats") or {}
+            else:
+                results[node.name] = merge_stats(node_stats[node.name])
+            for hook in node.post_hooks:
+                await self._run_hook(hook, node)
+        # The chunks bypassed the buffer's waits: take each node's batch
+        # now (every key is resident) only to mark it consumed, so the
+        # step's entries are evicted.
+        for node in order:
+            await self.buffer.get_batch_for_rpc(node, timeout=60)
+        self._emit_pipeline_stats(results, spans, t_step0, len(chunks))
+
+    def _emit_pipeline_stats(self, results: Dict, spans: Dict[str, List[Tuple[float, float]]],
+                             t0: float, n_chunks: int) -> None:
+        """Each stage's fill (the union of its chunk intervals over the
+        step's window) and bubble (its idle seconds between its first and
+        last chunk), as `results["pipeline"]` and the gauges."""
+        window = max(time.monotonic() - t0, 1e-9)
+        pipe: Dict[str, float] = {
+            "n_chunks": float(n_chunks),
+            "window": float(self.overlap_window),
+            "step_window_s": window,
+        }
+        for name, ivals in spans.items():
+            if not ivals:
+                continue
+            ivals = sorted(ivals)
+            busy = 0.0
+            cur_a, cur_b = ivals[0]
+            for a, b in ivals[1:]:
+                if a > cur_b:
+                    busy += cur_b - cur_a
+                    cur_a, cur_b = a, b
+                else:
+                    cur_b = max(cur_b, b)
+            busy += cur_b - cur_a
+            fill = busy / window
+            bubble = max(ivals[-1][1] - ivals[0][0] - busy, 0.0)
+            pipe[f"fill_{name}"] = fill
+            pipe[f"bubble_s_{name}"] = bubble
+            self._m_pipe_fill.labels(name).set(fill)
+            self._m_pipe_bubble.labels(name).set(bubble)
+        results["pipeline"] = pipe
 
     async def _run_mfc(self, node: MFCDef, results: Dict):
         batch = await self.buffer.get_batch_for_rpc(node, timeout=600)

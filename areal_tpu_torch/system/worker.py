@@ -13,9 +13,13 @@ filter's `data_accuracy` and `filter_dataset`, and the worker half of
 recovery: `model_versions`/`set_model_versions`, `save_optimizer`,
 `load_model`, `data_state`/`load_data_state` (each loader's resumable
 (epoch, cursor) position, `_Cycler`) and
-`interface_state`/`load_interface_state`.  The cross-worker planes
-(data and param transfers) and the streamed train requests are not yet
-ported (ROADMAP queue 1, items 6 and 7).
+`interface_state`/`load_interface_state`.  The master's pipeline-
+overlapped step trains through `mfc_stream_begin` (the interface's
+stream state), `mfc_stream_chunk` (one retired chunk's gradients) and
+`mfc_stream_end` (the one optimizer step; its perf counts the chunks'
+busy seconds, not the wall between begin and end).  The cross-worker
+planes (data and param transfers) are not yet ported (ROADMAP queue 1,
+item 7).
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
@@ -60,6 +64,7 @@ from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
 
 # Populate the dataset and interface registries.
 import areal_tpu_torch.interfaces.ppo  # noqa: F401
+import areal_tpu_torch.interfaces.sft  # noqa: F401
 import areal_tpu_torch.interfaces.reward  # noqa: F401
 
 logger = logging.getLogger("areal_tpu_torch.model_worker")
@@ -190,6 +195,8 @@ class ModelWorker:
         self.data_cache: Dict[str, SequenceSample] = {}
         # MFCs in two threads read and amend the cache's entries at once.
         self._cache_lock = threading.Lock()
+        # Open train streams, by model key.
+        self._streams: Dict[str, Dict[str, Any]] = {}
         self.datasets = []
         self.dataloaders = []
         self._setup()
@@ -322,6 +329,68 @@ class ModelWorker:
                     self.data_cache[sid] = one
         return {"meta": out_sample.meta(), "stats": perf}
 
+    # ---------------- the streamed train step ----------------
+
+    def _handle_mfc_stream_begin(self, req):
+        key: str = req["model_name"]
+        if key in self._streams:
+            raise RuntimeError(
+                f"worker {self.config.worker_index}: train stream for {key!r} already open"
+            )
+        mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
+        self._streams[key] = {
+            "state": self.interfaces[key].train_stream_begin(self.models[key], mb_spec),
+            "busy_s": 0.0, "tokens": 0, "sum_sq": 0.0, "timers": monitor.Timers(),
+        }
+        return {"meta": None, "stats": {}}
+
+    def _handle_mfc_stream_chunk(self, req):
+        key: str = req["model_name"]
+        st = self._streams[key]
+        mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
+        sample = self._assemble_sample(
+            req["ids"], set(req["input_keys"]), req.get("input_key_remap", {})
+        )
+        with st["timers"].record("mfc_train_chunk"):
+            t0 = time.monotonic()
+            stats = self.interfaces[key].train_stream_chunk(
+                self.models[key], st["state"], sample, mb_spec
+            )
+            st["busy_s"] += time.monotonic() - t0
+        lens = [sum(x) for x in sample.seqlens["packed_input_ids"]]
+        st["tokens"] += int(sum(lens))
+        st["sum_sq"] += float(sum(n * n for n in lens))
+        return {"meta": None, "stats": dict(stats)}
+
+    def _handle_mfc_stream_end(self, req):
+        key: str = req["model_name"]
+        st = self._streams.pop(key)
+        model = self.models[key]
+        mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
+        with st["timers"].record("mfc_train_step"):
+            t0 = time.monotonic()
+            result = self.interfaces[key].train_stream_end(model, st["state"], mb_spec)
+            st["busy_s"] += time.monotonic() - t0
+        perf = {"perf/time_s": st["busy_s"]}
+        if model.config is not None and st["tokens"]:
+            perf.update(self._flops_perf(
+                monitor.flops_train(model.config, st["tokens"], st["sum_sq"]), st["busy_s"]))
+        perf.update(st["timers"].drain())
+        return {"meta": None, "stats": {**dict(result or {}), **perf}}
+
+    def _flops_perf(self, flops: float, seconds: float) -> Dict[str, float]:
+        """TFLOPs, MFU (on a card with a peak entry) and the card's
+        allocated memory after the call."""
+        perf = {"perf/tflops": flops / 1e12}
+        u = monitor.mfu(flops, seconds, self.device)
+        if u is not None:
+            perf["perf/mfu"] = u
+        if self.device.type == "cuda":
+            used = torch.cuda.memory_allocated(self.device)
+            perf["perf/hbm_gb"] = used / 1e9
+            perf["perf/hbm_frac"] = used / torch.cuda.get_device_properties(self.device).total_memory
+        return perf
+
     def _mfc_perf(self, model, itype, sample, result, seconds: float) -> Dict[str, float]:
         """Per-MFC wall time, analytic TFLOPs, MFU (on a card with a peak
         entry) and the card's allocated memory after the call."""
@@ -345,14 +414,7 @@ class ModelWorker:
             sum_sq = float(sum(n * n for n in lens))
             count = monitor.flops_train if itype == ModelInterfaceType.TRAIN_STEP else monitor.flops_forward
             flops = count(cfg, int(sum(lens)), sum_sq)
-        perf["perf/tflops"] = flops / 1e12
-        u = monitor.mfu(flops, seconds, self.device)
-        if u is not None:
-            perf["perf/mfu"] = u
-        if self.device.type == "cuda":
-            used = torch.cuda.memory_allocated(self.device)
-            perf["perf/hbm_gb"] = used / 1e9
-            perf["perf/hbm_frac"] = used / torch.cuda.get_device_properties(self.device).total_memory
+        perf.update(self._flops_perf(flops, seconds))
         return perf
 
     def _handle_param_sync(self, req):

@@ -130,6 +130,32 @@ quickstart   — the system's own entry point at qwen2-1.5B: a seeded random
                fp32; a non-zero update within AdamW's bound.  Step and
                per-MFC seconds, MFU, peak and resident memory, checkpoint
                write, load and save seconds are printed.
+sft          — `quickstart.main(["sft", ...])` at qwen2-1.5B from the
+               quickstart's seeded random checkpoint (written once, shared
+               with quickstart and overlap): 64 prompt/answer rows written
+               here, batch 8, two steps and a save at step 2; then
+               SFTInterface.evaluate on the trained model over 16 more rows;
+               the save reloaded (the trained masters bit for bit); a third
+               step from the save with --anomaly-update-norm-max at half of
+               step 2's update norm (UPDATE_NORM: the weights stay as
+               loaded, bit for bit); and one step and evaluate at 2 layers
+               in fp32, card against CPU (loss, grad norm, eval NLL within
+               1e-4).  Launches exact: K1f 28 x 2, K1dq and K1dkv 28 x each
+               train micro-batch, K1f 28 x each eval micro-batch.  Step time,
+               tokens/s, MFU and peak memory are printed.
+overlap      — the quickstart's ppo-math trial (8 prompts x 4, 128 new
+               tokens, a ref, kl_ctl 0.1, two steps; rewards keyed to each
+               sequence's id) three ways: the barrier step,
+               --pipeline-overlap --overlap-window 1 (train stats and the
+               actor's weights after each step equal the barrier's bit for
+               bit) and --overlap-window 2 --pipeline-chunk-seqs 2 (four
+               chunks of 8 requests, each its own static burst; the train
+               stream's 4 chunks and one optimizer step; pipeline/n_chunks 4,
+               fill and bubble of every stage; the loss within
+               OVERLAP_LOSS_TOL of the barrier's).  Launches of each step =
+               28 x the engines' calls summed over every chunk and thread.
+               Each step's wall and the card's idle share over step 2
+               (torch.profiler, CUDA activity) are printed.
 recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
                quickstart trial with the EMA reference model
                (--ref-ema-eta 0.9 --offload-ref) and the difficulty filter,
@@ -215,8 +241,9 @@ train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
 editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
 K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
 step with the critic and the reference model, `--phases build,quickstart`
-for the quickstart entry point, `--phases build,recover` for
-kill-and-resume, `--phases build,kernel,parity,genmodes` for the
+for the quickstart entry point, `--phases build,sft` for SFT and the
+sentinels, `--phases build,overlap` for the pipeline-overlapped step,
+`--phases build,recover` for kill-and-resume, `--phases build,kernel,parity,genmodes` for the
 generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
@@ -238,8 +265,8 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "recover", "genmodes", "episodes", "parity",
-          "train_parity")
+          "train", "ppo", "quickstart", "sft", "overlap", "recover", "genmodes", "episodes",
+          "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -3359,13 +3386,15 @@ def _record_trial_steps(wrap, rec, cur):
     wrap(TrainEngine, "train_batch", on_train_batch)
 
 
-def _check_step_launches(tag, step, st, nodes, n_layers, max_new):
+def _check_step_launches(tag, step, st, nodes, n_layers, max_new, gen_chunks=1):
     """A step's launches (st: one record of _record_trial_steps) against
     the launches each MFC of the DFG `nodes` must make, from the engines'
     own calls: generate one prefill (K1f) a static chunk and one K4 a
     decode step; ref_inf one K1f a forward micro-batch; each train_batch
-    of actor_train two forwards (remat "full"), one dq and one dkv a
-    micro-batch.  K2 and K3 (the serving plane) run no time."""
+    (or streamed chunk) of actor_train two forwards (remat "full"), one
+    dq and one dkv a micro-batch.  K2 and K3 (the serving plane) run no
+    time.  Generation takes `gen_chunks` static chunks (one a pipeline
+    chunk), the K1f launches of every thread summed."""
     from areal_tpu_torch.api.config import ModelInterfaceType
 
     L = n_layers
@@ -3386,7 +3415,8 @@ def _check_step_launches(tag, step, st, nodes, n_layers, max_new):
         f"{st['ref_fwd_mbs']} ref micro-batch(es), {len(st['train_calls'])} minibatch "
         f"train_batch call(s) of {train_mbs} micro-batch(es))")
     check(st["launches"] == want, f"{tag} step {step}: launches {st['launches']} != {want}")
-    check(st["gen_chunks"] == 1 and 1 <= st["decode_steps"] <= max_new - 1,
+    check(st["gen_chunks"] == gen_chunks
+          and gen_chunks <= st["decode_steps"] <= gen_chunks * (max_new - 1),
           f"{tag} step {step}: generate took {st['gen_chunks']} static chunks, "
           f"{st['decode_steps']} decode steps")
 
@@ -3429,7 +3459,7 @@ def phase_quickstart(report, seed):
         # Two fp32 copies of the model (the checkpoint, the step-2 save)
         # and the margin the trial's logs need.
         _check_disk("[quickstart]", work, 2 * _fp32_model_bytes(cfg) + 2 * 2**30)
-        ckpt, write_s, ckpt_bytes = _write_random_checkpoint("[quickstart]", work, cfg, seed + 21)
+        ckpt, write_s, ckpt_bytes = _shared_checkpoint("[quickstart]", cfg, seed + 21)
         data = os.path.join(work, "math.jsonl")
         with open(data, "w") as f:
             for row in _math_rows(rng, 64):
@@ -3589,6 +3619,544 @@ def phase_quickstart(report, seed):
         ckpt_write_s=write_s, ckpt_bytes=ckpt_bytes, ckpt_load_s=rec["loads"],
         save_s=save_s, trial_s=trial_s, largest_update=largest,
     )
+
+
+# --------------------------------------------------------------------------
+# sft and overlap: SFT, the streamed step and the sentinels at full size
+# --------------------------------------------------------------------------
+
+# Seeded random checkpoints written once and shared by the phases that
+# read them (seed -> (dir, path, write seconds, bytes)); removed after the
+# last phase that uses them.
+SHARED_CKPTS = {}
+CKPT_PHASES = ("quickstart", "sft", "overlap")
+
+
+def _shared_checkpoint(tag, cfg, seed):
+    """The seeded random qwen2-1.5b checkpoint of `_write_random_checkpoint`,
+    written on the first call for `seed` and reused after it."""
+    if seed not in SHARED_CKPTS:
+        os.makedirs(QUICKSTART_DIR, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="ckpt-", dir=QUICKSTART_DIR)
+        _check_disk(tag, work, _fp32_model_bytes(cfg) + 2**30)
+        SHARED_CKPTS[seed] = (work,) + _write_random_checkpoint(tag, work, cfg, seed)
+    else:
+        log(f"{tag} reading the seeded random checkpoint written earlier: {SHARED_CKPTS[seed][1]}")
+    return SHARED_CKPTS[seed][1:]
+
+
+def _release_shared_checkpoints():
+    import shutil
+
+    for work, *_ in SHARED_CKPTS.values():
+        shutil.rmtree(work, ignore_errors=True)
+    SHARED_CKPTS.clear()
+
+
+def _sft_rows(rng, n):
+    """n prompt/answer rows written here: _math_rows' prompts (64-512
+    bytes) and answers of 32-128 bytes."""
+    rows = []
+    for i, r in enumerate(_math_rows(rng, n)):
+        total = r["solutions"][0][len("\\boxed{"):-1]
+        answer = f"The sum is {total}. "
+        target = int(rng.integers(32, 129))
+        while len(answer) < target:
+            answer += f"Check: {total} is the sum. "
+        rows.append({"id": f"s{i}", "prompt": r["prompt"], "answer": answer[:target]})
+    return rows
+
+
+def _capture_trials(wrap, masters):
+    """Wrap (through `wrap`) the port's run_experiment so that each trial
+    quickstart.main runs leaves its master in `masters`."""
+    from areal_tpu_torch.experiments import common
+
+    def on_run(orig):
+        def run_experiment(*a, **k):
+            master, stats = orig(*a, **k)
+            masters.append(master)
+            return master, stats
+        return run_experiment
+
+    wrap(common, "run_experiment", on_run)
+
+
+def _sft_parity(seed, rows):
+    """SFTInterface.train_step and evaluate on one batch of the phase's
+    rows at qwen2-1.5B width, 2 layers, fp32: the card (K1 kernels)
+    against the CPU (plain path), same weights and batch: loss, grad_norm
+    and eval_nll within 1e-4 of each other (relative), as train_parity
+    holds the GRPO step."""
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import FinetuneSpec, Model, OptimizerConfig
+    from areal_tpu_torch.data.datasets import PromptAnswerDataset
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.sft import SFTInterface
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.transformer import init_params
+
+    base = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
+    tok = CharTokenizer(base.vocab_size)
+    ds = PromptAnswerDataset(seed, 0, 1, tok, max_length=256, dataset_builder=lambda: rows[:4])
+    sample = SequenceSample.gather([ds[i] for i in range(len(ds))])
+    params = init_params(base, seed + 61, device="cpu")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            eng = TrainEngine(base, params, dev, compute_dtype=torch.float32,
+                              optimizer_config=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
+                              ftspec=FinetuneSpec(1, 8, 8))
+            model = Model("default", eng, tok, base)
+            t0 = time.monotonic()
+            st = SFTInterface().train_step(model, sample, MicroBatchSpec())
+            ev = SFTInterface().evaluate(model, [sample])
+            out[dev] = dict(loss=st["loss"], grad_norm=st["grad_norm"], eval_nll=ev["eval_nll"])
+            log(f"[sft] parity {dev}: {out[dev]} ({time.monotonic() - t0:.1f} s)")
+            del eng, model
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
+           for k in out["cpu"]}
+    log(f"[sft] parity, 2 layers fp32, {sample.bs} rows of {sample.total_len('packed_input_ids')} "
+        f"tokens: card against CPU, relative differences {rel} (bound 1e-4)")
+    check(all(v <= 1e-4 for v in rel.values()), f"sft card vs CPU: {rel}")
+    return rel
+
+
+def phase_sft(report, seed):
+    """`python -m areal_tpu_torch.apps.quickstart sft` at qwen2-1.5B in
+    this process: the seeded random checkpoint (shared with quickstart
+    and overlap), 64 prompt/answer rows written here, batch 8, two steps
+    and a save at step 2; then SFTInterface.evaluate on the trained model
+    over 16 more rows; the step-2 save reloaded; a third step, from the
+    save, with --anomaly-update-norm-max at half of step 2's update norm
+    (quarantined: the weights stay as loaded, bit for bit); and the loss,
+    grad norm and eval NLL of one step at 2 layers, fp32, card against
+    CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import Model
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.base import integrity
+    from areal_tpu_torch.data.datasets import PackedDataLoader, PromptAnswerDataset
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.sft import SFTInterface
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.system.master import MasterWorker
+
+    cfg = qwen2_config("1.5b")
+    L, batch, n_steps = cfg.n_layers, 8, 2
+    rng = np.random.default_rng(seed + 60)
+    os.makedirs(QUICKSTART_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="sft-", dir=QUICKSTART_DIR)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def unwrap():
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+        restore.clear()
+
+    steps, masters, cur, before = [], [], {}, {}
+
+    def on_step(orig):
+        async def execute_step(self):
+            if "fingerprints" in before:  # the weights the step starts from
+                before["fingerprints"] = _leaf_fingerprints(
+                    self.pool.workers[0].models["default@0"].engine.params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cur.clear()
+            cur.update(mbs=0, real_tokens=0, counts0=_trial_counts(), t0=time.monotonic())
+            stats = await orig(self)
+            torch.cuda.synchronize()
+            c1 = _trial_counts()
+            steps.append(dict(
+                stats=stats, wall_s=time.monotonic() - cur["t0"], mbs=cur["mbs"],
+                real_tokens=cur["real_tokens"], peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches={k: c1[k] - cur["counts0"][k] for k in c1}))
+            return stats
+        return execute_step
+
+    def on_train_batch(orig):
+        def train_batch(self, *a, **k):
+            out = orig(self, *a, **k)
+            cur["mbs"] += self.last_pack_stats["n_micro_batches"]
+            cur["real_tokens"] += self.last_pack_stats["real_tokens"]
+            return out
+        return train_batch
+
+    def want_train(mbs):
+        return dict(fwd=2 * L * mbs, dq=L * mbs, dkv=L * mbs, k2=0, k3=0, k4=0)
+
+    try:
+        # The step-2 save and the margin the logs need (the checkpoint
+        # itself is shared).
+        _check_disk("[sft]", work, _fp32_model_bytes(cfg) + 2**30)
+        ckpt, _, _ = _shared_checkpoint("[sft]", cfg, seed + 21)
+        rows = _sft_rows(rng, 80)
+        train_rows, eval_rows = rows[:64], rows[64:]
+        data = os.path.join(work, "sft.jsonl")
+        with open(data, "w") as f:
+            for row in train_rows:
+                f.write(json.dumps(row) + "\n")
+        wrap(MasterWorker, "execute_step", on_step)
+        wrap(TrainEngine, "train_batch", on_train_batch)
+        _capture_trials(wrap, masters)
+        common = ["--dataset.path", data, "--tokenizer-path", f"char:{cfg.vocab_size}",
+                  "--batch-size", str(batch), "--seed", str(seed + 62)]
+        argv = ["sft", "--model.path", ckpt, *common, "--benchmark-steps", str(n_steps),
+                "--save-freq-steps", str(n_steps), "--fileroot", os.path.join(work, "trial")]
+        log(f"[sft] python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        stats = quickstart.main(argv)
+        trial_s = time.monotonic() - t
+        check(len(stats) == n_steps == len(steps), f"{len(stats)} steps of stats, {len(steps)} recorded")
+        steps_out = []
+        for i, st in enumerate(steps):
+            s = st["stats"]
+            check(all(math.isfinite(v) for v in s.values()),
+                  f"step {i + 1}: non-finite stats {[k for k, v in s.items() if not math.isfinite(v)]}")
+            check(s["quarantined"] == 0.0, f"step {i + 1} was quarantined")
+            check(st["launches"] == want_train(st["mbs"]),
+                  f"step {i + 1}: launches {st['launches']} != {want_train(st['mbs'])}")
+            out = dict(step_s=st["wall_s"], train_s=s["perf/time_s"], mfu=s.get("perf/mfu"),
+                       tokens=st["real_tokens"], tokens_per_s=st["real_tokens"] / st["wall_s"],
+                       peak_mem_bytes=st["peak_mem_bytes"], loss=s["loss"],
+                       grad_norm=s["grad_norm"], update_norm=s["update_norm"],
+                       micro_batches=st["mbs"], launches=st["launches"])
+            steps_out.append(out)
+            log(f"[sft] step {i + 1}: {st['wall_s']:.3f} s ({s['perf/time_s']:.3f} s in the "
+                f"train MFC), {st['real_tokens']} tokens = {out['tokens_per_s']:.1f} tok/s, MFU "
+                f"{out['mfu']}, peak {st['peak_mem_bytes'] / 2**30:.2f} GiB; loss={s['loss']:.6f} "
+                f"grad_norm={s['grad_norm']:.4f} update_norm={s['update_norm']:.6f}; "
+                f"{st['mbs']} micro-batch(es), launches {st['launches']}")
+
+        # Evaluation with the trained model, over 16 more rows.
+        model = masters[-1].pool.workers[0].models["default@0"]
+        eval_ds = PromptAnswerDataset(seed, 0, 1, model.tokenizer, max_length=4096,
+                                      dataset_builder=lambda: eval_rows)
+        batches = list(PackedDataLoader(eval_ds, batch_size=batch, seed=seed))
+        eval_mbs = sum(len(b.split(MicroBatchSpec())) for b in batches)
+        torch.cuda.synchronize()
+        c0, t = _trial_counts(), time.monotonic()
+        ev = SFTInterface().evaluate(model, batches)
+        torch.cuda.synchronize()
+        eval_s = time.monotonic() - t
+        c1 = _trial_counts()
+        eval_launches = {k: c1[k] - c0[k] for k in c1}
+        want = dict(fwd=L * eval_mbs, dq=0, dkv=0, k2=0, k3=0, k4=0)
+        log(f"[sft] evaluate over {len(eval_rows)} rows ({len(batches)} batches, {eval_mbs} "
+            f"micro-batches): eval_nll={ev['eval_nll']:.6f} in {eval_s:.3f} s; launches "
+            f"{eval_launches}")
+        check(math.isfinite(ev["eval_nll"]) and ev["eval_nll"] > 0, f"eval_nll {ev['eval_nll']}")
+        check(eval_launches == want, f"evaluate launches {eval_launches} != {want}")
+
+        # The step-2 save reloads to the trained masters bit for bit.
+        saved = os.path.join(work, "trial", "checkpoints", "sft", "trial0", "default@0",
+                             f"step_{n_steps}")
+        t = time.monotonic()
+        _, loaded = hf.load_hf_checkpoint(saved, dtype=torch.float32, device="cuda")
+        load_s = time.monotonic() - t
+        saved_fp = _leaf_fingerprints(loaded)
+        check(saved_fp == _leaf_fingerprints(model.engine.params),
+              "the step-2 save does not reload to the trained weights")
+        del loaded, model
+        masters.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[sft] the step-2 save reloads to the trained masters bit for bit "
+            f"({len(saved_fp)} tensors, loaded in {load_s:.2f} s)")
+
+        # A third step from the save with the ceiling under step 2's
+        # update norm: quarantined, the weights stay as the trial loaded
+        # them (the save in the model's bf16, widened to fp32 masters).
+        ceiling = steps[-1]["stats"]["update_norm"] / 2
+        steps.clear()
+        before["fingerprints"] = None
+        argv3 = ["sft", "--model.path", saved, *common, "--benchmark-steps", "1",
+                 "--anomaly-update-norm-max", repr(ceiling),
+                 "--fileroot", os.path.join(work, "trial3")]
+        log(f"[sft] python -m areal_tpu_torch.apps.quickstart {' '.join(argv3)}")
+        stats3 = quickstart.main(argv3)[0]
+        st3 = steps[0]
+        engine = masters[-1].pool.workers[0].models["default@0"].engine
+        log(f"[sft] step 3 (ceiling {ceiling:.6e}): quarantined={stats3['quarantined']} "
+            f"verdict={stats3['anomaly_verdict']} update_norm={stats3['update_norm']:.6e} "
+            f"grad_norm={stats3['grad_norm']:.4f}; launches {st3['launches']}")
+        check(stats3["quarantined"] == 1.0
+              and int(stats3["anomaly_verdict"]) == integrity.UPDATE_NORM,
+              f"step 3 not quarantined by the update-norm ceiling: {stats3}")
+        check(st3["launches"] == want_train(st3["mbs"]),
+              f"step 3 launches {st3['launches']} != {want_train(st3['mbs'])}")
+        check(_leaf_fingerprints(engine.params) == before["fingerprints"]
+              and engine.opt_count == 0, "the quarantined step changed the weights")
+        log("[sft] the quarantined step left the weights bit for bit")
+        del engine
+        masters.clear()
+        unwrap()
+        gc.collect()
+        torch.cuda.empty_cache()
+        parity = _sft_parity(seed + 63, train_rows)
+    finally:
+        unwrap()
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {k: sum(s["launches"][k] for s in steps_out) for k in steps_out[0]["launches"]}
+    report["sft"] = dict(
+        steps=steps_out, trial_s=trial_s, launches=total, eval_nll=ev["eval_nll"],
+        eval_launches=eval_launches, eval_s=eval_s, quarantined_step=dict(
+            ceiling=ceiling, update_norm=stats3["update_norm"], launches=st3["launches"]),
+        parity=parity,
+    )
+
+
+class _BusySampler:
+    """The card's busy share over a window from NVML's utilization.gpu
+    (the percent of each sample period in which a kernel ran), sampled
+    every 50 ms by one `nvidia-smi` process that runs only inside the
+    window: no profiler, so no trace to collect (torch.profiler's took
+    35-148 s a step here).  `share` is None when no sample came back."""
+
+    def __enter__(self):
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+                 "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        self.samples, self.share = 0, None
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        vals = [float(x) for x in out.split() if x.strip().replace(".", "", 1).isdigit()]
+        self.samples = len(vals)
+        self.share = sum(vals) / len(vals) / 100 if vals else None
+        return False
+
+
+OVERLAP_MODES = (
+    ("barrier", []),
+    ("window1", ["--pipeline-overlap", "--overlap-window", "1"]),
+    ("window2", ["--pipeline-overlap", "--overlap-window", "2", "--pipeline-chunk-seqs", "2"]),
+)
+# A streamed step takes its one optimizer step at the behaviour policy
+# (ratio 1) with each chunk's advantages normalized over the chunk, so its
+# loss is 0 up to the ratio's bf16 recompute noise; the barrier's loss
+# averages four minibatches, three of them after an update, and is not
+# that quantity (on an H100 at 700 W: 0.104 against the stream's -2.4e-4).
+OVERLAP_LOSS_TOL = 1e-2
+OVERLAP_STEPS = 1
+
+
+def phase_overlap(report, seed):
+    """The quickstart's ppo-math trial (8 prompts x 4, 128 new tokens, a
+    ref from the same checkpoint, kl_ctl 0.1, OVERLAP_STEPS steps: one,
+    to keep the whole smoke inside its limit; rewards keyed to each
+    sequence's id and place in its group, so every mode scores alike)
+    three ways through quickstart.main: the barrier step,
+    --pipeline-overlap --overlap-window 1 (its train stats and the actor's
+    weights after each step equal the barrier's bit for bit), and
+    --overlap-window 2 --pipeline-chunk-seqs 2 (4 chunks of 8 requests,
+    each generated as its own static burst; stream begin, 4 chunks of
+    gradient accumulation and one optimizer step: importance weight 1,
+    approx-KL 0 and a loss within OVERLAP_LOSS_TOL of 0).  Each step's
+    launches equal 28 x the engines' calls summed over the MFCs of all
+    chunks and both threads (K1f from the prefills, the ref and the train
+    micro-batches; K4 from the decode steps); step walls, the card's idle
+    share over each step (`_BusySampler`), fill and bubble of each
+    stage."""
+    import functools
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.system.master import MasterWorker
+
+    cfg = qwen2_config("1.5b")
+    n_prompts, n, max_new, n_steps = 8, 4, 128, OVERLAP_STEPS
+    L = cfg.n_layers
+    rng = np.random.default_rng(seed + 70)
+    os.makedirs(QUICKSTART_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="overlap-", dir=QUICKSTART_DIR)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)
+            scores = []
+            for sid, group in zip(sample.ids, sample.seqlens["packed_input_ids"]):
+                scores += [5.0 if zlib.crc32(f"{sid}/{j}/{seed}".encode()) & 1 else -5.0
+                           for j in range(len(group))]
+            out.data["rewards"] = np.asarray(scores, np.float32)
+            return out
+        return inference
+
+    def on_stream_chunk(cur):
+        def make(orig):
+            @functools.wraps(orig)
+            def train_stream_chunk(self, *a, **k):
+                out = orig(self, *a, **k)
+                cur["train_calls"].append(dict(stats=out, mbs=int(out["chunk_micro_batches"])))
+                return out
+            return train_stream_chunk
+        return make
+
+    results = {}
+    try:
+        ckpt, _, _ = _shared_checkpoint("[overlap]", cfg, seed + 21)
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(rng, 64):
+                f.write(json.dumps(row) + "\n")
+        for mode, flags in OVERLAP_MODES:
+            rec, cur, fps, walls, busy = {"steps": []}, {}, [], [], []
+
+            def on_step(orig, fps=fps, walls=walls, busy=busy):
+                async def execute_step(self):
+                    t0 = time.monotonic()
+                    with _BusySampler() as sampler:
+                        stats = await orig(self)
+                        torch.cuda.synchronize()
+                    walls.append(time.monotonic() - t0)
+                    busy.append(sampler.share)
+                    fps.append(_leaf_fingerprints(
+                        self.pool.workers[0].models["actor@0"].engine.params))
+                    return stats
+                return execute_step
+
+            _record_trial_steps(wrap, rec, cur)
+            wrap(TrainEngine, "train_stream_chunk", on_stream_chunk(cur))
+            wrap(MultiTaskRewardInterface, "inference", on_reward)
+            wrap(MasterWorker, "execute_step", on_step)
+            argv = [
+                "ppo-math", "--model.path", ckpt, "--dataset.path", data,
+                "--tokenizer-path", f"char:{cfg.vocab_size}", "--ref-path", ckpt,
+                "--kl-ctl", "0.1", "--batch-size", str(n_prompts), "--group-size", str(n),
+                "--max-new-tokens", str(max_new), "--benchmark-steps", str(n_steps),
+                "--fileroot", os.path.join(work, mode), "--seed", str(seed + 72), *flags,
+            ]
+            log(f"[overlap] {mode}: python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+            try:
+                torch.cuda.synchronize()
+                t = time.monotonic()
+                stats = quickstart.main(argv)
+                torch.cuda.synchronize()
+                trial_s = time.monotonic() - t
+            finally:
+                for owner, name, orig in reversed(restore):
+                    setattr(owner, name, orig)
+                restore.clear()
+            check(len(stats) == n_steps == len(rec["steps"]) == len(walls),
+                  f"{mode}: {len(stats)} steps of stats, {len(rec['steps'])} recorded")
+            chunks = 4 if mode == "window2" else 1
+            out = dict(trial_s=trial_s, steps=[], fingerprints=fps)
+            for i, st in enumerate(rec["steps"]):
+                s = st["stats"]
+                check(all(math.isfinite(v) for v in s.values()),
+                      f"{mode} step {i + 1}: non-finite stats "
+                      f"{[k for k, v in s.items() if not math.isfinite(v)]}")
+                check(s["actor_train/quarantined"] == 0.0, f"{mode} step {i + 1} quarantined")
+                _check_step_launches(f"[overlap] {mode}", i + 1, st, rec["plan_nodes"], L, max_new,
+                                     gen_chunks=chunks)
+                pipe = {k[len("pipeline/"):]: v for k, v in s.items() if k.startswith("pipeline/")}
+                if mode != "barrier":
+                    check(pipe.get("n_chunks") == chunks,
+                          f"{mode}: pipeline/n_chunks {pipe.get('n_chunks')} != {chunks}")
+                    check(all(f"fill_{nm}" in pipe and f"bubble_s_{nm}" in pipe
+                              for nm, _ in rec["plan_nodes"]),
+                          f"{mode}: a stage without fill or bubble: {sorted(pipe)}")
+                if mode == "window2":
+                    check(s["actor_train/n_stream_chunks"] == chunks,
+                          f"{mode}: {s['actor_train/n_stream_chunks']} stream chunks")
+                train = {k: v for k, v in s.items() if k.startswith("actor_train/")
+                         and "/perf/" not in k and "/time/" not in k}
+                out["steps"].append(dict(
+                    step_s=walls[i], busy_share=busy[i], launches=st["launches"], pipeline=pipe,
+                    train=train, peak_mem_bytes=st["peak_mem_bytes"],
+                    decode_steps=st["decode_steps"], gen_chunks=st["gen_chunks"],
+                    mfc_s={k.split("/")[0]: v for k, v in s.items() if k.endswith("/perf/time_s")}))
+                idle = "not measured" if busy[i] is None else f"{1 - busy[i]:.4f}"
+                log(f"[overlap] {mode} step {i + 1}: {walls[i]:.3f} s, the card's idle share "
+                    f"{idle} (NVML utilization.gpu every 50 ms); actor_loss="
+                    f"{train['actor_train/actor_loss']:.6e} grad_norm="
+                    f"{train['actor_train/grad_norm']:.4f}; {st['gen_chunks']} static chunk(s), "
+                    f"{st['decode_steps']} decode steps; peak {st['peak_mem_bytes'] / 2**30:.2f} GiB")
+                if pipe:
+                    log(f"[overlap] {mode} step {i + 1} pipeline: "
+                        f"{ {k: round(v, 4) for k, v in pipe.items()} }")
+            results[mode] = out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    barrier, w1, w2 = results["barrier"], results["window1"], results["window2"]
+    for i, (a, b) in enumerate(zip(barrier["steps"], w1["steps"])):
+        check(a["train"] == b["train"], f"window 1 step {i + 1}: train stats differ from the "
+              f"barrier's: { {k: (a['train'][k], b['train'].get(k)) for k in a['train'] if a['train'][k] != b['train'].get(k)} }")
+        check(barrier["fingerprints"][i] == w1["fingerprints"][i],
+              f"window 1 step {i + 1}: the actor's weights differ from the barrier's")
+    log(f"[overlap] window 1: every actor_train stat and the actor's weights after each step "
+        f"({n_steps}) equal the barrier's bit for bit")
+    for i, (a, b) in enumerate(zip(barrier["steps"], w2["steps"])):
+        t = b["train"]
+        loss, iw, kl = (t[f"actor_train/{k}"] for k in ("actor_loss", "importance_weight",
+                                                         "approx_kl"))
+        log(f"[overlap] window 2 step {i + 1}: actor_loss {loss:.6e} (bound {OVERLAP_LOSS_TOL}; "
+            f"the barrier's, over four minibatches, {a['train']['actor_train/actor_loss']:.6e}), "
+            f"importance_weight {iw:.6f}, approx_kl {kl:.3e} (bounds {IMP_WEIGHT_TOL}, "
+            f"{APPROX_KL_TOL})")
+        check(abs(loss) <= OVERLAP_LOSS_TOL and abs(iw - 1.0) < IMP_WEIGHT_TOL
+              and abs(kl) < APPROX_KL_TOL,
+              f"window 2 step {i + 1}: the streamed step is not at the behaviour policy: "
+              f"loss {loss}, importance_weight {iw}, approx_kl {kl}")
+    for r in results.values():
+        r.pop("fingerprints")
+    total = {k: sum(s["launches"][k] for s in w2["steps"]) for k in w2["steps"][0]["launches"]}
+    report["overlap"] = dict(modes=results, launches=total)
 
 
 # --------------------------------------------------------------------------
@@ -5091,6 +5659,9 @@ def _kernels_line(report):
     rc_launches = report.get("recover", {}).get("launches", {})
     gm_launches = report.get("genmodes", {}).get("launches", {})
     ep_launches = report.get("episodes", {}).get("launches", {})
+    sft = report.get("sft", {})
+    sft_launches = sft.get("launches", {})
+    ov_launches = report.get("overlap", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -5104,6 +5675,8 @@ def _kernels_line(report):
         "launches_genmodes": gm_launches.get("k2"),
         "launches_push_int8": report.get("push_int8", {}).get("k2_launches"),
         "launches_episodes": ep_launches.get("k2"),
+        "launches_sft": sft_launches.get("k2"),
+        "launches_overlap": ov_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -5149,6 +5722,9 @@ def _kernels_line(report):
             "launches_recover": rc_launches.get(name),
             "launches_genmodes": gm_launches.get(name),
             "launches_episodes": ep_launches.get(name),
+            "launches_sft": sft_launches.get(name),
+            "launches_sft_eval": sft.get("eval_launches", {}).get(name),
+            "launches_overlap": ov_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -5186,6 +5762,8 @@ def _kernels_line(report):
         "launches_recover": rc_launches.get("k3"),
         "launches_genmodes": gm_launches.get("k3"),
         "launches_episodes": ep_launches.get("k3"),
+        "launches_sft": sft_launches.get("k3"),
+        "launches_overlap": ov_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -5247,6 +5825,8 @@ def _kernels_line(report):
         "launches_recover": rc_launches.get("k4"),
         "launches_genmodes": gm_launches.get("k4"),
         "launches_episodes": ep_launches.get("k4"),
+        "launches_sft": sft_launches.get("k4"),
+        "launches_overlap": ov_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -5317,17 +5897,25 @@ def main() -> int:
         "train": lambda: phase_train(report, args.seed),
         "ppo": lambda: phase_ppo(report, args.seed),
         "quickstart": lambda: phase_quickstart(report, args.seed),
+        "sft": lambda: phase_sft(report, args.seed),
+        "overlap": lambda: phase_overlap(report, args.seed),
         "recover": lambda: phase_recover(report, args.seed),
         "genmodes": lambda: phase_genmodes(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),
     }
-    for name in PHASES:  # in this order, whatever the order asked
-        if name in phases:
-            t0 = time.monotonic()
-            runners[name]()
-            log(f"[time] {name}: {time.monotonic() - t0:.1f} s")
+    last_ckpt_user = [p for p in PHASES if p in phases and p in CKPT_PHASES][-1:]
+    try:
+        for name in PHASES:  # in this order, whatever the order asked
+            if name in phases:
+                t0 = time.monotonic()
+                runners[name]()
+                log(f"[time] {name}: {time.monotonic() - t0:.1f} s")
+                if [name] == last_ckpt_user:
+                    _release_shared_checkpoints()
+    finally:
+        _release_shared_checkpoints()
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     log_card()  # again here: a long run's output may keep only its tail
     print(json.dumps({"kernels": _kernels_line(report)}), flush=True)

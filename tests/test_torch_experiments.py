@@ -168,16 +168,14 @@ def test_offload_ref_e2e(tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("rollout_ahead", 1, "item 7"),
     ("max_head_offpolicyness", 0, "item 7"),
-    ("pipeline_overlap", True, "item 6"),
     ("gen_server_url", "http://localhost:1", "item 7"),
     ("fuse_rew_ref", True, "item 6"),
     ("verifier_pool", True, "item 7"),
     ("mixture_weights", {"math": 1.0}, "item 7"),
     ("placement", {"actor_gen": 1}, "items 7 and 8"),
-    ("anomaly_kl_max", 1.0, "item 6"),
-    ("anomaly_grad_norm_mult", 2.0, "item 6"),
     ("train_backend_args", {"master_dtype": "bfloat16"}, "item 6"),
     ("train_backend_args", {"remat_policy": "dots"}, "item 6"),
+    ("ppo_kwargs", {"anomaly_imp_ratio_max": 2.0}, "item 7"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -189,8 +187,10 @@ def test_unported_options_raise(tmp_path, option, value, item):
 # trial on the CPU: the difficulty filter, recover checkpoints, the EMA
 # reference model, an int8 KV pool (which the static path ignores and
 # the inflight paths honour, as in the JAX package), the dense KV window,
-# the two-program admit path, speculative decoding and the agent-episode
-# options (carried, read by no code of the in-process trial: see below).
+# the two-program admit path, speculative decoding, the agent-episode
+# options (carried, read by no code of the in-process trial: see below),
+# the pipeline-overlapped step and the tunable sentinels (set where they
+# do not trip).
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
     ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
@@ -202,6 +202,10 @@ FORMERLY_UNPORTED = [
     ("episode_max_turns", 2),
     ("episode_token_budget", 64),
     ("tool_timeout_s", 1.0),
+    ("pipeline_overlap", True),
+    ("anomaly_kl_max", 10.0),
+    ("anomaly_grad_norm_mult", 2.0),
+    ("anomaly_update_norm_max", 100.0),
 ]
 
 
@@ -226,6 +230,14 @@ def test_formerly_unported_options_run(tmp_path, option, value):
         assert engine.prefill_chunk_tokens == 0
     if option == "gconfig":
         assert engine.steps_total > 0  # spec decoding takes the inflight path
+    if option == "pipeline_overlap":  # the default window 2, one prompt a chunk
+        assert stats[-1]["pipeline/n_chunks"] == 4.0
+        assert stats[-1]["actor_train/n_stream_chunks"] == 4.0
+    if option == "anomaly_kl_max":
+        assert worker.interfaces["actor@0"].anomaly_kl_max == value
+    if option.startswith("anomaly_") and option != "anomaly_kl_max":
+        for model in ("actor@0",):
+            assert getattr(worker.models[model].engine, option) == value
 
 
 EPISODE_OPTIONS = dict(episode_max_turns=2, episode_token_budget=64, tool_timeout_s=1.0)

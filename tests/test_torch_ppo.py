@@ -265,9 +265,14 @@ def test_inference_matches_jax(weights, rollout):
 
 
 def test_unported_branches_raise(weights, critic_weights, tmp_path):
+    """The branches still to come raise, naming their item.  (The
+    critic's streamed train step, once refused here, is ported:
+    tests/test_torch_stream.py.)"""
     critic = _port_critic(critic_weights)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        PPOCriticInterface().train_stream_begin(critic, MicroBatchSpec())
+    state = PPOCriticInterface().train_stream_begin(critic, MicroBatchSpec())
+    assert state["engine"]["n_chunks"] == 0
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        PPOActorInterface(anomaly_imp_ratio_max=2.0)
     with pytest.raises(NotImplementedError):
         MultiTaskRewardInterface(remote_url="http://localhost:1")
     with pytest.raises(NotImplementedError):

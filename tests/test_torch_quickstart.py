@@ -87,8 +87,6 @@ UNPORTED = [
     (["--recover-retries", "1"], "item 7"),
     (["--mfc-timeout-s", "60"], "item 7"),
     (["--worker-heartbeat-s", "2"], "item 7"),
-    (["--anomaly-grad-norm-mult", "3"], "item 6"),
-    (["--anomaly-update-norm-max", "1"], "item 6"),
     (["--no-weight-push-checksum"], "item 7"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
@@ -103,10 +101,6 @@ UNPORTED = [
     (["--inmem-weight-sync"], "item 7"),
     (["--param-push-tree"], "item 7"),
     (["--param-push-fanout", "4"], "item 7"),
-    (["--pipeline-overlap"], "item 6"),
-    (["--overlap-window", "3"], "item 6"),
-    (["--pipeline-chunk-seqs", "2"], "item 6"),
-    (["--anomaly-kl-max", "1.0"], "item 6"),
     (["--verifier-pool"], "item 7"),
     (["--mixture-weight", "math=1"], "item 7"),
     (["--mixture-adaptive"], "item 7"),
@@ -120,10 +114,27 @@ def test_unported_flag_exits(tmp_path, ckpt_dir, data_path, flags, item):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
 
 
-def test_sft_exits(tmp_path, ckpt_dir, data_path):
-    with pytest.raises(SystemExit, match="queue 1, item 6"):
-        quickstart.main(["sft", "--model.path", ckpt_dir, "--dataset.path", data_path],
-                        device="cpu")
+def test_sft_exits(tmp_path, ckpt_dir):
+    """`quickstart sft`, once refused, runs its trial to the end: two
+    steps over prompt/answer rows with both engine sentinels set far from
+    tripping, the last step's stats printed, the model saved at step 2
+    (tests/test_torch_sft.py holds it against the JAX CLI)."""
+    data = tmp_path / "sft.jsonl"
+    with open(data, "w") as f:
+        for i in range(8):
+            f.write(json.dumps({"id": f"r{i}", "prompt": f"Q{i}: {i} + {i} = ",
+                                "answer": f"{2 * i}"}) + "\n")
+    stats = quickstart.main(
+        ["sft", "--model.path", ckpt_dir, "--dataset.path", str(data), "--tokenizer-path",
+         "char:512", "--batch-size", "4", "--fileroot", str(tmp_path), "--save-freq-steps", "2",
+         "--anomaly-grad-norm-mult", "100", "--anomaly-update-norm-max", "100"],
+        device="cpu",
+    )
+    assert len(stats) == 2 and all(s["quarantined"] == 0.0 for s in stats)
+    assert np.isfinite(stats[-1]["loss"]) and stats[-1]["nll"] == pytest.approx(stats[-1]["loss"])
+    saved = os.path.join(tmp_path, "checkpoints", "sft", "trial0", "default@0", "step_2")
+    cfg, params = hf.load_hf_checkpoint(saved, dtype=torch.float32, device="cpu")
+    assert cfg.n_layers == jtiny().n_layers
 
 
 @pytest.mark.parametrize("flags,message", [
@@ -151,11 +162,22 @@ FORMERLY_UNPORTED = [
     ["--episode-max-turns", "2"],
     ["--episode-token-budget", "64"],
     ["--tool-timeout-s", "1"],
+    ["--anomaly-grad-norm-mult", "3"],
+    ["--anomaly-update-norm-max", "100"],
+    ["--anomaly-kl-max", "10"],
+    ["--pipeline-overlap"],
+    ["--pipeline-overlap", "--overlap-window", "1"],
+    ["--pipeline-overlap", "--overlap-window", "3", "--pipeline-chunk-seqs", "2"],
 ]
 
 
-@pytest.mark.parametrize("flags", FORMERLY_UNPORTED,
-                         ids=[f[2] if f[0] == "--ref-path" else f[0] for f in FORMERLY_UNPORTED])
+def _flag_id(f):
+    if f[0] == "--ref-path":
+        return f[2]
+    return "_".join(x for x in f if x.startswith("--")) if f[0] == "--pipeline-overlap" else f[0]
+
+
+@pytest.mark.parametrize("flags", FORMERLY_UNPORTED, ids=[_flag_id(f) for f in FORMERLY_UNPORTED])
 def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
     cfg = tmp_path / "options.yaml"
     cfg.write_text("batch-size: 4\nlr: 1.0e-4\nckpt_freq_steps: 2\n")
@@ -165,6 +187,12 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
     recover_dir = os.path.join(tmp_path, "checkpoints", "ppo-math", "trial0", "actor@0",
                                "recover_checkpoint")
     assert os.path.isdir(recover_dir) == (flags[0] in ("--ckpt-freq-steps", "--config"))
+    assert all(s["actor_train/quarantined"] == 0.0 for s in stats)
+    if flags[0] == "--pipeline-overlap":
+        window = int(flags[flags.index("--overlap-window") + 1]) if len(flags) > 1 else 2
+        chunk = int(flags[flags.index("--pipeline-chunk-seqs") + 1]) if len(flags) > 3 else 1
+        assert stats[-1]["pipeline/window"] == window
+        assert stats[-1]["pipeline/n_chunks"] == (1 if window == 1 else 4 // chunk)
 
 
 def test_rerun_resumes_the_trial(tmp_path, ckpt_dir, data_path):
