@@ -57,7 +57,6 @@ _UNPORTED_FLAGS = {
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
     "gen_server_url": "item 7 (remote generation servers)",
-    "fuse_rew_ref": "item 6 (interfaces/fused.py)",
     "rollout_ahead": "item 7 (asynchronous RL)",
     "max_head_offpolicyness": "item 7 (asynchronous RL)",
     "replay_capacity": "item 7 (asynchronous RL)",
@@ -161,10 +160,12 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--no-kv-share-prefix", action="store_true",
                     help="no copy-on-write prompt page sharing across a group")
     pp.add_argument("--master-dtype", default=None, choices=(None, "float32", "bfloat16"),
-                    help="optimizer master dtype; the port keeps fp32 masters")
+                    help="optimizer master/Adam dtype; bfloat16 halves the optimizer's "
+                         "memory")
     pp.add_argument("--remat", default=None, choices=(None, "full", "dots_small", "dots", "none"),
                     help="activation rematerialization policy for training")
-    pp.add_argument("--fuse-rew-ref", action="store_true", help="not yet ported")
+    pp.add_argument("--fuse-rew-ref", action="store_true",
+                    help="one fused MFC for reward grading + ref inference (needs --ref-path)")
     pp.add_argument("--offload-ref", action="store_true",
                     help="host-offload the ref params between steps")
     pp.add_argument("--spec-decode-k", type=int, default=0,
@@ -213,10 +214,6 @@ def _refuse_unported(defaults, args) -> None:
     if args.allocation != "d1":
         raise SystemExit(f"--allocation {args.allocation}: only d1 (one device) is ported "
                          "(ROADMAP queue 1, item 8: multi-GPU layouts)")
-    if getattr(args, "master_dtype", None) == "bfloat16":
-        raise SystemExit("--master-dtype bfloat16 is not yet ported (ROADMAP queue 1, item 6)")
-    if getattr(args, "remat", None) in ("dots", "dots_small"):
-        raise SystemExit(f"--remat {args.remat} is not yet ported (ROADMAP queue 1, item 6)")
 
 
 def _apply_yaml_config(parser: argparse.ArgumentParser, argv):
@@ -330,7 +327,11 @@ def cmd_ppo_math(args, device=None):
         kv_pool_pages=args.kv_pool_pages,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         kv_share_prefix=False if args.no_kv_share_prefix else None,
-        train_backend_args={"remat_policy": args.remat} if args.remat else {},
+        train_backend_args={
+            k: v for k, v in (("master_dtype", args.master_dtype), ("remat_policy", args.remat))
+            if v is not None
+        },
+        fuse_rew_ref=args.fuse_rew_ref,
         dataset=DatasetAbstraction("math_code_prompt", {"dataset_path": args.dataset_path}),
         optimizer=OptimizerConfig(lr=args.lr),
         gconfig=GenerationHyperparameters(

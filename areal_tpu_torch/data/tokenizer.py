@@ -1,15 +1,32 @@
 """Tokenizer loading (port of areal_tpu/data/tokenizer.py).
 
-`load_hf_tokenizer("char:<n>")` gives the hermetic byte-level
-`CharTokenizer` (needs nothing installed); any other path loads a
-HuggingFace tokenizer through `transformers`, imported only then."""
+`load_hf_tokenizer(path)`:
+- "char:<n>" gives the hermetic byte-level `CharTokenizer`;
+- a directory whose `tokenizer.json` is a byte-level BPE (qwen2,
+  llama-3) is read by the port's own reader (`data/bpe.py`), whether or
+  not `transformers` is installed, so the card's machine and the CPU run
+  the same code;
+- any other directory (a `tokenizer.model` or `vocab.txt` only, or a
+  `tokenizer.json` of another layout) loads through `transformers`,
+  imported only then.
+A tokenizer without a pad token pads with its eos."""
 
+import json
+import os
 from typing import List
+
+from areal_tpu_torch.data.bpe import BPETokenizer, is_byte_level_bpe
 
 
 def load_hf_tokenizer(path: str):
     if path.startswith("char:"):
         return CharTokenizer(vocab_size=int(path.split(":", 1)[1]))
+    spec_path = os.path.join(path, "tokenizer.json")
+    if os.path.isfile(spec_path):
+        with open(spec_path, encoding="utf-8") as f:
+            spec = json.load(f)
+        if is_byte_level_bpe(spec):
+            return BPETokenizer.from_pretrained(path, spec)
     try:
         from transformers import AutoTokenizer
     except ImportError as e:

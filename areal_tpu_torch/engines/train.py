@@ -1,18 +1,25 @@
 """Training engine (port of areal_tpu/engines/train.py, one device).
 
-- fp32 master parameters and AdamW state on the engine's device; each
-  micro-batch casts the masters to the compute dtype (bf16 on the card,
-  fp32 on the CPU) INSIDE autograd, so gradients land on the fp32
-  masters.
+- Master parameters and AdamW's `mu`/`nu` in `master_dtype` (fp32 by
+  default, or bf16: 6 bytes a parameter instead of 12, and no compute
+  copy) on the engine's device; each micro-batch casts the masters to
+  the compute dtype (bf16 on the card, fp32 on the CPU, as the JAX
+  package's CPU backend) INSIDE autograd, so gradients land on the
+  masters in their dtype.  A cast to the masters' own dtype is the leaf
+  itself.
+- The step's arithmetic is optax's, in the masters' dtype: bf16 masters
+  round where optax's bf16 chain rounds (`_guarded_step`).
 - `train_batch` packs micro-batches into dense rows (`engines/packing`),
   accumulates the gradients of `loss_fn(per_token_output, batch)` scaled
   by 1 / total loss weight, then takes one guarded optimizer step:
   global-norm clipping, then decoupled AdamW with decay on every leaf,
   at the lr of an optax-semantics schedule (count 0 for the first
-  update).  The step is guarded: a non-finite loss or gradient norm
-  (always), a gradient norm above `anomaly_grad_norm_mult` x the running
-  EWMA of clean steps' norms (once `anomaly_ewma_warmup` clean steps
-  have been seen), an update norm above `anomaly_update_norm_max`, or an
+  update).  The remat policy (`models/transformer._layer`: "full",
+  "dots", "dots_small" or "none") applies to every training forward.
+  The step is guarded: a non-finite loss or gradient norm (always), a
+  gradient norm above `anomaly_grad_norm_mult` x the running EWMA of
+  clean steps' norms (once `anomaly_ewma_warmup` clean steps have been
+  seen), an update norm above `anomaly_update_norm_max`, or an
   external trip (the streamed step's batch sentinel) leaves the
   parameters and the optimizer state bit-identical (`torch.where` on a
   device flag, so the step needs no host decision).  The guard's (EWMA,
@@ -34,10 +41,13 @@
 - `offload()` (`engines/offload.HostOffloadMixin`) moves the masters and
   Adam's `mu`/`nu` to host memory; the next call restores them.
 - `save_optimizer_state`/`load_optimizer_state` write and read `mu`,
-  `nu` and the update count (the schedule's and Adam's position) as one
-  safetensors file (`models/hf/safetensors_io`), a leaf at a time; the
-  round trip is bit for bit.  The format is the port's own (the JAX
-  package pickles optax's state).
+  `nu` (in the masters' dtype) and the update count (the schedule's and
+  Adam's position) as one safetensors file (`models/hf/safetensors_io`),
+  a leaf at a time; the round trip is bit for bit.  The format is the
+  port's own (the JAX package pickles optax's state).
+- The streamed step scales the bf16 gradient sum in place, in bf16; the
+  JAX package's fp32 scale promotes the sum and, after it, optax's
+  moments to fp32.
 - Pipeline schedules (a mesh's pipe axis) are not ported.
 """
 
@@ -106,6 +116,33 @@ def _map_tree(fn, tree: Params) -> Params:
     }
 
 
+MASTER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _master_dtype(dtype) -> torch.dtype:
+    """A master dtype given as the JAX package passes it ("float32" /
+    "bfloat16") or as a torch dtype."""
+    got = MASTER_DTYPES.get(dtype, dtype)
+    if got not in MASTER_DTYPES.values():
+        raise ValueError(f"master_dtype must be one of {sorted(MASTER_DTYPES)}, got {dtype!r}")
+    return got
+
+
+def _weak(x: float, dtype: torch.dtype) -> float:
+    """A Python scalar rounded to `dtype`, as JAX's weak typing rounds
+    it before it meets a leaf of that dtype.  torch would compute
+    `bf16_leaf * x` with x in fp32 and round once; rounding x first gives
+    optax's bf16 product.  A no-op for fp32 leaves."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _global_norm(leaves) -> torch.Tensor:
+    """optax.global_norm in the leaves' dtype: each leaf's sum of squares
+    (accumulated in fp32 and rounded, as jnp.sum rounds a bf16 sum), the
+    leaf sums added in that dtype, the root in that dtype."""
+    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
+
+
 def _cast_tree(tree: Params, dtype: torch.dtype) -> Params:
     """Floating leaves to `dtype`, differentiably (the cast's backward
     widens the gradient back to the leaf's dtype)."""
@@ -159,7 +196,7 @@ def forward_sample(
 
 
 class TrainEngine(HostOffloadMixin):
-    """fp32 master params + AdamW state on one device."""
+    """Master params + AdamW state (fp32 or bf16) on one device."""
 
     def __init__(
         self,
@@ -169,6 +206,12 @@ class TrainEngine(HostOffloadMixin):
         optimizer_config: Optional[OptimizerConfig] = None,
         ftspec: Optional[FinetuneSpec] = None,
         compute_dtype: torch.dtype = torch.bfloat16,
+        # The masters' and Adam's moments' dtype: "float32" (or
+        # torch.float32), or "bfloat16", which halves the optimizer's
+        # memory (12 -> 6 bytes a parameter) and drops the compute copy.
+        master_dtype=torch.float32,
+        # Per-layer activation remat: "full", "dots", "dots_small" or
+        # "none" (models/transformer._layer).
         remat_policy: str = "full",
         # The tunable sentinels (0 = off): quarantine a step whose grad
         # norm exceeds this multiple (> 1) of the clean steps' EWMA, or
@@ -184,7 +227,8 @@ class TrainEngine(HostOffloadMixin):
             )
         if cfg.is_moe:
             raise NotImplementedError("MoE training is not yet ported")
-        tfm._remat_layers(remat_policy)  # reject unknown / unported policies now
+        tfm._remat_layers(remat_policy)  # reject an unknown policy now
+        self.master_dtype = _master_dtype(master_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
         # bf16 products on the CPU are slow and loose: fp32 there, as the
@@ -216,20 +260,21 @@ class TrainEngine(HostOffloadMixin):
         return _map_tree(lambda p: p.detach(), self.params)
 
     def set_params(self, params: Params) -> None:
-        """Replace the masters (fp32 copies on the engine's device); the
-        optimizer state is kept (restored first if offloaded)."""
+        """Replace the masters (copies in the master dtype on the
+        engine's device); the optimizer state is kept (restored first if
+        offloaded)."""
         self._ensure_loaded()
         self.params = _map_tree(
-            lambda x: x.detach().to(self.device, torch.float32).clone().requires_grad_(True),
+            lambda x: x.detach().to(self.device, self.master_dtype).clone().requires_grad_(True),
             params,
         )
 
     # ---------------- optimizer state ----------------
 
     def save_optimizer_state(self, path: str) -> None:
-        """Write Adam's moments (`mu.<leaf>`, `nu.<leaf>`, fp32) and the
-        update count (metadata `opt_count`) to `path`.  An offloaded
-        engine is reloaded first, as every engine call does."""
+        """Write Adam's moments (`mu.<leaf>`, `nu.<leaf>`, in the masters'
+        dtype) and the update count (metadata `opt_count`) to `path`.  An
+        offloaded engine is reloaded first, as every engine call does."""
         self._ensure_loaded()
         tensors = {f"mu.{n}": t for n, t in _leaves(self._mu)}
         tensors.update({f"nu.{n}": t for n, t in _leaves(self._nu)})
@@ -237,7 +282,8 @@ class TrainEngine(HostOffloadMixin):
 
     def load_optimizer_state(self, path: str) -> None:
         """Copy the moments and the update count saved by
-        `save_optimizer_state` into this engine, bit for bit."""
+        `save_optimizer_state` into this engine, bit for bit (the file's
+        moments must have the masters' dtype)."""
         self._ensure_loaded()
         header, _ = safetensors_io.read_header(path)
         saved = safetensors_io.load_file(path)
@@ -246,6 +292,12 @@ class TrainEngine(HostOffloadMixin):
             raise ValueError(
                 f"{path}: optimizer state for other params (missing "
                 f"{sorted(want - set(saved))[:4]}, unexpected {sorted(set(saved) - want)[:4]})"
+            )
+        wrong = sorted(k for k, t in saved.items() if t.dtype != self.master_dtype)
+        if wrong:
+            raise ValueError(
+                f"{path}: moments in {saved[wrong[0]].dtype}, the engine's masters in "
+                f"{self.master_dtype} ({wrong[:4]})"
             )
         with torch.no_grad():
             for kind, tree in (("mu", self._mu), ("nu", self._nu)):
@@ -274,8 +326,15 @@ class TrainEngine(HostOffloadMixin):
         """Clip, AdamW, and commit only on a clean verdict with no
         external trip; `scale` multiplies the gradients first (the
         streamed step).  Returns [loss_sum, grad_norm, update_norm,
-        verdict] on the device."""
+        verdict] on the device.  The arithmetic is optax's
+        (clip_by_global_norm, then adamw's scale_by_adam,
+        add_decayed_weights and scale_by_learning_rate, then
+        apply_updates) in the masters' dtype: every op rounds to it, and
+        each Python scalar is rounded to it first (`_weak`), as JAX's
+        weak typing does; the bias corrections are fp32 powers rounded
+        to it, the norms `_global_norm`s."""
         oc = self.optimizer_config
+        dt = self.master_dtype
         names = [n for n, _ in _leaves(self.params)]
         params = dict(_leaves(self.params))
         mus, nus = dict(_leaves(self._mu)), dict(_leaves(self._nu))
@@ -286,21 +345,25 @@ class TrainEngine(HostOffloadMixin):
         if scale is not None:  # in place: the gradients die with the step
             for g in grads.values():
                 g.mul_(scale)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[n])) for n in names))
-        lr = self.lr_schedule(self.opt_count)
+        gnorm = _global_norm(grads[n] for n in names)
         count = self.opt_count + 1
-        bc1 = 1.0 - oc.beta1**count
-        bc2 = 1.0 - oc.beta2**count
+        f32 = torch.float32
+        bc1 = _weak(float(1.0 - torch.tensor(oc.beta1, dtype=f32) ** count), dt)
+        bc2 = _weak(float(1.0 - torch.tensor(oc.beta2, dtype=f32) ** count), dt)
+        b1, b2 = _weak(oc.beta1, dt), _weak(oc.beta2, dt)
+        one_b1, one_b2 = _weak(1.0 - oc.beta1, dt), _weak(1.0 - oc.beta2, dt)
+        eps, wd = _weak(oc.eps, dt), _weak(oc.weight_decay, dt)
+        neg_lr = _weak(-self.lr_schedule(self.opt_count), dt)
         clip = oc.gradient_clipping
 
         def adamw(n):
             p, g, mu, nu = params[n], grads[n], mus[n], nus[n]
             if clip and clip > 0:
-                g = torch.where(gnorm < clip, g, g / gnorm * clip)
-            mu_new = (1.0 - oc.beta1) * g + oc.beta1 * mu
-            nu_new = (1.0 - oc.beta2) * torch.square(g) + oc.beta2 * nu
-            upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + oc.eps)
-            return mu_new, nu_new, (upd + oc.weight_decay * p) * -lr
+                g = torch.where(gnorm < _weak(clip, dt), g, g / gnorm * _weak(clip, dt))
+            mu_new = one_b1 * g + b1 * mu
+            nu_new = one_b2 * torch.square(g) + b2 * nu
+            upd = (mu_new / bc1) / (torch.sqrt(nu_new / bc2) + eps)
+            return mu_new, nu_new, neg_lr * (upd + wd * p)
 
         if self._guard_state is None:
             self._guard_state = torch.zeros(2, dtype=torch.float32, device=self.device)
@@ -315,18 +378,19 @@ class TrainEngine(HostOffloadMixin):
         unorm = None
         if self.anomaly_update_norm_max > 0.0:
             # The ceiling must be judged before anything is written.
-            unorm = torch.sqrt(sum(torch.sum(torch.square(adamw(n)[2])) for n in names))
-            ceil = finite & (unorm > self.anomaly_update_norm_max)
+            unorm = _global_norm(adamw(n)[2] for n in names)
+            ceil = finite & (unorm > _weak(self.anomaly_update_norm_max, dt))
             verdict = verdict + torch.where(ceil, float(integrity.UPDATE_NORM), 0.0)
         ok = verdict == 0.0
         if ext_trip:
             ok = torch.zeros_like(ok)
-        usq = torch.zeros((), dtype=torch.float32, device=self.device)
+        usq = None
         for n in names:
             p, mu, nu = params[n], mus[n], nus[n]
             mu_new, nu_new, upd = adamw(n)
             if unorm is None:
-                usq += torch.sum(torch.square(upd))
+                sq = torch.sum(torch.square(upd))
+                usq = sq if usq is None else usq + sq
             p.copy_(torch.where(ok, p + upd, p))
             mu.copy_(torch.where(ok, mu_new, mu))
             nu.copy_(torch.where(ok, nu_new, nu))
@@ -336,9 +400,9 @@ class TrainEngine(HostOffloadMixin):
         # The EWMA follows CLEAN steps only: a quarantined spike must not
         # drag the baseline up.
         new_ewma = torch.where(
-            ok, torch.where(n_clean > 0, 0.9 * ewma + 0.1 * gnorm, gnorm), ewma)
-        self._guard_state = torch.stack([new_ewma, n_clean + ok.float()])
-        return torch.stack([loss_sum.float(), gnorm.float(), unorm, verdict])
+            ok, torch.where(n_clean > 0, 0.9 * ewma + _weak(0.1, dt) * gnorm, gnorm), ewma)
+        self._guard_state = torch.stack([new_ewma.float(), n_clean + ok.float()])
+        return torch.stack([loss_sum.float(), gnorm.float(), unorm.float(), verdict])
 
     def train_batch(
         self,

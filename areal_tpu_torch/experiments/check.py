@@ -60,17 +60,12 @@ def unported_options(cfg):
         (cfg.gen_server_url is not None, "gen_server_url", "queue 1, item 7"),
         (cfg.inmem_weight_sync, "inmem_weight_sync", "queue 1, item 7"),
         (cfg.param_push_tree, "param_push_tree", "queue 1, item 7"),
-        (cfg.fuse_rew_ref, "fuse_rew_ref", "queue 1, item 6"),
         (cfg.verifier_pool, "verifier_pool", "queue 1, item 7"),
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
          "queue 1, item 7"),
         (bool(cfg.placement), "placement (more than one worker)", "queue 1, items 7 and 8"),
         (cfg.ppo_kwargs.get("anomaly_imp_ratio_max") is not None,
          "ppo_kwargs.anomaly_imp_ratio_max", "queue 1, item 7"),
-        ("master_dtype" in cfg.train_backend_args,
-         "train_backend_args.master_dtype (the port keeps fp32 masters)", "queue 1, item 6"),
-        (cfg.train_backend_args.get("remat_policy") in ("dots", "dots_small"),
-         "train_backend_args.remat_policy dots/dots_small", "queue 1, item 6"),
     )
     return [(name, item) for bad, name, item in checks if bad]
 

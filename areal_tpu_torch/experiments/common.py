@@ -9,7 +9,10 @@ engines of both plans; PPO's `anomaly_kl_max` reaches the actor
 interface.  `build_ppo_math` builds the JAX package's ppo-math dataflow: generate ->
 {reward, ref, critic inference} -> actor and critic train steps, the
 generator taking the actor's weights after each train step (and, with
-`ref_ema_eta`, the reference model moving toward them).  Every model
+`ref_ema_eta`, the reference model moving toward them).  With
+`fuse_rew_ref` one MFC on the ref's worker (`interfaces/fused.py`)
+grades the rewards while the ref's forward runs.  The train engines take
+`train_backend_args` (`master_dtype`, `remat_policy`).  Every model
 lives on one worker on one device.  The options the port does not have
 yet stay in `PPOMathConfig` with their "off" defaults and fail
 `check_ppo_math` when set (see `experiments/check.unported_options`).
@@ -167,9 +170,16 @@ class PPOMathConfig:
     kv_pool_pages: int = 0
     prefill_chunk_tokens: Optional[int] = None
     kv_share_prefix: Optional[bool] = None
+    # TrainEngine kwargs of the actor and the critic: "master_dtype"
+    # ("float32" / "bfloat16"), "remat_policy" ("full", "dots",
+    # "dots_small", "none").
     train_backend_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Host-offload the reference model's params after each ref_inf call.
     offload_ref: bool = False
+    # Grade the rewards and run the ref's forward as ONE MFC on the ref's
+    # worker (`fused_rew_ref`, the "fused" interface), the grading on the
+    # host overlapping the forward on the card.  Needs a ref model.
+    fuse_rew_ref: bool = False
     reward_backend: str = ""
     batch_size: int = 8  # prompts per step
     total_train_epochs: int = 1
@@ -205,7 +215,6 @@ class PPOMathConfig:
     # ---- not yet ported: check_ppo_math refuses a value other than these ----
     rollout_ahead: int = 0
     max_head_offpolicyness: Optional[int] = None
-    fuse_rew_ref: bool = False
     gen_server_url: Optional[str] = None
     inmem_weight_sync: bool = False
     param_push_tree: bool = False
@@ -252,6 +261,16 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         rew_args.setdefault("reward_backend", cfg.reward_backend)
     rew_if = cfg.reward_interface or ModelInterfaceAbstraction("rw-math-code", rew_args)
     rew_outputs = ("rewards", "dense_rewards") if use_dense else ("rewards",)
+    if cfg.fuse_rew_ref and ref is None:
+        raise ValueError(
+            "fuse_rew_ref=True requires a ref model (the fused MFC runs on "
+            "the ref worker); set PPOMathConfig.ref or disable fusion"
+        )
+    fuse = cfg.fuse_rew_ref
+    fused_if = ModelInterfaceAbstraction("fused", {"interfaces": {
+        "rew": {"type_": rew_if.type_, "args": rew_if.args},
+        "ref": {"type_": "ppo_actor", "args": {}},
+    }})
     actor_if = ModelInterfaceAbstraction("ppo_actor", {"gconfig": cfg.gconfig, **ppo_kwargs})
     critic_if = ModelInterfaceAbstraction("ppo_critic", {
         **{k: v for k, v in ppo_kwargs.items() if k in ("n_minibatches", "kl_ctl")},
@@ -269,7 +288,23 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             n_seqs=cfg.batch_size,
             mb_spec=cfg.mb_spec,
         ),
-        MFCDef(
+    ]
+    if fuse:
+        # One MFC on the ref's worker: the rewards and the ref logprobs.
+        nodes.append(MFCDef(
+            name="fused_rew_ref",
+            model_name=ref,
+            interface_type=ModelInterfaceType.INFERENCE,
+            interface_impl=fused_if,
+            input_keys=("packed_input_ids", "prompt_mask"),
+            output_keys=rew_outputs + ("packed_ref_logprobs",),
+            output_key_remap={"logprobs": "packed_ref_logprobs"},
+            n_seqs=cfg.batch_size,
+            mb_spec=cfg.mb_spec,
+            post_hooks=[OffloadHook()] if cfg.offload_ref else [],
+        ))
+    else:
+        nodes.append(MFCDef(
             name="rew_inf",
             model_name=reward,
             interface_type=ModelInterfaceType.INFERENCE,
@@ -278,13 +313,12 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             output_keys=rew_outputs,
             n_seqs=cfg.batch_size,
             mb_spec=cfg.mb_spec,
-        ),
-    ]
+        ))
     train_inputs = ["packed_input_ids", "prompt_mask", "packed_logprobs", "seq_no_eos_mask",
                     "rewards"]
     if use_dense:
         train_inputs.append("dense_rewards")
-    if ref is not None:
+    if ref is not None and not fuse:
         nodes.append(MFCDef(
             name="ref_inf",
             model_name=ref,
@@ -297,6 +331,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             mb_spec=cfg.mb_spec,
             post_hooks=[OffloadHook()] if cfg.offload_ref else [],
         ))
+    if ref is not None:
         train_inputs.append("packed_ref_logprobs")
     if critic is not None:
         nodes.append(MFCDef(
@@ -363,15 +398,16 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             backend=ModelBackendAbstraction("generator", {**gen_args, **cfg.gen_backend_args}),
             interface=actor_if,
         ),
-        ModelShardSpec(
+    ]
+    if not fuse:
+        shards.append(ModelShardSpec(
             name=reward, model=ModelAbstraction("null"),
             backend=ModelBackendAbstraction("null"), interface=rew_if,
-        ),
-    ]
+        ))
     if ref is not None:
         shards.append(ModelShardSpec(
             name=ref, model=cfg.ref, backend=ModelBackendAbstraction("inference"),
-            interface=ModelInterfaceAbstraction("ppo_actor"),
+            interface=fused_if if fuse else ModelInterfaceAbstraction("ppo_actor"),
         ))
     if critic is not None:
         shards.append(ModelShardSpec(

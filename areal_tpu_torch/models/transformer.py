@@ -49,7 +49,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
@@ -238,17 +242,26 @@ def _block_kv(
     return q, k, v
 
 
+def _attn_out(attn: torch.Tensor, blk: Params, cfg: ModelConfig, lead) -> torch.Tensor:
+    """The attention output projection: attn [*lead, n_q, d] -> [*lead, D]."""
+    ao = attn.reshape(*lead, cfg.q_dim) @ blk["wo"]
+    if cfg.proj_bias:
+        ao = ao + blk["bo"]
+    return ao
+
+
+def _mlp_branch(x: torch.Tensor, blk: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP residual branch: norm, then the MLP.  x [..., D]."""
+    return _mlp_dense(_norm(x, blk["ln2"], blk.get("ln2_b"), cfg), blk, cfg)
+
+
 def _attn_mlp(
     x: torch.Tensor, attn: torch.Tensor, blk: Params, cfg: ModelConfig
 ) -> torch.Tensor:
     """The rest of a layer after attention: output projection, residual,
     norm, MLP, residual.  attn [..., n_q, d], x [..., D]."""
-    ao = attn.reshape(*x.shape[:-1], cfg.q_dim) @ blk["wo"]
-    if cfg.proj_bias:
-        ao = ao + blk["bo"]
-    x = x + ao
-    h2 = _norm(x, blk["ln2"], blk.get("ln2_b"), cfg)
-    return x + _mlp_dense(h2, blk, cfg)
+    x = x + _attn_out(attn, blk, cfg, x.shape[:-1])
+    return x + _mlp_branch(x, blk, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -266,6 +279,22 @@ def positions_from_segments(segment_ids: torch.Tensor) -> torch.Tensor:
     return idx - torch.cummax(start_idx, dim=-1).values
 
 
+def _attn_branch(
+    x: torch.Tensor,  # [B, S, D]
+    blk: Params,
+    cfg: ModelConfig,
+    segment_ids: torch.Tensor,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+) -> torch.Tensor:
+    """The attention residual branch of a packed-row layer: norm, q/k/v,
+    flash attention, output projection (the JAX package's "attn_out")."""
+    h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
+    q, k, v = _block_kv(h, blk, cfg, cos, sin)
+    attn = flash_attention(q, k, v, segment_ids, causal=True)
+    return _attn_out(attn, blk, cfg, x.shape[:-1])
+
+
 def _block_forward(
     x: torch.Tensor,  # [B, S, D]
     blk: Params,
@@ -274,23 +303,68 @@ def _block_forward(
     cos: torch.Tensor,
     sin: torch.Tensor,
 ) -> torch.Tensor:
-    h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
-    q, k, v = _block_kv(h, blk, cfg, cos, sin)
-    attn = flash_attention(q, k, v, segment_ids, causal=True)
-    return _attn_mlp(x, attn, blk, cfg)
+    h = x + _attn_branch(x, blk, cfg, segment_ids, cos, sin)
+    return h + _mlp_branch(h, blk, cfg)
 
 
-def _remat_layers(remat) -> bool:
-    """Whether each layer is checkpointed: "full"/True saves nothing and
-    recomputes the layer in backward; "none"/False/None keeps autograd's
-    residuals."""
-    if remat is True or remat == "full":
-        return True
-    if remat in ("dots", "dots_small"):
-        raise NotImplementedError(f"remat policy {remat!r} is not yet ported")
-    if remat not in (False, None, "none"):
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the products with no batch dimension, the dots that JAX's
+    `dots_with_no_batch_dims_saveable` keeps: a layer's seven projections
+    (`x @ w` of a [B, S, D] x and a 2-D w) reach `aten.mm.default` and
+    nothing else (probed under a TorchDispatchMode in fp32 and bf16; on
+    the card `chip_smoke.py` counts seven a layer).  The attention's
+    products (`bmm` in the plain version on the CPU, the flash kernels
+    behind a ctypes call on the card) are recomputed, as JAX recomputes
+    its einsum or `pallas_call`."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    # `_dots_policy` is looked up at each call, so a test can wrap it.
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+REMAT_POLICIES = ("none", "full", "dots", "dots_small")
+
+
+def _remat_layers(remat) -> str:
+    """The layer remat policy that `remat` names (REMAT_POLICIES), as the
+    JAX package reads it: True is "full"; False and None are "none"."""
+    if remat is True:
+        return "full"
+    if remat is False or remat is None:
+        return "none"
+    if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat!r}")
-    return False
+    return remat
+
+
+def _layer(x, blk, cfg, segment_ids, cos, sin, policy: str) -> torch.Tensor:
+    """One packed-row layer under a remat policy (non-reentrant
+    checkpoints, so every policy runs the same ops on the same values):
+    - "none": autograd's own residuals;
+    - "full": the layer input only; backward recomputes the layer;
+    - "dots": the layer input and the seven projections' outputs
+      (`_dots_policy`); backward recomputes the norms, RoPE, the
+      attention and the activation;
+    - "dots_small": one checkpoint a residual branch, so the two branch
+      inputs x and x + attn_out ([*, D] each) are kept and each branch
+      is recomputed in its own backward.  JAX keeps three [*, D] a layer
+      (its layer input, "attn_out" and "mlp_out"); the values are the
+      same."""
+    if policy == "none":
+        return _block_forward(x, blk, cfg, segment_ids, cos, sin)
+    if policy == "full":
+        return checkpoint(_block_forward, x, blk, cfg, segment_ids, cos, sin,
+                          use_reentrant=False)
+    if policy == "dots":
+        return checkpoint(_block_forward, x, blk, cfg, segment_ids, cos, sin,
+                          use_reentrant=False, context_fn=_dots_contexts)
+    h = x + checkpoint(_attn_branch, x, blk, cfg, segment_ids, cos, sin,
+                       use_reentrant=False)
+    return h + checkpoint(_mlp_branch, h, blk, cfg, use_reentrant=False)
 
 
 def _backbone(
@@ -303,7 +377,7 @@ def _backbone(
 ) -> torch.Tensor:
     if cfg.is_moe:
         raise NotImplementedError("MoE models are not yet ported")
-    ckpt = _remat_layers(remat) and torch.is_grad_enabled()
+    policy = _remat_layers(remat) if torch.is_grad_enabled() else "none"
     positions = positions.long()
     x = _embed(params, cfg, tokens.long(), positions)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -312,13 +386,7 @@ def _backbone(
     layers = {name: w.unbind(0) for name, w in params["blocks"].items()}
     for li in range(cfg.n_layers):
         blk = {name: ws[li] for name, ws in layers.items()}
-        if ckpt:
-            x = checkpoint(
-                _block_forward, x, blk, cfg, segment_ids, cos, sin,
-                use_reentrant=False,
-            )
-        else:
-            x = _block_forward(x, blk, cfg, segment_ids, cos, sin)
+        x = _layer(x, blk, cfg, segment_ids, cos, sin, policy)
     return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
 
 

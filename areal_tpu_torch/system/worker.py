@@ -63,6 +63,8 @@ from areal_tpu_torch.data.datasets import PackedDataLoader
 from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
 
 # Populate the dataset and interface registries.
+import areal_tpu_torch.interfaces.fused  # noqa: F401
+import areal_tpu_torch.interfaces.null  # noqa: F401
 import areal_tpu_torch.interfaces.ppo  # noqa: F401
 import areal_tpu_torch.interfaces.sft  # noqa: F401
 import areal_tpu_torch.interfaces.reward  # noqa: F401

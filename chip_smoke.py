@@ -156,6 +156,26 @@ overlap      — the quickstart's ppo-math trial (8 prompts x 4, 128 new
                28 x the engines' calls summed over every chunk and thread.
                Each step's wall and the card's idle share over step 2
                (torch.profiler, CUDA activity) are printed.
+trainmodes   — the trainer's options at qwen2-1.5B (28 layers, random
+               weights): (a) TrainEngine in fp32 masters x remat none,
+               full, dots, dots_small and bf16 masters x full, dots, one
+               micro-batch of 8,192 tokens (segments 256-1,024), a warm
+               and a timed step each: launches K1f = 28 x (1 for none, 2
+               for the recompute), K1dq = K1dkv = 28; the weights after
+               both steps bit for bit equal across the policies of one
+               master dtype; forward+backward peaks none > dots >
+               dots_small; bf16 masters' peak at least 8 B a parameter
+               below fp32's; no peak within 5 GiB of the card's memory;
+               step seconds and peaks beside their predictions printed.
+               (b) one quickstart ppo-math step with --master-dtype
+               bfloat16 --remat dots_small --fuse-rew-ref from the
+               quickstart's checkpoint beside a tokenizer.json trained
+               here (train_bpe_tokenizer; no char: path): the DFG's
+               fused_rew_ref in place of rew_inf and ref_inf, its rewards
+               and ref logprobs bit for bit those of the reward interface
+               and the ref run alone, every prompt round-tripping through
+               the port's BPE reader, exact launches, finite stats.  (c)
+               build_null_sft and build_null_ppo, two steps each.
 recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
                quickstart trial with the EMA reference model
                (--ref-ema-eta 0.9 --offload-ref) and the difficulty filter,
@@ -243,6 +263,8 @@ K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
 step with the critic and the reference model, `--phases build,quickstart`
 for the quickstart entry point, `--phases build,sft` for SFT and the
 sentinels, `--phases build,overlap` for the pipeline-overlapped step,
+`--phases build,trainmodes` for the remat policies, bf16 masters, the
+fused MFC, the BPE reader and the null trials,
 `--phases build,recover` for kill-and-resume, `--phases build,kernel,parity,genmodes` for the
 generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
@@ -265,8 +287,8 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "sft", "overlap", "recover", "genmodes", "episodes",
-          "parity", "train_parity")
+          "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
+          "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -1927,9 +1949,17 @@ def phase_serve(report, seed):
     torch.cuda.empty_cache()
 
 
+# The profiled generate call's prompt and new tokens: at 128 and 32 its
+# trace's collection took 35.5 s (serve) and 10.1 s (static) on an H100
+# host, at 128 and 8 22.5 s and 1.9 s.
+PROFILE_PROMPT_TOKENS = 64
+PROFILE_NEW_TOKENS = 8
+
+
 def _profile_generate(engine, cfg, rng, attention):
     """Device time by kernel over one smaller generate call (4 prompts of
-    128 tokens x n=4, 32 new tokens) under torch.profiler: the card's
+    PROFILE_PROMPT_TOKENS tokens x n=4, PROFILE_NEW_TOKENS new tokens) under
+    torch.profiler: the card's
     idle share of that call's wall time and the share of busy time of
     the kernels whose name holds `attention`.  CUDA activity only: the
     host ops' events added nothing read here and tripled the trace's
@@ -1940,12 +1970,13 @@ def _profile_generate(engine, cfg, rng, attention):
     from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
     from areal_tpu_torch.api.model_api import GenerationHyperparameters
 
-    data = rng.integers(0, cfg.vocab_size, 4 * 128).astype("int32")
+    data = rng.integers(0, cfg.vocab_size, 4 * PROFILE_PROMPT_TOKENS).astype("int32")
     sample = SequenceSample(
         keys={"packed_prompts"}, ids=[f"p{i}" for i in range(4)],
-        seqlens={"packed_prompts": [[128]] * 4}, data={"packed_prompts": data},
+        seqlens={"packed_prompts": [[PROFILE_PROMPT_TOKENS]] * 4},
+        data={"packed_prompts": data},
     )
-    g = GenerationHyperparameters(n=4, max_new_tokens=32, temperature=1.0)
+    g = GenerationHyperparameters(n=4, max_new_tokens=PROFILE_NEW_TOKENS, temperature=1.0)
     steps0, decode0 = engine.steps_total, engine.static_decode_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2467,6 +2498,9 @@ def phase_resume_parity(report, seed):
 
 # (label, engine options, inflight, request options, the attention
 # kernel a decode step launches once per layer) for phase_parity.
+# New tokens a parity mode generates (at 16, the CPU side of the serving
+# modes took 14-19 s of the phase's 78-112 s on the H100's host).
+PARITY_NEW_TOKENS = 8
 PARITY_MODES = (
     ("serving plane", {}, True, {}, "k2"),
     ("static path", {}, False, {}, "k4"),
@@ -2517,7 +2551,7 @@ def phase_parity(seed):
     kw = dict(eos_token_id=151643, kv_page_size=128, prefill_chunk_tokens=8)
     tokens = {}
     for path, ekw, inflight, gkw, kernel in PARITY_MODES:
-        g = GenerationHyperparameters(n=2, max_new_tokens=16, greedy=True, **gkw)
+        g = GenerationHyperparameters(n=2, max_new_tokens=PARITY_NEW_TOKENS, greedy=True, **gkw)
         outs, secs = {}, {}
         for dev in ("cuda", "cpu"):
             eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
@@ -3629,7 +3663,7 @@ def phase_quickstart(report, seed):
 # read them (seed -> (dir, path, write seconds, bytes)); removed after the
 # last phase that uses them.
 SHARED_CKPTS = {}
-CKPT_PHASES = ("quickstart", "sft", "overlap")
+CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -4160,6 +4194,475 @@ def phase_overlap(report, seed):
 
 
 # --------------------------------------------------------------------------
+# trainmodes: the remat policies, bf16 masters, the fused reward+ref MFC,
+# a checkpoint's own tokenizer.json and the null trials
+# --------------------------------------------------------------------------
+
+# (master dtype, remat policy) of the engine modes, one micro-batch of
+# TRAINMODE_TOKENS tokens each.
+TRAINMODES = (("float32", "none"), ("float32", "full"), ("float32", "dots"),
+              ("float32", "dots_small"), ("bfloat16", "full"), ("bfloat16", "dots"))
+TRAINMODE_TOKENS = 8192
+TRAINMODE_SEGMENTS = (256, 1024)
+# A mode's peak may come no nearer the card's memory than this.
+TRAINMODE_HEADROOM = 5 * 2**30
+BPE_SPECIALS = ("<|endoftext|>", "<|im_start|>", "<|im_end|>")
+
+
+def train_bpe_tokenizer(texts, out_dir, n_merges=1024):
+    """Write a qwen2-layout byte-level BPE (`tokenizer.json`,
+    `tokenizer_config.json`) trained here on `texts`, deterministically:
+    the texts split by qwen2's pre-tokenizer pattern, each word as its
+    UTF-8 bytes in the ByteLevel alphabet, then up to `n_merges` merges,
+    each of the most frequent adjacent pair (the smallest pair first
+    among equals) while some pair occurs twice.  Ids: the 256 bytes in
+    byte order, the merges' tokens, then BPE_SPECIALS.  The card's
+    machine has no `tokenizers` to train one with."""
+    from collections import Counter
+
+    from areal_tpu_torch.data.bpe import BYTE_TO_CHAR, QWEN2_PATTERN, split_words
+
+    counts = Counter()
+    for text in texts:
+        for w in split_words(text):
+            counts[tuple(BYTE_TO_CHAR[b] for b in w.encode("utf-8"))] += 1
+    words = [[list(w), n] for w, n in sorted(counts.items())]
+    vocab = {BYTE_TO_CHAR[b]: b for b in range(256)}
+    merges = []
+    while len(merges) < n_merges:
+        pairs = Counter()
+        for syms, n in words:
+            for a, b in zip(syms, syms[1:]):
+                pairs[(a, b)] += n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        if pairs[best] < 2:
+            break
+        merged = best[0] + best[1]
+        merges.append(list(best))
+        vocab.setdefault(merged, len(vocab))
+        for w in words:
+            syms, out, i = w[0], [], 0
+            while i < len(syms):
+                if i + 1 < len(syms) and (syms[i], syms[i + 1]) == best:
+                    out.append(merged)
+                    i += 2
+                else:
+                    out.append(syms[i])
+                    i += 1
+            w[0] = out
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": len(vocab) + i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for i, t in enumerate(BPE_SPECIALS)],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            byte_level]},
+        "post_processor": byte_level,
+        "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+                  "merges": merges},
+    }
+    config = {"tokenizer_class": "PreTrainedTokenizerFast", "eos_token": BPE_SPECIALS[0],
+              "pad_token": BPE_SPECIALS[0], "bos_token": None,
+              "clean_up_tokenization_spaces": False, "model_max_length": 32768}
+    os.makedirs(out_dir, exist_ok=True)
+    for name, obj in (("tokenizer.json", spec), ("tokenizer_config.json", config)):
+        with open(os.path.join(out_dir, name), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+    return len(vocab), len(merges)
+
+
+def _trainmode_sample(rng, cfg):
+    """One micro-batch of TRAINMODE_TOKENS tokens: random tokens in
+    segments of TRAINMODE_SEGMENTS lengths (the last one completing the
+    count) from `rng`."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    lo, hi = TRAINMODE_SEGMENTS
+    lens, left = [], TRAINMODE_TOKENS
+    while left > hi:  # each draw leaves at least `lo` for the last segment
+        lens.append(int(rng.integers(lo, min(hi, left - lo) + 1)))
+        left -= lens[-1]
+    lens.append(left)
+    data = rng.integers(0, cfg.vocab_size, TRAINMODE_TOKENS).astype(np.int32)
+    return SequenceSample(keys={"packed_input_ids"}, ids=[f"t{i}" for i in range(len(lens))],
+                          seqlens={"packed_input_ids": [[n] for n in lens]},
+                          data={"packed_input_ids": data}), lens
+
+
+def _trainmode_loss(lp, batch):
+    return -lp.sum(), {}
+
+
+def _trainmode_weight(arrays):
+    return float((arrays["segment_ids"] > 0).sum())
+
+
+def _trainmode_run(cfg, params, samples, master, policy):
+    """One engine of the mode over `samples` (a warm step, then a timed
+    step): the timed step's seconds (CUDA events), its peak before the
+    optimizer step (forward and backward) and over the whole step, its
+    launches, the products the "dots" checkpoint kept in its forward,
+    and the weights' fingerprints after both steps."""
+    import torch
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import OptimizerConfig
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.models import transformer as tfm
+
+    mb = MicroBatchSpec(max_tokens_per_mb=TRAINMODE_TOKENS)
+    eng = TrainEngine(cfg, params, "cuda", master_dtype=master, remat_policy=policy,
+                      optimizer_config=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0))
+    fwd_bwd = {}
+    step = eng._guarded_step
+
+    def guarded(*a, **k):  # the peak of the forward and backward, before the step
+        fwd_bwd["peak"] = torch.cuda.max_memory_allocated()
+        return step(*a, **k)
+
+    eng._guarded_step = guarded
+    out = eng.train_batch(samples[0], mb, _trainmode_loss, _trainmode_weight)
+    check(out["quarantined"] == 0.0, f"{master}/{policy}: the warm step was quarantined")
+    kept, policy_fn = [0], tfm._dots_policy
+
+    def counting(ctx, op, *a, **k):
+        verdict = policy_fn(ctx, op, *a, **k)
+        if verdict == CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+            kept[0] += 1
+        return verdict
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tfm._dots_policy = counting
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        a.record()
+        out = eng.train_batch(samples[1], mb, _trainmode_loss, _trainmode_weight)
+        b.record()
+        b.synchronize()
+    finally:
+        tfm._dots_policy = policy_fn
+    res = dict(
+        step_s=a.elapsed_time(b) / 1e3, peak_bytes=torch.cuda.max_memory_allocated(),
+        fwd_bwd_peak_bytes=fwd_bwd["peak"], launches=_trial_counts(), kept_products=kept[0],
+        micro_batches=eng.last_pack_stats["n_micro_batches"],
+        grid=eng.last_pack_stats["grid_tokens"], loss=out["loss"],
+        grad_norm=out["grad_norm"], quarantined=out["quarantined"],
+        master_bytes=sum(p.numel() * p.element_size() for _, p in _flat_params(eng.params)),
+        fingerprints=_leaf_fingerprints(eng.get_params()),
+    )
+    del eng, step, guarded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _trainmode_predictions(cfg, n_params, tokens):
+    """Each mode's peak reckoned from the shapes (bytes; PERF.md §5
+    writes the same sums): resident masters, moments, gradients and the
+    fp32 mode's bf16 compute copy, plus what the policy keeps of a
+    layer's activations a token (bf16), plus the optimizer's temporaries
+    over its largest leaf (seven leaf-sized tensors in the master dtype:
+    the clipped gradient, the new moments, the update's chain), whichever
+    is larger."""
+    D, F, L = cfg.hidden_dim, cfg.intermediate_dim, cfg.n_layers
+    q, kv = cfg.q_dim, cfg.kv_dim
+    kept = {  # bf16 bytes a token and layer
+        # autograd's residuals: the norms' fp32 inputs and outputs (4 x
+        # D x 4 B), RoPE's fp32 q/k and their rotations (2 x (q + kv) x
+        # 4 B), h, h2, q/k/v, o, gate, silu, up, and the product (bf16).
+        "none": 2 * (4 * 2 * D + 2 * 2 * (q + kv) + 2 * D + q + 2 * kv + q + 4 * F),
+        "full": 2 * D,
+        "dots": 2 * (D + q + 2 * kv + D + 2 * F + D),
+        "dots_small": 2 * 2 * D,
+    }
+    largest = max(L * D * F, cfg.vocab_size * D)
+    out = {}
+    for master, policy in TRAINMODES:
+        m = 4 if master == "float32" else 2
+        resident = n_params * (3 * m + (2 if m == 4 else 0))  # params, mu, nu (+ bf16 copy)
+        # + the bf16 gradients in flight, one layer's recompute (or the
+        # backward's transients) and three [512, V] fp32 blocks of the
+        # chunked logprobs.
+        fwd_bwd = (resident + tokens * L * kept[policy] + n_params * 2
+                   + tokens * kept["none"] + 3 * 512 * cfg.vocab_size * 4)
+        step = resident + n_params * m + 7 * largest * m
+        out[(master, policy)] = (fwd_bwd, max(fwd_bwd, step))
+    return out
+
+
+def _trainmode_engines(seed, cfg):
+    """Part (a): every mode of TRAINMODES on one micro-batch."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models.transformer import init_params
+
+    rng = np.random.default_rng(seed + 60)
+    samples, lens = zip(*(_trainmode_sample(rng, cfg) for _ in range(2)))
+    params = init_params(cfg, seed + 61, device="cuda")
+    n_params = sum(p.numel() for _, p in _flat_params(params))
+    predicted = _trainmode_predictions(cfg, n_params, TRAINMODE_TOKENS)
+    card = torch.cuda.get_device_properties(0).total_memory
+    L = cfg.n_layers
+    log(f"[trainmodes] {n_params} parameters; one micro-batch of {TRAINMODE_TOKENS} tokens a "
+        f"step in {len(lens[1])} segments of {min(lens[1])}-{max(lens[1])}")
+    modes = {}
+    for master, policy in TRAINMODES:
+        r = _trainmode_run(cfg, params, samples, master, policy)
+        fwd = L * (1 if policy == "none" else 2)
+        want = dict(fwd=fwd, dq=L, dkv=L, k4=0, k2=0, k3=0)
+        p_fb, p_step = predicted[(master, policy)]
+        log(f"[trainmodes] {master} masters, remat {policy}: step {r['step_s']:.3f} s "
+            f"({TRAINMODE_TOKENS / r['step_s']:.0f} tok/s), peak {r['peak_bytes'] / 2**30:.2f} "
+            f"GiB (predicted {p_step / 2**30:.2f}), forward+backward peak "
+            f"{r['fwd_bwd_peak_bytes'] / 2**30:.2f} GiB (predicted {p_fb / 2**30:.2f}); "
+            f"masters {r['master_bytes'] / 2**30:.2f} GiB; launches {r['launches']}; "
+            f"products kept by the checkpoint {r['kept_products']}; "
+            f"loss {r['loss']:.6f} grad_norm {r['grad_norm']:.6f}")
+        check(r["micro_batches"] == 1 and r["grid"] == TRAINMODE_TOKENS,
+              f"{master}/{policy}: {r['micro_batches']} micro-batches of {r['grid']} tokens")
+        check(r["launches"] == want, f"{master}/{policy}: launches {r['launches']} != {want}")
+        # "dots" keeps the seven projections of each layer (aten.mm).
+        kept = 7 * L if policy == "dots" else 0
+        check(r["kept_products"] == kept,
+              f"{master}/{policy}: the checkpoint kept {r['kept_products']} products, not {kept}")
+        check(r["quarantined"] == 0.0 and math.isfinite(r["loss"])
+              and math.isfinite(r["grad_norm"]), f"{master}/{policy}: {r}")
+        check(r["peak_bytes"] <= card - TRAINMODE_HEADROOM,
+              f"{master}/{policy}: peak {r['peak_bytes']} within 5 GiB of the card's {card}")
+        r["predicted_bytes"], r["predicted_fwd_bwd_bytes"] = p_step, p_fb
+        modes[f"{master}/{policy}"] = r
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for master in ("float32", "bfloat16"):
+        same = [m for m in modes if m.startswith(master + "/")]
+        ref = modes[same[0]]["fingerprints"]
+        for m in same[1:]:
+            differ = [n for n, f in modes[m]["fingerprints"].items() if f != ref[n]]
+            check(not differ, f"{m}: the weights after two steps differ from {same[0]}'s in "
+                  f"{len(differ)} leaves: {differ[:8]}")
+        log(f"[trainmodes] {master} masters: the weights after two steps are bit for bit "
+            f"equal under {[m.split('/')[1] for m in same]}")
+    fb = {m: modes[m]["fwd_bwd_peak_bytes"] for m in modes}
+    check(fb["float32/none"] > fb["float32/dots"] > fb["float32/dots_small"],
+          f"forward+backward peaks none/dots/dots_small not in order: {fb}")
+    saving = 8 * n_params
+    for policy in ("full", "dots"):
+        a, b = modes[f"float32/{policy}"]["peak_bytes"], modes[f"bfloat16/{policy}"]["peak_bytes"]
+        log(f"[trainmodes] remat {policy}: bf16 masters peak {b / 2**30:.2f} GiB, fp32 "
+            f"{a / 2**30:.2f} GiB: {(a - b) / 2**30:.2f} GiB less (at least 8 B x "
+            f"{n_params} = {saving / 2**30:.2f} GiB)")
+        check(a - b >= saving, f"remat {policy}: bf16 masters save {a - b} B < {saving} B")
+    for r in modes.values():
+        r.pop("fingerprints")
+    return dict(modes=modes, n_params=n_params, card_bytes=card)
+
+
+def _check_fused_step(rec, L):
+    """Part (b)'s one step: K1f = 28 x (1 prefill + the fused MFC's ref
+    forwards + 2 x train micro-batches: dots_small's attention branch
+    recomputed), K1dq = K1dkv = 28 x train micro-batches, K4 = 28 x
+    decode steps."""
+    st = rec["steps"][0]
+    mbs = sum(c["mbs"] for c in st["train_calls"])
+    want = dict(fwd=L * (st["gen_chunks"] + st["ref_fwd_mbs"] + 2 * mbs + st["train_fwd_mbs"]),
+                dq=L * mbs, dkv=L * mbs, k4=L * st["decode_steps"], k2=0, k3=0)
+    check(st["launches"] == want, f"launches {st['launches']} != {want}")
+    return st, want
+
+
+def _trainmode_quickstart(seed, cfg, work):
+    """Part (b): one `quickstart ppo-math` step with bf16 masters, remat
+    dots_small and the fused reward+ref MFC, from a checkpoint directory
+    holding a tokenizer.json trained here (no char: path)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.data.bpe import BPETokenizer
+    from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
+    from areal_tpu_torch.interfaces.fused import FusedThreadingInterface
+
+    rng = np.random.default_rng(seed + 62)
+    rows = _math_rows(rng, 64)
+    ckpt, _, _ = _shared_checkpoint("[trainmodes]", cfg, seed + 21)
+    model_dir = os.path.join(work, "model")
+    os.makedirs(model_dir)
+    for f in os.listdir(ckpt):
+        os.symlink(os.path.join(ckpt, f), os.path.join(model_dir, f))
+    n_vocab, n_merges = train_bpe_tokenizer(
+        [r["prompt"] for r in rows] + [s for r in rows for s in r["solutions"]], model_dir)
+    tok = load_hf_tokenizer(model_dir)
+    check(isinstance(tok, BPETokenizer), f"the checkpoint's tokenizer loaded as {type(tok)}")
+    bad = [r["prompt"] for r in rows if tok.decode(tok.encode(r["prompt"])) != r["prompt"]]
+    check(not bad, f"{len(bad)} prompts do not round-trip through the tokenizer: {bad[:2]}")
+    n_ids = sum(len(tok.encode(r["prompt"])) for r in rows)
+    log(f"[trainmodes] (b) tokenizer.json trained here: {n_vocab} tokens ({n_merges} merges) "
+        f"+ {len(BPE_SPECIALS)} specials, eos {tok.eos_token_id}; {len(rows)} prompts, "
+        f"{sum(len(r['prompt']) for r in rows)} bytes -> {n_ids} ids, every one round-trips")
+    data = os.path.join(work, "math.jsonl")
+    with open(data, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+
+    restore, rec, cur, fused = [], {"steps": []}, {}, []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_fused(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)
+            fused.append((self, model, sample, mb_spec,
+                          {k: np.asarray(out.data[k]).copy() for k in ("rewards", "logprobs")}))
+            return out
+        return inference
+
+    _record_trial_steps(wrap, rec, cur)
+    wrap(FusedThreadingInterface, "inference", on_fused)
+    n_prompts, n, max_new = 8, 4, 64
+    argv = [
+        "ppo-math", "--model.path", model_dir, "--dataset.path", data, "--ref-path", model_dir,
+        "--kl-ctl", "0.1", "--batch-size", str(n_prompts), "--group-size", str(n),
+        "--max-new-tokens", str(max_new), "--benchmark-steps", "1",
+        "--fileroot", os.path.join(work, "trial"), "--seed", str(seed + 63),
+        "--master-dtype", "bfloat16", "--remat", "dots_small", "--fuse-rew-ref",
+    ]
+    log(f"[trainmodes] (b) python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t = time.monotonic()
+        stats = quickstart.main(argv)
+        torch.cuda.synchronize()
+        trial_s = time.monotonic() - t
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+    check(len(stats) == 1 and len(rec["steps"]) == 1 and len(fused) == 1,
+          f"{len(stats)} steps, {len(rec['steps'])} recorded, {len(fused)} fused calls")
+    names = [nm for nm, _ in rec["plan_nodes"]]
+    check("fused_rew_ref" in names and "rew_inf" not in names and "ref_inf" not in names,
+          f"the DFG's nodes {names}")
+    s = stats[0]
+    check(all(math.isfinite(v) for v in s.values()),
+          f"non-finite stats {[k for k, v in s.items() if not math.isfinite(v)]}")
+    check(s["actor_train/quarantined"] == 0.0, "the step was quarantined")
+    st, want = _check_fused_step(rec, cfg.n_layers)
+
+    # The fused MFC against its sub-interfaces run alone on its batch
+    # (after the trial, outside the step's launch count).
+    iface, model, sample, mb_spec, got = fused[0]
+    check(isinstance(model.tokenizer, BPETokenizer), f"the trial's tokenizer {type(model.tokenizer)}")
+    alone = {"rewards": iface.sub_interfaces["rew"].inference(model, sample, mb_spec),
+             "logprobs": iface.sub_interfaces["ref"].inference(model, sample, mb_spec)}
+    for key, res in alone.items():
+        check(np.array_equal(np.asarray(res.data[key]), got[key]),
+              f"the fused MFC's {key} differ from its sub-interface's run alone")
+    del fused, model, iface, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    mfc = {k.split("/")[0]: v for k, v in s.items() if k.endswith("/perf/time_s")}
+    log(f"[trainmodes] (b) DFG {names}; 1 step {s['time/step_s']:.2f} s; by MFC (s) "
+        f"{ {k: round(v, 3) for k, v in mfc.items()} }; peak {st['peak_mem_bytes'] / 2**30:.2f} "
+        f"GiB; launches {st['launches']} (= {want}); the fused MFC's rewards and ref logprobs "
+        f"equal the reward interface's and the ref's run alone, bit for bit; trial {trial_s:.1f} s")
+    return dict(step_s=s["time/step_s"], mfc_s=mfc, peak_mem_bytes=st["peak_mem_bytes"],
+                launches=st["launches"], trial_s=trial_s, vocab=n_vocab, merges=n_merges,
+                decode_steps=st["decode_steps"])
+
+
+def _trainmode_null(seed, work):
+    """Part (c): build_null_sft and build_null_ppo in this process."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data_api import DatasetAbstraction
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.experiments.common import run_experiment
+    from areal_tpu_torch.experiments.null import NullSFTConfig, build_null_ppo, build_null_sft
+    from areal_tpu_torch.system.master import ExperimentSaveEvalControl
+
+    rng = np.random.default_rng(seed + 64)
+    out = {}
+    for name, build, dataset, rows, key in (
+            ("sft", build_null_sft, "prompt_answer", _sft_rows(rng, 16), "null/n_seqs"),
+            ("ppo", build_null_ppo, "math_code_prompt", _math_rows(rng, 16),
+             "actor_train/null/n_seqs")):
+        cfg = NullSFTConfig(
+            dataset=DatasetAbstraction(dataset, {"dataset_builder": lambda rows=rows: rows,
+                                                 "max_length": 1024}),
+            batch_size=4, ctrl=ExperimentSaveEvalControl(benchmark_steps=2),
+            fileroot=os.path.join(work, f"null-{name}"))
+        t = time.monotonic()
+        _, stats = run_experiment(build(cfg), tokenizer=CharTokenizer(512))
+        out[name] = time.monotonic() - t
+        check(len(stats) == 2 and all(s[key] == 4.0 for s in stats),
+              f"null {name}: {len(stats)} steps, {[s.get(key) for s in stats]}")
+    log(f"[trainmodes] (c) build_null_sft and build_null_ppo: two steps each, null/n_seqs 4.0 "
+        f"and actor_train/null/n_seqs 4.0 ({out['sft']:.2f} s, {out['ppo']:.2f} s)")
+    return out
+
+
+def phase_trainmodes(report, seed):
+    """The trainer's options at qwen2-1.5B (28 layers, full width,
+    random weights): (a) TRAINMODES on one micro-batch of 8,192 tokens,
+    a warm and a timed step each: step seconds, peaks (forward and
+    backward, and the whole step) beside the predictions, launches K1f
+    = 28 x (1 or 2: the recompute), K1dq = K1dkv = 28; the weights bit
+    for bit equal across the policies of one master dtype; forward and
+    backward peaks none > dots > dots_small; bf16 masters' peak at least
+    8 B a parameter below fp32's; (b) one quickstart step with
+    `--master-dtype bfloat16 --remat dots_small --fuse-rew-ref` from a
+    checkpoint holding a tokenizer.json trained here; (c) the null
+    trials."""
+    import shutil
+
+    import torch
+
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = qwen2_config("1.5b")
+    out = _trainmode_engines(seed, cfg)
+    os.makedirs(QUICKSTART_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="trainmodes-", dir=QUICKSTART_DIR)
+    try:
+        out["quickstart"] = _trainmode_quickstart(seed, cfg, work)
+        out["null_s"] = _trainmode_null(seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = dict(out["quickstart"]["launches"])
+    for m in out["modes"].values():
+        for k, v in m["launches"].items():
+            launches[k] += v
+    out["launches"] = launches
+    report["trainmodes"] = out
+
+
+# --------------------------------------------------------------------------
 # recover: kill-and-resume, the EMA reference model and the difficulty filter
 # --------------------------------------------------------------------------
 
@@ -4287,10 +4790,10 @@ def phase_recover(report, seed):
     trials = {}
     try:
         model = _fp32_model_bytes(cfg)
-        # The input checkpoint, the recover checkpoint (weights and both
-        # Adam moments) and a margin.
+        # The recover checkpoint (weights and both Adam moments), the
+        # input checkpoint where no earlier phase wrote it, and a margin.
         _check_disk("[recover]", work, 4 * model + 2 * 2**30)
-        ckpt, write_s, ckpt_bytes = _write_random_checkpoint("[recover]", work, cfg, seed + 40)
+        ckpt, write_s, ckpt_bytes = _shared_checkpoint("[recover]", cfg, seed + 21)
         data = os.path.join(work, "math.jsonl")
         with open(data, "w") as f:
             for row in _math_rows(np.random.default_rng(seed + 41), 64):
@@ -4946,7 +5449,7 @@ def _genmode_quickstart(seed):
 
     try:
         _check_disk("[genmodes]", work, _fp32_model_bytes(cfg) + 2 * 2**30)
-        ckpt, _, _ = _write_random_checkpoint("[genmodes]", work, cfg, seed + 51)
+        ckpt, _, _ = _shared_checkpoint("[genmodes]", cfg, seed + 21)
         data = os.path.join(work, "math.jsonl")
         with open(data, "w") as f:
             for row in _math_rows(rng, 16):
@@ -5662,6 +6165,7 @@ def _kernels_line(report):
     sft = report.get("sft", {})
     sft_launches = sft.get("launches", {})
     ov_launches = report.get("overlap", {}).get("launches", {})
+    tm_launches = report.get("trainmodes", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -5677,6 +6181,7 @@ def _kernels_line(report):
         "launches_episodes": ep_launches.get("k2"),
         "launches_sft": sft_launches.get("k2"),
         "launches_overlap": ov_launches.get("k2"),
+        "launches_trainmodes": tm_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -5725,6 +6230,7 @@ def _kernels_line(report):
             "launches_sft": sft_launches.get(name),
             "launches_sft_eval": sft.get("eval_launches", {}).get(name),
             "launches_overlap": ov_launches.get(name),
+            "launches_trainmodes": tm_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -5764,6 +6270,7 @@ def _kernels_line(report):
         "launches_episodes": ep_launches.get("k3"),
         "launches_sft": sft_launches.get("k3"),
         "launches_overlap": ov_launches.get("k3"),
+        "launches_trainmodes": tm_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -5827,6 +6334,7 @@ def _kernels_line(report):
         "launches_episodes": ep_launches.get("k4"),
         "launches_sft": sft_launches.get("k4"),
         "launches_overlap": ov_launches.get("k4"),
+        "launches_trainmodes": tm_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -5899,6 +6407,7 @@ def main() -> int:
         "quickstart": lambda: phase_quickstart(report, args.seed),
         "sft": lambda: phase_sft(report, args.seed),
         "overlap": lambda: phase_overlap(report, args.seed),
+        "trainmodes": lambda: phase_trainmodes(report, args.seed),
         "recover": lambda: phase_recover(report, args.seed),
         "genmodes": lambda: phase_genmodes(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),

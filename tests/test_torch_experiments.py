@@ -74,6 +74,7 @@ GRAPH_CASES = {
     "grpo_ref_offload": dict(ref=True, critic=False, offload_ref=True),
     "grpo_ref_ema_offload": dict(ref=True, critic=False, offload_ref=True, ref_ema_eta=0.9),
     "value": dict(ref=True, critic=True, offload_ref=False),
+    "grpo_ref_fused_offload": dict(ref=True, critic=False, offload_ref=True, fuse_rew_ref=True),
 }
 
 
@@ -88,7 +89,7 @@ def test_ppo_graph_matches_jax(case):
         ref=JModelAbstraction("random", {"config": jtiny()}) if kw["ref"] else None,
         dataset=JDatasetAbstraction("prompt", {"dataset_builder": rows}),
         ppo_kwargs={"kl_ctl": 0.1} if kw["ref"] else {}, offload_ref=kw["offload_ref"],
-        ref_ema_eta=kw.get("ref_ema_eta"),
+        ref_ema_eta=kw.get("ref_ema_eta"), fuse_rew_ref=kw.get("fuse_rew_ref", False),
     )
     tcfg = exps.PPOMathConfig(
         actor=ModelAbstraction("random", {"config": ttiny()}),
@@ -97,7 +98,7 @@ def test_ppo_graph_matches_jax(case):
         ref=ModelAbstraction("random", {"config": ttiny()}) if kw["ref"] else None,
         dataset=DatasetAbstraction("prompt", {"dataset_builder": rows}),
         ppo_kwargs={"kl_ctl": 0.1} if kw["ref"] else {}, offload_ref=kw["offload_ref"],
-        ref_ema_eta=kw.get("ref_ema_eta"),
+        ref_ema_eta=kw.get("ref_ema_eta"), fuse_rew_ref=kw.get("fuse_rew_ref", False),
     )
     got, want = _graph(exps.build_ppo_math(tcfg)), _graph(jexps.build_ppo_math(jcfg))
     assert got == want
@@ -107,7 +108,8 @@ def test_ppo_graph_matches_jax(case):
         # The EMA, then (with offload_ref) the ref back to host memory.
         post += [("ParamReallocHook", "ref@0", kw["ref_ema_eta"]), ("OffloadHook", "ref@0", None)]
     assert nodes["actor_train"]["post"] == post
-    assert (nodes.get("ref_inf", {}).get("post") == [("OffloadHook", None, None)]) == (
+    ref_node = "fused_rew_ref" if kw.get("fuse_rew_ref") else "ref_inf"
+    assert (nodes.get(ref_node, {}).get("post") == [("OffloadHook", None, None)]) == (
         kw["offload_ref"])
 
 
@@ -169,12 +171,9 @@ def test_offload_ref_e2e(tmp_path):
     ("rollout_ahead", 1, "item 7"),
     ("max_head_offpolicyness", 0, "item 7"),
     ("gen_server_url", "http://localhost:1", "item 7"),
-    ("fuse_rew_ref", True, "item 6"),
     ("verifier_pool", True, "item 7"),
     ("mixture_weights", {"math": 1.0}, "item 7"),
     ("placement", {"actor_gen": 1}, "items 7 and 8"),
-    ("train_backend_args", {"master_dtype": "bfloat16"}, "item 6"),
-    ("train_backend_args", {"remat_policy": "dots"}, "item 6"),
     ("ppo_kwargs", {"anomaly_imp_ratio_max": 2.0}, "item 7"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
@@ -189,8 +188,9 @@ def test_unported_options_raise(tmp_path, option, value, item):
 # the inflight paths honour, as in the JAX package), the dense KV window,
 # the two-program admit path, speculative decoding, the agent-episode
 # options (carried, read by no code of the in-process trial: see below),
-# the pipeline-overlapped step and the tunable sentinels (set where they
-# do not trip).
+# the pipeline-overlapped step, the tunable sentinels (set where they
+# do not trip), the fused reward+ref MFC, bf16 masters and the remat
+# policies "dots" and "dots_small".
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
     ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
@@ -206,11 +206,19 @@ FORMERLY_UNPORTED = [
     ("anomaly_kl_max", 10.0),
     ("anomaly_grad_norm_mult", 2.0),
     ("anomaly_update_norm_max", 100.0),
+    ("fuse_rew_ref", True),
+    ("train_backend_args", {"master_dtype": "bfloat16"}),
+    ("train_backend_args", {"remat_policy": "dots"}),
+    ("train_backend_args", {"remat_policy": "dots_small"}),
 ]
 
 
+def _option_id(option, value):
+    return f"{option}.{next(iter(value.values()))}" if option == "train_backend_args" else option
+
+
 @pytest.mark.parametrize("option,value", FORMERLY_UNPORTED,
-                         ids=[o for o, _ in FORMERLY_UNPORTED])
+                         ids=[_option_id(o, v) for o, v in FORMERLY_UNPORTED])
 def test_formerly_unported_options_run(tmp_path, option, value):
     tok = CharTokenizer(512)
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -235,6 +243,15 @@ def test_formerly_unported_options_run(tmp_path, option, value):
         assert stats[-1]["actor_train/n_stream_chunks"] == 4.0
     if option == "anomaly_kl_max":
         assert worker.interfaces["actor@0"].anomaly_kl_max == value
+    if option == "fuse_rew_ref":
+        assert "fused_rew_ref/perf/time_s" in stats[-1] and "rew_inf/perf/time_s" not in stats[-1]
+    if option == "train_backend_args":
+        actor = worker.models["actor@0"].engine
+        key, want = next(iter(value.items()))
+        got = getattr(actor, key)
+        assert (str(got).removeprefix("torch.") if key == "master_dtype" else got) == want
+        if key == "master_dtype":
+            assert all(p.dtype == torch.bfloat16 for p in actor.get_params()["blocks"].values())
     if option.startswith("anomaly_") and option != "anomaly_kl_max":
         for model in ("actor@0",):
             assert getattr(worker.models[model].engine, option) == value

@@ -92,9 +92,6 @@ UNPORTED = [
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
     (["--gen-server-url", "http://localhost:1"], "item 7"),
-    (["--master-dtype", "bfloat16"], "item 6"),
-    (["--remat", "dots"], "item 6"),
-    (["--fuse-rew-ref"], "item 6"),
     (["--rollout-ahead", "1"], "item 7"),
     (["--max-head-offpolicyness", "0"], "item 7"),
     (["--replay-capacity", "8"], "item 7"),
@@ -168,12 +165,18 @@ FORMERLY_UNPORTED = [
     ["--pipeline-overlap"],
     ["--pipeline-overlap", "--overlap-window", "1"],
     ["--pipeline-overlap", "--overlap-window", "3", "--pipeline-chunk-seqs", "2"],
+    ["--master-dtype", "bfloat16"],
+    ["--remat", "dots"],
+    ["--remat", "dots_small"],
+    ["--ref-path", "{ckpt}", "--fuse-rew-ref"],
 ]
 
 
 def _flag_id(f):
     if f[0] == "--ref-path":
         return f[2]
+    if f[0] == "--remat":
+        return "_".join(f)
     return "_".join(x for x in f if x.startswith("--")) if f[0] == "--pipeline-overlap" else f[0]
 
 
@@ -188,6 +191,8 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
                                "recover_checkpoint")
     assert os.path.isdir(recover_dir) == (flags[0] in ("--ckpt-freq-steps", "--config"))
     assert all(s["actor_train/quarantined"] == 0.0 for s in stats)
+    if "--fuse-rew-ref" in flags:
+        assert "fused_rew_ref/perf/time_s" in stats[-1] and "ref_inf/perf/time_s" not in stats[-1]
     if flags[0] == "--pipeline-overlap":
         window = int(flags[flags.index("--overlap-window") + 1]) if len(flags) > 1 else 2
         chunk = int(flags[flags.index("--pipeline-chunk-seqs") + 1]) if len(flags) > 3 else 1

@@ -300,13 +300,13 @@ class TestPackedForward:
         np.testing.assert_allclose(l1[1, :20], l2[1, :20], rtol=1e-5, atol=1e-5)
 
     def test_remat_matches(self, weights, rng):
-        """Remat "full" (per-layer checkpoint) gives the same logits and
-        the same parameter gradients as no remat."""
+        """Every remat policy ("full", "dots", "dots_small") gives the
+        same logits and the same parameter gradients as no remat."""
         _, pt_ = weights
         tokens, seg = _packed_batch(rng, ttiny())
         tt, st = torch.from_numpy(tokens), torch.from_numpy(seg)
         outs, grads = [], []
-        for remat in (False, "full"):
+        for remat in (False, "full", "dots", "dots_small"):
             p = {k: v.clone().requires_grad_(True) for k, v in pt_["blocks"].items()}
             params = {**pt_, "blocks": p}
             x = ttfm.hidden_states(params, ttiny(), tt, st, remat=remat)
@@ -314,18 +314,26 @@ class TestPackedForward:
             lp.sum().backward()
             outs.append(lp.detach().numpy())
             grads.append({k: v.grad.numpy() for k, v in p.items()})
-        np.testing.assert_allclose(outs[0], outs[1], rtol=1e-6)
-        for k in grads[0]:
-            np.testing.assert_allclose(grads[0][k], grads[1][k], rtol=1e-5, atol=1e-7,
-                                       err_msg=k)
+        for out, grad in zip(outs[1:], grads[1:]):
+            np.testing.assert_allclose(outs[0], out, rtol=1e-6)
+            for k in grads[0]:
+                np.testing.assert_allclose(grads[0][k], grad[k], rtol=1e-5, atol=1e-7,
+                                           err_msg=k)
 
     @pytest.mark.parametrize("remat", ["dots", "dots_small", "bogus"])
     def test_unported_remat_raises(self, weights, rng, remat):
+        """Once refused, "dots" and "dots_small" now run: the forward
+        under each equals the forward without remat, bit for bit (the
+        policies recompute, they do not change values); an unknown policy
+        still raises."""
         _, pt_ = weights
         tokens, seg = _packed_batch(rng, ttiny())
-        err = ValueError if remat == "bogus" else NotImplementedError
-        with pytest.raises(err):
-            _fwd(pt_, tokens, seg, remat=remat)
+        if remat == "bogus":
+            with pytest.raises(ValueError):
+                _fwd(pt_, tokens, seg, remat=remat)
+            return
+        np.testing.assert_array_equal(_fwd(pt_, tokens, seg, remat=remat),
+                                      _fwd(pt_, tokens, seg, remat=False))
 
 
 def test_value_head_bf16_gives_fp32_product(rng):
