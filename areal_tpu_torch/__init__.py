@@ -16,7 +16,7 @@ Slice 1, the serving path:
 Slice 2, the GRPO train step:
 
     interfaces/ppo.py     PPOActorInterface.generate / inference / train_step
-    interfaces/reward.py  MultiTaskRewardInterface (in-process math grading)
+    interfaces/reward.py  MultiTaskRewardInterface (math, code, judge grading)
     engines/train.py      TrainEngine.train_batch / forward (AdamW, guard)
     models/transformer.py hidden_states / per_token_output over packed rows
     kernels/flash_attention.py flash_attention (CUDA, sm_90a; CPU: plain version)
@@ -55,4 +55,12 @@ Slice 10, recovery, the EMA reference model and the difficulty filter:
     system/master.py      recover saves, restart and restore, quarantine rollback
     system/worker.py      EMA param sync, data cursors, dataset filter
     engines/train.py      TrainEngine.save/load_optimizer_state
+
+Slice 17, asynchronous RL:
+
+    system/master.py      rollout_ahead=1 and the max_head_offpolicyness pipeline
+    system/replay.py      ReplayBuffer: staleness-bounded admission
+    system/rollout.py     RolloutController over generation servers
+    system/gen_server.py  POST /update_weights, RemoteGeneratorEngine
+    interfaces/reward_service.py  the verifier registry and its HTTP service
 """

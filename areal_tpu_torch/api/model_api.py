@@ -1,8 +1,9 @@
 """Model/algorithm API (port of areal_tpu/api/model_api.py): generation
 request/config dataclasses with the JAX package's fields and wire names,
-`SlotGoneError`, the stdlib-HTTP `LLMAPIClient` of a generation server,
-the optimizer and finetune specs, the `Model` bundle, and the
-`ModelInterface` registry."""
+`SlotGoneError`, the stdlib-HTTP `LLMAPIClient` of a generation server
+(with `BoundedAgenerateMixin`'s bounded asyncio fan-out), the optimizer
+and finetune specs, the `Model` bundle, and the `ModelInterface`
+registry."""
 
 import dataclasses
 import json
@@ -96,21 +97,55 @@ class APIGenerateOutput:
         return [len(x) for x in self.output_ids]
 
 
-class LLMAPIClient:
+class BoundedAgenerateMixin:
+    """Bounds the asyncio fan-out of `agenerate`: each call runs the
+    blocking `generate` in `asyncio.to_thread`, and an unbounded caller
+    (a rollout controller dispatching hundreds of prompts) would exhaust
+    the default thread pool and starve every other to_thread user.  A
+    semaphore a running event loop, sized `max_inflight` (the server's
+    serving capacity), caps the client's concurrent threads."""
+
+    max_inflight: int = 64
+
+    def _agen_sem(self):
+        import asyncio
+
+        sems = getattr(self, "_agen_sems", None)
+        if sems is None:
+            sems = self._agen_sems = {}
+        # asyncio primitives bind to a loop: one semaphore a loop.
+        loop = asyncio.get_running_loop()
+        sem = sems.get(id(loop))
+        if sem is None:
+            sem = sems[id(loop)] = asyncio.Semaphore(max(1, int(self.max_inflight)))
+        return sem
+
+    async def agenerate(self, inp: "APIGenerateInput") -> "APIGenerateOutput":
+        import asyncio
+
+        async with self._agen_sem():
+            return await asyncio.to_thread(self.generate, inp)
+
+
+class LLMAPIClient(BoundedAgenerateMixin):
     """Client of a GenerationServer over HTTP (standard library only),
-    speaking the JAX package's wire format: `generate`, `pause`,
+    speaking the JAX package's wire format: `generate`,
+    `generate_batch`, `agenerate`, `update_weights_from_disk`, `pause`,
     `resume`, `health` and the agent episode ops.
 
         client = LLMAPIClient("http://127.0.0.1:8091")
         out = client.generate(APIGenerateInput(qid="q", prompt_ids=[1, 2],
                                                gconfig=GenerationHyperparameters()))
+        outs = client.generate_batch([inp1, inp2])  # co-batched server-side
         turn = client.episode_start("ep0", prompt_ids, gconfig, token_budget=2048)
     """
 
-    def __init__(self, url: str, timeout_s: float = 7200.0, token: str = ""):
+    def __init__(self, url: str, timeout_s: float = 7200.0, token: str = "",
+                 max_inflight: int = 64):
         self.url = url.rstrip("/")
         self.timeout_s = timeout_s
         self.token = token or os.environ.get("AREAL_GEN_TOKEN", "")
+        self.max_inflight = max_inflight
 
     def _post(self, path: str, payload: Dict, trace_id: Optional[str] = None) -> Dict:
         headers = {"Content-Type": "application/json"}
@@ -175,6 +210,28 @@ class LLMAPIClient:
             no_eos=out["no_eos"],
             version=int(out.get("version", 0)),
             version_start=int(out.get("version_start", out.get("version", 0))),
+        )
+
+    def generate_batch(self, inps: "list[APIGenerateInput]",
+                       max_concurrency: int = 64) -> "list[APIGenerateOutput]":
+        """Issue the requests concurrently; the server merges them into
+        shared engine calls."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if not inps:
+            return []
+        with ThreadPoolExecutor(max_workers=min(max_concurrency, len(inps))) as ex:
+            return list(ex.map(self.generate, inps))
+
+    def update_weights_from_disk(self, path: str) -> int:
+        """Swap the server's weights for an HF checkpoint dir; returns the
+        new weight version."""
+        return int(self._post("/update_weights", {"path": path})["version"])
+
+    def push_weights(self, meta: Dict, payload: bytes) -> Dict:
+        raise NotImplementedError(
+            "the binary weight push (/param_push) is not yet ported "
+            "(ROADMAP queue 1, item 7.4: the param store)"
         )
 
     def pause(self) -> Dict:

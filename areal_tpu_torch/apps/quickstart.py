@@ -15,8 +15,10 @@ defaults from a file (keys spelled as the flags, e.g. `model.path`,
 `batch-size`; flags on the command line win).  The trial runs in this
 process on the CUDA card: every model on one worker, `build_sft` or
 `build_ppo_math` -> `run_experiment` -> the master's steps (with
-`--pipeline-overlap`, streamed in chunks); the last step's
-stats are printed as one JSON line.  With `--ckpt-freq-steps N` the
+`--pipeline-overlap`, streamed in chunks; with `--rollout-ahead 1` or
+`--max-head-offpolicyness K`, asynchronous; with `--gen-server-url`,
+generating on remote servers); the last step's stats are printed as one
+JSON line.  With `--ckpt-freq-steps N` the
 master writes a recover checkpoint every N steps; rerunning the same
 command (the same `--fileroot`, experiment and trial name) resumes the
 trial from the last one.  Flags whose features the port does not have
@@ -46,26 +48,21 @@ _UNPORTED_FLAGS = {
     "tpu_zone": "item 10 (scheduler/)",
     "tpu_project": "item 10 (scheduler/)",
     "tpu_num_hosts": "item 10 (scheduler/)",
-    "multiprocess": "item 7 (the ZMQ transport)",
-    "recover_retries": "item 7 (worker-death recovery over the multi-process runtime)",
-    "mfc_timeout_s": "item 7 (worker-death recovery over the multi-process runtime)",
-    "worker_heartbeat_s": "item 7 (the ZMQ transport)",
-    "no_weight_push_checksum": "item 7 (cross-worker weight pushes)",
+    "multiprocess": "item 7.3 (the multi-process runtime)",
+    "recover_retries": "item 7.3 (worker-death recovery over the multi-process runtime)",
+    "mfc_timeout_s": "item 7.3 (worker-death recovery over the multi-process runtime)",
+    "worker_heartbeat_s": "item 7.3 (the multi-process runtime)",
+    "no_weight_push_checksum": "item 7.4 (the param store)",
     "eval_data": "item 10 (scheduler/evaluator.py)",
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
     "eval_protocol": "item 10 (scheduler/evaluator.py)",
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
-    "gen_server_url": "item 7 (remote generation servers)",
-    "rollout_ahead": "item 7 (asynchronous RL)",
-    "max_head_offpolicyness": "item 7 (asynchronous RL)",
-    "replay_capacity": "item 7 (asynchronous RL)",
-    "inmem_weight_sync": "item 7 (remote generation servers)",
-    "param_push_tree": "item 7 (the param store)",
-    "param_push_fanout": "item 7 (the param store)",
-    "verifier_pool": "item 7 (the verifier fleet)",
-    "mixture_weight": "item 7 (task mixtures)",
-    "mixture_adaptive": "item 7 (task mixtures)",
+    "param_push_tree": "item 7.4 (the param store)",
+    "param_push_fanout": "item 7.4 (the param store)",
+    "verifier_pool": "item 7.5 (the verifier fleet)",
+    "mixture_weight": "item 7.5 (task mixtures)",
+    "mixture_adaptive": "item 7.5 (task mixtures)",
 }
 
 
@@ -130,7 +127,9 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--max-new-tokens", type=int, default=1024)
     pp.add_argument("--temperature", type=float, default=1.0)
     pp.add_argument("--gen-allocation", default=None, help="not yet ported")
-    pp.add_argument("--gen-server-url", default=None, help="not yet ported")
+    pp.add_argument("--gen-server-url", default=None,
+                    help="comma-separated http:// URLs of generation servers (decoupled "
+                         "generation; the weights reach them from disk each step)")
     pp.add_argument("--ref-path", default=None,
                     help="reference policy checkpoint (enables KL control)")
     pp.add_argument("--kl-ctl", type=float, default=0.0)
@@ -171,10 +170,15 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--spec-decode-k", type=int, default=0,
                     help="speculative decoding: n-gram drafts per step (0 = off)")
     pp.add_argument("--rollout-ahead", type=int, default=0, choices=(0, 1),
-                    help="not yet ported")
-    pp.add_argument("--max-head-offpolicyness", type=int, default=None, help="not yet ported")
-    pp.add_argument("--replay-capacity", type=int, default=4, help="not yet ported")
-    pp.add_argument("--inmem-weight-sync", action="store_true", help="not yet ported")
+                    help="1: generate the next step's rollouts while this step trains")
+    pp.add_argument("--max-head-offpolicyness", type=int, default=None,
+                    help="asynchronous RL: admit rollouts at most this many versions stale "
+                         "through a replay buffer (0 = the synchronous ordering)")
+    pp.add_argument("--replay-capacity", type=int, default=4,
+                    help="the replay buffer's capacity in batches")
+    pp.add_argument("--inmem-weight-sync", action="store_true",
+                    help="pause the generation servers at a chunk boundary around each "
+                         "weight push")
     pp.add_argument("--param-push-tree", action="store_true", help="not yet ported")
     pp.add_argument("--param-push-fanout", type=int, default=2, help="not yet ported")
     pp.add_argument("--pipeline-overlap", action="store_true",
@@ -211,6 +215,10 @@ def _refuse_unported(defaults, args) -> None:
     if args.allocation == "search":
         raise SystemExit("--allocation search is not yet ported "
                          "(ROADMAP queue 1, item 10: the allocation search)")
+    for url in (args.__dict__.get("gen_server_url") or "").split(","):
+        if url.strip() and not url.strip().startswith(("http://", "https://")):
+            raise SystemExit(f"--gen-server-url {url.strip()}: only http:// is ported "
+                             "(ROADMAP queue 1, item 7.3: the ZMQ transport)")
     if args.allocation != "d1":
         raise SystemExit(f"--allocation {args.allocation}: only d1 (one device) is ported "
                          "(ROADMAP queue 1, item 8: multi-GPU layouts)")
@@ -358,6 +366,11 @@ def cmd_ppo_math(args, device=None):
         episode_max_turns=args.episode_max_turns,
         episode_token_budget=args.episode_token_budget,
         tool_timeout_s=args.tool_timeout_s,
+        rollout_ahead=args.rollout_ahead,
+        max_head_offpolicyness=args.max_head_offpolicyness,
+        replay_capacity=args.replay_capacity,
+        gen_server_url=args.gen_server_url,
+        inmem_weight_sync=args.inmem_weight_sync,
     )
     return _run(exps.build_ppo_math(cfg), args, device)
 

@@ -3,9 +3,12 @@
 `RecoverInfo` holds what the master needs to resume a trial: the step
 and epoch counters, the frequency controls' states, the data workers'
 (epoch, cursor) positions, the interfaces' algorithm state, the weight
-versions, the ids the difficulty filter removed and the quarantine
-ledger.  The asynchronous-RL, fleet and param-store fields of the JAX
-package's `RecoverInfo` come with their planes (ROADMAP queue 1, item 7).
+versions, the ids the difficulty filter removed, the quarantine ledger,
+and for asynchronous RL the replay buffer's watermarks and the rollout
+pipeline's state.  The fleet and param-store fields of the JAX package's
+`RecoverInfo` come with their planes (ROADMAP queue 1, items 7.4 and
+7.5).  A record from before a field was added loads with the field's
+default (`load`).
 
 A recover save stages into ``recover_checkpoint.tmp.<step>``, writes and
 fsyncs a ``MANIFEST.json`` (the file list with sizes, the step, the
@@ -63,6 +66,14 @@ class RecoverInfo:
     # Worker id -> {model key -> interface.state_dict()} (the KL
     # controller, the value-norm moments).
     interface_states: Dict[int, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    # Asynchronous RL: the replay buffer's version watermarks and counters
+    # (`ReplayBuffer.watermarks()`) and the rollout pipeline's state (the
+    # master's trainer version and batch sequence, or a
+    # `RolloutController.state_dict()` with its prompt cursor), so a
+    # recovered trial resumes admission and the data stream where the
+    # crashed one stopped.
+    replay_watermarks: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rollout_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Quarantined steps (`integrity.quarantine_entry`) and the live streak.
     quarantine_ledger: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     consecutive_quarantines: int = 0

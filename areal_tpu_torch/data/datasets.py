@@ -11,8 +11,9 @@ Rows are shuffled and batches ordered with numpy's `default_rng` as in
 the JAX package, so both packages see the same batches in the same order.
 `filter` (the master's difficulty filter) removes ids from a math
 dataset; the loader then drops the snapshot permutation's indices past
-the shrunken dataset, as the JAX loader does.  Code rows (`"task": "code"`) are kept, as JAX keeps them, but grading
-them is not yet ported (`interfaces/reward.py`)."""
+the shrunken dataset, as the JAX loader does.  Code rows (`"task":
+"code"`, with `"input_output"`) are kept, as JAX keeps them, and graded
+in the sandbox (`interfaces/reward.py`)."""
 
 import json
 import logging

@@ -2247,9 +2247,14 @@ class GeneratorEngine:
         never waits for the host, and the last forward's logits, as in
         the JAX program, go unread.  After the last sample no forward is
         run.  Done rows change no output, so the results do not depend
-        on when the flag is read.  Returns host arrays (tokens [B,
-        max_new], logprobs [B, max_new], emitted counts [B])."""
+        on when the flag is read.  The weights are bound once, at the
+        burst's start, as the JAX program takes them: a `set_params` from
+        another thread mid-burst (a weight sync under asynchronous RL)
+        reaches the next burst, not this one's tail.  Returns host
+        arrays (tokens [B, max_new], logprobs [B, max_new], emitted
+        counts [B])."""
         cfg, dev, eos = self.cfg, self.device, self.eos_token_id
+        params = self.params
         max_new = g.max_new_tokens
         b = prompt_tok.shape[0]
         tok_in = torch.from_numpy(prompt_tok).to(dev)
@@ -2257,7 +2262,7 @@ class GeneratorEngine:
         valid_from = sp - plen  # [B] first live cache slot
         seg = (torch.arange(sp, device=dev)[None, :] >= valid_from[:, None]).long()
         cache = tfm.init_kv_cache(cfg, b, s_total, dtype=self.compute_dtype, device=dev)
-        logits, cache = tfm.prefill(self.params, cfg, tok_in, seg, cache)
+        logits, cache = tfm.prefill(params, cfg, tok_in, seg, cache)
         self.static_chunks += 1
         out_toks = torch.zeros((b, max_new), dtype=torch.long, device=dev)
         out_logps = torch.zeros((b, max_new), dtype=torch.float32, device=dev)
@@ -2287,7 +2292,7 @@ class GeneratorEngine:
                 all_done.copy_(done.all(), non_blocking=True)
                 flag_ready.record()
             logits, cache = tfm.decode_step(
-                self.params, cfg, tok, plen + step, cache, sp + step, valid_from
+                params, cfg, tok, plen + step, cache, sp + step, valid_from
             )
             self.static_decode_steps += 1
             if on_card:

@@ -54,18 +54,15 @@ def check_gconfig(g: GenerationHyperparameters) -> None:
 def unported_options(cfg):
     """(option, ROADMAP item) for each option the config sets that the
     port does not have yet."""
+    urls = [u.strip() for u in (cfg.gen_server_url or "").split(",") if u.strip()]
     checks = (
-        (cfg.rollout_ahead != 0, "rollout_ahead", "queue 1, item 7"),
-        (cfg.max_head_offpolicyness is not None, "max_head_offpolicyness", "queue 1, item 7"),
-        (cfg.gen_server_url is not None, "gen_server_url", "queue 1, item 7"),
-        (cfg.inmem_weight_sync, "inmem_weight_sync", "queue 1, item 7"),
-        (cfg.param_push_tree, "param_push_tree", "queue 1, item 7"),
-        (cfg.verifier_pool, "verifier_pool", "queue 1, item 7"),
+        (any(not u.startswith(("http://", "https://")) for u in urls),
+         "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.3"),
+        (cfg.param_push_tree, "param_push_tree", "queue 1, item 7.4"),
+        (cfg.verifier_pool, "verifier_pool", "queue 1, item 7.5"),
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
-         "queue 1, item 7"),
+         "queue 1, item 7.5"),
         (bool(cfg.placement), "placement (more than one worker)", "queue 1, items 7 and 8"),
-        (cfg.ppo_kwargs.get("anomaly_imp_ratio_max") is not None,
-         "ppo_kwargs.anomaly_imp_ratio_max", "queue 1, item 7"),
     )
     return [(name, item) for bad, name, item in checks if bad]
 
@@ -114,7 +111,24 @@ def check_ppo_math(cfg) -> None:
     check_optimizer(cfg.optimizer)
     check_gconfig(cfg.gconfig)
     check_anomaly(cfg)
+    if cfg.rollout_ahead not in (0, 1):
+        _fail(f"rollout_ahead must be 0 or 1, got {cfg.rollout_ahead}")
+    mho = cfg.max_head_offpolicyness
+    if mho is not None:
+        if mho < 0:
+            _fail(f"max_head_offpolicyness must be >= 0, got {mho}")
+        if cfg.rollout_ahead > 0:
+            # Both claim the prefetch pipeline; the replay path subsumes
+            # rollout_ahead=1.
+            _fail("max_head_offpolicyness and rollout_ahead are mutually exclusive "
+                  "(async RL replaces the one-step-ahead path)")
+    if cfg.replay_capacity < 1:
+        _fail(f"replay_capacity must be >= 1, got {cfg.replay_capacity}")
     if cfg.pipeline_overlap:
+        if cfg.rollout_ahead > 0 or mho is not None:
+            _fail("pipeline_overlap is mutually exclusive with rollout_ahead / "
+                  "max_head_offpolicyness: those overlap generation ACROSS steps, pipeline "
+                  "overlap streams chunks WITHIN one on-policy step")
         if cfg.overlap_window < 1:
             _fail(f"overlap_window must be >= 1, got {cfg.overlap_window}")
         if cfg.pipeline_chunk_seqs < 1:
@@ -143,6 +157,16 @@ def check_ppo_math(cfg) -> None:
         _fail(f"kv_pool_pages must be >= 0 (0 = auto-size), got {cfg.kv_pool_pages}")
     if cfg.prefill_chunk_tokens is not None and cfg.prefill_chunk_tokens < 0:
         _fail(f"prefill_chunk_tokens must be >= 0, got {cfg.prefill_chunk_tokens}")
+    if cfg.gen_server_url and (
+        cfg.gen_backend_args or cfg.kv_paged is not None or cfg.kv_page_size != 128
+        or cfg.kv_pool_pages or cfg.prefill_chunk_tokens is not None
+        or cfg.kv_share_prefix is not None
+    ):
+        # These configure the in-process GeneratorEngine, which remote
+        # generation never builds: a silently ignored knob is a trap.
+        _fail("gen_backend_args/kv_paged/kv_page_size/kv_pool_pages/prefill_chunk_tokens/"
+              "kv_share_prefix apply to the in-process GeneratorEngine and are ignored "
+              "under gen_server_url (configure the generation server instead)")
     if cfg.max_recoveries < 0:
         _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
     if cfg.dataset_filter:

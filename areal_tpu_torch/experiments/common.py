@@ -12,9 +12,15 @@ generator taking the actor's weights after each train step (and, with
 `ref_ema_eta`, the reference model moving toward them).  With
 `fuse_rew_ref` one MFC on the ref's worker (`interfaces/fused.py`)
 grades the rewards while the ref's forward runs.  The train engines take
-`train_backend_args` (`master_dtype`, `remat_policy`).  Every model
-lives on one worker on one device.  The options the port does not have
-yet stay in `PPOMathConfig` with their "off" defaults and fail
+`train_backend_args` (`master_dtype`, `remat_policy`).  Asynchronous RL:
+`rollout_ahead` and `max_head_offpolicyness` pick the master's async
+step modes (a positive cap turns on decoupled PPO through
+`behav_imp_weight_cap`), and `gen_server_url` makes the generator a
+weightless client of generation servers (`_remote_gen_shard`, the
+`remote_generator` backend), its weights pushed from disk after each
+train step (paused around the push with `inmem_weight_sync`).  Every
+model lives on one worker on one device.  The options the port does not
+have yet stay in `PPOMathConfig` with their "off" defaults and fail
 `check_ppo_math` when set (see `experiments/check.unported_options`).
 """
 
@@ -63,6 +69,10 @@ class ExperimentPlan:
     pipeline_overlap: bool = False
     overlap_window: int = 2
     pipeline_chunk_seqs: int = 1
+    # The asynchronous step modes (see system/master.py).
+    rollout_ahead: int = 0
+    max_head_offpolicyness: Optional[int] = None
+    replay_capacity: int = 4
 
 
 @dataclasses.dataclass
@@ -212,11 +222,26 @@ class PPOMathConfig:
     anomaly_grad_norm_mult: float = 0.0
     anomaly_update_norm_max: float = 0.0
     anomaly_kl_max: Optional[float] = None
-    # ---- not yet ported: check_ppo_math refuses a value other than these ----
+    # Asynchronous rollout: 1 = generate step t+1's rollouts while step t
+    # trains (one-step-stale behaviour policy).
     rollout_ahead: int = 0
+    # Asynchronous RL: cap + 1 rollout batches in flight, admitted to a
+    # staleness-bounded replay buffer (None: off; 0: the synchronous
+    # ordering).  Exclusive with rollout_ahead.
     max_head_offpolicyness: Optional[int] = None
+    # The replay buffer's capacity in batches.
+    replay_capacity: int = 4
+    # Decoupled PPO's behaviour-weight cap, set on the actor when
+    # max_head_offpolicyness > 0 (ppo_kwargs["behav_imp_weight_cap"] wins).
+    behav_imp_weight_cap: float = 5.0
+    # Generation on remote servers: comma-separated http:// URLs of
+    # GenerationServers (one per data-parallel rank); the weights reach
+    # them from disk after each train step.
     gen_server_url: Optional[str] = None
+    # Pause the servers at a chunk boundary around each push, so a sync
+    # costs one chunk of replay instead of a drain.
     inmem_weight_sync: bool = False
+    # ---- not yet ported: check_ppo_math refuses a value other than these ----
     param_push_tree: bool = False
     verifier_pool: bool = False
     mixture_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -250,6 +275,10 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
     if cfg.anomaly_kl_max is not None:
         ppo_kwargs.setdefault("anomaly_kl_max", cfg.anomaly_kl_max)
     train_backend_args = _anomaly_backend_args(cfg, cfg.train_backend_args)
+    if (cfg.max_head_offpolicyness or 0) > 0:
+        # Off-policy samples are admissible: decoupled PPO corrects them.
+        # At cap 0 the plain loss keeps the synchronous numerics.
+        ppo_kwargs.setdefault("behav_imp_weight_cap", cfg.behav_imp_weight_cap)
     use_dense = bool(ppo_kwargs.get("use_dense_reward"))
     if use_dense and cfg.reward_interface is None:
         raise ValueError(
@@ -393,7 +422,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             backend=ModelBackendAbstraction("train", dict(train_backend_args)),
             interface=actor_if, optimizer=cfg.optimizer,
         ),
-        ModelShardSpec(
+        _remote_gen_shard(cfg, actor_gen, actor_if) if cfg.gen_server_url else ModelShardSpec(
             name=actor_gen, model=cfg.actor,
             backend=ModelBackendAbstraction("generator", {**gen_args, **cfg.gen_backend_args}),
             interface=actor_if,
@@ -437,6 +466,38 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         pipeline_overlap=cfg.pipeline_overlap,
         overlap_window=cfg.overlap_window,
         pipeline_chunk_seqs=cfg.pipeline_chunk_seqs,
+        rollout_ahead=cfg.rollout_ahead,
+        max_head_offpolicyness=cfg.max_head_offpolicyness,
+        replay_capacity=cfg.replay_capacity,
+    )
+
+
+def _remote_gen_shard(cfg: PPOMathConfig, actor_gen, actor_if) -> ModelShardSpec:
+    """actor_gen as a weightless client of the GenerationServers at
+    `cfg.gen_server_url`."""
+    from areal_tpu_torch.models.hf import registry as hf
+
+    model_type = "qwen2"
+    if cfg.actor.type_ == "random":
+        model_cfg = cfg.actor.args["config"]
+        model_type = cfg.actor.args.get("model_type", model_type)
+    elif cfg.actor.type_ == "hf":
+        path = cfg.actor.args["path"]
+        model_cfg = hf.load_model_config(path)
+        # The pushed checkpoints go through the actor's own family.
+        model_type = hf.load_hf_config(path)["model_type"]
+    else:
+        raise ValueError(f"gen_server_url with actor abstraction {cfg.actor.type_!r}")
+    return ModelShardSpec(
+        name=actor_gen,
+        model=ModelAbstraction("config", {"config": model_cfg}),
+        backend=ModelBackendAbstraction("remote_generator", {
+            "url": [u.strip() for u in cfg.gen_server_url.split(",") if u.strip()],
+            "model_type": model_type,
+            "inmem_sync": cfg.inmem_weight_sync,
+            "push_mode": "disk",
+        }),
+        interface=actor_if,
     )
 
 
@@ -464,6 +525,9 @@ def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
         pipeline_overlap=plan.pipeline_overlap,
         overlap_window=plan.overlap_window,
         pipeline_chunk_seqs=plan.pipeline_chunk_seqs,
+        rollout_ahead=plan.rollout_ahead,
+        max_head_offpolicyness=plan.max_head_offpolicyness,
+        replay_capacity=plan.replay_capacity,
     )
     master.load_recover_info()
     stats = asyncio.run(master.run())

@@ -332,8 +332,12 @@ def _executor():
         import multiprocessing
         from concurrent.futures import ProcessPoolExecutor
 
+        # Workers come from a fork server, never a fork of this process:
+        # a fork from one thread while another spawns a subprocess (the
+        # code sandbox) copies that spawn's error pipe into the worker,
+        # and the spawn then waits on it for as long as the worker lives.
         _EXECUTOR = ProcessPoolExecutor(
-            max_workers=1, mp_context=multiprocessing.get_context("fork")
+            max_workers=1, mp_context=multiprocessing.get_context("forkserver")
         )
         atexit.register(_kill_executor)
     return _EXECUTOR

@@ -26,8 +26,9 @@ step): each retired rollout chunk's advantages are computed over the
 chunk and its gradients accumulate in the engine; the one optimizer
 step comes at the stream's end, and a sentinel tripped mid-stream
 makes the engine discard the accumulated sum.  `anomaly_imp_ratio_max`
-(the behaviour weight's bounds) comes with asynchronous RL (ROADMAP
-queue 1, item 7).
+R bounds decoupled PPO's mean behaviour weight exp(prox - old) over the
+response tokens to [1/R, R]: a batch outside it is too stale for
+clipped updates (asynchronous RL, ROADMAP queue 1 item 7.7).
 
 Alignment (set by the generator): every per-token key is aligned with
 packed_input_ids; index t carries the quantity for predicting token t+1.
@@ -270,17 +271,13 @@ class PPOActorInterface(ModelInterface):
     reward_delta: bool = True
     behav_imp_weight_cap: Optional[float] = None
     # Batch sentinels, judged before any gradient work (None / False:
-    # off).  anomaly_imp_ratio_max is refused until item 7.
+    # off).  anomaly_imp_ratio_max judges only a decoupled batch (one
+    # with proximal logprobs).
     anomaly_kl_max: Optional[float] = None
     anomaly_imp_ratio_max: Optional[float] = None
     anomaly_degenerate_variance: bool = False
 
     def __post_init__(self):
-        if self.anomaly_imp_ratio_max is not None:
-            raise NotImplementedError(
-                "anomaly_imp_ratio_max is not yet ported (ROADMAP queue 1, item 7: "
-                "asynchronous RL's behaviour logprobs)"
-            )
         self._kl_ctl = make_kl_controller(
             self.kl_ctl, self.kl_adaptive, self.adaptive_kl_target,
             self.adaptive_kl_horizon,
@@ -293,6 +290,11 @@ class PPOActorInterface(ModelInterface):
         kl = aux.get("kl_abs_mean")
         if self.anomaly_kl_max is not None and kl is not None and kl > self.anomaly_kl_max:
             v |= integrity.KL_BLOWUP
+        r = aux.get("behav_imp_mean")
+        if self.anomaly_imp_ratio_max is not None and r is not None:
+            cap = self.anomaly_imp_ratio_max
+            if not 1.0 / cap <= r <= cap:
+                v |= integrity.IMP_RATIO
         if self.anomaly_degenerate_variance and aux.get("degenerate_var"):
             v |= integrity.DEGENERATE_VAR
         return v
@@ -485,6 +487,11 @@ class PPOActorInterface(ModelInterface):
         kl_abs_mean = None
         if ref_logp is not None and mt > 0:
             kl_abs_mean = float((np.abs(old_logp - ref_logp) * loss_mask).sum() / mt)
+        behav_imp_mean = None
+        if prox_logp is not None and mt > 0:
+            behav_imp_mean = float(
+                (np.exp((prox_logp - old_logp) * loss_mask) * loss_mask).sum() / mt
+            )
         aux = {
             "klv": klv,
             "n_seqs": len(layout),
@@ -494,6 +501,7 @@ class PPOActorInterface(ModelInterface):
             "scores": scores,
             "no_eos": no_eos,
             "kl_abs_mean": kl_abs_mean,
+            "behav_imp_mean": behav_imp_mean,
             "degenerate_var": degenerate_var,
         }
         return train_sample, extra_keys, aux
@@ -512,7 +520,8 @@ class PPOActorInterface(ModelInterface):
             integrity.record_anomaly(verdict)
             logger.warning(
                 f"batch sentinel quarantined train step: {integrity.verdict_kinds(verdict)} "
-                f"(kl_abs_mean={aux['kl_abs_mean']} degenerate_var={aux['degenerate_var']})"
+                f"(kl_abs_mean={aux['kl_abs_mean']} behav_imp_mean={aux['behav_imp_mean']} "
+                f"degenerate_var={aux['degenerate_var']})"
             )
             model.inc_version()
             return {

@@ -1,20 +1,31 @@
-"""Verification-based rewards (port of the in-process math branch of
-areal_tpu/interfaces/reward.py, `MultiTaskRewardInterface`).
+"""Verification-based rewards (port of areal_tpu/interfaces/reward.py,
+`MultiTaskRewardInterface`).
 
 Each sequence is dispatched by its task metadata, its response decoded
-and graded, and scored ±`reward_value` (one scalar per sequence).  Only
-math grading in-process is ported; code and judge grading, the remote
-reward service and the verifier fleet raise NotImplementedError."""
+and graded, and scored ±`reward_value` (one scalar per sequence).  An
+item travels in the reward service's opaque schema (``{"task", "text",
+"payload"}``) and is graded by the verifier registry
+(`interfaces/reward_service.grade_item`: math, code, judge) in this
+process, or with `remote_url` by a reward service over HTTP, with local
+fallback.  Code grading runs the response's last fenced program on each
+test input in the sandbox (`interfaces/sandbox.run_sandboxed`).  The
+verifier fleet (`verifier_pool`) is ROADMAP queue 1 item 7.5."""
 
 import dataclasses
 import json
+import logging
+import os
+import re
+import sys
+import tempfile
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import Model, ModelInterface, register_interface
-from areal_tpu_torch.interfaces import math_verify
+
+logger = logging.getLogger("areal_tpu_torch.reward")
 
 
 def _row_is_choice(info: Dict[str, Any]) -> Optional[bool]:
@@ -29,19 +40,26 @@ def _row_is_choice(info: Dict[str, Any]) -> Optional[bool]:
 
 @dataclasses.dataclass
 class MultiTaskRewardInterface(ModelInterface):
-    """id2info maps query_id -> the dataset row (task, solutions, ...)."""
+    """id2info maps query_id -> the dataset row (task, solutions,
+    input_output, ...)."""
 
     id2info: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     dataset_path: Optional[str] = None
     reward_value: float = 5.0
+    code_timeout_s: float = 8.0
+    # http://host:port of a reward service; each batch is graded there in
+    # one round trip (local fallback on failure).  None: in-process.
     remote_url: Optional[str] = None
+    remote_timeout_s: float = 600.0
+    # Overrides every row's task (one backend for the run); "" = per row.
     reward_backend: str = ""
     verifier_pool: bool = False
 
     def __post_init__(self):
-        if self.remote_url or self.verifier_pool:
+        if self.verifier_pool:
             raise NotImplementedError(
-                "remote and fleet reward grading are not yet ported"
+                "grading through the verifier fleet is not yet ported (ROADMAP queue 1, "
+                "item 7.5: the fleet); set remote_url for one reward service"
             )
         if self.dataset_path and not self.id2info:
             with open(self.dataset_path) as f:
@@ -64,18 +82,36 @@ class MultiTaskRewardInterface(ModelInterface):
         pmask = np.asarray(sample.data["prompt_mask"])
         bounds = sample.cu_seqlens("packed_input_ids")
         seqlens_r: List[List[int]] = []
-        rewards: List[float] = []
+        todo: List[Dict[str, Any]] = []
         si = 0
         for ei, group in enumerate(sample.seqlens["packed_input_ids"]):
             info = self.id2info.get(str(sample.ids[ei]), {})
-            task = self.reward_backend or info.get("task", "math")
+            task = info.get("task", "math")
             seqlens_r.append([1] * len(group))
             for _ in group:
                 lo, hi = bounds[si], bounds[si + 1]
                 resp = tokens[lo:hi][~pmask[lo:hi].astype(bool)]
-                ok = self.verify(task, tokenizer.decode(resp.tolist()), info)
-                rewards.append(self.reward_value if ok else -self.reward_value)
+                todo.append({
+                    "task": self.reward_backend or task,
+                    "text": tokenizer.decode(resp.tolist()),
+                    "payload": {
+                        "solutions": info.get("solutions") or [],
+                        "input_output": info.get("input_output"),
+                        "choices": info.get("choices"),
+                        "reference": info.get("reference"),
+                        "timeout_s": self.code_timeout_s,
+                    },
+                })
                 si += 1
+        if self.remote_url:
+            from areal_tpu_torch.interfaces.reward_service import RemoteVerifier
+
+            oks = RemoteVerifier(self.remote_url, timeout_s=self.remote_timeout_s
+                                 ).verify_batch(todo)
+        else:
+            oks = [self.verify(it["task"], it["text"], it["payload"]) for it in todo]
+        rewards = [self.reward_value if ok else -self.reward_value for ok in oks]
+        logger.info(f"reward verification: {sum(map(int, oks))}/{len(rewards)} correct")
         return SequenceSample(
             keys={"rewards"},
             ids=list(sample.ids),
@@ -84,12 +120,49 @@ class MultiTaskRewardInterface(ModelInterface):
         )
 
     def verify(self, task: str, text: str, info: Dict[str, Any]) -> bool:
-        """Grade one response for `task` (math only)."""
-        if task != "math":
-            raise NotImplementedError(f"{task!r} grading is not yet ported")
-        return bool(math_verify.verify_math(
-            text, info.get("solutions") or [], is_choice=_row_is_choice(info),
-        ))
+        """Grade one response for `task` through the verifier registry
+        (the graders the reward service runs)."""
+        from areal_tpu_torch.interfaces import reward_service
+
+        payload = dict(info)
+        payload.setdefault("timeout_s", self.code_timeout_s)
+        return reward_service.grade_item(
+            {"task": self.reward_backend or task, "text": text, "payload": payload}
+        )
+
+
+def verify_code(text: str, io_spec, timeout_s: float = 8.0) -> bool:
+    """Run the response's last fenced program on each test input in the
+    sandbox (rlimits, a temporary dir as its jail, a network namespace
+    where the host allows one; `interfaces/sandbox.py`); pass iff every
+    run exits 0 with the expected stdout (whitespace-trimmed).
+    `io_spec`: {"inputs": [...], "outputs": [...]} or its JSON."""
+    from areal_tpu_torch.interfaces.sandbox import run_sandboxed
+
+    prog = _extract_code_block(text)
+    if prog is None:
+        return False
+    try:
+        io_spec = json.loads(io_spec) if isinstance(io_spec, str) else io_spec
+        inputs, outputs = io_spec["inputs"], io_spec["outputs"]
+    except (KeyError, TypeError, json.JSONDecodeError):
+        return False
+    with tempfile.TemporaryDirectory(prefix="areal_torch_grade_") as jail:
+        path = os.path.join(jail, "prog.py")
+        with open(path, "w") as f:
+            f.write(prog)
+        for inp, expected in zip(inputs, outputs):
+            rc, stdout = run_sandboxed(
+                [sys.executable, path], input_text=inp, timeout_s=timeout_s, cwd=jail,
+            )
+            if rc != 0 or stdout.strip() != expected.strip():
+                return False
+    return True
+
+
+def _extract_code_block(text: str) -> Optional[str]:
+    blocks = re.findall(r"```(?:python)?\n(.*?)```", text, flags=re.DOTALL)
+    return blocks[-1] if blocks else None
 
 
 register_interface("rw-math-code", MultiTaskRewardInterface)

@@ -33,8 +33,11 @@ def _unshare_prefix() -> List[str]:
         ok = False
         if exe:
             try:
+                # No pipes (see run_sandboxed): a fork beside the probe
+                # could hold one open past the probe's timeout.
                 ok = subprocess.run(
-                    [exe, "-rn", "true"], capture_output=True, timeout=5
+                    [exe, "-rn", "true"], stdout=subprocess.DEVNULL,
+                    stderr=subprocess.DEVNULL, timeout=5,
                 ).returncode == 0
             except Exception:  # noqa: BLE001 — any failure means no namespace
                 ok = False
@@ -76,26 +79,37 @@ def run_sandboxed(
     nproc: Optional[int] = 4096,
 ) -> Tuple[int, str]:
     """Run `argv` jailed; returns (returncode, stdout).  A wall-clock
-    timeout kills the session and returns (-1, "")."""
-    proc = subprocess.Popen(
-        _unshare_prefix()
-        + _ulimit_wrapper(max(1, int(timeout_s)), mem_mb, fsize_mb, nproc)
-        + argv,
-        stdin=subprocess.PIPE,
-        stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE,
-        text=True,
-        cwd=cwd,
-        env={"PATH": "/usr/bin:/bin", "HOME": cwd or tempfile.gettempdir()},
-        start_new_session=True,
-    )
-    try:
-        stdout, _ = proc.communicate(input=input_text, timeout=timeout_s)
-        return proc.returncode, stdout
-    except subprocess.TimeoutExpired:
+    timeout kills the session and returns (-1, "").
+
+    The program reads its input from a file and writes its output to one,
+    never a pipe: a process forked elsewhere in this one while the
+    program runs (a process pool's fork from another thread) would hold
+    the pipe's other end open, and the program would wait for an EOF, or
+    this call for one, until the timeout."""
+    with tempfile.TemporaryDirectory(prefix="areal_sandbox_io_") as io_dir:
+        in_path, out_path = os.path.join(io_dir, "stdin"), os.path.join(io_dir, "stdout")
+        with open(in_path, "w") as f:
+            f.write(input_text)
+        with open(in_path, "rb") as fin, open(out_path, "wb") as fout:
+            proc = subprocess.Popen(
+                _unshare_prefix()
+                + _ulimit_wrapper(max(1, int(timeout_s)), mem_mb, fsize_mb, nproc)
+                + argv,
+                stdin=fin,
+                stdout=fout,
+                stderr=subprocess.DEVNULL,
+                cwd=cwd,
+                env={"PATH": "/usr/bin:/bin", "HOME": cwd or tempfile.gettempdir()},
+                start_new_session=True,
+            )
         try:
-            os.killpg(proc.pid, 9)
-        except ProcessLookupError:
-            pass
-        proc.wait()
-        return -1, ""
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            return -1, ""
+        with open(out_path, encoding="utf-8", errors="replace") as f:
+            return proc.returncode, f.read()

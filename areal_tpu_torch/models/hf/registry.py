@@ -139,30 +139,29 @@ def params_from_hf_state_dict(
 ) -> Params:
     """HF tensors (host tensors, e.g. views of a mapped file) -> the
     layer-stacked params on `device` (the CUDA card unless told
-    otherwise) in `dtype` (default: the config's).  Each layer's tensor
-    is copied into its slot of the stacked tensor on the device, cast
-    and transposed on the way."""
+    otherwise) in `dtype` (default: the config's).  Each tensor goes to
+    the device as it lies in the file (one contiguous copy) and is cast
+    and transposed there, into its slot of the stacked tensor."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
 
-    def get(name):
+    def get(name, transpose=False):
         if name not in sd:
             raise KeyError(f"missing tensor {name!r} in checkpoint")
-        return sd[name]
+        src = sd[name].to(device)
+        return src.t() if transpose else src
 
     def one(name, transpose=False):
-        src = get(name)
-        src = src.t() if transpose else src
+        src = get(name, transpose)
         out = torch.empty(src.shape, dtype=dtype, device=device)
         return out.copy_(src)
 
     def stack(name, transpose):
-        first = get(_LAYER.format(0) + name)
-        shape = first.shape[::-1] if transpose else first.shape
-        out = torch.empty((cfg.n_layers, *shape), dtype=dtype, device=device)
-        for i in range(cfg.n_layers):
-            src = get(_LAYER.format(i) + name)
-            out[i].copy_(src.t() if transpose else src)
+        first = get(_LAYER.format(0) + name, transpose)
+        out = torch.empty((cfg.n_layers, *first.shape), dtype=dtype, device=device)
+        out[0].copy_(first)
+        for i in range(1, cfg.n_layers):
+            out[i].copy_(get(_LAYER.format(i) + name, transpose))
         return out
 
     blocks = {key: stack(name, tr) for key, name, tr in _BLOCK_TENSORS}
@@ -187,10 +186,15 @@ def params_from_hf_state_dict(
 
 
 def params_to_hf_state_dict(cfg: ModelConfig, params: Params) -> Dict[str, torch.Tensor]:
-    """The params -> HF-named fp32 host tensors, each contiguous."""
+    """The params -> HF-named fp32 host tensors, each contiguous.  Each
+    tensor is cast and transposed where it lies (on the card, its copy
+    engines and cores) and then copied to the host once."""
 
-    def host(x):
-        return x.detach().to("cpu", torch.float32)
+    def host(x, transpose=False):
+        x = x.detach().to(torch.float32)
+        if transpose:
+            x = x.transpose(-1, -2).contiguous()
+        return x.to("cpu")
 
     out: Dict[str, torch.Tensor] = {
         "model.embed_tokens.weight": host(params["embed"]),
@@ -200,15 +204,15 @@ def params_to_hf_state_dict(cfg: ModelConfig, params: Params) -> Dict[str, torch
         # Not an HF key: kept so a critic checkpoint round-trips its head.
         out["value_head.weight"] = host(params["value_head"])
     elif not cfg.tied_embeddings:
-        out["lm_head.weight"] = host(params["lm_head"]).t().contiguous()
+        out["lm_head.weight"] = host(params["lm_head"], transpose=True)
     blocks = params["blocks"]
     tensors = list(_BLOCK_TENSORS)
     if cfg.qkv_bias:
         tensors += [(key, name, False) for key, name in _BIAS_TENSORS]
     for key, name, transpose in tensors:
-        arr = host(blocks[key])
+        arr = host(blocks[key], transpose)
         for i in range(cfg.n_layers):
-            out[_LAYER.format(i) + name] = arr[i].t().contiguous() if transpose else arr[i]
+            out[_LAYER.format(i) + name] = arr[i]
     return out
 
 

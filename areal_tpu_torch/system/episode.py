@@ -26,10 +26,15 @@ GeneratorEngine) or ``ServerEpisodeClient`` (an ``LLMAPIClient`` against
 a GenerationServer).  Tool-call parsing and observation encoding are
 injected: they belong to the model's chat template.
 
-Not yet ported: ``RewardFabric`` (grading through the reward service or
-a verifier pool, ROADMAP queue 1 item 7) and the tracer's spans
-(item 10; ``trace_id`` arguments are carried to the server, no span is
-opened here).
+``RewardFabric`` grades asynchronously (a bounded thread pool over
+the verifier registry, or a remote ``verify_batch`` client such as the
+reward service's ``RemoteVerifier``), so an episode's end never blocks
+on a sandboxed test run.
+
+Not yet ported: the verifier fleet as a ``RewardFabric`` remote (ROADMAP
+queue 1 item 7.5) and the tracer's spans (item 10; ``trace_id``
+arguments are carried to the server and the grader, no span is opened
+here).
 """
 
 import ast
@@ -659,3 +664,54 @@ def make_episode_runner(
         return controller.run_episode(qid, prompt_ids, trace_id=trace_id)
 
     return run
+
+
+# ---------------------------------------------------------------------------
+# asynchronous reward grading
+# ---------------------------------------------------------------------------
+
+
+class RewardFabric:
+    """Asynchronous front of the verifier registry: ``submit`` hands a
+    grading job to a bounded thread pool and returns a Future.
+
+    ``remote`` is anything with ``verify_batch(items)`` (the reward
+    service's ``RemoteVerifier``: typed retries, then local fallback);
+    without one, jobs grade in-process through the registry the service
+    dispatches on.  ``on_result(task, passed)`` fires as each grade
+    completes."""
+
+    def __init__(self, remote: Any = None, max_workers: int = 8,
+                 on_result: Optional[Callable[[str, bool], None]] = None):
+        self.remote = remote
+        self.on_result = on_result
+        self._pool = ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="reward")
+
+    def _grade(self, item: Dict[str, Any]) -> bool:
+        if self.remote is not None:
+            ok = bool(self.remote.verify_batch([item])[0])
+        else:
+            from areal_tpu_torch.interfaces.reward_service import grade_item
+
+            ok = bool(grade_item(item))
+        if self.on_result is not None:
+            try:
+                self.on_result(str(item.get("task", "")), ok)
+            except Exception:  # noqa: BLE001 — the hook is advisory
+                logger.exception("reward on_result hook failed")
+        return ok
+
+    def submit(self, task: str, text: str, payload: Dict[str, Any], trace_id: str = ""):
+        """Grade asynchronously; the item travels in the opaque
+        ``{"task", "text", "payload"}`` schema."""
+        item = {"task": task, "text": text, "payload": dict(payload)}
+        if trace_id:
+            item["trace_id"] = trace_id
+        return self._pool.submit(self._grade, item)
+
+    def grade(self, task: str, text: str, payload: Dict[str, Any],
+              timeout_s: Optional[float] = None) -> bool:
+        return self.submit(task, text, payload).result(timeout=timeout_s)
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)

@@ -1,8 +1,11 @@
 """Generation service: a batching HTTP server around a GeneratorEngine
 (port of areal_tpu/system/gen_server.py; it serves ``POST /generate``,
-``POST /episode``, ``POST /pause``, ``POST /resume`` and ``GET /health``
-with the JAX server's JSON wire format, so both packages' `LLMAPIClient`
-talk to it unchanged).
+``POST /episode``, ``POST /update_weights``, ``POST /pause``,
+``POST /resume`` and ``GET /health`` with the JAX server's JSON wire
+format, so both packages' `LLMAPIClient` talk to it unchanged), and the
+trainer's side of decoupled generation: `make_gen_client` and
+`RemoteGeneratorEngine`, the weightless "remote_generator" backend whose
+`set_params` saves an HF checkpoint and posts ``/update_weights``.
 
 Concurrent /generate requests are MERGED by a collector thread into
 shared engine calls: client-side fan-out gets cross-request batching.
@@ -20,15 +23,21 @@ push parks resumes on its pages.  A continuation on a reclaimed slot
 gets HTTP 409 with ``{"error_type": "slot_gone"}``.  Faults
 (`base/faults.py`, ``AREAL_FAULTS``) fire at the ``episode`` point.
 
-Not yet ported: `/update_weights` from a checkpoint on disk,
-`/param_push`, `/metrics`, the ZMQ transport, the other fault points and
-the command-line entry point.
+``POST /update_weights`` swaps the weights for an HF checkpoint dir on
+this host; with `ckpt_root` (or ``AREAL_GEN_CKPT_ROOT``) set, a path
+that resolves outside it is refused.
+
+Not yet ported: `/param_push` and the fabric push (ROADMAP queue 1 item
+7.4), `/metrics` (7.5), the ZMQ transport (7.3), the other fault points
+and the command-line entry point.
 """
 
 import dataclasses
 import json
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -37,7 +46,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
+from areal_tpu_torch.api.model_api import (
+    APIGenerateInput,
+    APIGenerateOutput,
+    GenerationHyperparameters,
+    LLMAPIClient,
+    SlotGoneError,
+)
 from areal_tpu_torch.base import integrity, metrics
 from areal_tpu_torch.base.faults import FaultInjector
 
@@ -92,8 +107,12 @@ class GenerationServer:
         max_batch: int = 256,
         token: str = "",
         faults: Optional[FaultInjector] = None,
+        # /update_weights loads a path and swaps the serving weights:
+        # confine it to this directory when set.
+        ckpt_root: str = "",
     ):
         self.engine = engine
+        self.ckpt_root = ckpt_root or os.environ.get("AREAL_GEN_CKPT_ROOT", "")
         # Chaos: defaults to the AREAL_FAULTS spec (None when unset).
         self._faults = faults if faults is not None else FaultInjector.from_env()
         self.version = 0
@@ -151,6 +170,8 @@ class GenerationServer:
                         self._send(200, srv._handle_generate(req))
                     elif self.path == "/episode":
                         self._send(200, srv.handle_episode(req))
+                    elif self.path == "/update_weights":
+                        self._send(200, srv._handle_update(req))
                     elif self.path == "/pause":
                         srv.pause()
                         self._send(200, {"paused": True, "version": srv.version})
@@ -255,6 +276,28 @@ class GenerationServer:
                 self.resume()
         logger.info(f"weights updated in memory -> version {v}")
         return v
+
+    def _handle_update(self, req: Dict) -> Dict:
+        """Swap the weights for the HF checkpoint at ``req["path"]`` and
+        bump the version.  Waits for a running generate call unless a
+        /pause parked it."""
+        from areal_tpu_torch.models.hf import registry as hf
+
+        path = os.path.realpath(str(req["path"]))
+        if self.ckpt_root and not path.startswith(os.path.realpath(self.ckpt_root) + os.sep):
+            raise ValueError(f"update path {path!r} outside checkpoint root {self.ckpt_root!r}")
+        # Load the resolved path: the raw one could be a symlink swapped
+        # after the check.
+        _, params = hf.load_hf_checkpoint(
+            path, dtype=self.engine.compute_dtype, device=self.engine.device
+        )
+        with self._engine_lock:
+            self.engine.set_params(params)
+            with self._health_lock:
+                self.version += 1
+                v = self.version
+        logger.info(f"weights updated from {req['path']} -> version {v}")
+        return {"version": v}
 
     def _await_resume(self) -> None:
         """Block a parked _run_subgroup until resume(); the caller does
@@ -525,3 +568,121 @@ def _extract_output(
         "version": version,
         "version_start": version if version_start is None else version_start,
     }
+
+
+def make_gen_client(url: str, **kw) -> LLMAPIClient:
+    """The client of the generation server at `url` (http:// only)."""
+    if not url.startswith(("http://", "https://")):
+        raise NotImplementedError(
+            f"generation server URL {url!r}: only http:// is ported "
+            "(ROADMAP queue 1, item 7.3: the ZMQ transport)"
+        )
+    return LLMAPIClient(url, **kw)
+
+
+class RemoteGeneratorEngine:
+    """A generation engine backed by remote GenerationServers (backend
+    "remote_generator"): this worker holds no generation weights.
+    `generate` splits the prompts round-robin across the servers (each
+    client's share co-batches server-side); `set_params` saves an HF
+    checkpoint through the port's HF IO and posts ``/update_weights`` to
+    every server at once, paused around the push when `inmem_sync`
+    (the running generate call parks at a chunk boundary and resumes on
+    its KV pages under the new weights)."""
+
+    def __init__(
+        self,
+        cfg,
+        url,  # str | List[str]: one client a serving rank
+        model_type: str = "qwen2",
+        sync_dir: Optional[str] = None,
+        inmem_sync: bool = False,
+        push_mode: str = "disk",
+    ):
+        if push_mode == "fabric":
+            raise NotImplementedError(
+                "push_mode='fabric' is not yet ported (ROADMAP queue 1, item 7.4: the "
+                "param store's broadcast push)"
+            )
+        if push_mode != "disk":
+            raise ValueError(f"unknown push_mode {push_mode!r}")
+        self.cfg = cfg
+        self.inmem_sync = inmem_sync
+        self.push_mode = push_mode
+        urls = [url] if isinstance(url, str) else list(url)
+        if not urls:
+            raise ValueError("remote generator needs at least one URL")
+        self.clients = [make_gen_client(u) for u in urls]
+        self.model_type = model_type
+        # One dir an engine: two trials on one host never interleave
+        # checkpoint shards.
+        self.sync_dir = sync_dir or tempfile.mkdtemp(prefix="areal_torch_gen_sync_")
+        self.pushes = 0
+
+    def train_batch(self, *a, **k):
+        raise NotImplementedError("RemoteGeneratorEngine is generation-only")
+
+    def forward(self, *a, **k):
+        raise NotImplementedError("RemoteGeneratorEngine is generation-only")
+
+    def get_params(self):
+        raise NotImplementedError("remote generator weights live on the server")
+
+    def generate(
+        self,
+        sample: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        gconfig: GenerationHyperparameters,
+        prompt_key: str = "packed_prompts",
+        seed: int = 0,
+    ) -> SequenceSample:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from areal_tpu_torch.engines.generator import assemble_rollout
+
+        prompts = np.asarray(sample.data[prompt_key])
+        bounds = sample.cu_seqlens(prompt_key)
+        inps = [
+            APIGenerateInput(
+                qid=sample.ids[i],
+                prompt_ids=[int(t) for t in prompts[bounds[i]:bounds[i + 1]]],
+                gconfig=gconfig,
+                seed=seed,
+            )
+            for i in range(sample.bs)
+        ]
+        outs: Dict[str, APIGenerateOutput] = {}
+        shards = [inps[k::len(self.clients)] for k in range(len(self.clients))]
+        with ThreadPoolExecutor(len(self.clients)) as pool:
+            for batch in pool.map(lambda cs: cs[0].generate_batch(cs[1]),
+                                  zip(self.clients, shards)):
+                for o in batch:
+                    outs[o.qid] = o
+
+        def fetch(i, r):
+            o = outs[sample.ids[i]]
+            return o.output_ids[r], o.output_logprobs[r], o.no_eos[r]
+
+        return assemble_rollout(sample, prompt_key, gconfig.n, fetch)
+
+    def set_params(self, params) -> None:
+        """Save `params` as an HF checkpoint in `sync_dir` and post
+        ``/update_weights`` to every server at once."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from areal_tpu_torch.models.hf import registry as hf
+
+        os.makedirs(self.sync_dir, exist_ok=True)
+        hf.save_hf_checkpoint(self.sync_dir, self.cfg, params, model_type=self.model_type)
+        if self.inmem_sync:
+            for c in self.clients:
+                c.pause()
+        try:
+            with ThreadPoolExecutor(len(self.clients)) as pool:
+                list(pool.map(lambda c: c.update_weights_from_disk(self.sync_dir),
+                              self.clients))
+        finally:
+            if self.inmem_sync:
+                for c in self.clients:
+                    c.resume()
+        self.pushes += 1

@@ -36,14 +36,33 @@ bubble.  Unlike the JAX master it releases no aliased generator before
 a stream (the port's generator never aliases the trainer's weights) and
 opens no trace spans (ROADMAP queue 1, item 10).
 
+Asynchronous RL has two step modes (`execute_step` picks one):
+- `rollout_ahead=1` (`_execute_step_async`): the source GENERATE nodes
+  of step t+1 run while the rest of step t's graph trains.  The weight
+  sync to the generator (the train node's post-hook) first waits for
+  that prefetch (`_run_hook`), so every batch is generated under one
+  weight version, exactly one step stale.
+- `max_head_offpolicyness` (`_execute_step_async_rl`): K = cap + 1
+  rollout batches stay launched ahead of consumption, each stamped with
+  the trainer version at its generation start, and the trainer takes
+  them through a staleness-bounded `ReplayBuffer`.  The weight sync
+  does not wait: a batch mid-generation keeps its head stamp and
+  finishes under the new weights; decoupled PPO corrects the gap.  Cap 0
+  is the synchronous ordering, bit for bit.
+The pool runs each request in a thread of its own, so a prefetch's
+generate and the step's train step run at once (on the card, on the
+one default stream).  Each step reports `replay/*` stats, and recover
+checkpoints carry the replay watermarks and the pipeline's state.
+
 One worker hosts every model (a single device).  Not yet ported, and
 refused where a plan asks for them: placements over more than one
-worker (ROADMAP queue 1, items 7 and 8), worker-death recovery and the
-asynchronous step branches (`rollout_ahead`, `max_head_offpolicyness`;
-item 7).
+worker (ROADMAP queue 1, items 7 and 8) and worker-death recovery
+(item 7.3).
 """
 
 import asyncio
+import collections
+import contextvars
 import dataclasses
 import json
 import logging
@@ -57,8 +76,15 @@ from areal_tpu_torch.base import integrity, metrics, recover, timeutil
 from areal_tpu_torch.base.monitor import StatsLogger
 from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.system.buffer import SequenceBuffer
+from areal_tpu_torch.system.replay import ReplayBuffer, Trajectory
 
 logger = logging.getLogger("areal_tpu_torch.master")
+
+# True inside a rollout prefetch (and the tasks it gathers): a hook that
+# runs there must not wait for the prefetch itself.
+_IN_PREFETCH: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "areal_torch_in_prefetch", default=False
+)
 
 OPTIMIZER_FILE = "optimizer_state.safetensors"
 
@@ -126,6 +152,16 @@ class MasterWorker:
         pipeline_overlap: bool = False,
         overlap_window: int = 2,
         pipeline_chunk_seqs: int = 1,
+        # Asynchronous rollout: 1 = generate step t+1's rollouts while
+        # step t trains (one-step-stale behaviour policy, one weight
+        # version a batch).
+        rollout_ahead: int = 0,
+        # Asynchronous RL: cap + 1 rollout batches outstanding, consumed
+        # through a staleness-bounded ReplayBuffer (None: off; 0: the
+        # synchronous ordering).  Exclusive with rollout_ahead.
+        max_head_offpolicyness: Optional[int] = None,
+        # The replay buffer's capacity in batches (at least cap + 1).
+        replay_capacity: int = 4,
     ):
         if (pool.n_workers != 1 or set(model_placement.values()) != {0}
                 or list(data_worker_ids) != [0]):
@@ -173,6 +209,51 @@ class MasterWorker:
             raise ValueError(f"overlap_window must be >= 1, got {overlap_window}")
         if self.pipeline_overlap and self.pipeline_chunk_seqs < 1:
             raise ValueError(f"pipeline_chunk_seqs must be >= 1, got {pipeline_chunk_seqs}")
+        if rollout_ahead not in (0, 1):
+            raise ValueError(
+                "rollout_ahead supports 0 (synchronous) or 1 (one-step overlap); deeper "
+                "pipelines need the staleness-bounded async-RL mode (max_head_offpolicyness)"
+            )
+        self.rollout_ahead = rollout_ahead
+        self._async_rl = max_head_offpolicyness is not None
+        self.max_head_offpolicyness = int(max_head_offpolicyness) if self._async_rl else 0
+        if self._async_rl:
+            if rollout_ahead:
+                raise ValueError(
+                    "rollout_ahead and max_head_offpolicyness are mutually exclusive "
+                    "(async RL subsumes the one-step overlap)"
+                )
+            if self.max_head_offpolicyness < 0:
+                raise ValueError(
+                    f"max_head_offpolicyness must be >= 0, got {self.max_head_offpolicyness}"
+                )
+        if self.pipeline_overlap and (rollout_ahead or self._async_rl):
+            raise ValueError(
+                "pipeline_overlap is mutually exclusive with rollout_ahead / "
+                "max_head_offpolicyness: those overlap generation ACROSS steps, pipeline "
+                "overlap streams WITHIN one on-policy step"
+            )
+        self._async_K = self.max_head_offpolicyness + 1
+        self._replay_dropped: List[Trajectory] = []
+        self.replay: Optional[ReplayBuffer] = (
+            ReplayBuffer(
+                capacity=max(int(replay_capacity), self._async_K),
+                max_head_offpolicyness=self.max_head_offpolicyness,
+                on_drop=self._replay_dropped.append,
+            ) if self._async_rl else None
+        )
+        # Completed train steps: the version rollout batches are stamped
+        # against.
+        self._trainer_version = 0
+        self._ahead_queue: "collections.deque[asyncio.Task]" = collections.deque()
+        self._ahead_task: Optional[asyncio.Task] = None
+        self._batches_launched = 0
+        self._batch_seq = 0
+        self._total_steps: Optional[int] = None
+        # Serialize dataset fetches and the generator across outstanding
+        # prefetches (created lazily: asyncio primitives want a loop).
+        self._fetch_lock: Optional[asyncio.Lock] = None
+        self._gen_lock: Optional[asyncio.Lock] = None
         # The GENERATE nodes fed by the dataset alone: the streamed step
         # needs one to chunk.
         self._source_nodes = [
@@ -212,6 +293,7 @@ class MasterWorker:
         total_steps = self.ctrl.total_train_epochs * self._steps_per_epoch
         if self.ctrl.benchmark_steps is not None:
             total_steps = min(total_steps, self.ctrl.benchmark_steps)
+        self._total_steps = total_steps
         logger.info(f"master: {total_steps} steps ({self.ctrl.total_train_epochs} epochs x "
                     f"{self._steps_per_epoch})")
         if self._restore_pending:
@@ -310,11 +392,20 @@ class MasterWorker:
                     f"{self.step_info.global_step}")
 
     async def _abort_step(self) -> None:
-        """Forget the step's data before a rollback, so the replayed step
-        starts from a clean buffer.  (The JAX master also cancels its
-        prefetches and drops open train streams: the port has no
-        prefetch, and its streams close within the step that opens
-        them.)"""
+        """Cancel the rollout prefetches and forget the step's data before
+        a rollback, so the replayed step starts from a clean buffer.  (A
+        cancelled prefetch's thread runs to its end.  The JAX master also
+        drops open train streams: the port's close within the step that
+        opens them.)"""
+        tasks = list(self._ahead_queue)
+        self._ahead_queue.clear()
+        if self._ahead_task is not None:
+            tasks.append(self._ahead_task)
+            self._ahead_task = None
+        for t in tasks:
+            t.cancel()
+        if tasks:
+            await asyncio.gather(*tasks, return_exceptions=True)
         self.buffer.clear()
         self._graded_ids = []
 
@@ -323,12 +414,20 @@ class MasterWorker:
     async def execute_step(self) -> Dict[str, float]:
         results: Dict[str, Dict[str, float]] = {}
         self._graded_ids = []
-        if self.pipeline_overlap and self._source_nodes:
+        if self._async_rl and self._source_nodes:
+            await self._execute_step_async_rl(results)
+        elif self.rollout_ahead > 0 and self._source_nodes:
+            await self._execute_step_async(results)
+        elif self.pipeline_overlap and self._source_nodes:
             await self._execute_step_streamed(results)
         else:
             await asyncio.gather(
                 self._load_data(), *[self._run_mfc(node, results) for node in self.dfg.nodes]
             )
+        if self._ahead_task is not None:
+            # The cache clear keeps the buffer's ids: the prefetch must
+            # have amended its outputs first.
+            await self._ahead_task
         if self.difficulty_filter:
             await self._apply_difficulty_filter()
         await self._clear_worker_caches()
@@ -341,15 +440,143 @@ class MasterWorker:
         return merged
 
     async def _load_data(self) -> List[str]:
-        resps = await asyncio.gather(
-            *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
-        )
-        ids: List[str] = []
-        for r in resps:
-            await self.buffer.put_batch(r["meta"])
-            ids.extend(r["meta"].ids)
-        self._last_data_ids = ids
+        if self._fetch_lock is None:
+            self._fetch_lock = asyncio.Lock()
+        # The lock keeps outstanding prefetches from racing two fetches.
+        async with self._fetch_lock:
+            resps = await asyncio.gather(
+                *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
+            )
+            ids: List[str] = []
+            for r in resps:
+                await self.buffer.put_batch(r["meta"], step=self.step_info.global_step)
+                ids.extend(r["meta"].ids)
+            self._last_data_ids = ids
         return ids
+
+    # ---------------- asynchronous rollout ----------------
+
+    async def _execute_step_async(self, results: Dict) -> None:
+        """One step with one-step-ahead rollouts: take this step's
+        rollouts from the prefetch started last step (the first step
+        generates inline), register the next batch and launch its
+        prefetch, and run the rest of this step's graph meanwhile.  The
+        weight sync waits for the prefetch (`_run_hook`), so each batch
+        sees one weight version.  A crash loses the prefetch's batch
+        (its data cursor already advanced)."""
+        if self._ahead_task is not None:
+            results.update(await self._ahead_task)
+            self._ahead_task = None
+        else:
+            await self._load_data()
+            results.update(await self._prefetch_rollouts())
+        nxt = self.step_info.global_step + 1
+        if self._total_steps is None or nxt < self._total_steps:
+            await self._load_data()
+            self._ahead_task = asyncio.create_task(self._prefetch_rollouts())
+        rest = [n for n in self.dfg.nodes if n not in self._source_nodes]
+        await asyncio.gather(*[self._run_mfc(n, results) for n in rest])
+
+    async def _prefetch_rollouts(self) -> Dict[str, Dict[str, float]]:
+        # The mark is inherited by the gathered tasks; reset it, since the
+        # first step runs this inline in the run loop's own context.
+        token = _IN_PREFETCH.set(True)
+        try:
+            results: Dict[str, Dict[str, float]] = {}
+            await asyncio.gather(*[self._run_mfc(n, results) for n in self._source_nodes])
+            return results
+        finally:
+            _IN_PREFETCH.reset(token)
+
+    def _topup_prefetch(self) -> None:
+        """Keep at most K = cap + 1 rollout batches launched ahead of
+        consumption (the trainer version counts consumed batches, one a
+        step): the n-th batch launches no earlier than step n-K, stamps
+        a head version >= n-K and is consumed at step n-1, so its
+        staleness is at most the cap."""
+        limit = self._trainer_version + self._async_K
+        if self._total_steps is not None:
+            limit = min(limit, self._total_steps)
+        while self._batches_launched < limit:
+            self._batches_launched += 1
+            self._ahead_queue.append(asyncio.create_task(self._prefetch_rollout_batch()))
+
+    async def _prefetch_rollout_batch(self):
+        """One stamped rollout batch: fetch a dataset batch, then run the
+        source GENERATE nodes once the generator is free.  The stamp is
+        the trainer version at generation start; a sync landing mid-
+        generation does not change it."""
+        if self._gen_lock is None:
+            self._gen_lock = asyncio.Lock()
+        ids = await self._load_data()
+        token = _IN_PREFETCH.set(True)
+        try:
+            results: Dict[str, Dict[str, float]] = {}
+            async with self._gen_lock:
+                v0 = self._trainer_version
+                await asyncio.gather(*[self._run_mfc(n, results) for n in self._source_nodes])
+            return results, v0, ids
+        finally:
+            _IN_PREFETCH.reset(token)
+
+    async def _execute_step_async_rl(self, results: Dict) -> None:
+        """One step of the replay-driven pipeline: admit finished batches
+        until the buffer holds one, train on the oldest (FIFO), advance
+        the trainer version (purging what aged past the cap) and report
+        `replay/*`."""
+        self._topup_prefetch()
+        while len(self.replay) == 0:
+            if not self._ahead_queue:
+                raise RuntimeError(
+                    "async_rl: replay buffer empty with no rollout batches in flight "
+                    "(admission rejected everything?)"
+                )
+            gen_stats, v0, ids = await self._ahead_queue.popleft()
+            self._topup_prefetch()
+            self._batch_seq += 1
+            traj = Trajectory(
+                qid=f"rollout_batch{self._batch_seq}", prompt_ids=[], output_ids=[],
+                output_logprobs=[], no_eos=[], version_start=v0,
+                version_end=self._trainer_version, data={"stats": gen_stats, "ids": ids},
+            )
+            if not self.replay.put(traj):
+                logger.warning(
+                    f"async_rl: rejected {traj.qid} (head version {v0} vs trainer "
+                    f"{self._trainer_version}, cap {self.max_head_offpolicyness})"
+                )
+                await self.buffer.drop_ids(ids)
+                # Free its launch slot: a replacement stamped with the
+                # current version keeps the step budget whole.
+                self._batches_launched -= 1
+                self._topup_prefetch()
+        traj = self.replay.get_batch(1, timeout=0)[0]
+        await self._flush_replay_drops()
+        staleness = traj.staleness(self._trainer_version)
+        results.update(traj.data["stats"])
+        rest = [n for n in self.dfg.nodes if n not in self._source_nodes]
+        await asyncio.gather(*[self._run_mfc(n, results) for n in rest])
+        self._trainer_version += 1
+        self.replay.set_version(self._trainer_version)
+        await self._flush_replay_drops()
+        wm = self.replay.watermarks()
+        results["replay"] = {
+            "staleness": float(staleness),
+            "size": float(wm["size"]),
+            "in_flight_batches": float(len(self._ahead_queue)),
+            "accepted": float(wm["accepted"]),
+            "rejected": float(wm["rejected"]),
+            "dropped_stale": float(wm["dropped_stale"]),
+            "evicted": float(wm["evicted"]),
+        }
+
+    async def _flush_replay_drops(self) -> None:
+        """Drop from the ledger the batches the replay buffer discarded
+        (capacity eviction or aged past the cap)."""
+        if not self._replay_dropped:
+            return
+        dropped, self._replay_dropped = self._replay_dropped, []
+        for traj in dropped:
+            await self.buffer.drop_ids(traj.data["ids"])
 
     # ---------------- the pipeline-overlapped step ----------------
 
@@ -508,6 +735,11 @@ class MasterWorker:
                 self.placement[target], {"type": "offload", "model_name": target}
             )
         elif isinstance(hook, ParamReallocHook):
+            if (self._ahead_task is not None and not _IN_PREFETCH.get()
+                    and str(hook.target) in {str(n.model_name) for n in self._source_nodes}):
+                # One-step-ahead rollout: never swap a generator's weights
+                # under its prefetch (one weight version a batch).
+                await self._ahead_task
             # Both models on the one worker: a local copy (or EMA).
             await self.pool.request(self.placement[str(node.model_name)], {
                 "type": "param_sync",
@@ -572,8 +804,7 @@ class MasterWorker:
         ``.prev``) and only then is recover_info.pkl rewritten.  A crash
         at any point leaves a manifest-valid checkpoint and recover info
         of the same or an older step.  (The JAX master's fault-injection
-        kill points and its asynchronous-RL fields come with ROADMAP
-        queue 1, item 7.)"""
+        kill points come with ROADMAP queue 1, item 7.6.)"""
         # Every model's version, the generator's too: its sampling seed
         # is its version, so a rollback must rewind it.
         model_versions: Dict[str, int] = {}
@@ -609,6 +840,11 @@ class MasterWorker:
             interface_states={w: s["states"] for w, s in enumerate(iface_states) if s["states"]},
             used_data_ids=list(self._filtered_ids),
             model_versions=model_versions,
+            replay_watermarks=self.replay.watermarks() if self.replay is not None else {},
+            rollout_state=(
+                {"trainer_version": self._trainer_version, "batch_seq": self._batch_seq}
+                if self._async_rl else {}
+            ),
             quarantine_ledger=list(self._quarantine_ledger),
             consecutive_quarantines=self._consecutive_quarantines,
         )
@@ -703,3 +939,15 @@ class MasterWorker:
             self.pool.request(w, {"type": "load_interface_state", "states": states})
             for w, states in info.interface_states.items()
         ])
+        if self._async_rl:
+            # Resume admission where the crashed trial stopped; the
+            # pipeline cursor rewinds to the consumed batches (the
+            # in-flight prefetches died with the process).
+            if info.replay_watermarks:
+                self.replay.load_watermarks(info.replay_watermarks)
+            rs = info.rollout_state or {}
+            self._trainer_version = int(rs.get("trainer_version", self.step_info.global_step))
+            self._batch_seq = int(rs.get("batch_seq", 0))
+            if self.replay.version < self._trainer_version:
+                self.replay.set_version(self._trainer_version)
+            self._batches_launched = self.step_info.global_step

@@ -17,9 +17,12 @@ recovery: `model_versions`/`set_model_versions`, `save_optimizer`,
 overlapped step trains through `mfc_stream_begin` (the interface's
 stream state), `mfc_stream_chunk` (one retired chunk's gradients) and
 `mfc_stream_end` (the one optimizer step; its perf counts the chunks'
-busy seconds, not the wall between begin and end).  The cross-worker
-planes (data and param transfers) are not yet ported (ROADMAP queue 1,
-item 7).
+busy seconds, not the wall between begin and end).  A "remote_generator"
+backend (`system/gen_server.RemoteGeneratorEngine`, over a "config"
+model abstraction: a config and no weights) generates on remote
+generation servers, and `param_sync` into it pushes the weights there.
+The cross-worker planes (data and param transfers) are not yet ported
+(ROADMAP queue 1, items 7.3 and 8).
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
@@ -77,8 +80,8 @@ class ModelShardSpec:
     """Everything needed to build one named model on this worker."""
 
     name: ModelName
-    model: ModelAbstraction  # random | hf | null
-    backend: ModelBackendAbstraction  # train | inference | generator | null
+    model: ModelAbstraction  # random | hf | config | null
+    backend: ModelBackendAbstraction  # train | inference | generator | remote_generator | null
     interface: ModelInterfaceAbstraction
     optimizer: Optional[OptimizerConfig] = None
 
@@ -100,6 +103,8 @@ def _build_params_and_config(spec: ModelAbstraction, seed: int, device: torch.de
 
     if spec.type_ == "null":
         return None, None  # engine-less models (the reward)
+    if spec.type_ == "config":
+        return spec.args["config"], None  # no local weights (remote generators)
     if spec.type_ == "random":
         cfg = spec.args["config"]
         return cfg, tfm.init_params(cfg, seed, device=device)
@@ -128,11 +133,13 @@ def _build_engine(shard: ModelShardSpec, cfg, params, device, config: WorkerConf
             cfg, params, device, eos_token_id=tokenizer.eos_token_id,
             pad_token_id=getattr(tokenizer, "pad_token_id", None), **args,
         )
+    if btype == "remote_generator":
+        from areal_tpu_torch.system.gen_server import RemoteGeneratorEngine
+
+        return RemoteGeneratorEngine(cfg, **args)
     if btype == "null":
         return None
-    raise NotImplementedError(
-        f"backend {btype!r} is not ported (remote generators: ROADMAP queue 1, item 7)"
-    )
+    raise ValueError(f"unknown backend {btype!r}")
 
 
 def ema_mix(a: torch.Tensor, b: torch.Tensor, eta: float) -> torch.Tensor:

@@ -191,14 +191,14 @@ recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
                each step's launches = 28 x the engines' calls.  The save's
                and restore's seconds, each trial's steps and the peak are
                printed.
-push         — the in-memory weight push mid-generation at full qwen2-1.5B
-               (28 layers, bf16): GenerationServer serves 16 GRPO requests
+push         — the in-memory weight push mid-generation at qwen2-1.5B's
+               full width (14 layers, bf16): GenerationServer serves 8 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
                update_weights_inmem pushes new random weights with their
                checksum; the call parks at a chunk boundary, the weights
                are swapped, every live row's last chunk is replayed
                through K3 and the call finishes on its pages.  Spanned
-               requests (version 0 -> 1), K3 launches = 28 x replays, the
+               requests (version 0 -> 1), K3 launches = 14 x replays, the
                change against an uninterrupted old-weights run, and a
                refused bad-checksum push are checked.
 resume_parity — park at the second serving chunk and resume under
@@ -208,7 +208,7 @@ resume_parity — park at the second serving chunk and resume under
                replay (K2), and in fp32 greedy tokens identical to an
                uninterrupted run.
 genmodes     — the generator's other inflight modes at full qwen2-1.5B in
-               bf16: the serve burst's first 8 prompts (x n=4, 128 new
+               bf16: the serve burst's first 8 prompts (x n=4, 64 new
                tokens, greedy) through GenerationServer over engines of
                16 slots,
                (a) the dense window (kv_paged=False) in bf16 and int8,
@@ -224,7 +224,26 @@ genmodes     — the generator's other inflight modes at full qwen2-1.5B in
                the bf16 run) are checked; tokens/s,
                the decode step's time, spec acceptance, cache copy bytes
                and peak memory are printed.
-episodes     — agent episodes at full qwen2-1.5B in bf16 through
+async        — asynchronous RL at qwen2-1.5B (8 prompts x 4, 128 new
+               tokens) from the quickstart's checkpoint: (a) `quickstart
+               ppo-math --rollout-ahead 1`, three steps: each batch under
+               one generator version, the batches of steps 2-3 generated
+               during steps 1-2, exact launches; step walls against the
+               quickstart phase's barrier, the card's idle share (NVML),
+               the peak.  (b) a GenerationServer (serving plane, explicit
+               pool) and a reward service on 127.0.0.1, a build_ppo_math
+               trial with gen_server_url, inmem_weight_sync,
+               max_head_offpolicyness 1, replay_capacity 4 and remote
+               grading, 4 steps: staleness <= 1 (1 at the end), no
+               rejection, 4 accepted, decoupled PPO's stats, the server's
+               version 1 + the pushes, K2 = 28 x its inner steps, K3 = 28
+               x its replays, rewards over HTTP equal to in-process
+               grading, code items run in the sandbox graded alike.  (c)
+               a RolloutController pumping 32 prompts through that server
+               into a ReplayBuffer across 3 disk pushes: a request parked
+               and resumed, every consumed group within the bound, greedy
+               tokens under a pushed version equal an in-process engine's.
+episodes     — agent episodes at qwen2-1.5B's full width, 14 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
                first 8 prompts; 3 turns, 32 new tokens a turn, a
@@ -232,13 +251,13 @@ episodes     — agent episodes at full qwen2-1.5B in bf16 through
                their own client threads, (b) python_exec once, (c) a
                SlotGone re-admission mapping the published prefix, (d)
                LRU eviction on a 7-page pool, (e) a weight push mid-turn
-               (park, swap, episode_resume's K3 replay); (f) (a) and (e)
-               over an int8 pool.  The stop set is probed so that turns 1
+               (park, swap, episode_resume's K3 replay); (f) (a) with 4
+               episodes and (e) over an int8 pool.  The stop set is probed so that turns 1
                and 2 of each episode end at their first token, and those
                turns must equal the probes' tokens and logprobs while
                every position past a rewound cursor is poisoned.
                Checked: turn accounting (observation prefills, transcript
-               lengths, versions), K2 = 28 x inner steps, K3 = 28 x
+               lengths, versions), K2 = 14 x inner steps, K3 = 14 x
                replays, K1f and K4 0, one chunk build, no host sync in a
                chunk; turn latency, tokens/s, the step time, observation
                prefill against transcript tokens and peak memory printed.
@@ -257,6 +276,11 @@ train_parity — one train_batch at qwen2-1.5B width, 2 layers, fp32, of
                (K1) against the CPU (plain path): loss, grad_norm and the
                weights after the step.
 
+The CPU halves of sft's, parity's and train_parity's comparisons run in a
+child process (`--cpu-refs`, no card, CPU_REF_THREADS threads) started
+before the push phase, beside the card's phases; each phase reads its half
+from the child's file and checks that it ran on the same inputs.
+
 `python3 chip_smoke.py --phases build,flash` is the quick call after
 editing a flash kernel, `--phases build,kernel` after editing K2, K3 or
 K4 (about 20 s of command on an H100), `--phases build,ppo` for the PPO
@@ -267,7 +291,7 @@ sentinels, `--phases build,overlap` for the pipeline-overlapped step,
 fused MFC, the BPE reader and the null trials,
 `--phases build,recover` for kill-and-resume, `--phases build,kernel,parity,genmodes` for the
 generator's other inflight modes, `--phases build,episodes,parity` for
-agent episodes.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+agent episodes, `--phases build,quickstart,async` for asynchronous RL.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -288,7 +312,7 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "episodes", "parity", "train_parity")
+          "async", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -2158,9 +2182,21 @@ def _burst(url, prompts, n, max_new, seed, timeout=900.0, **options):
     return threads, replies, errors
 
 
+# Requests of the push burst: the serve burst's first 8 (16 before the
+# async phase came: the burst's time is its waves of 16 slots, so 8
+# halve it; the checks are the same).
+PUSH_REQUESTS = 8
+# Layers of the push and episodes phases' model: qwen2-1.5B at full width,
+# cut in depth (28 before the async phase came; their decode steps are
+# host-bound, a launch sequence a layer, so half the layers about halves
+# them; the checks are the same).
+CUT_LAYERS = 14
+
+
 def phase_push(report, seed):
-    """GenerationServer at full qwen2-1.5B (28 layers, bf16) serving 16
-    GRPO requests (n=4, prompts 64-512, 128 new tokens, one seed) while
+    """GenerationServer at qwen2-1.5B's full width (CUT_LAYERS layers, bf16) serving
+    PUSH_REQUESTS GRPO requests (n=4, prompts 64-512, 128 new tokens, one
+    seed) while
     `update_weights_inmem` pushes init_params(seed + 1) with its checksum
     once live rows have run past their first chunk.  The running call
     parks, the weights are swapped, each live row's last chunk is replayed
@@ -2168,9 +2204,11 @@ def phase_push(report, seed):
     burst under the old weights, uninterrupted, is the reference.  Then a
     push with a wrong checksum is refused and version 1 keeps serving.
     Then the same over an int8 page pool (`kv_cache_dtype="int8"`: K2
-    and K3 over int8 codes and bf16 scales) with the first 8 requests."""
-    report["push"] = _push_run("push", seed, 16)
-    report["push_int8"] = _push_run("push_int8", seed, 8, kv_cache_dtype="int8")
+    and K3 over int8 codes and bf16 scales) with the first half of
+    them."""
+    report["push"] = _push_run("push", seed, PUSH_REQUESTS)
+    report["push_int8"] = _push_run("push_int8", seed, PUSH_REQUESTS // 2,
+                                    kv_cache_dtype="int8")
 
 
 def _push_run(tag, seed, n_req, **engine_kw):
@@ -2187,7 +2225,7 @@ def _push_run(tag, seed, n_req, **engine_kw):
     from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.system.gen_server import GenerationServer
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     n, max_new = 4, 128
     engine = GeneratorEngine(cfg, init_params(cfg, seed, device="cuda"), eos_token_id=151643,
                              **engine_kw)
@@ -2514,25 +2552,14 @@ PARITY_MODES = (
 )
 
 
-def phase_parity(seed):
-    """Greedy tokens at qwen2-1.5B width and 2 layers in fp32 (TF32 off),
-    each mode of PARITY_MODES on the card against the same mode on the
-    CPU (the plain path): tokens identical, logprobs within 1e-3, and the
-    card's launches = 2 layers x the engine's own steps (the static path:
-    K1f per chunk, K4 per decode step; every other mode: K1f per prefill
-    dispatch and its decode kernel per step).  Every full-precision
-    mode's tokens equal the static path's, on the card and on the CPU."""
+def _parity_inputs(seed):
+    """phase_parity's model (qwen2-1.5B width, 2 layers, fp32), weights
+    and prompts, the same in the phase and in the CPU references' child."""
     import numpy as np
-    import torch
 
-    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-    from areal_tpu_torch.api.model_api import GenerationHyperparameters
-    from areal_tpu_torch.engines.generator import GeneratorEngine
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
     params = init_params(cfg, seed, device="cpu")
     lens = (37, 150, 300, 129)
@@ -2540,48 +2567,84 @@ def phase_parity(seed):
     data = np.concatenate(
         [rng.integers(0, cfg.vocab_size, size=l) for l in lens]
     ).astype(np.int32)
-
-    def sample():
-        return SequenceSample(
-            keys={"packed_prompts"}, ids=[f"p{i}" for i in range(len(lens))],
-            seqlens={"packed_prompts": [[l] for l in lens]},
-            data={"packed_prompts": data.copy()},
-        )
-
     kw = dict(eos_token_id=151643, kv_page_size=128, prefill_chunk_tokens=8)
+    return cfg, params, lens, data, kw
+
+
+def _parity_mode_run(cfg, params, lens, data, kw, mode, dev):
+    """One PARITY_MODES mode on `dev`: its tokens and logprobs (and, on
+    the card, its launches held to the engine's own steps)."""
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+
+    path, ekw, inflight, gkw, kernel = mode
+    g = GenerationHyperparameters(n=2, max_new_tokens=PARITY_NEW_TOKENS, greedy=True, **gkw)
+    sample = SequenceSample(
+        keys={"packed_prompts"}, ids=[f"p{i}" for i in range(len(lens))],
+        seqlens={"packed_prompts": [[l] for l in lens]},
+        data={"packed_prompts": data.copy()},
+    )
+    eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32, **dict(kw, **ekw))
+    _reset_counts()
+    t0 = time.monotonic()
+    out = eng.generate(sample, MicroBatchSpec(), g, inflight=inflight)
+    secs = time.monotonic() - t0
+    if dev == "cuda":
+        counts, L = _trial_counts(), cfg.n_layers
+        if inflight:
+            want = dict(fwd=L * eng.prefill_dispatches, dq=0, dkv=0, k2=0, k3=0, k4=0)
+            want[kernel] = L * eng.steps_total
+        else:
+            want = dict(fwd=L * eng.static_chunks, dq=0, dkv=0, k2=0, k3=0,
+                        k4=L * eng.static_decode_steps)
+        check(counts == want and counts[kernel] > 0, f"{path}: launches {counts} != {want}")
+    return dict(seqlens=out.seqlens["packed_input_ids"], ids=out.data["packed_input_ids"],
+                logprobs=out.data["packed_logprobs"], secs=secs)
+
+
+def _parity_cpu(seed):
+    cfg, params, lens, data, kw = _parity_inputs(seed)
+    return dict(
+        inputs=(_inputs_print(params), data.tolist()),
+        modes={m[0]: _parity_mode_run(cfg, params, lens, data, kw, m, "cpu")
+               for m in PARITY_MODES},
+        episode=_episode_parity_run(cfg, params, kw, seed, "cpu"),
+    )
+
+
+def phase_parity(seed):
+    """Greedy tokens at qwen2-1.5B width and 2 layers in fp32 (TF32 off),
+    each mode of PARITY_MODES on the card against the same mode on the
+    CPU (the plain path, computed by the CPU references' child): tokens
+    identical, logprobs within 1e-3, and the card's launches = 2 layers x
+    the engine's own steps (the static path: K1f per chunk, K4 per decode
+    step; every other mode: K1f per prefill dispatch and its decode kernel
+    per step).  Every full-precision mode's tokens equal the static
+    path's, on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, lens, data, kw = _parity_inputs(seed)
+    cuda = {m[0]: _parity_mode_run(cfg, params, lens, data, kw, m, "cuda")
+            for m in PARITY_MODES}
+    ref = _cpu_ref("parity")
+    check(ref["inputs"] == (_inputs_print(params), data.tolist()),
+          "[parity] the CPU reference ran on other inputs")
     tokens = {}
-    for path, ekw, inflight, gkw, kernel in PARITY_MODES:
-        g = GenerationHyperparameters(n=2, max_new_tokens=PARITY_NEW_TOKENS, greedy=True, **gkw)
-        outs, secs = {}, {}
-        for dev in ("cuda", "cpu"):
-            eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
-                                  **dict(kw, **ekw))
-            _reset_counts()
-            t0 = time.monotonic()
-            outs[dev] = eng.generate(sample(), MicroBatchSpec(), g, inflight=inflight)
-            secs[dev] = time.monotonic() - t0
-            if dev == "cuda":
-                counts, L = _trial_counts(), cfg.n_layers
-                if inflight:
-                    want = dict(fwd=L * eng.prefill_dispatches, dq=0, dkv=0, k2=0, k3=0, k4=0)
-                    want[kernel] = L * eng.steps_total
-                else:
-                    want = dict(fwd=L * eng.static_chunks, dq=0, dkv=0, k2=0, k3=0,
-                                k4=L * eng.static_decode_steps)
-                check(counts == want and counts[kernel] > 0,
-                      f"{path}: launches {counts} != {want}")
-            del eng
-        a, b = outs["cuda"], outs["cpu"]
-        same = (
-            a.seqlens["packed_input_ids"] == b.seqlens["packed_input_ids"]
-            and np.array_equal(a.data["packed_input_ids"], b.data["packed_input_ids"])
-        )
-        lp_err = float(np.abs(a.data["packed_logprobs"] - b.data["packed_logprobs"]).max())
+    for path, *_ in PARITY_MODES:
+        a, b = cuda[path], ref["modes"][path]
+        same = a["seqlens"] == b["seqlens"] and np.array_equal(a["ids"], b["ids"])
+        lp_err = float(np.abs(a["logprobs"] - b["logprobs"]).max())
         log(f"[parity] {path}, 2 layers fp32 greedy: tokens identical={same}, max logprob "
-            f"diff={lp_err:.2e} (cuda {secs['cuda']:.1f} s, cpu {secs['cpu']:.1f} s)")
+            f"diff={lp_err:.2e} (cuda {a['secs']:.1f} s, cpu {b['secs']:.1f} s)")
         check(same, f"{path}: greedy tokens differ between the card and the CPU")
         check(lp_err <= 1e-3, f"{path}: logprobs differ by {lp_err} > 1e-3")
-        tokens[path] = {dev: o.data["packed_input_ids"] for dev, o in outs.items()}
+        tokens[path] = {"cuda": a["ids"], "cpu": b["ids"]}
     static = tokens["static path"]
     for path, toks in tokens.items():
         if "int8" in path:
@@ -2589,17 +2652,15 @@ def phase_parity(seed):
         same = all(np.array_equal(toks[dev], static[dev]) for dev in ("cuda", "cpu"))
         log(f"[parity] {path} against the static path: tokens identical={same}")
         check(same, f"{path}: greedy tokens differ from the static path's")
-    _episode_parity(cfg, params, kw, seed)
+    _episode_parity(_episode_parity_run(cfg, params, kw, seed, "cuda"), ref["episode"])
 
 
-def _episode_parity(cfg, params, kw, seed):
-    """The episode mode of phase_parity: one episode's script on the card
-    and on the CPU (2 slots): a turn, an observation's turn, release, the
-    typed SlotGone, a re-admission of the full transcript (prefix hit),
-    then an observation's turn parked after its first chunk, new weights,
-    episode_resume (K3).  Tokens identical, logprobs within 1e-3, every
-    other field of every turn equal; the card's launches K2 = 2 layers x
-    inner steps, K3 = 2 x replays, the others 0."""
+def _episode_parity_run(cfg, params, kw, seed, dev):
+    """One episode's script on `dev` (2 slots): a turn, an observation's
+    turn, release, the typed SlotGone, a re-admission of the full
+    transcript (prefix hit), then an observation's turn parked after its
+    first chunk, new weights, episode_resume (K3).  On the card, K2 = 2
+    layers x inner steps, K3 = 2 x replays, the others 0."""
     import numpy as np
     import torch
 
@@ -2611,56 +2672,60 @@ def _episode_parity(cfg, params, kw, seed):
     prompt = rng.integers(0, cfg.vocab_size, 150).tolist()
     new_params = init_params(cfg, seed + 1, device="cpu")
     g = GenerationHyperparameters(n=1, max_new_tokens=16, greedy=True)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
-                              max_decode_batch=2, **kw)
-        real = eng._episode_chunk_fn
-        armed = {"left": None}
+    eng = GeneratorEngine(cfg, params, dev, compute_dtype=torch.float32,
+                          max_decode_batch=2, **kw)
+    real = eng._episode_chunk_fn
+    armed = {"left": None}
 
-        def chunk_fn(st, gc_, eng=eng, real=real, armed=armed):
-            fn = real(st, gc_)
+    def chunk_fn(st, gc_):
+        fn = real(st, gc_)
 
-            def run(*a, **k):
-                out = fn(*a, **k)
-                if armed["left"] is not None:
-                    armed["left"] -= 1
-                    if armed["left"] == 0:
-                        eng.interrupt()  # a push arriving after this chunk
-                return out
+        def run(*a, **k):
+            out = fn(*a, **k)
+            if armed["left"] is not None:
+                armed["left"] -= 1
+                if armed["left"] == 0:
+                    eng.interrupt()  # a push arriving after this chunk
+            return out
 
-            return run
+        return run
 
-        eng._episode_chunk_fn = chunk_fn
-        _reset_counts()
-        steps0 = eng.steps_total
-        t0 = time.monotonic()
-        out = [eng.episode_start("p", prompt, g, token_budget=512)]
-        out.append(eng.episode_extend("p", [11, 12, 13]))
-        eng.episode_release("p")
-        try:
-            eng.episode_extend("p", [14])
-            gone = False
-        except SlotGoneError:
-            gone = True
-        transcript = prompt + out[0]["tokens"] + [11, 12, 13] + out[1]["tokens"] + [14]
-        out.append(eng.episode_start("p", transcript, g, token_budget=512))
-        armed["left"] = 1
-        out.append(eng.episode_extend("p", [15, 16]))
-        eng.set_params(new_params)
-        eng.clear_interrupt()
-        out.append(eng.episode_resume("p"))
-        secs = time.monotonic() - t0
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            counts, L = _trial_counts(), cfg.n_layers
-            steps, replays = eng.steps_total - steps0, eng.resume_replays
-            want = dict(fwd=0, dq=0, dkv=0, k2=L * steps, k3=L * replays, k4=0)
-            check(counts == want and replays == 1,
-                  f"[parity] episode: launches {counts} != {want} (replays {replays})")
-        runs[dev] = dict(out=out, gone=gone, secs=secs, stats=eng.episode_stats())
-        del eng
-    a, b = runs["cuda"], runs["cpu"]
+    eng._episode_chunk_fn = chunk_fn
+    _reset_counts()
+    steps0 = eng.steps_total
+    t0 = time.monotonic()
+    out = [eng.episode_start("p", prompt, g, token_budget=512)]
+    out.append(eng.episode_extend("p", [11, 12, 13]))
+    eng.episode_release("p")
+    try:
+        eng.episode_extend("p", [14])
+        gone = False
+    except SlotGoneError:
+        gone = True
+    transcript = prompt + out[0]["tokens"] + [11, 12, 13] + out[1]["tokens"] + [14]
+    out.append(eng.episode_start("p", transcript, g, token_budget=512))
+    armed["left"] = 1
+    out.append(eng.episode_extend("p", [15, 16]))
+    eng.set_params(new_params)
+    eng.clear_interrupt()
+    out.append(eng.episode_resume("p"))
+    secs = time.monotonic() - t0
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        counts, L = _trial_counts(), cfg.n_layers
+        steps, replays = eng.steps_total - steps0, eng.resume_replays
+        want = dict(fwd=0, dq=0, dkv=0, k2=L * steps, k3=L * replays, k4=0)
+        check(counts == want and replays == 1,
+              f"[parity] episode: launches {counts} != {want} (replays {replays})")
+    return dict(out=out, gone=gone, secs=secs, stats=eng.episode_stats())
+
+
+def _episode_parity(a, b):
+    """The episode mode of phase_parity: the card's run `a` against the
+    CPU's `b` (see _episode_parity_run).  Tokens identical, logprobs
+    within 1e-3, every other field of every turn equal."""
+    import numpy as np
+
     same = a["gone"] and b["gone"] and a["stats"] == b["stats"]
     lp_err = 0.0
     for ta, tb in zip(a["out"], b["out"]):
@@ -3663,7 +3728,7 @@ def phase_quickstart(report, seed):
 # read them (seed -> (dir, path, write seconds, bytes)); removed after the
 # last phase that uses them.
 SHARED_CKPTS = {}
-CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes")
+CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -3716,12 +3781,13 @@ def _capture_trials(wrap, masters):
     wrap(common, "run_experiment", on_run)
 
 
-def _sft_parity(seed, rows):
-    """SFTInterface.train_step and evaluate on one batch of the phase's
-    rows at qwen2-1.5B width, 2 layers, fp32: the card (K1 kernels)
-    against the CPU (plain path), same weights and batch: loss, grad_norm
-    and eval_nll within 1e-4 of each other (relative), as train_parity
-    holds the GRPO step."""
+SFT_PARITY_SEED = 63  # phase_sft's parity weights: init_params(seed + this)
+
+
+def _sft_parity_run(seed, rows, dev):
+    """SFTInterface.train_step and evaluate on one batch of `rows` at
+    qwen2-1.5B width, 2 layers, fp32, on `dev`: loss, grad_norm,
+    eval_nll, and the inputs' fingerprint."""
     import torch
 
     from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
@@ -3737,27 +3803,50 @@ def _sft_parity(seed, rows):
     tok = CharTokenizer(base.vocab_size)
     ds = PromptAnswerDataset(seed, 0, 1, tok, max_length=256, dataset_builder=lambda: rows[:4])
     sample = SequenceSample.gather([ds[i] for i in range(len(ds))])
-    params = init_params(base, seed + 61, device="cpu")
+    params = init_params(base, seed, device="cpu")
+    eng = TrainEngine(base, params, dev, compute_dtype=torch.float32,
+                      optimizer_config=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
+                      ftspec=FinetuneSpec(1, 8, 8))
+    model = Model("default", eng, tok, base)
+    t0 = time.monotonic()
+    st = SFTInterface().train_step(model, sample, MicroBatchSpec())
+    ev = SFTInterface().evaluate(model, [sample])
+    return dict(out=dict(loss=st["loss"], grad_norm=st["grad_norm"], eval_nll=ev["eval_nll"]),
+                secs=time.monotonic() - t0, bs=sample.bs,
+                tokens=sample.total_len("packed_input_ids"),
+                inputs=(_inputs_print(params), sample.data["packed_input_ids"].tolist()))
+
+
+def _sft_parity_cpu(seed):
+    import numpy as np
+
+    rows = _sft_rows(np.random.default_rng(seed + 60), 80)[:64]  # phase_sft's train rows
+    return _sft_parity_run(seed + SFT_PARITY_SEED, rows, "cpu")
+
+
+def _sft_parity(seed, rows):
+    """SFTInterface.train_step and evaluate on one batch of the phase's
+    rows at qwen2-1.5B width, 2 layers, fp32: the card (K1 kernels)
+    against the CPU (plain path, computed by the CPU references' child),
+    same weights and batch: loss, grad_norm and eval_nll within 1e-4 of
+    each other (relative), as train_parity holds the GRPO step."""
+    import torch
+
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {}
     try:
-        for dev in ("cuda", "cpu"):
-            eng = TrainEngine(base, params, dev, compute_dtype=torch.float32,
-                              optimizer_config=OptimizerConfig(lr=1e-5, warmup_steps_proportion=0.0),
-                              ftspec=FinetuneSpec(1, 8, 8))
-            model = Model("default", eng, tok, base)
-            t0 = time.monotonic()
-            st = SFTInterface().train_step(model, sample, MicroBatchSpec())
-            ev = SFTInterface().evaluate(model, [sample])
-            out[dev] = dict(loss=st["loss"], grad_norm=st["grad_norm"], eval_nll=ev["eval_nll"])
-            log(f"[sft] parity {dev}: {out[dev]} ({time.monotonic() - t0:.1f} s)")
-            del eng, model
+        runs = {"cuda": _sft_parity_run(seed, rows, "cuda")}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    runs["cpu"] = _cpu_ref("sft")
+    check(runs["cpu"]["inputs"] == runs["cuda"]["inputs"],
+          "[sft] parity: the CPU reference ran on other inputs")
+    out = {dev: r["out"] for dev, r in runs.items()}
+    for dev, r in runs.items():
+        log(f"[sft] parity {dev}: {r['out']} ({r['secs']:.1f} s)")
     rel = {k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
            for k in out["cpu"]}
-    log(f"[sft] parity, 2 layers fp32, {sample.bs} rows of {sample.total_len('packed_input_ids')} "
+    log(f"[sft] parity, 2 layers fp32, {runs['cuda']['bs']} rows of {runs['cuda']['tokens']} "
         f"tokens: card against CPU, relative differences {rel} (bound 1e-4)")
     check(all(v <= 1e-4 for v in rel.values()), f"sft card vs CPU: {rel}")
     return rel
@@ -3947,7 +4036,7 @@ def phase_sft(report, seed):
         unwrap()
         gc.collect()
         torch.cuda.empty_cache()
-        parity = _sft_parity(seed + 63, train_rows)
+        parity = _sft_parity(seed + SFT_PARITY_SEED, train_rows)
     finally:
         unwrap()
         shutil.rmtree(work, ignore_errors=True)
@@ -4668,6 +4757,9 @@ def phase_trainmodes(report, seed):
 
 RECOVER_DIR = os.path.join(REPO, ".recover_tmp")
 RECOVER_ETA = 0.9
+# New tokens a response (128 before the async phase came; generation is
+# most of each of the phase's six steps, and every check holds at 64).
+RECOVER_NEW_TOKENS = 64
 RECOVER_FILTER = {"min_accuracy": 0.25, "max_accuracy": 0.75}
 # Step 2's reward groups: the first 3 prompts of the batch score 4/4, the
 # next 2 score 0/4 (the expected drop set); every other group 2/4.
@@ -4729,8 +4821,8 @@ def phase_recover(report, seed):
     """Kill-and-resume at qwen2-1.5B (28 layers, full width), through
     `quickstart.main(["ppo-math", ...])` in this process: the quickstart
     phase's trial (a seeded random fp32 checkpoint in two shards, 64 math
-    rows, `char:151936`, a ref, `--kl-ctl 0.1`, 8 prompts x 4, 128 new
-    tokens) with `--ref-ema-eta 0.9 --offload-ref` and the difficulty
+    rows, `char:151936`, a ref, `--kl-ctl 0.1`, 8 prompts x 4) at
+    RECOVER_NEW_TOKENS new tokens, with `--ref-ema-eta 0.9 --offload-ref` and the difficulty
     filter (`dataset_filter` {min 0.25, max 0.75}, which the CLI has no
     flag for: set by wrapping build_ppo_math).  Rewards are seeded +-5,
     2 of 4 positive in every group but at step 2, where the batch's first
@@ -4774,7 +4866,7 @@ def phase_recover(report, seed):
     from areal_tpu_torch.system.worker import ModelWorker, _Cycler
 
     cfg = qwen2_config("1.5b")
-    n_prompts, n, max_new = 8, 4, 128
+    n_prompts, n, max_new = 8, 4, RECOVER_NEW_TOKENS
     L = cfg.n_layers
     os.makedirs(RECOVER_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="run-", dir=RECOVER_DIR)
@@ -5076,26 +5168,19 @@ def phase_recover(report, seed):
     log_card()
 
 
-def phase_train_parity(seed):
-    """One train_batch at qwen2-1.5B width, 2 layers, fp32: the card (K1
-    kernels, cuBLAS) against the CPU (plain versions), same weights and
-    batch, same loss: the actor's PPO loss, then a critic's clipped value
-    loss on the value head."""
+TRAIN_PARITY_LR = 1e-5
+
+
+def _train_parity_inputs(seed):
+    """phase_train_parity's batch and its two runs (kind, model config,
+    weight seed, loss, the loss's keys), the same in the phase and in the
+    CPU references' child."""
     import numpy as np
-    import torch
 
-    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-    from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
-    from areal_tpu_torch.engines.train import TrainEngine
-    from areal_tpu_torch.interfaces.ppo import (
-        _mask_count, _ppo_actor_loss_factory, _ppo_critic_loss_factory,
-    )
-    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.api.data_api import SequenceSample
+    from areal_tpu_torch.interfaces.ppo import _ppo_actor_loss_factory, _ppo_critic_loss_factory
     from areal_tpu_torch.models.config import qwen2_config
-    from areal_tpu_torch.models.transformer import init_params
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     base = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=2)
     rng = np.random.default_rng(seed + 5)
     lens = [100, 300, 150, 200]
@@ -5115,37 +5200,79 @@ def phase_train_parity(seed):
         keys=set(arrays), ids=[f"s{i}" for i in range(len(lens))],
         seqlens={k: [[l] for l in lens] for k in arrays}, data=arrays,
     )
-    lr = 1e-5
     runs = (
         ("actor", base, seed + 4, _ppo_actor_loss_factory(0.2),
          ("old_logp", "advantages", "loss_mask")),
         ("critic", base.as_critic(), seed + 9, _ppo_critic_loss_factory(0.2),
          ("old_values", "returns", "loss_mask")),
     )
-    for kind, cfg, pseed, loss_fn, extra_keys in runs:
-        params = init_params(cfg, pseed, device="cpu")
-        out, after = {}, {}
-        for dev in ("cuda", "cpu"):
-            eng = TrainEngine(
-                cfg, params, dev, compute_dtype=torch.float32,
-                optimizer_config=OptimizerConfig(lr=lr, warmup_steps_proportion=0.0),
-                ftspec=FinetuneSpec(1, 8, 8), remat_policy="full",
-            )
-            fa.reset_launches()
-            t0 = time.monotonic()
-            out[dev] = eng.train_batch(
-                sample, MicroBatchSpec(), loss_fn, _mask_count, extra_keys=extra_keys,
-            )
-            secs = time.monotonic() - t0
-            if dev == "cuda":
-                check(fa.LAUNCHES == {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
-                                      "dkv": cfg.n_layers},
-                      f"{kind}: card launches {fa.LAUNCHES}")
-            after[dev] = {k: v.detach().cpu() for k, v in _flat_params(eng.get_params())}
-            log(f"[train_parity] {kind} {dev}: loss={out[dev]['loss']:.8e} "
-                f"grad_norm={out[dev]['grad_norm']:.8e} ({secs:.1f} s)")
-            del eng
-        before = dict(_flat_params(params))
+    return sample, runs
+
+
+def _train_parity_run(sample, run, dev):
+    """One train_batch of `run` on `dev`: its stats, the weights after it
+    (on the host) and the inputs' fingerprint; on the card, K1's launches
+    held to 2 layers."""
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec
+    from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.interfaces.ppo import _mask_count
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.models.transformer import init_params
+
+    kind, cfg, pseed, loss_fn, extra_keys = run
+    params = init_params(cfg, pseed, device="cpu")
+    inputs = _inputs_print(params)
+    eng = TrainEngine(
+        cfg, params, dev, compute_dtype=torch.float32,
+        optimizer_config=OptimizerConfig(lr=TRAIN_PARITY_LR, warmup_steps_proportion=0.0),
+        ftspec=FinetuneSpec(1, 8, 8), remat_policy="full",
+    )
+    fa.reset_launches()
+    t0 = time.monotonic()
+    out = eng.train_batch(sample, MicroBatchSpec(), loss_fn, _mask_count, extra_keys=extra_keys)
+    secs = time.monotonic() - t0
+    if dev == "cuda":
+        check(fa.LAUNCHES == {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers,
+                              "dkv": cfg.n_layers},
+              f"{kind}: card launches {fa.LAUNCHES}")
+    after = {k: v.detach().cpu() for k, v in _flat_params(eng.get_params())}
+    return dict(out=out, after=after, secs=secs, inputs=inputs)
+
+
+def _train_parity_cpu(seed):
+    sample, runs = _train_parity_inputs(seed)
+    return {run[0]: _train_parity_run(sample, run, "cpu") for run in runs}
+
+
+def phase_train_parity(seed):
+    """One train_batch at qwen2-1.5B width, 2 layers, fp32: the card (K1
+    kernels, cuBLAS) against the CPU (plain versions, computed by the CPU
+    references' child), same weights and batch, same loss: the actor's
+    PPO loss, then a critic's clipped value loss on the value head."""
+    import torch
+
+    from areal_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sample, runs = _train_parity_inputs(seed)
+    lr = TRAIN_PARITY_LR
+    ref = None
+    for run in runs:
+        kind, cfg, pseed = run[:3]
+        res = {"cuda": _train_parity_run(sample, run, "cuda")}
+        ref = ref or _cpu_ref("train_parity")
+        res["cpu"] = ref.pop(kind)
+        check(res["cpu"]["inputs"] == res["cuda"]["inputs"],
+              f"[train_parity] {kind}: the CPU reference ran on other weights")
+        out = {dev: r["out"] for dev, r in res.items()}
+        for dev, r in res.items():
+            log(f"[train_parity] {kind} {dev}: loss={r['out']['loss']:.8e} "
+                f"grad_norm={r['out']['grad_norm']:.8e} ({r['secs']:.1f} s)")
+        before = dict(_flat_params(init_params(cfg, pseed, device="cpu")))
         rel = {
             k: abs(out["cuda"][k] - out["cpu"][k]) / max(abs(out["cpu"][k]), 1e-12)
             for k in ("loss", "grad_norm")
@@ -5159,7 +5286,7 @@ def phase_train_parity(seed):
         n_all = n_off = 0
         worst = 0.0
         for k, p0 in before.items():
-            d = (after["cuda"][k] - p0) - (after["cpu"][k] - p0)
+            d = (res["cuda"]["after"][k] - p0) - (res["cpu"]["after"][k] - p0)
             worst = max(worst, float(d.abs().max()))
             n_off += int((d.abs() > lr / 10).sum())
             n_all += d.numel()
@@ -5172,6 +5299,7 @@ def phase_train_parity(seed):
               f"{kind}: loss/grad_norm differ card vs CPU: {rel}")
         check(frac <= 1e-3 and worst <= 2 * lr * (1 + 1e-3),
               f"{kind}: params after the step differ card vs CPU")
+        del res
 
 
 # --------------------------------------------------------------------------
@@ -5195,6 +5323,10 @@ GENMODE_CHUNK_GETTER = {
     "paged2_int8": "_get_paged_decode_fn", "serving_spec": "_get_serving_chunk_fn",
 }
 GENMODE_SLOTS = 16
+# New tokens a response in the modes (128 before the async phase came:
+# host-bound decode steps are most of the phase; two waves of 16 slots
+# still run two chunks and more a mode, so every check holds).
+GENMODE_NEW_TOKENS = 64
 INT8_AGREEMENT = 0.85  # tests/test_generator.py:316's bound
 
 
@@ -5532,7 +5664,7 @@ def _genmode_quickstart(seed):
 
 def phase_genmodes(report, seed):
     """The serve phase's burst cut to its first 8 prompts (64-512 tokens,
-    n=4: 32 requests, 128 new tokens, greedy) through GenerationServer at
+    n=4: 32 requests, GENMODE_NEW_TOKENS new tokens, greedy) through GenerationServer at
     full qwen2-1.5B in bf16, in each inflight mode of GENMODES with 16
     slots (two waves, so admissions and retirements cycle): (a) the dense
     window in bf16 and with an int8 cache, (b) dense spec K=4, (c) the
@@ -5552,7 +5684,7 @@ def phase_genmodes(report, seed):
     from areal_tpu_torch.models.transformer import init_params
 
     cfg = qwen2_config("1.5b")
-    n_req, n, max_new = 8, 4, 128
+    n_req, n, max_new = 8, 4, GENMODE_NEW_TOKENS
     rng = np.random.default_rng(seed)
     prompts = [  # the serve phase's prompts, its first n_req of 16
         rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
@@ -5602,6 +5734,615 @@ def phase_genmodes(report, seed):
 
 
 # --------------------------------------------------------------------------
+# Phase: asynchronous RL at full size
+# --------------------------------------------------------------------------
+
+ASYNC_DIR = os.path.join(REPO, ".async_tmp")
+# The generation server's serving plane for (b) and (c): 32 slots (8
+# prompts x 4 in one wave) over an explicitly sized pool, so the pool
+# does not take the trainer's memory (an auto-sized pool fills the free
+# memory it finds).  256 pages of 128 tokens: 32 rows of <= 512 + 128.
+ASYNC_SLOTS = 32
+ASYNC_POOL_PAGES = 256
+# The server's prefill slice a row and inner step (the engine's default is
+# 8, which with its auto admit headroom of 4 x 8 lanes admits 32 prompt
+# tokens an inner step: ~520 inner steps a 32-row batch of 64-512-token
+# prompts, against ~160 at 64).
+ASYNC_PREFILL_TOKENS = 64
+# Code items graded by the service and in this process: a program that
+# passes, one with the wrong output, one that fails to run, no program.
+ASYNC_CODE_IO = json.dumps({"inputs": ["3 4", "10 -2"], "outputs": ["7", "8"]})
+ASYNC_CODE_ITEMS = [
+    ("```python\na, b = map(int, input().split())\nprint(a + b)\n```", True),
+    ("```python\na, b = map(int, input().split())\nprint(a - b)\n```", False),
+    ("```python\nraise SystemExit(3)\n```", False),
+    ("the sum is 7", False),
+]
+
+
+def _async_rows(rng, n_math, n_code):
+    """_math_rows' rows and `n_code` code rows (sum two integers), shuffled
+    together by the dataset loader."""
+    rows = _math_rows(rng, n_math)
+    for i in range(n_code):
+        text = "Write a program that reads two integers and prints their sum. "
+        target = int(rng.integers(64, 257))
+        while len(text) < target:
+            text += "Use python. "
+        rows.append({"query_id": f"c{i}", "prompt": text[:target], "task": "code",
+                     "input_output": ASYNC_CODE_IO})
+    return rows
+
+
+def _async_server_engine(cfg, params):
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+
+    eos = CharTokenizer(cfg.vocab_size).eos_token_id  # the trials' tokenizer
+    engine = GeneratorEngine(cfg, params, eos_token_id=eos,
+                             max_decode_batch=ASYNC_SLOTS, kv_pool_pages=ASYNC_POOL_PAGES,
+                             prefill_chunk_tokens=ASYNC_PREFILL_TOKENS)
+    engine.static_path_max_new = 0  # the serving plane, which a push parks
+    return engine
+
+
+def phase_async(report, seed):
+    """Asynchronous RL at qwen2-1.5B (28 layers, full width, random weights;
+    8 prompts x 4, 128 new tokens) from the quickstart's checkpoint:
+
+    (a) `quickstart.main(["ppo-math", ..., "--rollout-ahead", "1"])`, three
+        steps in this process (rewards seeded +-5): each batch generated
+        under one generator version (no weight sync lands inside a
+        generate call), the generate calls of steps 2 and 3 run inside
+        steps 1 and 2, generation t+1 on the weights after step t-1, and
+        each step's launches = 28 x the engines' calls (K1f, K1dq, K1dkv,
+        K4; K2 and K3 0).  Step walls against the quickstart phase's
+        barrier step, the card's idle share (NVML) and the peak printed.
+    (b) a port GenerationServer (serving plane, 32 slots, a 256-page pool)
+        and a port reward service on 127.0.0.1 in this process; the server
+        loads the checkpoint through POST /update_weights (version 1); then
+        a trial through build_ppo_math and run_experiment with
+        gen_server_url, inmem_weight_sync, max_head_offpolicyness 1,
+        replay_capacity 4 and the reward interface's remote_url, 4 steps:
+        replay/staleness <= 1 every step and 1 at the last, rejected 0,
+        accepted 4; behav_imp_weight finite, behav_cap_clip in [0, 1]; the
+        server's version 1 + the pushes; K2 = 28 x the server's inner
+        steps, K3 = 28 x its resume_replays, K1 = 28 x the train engine's
+        calls, K4 0; every reward graded over HTTP equal to in-process
+        grading of the same rows, and code items run in the sandbox graded
+        alike by the service and in this process.
+    (c) a RolloutController pumps 32 prompts through (b)'s server into a
+        ReplayBuffer (cap 1) while RemoteGeneratorEngine.set_params makes 3
+        disk pushes (inmem sync): at least one request parked and resumed
+        (version_start < version_end), every consumed group within the
+        bound, no prompt failed; then greedy tokens under the last pushed
+        version equal an in-process engine's on the same weights."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = qwen2_config("1.5b")
+    t_phase = time.monotonic()
+    os.makedirs(ASYNC_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=ASYNC_DIR)
+    try:
+        # The shared checkpoint (where no earlier phase wrote it), two push
+        # checkpoints (one a remote engine) and a margin.
+        _check_disk("[async]", work, 3 * _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, _, _ = _shared_checkpoint("[async]", cfg, seed + 21)
+        rng = np.random.default_rng(seed + 90)
+        data = os.path.join(work, "rows.jsonl")
+        with open(data, "w") as f:
+            for row in _async_rows(rng, 56, 8):
+                f.write(json.dumps(row) + "\n")
+        out = {"a": _async_ahead(report, seed, cfg, ckpt, data, work)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(_async_remote(seed, cfg, ckpt, data, work))
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: out["a"]["launches"][k] + out["b"]["launches"][k] + out["c"]["launches"][k]
+                for k in out["a"]["launches"]}
+    secs = time.monotonic() - t_phase
+    log(f"[async] launches over the phase {launches}; {secs:.1f} s")
+    report["async"] = dict(out, launches=launches, seconds=secs)
+
+
+def _async_ahead(report, seed, cfg, ckpt, data, work):
+    """(a): the one-step rollout overlap through the CLI."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.system.master import MasterWorker
+
+    n_prompts, n, max_new, n_steps = 8, 4, 128, 3
+    rng = np.random.default_rng(seed + 91)
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    rec, cur = {"steps": []}, {}
+    _record_trial_steps(wrap, rec, cur)
+    # The generate calls, the weight syncs into the generator (after the
+    # first step began: the engine's constructor sets its weights too)
+    # and the steps, on one clock.
+    marks = {"gens": [], "syncs": [], "steps": [], "synced": 0, "started": False}
+    lock = threading.Lock()
+
+    def on_generate(orig):
+        @functools.wraps(orig)
+        def generate(self, *a, **k):
+            with lock:
+                t0, v0 = time.monotonic(), marks["synced"]
+            out = orig(self, *a, **k)
+            with lock:
+                marks["gens"].append((t0, time.monotonic(), v0, marks["synced"]))
+            return out
+        return generate
+
+    def on_set_params(orig):
+        @functools.wraps(orig)
+        def set_params(self, params):
+            t0 = time.monotonic()
+            orig(self, params)
+            with lock:
+                if marks["started"]:
+                    marks["synced"] += 1
+                    marks["syncs"].append((t0, time.monotonic()))
+        return set_params
+
+    def on_step(orig):
+        async def execute_step(self):
+            t0 = time.monotonic()
+            marks["started"] = True
+            stats = await orig(self)
+            marks["steps"].append((t0, time.monotonic()))
+            return stats
+        return execute_step
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)
+            out.data["rewards"] = rng.choice(
+                [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+            return out
+        return inference
+
+    wrap(GeneratorEngine, "generate", on_generate)
+    wrap(GeneratorEngine, "set_params", on_set_params)
+    wrap(MasterWorker, "execute_step", on_step)
+    wrap(MultiTaskRewardInterface, "inference", on_reward)
+    argv = [
+        "ppo-math", "--model.path", ckpt, "--dataset.path", data,
+        "--tokenizer-path", f"char:{cfg.vocab_size}", "--batch-size", str(n_prompts),
+        "--group-size", str(n), "--max-new-tokens", str(max_new), "--benchmark-steps",
+        str(n_steps), "--fileroot", os.path.join(work, "ahead"), "--seed", str(seed + 92),
+        "--rollout-ahead", "1",
+    ]
+    log(f"[async] (a) python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        with _BusySampler() as busy:
+            stats = quickstart.main(argv)
+            torch.cuda.synchronize()
+        trial_s = time.monotonic() - t
+        total = _trial_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+    check(len(stats) == n_steps == len(rec["steps"]) == len(marks["steps"]),
+          f"(a) {len(stats)} steps of stats, {len(rec['steps'])} recorded")
+    gens, syncs, steps = marks["gens"], marks["syncs"], marks["steps"]
+    log(f"[async] (a) generate calls (start, end, syncs before, syncs after, s from trial "
+        f"start): {[(round(a - t, 2), round(b - t, 2), v0, v1) for a, b, v0, v1 in gens]}; "
+        f"syncs {[(round(a - t, 2), round(b - t, 2)) for a, b in syncs]}; steps "
+        f"{[(round(a - t, 2), round(b - t, 2)) for a, b in steps]}")
+    check(len(gens) == n_steps and len(syncs) == n_steps,
+          f"(a) {len(gens)} generate calls and {len(syncs)} weight syncs, want {n_steps} each")
+    for i, (a, b, v0, v1) in enumerate(gens):
+        check(v0 == v1 and not any(s0 < b and a < s1 for s0, s1 in syncs),
+              f"(a) a weight sync landed inside generate call {i + 1}")
+    # Generate call 1 runs inline in step 1; call k+1 (k >= 1), the
+    # prefetch of step k+1, inside step k, on the weights of step k-1.
+    check(steps[0][0] <= gens[0][0] and gens[0][1] <= steps[0][1], "(a) step 1's generate")
+    for k in range(1, n_steps):
+        s0, s1 = steps[k - 1]
+        check(s0 <= gens[k][0] and gens[k][1] <= s1,
+              f"(a) the batch of step {k + 1} was not generated during step {k}")
+    check([g[2] for g in gens] == [0, 0, 1], f"(a) syncs before each generate "
+          f"{[g[2] for g in gens]}, want [0, 0, 1]")
+    nodes = rec["plan_nodes"]
+    walls = []
+    for i, st in enumerate(rec["steps"]):
+        s = st["stats"]
+        check(all(math.isfinite(v) for v in s.values()), f"(a) step {i + 1}: non-finite stats")
+        check(s["actor_train/quarantined"] == 0.0, f"(a) step {i + 1} was quarantined")
+        _check_step_launches("[async] (a)", i + 1, st, nodes, cfg.n_layers, max_new,
+                             gen_chunks=(2, 1, 0)[i])
+        walls.append(s["time/step_s"])
+    check(total == {k: sum(st["launches"][k] for st in rec["steps"]) for k in total},
+          f"(a) launches outside the steps: {total}")
+    barrier = [x["step_s"] for x in report.get("quickstart", {}).get("steps", [])]
+    share = busy.share
+    log(f"[async] (a) rollout-ahead step walls {[round(w, 3) for w in walls]} s against the "
+        f"quickstart phase's barrier steps {[round(w, 3) for w in barrier] or 'not run'} s "
+        f"(its steps carry a ref); trial {trial_s:.1f} s; card busy "
+        f"{'not measured' if share is None else f'{share:.3f}'} over the trial "
+        f"({busy.samples} NVML samples); peak {peak / 2**30:.2f} GiB; importance_weight "
+        f"{[round(x['actor_train/importance_weight'], 5) for x in stats]}")
+    return dict(step_s=walls, barrier_step_s=barrier, trial_s=trial_s, busy_share=share,
+                peak_bytes=peak, launches=total,
+                generate_s=[b - a for a, b, _, _ in gens], sync_s=[b - a for a, b in syncs])
+
+
+def _async_remote(seed, cfg, ckpt, data, work):
+    """(b) and (c) against one generation server and one reward service."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.interfaces import reward_service
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    # The server starts on other weights and loads the checkpoint over
+    # /update_weights; its paths are confined to the repo's scratch dirs.
+    engine = _async_server_engine(cfg, init_params(cfg, seed + 93, device="cuda"))
+    check(engine.device.type == "cuda", "(b) the server's engine is not on the card")
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=200.0,
+                              ckpt_root=REPO)
+    verifier = reward_service.serve("127.0.0.1", 0, background=True)
+    vurl = f"http://127.0.0.1:{verifier.server_port}"
+    try:
+        t = time.monotonic()
+        v = _post(server.url + "/update_weights", {"path": ckpt})["version"]
+        load_s = time.monotonic() - t
+        check(v == 1, f"(b) the server's version after loading the checkpoint: {v}")
+        try:
+            _post(server.url + "/update_weights", {"path": "/"})
+            outside = False
+        except Exception:  # noqa: BLE001 — refused: HTTP 500 with the reason
+            outside = True
+        check(outside and server.version == 1, "(b) a path outside ckpt_root was not refused")
+        log(f"[async] (b) server at {server.url} (serving plane, {ASYNC_SLOTS} slots, "
+            f"{ASYNC_POOL_PAGES} pages), checkpoint loaded over /update_weights in "
+            f"{load_s:.2f} s -> version 1; a path outside ckpt_root refused; reward service "
+            f"at {vurl}")
+        b = _async_decoupled(seed, cfg, ckpt, data, work, server, vurl)
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = _async_controller(seed, cfg, data, work, server)
+    finally:
+        server.close()
+        verifier.shutdown()
+        verifier.server_close()
+    del engine, server
+    return {"b": dict(b, load_s=load_s), "c": c}
+
+
+def _async_decoupled(seed, cfg, ckpt, data, work, server, vurl):
+    """(b): the trial generating on the server, grading on the service."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.data_api import DatasetAbstraction, MicroBatchSpec
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, OptimizerConfig
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.train import TrainEngine
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.interfaces import reward_service
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.system.gen_server import RemoteGeneratorEngine
+    from areal_tpu_torch.system.master import ExperimentSaveEvalControl
+
+    n_prompts, n, max_new, n_steps = 8, 4, 128, 4
+    rng = np.random.default_rng(seed + 94)
+    engine = server.engine
+    restore = []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    calls = {"train_mbs": 0, "fwd_mbs": 0, "graded": 0, "mismatch": [], "push_s": []}
+
+    def on_train_batch(orig):
+        @functools.wraps(orig)
+        def train_batch(self, *a, **k):
+            out = orig(self, *a, **k)
+            calls["train_mbs"] += self.last_pack_stats["n_micro_batches"]
+            return out
+        return train_batch
+
+    def on_forward(orig):
+        @functools.wraps(orig)
+        def forward(self, sample, mb_spec, *a, **k):
+            calls["fwd_mbs"] += len(sample.split(mb_spec))
+            return orig(self, sample, mb_spec, *a, **k)
+        return forward
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)  # graded over HTTP
+            in_process = MultiTaskRewardInterface(
+                id2info=self.id2info, code_timeout_s=self.code_timeout_s)
+            local = orig(in_process, model, sample, mb_spec)
+            got, want = out.data["rewards"], local.data["rewards"]
+            calls["graded"] += len(got)
+            if not np.array_equal(got, want):
+                calls["mismatch"].append((got.tolist(), want.tolist()))
+            # A random model's answers all score -5: seeded +-5 instead,
+            # so GRPO has advantages and the weights move.
+            out.data["rewards"] = rng.choice([-5.0, 5.0], size=got.shape).astype(np.float32)
+            return out
+        return inference
+
+    def on_set_params(orig):
+        @functools.wraps(orig)
+        def set_params(self, params):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            orig(self, params)
+            calls["push_s"].append(time.monotonic() - t0)
+        return set_params
+
+    wrap(TrainEngine, "train_batch", on_train_batch)
+    wrap(TrainEngine, "forward", on_forward)
+    wrap(MultiTaskRewardInterface, "inference", on_reward)
+    wrap(RemoteGeneratorEngine, "set_params", on_set_params)
+    # The pushes' checkpoints go to this phase's work dir.
+    wrap(tempfile, "tempdir", lambda _: work)
+    tok = CharTokenizer(cfg.vocab_size)
+    pcfg = exps.PPOMathConfig(
+        actor=ModelAbstraction("hf", {"path": ckpt}),
+        dataset=DatasetAbstraction("math_code_prompt", {"dataset_path": data}),
+        reward_interface_args={"dataset_path": data, "remote_url": vurl,
+                               "code_timeout_s": 20.0},
+        gconfig=GenerationHyperparameters(n=n, max_new_tokens=max_new),
+        optimizer=OptimizerConfig(lr=2e-5),
+        batch_size=n_prompts,
+        ctrl=ExperimentSaveEvalControl(benchmark_steps=n_steps),
+        seed=seed + 95,
+        experiment_name="async",
+        fileroot=os.path.join(work, "decoupled"),
+        gen_server_url=server.url,
+        inmem_weight_sync=True,
+        max_head_offpolicyness=1,
+        replay_capacity=4,
+    )
+    v0, steps0, replays0 = server.version, engine.steps_total, engine.resume_replays
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        master, stats = exps.run_experiment(exps.build_ppo_math(pcfg, tok), tokenizer=tok)
+        torch.cuda.synchronize()
+        trial_s = time.monotonic() - t
+        launches = _trial_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+    remote = master.pool.workers[0].models["actor_gen@0"].engine
+    inner = engine.steps_total - steps0
+    replays = engine.resume_replays - replays0
+    L = cfg.n_layers
+    check(isinstance(remote, RemoteGeneratorEngine) and remote.inmem_sync,
+          "(b) the trial's generator is not a RemoteGeneratorEngine with inmem sync")
+    check(os.path.dirname(remote.sync_dir) == work, f"(b) pushes went to {remote.sync_dir}")
+    check(len(stats) == n_steps, f"(b) {len(stats)} steps")
+    for i, s in enumerate(stats):
+        check(s["replay/staleness"] <= 1, f"(b) step {i + 1}: staleness {s['replay/staleness']}")
+        check(s["replay/rejected"] == 0, f"(b) step {i + 1}: {s['replay/rejected']} rejected")
+        check(math.isfinite(s["actor_train/behav_imp_weight"]),
+              f"(b) step {i + 1}: behav_imp_weight {s['actor_train/behav_imp_weight']}")
+        check(0.0 <= s["actor_train/behav_cap_clip"] <= 1.0,
+              f"(b) step {i + 1}: behav_cap_clip {s['actor_train/behav_cap_clip']}")
+        check(all(math.isfinite(x) for x in s.values()), f"(b) step {i + 1}: non-finite stats")
+    check(stats[-1]["replay/staleness"] == 1 and stats[-1]["replay/accepted"] == n_steps,
+          f"(b) last step: staleness {stats[-1]['replay/staleness']}, accepted "
+          f"{stats[-1]['replay/accepted']}")
+    check(remote.pushes == n_steps and server.version == v0 + remote.pushes == 1 + n_steps,
+          f"(b) server version {server.version} after {remote.pushes} pushes from {v0}")
+    want = dict(fwd=L * (2 * calls["train_mbs"] + calls["fwd_mbs"]), dq=L * calls["train_mbs"],
+                dkv=L * calls["train_mbs"], k4=0, k2=L * inner, k3=L * replays)
+    log(f"[async] (b) launches {launches}; from the engines {want} ({calls['train_mbs']} train "
+        f"and {calls['fwd_mbs']} forward micro-batches; the server's {inner} inner steps and "
+        f"{replays} resume replays)")
+    check(launches == want, f"(b) launches {launches} != {want}")
+    check(inner > 0 and launches["k2"] > 0, "(b) the server ran no inner step")
+    check(not calls["mismatch"] and calls["graded"] == n_steps * n_prompts * n,
+          f"(b) {calls['graded']} rewards graded; over HTTP against in-process: "
+          f"{calls['mismatch'][:1]}")
+    items = [{"task": "code", "text": text, "payload": {"input_output": ASYNC_CODE_IO,
+                                                          "timeout_s": 20.0}}
+             for text, _ in ASYNC_CODE_ITEMS]
+    t = time.monotonic()
+    remote_grades = reward_service.post_verify(vurl, items, timeout_s=120.0)
+    code_s = time.monotonic() - t
+    local_grades = [reward_service.grade_item(it) for it in items]
+    check(remote_grades == local_grades == [ok for _, ok in ASYNC_CODE_ITEMS],
+          f"(b) code grades over HTTP {remote_grades}, in-process {local_grades}")
+    log(f"[async] (b) 4 steps in {trial_s:.1f} s: walls "
+        f"{[round(s['time/step_s'], 3) for s in stats]} s; staleness "
+        f"{[s['replay/staleness'] for s in stats]}; behav_imp_weight "
+        f"{[round(s['actor_train/behav_imp_weight'], 5) for s in stats]}; behav_cap_clip "
+        f"{[s['actor_train/behav_cap_clip'] for s in stats]}; disk pushes "
+        f"{[round(x, 2) for x in calls['push_s']]} s; server version {server.version}; "
+        f"{calls['graded']} rewards over HTTP equal in-process; code items {remote_grades} "
+        f"in {code_s:.2f} s; peak {peak / 2**30:.2f} GiB")
+    _rmtree(remote.sync_dir)
+    del master, remote
+    return dict(step_s=[s["time/step_s"] for s in stats], trial_s=trial_s,
+                staleness=[s["replay/staleness"] for s in stats], push_s=calls["push_s"],
+                launches=launches, inner_steps=inner, resume_replays=replays, peak_bytes=peak)
+
+
+def _rmtree(path):
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def _async_controller(seed, cfg, data, work, server):
+    """(c): the rollout controller over the server, three disk pushes."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import (
+        APIGenerateInput, GenerationHyperparameters, LLMAPIClient,
+    )
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.gen_server import RemoteGeneratorEngine
+    from areal_tpu_torch.system.replay import ReplayBuffer
+    from areal_tpu_torch.system.rollout import RolloutController
+
+    n_prompts, n, max_new, n_pushes = 32, 4, 128, 3
+    engine = server.engine
+    tok = CharTokenizer(cfg.vocab_size)
+    with open(data) as f:
+        rows = [json.loads(line) for line in f]
+    prompts = [(f"c-{r['query_id']}", tok.encode(r["prompt"])) for r in rows[:n_prompts]]
+    replay = ReplayBuffer(capacity=8, max_head_offpolicyness=1)
+    replay.set_version(server.version)
+    remote = RemoteGeneratorEngine(cfg, server.url, sync_dir=os.path.join(work, "sync_c"),
+                                   inmem_sync=True)
+    client = remote.clients[0]
+    probe = LLMAPIClient(server.url)
+    waits = []
+    real_pause = client.pause
+
+    def pause():
+        # Pause while rows decode, so the push parks a request mid-flight
+        # (no wait once every prompt has been answered).
+        t0 = time.monotonic()
+        while (time.monotonic() - t0 < 60 and probe.health()["live_slots"] == 0
+               and (ctl.cursor < n_prompts or ctl.stat.in_flight > 0)):
+            time.sleep(0.01)
+        waits.append(time.monotonic() - t0)
+        return real_pause()
+
+    client.pause = pause
+    ctl = RolloutController([LLMAPIClient(server.url)], replay,
+                            GenerationHyperparameters(n=n, max_new_tokens=max_new),
+                            seed=seed + 96, dispatch_timeout_s=600.0)
+    pushed = {}
+    steps0, replays0 = engine.steps_total, engine.resume_replays
+    consumed = []
+
+    def push_all():
+        for i in range(n_pushes):
+            # Push i after 6 x i groups are consumed: pushes a wave of
+            # groups apart, so a request rarely spans two of them.
+            t0 = time.monotonic()
+            while len(consumed) < 6 * i and time.monotonic() - t0 < 300:
+                time.sleep(0.05)
+            params = init_params(cfg, seed + 97 + i, device="cuda")
+            t0 = time.monotonic()
+            remote.set_params(params)
+            pushed.setdefault("s", []).append(time.monotonic() - t0)
+            replay.set_version(server.version)
+            if i == n_pushes - 1:
+                pushed["params"] = params  # the weights greedy parity runs on
+            del params
+
+    async def drive():
+        pump = asyncio.create_task(ctl.run(prompts))
+        pusher = asyncio.create_task(asyncio.to_thread(push_all))
+        while not (pump.done() and pusher.done() and len(replay) == 0):
+            try:
+                got = await asyncio.to_thread(replay.get_batch, 1, 0.2)
+            except TimeoutError:
+                continue
+            consumed.extend((t.qid, t.version_start, t.version_end, t.retired_version)
+                            for t in got)
+        await pump
+        await pusher
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.monotonic()
+    asyncio.run(drive())
+    torch.cuda.synchronize()
+    pump_s = time.monotonic() - t
+    launches = _trial_counts()
+    inner = engine.steps_total - steps0
+    replays = engine.resume_replays - replays0
+    stat = ctl.stat.as_dict()
+    parked = [c for c in consumed if c[1] < c[2]]
+    log(f"[async] (c) {n_prompts} prompts through the controller in {pump_s:.1f} s with "
+        f"{n_pushes} disk pushes ({[round(x, 2) for x in pushed['s']]} s; pause waited "
+        f"{[round(x, 2) for x in waits]} s for live rows): stat {stat}; consumed {len(consumed)}, "
+        f"staleness at consumption {sorted({r - v0 for _, v0, _, r in consumed})}, "
+        f"{len(parked)} parked and resumed across a push; replay {replay.watermarks()}; server "
+        f"{inner} inner steps, {replays} resume replays; launches {launches}")
+    check(stat["failed"] == 0 and stat["accepted"] + stat["rejected"] == n_prompts,
+          f"(c) controller stat {stat}")
+    check(len(consumed) == stat["accepted"] - replay.dropped_stale - replay.evicted,
+          f"(c) consumed {len(consumed)} of {stat['accepted']} accepted")
+    check(all(r - v0 <= 1 for _, v0, _, r in consumed), "(c) a consumed group past the bound")
+    check(parked, "(c) no request was parked and resumed across a push")
+    check(server.version == 1 + 4 + n_pushes, f"(c) server version {server.version}")
+    check(launches["k2"] == cfg.n_layers * inner and launches["k3"] == cfg.n_layers * replays
+          and replays >= 1, f"(c) launches {launches}: K2 != {cfg.n_layers} x {inner} or K3 != "
+          f"{cfg.n_layers} x {replays}")
+    # Greedy tokens under the last pushed version: the server against an
+    # in-process engine of the same options on the same weights, one
+    # request at a time (the same shapes on both).
+    local = _async_server_engine(cfg, pushed.pop("params"))
+    g = GenerationHyperparameters(n=1, max_new_tokens=32, greedy=True)
+    fresh = np.random.default_rng(seed + 98)
+    equal = []
+    for i in range(2):
+        ids = fresh.integers(0, cfg.vocab_size, int(fresh.integers(64, 257))).tolist()
+        out = probe.generate(APIGenerateInput(qid=f"greedy{i}", prompt_ids=ids, gconfig=g))
+        check(out.version_start == out.version == server.version,
+              f"(c) greedy request on version {out.version_start}->{out.version}")
+        sample = SequenceSample(keys={"packed_prompts"}, ids=["g"],
+                                seqlens={"packed_prompts": [[len(ids)]]},
+                                data={"packed_prompts": np.asarray(ids, np.int32)})
+        mine = local.generate(sample, MicroBatchSpec(), g, seed=0)
+        want = np.asarray(mine.data["packed_input_ids"])[len(ids):].tolist()
+        equal.append(out.output_ids[0] == want)
+        check(equal[-1], f"(c) greedy tokens under version {out.version}: server "
+              f"{out.output_ids[0][:12]}... != in-process {want[:12]}...")
+    log(f"[async] (c) greedy tokens under version {server.version}: the server equals an "
+        f"in-process engine on the pushed weights ({len(equal)} requests of 32 tokens)")
+    del local
+    _rmtree(remote.sync_dir)
+    return dict(pump_s=pump_s, push_s=pushed["s"], stat=stat, consumed=len(consumed),
+                parked=len(parked), launches=launches, inner_steps=inner,
+                resume_replays=replays)
+
+
+# --------------------------------------------------------------------------
 # Phase: agent episodes at full size
 # --------------------------------------------------------------------------
 
@@ -5610,6 +6351,9 @@ EP_MAX_NEW = 32  # new tokens an assistant turn, so a chunk is 32 inner steps
 EP_BUDGET = 2048  # transcript tokens an episode
 EP_TURNS = 3  # assistant turns an episode (the controller's max_turns)
 EP_EOS = 151643
+# Episodes of the int8 pool's run (8 before the async phase came: each
+# episode's turns wait on one engine lock, so 4 take about half the time).
+EP_INT8_EPISODES = 4
 # Turns 1-2 of each calculator episode against the one-token probes of
 # the same steps on an engine of the same geometry: the same kernels on
 # the same inputs, so equal to fp32 rounding; a read of a poisoned
@@ -6094,7 +6838,7 @@ def _ep_eviction(cfg, params, seed):
 
 
 def phase_episodes(report, seed):
-    """Agent episodes at full qwen2-1.5B (28 layers, bf16, random weights
+    """Agent episodes at qwen2-1.5B's full width (CUT_LAYERS layers, bf16, random weights
     from --seed) through GenerationServer's POST /episode and the port's
     LLMAPIClient: (a) 8 calculator episodes (the serve burst's first 8
     prompts, 64-512 tokens; max_turns 3, 32 new tokens a turn, a 2048-token
@@ -6102,9 +6846,10 @@ def phase_episodes(report, seed):
     thread; (b) python_exec once; (c) a SlotGone re-admission that maps
     the published prefix; (d) LRU eviction under a tight pool; (e) a
     mid-turn in-memory push (park, swap, episode_resume's K3 replay); (f)
-    (a) and (e) again over an int8 pool.  Checked: replies and turn
-    accounting, at least 2 stop turns an episode, launches K2 = 28 x
-    inner steps and K3 = 28 x replays (>= 1 in (e) and (f)), K1f and K4
+    (a) with its first EP_INT8_EPISODES episodes and (e) again over an
+    int8 pool.  Checked: replies and turn
+    accounting, at least 2 stop turns an episode, launches K2 = layers x
+    inner steps and K3 = layers x replays (>= 1 in (e) and (f)), K1f and K4
     0, one chunk build, no host sync in a chunk."""
     import numpy as np
     import torch
@@ -6112,7 +6857,7 @@ def phase_episodes(report, seed):
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     rng = np.random.default_rng(seed)
     prompts = [  # the serve phase's prompts, its first 8 of 16
         rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
@@ -6129,9 +6874,11 @@ def phase_episodes(report, seed):
             def extra(engine, server, calc, stops=stops):
                 return _ep_tools_and_readmit(engine, server, calc, py_prompt, stops)
         else:
-            (stops, probes), extra = _ep_stops(tag, cfg, params, prompts, ekw), None
-        runs[tag] = _ep_engine_run(tag, cfg, params, prompts, seed, stops, probes, ekw,
-                                   extra=extra)
+            # The int8 pool's run takes the first EP_INT8_EPISODES episodes.
+            sub = prompts[:EP_INT8_EPISODES]
+            (stops, probes), extra = _ep_stops(tag, cfg, params, sub, ekw), None
+        runs[tag] = _ep_engine_run(tag, cfg, params, prompts if tag == "calc" else sub, seed,
+                                   stops, probes, ekw, extra=extra)
         runs[tag].pop("transcripts")
         if tag == "calc":
             runs["evict"] = _ep_eviction(cfg, params, seed)
@@ -6166,6 +6913,7 @@ def _kernels_line(report):
     sft_launches = sft.get("launches", {})
     ov_launches = report.get("overlap", {}).get("launches", {})
     tm_launches = report.get("trainmodes", {}).get("launches", {})
+    as_launches = report.get("async", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -6182,6 +6930,7 @@ def _kernels_line(report):
         "launches_sft": sft_launches.get("k2"),
         "launches_overlap": ov_launches.get("k2"),
         "launches_trainmodes": tm_launches.get("k2"),
+        "launches_async": as_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -6231,6 +6980,7 @@ def _kernels_line(report):
             "launches_sft_eval": sft.get("eval_launches", {}).get(name),
             "launches_overlap": ov_launches.get(name),
             "launches_trainmodes": tm_launches.get(name),
+            "launches_async": as_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -6271,6 +7021,7 @@ def _kernels_line(report):
         "launches_sft": sft_launches.get("k3"),
         "launches_overlap": ov_launches.get("k3"),
         "launches_trainmodes": tm_launches.get("k3"),
+        "launches_async": as_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -6335,6 +7086,7 @@ def _kernels_line(report):
         "launches_sft": sft_launches.get("k4"),
         "launches_overlap": ov_launches.get("k4"),
         "launches_trainmodes": tm_launches.get("k4"),
+        "launches_async": as_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -6373,13 +7125,126 @@ def _kernels_line(report):
     return kernels
 
 
+# --------------------------------------------------------------------------
+# The CPU halves of sft's parity, parity and train_parity, computed in a
+# child process beside the card's phases
+# --------------------------------------------------------------------------
+
+# Phases whose CPU reference (the plain path at 2 layers, fp32) the child
+# computes, in the order it writes them (the order the phases read them).
+CPU_REF_PHASES = ("sft", "parity", "train_parity")
+CPU_REF_THREADS = 4  # of the host's cores; the card's phases keep the rest
+# The child starts before this phase: after the build (whose nvcc processes
+# take every core) and the serve and static phases (whose host-bound
+# tokens/s it would slow: serve read 238.0 tok/s beside it, 298.4 alone).
+CPU_REFS_FROM = "push"
+CPU_REFS_DIR = os.path.join(REPO, ".cpu_refs_tmp")
+_CPU_REFS = {}  # the child: proc, dir, log, t0; and the refs read so far
+
+
+def _inputs_print(tree):
+    """A cheap fingerprint of a tensor tree's values (the raw words of
+    every 997th element of each leaf, summed as integers: exact in any
+    order, so on any thread count): the child and the phase hold the same
+    seeded inputs."""
+    import torch
+
+    out = []
+    for name, x in _flat_params(tree):
+        w = x.detach().reshape(-1)[::997].contiguous()
+        w = w.view(torch.int32 if w.element_size() == 4 else torch.int16)
+        out.append((name, tuple(x.shape), int(w.to(torch.int64).sum())))
+    return out
+
+
+def _start_cpu_refs(phases, seed):
+    """Start the child that computes the CPU references of `phases` (the
+    ones in CPU_REF_PHASES), each to its own file as it finishes, on
+    CPU_REF_THREADS threads and with no card visible."""
+    want = [p for p in CPU_REF_PHASES if p in phases]
+    if not want:
+        return
+    os.makedirs(CPU_REFS_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="refs-", dir=CPU_REFS_DIR)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=str(CPU_REF_THREADS))
+    logf = open(os.path.join(work, "child.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-refs", work, "--seed", str(seed),
+         "--phases", ",".join(want)],
+        env=env, stdout=logf, stderr=subprocess.STDOUT, cwd=REPO)
+    _CPU_REFS.update(proc=proc, dir=work, log=logf, t0=time.monotonic())
+    log(f"[cpu_refs] child {proc.pid} computes the CPU references of {want} on "
+        f"{CPU_REF_THREADS} threads")
+
+
+def _cpu_ref(name):
+    """The child's result for phase `name`, waiting for its file."""
+    import torch
+
+    if name in _CPU_REFS:
+        return _CPU_REFS[name]
+    check("proc" in _CPU_REFS, f"[cpu_refs] no child computes {name}'s reference")
+    path = os.path.join(_CPU_REFS["dir"], f"{name}.pt")
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        rc = _CPU_REFS["proc"].poll()
+        if rc is not None and not os.path.exists(path):
+            with open(os.path.join(_CPU_REFS["dir"], "child.log")) as f:
+                tail = f.read()[-4000:]
+            check(False, f"[cpu_refs] the child exited {rc} before {name}'s reference:\n{tail}")
+        time.sleep(0.2)
+    ref = torch.load(path, weights_only=False)
+    os.remove(path)
+    log(f"[cpu_refs] {name}: read {time.monotonic() - t0:.1f} s after asking; the child "
+        f"computed it in {ref['seconds']:.1f} s, {ref['done_at']:.1f} s after it started")
+    _CPU_REFS[name] = ref
+    return ref
+
+
+def _stop_cpu_refs():
+    import shutil
+
+    proc = _CPU_REFS.pop("proc", None)
+    if proc is not None:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        _CPU_REFS["log"].close()
+        shutil.rmtree(_CPU_REFS["dir"], ignore_errors=True)
+
+
+def cpu_refs_main(work, seed, phases):
+    """The child: each phase's CPU reference to work/<phase>.pt (written
+    whole, then renamed), in CPU_REF_PHASES' order."""
+    import torch
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    sys.path.insert(0, REPO)
+    t_start = time.monotonic()
+    makers = {"sft": _sft_parity_cpu, "parity": _parity_cpu,
+              "train_parity": _train_parity_cpu}
+    for name in CPU_REF_PHASES:
+        if name in phases:
+            t0 = time.monotonic()
+            ref = makers[name](seed)
+            ref.update(seconds=time.monotonic() - t0, done_at=time.monotonic() - t_start)
+            tmp = os.path.join(work, f"{name}.pt.tmp")
+            torch.save(ref, tmp)
+            os.replace(tmp, os.path.join(work, f"{name}.pt"))
+            print(f"[cpu_refs] {name}: {ref['seconds']:.1f} s", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--cpu-refs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     check(set(phases) <= set(PHASES), f"unknown phase in {phases}")
+    if args.cpu_refs:
+        return cpu_refs_main(args.cpu_refs, args.seed, phases)
 
     import torch
 
@@ -6410,6 +7275,7 @@ def main() -> int:
         "trainmodes": lambda: phase_trainmodes(report, args.seed),
         "recover": lambda: phase_recover(report, args.seed),
         "genmodes": lambda: phase_genmodes(report, args.seed),
+        "async": lambda: phase_async(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),
@@ -6417,6 +7283,8 @@ def main() -> int:
     last_ckpt_user = [p for p in PHASES if p in phases and p in CKPT_PHASES][-1:]
     try:
         for name in PHASES:  # in this order, whatever the order asked
+            if PHASES.index(name) >= PHASES.index(CPU_REFS_FROM) and "proc" not in _CPU_REFS:
+                _start_cpu_refs(phases, args.seed)
             if name in phases:
                 t0 = time.monotonic()
                 runners[name]()
@@ -6424,6 +7292,7 @@ def main() -> int:
                 if [name] == last_ckpt_user:
                     _release_shared_checkpoints()
     finally:
+        _stop_cpu_refs()
         _release_shared_checkpoints()
     log(f"[done] {time.monotonic() - t_start:.1f} s")
     log_card()  # again here: a long run's output may keep only its tail

@@ -168,13 +168,13 @@ def test_offload_ref_e2e(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("rollout_ahead", 1, "item 7"),
-    ("max_head_offpolicyness", 0, "item 7"),
-    ("gen_server_url", "http://localhost:1", "item 7"),
-    ("verifier_pool", True, "item 7"),
-    ("mixture_weights", {"math": 1.0}, "item 7"),
+    ("gen_server_url", "tcp://localhost:1", "item 7.3"),
+    ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.3"),
+    ("param_push_tree", True, "item 7.4"),
+    ("verifier_pool", True, "item 7.5"),
+    ("mixture_weights", {"math": 1.0}, "item 7.5"),
+    ("mixture_adaptive", True, "item 7.5"),
     ("placement", {"actor_gen": 1}, "items 7 and 8"),
-    ("ppo_kwargs", {"anomaly_imp_ratio_max": 2.0}, "item 7"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -189,8 +189,12 @@ def test_unported_options_raise(tmp_path, option, value, item):
 # the two-program admit path, speculative decoding, the agent-episode
 # options (carried, read by no code of the in-process trial: see below),
 # the pipeline-overlapped step, the tunable sentinels (set where they
-# do not trip), the fused reward+ref MFC, bf16 masters and the remat
-# policies "dots" and "dots_small".
+# do not trip), the fused reward+ref MFC, bf16 masters, the remat
+# policies "dots" and "dots_small", and asynchronous RL: the one-step
+# rollout overlap, the replay pipeline (cap 0 and 1, a replay capacity),
+# decoupled PPO's behaviour-weight cap and the imp-ratio sentinel, and
+# remote generation (a server started in the test: GEN_SERVER).
+GEN_SERVER = "<gen-server>"
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
     ("ctrl", ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=1)),
@@ -210,18 +214,69 @@ FORMERLY_UNPORTED = [
     ("train_backend_args", {"master_dtype": "bfloat16"}),
     ("train_backend_args", {"remat_policy": "dots"}),
     ("train_backend_args", {"remat_policy": "dots_small"}),
+    ("rollout_ahead", 1),
+    ("max_head_offpolicyness", 0),
+    ("max_head_offpolicyness", 1),
+    ("replay_capacity", 8),
+    ("behav_imp_weight_cap", 2.0),
+    ("ppo_kwargs", {"n_minibatches": 2, "kl_ctl": 0.1, "anomaly_imp_ratio_max": 100.0}),
+    ("gen_server_url", GEN_SERVER),
+    ("inmem_weight_sync", True),
 ]
 
 
 def _option_id(option, value):
-    return f"{option}.{next(iter(value.values()))}" if option == "train_backend_args" else option
+    if option == "train_backend_args":
+        return f"{option}.{next(iter(value.values()))}"
+    if option == "max_head_offpolicyness":
+        return f"{option}.{value}"
+    return "ppo_kwargs.anomaly_imp_ratio_max" if option == "ppo_kwargs" else option
+
+
+def _with_option(cfg, option, value, server_url):
+    """The e2e config with `option` set; the remote-generation options
+    point it at `server_url` (the async ones at cap 1 for the cap and
+    the capacity)."""
+    if option == "gen_server_url":
+        return dataclasses.replace(cfg, gen_server_url=server_url)
+    if option == "inmem_weight_sync":
+        return dataclasses.replace(cfg, gen_server_url=server_url, inmem_weight_sync=True)
+    if option in ("replay_capacity", "behav_imp_weight_cap"):
+        return dataclasses.replace(cfg, max_head_offpolicyness=1, **{option: value})
+    if option == "ppo_kwargs":
+        return dataclasses.replace(cfg, max_head_offpolicyness=1, ppo_kwargs=value)
+    return dataclasses.replace(cfg, **{option: value})
+
+
+@pytest.fixture()
+def gen_server(tmp_path):
+    """A port GenerationServer on a tiny engine, with the weights of the
+    e2e trial's actor (the same seeded random init)."""
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models import transformer as ttfm
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    eng = GeneratorEngine(ttiny(), ttfm.init_params(ttiny(), 1, device="cpu"), "cpu",
+                          eos_token_id=CharTokenizer(512).eos_token_id)
+    srv = GenerationServer(eng, max_wait_ms=10.0, ckpt_root=str(tmp_path))
+    yield srv
+    srv.close()
 
 
 @pytest.mark.parametrize("option,value", FORMERLY_UNPORTED,
                          ids=[_option_id(o, v) for o, v in FORMERLY_UNPORTED])
-def test_formerly_unported_options_run(tmp_path, option, value):
+def test_formerly_unported_options_run(tmp_path, option, value, request, monkeypatch):
+    import tempfile
+
     tok = CharTokenizer(512)
-    cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
+    url = None
+    if value == GEN_SERVER or option == "inmem_weight_sync":
+        url = request.getfixturevalue("gen_server").url
+        monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the push's sync dir
+    base = _e2e_cfg(tmp_path, "grpo")
+    if url is not None:
+        base = dataclasses.replace(base, ref=None, ppo_kwargs={"n_minibatches": 2})
+    cfg = _with_option(base, option, value, url)
     master, stats = exps.run_experiment(exps.build_ppo_math(cfg, tok), tokenizer=tok,
                                         device="cpu")
     assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
@@ -255,6 +310,25 @@ def test_formerly_unported_options_run(tmp_path, option, value):
     if option.startswith("anomaly_") and option != "anomaly_kl_max":
         for model in ("actor@0",):
             assert getattr(worker.models[model].engine, option) == value
+    if option == "rollout_ahead":
+        assert master.rollout_ahead == 1 and master._ahead_task is None
+    if option in ("max_head_offpolicyness", "replay_capacity", "behav_imp_weight_cap",
+                  "ppo_kwargs"):
+        assert [s["replay/staleness"] <= master.max_head_offpolicyness for s in stats] == [
+            True, True]
+        assert master.replay.capacity == (8 if option == "replay_capacity" else 4)
+        actor_if = worker.interfaces["actor@0"]
+        want_cap = {0: None, 1: 5.0}[master.max_head_offpolicyness]
+        if option == "behav_imp_weight_cap":
+            want_cap = 2.0
+        assert actor_if.behav_imp_weight_cap == want_cap
+        if option == "ppo_kwargs":
+            assert actor_if.anomaly_imp_ratio_max == 100.0
+            assert all(s["actor_train/quarantined"] == 0.0 for s in stats)
+    if url is not None:
+        remote = worker.models["actor_gen@0"].engine
+        assert remote.pushes == 2 and request.getfixturevalue("gen_server").version == 2
+        assert remote.inmem_sync == (option == "inmem_weight_sync")
 
 
 EPISODE_OPTIONS = dict(episode_max_turns=2, episode_token_budget=64, tool_timeout_s=1.0)

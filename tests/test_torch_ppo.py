@@ -265,18 +265,19 @@ def test_inference_matches_jax(weights, rollout):
 
 
 def test_unported_branches_raise(weights, critic_weights, tmp_path):
-    """The branches still to come raise, naming their item.  (The
-    critic's streamed train step, once refused here, is ported:
-    tests/test_torch_stream.py.)"""
+    """The branches still to come raise, naming their item: the verifier
+    fleet.  (The critic's streamed train step, the imp-ratio sentinel,
+    remote grading and code grading, once refused here, are ported:
+    tests/test_torch_stream.py, tests/test_torch_async_rl.py and
+    tests/test_torch_reward_service.py.)"""
     critic = _port_critic(critic_weights)
     state = PPOCriticInterface().train_stream_begin(critic, MicroBatchSpec())
     assert state["engine"]["n_chunks"] == 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        PPOActorInterface(anomaly_imp_ratio_max=2.0)
-    with pytest.raises(NotImplementedError):
-        MultiTaskRewardInterface(remote_url="http://localhost:1")
-    with pytest.raises(NotImplementedError):
-        MultiTaskRewardInterface().verify("code", "print(1)", {})
+    assert PPOActorInterface(anomaly_imp_ratio_max=2.0).anomaly_imp_ratio_max == 2.0
+    assert MultiTaskRewardInterface(remote_url="http://localhost:1").remote_url
+    assert MultiTaskRewardInterface().verify("code", "print(1)", {}) is False  # no fence
+    with pytest.raises(NotImplementedError, match="queue 1, item 7.5"):
+        MultiTaskRewardInterface(verifier_pool=True)
 
 
 VALUE_VARIANTS = {

@@ -83,29 +83,26 @@ UNPORTED = [
     (["--search-devices", "8"], "item 10"),
     (["--launcher", "slurm"], "item 10"),
     (["--tpu-name", "x"], "item 10"),
-    (["--multiprocess"], "item 7"),
-    (["--recover-retries", "1"], "item 7"),
-    (["--mfc-timeout-s", "60"], "item 7"),
-    (["--worker-heartbeat-s", "2"], "item 7"),
-    (["--no-weight-push-checksum"], "item 7"),
+    (["--multiprocess"], "item 7.3"),
+    (["--recover-retries", "1"], "item 7.3"),
+    (["--mfc-timeout-s", "60"], "item 7.3"),
+    (["--worker-heartbeat-s", "2"], "item 7.3"),
+    (["--no-weight-push-checksum"], "item 7.4"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
-    (["--gen-server-url", "http://localhost:1"], "item 7"),
-    (["--rollout-ahead", "1"], "item 7"),
-    (["--max-head-offpolicyness", "0"], "item 7"),
-    (["--replay-capacity", "8"], "item 7"),
-    (["--inmem-weight-sync"], "item 7"),
-    (["--param-push-tree"], "item 7"),
-    (["--param-push-fanout", "4"], "item 7"),
-    (["--verifier-pool"], "item 7"),
-    (["--mixture-weight", "math=1"], "item 7"),
-    (["--mixture-adaptive"], "item 7"),
+    (["--gen-server-url", "tcp://localhost:1"], "item 7.3"),
+    (["--gen-server-url", "zmq://localhost:1"], "item 7.3"),
+    (["--param-push-tree"], "item 7.4"),
+    (["--param-push-fanout", "4"], "item 7.4"),
+    (["--verifier-pool"], "item 7.5"),
+    (["--mixture-weight", "math=1"], "item 7.5"),
+    (["--mixture-adaptive"], "item 7.5"),
 ]
 
 
-@pytest.mark.parametrize("flags,item", UNPORTED, ids=[u[0][0] + "=" + "_".join(u[0][1:])
-                                                       for u in UNPORTED])
+@pytest.mark.parametrize("flags,item", UNPORTED, ids=[
+    u[0][0] + "=" + "_".join(u[0][1:]).split(":")[0] for u in UNPORTED])
 def test_unported_flag_exits(tmp_path, ckpt_dir, data_path, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP queue 1, {item}"):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
@@ -169,23 +166,49 @@ FORMERLY_UNPORTED = [
     ["--remat", "dots"],
     ["--remat", "dots_small"],
     ["--ref-path", "{ckpt}", "--fuse-rew-ref"],
+    ["--rollout-ahead", "1"],
+    ["--max-head-offpolicyness", "0"],
+    ["--max-head-offpolicyness", "1"],
+    ["--max-head-offpolicyness", "1", "--replay-capacity", "8"],
+    ["--gen-server-url", "{server}"],
+    ["--gen-server-url", "{server}", "--inmem-weight-sync"],
 ]
 
 
 def _flag_id(f):
     if f[0] == "--ref-path":
         return f[2]
-    if f[0] == "--remat":
+    if f[0] in ("--remat", "--max-head-offpolicyness"):
         return "_".join(f)
+    if f[0] == "--gen-server-url":
+        return "_".join(x for x in f if x.startswith("--"))
     return "_".join(x for x in f if x.startswith("--")) if f[0] == "--pipeline-overlap" else f[0]
 
 
 @pytest.mark.parametrize("flags", FORMERLY_UNPORTED, ids=[_flag_id(f) for f in FORMERLY_UNPORTED])
-def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
+def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags, monkeypatch):
+    import tempfile
+
     cfg = tmp_path / "options.yaml"
     cfg.write_text("batch-size: 4\nlr: 1.0e-4\nckpt_freq_steps: 2\n")
-    flags = [f.format(ckpt=ckpt_dir, yaml=cfg) for f in flags]
-    stats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
+    server = None
+    if "{server}" in flags:
+        # A generation server on the checkpoint's weights; the pushes'
+        # checkpoints go under tmp_path.
+        from areal_tpu_torch.engines.generator import GeneratorEngine
+        from areal_tpu_torch.system.gen_server import GenerationServer
+
+        mcfg, params = hf.load_hf_checkpoint(ckpt_dir, device="cpu")
+        server = GenerationServer(GeneratorEngine(mcfg, params, "cpu", eos_token_id=1),
+                                  max_wait_ms=10.0, ckpt_root=str(tmp_path))
+        monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    flags = [f.format(ckpt=ckpt_dir, yaml=cfg, server=server.url if server else "")
+             for f in flags]
+    try:
+        stats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
+    finally:
+        if server is not None:
+            server.close()
     assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
     recover_dir = os.path.join(tmp_path, "checkpoints", "ppo-math", "trial0", "actor@0",
                                "recover_checkpoint")
@@ -198,6 +221,15 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags):
         chunk = int(flags[flags.index("--pipeline-chunk-seqs") + 1]) if len(flags) > 3 else 1
         assert stats[-1]["pipeline/window"] == window
         assert stats[-1]["pipeline/n_chunks"] == (1 if window == 1 else 4 // chunk)
+    if flags[0] == "--max-head-offpolicyness":
+        cap = int(flags[1])
+        assert [s["replay/staleness"] <= cap for s in stats] == [True, True]
+        assert stats[-1]["replay/accepted"] == 2.0 and stats[-1]["replay/rejected"] == 0.0
+        assert ("actor_train/behav_imp_weight" in stats[-1]) == (cap > 0)
+    if flags[0] == "--rollout-ahead":
+        assert "replay/staleness" not in stats[-1]
+    if server is not None:
+        assert server.version == 2  # one push a step
 
 
 def test_rerun_resumes_the_trial(tmp_path, ckpt_dir, data_path):
@@ -257,8 +289,8 @@ def test_yaml_config_unknown_key_exits(tmp_path, ckpt_dir, data_path):
 
 def test_yaml_config_cannot_set_an_unported_flag(tmp_path, ckpt_dir, data_path):
     cfg = tmp_path / "options.yaml"
-    cfg.write_text("rollout-ahead: 1\n")
-    with pytest.raises(SystemExit, match="--rollout-ahead is not yet ported"):
+    cfg.write_text("multiprocess: true\n")
+    with pytest.raises(SystemExit, match="--multiprocess is not yet ported"):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
                         device="cpu")
 

@@ -247,8 +247,16 @@ def test_batch_verdict_bits_match_jax(aux, on):
 
 
 def test_imp_ratio_sentinel_is_refused():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PPOActorInterface(gconfig=GCONF, anomaly_imp_ratio_max=2.0)
+    """Refused until asynchronous RL came (ROADMAP queue 1 item 7.7): the
+    sentinel now judges decoupled PPO's mean behaviour weight as the JAX
+    interface does, and a batch without one (no proximal logprobs) is
+    never judged by it."""
+    t, j = _ifaces(anomaly_imp_ratio_max=2.0)
+    for behav in (None, 0.4, 0.5, 1.3, 2.0, 2.5):
+        aux = dict(kl_abs_mean=None, degenerate_var=None, behav_imp_mean=behav)
+        assert t._batch_verdict(aux) == j._batch_verdict(aux)
+    assert t._batch_verdict(dict(behav_imp_mean=0.4)) == integrity.IMP_RATIO
+    assert t._batch_verdict(dict(behav_imp_mean=None)) == 0
 
 
 def _with_ref(sample, offset):
