@@ -63,4 +63,14 @@ Slice 17, asynchronous RL:
     system/rollout.py     RolloutController over generation servers
     system/gen_server.py  POST /update_weights, RemoteGeneratorEngine
     interfaces/reward_service.py  the verifier registry and its HTTP service
+
+Slice 18, the multi-process runtime:
+
+    apps/main.py          run_experiment: a worker process a WorkerConfig, recover retries
+    apps/worker.py        the worker process: control server, transfer plane, stream
+    system/stream.py      ConnWorkerPool, run_worker_stream (multiprocessing.connection)
+    system/transfer.py    InProcTransfer, ConnTransfer (pickle-5 frames)
+    system/worker_control.py  WorkerServer, WorkerControlPanel
+    system/master.py      the data and param planes, worker-death recovery
+    scheduler/, base/{names,name_resolve,network}.py
 """

@@ -12,9 +12,12 @@
 
 The flags are the JAX package's, and `--config <yaml>` sets their
 defaults from a file (keys spelled as the flags, e.g. `model.path`,
-`batch-size`; flags on the command line win).  The trial runs in this
-process on the CUDA card: every model on one worker, `build_sft` or
-`build_ppo_math` -> `run_experiment` -> the master's steps (with
+`batch-size`; flags on the command line win).  The trial runs on the
+CUDA card: every model on one worker, `build_sft` or `build_ppo_math`
+-> `run_experiment` -> the master's steps, in this process, or with
+`--multiprocess` with the worker in a process of its own (the local
+scheduler; `--recover-retries N` resubmits it after a failure and
+resumes from the last recover checkpoint) (with
 `--pipeline-overlap`, streamed in chunks; with `--rollout-ahead 1` or
 `--max-head-offpolicyness K`, asynchronous; with `--gen-server-url`,
 generating on remote servers); the last step's stats are printed as one
@@ -48,10 +51,6 @@ _UNPORTED_FLAGS = {
     "tpu_zone": "item 10 (scheduler/)",
     "tpu_project": "item 10 (scheduler/)",
     "tpu_num_hosts": "item 10 (scheduler/)",
-    "multiprocess": "item 7.3 (the multi-process runtime)",
-    "recover_retries": "item 7.3 (worker-death recovery over the multi-process runtime)",
-    "mfc_timeout_s": "item 7.3 (worker-death recovery over the multi-process runtime)",
-    "worker_heartbeat_s": "item 7.3 (the multi-process runtime)",
     "no_weight_push_checksum": "item 7.4 (the param store)",
     "eval_data": "item 10 (scheduler/evaluator.py)",
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
@@ -99,10 +98,17 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--tpu-zone", default=None, help="not yet ported")
     p.add_argument("--tpu-project", default=None, help="not yet ported")
     p.add_argument("--tpu-num-hosts", type=int, default=1, help="not yet ported")
-    p.add_argument("--multiprocess", action="store_true", help="not yet ported")
-    p.add_argument("--recover-retries", type=int, default=0, help="not yet ported")
-    p.add_argument("--mfc-timeout-s", type=float, default=None, help="not yet ported")
-    p.add_argument("--worker-heartbeat-s", type=float, default=5.0, help="not yet ported")
+    p.add_argument("--multiprocess", action="store_true",
+                   help="run each worker in a process of its own (the local scheduler), the "
+                        "master in this one")
+    p.add_argument("--recover-retries", type=int, default=0,
+                   help="with --multiprocess: attempts after a failed one, each resubmitting "
+                        "every worker and resuming from the last recover checkpoint")
+    p.add_argument("--mfc-timeout-s", type=float, default=None,
+                   help="deadline of each request to a worker; past it a worker that stopped "
+                        "heartbeating is declared dead and the master recovers")
+    p.add_argument("--worker-heartbeat-s", type=float, default=5.0,
+                   help="with --multiprocess: the workers' heartbeat period")
     p.add_argument("--max-recoveries", type=int, default=3,
                    help="rollbacks to the recover checkpoint the master absorbs before "
                         "exiting non-zero")
@@ -218,7 +224,7 @@ def _refuse_unported(defaults, args) -> None:
     for url in (args.__dict__.get("gen_server_url") or "").split(","):
         if url.strip() and not url.strip().startswith(("http://", "https://")):
             raise SystemExit(f"--gen-server-url {url.strip()}: only http:// is ported "
-                             "(ROADMAP queue 1, item 7.3: the ZMQ transport)")
+                             "(ROADMAP queue 1, item 7.8: the ZMQ transport)")
     if args.allocation != "d1":
         raise SystemExit(f"--allocation {args.allocation}: only d1 (one device) is ported "
                          "(ROADMAP queue 1, item 8: multi-GPU layouts)")
@@ -273,7 +279,10 @@ def _run(plan, args, device):
 
     for wc in plan.worker_configs:
         wc.tokenizer_path = args.tokenizer_path or args.model_path
-    stats = runner.run_experiment_inproc(plan, device=device)
+    if args.multiprocess:
+        stats = runner.run_experiment(plan, recover_retries=args.recover_retries, device=device)
+    else:
+        stats = runner.run_experiment_inproc(plan, device=device)
     print(json.dumps(stats[-1] if stats else {}), flush=True)
     return stats
 
@@ -293,6 +302,8 @@ def cmd_sft(args, device=None):
         experiment_name=args.experiment_name or "sft",
         trial_name=args.trial_name,
         fileroot=args.fileroot,
+        mfc_timeout_s=args.mfc_timeout_s,
+        worker_heartbeat_s=args.worker_heartbeat_s,
         max_recoveries=args.max_recoveries,
         anomaly_grad_norm_mult=args.anomaly_grad_norm_mult,
         anomaly_update_norm_max=args.anomaly_update_norm_max,
@@ -355,6 +366,8 @@ def cmd_ppo_math(args, device=None):
         experiment_name=args.experiment_name or "ppo-math",
         trial_name=args.trial_name,
         fileroot=args.fileroot,
+        mfc_timeout_s=args.mfc_timeout_s,
+        worker_heartbeat_s=args.worker_heartbeat_s,
         max_recoveries=args.max_recoveries,
         max_consecutive_quarantines=args.max_consecutive_quarantines,
         pipeline_overlap=args.pipeline_overlap,

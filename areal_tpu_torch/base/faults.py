@@ -1,6 +1,6 @@
 """Fault injection at named points (a trimmed port of
 areal_tpu/base/faults.py): the spec grammar, `FaultInjector.parse`,
-`from_env` and `fire`.
+`from_env`, `fire`, and the kill checks `kill_point` and `kill_due`.
 
     AREAL_FAULTS="error@point=tool:calculator&times=1"  # break one tool call
     AREAL_FAULTS="slow@ms=50&p=0.5, error@p=0.05"       # combined
@@ -16,10 +16,13 @@ Params: ``t`` (arm delay: seconds, or with an ``s``/``ms`` suffix),
 first N matching calls), ``times`` (fire at most N times, 0 =
 unlimited).  At a ``fire(point)`` call ``slow`` sleeps, ``error`` raises
 :class:`FaultError` and ``hang`` blocks until :meth:`release` or its
-cap.  The passive kinds (``kill``, ``nan``, ``corrupt_push``) parse but
-never fire here: their host-side checks (`kill_point`, `kill_due`,
-`poison`) come with ROADMAP queue 1 item 7.  The probability stream is
-seeded from ``AREAL_FAULTS_SEED`` (default 0).
+cap.  ``kill`` never fires there: the host asks `kill_point(point)` (a
+point-scoped kill, skip and times counted) or `kill_due()` (a kill
+without a point, once its arm delay has passed) and exits itself.  The
+poison kinds (``nan``, ``corrupt_push``) parse, and their check
+`poison` comes with ROADMAP queue 1 item 7.6.  `fired` counts the
+faults that fired, by kind.  The probability stream is seeded from
+``AREAL_FAULTS_SEED`` (default 0).
 """
 
 import dataclasses
@@ -139,6 +142,8 @@ class FaultInjector:
         self._released = threading.Event()
         self._t0 = time.monotonic()
         self._match_counts = {}
+        self.fired = {k: 0 for k in KINDS}
+        self._kill_reported = False
 
     @classmethod
     def parse(cls, text: str, **kw) -> "FaultInjector":
@@ -172,6 +177,7 @@ class FaultInjector:
                 continue
             if not self._eligible(i, s):
                 continue
+            self.fired[s.kind] += 1
             if s.kind == "slow":
                 time.sleep(s.latency_s)
             elif s.kind == "hang":
@@ -183,6 +189,39 @@ class FaultInjector:
                 raise FaultError(f"hang fault at {point!r} released")
             elif s.kind == "error":
                 raise FaultError(f"injected error at {point!r}")
+
+    @property
+    def kill_spec(self) -> Optional[FaultSpec]:
+        """The first ``kill`` without a point (point-scoped kills go
+        through `kill_point`, never through the host's timer)."""
+        for s in self.specs:
+            if s.kind == "kill" and not s.point:
+                return s
+        return None
+
+    def kill_due(self) -> bool:
+        """True once a point-less ``kill``'s arm delay has passed.  The
+        host polls this and exits itself; the injector never does."""
+        s = self.kill_spec
+        due = s is not None and self.elapsed_s() >= s.arm_after_s
+        if due and not self._kill_reported:
+            self._kill_reported = True
+            self.fired["kill"] += 1
+        return due
+
+    def kill_point(self, point: str) -> bool:
+        """True when a point-scoped ``kill`` matches this call (skip,
+        times and p counted): the host exits itself (``os._exit``)."""
+        elapsed = self.elapsed_s()
+        for i, s in enumerate(self.specs):
+            if s.kind != "kill" or not s.point or not s.matches(point, elapsed):
+                continue
+            if not self._eligible(i, s):
+                continue
+            self.fired["kill"] += 1
+            logger.warning(f"FAULT kill at point {point!r}")
+            return True
+        return False
 
     def release(self) -> None:
         """Unblock every ``hang`` in flight."""

@@ -57,14 +57,33 @@ def unported_options(cfg):
     urls = [u.strip() for u in (cfg.gen_server_url or "").split(",") if u.strip()]
     checks = (
         (any(not u.startswith(("http://", "https://")) for u in urls),
-         "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.3"),
+         "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.8"),
         (cfg.param_push_tree, "param_push_tree", "queue 1, item 7.4"),
         (cfg.verifier_pool, "verifier_pool", "queue 1, item 7.5"),
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
          "queue 1, item 7.5"),
-        (bool(cfg.placement), "placement (more than one worker)", "queue 1, items 7 and 8"),
+        (any(isinstance(w, list) for w in cfg.placement.values()),
+         "placement over several workers a model (model replicas)", "queue 1, item 8"),
     )
     return [(name, item) for bad, name, item in checks if bad]
+
+
+def check_liveness(cfg) -> None:
+    """The multi-process runtime's liveness knobs: a deadline inside the
+    heartbeat's grace would declare live workers dead at their first slow
+    MFC."""
+    timeout = getattr(cfg, "mfc_timeout_s", None)
+    beat = getattr(cfg, "worker_heartbeat_s", 5.0)
+    if beat <= 0:
+        _fail(f"worker_heartbeat_s must be > 0, got {beat}")
+    if timeout is not None:
+        if timeout <= 0:
+            _fail(f"mfc_timeout_s must be > 0 (omit it for no deadline), got {timeout}")
+        if timeout <= beat:
+            _fail(f"mfc_timeout_s ({timeout}) must exceed worker_heartbeat_s ({beat}): at "
+                  "least one beat must fit inside the deadline to tell slow from dead")
+    if getattr(cfg, "max_recoveries", 3) < 0:
+        _fail(f"max_recoveries must be >= 0, got {getattr(cfg, 'max_recoveries', 3)}")
 
 
 def check_anomaly(cfg) -> None:
@@ -95,10 +114,9 @@ def check_anomaly(cfg) -> None:
 def check_sft(cfg) -> None:
     """Checks for SFTConfig."""
     check_optimizer(cfg.optimizer)
+    check_liveness(cfg)
     check_anomaly(cfg)
     check_model_path("model", cfg.model)
-    if cfg.max_recoveries < 0:
-        _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
 
 
 def check_ppo_math(cfg) -> None:
@@ -110,6 +128,7 @@ def check_ppo_math(cfg) -> None:
         ))
     check_optimizer(cfg.optimizer)
     check_gconfig(cfg.gconfig)
+    check_liveness(cfg)
     check_anomaly(cfg)
     if cfg.rollout_ahead not in (0, 1):
         _fail(f"rollout_ahead must be 0 or 1, got {cfg.rollout_ahead}")
@@ -167,8 +186,9 @@ def check_ppo_math(cfg) -> None:
         _fail("gen_backend_args/kv_paged/kv_page_size/kv_pool_pages/prefill_chunk_tokens/"
               "kv_share_prefix apply to the in-process GeneratorEngine and are ignored "
               "under gen_server_url (configure the generation server instead)")
-    if cfg.max_recoveries < 0:
-        _fail(f"max_recoveries must be >= 0, got {cfg.max_recoveries}")
+    for role, widx in cfg.placement.items():
+        if not isinstance(widx, int) or isinstance(widx, bool) or widx < 0:
+            _fail(f"placement[{role!r}] must be a worker index, got {widx!r}")
     if cfg.dataset_filter:
         lo = cfg.dataset_filter.get("min_accuracy", 0.0)
         hi = cfg.dataset_filter.get("max_accuracy", 1.0)

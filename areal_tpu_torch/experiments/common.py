@@ -18,8 +18,11 @@ step modes (a positive cap turns on decoupled PPO through
 `behav_imp_weight_cap`), and `gen_server_url` makes the generator a
 weightless client of generation servers (`_remote_gen_shard`, the
 `remote_generator` backend), its weights pushed from disk after each
-train step (paused around the push with `inmem_weight_sync`).  Every
-model lives on one worker on one device.  The options the port does not
+train step (paused around the push with `inmem_weight_sync`).
+`placement` puts a model role on another worker (each model on exactly
+one; the datasets on worker 0), and `mfc_timeout_s` and
+`worker_heartbeat_s` reach the plan for the multi-process runtime
+(`apps/main.py run_experiment`).  The options the port does not
 have yet stay in `PPOMathConfig` with their "off" defaults and fail
 `check_ppo_math` when set (see `experiments/check.unported_options`).
 """
@@ -73,6 +76,11 @@ class ExperimentPlan:
     rollout_ahead: int = 0
     max_head_offpolicyness: Optional[int] = None
     replay_capacity: int = 4
+    # The multi-process runtime's liveness (apps/main.py run_experiment,
+    # system/stream.py): each request's deadline (None: none) and the
+    # workers' heartbeat period.
+    mfc_timeout_s: Optional[float] = None
+    worker_heartbeat_s: float = 5.0
 
 
 @dataclasses.dataclass
@@ -90,6 +98,8 @@ class SFTConfig:
     experiment_name: str = "sft"
     trial_name: str = "trial"
     fileroot: str = "/tmp/areal_tpu_torch/trial"
+    mfc_timeout_s: Optional[float] = None
+    worker_heartbeat_s: float = 5.0
     max_recoveries: int = 3
     # The engine's sentinels (0: off): the grad-norm spike multiplier
     # over the clean steps' EWMA (> 1 when set) and the update-norm
@@ -139,6 +149,8 @@ def build_sft(cfg: SFTConfig, tokenizer=None) -> ExperimentPlan:
         fileroot=cfg.fileroot,
         max_recoveries=cfg.max_recoveries,
         max_consecutive_quarantines=cfg.max_consecutive_quarantines,
+        mfc_timeout_s=cfg.mfc_timeout_s,
+        worker_heartbeat_s=cfg.worker_heartbeat_s,
     )
 
 
@@ -206,10 +218,18 @@ class PPOMathConfig:
     # EMA-update the reference model toward the actor after each train
     # step (ref <- eta * actor + (1 - eta) * ref).  None: a frozen ref.
     ref_ema_eta: Optional[float] = None
+    # The multi-process runtime's liveness: each request's deadline (None:
+    # none) and the workers' heartbeat period.
+    mfc_timeout_s: Optional[float] = None
+    worker_heartbeat_s: float = 5.0
     # Rollbacks to the recover checkpoint the master absorbs, and the
     # quarantine streak that triggers one (0: never).
     max_recoveries: int = 3
     max_consecutive_quarantines: int = 3
+    # Model role -> worker index (e.g. {"actor_gen": 1, "reward": 1}: the
+    # generator and the reward on a second worker, the data and param
+    # planes moving what crosses).  Roles not listed run on worker 0.
+    placement: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # The pipeline-overlapped step: chunks of pipeline_chunk_seqs prompts
     # stream through generate -> reward/ref -> train grad accumulation,
     # overlap_window chunks in flight, one optimizer step after the last
@@ -246,7 +266,6 @@ class PPOMathConfig:
     verifier_pool: bool = False
     mixture_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
     mixture_adaptive: bool = False
-    placement: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Agent episodes (system/episode.py): carried as the JAX package
     # carries them.  No code of the in-process trial reads them there
     # either; only an episode runner on the rollout controller (ROADMAP
@@ -446,15 +465,24 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         ))
     ftspec = FinetuneSpec(total_train_epochs=cfg.total_train_epochs,
                           train_batch_size=cfg.batch_size)
-    worker = WorkerConfig(
-        worker_index=0, shards=shards, datasets=[cfg.dataset], batch_size=cfg.batch_size,
-        seed=cfg.seed, ftspec=ftspec,
-    )
+    placement = {str(s.name): int(cfg.placement.get(s.name.role, 0)) for s in shards}
+    n_workers = max(placement.values()) + 1
+    worker_configs = [
+        WorkerConfig(
+            worker_index=w,
+            shards=[s for s in shards if placement[str(s.name)] == w],
+            # The datasets live on worker 0; what other workers need moves
+            # over the master's data plane.
+            datasets=[cfg.dataset] if w == 0 else [],
+            batch_size=cfg.batch_size, seed=cfg.seed, ftspec=ftspec,
+        )
+        for w in range(n_workers)
+    ]
     cfg.ctrl.total_train_epochs = cfg.total_train_epochs
     return ExperimentPlan(
         dfg=dfg,
-        worker_configs=[worker],
-        model_placement={str(s.name): 0 for s in shards},
+        worker_configs=worker_configs,
+        model_placement=placement,
         data_worker_ids=[0],
         ctrl=cfg.ctrl,
         experiment_name=cfg.experiment_name,
@@ -469,6 +497,8 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         rollout_ahead=cfg.rollout_ahead,
         max_head_offpolicyness=cfg.max_head_offpolicyness,
         replay_capacity=cfg.replay_capacity,
+        mfc_timeout_s=cfg.mfc_timeout_s,
+        worker_heartbeat_s=cfg.worker_heartbeat_s,
     )
 
 
@@ -503,32 +533,21 @@ def _remote_gen_shard(cfg: PPOMathConfig, actor_gen, actor_if) -> ModelShardSpec
 
 def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
     """In-process runner: build the workers on `device` (the CUDA card
-    unless told otherwise), drive the master loop to completion.  A
-    trial with recover info on its fileroot resumes from it.  Returns
-    (master, per-step stats)."""
-    from areal_tpu_torch.system.master import InProcessPool, MasterWorker
+    unless told otherwise), joined by `InProcTransfer`, and drive the
+    master loop to completion.  A trial with recover info on its
+    fileroot resumes from it.  Returns (master, per-step stats).  (The
+    multi-process runtime is `apps/main.py run_experiment`.)"""
+    from areal_tpu_torch.apps.main import make_master
+    from areal_tpu_torch.system.master import InProcessPool
+    from areal_tpu_torch.system.transfer import InProcTransfer
     from areal_tpu_torch.system.worker import ModelWorker
 
-    workers = [ModelWorker(wc, tokenizer=tokenizer, device=device) for wc in plan.worker_configs]
-    master = MasterWorker(
-        dfg=plan.dfg,
-        pool=InProcessPool(workers),
-        model_placement=plan.model_placement,
-        data_worker_ids=plan.data_worker_ids,
-        ctrl=plan.ctrl,
-        fileroot=plan.fileroot,
-        experiment_name=plan.experiment_name,
-        trial_name=plan.trial_name,
-        difficulty_filter=plan.difficulty_filter,
-        max_recoveries=plan.max_recoveries,
-        max_consecutive_quarantines=plan.max_consecutive_quarantines,
-        pipeline_overlap=plan.pipeline_overlap,
-        overlap_window=plan.overlap_window,
-        pipeline_chunk_seqs=plan.pipeline_chunk_seqs,
-        rollout_ahead=plan.rollout_ahead,
-        max_head_offpolicyness=plan.max_head_offpolicyness,
-        replay_capacity=plan.replay_capacity,
-    )
+    planes = InProcTransfer.make_group(len(plan.worker_configs))
+    workers = [
+        ModelWorker(wc, tokenizer=tokenizer, device=device, transfer=planes[i])
+        for i, wc in enumerate(plan.worker_configs)
+    ]
+    master = make_master(plan, InProcessPool(workers, mfc_timeout_s=plan.mfc_timeout_s))
     master.load_recover_info()
     stats = asyncio.run(master.run())
     return master, stats

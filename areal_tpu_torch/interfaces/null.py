@@ -5,7 +5,10 @@ areal_tpu/interfaces/null.py, `NullInterface`, registered "null").
 reward interface's output, from a numpy generator seeded as the JAX
 package seeds it (so both packages draw the same rewards); `train_step`
 consumes its batch and returns `null/n_seqs`.  The trial's dispatch,
-data plane and buffer run with no device compute.
+data plane and buffer run with no device compute.  The generator's state
+goes into recover checkpoints (`state_dict`), so a resumed trial draws
+the rewards the uninterrupted one draws; the JAX package's restarts its
+stream from the seed.
 """
 
 from typing import Dict
@@ -37,6 +40,13 @@ class NullInterface(ModelInterface):
         self, model: Model, sample: SequenceSample, mb_spec: MicroBatchSpec
     ) -> Dict[str, float]:
         return {"null/n_seqs": float(len(sample.ids))}
+
+    def state_dict(self) -> Dict:
+        return {"rng": self._rng.bit_generator.state}
+
+    def load_state_dict(self, sd: Dict) -> None:
+        if "rng" in sd:
+            self._rng.bit_generator.state = sd["rng"]
 
 
 register_interface("null", NullInterface)

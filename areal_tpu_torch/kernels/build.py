@@ -21,7 +21,9 @@ from typing import Dict, List, Sequence, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# A worker process of a multi-process trial loads the libraries its
+# launcher built, from the directory the launcher names.
+BUILD_DIR = os.environ.get("AREAL_TORCH_BUILD_DIR") or os.path.join(PKG_DIR, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

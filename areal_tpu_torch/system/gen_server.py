@@ -28,7 +28,7 @@ this host; with `ckpt_root` (or ``AREAL_GEN_CKPT_ROOT``) set, a path
 that resolves outside it is refused.
 
 Not yet ported: `/param_push` and the fabric push (ROADMAP queue 1 item
-7.4), `/metrics` (7.5), the ZMQ transport (7.3), the other fault points
+7.4), `/metrics` (7.5), the ZMQ transport (7.8), the other fault points
 and the command-line entry point.
 """
 
@@ -575,7 +575,7 @@ def make_gen_client(url: str, **kw) -> LLMAPIClient:
     if not url.startswith(("http://", "https://")):
         raise NotImplementedError(
             f"generation server URL {url!r}: only http:// is ported "
-            "(ROADMAP queue 1, item 7.3: the ZMQ transport)"
+            "(ROADMAP queue 1, item 7.8: the ZMQ transport)"
         )
     return LLMAPIClient(url, **kw)
 

@@ -54,16 +54,36 @@ generate and the step's train step run at once (on the card, on the
 one default stream).  Each step reports `replay/*` stats, and recover
 checkpoints carry the replay watermarks and the pipeline's state.
 
-One worker hosts every model (a single device).  Not yet ported, and
-refused where a plan asks for them: placements over more than one
-worker (ROADMAP queue 1, items 7 and 8) and worker-death recovery
-(item 7.3).
+Workers and placement.  Each model lives on exactly one worker
+(`model_placement`); the datasets live on the data workers.  The pool
+is the transport: `InProcessPool` (every worker in this process, each
+request in a thread of its own) or `system/stream.ConnWorkerPool` (each
+worker a process of its own, over `multiprocessing.connection`).  Across
+workers the master plans the moves itself: an ownership map says which
+workers hold each (data id, key) (`_record_owner`, at each fetch and at
+each MFC's outputs); before an MFC, `_ensure_data` moves what its worker
+lacks as one tagged data_send/data_recv pair a source; a weight sync
+whose target lives on another worker becomes a checksummed
+param_send/param_recv pair (an EMA target gets its `eta`); the
+difficulty filter reads each id's rewards where they live.  Each step
+reports the transfers as `transfer/*` stats (`_acc_xfer`).
+
+Worker death.  A request past the pool's deadline (`mfc_timeout_s`)
+whose worker has stopped beating raises `WorkerDeadError`; the run loop
+absorbs it (`_recover_from_worker_death`): a fault report, the step
+aborted, the `worker_relauncher` (if any) called with the dead, a wait
+until every worker is back, and a rollback of every worker to the last
+recover checkpoint, within the `max_recoveries` budget that quarantine
+rollbacks share.  A model over several workers (`model_groups`,
+replicas) and every layout other than d1 come with ROADMAP queue 1,
+item 8.
 """
 
 import asyncio
 import collections
 import contextvars
 import dataclasses
+import inspect
 import json
 import logging
 import os
@@ -89,26 +109,100 @@ _IN_PREFETCH: contextvars.ContextVar[bool] = contextvars.ContextVar(
 OPTIMIZER_FILE = "optimizer_state.safetensors"
 
 
+class WorkerDeadError(RuntimeError):
+    """A worker missed its MFC deadline and (over the process transport)
+    its heartbeat: its in-flight requests fail with this, so the master
+    aborts the step and recovers instead of hanging."""
+
+    def __init__(self, worker_id: int, reason: str):
+        super().__init__(f"worker {worker_id} dead: {reason}")
+        self.worker_id = worker_id
+        self.reason = reason
+
+
+class PoolClosedError(RuntimeError):
+    """The pool was closed with requests in flight: their awaiters get
+    this instead of hanging on futures no one will resolve."""
+
+
+def pool_metrics():
+    """The worker-liveness counters every WorkerPool shares (the
+    registry is get-or-create, so each call returns the same three)."""
+    reg = metrics.default_registry()
+    return (
+        reg.counter("areal_master_worker_dead_total",
+                    "workers declared dead (deadline expired, heartbeat stale)"),
+        reg.counter("areal_master_mfc_timeout_total",
+                    "MFC requests whose deadline expired (slow or dead)"),
+        reg.counter("areal_master_orphan_replies_total",
+                    "late or unmatched worker replies dropped by the master", ("reason",)),
+    )
+
+
+_TIMEOUT_UNSET = object()
+
+
 class WorkerPool:
     """Transport abstraction: request(worker_id, payload) -> response."""
 
-    async def request(self, worker_id: int, payload: Dict[str, Any]) -> Dict:
+    # The per-request deadline's default; None waits for ever.
+    mfc_timeout_s: Optional[float] = None
+
+    async def request(self, worker_id: int, payload: Dict[str, Any],
+                      timeout: Any = _TIMEOUT_UNSET) -> Dict:
         raise NotImplementedError
 
     @property
     def n_workers(self) -> int:
         raise NotImplementedError
 
+    @property
+    def dead_workers(self) -> set:
+        return set()
+
+    async def wait_workers(self, timeout: float = 300.0):
+        """Block until every worker is reachable (a no-op in-process)."""
+
 
 class InProcessPool(WorkerPool):
     """Every worker lives in this process; each request runs in a thread
-    of its own."""
+    of its own.  With a deadline, a request that outlives it declares its
+    worker dead (a handler thread cannot beat for itself, so there is no
+    heartbeat lane here) until `revive`."""
 
-    def __init__(self, workers):
+    def __init__(self, workers, mfc_timeout_s: Optional[float] = None):
         self.workers = list(workers)
+        self.mfc_timeout_s = mfc_timeout_s
+        self._dead: set = set()
+        self._m_worker_dead, self._m_mfc_timeout, _ = pool_metrics()
 
-    async def request(self, worker_id: int, payload: Dict[str, Any]) -> Dict:
-        return await asyncio.to_thread(self.workers[worker_id].handle_request, payload)
+    async def request(self, worker_id: int, payload: Dict[str, Any],
+                      timeout: Any = _TIMEOUT_UNSET) -> Dict:
+        if timeout is _TIMEOUT_UNSET:
+            timeout = self.mfc_timeout_s
+        if worker_id in self._dead:
+            raise WorkerDeadError(worker_id, "worker previously declared dead")
+        coro = asyncio.to_thread(self.workers[worker_id].handle_request, payload)
+        if timeout is None:
+            return await coro
+        # The expired thread runs on: whoever injected a hang releases it.
+        try:
+            return await asyncio.wait_for(coro, timeout)
+        except asyncio.TimeoutError:
+            self._m_mfc_timeout.inc()
+            self._m_worker_dead.inc()
+            self._dead.add(worker_id)
+            raise WorkerDeadError(
+                worker_id, f"no reply to {payload.get('type')} within {timeout}s"
+            ) from None
+
+    def revive(self, worker_id: int):
+        """Clear a death verdict (the in-process stand-in for a relaunch)."""
+        self._dead.discard(worker_id)
+
+    @property
+    def dead_workers(self) -> set:
+        return set(self._dead)
 
     @property
     def n_workers(self) -> int:
@@ -140,9 +234,14 @@ class MasterWorker:
         # group accuracy falls outside [min_accuracy, max_accuracy] are
         # removed from the datasets.
         difficulty_filter: Optional[Dict[str, float]] = None,
-        # Rollbacks to the recover checkpoint the run loop absorbs before
-        # it gives up.
+        # Rollbacks to the recover checkpoint the run loop absorbs (worker
+        # deaths and quarantine streaks together) before it gives up.
         max_recoveries: int = 3,
+        # Called with the sorted dead worker ids before the master waits
+        # for the fleet again after a worker death (sync or async); a
+        # launcher uses it to respawn the processes.  Without one the
+        # master still waits: a worker relaunched from outside rejoins.
+        worker_relauncher: Optional[Any] = None,
         # Consecutive quarantined steps that escalate to a rollback onto
         # the last valid recover checkpoint (0: only count them).
         max_consecutive_quarantines: int = 3,
@@ -163,11 +262,15 @@ class MasterWorker:
         # The replay buffer's capacity in batches (at least cap + 1).
         replay_capacity: int = 4,
     ):
-        if (pool.n_workers != 1 or set(model_placement.values()) != {0}
-                or list(data_worker_ids) != [0]):
-            raise NotImplementedError(
-                "placements over more than one worker need the cross-worker data and "
-                "param planes (ROADMAP queue 1, items 7 and 8)"
+        outside = sorted({
+            w for w in [*model_placement.values(), *data_worker_ids]
+            if not (isinstance(w, int) and 0 <= w < pool.n_workers)
+        }, key=str)
+        if outside:
+            raise ValueError(
+                f"placement names workers {outside} outside the pool's {pool.n_workers} "
+                "(each model lives on exactly one worker; a model over several workers "
+                "comes with ROADMAP queue 1, item 8)"
             )
         self.dfg = dfg
         self.pool = pool
@@ -179,9 +282,6 @@ class MasterWorker:
         self.trial_name = trial_name
         self.difficulty_filter = difficulty_filter
         self._filtered_ids: List[str] = []
-        # Ids the step's reward call graded, in the buffer's order (the
-        # JAX master reads them from its cross-worker ownership map).
-        self._graded_ids: List[str] = []
         # Ids of the latest fetch: the quarantine ledger's attribution.
         self._last_data_ids: List[str] = []
         self.buffer = SequenceBuffer(consumers={n.name: n.input_keys for n in dfg.nodes})
@@ -193,12 +293,14 @@ class MasterWorker:
         self.stats_history: List[Dict[str, float]] = []
         self.stats_logger = StatsLogger(fileroot, experiment_name, trial_name)
         self.max_recoveries = int(max_recoveries)
+        self.worker_relauncher = worker_relauncher
         self._recoveries = 0
         self.max_consecutive_quarantines = int(max_consecutive_quarantines)
         self._consecutive_quarantines = 0
         self._quarantine_ledger: List[Dict[str, Any]] = []
         self._steps_per_epoch: Optional[int] = None
         self._restore_pending: Optional[recover.RecoverInfo] = None
+        self.restore_seconds: Optional[float] = None  # the last restore's wall
         self._train_rpcs = [
             n for n in dfg.nodes if n.interface_type == ModelInterfaceType.TRAIN_STEP
         ]
@@ -261,7 +363,19 @@ class MasterWorker:
             if n.interface_type == ModelInterfaceType.GENERATE
             and all(dfg.data_producers.get(k) is None for k in n.input_keys)
         ]
+        # The cross-worker data plane's book: which workers hold which
+        # (data id, key); a copy in flight is a future under (id, key, dst).
+        self._owners: Dict[str, Dict[str, set]] = {}
+        self._inflight: Dict[tuple, asyncio.Future] = {}
+        self._xfer_id = 0
+        # This step's transfers (bytes and seconds by kind), reported as
+        # the step's transfer/* stats.
+        self._xfer_acc: Dict[str, float] = {}
         reg = metrics.default_registry()
+        self._m_recoveries = reg.counter(
+            "areal_master_recoveries_total",
+            "worker-death recoveries absorbed by the master run loop",
+        )
         self._m_pipe_fill = reg.gauge(
             "areal_master_pipeline_fill_ratio",
             "last streamed step: stage busy seconds / step window", ("stage",),
@@ -301,7 +415,11 @@ class MasterWorker:
         try:
             while self.step_info.global_step < total_steps:
                 t0 = time.monotonic()
-                stats = await self.execute_step()
+                try:
+                    stats = await self.execute_step()
+                except WorkerDeadError as e:
+                    await self._recover_from_worker_death(e)
+                    continue
                 dt = time.monotonic() - t0
                 stats["time/step_s"] = dt
                 quarantined = self._note_quarantine(stats)
@@ -328,6 +446,46 @@ class MasterWorker:
             await self.save(kind="persistent")
         if self.ckpt_ctl.check():
             await self.save(kind="recover")
+
+    # ---------------- worker-death recovery ----------------
+
+    async def _recover_from_worker_death(self, err: WorkerDeadError) -> None:
+        """Absorb a worker's death: report it, abort the half-done step,
+        have the relauncher (if any) respawn the dead, wait until every
+        worker is back and roll every worker back to the last recover
+        checkpoint.  Raises (so run() fails) past the recovery budget or
+        without a checkpoint to roll back to."""
+        self._recoveries += 1
+        self._m_recoveries.inc()
+        report = {
+            "event": "worker_dead",
+            "worker_id": err.worker_id,
+            "reason": err.reason,
+            "step": self.step_info.global_step,
+            "dead_workers": sorted(self.pool.dead_workers),
+            "recovery": self._recoveries,
+            "max_recoveries": self.max_recoveries,
+        }
+        logger.error(f"FAULT_REPORT {json.dumps(report, sort_keys=True)}")
+        if self._recoveries > self.max_recoveries:
+            raise RuntimeError(
+                f"recovery budget exhausted ({self.max_recoveries}): "
+                f"worker {err.worker_id} dead: {err.reason}"
+            )
+        await self._abort_step()
+        if self.worker_relauncher is not None:
+            ret = self.worker_relauncher(sorted(self.pool.dead_workers))
+            if inspect.isawaitable(ret):
+                await ret
+        await self.pool.wait_workers()
+        if not self.load_recover_info():
+            raise RuntimeError(
+                f"worker {err.worker_id} died before the first recover checkpoint "
+                "existed; nothing to roll back to"
+            )
+        await self._restore_worker_state()
+        logger.info(f"recovered from worker {err.worker_id}'s death; resuming at step "
+                    f"{self.step_info.global_step}")
 
     # ---------------- step quarantine and escalation ----------------
 
@@ -392,11 +550,10 @@ class MasterWorker:
                     f"{self.step_info.global_step}")
 
     async def _abort_step(self) -> None:
-        """Cancel the rollout prefetches and forget the step's data before
-        a rollback, so the replayed step starts from a clean buffer.  (A
-        cancelled prefetch's thread runs to its end.  The JAX master also
-        drops open train streams: the port's close within the step that
-        opens them.)"""
+        """Cancel the rollout prefetches, drop the open train streams of
+        the living workers and forget the step's data and transfers
+        before a rollback, so the replayed step starts clean.  (A
+        cancelled prefetch's thread runs to its end.)"""
         tasks = list(self._ahead_queue)
         self._ahead_queue.clear()
         if self._ahead_task is not None:
@@ -406,14 +563,25 @@ class MasterWorker:
             t.cancel()
         if tasks:
             await asyncio.gather(*tasks, return_exceptions=True)
+        alive = [w for w in range(self.pool.n_workers) if w not in self.pool.dead_workers]
+        await asyncio.gather(*[
+            self.pool.request(w, {"type": "train_stream_abort"}) for w in alive
+        ], return_exceptions=True)
         self.buffer.clear()
-        self._graded_ids = []
+        for fut in self._inflight.values():
+            if not fut.done():
+                fut.cancel()
+        self._inflight.clear()
+        self._owners.clear()
+        self._xfer_acc.clear()
 
     # ---------------- one step ----------------
 
     async def execute_step(self) -> Dict[str, float]:
         results: Dict[str, Dict[str, float]] = {}
-        self._graded_ids = []
+        # clear(), never rebind: a prefetch's transfers of the next step
+        # land in it while this step runs.
+        self._xfer_acc.clear()
         if self._async_rl and self._source_nodes:
             await self._execute_step_async_rl(results)
         elif self.rollout_ahead > 0 and self._source_nodes:
@@ -435,6 +603,8 @@ class MasterWorker:
         for name, stats in results.items():
             for k, v in stats.items():
                 merged[f"{name}/{k}" if len(results) > 1 else k] = v
+        for k, v in self._xfer_acc.items():
+            merged[f"transfer/{k}"] = v
         for k, v in self.buffer.stats().items():
             merged[f"buffer/{k}"] = float(v)
         return merged
@@ -448,7 +618,8 @@ class MasterWorker:
                 *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
             )
             ids: List[str] = []
-            for r in resps:
+            for w, r in zip(self.data_worker_ids, resps):
+                self._record_owner(r["meta"], w)
                 await self.buffer.put_batch(r["meta"], step=self.step_info.global_step)
                 ids.extend(r["meta"].ids)
             self._last_data_ids = ids
@@ -544,7 +715,7 @@ class MasterWorker:
                     f"async_rl: rejected {traj.qid} (head version {v0} vs trainer "
                     f"{self._trainer_version}, cap {self.max_head_offpolicyness})"
                 )
-                await self.buffer.drop_ids(ids)
+                await self._drop_batch_ids(ids)
                 # Free its launch slot: a replacement stamped with the
                 # current version keeps the step budget whole.
                 self._batches_launched -= 1
@@ -576,7 +747,12 @@ class MasterWorker:
             return
         dropped, self._replay_dropped = self._replay_dropped, []
         for traj in dropped:
-            await self.buffer.drop_ids(traj.data["ids"])
+            await self._drop_batch_ids(traj.data["ids"])
+
+    async def _drop_batch_ids(self, ids: List[str]) -> None:
+        await self.buffer.drop_ids(ids)
+        for sid in ids:
+            self._owners.pop(sid, None)
 
     # ---------------- the pipeline-overlapped step ----------------
 
@@ -631,6 +807,7 @@ class MasterWorker:
                                 })
                         t0 = time.monotonic()
                         if is_train:
+                            await self._ensure_data(node, chunk_ids, worker)
                             resp = await self.pool.request(worker, {
                                 "type": "mfc_stream_chunk", "model_name": key,
                                 "ids": chunk_ids, "input_keys": list(node.input_keys),
@@ -710,6 +887,8 @@ class MasterWorker:
             await self._run_hook(hook, node)
 
     async def _dispatch_mfc(self, node: MFCDef, ids: List[str]) -> Dict:
+        worker = self.placement[str(node.model_name)]
+        await self._ensure_data(node, ids, worker)
         payload = {
             "type": "mfc",
             "model_name": str(node.model_name),
@@ -720,13 +899,98 @@ class MasterWorker:
             "output_key_remap": dict(node.output_key_remap),
             "mb_spec": node.mb_spec,
         }
-        resp = await self.pool.request(self.placement[str(node.model_name)], payload)
+        resp = await self.pool.request(worker, payload)
         meta = resp.get("meta")
         if meta is not None:
+            self._record_owner(meta, worker, replace=True)
             await self.buffer.amend_batch(meta)
-            if "rewards" in meta.keys:
-                self._graded_ids.extend(meta.ids)
         return resp
+
+    # ---------------- the cross-worker data plane ----------------
+
+    def _record_owner(self, meta, worker: int, replace: bool = False):
+        for sid in meta.ids:
+            km = self._owners.setdefault(sid, {})
+            for key in meta.keys:
+                if replace:
+                    km[key] = {worker}
+                else:
+                    km.setdefault(key, set()).add(worker)
+
+    async def _ensure_data(self, node: MFCDef, ids, dst: int):
+        """Move each input (id, key) not yet on `dst` there from a worker
+        that holds it: one tagged data_send/data_recv pair a source and
+        key set.  A copy another MFC already has in flight to `dst` is
+        awaited, not sent twice."""
+        plans: Dict[int, Dict[str, list]] = {}  # src -> key -> [ids]
+        waits = set()
+        started: list = []
+        # Planning makes no awaits, so its marks are atomic among the
+        # coroutines.
+        for sid in ids:
+            km = self._owners.get(sid, {})
+            for key in node.input_keys:
+                holders = km.get(key)
+                if holders is None:
+                    raise KeyError(f"MFC {node.name}: no worker holds {key!r} for data id {sid!r}")
+                if dst in holders:
+                    fut = self._inflight.get((sid, key, dst))
+                    if fut is not None:
+                        waits.add(fut)
+                    continue
+                src = min(w for w in holders if (sid, key, w) not in self._inflight)
+                plans.setdefault(src, {}).setdefault(key, []).append(sid)
+                km[key].add(dst)
+                self._inflight[(sid, key, dst)] = asyncio.get_running_loop().create_future()
+                started.append((sid, key, dst))
+        err: Optional[BaseException] = None
+        try:
+            for src, key_ids in plans.items():
+                by_id: Dict[str, set] = {}
+                for key, sids in key_ids.items():
+                    for sid in sids:
+                        by_id.setdefault(sid, set()).add(key)
+                groups: Dict[frozenset, list] = {}
+                for sid, keys in by_id.items():
+                    groups.setdefault(frozenset(keys), []).append(sid)
+                for keys, sids in groups.items():
+                    xfer_id = self._xfer_id
+                    self._xfer_id += 1
+                    send_r, recv_r = await asyncio.gather(
+                        self.pool.request(src, {"type": "data_send", "ids": sids,
+                                                "keys": sorted(keys), "dst": dst,
+                                                "xfer_id": xfer_id}),
+                        self.pool.request(dst, {"type": "data_recv", "xfer_id": xfer_id}),
+                    )
+                    self._acc_xfer("data", send_r, recv_r)
+        except BaseException as e:  # fail the waiters too, then re-raise
+            err = e
+            raise
+        finally:
+            for tag in started:
+                fut = self._inflight.pop(tag, None)
+                if fut is None or fut.done():
+                    continue
+                if err is None:
+                    fut.set_result(None)
+                else:
+                    fut.set_exception(RuntimeError(f"transfer for {tag} failed: {err!r}"))
+        if waits:
+            await asyncio.gather(*waits)
+
+    def _acc_xfer(self, kind: str, send_r: Optional[Dict] = None,
+                  recv_r: Optional[Dict] = None, count: bool = True):
+        """Fold one transfer's replies into the step's transfer/* stats."""
+        acc = self._xfer_acc
+        if send_r is not None:
+            acc[f"{kind}_bytes"] = acc.get(f"{kind}_bytes", 0.0) + float(send_r.get("bytes", 0) or 0)
+            acc[f"{kind}_send_s"] = (acc.get(f"{kind}_send_s", 0.0)
+                                     + float(send_r.get("seconds", 0.0) or 0.0))
+        if recv_r is not None:
+            acc[f"{kind}_recv_s"] = (acc.get(f"{kind}_recv_s", 0.0)
+                                     + float(recv_r.get("seconds", 0.0) or 0.0))
+        if count:
+            acc[f"{kind}_count"] = acc.get(f"{kind}_count", 0.0) + 1.0
 
     async def _run_hook(self, hook, node: MFCDef):
         if isinstance(hook, OffloadHook):
@@ -740,26 +1004,65 @@ class MasterWorker:
                 # One-step-ahead rollout: never swap a generator's weights
                 # under its prefetch (one weight version a batch).
                 await self._ahead_task
-            # Both models on the one worker: a local copy (or EMA).
-            await self.pool.request(self.placement[str(node.model_name)], {
-                "type": "param_sync",
-                "src": str(node.model_name),
-                "dst": str(hook.target),
-                "eta": hook.eta,
-            })
+            src_w = self.placement[str(node.model_name)]
+            dst_w = self.placement[str(hook.target)]
+            if src_w == dst_w:
+                # Both models on one worker: a local copy (or EMA).
+                await self.pool.request(src_w, {
+                    "type": "param_sync",
+                    "src": str(node.model_name),
+                    "dst": str(hook.target),
+                    "eta": hook.eta,
+                })
+                return
+            # Across workers over the transfer plane: the source gathers
+            # its weights on the host and ships them with their checksum;
+            # the target verifies before it swaps.  A rejected push is
+            # sent again once (the sender's serialize-once cache reships
+            # the same encoding).
+            for attempt in (1, 2):
+                xfer_id = self._xfer_id
+                self._xfer_id += 1
+                try:
+                    send_r, recv_r = await asyncio.gather(
+                        self.pool.request(src_w, {
+                            "type": "param_send", "model_name": str(node.model_name),
+                            "dsts": [dst_w], "xfer_ids": [xfer_id], "checksum": True,
+                        }),
+                        self.pool.request(dst_w, {
+                            "type": "param_recv", "model_name": str(hook.target),
+                            "xfer_id": xfer_id, "eta": hook.eta,
+                        }),
+                    )
+                    break
+                except integrity.WeightChecksumError as e:
+                    if attempt >= 2:
+                        raise
+                    logger.warning(f"weight push to {hook.target} rejected by the receiver's "
+                                   f"checksum ({e}); retrying once")
+            self._acc_xfer("param", send_r, recv_r)
         else:
             raise TypeError(f"unknown hook {hook!r}")
 
     async def _apply_difficulty_filter(self):
         """Remove the prompts whose group accuracy this step falls
         outside the configured band from every data worker's dataset:
-        too easy and too hard prompts give GRPO no advantage."""
-        ids = list(dict.fromkeys(self._graded_ids))
-        if not ids:
+        too easy and too hard prompts give GRPO no advantage.  Each id's
+        rewards are read where they live."""
+        by_worker: Dict[int, List[str]] = {}
+        for sid, km in self._owners.items():
+            holders = km.get("rewards")
+            if holders:
+                by_worker.setdefault(min(holders), []).append(sid)
+        if not by_worker:
             return
-        # One worker holds every graded id.
-        resp = await self.pool.request(0, {"type": "data_accuracy", "ids": ids})
-        accs: Dict[str, float] = dict(resp.get("accuracy") or {})
+        resps = await asyncio.gather(*[
+            self.pool.request(w, {"type": "data_accuracy", "ids": ids})
+            for w, ids in by_worker.items()
+        ])
+        accs: Dict[str, float] = {}
+        for r in resps:
+            accs.update(r.get("accuracy") or {})
         lo = self.difficulty_filter.get("min_accuracy", 0.0)
         hi = self.difficulty_filter.get("max_accuracy", 1.0)
         drop = [sid for sid, a in accs.items() if a < lo or a > hi]
@@ -775,11 +1078,21 @@ class MasterWorker:
                     f"({len(drop)}/{len(accs)} flagged outside accuracy [{lo}, {hi}])")
 
     async def _clear_worker_caches(self):
-        keep = self.buffer.ids()
-        await asyncio.gather(*[
-            self.pool.request(w, {"type": "clear_cache", "keep_ids": keep})
-            for w in range(self.pool.n_workers)
-        ])
+        if self._fetch_lock is None:
+            self._fetch_lock = asyncio.Lock()
+        # Under the fetch lock: a prefetch's fetch registers its ids in the
+        # buffer inside the same critical section, so the keep set never
+        # misses data a worker already caches.
+        async with self._fetch_lock:
+            keep = self.buffer.ids()
+            keep_set = set(keep)
+            for sid in list(self._owners):
+                if sid not in keep_set:
+                    del self._owners[sid]
+            await asyncio.gather(*[
+                self.pool.request(w, {"type": "clear_cache", "keep_ids": keep})
+                for w in range(self.pool.n_workers)
+            ])
 
     # ---------------- save / recover ----------------
 
@@ -888,6 +1201,7 @@ class MasterWorker:
         and restore the interfaces' state."""
         info = self._restore_pending
         self._restore_pending = None
+        t0 = time.monotonic()
         for node in self._train_rpcs:
             key = str(node.model_name)
             base = self._ckpt_dir(node, "recover_checkpoint")
@@ -951,3 +1265,5 @@ class MasterWorker:
             if self.replay.version < self._trainer_version:
                 self.replay.set_version(self._trainer_version)
             self._batches_launched = self.step_info.global_step
+        self.restore_seconds = time.monotonic() - t0
+        logger.info(f"restored the workers' state in {self.restore_seconds:.2f}s")

@@ -1,42 +1,53 @@
-"""Model worker (port of areal_tpu/system/worker.py, the in-process half):
-owns the model bundles (engine + interface + tokenizer), a data cache
-keyed by data id, and the dataset loaders, and executes the master's
-requests.
+"""Model worker (port of areal_tpu/system/worker.py): owns the model
+bundles (engine + interface + tokenizer), a data cache keyed by data
+id, and the dataset loaders, and executes the master's requests.
 
-One worker holds every model of a trial on one device: `device` (the
-CUDA card unless told otherwise) is where each engine is built.  The
-requests the synchronous PPO step sends are handled: `spec`, `fetch`
-(topped up to a full batch when the loader's comes up short), `mfc`,
-`param_sync` (a copy, or with eta < 1 the EMA of the reference model),
-`save`, `offload`, `clear_cache` and `ping`; so are the difficulty
-filter's `data_accuracy` and `filter_dataset`, and the worker half of
-recovery: `model_versions`/`set_model_versions`, `save_optimizer`,
-`load_model`, `data_state`/`load_data_state` (each loader's resumable
-(epoch, cursor) position, `_Cycler`) and
-`interface_state`/`load_interface_state`.  The master's pipeline-
-overlapped step trains through `mfc_stream_begin` (the interface's
-stream state), `mfc_stream_chunk` (one retired chunk's gradients) and
-`mfc_stream_end` (the one optimizer step; its perf counts the chunks'
-busy seconds, not the wall between begin and end).  A "remote_generator"
-backend (`system/gen_server.RemoteGeneratorEngine`, over a "config"
-model abstraction: a config and no weights) generates on remote
-generation servers, and `param_sync` into it pushes the weights there.
-The cross-worker planes (data and param transfers) are not yet ported
-(ROADMAP queue 1, items 7.3 and 8).
+A worker holds the models the plan places on it, on one device:
+`device` (the CUDA card unless told otherwise) is where each engine is
+built.  The requests the synchronous PPO step sends are handled: `spec`,
+`fetch` (topped up to a full batch when the loader's comes up short),
+`mfc`, `param_sync` (a copy, or with eta < 1 the EMA of the reference
+model), `save`, `offload`, `clear_cache` and `ping`; so are the
+difficulty filter's `data_accuracy` and `filter_dataset`, and the worker
+half of recovery: `model_versions`/`set_model_versions`,
+`save_optimizer`, `load_model`, `data_state`/`load_data_state` (each
+loader's resumable (epoch, cursor) position, `_Cycler`),
+`interface_state`/`load_interface_state` and `train_stream_abort`.  The
+master's pipeline-overlapped step trains through `mfc_stream_begin`
+(the interface's stream state), `mfc_stream_chunk` (one retired chunk's
+gradients) and `mfc_stream_end` (the one optimizer step; its perf counts
+the chunks' busy seconds, not the wall between begin and end).  A
+"remote_generator" backend (`system/gen_server.RemoteGeneratorEngine`,
+over a "config" model abstraction: a config and no weights) generates on
+remote generation servers, and `param_sync` into it pushes the weights
+there.
+
+The cross-worker half, over the worker's `transfer` plane
+(`system/transfer.py`): `data_send`/`data_recv` move cached entries to
+another worker, `param_send`/`param_recv` push a model's weights (fp32
+on the host, checksummed, serialized once while they are unchanged; the
+receiver verifies before it swaps, or with eta < 1 mixes with
+`ema_mix`).  A transfer's receive side takes its payload by xfer id
+(`_recv_xfer`: one thread drains the plane at a time, and what arrives
+for another request waits in a stash).  With `AREAL_FAULTS` set, each
+MFC passes its fault point first (`_fire_faults`): a point-scoped kill
+exits the process with status 43.
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
-say).  Grad mode is per thread in torch, and each engine sets it itself;
-the current CUDA device is per thread too, so every request runs under
-`torch.cuda.device(self.device)`.  The kernels' launch counters are
-counted under a lock (`kernels/build.count_launch`).  Generator weights
-are never shared with the trainer (`GeneratorEngine.set_params` copies),
-so unlike the JAX package there is no aliased generator to release
-before a train step.
+say); over the process transport the transfers run on threads of their
+own (`system/stream.py`).  Grad mode is per thread in torch, and each
+engine sets it itself; the current CUDA device is per thread too, so
+every request runs under `torch.cuda.device(self.device)`.  The kernels'
+launch counters are counted under a lock (`kernels/build.count_launch`).
+Generator weights are never shared with the trainer
+(`GeneratorEngine.set_params` copies), so unlike the JAX package there
+is no aliased generator to release before a train step.
 """
 
 import contextlib
 import dataclasses
+import json
 import logging
 import os
 import threading
@@ -60,7 +71,7 @@ from areal_tpu_torch.api.data_api import (
     make_dataset,
 )
 from areal_tpu_torch.api.model_api import FinetuneSpec, Model, OptimizerConfig, make_interface
-from areal_tpu_torch.base import monitor, seeding
+from areal_tpu_torch.base import faults, integrity, monitor, seeding
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.data.datasets import PackedDataLoader
 from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
@@ -153,6 +164,21 @@ def ema_mix(a: torch.Tensor, b: torch.Tensor, eta: float) -> torch.Tensor:
     return (torch.tensor(eta, dtype=a.dtype) * a + scaled).to(b.dtype)
 
 
+def _host_tree(tree):
+    """A params tree's leaves as fp32 numpy arrays on the host (the wire
+    form of a param push: pickle protocol 5 sends numpy buffers out of
+    band)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def _tensor_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(tree)
+
+
 class _Cycler:
     """Endless epoch iterator over a PackedDataLoader, with a resumable
     (epoch, cursor) position: shuffling is seeded per epoch, so replaying
@@ -195,10 +221,23 @@ class _Cycler:
 
 
 class ModelWorker:
-    def __init__(self, config: WorkerConfig, tokenizer=None, device=None):
+    def __init__(self, config: WorkerConfig, tokenizer=None, device=None, transfer=None):
         self.config = config
         self.tokenizer = tokenizer
         self.device = resolve_device(device)
+        # The bulk plane to the other workers (system/transfer.py), if any.
+        self.transfer = transfer
+        # Transfers that arrived for another request, by xfer id.  One
+        # thread at a time drains the plane (`_recv_xfer`); the rest wait
+        # on the condition for their id to land here.
+        self._xfer_stash: Dict[int, Any] = {}
+        self._xfer_cond = threading.Condition()
+        self._xfer_recv_busy = False
+        # Param pushes serialize once per state of the source's weights:
+        # model key -> {"state", "with_checksum", "payload", "encoded"}.
+        self._param_send_cache: Dict[str, Dict[str, Any]] = {}
+        # Fault injection at the MFC points (AREAL_FAULTS); None when unset.
+        self._faults = faults.FaultInjector.from_env()
         self.models: Dict[str, Model] = {}
         self.interfaces: Dict[str, Any] = {}
         self.data_cache: Dict[str, SequenceSample] = {}
@@ -246,8 +285,27 @@ class ModelWorker:
         handler = getattr(self, f"_handle_{req['type']}", None)
         if handler is None:
             raise ValueError(f"unknown request type {req['type']!r}")
+        if self._faults is not None:
+            self._fire_faults(req)
         with self._on_device():
             return handler(req)
+
+    def _fire_faults(self, req: Dict[str, Any]) -> None:
+        """Fault injection on MFC execution, at the point `mfc_<itype>`
+        (mfc_train_step, mfc_generate, mfc_inference) of a plain MFC and
+        the request type of a streamed one (mfc_stream_begin, ...).  A
+        point-scoped kill exits the process at once: to the master the
+        worker just stops beating, as a lost machine would."""
+        rtype = req["type"]
+        if not rtype.startswith("mfc"):
+            return
+        if rtype == "mfc":
+            point = f"mfc_{ModelInterfaceType(req['interface_type']).value}"
+        else:
+            point = rtype
+        if self._faults.kill_point(point):
+            os._exit(43)
+        self._faults.fire(point)
 
     def _handle_spec(self, req):
         sizes = [len(ds) for ds in self.datasets]
@@ -371,6 +429,16 @@ class ModelWorker:
         st["sum_sq"] += float(sum(n * n for n in lens))
         return {"meta": None, "stats": dict(stats)}
 
+    def _handle_train_stream_abort(self, req):
+        """Drop every open train stream (its summed gradients too), so a
+        master recovering from a worker's death restarts the step clean."""
+        dropped = sorted(self._streams)
+        self._streams.clear()
+        if dropped:
+            logger.warning(f"worker {self.config.worker_index}: aborted open train "
+                           f"stream(s) {dropped}")
+        return {"dropped": dropped}
+
     def _handle_mfc_stream_end(self, req):
         key: str = req["model_name"]
         st = self._streams.pop(key)
@@ -449,6 +517,158 @@ class ModelWorker:
         del sp, dp
         dst.set_params(mixed)
         return {}
+
+    # ---------------- the cross-worker transfer plane ----------------
+    # The master sends a transfer's two halves as a concurrent request pair
+    # (data_send to the source, data_recv to the target), tagged with one
+    # xfer id, so transfers from several sources at once cannot mix.
+
+    def _recv_xfer(self, xfer_id: int, timeout: float = 300.0):
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._xfer_cond:
+                while True:
+                    if xfer_id in self._xfer_stash:
+                        return self._xfer_stash.pop(xfer_id)
+                    if not self._xfer_recv_busy:
+                        self._xfer_recv_busy = True
+                        break  # this thread drains the plane
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        raise TimeoutError(f"worker {self.config.worker_index}: xfer "
+                                           f"{xfer_id} not received within {timeout}s")
+                    self._xfer_cond.wait(remaining)
+            try:
+                got_id, payload = self.transfer.recv(
+                    timeout=max(deadline - time.monotonic(), 0.001)
+                )
+                with self._xfer_cond:
+                    if got_id == xfer_id:
+                        return payload
+                    self._xfer_stash[got_id] = payload
+            finally:
+                with self._xfer_cond:
+                    self._xfer_recv_busy = False
+                    self._xfer_cond.notify_all()
+
+    def _handle_data_send(self, req):
+        """Ship cached entries (the asked keys) to another worker; reply
+        with the wire bytes and seconds for the step's transfer stats."""
+        t0 = time.monotonic()
+        keys = set(req["keys"])
+        parts = []
+        with self._cache_lock:
+            for sid in req["ids"]:
+                entry = self.data_cache[sid]
+                have = keys & entry.keys
+                if not have:
+                    raise KeyError(f"worker {self.config.worker_index}: no keys {keys} "
+                                   f"cached for id {sid}")
+                parts.append(entry.select_keys(have))
+        nbytes = self.transfer.send(req["dst"], req["xfer_id"], ("data", parts))
+        return {"bytes": nbytes, "seconds": time.monotonic() - t0}
+
+    def _handle_data_recv(self, req):
+        t0 = time.monotonic()
+        kind, parts = self._recv_xfer(req["xfer_id"])
+        if kind != "data":
+            raise RuntimeError(f"xfer {req['xfer_id']}: expected data, got {kind!r}")
+        with self._cache_lock:
+            for one in parts:
+                sid = one.ids[0]
+                if sid in self.data_cache:
+                    self.data_cache[sid].update_(one)
+                else:
+                    self.data_cache[sid] = one
+        return {"n": len(parts), "seconds": time.monotonic() - t0}
+
+    def _handle_param_send(self, req):
+        """Ship a model's weights to other workers: each leaf gathered to
+        the host in fp32 (a bf16 master widens exactly), a content
+        checksum over the host tree (`base/integrity.py`) stamped before
+        the wire, the tree encoded once (`transfer.encode_oob`) and sent
+        to every target.  The (host tree, checksum, encoding) triple is
+        cached per model and reused while the weights are unchanged: a
+        leaf's storage and in-place version counter, and the engine's
+        update count, key the cache, so a train step or a `set_params`
+        invalidates it.  Replies with the wire bytes and the split of the
+        seconds (gather, checksum, encode and wire)."""
+        from areal_tpu_torch.system.transfer import encode_oob
+
+        t0 = time.monotonic()
+        key = req["model_name"]
+        eng = self.models[key].engine
+        params = eng.get_params()
+        leaves = integrity._leaves(params)
+        state = (getattr(eng, "opt_count", None),
+                 tuple((x.data_ptr(), x._version) for x in leaves))
+        with_checksum = bool(req.get("checksum", True))
+        cache = self._param_send_cache.get(key)
+        timing = {"gather_s": 0.0, "checksum_s": 0.0, "encode_s": 0.0}
+        if cache is None or cache["state"] != state or cache["with_checksum"] != with_checksum:
+            self._param_send_cache.pop(key, None)
+            with torch.no_grad():
+                host = _host_tree(params)
+            t1 = time.monotonic()
+            checksum = integrity.params_checksum(host) if with_checksum else None
+            t2 = time.monotonic()
+            payload = ("params", host, checksum)
+            cache = {"state": state, "with_checksum": with_checksum, "payload": payload,
+                     "encoded": encode_oob(payload)}
+            timing.update(gather_s=t1 - t0, checksum_s=t2 - t1,
+                          encode_s=time.monotonic() - t2)
+            self._param_send_cache[key] = cache
+        del params, leaves
+        t3 = time.monotonic()
+        nbytes = self.transfer.send_many(
+            req["dsts"], req["xfer_ids"], cache["payload"], encoded=cache["encoded"]
+        )
+        timing["wire_s"] = time.monotonic() - t3
+        logger.info("PARAM_PUSH " + json.dumps({
+            "side": "send", "worker": self.config.worker_index, "model": key,
+            "bytes": nbytes, "cached": timing["gather_s"] == 0.0, **timing,
+        }))
+        return {"bytes": nbytes, "seconds": time.monotonic() - t0, **timing}
+
+    def _handle_param_recv(self, req):
+        """Take a pushed weights tree: verify its checksum before anything
+        changes (a rejected push leaves the old weights serving), then
+        `set_params`, or with eta < 1 move the model toward the pushed
+        weights (`ema_mix`, one leaf at a time)."""
+        t0 = time.monotonic()
+        kind, host, checksum = self._recv_xfer(req["xfer_id"])
+        if kind != "params":
+            raise RuntimeError(f"xfer {req['xfer_id']}: expected params, got {kind!r}")
+        t1 = time.monotonic()
+        if checksum is not None:
+            integrity.verify_checksum(host, checksum)
+        t2 = time.monotonic()
+        eng = self.models[req["model_name"]].engine
+        eta = float(req.get("eta", 1.0))
+        pushed = _tensor_tree(host)
+        if eta >= 1.0:
+            eng.set_params(pushed)
+        else:
+            cur = eng.get_params()
+
+            def mix(a, b):
+                if isinstance(b, dict):
+                    return {k: mix(a[k], b[k]) for k in b}
+                return ema_mix(a.to(b.device), b, eta)
+
+            with torch.no_grad():
+                mixed = mix(pushed, cur)
+            del cur
+            eng.set_params(mixed)
+        del pushed, host
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timing = {"wait_s": t1 - t0, "verify_s": t2 - t1, "load_s": time.monotonic() - t2}
+        logger.info("PARAM_PUSH " + json.dumps({
+            "side": "recv", "worker": self.config.worker_index,
+            "model": req["model_name"], "eta": eta, **timing,
+        }))
+        return {"seconds": time.monotonic() - t0, **timing}
 
     def _handle_save(self, req):
         key = req["model_name"]

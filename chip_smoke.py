@@ -143,7 +143,8 @@ sft          — `quickstart.main(["sft", ...])` at qwen2-1.5B from the
                1e-4).  Launches exact: K1f 28 x 2, K1dq and K1dkv 28 x each
                train micro-batch, K1f 28 x each eval micro-batch.  Step time,
                tokens/s, MFU and peak memory are printed.
-overlap      — the quickstart's ppo-math trial (8 prompts x 4, 128 new
+overlap      — the quickstart's ppo-math trial at 7 layers (CUT_LAYERS;
+               8 prompts x 4, 128 new
                tokens, a ref, kl_ctl 0.1, two steps; rewards keyed to each
                sequence's id) three ways: the barrier step,
                --pipeline-overlap --overlap-window 1 (train stats and the
@@ -153,7 +154,7 @@ overlap      — the quickstart's ppo-math trial (8 prompts x 4, 128 new
                stream's 4 chunks and one optimizer step; pipeline/n_chunks 4,
                fill and bubble of every stage; the loss within
                OVERLAP_LOSS_TOL of the barrier's).  Launches of each step =
-               28 x the engines' calls summed over every chunk and thread.
+               7 x the engines' calls summed over every chunk and thread.
                Each step's wall and the card's idle share over step 2
                (torch.profiler, CUDA activity) are printed.
 trainmodes   — the trainer's options at qwen2-1.5B (28 layers, random
@@ -176,7 +177,8 @@ trainmodes   — the trainer's options at qwen2-1.5B (28 layers, random
                and the ref run alone, every prompt round-tripping through
                the port's BPE reader, exact launches, finite stats.  (c)
                build_null_sft and build_null_ppo, two steps each.
-recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
+recover      — kill-and-resume at qwen2-1.5B's width and 7 layers
+               (CUT_LAYERS) through quickstart.main: the
                quickstart trial with the EMA reference model
                (--ref-ema-eta 0.9 --offload-ref) and the difficulty filter,
                run uninterrupted for three steps (U), for one step with a
@@ -188,26 +190,27 @@ recover      — kill-and-resume at qwen2-1.5B through quickstart.main: the
                state, ref, versions, controls and filter state bit for bit,
                R2's steps fetching U's ids with U's tokens and stats (U's
                and R1's step-1 masters compared bit for bit first), and
-               each step's launches = 28 x the engines' calls.  The save's
+               each step's launches = 7 x the engines' calls.  The save's
                and restore's seconds, each trial's steps and the peak are
                printed.
 push         — the in-memory weight push mid-generation at qwen2-1.5B's
-               full width (14 layers, bf16): GenerationServer serves 8 GRPO requests
+               full width (7 layers, bf16): GenerationServer serves 8 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
                update_weights_inmem pushes new random weights with their
                checksum; the call parks at a chunk boundary, the weights
                are swapped, every live row's last chunk is replayed
                through K3 and the call finishes on its pages.  Spanned
-               requests (version 0 -> 1), K3 launches = 14 x replays, the
+               requests (version 0 -> 1), K3 launches = 7 x replays, the
                change against an uninterrupted old-weights run, and a
                refused bad-checksum push are checked.
 resume_parity — park at the second serving chunk and resume under
-               unchanged weights at full qwen2-1.5B (rows decoding, a row
+               unchanged weights at qwen2-1.5B's width and 7 layers (rows decoding, a row
                mid-prefill, a follower mapping shared prompt pages): each
                replayed row's logits (K3) against the ones before the
                replay (K2), and in fp32 greedy tokens identical to an
                uninterrupted run.
-genmodes     — the generator's other inflight modes at full qwen2-1.5B in
+genmodes     — the generator's other inflight modes at qwen2-1.5B's width
+               and 7 layers (CUT_LAYERS) in
                bf16: the serve burst's first 8 prompts (x n=4, 64 new
                tokens, greedy) through GenerationServer over engines of
                16 slots,
@@ -216,15 +219,16 @@ genmodes     — the generator's other inflight modes at full qwen2-1.5B in
                (prefill_chunk_tokens=0) in bf16 and int8, (d) spec K=4 on
                the serving plane, then (e) one quickstart ppo-math step
                with --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8.
-               Replies, launches (K4 = 28 x decode steps in (a), (b); K2
-               = 28 x decode steps in (c) and 28 x inner steps in (d);
-               K1f = 28 x prefill dispatches; the rest 0), one decode
+               Replies, launches (K4 = 7 x decode steps in (a), (b); K2
+               = 7 x decode steps in (c) and 7 x inner steps in (d);
+               K1f = 7 x prefill dispatches; the rest 0), one decode
                chunk of each mode under the sync debug mode, and int8
                against bf16 token agreement >= 0.85 (teacher-forced along
                the bf16 run) are checked; tokens/s,
                the decode step's time, spec acceptance, cache copy bytes
                and peak memory are printed.
-async        — asynchronous RL at qwen2-1.5B (8 prompts x 4, 128 new
+async        — asynchronous RL at qwen2-1.5B's width and 7 layers
+               (CUT_LAYERS; 8 prompts x 4, 128 new
                tokens) from the quickstart's checkpoint: (a) `quickstart
                ppo-math --rollout-ahead 1`, three steps: each batch under
                one generator version, the batches of steps 2-3 generated
@@ -236,14 +240,31 @@ async        — asynchronous RL at qwen2-1.5B (8 prompts x 4, 128 new
                max_head_offpolicyness 1, replay_capacity 4 and remote
                grading, 4 steps: staleness <= 1 (1 at the end), no
                rejection, 4 accepted, decoupled PPO's stats, the server's
-               version 1 + the pushes, K2 = 28 x its inner steps, K3 = 28
+               version 1 + the pushes, K2 = 7 x its inner steps, K3 = 14
                x its replays, rewards over HTTP equal to in-process
                grading, code items run in the sandbox graded alike.  (c)
                a RolloutController pumping 32 prompts through that server
                into a ReplayBuffer across 3 disk pushes: a request parked
                and resumed, every consumed group within the bound, greedy
                tokens under a pushed version equal an in-process engine's.
-episodes     — agent episodes at qwen2-1.5B's full width, 14 layers, in bf16 through
+multiproc    — the multi-process runtime at qwen2-1.5B (28 layers) from the
+               quickstart's checkpoint: ppo-math with a ref, 8 prompts x 4,
+               64 new tokens, the seeded null reward, placement
+               {"actor_gen": 1, "reward": 1}.  (a) the plan in this
+               process (two workers joined by InProcTransfer), 2 steps;
+               (b) the same plan through apps.main.run_experiment, each
+               worker a process of its own on the card: stats equal to
+               (a)'s bit for bit, the workers' summed K1f/K1dq/K1dkv/K4
+               launches (asked over their control servers) equal to
+               (a)'s, both on the card; (c) recover checkpoints every
+               step and worker 0 killed (exit 43) at step 2's train step:
+               the retry resubmits both workers, resumes from step 1 and
+               its step 2 equals (b)'s bit for bit.  Each step's
+               transfer/* stats, the param push's split (gather,
+               checksum, encode, wire, verify, load), each worker's peak
+               and the retry's detection, relaunch and restore seconds
+               are printed.
+episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
                first 8 prompts; 3 turns, 32 new tokens a turn, a
@@ -257,7 +278,7 @@ episodes     — agent episodes at qwen2-1.5B's full width, 14 layers, in bf16 t
                turns must equal the probes' tokens and logprobs while
                every position past a rewound cursor is poisoned.
                Checked: turn accounting (observation prefills, transcript
-               lengths, versions), K2 = 14 x inner steps, K3 = 14 x
+               lengths, versions), K2 = 7 x inner steps, K3 = 7 x
                replays, K1f and K4 0, one chunk build, no host sync in a
                chunk; turn latency, tokens/s, the step time, observation
                prefill against transcript tokens and peak memory printed.
@@ -291,7 +312,8 @@ sentinels, `--phases build,overlap` for the pipeline-overlapped step,
 fused MFC, the BPE reader and the null trials,
 `--phases build,recover` for kill-and-resume, `--phases build,kernel,parity,genmodes` for the
 generator's other inflight modes, `--phases build,episodes,parity` for
-agent episodes, `--phases build,quickstart,async` for asynchronous RL.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+agent episodes, `--phases build,quickstart,async` for asynchronous RL,
+`--phases build,quickstart,multiproc` for the multi-process runtime.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -312,7 +334,7 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "episodes", "parity", "train_parity")
+          "async", "multiproc", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -2186,11 +2208,13 @@ def _burst(url, prompts, n, max_new, seed, timeout=900.0, **options):
 # async phase came: the burst's time is its waves of 16 slots, so 8
 # halve it; the checks are the same).
 PUSH_REQUESTS = 8
-# Layers of the push and episodes phases' model: qwen2-1.5B at full width,
-# cut in depth (28 before the async phase came; their decode steps are
-# host-bound, a launch sequence a layer, so half the layers about halves
-# them; the checks are the same).
-CUT_LAYERS = 14
+# Layers of the push, resume_parity, overlap, recover, genmodes, async and
+# episodes phases' model: qwen2-1.5B at full width, cut in depth (push and
+# episodes to 14 since the async phase came; all seven to 7 since the
+# multiproc phase came: their decode steps are host-bound, a launch
+# sequence a layer, so fewer layers take about proportionally less time;
+# the checks count by the model's layers and are the same).
+CUT_LAYERS = 7
 
 
 def phase_push(report, seed):
@@ -2463,7 +2487,7 @@ def _log_first_flip(ref, res):
 
 def phase_resume_parity(report, seed):
     """Park at the second serving chunk and resume under UNCHANGED weights
-    at full qwen2-1.5B (28 layers), with rows decoding, a row mid-prefill
+    at qwen2-1.5B's full width (CUT_LAYERS layers), with rows decoding, a row mid-prefill
     and a same-prompt follower mapping its owner's prompt pages.  Each
     replayed row's logits after the replay (K3) are held against the
     ones before it (K2, the uninterrupted run's next-token logits):
@@ -2481,7 +2505,7 @@ def phase_resume_parity(report, seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(seed + 17)
-    cfg = qwen2_config("1.5b", param_dtype="float32")
+    cfg = dataclasses.replace(qwen2_config("1.5b", param_dtype="float32"), n_layers=CUT_LAYERS)
     # A 560-token prompt is still prefilling after two chunks (8 prompt
     # tokens a row per inner step); the 200-token prompt appears twice, so
     # its second copy maps the first's full prompt page once that one
@@ -3357,6 +3381,7 @@ def _write_random_checkpoint(tag, work, cfg, seed):
     returns (path, seconds, bytes)."""
     import torch
 
+    from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.hf import registry as hf
     from areal_tpu_torch.models.transformer import init_params
 
@@ -3370,11 +3395,15 @@ def _write_random_checkpoint(tag, work, cfg, seed):
     files = sorted(os.listdir(ckpt))
     ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
     shards = [f for f in files if f.endswith(".safetensors")]
-    log(f"{tag} wrote a seeded random qwen2-1.5b checkpoint with save_hf_checkpoint: "
+    log(f"{tag} wrote a seeded random qwen2-1.5b checkpoint ({cfg.n_layers} layers) with "
+        "save_hf_checkpoint: "
         f"{ckpt_bytes / 1e9:.3f} GB fp32 in {write_s:.2f} s "
         f"({ckpt_bytes / 1e9 / write_s:.2f} GB/s): {files}")
-    check(len(shards) == 2 and "model.safetensors.index.json" in files,
-          f"the checkpoint is not two shards and an index: {files}")
+    if cfg.n_layers == qwen2_config("1.5b").n_layers:  # 6.2 GB over the 5 GiB shard cap
+        check(len(shards) == 2 and "model.safetensors.index.json" in files,
+              f"the checkpoint is not two shards and an index: {files}")
+    else:  # a cut depth fits one shard
+        check(shards == ["model.safetensors"], f"the checkpoint is not one shard: {files}")
     return ckpt, write_s, ckpt_bytes
 
 
@@ -3725,23 +3754,26 @@ def phase_quickstart(report, seed):
 # --------------------------------------------------------------------------
 
 # Seeded random checkpoints written once and shared by the phases that
-# read them (seed -> (dir, path, write seconds, bytes)); removed after the
-# last phase that uses them.
+# read them ((seed, layers) -> (dir, path, write seconds, bytes)); removed
+# after the last phase that uses them.
 SHARED_CKPTS = {}
-CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async")
+CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
+               "multiproc")
 
 
 def _shared_checkpoint(tag, cfg, seed):
-    """The seeded random qwen2-1.5b checkpoint of `_write_random_checkpoint`,
-    written on the first call for `seed` and reused after it."""
-    if seed not in SHARED_CKPTS:
+    """The seeded random qwen2-1.5b checkpoint of `_write_random_checkpoint`
+    at `cfg`'s depth, written on the first call for (`seed`, depth) and
+    reused after it."""
+    key = (seed, cfg.n_layers)
+    if key not in SHARED_CKPTS:
         os.makedirs(QUICKSTART_DIR, exist_ok=True)
         work = tempfile.mkdtemp(prefix="ckpt-", dir=QUICKSTART_DIR)
         _check_disk(tag, work, _fp32_model_bytes(cfg) + 2**30)
-        SHARED_CKPTS[seed] = (work,) + _write_random_checkpoint(tag, work, cfg, seed)
+        SHARED_CKPTS[key] = (work,) + _write_random_checkpoint(tag, work, cfg, seed)
     else:
-        log(f"{tag} reading the seeded random checkpoint written earlier: {SHARED_CKPTS[seed][1]}")
-    return SHARED_CKPTS[seed][1:]
+        log(f"{tag} reading the seeded random checkpoint written earlier: {SHARED_CKPTS[key][1]}")
+    return SHARED_CKPTS[key][1:]
 
 
 def _release_shared_checkpoints():
@@ -4109,7 +4141,7 @@ def phase_overlap(report, seed):
     each generated as its own static burst; stream begin, 4 chunks of
     gradient accumulation and one optimizer step: importance weight 1,
     approx-KL 0 and a loss within OVERLAP_LOSS_TOL of 0).  Each step's
-    launches equal 28 x the engines' calls summed over the MFCs of all
+    launches equal L x the engines' calls summed over the MFCs of all
     chunks and both threads (K1f from the prefills, the ref and the train
     micro-batches; K4 from the decode steps); step walls, the card's idle
     share over each step (`_BusySampler`), fill and bubble of each
@@ -4126,7 +4158,7 @@ def phase_overlap(report, seed):
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.system.master import MasterWorker
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     n_prompts, n, max_new, n_steps = 8, 4, 128, OVERLAP_STEPS
     L = cfg.n_layers
     rng = np.random.default_rng(seed + 70)
@@ -4818,9 +4850,9 @@ def _trial_state(master):
 
 
 def phase_recover(report, seed):
-    """Kill-and-resume at qwen2-1.5B (28 layers, full width), through
+    """Kill-and-resume at qwen2-1.5B's full width (CUT_LAYERS layers), through
     `quickstart.main(["ppo-math", ...])` in this process: the quickstart
-    phase's trial (a seeded random fp32 checkpoint in two shards, 64 math
+    phase's trial (a seeded random fp32 checkpoint, one shard at a cut depth, 64 math
     rows, `char:151936`, a ref, `--kl-ctl 0.1`, 8 prompts x 4) at
     RECOVER_NEW_TOKENS new tokens, with `--ref-ema-eta 0.9 --offload-ref` and the difficulty
     filter (`dataset_filter` {min 0.25, max 0.75}, which the CLI has no
@@ -4850,7 +4882,7 @@ def phase_recover(report, seed):
     fetch U's ids; U's and R1's step-1 masters are compared bit for bit
     and, where they agree, R2's tokens equal U's and its stats agree
     within RESUME_STATS_RTOL (the port's kernels use no atomics); each
-    step's launches equal 28 x the engines' calls of each MFC."""
+    step's launches equal L x the engines' calls of each MFC."""
     import functools
     import shutil
 
@@ -4865,7 +4897,7 @@ def phase_recover(report, seed):
     from areal_tpu_torch.system.master import MasterWorker
     from areal_tpu_torch.system.worker import ModelWorker, _Cycler
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     n_prompts, n, max_new = 8, 4, RECOVER_NEW_TOKENS
     L = cfg.n_layers
     os.makedirs(RECOVER_DIR, exist_ok=True)
@@ -5553,9 +5585,9 @@ def _genmode_quickstart(seed):
     --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8: generate takes
     the dense window's spec path over an int8 cache.  8 prompts x 4
     responses, 128 new tokens, rewards replaced by seeded +-5 (a random
-    model's are all -5).  Launches: K4 = 28 x the inflight decode steps,
-    K1f = 28 x (prefill dispatches + 2 train forwards a micro-batch + the
-    train engine's forward micro-batches), K1dq = K1dkv = 28 x train
+    model's are all -5).  Launches: K4 = L x the inflight decode steps,
+    K1f = L x (prefill dispatches + 2 train forwards a micro-batch + the
+    train engine's forward micro-batches), K1dq = K1dkv = L x train
     micro-batches, K2 = K3 = 0."""
     import functools
     import shutil
@@ -5568,7 +5600,7 @@ def _genmode_quickstart(seed):
     from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
     from areal_tpu_torch.models.config import qwen2_config
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     rng = np.random.default_rng(seed + 50)
     os.makedirs(QUICKSTART_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="genmodes-", dir=QUICKSTART_DIR)
@@ -5672,8 +5704,8 @@ def phase_genmodes(report, seed):
     plane; then (e) one
     quickstart ppo-math step with --no-paged-kv --spec-decode-k 4
     --kv-cache-dtype int8.  Checked per mode: the replies, the launches
-    (K4 = 28 x decode steps in (a) and (b), K2 = 28 x decode steps in (c)
-    and 28 x inner steps in (d), K1f = 28 x prefill dispatches, every
+    (K4 = L x decode steps in (a) and (b), K2 = L x decode steps in (c)
+    and L x inner steps in (d), K1f = L x prefill dispatches, every
     other kernel 0), no host sync inside a chunk; int8 against bf16 token
     agreement >= 0.85 teacher-forced along the bf16 run (`_teacher_forced`;
     the free-running count of tests/test_generator.py:316 is printed)."""
@@ -5683,7 +5715,7 @@ def phase_genmodes(report, seed):
     from areal_tpu_torch.models.config import qwen2_config
     from areal_tpu_torch.models.transformer import init_params
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     n_req, n, max_new = 8, 4, GENMODE_NEW_TOKENS
     rng = np.random.default_rng(seed)
     prompts = [  # the serve phase's prompts, its first n_req of 16
@@ -5787,15 +5819,16 @@ def _async_server_engine(cfg, params):
 
 
 def phase_async(report, seed):
-    """Asynchronous RL at qwen2-1.5B (28 layers, full width, random weights;
-    8 prompts x 4, 128 new tokens) from the quickstart's checkpoint:
+    """Asynchronous RL at qwen2-1.5B's full width (CUT_LAYERS layers, random
+    weights; 8 prompts x 4, 128 new tokens) from a seeded checkpoint of
+    that depth:
 
     (a) `quickstart.main(["ppo-math", ..., "--rollout-ahead", "1"])`, three
         steps in this process (rewards seeded +-5): each batch generated
         under one generator version (no weight sync lands inside a
         generate call), the generate calls of steps 2 and 3 run inside
         steps 1 and 2, generation t+1 on the weights after step t-1, and
-        each step's launches = 28 x the engines' calls (K1f, K1dq, K1dkv,
+        each step's launches = L x the engines' calls (K1f, K1dq, K1dkv,
         K4; K2 and K3 0).  Step walls against the quickstart phase's
         barrier step, the card's idle share (NVML) and the peak printed.
     (b) a port GenerationServer (serving plane, 32 slots, a 256-page pool)
@@ -5806,8 +5839,8 @@ def phase_async(report, seed):
         replay_capacity 4 and the reward interface's remote_url, 4 steps:
         replay/staleness <= 1 every step and 1 at the last, rejected 0,
         accepted 4; behav_imp_weight finite, behav_cap_clip in [0, 1]; the
-        server's version 1 + the pushes; K2 = 28 x the server's inner
-        steps, K3 = 28 x its resume_replays, K1 = 28 x the train engine's
+        server's version 1 + the pushes; K2 = L x the server's inner
+        steps, K3 = L x its resume_replays, K1 = L x the train engine's
         calls, K4 0; every reward graded over HTTP equal to in-process
         grading of the same rows, and code items run in the sandbox graded
         alike by the service and in this process.
@@ -5822,7 +5855,7 @@ def phase_async(report, seed):
 
     from areal_tpu_torch.models.config import qwen2_config
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     t_phase = time.monotonic()
     os.makedirs(ASYNC_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="run-", dir=ASYNC_DIR)
@@ -6904,6 +6937,277 @@ def _worst(vals):
     return max(vals) if vals else None
 
 
+# --------------------------------------------------------------------------
+# multiproc: the multi-process runtime, a generate/train split on one card
+# --------------------------------------------------------------------------
+
+MULTIPROC_DIR = os.path.join(REPO, ".multiproc_tmp")
+MULTIPROC_NEW_TOKENS = 64
+MULTIPROC_PLACEMENT = {"actor_gen": 1, "reward": 1}
+
+
+def _multiproc_plan(cfg, ckpt, data, work, seed, trial, ckpt_freq=None):
+    """The quickstart's ppo-math trial (a ref, kl_ctl 0.1, 8 prompts x 4,
+    the seeded null reward) over two workers: the actor and the ref on
+    worker 0, the generator and the reward on worker 1."""
+    from areal_tpu_torch.api.config import ModelAbstraction, ModelInterfaceAbstraction
+    from areal_tpu_torch.api.data_api import DatasetAbstraction, MicroBatchSpec
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, OptimizerConfig
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.system.master import ExperimentSaveEvalControl
+
+    pc = exps.PPOMathConfig(
+        actor=ModelAbstraction("hf", {"path": ckpt}),
+        ref=ModelAbstraction("hf", {"path": ckpt}),
+        dataset=DatasetAbstraction("math_code_prompt", {"dataset_path": data}),
+        reward_interface=ModelInterfaceAbstraction("null", {"seed": seed + 52}),
+        ppo_kwargs={"kl_ctl": 0.1},
+        optimizer=OptimizerConfig(lr=2e-5),
+        gconfig=GenerationHyperparameters(n=4, max_new_tokens=MULTIPROC_NEW_TOKENS),
+        batch_size=8, total_train_epochs=1,
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=16384),
+        ctrl=ExperimentSaveEvalControl(benchmark_steps=2, ckpt_freq_steps=ckpt_freq),
+        seed=seed + 53, experiment_name="multiproc", trial_name=trial,
+        fileroot=os.path.join(work, trial), placement=dict(MULTIPROC_PLACEMENT),
+    )
+    plan = exps.build_ppo_math(pc)
+    for wc in plan.worker_configs:
+        wc.tokenizer_path = f"char:{cfg.vocab_size}"
+    return plan
+
+
+def _timeless(stats):
+    """A step's stats without its wall times and per-process memory."""
+    return {k: v for k, v in stats.items()
+            if "/perf/" not in k and "time" not in k and not k.endswith("_s")}
+
+
+def _param_push_lines(paths):
+    """The PARAM_PUSH records the workers logged, in order."""
+    out = []
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                if "PARAM_PUSH " in line:
+                    out.append(json.loads(line.split("PARAM_PUSH ", 1)[1]))
+    return out
+
+
+def _log_pushes(tag, pushes):
+    for p in pushes:
+        if p["side"] == "send":
+            log(f"[multiproc] {tag} param push send: {p['bytes'] / 1e9:.3f} GB, gather "
+                f"{p['gather_s']:.3f} s, checksum {p['checksum_s']:.3f} s, encode "
+                f"{p['encode_s']:.3f} s, wire {p['wire_s']:.3f} s"
+                + (" (cached encoding)" if p["cached"] else ""))
+        else:
+            log(f"[multiproc] {tag} param push recv: wait {p['wait_s']:.3f} s, verify "
+                f"{p['verify_s']:.3f} s, load {p['load_s']:.3f} s")
+
+
+def _worker_stats(plan, seen):
+    """on_finish of a multi-process trial: each worker's runtime_stats
+    (pid, device, launches, peak memory) and the card's compute
+    processes, asked while the workers still serve."""
+    from areal_tpu_torch.system.worker_control import WorkerControlPanel
+
+    def on_finish(master):
+        panel = WorkerControlPanel(plan.experiment_name, plan.trial_name)
+        names = [f"model_worker/{i}" for i in range(len(plan.worker_configs))]
+        try:
+            panel.connect(names, timeout=30)
+            seen["workers"] = panel.group_request("runtime_stats", timeout=60)
+        finally:
+            panel.close()
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                            "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        seen["smi"] = r.stdout.strip()
+        seen["restore_s"] = master.restore_seconds
+    return on_finish
+
+
+def phase_multiproc(report, seed):
+    """The multi-process runtime at qwen2-1.5B (28 layers, full width),
+    from the quickstart's seeded checkpoint (char tokenizer, 64 math
+    rows, a ref, kl_ctl 0.1, 8 prompts x 4, MULTIPROC_NEW_TOKENS new
+    tokens, the seeded null reward), placement {"actor_gen": 1, "reward":
+    1}: prompts, rollouts, rewards and the actor's fp32 weights (with
+    their checksum) cross between the workers each step.
+    (a) B: the plan in this process (two ModelWorkers joined by
+        InProcTransfer), 2 steps, launches read here.
+    (b) U: the plan through apps.main.run_experiment, each worker a
+        process of its own on the card: every stat but the wall times
+        equal to B's bit for bit; the workers' summed K1f, K1dq, K1dkv
+        and K4 launches (each worker's runtime_stats, asked over its
+        control server) equal to B's; both on cuda:0, with their peaks,
+        and both pids among nvidia-smi's compute processes when it lists
+        any; each step's transfer/* stats and the param push's split.
+    (c) C: U's plan with recover checkpoints every step, recover_retries
+        1 and kill@point=mfc_train_step&skip=1&times=1 in worker 0's
+        environment: worker 0 exits 43 at step 2's train step, the watch
+        fails attempt 0, attempt 1 resubmits both workers and resumes from
+        step 1's checkpoint: its step 2 equal to U's bit for bit; the
+        retry's detection, relaunch and restore seconds."""
+    import gc
+    import logging as pylogging
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import main as runner
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = qwen2_config("1.5b")
+    os.makedirs(MULTIPROC_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=MULTIPROC_DIR)
+    out = {}
+    pushes_b = []
+
+    class _Pushes(pylogging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("PARAM_PUSH "):
+                pushes_b.append(json.loads(msg[len("PARAM_PUSH "):]))
+
+    handler = _Pushes()
+    wlog = pylogging.getLogger("areal_tpu_torch.model_worker")
+    old_level = wlog.level
+    try:
+        # C's recover checkpoint (weights and both Adam moments, current
+        # and .prev), the shared input checkpoint, and a margin.
+        _check_disk("[multiproc]", work, 7 * _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, _, _ = _shared_checkpoint("[multiproc]", cfg, seed + 21)
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(np.random.default_rng(seed + 51), 64):
+                f.write(json.dumps(row) + "\n")
+
+        # (a) B: in this process.
+        wlog.addHandler(handler)
+        wlog.setLevel(pylogging.INFO)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.monotonic()
+        stats_b = runner.run_experiment_inproc(_multiproc_plan(cfg, ckpt, data, work, seed, "B"))
+        torch.cuda.synchronize()
+        b_s = time.monotonic() - t0
+        counts_b = _trial_counts()
+        peak_b = torch.cuda.max_memory_allocated()
+        wlog.removeHandler(handler)
+        wlog.setLevel(old_level)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(len(stats_b) == 2, f"[multiproc] (a) {len(stats_b)} steps")
+        for i, s in enumerate(stats_b):
+            check(all(np.isfinite(v) for v in s.values()), f"[multiproc] (a) step {i + 1} stats")
+            log(f"[multiproc] (a) B step {i + 1}: {s['time/step_s']:.2f} s; "
+                + ", ".join(f"{k} {v:.6g}" for k, v in s.items() if k.startswith("transfer/")))
+        check(stats_b[-1]["actor_train/advantage_abs"] > 0.1, "[multiproc] (a) no advantage")
+        check(counts_b["fwd"] > 0 and counts_b["dq"] > 0 and counts_b["dkv"] > 0
+              and counts_b["k4"] > 0 and counts_b["k2"] == counts_b["k3"] == 0,
+              f"[multiproc] (a) launches {counts_b}")
+        _log_pushes("(a) B", pushes_b)
+        log(f"[multiproc] (a) B: 2 steps in one process in {b_s:.1f} s, launches {counts_b}, "
+            f"peak {peak_b / 2**30:.2f} GiB (both workers)")
+
+        # (b) U: each worker a process of its own.
+        plan_u = _multiproc_plan(cfg, ckpt, data, work, seed, "U")
+        seen_u, tl_u = {}, []
+        t0 = time.monotonic()
+        stats_u = runner.run_experiment(plan_u, on_finish=_worker_stats(plan_u, seen_u),
+                                        timeline=tl_u)
+        u_s = time.monotonic() - t0
+        check(len(stats_u) == 2, f"[multiproc] (b) {len(stats_u)} steps")
+        for i, (u, b) in enumerate(zip(stats_u, stats_b)):
+            tu, tb = _timeless(u), _timeless(b)
+            diff = {k: (tu.get(k), tb.get(k)) for k in set(tu) | set(tb) if tu.get(k) != tb.get(k)}
+            check(not diff, f"[multiproc] (b) step {i + 1} differs from B: {diff}")
+            log(f"[multiproc] (b) U step {i + 1}: {u['time/step_s']:.2f} s, {len(tu)} stats "
+                "equal to B's bit for bit; "
+                + ", ".join(f"{k} {v:.6g}" for k, v in u.items() if k.startswith("transfer/")))
+        workers = seen_u["workers"]
+        summed = {k: sum(w["launches"][k] for w in workers.values()) for k in counts_b}
+        for name, w in sorted(workers.items()):
+            log(f"[multiproc] (b) {name}: pid {w['pid']} on {w['device']} ({w['device_name']}), "
+                f"launches {w['launches']}, peak {w['max_memory_allocated'] / 2**30:.2f} GiB")
+            check(w["device"].startswith("cuda") and w["max_memory_allocated"] > 0,
+                  f"[multiproc] (b) {name} is not on the card: {w}")
+        check(all(summed[k] == counts_b[k] for k in ("fwd", "dq", "dkv", "k4")),
+              f"[multiproc] (b) the workers' launches {summed} != B's {counts_b}")
+        listed = [line.split(",")[0].strip() for line in seen_u["smi"].splitlines()
+                  if line.strip()]
+        mine = {str(w["pid"]) for w in workers.values()}
+        log(f"[multiproc] (b) nvidia-smi compute processes: {len(listed)}, pids {listed}; the "
+            f"workers' own pids {sorted(mine)}")
+        if mine <= set(listed):
+            log("[multiproc] (b) both workers' pids are among the card's compute processes")
+        else:
+            # nvidia-smi reports pids of another pid namespace here (each
+            # process shows as 1): count the card's processes instead, this
+            # one and the two workers.
+            check(len(listed) >= 1 + len(workers),
+                  f"[multiproc] (b) {len(listed)} compute processes on the card, want this "
+                  f"one and {len(workers)} workers")
+            log(f"[multiproc] (b) nvidia-smi's pids are not this namespace's: {len(listed)} "
+                f"compute processes on the card, this one and the {len(workers)} workers")
+        logs_u = [os.path.join(plan_u.fileroot, "logs", "multiproc_U-attempt0",
+                               f"model_worker-{i}.log") for i in range(2)]
+        pushes_u = _param_push_lines(logs_u)
+        check(sum(p["side"] == "send" for p in pushes_u) == 2, f"[multiproc] (b) pushes {pushes_u}")
+        _log_pushes("(b) U", pushes_u)
+        connect_s = tl_u[1]["t"] - tl_u[0]["t"]
+        log(f"[multiproc] (b) U: {u_s:.1f} s (workers up and connected in {connect_s:.1f} s), "
+            f"launches summed over the workers {summed}")
+
+        # (c) C: kill worker 0 at step 2's train step; the retry resumes.
+        plan_c = _multiproc_plan(cfg, ckpt, data, work, seed, "C", ckpt_freq=1)
+        seen_c, tl_c = {}, []
+        clock = time.time() - time.monotonic()
+        t0 = time.monotonic()
+        stats_c = runner.run_experiment(
+            plan_c, recover_retries=1, timeline=tl_c, on_finish=_worker_stats(plan_c, seen_c),
+            worker_envs={0: {"AREAL_FAULTS": "kill@point=mfc_train_step&skip=1&times=1"}})
+        c_s = time.monotonic() - t0
+        events = [(e["event"], e.get("attempt")) for e in tl_c]
+        check(events == [("submit", 0), ("connected", None), ("failed", 0), ("submit", 1),
+                         ("connected", None), ("done", 1)], f"[multiproc] (c) events {events}")
+        log0 = os.path.join(plan_c.fileroot, "logs", "multiproc_C-attempt0", "model_worker-0.log")
+        with open(log0) as f:
+            kill = [line for line in f if "FAULT kill at point 'mfc_train_step'" in line]
+        check(len(kill) == 1, "[multiproc] (c) worker 0 logged no kill")
+        import datetime
+
+        stamp = " ".join(kill[0].split()[:2])
+        kill_t = datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp() - clock
+        check(len(stats_c) == 1, f"[multiproc] (c) attempt 1 ran {len(stats_c)} steps")
+        tc, tu = _timeless(stats_c[0]), _timeless(stats_u[1])
+        diff = {k: (tc.get(k), tu.get(k)) for k in set(tc) | set(tu) if tc.get(k) != tu.get(k)}
+        check(not diff, f"[multiproc] (c) resumed step 2 differs from U's: {diff}")
+        detect_s = tl_c[2]["t"] - kill_t
+        relaunch_s = tl_c[4]["t"] - tl_c[2]["t"]
+        log("[multiproc] (c) timeline (s from submit): " + ", ".join(
+            f"{e['event']} {e['t'] - tl_c[0]['t']:.1f}" for e in tl_c)
+            + f"; the kill at {kill_t - tl_c[0]['t']:.1f}")
+        log(f"[multiproc] (c) C: {c_s:.1f} s; worker 0 killed at step 2's train step, the watch "
+            f"failed the attempt {detect_s:.2f} s later; the relaunch (stop, resubmit, both "
+            f"workers connected) {relaunch_s:.1f} s; the restore {seen_c['restore_s']:.2f} s; "
+            f"resumed step 2 {stats_c[0]['time/step_s']:.2f} s, its {len(tc)} stats equal to "
+            "U's step 2 bit for bit")
+        out = dict(launches=summed, b_s=b_s, u_s=u_s, c_s=c_s, peak_b=peak_b,
+                   peaks={k: w["max_memory_allocated"] for k, w in workers.items()},
+                   detect_s=detect_s, relaunch_s=relaunch_s, restore_s=seen_c["restore_s"])
+    finally:
+        wlog.removeHandler(handler)
+        wlog.setLevel(old_level)
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    report["multiproc"] = out
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -6914,6 +7218,7 @@ def _kernels_line(report):
     ov_launches = report.get("overlap", {}).get("launches", {})
     tm_launches = report.get("trainmodes", {}).get("launches", {})
     as_launches = report.get("async", {}).get("launches", {})
+    mp_launches = report.get("multiproc", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -6931,6 +7236,7 @@ def _kernels_line(report):
         "launches_overlap": ov_launches.get("k2"),
         "launches_trainmodes": tm_launches.get("k2"),
         "launches_async": as_launches.get("k2"),
+        "launches_multiproc": mp_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -6981,6 +7287,7 @@ def _kernels_line(report):
             "launches_overlap": ov_launches.get(name),
             "launches_trainmodes": tm_launches.get(name),
             "launches_async": as_launches.get(name),
+            "launches_multiproc": mp_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -7022,6 +7329,7 @@ def _kernels_line(report):
         "launches_overlap": ov_launches.get("k3"),
         "launches_trainmodes": tm_launches.get("k3"),
         "launches_async": as_launches.get("k3"),
+        "launches_multiproc": mp_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -7087,6 +7395,7 @@ def _kernels_line(report):
         "launches_overlap": ov_launches.get("k4"),
         "launches_trainmodes": tm_launches.get("k4"),
         "launches_async": as_launches.get("k4"),
+        "launches_multiproc": mp_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -7276,6 +7585,7 @@ def main() -> int:
         "recover": lambda: phase_recover(report, args.seed),
         "genmodes": lambda: phase_genmodes(report, args.seed),
         "async": lambda: phase_async(report, args.seed),
+        "multiproc": lambda: phase_multiproc(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

@@ -168,13 +168,13 @@ def test_offload_ref_e2e(tmp_path):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("gen_server_url", "tcp://localhost:1", "item 7.3"),
-    ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.3"),
+    ("gen_server_url", "tcp://localhost:1", "item 7.8"),
+    ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.8"),
     ("param_push_tree", True, "item 7.4"),
     ("verifier_pool", True, "item 7.5"),
     ("mixture_weights", {"math": 1.0}, "item 7.5"),
     ("mixture_adaptive", True, "item 7.5"),
-    ("placement", {"actor_gen": 1}, "items 7 and 8"),
+    ("placement", {"actor_gen": [1, 2]}, "item 8"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -192,8 +192,11 @@ def test_unported_options_raise(tmp_path, option, value, item):
 # do not trip), the fused reward+ref MFC, bf16 masters, the remat
 # policies "dots" and "dots_small", and asynchronous RL: the one-step
 # rollout overlap, the replay pipeline (cap 0 and 1, a replay capacity),
-# decoupled PPO's behaviour-weight cap and the imp-ratio sentinel, and
-# remote generation (a server started in the test: GEN_SERVER).
+# decoupled PPO's behaviour-weight cap and the imp-ratio sentinel,
+# remote generation (a server started in the test: GEN_SERVER), and the
+# multi-process runtime's options that act in-process: a placement over
+# two workers (the data and param planes) and the requests' deadline
+# with the heartbeat period.
 GEN_SERVER = "<gen-server>"
 FORMERLY_UNPORTED = [
     ("dataset_filter", {"min_accuracy": 0.1}),
@@ -222,6 +225,9 @@ FORMERLY_UNPORTED = [
     ("ppo_kwargs", {"n_minibatches": 2, "kl_ctl": 0.1, "anomaly_imp_ratio_max": 100.0}),
     ("gen_server_url", GEN_SERVER),
     ("inmem_weight_sync", True),
+    ("placement", {"actor_gen": 1, "reward": 1}),
+    ("mfc_timeout_s", 120.0),
+    ("worker_heartbeat_s", 2.0),
 ]
 
 
@@ -281,10 +287,18 @@ def test_formerly_unported_options_run(tmp_path, option, value, request, monkeyp
                                         device="cpu")
     assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
     worker = master.pool.workers[0]
+    if option == "placement":
+        assert master.placement == {"actor@0": 0, "actor_gen@0": 1, "reward@0": 1, "ref@0": 0}
+        assert [sorted(w.models) for w in master.pool.workers] == [
+            ["actor@0", "ref@0"], ["actor_gen@0", "reward@0"]]
+        assert all(s["transfer/param_count"] == 1.0 and s["transfer/data_count"] > 0
+                   for s in stats)
+    if option == "mfc_timeout_s":
+        assert master.pool.mfc_timeout_s == value and master.pool.dead_workers == set()
     if option == "ctrl":
         base = master._ckpt_dir(master._train_rpcs[0], "recover_checkpoint")
         assert os.path.isdir(base) and os.path.isdir(base + ".prev")
-    engine = worker.models["actor_gen@0"].engine
+    engine = master.pool.workers[master.placement["actor_gen@0"]].models["actor_gen@0"].engine
     if option == "gen_backend_args":
         assert engine.kv_cache_dtype == "int8"
     if option == "kv_paged":
@@ -385,12 +399,22 @@ def test_episode_options_leave_the_trial_unchanged(tmp_path, package):
 
 
 def test_master_refuses_more_than_one_worker(tmp_path):
-    """More than one worker is refused; recover checkpoints
-    (`ckpt_freq_steps`) are not."""
+    """A placement naming a worker the pool does not have is refused
+    (a model over several workers comes with item 8); a pool of two
+    workers, once refused, is taken, and so are recover checkpoints
+    (`ckpt_freq_steps`)."""
     plan = exps.build_ppo_math(_e2e_cfg(tmp_path, "grpo"))
-    with pytest.raises(NotImplementedError, match="items 7 and 8"):
-        MasterWorker(plan.dfg, InProcessPool([object(), object()]), plan.model_placement,
-                     [0], plan.ctrl, fileroot=str(tmp_path))
+    with pytest.raises(ValueError, match="item 8"):
+        MasterWorker(plan.dfg, InProcessPool([object()]),
+                     {**plan.model_placement, "actor_gen@0": 1}, [0], plan.ctrl,
+                     fileroot=str(tmp_path))
+    with pytest.raises(ValueError, match="outside the pool"):
+        MasterWorker(plan.dfg, InProcessPool([object()]), plan.model_placement, [3],
+                     plan.ctrl, fileroot=str(tmp_path))
+    two = MasterWorker(plan.dfg, InProcessPool([object(), object()]),
+                       {**plan.model_placement, "actor_gen@0": 1}, [0], plan.ctrl,
+                       fileroot=str(tmp_path))
+    assert two.pool.n_workers == 2
     master = MasterWorker(plan.dfg, InProcessPool([object()]), plan.model_placement, [0],
                           ExperimentSaveEvalControl(ckpt_freq_steps=2), fileroot=str(tmp_path))
     assert master.ckpt_ctl.frequency_steps == 2

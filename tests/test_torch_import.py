@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: `areal_tpu_torch` and `chip_smoke.py`
-import no JAX and nothing of the JAX package, and `chip_smoke.py` refuses
+import no JAX, nothing of the JAX package and no `zmq` (the card's
+machine has no pyzmq: the port's transport is the standard library's),
+and `chip_smoke.py` refuses
 to run (non-zero exit, no result line) without a CUDA card or outside the
 repository."""
 
@@ -35,12 +37,14 @@ PORT_FILES = _port_files()
 
 
 def test_every_module_imports_with_jax_blocked():
-    """In a fresh interpreter where `import jax` fails, every module of
-    the package imports (conftest has already imported JAX here)."""
+    """In a fresh interpreter where `import jax` and `import zmq` fail,
+    every module of the package imports (conftest has already imported
+    JAX here)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['areal_tpu'] = None\n"
+        "sys.modules['zmq'] = None\n"
         "import areal_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "areal_tpu_torch.__path__, 'areal_tpu_torch.')]\n"
@@ -70,7 +74,7 @@ def test_no_jax_or_jax_package_import(path):
             continue
         for n in names:
             root = n.split(".")[0]
-            if root in ("jax", "jaxlib", "areal_tpu", "flax", "optax"):
+            if root in ("jax", "jaxlib", "areal_tpu", "flax", "optax", "zmq"):
                 bad.append(f"line {node.lineno}: {n}")
     assert not bad, f"{path} imports {bad}"
 

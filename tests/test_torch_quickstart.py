@@ -83,16 +83,12 @@ UNPORTED = [
     (["--search-devices", "8"], "item 10"),
     (["--launcher", "slurm"], "item 10"),
     (["--tpu-name", "x"], "item 10"),
-    (["--multiprocess"], "item 7.3"),
-    (["--recover-retries", "1"], "item 7.3"),
-    (["--mfc-timeout-s", "60"], "item 7.3"),
-    (["--worker-heartbeat-s", "2"], "item 7.3"),
     (["--no-weight-push-checksum"], "item 7.4"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
-    (["--gen-server-url", "tcp://localhost:1"], "item 7.3"),
-    (["--gen-server-url", "zmq://localhost:1"], "item 7.3"),
+    (["--gen-server-url", "tcp://localhost:1"], "item 7.8"),
+    (["--gen-server-url", "zmq://localhost:1"], "item 7.8"),
     (["--param-push-tree"], "item 7.4"),
     (["--param-push-fanout", "4"], "item 7.4"),
     (["--verifier-pool"], "item 7.5"),
@@ -172,6 +168,12 @@ FORMERLY_UNPORTED = [
     ["--max-head-offpolicyness", "1", "--replay-capacity", "8"],
     ["--gen-server-url", "{server}"],
     ["--gen-server-url", "{server}", "--inmem-weight-sync"],
+    ["--multiprocess"],
+    ["--multiprocess", "--recover-retries", "1", "--mfc-timeout-s", "120",
+     "--worker-heartbeat-s", "2"],
+    ["--recover-retries", "1"],
+    ["--mfc-timeout-s", "60"],
+    ["--worker-heartbeat-s", "2"],
 ]
 
 
@@ -180,7 +182,7 @@ def _flag_id(f):
         return f[2]
     if f[0] in ("--remat", "--max-head-offpolicyness"):
         return "_".join(f)
-    if f[0] == "--gen-server-url":
+    if f[0] in ("--gen-server-url", "--multiprocess"):
         return "_".join(x for x in f if x.startswith("--"))
     return "_".join(x for x in f if x.startswith("--")) if f[0] == "--pipeline-overlap" else f[0]
 
@@ -204,6 +206,8 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags, monke
         monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     flags = [f.format(ckpt=ckpt_dir, yaml=cfg, server=server.url if server else "")
              for f in flags]
+    if "--multiprocess" in flags:
+        _keep_runtime_env(monkeypatch)
     try:
         stats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
     finally:
@@ -230,6 +234,42 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags, monke
         assert "replay/staleness" not in stats[-1]
     if server is not None:
         assert server.version == 2  # one push a step
+    if "--multiprocess" in flags:  # each worker's log is on the fileroot
+        logs = os.path.join(tmp_path, "logs", "ppo-math_trial0-attempt0")
+        assert os.listdir(logs) == ["model_worker-0.log"]
+
+
+def _keep_runtime_env(monkeypatch):
+    """A --multiprocess trial points this process at its name-resolve
+    store and authkey; give later tests theirs back, and keep the worker
+    processes to two threads each."""
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.system.stream import ENV_AUTHKEY
+
+    for key in ("AREAL_NAME_RESOLVE", "AREAL_NAME_RESOLVE_ROOT", ENV_AUTHKEY):
+        monkeypatch.setenv(key, os.environ.get(key, ""))
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    monkeypatch.setattr(name_resolve, "_default", name_resolve._default)
+
+
+def test_sft_multiprocess_runs(tmp_path, ckpt_dir, monkeypatch):
+    """`quickstart sft --multiprocess`: the SFT trial with its worker in
+    a process of its own on the CPU, two steps and a save at step 2."""
+    _keep_runtime_env(monkeypatch)
+    data = tmp_path / "sft.jsonl"
+    with open(data, "w") as f:
+        for i in range(8):
+            f.write(json.dumps({"id": f"r{i}", "prompt": f"Q{i}: {i} + {i} = ",
+                                "answer": f"{2 * i}"}) + "\n")
+    stats = quickstart.main(
+        ["sft", "--model.path", ckpt_dir, "--dataset.path", str(data), "--tokenizer-path",
+         "char:512", "--batch-size", "4", "--fileroot", str(tmp_path), "--save-freq-steps", "2",
+         "--multiprocess", "--mfc-timeout-s", "120"],
+        device="cpu",
+    )
+    assert len(stats) == 2 and np.isfinite(stats[-1]["loss"])
+    saved = os.path.join(tmp_path, "checkpoints", "sft", "trial0", "default@0", "step_2")
+    assert os.path.isdir(saved)
 
 
 def test_rerun_resumes_the_trial(tmp_path, ckpt_dir, data_path):
@@ -289,8 +329,8 @@ def test_yaml_config_unknown_key_exits(tmp_path, ckpt_dir, data_path):
 
 def test_yaml_config_cannot_set_an_unported_flag(tmp_path, ckpt_dir, data_path):
     cfg = tmp_path / "options.yaml"
-    cfg.write_text("multiprocess: true\n")
-    with pytest.raises(SystemExit, match="--multiprocess is not yet ported"):
+    cfg.write_text("launcher: slurm\n")
+    with pytest.raises(SystemExit, match="--launcher is not yet ported"):
         quickstart.main(_argv(ckpt_dir, data_path, tmp_path, "--config", str(cfg)),
                         device="cpu")
 

@@ -195,9 +195,9 @@ def test_inmem_sync_pauses_parks_and_resumes(root):
 
 
 def test_refusals_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 7.3"):
+    with pytest.raises(NotImplementedError, match="item 7.8"):
         make_gen_client("tcp://127.0.0.1:5555")
-    with pytest.raises(NotImplementedError, match="item 7.3"):
+    with pytest.raises(NotImplementedError, match="item 7.8"):
         RemoteGeneratorEngine(tiny_config(), "zmq://127.0.0.1:5555")
     with pytest.raises(NotImplementedError, match="item 7.4"):
         RemoteGeneratorEngine(tiny_config(), "http://127.0.0.1:1", push_mode="fabric")
@@ -311,7 +311,7 @@ def test_quickstart_with_gen_server_url(root, monkeypatch):
         stats = quickstart.main(argv, device="cpu")
         assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
         assert srv.version == 2
-        with pytest.raises(SystemExit, match="item 7.3"):
+        with pytest.raises(SystemExit, match="item 7.8"):
             quickstart.main(argv[:-3] + ["--gen-server-url", "tcp://127.0.0.1:1"],
                             device="cpu")
     finally:
