@@ -228,11 +228,35 @@ class LLMAPIClient(BoundedAgenerateMixin):
         new weight version."""
         return int(self._post("/update_weights", {"path": path})["version"])
 
-    def push_weights(self, meta: Dict, payload: bytes) -> Dict:
-        raise NotImplementedError(
-            "the binary weight push (/param_push) is not yet ported "
-            "(ROADMAP queue 1, item 7.4: the param store)"
-        )
+    def push_weights(self, meta: Dict, payload) -> Dict:
+        """The binary weight push of the param store
+        (`system/paramstore.py`): ``POST /param_push`` with an
+        octet-stream body, the 8-byte big-endian meta length, the meta
+        JSON and the raw serialized params (any bytes-like object, sent
+        as it is).  Returns the server's ack."""
+        from areal_tpu_torch.system.paramstore import push_prefix
+
+        head = push_prefix(meta)
+        headers = {"Content-Type": "application/octet-stream",
+                   "Content-Length": str(len(head) + memoryview(payload).nbytes)}
+        if self.token:
+            headers["X-Areal-Token"] = self.token
+        # Two chunks: the payload (gigabytes) is never joined into a copy.
+        req = urllib.request.Request(self.url + "/param_push",
+                                     data=[head, memoryview(payload).cast("B")],
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
+                out = json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            try:
+                err = json.loads(e.read()).get("error", "")
+            except Exception:  # noqa: BLE001 — the status says enough
+                err = ""
+            raise RuntimeError(f"generation server /param_push failed: HTTP {e.code} {err}") from e
+        if "error" in out:
+            raise RuntimeError(f"generation server error: {out['error']}")
+        return out
 
     def pause(self) -> Dict:
         """Park in-flight decoding at the next chunk boundary."""

@@ -58,6 +58,7 @@ def make_master(plan: ExperimentPlan, pool) -> MasterWorker:
         difficulty_filter=plan.difficulty_filter,
         max_recoveries=plan.max_recoveries,
         max_consecutive_quarantines=plan.max_consecutive_quarantines,
+        weight_push_checksum=plan.weight_push_checksum,
         pipeline_overlap=plan.pipeline_overlap,
         overlap_window=plan.overlap_window,
         pipeline_chunk_seqs=plan.pipeline_chunk_seqs,

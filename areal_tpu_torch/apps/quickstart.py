@@ -51,14 +51,11 @@ _UNPORTED_FLAGS = {
     "tpu_zone": "item 10 (scheduler/)",
     "tpu_project": "item 10 (scheduler/)",
     "tpu_num_hosts": "item 10 (scheduler/)",
-    "no_weight_push_checksum": "item 7.4 (the param store)",
     "eval_data": "item 10 (scheduler/evaluator.py)",
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
     "eval_protocol": "item 10 (scheduler/evaluator.py)",
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
-    "param_push_tree": "item 7.4 (the param store)",
-    "param_push_fanout": "item 7.4 (the param store)",
     "verifier_pool": "item 7.5 (the verifier fleet)",
     "mixture_weight": "item 7.5 (task mixtures)",
     "mixture_adaptive": "item 7.5 (task mixtures)",
@@ -122,7 +119,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--max-consecutive-quarantines", type=int, default=3,
                    help="consecutive quarantined steps before the master rolls back to the "
                         "last recover checkpoint (0 = never)")
-    p.add_argument("--no-weight-push-checksum", action="store_true", help="not yet ported")
+    p.add_argument("--no-weight-push-checksum", action="store_true",
+                   help="ship cross-worker weight pushes without their content checksum "
+                        "(the receiver then swaps without verifying)")
     p.add_argument("--eval-data", default=None, help="not yet ported")
     p.add_argument("--eval-max-new-tokens", type=int, default=256, help="not yet ported")
     p.add_argument("--eval-protocol", default="greedy", help="not yet ported")
@@ -185,8 +184,12 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
     pp.add_argument("--inmem-weight-sync", action="store_true",
                     help="pause the generation servers at a chunk boundary around each "
                          "weight push")
-    pp.add_argument("--param-push-tree", action="store_true", help="not yet ported")
-    pp.add_argument("--param-push-fanout", type=int, default=2, help="not yet ported")
+    pp.add_argument("--param-push-tree", action="store_true",
+                    help="with --gen-server-url: publish each weight version once and push it "
+                         "down a broadcast tree of the servers (each relays, then swaps in "
+                         "place) instead of through a checkpoint on disk")
+    pp.add_argument("--param-push-fanout", type=int, default=2,
+                    help="children a node of the broadcast tree relays to")
     pp.add_argument("--pipeline-overlap", action="store_true",
                     help="stream each step through the graph in chunks of prompts")
     pp.add_argument("--overlap-window", type=int, default=2,
@@ -308,6 +311,7 @@ def cmd_sft(args, device=None):
         anomaly_grad_norm_mult=args.anomaly_grad_norm_mult,
         anomaly_update_norm_max=args.anomaly_update_norm_max,
         max_consecutive_quarantines=args.max_consecutive_quarantines,
+        weight_push_checksum=not args.no_weight_push_checksum,
     )
     return _run(exps.build_sft(cfg), args, device)
 
@@ -384,6 +388,9 @@ def cmd_ppo_math(args, device=None):
         replay_capacity=args.replay_capacity,
         gen_server_url=args.gen_server_url,
         inmem_weight_sync=args.inmem_weight_sync,
+        param_push_tree=args.param_push_tree,
+        param_push_fanout=args.param_push_fanout,
+        weight_push_checksum=not args.no_weight_push_checksum,
     )
     return _run(exps.build_ppo_math(cfg), args, device)
 

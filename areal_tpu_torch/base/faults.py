@@ -32,7 +32,7 @@ import random
 import re
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 logger = logging.getLogger("areal_tpu_torch.faults")
 
@@ -132,8 +132,11 @@ class FaultInjector:
     thread-safe (`fire` is called from request and tool threads)."""
 
     def __init__(self, specs: Sequence[FaultSpec], seed: Optional[int] = None,
-                 hang_max_s: float = 300.0):
+                 hang_max_s: float = 300.0,
+                 on_fire: Optional[Callable[[str], None]] = None):
         self.specs = list(specs)
+        # The host (a generation server) counts fired faults by kind.
+        self.on_fire = on_fire
         if seed is None:
             seed = int(os.environ.get(ENV_SEED, "0"))
         self._rng = random.Random(seed)
@@ -158,6 +161,11 @@ class FaultInjector:
     def elapsed_s(self) -> float:
         return time.monotonic() - self._t0
 
+    def _record(self, kind: str) -> None:
+        self.fired[kind] += 1
+        if self.on_fire is not None:
+            self.on_fire(kind)
+
     def _eligible(self, idx: int, spec: FaultSpec) -> bool:
         """Count the matching call and apply skip, times and p: the spec
         may fire on call numbers (skip, skip + times]."""
@@ -177,7 +185,7 @@ class FaultInjector:
                 continue
             if not self._eligible(i, s):
                 continue
-            self.fired[s.kind] += 1
+            self._record(s.kind)
             if s.kind == "slow":
                 time.sleep(s.latency_s)
             elif s.kind == "hang":
@@ -206,7 +214,7 @@ class FaultInjector:
         due = s is not None and self.elapsed_s() >= s.arm_after_s
         if due and not self._kill_reported:
             self._kill_reported = True
-            self.fired["kill"] += 1
+            self._record("kill")
         return due
 
     def kill_point(self, point: str) -> bool:
@@ -218,7 +226,7 @@ class FaultInjector:
                 continue
             if not self._eligible(i, s):
                 continue
-            self.fired["kill"] += 1
+            self._record("kill")
             logger.warning(f"FAULT kill at point {point!r}")
             return True
         return False

@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from areal_tpu_torch.base import metrics
+
 NONFINITE = 1        # non-finite loss or grad norm (engine)
 GRAD_SPIKE = 2       # grad norm > mult x running EWMA (engine)
 UPDATE_NORM = 4      # update norm above the configured ceiling (engine)
@@ -67,12 +69,36 @@ def _leaves(tree: Any) -> List[Any]:
     return [tree]
 
 
-def params_checksum(tree: Any) -> np.ndarray:
+# A tensor leaf is reduced a chunk at a time: no float64 copy of a whole
+# leaf.
+_NORM_CHUNK = 1 << 24
+
+
+def _tensor_norm(x: torch.Tensor, device=None) -> torch.Tensor:
+    """A tensor leaf's L2 norm, its squares summed in float64, as a
+    scalar on `device` (default: the leaf's), to which the leaf streams
+    a chunk at a time."""
+    flat = x.detach().reshape(-1)
+    device = flat.device if device is None else torch.device(device)
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    for i in range(0, flat.numel(), _NORM_CHUNK):
+        c = flat[i:i + _NORM_CHUNK].to(device).double()
+        total += torch.dot(c, c)
+    return total.sqrt()
+
+
+def params_checksum(tree: Any, device=None) -> np.ndarray:
     """Content fingerprint of a params tree (nested dicts of torch
     tensors on one device, or of numpy arrays): float64 ``[n_leaves,
     total_elements, leaf_l2_norms...]``.  Tensor leaves are reduced where
-    they lie and fetched with one transfer; numpy leaves are reduced on
-    the host."""
+    they lie, their squares summed in float64, and fetched with one
+    transfer: the card's and the host's norms of one leaf agree to
+    ~1e-12 at any size.  Numpy leaves are reduced on the host as the JAX
+    package reduces them (float32, bit for bit), which drifts past
+    CHECKSUM_RTOL from the exact norm for a leaf of 64M elements and
+    more (ROADMAP queue 3): a host tree is verified against a host
+    tree's checksum.  With `device`, tensor leaves are reduced there (a
+    receiver's host leaves on its card, a chunk in memory at a time)."""
     leaves = _leaves(tree)
     n_elems = float(sum(int(np.prod(x.shape)) for x in leaves))
     head = [float(len(leaves)), n_elems]
@@ -84,13 +110,14 @@ def params_checksum(tree: Any) -> np.ndarray:
             for x in leaves
         ]
     else:
-        stacked = torch.stack([
-            torch.linalg.vector_norm(x.detach().float().reshape(-1))
-            for x in leaves
-        ])
-        norms = stacked.cpu().double().tolist()
+        norms = torch.stack([_tensor_norm(x, device) for x in leaves]).cpu().tolist()
     return np.asarray(head + norms, np.float64)
 
+
+M_PUSH_REJECTED = metrics.default_registry().counter(
+    "areal_gen_weight_push_rejected_total",
+    "weight pushes rejected by the receiver's content checksum",
+)
 
 # Checksum tolerances: they absorb reduction-order differences between
 # devices and libraries, far below any rescaled or shifted leaf.
@@ -110,10 +137,13 @@ def checksum_matches(a: np.ndarray, b: np.ndarray) -> bool:
     return bool(np.allclose(a, b, rtol=CHECKSUM_RTOL, atol=CHECKSUM_ATOL))
 
 
-def verify_checksum(tree: Any, expected: np.ndarray) -> None:
-    """Raise WeightChecksumError unless `tree` matches `expected`."""
-    got = params_checksum(tree)
+def verify_checksum(tree: Any, expected: np.ndarray, device=None) -> None:
+    """Raise WeightChecksumError (and count it in
+    ``areal_gen_weight_push_rejected_total``) unless `tree` matches
+    `expected` (its tensor leaves reduced on `device` when given)."""
+    got = params_checksum(tree, device)
     if not checksum_matches(got, np.asarray(expected, np.float64)):
+        M_PUSH_REJECTED.inc()
         raise WeightChecksumError(
             "weight push rejected: params checksum mismatch "
             f"(expected {np.asarray(expected)[:4]}..., got {got[:4]}...); "

@@ -74,6 +74,10 @@ class RecoverInfo:
     # crashed one stopped.
     replay_watermarks: Dict[str, Any] = dataclasses.field(default_factory=dict)
     rollout_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # The param store's version counter (`ParamStore.state_dict()`,
+    # ``{"head": n}``), so a recovered trainer could publish at head + 1.
+    # No code writes it yet, as in the JAX package (ROADMAP queue 3).
+    paramstore_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Quarantined steps (`integrity.quarantine_entry`) and the live streak.
     quarantine_ledger: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     consecutive_quarantines: int = 0

@@ -58,7 +58,6 @@ def unported_options(cfg):
     checks = (
         (any(not u.startswith(("http://", "https://")) for u in urls),
          "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.8"),
-        (cfg.param_push_tree, "param_push_tree", "queue 1, item 7.4"),
         (cfg.verifier_pool, "verifier_pool", "queue 1, item 7.5"),
         (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
          "queue 1, item 7.5"),
@@ -176,6 +175,13 @@ def check_ppo_math(cfg) -> None:
         _fail(f"kv_pool_pages must be >= 0 (0 = auto-size), got {cfg.kv_pool_pages}")
     if cfg.prefill_chunk_tokens is not None and cfg.prefill_chunk_tokens < 0:
         _fail(f"prefill_chunk_tokens must be >= 0, got {cfg.prefill_chunk_tokens}")
+    if cfg.param_push_fanout < 1:
+        _fail(f"param_push_fanout must be >= 1, got {cfg.param_push_fanout}")
+    if cfg.param_push_tree and not cfg.gen_server_url:
+        # The fabric fans out over the remote servers; the in-process
+        # engine swaps its weights directly.
+        _fail("param_push_tree requires gen_server_url (the broadcast fabric distributes over "
+              "the remote serving fleet; the in-process engine swaps weights directly)")
     if cfg.gen_server_url and (
         cfg.gen_backend_args or cfg.kv_paged is not None or cfg.kv_page_size != 128
         or cfg.kv_pool_pages or cfg.prefill_chunk_tokens is not None

@@ -68,6 +68,9 @@ class ExperimentPlan:
     # triggers one (see system/master.py).
     max_recoveries: int = 3
     max_consecutive_quarantines: int = 3
+    # Cross-worker weight pushes carry a content checksum the receiver
+    # verifies before it swaps (see system/master.py).
+    weight_push_checksum: bool = True
     # The pipeline-overlapped step (see system/master.py).
     pipeline_overlap: bool = False
     overlap_window: int = 2
@@ -107,6 +110,7 @@ class SFTConfig:
     anomaly_grad_norm_mult: float = 0.0
     anomaly_update_norm_max: float = 0.0
     max_consecutive_quarantines: int = 3
+    weight_push_checksum: bool = True
 
 
 def build_sft(cfg: SFTConfig, tokenizer=None) -> ExperimentPlan:
@@ -149,6 +153,7 @@ def build_sft(cfg: SFTConfig, tokenizer=None) -> ExperimentPlan:
         fileroot=cfg.fileroot,
         max_recoveries=cfg.max_recoveries,
         max_consecutive_quarantines=cfg.max_consecutive_quarantines,
+        weight_push_checksum=cfg.weight_push_checksum,
         mfc_timeout_s=cfg.mfc_timeout_s,
         worker_heartbeat_s=cfg.worker_heartbeat_s,
     )
@@ -226,6 +231,7 @@ class PPOMathConfig:
     # quarantine streak that triggers one (0: never).
     max_recoveries: int = 3
     max_consecutive_quarantines: int = 3
+    weight_push_checksum: bool = True
     # Model role -> worker index (e.g. {"actor_gen": 1, "reward": 1}: the
     # generator and the reward on a second worker, the data and param
     # planes moving what crosses).  Roles not listed run on worker 0.
@@ -261,8 +267,14 @@ class PPOMathConfig:
     # Pause the servers at a chunk boundary around each push, so a sync
     # costs one chunk of replay instead of a drain.
     inmem_weight_sync: bool = False
-    # ---- not yet ported: check_ppo_math refuses a value other than these ----
+    # The broadcast-tree push (system/paramstore.py): set_params on the
+    # remote generator publishes ONE serialized payload into a versioned
+    # ParamStore and pushes it down a fan-out tree over the servers (each
+    # relays to `param_push_fanout` children before it applies), instead
+    # of a checkpoint on disk.  Needs gen_server_url.
     param_push_tree: bool = False
+    param_push_fanout: int = 2
+    # ---- not yet ported: check_ppo_math refuses a value other than these ----
     verifier_pool: bool = False
     mixture_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
     mixture_adaptive: bool = False
@@ -491,6 +503,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         difficulty_filter=cfg.dataset_filter,
         max_recoveries=cfg.max_recoveries,
         max_consecutive_quarantines=cfg.max_consecutive_quarantines,
+        weight_push_checksum=cfg.weight_push_checksum,
         pipeline_overlap=cfg.pipeline_overlap,
         overlap_window=cfg.overlap_window,
         pipeline_chunk_seqs=cfg.pipeline_chunk_seqs,
@@ -525,7 +538,8 @@ def _remote_gen_shard(cfg: PPOMathConfig, actor_gen, actor_if) -> ModelShardSpec
             "url": [u.strip() for u in cfg.gen_server_url.split(",") if u.strip()],
             "model_type": model_type,
             "inmem_sync": cfg.inmem_weight_sync,
-            "push_mode": "disk",
+            "push_mode": "fabric" if cfg.param_push_tree else "disk",
+            "push_fanout": cfg.param_push_fanout,
         }),
         interface=actor_if,
     )

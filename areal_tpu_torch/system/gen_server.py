@@ -1,11 +1,22 @@
 """Generation service: a batching HTTP server around a GeneratorEngine
 (port of areal_tpu/system/gen_server.py; it serves ``POST /generate``,
-``POST /episode``, ``POST /update_weights``, ``POST /pause``,
-``POST /resume`` and ``GET /health`` with the JAX server's JSON wire
-format, so both packages' `LLMAPIClient` talk to it unchanged), and the
-trainer's side of decoupled generation: `make_gen_client` and
-`RemoteGeneratorEngine`, the weightless "remote_generator" backend whose
-`set_params` saves an HF checkpoint and posts ``/update_weights``.
+``POST /episode``, ``POST /update_weights``, ``POST /param_push``,
+``POST /pause``, ``POST /resume``, ``GET /health`` and ``GET /metrics``
+with the JAX server's wire formats, so both packages' `LLMAPIClient`
+talk to it unchanged), and the trainer's side of decoupled generation:
+`make_gen_client` and `RemoteGeneratorEngine`, the weightless
+"remote_generator" backend whose `set_params` saves an HF checkpoint
+and posts ``/update_weights`` (``push_mode="disk"``) or publishes the
+weights once into a `ParamStore` and pushes them down a broadcast tree
+(``push_mode="fabric"``, `system/paramstore.py`).
+
+    python -m areal_tpu_torch.system.gen_server --path <hf_ckpt_dir> \
+        [--port 8091] [--experiment E --trial T --keepalive-ttl 10] [--device cpu]
+
+serves a checkpoint (on the CUDA card unless ``--device cpu``); with
+``--experiment`` it announces its ``/metrics`` endpoint and joins the
+fleet under ``names.gen_servers`` (`announce`: a keepalive key that a
+crashed server lets expire and `close()` deletes).
 
 Concurrent /generate requests are MERGED by a collector thread into
 shared engine calls: client-side fan-out gets cross-request batching.
@@ -27,9 +38,14 @@ gets HTTP 409 with ``{"error_type": "slot_gone"}``.  Faults
 this host; with `ckpt_root` (or ``AREAL_GEN_CKPT_ROOT``) set, a path
 that resolves outside it is refused.
 
-Not yet ported: `/param_push` and the fabric push (ROADMAP queue 1 item
-7.4), `/metrics` (7.5), the ZMQ transport (7.8), the other fault points
-and the command-line entry point.
+``POST /param_push`` takes one hop of a fabric push
+(`_handle_param_push`): it relays the raw payload to its subtree's
+children first, then applies it through the checksummed
+`update_weights_inmem` at the pushed (absolute) version; a
+``kill@point=param_push`` fault crashes the server there.
+
+Not yet ported: the ZMQ transport (ROADMAP queue 1 item 7.8) and the
+other fault points (7.6).
 """
 
 import dataclasses
@@ -58,9 +74,25 @@ from areal_tpu_torch.base.faults import FaultInjector
 
 logger = logging.getLogger("areal_tpu_torch.gen_server")
 
+# The JAX server's metrics, registered once a process: every server in
+# a process shares one series a name.
+_REG = metrics.default_registry()
+_M_QUEUE_DEPTH = _REG.gauge("areal_gen_queue_depth",
+                            "requests waiting in the batching collector queue")
+_M_REQUESTS = _REG.counter("areal_gen_requests_total",
+                           "generate requests finished, by terminal status", ("status",))
+_M_REQUEST_SECONDS = _REG.histogram("areal_gen_request_seconds",
+                                    "request latency, enqueue to reply")
+_M_BATCHES = _REG.counter("areal_gen_batches_total", "collector batches dispatched")
+_M_WEIGHT_VERSION = _REG.gauge("areal_gen_weight_version", "current serving weight version")
+_M_WEIGHT_UPDATES = _REG.counter("areal_gen_weight_updates_total", "weight swaps applied")
+_M_CAPACITY = _REG.gauge("areal_gen_capacity_slots", "max concurrent decode slots")
+_M_PAUSED = _REG.gauge("areal_gen_paused", "1 while paused for a weight swap")
+_M_FAULTS = _REG.counter("areal_gen_faults_total",
+                         "injected chaos faults fired (AREAL_FAULTS), by kind", ("kind",))
 # Episode continuations refused because the engine reclaimed the slot:
 # each costs the controller a full-conversation re-admission.
-_M_EPISODE_SLOT_LOST = metrics.default_registry().counter(
+_M_EPISODE_SLOT_LOST = _REG.counter(
     "areal_gen_episode_slot_lost_total",
     "episode continuations rejected: slot reclaimed",
 )
@@ -75,6 +107,7 @@ class _Pending:
     seed: Optional[int] = None
     result: Optional[Dict[str, Any]] = None
     error: Optional[str] = None
+    t_enq: Optional[int] = None  # enqueue time (monotonic ns)
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -110,12 +143,24 @@ class GenerationServer:
         # /update_weights loads a path and swaps the serving weights:
         # confine it to this directory when set.
         ckpt_root: str = "",
+        # The starting weight version: a restarted fleet member rejoins
+        # at the trainer's version instead of 0.
+        version: int = 0,
     ):
         self.engine = engine
         self.ckpt_root = ckpt_root or os.environ.get("AREAL_GEN_CKPT_ROOT", "")
         # Chaos: defaults to the AREAL_FAULTS spec (None when unset).
         self._faults = faults if faults is not None else FaultInjector.from_env()
-        self.version = 0
+        if self._faults is not None and self._faults.on_fire is None:
+            self._faults.on_fire = lambda kind: _M_FAULTS.labels(kind).inc()
+        self.version = int(version)
+        _M_CAPACITY.set(int(engine.max_decode_batch))
+        # Fleet membership (announce()): the keepalive key.  A kill fault
+        # closes the server as a crash, without deregistering (its
+        # announcement expires by its TTL, as a preempted node's does).
+        self._announce_key: Optional[str] = None
+        self._announce_thread: Optional[threading.Thread] = None
+        self._crashed = False
         self.max_wait_ms = max_wait_ms
         self.max_batch = max_batch
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
@@ -156,8 +201,33 @@ class GenerationServer:
             def do_GET(self):
                 if self.path == "/health":
                     self._send(200, srv.health_info())
+                elif self.path.split("?")[0] == "/metrics":
+                    body = metrics.default_registry().expose().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 else:
                     self._send(404, {"error": "unknown path"})
+
+            def _read_param_push(self, n: int):
+                """(meta, payload) of a /param_push body of `n` bytes,
+                read straight into one writable buffer: the leaves
+                deserialized from it need no copy on the host."""
+                head = self.rfile.read(8)
+                mlen = int.from_bytes(head, "big") if len(head) == 8 else -1
+                if mlen < 0 or 8 + mlen > n:
+                    raise ValueError("param_push meta prefix exceeds the body")
+                meta = json.loads(self.rfile.read(mlen))
+                payload = np.empty(n - 8 - mlen, np.uint8)  # not zero-filled: read over
+                view, got = memoryview(payload), 0
+                while got < len(payload):
+                    k = self.rfile.readinto(view[got:])
+                    if not k:
+                        raise ValueError(f"param_push body ended at {8 + mlen + got} of {n} bytes")
+                    got += k
+                return meta, view
 
             def do_POST(self):
                 if srv._token and self.headers.get("X-Areal-Token") != srv._token:
@@ -165,6 +235,11 @@ class GenerationServer:
                     return
                 try:
                     n = int(self.headers.get("Content-Length", 0))
+                    if self.path == "/param_push":
+                        # The binary plane: a meta prefix, its JSON and the
+                        # raw serialized params, never parsed as JSON.
+                        self._send(200, srv._handle_param_push(*self._read_param_push(n)))
+                        return
                     req = json.loads(self.rfile.read(n))
                     if self.path == "/generate":
                         self._send(200, srv._handle_generate(req))
@@ -204,6 +279,37 @@ class GenerationServer:
         self._collector_thread.start()
         logger.info(f"generation server at {self.url}")
 
+    # ---------------- fleet membership ----------------
+
+    def announce(self, experiment: str, trial: str, server_id: Optional[str] = None,
+                 ttl: float = 10.0) -> str:
+        """Join the fleet: register this server's URL under
+        `names.gen_servers` with a keepalive TTL and touch it from a
+        heartbeat thread every ttl/3.  A server that stops beating (a
+        crash) expires out of the listing; `close()` deregisters at once.
+        Returns the server id (default ``s<port>``, stable across a
+        restart on the same port)."""
+        from areal_tpu_torch.base import name_resolve, names
+
+        sid = server_id or f"s{self.port}"
+        key = names.gen_server(experiment, trial, sid)
+        name_resolve.add(key, self.url, keepalive_ttl=ttl, replace=True, delete_on_exit=True)
+        self._announce_key = key
+        beat_s = max(ttl / 3.0, 0.05)
+
+        def beat():
+            repo = name_resolve.default()
+            while not self._stop.wait(beat_s):
+                try:
+                    repo.touch(key)
+                except Exception:  # noqa: BLE001 — key deleted: stop beating
+                    return
+
+        self._announce_thread = threading.Thread(target=beat, daemon=True)
+        self._announce_thread.start()
+        logger.info(f"announced fleet member {sid} (ttl {ttl}s)")
+        return sid
+
     def health_info(self) -> Dict:
         """Liveness + the load signals a rollout controller balances on;
         the engine's (live_slots, kv_utilization) pair is one atomically
@@ -213,10 +319,13 @@ class GenerationServer:
         with self._health_lock:
             version = self.version
             paused = self._pause_evt.is_set()
+        qd = self._queue.qsize()
+        _M_QUEUE_DEPTH.set(qd)
+        _M_WEIGHT_VERSION.set(version)
         return {
             "status": "ok",
             "version": version,
-            "queue_depth": self._queue.qsize(),
+            "queue_depth": qd,
             "live_slots": int(live),
             "kv_utilization": float(kvu),
             "capacity": int(eng.max_decode_batch),
@@ -231,11 +340,13 @@ class GenerationServer:
         resume()."""
         with self._health_lock:
             self._pause_evt.set()
+        _M_PAUSED.set(1)
         self.engine.interrupt()
 
     def resume(self) -> None:
         with self._health_lock:
             self._pause_evt.clear()
+        _M_PAUSED.set(0)
         self.engine.clear_interrupt()
         with self._resume_cond:
             self._resume_cond.notify_all()
@@ -246,8 +357,10 @@ class GenerationServer:
         version, resume — interrupted requests continue on their existing
         KV pages.
 
-        `version` sets the ABSOLUTE serving version; a push at or behind
-        the current one is a no-op.  Without it the version bumps by one.
+        `version` (a fabric push) sets the ABSOLUTE serving version; a
+        push at or behind the current one is a no-op that returns the
+        current version (a repair and a relay racing on one server must
+        not apply twice).  Without it the version bumps by one.
         `checksum` (`integrity.params_checksum` at the pusher) is verified
         BEFORE the swap: a mismatch raises `integrity.WeightChecksumError`
         and the server keeps serving its previous weights.  Returns the
@@ -258,7 +371,10 @@ class GenerationServer:
                     return self.version
         with self._update_mutex:
             if checksum is not None:
-                integrity.verify_checksum(params, checksum)
+                # Reduced on the engine's device: host leaves stream to
+                # it a chunk at a time, so no second copy of the tree
+                # lands on the card before the swap.
+                integrity.verify_checksum(params, checksum, device=self.engine.device)
             self.pause()
             try:
                 with self._engine_lock:
@@ -272,10 +388,57 @@ class GenerationServer:
                         self.version = self.version + 1 if version is None else int(version)
                         v = self.version
                     self.inmem_updates += 1
+                    _M_WEIGHT_VERSION.set(v)
+                    _M_WEIGHT_UPDATES.inc()
             finally:
                 self.resume()
         logger.info(f"weights updated in memory -> version {v}")
         return v
+
+    def _handle_param_push(self, req: Dict, payload) -> Dict:
+        """One hop of a fabric push (`system/paramstore.py`): relay the
+        raw payload to this node's subtree children FIRST (the fan-out
+        keeps moving while the local apply waits for a chunk boundary),
+        then deserialize it against the engine's own params and apply it
+        through the checksummed, interruptible `update_weights_inmem` at
+        the pushed version.  The ack gathers the subtree's outcomes:
+        ``applied`` (sids now serving the version) and ``failed`` (sids
+        orphaned, and why).  A local failure never fails the ack: each
+        subtree degrades on its own."""
+        if self._faults is not None and self._faults.kill_point("param_push"):
+            # A relay preempted mid-broadcast: crash semantics (no
+            # deregistration), its subtree orphaned.
+            logger.warning("FAULT kill: crashing relay mid-broadcast")
+            self._crashed = True
+            self.close()
+            raise RuntimeError("server killed at param_push")
+        from areal_tpu_torch.system import paramstore
+
+        t0 = time.monotonic()
+        version = int(req["version"])
+        manifest = req["manifest"]
+        checksum = (np.asarray(req["checksum"], np.float64)
+                    if req.get("checksum") is not None else None)
+        node = req.get("subtree") or {}
+        sid = str(node.get("sid") or f"s{self.port}")
+        applied, failed = paramstore.relay_subtrees(
+            node.get("children") or [],
+            {"cmd": "param_push", "version": version, "manifest": manifest,
+             "checksum": req.get("checksum")},
+            payload, token=self._token, timeout_s=float(req.get("timeout_s", 120.0)),
+        )
+        t_relay = time.monotonic()
+        try:
+            params = paramstore.deserialize_params(self.engine.params, manifest, payload)
+            self.update_weights_inmem(params, checksum=checksum, version=version)
+            applied.insert(0, sid)
+        except Exception as e:  # noqa: BLE001 — per-subtree degradation
+            logger.warning(f"local param_push apply failed: {e!r}")
+            failed.append({"sid": sid, "error": repr(e)})
+        logger.info(f"param_push v{version} at {sid}: relay to "
+                    f"{len(node.get('children') or [])} children {t_relay - t0:.3f} s, apply "
+                    f"{time.monotonic() - t_relay:.3f} s -> version {self.version}")
+        return {"version": self.version, "applied": applied, "failed": failed}
 
     def _handle_update(self, req: Dict) -> Dict:
         """Swap the weights for the HF checkpoint at ``req["path"]`` and
@@ -296,6 +459,8 @@ class GenerationServer:
             with self._health_lock:
                 self.version += 1
                 v = self.version
+            _M_WEIGHT_VERSION.set(v)
+            _M_WEIGHT_UPDATES.inc()
         logger.info(f"weights updated from {req['path']} -> version {v}")
         return {"version": v}
 
@@ -329,6 +494,7 @@ class GenerationServer:
             gconfig=g,
             done=threading.Event(),
             seed=(int(req["seed"]) if req.get("seed") is not None else None),
+            t_enq=time.monotonic_ns(),
         )
         self._queue.put(p)
         while not p.done.wait(timeout=1.0):
@@ -426,6 +592,8 @@ class GenerationServer:
                         batch.append(self._queue.get_nowait())
                     except queue.Empty:
                         break
+                _M_QUEUE_DEPTH.set(self._queue.qsize())
+                _M_BATCHES.inc()
                 by_g: Dict[Any, List[_Pending]] = {}
                 for p in batch:
                     by_g.setdefault(_gkey(p), []).append(p)
@@ -469,6 +637,9 @@ class GenerationServer:
                     f"exceeds the KV page budget of {budget} tokens; raise "
                     f"kv_pool_pages or shrink the request"
                 )
+                _M_REQUESTS.labels("rejected").inc()
+                if p.t_enq is not None:
+                    _M_REQUEST_SECONDS.observe((time.monotonic_ns() - p.t_enq) / 1e9)
                 p.done.set()
                 continue
             if sub and used + need > budget:
@@ -530,12 +701,25 @@ class GenerationServer:
                 p.error = repr(e)
         finally:
             for p in group:
+                _M_REQUESTS.labels("error" if p.error else "ok").inc()
+                if p.t_enq is not None:
+                    _M_REQUEST_SECONDS.observe((time.monotonic_ns() - p.t_enq) / 1e9)
                 p.done.set()
 
     def close(self):
         self._stop.set()
         if self._faults is not None:
             self._faults.release()  # hung requests fail now, not at the cap
+        if self._announce_key and not self._crashed:
+            # A graceful leave deregisters now; a crash leaves the key to
+            # expire by its TTL.
+            from areal_tpu_torch.base import name_resolve
+
+            try:
+                name_resolve.delete(self._announce_key)
+            except Exception:  # noqa: BLE001 — already expired or deleted
+                pass
+            self._announce_key = None
         self._http.shutdown()
         self._http.server_close()
         self._collector_thread.join(timeout=5.0)
@@ -584,11 +768,15 @@ class RemoteGeneratorEngine:
     """A generation engine backed by remote GenerationServers (backend
     "remote_generator"): this worker holds no generation weights.
     `generate` splits the prompts round-robin across the servers (each
-    client's share co-batches server-side); `set_params` saves an HF
+    client's share co-batches server-side).  `set_params` ships new
+    weights to every server: with ``push_mode="disk"`` it saves an HF
     checkpoint through the port's HF IO and posts ``/update_weights`` to
-    every server at once, paused around the push when `inmem_sync`
-    (the running generate call parks at a chunk boundary and resumes on
-    its KV pages under the new weights)."""
+    every server at once, paused around the push when `inmem_sync` (the
+    running generate call parks at a chunk boundary and resumes on its
+    KV pages under the new weights); with ``push_mode="fabric"`` it
+    publishes the weights once into a `ParamStore` and pushes them down
+    a broadcast tree of fan-out `push_fanout` over the servers (no disk
+    checkpoint; each server relays, then swaps in place)."""
 
     def __init__(
         self,
@@ -598,17 +786,15 @@ class RemoteGeneratorEngine:
         sync_dir: Optional[str] = None,
         inmem_sync: bool = False,
         push_mode: str = "disk",
+        push_fanout: int = 2,
     ):
-        if push_mode == "fabric":
-            raise NotImplementedError(
-                "push_mode='fabric' is not yet ported (ROADMAP queue 1, item 7.4: the "
-                "param store's broadcast push)"
-            )
-        if push_mode != "disk":
+        if push_mode not in ("disk", "fabric"):
             raise ValueError(f"unknown push_mode {push_mode!r}")
         self.cfg = cfg
         self.inmem_sync = inmem_sync
         self.push_mode = push_mode
+        self.push_fanout = int(push_fanout)
+        self._fabric = None  # built at the first fabric push
         urls = [url] if isinstance(url, str) else list(url)
         if not urls:
             raise ValueError("remote generator needs at least one URL")
@@ -666,8 +852,14 @@ class RemoteGeneratorEngine:
         return assemble_rollout(sample, prompt_key, gconfig.n, fetch)
 
     def set_params(self, params) -> None:
-        """Save `params` as an HF checkpoint in `sync_dir` and post
-        ``/update_weights`` to every server at once."""
+        """Ship `params` to every server: publish and push them down the
+        broadcast tree (fabric), or save them as an HF checkpoint in
+        `sync_dir` and post ``/update_weights`` to every server at once
+        (disk)."""
+        if self.push_mode == "fabric":
+            self._fabric_push(params)
+            self.pushes += 1
+            return
         from concurrent.futures import ThreadPoolExecutor
 
         from areal_tpu_torch.models.hf import registry as hf
@@ -686,3 +878,126 @@ class RemoteGeneratorEngine:
                 for c in self.clients:
                     c.resume()
         self.pushes += 1
+
+    def _fabric_push(self, params) -> None:
+        """Serialize and checksum once (the leaves copied off the card
+        into one host buffer), then push down the tree.  An orphaned
+        subtree (a relay died mid-push) keeps serving its version until
+        the next push: a partial push costs staleness, never
+        correctness (every apply is checksummed)."""
+        from areal_tpu_torch.system import paramstore
+
+        if self._fabric is None:
+            # The membership is the engine's static client set: sid = url.
+            self._fabric = paramstore.BroadcastFabric(
+                paramstore.ParamStore(),
+                discovery=lambda: {c.url: c.url for c in self.clients},
+                fanout=self.push_fanout,
+            )
+        self._fabric.store.publish(params)
+        report = self._fabric.push()
+        if report.orphans:
+            logger.warning(
+                f"fabric push v{report.version}: {len(report.orphans)} server(s) orphaned "
+                f"({[o['sid'] for o in report.orphans]}); they serve the previous version "
+                "until the next push"
+            )
+
+
+def main(argv=None) -> None:
+    """A standalone server: ``python -m areal_tpu_torch.system.gen_server
+    --path <hf_ckpt_dir> [--port 8091] [--device cpu]``; on the CUDA card
+    unless ``--device cpu``.  Serves until interrupted, or until a kill
+    fault crashes the server (then the process exits too)."""
+    import argparse
+
+    from areal_tpu_torch.base.device import resolve_device
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models.hf import registry as hf
+
+    p = argparse.ArgumentParser(prog="areal_tpu_torch.system.gen_server")
+    p.add_argument("--path", required=True, help="HF checkpoint dir")
+    p.add_argument("--parallel", default="d1",
+                   help="only d1 (ROADMAP queue 1 item 8: other layouts)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8091)
+    p.add_argument("--eos-token-id", type=int, default=None)
+    p.add_argument("--max-decode-batch", type=int, default=64)
+    p.add_argument("--kv-page-size", type=int, default=128,
+                   help="tokens per KV page in the paged decode pool")
+    p.add_argument("--kv-pool-pages", type=int, default=0,
+                   help="fixed KV pool size in pages (0 = auto-size)")
+    p.add_argument("--no-paged-kv", action="store_true",
+                   help="dense grow-by-doubling KV window instead of the paged pool")
+    p.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                   help="prompt tokens consumed per inner step of the serving chunk "
+                        "(0 = the two-program admit)")
+    p.add_argument("--no-kv-share-prefix", action="store_true",
+                   help="no copy-on-write prompt page sharing in the serving plane")
+    p.add_argument("--serving-admit-lanes", type=int, default=None,
+                   help="extra packed-stream query lanes above one a slot (0 = auto)")
+    p.add_argument("--token", default="", help="shared secret (or AREAL_GEN_TOKEN)")
+    p.add_argument("--zmq-port", type=int, default=None,
+                   help="not yet ported (ROADMAP queue 1 item 7.8: the ZMQ transport)")
+    p.add_argument("--experiment", default="",
+                   help="announce this server's /metrics endpoint under the experiment/"
+                        "trial metrics subtree AND join the fleet under names.gen_servers")
+    p.add_argument("--trial", default="trial")
+    p.add_argument("--keepalive-ttl", type=float, default=10.0,
+                   help="fleet keepalive TTL in seconds: a server that stops beating "
+                        "expires out of the fleet after this long")
+    p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = p.parse_args(argv)
+    if args.zmq_port is not None:
+        raise SystemExit("--zmq-port is not yet ported (ROADMAP queue 1, item 7.8: the ZMQ "
+                         "transport)")
+    if args.parallel != "d1":
+        raise SystemExit(f"--parallel {args.parallel} is not yet ported (ROADMAP queue 1, "
+                         "item 8: multi-GPU); only d1 runs")
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    device = resolve_device(args.device)
+    cfg, params = hf.load_hf_checkpoint(args.path, device=device)
+    eos = args.eos_token_id
+    if eos is None:
+        cfg_path = os.path.join(args.path, "config.json")
+        try:
+            with open(cfg_path) as f:
+                eos = json.load(f).get("eos_token_id")
+        except (OSError, json.JSONDecodeError) as e:
+            raise RuntimeError(
+                f"gen_server config missing or unreadable at {cfg_path}: {e}; pass "
+                "--eos-token-id or point --path at a checkpoint directory with config.json"
+            ) from e
+    options = dict(max_decode_batch=args.max_decode_batch, kv_page_size=args.kv_page_size,
+                   kv_pool_pages=args.kv_pool_pages)
+    if args.no_paged_kv:
+        options["kv_paged"] = False
+    if args.no_kv_share_prefix:
+        options["kv_share_prefix"] = False
+    if args.prefill_chunk_tokens is not None:
+        options["prefill_chunk_tokens"] = args.prefill_chunk_tokens
+    if args.serving_admit_lanes is not None:
+        options["serving_admit_lanes"] = args.serving_admit_lanes
+    engine = GeneratorEngine(cfg, params, device, eos_token_id=eos, **options)
+    del params
+    server = GenerationServer(engine, host=args.host, port=args.port,
+                              token=args.token or os.environ.get("AREAL_GEN_TOKEN", ""))
+    if args.experiment:
+        from areal_tpu_torch.base import name_resolve, names
+
+        # The server's own HTTP plane serves /metrics.
+        name_resolve.add(
+            names.metrics_endpoint(args.experiment, args.trial, f"gen_server/{server.port}"),
+            server.url, replace=True, delete_on_exit=True,
+        )
+        server.announce(args.experiment, args.trial, ttl=args.keepalive_ttl)
+    logger.info(f"serving {args.path} at {server.url} on {device}; Ctrl-C to stop")
+    try:
+        server._stop.wait()
+    except KeyboardInterrupt:
+        server.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -245,6 +245,9 @@ class MasterWorker:
         # Consecutive quarantined steps that escalate to a rollback onto
         # the last valid recover checkpoint (0: only count them).
         max_consecutive_quarantines: int = 3,
+        # Checksummed cross-worker weight pushes: the receiver verifies
+        # the sender's checksum before it swaps.
+        weight_push_checksum: bool = True,
         # The pipeline-overlapped step: chunks of pipeline_chunk_seqs
         # prompts, overlap_window of them in flight (1: the barrier path
         # in topological order, bit for bit).
@@ -296,6 +299,7 @@ class MasterWorker:
         self.worker_relauncher = worker_relauncher
         self._recoveries = 0
         self.max_consecutive_quarantines = int(max_consecutive_quarantines)
+        self.weight_push_checksum = bool(weight_push_checksum)
         self._consecutive_quarantines = 0
         self._quarantine_ledger: List[Dict[str, Any]] = []
         self._steps_per_epoch: Optional[int] = None
@@ -1019,7 +1023,11 @@ class MasterWorker:
             # its weights on the host and ships them with their checksum;
             # the target verifies before it swaps.  A rejected push is
             # sent again once (the sender's serialize-once cache reships
-            # the same encoding).
+            # the same encoding).  One observation of the push's wall a
+            # hook, in the fabric's histogram.
+            from areal_tpu_torch.system.paramstore import M_PUSH_SECONDS
+
+            push_t0 = time.monotonic()
             for attempt in (1, 2):
                 xfer_id = self._xfer_id
                 self._xfer_id += 1
@@ -1027,7 +1035,8 @@ class MasterWorker:
                     send_r, recv_r = await asyncio.gather(
                         self.pool.request(src_w, {
                             "type": "param_send", "model_name": str(node.model_name),
-                            "dsts": [dst_w], "xfer_ids": [xfer_id], "checksum": True,
+                            "dsts": [dst_w], "xfer_ids": [xfer_id],
+                            "checksum": self.weight_push_checksum,
                         }),
                         self.pool.request(dst_w, {
                             "type": "param_recv", "model_name": str(hook.target),
@@ -1040,6 +1049,7 @@ class MasterWorker:
                         raise
                     logger.warning(f"weight push to {hook.target} rejected by the receiver's "
                                    f"checksum ({e}); retrying once")
+            M_PUSH_SECONDS.observe(time.monotonic() - push_t0)
             self._acc_xfer("param", send_r, recv_r)
         else:
             raise TypeError(f"unknown hook {hook!r}")

@@ -1,5 +1,5 @@
 """Rollout controller: the actor plane of asynchronous RL (port of
-areal_tpu/system/rollout.py with a static set of servers).
+areal_tpu/system/rollout.py).
 
 It pulls prompts from a data stream and fans them out to generation
 servers:
@@ -25,16 +25,26 @@ servers:
 - **Circuit breaking**: each server has a `CircuitBreaker`; failed
   dispatches and failed health polls open it, the half-open probe rides
   the next health poll, and only closed breakers take dispatches.
+- **Dynamic membership**: with a ``discovery`` callable (normally
+  `fleet.fleet_discovery` over the ``names.gen_servers`` keepalive
+  subtree) the controller diffs the announced fleet at every health
+  refresh: a join gets a client and takes dispatches within one refresh
+  interval; a leave is drained (no new dispatches, the ones in flight
+  finish) and reaped once idle.  Clients passed at construction are
+  never drained by discovery.
+- **Version pins**: with a ``paramstore`` (`system/paramstore.py`) each
+  health poll pins the server's serving version under ``server:{sid}``
+  (exclusive: the pin follows the server as it upgrades), each dispatch
+  pins the trainer's version under ``dispatch:{qid}`` until the prompt
+  ends, and a reap releases the departed server's pins.
 
 With ``episode_runner`` (`system/episode.make_episode_runner`) a prompt
 becomes a multi-turn episode on the chosen server and lands in the
 buffer as one trajectory.  `state_dict` carries the prompt cursor, so a
 recovered trial resumes the stream where it stopped.
 
-Not yet ported: the fleet's dynamic discovery (``discovery=``, ROADMAP
-queue 1 item 7.5), the param store's version pins (``paramstore=``,
-7.4), task mixtures (``mixture=``, 7.5) and the tracer's lineage stamps
-(item 10).
+Not yet ported: task mixtures (``mixture=``, ROADMAP queue 1 item 7.5)
+and the tracer's lineage stamps (item 10).
 """
 
 import asyncio
@@ -74,12 +84,18 @@ class ServerState:
     sid: str
     client: Any  # an LLMAPIClient, or anything with its methods
     breaker: CircuitBreaker
+    # False for clients passed at construction (never drained by
+    # discovery); True for announced members.
+    dynamic: bool = False
     health: Dict = dataclasses.field(default_factory=dict)
     # An explicit flag, so an unreachable server's numbers never count.
     healthy: bool = False
     # Dispatches sent and not yet answered: the live correction to the
     # (staler) polled queue depth.
     local_load: int = 0
+    # Draining: no new dispatches; those in flight finish, then the
+    # membership sync reaps the entry.
+    draining: bool = False
 
 
 def _normalize_prompt(item, cursor: int):
@@ -109,7 +125,7 @@ class RolloutController:
 
     def __init__(
         self,
-        clients: Sequence[Any] = (),
+        clients: Sequence[Any] = (),  # static members (never drained)
         replay: ReplayBuffer = None,
         gconfig: GenerationHyperparameters = None,
         seed: Optional[int] = None,
@@ -129,26 +145,21 @@ class RolloutController:
         # worker thread, so deadlines, retries and breakers apply to the
         # episode) and returns an Episode.
         episode_runner: Optional[Callable[[Any, str, List[int]], Any]] = None,
+        # A `ParamStore` whose pins the controller keeps from what it
+        # observes: a version retires only when no live server serves it
+        # and no prompt in flight was dispatched against it.
         paramstore: Optional[Any] = None,
         mixture: Optional[Any] = None,
     ):
-        if discovery is not None:
-            raise NotImplementedError(
-                "fleet discovery is not yet ported (ROADMAP queue 1, item 7.5: the fleet); "
-                "pass static clients"
-            )
-        if paramstore is not None:
-            raise NotImplementedError(
-                "the param store's version pins are not yet ported (ROADMAP queue 1, "
-                "item 7.4: the param store)"
-            )
         if mixture is not None:
             raise NotImplementedError(
                 "task mixtures are not yet ported (ROADMAP queue 1, item 7.5: "
                 "data/mixture.py)"
             )
-        if not clients:
-            raise ValueError("rollout controller needs at least one client")
+        if not clients and discovery is None:
+            raise ValueError(
+                "rollout controller needs at least one client or a fleet-discovery callable"
+            )
         if replay is None or gconfig is None:
             raise ValueError("rollout controller needs replay and gconfig")
         self.replay = replay
@@ -159,6 +170,7 @@ class RolloutController:
         # True: each health poll sizes a client's agenerate bound to the
         # server's reported decode capacity.
         self.autosize_inflight = autosize_inflight
+        self.discovery = discovery
         self.dispatch_timeout_s = dispatch_timeout_s
         self.max_dispatch_retries = max_dispatch_retries
         self.retry_backoff_s = retry_backoff_s
@@ -166,6 +178,7 @@ class RolloutController:
         self.breaker_threshold = breaker_threshold
         self.breaker_cooldown_s = breaker_cooldown_s
         self.episode_runner = episode_runner
+        self.paramstore = paramstore
         self._runner_takes_trace = False
         if episode_runner is not None:
             try:
@@ -178,15 +191,14 @@ class RolloutController:
         self.stat = RolloutStat()
         # Prompts consumed from the stream since the trial started.
         self.cursor = 0
+        # Bumps at every join, leave and reap.
         self.membership_epoch = 0
         self._skip_on_run = 0
         self._stop = False
         self._servers: List[ServerState] = []
         self._by_sid: Dict[str, ServerState] = {}
         for i, c in enumerate(clients):
-            st = ServerState(sid=f"static{i}", client=c, breaker=self._make_breaker())
-            self._servers.append(st)
-            self._by_sid[st.sid] = st
+            self._add_server(f"static{i}", c, dynamic=False)
         self._health_ts = 0.0
         self._refresh_lock: Optional[asyncio.Lock] = None
         cap = max_concurrency or sum(
@@ -219,9 +231,8 @@ class RolloutController:
             "circuit-breaker state transitions, by target state", ("state",),
         )
         self._m_servers = reg.gauge(
-            "areal_rollout_servers", "servers known to the controller"
+            "areal_rollout_servers", "non-draining fleet members known to the controller"
         )
-        self._m_servers.set(len(self._servers))
 
     # ---------------- servers ----------------
 
@@ -248,6 +259,68 @@ class RolloutController:
             cooldown_s=self.breaker_cooldown_s,
             on_transition=on_transition,
         )
+
+    def _add_server(self, sid: str, client: Any, dynamic: bool) -> ServerState:
+        st = ServerState(sid=sid, client=client, breaker=self._make_breaker(), dynamic=dynamic)
+        self._servers.append(st)
+        self._by_sid[sid] = st
+        return st
+
+    def _release_pins(self, holder: str) -> None:
+        if self.paramstore is not None:
+            try:
+                self.paramstore.release_holder(holder)
+            except Exception:  # noqa: BLE001 — accounting, not dispatch
+                pass
+
+    def _sync_membership(self, mapping: Dict[str, Any]) -> None:
+        """Diff the announced fleet against the known set: add joins,
+        drain leaves (dynamic members only), reap the drained and idle."""
+        changed = False
+        for sid, target in mapping.items():
+            st = self._by_sid.get(sid)
+            if st is None:
+                if isinstance(target, str):
+                    from areal_tpu_torch.system.gen_server import make_gen_client
+
+                    client = make_gen_client(target)
+                else:  # a ready-made client object
+                    client = target
+                self._add_server(sid, client, dynamic=True)
+                changed = True
+                logger.info(f"fleet join: {sid}")
+            elif st.draining:
+                st.draining = False  # announced again while draining
+                changed = True
+                logger.info(f"fleet re-join: {sid}")
+        for st in self._servers:
+            if st.dynamic and not st.draining and st.sid not in mapping:
+                st.draining = True
+                changed = True
+                logger.info(f"fleet leave: {st.sid} draining ({st.local_load} in flight)")
+        for st in [s for s in self._servers if s.draining and s.local_load == 0]:
+            self._servers.remove(st)
+            del self._by_sid[st.sid]
+            changed = True
+            logger.info(f"fleet reap: {st.sid}")
+            # A reaped server no longer holds its version alive (the
+            # store's TTL covers a crash no reap observes).
+            self._release_pins(f"server:{st.sid}")
+            close = getattr(st.client, "close", None)
+            if st.dynamic and callable(close):
+                try:
+                    close()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
+        if changed:
+            self.membership_epoch += 1
+        self._m_servers.set(sum(1 for s in self._servers if not s.draining))
+
+    def drain(self, sid: str) -> None:
+        """Stop dispatching to `sid`; the dispatches in flight finish."""
+        st = self._by_sid.get(sid)
+        if st is not None:
+            st.draining = True
 
     # ---------------- recover ----------------
 
@@ -298,12 +371,26 @@ class RolloutController:
         st.health = h
         st.healthy = True
         br.record_success()
+        if self.paramstore is not None and h.get("version") is not None:
+            # Exclusive: the pin follows the server's serving version; a
+            # laggard keeps its version alive until it catches up.
+            try:
+                self.paramstore.pin(int(h["version"]), f"server:{st.sid}", exclusive=True)
+            except Exception:  # noqa: BLE001 — accounting, not dispatch
+                pass
         cap = int(h.get("capacity", 0))
         if cap > 0 and self.autosize_inflight:
             st.client.max_inflight = max(cap, 1)
 
     async def _refresh_health(self) -> None:
-        await asyncio.gather(*(self._poll_one(s) for s in self._servers))
+        if self.discovery is not None:
+            try:
+                mapping = await asyncio.to_thread(self.discovery)
+            except Exception as e:  # noqa: BLE001 — keep the last view
+                logger.warning(f"fleet discovery failed: {e!r}")
+            else:
+                self._sync_membership(dict(mapping))
+        await asyncio.gather(*(self._poll_one(s) for s in self._servers if not s.draining))
 
     async def _maybe_refresh(self) -> None:
         if self._refresh_lock is None:
@@ -321,7 +408,8 @@ class RolloutController:
     def _eligible(self, exclude: FrozenSet[str]) -> List[ServerState]:
         return [
             s for s in self._servers
-            if s.healthy and s.breaker.allow_dispatch() and s.sid not in exclude
+            if not s.draining and s.healthy and s.breaker.allow_dispatch()
+            and s.sid not in exclude
         ]
 
     async def _choose_client(self, exclude: FrozenSet[str] = frozenset()
@@ -464,11 +552,19 @@ class RolloutController:
             self.stat.submitted += 1
             self.stat.in_flight += 1
             self._m_in_flight.set(self.stat.in_flight)
+            if self.paramstore is not None:
+                # The version this prompt was dispatched against stays in
+                # the store until the prompt ends.
+                try:
+                    self.paramstore.pin(self.replay.version, f"dispatch:{qid}", exclusive=False)
+                except Exception:  # noqa: BLE001 — accounting only
+                    pass
             try:
                 out = await self._generate_with_retries(qid, prompt_ids)
             finally:
                 self.stat.in_flight -= 1
                 self._m_in_flight.set(self.stat.in_flight)
+                self._release_pins(f"dispatch:{qid}")
             if out is None:
                 # Every retry failed: counted, never dropped silently.
                 self.stat.failed += 1

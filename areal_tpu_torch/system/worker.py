@@ -593,6 +593,7 @@ class ModelWorker:
         update count, key the cache, so a train step or a `set_params`
         invalidates it.  Replies with the wire bytes and the split of the
         seconds (gather, checksum, encode and wire)."""
+        from areal_tpu_torch.system.paramstore import M_PUSH_BYTES
         from areal_tpu_torch.system.transfer import encode_oob
 
         t0 = time.monotonic()
@@ -624,6 +625,7 @@ class ModelWorker:
             req["dsts"], req["xfer_ids"], cache["payload"], encoded=cache["encoded"]
         )
         timing["wire_s"] = time.monotonic() - t3
+        M_PUSH_BYTES.inc(nbytes)
         logger.info("PARAM_PUSH " + json.dumps({
             "side": "send", "worker": self.config.worker_index, "model": key,
             "bytes": nbytes, "cached": timing["gather_s"] == 0.0, **timing,

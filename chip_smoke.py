@@ -247,8 +247,9 @@ async        — asynchronous RL at qwen2-1.5B's width and 7 layers
                into a ReplayBuffer across 3 disk pushes: a request parked
                and resumed, every consumed group within the bound, greedy
                tokens under a pushed version equal an in-process engine's.
-multiproc    — the multi-process runtime at qwen2-1.5B (28 layers) from the
-               quickstart's checkpoint: ppo-math with a ref, 8 prompts x 4,
+multiproc    — the multi-process runtime at qwen2-1.5B's width and 7 layers
+               (CUT_LAYERS) from a seeded checkpoint of that depth:
+               ppo-math with a ref, 8 prompts x 4,
                64 new tokens, the seeded null reward, placement
                {"actor_gen": 1, "reward": 1}.  (a) the plan in this
                process (two workers joined by InProcTransfer), 2 steps;
@@ -264,6 +265,25 @@ multiproc    — the multi-process runtime at qwen2-1.5B (28 layers) from the
                checksum, encode, wire, verify, load), each worker's peak
                and the retry's detection, relaunch and restore seconds
                are printed.
+fabric       — the param store and the broadcast-tree weight push at
+               qwen2-1.5B (28 layers, bf16 servers) from the quickstart's
+               checkpoint: three generation servers (two spawned by
+               LocalProcessFleet as `python -m
+               areal_tpu_torch.system.gen_server` processes, one in this
+               process) found by fleet_discovery under a file
+               name_resolve.  (d) first: quickstart ppo-math against the
+               fleet with --param-push-tree and with the disk push, the
+               two trials' tokens and stats bit for bit; (a) a fanout-2
+               fabric pushes the checkpoint plus a seeded fp32 delta in
+               the middle of a serving-plane burst on every server: depth
+               2, every server at the version, the bytes of three hops
+               from one serialization, K3 = 28 x replays and K2 = 28 x
+               inner steps on the in-process server, identical greedy
+               probes (also after a disk swap to the same weights), a
+               wrong checksum refused everywhere; (b) a killed relay
+               orphans its subtree, repair() restores it, its key
+               expires, a spawned replacement joins; (c) tree against
+               p2p push walls with each hop and apply.
 episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
@@ -334,7 +354,7 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "episodes", "parity", "train_parity")
+          "async", "multiproc", "fabric", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -2208,12 +2228,14 @@ def _burst(url, prompts, n, max_new, seed, timeout=900.0, **options):
 # async phase came: the burst's time is its waves of 16 slots, so 8
 # halve it; the checks are the same).
 PUSH_REQUESTS = 8
-# Layers of the push, resume_parity, overlap, recover, genmodes, async and
-# episodes phases' model: qwen2-1.5B at full width, cut in depth (push and
-# episodes to 14 since the async phase came; all seven to 7 since the
-# multiproc phase came: their decode steps are host-bound, a launch
-# sequence a layer, so fewer layers take about proportionally less time;
-# the checks count by the model's layers and are the same).
+# Layers of the push, resume_parity, overlap, recover, genmodes, async,
+# multiproc and episodes phases' model: qwen2-1.5B at full width, cut in
+# depth (push and episodes to 14 since the async phase came; all seven to
+# 7 since the multiproc phase came, and multiproc too since the fabric
+# phase came: their decode steps are host-bound, a launch sequence a
+# layer, and their weight pushes scale with the depth, so fewer layers
+# take about proportionally less time; the checks count by the model's
+# layers and are the same).
 CUT_LAYERS = 7
 
 
@@ -3758,7 +3780,7 @@ def phase_quickstart(report, seed):
 # after the last phase that uses them.
 SHARED_CKPTS = {}
 CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
-               "multiproc")
+               "multiproc", "fabric")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -7027,8 +7049,8 @@ def _worker_stats(plan, seen):
 
 
 def phase_multiproc(report, seed):
-    """The multi-process runtime at qwen2-1.5B (28 layers, full width),
-    from the quickstart's seeded checkpoint (char tokenizer, 64 math
+    """The multi-process runtime at qwen2-1.5B's full width and CUT_LAYERS
+    layers, from a seeded checkpoint of that depth (char tokenizer, 64 math
     rows, a ref, kl_ctl 0.1, 8 prompts x 4, MULTIPROC_NEW_TOKENS new
     tokens, the seeded null reward), placement {"actor_gen": 1, "reward":
     1}: prompts, rollouts, rewards and the actor's fp32 weights (with
@@ -7057,7 +7079,7 @@ def phase_multiproc(report, seed):
     from areal_tpu_torch.apps import main as runner
     from areal_tpu_torch.models.config import qwen2_config
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
     os.makedirs(MULTIPROC_DIR, exist_ok=True)
     work = tempfile.mkdtemp(prefix="run-", dir=MULTIPROC_DIR)
     out = {}
@@ -7208,6 +7230,648 @@ def phase_multiproc(report, seed):
     report["multiproc"] = out
 
 
+FABRIC_DIR = os.path.join(REPO, ".fabric_tmp")
+# The spawned servers' ports count up from FABRIC_BASE_PORT (the one armed
+# to die, then the plain ones); the server in this process takes
+# FABRIC_INPROC_PORT, so its sid "s8201" sorts after theirs and the tree's
+# first root (the relay with a child) is a spawned server.
+FABRIC_BASE_PORT = 8101
+FABRIC_INPROC_PORT = 8201
+FABRIC_TTL = 5.0  # the fleet keys' keepalive TTL (s)
+# Every server's serving plane: 32 slots (8 prompts x 4 in one wave) over
+# an explicitly sized pool (an auto-sized one takes the card's free
+# memory, which three servers and a trainer share), a 64-token prefill
+# slice, as in the async phase.
+FABRIC_SLOTS = 32
+FABRIC_POOL_PAGES = 256
+FABRIC_PREFILL_TOKENS = 64
+FABRIC_PROMPTS = 8
+FABRIC_NEW_TOKENS = 128
+# The burst's stop sequence: a request with one takes the serving plane by
+# the JAX engine's own rule (a push then parks it and K3 replays), where a
+# burst of <= 64 requests of <= 2048 new tokens without one takes the
+# static path.  A random model emits this pair about never.
+FABRIC_STOP = [[151935, 151934]]
+FABRIC_DELTA_STD = 1e-3  # the seeded fp32 delta pushed on top of the checkpoint
+FABRIC_TRIAL_NEW_TOKENS = 64
+# (b): the server armed to die skips the param pushes it takes before
+# (d)'s two fabric pushes and (a)'s two, and dies at the fifth.
+FABRIC_KILL = "kill@point=param_push&skip=4&times=1"
+
+
+def _reap(proc, timeout):
+    """Wait for a spawned process to exit: (its exit code, its peak
+    resident host memory in bytes, from wait4's rusage), or (None, None)
+    at the timeout.  wait4's rusage holds where /proc/<pid>/status has no
+    VmHWM, as on the card's machine."""
+    deadline = time.monotonic() + timeout
+    while True:
+        pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+        if pid:
+            return os.waitstatus_to_exitcode(status), usage.ru_maxrss * 1024
+        if time.monotonic() > deadline:
+            return None, None
+        time.sleep(0.05)
+
+
+def _metric_value(url, name):
+    """One unlabelled series of a server's /metrics (0 when absent)."""
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith(name + " "):
+                return float(line.split()[1])
+    return 0.0
+
+
+class _PushLog:
+    """Each hop this process sends (paramstore.push_payload, wrapped) and
+    each apply a server logs ("param_push vN at sid: relay ... s, apply ...
+    s"), read from this process's logger and the spawned servers' logs."""
+
+    def __init__(self, paramstore, logs_dir):
+        import logging as pylogging
+
+        self.hops, self.lines, self.logs_dir = [], [], logs_dir
+        self._paramstore, self._real = paramstore, paramstore.push_payload
+        log_self = self
+
+        def push_payload(url, meta, payload, **kw):
+            t0 = time.monotonic()
+            try:
+                return log_self._real(url, meta, payload, **kw)
+            finally:
+                log_self.hops.append(dict(version=meta.get("version"), url=url,
+                                          sid=(meta.get("subtree") or {}).get("sid"),
+                                          s=time.monotonic() - t0))
+
+        class _Handler(pylogging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("param_push v"):
+                    log_self.lines.append(msg)
+
+        paramstore.push_payload = push_payload
+        self.handler = _Handler()
+        self.logger = pylogging.getLogger("areal_tpu_torch.gen_server")
+        self.level = self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(pylogging.INFO)
+
+    def close(self):
+        self._paramstore.push_payload = self._real
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def applies(self, version):
+        """{sid: (relay_s, apply_s)} the servers logged for `version`."""
+        lines = list(self.lines)
+        for name in os.listdir(self.logs_dir):
+            with open(os.path.join(self.logs_dir, name), errors="replace") as f:
+                lines += [ln.split(": ", 1)[1] for ln in f if "areal_tpu_torch.gen_server: "
+                          "param_push v" in ln]
+        out = {}
+        for ln in lines:
+            head, rest = ln.split(": relay to ", 1)
+            v, sid = head[len("param_push v"):].split(" at ")
+            if int(v) == version:
+                relay = float(rest.split(" children ")[1].split(" s,")[0])
+                apply = float(rest.split("apply ")[1].split(" s")[0])
+                out[sid] = (relay, apply)
+        return out
+
+    def describe(self, version, report):
+        hops = [h for h in self.hops if h["version"] == version]
+        applies = self.applies(version)
+        return (f"wall {report.seconds:.3f} s (depth {report.depth}); this process's hops "
+                + ", ".join(f"-> {h['sid']} {h['s']:.3f} s" for h in hops)
+                + "; at each server (relay to its children, then apply) "
+                + ", ".join(f"{sid}: {r:.3f} + {a:.3f} s" for sid, (r, a) in sorted(applies.items())))
+
+
+def _fabric_fleet(ckpt, eos, experiment, trial, base_port, logs_dir, faults=""):
+    """A LocalProcessFleet of port generation servers on `ckpt`: each
+    process runs `python -m areal_tpu_torch.system.gen_server` by exec
+    (never a fork of this process), its log in `logs_dir`."""
+    import shlex
+
+    from areal_tpu_torch.system.fleet import LocalProcessFleet
+
+    env = f"env AREAL_FAULTS={shlex.quote(faults)} " if faults else ""
+    cmd = (f"exec {env}{shlex.quote(sys.executable)} -m areal_tpu_torch.system.gen_server "
+           f"--path {shlex.quote(ckpt)} --port {{port}} --experiment {{experiment}} "
+           f"--trial {{trial}} --keepalive-ttl {FABRIC_TTL} --eos-token-id {eos} "
+           f"--max-decode-batch {FABRIC_SLOTS} --kv-pool-pages {FABRIC_POOL_PAGES} "
+           f"--prefill-chunk-tokens {FABRIC_PREFILL_TOKENS} "
+           f"> {shlex.quote(logs_dir)}/server-{{port}}.log 2>&1")
+    return LocalProcessFleet(["sh", "-c", cmd], experiment, trial, base_port=base_port,
+                             drain_grace_s=1.0, sid_prefix="s")
+
+
+def _wait_for(cond, timeout, what, procs=()):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        for p in procs:
+            check(p.poll() is None, f"[fabric] a spawned server exited ({p.returncode}) while "
+                  f"waiting for {what}")
+        time.sleep(0.1)
+    check(False, f"[fabric] timed out after {timeout} s waiting for {what}")
+
+
+def _fabric_probe(urls, prompts):
+    """Greedy tokens of each server on `prompts` (16 new tokens each)."""
+    out = {}
+    for sid, url in sorted(urls.items()):
+        out[sid] = [_post(url + "/generate", dict(qid=f"probe{i}", prompt_ids=p, n=1,
+                                                  max_new_tokens=16, greedy=True))
+                    for i, p in enumerate(prompts)]
+    return out
+
+
+def phase_fabric(report, seed):
+    """The param store and the broadcast-tree weight push over a fleet of
+    three generation servers at qwen2-1.5B (28 layers, bf16 servers), from
+    the quickstart's seeded checkpoint, under a file name_resolve:
+    `LocalProcessFleet` spawns two servers (`python -m
+    areal_tpu_torch.system.gen_server`, each its own process on the card;
+    the first armed with AREAL_FAULTS `kill@point=param_push` for its fifth
+    push), and a third, built in this process so its K2 and K3 launches are
+    held exactly, announces itself; `fleet_discovery` lists exactly three.
+
+    (d) runs first: a trial's fresh ParamStore starts at head 0, and a
+        server at version k takes versions 1..k as no-ops (the reference's
+        behaviour, ROADMAP queue 3), so the fabric trial needs the servers
+        at version 0.  `quickstart ppo-math --gen-server-url <the three>
+        --param-push-tree --param-push-fanout 2 --inmem-weight-sync`, 2
+        steps of 8 prompts x 4, 64 new tokens, greedy (set by wrapping
+        build_ppo_math: the CLI has no flag), each client sending its
+        requests one at a time (a server's packed prefill depends on the
+        order they arrive in), rewards seeded +-5; then the
+        servers reload the checkpoint over /update_weights and the same
+        trial runs with the disk push: the generated tokens of both steps
+        and every step stat but the times are equal bit for bit.
+    (a) a BroadcastFabric(fanout=2) over the fleet, its store continuing
+        the servers' version time (`load_state_dict`), publishes the
+        checkpoint plus a seeded fp32 delta once (serialize and checksum
+        timed) and pushes it while each server serves a burst of 8 prompts
+        x 4 (64-512 tokens, 128 new, a stop sequence: the serving plane):
+        the tree's depth is 2, all three serve the version,
+        areal_param_push_bytes_total (this process's and the servers') grew
+        by three hops of payload plus meta from one serialization, the
+        in-process server's K3 launches = 28 x its replays (>= 1) and K2 =
+        28 x its inner steps; greedy probes give identical tokens on the
+        three servers and on the in-process one after it loads the same
+        weights from an HF checkpoint over /update_weights; a push with a
+        wrong checksum is refused by all three, their versions unchanged.
+    (b) a push kills the first root (the relay with a child): exactly its
+        subtree (two sids) is orphaned and the third server applies;
+        repair() brings the surviving orphan to the head; the dead
+        server's process exits and its key leaves fleet_discovery within
+        its TTL; a replacement from `LocalProcessFleet.spawn()` joins.
+    (c) the same weights pushed as two more versions, one in tree mode (the
+        replacement's first push) and one in p2p mode: each push's wall,
+        this process's hops and each server's relay and apply seconds.
+    The phase's seconds and each process's peak host RSS print (ru_maxrss
+    from getrusage for this process, from wait4 for each spawned one:
+    the card's machine shows no VmHWM in /proc/<pid>/status)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.base import integrity, name_resolve
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.system import paramstore
+    from areal_tpu_torch.system.fleet import fleet_discovery
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    cfg = qwen2_config("1.5b")
+    L = cfg.n_layers
+    t_phase = time.monotonic()
+    os.makedirs(FABRIC_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=FABRIC_DIR)
+    logs_dir = os.path.join(work, "logs")
+    os.makedirs(logs_dir)
+    env = {"AREAL_NAME_RESOLVE": "file",
+           "AREAL_NAME_RESOLVE_ROOT": os.path.join(work, "name_resolve"),
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    old_repo = name_resolve.default()
+    name_resolve.set_default(name_resolve.FileNameResolveRepository())
+    old_tempdir = tempfile.tempdir
+    fleets, server, pushlog, spawned = [], None, None, {}
+    out = {"walls": {}, "hwm": {}}
+    try:
+        # The disk trial's push checkpoint, (a)'s disk swap and a margin.
+        _check_disk("[fabric]", work, 2 * _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, _, _ = _shared_checkpoint("[fabric]", cfg, seed + 21)
+        eos = CharTokenizer(cfg.vocab_size).eos_token_id
+        E, T = "fabric", f"t{seed}"
+        doomed = _fabric_fleet(ckpt, eos, E, T, FABRIC_BASE_PORT, logs_dir, FABRIC_KILL)
+        plain = _fabric_fleet(ckpt, eos, E, T, FABRIC_BASE_PORT + 1, logs_dir)
+        fleets = [doomed, plain]
+        t0 = time.monotonic()
+        sid_dead, sid_b = doomed.spawn(), plain.spawn()
+        procs = [doomed.procs[sid_dead], plain.procs[sid_b]]
+        spawned = {sid_dead: procs[0], sid_b: procs[1]}
+        _, params = hf.load_hf_checkpoint(ckpt, device="cuda")
+        engine = GeneratorEngine(cfg, params, eos_token_id=eos, max_decode_batch=FABRIC_SLOTS,
+                                 kv_pool_pages=FABRIC_POOL_PAGES,
+                                 prefill_chunk_tokens=FABRIC_PREFILL_TOKENS)
+        del params
+        check(engine.device.type == "cuda", "[fabric] the in-process engine is not on the card")
+        server = GenerationServer(engine, port=FABRIC_INPROC_PORT, max_wait_ms=200.0)
+        sid_in = server.announce(E, T, ttl=FABRIC_TTL)
+        view = fleet_discovery(E, T)
+        _wait_for(lambda: len(view()) == 3, 300, "three announced servers", procs)
+        up_s = time.monotonic() - t0
+        members = view()
+        check(set(members) == {sid_dead, sid_b, sid_in}, f"[fabric] fleet {members}")
+        for sid in (sid_dead, sid_b):
+            with open(os.path.join(logs_dir, f"server-{sid[1:]}.log")) as f:
+                check(" on cuda" in f.read(), f"[fabric] server {sid} is not on the card")
+        smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+        check(len(smi) >= 3, f"[fabric] {len(smi)} compute processes on the card, want this one "
+              "and the two spawned servers")
+        log(f"[fabric] fleet up in {up_s:.1f} s: {sorted(members)} (spawned {sid_dead} armed "
+            f"with {FABRIC_KILL!r}, {sid_b}; {sid_in} in this process); the card lists "
+            f"{len(smi)} compute processes")
+        pushlog = _PushLog(paramstore, logs_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _reset_counts()
+
+        # (d) first: the fabric trial against servers at version 0, then the disk trial.
+        tempfile.tempdir = work  # the disk push's sync dir
+        out["d"] = _fabric_trials(seed, cfg, ckpt, work, members, engine)
+        tempfile.tempdir = old_tempdir
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (a) the tree push mid-burst.
+        store = paramstore.ParamStore()
+        fabric = paramstore.BroadcastFabric(store, discovery=view, fanout=2, experiment=E,
+                                            trial=T)
+        versions = fabric.poll_versions()
+        store.load_state_dict({"head": max(versions.values())})
+        _, w = hf.load_hf_checkpoint(ckpt, dtype=torch.float32, device="cuda")
+        dev = integrity._leaves(w)[0].device
+        gen = torch.Generator(device=dev).manual_seed(seed + 95)
+        with torch.no_grad():
+            for leaf in integrity._leaves(w):
+                leaf.add_(torch.randn(leaf.shape, generator=gen, device=dev),
+                          alpha=FABRIC_DELTA_STD)
+        torch.cuda.synchronize()
+        n_serialize = [0]
+        real_serialize = paramstore.serialize_params
+
+        def counted_serialize(tree):
+            n_serialize[0] += 1
+            return real_serialize(tree)
+
+        paramstore.serialize_params = counted_serialize
+        try:
+            t = time.monotonic()
+            manifest, payload = paramstore.serialize_params(w)
+            serialize_s = time.monotonic() - t
+            t = time.monotonic()
+            checksum = integrity.params_checksum(w)
+            checksum_s = time.monotonic() - t
+            v1 = store.publish(manifest=manifest, payload=payload, checksum=checksum)
+            pv = store.get(v1)
+            rng = np.random.default_rng(seed + 96)
+            prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+                       for _ in range(FABRIC_PROMPTS)]
+            spawned_urls = {sid: members[sid] for sid in (sid_dead, sid_b)}
+            bytes0 = {sid: _metric_value(u, "areal_param_push_bytes_total")
+                      for sid, u in spawned_urls.items()}
+            bytes0["self"] = paramstore.M_PUSH_BYTES.get()
+            pca.LAUNCHES = rpa.LAUNCHES = 0
+            replays0, steps0 = engine.resume_replays, engine.steps_total
+            bursts = {sid: _burst(url, prompts, 4, FABRIC_NEW_TOKENS, seed + 97, stop=FABRIC_STOP)
+                      for sid, url in members.items()}
+            _wait_for(lambda: server.health_info()["live_slots"] > 0
+                      and engine.steps_total - steps0 >= 64, 300, "two chunks of the burst")
+            steps_at_push = engine.steps_total - steps0
+            rep_a = fabric.push()
+            for threads, _, _ in bursts.values():
+                for th in threads:
+                    th.join(timeout=900.0)
+            torch.cuda.synchronize()
+            k3, k2 = pca.LAUNCHES, rpa.LAUNCHES
+            replays, steps = engine.resume_replays - replays0, engine.steps_total - steps0
+        finally:
+            paramstore.serialize_params = real_serialize
+        for sid, (_, replies, errors) in bursts.items():
+            check(not errors and all(r is not None for r in replies),
+                  f"[fabric] (a) {sid}'s burst: {errors}")
+        spanned = sum(r["version_start"] < r["version"] == v1 for r in bursts[sid_in][1])
+        check(rep_a.ok and rep_a.depth == 2 and sorted(rep_a.applied) == sorted(members),
+              f"[fabric] (a) push {rep_a}")
+        check(all(v == v1 for v in fabric.poll_versions().values()),
+              f"[fabric] (a) versions {fabric.poll_versions()} != {v1}")
+        roots = paramstore.plan_tree(sorted(members.items()), 2)
+        hops = [n for r in roots for n in [r] + r["children"]]
+        want_bytes = sum(pv.nbytes + len(json.dumps(dict(fabric._base_meta(pv), subtree=n)))
+                         for n in hops)
+        moved = paramstore.M_PUSH_BYTES.get() - bytes0["self"] + sum(
+            _metric_value(u, "areal_param_push_bytes_total") - bytes0[sid]
+            for sid, u in spawned_urls.items())
+        check(len(hops) == 3 and moved == want_bytes,
+              f"[fabric] (a) {moved} bytes pushed, want {want_bytes} (3 hops)")
+        check(n_serialize[0] == 1, f"[fabric] (a) {n_serialize[0]} serializations")
+        check(replays >= 1 and spanned >= 1,
+              f"[fabric] (a) the push landed outside the burst: {replays} replays, "
+              f"{spanned} spanned requests")
+        check(k3 == L * replays, f"[fabric] (a) K3 launches {k3} != {L} x {replays} replays")
+        check(k2 == L * steps, f"[fabric] (a) K2 launches {k2} != {L} x {steps} inner steps")
+        log(f"[fabric] (a) v{v1}: {pv.nbytes / 1e9:.3f} GB fp32 serialized once in "
+            f"{serialize_s:.3f} s (card -> host), checksum {checksum_s:.3f} s; pushed after "
+            f"{steps_at_push} inner steps of the in-process burst: {pushlog.describe(v1, rep_a)}")
+        log(f"[fabric] (a) bytes pushed {moved:.0f} = 3 hops x (payload + meta); the in-process "
+            f"server: {replays} replays, K3 {k3} = {L} x {replays}, K2 {k2} = {L} x {steps} inner "
+            f"steps, {spanned} of {FABRIC_PROMPTS} requests spanned the push")
+        out["walls"]["a_tree"] = rep_a.seconds
+        probes = rng.integers(0, cfg.vocab_size, (4, 48)).tolist()
+        got = _fabric_probe(members, probes)
+        toks = {sid: [r["output_ids"] for r in rs] for sid, rs in got.items()}
+        check(len({json.dumps(t) for t in toks.values()}) == 1,
+              f"[fabric] (a) the servers' greedy probes differ: {toks}")
+        disk = os.path.join(work, "disk_v")
+        t = time.monotonic()
+        hf.save_hf_checkpoint(disk, cfg, w, model_type="qwen2")
+        save_s = time.monotonic() - t
+        del w
+        torch.cuda.empty_cache()
+        v_disk = _post(members[sid_in] + "/update_weights", {"path": disk})["version"]
+        after = _fabric_probe({sid_in: members[sid_in]}, probes)[sid_in]
+        check([r["output_ids"] for r in after] == toks[sid_in] and all(
+            r["version"] == v_disk for r in after),
+              "[fabric] (a) the disk swap's greedy probes differ from the fabric's")
+        shutil.rmtree(disk, ignore_errors=True)
+        log(f"[fabric] (a) greedy probes (4 x 16 tokens) identical on the three servers, and on "
+            f"{sid_in} after /update_weights from the same weights saved to disk ({save_s:.2f} s "
+            f"save; version {v_disk})")
+        bad = checksum.copy()
+        bad[2:] *= 1.01
+        before = fabric.poll_versions()
+        # The disk swap moved a server past the store's head: continue
+        # version time past it, or the push would be that server's no-op.
+        store.load_state_dict({"head": max(before.values())})
+        v_bad = store.publish(manifest=manifest, payload=payload, checksum=bad)
+        rep_bad = fabric.push()
+        check(not rep_bad.applied and sorted(o["sid"] for o in rep_bad.orphans) == sorted(members)
+              and all("checksum" in o["error"] for o in rep_bad.orphans),
+              f"[fabric] (a) the wrong checksum was not refused everywhere: {rep_bad}")
+        check(fabric.poll_versions() == before, "[fabric] (a) a refused push moved a version")
+        log(f"[fabric] (a) v{v_bad} with a wrong checksum refused by all three "
+            f"({pushlog.describe(v_bad, rep_bad)}); versions stay {before}")
+
+        # (b) the first root dies at its param push.
+        v_b = store.publish(manifest=manifest, payload=payload, checksum=checksum)
+        rep_b = fabric.push()
+        t_dead = time.monotonic()
+        orphans = sorted(o["sid"] for o in rep_b.orphans)
+        check(orphans == sorted([sid_dead, sid_b]) and rep_b.applied == [sid_in],
+              f"[fabric] (b) orphans {orphans}, applied {rep_b.applied}")
+        code, out["hwm"][sid_dead] = _reap(procs[0], 60)
+        check(code == 0, f"[fabric] (b) the killed server's process did not exit ({code})")
+        _wait_for(lambda: sid_dead not in view(), FABRIC_TTL + 5, "the dead server's key to expire")
+        expire_s = time.monotonic() - t_dead
+        check(expire_s <= FABRIC_TTL + 1.0, f"[fabric] (b) the dead key stayed {expire_s:.1f} s")
+        repaired = fabric.repair()
+        check(repaired == [sid_b], f"[fabric] (b) repair() brought {repaired}")
+        sid_c = plain.spawn()  # the replacement: its first push is (c)'s tree push
+        procs.append(plain.procs[sid_c])
+        spawned[sid_c] = procs[2]
+        versions = fabric.poll_versions()
+        check(versions[sid_b] == versions[sid_in] == v_b, f"[fabric] (b) versions {versions}")
+        log(f"[fabric] (b) v{v_b}: {sid_dead} killed at its param push, orphans {orphans}, "
+            f"{sid_in} applied ({pushlog.describe(v_b, rep_b)}); repair() -> {repaired}; the "
+            f"dead key left the fleet {expire_s:.2f} s after the push (TTL {FABRIC_TTL} s)")
+        _wait_for(lambda: sid_c in view(), 300, "the replacement to announce", procs[1:])
+        members = view()
+        check(set(members) == {sid_b, sid_c, sid_in}, f"[fabric] (b) fleet after {members}")
+
+        # (c) tree against p2p, the same weights as two versions.
+        reports = {}
+        for mode in ("tree", "p2p"):
+            fab = paramstore.BroadcastFabric(store, discovery=view, fanout=2, mode=mode)
+            v = store.publish(manifest=manifest, payload=payload, checksum=checksum)
+            reports[mode] = (v, fab.push())
+            r = reports[mode][1]
+            check(r.ok and r.depth == (2 if mode == "tree" else 1)
+                  and all(x == v for x in fab.poll_versions().values()),
+                  f"[fabric] (c) {mode} push {r}")
+            out["walls"][f"c_{mode}"] = r.seconds
+            log(f"[fabric] (c) {mode} v{v}: {pushlog.describe(v, r)}")
+        log(f"[fabric] (c) the replacement {sid_c} took the tree push (v{reports['tree'][0]}); "
+            f"tree {reports['tree'][1].seconds:.3f} s vs p2p {reports['p2p'][1].seconds:.3f} s")
+        out.update(serialize_s=serialize_s, checksum_s=checksum_s, nbytes=pv.nbytes,
+                   replays=replays, k2=k2, k3=k3, inner_steps=steps, spanned=spanned,
+                   expire_s=expire_s, up_s=up_s)
+        del payload, pv, store, fabric
+    finally:
+        tempfile.tempdir = old_tempdir
+        if pushlog is not None:
+            pushlog.close()
+        if server is not None:
+            server.close()
+        for f in fleets:
+            f.shutdown()
+        for sid, p in spawned.items():
+            if sid not in out["hwm"]:
+                _, out["hwm"][sid] = _reap(p, 60)
+        name_resolve.set_default(old_repo)
+        for name in sorted(os.listdir(logs_dir)):  # the servers' warnings, for a reader
+            with open(os.path.join(logs_dir, name), errors="replace") as f:
+                for line in f:
+                    if " WARNING " in line or " ERROR " in line or "Traceback" in line:
+                        log(f"[fabric] {name}: {line.rstrip()[:400]}")
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    import resource
+
+    out["hwm"]["self"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    out["launches"] = _trial_counts()
+    out["seconds"] = time.monotonic() - t_phase
+    log("[fabric] peak host RSS (VmHWM): " + ", ".join(
+        f"{k} {v / 2**30:.2f} GiB" if v else f"{k} not read" for k, v in out["hwm"].items())
+        + f"; launches over the phase {out['launches']}; {out['seconds']:.1f} s")
+    report["fabric"] = out
+
+
+def _bf16_bits(tree):
+    """Each leaf's bf16 bits (the leaf cast as a server casts it) summed as
+    integers, in sorted-key order: equal lists mean equal weights."""
+    import torch
+
+    from areal_tpu_torch.base import integrity
+
+    return [int(x.detach().to(torch.bfloat16).view(torch.int16).sum(dtype=torch.int64))
+            for x in integrity._leaves(tree)]
+
+
+def _fabric_trials(seed, cfg, ckpt, work, members, engine):
+    """(d): the quickstart trial against the fleet, with the fabric push
+    and with the disk push; after each push the in-process server's
+    weights (`engine`) are held against the pushed ones cast to bf16."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.model_api import LLMAPIClient
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.system.gen_server import RemoteGeneratorEngine
+
+    data = os.path.join(work, "math.jsonl")
+    with open(data, "w") as f:
+        for row in _math_rows(np.random.default_rng(seed + 98), 64):
+            f.write(json.dumps(row) + "\n")
+    urls = [members[sid] for sid in sorted(members)]
+    rec = {"gen": [], "push": [], "landed": [], "versions": []}
+    state = {}
+    restore = []
+
+    def wrap(owner, name, make):
+        restore.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def on_generate(orig):
+        @functools.wraps(orig)
+        def generate(self, sample, *a, **k):
+            out = orig(self, sample, *a, **k)
+            rec["gen"].append((list(out.ids), np.asarray(out.data["packed_input_ids"]).copy(),
+                               [sum(x) for x in out.seqlens["packed_input_ids"]]))
+            return out
+        return generate
+
+    def on_set_params(orig):
+        @functools.wraps(orig)
+        def set_params(self, params):
+            want = _bf16_bits(params)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            orig(self, params)
+            rec["push"].append(time.monotonic() - t)
+            rec["landed"].append(_bf16_bits(engine.params) == want)
+            rec["versions"].append([cl.health()["version"] for cl in self.clients])
+        return set_params
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)
+            out.data["rewards"] = state["rng"].choice(
+                [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+            return out
+        return inference
+
+    def on_build(orig):
+        @functools.wraps(orig)
+        def build(cfg_, *a, **k):
+            return orig(dataclasses.replace(cfg_, gconfig=cfg_.gconfig.new(greedy=True)), *a, **k)
+        return build
+
+    def on_batch(orig):
+        # One request at a time a client: a server packs the requests
+        # that reach it together in their order of arrival, and the packed
+        # prefill's numerics depend on a prompt's place in the pack (K1f's
+        # tile bounds), so concurrent requests flip greedy near-ties from
+        # run to run (on the H100: one prompt of 8 at step 1).
+        @functools.wraps(orig)
+        def generate_batch(self, inps, max_concurrency=64):
+            return orig(self, inps, max_concurrency=1)
+        return generate_batch
+
+    wrap(LLMAPIClient, "generate_batch", on_batch)
+    wrap(RemoteGeneratorEngine, "generate", on_generate)
+    wrap(RemoteGeneratorEngine, "set_params", on_set_params)
+    wrap(MultiTaskRewardInterface, "inference", on_reward)
+    wrap(exps, "build_ppo_math", on_build)
+    runs = {}
+    try:
+        for mode in ("fabric", "disk"):
+            if mode == "disk":  # every server back on the checkpoint
+                t = time.monotonic()
+                threads = [threading.Thread(target=_post, args=(u + "/update_weights",
+                                                                {"path": ckpt})) for u in urls]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(timeout=600)
+                log(f"[fabric] (d) the servers reloaded the checkpoint over /update_weights in "
+                    f"{time.monotonic() - t:.2f} s")
+            state["rng"] = np.random.default_rng(seed + 99)
+            rec["gen"], rec["push"], rec["landed"], rec["versions"] = [], [], [], []
+            argv = ["ppo-math", "--model.path", ckpt, "--dataset.path", data,
+                    "--tokenizer-path", f"char:{cfg.vocab_size}", "--batch-size", "8",
+                    "--group-size", "4", "--max-new-tokens", str(FABRIC_TRIAL_NEW_TOKENS),
+                    "--benchmark-steps", "2", "--fileroot", os.path.join(work, mode),
+                    "--seed", str(seed + 100), "--gen-server-url", ",".join(urls),
+                    "--inmem-weight-sync"]
+            if mode == "fabric":
+                argv += ["--param-push-tree", "--param-push-fanout", "2"]
+            t = time.monotonic()
+            stats = quickstart.main(argv)
+            runs[mode] = dict(stats=stats, gen=list(rec["gen"]), push=list(rec["push"]),
+                              landed=list(rec["landed"]), versions=list(rec["versions"]),
+                              seconds=time.monotonic() - t)
+            log(f"[fabric] (d) {mode} trial: {runs[mode]['seconds']:.1f} s, steps "
+                f"{[round(s['time/step_s'], 2) for s in stats]} s, pushes "
+                f"{[round(x, 2) for x in rec['push']]} s, the servers' versions after each "
+                f"{rec['versions']}; the in-process server holds each push's weights bit for "
+                f"bit: {rec['landed']}")
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+    f, d = runs["fabric"], runs["disk"]
+    check(len(f["stats"]) == len(d["stats"]) == 2 and len(f["gen"]) == len(d["gen"]) == 2
+          and len(f["push"]) == len(d["push"]) == 2, "[fabric] (d) the trials' steps or pushes")
+    check(all(f["landed"]) and all(d["landed"]), "[fabric] (d) a push did not land on the "
+          f"in-process server bit for bit: fabric {f['landed']}, disk {d['landed']}")
+    check(f["versions"] == [[1] * len(urls), [2] * len(urls)]
+          and all(len(set(v)) == 1 for v in d["versions"]),
+          f"[fabric] (d) versions after the pushes: fabric {f['versions']}, disk {d['versions']}")
+    for i, ((fi, ft, fl), (di, dt, dl)) in enumerate(zip(f["gen"], d["gen"])):
+        if fi == di and fl == dl and not np.array_equal(ft, dt):
+            cut = np.cumsum([0] + fl)
+            bad = [k for k in range(len(fl)) if not np.array_equal(ft[cut[k]:cut[k + 1]],
+                                                                    dt[cut[k]:cut[k + 1]])]
+            log(f"[fabric] (d) step {i + 1}: prompts {bad} of {len(fl)} differ (prompt k went "
+                f"to server k % {len(urls)} of {urls})")
+        check(fi == di and fl == dl and np.array_equal(ft, dt),
+              f"[fabric] (d) step {i + 1}'s tokens differ between the fabric and disk trials")
+    tf, td = _timeless(f["stats"][-1]), _timeless(d["stats"][-1])
+    diff = {k: (tf.get(k), td.get(k)) for k in set(tf) | set(td) if tf.get(k) != td.get(k)}
+    check(not diff, f"[fabric] (d) step 2's stats differ: {diff}")
+    check(f["stats"][-1]["actor_train/advantage_abs"] > 0.1, "[fabric] (d) no advantage")
+    log(f"[fabric] (d) fabric and disk trials: both steps' {f['gen'][1][1].size} tokens "
+        f"and step 2's {len(tf)} stats equal bit for bit; pushes fabric "
+        f"{[round(x, 2) for x in f['push']]} s vs disk {[round(x, 2) for x in d['push']]} s")
+    return dict(fabric_s=f["seconds"], disk_s=d["seconds"], fabric_push_s=f["push"],
+                disk_push_s=d["push"], step_s={m: [s["time/step_s"] for s in r["stats"]]
+                                              for m, r in runs.items()})
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -7219,6 +7883,7 @@ def _kernels_line(report):
     tm_launches = report.get("trainmodes", {}).get("launches", {})
     as_launches = report.get("async", {}).get("launches", {})
     mp_launches = report.get("multiproc", {}).get("launches", {})
+    fb_launches = report.get("fabric", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -7237,6 +7902,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k2"),
         "launches_async": as_launches.get("k2"),
         "launches_multiproc": mp_launches.get("k2"),
+        "launches_fabric": fb_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -7288,6 +7954,7 @@ def _kernels_line(report):
             "launches_trainmodes": tm_launches.get(name),
             "launches_async": as_launches.get(name),
             "launches_multiproc": mp_launches.get(name),
+            "launches_fabric": fb_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -7330,6 +7997,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k3"),
         "launches_async": as_launches.get("k3"),
         "launches_multiproc": mp_launches.get("k3"),
+        "launches_fabric": fb_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -7396,6 +8064,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k4"),
         "launches_async": as_launches.get("k4"),
         "launches_multiproc": mp_launches.get("k4"),
+        "launches_fabric": fb_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -7586,6 +8255,7 @@ def main() -> int:
         "genmodes": lambda: phase_genmodes(report, args.seed),
         "async": lambda: phase_async(report, args.seed),
         "multiproc": lambda: phase_multiproc(report, args.seed),
+        "fabric": lambda: phase_fabric(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

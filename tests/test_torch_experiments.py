@@ -170,7 +170,6 @@ def test_offload_ref_e2e(tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("gen_server_url", "tcp://localhost:1", "item 7.8"),
     ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.8"),
-    ("param_push_tree", True, "item 7.4"),
     ("verifier_pool", True, "item 7.5"),
     ("mixture_weights", {"math": 1.0}, "item 7.5"),
     ("mixture_adaptive", True, "item 7.5"),
@@ -180,6 +179,21 @@ def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         exps.build_ppo_math(cfg)
+
+
+@pytest.mark.parametrize("kw,message", [
+    (dict(param_push_tree=True), "param_push_tree requires gen_server_url"),
+    (dict(param_push_fanout=0), "param_push_fanout must be >= 1"),
+], ids=["tree_without_servers", "fanout_0"])
+def test_push_option_checks_match_jax(tmp_path, kw, message):
+    """The broadcast tree's option checks, as the JAX package words them."""
+    from areal_tpu.experiments import check as jcheck
+
+    cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **kw)
+    with pytest.raises(Exception, match=message):
+        exps.build_ppo_math(cfg)
+    with pytest.raises(Exception, match=message):
+        jcheck.check_ppo_math(cfg)
 
 
 # The options the port refused before it had them, each now running a
@@ -228,6 +242,9 @@ FORMERLY_UNPORTED = [
     ("placement", {"actor_gen": 1, "reward": 1}),
     ("mfc_timeout_s", 120.0),
     ("worker_heartbeat_s", 2.0),
+    ("param_push_tree", True),
+    ("param_push_fanout", 1),
+    ("weight_push_checksum", False),
 ]
 
 
@@ -247,6 +264,12 @@ def _with_option(cfg, option, value, server_url):
         return dataclasses.replace(cfg, gen_server_url=server_url)
     if option == "inmem_weight_sync":
         return dataclasses.replace(cfg, gen_server_url=server_url, inmem_weight_sync=True)
+    if option in ("param_push_tree", "param_push_fanout"):
+        return dataclasses.replace(cfg, gen_server_url=server_url,
+                                   **dict({"param_push_tree": True}, **{option: value}))
+    if option == "weight_push_checksum":  # it acts on a push across workers
+        return dataclasses.replace(cfg, placement={"actor_gen": 1, "reward": 1},
+                                   weight_push_checksum=value)
     if option in ("replay_capacity", "behav_imp_weight_cap"):
         return dataclasses.replace(cfg, max_head_offpolicyness=1, **{option: value})
     if option == "ppo_kwargs":
@@ -276,7 +299,8 @@ def test_formerly_unported_options_run(tmp_path, option, value, request, monkeyp
 
     tok = CharTokenizer(512)
     url = None
-    if value == GEN_SERVER or option == "inmem_weight_sync":
+    if value == GEN_SERVER or option in ("inmem_weight_sync", "param_push_tree",
+                                         "param_push_fanout"):
         url = request.getfixturevalue("gen_server").url
         monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the push's sync dir
     base = _e2e_cfg(tmp_path, "grpo")
@@ -343,6 +367,14 @@ def test_formerly_unported_options_run(tmp_path, option, value, request, monkeyp
         remote = worker.models["actor_gen@0"].engine
         assert remote.pushes == 2 and request.getfixturevalue("gen_server").version == 2
         assert remote.inmem_sync == (option == "inmem_weight_sync")
+        fabric = option.startswith("param_push")
+        assert remote.push_mode == ("fabric" if fabric else "disk")
+        if fabric:
+            assert remote._fabric.store.head == 2
+            assert remote._fabric.fanout == (value if option == "param_push_fanout" else 2)
+    if option == "weight_push_checksum":
+        assert master.weight_push_checksum is False
+        assert all(s["transfer/param_count"] == 1.0 for s in stats)
 
 
 EPISODE_OPTIONS = dict(episode_max_turns=2, episode_token_budget=64, tool_timeout_s=1.0)

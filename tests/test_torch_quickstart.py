@@ -19,7 +19,7 @@ from areal_tpu.models import transformer as jtfm
 from areal_tpu.models.config import tiny_config as jtiny
 from areal_tpu.models.hf import registry as jhf
 from areal_tpu_torch.apps import quickstart
-from areal_tpu_torch.base import recover
+from areal_tpu_torch.base import integrity, recover
 from areal_tpu_torch.models.hf import registry as hf
 from tests import fixtures
 
@@ -83,14 +83,11 @@ UNPORTED = [
     (["--search-devices", "8"], "item 10"),
     (["--launcher", "slurm"], "item 10"),
     (["--tpu-name", "x"], "item 10"),
-    (["--no-weight-push-checksum"], "item 7.4"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
     (["--gen-allocation", "d1"], "item 8"),
     (["--gen-server-url", "tcp://localhost:1"], "item 7.8"),
     (["--gen-server-url", "zmq://localhost:1"], "item 7.8"),
-    (["--param-push-tree"], "item 7.4"),
-    (["--param-push-fanout", "4"], "item 7.4"),
     (["--verifier-pool"], "item 7.5"),
     (["--mixture-weight", "math=1"], "item 7.5"),
     (["--mixture-adaptive"], "item 7.5"),
@@ -168,6 +165,9 @@ FORMERLY_UNPORTED = [
     ["--max-head-offpolicyness", "1", "--replay-capacity", "8"],
     ["--gen-server-url", "{server}"],
     ["--gen-server-url", "{server}", "--inmem-weight-sync"],
+    ["--gen-server-url", "{server}", "--param-push-tree"],
+    ["--gen-server-url", "{server}", "--param-push-tree", "--param-push-fanout", "1"],
+    ["--no-weight-push-checksum"],
     ["--multiprocess"],
     ["--multiprocess", "--recover-retries", "1", "--mfc-timeout-s", "120",
      "--worker-heartbeat-s", "2"],
@@ -398,3 +398,70 @@ def test_genmodes_step_matches_jax(tmp_path, ckpt_dir, data_path, monkeypatch, c
     assert len(keys) > 10
     for k in keys:
         np.testing.assert_allclose(tstats[0][k], jstats[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_param_push_tree_trial_matches_jax(tmp_path, ckpt_dir, data_path, monkeypatch, capsys):
+    """`ppo-math --gen-server-url A,B --param-push-tree --param-push-fanout 1`
+    through both packages' CLI, each against two fresh port generation
+    servers on the checkpoint (greedy, the query-id reward of
+    tests/test_torch_experiments.py's parity case, 2 steps): the graded
+    tokens of both steps are equal, every actor_train stat is within the
+    parity case's rtol 1e-4, atol 1e-6, and after each trial its servers
+    serve version 2 with the weights its trainer saved at step 2, bit for
+    bit (the fabric carries the fp32 masters)."""
+    import dataclasses
+
+    from areal_tpu.api.config import ModelInterfaceAbstraction as JInterface
+    from areal_tpu.apps import quickstart as jquickstart
+    from areal_tpu_torch.api.config import ModelInterfaceAbstraction
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.gen_server import GenerationServer
+    from tests.test_torch_experiments import _PARITY_REWARD, _SEEN
+
+    for mod, interface in ((jquickstart.exps, JInterface),
+                           (quickstart.exps, ModelInterfaceAbstraction)):
+        def build(cfg, *a, _real=mod.build_ppo_math, _interface=interface, **k):
+            cfg = dataclasses.replace(cfg, gconfig=cfg.gconfig.new(greedy=True),
+                                      reward_interface=_interface(_PARITY_REWARD))
+            return _real(cfg, *a, **k)
+
+        monkeypatch.setattr(mod, "build_ppo_math", build)
+    _SEEN["jax"].clear()
+    _SEEN["port"].clear()
+    out = {}
+    for pkg in ("jax", "port"):
+        mcfg, params = hf.load_hf_checkpoint(ckpt_dir, device="cpu")
+        servers = [GenerationServer(GeneratorEngine(mcfg, params, "cpu", eos_token_id=1),
+                                    max_wait_ms=10.0) for _ in range(2)]
+        try:
+            flags = ["--gen-server-url", ",".join(s.url for s in servers), "--param-push-tree",
+                     "--param-push-fanout", "1", "--save-freq-steps", "2"]
+            argv = _argv(ckpt_dir, data_path, tmp_path / pkg, *flags)
+            capsys.readouterr()
+            if pkg == "jax":
+                jquickstart.main(argv)
+                stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            else:
+                stats = quickstart.main(argv, device="cpu")[-1]
+            saved = os.path.join(tmp_path, pkg, "checkpoints", "ppo-math", "trial0", "actor@0",
+                                 "step_2")
+            _, want = hf.load_hf_checkpoint(saved, dtype=torch.float32, device="cpu")
+            assert [s.version for s in servers] == [2, 2] and all(
+                s.inmem_updates == 2 for s in servers)
+            for s in servers:
+                for a, b in zip(integrity._leaves(s.engine.params), integrity._leaves(want)):
+                    assert torch.equal(a, b)
+            out[pkg] = stats
+        finally:
+            for s in servers:
+                s.close()
+    assert len(_SEEN["port"]) == len(_SEEN["jax"]) == 2
+    for (tids, ttoks), (jids, jtoks) in zip(_SEEN["port"], _SEEN["jax"]):
+        assert tids == jids
+        np.testing.assert_array_equal(ttoks, jtoks)
+    keys = [k for k in out["port"] if k.startswith("actor_train/")
+            and "/perf/" not in k and "/time/" not in k]
+    assert len(keys) > 10
+    for k in keys:
+        np.testing.assert_allclose(out["port"][k], out["jax"][k], rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

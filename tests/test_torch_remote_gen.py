@@ -12,8 +12,11 @@
   flight, swaps and resumes it under the new version;
 - the worker builds the "remote_generator" backend, a trial through
   `build_ppo_math` and the quickstart CLI with ``gen_server_url`` run to
-  their ends, and what is not ported (tcp:// URLs, the fabric push,
-  ``push_weights``) is refused naming its item."""
+  their ends, and what is not ported (tcp:// and zmq:// URLs) is
+  refused naming its item;
+- ``push_mode="fabric"`` publishes each push once and sends it down a
+  broadcast tree of the servers, and ``push_weights`` from either
+  package's client lands one binary ``/param_push``."""
 
 import os
 import threading
@@ -38,6 +41,7 @@ from areal_tpu_torch.engines.generator import GeneratorEngine
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import tiny_config
 from areal_tpu_torch.models.hf import registry as hf
+from areal_tpu_torch.system import paramstore
 from areal_tpu_torch.system.gen_server import (
     GenerationServer,
     RemoteGeneratorEngine,
@@ -199,12 +203,58 @@ def test_refusals_name_their_items():
         make_gen_client("tcp://127.0.0.1:5555")
     with pytest.raises(NotImplementedError, match="item 7.8"):
         RemoteGeneratorEngine(tiny_config(), "zmq://127.0.0.1:5555")
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        RemoteGeneratorEngine(tiny_config(), "http://127.0.0.1:1", push_mode="fabric")
     with pytest.raises(ValueError, match="push_mode"):
         RemoteGeneratorEngine(tiny_config(), "http://127.0.0.1:1", push_mode="carrier")
-    with pytest.raises(NotImplementedError, match="item 7.4"):
-        LLMAPIClient("http://127.0.0.1:1").push_weights({}, b"")
+    with pytest.raises(NotImplementedError, match="item 7.8"):
+        paramstore.push_payload("zmq://127.0.0.1:5555", {}, b"")
+
+
+@pytest.mark.parametrize("fanout", [1, 2])
+def test_fabric_push_reaches_every_server(root, fanout):
+    """push_mode="fabric": each set_params publishes once and pushes down
+    the tree (a relay chain at fanout 1); every server serves the pushed
+    version and generates what an in-process engine on those weights
+    generates; no checkpoint is written."""
+    servers = [GenerationServer(GeneratorEngine(tiny_config(), _params(11), "cpu",
+                                                eos_token_id=EOS), max_wait_ms=20.0)
+               for _ in range(3)]
+    try:
+        remote = RemoteGeneratorEngine(tiny_config(), [s.url for s in servers],
+                                       sync_dir=str(root / "sync"), push_mode="fabric",
+                                       push_fanout=fanout)
+        g = GenerationHyperparameters(n=1, max_new_tokens=5, greedy=True)
+        sample = _sample(SequenceSample, lens=(5, 6, 7))
+        for v, seed in ((1, 12), (2, 13)):
+            new = _params(seed)
+            remote.set_params(new)
+            assert [s.version for s in servers] == [v] * 3 and remote.pushes == v
+            _check_equal(remote.generate(sample, MicroBatchSpec(), g), _local(new, sample, g))
+        fabric = remote._fabric
+        assert fabric.store.head == 2 and fabric.fanout == fanout
+        assert fabric.store.pins(2) == sorted(f"server:{s.url}" for s in servers)
+        assert not os.path.exists(root / "sync" / "config.json")
+    finally:
+        for s in servers:
+            s.close()
+
+
+@pytest.mark.parametrize("client_pkg", ["port", "jax"])
+def test_push_weights_round_trip(server, client_pkg):
+    """One binary /param_push, sent by either package's client, swaps the
+    server's weights at the pushed version and acks its sid."""
+    from areal_tpu.api.model_api import LLMAPIClient as JClient
+    from areal_tpu_torch.base import integrity
+
+    new = _params(14)
+    manifest, payload = paramstore.serialize_params(new)
+    meta = {"cmd": "param_push", "version": 5, "manifest": manifest,
+            "checksum": integrity.params_checksum(new).tolist(),
+            "subtree": {"sid": "only", "url": server.url, "children": []}}
+    client = LLMAPIClient(server.url) if client_pkg == "port" else JClient(server.url)
+    ack = client.push_weights(meta, payload if client_pkg == "port" else bytes(payload))
+    assert ack == {"version": 5, "applied": ["only"], "failed": []} and server.version == 5
+    assert all(torch.equal(a, b) for a, b in zip(integrity._leaves(server.engine.params),
+                                                 integrity._leaves(new)))
 
 
 def test_bounded_agenerate(server):

@@ -4,9 +4,11 @@ package) through both controllers give equal outcomes: dispatch and
 version stamps, balancing on /health, a dead server, backpressure, the
 state_dict's prompt cursor, failed dispatches, retries to a different
 server, deadlines, the breaker's open and probe, a hung health poll,
-`completed_groups` and the episode-runner hook.  Also the circuit
-breaker on a fake clock, and the refusals of what is not yet ported
-(fleet discovery, the param store, task mixtures)."""
+`completed_groups`, the episode-runner hook, fleet discovery (a late
+join, a leave drained and reaped) and the param store's version pins
+(each server's, each dispatch's, moving as a laggard catches up).  Also
+the circuit breaker on a fake clock, and the refusal of what is not yet
+ported (task mixtures)."""
 
 import asyncio
 import time
@@ -15,10 +17,12 @@ import pytest
 
 from areal_tpu.api import model_api as jmodel_api
 from areal_tpu.system import fleet as jfleet
+from areal_tpu.system import paramstore as jparamstore
 from areal_tpu.system import replay as jreplay
 from areal_tpu.system import rollout as jrollout
 from areal_tpu_torch.api import model_api as tmodel_api
 from areal_tpu_torch.system import fleet as tfleet
+from areal_tpu_torch.system import paramstore as tparamstore
 from areal_tpu_torch.system import replay as treplay
 from areal_tpu_torch.system import rollout as trollout
 
@@ -257,12 +261,65 @@ def _scenario(pkg, name):
         trajs = _drain(rb)
         return dict(stat=stat.as_dict(), seen=sorted(seen), calls=c.calls,
                     trajs=[(t.qid, t.version_start, t.data) for t in trajs])
+    if name == "discovery":
+        # A late join and a leave between two runs: the joiner takes the
+        # second run's dispatches, the leaver is drained and reaped.
+        a, b = _FakeClient(api), _FakeClient(api, version=1)
+        view = {"a": a}
+        rb = replay.ReplayBuffer(capacity=16, max_head_offpolicyness=8)
+        ctl = rollout.RolloutController(replay=rb, gconfig=g, discovery=lambda: dict(view),
+                                        health_refresh_s=0.0)
+        async def go():  # one loop: the controller's refresh lock belongs to it
+            first = (await ctl.run([("p%d" % i, [1, 2]) for i in range(3)])).as_dict()
+            members = [(s.sid, s.dynamic, s.draining) for s in ctl.servers]
+            view["b"] = b
+            del view["a"]
+            second = (await ctl.run([("q%d" % i, [1, 2]) for i in range(3)])).as_dict()
+            return first, members, second
+
+        first, members, second = asyncio.run(go())
+        return dict(first=first, second=second, members=members, calls=[a.calls, sorted(b.calls)],
+                    after=[(s.sid, s.dynamic, s.draining) for s in ctl.servers],
+                    epoch=ctl.membership_epoch, sd=ctl.state_dict()["membership_epoch"])
+    if name == "paramstore":
+        # Health polls pin each server's version (exclusive), dispatches
+        # pin the trainer's version until they end, and a laggard's pin
+        # moves when it catches up, retiring the old version.
+        ps = jparamstore if pkg == "jax" else tparamstore
+        store = ps.ParamStore(retain=1)
+        store.publish(manifest=[{"dtype": "uint8", "shape": [4]}], payload=bytes(4))
+        lag, head = _FakeClient(api, version=1), _FakeClient(api, version=1)
+        rb = replay.ReplayBuffer(capacity=16, max_head_offpolicyness=8)
+        rb.set_version(2)
+        ctl = rollout.RolloutController([lag, head], rb, g, paramstore=store,
+                                        health_refresh_s=0.0)
+        asyncio.run(ctl._refresh_health())  # both pin v1
+        store.publish(manifest=[{"dtype": "uint8", "shape": [4]}], payload=bytes(4))
+        head.version = 2  # v1 stays: the laggard still pins it
+        seen = []
+        real = head.agenerate
+
+        async def agenerate(inp):
+            seen.append((inp.qid, store.pins(2)))
+            return await real(inp)
+
+        head.agenerate = lag.agenerate = agenerate
+        async def go():
+            stat = (await ctl.run([("q%d" % i, [1, 2]) for i in range(2)])).as_dict()
+            before = dict(live=store.live_versions(), v1=store.pins(1), v2=store.pins(2))
+            lag.version = 2
+            await ctl._refresh_health()
+            return stat, before
+
+        stat, before = asyncio.run(go())
+        return dict(stat=stat, seen=sorted(seen), before=before, live=store.live_versions(),
+                    v1=store.pins(1), v2=store.pins(2))
     raise KeyError(name)
 
 
 SCENARIOS = ["stamps", "balance", "dead_server", "backpressure", "cursor", "failed",
              "redispatch", "deadline", "breaker", "hung_health", "stale_rejected",
-             "completed_groups", "episode_runner"]
+             "completed_groups", "episode_runner", "discovery", "paramstore"]
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
@@ -286,10 +343,8 @@ def test_controller_outcomes_are_the_reference_cases():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(discovery=lambda: {}), "item 7.5"),
-    (dict(paramstore=object()), "item 7.4"),
     (dict(mixture=object()), "item 7.5"),
-], ids=["discovery", "paramstore", "mixture"])
+], ids=["mixture"])
 def test_unported_controller_options_raise(kw, item):
     api, replay, _ = PKGS["port"]
     rb = replay.ReplayBuffer()
