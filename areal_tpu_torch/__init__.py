@@ -73,4 +73,11 @@ Slice 18, the multi-process runtime:
     system/worker_control.py  WorkerServer, WorkerControlPanel
     system/master.py      the data and param planes, worker-death recovery
     scheduler/, base/{names,name_resolve,network}.py
+
+Slice 20, the tracer, the verifier fleet and task mixtures:
+
+    base/tracer.py        spans, counters, lineage, the flight ring; shards per process
+    apps/trace_report.py  merge, attribution, bubbles, pipeline, lineage, flight views
+    system/verifier_pool.py  VerifierWorker, VerifierPool, verifier_discovery
+    data/mixture.py       TaskMixtureStream: weighted task streams for the controller
 """

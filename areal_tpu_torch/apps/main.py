@@ -27,7 +27,7 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional
 
-from areal_tpu_torch.base import name_resolve
+from areal_tpu_torch.base import name_resolve, tracer
 from areal_tpu_torch.experiments.common import ExperimentPlan
 from areal_tpu_torch.scheduler import JobException, JobState, make_scheduler
 from areal_tpu_torch.scheduler.client import read_log_tail
@@ -176,6 +176,12 @@ def run_experiment(
         # launch) are loaded by every worker from here.
         "AREAL_TORCH_BUILD_DIR": BUILD_DIR,
     }
+    # Every process's trace shards land in one dir: the explicit env
+    # ships it with the workers (the master configures itself).
+    trace_dir = tracer.default_dir(plan.fileroot, plan.experiment_name, plan.trial_name)
+    if trace_dir:
+        env["AREAL_TRACE"] = os.environ.get("AREAL_TRACE", "1")
+        env["AREAL_TRACE_DIR"] = trace_dir
     env.update(worker_env or {})
     dev = "cuda" if device is None else str(device)
 

@@ -56,9 +56,6 @@ _UNPORTED_FLAGS = {
     "eval_protocol": "item 10 (scheduler/evaluator.py)",
     # ppo-math
     "gen_allocation": "item 8 (multi-GPU layouts)",
-    "verifier_pool": "item 7.5 (the verifier fleet)",
-    "mixture_weight": "item 7.5 (task mixtures)",
-    "mixture_adaptive": "item 7.5 (task mixtures)",
 }
 
 
@@ -207,10 +204,27 @@ def _add_ppo_math(pp: argparse.ArgumentParser):
                     help="agent episodes: wall-clock bound on each tool call")
     pp.add_argument("--reward-backend", default="",
                     help="force one reward backend (only 'math' grading is ported)")
-    pp.add_argument("--verifier-pool", action="store_true", help="not yet ported")
+    pp.add_argument("--verifier-pool", action="store_true",
+                    help="grade through the trial's announced verifier fleet "
+                         "(python -m areal_tpu_torch.apps.verifier) instead of in-process")
     pp.add_argument("--mixture-weight", action="append", default=[], metavar="TASK=WEIGHT",
-                    help="not yet ported")
-    pp.add_argument("--mixture-adaptive", action="store_true", help="not yet ported")
+                    help="task-mixture curriculum weight, e.g. 'math=3' 'code=1'; repeatable")
+    pp.add_argument("--mixture-adaptive", action="store_true",
+                    help="upweight tasks whose reward EMA is below their watermark")
+
+
+def _parse_mixture_weights(specs):
+    """'task=weight' pairs -> {task: float} for PPOMathConfig."""
+    weights = {}
+    for spec in specs:
+        task, sep, w = spec.partition("=")
+        if not sep or not task:
+            raise SystemExit(f"--mixture-weight wants TASK=WEIGHT, got {spec!r}")
+        try:
+            weights[task] = float(w)
+        except ValueError:
+            raise SystemExit(f"--mixture-weight {spec!r}: weight must be a number")
+    return weights
 
 
 def _refuse_unported(defaults, args) -> None:
@@ -362,6 +376,9 @@ def cmd_ppo_math(args, device=None):
             temperature=args.temperature, spec_decode_k=args.spec_decode_k,
         ),
         reward_backend=args.reward_backend,
+        verifier_pool=args.verifier_pool,
+        mixture_weights=_parse_mixture_weights(args.mixture_weight),
+        mixture_adaptive=args.mixture_adaptive,
         batch_size=args.batch_size,
         total_train_epochs=args.epochs,
         mb_spec=MicroBatchSpec(max_tokens_per_mb=args.max_tokens_per_mb),

@@ -58,7 +58,7 @@ def main(argv=None):
                         format=f"%(asctime)s worker{args.index} %(name)s: %(message)s")
     logger = logging.getLogger(f"areal_tpu_torch.worker{args.index}")
 
-    from areal_tpu_torch.base import seeding
+    from areal_tpu_torch.base import seeding, tracer
     from areal_tpu_torch.base.device import resolve_device
     from areal_tpu_torch.system.stream import run_worker_stream
     from areal_tpu_torch.system.transfer import ConnTransfer
@@ -66,6 +66,9 @@ def main(argv=None):
     from areal_tpu_torch.system.worker_control import WorkerServer, WorkerState
 
     device = resolve_device(args.device)  # raises without a card
+    # Shard trace_worker_<index>.jsonl in AREAL_TRACE_DIR (the launcher
+    # exports it when tracing is on).
+    tracer.configure(role="worker", rank=args.index)
     with open(os.path.join(args.config, f"worker_{args.index}.pkl"), "rb") as f:
         config = pickle.load(f)
     seeding.set_random_seed(config.seed, config.worker_index)
@@ -78,6 +81,7 @@ def main(argv=None):
         logger.info(f"worker {args.index} ready on {device}, serving the stream")
         run_worker_stream(worker, args.experiment, args.trial, control=control)
     finally:
+        tracer.flush()
         transfer.close()
         control.stop()
     logger.info(f"worker {args.index} exiting")

@@ -5,10 +5,10 @@ and epoch counters, the frequency controls' states, the data workers'
 (epoch, cursor) positions, the interfaces' algorithm state, the weight
 versions, the ids the difficulty filter removed, the quarantine ledger,
 and for asynchronous RL the replay buffer's watermarks and the rollout
-pipeline's state.  The fleet and param-store fields of the JAX package's
-`RecoverInfo` come with their planes (ROADMAP queue 1, items 7.4 and
-7.5).  A record from before a field was added loads with the field's
-default (`load`).
+pipeline's state (with a task mixture's per-task cursors) and the param
+store's.  The JAX package's `fleet_state` (the fleet supervisor's) comes
+with the supervisor (ROADMAP queue 1, item 7.5's last part).  A record
+from before a field was added loads with the field's default (`load`).
 
 A recover save stages into ``recover_checkpoint.tmp.<step>``, writes and
 fsyncs a ``MANIFEST.json`` (the file list with sizes, the step, the

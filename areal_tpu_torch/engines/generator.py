@@ -62,6 +62,16 @@ pages, and the next turn forwards only the observation.  Parked slots
 ride the packed stream as done rows (zero lanes).  A push during a turn
 parks it (the call returns None); `episode_resume` replays the slot's
 last chunk tail through K3 under the new weights and continues.
+
+Tracing (`base/tracer.py`): a ``generate`` span around each call, and
+compute spans ``gen_chunk`` (a static burst), ``serving_chunk``,
+``episode_chunk`` and ``decode_chunk`` (an inflight chunk), each ending
+at the host read of its outputs, so each covers its device work.
+``prefill``, ``resume_replay`` and ``episode_resume_replay`` close at
+their launch (the device work lands in the next chunk's span), except
+the speculative admission's ``prefill``, which reads its first tokens.
+No span adds a synchronization.  The ``kv_pool``, ``gen_slots`` and
+``gen_interrupt`` counters sample the pool and the slots.
 """
 
 import dataclasses
@@ -73,6 +83,7 @@ import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
+from areal_tpu_torch.base import tracer
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines.packing import bucket_len
 from areal_tpu_torch.engines.paging import PageAllocator, PagePoolExhausted
@@ -479,14 +490,17 @@ class GeneratorEngine:
                 len(reqs) > self.max_decode_batch
                 or gconfig.max_new_tokens > self.static_path_max_new
             )
-        if not inflight:
-            generator = torch.Generator(device=self.device).manual_seed(int(seed))
-            b_cap = self.max_decode_batch
-            for start in range(0, len(order), b_cap):
-                chunk = [reqs[j] for j in order[start : start + b_cap]]
-                self._generate_chunk(chunk, gconfig, generator, results)
-            return self._assemble(sample, prompt_key, prompt_lens, results, n)
-        self._generate_inflight([reqs[j] for j in order], gconfig, seed, results)
+        # Uncategorized: the compute spans inside attribute the time.
+        with tracer.span("generate", n_prompts=sample.bs, n_reqs=len(reqs),
+                         inflight=bool(inflight)):
+            if not inflight:
+                generator = torch.Generator(device=self.device).manual_seed(int(seed))
+                b_cap = self.max_decode_batch
+                for start in range(0, len(order), b_cap):
+                    chunk = [reqs[j] for j in order[start : start + b_cap]]
+                    self._generate_chunk(chunk, gconfig, generator, results)
+                return self._assemble(sample, prompt_key, prompt_lens, results, n)
+            self._generate_inflight([reqs[j] for j in order], gconfig, seed, results)
         if self._session is not None:
             # Parked: stash the assembly context for resume_generate().
             st = self._session
@@ -539,11 +553,12 @@ class GeneratorEngine:
                 live_mask[s] = True
                 q_lens[s] = r
             to_dev = self._to_dev
-            self._get_paged_replay_fn()(
-                self.params, to_dev(tokens), to_dev(positions), st.pool,
-                to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
-                to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
-            )
+            with tracer.span("resume_replay", cat="compute", n=len(live)):
+                self._get_paged_replay_fn()(
+                    self.params, to_dev(tokens), to_dev(positions), st.pool,
+                    to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
+                    to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
+                )
             self.resume_replays += 1
         if st.prefill_chunk == 0:  # the two-program paged path
             finished = self._run_paged_loop(st)
@@ -652,6 +667,10 @@ class GeneratorEngine:
         st["utilization"] = st["live_tokens"] / max(st["allocated_tokens"], 1)
         self.kv_utilization = int(live_tokens) / max(int(allocated_tokens), 1)
         self.load_state = (self.live_slots, self.kv_utilization)
+        # KV pool pressure over time, a sample a chunk.
+        tracer.counter("kv_pool", live_tokens=int(live_tokens),
+                       allocated_tokens=int(allocated_tokens),
+                       utilization=self.kv_utilization)
 
     # -- the unified serving plane --
 
@@ -725,6 +744,7 @@ class GeneratorEngine:
         while st.pending or any(a is not None for a in st.active):
             if self._interrupt_evt.is_set():
                 self._session = st
+                self._count_interrupt(st)
                 return False
             self._take_admits_serving(st)
             # Map pages covering this chunk's worst-case advance per live
@@ -751,28 +771,31 @@ class GeneratorEngine:
             )
             prev_gen = st.gen_count.copy()
             prev_rem = st.prefill_rem.copy()
-            (
-                out_toks, out_logps, new_cache_len, new_gen_count, new_done,
-                new_rem, new_off, lane_acc,
-            ) = chunk_fn(
-                self.params, st.pool, st.logits_buf,
-                to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
-                to_dev(st.prompt_off.astype(np.int64)),
-                to_dev(st.prefill_rem.astype(np.int64)),
-                to_dev(st.cache_len.astype(np.int64)),
-                to_dev(st.gen_count.astype(np.int64)),
-                to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
-            )
-            # The chunk's one host sync: the done/eos flags must be exact
-            # before the next admission round.
-            out_toks = out_toks.cpu().numpy()
-            out_logps = out_logps.cpu().numpy()
-            lane_acc = lane_acc.cpu().numpy()
-            new_done = new_done.cpu().numpy()
-            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
-            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
-            st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
-            st.prompt_off = new_off.cpu().numpy().astype(np.int32)
+            # Admission prefill rides the chunk: one compute span covers
+            # both, and ends at the chunk's host read.
+            with tracer.span("serving_chunk", cat="compute", t=chunk_t, w=W):
+                (
+                    out_toks, out_logps, new_cache_len, new_gen_count, new_done,
+                    new_rem, new_off, lane_acc,
+                ) = chunk_fn(
+                    self.params, st.pool, st.logits_buf,
+                    to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
+                    to_dev(st.prompt_off.astype(np.int64)),
+                    to_dev(st.prefill_rem.astype(np.int64)),
+                    to_dev(st.cache_len.astype(np.int64)),
+                    to_dev(st.gen_count.astype(np.int64)),
+                    to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
+                )
+                # The chunk's one host sync: the done/eos flags must be
+                # exact before the next admission round.
+                out_toks = out_toks.cpu().numpy()
+                out_logps = out_logps.cpu().numpy()
+                lane_acc = lane_acc.cpu().numpy()
+                new_done = new_done.cpu().numpy()
+                st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+                st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+                st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
+                st.prompt_off = new_off.cpu().numpy().astype(np.int32)
             st.last_emit = st.gen_count - prev_gen
             self.steps_total += chunk_t
             self.lanes_dispatched += chunk_t * self.serving_lane_budget
@@ -896,7 +919,13 @@ class GeneratorEngine:
             alloc.reserve(free_slot, len(st.pending[-1][2]) + slack)
         self._set_live_slots(sum(a is not None for a in st.active))
         st.peak_live = max(st.peak_live, self.live_slots)
+        tracer.counter("gen_slots", live=self.live_slots, pending=len(st.pending))
         return admitted
+
+    def _count_interrupt(self, st: _PagedGenSession) -> None:
+        tracer.counter("gen_interrupt",
+                       parked_live=sum(a is not None for a in st.active),
+                       parked_pending=len(st.pending))
 
     def _register_prefix(self, st: _PagedGenSession, s: int) -> None:
         """Publish owner slot `s`'s full prompt pages in the prefix cache
@@ -1322,11 +1351,12 @@ class GeneratorEngine:
             live_mask[s] = True
             q_lens[s] = r
             to_dev = self._to_dev
-            self._get_paged_replay_fn()(
-                self.params, to_dev(tokens), to_dev(positions), st.pool,
-                to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
-                to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
-            )
+            with tracer.span("episode_resume_replay", cat="compute", n=1):
+                self._get_paged_replay_fn()(
+                    self.params, to_dev(tokens), to_dev(positions), st.pool,
+                    to_dev(st.alloc.table), to_dev(write_pos0), st.logits_buf,
+                    to_dev(take_idx), to_dev(live_mask), to_dev(q_lens),
+                )
             self.resume_replays += 1
         st.alloc.prefix_clear()
         st.inflight_prefix.clear()
@@ -1524,6 +1554,7 @@ class GeneratorEngine:
         while reason is None:
             if self._interrupt_evt.is_set():
                 ep.parked_mid_turn = True
+                tracer.counter("episode_interrupt", slot=s, cache_len=int(st.cache_len[s]))
                 return None
             rem = int(st.prefill_rem[s])
             left = max(0, max_new - int(st.gen_count[s]))
@@ -1536,27 +1567,28 @@ class GeneratorEngine:
                 "paged", int(st.cache_len.sum()), alloc.allocated_pages() * alloc.page_size
             )
             prev_gen = st.gen_count.copy()
-            (
-                out_toks, out_logps, new_cache_len, new_gen_count, new_done,
-                new_rem, new_off, lane_acc,
-            ) = chunk_fn(
-                self.params, st.pool, st.logits_buf,
-                to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
-                to_dev(st.prompt_off.astype(np.int64)),
-                to_dev(st.prefill_rem.astype(np.int64)),
-                to_dev(st.cache_len.astype(np.int64)),
-                to_dev(st.gen_count.astype(np.int64)),
-                to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
-            )
-            # The chunk's one host sync, at its boundary.
-            out_toks = out_toks.cpu().numpy()
-            out_logps = out_logps.cpu().numpy()
-            lane_acc = lane_acc.cpu().numpy()
-            st.done_host = new_done.cpu().numpy()
-            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
-            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
-            st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
-            st.prompt_off = new_off.cpu().numpy().astype(np.int32)
+            with tracer.span("episode_chunk", cat="compute", t=chunk_t, w=W):
+                (
+                    out_toks, out_logps, new_cache_len, new_gen_count, new_done,
+                    new_rem, new_off, lane_acc,
+                ) = chunk_fn(
+                    self.params, st.pool, st.logits_buf,
+                    to_dev(alloc.table), to_dev(st.prompt_buf.astype(np.int64)),
+                    to_dev(st.prompt_off.astype(np.int64)),
+                    to_dev(st.prefill_rem.astype(np.int64)),
+                    to_dev(st.cache_len.astype(np.int64)),
+                    to_dev(st.gen_count.astype(np.int64)),
+                    to_dev(st.done_host), st.tokens_buf, st.pending_tok, st.generator,
+                )
+                # The chunk's one host sync, at its boundary.
+                out_toks = out_toks.cpu().numpy()
+                out_logps = out_logps.cpu().numpy()
+                lane_acc = lane_acc.cpu().numpy()
+                st.done_host = new_done.cpu().numpy()
+                st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+                st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+                st.prefill_rem = new_rem.cpu().numpy().astype(np.int32)
+                st.prompt_off = new_off.cpu().numpy().astype(np.int32)
             st.last_emit = st.gen_count - prev_gen
             self.steps_total += chunk_t
             self.lanes_dispatched += chunk_t * self.serving_lane_budget
@@ -1707,12 +1739,14 @@ class GeneratorEngine:
             admits = self._take_admits(active, pending, n_slots)
             if admits:
                 rows, plens, slots = self._pack_admits(admits, n_slots)
-                logits, _ = tfm.prefill_into_slots(
-                    self.params, self.cfg, self._to_dev(rows), self._to_dev(plens),
-                    cache, torch.from_numpy(slots),
-                )
-                keep = slots < n_slots
-                logits_buf[self._to_dev(slots[keep])] = logits[self._to_dev(np.flatnonzero(keep))]
+                with tracer.span("prefill", cat="compute", n=len(admits)):
+                    logits, _ = tfm.prefill_into_slots(
+                        self.params, self.cfg, self._to_dev(rows), self._to_dev(plens),
+                        cache, torch.from_numpy(slots),
+                    )
+                    keep = slots < n_slots
+                    logits_buf[self._to_dev(slots[keep])] = logits[
+                        self._to_dev(np.flatnonzero(keep))]
                 self.prefill_dispatches += 1
                 for s, i, rep, toks in admits:
                     cache_len[s] = len(toks)
@@ -1731,18 +1765,20 @@ class GeneratorEngine:
                 cur_w = new_w
             self._accum_pool_stats("dense", int(cache_len.sum()), n_slots * cur_w)
             decode_fn = self._get_inflight_decode_fn(n_slots, cur_w, chunk_t, gconfig)
-            out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
-                self.params, cache, logits_buf, self._to_dev(cache_len.astype(np.int64)),
-                self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
-                generator,
-            )
-            # The chunk's one host sync.
-            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
-            cache_len = new_cache_len.cpu().numpy().astype(np.int32)
-            gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            with tracer.span("decode_chunk", cat="compute", t=chunk_t):
+                out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
+                    self.params, cache, logits_buf, self._to_dev(cache_len.astype(np.int64)),
+                    self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
+                    generator,
+                )
+                # The chunk's one host sync.
+                out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+                cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+                gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+                new_done = new_done.cpu().numpy()
             self.steps_total += chunk_t
             self._drain_chunk_outputs(
-                out_toks, out_logps, new_done.cpu().numpy(), active, toks_acc,
+                out_toks, out_logps, new_done, active, toks_acc,
                 logps_acc, results, done_host, cache_len, gconfig.max_new_tokens,
                 stop_seqs=gconfig.stop,
             )
@@ -1757,6 +1793,7 @@ class GeneratorEngine:
                 i, rep, toks = pending.pop()
                 admits.append((s, i, rep, toks))
         self._set_live_slots(sum(a is not None for a in active) + len(admits))
+        tracer.counter("gen_slots", live=self.live_slots, pending=len(pending))
         return admits
 
     def _pack_admits(self, admits, n_slots):
@@ -1900,13 +1937,14 @@ class GeneratorEngine:
             admits = self._take_admits(active, pending_list, n_slots)
             if admits:
                 rows, plens, slots = self._pack_admits(admits, n_slots)
-                toks0, logps0 = self._spec_admit(
-                    g, rows, plens, cache, tokens_buf, pending, slots, generator
-                )
+                with tracer.span("prefill", cat="compute", n=len(admits)):
+                    toks0, logps0 = self._spec_admit(
+                        g, rows, plens, cache, tokens_buf, pending, slots, generator
+                    )
+                    # One host sync per refill: the done flag must be
+                    # exact before the next chunk.
+                    toks0, logps0 = toks0.cpu().numpy(), logps0.cpu().numpy()
                 self.prefill_dispatches += 1
-                # One host sync per refill: the done flag must be exact
-                # before the next chunk.
-                toks0, logps0 = toks0.cpu().numpy(), logps0.cpu().numpy()
                 for j, (s, i, rep, toks) in enumerate(admits):
                     t0 = int(toks0[j])
                     cache_len[s] = len(toks)
@@ -1929,18 +1967,20 @@ class GeneratorEngine:
                 tokens_buf, cur_w = grown, new_w
             self._accum_pool_stats("dense", int(cache_len.sum()), n_slots * cur_w)
             fn = self._get_spec_decode_fn(n_slots, cur_w, n_steps, g)
-            out_toks, out_logps, new_cache_len, new_gen_count, new_done = fn(
-                self.params, cache, tokens_buf, pending,
-                self._to_dev(cache_len.astype(np.int64)),
-                self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
-                generator,
-            )
-            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
-            cache_len = new_cache_len.cpu().numpy().astype(np.int32)
-            gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            with tracer.span("decode_chunk", cat="compute", t=step_cap):
+                out_toks, out_logps, new_cache_len, new_gen_count, new_done = fn(
+                    self.params, cache, tokens_buf, pending,
+                    self._to_dev(cache_len.astype(np.int64)),
+                    self._to_dev(gen_count.astype(np.int64)), self._to_dev(done_host),
+                    generator,
+                )
+                out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+                cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+                gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+                new_done = new_done.cpu().numpy()
             self.steps_total += n_steps
             self._drain_chunk_outputs(
-                out_toks, out_logps, new_done.cpu().numpy(), active, toks_acc,
+                out_toks, out_logps, new_done, active, toks_acc,
                 logps_acc, results, done_host, cache_len, g.max_new_tokens,
                 stop_seqs=g.stop,
             )
@@ -2084,6 +2124,7 @@ class GeneratorEngine:
         while st.pending or any(a is not None for a in st.active):
             if self._interrupt_evt.is_set():
                 self._session = st
+                self._count_interrupt(st)
                 return False
             admits = self._take_admits_paged(st.active, st.pending, n_slots, alloc, chunk_t)
             if admits:
@@ -2092,11 +2133,12 @@ class GeneratorEngine:
                 )
                 # Padding rows (slot n_slots, sentinel pages) never run.
                 keep = np.flatnonzero(slots < n_slots)
-                logits, _ = tfm.prefill_into_pages(
-                    self.params, self.cfg, self._to_dev(rows[keep]),
-                    self._to_dev(plens[keep]), st.pool, self._to_dev(page_rows[keep]),
-                )
-                st.logits_buf[self._to_dev(slots[keep])] = logits
+                with tracer.span("prefill", cat="compute", n=len(admits)):
+                    logits, _ = tfm.prefill_into_pages(
+                        self.params, self.cfg, self._to_dev(rows[keep]),
+                        self._to_dev(plens[keep]), st.pool, self._to_dev(page_rows[keep]),
+                    )
+                    st.logits_buf[self._to_dev(slots[keep])] = logits
                 self.prefill_dispatches += 1
                 for s, i, rep, toks in admits:
                     st.cache_len[s] = len(toks)
@@ -2115,15 +2157,17 @@ class GeneratorEngine:
                 "paged", int(st.cache_len.sum()), alloc.allocated_pages() * ps
             )
             prev_gen = st.gen_count.copy()
-            out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
-                self.params, st.pool, st.logits_buf,
-                self._to_dev(st.cache_len.astype(np.int64)),
-                self._to_dev(st.gen_count.astype(np.int64)), self._to_dev(st.done_host),
-                st.generator, self._to_dev(alloc.table),
-            )
-            out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
-            st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
-            st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+            with tracer.span("decode_chunk", cat="compute", t=chunk_t):
+                out_toks, out_logps, new_cache_len, new_gen_count, new_done = decode_fn(
+                    self.params, st.pool, st.logits_buf,
+                    self._to_dev(st.cache_len.astype(np.int64)),
+                    self._to_dev(st.gen_count.astype(np.int64)), self._to_dev(st.done_host),
+                    st.generator, self._to_dev(alloc.table),
+                )
+                out_toks, out_logps = out_toks.cpu().numpy(), out_logps.cpu().numpy()
+                st.cache_len = new_cache_len.cpu().numpy().astype(np.int32)
+                st.gen_count = new_gen_count.cpu().numpy().astype(np.int32)
+                new_done = new_done.cpu().numpy()
             # Tokens each slot emitted this chunk: the tail a resume replays.
             st.last_emit = st.gen_count - prev_gen
             self.steps_total += chunk_t
@@ -2133,7 +2177,7 @@ class GeneratorEngine:
                 st.slot_prompt.pop(s, None)
 
             self._drain_chunk_outputs(
-                out_toks, out_logps, new_done.cpu().numpy(), st.active,
+                out_toks, out_logps, new_done, st.active,
                 st.toks_acc, st.logps_acc, st.results, st.done_host,
                 st.cache_len, gconfig.max_new_tokens, on_retire=_retire,
                 stop_seqs=gconfig.stop,
@@ -2167,6 +2211,7 @@ class GeneratorEngine:
             free_slot = next(s for s in range(n_slots) if active[s] is None)
             alloc.reserve(free_slot, len(pending[-1][2]) + slack)  # raises
         self._set_live_slots(sum(a is not None for a in active) + len(admits))
+        tracer.counter("gen_slots", live=self.live_slots, pending=len(pending))
         return admits
 
     def _pack_admits_paged(self, admits, n_slots, alloc):
@@ -2219,9 +2264,11 @@ class GeneratorEngine:
         for r, (_, _, toks) in enumerate(chunk):
             prompt_tok[r, sp - len(toks) :] = toks
             prompt_len[r] = len(toks)
-        toks, logps, gen_len = self._static_program(
-            prompt_tok, prompt_len, sp, s_total, gconfig, generator
-        )
+        # Ends at the program's host read of its outputs.
+        with tracer.span("gen_chunk", cat="compute", b=b, sp=sp):
+            toks, logps, gen_len = self._static_program(
+                prompt_tok, prompt_len, sp, s_total, gconfig, generator
+            )
         for r, (i, rep, _) in enumerate(chunk):
             gl = int(gen_len[r])
             no_eos = gl == gconfig.max_new_tokens and (

@@ -58,9 +58,6 @@ def unported_options(cfg):
     checks = (
         (any(not u.startswith(("http://", "https://")) for u in urls),
          "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.8"),
-        (cfg.verifier_pool, "verifier_pool", "queue 1, item 7.5"),
-        (bool(cfg.mixture_weights) or cfg.mixture_adaptive, "mixture_weights",
-         "queue 1, item 7.5"),
         (any(isinstance(w, list) for w in cfg.placement.values()),
          "placement over several workers a model (model replicas)", "queue 1, item 8"),
     )
@@ -142,6 +139,17 @@ def check_ppo_math(cfg) -> None:
                   "(async RL replaces the one-step-ahead path)")
     if cfg.replay_capacity < 1:
         _fail(f"replay_capacity must be >= 1, got {cfg.replay_capacity}")
+    mw = cfg.mixture_weights or {}
+    for task, w in mw.items():
+        if not isinstance(w, (int, float)) or w <= 0:
+            _fail(f"mixture_weights[{task!r}] must be a positive number (got {w!r}); "
+                  "zero-weight tasks should be omitted")
+    if cfg.mixture_adaptive and not mw:
+        _fail("mixture_adaptive needs mixture_weights (the adaptive scheduler rebalances "
+              "an explicit task mixture)")
+    if cfg.verifier_pool and not (cfg.experiment_name and cfg.trial_name):
+        _fail("verifier_pool needs experiment_name and trial_name to discover the announced "
+              "verifier fleet")
     if cfg.pipeline_overlap:
         if cfg.rollout_ahead > 0 or mho is not None:
             _fail("pipeline_overlap is mutually exclusive with rollout_ahead / "

@@ -274,8 +274,13 @@ class PPOMathConfig:
     # of a checkpoint on disk.  Needs gen_server_url.
     param_push_tree: bool = False
     param_push_fanout: int = 2
-    # ---- not yet ported: check_ppo_math refuses a value other than these ----
+    # Grade through the trial's announced verifier fleet
+    # (system/verifier_pool.py): load-balanced, a breaker a server, a
+    # retry on another server, the in-process registry when none is live.
     verifier_pool: bool = False
+    # A task-mixture curriculum (data/mixture.py): task -> weight.  As in
+    # the JAX package, no code of the in-process trial reads these two:
+    # a `RolloutController(mixture=...)` consumes a mixture.
     mixture_weights: Dict[str, float] = dataclasses.field(default_factory=dict)
     mixture_adaptive: bool = False
     # Agent episodes (system/episode.py): carried as the JAX package
@@ -319,6 +324,10 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
     rew_args = dict(cfg.reward_interface_args)
     if cfg.reward_backend:
         rew_args.setdefault("reward_backend", cfg.reward_backend)
+    if cfg.verifier_pool:
+        rew_args.setdefault("verifier_pool", True)
+        rew_args.setdefault("pool_experiment", cfg.experiment_name)
+        rew_args.setdefault("pool_trial", cfg.trial_name)
     rew_if = cfg.reward_interface or ModelInterfaceAbstraction("rw-math-code", rew_args)
     rew_outputs = ("rewards", "dense_rewards") if use_dense else ("rewards",)
     if cfg.fuse_rew_ref and ref is None:
@@ -552,10 +561,15 @@ def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
     fileroot resumes from it.  Returns (master, per-step stats).  (The
     multi-process runtime is `apps/main.py run_experiment`.)"""
     from areal_tpu_torch.apps.main import make_master
+    from areal_tpu_torch.base import tracer
     from areal_tpu_torch.system.master import InProcessPool
     from areal_tpu_torch.system.transfer import InProcTransfer
     from areal_tpu_torch.system.worker import ModelWorker
 
+    # One process hosts everything: every span lands in the master's
+    # shard (threads are its lanes); the dir is set before any component
+    # configures the tracer.
+    tracer.default_dir(plan.fileroot, plan.experiment_name, plan.trial_name)
     planes = InProcTransfer.make_group(len(plan.worker_configs))
     workers = [
         ModelWorker(wc, tokenizer=tokenizer, device=device, transfer=planes[i])

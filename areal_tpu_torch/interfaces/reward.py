@@ -6,36 +6,24 @@ and graded, and scored ±`reward_value` (one scalar per sequence).  An
 item travels in the reward service's opaque schema (``{"task", "text",
 "payload"}``) and is graded by the verifier registry
 (`interfaces/reward_service.grade_item`: math, code, judge) in this
-process, or with `remote_url` by a reward service over HTTP, with local
-fallback.  Code grading runs the response's last fenced program on each
-test input in the sandbox (`interfaces/sandbox.run_sandboxed`).  The
-verifier fleet (`verifier_pool`) is ROADMAP queue 1 item 7.5."""
+process, with `remote_url` by a reward service over HTTP (local
+fallback), or with `verifier_pool` by the trial's announced verifier
+fleet (`system/verifier_pool.py`).  Code grading runs the response's
+last fenced program on each test input in the sandbox
+(`interfaces/sandbox.run_sandboxed`)."""
 
 import dataclasses
 import json
 import logging
-import os
-import re
-import sys
-import tempfile
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import Model, ModelInterface, register_interface
+from areal_tpu_torch.interfaces.reward_service import _row_is_choice, verify_code  # noqa: F401
 
 logger = logging.getLogger("areal_tpu_torch.reward")
-
-
-def _row_is_choice(info: Dict[str, Any]) -> Optional[bool]:
-    """Row-level multiple-choice evidence: an explicit flag or a rendered
-    `choices` list decides; absent both, the gold string does."""
-    if info.get("is_choice") is not None:
-        return bool(info["is_choice"])
-    if "choices" in info and info["choices"] is not None:
-        return bool(info["choices"])
-    return None
 
 
 @dataclasses.dataclass
@@ -53,14 +41,18 @@ class MultiTaskRewardInterface(ModelInterface):
     remote_timeout_s: float = 600.0
     # Overrides every row's task (one backend for the run); "" = per row.
     reward_backend: str = ""
+    # Grade through the announced verifier fleet (system/verifier_pool.py)
+    # instead of a fixed remote_url: batches go to the least-loaded live
+    # worker behind its breaker, retry on another, and fall back to the
+    # in-process registry when none is live.  Takes precedence over
+    # remote_url.
     verifier_pool: bool = False
+    pool_experiment: str = ""
+    pool_trial: str = ""
+    pool_attempt_timeout_s: float = 60.0
+    _pool: Any = dataclasses.field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.verifier_pool:
-            raise NotImplementedError(
-                "grading through the verifier fleet is not yet ported (ROADMAP queue 1, "
-                "item 7.5: the fleet); set remote_url for one reward service"
-            )
         if self.dataset_path and not self.id2info:
             with open(self.dataset_path) as f:
                 for line in f:
@@ -103,7 +95,9 @@ class MultiTaskRewardInterface(ModelInterface):
                     },
                 })
                 si += 1
-        if self.remote_url:
+        if self.verifier_pool:
+            oks = self._verifier_pool().verify_batch(todo)
+        elif self.remote_url:
             from areal_tpu_torch.interfaces.reward_service import RemoteVerifier
 
             oks = RemoteVerifier(self.remote_url, timeout_s=self.remote_timeout_s
@@ -119,6 +113,21 @@ class MultiTaskRewardInterface(ModelInterface):
             data={"rewards": np.asarray(rewards, np.float32)},
         )
 
+    def _verifier_pool(self):
+        """The fleet-discovering pool client, built once an interface, so
+        its breakers and membership view outlive an inference call."""
+        if self._pool is None:
+            from areal_tpu_torch.system.verifier_pool import VerifierPool, verifier_discovery
+
+            if not (self.pool_experiment and self.pool_trial):
+                raise ValueError("verifier_pool=True needs pool_experiment and pool_trial to "
+                                 "discover the announced fleet")
+            self._pool = VerifierPool(
+                discovery=verifier_discovery(self.pool_experiment, self.pool_trial),
+                attempt_timeout_s=self.pool_attempt_timeout_s,
+            )
+        return self._pool
+
     def verify(self, task: str, text: str, info: Dict[str, Any]) -> bool:
         """Grade one response for `task` through the verifier registry
         (the graders the reward service runs)."""
@@ -129,40 +138,6 @@ class MultiTaskRewardInterface(ModelInterface):
         return reward_service.grade_item(
             {"task": self.reward_backend or task, "text": text, "payload": payload}
         )
-
-
-def verify_code(text: str, io_spec, timeout_s: float = 8.0) -> bool:
-    """Run the response's last fenced program on each test input in the
-    sandbox (rlimits, a temporary dir as its jail, a network namespace
-    where the host allows one; `interfaces/sandbox.py`); pass iff every
-    run exits 0 with the expected stdout (whitespace-trimmed).
-    `io_spec`: {"inputs": [...], "outputs": [...]} or its JSON."""
-    from areal_tpu_torch.interfaces.sandbox import run_sandboxed
-
-    prog = _extract_code_block(text)
-    if prog is None:
-        return False
-    try:
-        io_spec = json.loads(io_spec) if isinstance(io_spec, str) else io_spec
-        inputs, outputs = io_spec["inputs"], io_spec["outputs"]
-    except (KeyError, TypeError, json.JSONDecodeError):
-        return False
-    with tempfile.TemporaryDirectory(prefix="areal_torch_grade_") as jail:
-        path = os.path.join(jail, "prog.py")
-        with open(path, "w") as f:
-            f.write(prog)
-        for inp, expected in zip(inputs, outputs):
-            rc, stdout = run_sandboxed(
-                [sys.executable, path], input_text=inp, timeout_s=timeout_s, cwd=jail,
-            )
-            if rc != 0 or stdout.strip() != expected.strip():
-                return False
-    return True
-
-
-def _extract_code_block(text: str) -> Optional[str]:
-    blocks = re.findall(r"```(?:python)?\n(.*?)```", text, flags=re.DOTALL)
-    return blocks[-1] if blocks else None
 
 
 register_interface("rw-math-code", MultiTaskRewardInterface)

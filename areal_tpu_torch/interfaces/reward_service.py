@@ -18,23 +18,28 @@ package's `post_verify` talks to either package's server.
     python -m areal_tpu_torch.apps.verifier --port 8090   # the server
     RemoteVerifier("http://127.0.0.1:8090").verify_batch(items)
 
-Not yet ported: the tracer's grade spans and lineage stamps (ROADMAP
-queue 1 item 10) and the verifier fleet (item 7.5).
+Each grade opens a ``grade:<task>`` span, and an item carrying a
+``trace_id`` gets its ``graded`` lineage stamp (`base/tracer.py`); the
+server traces as role ``reward``.  A fleet of announced graders behind a
+load-balancing client is `system/verifier_pool.py`.
 """
 
 import dataclasses
 import json
 import logging
 import os
+import re
+import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
-from areal_tpu_torch.base import metrics
+from areal_tpu_torch.base import metrics, tracer
 
 logger = logging.getLogger("areal_tpu_torch.reward_service")
 
@@ -90,9 +95,55 @@ def verifier_names() -> List[str]:
     return sorted(_VERIFIERS)
 
 
+# The graders live here, not in interfaces/reward.py: a verifier process
+# grades without importing the model stack (torch).
+
+def _row_is_choice(info: Dict[str, Any]) -> Optional[bool]:
+    """Row-level multiple-choice evidence: an explicit flag or a rendered
+    `choices` list decides; absent both, the gold string does."""
+    if info.get("is_choice") is not None:
+        return bool(info["is_choice"])
+    if "choices" in info and info["choices"] is not None:
+        return bool(info["choices"])
+    return None
+
+
+def verify_code(text: str, io_spec, timeout_s: float = 8.0) -> bool:
+    """Run the response's last fenced program on each test input in the
+    sandbox (rlimits, a temporary dir as its jail, a network namespace
+    where the host allows one; `interfaces/sandbox.py`); pass iff every
+    run exits 0 with the expected stdout (whitespace-trimmed).
+    `io_spec`: {"inputs": [...], "outputs": [...]} or its JSON."""
+    from areal_tpu_torch.interfaces.sandbox import run_sandboxed
+
+    prog = _extract_code_block(text)
+    if prog is None:
+        return False
+    try:
+        io_spec = json.loads(io_spec) if isinstance(io_spec, str) else io_spec
+        inputs, outputs = io_spec["inputs"], io_spec["outputs"]
+    except (KeyError, TypeError, json.JSONDecodeError):
+        return False
+    with tempfile.TemporaryDirectory(prefix="areal_torch_grade_") as jail:
+        path = os.path.join(jail, "prog.py")
+        with open(path, "w") as f:
+            f.write(prog)
+        for inp, expected in zip(inputs, outputs):
+            rc, stdout = run_sandboxed(
+                [sys.executable, path], input_text=inp, timeout_s=timeout_s, cwd=jail,
+            )
+            if rc != 0 or stdout.strip() != expected.strip():
+                return False
+    return True
+
+
+def _extract_code_block(text: str) -> Optional[str]:
+    blocks = re.findall(r"```(?:python)?\n(.*?)```", text, flags=re.DOTALL)
+    return blocks[-1] if blocks else None
+
+
 def _verify_math_backend(text: str, payload: Dict[str, Any]) -> bool:
     from areal_tpu_torch.interfaces import math_verify
-    from areal_tpu_torch.interfaces.reward import _row_is_choice
 
     return bool(math_verify.verify_math(
         text, payload.get("solutions") or [], is_choice=_row_is_choice(payload),
@@ -100,8 +151,6 @@ def _verify_math_backend(text: str, payload: Dict[str, Any]) -> bool:
 
 
 def _verify_code_backend(text: str, payload: Dict[str, Any]) -> bool:
-    from areal_tpu_torch.interfaces.reward import verify_code
-
     return verify_code(text, payload.get("input_output"),
                        timeout_s=float(payload.get("timeout_s", 8.0)))
 
@@ -146,16 +195,25 @@ def _normalize_item(item: Dict[str, Any]):
 def grade_item(item: Dict[str, Any]) -> bool:
     """Grade one item through the registry: the one dispatch of the
     service's handler, `RemoteVerifier`'s fallback and `RewardFabric`.
-    A task with no backend grades False (warned once a task)."""
+    A task with no backend grades False (warned once a task).  An item
+    carrying a ``trace_id`` gets a ``graded`` lineage stamp, joining the
+    grade to the sample's causal timeline."""
     task, text, payload = _normalize_item(item)
+    trace_id = str(item.get("trace_id") or "")
     fn = _VERIFIERS.get(task)
     if fn is None:
         if task not in _unknown_tasks_warned:
             _unknown_tasks_warned.add(task)
             logger.warning(f"no verifier backend for task {task!r} "
                            f"(registered: {verifier_names()}); reward 0")
+        if trace_id:
+            tracer.lineage("graded", trace_id, task=task, passed=False, backend="missing")
         return False
-    return bool(fn(text, payload))
+    with tracer.span(f"grade:{task}", cat="host", task=task):
+        ok = bool(fn(text, payload))
+    if trace_id:
+        tracer.lineage("graded", trace_id, task=task, passed=ok)
+    return ok
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -189,8 +247,10 @@ class _Handler(BaseHTTPRequestHandler):
             items = json.loads(self.rfile.read(n))["items"]
             # Code grading runs sandboxed programs for seconds: grade the
             # batch in parallel.
-            with ThreadPoolExecutor(max_workers=getattr(self.server, "max_workers", 8)) as ex:
-                results = list(ex.map(grade_item, items))
+            with tracer.span("verify", cat="host", n=len(items)):
+                with ThreadPoolExecutor(max_workers=getattr(self.server, "max_workers", 8)) as ex:
+                    results = list(ex.map(grade_item, items))
+            tracer.flush()
             self._send(200, {"results": results})
         except Exception as e:  # noqa: BLE001 — report to the client
             self._send(500, {"error": repr(e)})
@@ -205,6 +265,7 @@ def serve(host: str = "127.0.0.1", port: int = 8090, background: bool = False,
     Code grading runs the submitted programs: the default bind is
     loopback, and a non-loopback deployment should set a shared token
     (`token` or AREAL_REWARD_TOKEN; clients send X-Areal-Token)."""
+    tracer.configure(role="reward", rank=port)
     srv = ThreadingHTTPServer((host, port), _Handler)
     srv.auth_token = token or os.environ.get("AREAL_REWARD_TOKEN", "")
     srv.max_workers = int(max_workers)

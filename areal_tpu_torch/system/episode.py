@@ -28,13 +28,13 @@ injected: they belong to the model's chat template.
 
 ``RewardFabric`` grades asynchronously (a bounded thread pool over
 the verifier registry, or a remote ``verify_batch`` client such as the
-reward service's ``RemoteVerifier``), so an episode's end never blocks
-on a sandboxed test run.
+reward service's ``RemoteVerifier`` or the verifier fleet's
+``VerifierPool``), so an episode's end never blocks on a sandboxed test
+run.
 
-Not yet ported: the verifier fleet as a ``RewardFabric`` remote (ROADMAP
-queue 1 item 7.5) and the tracer's spans (item 10; ``trace_id``
-arguments are carried to the server and the grader, no span is opened
-here).
+Each assistant turn is an ``episode_turn`` span (`base/tracer.py`),
+carrying the dispatcher's ``trace_id`` when there is one; the id also
+rides to the server (its ``turn`` lineage stamps) and to the grader.
 """
 
 import ast
@@ -48,7 +48,7 @@ from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
-from areal_tpu_torch.base import metrics
+from areal_tpu_torch.base import metrics, tracer
 from areal_tpu_torch.base.faults import FaultError, FaultInjector
 from areal_tpu_torch.interfaces.sandbox import run_sandboxed
 from areal_tpu_torch.system.replay import Trajectory
@@ -563,10 +563,13 @@ class EpisodeController:
         trace_id: Optional[str] = None,
     ) -> Episode:
         ep = Episode(episode_id=episode_id, prompt_ids=list(prompt_ids))
+        # Child spans carry the trace_id only when the dispatcher minted one.
+        targs: Dict[str, Any] = {"trace_id": trace_id} if trace_id else {}
         _M_ACTIVE.inc()
         try:
             v0 = self.client.version()
-            out = self.client.start(episode_id, prompt_ids)
+            with tracer.span("episode_turn", episode_id=episode_id, turn=0, **targs):
+                out = self.client.start(episode_id, prompt_ids)
             while True:
                 reason = str(out.get("stop_reason", ""))
                 ep.turns.append(
@@ -618,7 +621,9 @@ class EpisodeController:
                     )
                 )
                 v0 = self.client.version()
-                out = self._extend_or_readmit(ep, obs)
+                with tracer.span("episode_turn", episode_id=episode_id,
+                                 turn=len(ep.turns), **targs):
+                    out = self._extend_or_readmit(ep, obs)
         finally:
             _M_ACTIVE.dec()
             try:

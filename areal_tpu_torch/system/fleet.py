@@ -10,9 +10,10 @@ port of areal_tpu/system/fleet.py).
   of the listing without anyone deregistering it.
 - `LocalProcessFleet`: spawns and drains server processes on this host.
 
-The supervisor and its lanes (`FleetSupervisor`, `SupervisorLane`,
-which read SLO rules with the metrics report) come with ROADMAP queue 1
-item 7.5.
+The verifier fleet's members and pool client are
+`system/verifier_pool.py`.  The supervisor and its lanes
+(`FleetSupervisor`, `SupervisorLane`, which read SLO rules with the
+metrics report) are ROADMAP queue 1 item 7.5's last part.
 """
 
 import logging

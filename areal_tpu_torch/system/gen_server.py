@@ -42,7 +42,15 @@ that resolves outside it is refused.
 (`_handle_param_push`): it relays the raw payload to its subtree's
 children first, then applies it through the checksummed
 `update_weights_inmem` at the pushed (absolute) version; a
-``kill@point=param_push`` fault crashes the server there.
+``kill@point=param_push`` fault crashes the server there, and a
+point-less ``kill@t=...`` crashes it once due (`_kill_loop`); each
+crash dumps the flight ring first.
+
+Tracing (`base/tracer.py`): a request's ``X-Areal-Trace`` header (the
+dispatcher's lineage id) gets its ``first_token``, ``generated`` and
+``failed`` stamps and a ``request:<qid>`` span; each engine call is a
+``gen_batch`` span, and the collector samples the ``gen_queue`` gauge.
+The command line traces as role ``gen_server``.
 
 Not yet ported: the ZMQ transport (ROADMAP queue 1 item 7.8) and the
 other fault points (7.6).
@@ -69,7 +77,7 @@ from areal_tpu_torch.api.model_api import (
     LLMAPIClient,
     SlotGoneError,
 )
-from areal_tpu_torch.base import integrity, metrics
+from areal_tpu_torch.base import integrity, metrics, tracer
 from areal_tpu_torch.base.faults import FaultInjector
 
 logger = logging.getLogger("areal_tpu_torch.gen_server")
@@ -108,6 +116,8 @@ class _Pending:
     result: Optional[Dict[str, Any]] = None
     error: Optional[str] = None
     t_enq: Optional[int] = None  # enqueue time (monotonic ns)
+    # The dispatcher's lineage id (the X-Areal-Trace header).
+    trace_id: Optional[str] = None
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -178,6 +188,8 @@ class GenerationServer:
         # Guards version and the pause flag as /health reads them.
         self._health_lock = threading.Lock()
         self._token = token
+        # episode_id -> trace_id: later turns join the start op's lineage.
+        self._episode_traces: Dict[str, str] = {}
         if not token and host not in ("127.0.0.1", "localhost", "::1"):
             raise ValueError(
                 f"refusing to bind {host} without a token: pass token= to "
@@ -231,6 +243,14 @@ class GenerationServer:
 
             def do_POST(self):
                 if srv._token and self.headers.get("X-Areal-Token") != srv._token:
+                    # Drain the body first: a reply while the client still
+                    # writes breaks its pipe before it reads the 403.
+                    left = int(self.headers.get("Content-Length", 0) or 0)
+                    while left > 0:
+                        got = len(self.rfile.read(min(left, 1 << 20)))
+                        if not got:
+                            break
+                        left -= got
                     self._send(403, {"error": "bad token"})
                     return
                 try:
@@ -241,6 +261,11 @@ class GenerationServer:
                         self._send(200, srv._handle_param_push(*self._read_param_push(n)))
                         return
                     req = json.loads(self.rfile.read(n))
+                    # The lineage id rides a header, so any client (or a
+                    # proxy) stamps it without touching the body.
+                    trace_hdr = self.headers.get("X-Areal-Trace")
+                    if trace_hdr and isinstance(req, dict):
+                        req.setdefault("trace_id", trace_hdr)
                     if self.path == "/generate":
                         self._send(200, srv._handle_generate(req))
                     elif self.path == "/episode":
@@ -277,7 +302,23 @@ class GenerationServer:
         )
         self._http_thread.start()
         self._collector_thread.start()
+        if self._faults is not None and self._faults.kill_spec is not None:
+            threading.Thread(target=self._kill_loop, daemon=True).start()
         logger.info(f"generation server at {self.url}")
+
+    def _kill_loop(self) -> None:
+        """A point-less ``kill`` fault: once due, crash the server (no
+        deregistration, no draining, as a preempted node), after the
+        flight ring's dump; its announcement expires by its TTL."""
+        while not self._stop.is_set():
+            if self._faults.kill_due():
+                logger.warning("FAULT kill: crashing the generation server")
+                self._crashed = True
+                tracer.flight_event("kill", port=self.port)
+                tracer.flight_dump("fault_kill", role="gen_server", rank=self.port)
+                self.close()
+                return
+            self._stop.wait(0.05)
 
     # ---------------- fleet membership ----------------
 
@@ -374,7 +415,14 @@ class GenerationServer:
                 # Reduced on the engine's device: host leaves stream to
                 # it a chunk at a time, so no second copy of the tree
                 # lands on the card before the swap.
-                integrity.verify_checksum(params, checksum, device=self.engine.device)
+                try:
+                    integrity.verify_checksum(params, checksum, device=self.engine.device)
+                except integrity.WeightChecksumError:
+                    # A fault instant: the dump shows what this server
+                    # was doing when the bad payload arrived.
+                    tracer.flight_event("push_rejected", port=self.port, version=self.version)
+                    tracer.flight_dump("push_rejected", role="gen_server", rank=self.port)
+                    raise
             self.pause()
             try:
                 with self._engine_lock:
@@ -410,6 +458,8 @@ class GenerationServer:
             # deregistration), its subtree orphaned.
             logger.warning("FAULT kill: crashing relay mid-broadcast")
             self._crashed = True
+            tracer.flight_event("kill", port=self.port)
+            tracer.flight_dump("fault_kill", role="gen_server", rank=self.port)
             self.close()
             raise RuntimeError("server killed at param_push")
         from areal_tpu_torch.system import paramstore
@@ -495,6 +545,7 @@ class GenerationServer:
             done=threading.Event(),
             seed=(int(req["seed"]) if req.get("seed") is not None else None),
             t_enq=time.monotonic_ns(),
+            trace_id=(str(req["trace_id"]) if req.get("trace_id") else None),
         )
         self._queue.put(p)
         while not p.done.wait(timeout=1.0):
@@ -524,9 +575,19 @@ class GenerationServer:
         ep_id = str(req.get("episode_id", ""))
         if not ep_id:
             raise ValueError("episode op needs a non-empty episode_id")
+        # Lineage: the start op carries the trace_id; later turns of the
+        # episode take it from the per-episode store.
+        trace_id = str(req["trace_id"]) if req.get("trace_id") else None
+        if op == "start" and trace_id:
+            self._episode_traces[ep_id] = trace_id
+        elif trace_id is None:
+            trace_id = self._episode_traces.get(ep_id)
         if op == "release":
+            self._episode_traces.pop(ep_id, None)
             with self._engine_lock:
                 released = bool(eng.episode_release(ep_id))
+            if trace_id:
+                tracer.lineage("turn", trace_id, episode_id=ep_id, op="release")
             return {"episode_id": ep_id, "released": released, "version": self.version}
         if op == "start":
             g = GenerationHyperparameters(**req.get("gconfig", {}))
@@ -566,10 +627,14 @@ class GenerationServer:
                     self._engine_lock.release()
         except SlotGoneError:
             _M_EPISODE_SLOT_LOST.inc()
+            self._episode_traces.pop(ep_id, None)
             raise
         out = dict(out)
         out["version"] = version
         out["version_start"] = version_start
+        if trace_id:
+            tracer.lineage("turn", trace_id, episode_id=ep_id, op=op,
+                           stop_reason=str(out.get("stop_reason", "")), version=version)
         return out
 
     # ---------------- batching collector ----------------
@@ -592,6 +657,9 @@ class GenerationServer:
                         batch.append(self._queue.get_nowait())
                     except queue.Empty:
                         break
+                # How deep the queue sits when a batch is picked: the
+                # server-side pressure signal.
+                tracer.counter("gen_queue", depth=self._queue.qsize(), batch=len(batch))
                 _M_QUEUE_DEPTH.set(self._queue.qsize())
                 _M_BATCHES.inc()
                 by_g: Dict[Any, List[_Pending]] = {}
@@ -599,6 +667,7 @@ class GenerationServer:
                     by_g.setdefault(_gkey(p), []).append(p)
                 for group in by_g.values():
                     self._run_group(group)
+                tracer.flush()
             except Exception as e:  # noqa: BLE001
                 logger.exception("collector batching error")
                 for p in batch:
@@ -640,6 +709,9 @@ class GenerationServer:
                 _M_REQUESTS.labels("rejected").inc()
                 if p.t_enq is not None:
                     _M_REQUEST_SECONDS.observe((time.monotonic_ns() - p.t_enq) / 1e9)
+                    self._request_span(p, error=True)
+                if p.trace_id:
+                    tracer.lineage("failed", p.trace_id, qid=p.qid, error=p.error)
                 p.done.set()
                 continue
             if sub and used + need > budget:
@@ -671,25 +743,31 @@ class GenerationServer:
             )
             self._seed += 1
             seed = group[0].seed if group[0].seed is not None else self._seed
-            self._engine_lock.acquire()
-            locked = True
-            try:
-                version_start = self.version
-                out = self.engine.generate(sample, MicroBatchSpec(), g, seed=seed)
-                while out is None:
-                    # Parked by pause(): free the engine for the weight
-                    # swap, wait for resume(), continue the interrupted
-                    # call on its existing KV pages.
-                    self._engine_lock.release()
-                    locked = False
-                    self._await_resume()
-                    self._engine_lock.acquire()
-                    locked = True
-                    out = self.engine.resume_generate()
-                version = self.version
-            finally:
-                if locked:
-                    self._engine_lock.release()
+            # Uncategorized: the engine's compute spans attribute the
+            # time; this one shows the lock wait and the call's shape.
+            with tracer.span("gen_batch", n_reqs=len(group)):
+                self._engine_lock.acquire()
+                locked = True
+                try:
+                    version_start = self.version
+                    for p in group:
+                        if p.trace_id:
+                            tracer.lineage("first_token", p.trace_id, qid=p.qid)
+                    out = self.engine.generate(sample, MicroBatchSpec(), g, seed=seed)
+                    while out is None:
+                        # Parked by pause(): free the engine for the weight
+                        # swap, wait for resume(), continue the interrupted
+                        # call on its existing KV pages.
+                        self._engine_lock.release()
+                        locked = False
+                        self._await_resume()
+                        self._engine_lock.acquire()
+                        locked = True
+                        out = self.engine.resume_generate()
+                    version = self.version
+                finally:
+                    if locked:
+                        self._engine_lock.release()
             per_id = {s.ids[0]: s for s in out.unpack()}
             for uid, p in zip(uids, group):
                 p.result = _extract_output(
@@ -704,7 +782,17 @@ class GenerationServer:
                 _M_REQUESTS.labels("error" if p.error else "ok").inc()
                 if p.t_enq is not None:
                     _M_REQUEST_SECONDS.observe((time.monotonic_ns() - p.t_enq) / 1e9)
+                    self._request_span(p, error=bool(p.error))
+                if p.trace_id:
+                    tracer.lineage("generated", p.trace_id, qid=p.qid, error=bool(p.error))
                 p.done.set()
+
+    def _request_span(self, p: _Pending, error: bool) -> None:
+        """The request's lifetime, enqueue to reply, across threads."""
+        args = dict(qid=p.qid, n=p.gconfig.n, prompt_len=len(p.prompt_ids), error=error)
+        if p.trace_id:
+            args["trace_id"] = p.trace_id
+        tracer.complete(f"request:{p.qid}", start_ns=p.t_enq, **args)
 
     def close(self):
         self._stop.set()
@@ -723,6 +811,7 @@ class GenerationServer:
         self._http.shutdown()
         self._http.server_close()
         self._collector_thread.join(timeout=5.0)
+        tracer.flush()
 
 
 def _extract_output(
@@ -956,6 +1045,7 @@ def main(argv=None) -> None:
                          "item 8: multi-GPU); only d1 runs")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    tracer.configure(role="gen_server", rank=args.port)
     device = resolve_device(args.device)
     cfg, params = hf.load_hf_checkpoint(args.path, device=device)
     eos = args.eos_token_id

@@ -33,8 +33,15 @@ generate.  Window 1 runs the unchanged per-node path in topological
 order, bit for bit the barrier step.  Each step's `pipeline` stats
 (and the `areal_master_pipeline_*` gauges) give each stage's fill and
 bubble.  Unlike the JAX master it releases no aliased generator before
-a stream (the port's generator never aliases the trainer's weights) and
-opens no trace spans (ROADMAP queue 1, item 10).
+a stream (the port's generator never aliases the trainer's weights).
+
+Tracing (`base/tracer.py`, ``AREAL_TRACE=1``): the master resolves the
+trial's shard directory (exported, so workers inherit it) and traces as
+role ``master``: a ``step`` span a step, ``load_data``, the
+``mfc:<node>`` dispatch waits, ``xfer:data``, ``offload:*``,
+``param_sync:*`` and ``param_realloc:*``, the streamed step's
+``pipe:<stage>`` spans, and flight dumps at a worker's death and a
+quarantine rollback.
 
 Asynchronous RL has two step modes (`execute_step` picks one):
 - `rollout_ahead=1` (`_execute_step_async`): the source GENERATE nodes
@@ -92,7 +99,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from areal_tpu_torch.api.config import ModelInterfaceType
 from areal_tpu_torch.api.dfg import DFG, MFCDef, OffloadHook, ParamReallocHook
-from areal_tpu_torch.base import integrity, metrics, recover, timeutil
+from areal_tpu_torch.base import integrity, metrics, recover, timeutil, tracer
 from areal_tpu_torch.base.monitor import StatsLogger
 from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.system.buffer import SequenceBuffer
@@ -295,6 +302,11 @@ class MasterWorker:
         )
         self.stats_history: List[Dict[str, float]] = []
         self.stats_logger = StatsLogger(fileroot, experiment_name, trial_name)
+        # Resolve (and export) the trial's shard dir before claiming this
+        # process's identity: in-process workers share the master's shard,
+        # spawned ones inherit the dir.
+        tracer.default_dir(fileroot, experiment_name, trial_name)
+        tracer.configure(role="master")
         self.max_recoveries = int(max_recoveries)
         self.worker_relauncher = worker_relauncher
         self._recoveries = 0
@@ -420,7 +432,10 @@ class MasterWorker:
             while self.step_info.global_step < total_steps:
                 t0 = time.monotonic()
                 try:
-                    stats = await self.execute_step()
+                    # The window trace_report buckets every process's
+                    # track against.
+                    with tracer.span("step", step=self.step_info.global_step + 1):
+                        stats = await self.execute_step()
                 except WorkerDeadError as e:
                     await self._recover_from_worker_death(e)
                     continue
@@ -441,8 +456,10 @@ class MasterWorker:
                     # must predate the anomaly); a streak at the threshold
                     # rolls back.
                     await self._quarantine_rollback()
+                tracer.flush()
         finally:
             self.stats_logger.close()
+            tracer.flush()
         return self.stats_history
 
     async def _post_step(self):
@@ -471,6 +488,10 @@ class MasterWorker:
             "max_recoveries": self.max_recoveries,
         }
         logger.error(f"FAULT_REPORT {json.dumps(report, sort_keys=True)}")
+        # The flight ring keeps the last events around the death.
+        tracer.flight_event("worker_dead", worker_id=err.worker_id, reason=err.reason,
+                            step=self.step_info.global_step)
+        tracer.flight_dump("worker_dead", role="master", rank=0)
         if self._recoveries > self.max_recoveries:
             raise RuntimeError(
                 f"recovery budget exhausted ({self.max_recoveries}): "
@@ -519,6 +540,8 @@ class MasterWorker:
             "consecutive": self._consecutive_quarantines,
             "threshold": self.max_consecutive_quarantines,
         }, sort_keys=True))
+        tracer.flight_event("quarantine", step=self.step_info.global_step, verdict=verdict,
+                            consecutive=self._consecutive_quarantines)
         return True
 
     async def _quarantine_rollback(self) -> None:
@@ -535,6 +558,9 @@ class MasterWorker:
             "max_recoveries": self.max_recoveries,
         }
         logger.error(f"FAULT_REPORT {json.dumps(report, sort_keys=True)}")
+        tracer.flight_event("quarantine_escalation", step=self.step_info.global_step,
+                            consecutive=self._consecutive_quarantines)
+        tracer.flight_dump("quarantine_rollback", role="master", rank=0)
         if self._recoveries > self.max_recoveries:
             raise RuntimeError(
                 f"recovery budget exhausted ({self.max_recoveries}): "
@@ -618,14 +644,15 @@ class MasterWorker:
             self._fetch_lock = asyncio.Lock()
         # The lock keeps outstanding prefetches from racing two fetches.
         async with self._fetch_lock:
-            resps = await asyncio.gather(
-                *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
-            )
-            ids: List[str] = []
-            for w, r in zip(self.data_worker_ids, resps):
-                self._record_owner(r["meta"], w)
-                await self.buffer.put_batch(r["meta"], step=self.step_info.global_step)
-                ids.extend(r["meta"].ids)
+            with tracer.span("load_data", cat="host"):
+                resps = await asyncio.gather(
+                    *[self.pool.request(w, {"type": "fetch"}) for w in self.data_worker_ids]
+                )
+                ids: List[str] = []
+                for w, r in zip(self.data_worker_ids, resps):
+                    self._record_owner(r["meta"], w)
+                    await self.buffer.put_batch(r["meta"], step=self.step_info.global_step)
+                    ids.extend(r["meta"].ids)
             self._last_data_ids = ids
         return ids
 
@@ -727,6 +754,8 @@ class MasterWorker:
         traj = self.replay.get_batch(1, timeout=0)[0]
         await self._flush_replay_drops()
         staleness = traj.staleness(self._trainer_version)
+        tracer.flight_event("train_chunk", qid=traj.qid, staleness=staleness,
+                            version=self._trainer_version)
         results.update(traj.data["stats"])
         rest = [n for n in self.dfg.nodes if n not in self._source_nodes]
         await asyncio.gather(*[self._run_mfc(n, results) for n in rest])
@@ -780,7 +809,8 @@ class MasterWorker:
         if self.overlap_window <= 1:
             for node in order:
                 t0 = time.monotonic()
-                await self._run_mfc(node, results)
+                with tracer.span(f"pipe:{node.name}", stage=node.name, chunk=0, n=len(ids)):
+                    await self._run_mfc(node, results)
                 spans[node.name].append((t0, time.monotonic()))
             self._m_pipe_chunks.inc()
             self._emit_pipeline_stats(results, spans, t_step0, 1)
@@ -793,7 +823,7 @@ class MasterWorker:
         started: set = set()
         node_stats: Dict[str, List[Dict]] = {n.name: [] for n in order}
 
-        async def run_chunk(chunk_ids: List[str]) -> None:
+        async def run_chunk(ci: int, chunk_ids: List[str]) -> None:
             async with sem:
                 for node in order:
                     key = str(node.model_name)
@@ -810,21 +840,23 @@ class MasterWorker:
                                     "mb_spec": node.mb_spec,
                                 })
                         t0 = time.monotonic()
-                        if is_train:
-                            await self._ensure_data(node, chunk_ids, worker)
-                            resp = await self.pool.request(worker, {
-                                "type": "mfc_stream_chunk", "model_name": key,
-                                "ids": chunk_ids, "input_keys": list(node.input_keys),
-                                "input_key_remap": dict(node.input_key_remap),
-                                "mb_spec": node.mb_spec,
-                            })
-                        else:
-                            resp = await self._dispatch_mfc(node, chunk_ids)
+                        with tracer.span(f"pipe:{node.name}", stage=node.name, chunk=ci,
+                                         n=len(chunk_ids)):
+                            if is_train:
+                                await self._ensure_data(node, chunk_ids, worker)
+                                resp = await self.pool.request(worker, {
+                                    "type": "mfc_stream_chunk", "model_name": key,
+                                    "ids": chunk_ids, "input_keys": list(node.input_keys),
+                                    "input_key_remap": dict(node.input_key_remap),
+                                    "mb_spec": node.mb_spec,
+                                })
+                            else:
+                                resp = await self._dispatch_mfc(node, chunk_ids)
                         node_stats[node.name].append(resp.get("stats") or {})
                         spans[node.name].append((t0, time.monotonic()))
             self._m_pipe_chunks.inc()
 
-        await asyncio.gather(*[run_chunk(c) for c in chunks])
+        await asyncio.gather(*[run_chunk(ci, c) for ci, c in enumerate(chunks)])
 
         # Close the streams (each TRAIN node's one optimizer step), then
         # the post-hooks in graph order: the weight sync fires once, after
@@ -833,9 +865,10 @@ class MasterWorker:
             key = str(node.model_name)
             if node.interface_type == ModelInterfaceType.TRAIN_STEP:
                 t0 = time.monotonic()
-                resp = await self.pool.request(self.placement[key], {
-                    "type": "mfc_stream_end", "model_name": key, "mb_spec": node.mb_spec,
-                })
+                with tracer.span(f"pipe:{node.name}", stage=node.name, chunk=-1, apply=True):
+                    resp = await self.pool.request(self.placement[key], {
+                        "type": "mfc_stream_end", "model_name": key, "mb_spec": node.mb_spec,
+                    })
                 spans[node.name].append((t0, time.monotonic()))
                 results[node.name] = resp.get("stats") or {}
             else:
@@ -903,7 +936,10 @@ class MasterWorker:
             "output_key_remap": dict(node.output_key_remap),
             "mb_spec": node.mb_spec,
         }
-        resp = await self.pool.request(worker, payload)
+        # Uncategorized: the master waits here on the worker's compute,
+        # which the worker's own track attributes.
+        with tracer.span(f"mfc:{node.name}", model=str(node.model_name), n=len(ids)):
+            resp = await self.pool.request(worker, payload)
         meta = resp.get("meta")
         if meta is not None:
             self._record_owner(meta, worker, replace=True)
@@ -960,12 +996,19 @@ class MasterWorker:
                 for keys, sids in groups.items():
                     xfer_id = self._xfer_id
                     self._xfer_id += 1
-                    send_r, recv_r = await asyncio.gather(
-                        self.pool.request(src, {"type": "data_send", "ids": sids,
-                                                "keys": sorted(keys), "dst": dst,
-                                                "xfer_id": xfer_id}),
-                        self.pool.request(dst, {"type": "data_recv", "xfer_id": xfer_id}),
-                    )
+                    # The consuming MFC's label, as the worker stamps its
+                    # compute span: the profile joins bytes to their MFC.
+                    with tracer.span(
+                        "xfer:data", cat="comms", src=src, dst=dst, n=len(sids),
+                        mfc=f"{node.model_name}:{node.interface_type.value}",
+                    ) as targs:
+                        send_r, recv_r = await asyncio.gather(
+                            self.pool.request(src, {"type": "data_send", "ids": sids,
+                                                    "keys": sorted(keys), "dst": dst,
+                                                    "xfer_id": xfer_id}),
+                            self.pool.request(dst, {"type": "data_recv", "xfer_id": xfer_id}),
+                        )
+                        targs["bytes"] = send_r.get("bytes", 0)
                     self._acc_xfer("data", send_r, recv_r)
         except BaseException as e:  # fail the waiters too, then re-raise
             err = e
@@ -999,9 +1042,10 @@ class MasterWorker:
     async def _run_hook(self, hook, node: MFCDef):
         if isinstance(hook, OffloadHook):
             target = str(hook.target or node.model_name)
-            await self.pool.request(
-                self.placement[target], {"type": "offload", "model_name": target}
-            )
+            with tracer.span(f"offload:{target}", cat="host"):
+                await self.pool.request(
+                    self.placement[target], {"type": "offload", "model_name": target}
+                )
         elif isinstance(hook, ParamReallocHook):
             if (self._ahead_task is not None and not _IN_PREFETCH.get()
                     and str(hook.target) in {str(n.model_name) for n in self._source_nodes}):
@@ -1012,12 +1056,13 @@ class MasterWorker:
             dst_w = self.placement[str(hook.target)]
             if src_w == dst_w:
                 # Both models on one worker: a local copy (or EMA).
-                await self.pool.request(src_w, {
-                    "type": "param_sync",
-                    "src": str(node.model_name),
-                    "dst": str(hook.target),
-                    "eta": hook.eta,
-                })
+                with tracer.span(f"param_sync:{hook.target}", cat="comms"):
+                    await self.pool.request(src_w, {
+                        "type": "param_sync",
+                        "src": str(node.model_name),
+                        "dst": str(hook.target),
+                        "eta": hook.eta,
+                    })
                 return
             # Across workers over the transfer plane: the source gathers
             # its weights on the host and ships them with their checksum;
@@ -1032,17 +1077,20 @@ class MasterWorker:
                 xfer_id = self._xfer_id
                 self._xfer_id += 1
                 try:
-                    send_r, recv_r = await asyncio.gather(
-                        self.pool.request(src_w, {
-                            "type": "param_send", "model_name": str(node.model_name),
-                            "dsts": [dst_w], "xfer_ids": [xfer_id],
-                            "checksum": self.weight_push_checksum,
-                        }),
-                        self.pool.request(dst_w, {
-                            "type": "param_recv", "model_name": str(hook.target),
-                            "xfer_id": xfer_id, "eta": hook.eta,
-                        }),
-                    )
+                    with tracer.span(f"param_realloc:{hook.target}", cat="comms",
+                                     n_dst=1) as realloc_args:
+                        send_r, recv_r = await asyncio.gather(
+                            self.pool.request(src_w, {
+                                "type": "param_send", "model_name": str(node.model_name),
+                                "dsts": [dst_w], "xfer_ids": [xfer_id],
+                                "checksum": self.weight_push_checksum,
+                            }),
+                            self.pool.request(dst_w, {
+                                "type": "param_recv", "model_name": str(hook.target),
+                                "xfer_id": xfer_id, "eta": hook.eta,
+                            }),
+                        )
+                        realloc_args["bytes"] = int(send_r.get("bytes", 0) or 0)
                     break
                 except integrity.WeightChecksumError as e:
                     if attempt >= 2:

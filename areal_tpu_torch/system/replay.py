@@ -16,8 +16,9 @@ weights are ever returned: the synchronous regime.
 Thread-safe: the rollout plane puts from its threads while the trainer
 gets from its own loop.  Occupancy and the admission outcomes are
 exported as gauges and counters on the port's `base/metrics.py`
-registry.  The JAX package's tracer counters and lineage stamps have no
-counterpart yet (ROADMAP queue 1 item 10).
+registry and as the tracer's ``replay_buffer`` and ``replay_staleness``
+counters; a trajectory carrying a trace_id gets its ``admitted``,
+``rejected_stale`` and ``trained`` lineage stamps here.
 """
 
 import dataclasses
@@ -25,7 +26,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-from areal_tpu_torch.base import metrics
+from areal_tpu_torch.base import metrics, tracer
 
 # Registered once at import; every ReplayBuffer of a process shares them
 # (in practice one buffer a trainer process).
@@ -169,6 +170,12 @@ class ReplayBuffer:
                             st["staleness_sum"] += t.staleness(self._version)
                         if t.t_dispatch:
                             _M_E2E.observe(max(0.0, now - t.t_dispatch))
+                        if t.trace_id:
+                            tracer.lineage(
+                                "trained", t.trace_id, qid=t.qid,
+                                staleness=t.staleness(self._version),
+                                trainer_version=self._version,
+                            )
                     self._emit_gauges_locked()
                     return out
                 if deadline is not None:
@@ -205,6 +212,9 @@ class ReplayBuffer:
             if traj.staleness(self._version) > self.max_head_offpolicyness:
                 self.rejected += 1
                 _M_EVENTS.labels("rejected").inc()
+                if traj.trace_id:
+                    tracer.lineage("rejected_stale", traj.trace_id, qid=traj.qid,
+                                   version_lag=traj.staleness(self._version))
                 self._emit_gauges_locked()
                 if strict:
                     raise StaleTrajectoryError(
@@ -226,6 +236,10 @@ class ReplayBuffer:
             _M_EVENTS.labels("accepted").inc()
             if traj.t_dispatch:
                 _M_ADMIT.observe(max(0.0, time.monotonic() - traj.t_dispatch))
+            if traj.trace_id:
+                tracer.lineage("admitted", traj.trace_id, qid=traj.qid,
+                               version_lag=traj.staleness(self._version),
+                               version_start=traj.version_start)
             self._emit_gauges_locked()
             self._cond.notify_all()
             return True
@@ -328,3 +342,17 @@ class ReplayBuffer:
         versions = [t.version_start for t in self._entries]
         _M_MIN_VERSION.set(min(versions) if versions else self._version)
         _M_MAX_VERSION.set(max(versions) if versions else self._version)
+        if not tracer.enabled():
+            return
+        tracer.counter(
+            "replay_buffer", size=len(self._entries), capacity=self.capacity,
+            accepted=self.accepted, rejected=self.rejected, evicted=self.evicted,
+            dropped_stale=self.dropped_stale,
+        )
+        hist: Dict[int, int] = {}
+        for t in self._entries:
+            off = t.staleness(self._version)
+            hist[off] = hist.get(off, 0) + 1
+        if hist:
+            tracer.counter("replay_staleness",
+                           **{f"off{k}": v for k, v in sorted(hist.items())})

@@ -43,8 +43,17 @@ becomes a multi-turn episode on the chosen server and lands in the
 buffer as one trajectory.  `state_dict` carries the prompt cursor, so a
 recovered trial resumes the stream where it stopped.
 
-Not yet ported: task mixtures (``mixture=``, ROADMAP queue 1 item 7.5)
-and the tracer's lineage stamps (item 10).
+With ``mixture`` (a `data/mixture.TaskMixtureStream`) `run()` pumps the
+mixture by default, its per-task cursors ride in
+``state_dict()["mixture"]`` (a record holding only the scalar cursor is
+backfilled by replaying the deterministic schedule), and every dispatch
+is stamped with its task.
+
+Every prompt's causal lineage starts here: `_dispatch` mints its
+trace_id and stamps the root ``dispatch`` (`base/tracer.py`); the id
+rides the request to the server, the grader, the replay admission and
+the trainer.  Dispatch decisions and breaker transitions go to the
+flight ring.
 """
 
 import asyncio
@@ -55,7 +64,7 @@ import time
 from typing import Any, Callable, Dict, FrozenSet, Iterable, Iterator, List, Optional, Sequence
 
 from areal_tpu_torch.api.model_api import APIGenerateInput, GenerationHyperparameters
-from areal_tpu_torch.base import metrics
+from areal_tpu_torch.base import metrics, tracer
 from areal_tpu_torch.system.fleet import CircuitBreaker
 from areal_tpu_torch.system.replay import ReplayBuffer, Trajectory
 
@@ -149,13 +158,10 @@ class RolloutController:
         # observes: a version retires only when no live server serves it
         # and no prompt in flight was dispatched against it.
         paramstore: Optional[Any] = None,
+        # A task-mixture curriculum (`data/mixture.py`): run()'s default
+        # prompt source, its cursors in state_dict()["mixture"].
         mixture: Optional[Any] = None,
     ):
-        if mixture is not None:
-            raise NotImplementedError(
-                "task mixtures are not yet ported (ROADMAP queue 1, item 7.5: "
-                "data/mixture.py)"
-            )
         if not clients and discovery is None:
             raise ValueError(
                 "rollout controller needs at least one client or a fleet-discovery callable"
@@ -179,6 +185,7 @@ class RolloutController:
         self.breaker_cooldown_s = breaker_cooldown_s
         self.episode_runner = episode_runner
         self.paramstore = paramstore
+        self.mixture = mixture
         self._runner_takes_trace = False
         if episode_runner is not None:
             try:
@@ -253,6 +260,7 @@ class RolloutController:
             self._m_breaker_open.set(
                 sum(1 for s in self._servers if s.breaker.state == CircuitBreaker.OPEN)
             )
+            tracer.flight_event("breaker", state=state)
 
         return CircuitBreaker(
             threshold=self.breaker_threshold,
@@ -325,11 +333,14 @@ class RolloutController:
     # ---------------- recover ----------------
 
     def state_dict(self) -> Dict[str, Any]:
-        return {
+        sd = {
             "cursor": self.cursor,
             "stat": self.stat.as_dict(),
             "membership_epoch": self.membership_epoch,
         }
+        if self.mixture is not None:
+            sd["mixture"] = self.mixture.state_dict()
+        return sd
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         self.cursor = int(sd.get("cursor", 0))
@@ -338,6 +349,19 @@ class RolloutController:
             if hasattr(self.stat, k) and k != "in_flight":
                 setattr(self.stat, k, int(v))
         self.stat.in_flight = 0
+        if self.mixture is not None:
+            ms = sd.get("mixture")
+            if ms:
+                # Per-task cursors restore exactly: the stream resumes
+                # itself, and run() skips nothing.
+                self.mixture.load_state_dict(ms)
+            else:
+                # A record from before the mixture holds only the scalar
+                # cursor: replaying that many draws of the deterministic
+                # schedule rebuilds the per-task positions.
+                self.mixture.fast_forward(self.cursor)
+            self._skip_on_run = 0
+            return
         # The next run() fast-forwards the restarted prompt stream past
         # what the trial already consumed.
         self._skip_on_run = self.cursor
@@ -427,12 +451,16 @@ class RolloutController:
 
     # ---------------- the pump ----------------
 
-    async def run(self, prompt_source: Iterable, max_prompts: Optional[int] = None
-                  ) -> RolloutStat:
+    async def run(self, prompt_source: Optional[Iterable] = None,
+                  max_prompts: Optional[int] = None) -> RolloutStat:
         """Pump prompts until the source ends, `max_prompts` are
-        dispatched or stop(), then await every dispatch in flight."""
+        dispatched or stop(), then await every dispatch in flight.  With
+        no source, the configured mixture is pumped (it never ends: bound
+        it with `max_prompts`)."""
         if prompt_source is None:
-            raise ValueError("run() needs a prompt source")
+            prompt_source = self.mixture
+        if prompt_source is None:
+            raise ValueError("run() needs a prompt source (or a configured mixture)")
         it: Iterator = iter(prompt_source)
         while self._skip_on_run > 0:
             if next(it, None) is None:
@@ -446,6 +474,8 @@ class RolloutController:
             while not self.replay.can_accept() and not self._stop:
                 self.stat.backpressure_waits += 1
                 self._m_backpressure.inc()
+                tracer.counter("rollout_controller", in_flight=self.stat.in_flight,
+                               backpressured=1)
                 await asyncio.sleep(self.backpressure_poll_s)
             if self._stop:
                 break
@@ -494,7 +524,8 @@ class RolloutController:
             yield batch[0]
             yielded += 1
 
-    async def _generate_with_retries(self, qid: str, prompt_ids: List[int]):
+    async def _generate_with_retries(self, qid: str, prompt_ids: List[int],
+                                     trace_id: str = ""):
         """Dispatch under the deadline, re-sending on failure: each failure
         excludes that server for this prompt, counts on its breaker and
         backs off.  Returns the output, or None once every attempt failed
@@ -510,16 +541,19 @@ class RolloutController:
             srv_version = srv.health.get("version")
             if srv_version is not None:
                 self._m_version_lag.set(self.replay.version - int(srv_version))
+            tracer.flight_event("dispatch", trace_id=trace_id, qid=qid, sid=srv.sid,
+                                attempt=attempt)
             err = reason = None
             try:
                 if self.episode_runner is not None:
-                    kw = {"trace_id": None} if self._runner_takes_trace else {}
+                    kw = {"trace_id": trace_id or None} if self._runner_takes_trace else {}
                     coro = asyncio.to_thread(
                         self.episode_runner, srv.client, qid, prompt_ids, **kw
                     )
                 else:
                     coro = srv.client.agenerate(APIGenerateInput(
                         qid=qid, prompt_ids=prompt_ids, gconfig=self.gconfig, seed=self.seed,
+                        trace_id=trace_id or None,
                     ))
                 if self.dispatch_timeout_s > 0:
                     out = await asyncio.wait_for(coro, timeout=self.dispatch_timeout_s)
@@ -547,11 +581,21 @@ class RolloutController:
         return None
 
     async def _dispatch(self, qid: str, prompt_ids: List[int], task: str = "") -> None:
+        # The lineage root: the trace_id rides the request through the
+        # server, the grader, the replay admission and the trainer; the
+        # task stamp lets trace_report attribute latency a task stream.
+        trace_id = tracer.new_trace_id()
         t_dispatch = time.monotonic()
+        tracer.lineage(
+            "dispatch", trace_id, root=True, qid=qid, prompt_len=len(prompt_ids),
+            trainer_version=self.replay.version, **({"task": task} if task else {}),
+        )
         async with self._sem:
             self.stat.submitted += 1
             self.stat.in_flight += 1
             self._m_in_flight.set(self.stat.in_flight)
+            tracer.counter("rollout_controller", in_flight=self.stat.in_flight,
+                           backpressured=0)
             if self.paramstore is not None:
                 # The version this prompt was dispatched against stays in
                 # the store until the prompt ends.
@@ -560,7 +604,7 @@ class RolloutController:
                 except Exception:  # noqa: BLE001 — accounting only
                     pass
             try:
-                out = await self._generate_with_retries(qid, prompt_ids)
+                out = await self._generate_with_retries(qid, prompt_ids, trace_id)
             finally:
                 self.stat.in_flight -= 1
                 self._m_in_flight.set(self.stat.in_flight)
@@ -569,6 +613,7 @@ class RolloutController:
                 # Every retry failed: counted, never dropped silently.
                 self.stat.failed += 1
                 self._m_dispatched.labels("failed").inc()
+                tracer.lineage("failed", trace_id, qid=qid, error="exhausted")
                 return
             self.stat.completed += 1
         if self.episode_runner is not None:
@@ -580,6 +625,7 @@ class RolloutController:
                 output_logprobs=out.output_logprobs, no_eos=out.no_eos,
                 version_start=out.version_start, version_end=out.version,
             )
+        traj.trace_id = trace_id
         traj.t_dispatch = t_dispatch
         traj.task = task
         # Lossless backpressure on the put side: a finished response waits

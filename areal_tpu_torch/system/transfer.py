@@ -20,6 +20,10 @@ Two planes:
   as a raw frame straight from its memory and received straight into a
   writable buffer of its own.  (The JAX package's `ZMQTransfer` does
   the same over ZMQ PUSH/PULL sockets.)
+
+Each send is an ``xfer_send`` span and each receive an ``xfer_recv``
+span (category ``comms``, `base/tracer.py`), the send's carrying its
+wire bytes.
 """
 
 import logging
@@ -30,7 +34,7 @@ import socket
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-from areal_tpu_torch.base import name_resolve, names
+from areal_tpu_torch.base import name_resolve, names, tracer
 from areal_tpu_torch.system.stream import Acceptor, connect, shutdown, trial_authkey
 
 logger = logging.getLogger("areal_tpu_torch.transfer")
@@ -96,17 +100,21 @@ class InProcTransfer(TransferPlane):
 
     def send_many(self, dsts: List[int], xfer_ids: List[int], payload: Any,
                   encoded: Optional[Tuple[bytes, List]] = None) -> int:
-        meta, buffers = encoded or encode_oob(payload)
-        nbytes = payload_nbytes(meta, buffers)
-        for dst, xid in zip(dsts, xfer_ids):
-            self.inboxes[dst].put((xid, payload))
+        with tracer.span("xfer_send", cat="comms", dsts=len(dsts)) as targs:
+            meta, buffers = encoded or encode_oob(payload)
+            nbytes = payload_nbytes(meta, buffers)
+            for dst, xid in zip(dsts, xfer_ids):
+                self.inboxes[dst].put((xid, payload))
+            targs["bytes"] = nbytes * len(dsts)
         return nbytes * len(dsts)
 
     def recv(self, timeout: float = 300.0) -> Tuple[int, Any]:
-        try:
-            return self.inboxes[self.my_index].get(timeout=timeout)
-        except queue.Empty:
-            raise TimeoutError(f"worker {self.my_index}: no transfer within {timeout}s") from None
+        with tracer.span("xfer_recv", cat="comms"):
+            try:
+                return self.inboxes[self.my_index].get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"worker {self.my_index}: no transfer within {timeout}s") from None
 
 
 def _recv_exact_into(sock: socket.socket, buf: bytearray) -> None:
@@ -179,28 +187,31 @@ class ConnTransfer(TransferPlane):
 
     def send_many(self, dsts: List[int], xfer_ids: List[int], payload: Any,
                   encoded: Optional[Tuple[bytes, List]] = None) -> int:
-        meta, buffers = encoded or encode_oob(payload)
-        raws = [b.raw() for b in buffers]
-        sizes = [r.nbytes for r in raws]
-        nbytes = payload_nbytes(meta, buffers)
-        total = 0
-        for dst, xid in zip(dsts, xfer_ids):
-            with self._peer(dst):
-                conn, sock = self._conn_for(dst)
-                conn.send((xid, sizes))
-                conn.send_bytes(meta)
-                for r in raws:
-                    sock.sendall(r)
-            total += nbytes
+        with tracer.span("xfer_send", cat="comms", dsts=len(dsts)) as targs:
+            meta, buffers = encoded or encode_oob(payload)
+            raws = [b.raw() for b in buffers]
+            sizes = [r.nbytes for r in raws]
+            nbytes = payload_nbytes(meta, buffers)
+            total = 0
+            for dst, xid in zip(dsts, xfer_ids):
+                with self._peer(dst):
+                    conn, sock = self._conn_for(dst)
+                    conn.send((xid, sizes))
+                    conn.send_bytes(meta)
+                    for r in raws:
+                        sock.sendall(r)
+                total += nbytes
+            targs["bytes"] = total
         return total
 
     def recv(self, timeout: float = 300.0) -> Tuple[int, Any]:
-        try:
-            return self._inbox.get(timeout=timeout)
-        except queue.Empty:
-            raise TimeoutError(
-                f"worker {self.worker_index}: no transfer within {timeout}s"
-            ) from None
+        with tracer.span("xfer_recv", cat="comms"):
+            try:
+                return self._inbox.get(timeout=timeout)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"worker {self.worker_index}: no transfer within {timeout}s"
+                ) from None
 
     def close(self) -> None:
         self._acceptor.close()

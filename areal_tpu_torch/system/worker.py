@@ -31,7 +31,13 @@ receiver verifies before it swaps, or with eta < 1 mixes with
 (`_recv_xfer`: one thread drains the plane at a time, and what arrives
 for another request waits in a stash).  With `AREAL_FAULTS` set, each
 MFC passes its fault point first (`_fire_faults`): a point-scoped kill
-exits the process with status 43.
+dumps the flight ring and exits the process with status 43.
+
+Each MFC is a ``mfc:<model>:<type>`` compute span (`base/tracer.py`)
+carrying its tokens, TFLOPs and MFU; the call returns host data, so the
+span ends where the card's work has finished.  The streamed step's
+chunks and optimizer step are ``mfc:<model>:train_chunk`` and
+``mfc:<model>:train_step`` spans.
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
@@ -71,7 +77,7 @@ from areal_tpu_torch.api.data_api import (
     make_dataset,
 )
 from areal_tpu_torch.api.model_api import FinetuneSpec, Model, OptimizerConfig, make_interface
-from areal_tpu_torch.base import faults, integrity, monitor, seeding
+from areal_tpu_torch.base import faults, integrity, monitor, seeding, tracer
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.data.datasets import PackedDataLoader
 from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
@@ -304,6 +310,10 @@ class ModelWorker:
         else:
             point = rtype
         if self._faults.kill_point(point):
+            # os._exit skips atexit: dump and flush first.
+            tracer.flight_event("kill", point=point, worker=self.config.worker_index)
+            tracer.flight_dump("fault_kill", role="worker", rank=self.config.worker_index)
+            tracer.flush()
             os._exit(43)
         self._faults.fire(point)
 
@@ -372,19 +382,32 @@ class ModelWorker:
         # Timers a call: two MFCs run at once in two threads, and a shared
         # one would hand one call's mark to the other's reply.
         timers = monitor.Timers()
-        with timers.record(f"mfc_{itype.value}"):
-            t0 = time.monotonic()
-            # Every interface returns host data, so the call has finished
-            # on the card when it returns.
-            result = fn(model, sample, mb_spec)
-            seconds = time.monotonic() - t0
-        if itype == ModelInterfaceType.GENERATE:
-            model.inc_version()  # advances the sampling seed per step
-        out_sample = result if isinstance(result, SequenceSample) else None
-        if out_sample is not None:
-            out_sample.remap_keys_(req.get("output_key_remap", {}))
-        perf = self._mfc_perf(model, itype, sample, out_sample, seconds)
-        perf.update(timers.drain())
+        with tracer.span(f"mfc:{model_key}:{itype.value}", cat="compute") as targs:
+            with timers.record(f"mfc_{itype.value}"):
+                t0 = time.monotonic()
+                # Every interface returns host data, so the call has
+                # finished on the card when it returns.
+                result = fn(model, sample, mb_spec)
+                seconds = time.monotonic() - t0
+            if itype == ModelInterfaceType.GENERATE:
+                model.inc_version()  # advances the sampling seed per step
+            out_sample = result if isinstance(result, SequenceSample) else None
+            if out_sample is not None:
+                out_sample.remap_keys_(req.get("output_key_remap", {}))
+            perf = self._mfc_perf(model, itype, sample, out_sample, seconds)
+            perf.update(timers.drain())
+            if tracer.enabled():
+                targs["mfc"] = f"{model_key}:{itype.value}"
+                # The packed key: a scalar key's lens are 1 a sequence.
+                key0 = ("packed_input_ids" if "packed_input_ids" in sample.keys
+                        else next(iter(sample.keys)))
+                targs["tokens"] = int(sum(sum(x) for x in sample.seqlens[key0]))
+                targs["seqs"] = len(sample.seqlens[key0])
+                if "perf/tflops" in perf:
+                    targs["tflops"] = perf["perf/tflops"]
+                if "perf/mfu" in perf:
+                    targs["mfu"] = perf["perf/mfu"]
+                self._span_profile_fields(model, targs)
         if out_sample is None:
             return {"meta": None, "stats": {**dict(result or {}), **perf}}
         with self._cache_lock:
@@ -407,7 +430,8 @@ class ModelWorker:
         mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
         self._streams[key] = {
             "state": self.interfaces[key].train_stream_begin(self.models[key], mb_spec),
-            "busy_s": 0.0, "tokens": 0, "sum_sq": 0.0, "timers": monitor.Timers(),
+            "busy_s": 0.0, "tokens": 0, "seqs": 0, "sum_sq": 0.0, "n_chunks": 0,
+            "timers": monitor.Timers(),
         }
         return {"meta": None, "stats": {}}
 
@@ -418,15 +442,24 @@ class ModelWorker:
         sample = self._assemble_sample(
             req["ids"], set(req["input_keys"]), req.get("input_key_remap", {})
         )
-        with st["timers"].record("mfc_train_chunk"):
-            t0 = time.monotonic()
-            stats = self.interfaces[key].train_stream_chunk(
-                self.models[key], st["state"], sample, mb_spec
-            )
-            st["busy_s"] += time.monotonic() - t0
+        # Seeded with one arg: a span's args reach the event only when
+        # the dict is non-empty at its exit.
+        with tracer.span(f"mfc:{key}:train_chunk", cat="compute",
+                         mfc=f"{key}:train_chunk") as targs:
+            with st["timers"].record("mfc_train_chunk"):
+                t0 = time.monotonic()
+                stats = self.interfaces[key].train_stream_chunk(
+                    self.models[key], st["state"], sample, mb_spec
+                )
+                st["busy_s"] += time.monotonic() - t0
         lens = [sum(x) for x in sample.seqlens["packed_input_ids"]]
         st["tokens"] += int(sum(lens))
         st["sum_sq"] += float(sum(n * n for n in lens))
+        st["n_chunks"] += 1
+        st["seqs"] += len(lens)
+        if tracer.enabled():
+            targs["tokens"] = int(sum(lens))
+            targs["chunk"] = st["n_chunks"] - 1
         return {"meta": None, "stats": dict(stats)}
 
     def _handle_train_stream_abort(self, req):
@@ -444,16 +477,39 @@ class ModelWorker:
         st = self._streams.pop(key)
         model = self.models[key]
         mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
-        with st["timers"].record("mfc_train_step"):
-            t0 = time.monotonic()
-            result = self.interfaces[key].train_stream_end(model, st["state"], mb_spec)
-            st["busy_s"] += time.monotonic() - t0
+        with tracer.span(f"mfc:{key}:train_step", cat="compute",
+                         mfc=f"{key}:train_step") as targs:
+            with st["timers"].record("mfc_train_step"):
+                t0 = time.monotonic()
+                result = self.interfaces[key].train_stream_end(model, st["state"], mb_spec)
+                st["busy_s"] += time.monotonic() - t0
         perf = {"perf/time_s": st["busy_s"]}
         if model.config is not None and st["tokens"]:
             perf.update(self._flops_perf(
                 monitor.flops_train(model.config, st["tokens"], st["sum_sq"]), st["busy_s"]))
         perf.update(st["timers"].drain())
+        if tracer.enabled():
+            targs["stream_chunks"] = st["n_chunks"]
+            targs["tokens"] = st["tokens"]
+            targs["seqs"] = st["seqs"]
+            # The chunks' busy seconds and the optimizer step: the span
+            # itself wraps only the latter.
+            targs["wall_s"] = round(st["busy_s"], 6)
+            if "perf/tflops" in perf:
+                targs["tflops"] = perf["perf/tflops"]
+            if "perf/mfu" in perf:
+                targs["mfu"] = perf["perf/mfu"]
+            self._span_profile_fields(model, targs)
         return {"meta": None, "stats": {**dict(result or {}), **perf}}
+
+    def _span_profile_fields(self, model, targs) -> None:
+        """The profile's keys on an MFC span: the layout (the port runs
+        d1) and the model's shape."""
+        targs["layout"] = "d1"
+        cfg = model.config
+        if cfg is not None:
+            targs["model_shape"] = (f"l{cfg.n_layers}h{cfg.hidden_dim}q{cfg.n_q_heads}"
+                                    f"kv{cfg.n_kv_heads}v{cfg.vocab_size}")
 
     def _flops_perf(self, flops: float, seconds: float) -> Dict[str, float]:
         """TFLOPs, MFU (on a card with a peak entry) and the card's
@@ -776,6 +832,9 @@ class ModelWorker:
             for sid in list(self.data_cache):
                 if sid not in keep:
                     del self.data_cache[sid]
+        # Once a step from the master: the shard stays current should the
+        # worker later crash.
+        tracer.flush()
         return {}
 
     def _handle_ping(self, req):

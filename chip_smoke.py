@@ -266,8 +266,9 @@ multiproc    — the multi-process runtime at qwen2-1.5B's width and 7 layers
                and the retry's detection, relaunch and restore seconds
                are printed.
 fabric       — the param store and the broadcast-tree weight push at
-               qwen2-1.5B (28 layers, bf16 servers) from the quickstart's
-               checkpoint: three generation servers (two spawned by
+               qwen2-1.5B's full width (7 layers, FABRIC_LAYERS, since
+               the verifiers phase joined; bf16 servers) from a seeded
+               checkpoint of that depth: three generation servers (two spawned by
                LocalProcessFleet as `python -m
                areal_tpu_torch.system.gen_server` processes, one in this
                process) found by fleet_discovery under a file
@@ -277,13 +278,33 @@ fabric       — the param store and the broadcast-tree weight push at
                fabric pushes the checkpoint plus a seeded fp32 delta in
                the middle of a serving-plane burst on every server: depth
                2, every server at the version, the bytes of three hops
-               from one serialization, K3 = 28 x replays and K2 = 28 x
+               from one serialization, K3 = 7 x replays and K2 = 7 x
                inner steps on the in-process server, identical greedy
                probes (also after a disk swap to the same weights), a
                wrong checksum refused everywhere; (b) a killed relay
                orphans its subtree, repair() restores it, its key
                expires, a spawned replacement joins; (c) tree against
                p2p push walls with each hop and apply.
+verifiers    — the verifier fleet, task mixtures and the tracer at
+               qwen2-1.5B (28 layers) from the quickstart's checkpoint:
+               (a) quickstart ppo-math graded in-process and untraced,
+               then traced (AREAL_TRACE=1) with --verifier-pool over two
+               spawned `python -m areal_tpu_torch.apps.verifier`
+               processes, one killed by AREAL_FAULTS mid-trial: tokens
+               and stats bit for bit, every grade and 64 fixed answers
+               before and after the kill equal to the registry, the dead
+               key gone within its TTL, each step's K1f/K1dq/K1dkv/K4
+               launches from the engines' calls; (b) a RolloutController
+               with a 3:1 two-task TaskMixtureStream over an in-process
+               GenerationServer (K2), a disk push mid-run, restored from
+               state_dict() half way, graded by a spawned reward service:
+               the draws, the remaining qids and every sample's lineage
+               dispatch -> graded -> admitted -> trained; (c)
+               `python -m areal_tpu_torch.apps.trace_report` on both
+               directories (attribution, bubbles, --flight with the
+               killed verifier's dump, --lineage), validate_trace clean;
+               step walls traced and untraced, each process's spans,
+               shard bytes and flush seconds.
 episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
@@ -333,7 +354,8 @@ fused MFC, the BPE reader and the null trials,
 `--phases build,recover` for kill-and-resume, `--phases build,kernel,parity,genmodes` for the
 generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes, `--phases build,quickstart,async` for asynchronous RL,
-`--phases build,quickstart,multiproc` for the multi-process runtime.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+`--phases build,quickstart,multiproc` for the multi-process runtime,
+`--phases build,verifiers` for the verifier fleet, mixtures and the tracer.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -354,7 +376,7 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "fabric", "episodes", "parity", "train_parity")
+          "async", "multiproc", "fabric", "verifiers", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -3780,7 +3802,7 @@ def phase_quickstart(report, seed):
 # after the last phase that uses them.
 SHARED_CKPTS = {}
 CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
-               "multiproc", "fabric")
+               "multiproc", "fabric", "verifiers")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -7254,6 +7276,10 @@ FABRIC_NEW_TOKENS = 128
 FABRIC_STOP = [[151935, 151934]]
 FABRIC_DELTA_STD = 1e-3  # the seeded fp32 delta pushed on top of the checkpoint
 FABRIC_TRIAL_NEW_TOKENS = 64
+# Fabric's depth since the verifiers phase joined the smoke (CUT_LAYERS:
+# the seeded checkpoint the earlier cut phases wrote): its pushes move
+# 2.2 GB instead of 6.2 GB, which keeps the whole smoke inside its limit.
+FABRIC_LAYERS = CUT_LAYERS
 # (b): the server armed to die skips the param pushes it takes before
 # (d)'s two fabric pushes and (a)'s two, and dies at the fifth.
 FABRIC_KILL = "kill@point=param_push&skip=4&times=1"
@@ -7391,8 +7417,9 @@ def _fabric_probe(urls, prompts):
 
 def phase_fabric(report, seed):
     """The param store and the broadcast-tree weight push over a fleet of
-    three generation servers at qwen2-1.5B (28 layers, bf16 servers), from
-    the quickstart's seeded checkpoint, under a file name_resolve:
+    three generation servers at qwen2-1.5B's full width (FABRIC_LAYERS
+    layers, bf16 servers), from a seeded checkpoint of that depth, under a
+    file name_resolve:
     `LocalProcessFleet` spawns two servers (`python -m
     areal_tpu_torch.system.gen_server`, each its own process on the card;
     the first armed with AREAL_FAULTS `kill@point=param_push` for its fifth
@@ -7419,8 +7446,8 @@ def phase_fabric(report, seed):
         the tree's depth is 2, all three serve the version,
         areal_param_push_bytes_total (this process's and the servers') grew
         by three hops of payload plus meta from one serialization, the
-        in-process server's K3 launches = 28 x its replays (>= 1) and K2 =
-        28 x its inner steps; greedy probes give identical tokens on the
+        in-process server's K3 launches = L x its replays (>= 1) and K2 =
+        L x its inner steps; greedy probes give identical tokens on the
         three servers and on the in-process one after it loads the same
         weights from an HF checkpoint over /update_weights; a push with a
         wrong checksum is refused by all three, their versions unchanged.
@@ -7451,7 +7478,7 @@ def phase_fabric(report, seed):
     from areal_tpu_torch.system.fleet import fleet_discovery
     from areal_tpu_torch.system.gen_server import GenerationServer
 
-    cfg = qwen2_config("1.5b")
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=FABRIC_LAYERS)
     L = cfg.n_layers
     t_phase = time.monotonic()
     os.makedirs(FABRIC_DIR, exist_ok=True)
@@ -7872,6 +7899,638 @@ def _fabric_trials(seed, cfg, ckpt, work, members, engine):
                                               for m, r in runs.items()})
 
 
+# --------------------------------------------------------------------------
+# Phase: the verifier fleet, task mixtures and the tracer
+# --------------------------------------------------------------------------
+
+VERIFIERS_DIR = os.path.join(REPO, ".verifiers_tmp")
+VERIFIERS_EXPERIMENT = "verifiers"
+# The two spawned verifiers: the doomed one's sid sorts first, so the
+# pool's least-loaded choice (ties by sid) sends it the trial's batches.
+VERIFIER_SIDS = ("v0", "v1")
+VERIFIER_PORTS = (8301, 8302)
+VERIFIER_TTL = 3.0
+# Trial two starts this long after the doomed verifier announces itself
+# (the fleet's check of the fixed answers runs in between); the verifier
+# dies at the middle of trial two's second step, as trial one's warm
+# second step predicts it, counted from then.
+VERIFIERS_LEAD_S = 4.0
+VERIFIERS_NEW_TOKENS = 64
+VERIFIERS_SERVER_PORT = 8311  # (b)'s in-process generation server
+VERIFIERS_REWARD_PORT = 8321  # (b)'s spawned reward service
+MIX_WEIGHTS = {"math": 3.0, "code": 1.0}
+MIX_PROMPTS = 16  # two halves of 8: the controller is restored in between
+# One response a prompt: a group's followers wait on their owner's prompt
+# pages, which multiplies the serving plane's inner steps (PERF.md §7).
+MIX_GROUP = 1
+MIX_NEW_TOKENS = 64
+
+
+def _verifier_answers():
+    """64 fixed answers, half of them right: math (a boxed sum, or a
+    response with no answer in it: graded without the sympy pool) and
+    judge items (a reference in the tail or not)."""
+    items = []
+    for i in range(48):
+        a = (37 * i + 11) % 1000
+        text = f"so the sum is \\boxed{{{a}}}" if i % 2 == 0 else "I cannot tell."
+        items.append({"task": "math", "text": text,
+                      "payload": {"solutions": [f"\\boxed{{{a}}}"]}})
+    for i in range(16):
+        ref = ("Paris", "Rome", "Lima", "Oslo")[i % 4]
+        said = ref if i % 2 == 0 else "Bern"
+        items.append({"task": "judge", "text": f"... so the answer is {said}",
+                      "payload": {"reference": ref}})
+    return items
+
+
+def _spawn_verifier(args, log_path, env):
+    """`python -m areal_tpu_torch.apps.verifier ...` as a process of its
+    own (exec, never a fork of this process), its log at `log_path`."""
+    with open(log_path, "wb") as logf:
+        return subprocess.Popen([sys.executable, "-m", "areal_tpu_torch.apps.verifier", *args],
+                                stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+
+
+def _flush_line(log_path):
+    """The tracer's own cost a spawned process logged at its end."""
+    import ast
+
+    with open(log_path, errors="replace") as f:
+        lines = [ln for ln in f if "tracer: {" in ln]
+    return ast.literal_eval(lines[-1].split("tracer: ", 1)[1].strip()) if lines else None
+
+
+def _verifier_trial(seed, cfg, ckpt, data, work, name, pool):
+    """One quickstart ppo-math trial (a ref, 8 prompts x 4, 64 new
+    tokens, greedy, two steps) grading in-process or through the verifier
+    fleet: its stats, each step's generated tokens and launches, every
+    grade (the items and their results) and each reward call's offset
+    from the trial's start; the graded rewards are then replaced by
+    seeded +-5, the same in both trials (a random model's are all -5)."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.interfaces import reward_service
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+    from areal_tpu_torch.system.verifier_pool import VerifierPool
+
+    rec = {"steps": [], "gen": [], "grades": [], "reward_t": [], "step_t": [], "attempts": []}
+    cur = {}
+    restore = []
+    rng = np.random.default_rng(seed + 120)
+
+    def wrap(owner, attr, make):
+        restore.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, make(getattr(owner, attr)))
+
+    _record_trial_steps(wrap, rec, cur)
+
+    def on_generate(orig):
+        @functools.wraps(orig)
+        def generate(self, *a, **k):
+            out = orig(self, *a, **k)
+            rec["gen"].append(np.asarray(out.data["packed_input_ids"]).copy())
+            return out
+        return generate
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            rec["reward_t"].append(time.monotonic() - rec["t0"])
+            out = orig(self, model, sample, mb_spec)
+            out.data["rewards"] = rng.choice(
+                [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+            return out
+        return inference
+
+    def on_verify(orig):  # the in-process grade of one item
+        @functools.wraps(orig)
+        def verify(self, task, text, info):
+            ok = orig(self, task, text, info)
+            rec["grades"].append(((task, text), ok))
+            return ok
+        return verify
+
+    def on_verify_batch(orig):  # a batch through the fleet
+        @functools.wraps(orig)
+        def verify_batch(self, items):
+            oks = orig(self, items)
+            rec["grades"] += [((it["task"], it["text"]), ok) for it, ok in zip(items, oks)]
+            rec.setdefault("items", []).extend(items)
+            return oks
+        return verify_batch
+
+    def on_post(orig):  # each attempt of the pool: which server, and its outcome
+        @functools.wraps(orig)
+        def post_verify(url, items, *a, **k):
+            try:
+                out = orig(url, items, *a, **k)
+            except Exception as e:
+                rec["attempts"].append((url, time.monotonic() - rec["t0"], repr(e)[:60]))
+                raise
+            rec["attempts"].append((url, time.monotonic() - rec["t0"], "ok"))
+            return out
+        return post_verify
+
+    def on_build(orig):
+        @functools.wraps(orig)
+        def build(cfg_, *a, **k):
+            return orig(dataclasses.replace(cfg_, gconfig=cfg_.gconfig.new(greedy=True)), *a, **k)
+        return build
+
+    def on_step(orig):
+        @functools.wraps(orig)
+        async def execute_step(self):
+            rec["step_t"].append(time.monotonic() - rec["t0"])
+            return await orig(self)
+        return execute_step
+
+    wrap(exps, "build_ppo_math", on_build)
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.system.master import MasterWorker
+
+    wrap(MasterWorker, "execute_step", on_step)
+
+    wrap(GeneratorEngine, "generate", on_generate)
+    wrap(MultiTaskRewardInterface, "inference", on_reward)
+    wrap(MultiTaskRewardInterface, "verify", on_verify)
+    wrap(VerifierPool, "verify_batch", on_verify_batch)
+    wrap(reward_service, "post_verify", on_post)
+    argv = ["ppo-math", "--model.path", ckpt, "--dataset.path", data,
+            "--tokenizer-path", f"char:{cfg.vocab_size}", "--ref-path", ckpt, "--kl-ctl", "0.1",
+            "--batch-size", "8", "--group-size", "4",
+            "--max-new-tokens", str(VERIFIERS_NEW_TOKENS), "--benchmark-steps", "2",
+            "--fileroot", os.path.join(work, name), "--seed", str(seed + 122),
+            "--experiment-name", VERIFIERS_EXPERIMENT, "--trial-name", f"t{seed}"]
+    if pool:
+        argv.append("--verifier-pool")
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        rec["t0"] = time.monotonic()
+        stats = quickstart.main(argv)
+        torch.cuda.synchronize()
+        rec["seconds"] = time.monotonic() - rec["t0"]
+        rec["launches"] = _trial_counts()
+    finally:
+        for owner, attr, orig in reversed(restore):
+            setattr(owner, attr, orig)
+    rec["stats"] = stats
+    check(len(stats) == 2 and len(rec["steps"]) == 2 and len(rec["gen"]) == 2
+          and len(rec["reward_t"]) == 2, f"[verifiers] (a) trial {name}: {len(stats)} steps, "
+          f"{len(rec['gen'])} generate calls, {len(rec['reward_t'])} reward calls")
+    for i, st in enumerate(rec["steps"]):
+        check(all(math.isfinite(v) for v in st["stats"].values()),
+              f"[verifiers] (a) trial {name} step {i + 1}: non-finite stats")
+        _check_step_launches(f"[verifiers] (a) trial {name}", i + 1, st, rec["plan_nodes"],
+                             cfg.n_layers, VERIFIERS_NEW_TOKENS)
+    check(rec["launches"] == {k: sum(st["launches"][k] for st in rec["steps"])
+                              for k in rec["launches"]},
+          f"[verifiers] (a) trial {name}: launches {rec['launches']} outside the steps")
+    return rec
+
+
+def _shard_stats(trace_dir):
+    """Each shard's process label, span count, bytes and events."""
+    out = {}
+    for f in sorted(os.listdir(trace_dir)):
+        if f.startswith("trace_") and f.endswith(".jsonl"):
+            path = os.path.join(trace_dir, f)
+            with open(path) as fh:
+                rows = [json.loads(line) for line in fh if line.strip()]
+            out[f[len("trace_"):-len(".jsonl")]] = dict(
+                spans=sum(1 for r in rows if r.get("ph") == "X"), events=len(rows) - 1,
+                bytes=os.path.getsize(path))
+    return out
+
+
+def phase_verifiers(report, seed):
+    """The verifier fleet, task mixtures and the tracer at qwen2-1.5B (28
+    layers, random weights from the quickstart's seeded checkpoint),
+    under a file name_resolve.
+
+    (a) Two quickstart ppo-math trials (a ref, 8 prompts x 4, 64 new
+        tokens, greedy, two steps, graded math rewards replaced by seeded
+        +-5 in both): trial one grades in-process, untraced; trial two runs
+        with AREAL_TRACE=1 and --verifier-pool over two spawned `python -m
+        areal_tpu_torch.apps.verifier --experiment ... --trial ... --ttl 3`
+        processes, the first armed with AREAL_FAULTS `kill@t=...` to die
+        half way between the trial's two grades.  Held: both trials'
+        tokens and step stats bit for bit, every step's launches from the
+        engines' calls (K1f, K1dq, K1dkv, K4; K2 and K3 none), every grade
+        equal to the in-process registry's on the same answers, 64 fixed
+        right and wrong answers graded through the pool before the kill
+        (both verifiers live) and after it equal to the registry, the dead
+        verifier's key gone within its TTL, its flight dump written within
+        trial two.
+    (b) A RolloutController over one in-process GenerationServer (32
+        slots, 256 pages, the serving plane, K2) with a two-task
+        TaskMixtureStream (math:code = 3:1), 16 prompts x 1, 64 new tokens,
+        greedy, traced, one disk push (/update_weights) mid-run; the
+        controller is rebuilt from state_dict() after 8 prompts; each
+        trajectory graded by a spawned reward service with its trace_id.
+        Held: the draws follow the weights exactly (12 math, 4 code, in
+        the mixture's own order), the restored controller draws the
+        remaining qids, every sample's lineage joins dispatch, first_token,
+        generated, admitted, graded and trained with no orphan, K2 = 28 x
+        inner steps and K3 = 28 x replays, the rest none.
+    (c) `python -m areal_tpu_torch.apps.trace_report` on (a)'s and (b)'s
+        directories: the shards of every process (master, both verifiers;
+        the server's and the reward service's) merge, validate_trace finds
+        nothing, the attribution table and bubbles print, --flight shows
+        the killed verifier's fault_kill dump, --lineage (b)'s timelines.
+    Printed: trial two's step walls beside trial one's; each process's
+    span count, shard bytes and flush seconds."""
+    import asyncio
+    import collections
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, LLMAPIClient
+    from areal_tpu_torch.apps import trace_report
+    from areal_tpu_torch.base import name_resolve, tracer
+    from areal_tpu_torch.data import mixture as mixture_mod
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.interfaces import reward_service
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.system import rollout as rollout_mod
+    from areal_tpu_torch.system.gen_server import GenerationServer
+    from areal_tpu_torch.system.replay import ReplayBuffer
+    from areal_tpu_torch.system.rollout import RolloutController
+    from areal_tpu_torch.system.verifier_pool import (
+        VerifierPool, list_verifiers, verifier_discovery,
+    )
+
+    cfg = qwen2_config("1.5b")
+    L = cfg.n_layers
+    t_phase = time.monotonic()
+    os.makedirs(VERIFIERS_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=VERIFIERS_DIR)
+    trace_a, trace_b, logs = (os.path.join(work, d) for d in ("trace_a", "trace_b", "logs"))
+    os.makedirs(logs)
+    env = {"AREAL_NAME_RESOLVE": "file",
+           "AREAL_NAME_RESOLVE_ROOT": os.path.join(work, "name_resolve"),
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    saved_env = {k: os.environ.get(k) for k in (*env, "AREAL_TRACE", "AREAL_TRACE_DIR")}
+    os.environ.update(env)
+    old_repo = name_resolve.default()
+    name_resolve.set_default(name_resolve.FileNameResolveRepository())
+    E, T = VERIFIERS_EXPERIMENT, f"t{seed}"
+    procs, server, out = {}, None, {}
+    answers = _verifier_answers()
+    registry = [reward_service.grade_item(it) for it in answers]
+    check(sum(registry) == 32, f"[verifiers] the fixed answers grade {sum(registry)} right, want 32")
+    flush = {}
+    try:
+        ckpt, _, _ = _shared_checkpoint("[verifiers]", cfg, seed + 21)
+        data = os.path.join(work, "math.jsonl")
+        with open(data, "w") as f:
+            for row in _math_rows(np.random.default_rng(seed + 121), 64):
+                f.write(json.dumps(row) + "\n")
+
+        # (a) trial one: in-process grading, untraced.
+        tracer.configure(role="smoke", enabled=False, force=True)
+        one = _verifier_trial(seed, cfg, ckpt, data, work, "one", pool=False)
+        g1, g2 = one["reward_t"]
+        # Trial two's grades, predicted from trial one's warm second step:
+        # step 1 starts after the set-up (s1) and grades as far into it as
+        # step 2 did (g2 - s2); step 2's grade comes a step later.  The
+        # verifier dies half way between the two.
+        s1, s2 = one["step_t"]
+        step2_s = one["stats"][1]["time/step_s"]
+        kill_at = s1 + (g2 - s2) + 0.5 * step2_s
+        kill_after = VERIFIERS_LEAD_S + kill_at
+        log(f"[verifiers] (a) trial one (in-process grading, untraced): {one['seconds']:.1f} s, "
+            f"steps {[round(s['time/step_s'], 2) for s in one['stats']]} s from {s1:.1f} and "
+            f"{s2:.1f} s, rewards graded at {g1:.1f} and {g2:.1f} s; {len(one['grades'])} grades, "
+            f"{sum(ok for _, ok in one['grades'])} right; launches {one['launches']}; the doomed "
+            f"verifier is to die {kill_at:.1f} s into trial two")
+
+        # The fleet: two verifiers, traced into (a)'s directory.
+        vf_env = dict(os.environ, AREAL_TRACE="1", AREAL_TRACE_DIR=trace_a)
+        t_spawn = time.monotonic()
+        for i, (sid, port) in enumerate(zip(VERIFIER_SIDS, VERIFIER_PORTS)):
+            e = dict(vf_env, AREAL_FAULTS=f"kill@t={kill_after:.3f}s") if i == 0 else vf_env
+            procs[sid] = _spawn_verifier(
+                ["--experiment", E, "--trial", T, "--server-id", sid, "--port", str(port),
+                 "--ttl", str(VERIFIER_TTL)], os.path.join(logs, f"verifier-{sid}.log"), e)
+        deadline = time.monotonic() + 60
+        t_doomed = None
+        while list_verifiers(E, T) != list(VERIFIER_SIDS):
+            if t_doomed is None and VERIFIER_SIDS[0] in list_verifiers(E, T):
+                t_doomed = time.monotonic()  # its fault clock started just before
+            for sid, p in procs.items():
+                check(p.poll() is None, f"[verifiers] verifier {sid} exited ({p.returncode})")
+            check(time.monotonic() < deadline, "[verifiers] the fleet did not announce in 60 s")
+            time.sleep(0.02)
+        t_doomed = t_doomed or time.monotonic()
+        up_s = time.monotonic() - t_spawn
+        pool = VerifierPool(discovery=verifier_discovery(E, T), refresh_s=0.0)
+        halves = [answers[:32], answers[32:]]
+        got = [None, None]
+        ths = [threading.Thread(target=lambda j=j: got.__setitem__(j, pool.verify_batch(halves[j])))
+               for j in range(2)]
+        t = time.monotonic()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=120)
+        before_s = time.monotonic() - t
+        check(got[0] + got[1] == registry and pool.graded_pooled == 64 and pool.graded_local == 0,
+              f"[verifiers] (a) before the kill the pool graded {got} (pooled "
+              f"{pool.graded_pooled}, local {pool.graded_local}), the registry {registry}")
+        wait = VERIFIERS_LEAD_S - (time.monotonic() - t_doomed)
+        check(wait > 0, f"[verifiers] the fleet took {time.monotonic() - t_doomed:.1f} s to come "
+              f"up and grade, past the {VERIFIERS_LEAD_S} s trial two starts at")
+        log(f"[verifiers] (a) fleet {list_verifiers(E, T)} up {up_s:.2f} s after the spawn "
+            f"({VERIFIER_SIDS[0]} armed kill@t={kill_after:.3f}s); 64 fixed answers through the "
+            f"pool in two concurrent batches in {before_s:.3f} s equal the registry; trial two "
+            f"starts in {wait:.1f} s")
+        time.sleep(wait)
+
+        # (a) trial two: traced, grading through the fleet; a watcher
+        # notes when the doomed verifier's key leaves the listing.
+        gone = {}
+
+        def watch():
+            while not gone.get("stop"):
+                if VERIFIER_SIDS[0] not in list_verifiers(E, T):
+                    gone["t"] = time.time()
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        os.environ.update(AREAL_TRACE="1", AREAL_TRACE_DIR=trace_a)
+        tracer.configure(role="master", rank=0, dir=trace_a, enabled=True, force=True)
+        t_two = time.time()
+        two = _verifier_trial(seed, cfg, ckpt, data, work, "two", pool=True)
+        t_two_end = time.time()
+        tracer.flush()
+        flush["master_0"] = tracer.flush_stats()
+        tracer.configure(role="smoke", enabled=False, force=True)
+        for k in ("AREAL_TRACE", "AREAL_TRACE_DIR"):
+            os.environ.pop(k, None)
+        log(f"[verifiers] (a) trial two (traced, --verifier-pool): {two['seconds']:.1f} s, steps "
+            f"{[round(s['time/step_s'], 2) for s in two['stats']]} s against trial one's "
+            f"{[round(s['time/step_s'], 2) for s in one['stats']]} s; rewards graded at "
+            f"{[round(x, 1) for x in two['reward_t']]} s; the pool's attempts (server, s, "
+            f"outcome) {[(u.rsplit(':', 1)[1], round(s, 1), o) for u, s, o in two['attempts']]}")
+        for i, (a, b) in enumerate(zip(one["gen"], two["gen"])):
+            check(np.array_equal(a, b), f"[verifiers] (a) step {i + 1}'s tokens differ between "
+                  "the trials")
+        ta, tb = _timeless(one["stats"][-1]), _timeless(two["stats"][-1])
+        diff = {k: (ta.get(k), tb.get(k)) for k in set(ta) | set(tb) if ta.get(k) != tb.get(k)}
+        check(not diff and all(_timeless(x) == _timeless(y)
+                               for x, y in zip(one["stats"], two["stats"])),
+              f"[verifiers] (a) the trials' stats differ: {diff}")
+        check([k for k, _ in one["grades"]] == [k for k, _ in two["grades"]]
+              and len(two["grades"]) == 2 * 32, "[verifiers] (a) the trials graded other answers")
+        mine = [reward_service.grade_item(it) for it in two["items"]]
+        check([ok for _, ok in two["grades"]] == mine == [ok for _, ok in one["grades"]],
+              "[verifiers] (a) a grade through the fleet differs from the in-process registry's")
+        rc, _ = _reap(procs[VERIFIER_SIDS[0]], 30)
+        check(rc is not None, "[verifiers] (a) the doomed verifier is still running")
+        dumps = tracer.read_flight_dumps(trace_a)
+        check([d["reason"] for d in dumps] == ["fault_kill"]
+              and dumps[0]["role"] == "verifier" and dumps[0]["rank"] == VERIFIER_PORTS[0],
+              f"[verifiers] (a) flight dumps {[(d['role'], d['rank'], d['reason']) for d in dumps]}")
+        t_kill = dumps[0]["t_dump_us"] / 1e6
+        check(t_two < t_kill < t_two_end, f"[verifiers] (a) the verifier died {t_kill - t_two:.1f} "
+              f"s into trial two, outside its {t_two_end - t_two:.1f} s (steps from "
+              f"{[round(x, 1) for x in two['step_t']]} s)")
+        watcher.join(timeout=4 * VERIFIER_TTL)
+        gone["stop"] = True
+        gone_s = gone.get("t", float("inf")) - t_kill
+        check(list_verifiers(E, T) == [VERIFIER_SIDS[1]] and 0 <= gone_s <= VERIFIER_TTL + 1.0,
+              f"[verifiers] (a) the dead verifier's key: {list_verifiers(E, T)} {gone_s:.2f} s "
+              f"after its death (TTL {VERIFIER_TTL} s)")
+        t = time.monotonic()
+        after = pool.verify_batch(answers)
+        check(after == registry and pool.graded_pooled == 128 and pool.graded_local == 0,
+              f"[verifiers] (a) after the kill the pool graded {after} (pooled "
+              f"{pool.graded_pooled}, local {pool.graded_local})")
+        log(f"[verifiers] (a) both trials' {sum(x.size for x in two['gen'])} tokens and "
+            f"{len(tb)} step-2 stats equal bit for bit; {len(two['grades'])} fleet grades equal "
+            f"the registry's; the verifier died {t_kill - t_two:.1f} s into trial two "
+            f"({t_two_end - t_two:.1f} s), its key gone {gone_s:.2f} s after (TTL "
+            f"{VERIFIER_TTL} s); 64 answers after the kill in {time.monotonic() - t:.3f} s equal "
+            f"the registry")
+        procs[VERIFIER_SIDS[1]].send_signal(signal.SIGINT)
+        check(_reap(procs[VERIFIER_SIDS[1]], 30)[0] is not None,
+              "[verifiers] the surviving verifier did not stop")
+        for sid, port in zip(VERIFIER_SIDS, VERIFIER_PORTS):
+            flush[f"verifier_{port}"] = _flush_line(os.path.join(logs, f"verifier-{sid}.log"))
+        out["a"] = dict(one_s=one["seconds"], two_s=two["seconds"],
+                        one_step_s=[s["time/step_s"] for s in one["stats"]],
+                        two_step_s=[s["time/step_s"] for s in two["stats"]],
+                        kill_into_trial_s=t_kill - t_two, key_gone_s=gone_s,
+                        launches=[one["launches"], two["launches"]])
+
+        # (b) the mixture through a controller over an in-process server.
+        rw_env = dict(os.environ, AREAL_TRACE="1", AREAL_TRACE_DIR=trace_b)
+        procs["reward"] = _spawn_verifier(["--port", str(VERIFIERS_REWARD_PORT)],
+                                          os.path.join(logs, "reward.log"), rw_env)
+        reward_url = f"http://127.0.0.1:{VERIFIERS_REWARD_PORT}"
+        tracer.configure(role="gen_server", rank=VERIFIERS_SERVER_PORT, dir=trace_b,
+                         enabled=True, force=True)
+        tok = CharTokenizer(cfg.vocab_size)
+        _, params = hf.load_hf_checkpoint(ckpt, device="cuda")
+        engine = GeneratorEngine(cfg, params, eos_token_id=tok.eos_token_id,
+                                 max_decode_batch=FABRIC_SLOTS, kv_pool_pages=FABRIC_POOL_PAGES,
+                                 prefill_chunk_tokens=FABRIC_PREFILL_TOKENS)
+        engine.static_path_max_new = 0  # the serving plane
+        del params
+        server = GenerationServer(engine, port=VERIFIERS_SERVER_PORT, max_wait_ms=100.0)
+        rng = np.random.default_rng(seed + 123)
+        rows = {"math": _math_rows(rng, 8), "code": _async_rows(rng, 0, 4)}
+        prompts = {task: [tok.encode(r["prompt"]) for r in rs] for task, rs in rows.items()}
+
+        def mixture():
+            return mixture_mod.build_mixture(MIX_WEIGHTS, prompts)
+
+        want, ref = [], mixture()
+        for i in range(MIX_PROMPTS):
+            it = next(ref)
+            want.append((rollout_mod._normalize_prompt(it, i)[0], it["task"], it["index"]))
+        check(collections.Counter(t for _, t, _ in want) == {"math": 12, "code": 4},
+              f"[verifiers] (b) the mixture's draws {want}")
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                urllib.request.urlopen(reward_url + "/health", timeout=5).read()
+                break
+            except OSError:
+                check(procs["reward"].poll() is None and time.monotonic() < deadline,
+                      "[verifiers] (b) the reward service did not come up")
+                time.sleep(0.05)
+        g = GenerationHyperparameters(n=MIX_GROUP, max_new_tokens=MIX_NEW_TOKENS, greedy=True,
+                                      stop=FABRIC_STOP)
+        replay = ReplayBuffer(capacity=64, max_head_offpolicyness=1)
+        remote = reward_service.RemoteVerifier(reward_url, timeout_s=300.0)
+        pushed = {}
+
+        def push():
+            t0 = time.monotonic()
+            while replay.accepted < 2 and time.monotonic() - t0 < 300:
+                time.sleep(0.02)
+            t0 = time.monotonic()
+            pushed["version"] = _post(server.url + "/update_weights", {"path": ckpt})["version"]
+            pushed["s"] = time.monotonic() - t0
+
+        def half(ctl, with_push):
+            th = threading.Thread(target=push) if with_push else None
+            if th:
+                th.start()
+            asyncio.run(ctl.run(max_prompts=MIX_PROMPTS // 2))
+            if th:
+                th.join(timeout=600)
+            trajs = list(replay._entries)
+            items = []
+            for tr in trajs:
+                task, idx = tr.qid.split(":")[0], int(tr.qid.rsplit(":p", 1)[1])
+                row = rows[task][idx]
+                for o in tr.output_ids:
+                    items.append({"task": task, "text": tok.decode(o), "trace_id": tr.trace_id,
+                                  "payload": {"solutions": row.get("solutions") or [],
+                                              "input_output": row.get("input_output"),
+                                              "timeout_s": 8.0}})
+            oks = remote.verify_batch(items)
+            check(oks == [reward_service.grade_item({k: v for k, v in it.items()
+                                                     if k != "trace_id"}) for it in items],
+                  "[verifiers] (b) a grade of the reward service differs from the registry's")
+            got_trajs = replay.get_batch(len(trajs), timeout=0)
+            return [(t.qid, t.task) for t in got_trajs], sum(oks), len(oks)
+
+        torch.cuda.synchronize()
+        _reset_counts()
+        steps0, replays0 = engine.steps_total, engine.resume_replays
+        t = time.monotonic()
+        ctl = RolloutController([LLMAPIClient(server.url)], replay, g, seed=seed + 124,
+                                mixture=mixture())
+        first, ok1, n1 = half(ctl, True)
+        sd = ctl.state_dict()
+        ctl2 = RolloutController([LLMAPIClient(server.url)], replay, g, seed=seed + 124,
+                                 mixture=mixture())
+        ctl2.load_state_dict(sd)
+        second, ok2, n2 = half(ctl2, False)
+        torch.cuda.synchronize()
+        pump_s = time.monotonic() - t
+        launches_b = _trial_counts()
+        inner = engine.steps_total - steps0
+        replays = engine.resume_replays - replays0
+        tracer.flush()
+        flush[f"gen_server_{VERIFIERS_SERVER_PORT}"] = tracer.flush_stats()
+        check(sorted(q for q, _ in first) == sorted(q for q, _, _ in want[:8])
+              and sorted(q for q, _ in second) == sorted(q for q, _, _ in want[8:]),
+              f"[verifiers] (b) dispatched {first} then {second}, the mixture draws {want}")
+        check(all(t_ == q.split(":")[0] for q, t_ in first + second),
+              "[verifiers] (b) a trajectory's task stamp")
+        check(pushed.get("version") == 1 and server.version == 1,
+              f"[verifiers] (b) the disk push: {pushed}, server version {server.version}")
+        st1, st2 = ctl.stat.as_dict(), ctl2.stat.as_dict()
+        # The restored controller continues the counters it was given.
+        check(st1["accepted"] == 8 and st2["accepted"] == 16 and st2["failed"] == 0,
+              f"[verifiers] (b) controller stats {st1} {st2}")
+        want_b = dict(fwd=0, dq=0, dkv=0, k4=0, k2=L * inner, k3=L * replays)
+        check(launches_b == want_b and inner > 0,
+              f"[verifiers] (b) launches {launches_b} != {want_b} ({inner} inner steps, "
+              f"{replays} replays)")
+        log(f"[verifiers] (b) {MIX_PROMPTS} prompts x {MIX_GROUP} through the mixture "
+            f"{MIX_WEIGHTS} in {pump_s:.1f} s: draws {[q for q, _, _ in want]}; the restored "
+            f"controller drew the remaining 8; disk push {pushed['s']:.2f} s mid-run; graded "
+            f"{ok1 + ok2}/{n1 + n2} right by the reward service; {inner} inner steps, "
+            f"{replays} replays; launches {launches_b}")
+        server.close()
+        server = None
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        tracer.configure(role="smoke", enabled=False, force=True)
+        procs["reward"].send_signal(signal.SIGINT)
+        check(_reap(procs["reward"], 30)[0] is not None, "[verifiers] the reward service did not stop")
+        flush[f"reward_{VERIFIERS_REWARD_PORT}"] = _flush_line(os.path.join(logs, "reward.log"))
+
+        # (c) trace_report on both directories.
+        for d, views in ((trace_a, ([], ["--flight"])), (trace_b, (["--lineage"],))):
+            for v in views:
+                r = subprocess.run([sys.executable, "-m", "areal_tpu_torch.apps.trace_report", d,
+                                    "--top", "5", *v], capture_output=True, text=True,
+                                   timeout=300, cwd=REPO)
+                check(r.returncode == 0, f"[verifiers] (c) trace_report {v} on {d}: {r.stderr}")
+                text = r.stdout.strip().splitlines()
+                log(f"[verifiers] (c) trace_report {os.path.basename(d)} {' '.join(v)}:\n"
+                    + "\n".join(text[:40] + (["..."] if len(text) > 40 else [])))
+                if v == ["--flight"]:
+                    check("fault_kill" in r.stdout and f"verifier_{VERIFIER_PORTS[0]}" in r.stdout,
+                          "[verifiers] (c) --flight does not show the killed verifier's dump")
+        ta_trace = tracer.merge_shards(trace_a)
+        tb_trace = tracer.merge_shards(trace_b)
+        procs_a = {e["args"]["name"] for e in ta_trace["traceEvents"] if e["ph"] == "M"}
+        procs_b = {e["args"]["name"] for e in tb_trace["traceEvents"] if e["ph"] == "M"}
+        check(tracer.validate_trace(ta_trace) == [] and tracer.validate_trace(tb_trace) == [],
+              f"[verifiers] (c) validate_trace: {tracer.validate_trace(ta_trace)[:5]} "
+              f"{tracer.validate_trace(tb_trace)[:5]}")
+        check(procs_a == {"master_0", *(f"verifier_{p}" for p in VERIFIER_PORTS)}
+              and procs_b == {f"gen_server_{VERIFIERS_SERVER_PORT}",
+                              f"reward_{VERIFIERS_REWARD_PORT}"},
+              f"[verifiers] (c) processes {procs_a} {procs_b}")
+        spans_a = collections.Counter(
+            (e["pid"], e["name"]) for e in ta_trace["traceEvents"] if e["ph"] == "X")
+        names = {e["pid"]: e["args"]["name"] for e in ta_trace["traceEvents"] if e["ph"] == "M"}
+        for port in VERIFIER_PORTS:
+            pid = next(p for p, n in names.items() if n == f"verifier_{port}")
+            check(spans_a[(pid, "verify")] >= 1, f"[verifiers] (c) verifier {port} graded nothing")
+        summary = trace_report.lineage_summary(tb_trace)
+        rows_b = trace_report.lineage_rows(tb_trace)
+        full = {"dispatch", "first_token", "generated", "admitted", "graded", "trained"}
+        check(summary["n"] == MIX_PROMPTS and summary["complete"] == MIX_PROMPTS
+              and not summary["orphans"] and all(full <= set(r["stages"]) for r in rows_b),
+              f"[verifiers] (c) lineage {summary}")
+        check({r["task"] for r in rows_b} == set(MIX_WEIGHTS), "[verifiers] (c) task stamps")
+        shards = {**_shard_stats(trace_a), **_shard_stats(trace_b)}
+        for proc, s in sorted(shards.items()):
+            fl = flush.get(proc)
+            log(f"[verifiers] (c) {proc}: {s['spans']} spans of {s['events']} events, "
+                f"{s['bytes']} shard bytes, flushes {fl}")
+        out["c"] = dict(shards=shards, flush=flush, lineage=summary)
+        out["b"] = dict(pump_s=pump_s, push_s=pushed["s"], inner_steps=inner,
+                        resume_replays=replays, launches=launches_b)
+    finally:
+        if server is not None:
+            server.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        tracer.configure(role="smoke", enabled=False, force=True)
+        name_resolve.set_default(old_repo)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {k: sum(x[k] for x in (*out["a"]["launches"], out["b"]["launches"]))
+             for k in out["b"]["launches"]}
+    out["launches"] = total
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[verifiers] the phase's launches {total}; {out['seconds']:.1f} s")
+    report["verifiers"] = out
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -7884,6 +8543,7 @@ def _kernels_line(report):
     as_launches = report.get("async", {}).get("launches", {})
     mp_launches = report.get("multiproc", {}).get("launches", {})
     fb_launches = report.get("fabric", {}).get("launches", {})
+    vf_launches = report.get("verifiers", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -7903,6 +8563,7 @@ def _kernels_line(report):
         "launches_async": as_launches.get("k2"),
         "launches_multiproc": mp_launches.get("k2"),
         "launches_fabric": fb_launches.get("k2"),
+        "launches_verifiers": vf_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -7955,6 +8616,7 @@ def _kernels_line(report):
             "launches_async": as_launches.get(name),
             "launches_multiproc": mp_launches.get(name),
             "launches_fabric": fb_launches.get(name),
+            "launches_verifiers": vf_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -7998,6 +8660,7 @@ def _kernels_line(report):
         "launches_async": as_launches.get("k3"),
         "launches_multiproc": mp_launches.get("k3"),
         "launches_fabric": fb_launches.get("k3"),
+        "launches_verifiers": vf_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -8065,6 +8728,7 @@ def _kernels_line(report):
         "launches_async": as_launches.get("k4"),
         "launches_multiproc": mp_launches.get("k4"),
         "launches_fabric": fb_launches.get("k4"),
+        "launches_verifiers": vf_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -8256,6 +8920,7 @@ def main() -> int:
         "async": lambda: phase_async(report, args.seed),
         "multiproc": lambda: phase_multiproc(report, args.seed),
         "fabric": lambda: phase_fabric(report, args.seed),
+        "verifiers": lambda: phase_verifiers(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

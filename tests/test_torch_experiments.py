@@ -170,9 +170,6 @@ def test_offload_ref_e2e(tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("gen_server_url", "tcp://localhost:1", "item 7.8"),
     ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.8"),
-    ("verifier_pool", True, "item 7.5"),
-    ("mixture_weights", {"math": 1.0}, "item 7.5"),
-    ("mixture_adaptive", True, "item 7.5"),
     ("placement", {"actor_gen": [1, 2]}, "item 8"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
@@ -387,6 +384,23 @@ def test_episode_options_leave_the_trial_unchanged(tmp_path, package):
     of the in-process trial (only an episode runner on the rollout
     controller drives episodes), so the same trial with and without them
     gives equal stats."""
+    _assert_options_change_nothing(tmp_path, package, EPISODE_OPTIONS)
+
+
+MIXTURE_OPTIONS = dict(mixture_weights={"math": 3.0, "code": 1.0}, mixture_adaptive=True)
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_mixture_options_leave_the_trial_unchanged(tmp_path, package):
+    """A behaviour of the reference, pinned in both packages: the
+    task-mixture options are carried by PPOMathConfig and checked, and
+    no code of the in-process trial reads them (a `RolloutController`
+    with `mixture=` consumes a mixture), so the same trial with and
+    without them gives equal stats."""
+    _assert_options_change_nothing(tmp_path, package, MIXTURE_OPTIONS)
+
+
+def _assert_options_change_nothing(tmp_path, package, options):
     rows = fixtures.build_math_rows(8, seed=4)
     if package == "jax":
         from areal_tpu.api.config import ModelAbstraction as JMA
@@ -420,7 +434,7 @@ def test_episode_options_leave_the_trial_unchanged(tmp_path, package):
     torch.set_num_threads(1)  # the CPU kernels then reduce in one order
     try:
         plain = run(cfg("plain"))
-        with_opts = run(cfg("episodes", **EPISODE_OPTIONS))
+        with_opts = run(cfg("options", **options))
     finally:
         torch.set_num_threads(threads)
     assert len(plain) == len(with_opts) == 2
@@ -670,3 +684,32 @@ def test_worker_serves_concurrent_mfcs(tmp_path):
         assert set(r["meta"].keys) == set(nodes[name].output_keys)
     for sid in ids:
         assert {"rewards", "packed_ref_logprobs"} <= worker.data_cache[sid].keys
+
+
+@pytest.mark.parametrize("kw,message", [
+    (dict(mixture_weights={"math": 0.0}), "must be a positive number"),
+    (dict(mixture_adaptive=True), "mixture_adaptive needs mixture_weights"),
+    (dict(verifier_pool=True, trial_name=""), "verifier_pool needs experiment_name and trial_name"),
+], ids=["zero_weight", "adaptive_without_weights", "pool_without_trial"])
+def test_fleet_and_mixture_option_checks_match_jax(tmp_path, kw, message):
+    """The verifier-pool and task-mixture options' checks, as the JAX
+    package words them."""
+    from areal_tpu.experiments import check as jcheck
+
+    cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **kw)
+    with pytest.raises(Exception, match=message):
+        exps.build_ppo_math(cfg)
+    with pytest.raises(Exception, match=message):
+        jcheck.check_ppo_math(cfg)
+
+
+def test_verifier_pool_option_wires_the_reward_interface(tmp_path):
+    """`verifier_pool=True` hands the reward interface the trial's
+    experiment and trial to discover its fleet, as the JAX builder does."""
+    cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), verifier_pool=True,
+                              experiment_name="e-pool", trial_name="t-pool")
+    plan = exps.build_ppo_math(cfg)
+    rew = next(n for n in plan.dfg.nodes if n.name == "rew_inf")
+    got = {k: v for k, v in rew.interface_impl.args.items()
+           if k.startswith(("verifier_pool", "pool_"))}
+    assert got == {"verifier_pool": True, "pool_experiment": "e-pool", "pool_trial": "t-pool"}

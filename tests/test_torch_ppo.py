@@ -265,19 +265,20 @@ def test_inference_matches_jax(weights, rollout):
 
 
 def test_unported_branches_raise(weights, critic_weights, tmp_path):
-    """The branches still to come raise, naming their item: the verifier
-    fleet.  (The critic's streamed train step, the imp-ratio sentinel,
-    remote grading and code grading, once refused here, are ported:
-    tests/test_torch_stream.py, tests/test_torch_async_rl.py and
-    tests/test_torch_reward_service.py.)"""
+    """The branches once refused here run: the critic's streamed train
+    step, the imp-ratio sentinel, remote grading, code grading and the
+    verifier fleet (tests/test_torch_stream.py,
+    tests/test_torch_async_rl.py, tests/test_torch_reward_service.py and
+    tests/test_torch_verifier_pool.py hold them against the JAX
+    package)."""
     critic = _port_critic(critic_weights)
     state = PPOCriticInterface().train_stream_begin(critic, MicroBatchSpec())
     assert state["engine"]["n_chunks"] == 0
     assert PPOActorInterface(anomaly_imp_ratio_max=2.0).anomaly_imp_ratio_max == 2.0
     assert MultiTaskRewardInterface(remote_url="http://localhost:1").remote_url
     assert MultiTaskRewardInterface().verify("code", "print(1)", {}) is False  # no fence
-    with pytest.raises(NotImplementedError, match="queue 1, item 7.5"):
-        MultiTaskRewardInterface(verifier_pool=True)
+    pooled = MultiTaskRewardInterface(verifier_pool=True, pool_experiment="e", pool_trial="t")
+    assert pooled.verifier_pool and pooled._pool is None  # the client is built at first use
 
 
 VALUE_VARIANTS = {

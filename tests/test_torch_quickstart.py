@@ -88,9 +88,6 @@ UNPORTED = [
     (["--gen-allocation", "d1"], "item 8"),
     (["--gen-server-url", "tcp://localhost:1"], "item 7.8"),
     (["--gen-server-url", "zmq://localhost:1"], "item 7.8"),
-    (["--verifier-pool"], "item 7.5"),
-    (["--mixture-weight", "math=1"], "item 7.5"),
-    (["--mixture-adaptive"], "item 7.5"),
 ]
 
 
@@ -174,6 +171,9 @@ FORMERLY_UNPORTED = [
     ["--recover-retries", "1"],
     ["--mfc-timeout-s", "60"],
     ["--worker-heartbeat-s", "2"],
+    ["--verifier-pool"],
+    ["--mixture-weight", "math=3", "--mixture-weight", "code=1"],
+    ["--mixture-adaptive", "--mixture-weight", "math=1"],
 ]
 
 
@@ -208,11 +208,22 @@ def test_formerly_unported_flag_runs(tmp_path, ckpt_dir, data_path, flags, monke
              for f in flags]
     if "--multiprocess" in flags:
         _keep_runtime_env(monkeypatch)
+    verifier = None
+    if "--verifier-pool" in flags:
+        # One announced verifier of the trial's fleet grades every batch.
+        from areal_tpu_torch.system.verifier_pool import VerifierWorker
+
+        verifier = VerifierWorker(port=0)
+        verifier.announce("ppo-math", "trial0", "v0", ttl=30.0)
     try:
         stats = quickstart.main(_argv(ckpt_dir, data_path, tmp_path, *flags), device="cpu")
     finally:
         if server is not None:
             server.close()
+        if verifier is not None:
+            verifier.close()
+    if verifier is not None:
+        assert verifier.graded == 2 * 4 * 2  # steps x prompts x group size
     assert len(stats) == 2 and np.isfinite(stats[-1]["actor_train/actor_loss"])
     recover_dir = os.path.join(tmp_path, "checkpoints", "ppo-math", "trial0", "actor@0",
                                "recover_checkpoint")

@@ -5,7 +5,9 @@ package's `post_verify` and the JAX service the port's (one wire
 format); `RemoteVerifier` falls back to local grading with the service
 down and counts each failure by reason; the reward interface grades
 through `remote_url` exactly as in-process, code rows included;
-`RewardFabric`; the verifier CLI; and the sandbox's program unaffected
+`RewardFabric`; the verifier CLI (alone and as a fleet member); the
+reward interface's `verifier_pool` (refused without a fleet to discover,
+as in the JAX package); and the sandbox's program unaffected
 by a process forked beside it (the sympy pool's fork).
 
 The JAX package's service is sent code items one batch at a time only:
@@ -179,8 +181,22 @@ def test_reward_interface_remote_equals_in_process(services):
 
 
 def test_verifier_pool_is_refused():
-    with pytest.raises(NotImplementedError, match="item 7.5"):
-        MultiTaskRewardInterface(verifier_pool=True)
+    """`verifier_pool=True` without the experiment and trial whose fleet
+    it discovers is refused at its first grade, with the JAX package's
+    message; the interface itself constructs (its pool client is built
+    at first use).  Grading through a fleet: tests/test_torch_verifier_pool.py."""
+    from areal_tpu.interfaces.reward import MultiTaskRewardInterface as JReward
+
+    tok = CharTokenizer(512)
+    rows = [{"query_id": "m0", "prompt": "1+1? ", "task": "math", "solutions": [r"\boxed{2}"]}]
+    sample = _rollout(tok, rows, [[r"\boxed{2}"]])
+    model = Model(name="reward", engine=None, tokenizer=tok, config=None)
+    port = MultiTaskRewardInterface(id2info={"m0": rows[0]}, verifier_pool=True)
+    with pytest.raises(ValueError, match="needs pool_experiment and pool_trial") as got:
+        port.inference(model, sample, MicroBatchSpec())
+    with pytest.raises(ValueError) as want:
+        JReward(verifier_pool=True)._verifier_pool()
+    assert str(got.value) == str(want.value)
 
 
 def test_reward_fabric(services):
@@ -208,8 +224,25 @@ def test_verifier_cli(monkeypatch):
     verifier.main(["--port", "0", "--token", "t", "--max-workers", "3"],
                   serve=lambda host, port, **kw: got.update(host=host, port=port, **kw))
     assert got == {"host": "127.0.0.1", "port": 0, "token": "t", "max_workers": 3}
-    with pytest.raises(SystemExit, match="item 7.5"):
-        verifier.main(["--experiment", "e", "--trial", "t"], serve=lambda *a, **k: None)
+    got.clear()
+    verifier.main([], serve=lambda host, port, **kw: got.update(host=host, port=port, **kw))
+    assert got["port"] == 8090
+    # A fleet member (run to its end: an already-due kill crashes it at
+    # once, its key left to the TTL): --experiment and --trial announce it.
+    from areal_tpu_torch.base import name_resolve, names, tracer
+
+    monkeypatch.setenv("AREAL_FAULTS", "kill@t=0s")
+    tracer._reset_for_tests()
+    worker = verifier.main(["--experiment", "e-cli", "--trial", "t", "--server-id", "v9",
+                            "--ttl", "30"], serve=None)
+    tracer._reset_for_tests()
+    assert worker._crashed
+    key = names.verifier_server("e-cli", "t", "v9")
+    assert name_resolve.get(key) == worker.url
+    name_resolve.delete(key)
+    for bad in (["--trial", "t"], ["--experiment", "e"]):
+        with pytest.raises(SystemExit):
+            verifier.main(bad, serve=lambda *a, **k: None)
 
 
 def test_sandbox_ignores_a_concurrent_fork(monkeypatch):

@@ -7,8 +7,8 @@ server, deadlines, the breaker's open and probe, a hung health poll,
 `completed_groups`, the episode-runner hook, fleet discovery (a late
 join, a leave drained and reaped) and the param store's version pins
 (each server's, each dispatch's, moving as a laggard catches up).  Also
-the circuit breaker on a fake clock, and the refusal of what is not yet
-ported (task mixtures)."""
+the circuit breaker on a fake clock.  The controller's task mixtures:
+tests/test_torch_mixture.py."""
 
 import asyncio
 import time
@@ -340,16 +340,6 @@ def test_controller_outcomes_are_the_reference_cases():
     assert c["calls"] == ["q2", "q3", "q4", "q5"] and c["stat"]["submitted"] == 6
     br = _scenario("port", "breaker")
     assert br == dict(opens=1, reclosed=True, state="closed", accepted=1, failed=0, retried=2)
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(mixture=object()), "item 7.5"),
-], ids=["mixture"])
-def test_unported_controller_options_raise(kw, item):
-    api, replay, _ = PKGS["port"]
-    rb = replay.ReplayBuffer()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        trollout.RolloutController([_FakeClient(api)], rb, _g(api), **kw)
 
 
 def test_breaker_transitions_match_jax():
