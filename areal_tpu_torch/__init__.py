@@ -80,4 +80,12 @@ Slice 20, the tracer, the verifier fleet and task mixtures:
     apps/trace_report.py  merge, attribution, bubbles, pipeline, lineage, flight views
     system/verifier_pool.py  VerifierWorker, VerifierPool, verifier_discovery
     data/mixture.py       TaskMixtureStream: weighted task streams for the controller
+
+Slice 21, the metrics plane and the SLO fleet supervisor:
+
+    base/metrics.py       the registry, windows, MetricsServer (/metrics), the parser
+    apps/metrics_report.py  fleet signals, SLO rules and the watchdog over /metrics
+    system/fleet.py       FleetSupervisor and SupervisorLane: spawn and drain on SLO verdicts
+    apps/fleet.py         python -m areal_tpu_torch.apps.fleet: the supervisor's CLI
+    analysis/costmodel.py compose_step, the master's advisor residual
 """

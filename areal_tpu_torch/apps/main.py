@@ -14,7 +14,10 @@ Two ways to run a plan:
   build directory in their environment.  A watch on the processes fails
   the attempt as soon as a worker exits; with `recover_retries` the
   launcher then stops every worker, resubmits them all and the master
-  resumes from the last recover checkpoint.
+  resumes from the last recover checkpoint.  Each attempt serves the
+  master's metrics registry at ``GET /metrics``, announced as the trial's
+  ``master`` role (the in-process trial starts no server, as in the JAX
+  package).
 
 The launcher's process runs only the master and needs no CUDA context.
 """
@@ -27,7 +30,7 @@ import sys
 import time
 from typing import Callable, Dict, List, Optional
 
-from areal_tpu_torch.base import name_resolve, tracer
+from areal_tpu_torch.base import metrics, name_resolve, tracer
 from areal_tpu_torch.experiments.common import ExperimentPlan
 from areal_tpu_torch.scheduler import JobException, JobState, make_scheduler
 from areal_tpu_torch.scheduler.client import read_log_tail
@@ -190,6 +193,12 @@ def run_experiment(
         sched = make_scheduler("local", plan.experiment_name, f"{plan.trial_name}-attempt{attempt}",
                                env=env, log_root=os.path.join(plan.fileroot, "logs"))
         _mark(timeline, "submit", attempt=attempt)
+        # The master's metrics plane (it runs in this process): serve the
+        # default registry and announce it as the trial's "master" role,
+        # beside the workers' own servers (apps/worker.py).
+        metrics_server = metrics.MetricsServer(
+            announce=(plan.experiment_name, plan.trial_name, "master")
+        )
         for i in range(len(plan.worker_configs)):
             sched.submit(f"model_worker/{i}", [
                 sys.executable, "-m", "areal_tpu_torch.apps.worker",
@@ -213,5 +222,6 @@ def run_experiment(
                 raise
             logger.info(f"recovering (attempt {attempt + 1})")
         finally:
+            metrics_server.close()
             sched.stop_all()
     raise last_err  # pragma: no cover

@@ -10,7 +10,10 @@ The scheduler launches it as
 
 with `AREAL_NAME_RESOLVE=file`, `AREAL_NAME_RESOLVE_ROOT` (the trial's
 store), `AREAL_TRIAL_AUTHKEY` and `AREAL_WORKER_HEARTBEAT_S` set by the
-launcher (`apps/main.py`).  The device is the card unless the launcher
+launcher (`apps/main.py`).  Each worker serves its metrics registry at
+``GET /metrics``, announced as the trial's ``model_worker/<index>`` role
+for `apps/metrics_report.py`, and deletes the key on exit.  The device
+is the card unless the launcher
 passes `--device cpu`: a worker never moves to the CPU because it found
 no card.  Besides the built-in control commands, the worker answers
 `runtime_stats`: its pid, device, kernel launch counts and peak device
@@ -58,7 +61,7 @@ def main(argv=None):
                         format=f"%(asctime)s worker{args.index} %(name)s: %(message)s")
     logger = logging.getLogger(f"areal_tpu_torch.worker{args.index}")
 
-    from areal_tpu_torch.base import seeding, tracer
+    from areal_tpu_torch.base import metrics, seeding, tracer
     from areal_tpu_torch.base.device import resolve_device
     from areal_tpu_torch.system.stream import run_worker_stream
     from areal_tpu_torch.system.transfer import ConnTransfer
@@ -69,6 +72,9 @@ def main(argv=None):
     # Shard trace_worker_<index>.jsonl in AREAL_TRACE_DIR (the launcher
     # exports it when tracing is on).
     tracer.configure(role="worker", rank=args.index)
+    metrics_server = metrics.MetricsServer(
+        announce=(args.experiment, args.trial, f"model_worker/{args.index}")
+    )
     with open(os.path.join(args.config, f"worker_{args.index}.pkl"), "rb") as f:
         config = pickle.load(f)
     seeding.set_random_seed(config.seed, config.worker_index)
@@ -84,6 +90,7 @@ def main(argv=None):
         tracer.flush()
         transfer.close()
         control.stop()
+        metrics_server.close()
     logger.info(f"worker {args.index} exiting")
 
 

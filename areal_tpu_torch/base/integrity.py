@@ -2,11 +2,13 @@
 of the verdict and checksum parts of areal_tpu/base/integrity.py).
 
 A train step's verdict is a small integer carried as a float through the
-stats; each set bit names one anomaly.  The port's engine sets only
-NONFINITE (its always-on guard); the other bits belong to the tunable
-sentinels, which are not yet ported, and keep their values so verdicts
-read the same in both packages.  `record_anomaly` counts trips by kind
-in `ANOMALY_COUNTS` (the JAX package bumps a metrics counter).
+stats; each set bit names one anomaly.  The engine sets NONFINITE (its
+always-on guard) and the tunable GRAD_SPIKE and UPDATE_NORM sentinels
+(`engines/train.py`); the batch sentinels (`interfaces/ppo.py`) set
+KL_BLOWUP, IMP_RATIO and DEGENERATE_VAR.  The bits keep the JAX
+package's values, so verdicts read the same in both packages.
+`record_anomaly` bumps `areal_train_anomaly_total{kind}` once per set
+bit, as the JAX package does.
 
 The weight checksum is a cheap per-leaf L2-norm vector (plus leaf and
 element counts) stamped by the pusher and verified by the receiver
@@ -17,7 +19,6 @@ checksum taken on the JAX package's tree verifies against the port's.
 A quarantined step goes into the master's ledger as a `QuarantineEntry`
 (step, verdict, its kinds, the step's data ids)."""
 
-import collections
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -42,9 +43,6 @@ _KIND_BITS = (
     (DEGENERATE_VAR, "degenerate_variance"),
 )
 
-ANOMALY_COUNTS: "collections.Counter[str]" = collections.Counter()
-
-
 def verdict_kinds(verdict: float) -> List[str]:
     """Decode a packed verdict scalar into its anomaly kind names."""
     v = int(verdict)
@@ -52,8 +50,9 @@ def verdict_kinds(verdict: float) -> List[str]:
 
 
 def record_anomaly(verdict: float) -> None:
-    """Count one trip per set bit of `verdict`."""
-    ANOMALY_COUNTS.update(verdict_kinds(verdict))
+    """Bump `areal_train_anomaly_total{kind=...}` once per set bit."""
+    for kind in verdict_kinds(verdict):
+        M_ANOMALY.labels(kind).inc()
 
 
 # ---------------- weight checksum ----------------
@@ -114,6 +113,11 @@ def params_checksum(tree: Any, device=None) -> np.ndarray:
     return np.asarray(head + norms, np.float64)
 
 
+M_ANOMALY = metrics.default_registry().counter(
+    "areal_train_anomaly_total",
+    "train-step anomaly sentinel trips, by kind",
+    ("kind",),
+)
 M_PUSH_REJECTED = metrics.default_registry().counter(
     "areal_gen_weight_push_rejected_total",
     "weight pushes rejected by the receiver's content checksum",

@@ -6,9 +6,10 @@ and epoch counters, the frequency controls' states, the data workers'
 versions, the ids the difficulty filter removed, the quarantine ledger,
 and for asynchronous RL the replay buffer's watermarks and the rollout
 pipeline's state (with a task mixture's per-task cursors) and the param
-store's.  The JAX package's `fleet_state` (the fleet supervisor's) comes
-with the supervisor (ROADMAP queue 1, item 7.5's last part).  A record
-from before a field was added loads with the field's default (`load`).
+store's, and the fleet supervisor's membership epochs (`fleet_state`,
+written by `FleetSupervisor.persist` beside what the master wrote).  A
+record from before a field was added loads with the field's default
+(`load`).
 
 A recover save stages into ``recover_checkpoint.tmp.<step>``, writes and
 fsyncs a ``MANIFEST.json`` (the file list with sizes, the step, the
@@ -81,6 +82,10 @@ class RecoverInfo:
     # Quarantined steps (`integrity.quarantine_entry`) and the live streak.
     quarantine_ledger: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     consecutive_quarantines: int = 0
+    # The fleet supervisor's state (`system/fleet.py FleetSupervisor`):
+    # its membership epoch, the server set and each lane's epoch and
+    # servers, so a restarted supervisor resumes its epoch counters.
+    fleet_state: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def recover_root(fileroot: str, experiment_name: str, trial_name: str) -> str:

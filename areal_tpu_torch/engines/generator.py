@@ -72,10 +72,22 @@ their launch (the device work lands in the next chunk's span), except
 the speculative admission's ``prefill``, which reads its first tokens.
 No span adds a synchronization.  The ``kv_pool``, ``gen_slots`` and
 ``gen_interrupt`` counters sample the pool and the slots.
+
+Metrics (`base/metrics.py`, the JAX engine's series): the KV gauges
+(``areal_gen_kv_utilization_ratio``, ``_kv_live_tokens``,
+``_kv_allocated_tokens``) at each chunk's pool sample,
+``areal_gen_live_slots`` wherever the live slot count changes,
+``areal_gen_tokens_total`` and ``areal_gen_goodput_tokens_per_second``
+(response tokens over the whole call's wall time, park time included)
+when a call assembles its output, and ``areal_gen_decode_compiles_total``
+beside `decode_compiles`: on the card these count chunk-function builds,
+not XLA compiles.  Every value comes from host integers the loop already
+holds; none reads the device.
 """
 
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -83,7 +95,7 @@ import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import GenerationHyperparameters, SlotGoneError
-from areal_tpu_torch.base import tracer
+from areal_tpu_torch.base import metrics, tracer
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines.packing import bucket_len
 from areal_tpu_torch.engines.paging import PageAllocator, PagePoolExhausted
@@ -359,6 +371,28 @@ class GeneratorEngine:
         self.episodes_evicted = 0
         self.episode_prefix_hits = 0
         self.episode_prefix_misses = 0
+        reg = metrics.default_registry()
+        self._m_tokens = reg.counter("areal_gen_tokens_total", "response tokens generated")
+        self._m_goodput = reg.gauge(
+            "areal_gen_goodput_tokens_per_second",
+            "tokens/s over the last completed generate call",
+        )
+        self._m_decode_compiles = reg.counter(
+            "areal_gen_decode_compiles_total",
+            "jitted decode-chunk program compiles",
+        )
+        self._m_kv_util = reg.gauge(
+            "areal_gen_kv_utilization_ratio",
+            "live KV tokens / allocated cache tokens, last chunk",
+        )
+        self._m_kv_live = reg.gauge("areal_gen_kv_live_tokens", "live KV tokens, last chunk")
+        self._m_kv_alloc = reg.gauge(
+            "areal_gen_kv_allocated_tokens",
+            "allocated KV cache tokens, last chunk",
+        )
+        self._m_live_slots = reg.gauge(
+            "areal_gen_live_slots", "slots live in the current chunk loop"
+        )
         self.set_params(params)
 
     # ---------------- weights ----------------
@@ -406,6 +440,7 @@ class GeneratorEngine:
     def _set_live_slots(self, n: int) -> None:
         self.live_slots = int(n)
         self.load_state = (int(n), self.kv_utilization)
+        self._m_live_slots.set(n)
 
     # ---------------- interruption (async weight sync) ----------------
 
@@ -468,6 +503,8 @@ class GeneratorEngine:
         self.lanes_live = 0
         self.lanes_slack = 0
         self.dead_live_lanes = 0
+        # The goodput gauge's clock: the whole call, park time included.
+        self._gen_t0 = time.monotonic()
         prompt_lens = sample.seqlens_of(prompt_key)
         bounds = sample.cu_seqlens(prompt_key)
         prompts = np.asarray(sample.data[prompt_key])
@@ -667,6 +704,9 @@ class GeneratorEngine:
         st["utilization"] = st["live_tokens"] / max(st["allocated_tokens"], 1)
         self.kv_utilization = int(live_tokens) / max(int(allocated_tokens), 1)
         self.load_state = (self.live_slots, self.kv_utilization)
+        self._m_kv_util.set(self.kv_utilization)
+        self._m_kv_live.set(int(live_tokens))
+        self._m_kv_alloc.set(int(allocated_tokens))
         # KV pool pressure over time, a sample a chunk.
         tracer.counter("kv_pool", live_tokens=int(live_tokens),
                        allocated_tokens=int(allocated_tokens),
@@ -1158,6 +1198,7 @@ class GeneratorEngine:
             )
 
         self.decode_compiles += 1
+        self._m_decode_compiles.inc()
         return fn
 
     # -- agent episodes (multi-turn tool use on parked KV pages) --
@@ -1706,6 +1747,7 @@ class GeneratorEngine:
         if fn is None:
             fn = self._chunk_fns[sig] = build()
             self.decode_compiles += 1
+            self._m_decode_compiles.inc()
         return fn
 
     def _kv_dtype(self):
@@ -2357,6 +2399,13 @@ class GeneratorEngine:
     # -- output assembly --
 
     def _assemble(self, sample, prompt_key, prompt_lens, results, n):
+        toks = sum(len(t[0]) for t in results.values())
+        self._m_tokens.inc(toks)
+        dt = time.monotonic() - getattr(self, "_gen_t0", time.monotonic())
+        if dt > 0:
+            # Wall-clock goodput of the whole call, park time included:
+            # the per-server throughput the fleet table reports.
+            self._m_goodput.set(toks / dt)
         return assemble_rollout(
             sample, prompt_key, n,
             lambda i, r: results[(i, r)],

@@ -1,6 +1,8 @@
 """Host-side refcounted free-list page allocator for the paged KV pool
-(port of areal_tpu/engines/paging.py; the metrics-registry counters are
-left out, the allocator's own counters stay).
+(port of areal_tpu/engines/paging.py).  Besides its own per-session
+counters the allocator bumps the process-wide ``areal_kv_*`` counters
+(prefix hits and misses, copy-on-write copies, shared mappings) that the
+metrics plane trends across generate calls.
 
 The device pool (`models/transformer.py PagedKVCache`) is a dumb array of
 pages; all placement lives here, on the host, between serving chunks:
@@ -20,6 +22,8 @@ from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from areal_tpu_torch.base import metrics
 
 
 class PagePoolExhausted(RuntimeError):
@@ -59,6 +63,23 @@ class PageAllocator:
         # Device bytes per pool page (all layers, K+V, codes + scales for
         # int8 pools); stamped by the engine after building the pool.
         self.page_bytes = 0
+        # Process-wide counters (the allocator itself is per-session): the
+        # prefix-cache hit rate and CoW traffic across generate calls.
+        reg = metrics.default_registry()
+        self._m_prefix_hits = reg.counter(
+            "areal_kv_prefix_hits_total", "prefix-cache page-list hits"
+        )
+        self._m_prefix_misses = reg.counter(
+            "areal_kv_prefix_misses_total", "prefix-cache lookups missed"
+        )
+        self._m_cow_copies = reg.counter(
+            "areal_kv_cow_copies_total",
+            "pages privatised by copy-on-write",
+        )
+        self._m_shared = reg.counter(
+            "areal_kv_shared_mappings_total",
+            "table references served by an already-mapped page",
+        )
 
     # ---------------------------------------------------------------- core
 
@@ -145,6 +166,7 @@ class PageAllocator:
             self.refcount[p] += 1
             self.table[slot, j] = p
             self.shared_mappings += 1
+            self._m_shared.inc()
         self.used[slot] = len(pages)
         self.peak_pages_used = max(self.peak_pages_used, self.allocated_pages())
 
@@ -181,6 +203,7 @@ class PageAllocator:
             self.refcount[src] -= 1  # never hits 0: it was > 1
             self.table[slot, j] = dst
             self.cow_copies += 1
+            self._m_cow_copies.inc()
             pairs.append((src, dst))
         self.peak_pages_used = max(self.peak_pages_used, self.allocated_pages())
         return pairs
@@ -192,9 +215,11 @@ class PageAllocator:
         pages = self._prefix_cache.get(key)
         if pages is None:
             self.prefix_misses += 1
+            self._m_prefix_misses.inc()
             return None
         self._prefix_cache.move_to_end(key)
         self.prefix_hits += 1
+        self._m_prefix_hits.inc()
         return list(pages)
 
     def prefix_insert(self, key, pages: Sequence[int]) -> None:

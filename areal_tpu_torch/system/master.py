@@ -43,6 +43,21 @@ role ``master``: a ``step`` span a step, ``load_data``, the
 ``pipe:<stage>`` spans, and flight dumps at a worker's death and a
 quarantine rollback.
 
+Metrics (`base/metrics.py`, the JAX master's series): each step bumps
+``areal_master_steps_total`` and observes ``areal_master_step_seconds``,
+mirrors the merged per-MFC ``perf/*`` stats into the gauges
+``areal_mfc_wall_seconds``, ``areal_mfc_mfu_ratio`` and
+``areal_mfc_tflops`` (labelled by MFC, ``all`` for an unprefixed key)
+and sets ``areal_master_advisor_pred_err_ratio``, the relative error of
+the per-MFC walls composed through the DFG's levels
+(`analysis/costmodel.compose_step`) against the measured step.  A
+committed recover checkpoint bumps ``areal_ckpt_flips_total`` once a
+flipped dir and stamps ``areal_ckpt_last_success_timestamp_seconds``;
+the quarantine plane keeps ``areal_master_quarantined_steps_total``,
+``areal_master_consecutive_quarantines`` and
+``areal_master_quarantine_rollbacks_total``.  `apps/main.py` serves the
+registry as the trial's ``master`` role.
+
 Asynchronous RL has two step modes (`execute_step` picks one):
 - `rollout_ahead=1` (`_execute_step_async`): the source GENERATE nodes
   of step t+1 run while the rest of step t's graph trains.  The weight
@@ -388,6 +403,48 @@ class MasterWorker:
         # the step's transfer/* stats.
         self._xfer_acc: Dict[str, float] = {}
         reg = metrics.default_registry()
+        self._m_steps = reg.counter("areal_master_steps_total", "train steps completed")
+        self._m_step_seconds = reg.histogram(
+            "areal_master_step_seconds",
+            "wall time per train step",
+            buckets=(0.1, 0.5, 1, 2, 5, 10, 30, 60, 120, 300),
+        )
+        self._m_mfc_seconds = reg.gauge(
+            "areal_mfc_wall_seconds", "last step's wall seconds, per MFC", ("mfc",),
+        )
+        self._m_mfc_mfu = reg.gauge(
+            "areal_mfc_mfu_ratio", "last step's model FLOP utilization, per MFC", ("mfc",),
+        )
+        self._m_mfc_tflops = reg.gauge(
+            "areal_mfc_tflops", "last step's achieved TFLOP/s, per MFC", ("mfc",),
+        )
+        # |composed per-MFC walls - measured step| / measured step: a
+        # drifting residual means the DFG composition no longer tracks the
+        # measured step (metrics_report's `advisor_pred_err`).
+        self._m_advisor_err = reg.gauge(
+            "areal_master_advisor_pred_err_ratio",
+            "relative error of DFG-composed per-MFC walls vs measured step seconds, last step",
+        )
+        self._m_ckpt_flips = reg.counter(
+            "areal_ckpt_flips_total",
+            "recover checkpoints atomically committed (staged dir flipped)",
+        )
+        self._m_ckpt_last_success = reg.gauge(
+            "areal_ckpt_last_success_timestamp_seconds",
+            "unix time of the last committed recover checkpoint",
+        )
+        self._m_quarantined = reg.counter(
+            "areal_master_quarantined_steps_total",
+            "train steps quarantined by the anomaly sentinels",
+        )
+        self._m_consec_quar = reg.gauge(
+            "areal_master_consecutive_quarantines",
+            "current run of consecutive quarantined steps",
+        )
+        self._m_quar_rollbacks = reg.counter(
+            "areal_master_quarantine_rollbacks_total",
+            "checkpoint rollbacks triggered by quarantine streaks",
+        )
         self._m_recoveries = reg.counter(
             "areal_master_recoveries_total",
             "worker-death recoveries absorbed by the master run loop",
@@ -441,6 +498,7 @@ class MasterWorker:
                     continue
                 dt = time.monotonic() - t0
                 stats["time/step_s"] = dt
+                self._export_step_metrics(stats, dt)
                 quarantined = self._note_quarantine(stats)
                 self.stats_history.append(stats)
                 step = self.step_info.global_step + 1
@@ -461,6 +519,43 @@ class MasterWorker:
             self.stats_logger.close()
             tracer.flush()
         return self.stats_history
+
+    def _export_step_metrics(self, stats: Dict[str, float], step_seconds: float) -> None:
+        """Mirror the merged per-MFC perf keys (the worker's `_mfc_perf`)
+        into the labelled gauges: the per-MFC wall and MFU view the fleet
+        watchdog trends."""
+        self._m_steps.inc()
+        self._m_step_seconds.observe(step_seconds)
+        suffixes = (
+            ("perf/time_s", self._m_mfc_seconds),
+            ("perf/mfu", self._m_mfc_mfu),
+            ("perf/tflops", self._m_mfc_tflops),
+        )
+        for k, v in stats.items():
+            for suffix, gauge in suffixes:
+                if k == suffix:
+                    gauge.labels("all").set(float(v))
+                elif k.endswith("/" + suffix):
+                    gauge.labels(k[: -(len(suffix) + 1)]).set(float(v))
+        self._export_advisor_residual(stats, step_seconds)
+
+    def _export_advisor_residual(self, stats: Dict[str, float], step_seconds: float) -> None:
+        """Compose this step's measured per-MFC walls through the DFG's
+        levels and publish the relative error against the measured step."""
+        from areal_tpu_torch.analysis import costmodel
+
+        walls: Dict[str, float] = {}
+        for node in self.dfg.nodes:
+            v = stats.get(f"{node.name}/perf/time_s")
+            if v is None and len(self.dfg.nodes) == 1:
+                v = stats.get("perf/time_s")
+            if v is not None:
+                walls[node.name] = float(v)
+        if not walls or step_seconds <= 0:
+            return
+        levels = [[n.name for n in lvl] for lvl in self.dfg.topological_order()]
+        pred = costmodel.compose_step(levels, walls)
+        self._m_advisor_err.set(abs(pred - step_seconds) / step_seconds)
 
     async def _post_step(self):
         if self.save_ctl.check():
@@ -523,13 +618,17 @@ class MasterWorker:
             k.rsplit("/", 1)[-1] == "quarantined" and v > 0 for k, v in stats.items()
         )
         if not quarantined:
-            self._consecutive_quarantines = 0
+            if self._consecutive_quarantines:
+                self._consecutive_quarantines = 0
+                self._m_consec_quar.set(0.0)
             return False
         verdict = 0
         for k, v in stats.items():
             if k.rsplit("/", 1)[-1] == "anomaly_verdict":
                 verdict |= int(v)
         self._consecutive_quarantines += 1
+        self._m_quarantined.inc()
+        self._m_consec_quar.set(float(self._consecutive_quarantines))
         entry = integrity.quarantine_entry(
             self.step_info.global_step, verdict, self._last_data_ids
         )
@@ -549,6 +648,8 @@ class MasterWorker:
         quarantined step never checkpoints, so it predates the streak),
         within the `max_recoveries` budget."""
         self._recoveries += 1
+        self._m_recoveries.inc()
+        self._m_quar_rollbacks.inc()
         report = {
             "event": "quarantine_rollback",
             "step": self.step_info.global_step,
@@ -576,6 +677,7 @@ class MasterWorker:
         # The rollback resolves the streak (the replayed steps get a fresh
         # verdict); load_recover_info restored the saved state's count.
         self._consecutive_quarantines = 0
+        self._m_consec_quar.set(0.0)
         logger.info(f"quarantine rollback complete; resuming at step "
                     f"{self.step_info.global_step}")
 
@@ -1198,6 +1300,8 @@ class MasterWorker:
             staged_dirs.append((staged, base))
         for staged, base in staged_dirs:
             recover.commit_checkpoint(staged, base)
+            self._m_ckpt_flips.inc()
+        self._m_ckpt_last_success.set(time.time())
         states = await asyncio.gather(
             *[self.pool.request(w, {"type": "data_state"}) for w in self.data_worker_ids]
         )
@@ -1246,6 +1350,7 @@ class MasterWorker:
         if len(info.quarantine_ledger) > len(self._quarantine_ledger):
             self._quarantine_ledger = list(info.quarantine_ledger)
         self._consecutive_quarantines = int(info.consecutive_quarantines or 0)
+        self._m_consec_quar.set(float(self._consecutive_quarantines))
         self._restore_pending = info
         logger.info(f"recovered at step {self.step_info.global_step}")
         return True

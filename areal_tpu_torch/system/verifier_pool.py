@@ -28,10 +28,10 @@ primitive from ``system/fleet.py``:
   pool degrades to the in-process verifier registry — a dead fleet
   degrades throughput, never correctness.
 
-The JAX package's ``FleetSupervisor`` scales the pool through a
+``system/fleet.py``'s ``FleetSupervisor`` scales the pool through a
 ``SupervisorLane`` keyed on the ``grade_latency_p99`` /
-``verifier_queue_depth`` signals of its ``apps/metrics_report.py``; the
-port's supervisor is ROADMAP queue 1 item 7.5's last part.
+``verifier_queue_depth`` signals of ``apps/metrics_report.py``
+(``apps/fleet.py --verifier-spawn-cmd``).
 """
 
 import json

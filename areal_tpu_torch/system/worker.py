@@ -37,7 +37,11 @@ Each MFC is a ``mfc:<model>:<type>`` compute span (`base/tracer.py`)
 carrying its tokens, TFLOPs and MFU; the call returns host data, so the
 span ends where the card's work has finished.  The streamed step's
 chunks and optimizer step are ``mfc:<model>:train_chunk`` and
-``mfc:<model>:train_step`` spans.
+``mfc:<model>:train_step`` spans.  The same calls feed the worker's
+series of the metrics plane (`base/metrics.py`), labelled
+``<model>:<type>``: ``areal_worker_mfc_seconds`` (a histogram of the
+call's wall time), ``areal_worker_mfc_tokens_total`` and, where the call
+has an MFU (on the card), ``areal_worker_mfc_mfu_ratio``.
 
 The master runs each MFC in a thread of its own (`InProcessPool`), so
 two MFCs may run at once (the reward and the reference model's forward,
@@ -77,7 +81,7 @@ from areal_tpu_torch.api.data_api import (
     make_dataset,
 )
 from areal_tpu_torch.api.model_api import FinetuneSpec, Model, OptimizerConfig, make_interface
-from areal_tpu_torch.base import faults, integrity, monitor, seeding, tracer
+from areal_tpu_torch.base import faults, integrity, metrics, monitor, seeding, tracer
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.data.datasets import PackedDataLoader
 from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
@@ -233,6 +237,23 @@ class ModelWorker:
         self.device = resolve_device(device)
         # The bulk plane to the other workers (system/transfer.py), if any.
         self.transfer = transfer
+        reg = metrics.default_registry()
+        self._m_mfc_seconds = reg.histogram(
+            "areal_worker_mfc_seconds",
+            "MFC wall time on this worker",
+            ("mfc",),
+            buckets=(0.05, 0.1, 0.5, 1, 2, 5, 10, 30, 60, 120),
+        )
+        self._m_mfc_mfu = reg.gauge(
+            "areal_worker_mfc_mfu_ratio",
+            "last model FLOP utilization, per MFC",
+            ("mfc",),
+        )
+        self._m_mfc_tokens = reg.counter(
+            "areal_worker_mfc_tokens_total",
+            "tokens processed, per MFC",
+            ("mfc",),
+        )
         # Transfers that arrived for another request, by xfer id.  One
         # thread at a time drains the plane (`_recv_xfer`); the rest wait
         # on the condition for their id to land here.
@@ -396,6 +417,13 @@ class ModelWorker:
                 out_sample.remap_keys_(req.get("output_key_remap", {}))
             perf = self._mfc_perf(model, itype, sample, out_sample, seconds)
             perf.update(timers.drain())
+            mfc_label = f"{model_key}:{itype.value}"
+            self._m_mfc_seconds.labels(mfc_label).observe(seconds)
+            if "perf/mfu" in perf:
+                self._m_mfc_mfu.labels(mfc_label).set(perf["perf/mfu"])
+            self._m_mfc_tokens.labels(mfc_label).inc(
+                int(sum(sum(x) for x in sample.seqlens[next(iter(sample.keys))]))
+            )
             if tracer.enabled():
                 targs["mfc"] = f"{model_key}:{itype.value}"
                 # The packed key: a scalar key's lens are 1 a sequence.
@@ -460,6 +488,7 @@ class ModelWorker:
         if tracer.enabled():
             targs["tokens"] = int(sum(lens))
             targs["chunk"] = st["n_chunks"] - 1
+        self._m_mfc_tokens.labels(f"{key}:train_chunk").inc(int(sum(lens)))
         return {"meta": None, "stats": dict(stats)}
 
     def _handle_train_stream_abort(self, req):
@@ -488,6 +517,10 @@ class ModelWorker:
             perf.update(self._flops_perf(
                 monitor.flops_train(model.config, st["tokens"], st["sum_sq"]), st["busy_s"]))
         perf.update(st["timers"].drain())
+        mfc_label = f"{key}:train_step"
+        self._m_mfc_seconds.labels(mfc_label).observe(st["busy_s"])
+        if "perf/mfu" in perf:
+            self._m_mfc_mfu.labels(mfc_label).set(perf["perf/mfu"])
         if tracer.enabled():
             targs["stream_chunks"] = st["n_chunks"]
             targs["tokens"] = st["tokens"]

@@ -260,11 +260,18 @@ multiproc    — the multi-process runtime at qwen2-1.5B's width and 7 layers
                (a)'s, both on the card; (c) recover checkpoints every
                step and worker 0 killed (exit 43) at step 2's train step:
                the retry resubmits both workers, resumes from step 1 and
-               its step 2 equals (b)'s bit for bit.  Each step's
+               its step 2 equals (b)'s bit for bit; (d) in (b)'s and
+               (c)'s runs, while the workers serve, `python -m
+               areal_tpu_torch.apps.metrics_report --json` finds exactly
+               master, model_worker/0 and model_worker/1 and exits 0; the
+               master's step count, each worker MFC's calls and each
+               MFC's MFU (in (0, 1], equal to the last step's perf/mfu)
+               read from /metrics; advisor_pred_err, mfc_mfu_min/max and,
+               with recover checkpoints, ckpt_age present.  Each step's
                transfer/* stats, the param push's split (gather,
-               checksum, encode, wire, verify, load), each worker's peak
-               and the retry's detection, relaunch and restore seconds
-               are printed.
+               checksum, encode, wire, verify, load), each worker's peak,
+               each MFC's MFU and the retry's detection, relaunch and
+               restore seconds are printed.
 fabric       — the param store and the broadcast-tree weight push at
                qwen2-1.5B's full width (7 layers, FABRIC_LAYERS, since
                the verifiers phase joined; bf16 servers) from a seeded
@@ -305,6 +312,28 @@ verifiers    — the verifier fleet, task mixtures and the tracer at
                killed verifier's dump, --lineage), validate_trace clean;
                step walls traced and untraced, each process's spans,
                shard bytes and flush seconds.
+supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 7 layers
+               (CUT_LAYERS, bf16) from the seeded checkpoint of that depth:
+               a GenerationServer in this process (s8401), a
+               FleetSupervisor (min 1, max 2, `crit: queue_depth <= 16`)
+               spawning `python -m areal_tpu_torch.system.gen_server`
+               through LocalProcessFleet(sid_prefix="s"), and a verifier
+               lane (min 1) over `python -m areal_tpu_torch.apps.verifier`;
+               a RolloutController over fleet_discovery streams serving-
+               plane requests (a stop sequence) until the queue's CRIT has
+               spawned s8402 and it has served.  Checked: the lane's
+               refill; the spawn, dispatches to s8402 and both servers'
+               areal_gen_tokens_total rising by the tokens the controller
+               received; goodput, kv_utilization, live_slots and
+               version_skew in the rounds' signals; K2 = 7 x inner steps
+               in this process, no K1f/K3/K4, no host sync in a chunk;
+               three idle rounds drain s8402, whose process exits within
+               the drain grace and whose weights and KV pool come back to
+               the card; a SIGKILLed verifier evicted by its TTL and
+               refilled; a second supervisor resuming both epochs from the
+               recover root.  A round's seconds, CRIT to spawn, spawn to
+               announce, announce to first tokens, drain to exit, the
+               memory freed and kill to refill are printed.
 episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
@@ -355,7 +384,9 @@ fused MFC, the BPE reader and the null trials,
 generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes, `--phases build,quickstart,async` for asynchronous RL,
 `--phases build,quickstart,multiproc` for the multi-process runtime,
-`--phases build,verifiers` for the verifier fleet, mixtures and the tracer.  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+`--phases build,verifiers` for the verifier fleet, mixtures and the tracer,
+`--phases build,supervisor` for the SLO fleet supervisor (it writes the
+7-layer checkpoint itself).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -376,7 +407,8 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "fabric", "verifiers", "episodes", "parity", "train_parity")
+          "async", "multiproc", "fabric", "verifiers", "supervisor", "episodes", "parity",
+          "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -3802,7 +3834,7 @@ def phase_quickstart(report, seed):
 # after the last phase that uses them.
 SHARED_CKPTS = {}
 CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
-               "multiproc", "fabric", "verifiers")
+               "multiproc", "fabric", "verifiers", "supervisor")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -7070,6 +7102,94 @@ def _worker_stats(plan, seen):
     return on_finish
 
 
+def _card():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def _counter(name):
+    """A series of this process's default registry (0 when unregistered)."""
+    from areal_tpu_torch.base import metrics
+
+    m = metrics.default_registry().get(name)
+    return m.get() if m is not None else 0.0
+
+
+def _metrics_plane(plan, seen):
+    """(d), in on_finish while the workers still serve: `python -m
+    areal_tpu_torch.apps.metrics_report --json` over the trial's announced
+    roles (two scrapes, a CRIT rule that holds), and one in-process scrape
+    of the same endpoints for the labelled series the JSON does not
+    carry; checked after the trial by `_check_metrics_plane`."""
+    from areal_tpu_torch.apps import metrics_report as mr
+
+    E, T = plan.experiment_name, plan.trial_name
+
+    def on_finish(master):
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, "-m", "areal_tpu_torch.apps.metrics_report",
+                            "--experiment", E, "--trial", T, "--count", "2", "--interval", "0.5",
+                            "--json", "--slo", "crit: version_skew <= 0"],
+                           capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
+        seen["report_s"] = time.monotonic() - t0
+        seen["rc"], seen["stderr"] = r.returncode, r.stderr[-3000:]
+        seen["lines"] = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+        seen["scrape"] = {x.role: x for x in mr.scrape_fleet(mr.discover(E, T))}
+        seen["stats"] = list(master.stats_history)
+    return on_finish
+
+
+def _check_metrics_plane(tag, seen, steps_before, want_ckpt):
+    """The metrics report saw exactly the trial's three roles, exited 0,
+    and its numbers are the trial's: the master's step count, each
+    worker's MFC calls, each MFC's MFU equal to the last step's
+    ``<mfc>/perf/mfu`` stat, in (0, 1]."""
+    check(seen["rc"] == 0, f"{tag} metrics_report exited {seen['rc']}: {seen['stderr']}")
+    lines = seen["lines"]
+    check(len(lines) == 2, f"{tag} metrics_report printed {len(lines)} JSON lines")
+    last = lines[-1]
+    roles = [row["role"] for row in last["roles"]]
+    check(roles == ["master", "model_worker/0", "model_worker/1"]
+          and all(row["ok"] for row in last["roles"]), f"{tag} metrics roles {last['roles']}")
+    check(not last["violations"], f"{tag} violations {last['violations']}")
+    sig = last["signals"]
+    stats = seen["stats"]
+    if steps_before is not None:
+        check(sig.get("areal_master_steps_total") == steps_before + len(stats),
+              f"{tag} areal_master_steps_total {sig.get('areal_master_steps_total')} != "
+              f"{steps_before} + {len(stats)} steps")
+    for w in ("model_worker/0", "model_worker/1"):
+        calls = {lb["mfc"]: v for n, lb, v in seen["scrape"][w].samples
+                 if n == "areal_worker_mfc_seconds_count"}
+        check(calls and all(v == len(stats) for v in calls.values()),
+              f"{tag} {w}'s MFC calls {calls}, want {len(stats)} each")
+        log(f"[multiproc] {tag} {w}: MFC calls {calls}")
+    want = {k[:-len("/perf/mfu")]: v for k, v in stats[-1].items() if k.endswith("/perf/mfu")}
+    mfus = {lb["mfc"]: v for n, lb, v in seen["scrape"]["master"].samples
+            if n == "areal_mfc_mfu_ratio" and lb.get("mfc") in want}
+    check(want and mfus == want and all(0 < v <= 1 for v in mfus.values()),
+          f"{tag} areal_mfc_mfu_ratio {mfus} != the last step's perf/mfu {want}")
+    for key in ("advisor_pred_err", "mfc_mfu_min", "mfc_mfu_max") + (
+            ("ckpt_age",) if want_ckpt else ()):
+        check(key in sig, f"{tag} signal {key} missing from {sorted(sig)}")
+    log(f"[multiproc] {tag} metrics_report: roles {roles}, exit 0 in {seen['report_s']:.1f} s; "
+        f"areal_master_steps_total {sig.get('areal_master_steps_total')}, advisor_pred_err "
+        f"{sig['advisor_pred_err']:.4f}, mfc_mfu_min {sig['mfc_mfu_min']:.4f}, mfc_mfu_max "
+        f"{sig['mfc_mfu_max']:.4f}" + (f", ckpt_age {sig['ckpt_age']:.1f} s" if want_ckpt else ""))
+    log(f"[multiproc] {tag} MFU per MFC (last step, {_card()}): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(mfus.items())))
+    return mfus
+
+
+def _both(*fns):
+    def on_finish(master):
+        for fn in fns:
+            fn(master)
+    return on_finish
+
+
 def phase_multiproc(report, seed):
     """The multi-process runtime at qwen2-1.5B's full width and CUT_LAYERS
     layers, from a seeded checkpoint of that depth (char tokenizer, 64 math
@@ -7086,6 +7206,15 @@ def phase_multiproc(report, seed):
         control server) equal to B's; both on cuda:0, with their peaks,
         and both pids among nvidia-smi's compute processes when it lists
         any; each step's transfer/* stats and the param push's split.
+    (d) in (b)'s on_finish, while the workers serve: `python -m
+        areal_tpu_torch.apps.metrics_report --json` over the trial finds
+        exactly master, model_worker/0 and model_worker/1 and exits 0
+        (a CRIT rule that holds); areal_master_steps_total rose by the
+        steps run, each worker MFC's areal_worker_mfc_seconds_count equals
+        its calls, each areal_mfc_mfu_ratio{mfc} lies in (0, 1] and equals
+        the last step's <mfc>/perf/mfu; advisor_pred_err, mfc_mfu_min and
+        mfc_mfu_max are present, and ckpt_age too in (c), whose trial
+        commits recover checkpoints.
     (c) C: U's plan with recover checkpoints every step, recover_retries
         1 and kill@point=mfc_train_step&skip=1&times=1 in worker 0's
         environment: worker 0 exits 43 at step 2's train step, the watch
@@ -7159,10 +7288,12 @@ def phase_multiproc(report, seed):
 
         # (b) U: each worker a process of its own.
         plan_u = _multiproc_plan(cfg, ckpt, data, work, seed, "U")
-        seen_u, tl_u = {}, []
+        seen_u, tl_u, plane_u = {}, [], {}
+        steps_before = _counter("areal_master_steps_total")
         t0 = time.monotonic()
-        stats_u = runner.run_experiment(plan_u, on_finish=_worker_stats(plan_u, seen_u),
-                                        timeline=tl_u)
+        stats_u = runner.run_experiment(
+            plan_u, on_finish=_both(_worker_stats(plan_u, seen_u), _metrics_plane(plan_u, plane_u)),
+            timeline=tl_u)
         u_s = time.monotonic() - t0
         check(len(stats_u) == 2, f"[multiproc] (b) {len(stats_u)} steps")
         for i, (u, b) in enumerate(zip(stats_u, stats_b)):
@@ -7205,14 +7336,16 @@ def phase_multiproc(report, seed):
         connect_s = tl_u[1]["t"] - tl_u[0]["t"]
         log(f"[multiproc] (b) U: {u_s:.1f} s (workers up and connected in {connect_s:.1f} s), "
             f"launches summed over the workers {summed}")
+        mfu_u = _check_metrics_plane("(d)", plane_u, steps_before, want_ckpt=False)
 
         # (c) C: kill worker 0 at step 2's train step; the retry resumes.
         plan_c = _multiproc_plan(cfg, ckpt, data, work, seed, "C", ckpt_freq=1)
-        seen_c, tl_c = {}, []
+        seen_c, tl_c, plane_c = {}, [], {}
         clock = time.time() - time.monotonic()
         t0 = time.monotonic()
         stats_c = runner.run_experiment(
-            plan_c, recover_retries=1, timeline=tl_c, on_finish=_worker_stats(plan_c, seen_c),
+            plan_c, recover_retries=1, timeline=tl_c,
+            on_finish=_both(_worker_stats(plan_c, seen_c), _metrics_plane(plan_c, plane_c)),
             worker_envs={0: {"AREAL_FAULTS": "kill@point=mfc_train_step&skip=1&times=1"}})
         c_s = time.monotonic() - t0
         events = [(e["event"], e.get("attempt")) for e in tl_c]
@@ -7240,9 +7373,11 @@ def phase_multiproc(report, seed):
             f"workers connected) {relaunch_s:.1f} s; the restore {seen_c['restore_s']:.2f} s; "
             f"resumed step 2 {stats_c[0]['time/step_s']:.2f} s, its {len(tc)} stats equal to "
             "U's step 2 bit for bit")
+        _check_metrics_plane("(d) C", plane_c, None, want_ckpt=True)
         out = dict(launches=summed, b_s=b_s, u_s=u_s, c_s=c_s, peak_b=peak_b,
                    peaks={k: w["max_memory_allocated"] for k, w in workers.items()},
-                   detect_s=detect_s, relaunch_s=relaunch_s, restore_s=seen_c["restore_s"])
+                   detect_s=detect_s, relaunch_s=relaunch_s, restore_s=seen_c["restore_s"],
+                   mfu=mfu_u, report_s=plane_u["report_s"])
     finally:
         wlog.removeHandler(handler)
         wlog.setLevel(old_level)
@@ -7393,16 +7528,16 @@ def _fabric_fleet(ckpt, eos, experiment, trial, base_port, logs_dir, faults=""):
                              drain_grace_s=1.0, sid_prefix="s")
 
 
-def _wait_for(cond, timeout, what, procs=()):
+def _wait_for(cond, timeout, what, procs=(), tag="[fabric]"):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if cond():
             return
         for p in procs:
-            check(p.poll() is None, f"[fabric] a spawned server exited ({p.returncode}) while "
+            check(p.poll() is None, f"{tag} a spawned server exited ({p.returncode}) while "
                   f"waiting for {what}")
         time.sleep(0.1)
-    check(False, f"[fabric] timed out after {timeout} s waiting for {what}")
+    check(False, f"{tag} timed out after {timeout} s waiting for {what}")
 
 
 def _fabric_probe(urls, prompts):
@@ -8531,6 +8666,509 @@ def phase_verifiers(report, seed):
     report["verifiers"] = out
 
 
+# --------------------------------------------------------------------------
+# Phase: the SLO fleet supervisor over the metrics plane
+# --------------------------------------------------------------------------
+
+SUPERVISOR_DIR = os.path.join(REPO, ".supervisor_tmp")
+SUPERVISOR_EXPERIMENT = "supervisor"
+# The in-process server and the spawned ones: four digits each, since the
+# drain's victim is the last id in sorted order (s8402 after s8401).
+SUPERVISOR_INPROC_PORT = 8401
+SUPERVISOR_BASE_PORT = 8402
+SUPERVISOR_VERIFIER_PORT = 8411
+SUPERVISOR_QUEUE = 16  # the CRIT rule: crit: queue_depth <= 16
+# The in-process server picks at most 8 requests (x 4 responses: its 32
+# slots) a batch, and the controller keeps 48 in flight: the rest wait in
+# its queue, which each /health refresh publishes (the gauge is not the
+# live queue: ROADMAP queue 3).
+SUPERVISOR_BATCH = 8
+SUPERVISOR_CONCURRENCY = 48
+SUPERVISOR_GROUP = 4
+SUPERVISOR_NEW_TOKENS = 64
+SUPERVISOR_INTERVAL = 0.5  # seconds between supervisor rounds
+SUPERVISOR_COOLDOWN = 10.0
+# The verifier lane's cooldown outlasts the phase: its refills happen
+# inside it, which only a refill may.
+SUPERVISOR_LANE_COOLDOWN = 600.0
+SUPERVISOR_IDLE_ROUNDS = 3
+SUPERVISOR_VERIFIER_TTL = 3.0
+SUPERVISOR_TAIL_S = 4.0  # the burst runs on this long after the new server's first tokens
+
+
+class _StopSupervisor(Exception):
+    pass
+
+
+def _pool_bytes(cfg, pages, page_size=128):
+    """A bf16 paged KV pool's bytes: K and V of every layer."""
+    return pages * page_size * cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * 2
+
+
+def phase_supervisor(report, seed):
+    """The SLO fleet supervisor at qwen2-1.5B's full width and CUT_LAYERS
+    layers in bf16, from the seeded checkpoint of that depth, under a
+    file name_resolve: one GenerationServer in this process (s8401,
+    SUPERVISOR_BATCH requests a batch), a FleetSupervisor (min 1, max 2,
+    SUPERVISOR_COOLDOWN, SUPERVISOR_IDLE_ROUNDS idle rounds, the rule
+    `crit: queue_depth <= SUPERVISOR_QUEUE`, a recover root) whose
+    LocalProcessFleet(sid_prefix="s") spawns `python -m
+    areal_tpu_torch.system.gen_server` processes from port 8402, and a
+    verifier SupervisorLane (min 1) over list_verifiers and `python -m
+    areal_tpu_torch.apps.verifier`.  The supervisor's own run() loop runs
+    in a thread over the metrics report's discover, scrape and signals
+    (wrapped here only to record each round).  Its idle_goodput is
+    infinite: after traffic stops the reference's goodput signal holds
+    the last call's gauge (ROADMAP queue 3), so idleness is read from
+    idle_frac and in_flight.  The supervisor and the lane count, besides
+    the announced members, the ones this phase started that have not
+    announced yet: the reference counts only announced members, and a
+    server's start outlasts the cooldown.
+    A RolloutController(discovery=fleet_discovery(E, T)) streams
+    requests of 4 x 64 new tokens with a stop sequence (the serving plane,
+    by the engine's own choice) in waves of SUPERVISOR_CONCURRENCY, all in
+    flight at once, until the new server has served SUPERVISOR_TAIL_S.
+    Checked, in order: (1) the lane refills to one verifier; the CRIT
+    spawns the second server; the controller dispatches to it and both
+    servers' areal_gen_tokens_total rise; (2) summed over the servers the
+    rise equals the tokens the controller received; (3) goodput > 0 during
+    the burst, kv_utilization in [0, 1] and in (0, 1] on scrapes with live
+    slots past a call's first chunk (the pool is sampled before each
+    chunk), live_slots <= capacity_slots, version_skew 0; (4) K2 = L x inner steps on the
+    in-process server, no K1f, K3 or K4, no host sync in a serving chunk
+    (its second under set_sync_debug_mode("error")); (5) after the stream
+    the idle rounds drain s8402: its process exits within the drain grace
+    and the card's free memory comes back by at least its weight and
+    KV-pool bytes; (6) a verifier killed with SIGKILL leaves the listing
+    within its TTL and is refilled; (7) a second FleetSupervisor over the
+    same recover root resumes the membership epoch and the lane's epoch.
+    Printed with the card's name and power limit: a round's seconds
+    (scrape and evaluate) for the roles it saw, CRIT to spawn decision,
+    spawn to announce, announce to the new server's first tokens, drain
+    to process exit, the memory freed, kill to refill."""
+    import asyncio
+    import shlex
+    import shutil
+    import signal as signals_mod
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.apps import metrics_report as mr
+    from areal_tpu_torch.base import integrity, name_resolve, names
+    from areal_tpu_torch.data.tokenizer import CharTokenizer
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.system.fleet import (
+        FleetSupervisor, LocalProcessFleet, SupervisorLane, fleet_discovery,
+    )
+    from areal_tpu_torch.system.gen_server import GenerationServer
+    from areal_tpu_torch.system.replay import ReplayBuffer
+    from areal_tpu_torch.system.rollout import RolloutController
+    from areal_tpu_torch.system.verifier_pool import list_verifiers
+
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
+    L = cfg.n_layers
+    t_phase = time.monotonic()
+    os.makedirs(SUPERVISOR_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=SUPERVISOR_DIR)
+    logs_dir = os.path.join(work, "logs")
+    os.makedirs(logs_dir)
+    env = {"AREAL_NAME_RESOLVE": "file",
+           "AREAL_NAME_RESOLVE_ROOT": os.path.join(work, "name_resolve"),
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    old_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    old_repo = name_resolve.default()
+    name_resolve.set_default(name_resolve.FileNameResolveRepository())
+    real_mr = {k: getattr(mr, k) for k in ("discover", "fleet_signals")}
+    stop = threading.Event()
+    server, fleets, sup_thread, spawned, events, rounds = None, [], None, {}, [], []
+    out = {}
+    try:
+        ckpt, _, _ = _shared_checkpoint("[supervisor]", cfg, seed + 21)
+        eos = CharTokenizer(cfg.vocab_size).eos_token_id
+        E, T = SUPERVISOR_EXPERIMENT, f"t{seed}"
+        _, params = hf.load_hf_checkpoint(ckpt, device="cuda")
+        weight_bytes = sum(x.numel() * x.element_size() for x in integrity._leaves(params))
+        engine = GeneratorEngine(cfg, params, eos_token_id=eos, max_decode_batch=FABRIC_SLOTS,
+                                 kv_pool_pages=FABRIC_POOL_PAGES,
+                                 prefill_chunk_tokens=FABRIC_PREFILL_TOKENS)
+        del params
+        check(engine.device.type == "cuda", "[supervisor] the in-process engine is not on the card")
+        server = GenerationServer(engine, port=SUPERVISOR_INPROC_PORT, max_wait_ms=50.0,
+                                  max_batch=SUPERVISOR_BATCH)
+        sid1 = server.announce(E, T, ttl=FABRIC_TTL)
+        name_resolve.add(names.metrics_endpoint(E, T, f"gen_server/{server.port}"), server.url,
+                         replace=True)
+        gen_fleet = _fabric_fleet(ckpt, eos, E, T, SUPERVISOR_BASE_PORT, logs_dir)
+        ver_cmd = (f"exec {shlex.quote(sys.executable)} -m areal_tpu_torch.apps.verifier "
+                   f"--experiment {{experiment}} --trial {{trial}} --port {{port}} "
+                   f"--ttl {SUPERVISOR_VERIFIER_TTL} > {shlex.quote(logs_dir)}/verifier-{{port}}.log "
+                   "2>&1")
+        ver_fleet = LocalProcessFleet(["sh", "-c", ver_cmd], E, T,
+                                      base_port=SUPERVISOR_VERIFIER_PORT, drain_grace_s=1.0,
+                                      name_key=names.verifier_server, sid_prefix="v")
+        fleets = [gen_fleet, ver_fleet]
+
+        def recorded(kind, fleet_):
+            def spawn():
+                t = time.monotonic()
+                sid = fleet_.spawn()
+                spawned[sid] = (fleet_.procs[sid], t)
+                events.append((t, kind, "spawned", sid))
+                return sid
+
+            def drain(sid):
+                events.append((time.monotonic(), kind, "drain", sid))
+                fleet_.drain(sid)
+                events.append((time.monotonic(), kind, "drained", sid))
+            return spawn, drain
+
+        gspawn, gdrain = recorded("fleet", gen_fleet)
+        vspawn, vdrain = recorded("lane", ver_fleet)
+        seen_sids = set()
+
+        def members(listed, prefix):
+            """The announced members and those this phase started that have
+            not announced yet (their processes alive): a spawn counts from
+            the moment it is made, so a server that takes longer than the
+            cooldown to start is not spawned twice."""
+            seen_sids.update(listed)
+            starting = {sid for sid, (proc, _) in spawned.items() if sid.startswith(prefix)
+                        and proc.poll() is None and sid not in seen_sids}
+            return sorted(set(listed) | starting)
+
+        lane = SupervisorLane("verifier", list_servers=lambda: members(list_verifiers(E, T), "v"),
+                              spawn=vspawn,
+                              drain=vdrain, min_servers=1, max_servers=2,
+                              action_cooldown_s=SUPERVISOR_LANE_COOLDOWN,
+                              idle_rounds=SUPERVISOR_IDLE_ROUNDS)
+        recover_root = os.path.join(work, "recover")
+        sup = FleetSupervisor(
+            E, T, rules=[mr.parse_slo_rule(f"crit: queue_depth <= {SUPERVISOR_QUEUE}")],
+            spawn=gspawn, drain=gdrain, min_servers=1, max_servers=2,
+            action_cooldown_s=SUPERVISOR_COOLDOWN, idle_rounds=SUPERVISOR_IDLE_ROUNDS,
+            idle_goodput=float("inf"), recover_root=recover_root, lanes=[lane])
+        announced = sup.list_servers
+        sup.list_servers = lambda: members(announced(), "s")
+        real_lane_evaluate, real_sup_evaluate = lane.evaluate, sup.evaluate
+
+        def discover(e, t):
+            if stop.is_set():
+                raise _StopSupervisor
+            rounds.append({"t0": time.monotonic()})
+            return real_mr["discover"](e, t)
+
+        def fleet_signals(roles, prev):
+            sig, rows = real_mr["fleet_signals"](roles, prev)
+            rounds[-1].update(roles=roles, signals=sig, rows=rows)
+            return sig, rows
+
+        def sup_evaluate(signals):
+            d = real_sup_evaluate(signals)
+            rounds[-1]["t1"] = time.monotonic()
+            rounds[-1]["decision"] = d
+            return d
+
+        def lane_evaluate(history):
+            d = real_lane_evaluate(history)
+            if d.action != "hold":
+                events.append((time.monotonic(), "lane", "decision", d.reason))
+            return d
+
+        mr.discover, mr.fleet_signals = discover, fleet_signals
+        sup.evaluate, lane.evaluate = sup_evaluate, lane_evaluate
+        err = {}
+
+        def run_supervisor():
+            try:
+                sup.run(count=None, interval=SUPERVISOR_INTERVAL)
+            except _StopSupervisor:
+                pass
+            except BaseException as e:  # noqa: BLE001 — reported by the main thread
+                err["e"] = repr(e)
+
+        sup_thread = threading.Thread(target=run_supervisor, daemon=True)
+        t_start = time.monotonic()
+        sup_thread.start()
+
+        def alive():
+            check("e" not in err, f"[supervisor] the supervisor loop failed: {err.get('e')}")
+            return True
+
+        # (1) the lane refills to one verifier.
+        _wait_for(lambda: alive() and len(list_verifiers(E, T)) == 1, 120, "the lane's refill", tag="[supervisor]")
+        first_v = list_verifiers(E, T)[0]
+        refills = [e for e in events if e[1] == "lane" and e[2] == "decision"]
+        check(refills and "refill" in refills[0][3], f"[supervisor] lane decisions {refills}")
+        log(f"[supervisor] (1) the lane refilled to one verifier ({first_v}) "
+            f"{events[0][0] - t_start:.2f} s after the loop started: {refills[0][3]}")
+
+        # The burst.
+        free0 = torch.cuda.mem_get_info()[0]
+        tokens0 = _metric_value(server.url, "areal_gen_tokens_total")
+        hold = {}
+        real_getter = engine._get_serving_chunk_fn
+
+        def getter(*a, **k):
+            fn = real_getter(*a, **k)
+
+            def run(*fa, **fk):
+                hold["n"] = hold.get("n", 0) + 1
+                if hold["n"] != 2:
+                    return fn(*fa, **fk)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return fn(*fa, **fk)
+                except RuntimeError as e:
+                    hold["error"] = repr(e)
+                    raise
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    hold.setdefault("ok", "error" not in hold)
+            return run
+
+        engine._get_serving_chunk_fn = getter
+        gc.collect()
+        _reset_counts()
+        steps0 = engine.steps_total
+        replay = ReplayBuffer(capacity=1 << 20, max_head_offpolicyness=1)
+        ctl = RolloutController(
+            discovery=fleet_discovery(E, T), replay=replay,
+            gconfig=GenerationHyperparameters(n=SUPERVISOR_GROUP,
+                                              max_new_tokens=SUPERVISOR_NEW_TOKENS,
+                                              stop=FABRIC_STOP),
+            seed=seed + 131, max_concurrency=SUPERVISOR_CONCURRENCY, autosize_inflight=False,
+            dispatch_timeout_s=600.0)
+        rng = np.random.default_rng(seed + 132)
+        burst, burst_done = {}, threading.Event()
+
+        async def waves():
+            # Waves of SUPERVISOR_CONCURRENCY prompts, each run to its end,
+            # until the main thread ends the burst: a run() over an endless
+            # source would create its dispatch tasks without bound.  The
+            # loop's thread pool carries every dispatch at once (the default
+            # pool has min(32, cores + 4) threads).
+            import concurrent.futures
+
+            asyncio.get_running_loop().set_default_executor(
+                concurrent.futures.ThreadPoolExecutor(max_workers=SUPERVISOR_CONCURRENCY + 16))
+            i = 0
+            while not burst_done.is_set():
+                wave = [(f"sup{i + j}",
+                         rng.integers(0, cfg.vocab_size, int(rng.integers(64, 129))).tolist())
+                        for j in range(SUPERVISOR_CONCURRENCY)]
+                i += len(wave)
+                await ctl.run(wave)
+            return ctl.stat
+
+        def pump():
+            try:
+                burst["stat"] = asyncio.run(waves())
+            except BaseException as e:  # noqa: BLE001 — reported by the main thread
+                burst["error"] = repr(e)
+
+        pump_thread = threading.Thread(target=pump, daemon=True)
+        t_burst = time.monotonic()
+        pump_thread.start()
+        spawn_ev = lambda: [e for e in events if e[1] == "fleet" and e[2] == "spawned"]
+        _wait_for(lambda: alive() and "error" not in burst and spawn_ev(), 120,
+                  "the CRIT's spawn", tag="[supervisor]")
+        t_spawn, sid2 = spawn_ev()[0][0], spawn_ev()[0][3]
+        check(sid2 == f"s{SUPERVISOR_BASE_PORT}", f"[supervisor] spawned {sid2}")
+        proc2 = spawned[sid2][0]
+        crit = next(r for r in rounds if r.get("decision") is not None
+                    and r["decision"].action == "spawn")
+        _wait_for(lambda: alive() and sid2 in fleet_discovery(E, T)(), 300,
+                  "the spawned server's announcement", [proc2], tag="[supervisor]")
+        t_announce = time.monotonic()
+        with open(os.path.join(logs_dir, f"server-{sid2[1:]}.log")) as f:
+            check(" on cuda" in f.read(), f"[supervisor] server {sid2} is not on the card")
+        url2 = fleet_discovery(E, T)()[sid2]
+        _wait_for(lambda: "error" not in burst and _metric_value(url2, "areal_gen_tokens_total") > 0,
+                  300, "the new server's first tokens", [proc2], tag="[supervisor]")
+        t_first = time.monotonic()
+        free_up = torch.cuda.mem_get_info()[0]
+        time.sleep(SUPERVISOR_TAIL_S)
+        burst_done.set()
+        pump_thread.join(timeout=600)
+        check(not pump_thread.is_alive() and "error" not in burst,
+              f"[supervisor] the burst: {burst.get('error', 'did not end')}")
+        t_end = time.monotonic()
+        stat = burst["stat"].as_dict()
+        got = replay.get_batch(len(replay), 1.0) if len(replay) else []
+        received = sum(len(o) for tr in got for o in tr.output_ids)
+        inner = engine.steps_total - steps0
+        launches = _trial_counts()
+        check(stat["failed"] == 0 and stat["rejected"] == 0 and stat["accepted"] == len(got) > 0,
+              f"[supervisor] controller stat {stat}, {len(got)} groups")
+        tokens1 = _metric_value(server.url, "areal_gen_tokens_total") - tokens0
+
+        # (5) the idle rounds drain the spawned server.
+        drain_ev = lambda: [e for e in events if e[1] == "fleet" and e[2] == "drain"]
+        _wait_for(lambda: alive() and drain_ev(), 120, "the idle drain", tag="[supervisor]")
+        t_drain, victim = drain_ev()[0][0], drain_ev()[0][3]
+        check(victim == sid2, f"[supervisor] drained {victim}, want {sid2}")
+        while proc2.poll() is None and time.monotonic() - t_drain < 60:
+            time.sleep(0.01)
+        t_exit = time.monotonic()
+        check(proc2.poll() is not None, f"[supervisor] {sid2}'s process outlived its drain")
+        check(t_exit - t_drain <= gen_fleet.drain_grace_s + 5.0,
+              f"[supervisor] {sid2} exited {t_exit - t_drain:.1f} s after the drain")
+        check(sid2 not in fleet_discovery(E, T)(), f"[supervisor] {sid2} still listed")
+        freed, free_after = 0, 0
+        need = weight_bytes + _pool_bytes(cfg, FABRIC_POOL_PAGES)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            free_after = torch.cuda.mem_get_info()[0]
+            freed = free_after - free_up
+            if freed >= need:
+                break
+            time.sleep(0.2)
+        check(freed >= need, f"[supervisor] {freed / 2**30:.2f} GiB came back after the drain, "
+              f"want its weights and KV pool {need / 2**30:.2f} GiB")
+        # The spawned server's tokens: its last scrape before the drain.
+        tokens2 = max(v for r in rounds if r.get("roles")
+                      for x in r["roles"] if x.role == f"gen_server/{sid2[1:]}" and x.ok
+                      for v in [x.value("areal_gen_tokens_total") or 0.0])
+        log(f"[supervisor] (1) burst: {stat}; the CRIT (round signals queue_depth "
+            f"{crit['signals']['queue_depth']:.0f} > {SUPERVISOR_QUEUE}) spawned {sid2}; tokens "
+            f"{sid1} +{tokens1:.0f}, {sid2} +{tokens2:.0f}")
+        check(tokens1 > 0 and tokens2 > 0, f"[supervisor] a server served nothing: {tokens1}, "
+              f"{tokens2}")
+        check(tokens1 + tokens2 == received, f"[supervisor] (2) servers counted {tokens1} + "
+              f"{tokens2} tokens, the controller received {received}")
+        log(f"[supervisor] (2) the servers' areal_gen_tokens_total rose by {tokens1 + tokens2:.0f}"
+            f" in all = the {received} tokens the controller received in {len(got)} groups")
+
+        # (3) the signals during the burst.
+        during = [r for r in rounds if r.get("signals") is not None
+                  and t_burst <= r["t0"] <= t_end]
+        check(any(r["signals"]["goodput"] > 0 for r in during),
+              "[supervisor] (3) no round saw goodput during the burst")
+        live_rows, util_rows = 0, 0
+        for r in during:
+            check(r["signals"]["version_skew"] == 0, f"[supervisor] (3) skew {r['signals']}")
+            for x in r["roles"]:
+                if not x.ok or not x.role.startswith("gen_server/"):
+                    continue
+                live, cap = x.value("areal_gen_live_slots"), x.value("areal_gen_capacity_slots")
+                kvu = x.value("areal_gen_kv_utilization_ratio")
+                check(live is not None and cap and live <= cap,
+                      f"[supervisor] (3) {x.role} live_slots {live} > capacity {cap}")
+                check(kvu is not None and 0 <= kvu <= 1,
+                      f"[supervisor] (3) {x.role} kv_utilization {kvu}")
+                if live > 0:
+                    # The pool is sampled before each chunk: a call's first
+                    # chunk samples it before any prompt token is in.
+                    live_rows += 1
+                    util_rows += kvu > 0
+        check(util_rows > 0, f"[supervisor] (3) no scrape of {live_rows} with live slots saw "
+              "kv_utilization in (0, 1]")
+        peak = max(during, key=lambda r: r["signals"]["goodput"])
+        log(f"[supervisor] (3) {len(during)} rounds in the burst: goodput up to "
+            f"{peak['signals']['goodput']:.1f} tok/s, kv_utilization in (0, 1] on {util_rows} of "
+            f"{live_rows} scrapes with live slots (0 on the rest: a call's first chunk samples "
+            "the pool before its prompts are in), live_slots <= capacity_slots, version_skew 0")
+
+        # (4) the kernels on the in-process server.
+        check(launches["k2"] == L * inner and inner > 0, f"[supervisor] (4) K2 {launches['k2']} "
+              f"!= {L} x {inner} inner steps")
+        check(launches["fwd"] == launches["k3"] == launches["k4"] == 0,
+              f"[supervisor] (4) launches {launches}: K1f, K3 and K4 must not run")
+        check(hold.get("ok") is True, f"[supervisor] (4) a serving chunk synchronised with the "
+              f"card: {hold.get('error')}")
+        log(f"[supervisor] (4) the in-process server: K2 {launches['k2']} = {L} x {inner} inner "
+            f"steps, K1f/K3/K4 0; its second serving chunk ran under set_sync_debug_mode('error')")
+
+        # (6) a verifier killed with SIGKILL leaves and is refilled.
+        vproc = spawned[first_v][0]
+        t_kill = time.monotonic()
+        os.kill(vproc.pid, signals_mod.SIGKILL)
+        vproc.wait(timeout=30)
+        _wait_for(lambda: alive() and first_v not in list_verifiers(E, T),
+                  SUPERVISOR_VERIFIER_TTL + 10, "the killed verifier's eviction", tag="[supervisor]")
+        t_gone = time.monotonic()
+        _wait_for(lambda: alive() and len(list_verifiers(E, T)) == 1, 120, "the lane's refill", tag="[supervisor]")
+        t_refill = time.monotonic()
+        refills = [e for e in events if e[1] == "lane" and e[2] == "decision"]
+        check(len(refills) == 2 and "refill" in refills[1][3]
+              and refills[1][0] - refills[0][0] < SUPERVISOR_LANE_COOLDOWN,
+              f"[supervisor] (6) lane decisions {refills}")
+        check(t_gone - t_kill <= SUPERVISOR_VERIFIER_TTL + 2.0,
+              f"[supervisor] (6) the dead verifier stayed listed {t_gone - t_kill:.1f} s")
+        log(f"[supervisor] (6) {first_v} killed: gone from the listing after "
+            f"{t_gone - t_kill:.2f} s (TTL {SUPERVISOR_VERIFIER_TTL} s), the lane's refill "
+            f"decision {refills[1][0] - t_kill:.2f} s after the kill (inside its "
+            f"{SUPERVISOR_LANE_COOLDOWN:.0f} s cooldown), {list_verifiers(E, T)} announced "
+            f"{t_refill - t_kill:.2f} s after the kill")
+
+        # (7) the epochs persist.
+        stop.set()
+        sup_thread.join(timeout=60)
+        check(not sup_thread.is_alive() and "e" not in err, f"[supervisor] the loop: {err}")
+        lane2 = SupervisorLane("verifier", list_servers=lambda: list_verifiers(E, T))
+        sup2 = FleetSupervisor(E, T, recover_root=recover_root, lanes=[lane2])
+        check((sup.membership_epoch, lane.epoch) == (2, 2)
+              and (sup2.membership_epoch, lane2.epoch) == (2, 2),
+              f"[supervisor] (7) epochs {sup.membership_epoch}, {lane.epoch} -> resumed "
+              f"{sup2.membership_epoch}, {lane2.epoch}")
+        log("[supervisor] (7) a second FleetSupervisor over the recover root resumed membership "
+            f"epoch {sup2.membership_epoch} and the verifier lane's epoch {lane2.epoch}")
+
+        secs = [r["t1"] - r["t0"] for r in rounds if "t1" in r]
+        worst = max((r for r in rounds if "t1" in r), key=lambda r: r["t1"] - r["t0"])
+        card = _card()
+        failed = [(x.role, x.error) for x in worst["roles"] if not x.ok]
+        log(f"[supervisor] {card}: {len(secs)} rounds; a round (scrape and evaluate) median "
+            f"{sorted(secs)[len(secs) // 2] * 1e3:.1f} ms, max {max(secs) * 1e3:.1f} ms over the "
+            f"roles {sorted(x.role for x in worst['roles'])}"
+            + (f", failed scrapes {failed}" if failed else ""))
+        log(f"[supervisor] {card}: CRIT to spawn decision {(t_spawn - crit['t0']) * 1e3:.1f} ms "
+            f"within its round ({t_spawn - t_burst:.2f} s after the burst began); spawn to "
+            f"announce {t_announce - t_spawn:.2f} s; announce to the new server's first tokens "
+            f"{t_first - t_announce:.2f} s; drain to process exit {t_exit - t_drain:.2f} s "
+            f"(grace {gen_fleet.drain_grace_s} s); free memory {free0 / 2**30:.2f} GiB before the "
+            f"spawn, {free_up / 2**30:.2f} with {sid2} up, {free_after / 2**30:.2f} after: "
+            f"{freed / 2**30:.2f} GiB freed (weights {weight_bytes / 2**30:.2f} + KV pool "
+            f"{_pool_bytes(cfg, FABRIC_POOL_PAGES) / 2**30:.2f} GiB); kill to refill "
+            f"{t_refill - t_kill:.2f} s")
+        out = dict(launches=launches, inner_steps=inner, stat=stat, tokens=received,
+                   round_ms=sorted(secs)[len(secs) // 2] * 1e3,
+                   spawn_s=t_spawn - t_burst, announce_s=t_announce - t_spawn,
+                   first_tokens_s=t_first - t_announce, drain_exit_s=t_exit - t_drain,
+                   freed=freed, kill_refill_s=t_refill - t_kill)
+    finally:
+        stop.set()
+        if sup_thread is not None:
+            sup_thread.join(timeout=60)
+        mr.discover, mr.fleet_signals = real_mr["discover"], real_mr["fleet_signals"]
+        if server is not None:
+            server.close()
+        for f in fleets:
+            f.shutdown()
+        for proc, _ in spawned.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+        name_resolve.set_default(old_repo)
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"[supervisor] the phase: {out['seconds']:.1f} s")
+    report["supervisor"] = out
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -8544,6 +9182,7 @@ def _kernels_line(report):
     mp_launches = report.get("multiproc", {}).get("launches", {})
     fb_launches = report.get("fabric", {}).get("launches", {})
     vf_launches = report.get("verifiers", {}).get("launches", {})
+    sv_launches = report.get("supervisor", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -8564,6 +9203,7 @@ def _kernels_line(report):
         "launches_multiproc": mp_launches.get("k2"),
         "launches_fabric": fb_launches.get("k2"),
         "launches_verifiers": vf_launches.get("k2"),
+        "launches_supervisor": sv_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -8617,6 +9257,7 @@ def _kernels_line(report):
             "launches_multiproc": mp_launches.get(name),
             "launches_fabric": fb_launches.get(name),
             "launches_verifiers": vf_launches.get(name),
+            "launches_supervisor": sv_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -8661,6 +9302,7 @@ def _kernels_line(report):
         "launches_multiproc": mp_launches.get("k3"),
         "launches_fabric": fb_launches.get("k3"),
         "launches_verifiers": vf_launches.get("k3"),
+        "launches_supervisor": sv_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -8729,6 +9371,7 @@ def _kernels_line(report):
         "launches_multiproc": mp_launches.get("k4"),
         "launches_fabric": fb_launches.get("k4"),
         "launches_verifiers": vf_launches.get("k4"),
+        "launches_supervisor": sv_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -8921,6 +9564,7 @@ def main() -> int:
         "multiproc": lambda: phase_multiproc(report, args.seed),
         "fabric": lambda: phase_fabric(report, args.seed),
         "verifiers": lambda: phase_verifiers(report, args.seed),
+        "supervisor": lambda: phase_supervisor(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

@@ -59,9 +59,15 @@ def test_verdict_bits_match_jax(verdict):
                  "IMP_RATIO", "DEGENERATE_VAR"):
         assert getattr(integrity, name) == getattr(jintegrity, name)
     assert integrity.verdict_kinds(verdict) == jintegrity.verdict_kinds(verdict)
-    before = sum(integrity.ANOMALY_COUNTS.values())
+    def counts(mod):
+        return {k: c.get() for (k,), c in mod.M_ANOMALY.children()}
+
+    before = {m: counts(m) for m in (integrity, jintegrity)}
     integrity.record_anomaly(verdict)
-    assert sum(integrity.ANOMALY_COUNTS.values()) == before + bin(verdict).count("1")
+    jintegrity.record_anomaly(verdict)
+    rises = [{k: v - before[m].get(k, 0.0) for k, v in counts(m).items()
+              if v != before[m].get(k, 0.0)} for m in (integrity, jintegrity)]
+    assert rises[0] == rises[1] == {k: 1.0 for k in integrity.verdict_kinds(verdict)}
 
 
 @pytest.mark.parametrize("text", ["Compute 3 + 4. ", "héllo \\boxed{7}", ""])

@@ -147,7 +147,7 @@ def test_grad_spike_after_warmup_and_ewma_on_clean_steps(weights):
         assert got["quarantined"] == want["quarantined"] == 0.0
         guards()
     assert te._guard_state[1].item() == 2.0
-    counts = dict(integrity.ANOMALY_COUNTS)
+    counts = {k: c.get() for (k,), c in integrity.M_ANOMALY.children()}
     orig_j, orig_t = je._poison_grads, te._guarded_step
     _spike(je, te)
     snap = _state(te)
@@ -156,7 +156,7 @@ def test_grad_spike_after_warmup_and_ewma_on_clean_steps(weights):
     assert got["quarantined"] == want["quarantined"] == 1.0
     np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-4)
     _assert_state_equal(te, snap)
-    assert integrity.ANOMALY_COUNTS["grad_spike"] == counts.get("grad_spike", 0) + 1
+    assert integrity.M_ANOMALY.labels("grad_spike").get() == counts.get("grad_spike", 0) + 1
     assert te.opt_count == 2
     guards()
     assert te._guard_state[1].item() == 2.0

@@ -281,10 +281,10 @@ def test_nonfinite_step_leaves_state_bit_identical(jparams, rng, poison):
     before = [
         {k: v.clone() for k, v in _leaf_items(t)} for t in (te.params, te._mu, te._nu)
     ]
-    counts = dict(integrity.ANOMALY_COUNTS)
+    counts = {k: c.get() for (k,), c in integrity.M_ANOMALY.children()}
     out = te.train_batch(ts, MicroBatchSpec(), bad, _mask_count, extra_keys=EXTRA)
     assert out["anomaly_verdict"] == integrity.NONFINITE and out["quarantined"] == 1.0
-    assert integrity.ANOMALY_COUNTS["nonfinite"] == counts.get("nonfinite", 0) + 1
+    assert integrity.M_ANOMALY.labels("nonfinite").get() == counts.get("nonfinite", 0) + 1
     for snap, tree in zip(before, (te.params, te._mu, te._nu)):
         for k, v in _leaf_items(tree):
             assert torch.equal(v, snap[k]), k

@@ -176,10 +176,13 @@ def test_retry_lands_on_a_different_server(worker):
 
 
 def test_shape_mismatch_is_typed_and_counted(worker):
-    from areal_tpu.apps.metrics_report import parse_prometheus_text
+    from areal_tpu.base.metrics import parse_prometheus_text as jax_parse
 
     def shape_errors():
-        samples, _ = parse_prometheus_text(metrics.default_registry().expose())
+        text = metrics.default_registry().expose()
+        samples, types = metrics.parse_prometheus_text(text)
+        # The port's parser reads its own exposition as the JAX one does.
+        assert (samples, types) == jax_parse(text)
         return sum(v for name, labels, v in samples
                    if name == "areal_reward_remote_errors_total"
                    and labels.get("reason") == "shape")
