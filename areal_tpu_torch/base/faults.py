@@ -1,6 +1,6 @@
-"""Fault injection at named points (a trimmed port of
-areal_tpu/base/faults.py): the spec grammar, `FaultInjector.parse`,
-`from_env`, `fire`, and the kill checks `kill_point` and `kill_due`.
+"""Fault injection at named points (a port of areal_tpu/base/faults.py):
+the spec grammar, `FaultInjector.parse`, `from_env`, `fire`, the kill
+checks `kill_point` and `kill_due`, and the poison check `poison`.
 
     AREAL_FAULTS="error@point=tool:calculator&times=1"  # break one tool call
     AREAL_FAULTS="slow@ms=50&p=0.5, error@p=0.05"       # combined
@@ -19,10 +19,13 @@ unlimited).  At a ``fire(point)`` call ``slow`` sleeps, ``error`` raises
 cap.  ``kill`` never fires there: the host asks `kill_point(point)` (a
 point-scoped kill, skip and times counted) or `kill_due()` (a kill
 without a point, once its arm delay has passed) and exits itself.  The
-poison kinds (``nan``, ``corrupt_push``) parse, and their check
-`poison` comes with ROADMAP queue 1 item 7.6.  `fired` counts the
-faults that fired, by kind.  The probability stream is seeded from
-``AREAL_FAULTS_SEED`` (default 0).
+poison kinds (``nan``, ``corrupt_push``) never fire there either: the
+host asks `poison(point)` at a data boundary and corrupts its own
+payload (the train engine NaN-scales its gradients at ``train_grads``;
+the generation server and the worker's weight send perturb a pushed
+tree at ``weight_push``), so a chaos run drives the real detection path.
+`fired` counts the faults that fired, by kind.  The probability stream
+is seeded from ``AREAL_FAULTS_SEED`` (default 0).
 """
 
 import dataclasses
@@ -230,6 +233,22 @@ class FaultInjector:
             logger.warning(f"FAULT kill at point {point!r}")
             return True
         return False
+
+    def poison(self, point: str) -> Optional[str]:
+        """The kind of the first due poison fault (``nan`` or
+        ``corrupt_push``) matching this data boundary, or None (skip,
+        times and p counted).  The injector applies nothing: the host
+        corrupts its own payload."""
+        elapsed = self.elapsed_s()
+        for i, s in enumerate(self.specs):
+            if s.kind not in POISON_KINDS or not s.matches(point, elapsed):
+                continue
+            if not self._eligible(i, s):
+                continue
+            self._record(s.kind)
+            logger.warning(f"FAULT {s.kind} at point {point!r}")
+            return s.kind
+        return None
 
     def release(self) -> None:
         """Unblock every ``hang`` in flight."""

@@ -155,6 +155,35 @@ def verify_checksum(tree: Any, expected: np.ndarray, device=None) -> None:
         )
 
 
+def corrupt_params(tree: Any) -> Any:
+    """The ``corrupt_push`` fault's payload corruption: a copy of the
+    tree (nested dicts of torch tensors on any device, or of numpy
+    arrays) whose first floating leaf, in sorted-key order, is x * 1.5 +
+    1.0 in its own dtype.  The caller's leaves stay as they were."""
+
+    def floating(x):
+        if torch.is_tensor(x):
+            return x.is_floating_point()
+        return isinstance(x, np.ndarray) and np.issubdtype(x.dtype, np.floating)
+
+    def first(t, path=()):
+        if not isinstance(t, dict):
+            return path if floating(t) else None
+        for k in sorted(t):
+            found = first(t[k], path + (k,))
+            if found is not None:
+                return found
+        return None
+
+    def replace(t, path):
+        if not path:
+            return (t.detach() if torch.is_tensor(t) else t) * 1.5 + 1.0
+        return {k: replace(v, path[1:]) if k == path[0] else v for k, v in t.items()}
+
+    path = first(tree)
+    return tree if path is None else replace(tree, path)
+
+
 # ---------------- quarantine ledger entries ----------------
 
 

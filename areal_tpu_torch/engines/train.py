@@ -48,6 +48,11 @@
 - The streamed step scales the bf16 gradient sum in place, in bf16; the
   JAX package's fp32 scale promotes the sum and, after it, optax's
   moments to fp32.
+- Chaos (`base/faults.py`, ``AREAL_FAULTS``): a due
+  ``nan@point=train_grads`` fault scales every gradient by NaN in place,
+  on the device, just before the guarded step of `train_batch` and
+  `train_stream_end` (`_poison_grads`), so the step's own guard
+  quarantines it; the step's one host read stays its only sync.
 - Pipeline schedules (a mesh's pipe axis) are not ported.
 """
 
@@ -59,7 +64,7 @@ import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
-from areal_tpu_torch.base import integrity
+from areal_tpu_torch.base import faults, integrity
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines import packing
 from areal_tpu_torch.engines.offload import HostOffloadMixin
@@ -161,7 +166,13 @@ def model_out(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 def device_batch(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    """A packed batch on `device`.  On the card each array goes through
+    pinned memory with a non-blocking copy, so moving a batch never
+    synchronises the host with the card (the step's one host read does)."""
+    if torch.device(device).type != "cuda":
+        return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+            for k, v in arrays.items()}
 
 
 @torch.no_grad()
@@ -250,6 +261,7 @@ class TrainEngine(HostOffloadMixin):
         # (EWMA of clean steps' grad norms, clean-step count), fp32 on the
         # device; made at the first step.
         self._guard_state: Optional[torch.Tensor] = None
+        self._faults = faults.FaultInjector.from_env()
         self.host_transfers = 0
         self.last_pack_stats: Dict[str, float] = {}
 
@@ -404,6 +416,19 @@ class TrainEngine(HostOffloadMixin):
         self._guard_state = torch.stack([new_ewma.float(), n_clean + ok.float()])
         return torch.stack([loss_sum.float(), gnorm.float(), unorm.float(), verdict])
 
+    @torch.no_grad()
+    def _poison_grads(self) -> None:
+        """The ``nan@point=train_grads`` chaos seam: NaN-scale every
+        parameter's accumulated gradient in place, on the device, with no
+        host read (a leaf without one gets a NaN gradient)."""
+        if self._faults is None or self._faults.poison("train_grads") != "nan":
+            return
+        for _, p in _leaves(self.params):
+            if p.grad is None:
+                p.grad = torch.full_like(p, float("nan"))
+            else:
+                p.grad.mul_(float("nan"))
+
     def train_batch(
         self,
         sample: SequenceSample,
@@ -448,6 +473,7 @@ class TrainEngine(HostOffloadMixin):
                 (loss * scale).backward()
             losses.append(loss.detach().float() * scale)
             all_stats.append({k: v.detach().float() for k, v in stats.items()})
+        self._poison_grads()
         packed = self._guarded_step(torch.stack(losses).sum())
         keys = list(all_stats[0]) if all_stats else []
         vec = [packed]
@@ -569,6 +595,7 @@ class TrainEngine(HostOffloadMixin):
         self._ensure_loaded()
         total_weight = max(state["weight"], 1.0)
         loss_sum = torch.full((), sum(state["loss_sums"]), dtype=torch.float32, device=self.device)
+        self._poison_grads()
         packed = self._guarded_step(loss_sum, scale=1.0 / total_weight, ext_trip=quarantine)
         self.last_pack_stats = {
             "real_tokens": state["real_tokens"],

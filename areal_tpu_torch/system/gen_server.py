@@ -31,8 +31,13 @@ sampling started on, and `version`, the one it finished on.
 `POST /episode` (`handle_episode`) runs agent episodes, one turn a
 request, on the engine slot that holds the episode's KV pages; a turn a
 push parks resumes on its pages.  A continuation on a reclaimed slot
-gets HTTP 409 with ``{"error_type": "slot_gone"}``.  Faults
-(`base/faults.py`, ``AREAL_FAULTS``) fire at the ``episode`` point.
+gets HTTP 409 with ``{"error_type": "slot_gone"}``.
+
+Faults (`base/faults.py`, ``AREAL_FAULTS``) fire at the ``health``,
+``generate``, ``episode`` and ``param_push`` points (``slow`` sleeps,
+``hang`` blocks the request thread until `close()`, ``error`` fails the
+request with HTTP 500), and ``corrupt_push@point=weight_push`` corrupts
+an in-memory push's payload before its checksum, which refuses it.
 
 ``POST /update_weights`` swaps the weights for an HF checkpoint dir on
 this host; with `ckpt_root` (or ``AREAL_GEN_CKPT_ROOT``) set, a path
@@ -52,8 +57,7 @@ dispatcher's lineage id) gets its ``first_token``, ``generated`` and
 ``gen_batch`` span, and the collector samples the ``gen_queue`` gauge.
 The command line traces as role ``gen_server``.
 
-Not yet ported: the ZMQ transport (ROADMAP queue 1 item 7.8) and the
-other fault points (7.6).
+Not yet ported: the ZMQ transport (ROADMAP queue 1 item 7.8).
 """
 
 import dataclasses
@@ -306,6 +310,10 @@ class GenerationServer:
             threading.Thread(target=self._kill_loop, daemon=True).start()
         logger.info(f"generation server at {self.url}")
 
+    def _fire_fault(self, point: str) -> None:
+        if self._faults is not None:
+            self._faults.fire(point)
+
     def _kill_loop(self) -> None:
         """A point-less ``kill`` fault: once due, crash the server (no
         deregistration, no draining, as a preempted node), after the
@@ -355,6 +363,7 @@ class GenerationServer:
         """Liveness + the load signals a rollout controller balances on;
         the engine's (live_slots, kv_utilization) pair is one atomically
         replaced tuple."""
+        self._fire_fault("health")
         eng = self.engine
         live, kvu = eng.load_state
         with self._health_lock:
@@ -410,6 +419,9 @@ class GenerationServer:
             with self._health_lock:
                 if int(version) <= self.version:
                     return self.version
+        if self._faults is not None and self._faults.poison("weight_push") == "corrupt_push":
+            # In-flight corruption, against the real verification below.
+            params = integrity.corrupt_params(params)
         with self._update_mutex:
             if checksum is not None:
                 # Reduced on the engine's device: host leaves stream to
@@ -462,6 +474,7 @@ class GenerationServer:
             tracer.flight_dump("fault_kill", role="gen_server", rank=self.port)
             self.close()
             raise RuntimeError("server killed at param_push")
+        self._fire_fault("param_push")
         from areal_tpu_torch.system import paramstore
 
         t0 = time.monotonic()
@@ -526,6 +539,8 @@ class GenerationServer:
     # ---------------- request handling ----------------
 
     def _handle_generate(self, req: Dict) -> Dict:
+        # Chaos: may sleep, hang this request's thread or raise (HTTP 500).
+        self._fire_fault("generate")
         g = GenerationHyperparameters(
             n=int(req.get("n", 1)),
             max_new_tokens=int(req.get("max_new_tokens", 256)),
@@ -568,8 +583,7 @@ class GenerationServer:
         swap and resumes the SAME turn on its pages.  An op on a
         reclaimed slot raises SlotGoneError (HTTP 409) and counts in
         ``areal_gen_episode_slot_lost_total``."""
-        if self._faults is not None:
-            self._faults.fire("episode")
+        self._fire_fault("episode")
         eng = self.engine
         op = str(req.get("op", ""))
         ep_id = str(req.get("episode_id", ""))

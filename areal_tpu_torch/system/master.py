@@ -24,7 +24,9 @@ weights and optimizer state, the train nodes' post-hooks replayed, the
 weight versions rewound, the filter re-applied, the data cursors
 rewound, the interfaces' state restored.  A streak of quarantined steps
 rolls back to the last valid recover checkpoint, within the
-`max_recoveries` budget.
+`max_recoveries` budget.  ``AREAL_FAULTS`` kills the master (exit 42)
+at ``recover_stage`` (after every stage, before any flip) or
+``recover_flip`` (after the flips, before the recover info).
 
 `pipeline_overlap` streams a step through the graph in chunks of
 `pipeline_chunk_seqs` prompts, `overlap_window` chunks in flight
@@ -114,7 +116,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from areal_tpu_torch.api.config import ModelInterfaceType
 from areal_tpu_torch.api.dfg import DFG, MFCDef, OffloadHook, ParamReallocHook
-from areal_tpu_torch.base import integrity, metrics, recover, timeutil, tracer
+from areal_tpu_torch.base import faults, integrity, metrics, recover, timeutil, tracer
 from areal_tpu_torch.base.monitor import StatsLogger
 from areal_tpu_torch.base.stats import merge_stats
 from areal_tpu_torch.system.buffer import SequenceBuffer
@@ -309,6 +311,10 @@ class MasterWorker:
         self._filtered_ids: List[str] = []
         # Ids of the latest fetch: the quarantine ledger's attribution.
         self._last_data_ids: List[str] = []
+        # The master's chaos points (AREAL_FAULTS): recover_stage and
+        # recover_flip kill it between a checkpoint's stage and its flip,
+        # and between the flip and the recover info.
+        self._faults = faults.FaultInjector.from_env()
         self.buffer = SequenceBuffer(consumers={n.name: n.input_keys for n in dfg.nodes})
         self.step_info = recover.StepInfo()
         self.save_ctl = timeutil.FrequencyControl(frequency_steps=ctrl.save_freq_steps)
@@ -1276,8 +1282,10 @@ class MasterWorker:
         every staged dir flips into place (the old current rotates to
         ``.prev``) and only then is recover_info.pkl rewritten.  A crash
         at any point leaves a manifest-valid checkpoint and recover info
-        of the same or an older step.  (The JAX master's fault-injection
-        kill points come with ROADMAP queue 1, item 7.6.)"""
+        of the same or an older step.  The chaos kill points
+        ``recover_stage`` (everything staged, nothing flipped) and
+        ``recover_flip`` (flipped, the recover info still the old one)
+        exit the process with code 42, as the JAX master does."""
         # Every model's version, the generator's too: its sampling seed
         # is its version, so a rollback must rewind it.
         model_versions: Dict[str, int] = {}
@@ -1298,10 +1306,17 @@ class MasterWorker:
                                              "path": os.path.join(staged, OPTIMIZER_FILE)})
             recover.write_manifest(staged, step, {key: model_versions.get(key, 0)})
             staged_dirs.append((staged, base))
+        # A kill here must leave the previous current checkpoint intact.
+        if self._faults is not None and self._faults.kill_point("recover_stage"):
+            os._exit(42)
         for staged, base in staged_dirs:
             recover.commit_checkpoint(staged, base)
             self._m_ckpt_flips.inc()
         self._m_ckpt_last_success.set(time.time())
+        # A kill here restores the older recover info against the newer
+        # weights: the manifest's step tells them apart.
+        if self._faults is not None and self._faults.kill_point("recover_flip"):
+            os._exit(42)
         states = await asyncio.gather(
             *[self.pool.request(w, {"type": "data_state"}) for w in self.data_worker_ids]
         )

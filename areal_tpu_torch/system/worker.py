@@ -31,7 +31,9 @@ receiver verifies before it swaps, or with eta < 1 mixes with
 (`_recv_xfer`: one thread drains the plane at a time, and what arrives
 for another request waits in a stash).  With `AREAL_FAULTS` set, each
 MFC passes its fault point first (`_fire_faults`): a point-scoped kill
-dumps the flight ring and exits the process with status 43.
+dumps the flight ring and exits the process with status 43; a
+``corrupt_push@point=weight_push`` poisons one `param_send`, which the
+receiver's checksum refuses.
 
 Each MFC is a ``mfc:<model>:<type>`` compute span (`base/tracer.py`)
 carrying its tokens, TFLOPs and MFU; the call returns host data, so the
@@ -680,8 +682,10 @@ class ModelWorker:
         cached per model and reused while the weights are unchanged: a
         leaf's storage and in-place version counter, and the engine's
         update count, key the cache, so a train step or a `set_params`
-        invalidates it.  Replies with the wire bytes and the split of the
-        seconds (gather, checksum, encode and wire)."""
+        invalidates it.  A due ``corrupt_push@point=weight_push`` fault
+        (``AREAL_FAULTS``) corrupts this send's host tree after the
+        checksum, for this send only.  Replies with the wire bytes and the
+        split of the seconds (gather, checksum, encode and wire)."""
         from areal_tpu_torch.system.paramstore import M_PUSH_BYTES
         from areal_tpu_torch.system.transfer import encode_oob
 
@@ -709,10 +713,15 @@ class ModelWorker:
                           encode_s=time.monotonic() - t2)
             self._param_send_cache[key] = cache
         del params, leaves
+        payload, encoded = cache["payload"], cache["encoded"]
+        if self._faults is not None and self._faults.poison("weight_push") == "corrupt_push":
+            # This send only: the poisoned encoding is never cached, so
+            # the retry sends the clean one.
+            kind, host, checksum = payload
+            payload = (kind, integrity.corrupt_params(host), checksum)
+            encoded = None
         t3 = time.monotonic()
-        nbytes = self.transfer.send_many(
-            req["dsts"], req["xfer_ids"], cache["payload"], encoded=cache["encoded"]
-        )
+        nbytes = self.transfer.send_many(req["dsts"], req["xfer_ids"], payload, encoded=encoded)
         timing["wire_s"] = time.monotonic() - t3
         M_PUSH_BYTES.inc(nbytes)
         logger.info("PARAM_PUSH " + json.dumps({

@@ -334,6 +334,22 @@ supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 7 layers
                recover root.  A round's seconds, CRIT to spawn, spawn to
                announce, announce to first tokens, drain to exit, the
                memory freed and kill to refill are printed.
+chaos        — the chaos legs of `python -m areal_tpu_torch.scripts.check_async`,
+               called in this process at qwen2-1.5B's width and 7 layers
+               from the seeded checkpoint of that depth (phase_chaos):
+               (a) NaN gradients quarantine a TrainEngine step with the
+               masters, Adam's state and count bit for bit, one
+               synchronizing call, K1 as the clean step's; (b) a NaN
+               streak in the tiny-PPO trial rolls back and replays bit
+               for bit; (c) a corrupted in-memory push refused by the
+               card-side checksum, retried, greedy tokens equal a
+               control server's (K2 = 7 x inner steps); (d) a victim
+               process killed at recover_stage (exit 42), restarted, its
+               torn checkpoint falling back to .prev ((b) and (d) at 2
+               layers: their saves write fp32 masters and Adam's moments
+               every step); (e) three in-process
+               servers, one killed by kill@t mid-decode: no prompt lost,
+               its breaker's cycle, its flight dump (K2 = 7 x inner steps).
 episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
@@ -385,8 +401,9 @@ generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes, `--phases build,quickstart,async` for asynchronous RL,
 `--phases build,quickstart,multiproc` for the multi-process runtime,
 `--phases build,verifiers` for the verifier fleet, mixtures and the tracer,
-`--phases build,supervisor` for the SLO fleet supervisor (it writes the
-7-layer checkpoint itself).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+`--phases build,supervisor` for the SLO fleet supervisor and `--phases
+build,chaos` for the chaos legs (each writes the 7-layer checkpoint
+itself).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -407,8 +424,8 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "fabric", "verifiers", "supervisor", "episodes", "parity",
-          "train_parity")
+          "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "episodes",
+          "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -3834,7 +3851,7 @@ def phase_quickstart(report, seed):
 # after the last phase that uses them.
 SHARED_CKPTS = {}
 CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
-               "multiproc", "fabric", "verifiers", "supervisor")
+               "multiproc", "fabric", "verifiers", "supervisor", "chaos")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -9169,6 +9186,263 @@ def phase_supervisor(report, seed):
     report["supervisor"] = out
 
 
+# --------------------------------------------------------------------------
+# The chaos legs: poison and kill seams
+# --------------------------------------------------------------------------
+
+CHAOS_DIR = os.path.join(REPO, ".chaos_tmp")
+# Depth of (b)'s and (d)'s trials: they write fp32 masters and Adam's
+# moments at every step (about 6.7 GB a save at 7 layers, 3.9 GB at 2,
+# most of it the 151,936 x 1,536 embedding).  At 7 layers the phase took
+# 169.2 s, (d)'s three processes 79.9 s of it.
+CHAOS_TRIAL_LAYERS = 2
+CHAOS_LR = 1e-5  # the trials' lr: random weights at qwen2's width stay finite
+CHAOS_PUSH_PROMPTS = 8
+CHAOS_NEW_TOKENS = 64
+CHAOS_PROMPTS = 24  # (e)'s stream
+# (e): 32 new tokens are one serving chunk a request (2.8 s with three
+# engines on the card, the first from 0.12 s after the victim's start in
+# run 3), and the victim's kill@t lands inside it at speeds 0.5-2x.
+CHAOS_STREAM_NEW_TOKENS = 32
+CHAOS_KILL_S = 2.0
+
+
+def _sync_probe(rec):
+    """A context manager factory for nan_quarantine's poisoned step: the
+    step runs under torch.cuda.set_sync_debug_mode("warn") and each
+    synchronizing call's warning is recorded in rec["syncs"]."""
+    import contextlib
+    import warnings
+
+    import torch
+
+    @contextlib.contextmanager
+    def probe():
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # (The mode's own "prototype feature" notice is not a sync.)
+        rec["syncs"] = [str(w.message).splitlines()[0] for w in caught
+                        if "called a synchronizing CUDA operation" in str(w.message)]
+    return probe
+
+
+def phase_chaos(report, seed):
+    """The chaos legs of `python -m areal_tpu_torch.scripts.check_async`,
+    called in this process at qwen2-1.5B's full width and CUT_LAYERS
+    layers, from the seeded checkpoint of that depth (bf16), each part
+    holding exact launch counts:
+    (a) nan-chaos proof 1: `nan@point=train_grads&times=1`, one
+        TrainEngine step: quarantined, the fp32 masters, Adam's mu, nu and
+        its count bit for bit, exactly one synchronizing call (warnings
+        under set_sync_debug_mode("warn")), K1 launches equal the clean
+        step's after it (K1f 2 x L, K1dq and K1dkv L a micro-batch, the
+        remat recompute), and the clean step changes the weights;
+    (b) nan-chaos proof 2: the tiny-PPO trial (4 prompts x 2, 8 new
+        tokens, a recover checkpoint every step) at CHAOS_TRIAL_LAYERS
+        (2) from the seeded checkpoint of that depth,
+        a NaN streak over its last two steps under
+        max_consecutive_quarantines 2: 2 quarantined steps, 1 rollback,
+        the replay's stats and final masters bit for bit the fault-free
+        run's, the launches the baseline's plus 2 steps';
+    (c) nan-chaos proof 3: `corrupt_push@point=weight_push&times=1` on an
+        in-process GenerationServer: the push refused by the checksum
+        reduced on the card, areal_gen_weight_push_rejected_total +1, the
+        version unchanged, a push_rejected flight dump, the retry lands,
+        and 8 prompts' greedy tokens on the serving plane equal a control
+        server's that got the same weights cleanly; K2 = L x inner steps;
+    (d) trainer-chaos (b) and (c): a victim process under
+        `kill@point=recover_stage&skip=1&times=1` exits 42 with step 1's
+        checkpoint manifest-valid and the stage left; a clean restart ends
+        at the last step with no stale stage; a torn current falls back to
+        `.prev` and a third restart exits 0 (2 steps, CHAOS_TRIAL_LAYERS;
+        its processes run beside the other parts);
+    (e) --chaos: three in-process servers announce themselves (a memory
+        name_resolve), a RolloutController fed by fleet_discovery streams
+        CHAOS_PROMPTS prompts on the serving plane, the first server under
+        `kill@t=CHAOS_KILL_S`: no prompt lost, a redispatch, the victim's
+        breaker open and closed again after a restart on its port, its
+        flight dump with the kill rendered by trace_report --flight, the
+        lineage joined; K2 = L x the inner steps of the three engines.
+    The other legs run on the card in other phases: --push-chaos in
+    `fabric` (b), --verifier-chaos (a) in `verifiers` and `supervisor`,
+    --agents in `episodes`, --overlap in `overlap`, a worker's death in
+    `multiproc` (c).  --trainer-chaos (a), a hang caught by
+    mfc_timeout_s, runs on the CPU only: its path is the master's
+    host-side deadline, and on the card a deadline above the first
+    step's warm-up costs tens of seconds of waiting."""
+    import shutil
+
+    import torch
+
+    from areal_tpu_torch.models.config import qwen2_config
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.scripts import check_async as ca
+
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
+    L = cfg.n_layers
+    tcfg = dataclasses.replace(cfg, n_layers=CHAOS_TRIAL_LAYERS)
+    t_phase = time.monotonic()
+    os.makedirs(CHAOS_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=CHAOS_DIR)
+    card = _card()
+    out = {"launches": {}, "seconds": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    def done(part, t0):
+        out["seconds"][part] = time.monotonic() - t0
+        log(f"[chaos] ({part}) {out['seconds'][part]:.1f} s")
+
+    d_thread = None
+    try:
+        ckpt, _, _ = _shared_checkpoint("[chaos]", cfg, seed + 21)
+        tckpt = ckpt if tcfg.n_layers == L else _shared_checkpoint("[chaos]", tcfg, seed + 21)[0]
+        _, params = hf.load_hf_checkpoint(ckpt, device="cuda")
+
+        # (d) A save killed between stage and flip; a torn checkpoint.  Its
+        # three processes wait mostly on their saves (88.5 s of the whole
+        # smoke's 1,012.1 s in PR 23's run 4), so they run beside (a)-(c)
+        # and (e), which run in this process.
+        rd, d_out = {}, {}
+
+        def run_d():
+            t = time.monotonic()
+            try:
+                d_out["fails"] = ca.trainer_kill(
+                    "qwen2-1.5b", tcfg.n_layers, "cuda", os.path.join(work, "d"), n_rows=8,
+                    actor_path=tckpt, lr=CHAOS_LR, report=rd)
+            except Exception as e:  # noqa: BLE001 — reported by the check below
+                d_out["fails"] = [repr(e)]
+            d_out["seconds"] = time.monotonic() - t
+
+        d_thread = threading.Thread(target=run_d, name="chaos-d")
+        d_thread.start()
+
+        # (a) NaN gradients, one engine step.
+        t0 = time.monotonic()
+        rec, ra = {}, {}
+        fails = ca.nan_quarantine(cfg, "cuda", params=params, around_step=_sync_probe(rec),
+                                  report=ra)
+        check(not fails, f"[chaos] (a) {fails}")
+        n_mb = int(ra["out"]["n_micro_batches"])
+        want = {"fwd": 2 * L * n_mb, "dq": L * n_mb, "dkv": L * n_mb, "k2": 0, "k3": 0, "k4": 0}
+        check(ra["nan_launches"] == ra["clean_launches"] == want,
+              f"[chaos] (a) launches: NaN step {ra['nan_launches']}, clean step "
+              f"{ra['clean_launches']}, want {want}")
+        check(len(rec["syncs"]) == 1, f"[chaos] (a) the poisoned step synchronised "
+              f"{len(rec['syncs'])} times, want 1 (its host read): {rec['syncs'][:6]}")
+        add(ra["nan_launches"])
+        add(ra["clean_launches"])
+        log(f"[chaos] (a) NaN step quarantined (verdict {ra['out']['anomaly_verdict']:.0f}), "
+            f"masters, mu, nu and count unchanged; 1 synchronizing call ({rec['syncs'][:1]}); "
+            f"launches {ra['nan_launches']} == the clean step's; clean grad_norm "
+            f"{ra['out2']['grad_norm']:.6g}")
+        done("a", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) A NaN streak, a rollback, a bit-for-bit replay.
+        t0 = time.monotonic()
+        rb = {}
+        fails = ca.nan_rollback(tcfg, "cuda", os.path.join(work, "b"), n_rows=12,
+                                actor_path=tckpt, lr=CHAOS_LR, baseline_ckpt=False, report=rb)
+        check(not fails, f"[chaos] (b) {fails}")
+        check(rb["base_launches"]["fwd"] > 0 and rb["base_launches"]["k4"] > 0,
+              f"[chaos] (b) the trial ran no kernel: {rb['base_launches']}")
+        add(rb["base_launches"])
+        add(rb["chaos_launches"])
+        log(f"[chaos] (b) {rb['quarantined']} quarantined steps, 1 rollback, {rb['clean']} clean "
+            f"steps bit for bit the baseline's (max param diff {rb['diff']}); launches baseline "
+            f"{rb['base_launches']}, chaos {rb['chaos_launches']}; baseline {rb['base_s']:.1f} s, "
+            f"chaos run {rb['chaos_s']:.1f} s ({tcfg.n_layers} layers)")
+        done("b", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) A corrupted push, refused on the card, retried.
+        t0 = time.monotonic()
+        rc = {}
+        push = init_params(cfg, seed + 23, device="cuda")
+        fails = ca.corrupt_push(
+            cfg, "cuda", params=params, push_params=push, n_prompts=CHAOS_PUSH_PROMPTS,
+            max_new_tokens=CHAOS_NEW_TOKENS, inflight=True,
+            engine_kw=dict(max_decode_batch=FABRIC_SLOTS, kv_pool_pages=FABRIC_POOL_PAGES,
+                           prefill_chunk_tokens=FABRIC_PREFILL_TOKENS),
+            report=rc)
+        del push
+        check(not fails, f"[chaos] (c) {fails}")
+        lc = rc["launches"]
+        check(lc["k2"] == L * rc["inner_steps"] > 0 and lc["fwd"] == lc["k3"] == lc["k4"] == 0,
+              f"[chaos] (c) launches {lc} != {L} x {rc['inner_steps']} inner steps on K2 alone")
+        add(lc)
+        log(f"[chaos] (c) the corrupted push refused (the checksum reduced on the card), the "
+            f"version stayed, flight dump {os.path.basename(rc['flight_dump'])}; the retry served "
+            f"v{rc['version']}; {CHAOS_PUSH_PROMPTS} prompts' greedy tokens equal the control's; "
+            f"K2 {lc['k2']} = {L} x {rc['inner_steps']} inner steps")
+        done("c", t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) A server killed mid-decode in a discovered fleet.
+        t0 = time.monotonic()
+        re_ = {}
+        made = []
+
+        def serving_plane(engine):
+            engine.static_path_max_new = 0  # every call on the serving plane, as in push
+            made.append(engine)
+
+        launches0 = _trial_counts()
+        fails = ca.check_chaos(
+            cfg, "cuda", n_prompts=CHAOS_PROMPTS, kill_after_s=CHAOS_KILL_S,
+            max_new_tokens=CHAOS_STREAM_NEW_TOKENS, params=params,
+            engine_kw=dict(kv_pool_pages=FABRIC_POOL_PAGES,
+                           prefill_chunk_tokens=FABRIC_PREFILL_TOKENS),
+            on_engine=serving_plane, report=re_)
+        le = {k: v - launches0[k] for k, v in _trial_counts().items()}
+        check(not fails, f"[chaos] (e) {fails}")
+        inner = sum(e.steps_total for e in made)
+        check(len(made) == 3 and le["k2"] == L * inner > 0 and le["fwd"] == le["k4"] == 0,
+              f"[chaos] (e) launches {le} over {len(made)} engines: K2 != {L} x {inner} inner "
+              "steps, or K1f/K4 ran")
+        add(le)
+        log(f"[chaos] (e) {re_['stat']}; breaker opened x{re_['opens']} and closed x"
+            f"{re_['closes']}; lineage {re_['lineage']['complete']}/{re_['lineage']['n']} "
+            f"complete; K2 {le['k2']} = {L} x {inner} inner steps over 3 engines, K3 "
+            f"{le['k3']} (replays of the healed fleet's push)")
+        log("[chaos] (e) trace_report --flight:\n" + re_["rendered"])
+        shutil.rmtree(re_["trace_dir"], ignore_errors=True)
+        done("e", t0)
+
+        d_thread.join(timeout=1200)
+        check(not d_thread.is_alive(), "[chaos] (d) did not finish")
+        check(not d_out["fails"], f"[chaos] (d) {d_out['fails']}")
+        out["seconds"]["d"] = d_out["seconds"]
+        log(f"[chaos] (d) exit codes {rd['rcs']}; runs "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in rd["seconds"].items())
+            + f"; {d_out['seconds']:.1f} s beside (a)-(c) and (e)")
+    finally:
+        if d_thread is not None:  # its processes end by their own time limits
+            d_thread.join(timeout=1800)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"]["phase"] = time.monotonic() - t_phase
+    log(f"[chaos] {card}: parts " + ", ".join(f"({k}) {v:.1f} s" for k, v in
+                                              out["seconds"].items()))
+    log(f"[chaos] the phase's launches: {out['launches']}")
+    report["chaos"] = out
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -9183,6 +9457,7 @@ def _kernels_line(report):
     fb_launches = report.get("fabric", {}).get("launches", {})
     vf_launches = report.get("verifiers", {}).get("launches", {})
     sv_launches = report.get("supervisor", {}).get("launches", {})
+    ch_launches = report.get("chaos", {}).get("launches", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -9204,6 +9479,7 @@ def _kernels_line(report):
         "launches_fabric": fb_launches.get("k2"),
         "launches_verifiers": vf_launches.get("k2"),
         "launches_supervisor": sv_launches.get("k2"),
+        "launches_chaos": ch_launches.get("k2"),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -9258,6 +9534,7 @@ def _kernels_line(report):
             "launches_fabric": fb_launches.get(name),
             "launches_verifiers": vf_launches.get(name),
             "launches_supervisor": sv_launches.get(name),
+            "launches_chaos": ch_launches.get(name),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -9303,6 +9580,7 @@ def _kernels_line(report):
         "launches_fabric": fb_launches.get("k3"),
         "launches_verifiers": vf_launches.get("k3"),
         "launches_supervisor": sv_launches.get("k3"),
+        "launches_chaos": ch_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -9372,6 +9650,7 @@ def _kernels_line(report):
         "launches_fabric": fb_launches.get("k4"),
         "launches_verifiers": vf_launches.get("k4"),
         "launches_supervisor": sv_launches.get("k4"),
+        "launches_chaos": ch_launches.get("k4"),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -9565,6 +9844,7 @@ def main() -> int:
         "fabric": lambda: phase_fabric(report, args.seed),
         "verifiers": lambda: phase_verifiers(report, args.seed),
         "supervisor": lambda: phase_supervisor(report, args.seed),
+        "chaos": lambda: phase_chaos(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

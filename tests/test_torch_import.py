@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: `areal_tpu_torch` and `chip_smoke.py`
-import no JAX, nothing of the JAX package and no `zmq` (the card's
+import no JAX, nothing of the JAX package or of `tests`, and no `zmq` (the card's
 machine has no pyzmq: the port's transport is the standard library's),
 and `chip_smoke.py` refuses
 to run (non-zero exit, no result line) without a CUDA card or outside the
@@ -45,6 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['areal_tpu'] = None\n"
         "sys.modules['zmq'] = None\n"
+        "sys.modules['tests'] = None\n"
         "import areal_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "areal_tpu_torch.__path__, 'areal_tpu_torch.')]\n"
@@ -74,7 +75,7 @@ def test_no_jax_or_jax_package_import(path):
             continue
         for n in names:
             root = n.split(".")[0]
-            if root in ("jax", "jaxlib", "areal_tpu", "flax", "optax", "zmq"):
+            if root in ("jax", "jaxlib", "areal_tpu", "flax", "optax", "zmq", "tests"):
                 bad.append(f"line {node.lineno}: {n}")
     assert not bad, f"{path} imports {bad}"
 
