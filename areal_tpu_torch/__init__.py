@@ -47,7 +47,7 @@ Slice 9, the system's own entry point:
     experiments/common.py build_ppo_math -> run_experiment
     system/master.py      MasterWorker: the DFG's synchronous step
     system/worker.py      ModelWorker: models, data cache, dataset loader
-    models/hf/            HF checkpoint IO (llama, qwen2; own safetensors IO)
+    models/hf/            HF checkpoint IO (llama, qwen2, mistral, mixtral, gpt2; own safetensors IO)
 
 Slice 10, recovery, the EMA reference model and the difficulty filter:
 
@@ -88,4 +88,10 @@ Slice 21, the metrics plane and the SLO fleet supervisor:
     system/fleet.py       FleetSupervisor and SupervisorLane: spawn and drain on SLO verdicts
     apps/fleet.py         python -m areal_tpu_torch.apps.fleet: the supervisor's CLI
     analysis/costmodel.py compose_step, the master's advisor residual
+
+Slice 23, MoE and the mistral, mixtral and gpt2 families:
+
+    models/transformer.py the router, the dense, topk and grouped dispatches, the aux
+    engines/train.py      the aux in the trained loss (moe_aux_loss_coef)
+    models/hf/registry.py mistral, mixtral (the experts) and gpt2 (c_attn, Conv1D)
 """

@@ -1843,7 +1843,8 @@ class GeneratorEngine:
         SP buckets to the longest admitted prompt and M to the next power
         of two, padding rows carrying one pad token and the out-of-range
         slot id n_slots.  `prefill_into_slots` selects the padding rows
-        out before its forward, so they cost nothing here."""
+        out before its forward, so they cost nothing here (a topk MoE
+        runs them, as the JAX package does)."""
         sp = bucket_len(max(len(t) for (_, _, _, t) in admits))
         m = 1
         while m < len(admits):

@@ -29,8 +29,6 @@ class InferenceEngine(HostOffloadMixin):
         device=None,
         compute_dtype: torch.dtype = torch.bfloat16,
     ):
-        if cfg.is_moe:
-            raise NotImplementedError("MoE models are not yet ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = torch.float32 if self.device.type == "cpu" else compute_dtype

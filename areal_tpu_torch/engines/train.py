@@ -10,8 +10,10 @@
 - The step's arithmetic is optax's, in the masters' dtype: bf16 masters
   round where optax's bf16 chain rounds (`_guarded_step`).
 - `train_batch` packs micro-batches into dense rows (`engines/packing`),
-  accumulates the gradients of `loss_fn(per_token_output, batch)` scaled
-  by 1 / total loss weight, then takes one guarded optimizer step:
+  accumulates the gradients of `loss_fn(per_token_output, batch)` (plus
+  `moe_aux_loss_coef` x the MoE aux for a MoE model, in the reported loss
+  too, as the JAX engine; the stats stay the loss function's) scaled by
+  1 / total loss weight, then takes one guarded optimizer step:
   global-norm clipping, then decoupled AdamW with decay on every leaf,
   at the lr of an optax-semantics schedule (count 0 for the first
   update).  The remat policy (`models/transformer._layer`: "full",
@@ -57,7 +59,7 @@
 """
 
 import math
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -154,15 +156,34 @@ def _cast_tree(tree: Params, dtype: torch.dtype) -> Params:
     return _map_tree(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
-def model_out(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-              remat) -> torch.Tensor:
-    """The per-token model output [B, S] fp32 of a packed batch: a
-    critic's values, else next-token logprobs (`per_token_output`)."""
-    x = tfm.hidden_states(
+def model_out_with_aux(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                       remat) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token model output [B, S] fp32 of a packed batch (a
+    critic's values, else next-token logprobs: `per_token_output`) and
+    the MoE aux loss summed over layers (0 for a dense model)."""
+    x, aux = tfm.hidden_states_with_aux(
         params, cfg, batch["tokens"], batch["segment_ids"],
         positions=batch["positions"], remat=remat,
     )
-    return tfm.per_token_output(params, cfg, x, batch["tokens"], batch["segment_ids"])
+    return tfm.per_token_output(params, cfg, x, batch["tokens"], batch["segment_ids"]), aux
+
+
+def model_out(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+              remat) -> torch.Tensor:
+    """The per-token model output alone (the forward-only calls)."""
+    return model_out_with_aux(params, cfg, batch, remat)[0]
+
+
+def _train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], remat,
+                loss_fn: Callable):
+    """The loss a train step differentiates, `loss_fn`'s loss plus
+    `moe_aux_loss_coef` x the aux for a MoE model (as the JAX engine's),
+    and `loss_fn`'s stats unchanged."""
+    out, aux = model_out_with_aux(params, cfg, batch, remat)
+    loss, stats = loss_fn(out, batch)
+    if cfg.is_moe:
+        loss = loss + cfg.moe_aux_loss_coef * aux
+    return loss, stats
 
 
 def device_batch(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -236,8 +257,6 @@ class TrainEngine(HostOffloadMixin):
                 "anomaly_grad_norm_mult must be > 1 when set (got "
                 f"{anomaly_grad_norm_mult}); 0 disables the spike sentinel"
             )
-        if cfg.is_moe:
-            raise NotImplementedError("MoE training is not yet ported")
         tfm._remat_layers(remat_policy)  # reject an unknown policy now
         self.master_dtype = _master_dtype(master_dtype)
         self.cfg = cfg
@@ -469,7 +488,7 @@ class TrainEngine(HostOffloadMixin):
             batch = device_batch(arrays, self.device)
             with torch.enable_grad():
                 pc = _cast_tree(self.params, self.compute_dtype)
-                loss, stats = loss_fn(model_out(pc, self.cfg, batch, self.remat_policy), batch)
+                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn)
                 (loss * scale).backward()
             losses.append(loss.detach().float() * scale)
             all_stats.append({k: v.detach().float() for k, v in stats.items()})
@@ -557,7 +576,7 @@ class TrainEngine(HostOffloadMixin):
             batch = device_batch(arrays, self.device)
             with torch.enable_grad():
                 pc = _cast_tree(self.params, self.compute_dtype)
-                loss, stats = loss_fn(model_out(pc, self.cfg, batch, self.remat_policy), batch)
+                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn)
                 loss.backward()
             losses.append(loss.detach().float())
             all_stats.append({k: v.detach().float() for k, v in stats.items()})

@@ -1,5 +1,5 @@
-"""HuggingFace checkpoint conversion (port of areal_tpu/models/hf/registry.py,
-the llama and qwen2 families).
+"""HuggingFace checkpoint conversion (port of areal_tpu/models/hf/registry.py:
+the llama, qwen2, mistral, mixtral and gpt2 families).
 
 Config <-> config.json and state dict <-> the layer-stacked params dict,
 and checkpoint directories of safetensors shards (`safetensors_io`, since
@@ -11,10 +11,23 @@ JAX package does, and splits a state dict larger than `max_shard_bytes`
 into `model-XXXXX-of-YYYYY.safetensors` shards plus
 `model.safetensors.index.json`.
 
-gemma, gpt2, mistral and mixtral are not yet ported (ROADMAP queue 1,
-item 9): naming one raises NotImplementedError.
+- mistral: llama's naming without qkv bias; sliding-window attention is
+  not modeled (full causal attention, exact within the window), as in
+  the JAX package.
+- mixtral: llama's attention and norms; the router
+  (`block_sparse_moe.gate`) and the experts (`experts.{e}.w1/w3/w2` ->
+  `wg`/`wu`/`wd`, stacked [L, E, ...]).  `router_aux_loss_coef` is not
+  read (the config keeps its 0.001), as in the JAX package.
+- gpt2: learned positions, LayerNorm with biases, the fused `c_attn`
+  split into q/k/v, Conv1D weights kept as [in, out]; tensors load with
+  or without the `transformer.` prefix and save without it.
+
+gemma is not yet ported (ROADMAP queue 1, item 9.2: its head_dim of 256
+needs 256-wide instances of every attention kernel): naming it raises
+NotImplementedError.
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -37,14 +50,27 @@ class HFFamily:
         name: str,
         config_from_hf: Callable[[dict], ModelConfig],
         config_to_hf: Callable[[ModelConfig], dict],
+        # State-dict converters; None = the llama-like naming.
+        params_from_sd: Optional[Callable] = None,
+        params_to_sd: Optional[Callable] = None,
     ):
         self.name = name
         self.config_from_hf = config_from_hf
         self.config_to_hf = config_to_hf
+        self._params_from_sd = params_from_sd
+        self._params_to_sd = params_to_sd
+
+    def params_from_sd(self, cfg, sd, dtype=None, device=None) -> Params:
+        fn = self._params_from_sd or params_from_hf_state_dict
+        return fn(cfg, sd, dtype=dtype, device=device)
+
+    def params_to_sd(self, cfg, params) -> Dict[str, torch.Tensor]:
+        fn = self._params_to_sd or params_to_hf_state_dict
+        return fn(cfg, params)
 
 
 HF_FAMILIES: Dict[str, HFFamily] = {}
-UNPORTED_FAMILIES = ("gemma", "gpt2", "mistral", "mixtral")
+UNPORTED_FAMILIES = ("gemma",)
 
 
 def register_hf_family(family: HFFamily) -> None:
@@ -54,7 +80,8 @@ def register_hf_family(family: HFFamily) -> None:
 def get_family(model_type: str) -> HFFamily:
     if model_type in UNPORTED_FAMILIES:
         raise NotImplementedError(
-            f"the {model_type} HF family is not yet ported (ROADMAP queue 1, item 9)"
+            f"the {model_type} HF family is not yet ported (ROADMAP queue 1, item 9.2: "
+            "head_dim 256 needs 256-wide attention kernels)"
         )
     if model_type not in HF_FAMILIES:
         raise KeyError(f"unknown HF model_type {model_type!r}")
@@ -127,6 +154,7 @@ _BLOCK_TENSORS = (
     ("wu", "mlp.up_proj.weight", True),
     ("wd", "mlp.down_proj.weight", True),
 )
+_MLP_KEYS = ("wg", "wu", "wd")  # the dense MLP's (mixtral has experts instead)
 _BIAS_TENSORS = (
     ("bq", "self_attn.q_proj.bias"),
     ("bk", "self_attn.k_proj.bias"),
@@ -134,86 +162,322 @@ _BIAS_TENSORS = (
 )
 
 
+class _Reader:
+    """Streams HF tensors (host tensors, e.g. views of a mapped file)
+    into device tensors: each goes to `device` as it lies in the file
+    (one contiguous copy) and is cast and transposed there, into its slot
+    of the output."""
+
+    def __init__(self, sd: Dict[str, torch.Tensor], dtype, device):
+        self.sd, self.dtype, self.device = sd, dtype, device
+
+    def get(self, name: str, transpose: bool = False) -> torch.Tensor:
+        if name not in self.sd:
+            raise KeyError(f"missing tensor {name!r} in checkpoint")
+        src = self.sd[name].to(self.device)
+        return src.t() if transpose else src
+
+    def empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=self.dtype, device=self.device)
+
+    def one(self, name: str, transpose: bool = False) -> torch.Tensor:
+        src = self.get(name, transpose)
+        return self.empty(src.shape).copy_(src)
+
+    def stack(self, fmt: str, n: int, transpose: bool = False) -> torch.Tensor:
+        """[n, ...] from the tensors named fmt.format(0 .. n-1)."""
+        first = self.get(fmt.format(0), transpose)
+        out = self.empty((n, *first.shape))
+        out[0].copy_(first)
+        for i in range(1, n):
+            out[i].copy_(self.get(fmt.format(i), transpose))
+        return out
+
+
 def params_from_hf_state_dict(
-    cfg: ModelConfig, sd: Dict[str, torch.Tensor], dtype=None, device=None
+    cfg: ModelConfig, sd: Dict[str, torch.Tensor], dtype=None, device=None,
+    skip_mlp: bool = False,
 ) -> Params:
     """HF tensors (host tensors, e.g. views of a mapped file) -> the
     layer-stacked params on `device` (the CUDA card unless told
-    otherwise) in `dtype` (default: the config's).  Each tensor goes to
-    the device as it lies in the file (one contiguous copy) and is cast
-    and transposed there, into its slot of the stacked tensor."""
-    device = resolve_device(device)
-    dtype = dtype or cfg.dtype
-
-    def get(name, transpose=False):
-        if name not in sd:
-            raise KeyError(f"missing tensor {name!r} in checkpoint")
-        src = sd[name].to(device)
-        return src.t() if transpose else src
-
-    def one(name, transpose=False):
-        src = get(name, transpose)
-        out = torch.empty(src.shape, dtype=dtype, device=device)
-        return out.copy_(src)
+    otherwise) in `dtype` (default: the config's), streamed by `_Reader`.
+    `skip_mlp` leaves out the dense MLP (mixtral reads its experts)."""
+    rd = _Reader(sd, dtype or cfg.dtype, resolve_device(device))
 
     def stack(name, transpose):
-        first = get(_LAYER.format(0) + name, transpose)
-        out = torch.empty((cfg.n_layers, *first.shape), dtype=dtype, device=device)
-        out[0].copy_(first)
-        for i in range(1, cfg.n_layers):
-            out[i].copy_(get(_LAYER.format(i) + name, transpose))
-        return out
+        return rd.stack(_LAYER + name, cfg.n_layers, transpose)
 
-    blocks = {key: stack(name, tr) for key, name, tr in _BLOCK_TENSORS}
+    blocks = {key: stack(name, tr) for key, name, tr in _BLOCK_TENSORS
+              if not (skip_mlp and key in _MLP_KEYS)}
     if cfg.qkv_bias:
         blocks.update({key: stack(name, False) for key, name in _BIAS_TENSORS})
     params: Params = {
-        "embed": one("model.embed_tokens.weight"),
+        "embed": rd.one("model.embed_tokens.weight"),
         "blocks": blocks,
-        "final_ln": one("model.norm.weight"),
+        "final_ln": rd.one("model.norm.weight"),
     }
     if cfg.is_critic:
         if "value_head.weight" in sd:
             # The port's and the JAX package's own critic checkpoints
             # carry the trained head.
-            params["value_head"] = one("value_head.weight")
+            params["value_head"] = rd.one("value_head.weight")
         else:
             # A critic built from an actor's checkpoint: a fresh head.
-            params["value_head"] = torch.zeros((cfg.hidden_dim, 1), dtype=dtype, device=device)
+            params["value_head"] = rd.empty((cfg.hidden_dim, 1)).zero_()
     elif not cfg.tied_embeddings:
-        params["lm_head"] = one("lm_head.weight", transpose=True)
+        params["lm_head"] = rd.one("lm_head.weight", transpose=True)
     return params
 
 
-def params_to_hf_state_dict(cfg: ModelConfig, params: Params) -> Dict[str, torch.Tensor]:
-    """The params -> HF-named fp32 host tensors, each contiguous.  Each
-    tensor is cast and transposed where it lies (on the card, its copy
-    engines and cores) and then copied to the host once."""
+def _host(x: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """fp32 on the host, contiguous: cast and transposed where the tensor
+    lies (on the card, its copy engines and cores), then copied once."""
+    x = x.detach().to(torch.float32)
+    if transpose:
+        x = x.transpose(-1, -2).contiguous()
+    return x.to("cpu")
 
-    def host(x, transpose=False):
-        x = x.detach().to(torch.float32)
-        if transpose:
-            x = x.transpose(-1, -2).contiguous()
-        return x.to("cpu")
 
+def params_to_hf_state_dict(
+    cfg: ModelConfig, params: Params, skip_mlp: bool = False
+) -> Dict[str, torch.Tensor]:
+    """The params -> HF-named fp32 host tensors, each contiguous
+    (`_host`).  `skip_mlp` leaves out the dense MLP (mixtral writes its
+    experts)."""
     out: Dict[str, torch.Tensor] = {
-        "model.embed_tokens.weight": host(params["embed"]),
-        "model.norm.weight": host(params["final_ln"]),
+        "model.embed_tokens.weight": _host(params["embed"]),
+        "model.norm.weight": _host(params["final_ln"]),
     }
     if cfg.is_critic:
         # Not an HF key: kept so a critic checkpoint round-trips its head.
-        out["value_head.weight"] = host(params["value_head"])
+        out["value_head.weight"] = _host(params["value_head"])
     elif not cfg.tied_embeddings:
-        out["lm_head.weight"] = host(params["lm_head"], transpose=True)
+        out["lm_head.weight"] = _host(params["lm_head"], transpose=True)
     blocks = params["blocks"]
-    tensors = list(_BLOCK_TENSORS)
+    tensors = [t for t in _BLOCK_TENSORS if not (skip_mlp and t[0] in _MLP_KEYS)]
     if cfg.qkv_bias:
         tensors += [(key, name, False) for key, name in _BIAS_TENSORS]
     for key, name, transpose in tensors:
-        arr = host(blocks[key], transpose)
+        arr = _host(blocks[key], transpose)
         for i in range(cfg.n_layers):
             out[_LAYER.format(i) + name] = arr[i]
     return out
+
+
+# ---------------- mistral ----------------
+# Llama naming without qkv bias.  Sliding-window attention is not modeled
+# (full causal attention: exact for sequences within the window).
+
+
+def _mistral_config_from_hf(hf: dict) -> ModelConfig:
+    return dataclasses.replace(_llama_like_config_from_hf(hf), qkv_bias=False)
+
+
+def _mistral_config_to_hf(cfg: ModelConfig) -> dict:
+    return {
+        **_llama_like_config_to_hf(cfg, "mistral"),
+        "model_type": "mistral",
+        "architectures": ["MistralForCausalLM"],
+        "sliding_window": None,
+    }
+
+
+register_hf_family(HFFamily("mistral", _mistral_config_from_hf, _mistral_config_to_hf))
+
+
+# ---------------- mixtral ----------------
+
+_MOE = "model.layers.{}.block_sparse_moe"  # .format(layer)
+# (params key, expert tensor): HF's [out, in] experts transpose to [in, out]
+_EXPERT_TENSORS = (("wg", "w1"), ("wd", "w2"), ("wu", "w3"))
+
+
+def _mixtral_config_from_hf(hf: dict) -> ModelConfig:
+    return dataclasses.replace(
+        _llama_like_config_from_hf(hf),
+        qkv_bias=False,
+        n_experts=hf["num_local_experts"],
+        n_experts_per_tok=hf["num_experts_per_tok"],
+        moe_intermediate_dim=hf["intermediate_size"],
+    )
+
+
+def _mixtral_config_to_hf(cfg: ModelConfig) -> dict:
+    out = _llama_like_config_to_hf(cfg, "mixtral")
+    out.update(
+        model_type="mixtral",
+        architectures=["MixtralForCausalLM"],
+        num_local_experts=cfg.n_experts,
+        num_experts_per_tok=cfg.n_experts_per_tok,
+        intermediate_size=cfg.moe_intermediate_dim or cfg.intermediate_dim,
+    )
+    return out
+
+
+def _mixtral_params_from_sd(cfg: ModelConfig, sd, dtype=None, device=None) -> Params:
+    """Attention and norms by the llama naming; the router [L, D, E] and
+    the experts stacked [L, E, ...], each expert tensor streamed into its
+    slot out[i, e] on the device."""
+    rd = _Reader(sd, dtype or cfg.dtype, resolve_device(device))
+    params = params_from_hf_state_dict(cfg, sd, dtype=rd.dtype, device=rd.device, skip_mlp=True)
+    blocks = params["blocks"]
+    blocks["router"] = rd.stack(_MOE + ".gate.weight", cfg.n_layers, transpose=True)
+    for key, name in _EXPERT_TENSORS:
+        first = rd.get(f"{_MOE.format(0)}.experts.0.{name}.weight", transpose=True)
+        out = rd.empty((cfg.n_layers, cfg.n_experts, *first.shape))
+        for i in range(cfg.n_layers):
+            for e in range(cfg.n_experts):
+                out[i, e].copy_(rd.get(f"{_MOE.format(i)}.experts.{e}.{name}.weight", True))
+        blocks[key] = out
+    return params
+
+
+def _mixtral_params_to_sd(cfg: ModelConfig, params: Params) -> Dict[str, torch.Tensor]:
+    out = params_to_hf_state_dict(cfg, params, skip_mlp=True)
+    blocks = params["blocks"]
+    router = _host(blocks["router"], transpose=True)  # [L, E, D]
+    experts = {name: _host(blocks[key], transpose=True) for key, name in _EXPERT_TENSORS}
+    for i in range(cfg.n_layers):
+        pre = _MOE.format(i)
+        out[pre + ".gate.weight"] = router[i]
+        for e in range(cfg.n_experts):
+            for _, name in _EXPERT_TENSORS:
+                out[f"{pre}.experts.{e}.{name}.weight"] = experts[name][i, e]
+    return out
+
+
+register_hf_family(HFFamily(
+    "mixtral", _mixtral_config_from_hf, _mixtral_config_to_hf,
+    params_from_sd=_mixtral_params_from_sd, params_to_sd=_mixtral_params_to_sd,
+))
+
+
+# ---------------- gpt2 ----------------
+# Learned positions, LayerNorm with biases, the fused c_attn, a plain gelu
+# MLP, biases everywhere; Conv1D weights are [in, out], the port's layout.
+
+# (params key, HF name under "h.{layer}.")
+_GPT2_BLOCK_TENSORS = (
+    ("ln1", "ln_1.weight"), ("ln1_b", "ln_1.bias"),
+    ("wo", "attn.c_proj.weight"), ("bo", "attn.c_proj.bias"),
+    ("ln2", "ln_2.weight"), ("ln2_b", "ln_2.bias"),
+    ("wg", "mlp.c_fc.weight"), ("bfc", "mlp.c_fc.bias"),
+    ("wd", "mlp.c_proj.weight"), ("bproj", "mlp.c_proj.bias"),
+)
+
+
+def _gpt2_config_from_hf(hf: dict) -> ModelConfig:
+    d, heads = hf["n_embd"], hf["n_head"]
+    return ModelConfig(
+        n_layers=hf["n_layer"],
+        hidden_dim=d,
+        n_q_heads=heads,
+        n_kv_heads=heads,
+        head_dim=d // heads,
+        intermediate_dim=hf.get("n_inner") or 4 * d,
+        vocab_size=hf["vocab_size"],
+        max_position_embeddings=hf.get("n_positions", 1024),
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        qkv_bias=True,
+        tied_embeddings=True,
+        hidden_act="gelu_tanh",  # gelu_new
+        norm_type="layernorm",
+        pos_emb="learned",
+        mlp_gated=False,
+        proj_bias=True,
+    )
+
+
+def _gpt2_config_to_hf(cfg: ModelConfig) -> dict:
+    return {
+        "model_type": "gpt2",
+        "n_layer": cfg.n_layers,
+        "n_embd": cfg.hidden_dim,
+        "n_head": cfg.n_q_heads,
+        "n_inner": cfg.intermediate_dim,
+        "vocab_size": cfg.vocab_size,
+        "n_positions": cfg.max_position_embeddings,
+        "n_ctx": cfg.max_position_embeddings,
+        "layer_norm_epsilon": cfg.rms_norm_eps,
+        "activation_function": "gelu_new",
+        "tie_word_embeddings": True,
+        "torch_dtype": "float32",
+        "architectures": ["GPT2LMHeadModel"],
+    }
+
+
+def _gpt2_params_from_sd(cfg: ModelConfig, sd, dtype=None, device=None) -> Params:
+    """The blocks stacked over layers, `c_attn` [D, 3D] split into
+    wq/wk/wv and its bias into bq/bk/bv on the device.  A critic gets a
+    fresh value head (a gpt2 checkpoint carries none, as in the JAX
+    package)."""
+    rd = _Reader(sd, dtype or cfg.dtype, resolve_device(device))
+    L, D = cfg.n_layers, cfg.hidden_dim
+
+    def name(n):  # with or without the "transformer." prefix
+        return n if n in sd else "transformer." + n
+
+    def stack(n):
+        out = rd.empty((L, *rd.get(name(f"h.0.{n}")).shape))
+        for i in range(L):
+            out[i].copy_(rd.get(name(f"h.{i}.{n}")))
+        return out
+
+    qkv_w = [rd.empty((L, D, D)) for _ in range(3)]
+    qkv_b = [rd.empty((L, D)) for _ in range(3)]
+    for i in range(L):
+        w = rd.get(name(f"h.{i}.attn.c_attn.weight"))  # [D, 3D]
+        b = rd.get(name(f"h.{i}.attn.c_attn.bias"))
+        for j in range(3):
+            qkv_w[j][i].copy_(w[:, j * D:(j + 1) * D])
+            qkv_b[j][i].copy_(b[j * D:(j + 1) * D])
+    named = {key: stack(n) for key, n in _GPT2_BLOCK_TENSORS}
+    blocks = {
+        "ln1": named["ln1"], "ln1_b": named["ln1_b"],
+        "wq": qkv_w[0], "wk": qkv_w[1], "wv": qkv_w[2],
+        "bq": qkv_b[0], "bk": qkv_b[1], "bv": qkv_b[2],
+        **{k: named[k] for k in ("wo", "bo", "ln2", "ln2_b", "wg", "bfc", "wd", "bproj")},
+    }
+    params: Params = {
+        "embed": rd.one(name("wte.weight")),
+        "pos_embed": rd.one(name("wpe.weight")),
+        "blocks": blocks,
+        "final_ln": rd.one(name("ln_f.weight")),
+        "final_ln_b": rd.one(name("ln_f.bias")),
+    }
+    if cfg.is_critic:
+        params["value_head"] = rd.empty((D, 1)).zero_()
+    return params
+
+
+def _gpt2_params_to_sd(cfg: ModelConfig, params: Params) -> Dict[str, torch.Tensor]:
+    """The inverse, without the `transformer.` prefix (no lm_head: gpt2
+    ties it; no value head, as in the JAX package)."""
+    blocks = params["blocks"]
+    out = {
+        "wte.weight": _host(params["embed"]),
+        "wpe.weight": _host(params["pos_embed"]),
+        "ln_f.weight": _host(params["final_ln"]),
+        "ln_f.bias": _host(params["final_ln_b"]),
+    }
+    c_attn_w = _host(torch.cat([blocks["wq"], blocks["wk"], blocks["wv"]], dim=-1))
+    c_attn_b = _host(torch.cat([blocks["bq"], blocks["bk"], blocks["bv"]], dim=-1))
+    named = {key: _host(blocks[key]) for key, _ in _GPT2_BLOCK_TENSORS}
+    for i in range(cfg.n_layers):
+        pre = f"h.{i}."
+        for key, n in _GPT2_BLOCK_TENSORS[:2]:
+            out[pre + n] = named[key][i]
+        out[pre + "attn.c_attn.weight"] = c_attn_w[i]
+        out[pre + "attn.c_attn.bias"] = c_attn_b[i]
+        for key, n in _GPT2_BLOCK_TENSORS[2:]:
+            out[pre + n] = named[key][i]
+    return out
+
+
+register_hf_family(HFFamily(
+    "gpt2", _gpt2_config_from_hf, _gpt2_config_to_hf,
+    params_from_sd=_gpt2_params_from_sd, params_to_sd=_gpt2_params_to_sd,
+))
 
 
 def infer_model_type(cfg: ModelConfig) -> str:
@@ -267,7 +531,7 @@ def load_hf_checkpoint(
             sd.update(torch.load(
                 os.path.join(path, f), map_location="cpu", weights_only=True, mmap=True,
             ))
-    params = params_from_hf_state_dict(cfg, sd, dtype=dtype, device=device)
+    params = family.params_from_sd(cfg, sd, dtype=dtype, device=device)
     logger.info(f"loaded HF checkpoint from {path} ({hf_cfg['model_type']})")
     return cfg, params
 
@@ -283,7 +547,7 @@ def save_hf_checkpoint(
     """Write an HF-format checkpoint dir (fp32 safetensors + config.json)
     that the JAX package, transformers and serving engines read."""
     family = get_family(model_type)
-    sd = params_to_hf_state_dict(cfg, params)
+    sd = family.params_to_sd(cfg, params)
     os.makedirs(path, exist_ok=True)
     nbytes = {k: v.numel() * v.element_size() for k, v in sd.items()}
     total = sum(nbytes.values())

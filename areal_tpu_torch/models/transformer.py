@@ -7,13 +7,22 @@ paged KV pool.
   axis under "blocks" — the JAX package's layout, so one set of weights
   can be handed to both (`models/weights.py`).  Layers run as a Python
   loop over that axis.
-- Dense llama/qwen2-family models (qkv bias, tied embeddings); a
+- The llama/qwen2/mistral, mixtral and gpt2 layers (qkv bias, tied
+  embeddings, LayerNorm with biases, learned positions, a plain MLP); a
   critic (`cfg.is_critic`) swaps the LM head for a scalar value head
-  `value_head` [D, 1].  MoE is not ported yet.
+  `value_head` [D, 1].
+- MoE (`cfg.is_moe`): a router [D, E] and stacked experts wg/wu [E, D,
+  FM], wd [E, FM, D] a layer, top-k routing with the switch-style aux
+  loss, and the JAX package's three dispatches (`moe_dispatch`): "dense"
+  (every expert on every token: the oracle), "topk" (GShard capacity
+  slots; choices over capacity drop) and "grouped" (the default: tokens
+  sorted by expert, the three expert products as one grouped GEMM each,
+  `torch._grouped_mm`).  Every forward runs the MoE MLP; the packed-row
+  forward sums the aux over layers (`forward_with_aux`), the generation
+  paths drop it.  No dispatch reads a device value on the host.
 - Packed rows: [B, S] tokens with segment ids (0 = padding) run through
-  `flash_attention` (the flash kernels on the card).  Remat "full"
-  checkpoints each layer (`torch.utils.checkpoint`, non-reentrant);
-  "dots" and "dots_small" are not ported yet.
+  `flash_attention` (the flash kernels on the card), under a remat
+  policy ("none", "full", "dots" or "dots_small"; `_layer`).
 - The LM head gives fp32 logits, and the value head fp32 values, of the
   product in the weights' dtype (`ops/functional.matmul_fp32_out`), as
   the JAX package asks XLA for.
@@ -45,6 +54,7 @@ paged KV pool.
 """
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -89,8 +99,6 @@ def init_params(
     `torch.Generator` seeded with `seed`.  The numbers differ from the
     JAX package's `init_params` (other generator); hand one set of
     weights to both with `models/weights.py`."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     device = resolve_device(device)
     dtype = cfg.dtype
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -127,10 +135,17 @@ def init_params(
         blocks["bproj"] = zeros(L, D)
         if not cfg.mlp_gated:
             blocks["bfc"] = zeros(L, F_)
-    blocks["wg"] = dense((L, D, F_), D)
-    if cfg.mlp_gated:
-        blocks["wu"] = dense((L, D, F_), D)
-    blocks["wd"] = dense((L, F_, D), F_)
+    if cfg.is_moe:
+        E, FM = cfg.n_experts, cfg.moe_intermediate_dim
+        blocks["router"] = dense((L, D, E), D)
+        blocks["wg"] = dense((L, E, D, FM), D)
+        blocks["wu"] = dense((L, E, D, FM), D)
+        blocks["wd"] = dense((L, E, FM, D), FM)
+    else:
+        blocks["wg"] = dense((L, D, F_), D)
+        if cfg.mlp_gated:
+            blocks["wu"] = dense((L, D, F_), D)
+        blocks["wd"] = dense((L, F_, D), F_)
 
     params: Params = {
         "embed": dense((cfg.vocab_size, D), D),
@@ -210,6 +225,117 @@ def _mlp_dense(h: torch.Tensor, blk: Params, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """`jax.nn.one_hot`: rows of zeros for indices outside [0, n).  A
+    comparison, so it never checks the indices on the host (F.one_hot
+    does on the CPU, and raises where JAX gives zeros)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _moe_route(x: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """The router over x [T, D]: fp32 logits and softmax, the top-k
+    weights renormalised to sum to 1, the choices as a one-hot [T, k, E],
+    and the switch-style load-balancing aux E * sum_e load_e * importance_e.
+    Ties order the lower expert first, as `jax.lax.top_k` does (a stable
+    descending sort; `torch.topk` leaves their order open)."""
+    probs = torch.softmax(x.float() @ blk["router"].float(), dim=-1)  # [T, E]
+    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_per_tok
+    top_w, top_idx = top_w[:, :k], top_idx[:, :k]
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+    one_hot = _one_hot(top_idx, cfg.n_experts, probs.dtype)  # [T, k, E]
+    load = torch.mean(one_hot.sum(dim=1), dim=0)  # the share routed to each expert
+    importance = torch.mean(probs, dim=0)
+    aux = cfg.n_experts * torch.sum(load * importance)
+    return top_w, top_idx, one_hot, aux
+
+
+def _mlp_moe_dense(h: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """The oracle: every expert on every token, combined with the sparse
+    router weights (E/k times the products of a real dispatch, and equal
+    to dropless top-k routing).  The experts' activation is SiLU whatever
+    `hidden_act` says, as in the JAX package."""
+    shape = h.shape
+    x = h.reshape(-1, shape[-1])  # [T, D]
+    top_w, _, one_hot, aux = _moe_route(x, blk, cfg)
+    comb = torch.einsum("tk,tke->te", top_w, one_hot)  # [T, E]
+    gate = F.silu(torch.einsum("td,edf->etf", x, blk["wg"]))
+    up = torch.einsum("td,edf->etf", x, blk["wu"])
+    expert_out = torch.einsum("etf,efd->etd", gate * up, blk["wd"])  # [E, T, D]
+    out = torch.einsum("te,etd->td", comb.to(expert_out.dtype), expert_out)
+    return out.reshape(shape), aux
+
+
+def _mlp_moe_topk(h: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """Capacity dispatch (GShard): the expert products run on [E, C, D]
+    gathered slots, C = ceil(T * k / E * capacity_factor) from the static
+    shapes.  Queue positions are choice-slot-major, so first choices claim
+    capacity before second ones; a choice past its expert's capacity is
+    dropped (its combine weight is 0).  Every row of h routes and takes
+    capacity, padding included, as in the JAX package."""
+    shape = h.shape
+    x = h.reshape(-1, shape[-1])  # [T, D]
+    T = x.shape[0]
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    top_w, _, one_hot, aux = _moe_route(x, blk, cfg)
+    cap = max(int(math.ceil(T * k / E * cfg.moe_capacity_factor)), 1)
+    sel = one_hot.transpose(0, 1).reshape(k * T, E)  # [k*T, E]
+    pos = torch.cumsum(sel, dim=0) - sel  # the queue position BEFORE this entry
+    keep = sel * (pos < cap)
+    slot = _one_hot(pos.to(torch.int32), cap, x.dtype)  # [k*T, E, C]
+    disp = (keep.to(x.dtype)[..., None] * slot).reshape(k, T, E, cap)
+    dispatch = disp.sum(dim=0)  # [T, E, C] of 0/1
+    combine = torch.einsum("tk,ktec->tec", top_w.to(x.dtype), disp)
+    xe = torch.einsum("tec,td->ecd", dispatch, x)  # [E, C, D]
+    gate = F.silu(torch.einsum("ecd,edf->ecf", xe, blk["wg"]))
+    up = torch.einsum("ecd,edf->ecf", xe, blk["wu"])
+    ye = torch.einsum("ecf,efd->ecd", gate * up, blk["wd"])  # [E, C, D]
+    out = torch.einsum("tec,ecd->td", combine, ye)
+    return out.reshape(shape), aux
+
+
+def _mlp_moe_grouped(h: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """Dropless grouped-GEMM dispatch (the default): the T*k choices
+    sorted by expert (a stable sort, token-major within an expert), the
+    group offsets computed on the device, and each expert product one
+    `torch._grouped_mm` over the sorted rows (3 T k D F multiply-adds in
+    all: proportional to the tokens, not to E).  The k outputs of a token
+    are gathered back through the inverse permutation and summed over k in
+    order (choice 0 + choice 1 + ...), never scattered with atomic adds:
+    for k <= 2 this is the JAX package's scatter-add from zeros bit for
+    bit."""
+    shape = h.shape
+    x = h.reshape(-1, shape[-1])  # [T, D]
+    T = x.shape[0]
+    k = cfg.n_experts_per_tok
+    top_w, top_idx, one_hot, aux = _moe_route(x, blk, cfg)
+    order = torch.argsort(top_idx.reshape(-1), stable=True)  # [T*k]
+    offs = torch.cumsum(one_hot.sum(dim=(0, 1)), dim=0).to(torch.int32)  # [E]
+    xs = x[torch.div(order, k, rounding_mode="floor")]  # [T*k, D], by expert
+    gate = F.silu(torch._grouped_mm(xs, blk["wg"], offs=offs))
+    up = torch._grouped_mm(xs, blk["wu"], offs=offs)
+    ys = torch._grouped_mm(gate * up, blk["wd"], offs=offs)  # [T*k, D]
+    ys = ys * top_w.reshape(-1)[order].to(ys.dtype)[:, None]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=order.device)
+    per_choice = ys[inv].reshape(T, k, -1)  # token-major again
+    out = per_choice[:, 0]
+    for j in range(1, k):
+        out = out + per_choice[:, j]
+    return out.reshape(shape), aux
+
+
+_MOE_DISPATCH = {"dense": _mlp_moe_dense, "topk": _mlp_moe_topk, "grouped": _mlp_moe_grouped}
+
+
+def _mlp(h: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """The MLP on normed h [..., D] -> (out, the MoE aux or None).  An
+    unknown `moe_dispatch` runs "topk", as in the JAX package."""
+    if cfg.is_moe:
+        return _MOE_DISPATCH.get(cfg.moe_dispatch, _mlp_moe_topk)(h, blk, cfg)
+    return _mlp_dense(h, blk, cfg), None
+
+
 def head_weights(params: Params, cfg: ModelConfig) -> torch.Tensor:
     """[D, V] LM-head matrix (transposed embedding when tied)."""
     return params["embed"].T if cfg.tied_embeddings else params["lm_head"]
@@ -250,18 +376,20 @@ def _attn_out(attn: torch.Tensor, blk: Params, cfg: ModelConfig, lead) -> torch.
     return ao
 
 
-def _mlp_branch(x: torch.Tensor, blk: Params, cfg: ModelConfig) -> torch.Tensor:
-    """The MLP residual branch: norm, then the MLP.  x [..., D]."""
-    return _mlp_dense(_norm(x, blk["ln2"], blk.get("ln2_b"), cfg), blk, cfg)
+def _mlp_branch(x: torch.Tensor, blk: Params, cfg: ModelConfig):
+    """The MLP residual branch: norm, then the MLP.  x [..., D] ->
+    (out, the MoE aux or None)."""
+    return _mlp(_norm(x, blk["ln2"], blk.get("ln2_b"), cfg), blk, cfg)
 
 
 def _attn_mlp(
     x: torch.Tensor, attn: torch.Tensor, blk: Params, cfg: ModelConfig
 ) -> torch.Tensor:
     """The rest of a layer after attention: output projection, residual,
-    norm, MLP, residual.  attn [..., n_q, d], x [..., D]."""
+    norm, MLP, residual (the generation paths: a MoE aux is dropped).
+    attn [..., n_q, d], x [..., D]."""
     x = x + _attn_out(attn, blk, cfg, x.shape[:-1])
-    return x + _mlp_branch(x, blk, cfg)
+    return x + _mlp_branch(x, blk, cfg)[0]
 
 
 # --------------------------------------------------------------------------
@@ -302,9 +430,11 @@ def _block_forward(
     segment_ids: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
-) -> torch.Tensor:
+):
+    """One packed-row layer -> (its output, the MoE aux or None)."""
     h = x + _attn_branch(x, blk, cfg, segment_ids, cos, sin)
-    return h + _mlp_branch(h, blk, cfg)
+    mlp_out, aux = _mlp_branch(h, blk, cfg)
+    return h + mlp_out, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -341,9 +471,11 @@ def _remat_layers(remat) -> str:
     return remat
 
 
-def _layer(x, blk, cfg, segment_ids, cos, sin, policy: str) -> torch.Tensor:
-    """One packed-row layer under a remat policy (non-reentrant
-    checkpoints, so every policy runs the same ops on the same values):
+def _layer(x, blk, cfg, segment_ids, cos, sin, policy: str):
+    """One packed-row layer under a remat policy -> (its output, the MoE
+    aux or None; the aux leaves each checkpointed function as its second
+    output).  Non-reentrant checkpoints, so every policy runs the same
+    ops on the same values:
     - "none": autograd's own residuals;
     - "full": the layer input only; backward recomputes the layer;
     - "dots": the layer input and the seven projections' outputs
@@ -351,9 +483,9 @@ def _layer(x, blk, cfg, segment_ids, cos, sin, policy: str) -> torch.Tensor:
       attention and the activation;
     - "dots_small": one checkpoint a residual branch, so the two branch
       inputs x and x + attn_out ([*, D] each) are kept and each branch
-      is recomputed in its own backward.  JAX keeps three [*, D] a layer
-      (its layer input, "attn_out" and "mlp_out"); the values are the
-      same."""
+      is recomputed in its own backward (a MoE layer's MLP branch output
+      is the MoE output).  JAX keeps three [*, D] a layer (its layer
+      input, "attn_out" and "mlp_out"); the values are the same."""
     if policy == "none":
         return _block_forward(x, blk, cfg, segment_ids, cos, sin)
     if policy == "full":
@@ -364,7 +496,8 @@ def _layer(x, blk, cfg, segment_ids, cos, sin, policy: str) -> torch.Tensor:
                           use_reentrant=False, context_fn=_dots_contexts)
     h = x + checkpoint(_attn_branch, x, blk, cfg, segment_ids, cos, sin,
                        use_reentrant=False)
-    return h + checkpoint(_mlp_branch, h, blk, cfg, use_reentrant=False)
+    mlp_out, aux = checkpoint(_mlp_branch, h, blk, cfg, use_reentrant=False)
+    return h + mlp_out, aux
 
 
 def _backbone(
@@ -374,9 +507,9 @@ def _backbone(
     segment_ids: torch.Tensor,
     positions: torch.Tensor,
     remat=False,
-) -> torch.Tensor:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The final-normed hidden states and the MoE aux summed over layers
+    (a 0 for a dense model)."""
     policy = _remat_layers(remat) if torch.is_grad_enabled() else "none"
     positions = positions.long()
     x = _embed(params, cfg, tokens.long(), positions)
@@ -384,10 +517,15 @@ def _backbone(
     # unbind, not w[li]: its backward stacks the L layer gradients once,
     # where L index backwards would each add a full [L, ...] gradient.
     layers = {name: w.unbind(0) for name, w in params["blocks"].items()}
+    auxes = []
     for li in range(cfg.n_layers):
         blk = {name: ws[li] for name, ws in layers.items()}
-        x = _layer(x, blk, cfg, segment_ids, cos, sin, policy)
-    return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+        x, aux = _layer(x, blk, cfg, segment_ids, cos, sin, policy)
+        if aux is not None:
+            auxes.append(aux)
+    aux = (torch.sum(torch.stack(auxes)) if auxes
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg), aux
 
 
 def hidden_states(
@@ -399,8 +537,21 @@ def hidden_states(
     remat=False,
 ) -> torch.Tensor:
     """Backbone only: final-normed hidden states [B, S, D], without the
-    LM head (the JAX function also returns the MoE aux loss; the port has
-    no MoE yet)."""
+    LM head (the JAX function's first output; `hidden_states_with_aux`
+    also returns the MoE aux)."""
+    return hidden_states_with_aux(params, cfg, tokens, segment_ids, positions, remat)[0]
+
+
+def hidden_states_with_aux(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    segment_ids: torch.Tensor,  # [B, S] int, 0 = pad
+    positions: Optional[torch.Tensor] = None,
+    remat=False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final-normed hidden states [B, S, D], the MoE aux loss summed over
+    layers: fp32, 0 for a dense model), as the JAX `hidden_states`."""
     if positions is None:
         positions = positions_from_segments(segment_ids)
     return _backbone(params, cfg, tokens, segment_ids, positions, remat)
@@ -416,8 +567,20 @@ def forward(
 ) -> torch.Tensor:
     """Full forward over packed rows -> fp32 logits [B, S, V] (a
     critic's values [B, S])."""
-    x = hidden_states(params, cfg, tokens, segment_ids, positions, remat)
-    return _head(params, cfg, x)
+    return forward_with_aux(params, cfg, tokens, segment_ids, positions, remat)[0]
+
+
+def forward_with_aux(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    segment_ids: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    remat=False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`forward` and the MoE aux loss summed over layers."""
+    x, aux = hidden_states_with_aux(params, cfg, tokens, segment_ids, positions, remat)
+    return _head(params, cfg, x), aux
 
 
 def per_token_output(
@@ -512,8 +675,6 @@ def prefill(
     dequantized values: the prefill then sees what every later read of
     the cache sees.  A dequantized value is never quantized again
     (round(126 s / 127 / s') flips codes)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     if quantize_kv != cache.quantized:
         raise ValueError("quantize_kv must be set exactly when the cache is int8")
     b, s = tokens.shape
@@ -559,8 +720,6 @@ def decode_step(
     live window [valid_from, slot] through `decode_attention_kernel` (K4
     on the card), and return fp32 logits [B, V] and the cache — the same
     object, updated in place."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     b = tokens.shape[0]
     slot = int(slot)
     positions = positions.long()
@@ -619,8 +778,6 @@ def decode_step_inflight(
     place.  The JAX function's `unroll` (a layer loop the XLA compiler
     could alias) has no counterpart: here the layers are always a Python
     loop over in-place views."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     b = tokens.shape[0]
     positions = positions.long()
     x = _embed(params, cfg, tokens.long(), positions)[:, None, :]  # [B, 1, D]
@@ -660,8 +817,6 @@ def decode_step_spec(
     consumed for real.  Returns fp32 logits [B, Q, V] (logits[:, j] = the
     next-token distribution after tokens[:, :j+1]) and the cache, updated
     in place."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     b, q_len = tokens.shape
     dev = tokens.device
     positions = positions.long()
@@ -710,9 +865,12 @@ def prefill_into_slots(
     `slot_rows` entry is out of range (>= n_slots) are padding: they are
     selected out BEFORE the forward (torch has no drop-mode scatter, and
     a clamped index would overwrite a live row), and their logits are 0.
-    `slot_rows` is read on the host, so pass it on the CPU (as the engine
-    does) and nothing waits for the card.  An int8 cache gets the codes
-    the prefill computed, never re-quantized values."""
+    A "topk" MoE couples the rows (every token takes capacity), so there
+    the padding rows run in the forward, as in the JAX package, and only
+    the live rows are written.  `slot_rows` is read on the host, so pass
+    it on the CPU (as the engine does) and nothing waits for the card.
+    An int8 cache gets the codes the prefill computed, never re-quantized
+    values."""
     m, sp = tokens.shape
     dev = tokens.device
     rows = slot_rows.to("cpu").long()
@@ -721,21 +879,24 @@ def prefill_into_slots(
     if keep.numel() == 0:
         return logits_all, cache
     keep_dev = keep.to(dev)
-    if keep.numel() < m:
-        tokens, prompt_lens = tokens[keep_dev], prompt_lens[keep_dev]
+    coupled = cfg.is_moe and cfg.moe_dispatch not in ("dense", "grouped")
+    run = torch.arange(m, device=dev) if coupled else keep_dev  # the rows the forward runs
+    if run.numel() < m:
+        tokens, prompt_lens = tokens[run], prompt_lens[run]
     seg = (
         torch.arange(sp, device=dev)[None, :] < prompt_lens.long()[:, None]
     ).long()
-    row_cache = _prefill_row_cache(cfg, keep.numel(), sp, cache)
+    row_cache = _prefill_row_cache(cfg, run.numel(), sp, cache)
     logits, row_cache = prefill(
         params, cfg, tokens, seg, row_cache, quantize_kv=cache.quantized
     )
+    live = keep_dev if coupled else slice(None)  # the live rows among those run
     dst = rows[keep].to(dev)
     for name in ("k", "v", "k_scale", "v_scale"):
         a = getattr(cache, name)
         if a is not None:
-            a[:, dst, :sp] = getattr(row_cache, name)
-    logits_all[keep_dev] = logits
+            a[:, dst, :sp] = getattr(row_cache, name)[:, live]
+    logits_all[keep_dev] = logits[live]
     return logits_all, cache
 
 
@@ -858,8 +1019,6 @@ def decode_step_ragged_paged(
     write only to the trash page, get zero attention, and produce
     logits the caller never reads.  Returns (fp32 logits [T, V], cache)
     — the cache is the same object, updated in place."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     b = page_table.shape[0]
     live = row_of < b
     rid = torch.clamp(row_of.long(), max=b - 1)
@@ -911,8 +1070,6 @@ def decode_step_spec_paged(
     and their attention gives zeros; their logits are garbage the caller
     ignores.  Returns (fp32 logits [B, Q, V], cache) — the cache is the
     same object, updated in place."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     b, q_len = tokens.shape
     dev = tokens.device
     positions = positions.long()
@@ -963,8 +1120,6 @@ def decode_step_paged(
     page), attention over [0, valid_to) through the page table with
     `paged_decode_attention_kernel` (K2's kernel on the card).  Returns fp32
     logits [B, V] and the pool, updated in place."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE models are not yet ported")
     positions = positions.long()
     x = _embed(params, cfg, tokens.long(), positions)[:, None, :]  # [B, 1, D]
     cos, sin = rope_cos_sin(positions[:, None], cfg.head_dim, cfg.rope_theta)

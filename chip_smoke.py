@@ -350,6 +350,33 @@ chaos        — the chaos legs of `python -m areal_tpu_torch.scripts.check_asyn
                every step); (e) three in-process
                servers, one killed by kill@t mid-decode: no prompt lost,
                its breaker's cycle, its flight dump (K2 = 7 x inner steps).
+families     — MoE and the mixtral and gpt2 families at published widths
+               with seeded random weights (phase_families): (a) one MoE
+               MLP at Mixtral-8x7B's width (D 4096, 8 experts of FFN
+               14336, top-2): grouped and topk (capacity factor E)
+               against the dense oracle in fp32 (1e-4 of the output's
+               scale) and bf16 (2**-5 a row), routing and aux identical,
+               topk at capacity factor 0.5 against a host recount of its
+               drops, no host sync in each dispatch's forward and in
+               grouped's backward, bf16 device times at T=64 and 8192
+               beside the bound; (b) a 1-layer Mixtral-8x7B checkpoint
+               written through the mixtral family (fp32, two shards;
+               the reload bit for bit) and two `quickstart ppo-math`
+               GRPO steps from it (--master-dtype bfloat16, an offloaded
+               ref, char:32000): finite stats, K1f/K1dq/K1dkv/K4 = 1 x
+               the engines' calls, each MFC's MFU; (c) a GenerationServer
+               from that checkpoint serves the serve burst on the serving
+               plane (K2 = 1 x inner steps), as one static chunk (K1f,
+               K4) and on a dense-oracle engine, held against each other
+               (free-running agreement printed; teacher-forced argmax
+               agreement >= 0.85 and median logits row error <= 2**-5);
+               no host sync in a serving chunk or a static decode step;
+               (d) GPT-2 small at full depth: a gpt2 checkpoint, one
+               quickstart step (char:50257) and a serving-plane burst,
+               launches 12 x the engines' calls; (e) K1f/K1dq/K1dkv, K2
+               and K4 against their plain versions at
+               32/8 heads of 128 and 12/12 of 64.  mistral is held on the
+               CPU only.
 episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
@@ -401,9 +428,10 @@ generator's other inflight modes, `--phases build,episodes,parity` for
 agent episodes, `--phases build,quickstart,async` for asynchronous RL,
 `--phases build,quickstart,multiproc` for the multi-process runtime,
 `--phases build,verifiers` for the verifier fleet, mixtures and the tracer,
-`--phases build,supervisor` for the SLO fleet supervisor and `--phases
+`--phases build,supervisor` for the SLO fleet supervisor, `--phases
 build,chaos` for the chaos legs (each writes the 7-layer checkpoint
-itself).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+itself) and `--phases build,families` for MoE and the mixtral and gpt2
+families (it writes its own checkpoints).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -424,8 +452,8 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "episodes",
-          "parity", "train_parity")
+          "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "families",
+          "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -500,7 +528,7 @@ def timings(fn, plain, library, iters=25) -> dict:
     return out
 
 
-def no_host_sync(name: str, fn) -> None:
+def no_host_sync(name: str, fn, tag: str = "[kernel]") -> None:
     """One call of a wrapper under torch.cuda.set_sync_debug_mode("error"):
     a host read of a device tensor inside it fails the run."""
     import torch
@@ -514,7 +542,7 @@ def no_host_sync(name: str, fn) -> None:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log(f"[kernel] {name}: one call under set_sync_debug_mode('error'): no host sync")
+    log(f"{tag} {name}: one call under set_sync_debug_mode('error'): no host sync")
 
 
 # --------------------------------------------------------------------------
@@ -584,8 +612,10 @@ def log_card() -> None:
 # --------------------------------------------------------------------------
 
 
-def _stream(seed, fixed=(1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100), mp=16):
-    """A 96-lane serving stream at qwen2-1.5B's attention shape: 56 decode
+def _stream(seed, fixed=(1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100), mp=16,
+            heads=(12, 2, 128)):
+    """A 96-lane serving stream at qwen2-1.5B's attention shape (`heads`:
+    n_q, n_kv, head_dim): 56 decode
     lanes and 4 prefill slices of 8 lanes with windows of 1..2048 that
     cross page boundaries (one decode window, 2100, runs past its 16-page
     table, which then bounds it), then 8 dead lanes; page tables carry
@@ -595,7 +625,7 @@ def _stream(seed, fixed=(1, 2, 127, 128, 129, 255, 256, 1000, 2047, 2048, 2100),
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n_q, n_kv, d, ps = 12, 2, 128, 128
+    (n_q, n_kv, d), ps = heads, 128
     rows = []  # (positions of the row's lanes)
     fixed = list(fixed)
     for i in range(56):
@@ -5619,15 +5649,13 @@ def _agreement(a, b):
     return same / total, r_same / r_total, first_flip
 
 
-def _teacher_forced(cfg, params, prompts, outputs, paged):
-    """Greedy tokens of the bf16 and of the int8 model along the bf16
-    run's responses (each prompt's first), teacher-forced through the
-    engine's own forwards: one batched prefill (K1f), then one decode step
-    a position (dense: `decode_step_inflight`, K4; paged:
-    `decode_step_paged`, K3) fed the bf16 run's token.  Returns (the
-    fraction of response positions where the int8 model's token equals
-    the bf16 model's, the fraction where the bf16 model's equals the bf16
-    run's own)."""
+def _teacher_forced_logits(cfg, params, prompts, resp, paged, dtype):
+    """fp32 logits [b, n_new, V] of the model along the responses `resp`
+    (one a prompt, cut to the shortest), teacher-forced through the
+    engine's own forwards over a cache in `dtype`: one batched prefill
+    (K1f), then one decode step a position (dense: `decode_step_inflight`,
+    K4; paged: `decode_step_paged`, K2's kernel) fed the response's
+    token."""
     import numpy as np
     import torch
 
@@ -5635,7 +5663,6 @@ def _teacher_forced(cfg, params, prompts, outputs, paged):
 
     dev = params["embed"].device
     b = len(prompts)
-    resp = [o[0] for o in outputs]
     n_new = min(len(r) for r in resp)
     plens = np.array([len(p) for p in prompts])
     sp = 128 * -(-int(plens.max()) // 128)
@@ -5645,30 +5672,43 @@ def _teacher_forced(cfg, params, prompts, outputs, paged):
     rows_d, plens_d = torch.from_numpy(rows).to(dev), torch.from_numpy(plens).to(dev)
     resp_d = torch.tensor([r[:n_new] for r in resp], device=dev)
     mp = -(-(sp + n_new) // 128)
-    preds = []
     with torch.no_grad():
-        for dtype in (torch.bfloat16, "int8"):
+        if paged:
+            kv = tfm.init_paged_kv_cache(cfg, b * mp, 128, dtype=dtype, device=dev)
+            table = torch.arange(b * mp, device=dev).reshape(b, mp)
+            logits, _ = tfm.prefill_into_pages(params, cfg, rows_d, plens_d, kv,
+                                               table[:, : sp // 128])
+        else:
+            kv = tfm.init_kv_cache(cfg, b, sp + n_new, dtype=dtype, device=dev)
+            logits, _ = tfm.prefill_into_slots(params, cfg, rows_d, plens_d, kv,
+                                               torch.arange(b))
+        out = [logits]
+        for t in range(n_new - 1):
+            tok, pos = resp_d[:, t], plens_d + t
             if paged:
-                kv = tfm.init_paged_kv_cache(cfg, b * mp, 128, dtype=dtype, device=dev)
-                table = torch.arange(b * mp, device=dev).reshape(b, mp)
-                logits, _ = tfm.prefill_into_pages(params, cfg, rows_d, plens_d, kv,
-                                                   table[:, : sp // 128])
+                logits, _ = tfm.decode_step_paged(params, cfg, tok, pos, kv, table, pos,
+                                                  pos + 1)
             else:
-                kv = tfm.init_kv_cache(cfg, b, sp + n_new, dtype=dtype, device=dev)
-                logits, _ = tfm.prefill_into_slots(params, cfg, rows_d, plens_d, kv,
-                                                   torch.arange(b))
-            out = [logits.argmax(-1)]
-            for t in range(n_new - 1):
-                tok, pos = resp_d[:, t], plens_d + t
-                if paged:
-                    logits, _ = tfm.decode_step_paged(params, cfg, tok, pos, kv, table, pos,
-                                                      pos + 1)
-                else:
-                    logits, _ = tfm.decode_step_inflight(params, cfg, tok, pos, kv, slots=pos,
-                                                         valid_to=pos + 1)
-                out.append(logits.argmax(-1))
-            preds.append(torch.stack(out, 1).cpu().numpy())
-            del kv
+                logits, _ = tfm.decode_step_inflight(params, cfg, tok, pos, kv, slots=pos,
+                                                     valid_to=pos + 1)
+            out.append(logits)
+        del kv
+    return torch.stack(out, 1)
+
+
+def _teacher_forced(cfg, params, prompts, outputs, paged):
+    """Greedy tokens of the bf16 and of the int8 model along the bf16
+    run's responses (each prompt's first), teacher-forced
+    (`_teacher_forced_logits`).  Returns (the fraction of response
+    positions where the int8 model's token equals the bf16 model's, the
+    fraction where the bf16 model's equals the bf16 run's own)."""
+    import numpy as np
+    import torch
+
+    resp = [o[0] for o in outputs]
+    n_new = min(len(r) for r in resp)
+    preds = [_teacher_forced_logits(cfg, params, prompts, resp, paged, dtype)
+             .argmax(-1).cpu().numpy() for dtype in (torch.bfloat16, "int8")]
     run = np.asarray([r[:n_new] for r in resp])
     return float((preds[0] == preds[1]).mean()), float((preds[0] == run).mean())
 
@@ -9443,6 +9483,660 @@ def phase_chaos(report, seed):
     report["chaos"] = out
 
 
+# --------------------------------------------------------------------------
+# Phase: MoE and the mixtral and gpt2 families
+# --------------------------------------------------------------------------
+
+FAMILIES_DIR = os.path.join(REPO, ".families_tmp")
+# mistralai/Mixtral-8x7B-v0.1's config.json (its model-shape keys).
+MIXTRAL_8X7B = {
+    "model_type": "mixtral", "architectures": ["MixtralForCausalLM"], "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8, "num_experts_per_tok": 2,
+    "vocab_size": 32000, "max_position_embeddings": 32768, "rope_theta": 1e6,
+    "rms_norm_eps": 1e-5, "tie_word_embeddings": False, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "hidden_act": "silu", "bos_token_id": 1, "eos_token_id": 2,
+    "torch_dtype": "bfloat16",
+}
+# openai-community/gpt2's config.json (GPT-2 small; n_inner null = 4 x 768).
+GPT2_SMALL = {
+    "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], "n_layer": 12, "n_embd": 768,
+    "n_head": 12, "n_inner": None, "n_positions": 1024, "n_ctx": 1024, "vocab_size": 50257,
+    "layer_norm_epsilon": 1e-5, "activation_function": "gelu_new", "bos_token_id": 50256,
+    "eos_token_id": 50256,
+}
+# Mixtral's depth in (b) and (c): 1 of its 32 layers (1,713.4 M parameters:
+# a 6.85 GB fp32 checkpoint, two shards and an index).  At 2 layers (a
+# 12.66 GB checkpoint) the phase read 104.9 s on an H100, (b) 33.2 s of it.
+FAMILIES_MIXTRAL_LAYERS = 1
+FAMILIES_PROMPTS = 16  # (c)'s and (d)'s burst: the serve phase's 16 requests
+FAMILIES_NEW_TOKENS = 128
+# (a): fp32 dispatches differ from the dense oracle by summation order
+# only: within 1e-4 of the output's scale (its largest |value|).  bf16:
+# grouped rounds each expert's output, its weighted value and the sum
+# over k to bf16, the oracle its expert outputs and the combine (half a
+# bf16 ulp, 2**-8 of a value, each): each output row within 2**-5 (four
+# ulps at the row's largest |oracle| value).
+MOE_FP32_TOL = 1e-4
+MOE_BF16_ROW_TOL = 2**-5
+MOE_TOKENS = (64, 8192)  # (a)'s timed token counts
+# (c): teacher-forced logits of two bf16 runs that differ by rounding
+# only (static against serving forwards; grouped against the dense
+# oracle): the median row's error within 2**-5 of the row's largest
+# |logit|; a router choice that flips at a near-tie changes its token's
+# row by far more, so the largest rows are printed, not held.  Argmax
+# agreement along the run >= 0.85 (INT8_AGREEMENT's bound).
+FAMILY_LOGIT_TOL = 2**-5
+
+
+def _family_cfg(hf_config, n_layers=None):
+    """The port's config read from a published config.json by the
+    family's own reader, its depth cut to `n_layers`."""
+    from areal_tpu_torch.models.hf import registry as hf
+
+    cfg = hf.get_family(hf_config["model_type"]).config_from_hf(hf_config)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+
+
+def _moe_bound(T, cfg, dispatch, used_experts):
+    """The least time of one MoE MLP call on T tokens in bf16: the
+    products it computes (2 flops a multiply-add: the three expert
+    products on T*k rows for grouped, on T rows of every expert for the
+    oracle, on E*C capacity slots plus the one-hot dispatch and combine
+    products for topk) at the bf16 tensor rate, against the expert
+    weights it reads (the experts this run's routing used, for grouped;
+    all of them otherwise), the router, x in and out back at the HBM
+    rate."""
+    D, F_, E, k = cfg.hidden_dim, cfg.moe_intermediate_dim, cfg.n_experts, cfg.n_experts_per_tok
+    router = 2 * T * D * E
+    if dispatch == "grouped":
+        flops, experts = 6 * T * k * D * F_ + router, used_experts
+    elif dispatch == "dense":
+        flops, experts = 6 * T * E * D * F_ + router, E
+    else:
+        cap = max(int(math.ceil(T * k / E * cfg.moe_capacity_factor)), 1)
+        flops, experts = 6 * E * cap * D * F_ + 4 * T * E * cap * D + router, E
+    nbytes = 2 * (3 * experts * D * F_ + D * E + 2 * T * D)
+    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), flops
+
+
+def _moe_kept_reference(x, blk, top_w, top_idx, kept):
+    """The MoE output of the routing choices `kept` [T, k] (bool) alone,
+    in fp32: each expert on the rows that chose it and were kept, scaled
+    by the routing weight and added into its token."""
+    import torch
+    import torch.nn.functional as F
+
+    x = x.float()
+    out = torch.zeros_like(x)
+    for e in range(blk["wg"].shape[0]):
+        tok, j = torch.nonzero((top_idx == e) & kept, as_tuple=True)
+        if tok.numel():
+            xe = x[tok]
+            y = (F.silu(xe @ blk["wg"][e].float()) * (xe @ blk["wu"][e].float())) @ blk["wd"][e].float()
+            out.index_add_(0, tok, y * top_w[tok, j, None].float())
+    return out
+
+
+def _families_moe(seed):
+    """(a) One MoE MLP at Mixtral-8x7B's width (D 4096, 8 experts of FFN
+    14336, top-2) on seeded inputs."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.models import transformer as tfm
+
+    cfg = _family_cfg(MIXTRAL_8X7B, 1)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 240)
+
+    def dense(shape, fan_in):
+        x = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (x * fan_in**-0.5).to(torch.bfloat16)
+
+    D, E, F_ = cfg.hidden_dim, cfg.n_experts, cfg.moe_intermediate_dim
+    blk = {"router": dense((D, E), D), "wg": dense((E, D, F_), D), "wu": dense((E, D, F_), D),
+           "wd": dense((E, F_, D), F_)}
+    blk32 = {k: v.float() for k, v in blk.items()}
+    cfgs = {
+        "dense": dataclasses.replace(cfg, moe_dispatch="dense"),
+        "topk_cfE": dataclasses.replace(cfg, moe_dispatch="topk", moe_capacity_factor=float(E)),
+        "grouped": dataclasses.replace(cfg, moe_dispatch="grouped"),
+    }
+    out = {"errs": {}, "times": {}}
+    T0 = MOE_TOKENS[0]
+    x32 = torch.randn((1, T0, D), generator=gen, device=dev)
+    for dname, x, weights in (("fp32", x32, blk32), ("bf16", x32.to(torch.bfloat16), blk)):
+        res = {name: tfm._mlp(x, weights, c) for name, c in cfgs.items()}
+        route = [tfm._moe_route(x.reshape(-1, D), weights, c) for c in cfgs.values()]
+        torch.cuda.synchronize()
+        oracle, aux = res["dense"]
+        check(all(torch.equal(r[1], route[0][1]) and torch.equal(r[0], route[0][0])
+                  for r in route), f"[families] (a) {dname}: the routing differs by dispatch")
+        check(len({float(a) for _, a in res.values()}) == 1,
+              f"[families] (a) {dname}: the aux differs by dispatch "
+              f"{ {n: float(a) for n, (_, a) in res.items()} }")
+        scale = float(oracle.float().abs().max())
+        for name in ("topk_cfE", "grouped"):
+            got = res[name][0]
+            check(bool(torch.isfinite(got).all()), f"[families] (a) {dname} {name}: non-finite")
+            if dname == "fp32":
+                err = float((got - oracle).abs().max())
+                out["errs"][f"fp32_{name}"] = err / scale
+                log(f"[families] (a) fp32 {name} against the dense oracle at T={T0}: "
+                    f"max_abs_err={err:.3e}, {err / scale:.3e} of the output's scale "
+                    f"{scale:.3e} (tolerance {MOE_FP32_TOL:g})")
+                check(err <= MOE_FP32_TOL * scale, f"[families] (a) fp32 {name} disagrees")
+            else:
+                rel, err = _row_err(got.reshape(T0, D), oracle.reshape(T0, D))
+                out["errs"][f"bf16_{name}_row"] = rel
+                log(f"[families] (a) bf16 {name} against the dense oracle at T={T0}: "
+                    f"row_err={rel:.3e} (tolerance {MOE_BF16_ROW_TOL:.3e}), max_abs_err={err:.3e}")
+                check(rel <= MOE_BF16_ROW_TOL, f"[families] (a) bf16 {name} disagrees")
+        log(f"[families] (a) {dname}: routing and aux ({float(aux):.6f}) identical across "
+            f"the three dispatches")
+    # topk at capacity factor 0.5 drops exactly the choices a host recount
+    # of the rule drops (choice-slot-major queues, cap slots an expert).
+    c05 = dataclasses.replace(cfg, moe_dispatch="topk", moe_capacity_factor=0.5)
+    top_w, top_idx, _, _ = tfm._moe_route(x32.reshape(-1, D), blk32, c05)
+    cap = int(math.ceil(T0 * cfg.n_experts_per_tok / E * 0.5))
+    idx = top_idx.cpu().numpy()
+    kept, fill = np.zeros(idx.shape, bool), [0] * E
+    for j in range(idx.shape[1]):
+        for t in range(idx.shape[0]):
+            kept[t, j] = fill[idx[t, j]] < cap
+            fill[idx[t, j]] += 1
+    got = tfm._mlp(x32, blk32, c05)[0].reshape(T0, D)
+    want = _moe_kept_reference(x32.reshape(T0, D), blk32, top_w, top_idx,
+                               torch.from_numpy(kept).to(dev))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    n_drop = int((~kept).sum())
+    out["errs"]["fp32_topk_cf0.5_dropped"] = err / scale
+    log(f"[families] (a) fp32 topk at capacity factor 0.5 (cap {cap}): {n_drop} of "
+        f"{kept.size} choices dropped by the host recount; the output against the kept "
+        f"choices' reference: max_abs_err={err:.3e}, {err / scale:.3e} of its scale")
+    check(n_drop > 0 and err <= MOE_FP32_TOL * scale,
+          "[families] (a) topk at capacity factor 0.5 drops other choices than the rule")
+    del blk32, got, want
+    # No host sync in any dispatch's forward, nor in grouped's backward.
+    xb = x32.to(torch.bfloat16)
+    for name, c in cfgs.items():
+        no_host_sync(f"(a) {name} forward (bf16, T={T0})", lambda c=c: tfm._mlp(xb, blk, c),
+                     tag="[families]")
+    xg = xb.clone().requires_grad_(True)
+    wg = {k: v.clone().requires_grad_(True) for k, v in blk.items()}
+    y, aux = tfm._mlp(xg, wg, cfgs["grouped"])
+    dy = torch.randn(y.shape, generator=gen, device=dev).to(y.dtype)
+    no_host_sync(f"(a) grouped backward (bf16, T={T0})", lambda: torch.autograd.backward(
+        [y, aux], [dy, torch.ones_like(aux)]), tag="[families]")
+    check(all(bool(torch.isfinite(w.grad).all()) for w in wg.values()),
+          "[families] (a) grouped backward: non-finite grads")
+    del xg, wg, y, dy
+    # bf16 device times of each dispatch (CUDA-graph replays) beside the bound.
+    timed = dict(cfgs, topk=dataclasses.replace(cfg, moe_dispatch="topk"))
+    timed.pop("topk_cfE")
+    for T in MOE_TOKENS:
+        x = torch.randn((1, T, D), generator=gen, device=dev).to(torch.bfloat16)
+        used = int(torch.unique(tfm._moe_route(x.reshape(-1, D), blk, cfg)[1]).numel())
+        for name, c in timed.items():
+            ms = time_graph(lambda c=c: tfm._mlp(x, blk, c), iters=10)
+            bound, by, flops = _moe_bound(T, c, name, used)
+            out["times"][f"{name}_T{T}"] = dict(ms=ms, bound_ms=bound, bound_by=by,
+                                                 tflops_per_s=flops / ms / 1e9)
+            log(f"[families] (a) {name} bf16 T={T}: {ms:.3f} ms (CUDA-graph replays), bound "
+                f"{bound:.3f} ms ({by}; {flops / 1e12:.3f} TFLOP, {used} experts used), "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        del x
+    del blk
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _families_holds(seed):
+    """(e) K1f/K1dq/K1dkv, K2 and K4 against their plain versions at the
+    two new head layouts, bf16: Mixtral's 32 q heads over 8 kv heads of
+    128 and GPT-2's 12 over 12 of 64."""
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.ops.attention import decode_attention_chunk
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    errs = {}
+    for lname, (hq, hkv, d) in (("mixtral", (32, 8, 128)), ("gpt2", (12, 12, 64))):
+        t0 = time.monotonic()
+        rng = np.random.default_rng(seed + 250)
+        b, s = 2, 2048
+        seg_np, _ = _packed_rows(rng, b, s)
+        seg = torch.from_numpy(seg_np).to(dev)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
+                       .to(dev).to(bf) for h in (hq, hkv, hkv, hq))
+        flash = _hold_flash(f"families {lname} {hq}/{hkv} D={d}", q, k, v, seg, do,
+                            FLASH_ROW_TOL["bf16"])
+        for o, (rel, _) in flash.items():
+            errs[f"{lname}_flash_{o}_row"] = rel
+        k2, _, _ = _hold_k2(f"families {lname} {hq}/{hkv} D={d}",
+                            _stream(seed + 251, heads=(hq, hkv, d)), poison=False)
+        errs[f"{lname}_k2_bf16"] = k2["bf16"]
+        t2 = time.monotonic()
+        # K4 at the static decode step: 32 rows of a 1024 cache, windows
+        # of 64-512 prompt tokens right-aligned at 512, 64 tokens out.
+        plen = rng.integers(64, 513, 32)
+        vf = torch.from_numpy((512 - plen).astype(np.int32)).to(dev)
+        vt = torch.full((32,), 576, dtype=torch.int32, device=dev)
+        qd = torch.from_numpy(rng.standard_normal((32, 1, hq, d)).astype(np.float32)).to(dev)
+        kc, vc = (torch.from_numpy(rng.standard_normal((32, 1024, hkv, d)).astype(np.float32))
+                  .to(dev) for _ in range(2))
+        full = torch.ones((32,), dtype=torch.long, device=dev)
+        for tname, cast, tol in (("fp32", lambda x: x, FLASH_ROW_TOL["fp32"]),
+                                 ("bf16", lambda x: x.to(bf), FLASH_ROW_TOL["bf16"])):
+            got = da.decode_attention_chunk_kernel(cast(qd), cast(kc), cast(vc), vf, vt)
+            want = decode_attention_chunk(cast(qd).float(), cast(kc).float(), cast(vc).float(),
+                                          vf.long(), vt.long(), full)
+            rel, err = _row_err(got, want)
+            errs[f"{lname}_k4_{tname}_row"] = rel
+            log(f"[families] K4 {lname} {hq}/{hkv} D={d} {tname} (32 rows, windows to 576 "
+                f"of 1024): row_err={rel:.3e} (tolerance {tol:.3e}) max_abs_err={err:.3e}")
+            check(rel <= tol, f"[families] K4 {lname} {tname} disagrees with the plain version")
+        log(f"[families] (e) {lname}: flash and K2 {t2 - t0:.1f} s, K4 {time.monotonic() - t2:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _family_burst(tag, cfg, params, prompts, n, max_new, eos, serving, seed):
+    """The burst (every prompt at once, n greedy responses of max_new
+    tokens) through GenerationServer over a default engine: on the
+    serving plane (`serving`: static_path_max_new 0; its second decode
+    chunk under set_sync_debug_mode("error"); K2 = L x inner steps) or
+    on the static path (one static chunk: K1f = L x chunks, K4 = L x
+    decode steps; its second decode_step under the sync debug mode).
+    Counts are set to 0 just before the burst and read just after."""
+    import torch
+
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models import transformer as tfm
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    engine = GeneratorEngine(cfg, params, eos_token_id=eos)
+    check(engine.device.type == "cuda", f"{tag}: the engine is not on the card")
+    held, calls = {}, [0]
+    if serving:
+        engine.static_path_max_new = 0
+        real = engine._get_serving_chunk_fn
+    else:
+        real = tfm.decode_step
+
+    def under_sync_check(fn):
+        def run(*a, **k):
+            calls[0] += 1
+            if calls[0] != 2:  # the second call: kernels loaded, warm
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **k)
+                held["ok"] = True
+                return out
+            except RuntimeError as e:
+                held["error"] = repr(e)
+                raise
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    if serving:
+        engine._get_serving_chunk_fn = lambda *a, **k: under_sync_check(real(*a, **k))
+    else:
+        tfm.decode_step = under_sync_check(real)
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=500.0)
+    try:
+        torch.cuda.synchronize()
+        steps0, chunks0, dsteps0 = (engine.steps_total, engine.static_chunks,
+                                    engine.static_decode_steps)
+        _reset_counts()
+        t0 = time.monotonic()
+        threads, replies, errors = _burst(server.url, prompts, n, max_new, seed, greedy=True)
+        for th in threads:
+            th.join(timeout=900.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _trial_counts()
+    finally:
+        if not serving:
+            tfm.decode_step = real
+        server.close()
+    check(not errors and all(r is not None for r in replies), f"{tag}: requests failed: "
+          f"{errors[:3]}")
+    check(held.get("ok") and "error" not in held, f"{tag}: a decode chunk or step "
+          f"synchronised with the host: {held}")
+    outputs, n_tok = [], 0
+    for i, r in enumerate(replies):
+        check(len(r["output_ids"]) == n, f"{tag} q{i}: {len(r['output_ids'])} outputs")
+        for ids, lps in zip(r["output_ids"], r["output_logprobs"]):
+            check(0 < len(ids) <= max_new and (len(ids) == max_new or ids[-1] == eos),
+                  f"{tag} q{i}: {len(ids)} tokens")
+            check(len(lps) == len(ids) and all(math.isfinite(x) for x in lps),
+                  f"{tag} q{i}: bad logprobs")
+            check(all(0 <= x < cfg.vocab_size for x in ids), f"{tag} q{i}: id out of vocab")
+            n_tok += len(ids)
+        outputs.append(r["output_ids"])
+    L = cfg.n_layers
+    if serving:
+        steps = engine.steps_total - steps0
+        want = dict(fwd=L * engine.prefill_dispatches, dq=0, dkv=0, k2=L * steps, k3=0, k4=0)
+        what = f"{steps} inner steps"
+    else:
+        chunks = engine.static_chunks - chunks0
+        steps = engine.static_decode_steps - dsteps0
+        want = dict(fwd=L * chunks, dq=0, dkv=0, k2=0, k3=0, k4=L * steps)
+        what = f"{chunks} static chunk(s), {steps} decode steps"
+        check(chunks == 1, f"{tag}: {chunks} static chunks, want 1")
+    log(f"{tag}: {len(prompts)} requests x n={n} greedy: {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.1f} tok/s; {what}; launches {counts}; call 2 under "
+        f"set_sync_debug_mode('error'): no host sync")
+    check(counts == want, f"{tag}: launches {counts} != {want}")
+    del server, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(outputs=outputs, tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                steps=steps, launches=counts)
+
+
+def _family_trial(tag, work, ckpt, cfg, seed, n_steps, extra=()):
+    """`quickstart.main(["ppo-math", ...])` from checkpoint `ckpt`: 8
+    prompts x 4, 128 new tokens, a ref with --offload-ref, kl_ctl 0.1,
+    `n_steps` steps, rewards replaced by seeded +-5 (a random model's are
+    all -5).  Launches of each step = L x the engines' calls
+    (_check_step_launches); every stat finite."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.interfaces.reward import MultiTaskRewardInterface
+
+    rng = np.random.default_rng(seed)
+    data = os.path.join(work, "math.jsonl")
+    with open(data, "w") as f:
+        for row in _math_rows(rng, 64):
+            f.write(json.dumps(row) + "\n")
+    rec, cur, restore = {"steps": [], "loads": [], "saves": []}, {}, []
+
+    def wrap(owner, name, make):
+        orig = getattr(owner, name)
+        restore.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def on_reward(orig):
+        @functools.wraps(orig)
+        def inference(self, model, sample, mb_spec):
+            out = orig(self, model, sample, mb_spec)
+            out.data["rewards"] = rng.choice(
+                [-5.0, 5.0], size=out.data["rewards"].shape).astype(np.float32)
+            return out
+        return inference
+
+    argv = ["ppo-math", "--model.path", ckpt, "--dataset.path", data,
+            "--tokenizer-path", f"char:{cfg.vocab_size}", "--ref-path", ckpt, "--offload-ref",
+            "--kl-ctl", "0.1", "--batch-size", "8", "--group-size", "4",
+            "--max-new-tokens", str(FAMILIES_NEW_TOKENS), "--benchmark-steps", str(n_steps),
+            "--fileroot", os.path.join(work, "trial"), "--seed", str(seed), *extra]
+    log(f"{tag} python -m areal_tpu_torch.apps.quickstart {' '.join(argv)}")
+    try:
+        _record_trial_steps(wrap, rec, cur)
+        _record_checkpoint_io(wrap, rec)
+        wrap(MultiTaskRewardInterface, "inference", on_reward)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.monotonic()
+        stats = quickstart.main(argv)
+        torch.cuda.synchronize()
+        trial_s = time.monotonic() - t0
+        total = _trial_counts()
+    finally:
+        for owner, name, orig in reversed(restore):
+            setattr(owner, name, orig)
+    check(len(stats) == n_steps == len(rec["steps"]), f"{tag} {len(stats)} steps of stats")
+    check(len(rec["loads"]) == 3, f"{tag} {len(rec['loads'])} checkpoint loads, want 3")
+    steps = []
+    for i, st in enumerate(rec["steps"]):
+        s = st["stats"]
+        check(all(math.isfinite(v) for v in s.values()), f"{tag} step {i + 1}: non-finite "
+              f"stats {[k for k, v in s.items() if not math.isfinite(v)]}")
+        _check_step_launches(tag, i + 1, st, rec["plan_nodes"], cfg.n_layers,
+                             FAMILIES_NEW_TOKENS)
+        mfu = {k.split("/")[0]: s.get(k) for k in s if k.endswith("/perf/mfu")}
+        first = st["train_calls"][0]["stats"]
+        steps.append(dict(step_s=s["time/step_s"], mfu=mfu, peak_mem_bytes=st["peak_mem_bytes"],
+                          first_importance_weight=first["importance_weight"],
+                          first_approx_kl=first["approx_kl"],
+                          actor_loss=s["actor_train/actor_loss"],
+                          grad_norm=s["actor_train/grad_norm"], launches=st["launches"]))
+        log(f"{tag} step {i + 1}: {s['time/step_s']:.2f} s; MFU {mfu}; first minibatch "
+            f"importance_weight {first['importance_weight']:.6f} approx_kl "
+            f"{first['approx_kl']:.3e}; actor_loss {s['actor_train/actor_loss']:.4e} grad_norm "
+            f"{s['actor_train/grad_norm']:.4f}; peak {st['peak_mem_bytes'] / 2**30:.2f} GiB")
+    check(total == {k: sum(st["launches"][k] for st in rec["steps"]) for k in total}
+          and all(total[k] > 0 for k in ("fwd", "dq", "dkv", "k4")),
+          f"{tag} launches over the trial {total}: outside the steps, or a kernel never ran")
+    log(f"{tag} trial {trial_s:.1f} s; checkpoint loads "
+        f"{['%.2f s' % x for x in rec['loads']]}; launches {total}")
+    return dict(steps=steps, launches=total, trial_s=trial_s, loads_s=rec["loads"])
+
+
+def _family_checkpoint(tag, work, cfg, seed, model_type):
+    """Seeded random weights (init_params on the card) written through the
+    family's save_hf_checkpoint; the reload (fp32) equals them bit for
+    bit.  Returns (path, params, write seconds, bytes)."""
+    import torch
+
+    from areal_tpu_torch.models.hf import registry as hf
+    from areal_tpu_torch.models.transformer import init_params
+
+    ckpt = os.path.join(work, "ckpt")
+    params = init_params(cfg, seed, device="cuda")
+    t0 = time.monotonic()
+    hf.save_hf_checkpoint(ckpt, cfg, params, model_type=model_type)
+    write_s = time.monotonic() - t0
+    files = sorted(os.listdir(ckpt))
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in files)
+    t0 = time.monotonic()
+    cfg_back, back = hf.load_hf_checkpoint(ckpt, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    check(cfg_back == cfg, f"{tag} the reloaded config differs: {cfg_back}")
+    back = dict(_flat_params(back))
+    bad = [name for name, x in _flat_params(params) if not torch.equal(back[name], x.float())]
+    check(not bad, f"{tag} the reload differs from the written leaves: {bad[:4]}")
+    log(f"{tag} wrote a seeded random {model_type} checkpoint ({cfg.n_layers} layers) with "
+        f"save_hf_checkpoint: {nbytes / 1e9:.3f} GB fp32 in {write_s:.2f} s "
+        f"({nbytes / 1e9 / write_s:.2f} GB/s): {files}; reloaded in fp32 in {load_s:.2f} s, "
+        f"every leaf bit for bit")
+    del back
+    return ckpt, params, write_s, nbytes, files
+
+
+def _family_agreement(tag, cfg, params, prompts, serving, static, dense_run, dense_cfg):
+    """(c)'s holds: free-running greedy agreement of the static path and
+    of the dense-oracle engine with the serving plane (printed), and the
+    teacher-forced logits along the serving run's responses: the dense
+    window (the static path's forwards, K1f + K4) and the dense-oracle
+    dispatch against the paged forwards (K2's kernel), each's median row
+    error within FAMILY_LOGIT_TOL and argmax agreement >= INT8_AGREEMENT."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for name, other in (("static", static), ("dense_oracle", dense_run)):
+        packed, resp, flips = _agreement(list(zip(prompts, serving["outputs"])),
+                                         other["outputs"])
+        out[f"{name}_free_running"] = resp
+        log(f"{tag} {name} against the serving plane, free-running greedy: token agreement "
+            f"{packed:.4f} over prompt + response, {resp:.4f} over the responses; first "
+            f"differing position: median {int(np.median(flips))}, min {min(flips)}")
+    resp_ids = [o[0] for o in serving["outputs"]]
+    base = _teacher_forced_logits(cfg, params, prompts, resp_ids, True, torch.bfloat16)
+    run = torch.tensor([r[: base.shape[1]] for r in resp_ids], device=base.device)
+    out["serving_reproduced"] = float((base.argmax(-1) == run).float().mean())
+    for name, c, paged in (("static", cfg, False), ("dense_oracle", dense_cfg, True)):
+        other = _teacher_forced_logits(c, params, prompts, resp_ids, paged, torch.bfloat16)
+        err = (other - base).abs().amax(-1) / base.abs().amax(-1)
+        q = torch.quantile(err.flatten(), torch.tensor([0.5, 0.9, 1.0], device=err.device))
+        agree = float((other.argmax(-1) == base.argmax(-1)).float().mean())
+        out[f"{name}_teacher_forced"] = agree
+        out[f"{name}_logit_row_err"] = [float(x) for x in q]
+        log(f"{tag} {name} against the paged forwards, teacher-forced along the serving "
+            f"run's responses: argmax agreement {agree:.4f} (bound {INT8_AGREEMENT}); logits "
+            f"row error median {float(q[0]):.3e} (tolerance {FAMILY_LOGIT_TOL:.3e}), p90 "
+            f"{float(q[1]):.3e}, max {float(q[2]):.3e}")
+        check(agree >= INT8_AGREEMENT and float(q[0]) <= FAMILY_LOGIT_TOL,
+              f"{tag} {name}: teacher-forced logits disagree with the paged forwards")
+        del other
+    log(f"{tag} the serving run's own tokens reproduced teacher-forced at "
+        f"{out['serving_reproduced']:.4f}")
+    return out
+
+
+def _family_prompts(cfg, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+            for _ in range(FAMILIES_PROMPTS)]
+
+
+def phase_families(report, seed):
+    """MoE and the mixtral and gpt2 families on the card, at published
+    widths with seeded random weights (mistral is llama's model under its
+    own config reader, with (b)'s attention layout: it is held on the
+    CPU only, tests/test_torch_hf_families.py):
+    (a) one MoE MLP at Mixtral-8x7B's width: grouped and topk (capacity
+        factor E) against the dense oracle in fp32 and bf16, routing and
+        aux identical; topk at capacity factor 0.5 against a host recount
+        of its drops; no host sync in each dispatch's forward and in
+        grouped's backward; bf16 device times at T=64 and 8192 beside
+        the bound;
+    (b) a 1-layer Mixtral-8x7B checkpoint written through the mixtral
+        family (the reload bit for bit), then `quickstart ppo-math` from
+        it, 2 GRPO steps with --master-dtype bfloat16 and an offloaded
+        ref: finite stats, exact K1f/K1dq/K1dkv/K4 launches, each MFC's
+        MFU;
+    (c) a GenerationServer from that checkpoint serves the serve cell's
+        burst on the serving plane (K2) and as one static chunk (K1f,
+        K4), and a dense-oracle engine the burst again; the three held
+        against each other (`_family_agreement`);
+    (d) GPT-2 small at full depth: a gpt2 checkpoint, one quickstart
+        step (char:50257) and a serving-plane burst;
+    (e) K1f/K1dq/K1dkv, K2 and K4 against their plain versions at
+        Mixtral's 32/8 heads of 128 and GPT-2's 12/12 of 64."""
+    import shutil
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card()
+    log(f"[families] torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t_phase = time.monotonic()
+    secs = {}
+    out = {}
+    launches = dict(fwd=0, dq=0, dkv=0, k2=0, k3=0, k4=0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def done(part, t0):
+        secs[part] = time.monotonic() - t0
+        log(f"[families] ({part}) {secs[part]:.1f} s")
+
+    t0 = time.monotonic()
+    out["moe"] = _families_moe(seed)
+    done("a", t0)
+    t0 = time.monotonic()
+    out["holds"] = _families_holds(seed)
+    done("e", t0)
+
+    os.makedirs(FAMILIES_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=FAMILIES_DIR)
+    try:
+        cfg = _family_cfg(MIXTRAL_8X7B, FAMILIES_MIXTRAL_LAYERS)
+        t0 = time.monotonic()
+        # The fp32 checkpoint (6.85 GB at 1 layer) and the trial's logs.
+        _check_disk("[families]", work, 4 * (cfg.vocab_size * cfg.hidden_dim * 2 + cfg.n_layers * (
+            cfg.hidden_dim * (2 * cfg.q_dim + 2 * cfg.kv_dim + cfg.n_experts)
+            + 3 * cfg.n_experts * cfg.hidden_dim * cfg.moe_intermediate_dim)) + 2 * 2**30)
+        ckpt, params, write_s, nbytes, files = _family_checkpoint(
+            "[families] (b)", work, cfg, seed + 260, "mixtral")
+        check(len([f for f in files if f.endswith(".safetensors")]) > 1
+              and "model.safetensors.index.json" in files,
+              f"[families] (b) the checkpoint is not shards and an index: {files}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        trial = _family_trial("[families] (b)", work, ckpt, cfg, seed + 261, 2,
+                              ("--master-dtype", "bfloat16"))
+        add(trial["launches"])
+        out["mixtral_trial"] = dict(trial, ckpt_write_s=write_s, ckpt_bytes=nbytes)
+        done("b", t0)
+
+        t0 = time.monotonic()
+        from areal_tpu_torch.models.hf import registry as hf
+
+        _, params = hf.load_hf_checkpoint(ckpt)
+        prompts = _family_prompts(cfg, seed + 262)
+        runs = {}
+        for name, c, serving in (("serving", cfg, True), ("static", cfg, False),
+                                 ("dense_oracle", dataclasses.replace(cfg, moe_dispatch="dense"),
+                                  True)):
+            runs[name] = _family_burst(f"[families] (c) mixtral {name}", c, params, prompts,
+                                       4, FAMILIES_NEW_TOKENS, MIXTRAL_8X7B["eos_token_id"],
+                                       serving, seed + 263)
+            add(runs[name]["launches"])
+        out["mixtral_serve"] = dict(
+            agreement=_family_agreement("[families] (c) mixtral", cfg, params, prompts,
+                                        runs["serving"], runs["static"], runs["dense_oracle"],
+                                        dataclasses.replace(cfg, moe_dispatch="dense")),
+            **{name: {k: v for k, v in r.items() if k != "outputs"} for name, r in runs.items()})
+        del params, runs
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("c", t0)
+
+        t0 = time.monotonic()
+        work = tempfile.mkdtemp(prefix="run-", dir=FAMILIES_DIR)
+        g2 = _family_cfg(GPT2_SMALL)
+        ckpt, params, write_s, nbytes, _ = _family_checkpoint(
+            "[families] (d)", work, g2, seed + 270, "gpt2")
+        trial = _family_trial("[families] (d) gpt2", work, ckpt, g2, seed + 271, 1)
+        add(trial["launches"])
+        serve = _family_burst("[families] (d) gpt2 serving", g2, params,
+                              _family_prompts(g2, seed + 272), 4, FAMILIES_NEW_TOKENS,
+                              GPT2_SMALL["eos_token_id"], True, seed + 273)
+        add(serve["launches"])
+        serve.pop("outputs")
+        out["gpt2"] = dict(trial=trial, serve=serve, ckpt_write_s=write_s, ckpt_bytes=nbytes)
+        del params
+        done("d", t0)
+    finally:
+        shutil.rmtree(FAMILIES_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["phase"] = time.monotonic() - t_phase
+    out.update(launches=launches, seconds=secs)
+    log(f"[families] {card}: parts " + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()))
+    log(f"[families] the phase's launches (the main paths of (b)-(d)): {launches}")
+    report["families"] = out
+
+
 def _kernels_line(report):
     qs_launches = report.get("quickstart", {}).get("launches", {})
     rc_launches = report.get("recover", {}).get("launches", {})
@@ -9458,6 +10152,8 @@ def _kernels_line(report):
     vf_launches = report.get("verifiers", {}).get("launches", {})
     sv_launches = report.get("supervisor", {}).get("launches", {})
     ch_launches = report.get("chaos", {}).get("launches", {})
+    fm_launches = report.get("families", {}).get("launches", {})
+    fm_holds = report.get("families", {}).get("holds", {})
     k = report.get("kernel", {})
     s = report.get("serve", {})
     kernels = [{
@@ -9480,6 +10176,8 @@ def _kernels_line(report):
         "launches_verifiers": vf_launches.get("k2"),
         "launches_supervisor": sv_launches.get("k2"),
         "launches_chaos": ch_launches.get("k2"),
+        "launches_families": fm_launches.get("k2"),
+        "max_abs_err_families": _worst(fm_holds.get(f"{m}_k2_bf16") for m in ("mixtral", "gpt2")),
         "max_abs_err": k.get("max_abs_err", {}).get("bf16"),
         "max_abs_err_split": k.get("max_abs_err", {}).get("bf16_split"),
         "max_abs_err_fp32": k.get("max_abs_err", {}).get("fp32"),
@@ -9535,6 +10233,9 @@ def _kernels_line(report):
             "launches_verifiers": vf_launches.get(name),
             "launches_supervisor": sv_launches.get(name),
             "launches_chaos": ch_launches.get(name),
+            "launches_families": fm_launches.get(name),
+            "row_err_families": _worst(fm_holds.get(f"{m}_flash_{o}_row")
+                                       for m in ("mixtral", "gpt2") for o in outputs[name]),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
             "row_err": _worst(errs.get(f"bf16_{o}_row") for o in outputs[name]),
             "max_abs_err_fp32": _worst(errs.get(f"fp32_{o}") for o in outputs[name]),
@@ -9581,6 +10282,7 @@ def _kernels_line(report):
         "launches_verifiers": vf_launches.get("k3"),
         "launches_supervisor": sv_launches.get("k3"),
         "launches_chaos": ch_launches.get("k3"),
+        "launches_families": fm_launches.get("k3"),
         "max_abs_err": errs.get("bf16"),
         "row_err": errs.get("bf16_row"),
         "max_abs_err_fp32": errs.get("fp32"),
@@ -9651,6 +10353,8 @@ def _kernels_line(report):
         "launches_verifiers": vf_launches.get("k4"),
         "launches_supervisor": sv_launches.get("k4"),
         "launches_chaos": ch_launches.get("k4"),
+        "launches_families": fm_launches.get("k4"),
+        "row_err_families": _worst(fm_holds.get(f"{m}_k4_bf16_row") for m in ("mixtral", "gpt2")),
         "max_abs_err": errs.get("bf16_decode"),
         "row_err": errs.get("bf16_decode_row"),
         "max_abs_err_fp32": errs.get("fp32_decode"),
@@ -9845,6 +10549,7 @@ def main() -> int:
         "verifiers": lambda: phase_verifiers(report, args.seed),
         "supervisor": lambda: phase_supervisor(report, args.seed),
         "chaos": lambda: phase_chaos(report, args.seed),
+        "families": lambda: phase_families(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

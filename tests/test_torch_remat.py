@@ -148,7 +148,7 @@ def _saved_by_one_layer(jparams, policy, monkeypatch):
 
     monkeypatch.setattr(ttfm, "_dots_policy", counting_policy)
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        y = ttfm._layer(x, blk, cfg, seg, cos, sin, policy)
+        y, _ = ttfm._layer(x, blk, cfg, seg, cos, sin, policy)  # (output, MoE aux)
     y.sum().backward()  # the kept tensors serve a backward
     return saved, kept, (b * s, cfg.hidden_dim)
 

@@ -295,15 +295,14 @@ def test_nonfinite_step_leaves_state_bit_identical(jparams, rng, poison):
 
 
 def test_engine_rejects_unported_configs(jparams):
-    """MoE is not ported; an unknown remat policy or master dtype is
-    refused when the engine is built ("dots" and "dots_small", once
-    refused here, run: tests/test_torch_remat.py)."""
+    """An unknown remat policy or master dtype is refused when the engine
+    is built ("dots" and "dots_small", once refused here, run:
+    tests/test_torch_remat.py; MoE, once refused here, trains:
+    tests/test_torch_moe.py)."""
     with pytest.raises(ValueError, match="remat"):
         TrainEngine(ttiny(), _tparams(jparams), "cpu", remat_policy="bogus")
     with pytest.raises(ValueError, match="master_dtype"):
         TrainEngine(ttiny(), _tparams(jparams), "cpu", master_dtype="float16")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TrainEngine(ttiny(n_experts=4), _tparams(jparams), "cpu")
 
 
 # ---------------- packing and data helpers ----------------
