@@ -46,6 +46,7 @@
 // Shared memory (head_dim 128): 4 KB of q + 64 KB of rings a block for a
 // bf16 cache, so three blocks share an SM; 41 KB for an int8 cache (its
 // 32 KB of rings lie under the 35 KB merge area, then 1 KB of scales).
+// Head_dim 256 doubles each (an fp32 cache keeps one ring stage a warp).
 // Registers and spills of every variant: `nvcc -Xptxas -v`, printed by
 // chip_smoke.py's build phase.
 //
@@ -155,6 +156,7 @@ int launch_typed(const void* q, const void* k_cache, const void* v_cache,
       scratch, B, nq_tok, n_q, n_kv, S, span, n_splits, scale, stream
   if (head_dim == 64) return launch_d<QT, KT, 64>(DA_ARGS);
   if (head_dim == 128) return launch_d<QT, KT, 128>(DA_ARGS);
+  if (head_dim == 256) return launch_d<QT, KT, 256>(DA_ARGS);
 #undef DA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,6 +46,16 @@
 // one 64x64 tile pair at a time, each thread owning a 4x4 block of
 // scores.
 //
+// Head dims 64, 128 and 256 (gemma's).  At 256 a thread's registers and
+// a block's shared memory are what run out, and the kernels change only
+// there: the bf16 forward runs P V as two n128 warpgroup MMAs and serves
+// at most 2 q heads a block (3 Q tiles and the ring would overflow
+// shared memory); the bf16 dK/dV kernel splits a key tile's 256 columns
+// over two blocks, each recomputing S^T and dP^T over all of D (2 x 128
+// fp32 accumulators a thread would not fit beside them); the fp32 dq and
+// dk/dv kernels stage 3 tiles, not 4, K and V (or Q and dO) taking turns
+// in one buffer.
+//
 // The backward recomputes P from the saved logsumexp, as the Pallas
 // kernels do: dq walks the key tiles of one query tile; dk/dv walk, for
 // one key tile of one kv head, every query head of that head's group and
@@ -286,7 +296,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 // ---------------------------------------------------------------------------
 // K1dq: grid (ceil(S/64), Hq, B).  P = exp(s - lse) is recomputed per key
-// tile, dS = P (dP - delta) scale with dP = dO V^T, and dq += dS K.
+// tile, dS = P (dP - delta) scale with dP = dO V^T, and dq += dS K.  At
+// D = 256 four staged tiles overflow shared memory: V and then K take
+// turns in one buffer (dP first, then S and dS K).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
@@ -296,11 +308,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
     T* __restrict__ dq, int S, int Hq, int Hkv, float scale, int causal) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
+  constexpr bool kOneKv = D > 128;
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kTile * DP;
   float* k_s = do_s + kTile * DP;
-  float* v_s = k_s + kTile * DP;
+  float* v_s = kOneKv ? k_s : k_s + kTile * DP;
   float* ds_s = v_s + kTile * DP;
   float* lse_s = ds_s + kTile * kPS;
   float* delta_s = lse_s + kTile;
@@ -336,35 +349,66 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
                   nullptr, 0, 0);
     __syncthreads();
     if (!tiles_overlap(stat_s, stat_s + 2)) continue;
-    load_tile<T, D>(k_s, k, b, k0, hk, S, Hkv);
-    load_tile<T, D>(v_s, v, b, k0, hk, S, Hkv);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+    if constexpr (kOneKv) {
+      load_tile<T, D>(v_s, v, b, k0, hk, S, Hkv);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float da[4], va[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) da[i] = do_s[(ty + 16 * i) * DP + d];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) va[jj] = v_s[(tx + 16 * jj) * DP + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+      }
+      __syncthreads();  // V reads done: K takes the buffer
+      load_tile<T, D>(k_s, k, b, k0, hk, S, Hkv);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float qa[4], ka[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = q_s[(ty + 16 * i) * DP + d];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) ka[jj] = k_s[(tx + 16 * jj) * DP + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+      }
+    } else {
+      load_tile<T, D>(k_s, k, b, k0, hk, S, Hkv);
+      load_tile<T, D>(v_s, v, b, k0, hk, S, Hkv);
+      __syncthreads();
 #pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qa[4], da[4], ka[4], va[4];
+      for (int d = 0; d < D; ++d) {
+        float qa[4], da[4], ka[4], va[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = q_s[(ty + 16 * i) * DP + d];
-        da[i] = do_s[(ty + 16 * i) * DP + d];
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        ka[jj] = k_s[(tx + 16 * jj) * DP + d];
-        va[jj] = v_s[(tx + 16 * jj) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = q_s[(ty + 16 * i) * DP + d];
+          da[i] = do_s[(ty + 16 * i) * DP + d];
+        }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
-          s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
-          dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+          ka[jj] = k_s[(tx + 16 * jj) * DP + d];
+          va[jj] = v_s[(tx + 16 * jj) * DP + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+            dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+          }
+    }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -411,7 +455,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
 // tile) loops over the kv head's Hq/Hkv query heads and the query tiles
 // at or below the diagonal: dV += P^T dO, dK += dS^T Q, summed over the
 // group in registers.  Thread (ty, tx) owns key rows ty + 16 i and
-// head-dim columns tx + 16 j.
+// head-dim columns tx + 16 j.  At D = 256 four staged tiles overflow
+// shared memory: Q and dO take turns in one buffer (Q for S, dO for dP
+// and dV, then Q again for dK).
 // ---------------------------------------------------------------------------
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
@@ -422,11 +468,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
     int causal) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;
+  constexpr bool kOneQ = D > 128;
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kTile * DP;
   float* q_s = v_s + kTile * DP;
-  float* do_s = q_s + kTile * DP;
+  float* do_s = kOneQ ? q_s : q_s + kTile * DP;
   float* p_s = do_s + kTile * DP;
   float* ds_s = p_s + kTile * kPS;
   float* lse_s = ds_s + kTile * kPS;
@@ -464,10 +511,6 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
                     h, Hq);
       __syncthreads();
       if (!tiles_overlap(stat_s, stat_s + 2)) continue;  // uniform
-      load_tile<T, D>(q_s, q, b, q0, h, S, Hq);
-      load_tile<T, D>(do_s, dout, b, q0, h, S, Hq);
-      __syncthreads();
-
       // Score tile: rows are query rows r = ty + 16 i, columns key rows
       // c = tx + 16 jj.
       float s[4][4], dp[4][4];
@@ -475,26 +518,61 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      if constexpr (kOneQ) {
+        load_tile<T, D>(q_s, q, b, q0, h, S, Hq);
+        __syncthreads();
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          float qa[4], ka[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[i] = q_s[(ty + 16 * i) * DP + d];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) ka[jj] = k_s[(tx + 16 * jj) * DP + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+        }
+        __syncthreads();  // Q reads done: dO takes the buffer
+        load_tile<T, D>(do_s, dout, b, q0, h, S, Hq);
+        __syncthreads();
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          float da[4], va[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) da[i] = do_s[(ty + 16 * i) * DP + d];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) va[jj] = v_s[(tx + 16 * jj) * DP + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+        }
+      } else {
+        load_tile<T, D>(q_s, q, b, q0, h, S, Hq);
+        load_tile<T, D>(do_s, dout, b, q0, h, S, Hq);
+        __syncthreads();
 #pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        float qa[4], da[4], ka[4], va[4];
+        for (int d = 0; d < D; ++d) {
+          float qa[4], da[4], ka[4], va[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qa[i] = q_s[(ty + 16 * i) * DP + d];
-          da[i] = do_s[(ty + 16 * i) * DP + d];
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          ka[jj] = k_s[(tx + 16 * jj) * DP + d];
-          va[jj] = v_s[(tx + 16 * jj) * DP + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i) {
+            qa[i] = q_s[(ty + 16 * i) * DP + d];
+            da[i] = do_s[(ty + 16 * i) * DP + d];
+          }
 #pragma unroll
           for (int jj = 0; jj < 4; ++jj) {
-            s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
-            dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+            ka[jj] = k_s[(tx + 16 * jj) * DP + d];
+            va[jj] = v_s[(tx + 16 * jj) * DP + d];
           }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+              dp[i][jj] = fmaf(da[i], va[jj], dp[i][jj]);
+            }
+      }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -514,6 +592,36 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
         }
       }
       __syncthreads();
+      if constexpr (kOneQ) {
+#pragma unroll 2
+        for (int r = 0; r < kTile; ++r) {  // dV += P^T dO (the buffer holds dO)
+          float da[DJ];
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) da[j] = do_s[r * DP + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = p_s[r * kPS + ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < DJ; ++j) dv_acc[i][j] = fmaf(p, da[j], dv_acc[i][j]);
+          }
+        }
+        __syncthreads();  // dO reads done: Q again
+        load_tile<T, D>(q_s, q, b, q0, h, S, Hq);
+        __syncthreads();
+#pragma unroll 2
+        for (int r = 0; r < kTile; ++r) {  // dK += dS^T Q
+          float qa[DJ];
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) qa[j] = q_s[r * DP + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float ds = ds_s[r * kPS + ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < DJ; ++j) dk_acc[i][j] = fmaf(ds, qa[j], dk_acc[i][j]);
+          }
+        }
+        continue;
+      }
 #pragma unroll 2
       for (int r = 0; r < kTile; ++r) {
         float qa[DJ], da[DJ];
@@ -836,20 +944,20 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - r.x, b - r.y);
 }
 
-// Writes this warp's 16 rows of acc (rows g8 scaled by sc0, g8 + 8 by sc1)
-// as bf16 into its own rows of a swizzled tile (Plan::T), then stores
-// whole rows of [B, S, H, D] `dst` with 16-byte stores (rows past S are
-// skipped).
-template <int D>
+// Writes this warp's 16 rows of acc (rows g8 scaled by sc0, g8 + 8 by sc1;
+// DC columns) as bf16 into its own rows of a swizzled DC-wide tile, then
+// stores them as columns [c0, c0 + DC) of [B, S, H, D] `dst` with 16-byte
+// stores (rows past S are skipped).
+template <int D, int DC = D>
 __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, char* tile,
-                                           const float (&acc)[D / 8][4], float sc0,
+                                           const float (&acc)[DC / 8][4], float sc0,
                                            float sc1, int b, int row0, int h, int S,
-                                           int H, int warp, int lane) {
-  using T = typename Plan<D>::T;
+                                           int H, int warp, int lane, int c0 = 0) {
+  using T = tiles::Tile<bf16, DC, true, kRows>;
   const int g8 = lane >> 2;
   const int t4 = lane & 3;
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
+  for (int nt = 0; nt < DC / 8; ++nt) {
     const int r = warp * 16 + g8;
     *reinterpret_cast<uint32_t*>(tile + T::offset(r, nt) + 4 * t4) =
         pack_bf16(acc[nt][0] * sc0, acc[nt][1] * sc0);
@@ -863,7 +971,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, char* tile,
     const int r = warp * 16 + i / T::kChunks;
     const int c = i % T::kChunks;
     if (row0 + r < S) {
-      const size_t off = ((static_cast<size_t>(b) * S + row0 + r) * H + h) * D;
+      const size_t off = ((static_cast<size_t>(b) * S + row0 + r) * H + h) * D + c0;
       *reinterpret_cast<uint4*>(reinterpret_cast<char*>(dst + off) + c * 16) =
           *reinterpret_cast<const uint4*>(tile + T::offset(r, c));
     }
@@ -954,38 +1062,47 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// d (64 x 128, fp32; this thread's 64) += A * B, with A (64 x 16 bf16) in
-// registers (this warp's 16 rows, the mma.sync a layout) and B (16 x 128)
-// MN-major in shared memory (descriptor; imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[16][4],
+// d[O .. O + 16) (64 x 128, fp32; this thread's 64) += A * B, with A
+// (64 x 16 bf16) in registers (this warp's 16 rows, the mma.sync a
+// layout) and B (16 x 128) MN-major in shared memory (descriptor;
+// imm-trans-b = 1).
+template <int N, int O = 0>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[N][4],
                                                   const uint32_t (&a)[4], uint64_t desc_b) {
+  static_assert(O + 16 <= N, "16 n8 tiles of accumulators from O");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "+f"(d[O + 0][0]), "+f"(d[O + 0][1]), "+f"(d[O + 0][2]), "+f"(d[O + 0][3]),
+        "+f"(d[O + 1][0]), "+f"(d[O + 1][1]), "+f"(d[O + 1][2]), "+f"(d[O + 1][3]),
+        "+f"(d[O + 2][0]), "+f"(d[O + 2][1]), "+f"(d[O + 2][2]), "+f"(d[O + 2][3]),
+        "+f"(d[O + 3][0]), "+f"(d[O + 3][1]), "+f"(d[O + 3][2]), "+f"(d[O + 3][3]),
+        "+f"(d[O + 4][0]), "+f"(d[O + 4][1]), "+f"(d[O + 4][2]), "+f"(d[O + 4][3]),
+        "+f"(d[O + 5][0]), "+f"(d[O + 5][1]), "+f"(d[O + 5][2]), "+f"(d[O + 5][3]),
+        "+f"(d[O + 6][0]), "+f"(d[O + 6][1]), "+f"(d[O + 6][2]), "+f"(d[O + 6][3]),
+        "+f"(d[O + 7][0]), "+f"(d[O + 7][1]), "+f"(d[O + 7][2]), "+f"(d[O + 7][3]),
+        "+f"(d[O + 8][0]), "+f"(d[O + 8][1]), "+f"(d[O + 8][2]), "+f"(d[O + 8][3]),
+        "+f"(d[O + 9][0]), "+f"(d[O + 9][1]), "+f"(d[O + 9][2]), "+f"(d[O + 9][3]),
+        "+f"(d[O + 10][0]), "+f"(d[O + 10][1]), "+f"(d[O + 10][2]), "+f"(d[O + 10][3]),
+        "+f"(d[O + 11][0]), "+f"(d[O + 11][1]), "+f"(d[O + 11][2]), "+f"(d[O + 11][3]),
+        "+f"(d[O + 12][0]), "+f"(d[O + 12][1]), "+f"(d[O + 12][2]), "+f"(d[O + 12][3]),
+        "+f"(d[O + 13][0]), "+f"(d[O + 13][1]), "+f"(d[O + 13][2]), "+f"(d[O + 13][3]),
+        "+f"(d[O + 14][0]), "+f"(d[O + 14][1]), "+f"(d[O + 14][2]), "+f"(d[O + 14][3]),
+        "+f"(d[O + 15][0]), "+f"(d[O + 15][1]), "+f"(d[O + 15][2]), "+f"(d[O + 15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// O (64 x D) += P V for one k16 step of keys.  D = 256 takes two n128
+// products, the second on V's column blocks 2 and 3 (2 kBlock further
+// on; the descriptor's start address is in 16-byte units).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 8][4], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_m64n128k16_rs<32, 0>(d, a, desc_b);
+    wgmma_m64n128k16_rs<32, 16>(d, a, desc_b + ((2 * WTile<D>::kBlock) >> 4));
+  } else if constexpr (D == 128) {
     wgmma_m64n128k16_rs(d, a, desc_b);
   } else {
     wgmma_m64n64k16_rs(d, a, desc_b);
@@ -1302,7 +1419,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_mma_kernel(
   store_rows<D>(dq, q_s, acc, 1.f, 1.f, b, q0, h, S, Hq, warp, lane);
 }
 
-template <int D>
+template <int D, int NC>
 __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const int* __restrict__ seg,
@@ -1319,7 +1436,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
   int* rng = reinterpret_cast<int*>(ring + kStages * P::kQStage);
   int* live = rng + 2 * nq;
 
-  const int kt = blockIdx.x;
+  constexpr int DC = D / NC;  // the dK/dV columns this block owns: part blockIdx.x % NC
+  const int kt = blockIdx.x / NC;
+  const int c0 = blockIdx.x % NC * DC;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -1356,9 +1475,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
     }
   };
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DC / 8][4], dva[DC / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < DC / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
 
@@ -1439,14 +1558,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
             pack_bf16(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]),
             pack_bf16(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3])};
 #pragma unroll
-        for (int nn = 0; nn < D / 16; ++nn) {
+        for (int nn = 0; nn < DC / 16; ++nn) {
+          const int ch = c0 / 8 + nn * 2 + a_chunk(lane);
           uint32_t bb[4];
-          ldsm_x4_trans(smem_u32(do_st + T::offset(kq * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
-                        bb);
+          ldsm_x4_trans(smem_u32(do_st + T::offset(kq * 16 + a_row(lane), ch)), bb);
           mma_bf16(dva[2 * nn], pa, bb[0], bb[1]);
           mma_bf16(dva[2 * nn + 1], pa, bb[2], bb[3]);
-          ldsm_x4_trans(smem_u32(q_st + T::offset(kq * 16 + a_row(lane), nn * 2 + a_chunk(lane))),
-                        bb);
+          ldsm_x4_trans(smem_u32(q_st + T::offset(kq * 16 + a_row(lane), ch)), bb);
           mma_bf16(dka[2 * nn], da, bb[0], bb[1]);
           mma_bf16(dka[2 * nn + 1], da, bb[2], bb[3]);
         }
@@ -1456,8 +1574,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma_kernel(
   }
   __syncthreads();  // every warp is done with the ring: stage 0 holds the output
 
-  store_rows<D>(dk, ring, dka, 1.f, 1.f, b, k0, hk, S, Hkv, warp, lane);
-  store_rows<D>(dv, ring + T::kBytes, dva, 1.f, 1.f, b, k0, hk, S, Hkv, warp, lane);
+  store_rows<D, DC>(dk, ring, dka, 1.f, 1.f, b, k0, hk, S, Hkv, warp, lane, c0);
+  store_rows<D, DC>(dv, ring + T::kBytes, dva, 1.f, 1.f, b, k0, hk, S, Hkv, warp, lane, c0);
 }
 
 }  // namespace tc
@@ -1470,11 +1588,14 @@ constexpr size_t seg_bytes() { return sizeof(int) * (2 * kTile + 4); }
 constexpr size_t fwd_smem(int D) {
   return 2 * tile_bytes(D) + score_bytes() + seg_bytes();
 }
+// At D = 256 dq and dkv stage 3 tiles (K/V or Q/dO take turns): 215,056
+// and 231,696 bytes of the 232,448 a block may hold.
+constexpr int staged_tiles(int D) { return D > 128 ? 3 : 4; }
 constexpr size_t dq_smem(int D) {
-  return 4 * tile_bytes(D) + score_bytes() + 2 * row_bytes() + seg_bytes();
+  return staged_tiles(D) * tile_bytes(D) + score_bytes() + 2 * row_bytes() + seg_bytes();
 }
 constexpr size_t dkv_smem(int D) {
-  return 4 * tile_bytes(D) + 2 * score_bytes() + 2 * row_bytes() + seg_bytes();
+  return staged_tiles(D) * tile_bytes(D) + 2 * score_bytes() + 2 * row_bytes() + seg_bytes();
 }
 
 template <typename Kernel>
@@ -1533,7 +1654,11 @@ int fwd_typed(const void* q, const void* k, const void* v, const int* seg,
   if constexpr (is_bf16<T>()) {  // tensor cores: as many heads a block as the group allows
     const int rep = a.Hq / a.Hkv;
     T* op = static_cast<T*>(o);
-    if (rep % 3 == 0) return fwd_heads<D, 3>(qp, kp, vp, seg, op, lse, a, st);
+    // At D = 256 three Q tiles and the ring overflow shared memory (3 x
+    // 32 KB + 134 KB): at most 2 heads a block.
+    if constexpr (D < 256) {
+      if (rep % 3 == 0) return fwd_heads<D, 3>(qp, kp, vp, seg, op, lse, a, st);
+    }
     if (rep % 2 == 0) return fwd_heads<D, 2>(qp, kp, vp, seg, op, lse, a, st);
     return fwd_heads<D, 1>(qp, kp, vp, seg, op, lse, a, st);
   } else {  // fp32: CUDA cores (card-vs-CPU checks hold it at 1e-4)
@@ -1573,8 +1698,14 @@ int dkv_typed(const void* q, const void* k, const void* v, const int* seg,
   const T* vp = static_cast<const T*>(v);
   const T* dop = static_cast<const T*>(dout);
   if constexpr (is_bf16<T>()) {
-    const dim3 grid((a.S + tc::kRows - 1) / tc::kRows, a.Hkv, a.B);
-    return launch(tc::flash_dkv_mma_kernel<D>, grid, tc::kThreads,
+    // At D = 256 a warp's dK and dV accumulators (2 x 128 fp32 a thread)
+    // do not fit its registers beside S^T and dP^T, so two blocks split a
+    // key tile's columns, each recomputing S^T and dP^T over all of D.
+    // (dq's 128 accumulators fit beside S and dP with a 120-byte spill;
+    // split the same way it ran 1.65x slower on the H100.)
+    constexpr int NC = D == 256 ? 2 : 1;
+    const dim3 grid((a.S + tc::kRows - 1) / tc::kRows * NC, a.Hkv, a.B);
+    return launch(tc::flash_dkv_mma_kernel<D, NC>, grid, tc::kThreads,
                   tc::Plan<D>::kDkvBytes + tc_tail(a), st, qp, kp, vp, seg, dop, lse,
                   delta, static_cast<T*>(dk), static_cast<T*>(dv), a.S, a.Hq, a.Hkv,
                   a.scale, a.causal);
@@ -1593,15 +1724,18 @@ bool valid(int B, int S, int Hq, int Hkv) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 128.  Each returns 0
-// or the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64, 128 or 256.  Each
+// returns 0 or the cudaError_t of the launch.
 #define FA_DISPATCH(FN, ...)                                             \
   if (dtype == 0 && head_dim == 64) return FN<float, 64>(__VA_ARGS__);   \
   if (dtype == 0 && head_dim == 128) return FN<float, 128>(__VA_ARGS__); \
+  if (dtype == 0 && head_dim == 256) return FN<float, 256>(__VA_ARGS__); \
   if (dtype == 1 && head_dim == 64)                                      \
     return FN<__nv_bfloat16, 64>(__VA_ARGS__);                           \
   if (dtype == 1 && head_dim == 128)                                     \
     return FN<__nv_bfloat16, 128>(__VA_ARGS__);                          \
+  if (dtype == 1 && head_dim == 256)                                     \
+    return FN<__nv_bfloat16, 256>(__VA_ARGS__);                          \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,

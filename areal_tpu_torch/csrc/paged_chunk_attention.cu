@@ -62,7 +62,10 @@
 //     and no split-KV (windows are <= ~700 positions on the replay path,
 //     and 384 blocks of 128 threads fill the 132 SMs).
 // A row that sees no position keeps l = 0 and a zero accumulator, so
-// 0 / max(l, 1e-30) gives exact zeros.
+// 0 / max(l, 1e-30) gives exact zeros.  At head_dim 256 the tensor-core
+// walk reads its Q fragments from shared memory every tile, and an fp32
+// pool with fp32 (or bf16) q rings 2 stages, not 3 (65,536 B of fp32 q
+// rows + 3 x 66,560 B of tiles would overflow shared memory).
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by areal_tpu_torch/kernels/paged_chunk_attention.py).
@@ -79,8 +82,8 @@ constexpr int kRows = 64;     // flattened (query, head) rows per block
 constexpr int kWarps = 4;     // one m16 tile of rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPos = 32;      // key positions per ring stage
-constexpr int kStages = 3;
 constexpr int kMaxRep = 16;   // query heads per kv head
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may opt into
 
 template <typename QT, typename KT, int D>
 struct Plan {
@@ -105,6 +108,11 @@ struct Plan {
   static constexpr int kQBytes = kMma ? QTile::kBytes : kRows * D * 4;
   static constexpr int kPFloats = 16 * (kPos + 1) + 16;
   static constexpr int kPBytes = kMma ? 0 : kWarps * kPFloats * 4;
+  // Ring stages: 3, or 2 where 3 overflow shared memory (an fp32 pool
+  // with fp32 q at D = 256: 65,536 B of q + 3 x 66,560 B of tiles).
+  static constexpr int kStages =
+      kQBytes + kPBytes + 3 * 2 * KV::kBytes + (kWide ? 2 * Wide::kBytes : 0) + 3 * 4 * (2 * kPos + 2)
+          <= kMaxSmem ? 3 : 2;
   static constexpr int kRingBytes = kStages * 2 * KV::kBytes;
   static constexpr int kScaleWords = 2 * kPos + 2;
   static constexpr int kScaleBytes = kMma && kQuant ? kStages * kScaleWords * 4 : 0;
@@ -114,24 +122,24 @@ struct Plan {
   static_assert(kPos == 32, "one lane a position in the scale copies");
 };
 
-// The ring walk: the first kStages - 1 tiles are requested up front;
-// then, per tile, wait until it has landed, one barrier (the tile is
-// visible, and every warp is done with the stage the next request
-// overwrites), request tile t + kStages - 1, compute tile t.
-template <typename Load>
+// The ring walk over NS stages: the first NS - 1 tiles are requested up
+// front; then, per tile, wait until it has landed, one barrier (the tile
+// is visible, and every warp is done with the stage the next request
+// overwrites), request tile t + NS - 1, compute tile t.
+template <int NS, typename Load>
 __device__ __forceinline__ void ring_prologue(int n_tiles, Load load) {
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < NS - 1; ++s) {
     if (s < n_tiles) load(s);
     cp_async_commit();
   }
 }
-template <typename Load, typename Step>
+template <int NS, typename Load, typename Step>
 __device__ __forceinline__ void ring_loop(int n_tiles, Load load, Step step) {
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<NS - 2>();
     __syncthreads();
-    if (t + kStages - 1 < n_tiles) load(t + kStages - 1);
+    if (t + NS - 1 < n_tiles) load(t + NS - 1);
     cp_async_commit();
     step(t);
   }
@@ -156,6 +164,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     float scale) {
   using P = Plan<QT, KT, D>;
   using KV = typename P::KV;
+  constexpr int kStages = P::kStages;
   extern __shared__ __align__(16) char smem[];
 
   const int b = blockIdx.x;
@@ -260,15 +269,22 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
                  reinterpret_cast<const char*>(q + row_off(ok ? r : 0)) + c * 16, ok);
     }
     cp_async_commit();
-    ring_prologue(n_tiles, load);
+    ring_prologue<kStages>(n_tiles, load);
     cp_async_wait<kStages - 1>();  // the q group has landed
     __syncthreads();
-    // This warp's q fragments, every k16 step.
-    uint32_t qa[D / 16][4];
+    // This warp's q fragment of k16 step kk.  Every step's stays in
+    // registers for the walk up to D = 128; at D = 256 they would take 64
+    // registers a thread beside the 128 of the accumulator, so each tile
+    // reads them again (no other warp writes these rows before the end).
+    auto q_frag = [&](int kk, uint32_t (&r)[4]) {
+      ldsm_x4(smem_u32(q_s + QTile::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))), r);
+    };
+    constexpr bool kHoldQ = D <= 128;
+    uint32_t qa[kHoldQ ? D / 16 : 1][4];
+    if constexpr (kHoldQ) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldsm_x4(smem_u32(q_s + QTile::offset(warp * 16 + a_row(lane), kk * 2 + a_chunk(lane))),
-              qa[kk]);
+      for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qa[kk]);
+    }
     const int lim0 = limit(warp * 16 + g8);
     const int lim1 = limit(warp * 16 + g8 + 8);
     float o[D / 8][4];
@@ -276,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
     for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-    ring_loop(n_tiles, load, [&](int t) {
+    ring_loop<kStages>(n_tiles, load, [&](int t) {
       const int p0 = t * kPos;
       const char* kt = ring + (t % kStages) * 2 * KV::kBytes;
       const char* vt = kt + KV::kBytes;
@@ -312,12 +328,19 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
       for (int n = 0; n < kPos / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qk[4];
+        if constexpr (kHoldQ) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) qk[j] = qa[kk][j];
+        } else {
+          q_frag(kk, qk);
+        }
 #pragma unroll
         for (int np = 0; np < kPos / 16; ++np) {
           uint32_t bb[4];
           ldsm_x4(smem_u32(kt + BT::offset(np * 16 + b_row(lane), kk * 2 + b_chunk(lane))), bb);
-          mma_bf16(s[2 * np], qa[kk], bb[0], bb[1]);
-          mma_bf16(s[2 * np + 1], qa[kk], bb[2], bb[3]);
+          mma_bf16(s[2 * np], qk, bb[0], bb[1]);
+          mma_bf16(s[2 * np + 1], qk, bb[2], bb[3]);
         }
       }
       // int8: this thread's positions' scales, s_k on the scores before
@@ -447,7 +470,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
       const int r = i / D;
       qf[i] = r < rows ? to_float(q[row_off(r) + i % D]) : 0.f;
     }
-    ring_prologue(n_tiles, load);  // the loop's first barrier publishes qf
+    ring_prologue<kStages>(n_tiles, load);  // the loop's first barrier publishes qf
     float* a_s = p_s + 16 * (kPos + 1);
     int lim[16];
     float m[16], l[16], o[16][kDN];
@@ -459,7 +482,7 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_attention_kernel(
 #pragma unroll
       for (int n = 0; n < kDN; ++n) o[r][n] = 0.f;
     }
-    ring_loop(n_tiles, load, [&](int t) {
+    ring_loop<kStages>(n_tiles, load, [&](int t) {
       const int p0 = t * kPos;
       if (p0 >= wlim) return;
       const char* kt = ring + (t % kStages) * 2 * KV::kBytes;
@@ -576,6 +599,7 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
       B, nq_tok, n_q, n_kv, n_pool, page_size, max_pages, scale, stream
   if (head_dim == 64) return launch_d<QT, KT, 64>(PCA_ARGS);
   if (head_dim == 128) return launch_d<QT, KT, 128>(PCA_ARGS);
+  if (head_dim == 256) return launch_d<QT, KT, 256>(PCA_ARGS);
 #undef PCA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

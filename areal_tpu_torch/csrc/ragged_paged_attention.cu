@@ -152,6 +152,7 @@ int launch_typed(const void* q, const void* k_pool, const void* v_pool,
       scale, stream
   if (head_dim == 64) return launch_d<QT, KT, 64>(RPA_ARGS);
   if (head_dim == 128) return launch_d<QT, KT, 128>(RPA_ARGS);
+  if (head_dim == 256) return launch_d<QT, KT, 256>(RPA_ARGS);
 #undef RPA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,7 @@
 // one or more queries) over one span of KV positions [begin, end).  Its
 // four warps walk the span independently, tile by tile (16 positions a
 // tile, tiles w, w + 4, ... for warp w), each with its own ring of
-// kStages K/V tiles in shared memory filled by 16-byte cp.async copies, so
+// Plan::kStages K/V tiles in shared memory filled by 16-byte cp.async copies, so
 // the next tiles' loads are in flight while the current one is computed
 // and no block-wide barrier runs in the loop.  Each warp keeps an online
 // softmax (m, l) and a 16 x D fp32 accumulator; at the end the four are
@@ -38,7 +38,10 @@
 // of each word it is.
 // Every other type pair (fp32 caches, fp32 q, mixed q/cache types) takes
 // the same spans, ring and loads with fp32 CUDA-core products, so its
-// tolerances hold.
+// tolerances hold.  At head_dim 256 the tensor-core walk reads its Q
+// fragments from shared memory every tile (held for the whole walk they
+// would take 64 registers beside the accumulator's 128), and an fp32
+// cache keeps one ring stage a warp (two would overflow shared memory).
 //
 // Positions past `end` are zero-filled (cp.async with a source size of 0),
 // never read from the cache; positions inside [begin, end) but outside a
@@ -62,7 +65,9 @@ constexpr int kRows = 16;   // query rows per block: one m16 tile
 constexpr int kTile = 16;   // positions per warp tile: one k16 step of P.V
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 2;  // K/V tiles in flight per warp
+// Dynamic shared memory a block may use: the card's 232,448 bytes less
+// K2's 1 KB of static page indices.
+constexpr int kMaxSmem = 232448 - 1024;
 constexpr int kMaxRep = 16;
 constexpr int kMergePad = 8;  // floats after each merge-area row
 
@@ -84,6 +89,13 @@ struct Plan {
   static constexpr int kQBytes = kRows * D * (kMma ? 2 : 4);
   static constexpr int kPFloats = kRows * (kTile + 1) + kRows;
   static constexpr int kPBytes = kMma ? 0 : kWarps * kPFloats * 4;
+  // K/V tiles in flight per warp: 2, or 1 where 2 overflow shared memory
+  // (an fp32 cache at head_dim 256: 4 warps x 2 stages x 2 tiles of 16,640 B).
+  static constexpr int kStages =
+      kQBytes + kPBytes + kWarps * 2 * 2 * KV::kBytes + kWarps * 2 * (2 * kTile + 1) * 4 <=
+              kMaxSmem
+          ? 2
+          : 1;
   static constexpr int kRingBytes = kWarps * kStages * 2 * KV::kBytes;
   static constexpr int kMergeBytes =
       (kWarps * kRows * (D + kMergePad) + 3 * kWarps * kRows + kRows) * 4;
@@ -121,7 +133,7 @@ struct Merge {
 // an int8 tile's scale words in shared memory: s_k of position j at
 // [j], s_v at [16 + j], then a mask whose bit w says that word w holds
 // its scale in its high half.
-template <typename KT, int D, typename Load, typename ScaleStage, typename Limit>
+template <typename KT, int D, int kStages, typename Load, typename ScaleStage, typename Limit>
 __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
                                          int mine, int begin, int end,
                                          Limit limit, float scale_log2,
@@ -134,25 +146,40 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
   const int g = lane >> 2;
   const int t4 = lane & 3;
 
-  // Q fragments for every k16 step, once.  int8: step kk of thread t4
-  // takes head dims t4 * D / 4 + 4 kk + [0, 4), so that its K bytes of
-  // every step are one contiguous run; q follows that order.
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  // The Q fragment of k16 step kk.  int8: step kk of thread t4 takes
+  // head dims t4 * D / 4 + 4 kk + [0, 4), so that its K bytes of every
+  // step are one contiguous run; q follows that order.
+  auto q_frag = [&](int kk, uint32_t (&r)[4]) {
     if constexpr (kQuant) {
       const int e = t4 * (D / 4) + kk * 4;
       const uint2 r0 = *reinterpret_cast<const uint2*>(q_s + QTile::offset(g, e / 8) + (e % 8) * 2);
       const uint2 r1 =
           *reinterpret_cast<const uint2*>(q_s + QTile::offset(g + 8, e / 8) + (e % 8) * 2);
-      qa[kk][0] = r0.x;
-      qa[kk][1] = r1.x;
-      qa[kk][2] = r0.y;
-      qa[kk][3] = r1.y;
+      r[0] = r0.x;
+      r[1] = r1.x;
+      r[2] = r0.y;
+      r[3] = r1.y;
     } else {  // q rows form a tile like K's
-      ldsm_x4(smem_u32(q_s + QTile::offset(a_row(lane), kk * 2 + a_chunk(lane))), qa[kk]);
+      ldsm_x4(smem_u32(q_s + QTile::offset(a_row(lane), kk * 2 + a_chunk(lane))), r);
     }
+  };
+  // Every step's fragments stay in registers for the walk up to D = 128;
+  // at D = 256 they would take 64 registers a thread beside the 128 of
+  // the accumulator, so each tile reads them again from the staged rows.
+  constexpr bool kHoldQ = D <= 128;
+  uint32_t qa[kHoldQ ? D / 16 : 1][4];
+  if constexpr (kHoldQ) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qa[kk]);
   }
+  auto q_step = [&](int kk, uint32_t (&r)[4]) {
+    if constexpr (kHoldQ) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[j] = qa[kk][j];
+    } else {
+      q_frag(kk, r);
+    }
+  };
   const int lim0 = min(limit(g), end);
   const int lim1 = min(limit(g + 8), end);
   float o[D / 8][4];
@@ -188,10 +215,12 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
           lds_i8x16(kt + KV::offset(g + 8 * n, t4 * (D / 64) + i), &kw[n][4 * i]);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qk[4];
+        q_step(kk, qk);
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           const uint32_t w = kw[n][kk];
-          mma_bf16(s[n], qa[kk], pack_bf16(i8_float(w, 0), i8_float(w, 1)),
+          mma_bf16(s[n], qk, pack_bf16(i8_float(w, 0), i8_float(w, 1)),
                    pack_bf16(i8_float(w, 2), i8_float(w, 3)));
         }
       }
@@ -211,10 +240,11 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
     } else {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t b[4];
+        uint32_t qk[4], b[4];
+        q_step(kk, qk);
         ldsm_x4(smem_u32(kt + KV::offset(b_row(lane), kk * 2 + b_chunk(lane))), b);
-        mma_bf16(s[0], qa[kk], b[0], b[1]);
-        mma_bf16(s[1], qa[kk], b[2], b[3]);
+        mma_bf16(s[0], qk, b[0], b[1]);
+        mma_bf16(s[1], qk, b[2], b[3]);
       }
     }
     // Mask to each row's limit, then the online softmax (a row's 16
@@ -286,7 +316,10 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = 2 * t4 + (r & 1) + (r >> 1) * 8;
-        if constexpr (D / 8 == 16) {
+        if constexpr (D / 8 == 32) {  // 32 bytes: chunks 2g and 2g + 1
+          lds_i8x16(vt + KV::offset(row, 2 * g), vw[r]);
+          lds_i8x16(vt + KV::offset(row, 2 * g + 1), vw[r] + 4);
+        } else if constexpr (D / 8 == 16) {
           lds_i8x16(vt + KV::offset(row, g), vw[r]);
         } else {
           lds_i8x8(vt + KV::offset(row, g >> 1) + (g & 1) * 8, vw[r]);
@@ -343,7 +376,7 @@ __device__ __forceinline__ void walk_mma(const char* q_s, const char* wring,
 // The CUDA-core walk (fp32 caches, fp32 q, mixed types): lane = position
 // j of the tile (lane % 16) for rows h * 8 .. h * 8 + 7 (h = lane / 16)
 // in the scores; lane = columns lane + 32 n for all 16 rows in P.V.
-template <typename KT, int D, typename Load, typename Limit, typename Slot>
+template <typename KT, int D, int kStages, typename Load, typename Limit, typename Slot>
 __device__ __forceinline__ void walk_core(
     const float* q_s, float* p_s, const char* wring, int mine, int begin,
     int end, Limit limit, Slot slot,
@@ -481,6 +514,7 @@ __device__ __forceinline__ void attend_span(
   using P = Plan<QT, KT, D>;
   using KV = typename P::KV;
   using QTile = typename P::QTile;
+  constexpr int kStages = P::kStages;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -565,9 +599,10 @@ __device__ __forceinline__ void attend_span(
   };
   Merge<D> mg(ring);
   if constexpr (P::kMma) {
-    walk_mma<KT, D>(q_s, wring, mine, begin, end, limit, scale_log2, load, scale_stage, mg);
+    walk_mma<KT, D, kStages>(q_s, wring, mine, begin, end, limit, scale_log2, load, scale_stage,
+                             mg);
   } else {
-    walk_core<KT, D>(reinterpret_cast<const float*>(q_s), p_s, wring, mine, begin, end,
+    walk_core<KT, D, kStages>(reinterpret_cast<const float*>(q_s), p_s, wring, mine, begin, end,
                      limit, slot, k_scale, v_scale, scale_log2, load, mg);
   }
   __syncthreads();

@@ -31,7 +31,7 @@ import os
 import torch
 
 from areal_tpu_torch.kernels import build
-from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned
+from areal_tpu_torch.kernels.ragged_paged_attention import check_aligned, check_head_dim
 from areal_tpu_torch.ops.attention import (
     NEG_INF,
     make_packed_mask,
@@ -44,7 +44,6 @@ SOURCE = os.path.join(build.CSRC_DIR, "flash_attention.cu")
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 DEFAULT_BLOCK = 128  # the JAX package's block size, for its shape rule
 
 
@@ -106,8 +105,7 @@ def _check_cuda(q, k, v, segment_ids) -> None:
             f"q/k/v must share float32 or bfloat16, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got {q.shape[3]}")
+    check_head_dim(q.shape[3])
 
 
 def _check_buffers(seg, *tensors) -> None:

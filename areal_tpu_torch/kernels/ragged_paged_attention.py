@@ -41,7 +41,7 @@ LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_REP = 16  # kMaxRep in the CUDA source
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)  # every attention kernel's instances
 # Positions a block covers, rounded to whole pages (kMaxSpanPages = 256 in
 # the CUDA source bounds the pages a span).
 SPLIT_POSITIONS = 256
@@ -173,8 +173,9 @@ def check_paged_inputs(q, k_pool, v_pool, k_scale, v_scale, q_dims, **index):
     n_pool, ps, n_kv, d_kv = k_pool.shape
     if n_pool < 1 or ps < 1:
         raise ValueError("the pool must not be empty")
-    if d != d_kv or d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {_HEAD_DIMS}, got {d}/{d_kv}")
+    if d != d_kv:
+        raise ValueError(f"q's head_dim {d} differs from the pools' {d_kv}")
+    check_head_dim(d)
     if n_q % n_kv or n_q // n_kv > _MAX_REP:
         raise ValueError(
             f"n_q={n_q} must be a multiple of n_kv={n_kv}, at most "
@@ -185,6 +186,16 @@ def check_paged_inputs(q, k_pool, v_pool, k_scale, v_scale, q_dims, **index):
         or tuple(v_scale.shape) != (n_pool, ps, n_kv)
     ):
         raise ValueError("int8 pool scales must be [P, ps, n_kv]")
+
+
+def check_head_dim(d: int) -> None:
+    """The head dims the attention kernels (K1f, K1dq, K1dkv, K2, K3, K4)
+    are built for; the JAX package's Pallas kernels take any."""
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"head_dim must be one of {HEAD_DIMS}, got {d}: the kernels for other "
+            "head dims are ROADMAP queue 1 item 9.3"
+        )
 
 
 def check_aligned(**tensors):

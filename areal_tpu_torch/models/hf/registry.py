@@ -1,5 +1,5 @@
 """HuggingFace checkpoint conversion (port of areal_tpu/models/hf/registry.py:
-the llama, qwen2, mistral, mixtral and gpt2 families).
+the llama, qwen2, mistral, gemma, mixtral and gpt2 families).
 
 Config <-> config.json and state dict <-> the layer-stacked params dict,
 and checkpoint directories of safetensors shards (`safetensors_io`, since
@@ -18,13 +18,17 @@ into `model-XXXXX-of-YYYYY.safetensors` shards plus
   (`block_sparse_moe.gate`) and the experts (`experts.{e}.w1/w3/w2` ->
   `wg`/`wu`/`wd`, stacked [L, E, ...]).  `router_aux_loss_coef` is not
   read (the config keeps its 0.001), as in the JAX package.
+- gemma: llama's naming without `lm_head` (embeddings always tied);
+  head_dim is read from `head_dim` (256 for Gemma-2B and -7B, whose
+  query width need not be the hidden width); the norm weights are
+  written and read raw (the model applies `1 + w`); the MLP is always
+  gelu_tanh, whatever `hidden_act` says, and the embeddings are scaled
+  by sqrt(hidden) in fp32, as in the JAX package.
 - gpt2: learned positions, LayerNorm with biases, the fused `c_attn`
   split into q/k/v, Conv1D weights kept as [in, out]; tensors load with
   or without the `transformer.` prefix and save without it.
 
-gemma is not yet ported (ROADMAP queue 1, item 9.2: its head_dim of 256
-needs 256-wide instances of every attention kernel): naming it raises
-NotImplementedError.
+An unknown `model_type` raises KeyError.
 """
 
 import dataclasses
@@ -70,7 +74,6 @@ class HFFamily:
 
 
 HF_FAMILIES: Dict[str, HFFamily] = {}
-UNPORTED_FAMILIES = ("gemma",)
 
 
 def register_hf_family(family: HFFamily) -> None:
@@ -78,11 +81,6 @@ def register_hf_family(family: HFFamily) -> None:
 
 
 def get_family(model_type: str) -> HFFamily:
-    if model_type in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {model_type} HF family is not yet ported (ROADMAP queue 1, item 9.2: "
-            "head_dim 256 needs 256-wide attention kernels)"
-        )
     if model_type not in HF_FAMILIES:
         raise KeyError(f"unknown HF model_type {model_type!r}")
     return HF_FAMILIES[model_type]
@@ -283,6 +281,54 @@ def _mistral_config_to_hf(cfg: ModelConfig) -> dict:
 
 
 register_hf_family(HFFamily("mistral", _mistral_config_from_hf, _mistral_config_to_hf))
+
+
+# ---------------- gemma ----------------
+# Llama naming, embeddings always tied (no lm_head).  `hidden_act` is not
+# read: the MLP is gelu_tanh, as in the JAX package.
+
+
+def _gemma_config_from_hf(hf: dict) -> ModelConfig:
+    return ModelConfig(
+        n_layers=hf["num_hidden_layers"],
+        hidden_dim=hf["hidden_size"],
+        n_q_heads=hf["num_attention_heads"],
+        n_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        head_dim=hf["head_dim"],
+        intermediate_dim=hf["intermediate_size"],
+        vocab_size=hf["vocab_size"],
+        max_position_embeddings=hf.get("max_position_embeddings", 8192),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        tied_embeddings=True,
+        hidden_act="gelu_tanh",  # gelu_pytorch_tanh
+        rms_norm_offset=True,  # the norm scales by (1 + w)
+        embed_scale=True,  # embeddings scaled by sqrt(hidden)
+    )
+
+
+def _gemma_config_to_hf(cfg: ModelConfig) -> dict:
+    return {
+        "model_type": "gemma",
+        "num_hidden_layers": cfg.n_layers,
+        "hidden_size": cfg.hidden_dim,
+        "num_attention_heads": cfg.n_q_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_dim,
+        "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "tie_word_embeddings": True,
+        "hidden_act": "gelu_pytorch_tanh",
+        "hidden_activation": "gelu_pytorch_tanh",
+        "torch_dtype": "bfloat16",
+        "architectures": ["GemmaForCausalLM"],
+    }
+
+
+register_hf_family(HFFamily("gemma", _gemma_config_from_hf, _gemma_config_to_hf))
 
 
 # ---------------- mixtral ----------------

@@ -9,8 +9,8 @@ port of the JAX package's scripts/check_async.py, its flags and parts).
 
 The device defaults to the CUDA card; without one, and without
 ``--device cpu``, the script exits non-zero and names the missing device
-(it never falls back to the CPU).  The port's kernels take head_dim 64
-or 128 only (ROADMAP queue 1 item 9.2) and ``tiny`` has 16, so on the card
+(it never falls back to the CPU).  The port's kernels take head_dim 64,
+128 or 256 (ROADMAP queue 1 item 9.3) and ``tiny`` has 16, so on the card
 the model is qwen2-1.5B's width (``--layers`` cuts its depth) and
 ``--model tiny`` is refused.  On the CPU every comparison said to be
 bit for bit runs on one thread (the multi-threaded CPU kernels reduce in
@@ -2065,7 +2065,7 @@ def _device(args) -> torch.device:
                          "--device cpu")
     if device.type == "cuda" and args.model == "tiny":
         raise SystemExit("check_async: --model tiny has head_dim 16, and the port's kernels "
-                         "take head_dim 64 or 128 only (ROADMAP queue 1 item 9.2): on the card "
+                         "take head_dim 64, 128 or 256 (ROADMAP queue 1 item 9.3): on the card "
                          "use --model qwen2-1.5b (--layers N cuts its depth)")
     return device
 

@@ -143,7 +143,7 @@ sft          — `quickstart.main(["sft", ...])` at qwen2-1.5B from the
                1e-4).  Launches exact: K1f 28 x 2, K1dq and K1dkv 28 x each
                train micro-batch, K1f 28 x each eval micro-batch.  Step time,
                tokens/s, MFU and peak memory are printed.
-overlap      — the quickstart's ppo-math trial at 7 layers (CUT_LAYERS;
+overlap      — the quickstart's ppo-math trial at 4 layers (CUT_LAYERS;
                8 prompts x 4, 128 new
                tokens, a ref, kl_ctl 0.1, two steps; rewards keyed to each
                sequence's id) three ways: the barrier step,
@@ -154,7 +154,7 @@ overlap      — the quickstart's ppo-math trial at 7 layers (CUT_LAYERS;
                stream's 4 chunks and one optimizer step; pipeline/n_chunks 4,
                fill and bubble of every stage; the loss within
                OVERLAP_LOSS_TOL of the barrier's).  Launches of each step =
-               7 x the engines' calls summed over every chunk and thread.
+               4 x the engines' calls summed over every chunk and thread.
                Each step's wall and the card's idle share over step 2
                (torch.profiler, CUDA activity) are printed.
 trainmodes   — the trainer's options at qwen2-1.5B (28 layers, random
@@ -177,7 +177,7 @@ trainmodes   — the trainer's options at qwen2-1.5B (28 layers, random
                and the ref run alone, every prompt round-tripping through
                the port's BPE reader, exact launches, finite stats.  (c)
                build_null_sft and build_null_ppo, two steps each.
-recover      — kill-and-resume at qwen2-1.5B's width and 7 layers
+recover      — kill-and-resume at qwen2-1.5B's width and 4 layers
                (CUT_LAYERS) through quickstart.main: the
                quickstart trial with the EMA reference model
                (--ref-ema-eta 0.9 --offload-ref) and the difficulty filter,
@@ -190,27 +190,27 @@ recover      — kill-and-resume at qwen2-1.5B's width and 7 layers
                state, ref, versions, controls and filter state bit for bit,
                R2's steps fetching U's ids with U's tokens and stats (U's
                and R1's step-1 masters compared bit for bit first), and
-               each step's launches = 7 x the engines' calls.  The save's
+               each step's launches = 4 x the engines' calls.  The save's
                and restore's seconds, each trial's steps and the peak are
                printed.
 push         — the in-memory weight push mid-generation at qwen2-1.5B's
-               full width (7 layers, bf16): GenerationServer serves 8 GRPO requests
+               full width (4 layers, bf16): GenerationServer serves 8 GRPO requests
                (n=4, prompts 64-512, 128 new tokens) while
                update_weights_inmem pushes new random weights with their
                checksum; the call parks at a chunk boundary, the weights
                are swapped, every live row's last chunk is replayed
                through K3 and the call finishes on its pages.  Spanned
-               requests (version 0 -> 1), K3 launches = 7 x replays, the
+               requests (version 0 -> 1), K3 launches = 4 x replays, the
                change against an uninterrupted old-weights run, and a
                refused bad-checksum push are checked.
 resume_parity — park at the second serving chunk and resume under
-               unchanged weights at qwen2-1.5B's width and 7 layers (rows decoding, a row
+               unchanged weights at qwen2-1.5B's width and 4 layers (rows decoding, a row
                mid-prefill, a follower mapping shared prompt pages): each
                replayed row's logits (K3) against the ones before the
                replay (K2), and in fp32 greedy tokens identical to an
                uninterrupted run.
 genmodes     — the generator's other inflight modes at qwen2-1.5B's width
-               and 7 layers (CUT_LAYERS) in
+               and 4 layers (CUT_LAYERS) in
                bf16: the serve burst's first 8 prompts (x n=4, 64 new
                tokens, greedy) through GenerationServer over engines of
                16 slots,
@@ -219,15 +219,15 @@ genmodes     — the generator's other inflight modes at qwen2-1.5B's width
                (prefill_chunk_tokens=0) in bf16 and int8, (d) spec K=4 on
                the serving plane, then (e) one quickstart ppo-math step
                with --no-paged-kv --spec-decode-k 4 --kv-cache-dtype int8.
-               Replies, launches (K4 = 7 x decode steps in (a), (b); K2
-               = 7 x decode steps in (c) and 7 x inner steps in (d);
-               K1f = 7 x prefill dispatches; the rest 0), one decode
+               Replies, launches (K4 = 4 x decode steps in (a), (b); K2
+               = 4 x decode steps in (c) and 4 x inner steps in (d);
+               K1f = 4 x prefill dispatches; the rest 0), one decode
                chunk of each mode under the sync debug mode, and int8
                against bf16 token agreement >= 0.85 (teacher-forced along
                the bf16 run) are checked; tokens/s,
                the decode step's time, spec acceptance, cache copy bytes
                and peak memory are printed.
-async        — asynchronous RL at qwen2-1.5B's width and 7 layers
+async        — asynchronous RL at qwen2-1.5B's width and 4 layers
                (CUT_LAYERS; 8 prompts x 4, 128 new
                tokens) from the quickstart's checkpoint: (a) `quickstart
                ppo-math --rollout-ahead 1`, three steps: each batch under
@@ -240,14 +240,14 @@ async        — asynchronous RL at qwen2-1.5B's width and 7 layers
                max_head_offpolicyness 1, replay_capacity 4 and remote
                grading, 4 steps: staleness <= 1 (1 at the end), no
                rejection, 4 accepted, decoupled PPO's stats, the server's
-               version 1 + the pushes, K2 = 7 x its inner steps, K3 = 14
+               version 1 + the pushes, K2 = 4 x its inner steps, K3 = 4
                x its replays, rewards over HTTP equal to in-process
                grading, code items run in the sandbox graded alike.  (c)
                a RolloutController pumping 32 prompts through that server
                into a ReplayBuffer across 3 disk pushes: a request parked
                and resumed, every consumed group within the bound, greedy
                tokens under a pushed version equal an in-process engine's.
-multiproc    — the multi-process runtime at qwen2-1.5B's width and 7 layers
+multiproc    — the multi-process runtime at qwen2-1.5B's width and 4 layers
                (CUT_LAYERS) from a seeded checkpoint of that depth:
                ppo-math with a ref, 8 prompts x 4,
                64 new tokens, the seeded null reward, placement
@@ -273,7 +273,7 @@ multiproc    — the multi-process runtime at qwen2-1.5B's width and 7 layers
                each MFC's MFU and the retry's detection, relaunch and
                restore seconds are printed.
 fabric       — the param store and the broadcast-tree weight push at
-               qwen2-1.5B's full width (7 layers, FABRIC_LAYERS, since
+               qwen2-1.5B's full width (4 layers, FABRIC_LAYERS, since
                the verifiers phase joined; bf16 servers) from a seeded
                checkpoint of that depth: three generation servers (two spawned by
                LocalProcessFleet as `python -m
@@ -285,7 +285,7 @@ fabric       — the param store and the broadcast-tree weight push at
                fabric pushes the checkpoint plus a seeded fp32 delta in
                the middle of a serving-plane burst on every server: depth
                2, every server at the version, the bytes of three hops
-               from one serialization, K3 = 7 x replays and K2 = 7 x
+               from one serialization, K3 = 4 x replays and K2 = 4 x
                inner steps on the in-process server, identical greedy
                probes (also after a disk swap to the same weights), a
                wrong checksum refused everywhere; (b) a killed relay
@@ -312,7 +312,7 @@ verifiers    — the verifier fleet, task mixtures and the tracer at
                killed verifier's dump, --lineage), validate_trace clean;
                step walls traced and untraced, each process's spans,
                shard bytes and flush seconds.
-supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 7 layers
+supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 4 layers
                (CUT_LAYERS, bf16) from the seeded checkpoint of that depth:
                a GenerationServer in this process (s8401), a
                FleetSupervisor (min 1, max 2, `crit: queue_depth <= 16`)
@@ -325,7 +325,7 @@ supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 7 layers
                refill; the spawn, dispatches to s8402 and both servers'
                areal_gen_tokens_total rising by the tokens the controller
                received; goodput, kv_utilization, live_slots and
-               version_skew in the rounds' signals; K2 = 7 x inner steps
+               version_skew in the rounds' signals; K2 = 4 x inner steps
                in this process, no K1f/K3/K4, no host sync in a chunk;
                three idle rounds drain s8402, whose process exits within
                the drain grace and whose weights and KV pool come back to
@@ -335,7 +335,7 @@ supervisor   — the SLO fleet supervisor at qwen2-1.5B's width and 7 layers
                announce, announce to first tokens, drain to exit, the
                memory freed and kill to refill are printed.
 chaos        — the chaos legs of `python -m areal_tpu_torch.scripts.check_async`,
-               called in this process at qwen2-1.5B's width and 7 layers
+               called in this process at qwen2-1.5B's width and 4 layers
                from the seeded checkpoint of that depth (phase_chaos):
                (a) NaN gradients quarantine a TrainEngine step with the
                masters, Adam's state and count bit for bit, one
@@ -343,13 +343,13 @@ chaos        — the chaos legs of `python -m areal_tpu_torch.scripts.check_asyn
                streak in the tiny-PPO trial rolls back and replays bit
                for bit; (c) a corrupted in-memory push refused by the
                card-side checksum, retried, greedy tokens equal a
-               control server's (K2 = 7 x inner steps); (d) a victim
+               control server's (K2 = 4 x inner steps); (d) a victim
                process killed at recover_stage (exit 42), restarted, its
                torn checkpoint falling back to .prev ((b) and (d) at 2
                layers: their saves write fp32 masters and Adam's moments
                every step); (e) three in-process
                servers, one killed by kill@t mid-decode: no prompt lost,
-               its breaker's cycle, its flight dump (K2 = 7 x inner steps).
+               its breaker's cycle, its flight dump (K2 = 4 x inner steps).
 families     — MoE and the mixtral and gpt2 families at published widths
                with seeded random weights (phase_families): (a) one MoE
                MLP at Mixtral-8x7B's width (D 4096, 8 experts of FFN
@@ -377,7 +377,23 @@ families     — MoE and the mixtral and gpt2 families at published widths
                and K4 against their plain versions at
                32/8 heads of 128 and 12/12 of 64.  mistral is held on the
                CPU only.
-episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 through
+gemma        — the gemma family at google/gemma-2b's and gemma-7b's
+               published widths with seeded random weights
+               (phase_gemma): (a) every attention kernel form at head_dim
+               256 (K1f, K1dq, K1dkv in fp32 and bf16; K2 in every type
+               pairing; K3's chunk form in fp32, bf16 and int8, and its
+               Q=1 entry point; K4 at Q=1, Q=5 and over int8) against its
+               plain version at 8/1 and 16/16 heads, times at 8/1 beside
+               the bound and SDPA; (b) a 4-layer Gemma-2B checkpoint
+               written and reloaded bit for bit, two quickstart GRPO
+               steps from it; (c) Gemma-2B at its 18 layers serving the
+               burst on the serving plane and as one static chunk, held
+               teacher-forced against each other (bf16, and in fp32
+               within 1e-3), and a burst with a mid-way push (K3 = 18 x
+               replays); (d) Gemma-7B at 2 layers (q width 4096 over
+               hidden 3072): a checkpoint, a serving-plane burst, one
+               quickstart step.
+episodes     — agent episodes at qwen2-1.5B's full width, 4 layers, in bf16 through
                GenerationServer's POST /episode and the port's
                LLMAPIClient: (a) 8 calculator episodes (the serve burst's
                first 8 prompts; 3 turns, 32 new tokens a turn, a
@@ -391,7 +407,7 @@ episodes     — agent episodes at qwen2-1.5B's full width, 7 layers, in bf16 th
                turns must equal the probes' tokens and logprobs while
                every position past a rewound cursor is poisoned.
                Checked: turn accounting (observation prefills, transcript
-               lengths, versions), K2 = 7 x inner steps, K3 = 7 x
+               lengths, versions), K2 = 4 x inner steps, K3 = 4 x
                replays, K1f and K4 0, one chunk build, no host sync in a
                chunk; turn latency, tokens/s, the step time, observation
                prefill against transcript tokens and peak memory printed.
@@ -429,9 +445,10 @@ agent episodes, `--phases build,quickstart,async` for asynchronous RL,
 `--phases build,quickstart,multiproc` for the multi-process runtime,
 `--phases build,verifiers` for the verifier fleet, mixtures and the tracer,
 `--phases build,supervisor` for the SLO fleet supervisor, `--phases
-build,chaos` for the chaos legs (each writes the 7-layer checkpoint
-itself) and `--phases build,families` for MoE and the mixtral and gpt2
-families (it writes its own checkpoints).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
+build,chaos` for the chaos legs (each writes the 4-layer checkpoint
+itself), `--phases build,families` for MoE and the mixtral and gpt2
+families and `--phases build,gemma` for gemma and head_dim 256 (each
+writes its own checkpoints).  Each phase's seconds are printed as `[time]` lines.  The line before the last is one JSON object
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}.  Needs one
 CUDA card; imports no JAX.
 """
@@ -453,7 +470,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
           "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "families",
-          "episodes", "parity", "train_parity")
+          "gemma", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
 
@@ -964,8 +981,9 @@ def _k3_slots(rng, nq_tok, hi0, ql, n_pages, mp, n_q=12, n_kv=2, d=128, ps=128):
     )
 
 
-def _replay_slots(seed):
-    """The resume replay's shape at qwen2-1.5B width: B=64 slots of
+def _replay_slots(seed, heads=(12, 2, 128)):
+    """The resume replay's shape at qwen2-1.5B width (or `heads`: n_q,
+    n_kv, head_dim): B=64 slots of
     Q=chunk_t=32 queries; slot b has L forwarded tokens (64..640) and
     replays its last r (0..32, some 0), so query i attends
     [0, L - r + 1 + i) and valid_to0 = L - r + 1.  Each slot maps
@@ -980,10 +998,12 @@ def _replay_slots(seed):
     r[:8] = (32, 1, 0, 32, 0, 17, 32, 5)
     r = np.minimum(r, L)
     mp = -(-(640 + nq_tok) // ps)
-    return _k3_slots(rng, nq_tok, L - r + 1, r, [-(-int(x) // ps) for x in L], mp)
+    n_q, n_kv, d = heads
+    return _k3_slots(rng, nq_tok, L - r + 1, r, [-(-int(x) // ps) for x in L], mp,
+                     n_q=n_q, n_kv=n_kv, d=d)
 
 
-def _k3_edge_slots(seed, nq_tok):
+def _k3_edge_slots(seed, nq_tok, heads=(12, 2, 128)):
     """K3's edge cases at qwen2-1.5B width, page 128, a 6-page table (768
     positions), against the kernel's 64-row blocks and 32-position tiles:
     8 slots of Q=13 queries (78 rows: one full block and one partial,
@@ -997,7 +1017,9 @@ def _k3_edge_slots(seed, nq_tok):
     last = np.array([32, 128, 129, 256, 800, 13, 1, 300])
     ql = np.minimum(np.array([13, 13, 13, 13, 13, 2, 1, 0]), nq_tok)
     pages = [-(-min(int(x), 768) // 128) if n else 0 for x, n in zip(last, ql)]
-    return _k3_slots(rng, nq_tok, last - np.maximum(ql - 1, 0), ql, pages, 6)
+    n_q, n_kv, d = heads
+    return _k3_slots(rng, nq_tok, last - np.maximum(ql - 1, 0), ql, pages, 6,
+                     n_q=n_q, n_kv=n_kv, d=d)
 
 
 def _k3_bound(s, elem_bytes, kv_bytes=None):
@@ -1763,13 +1785,14 @@ def _lse_err(got, want, seg):
     return float(diff[real].max())
 
 
-def _flash_edges(seed):
+def _flash_edges(seed, cases=None, tag="[flash]"):
     """K1f, K1dq and K1dkv at their edges: three rows of S=256 packed with
     segments of 1, 63, 64 and 65 positions then padding; 127 and 129; 128
     then padding; rep 6 (Hq=12, Hkv=2) and rep 1 (Hq=Hkv=2), causal and
     not, at D=128; one row of S=40 (segments of 1, 23 and 9 then padding:
     a tail shorter than a tile), rep 2 (Hq=4, Hkv=2), causal and not; and
-    the S=256 rows at D=64, rep 6, causal; each in fp32 and bf16 (the
+    the S=256 rows at D=64, rep 6, causal (or `cases`: (rows, hq, hkv, d,
+    causal) with rows "seg256" or "seg40"); each in fp32 and bf16 (the
     bf16 forward runs 3, 2 or 1 q heads a block for rep 6, 2 and 1).  o,
     lse, then dq and dk, dv given that lse and Δ of that o: each row within
     FLASH_ROW_TOL of its plain version (packed_attention_reference,
@@ -1796,14 +1819,16 @@ def _flash_edges(seed):
                 off += n
         return torch.from_numpy(seg_np).to(dev)
 
-    seg256 = rows(256, ((1, 63, 64, 65), (127, 129), (128,)))
-    seg40 = rows(40, ((1, 23, 9),))
-    cases = [(seg256, hq, hkv, 128, causal) for hq, hkv in ((12, 2), (2, 2))
-             for causal in (True, False)]
-    cases += [(seg40, 4, 2, 128, causal) for causal in (True, False)]
-    cases += [(seg256, 12, 2, 64, True)]
+    segs = {"seg256": rows(256, ((1, 63, 64, 65), (127, 129), (128,))),
+            "seg40": rows(40, ((1, 23, 9),))}
+    if cases is None:
+        cases = [("seg256", hq, hkv, 128, causal) for hq, hkv in ((12, 2), (2, 2))
+                 for causal in (True, False)]
+        cases += [("seg40", 4, 2, 128, causal) for causal in (True, False)]
+        cases += [("seg256", 12, 2, 64, True)]
     worst = {}
-    for seg, hq, hkv, d, causal in cases:
+    for seg_name, hq, hkv, d, causal in cases:
+        seg = segs[seg_name]
         b, s = seg.shape
         pad = seg == 0
         base = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32))
@@ -1850,7 +1875,7 @@ def _flash_edges(seed):
                       f"K1 edges {name}: {out} at padding is not exactly 0")
             check(bool((lse[pad] == fa.KERNEL_NEG).all()),
                   f"K1 edges {name}: lse at padding is not -1e30")
-            log(f"[flash] K1 edges {name}: row_err against "
+            log(f"{tag} K1 edges {name}: row_err against "
                 + ", ".join(r[0] for r in held) + ": " + ", ".join(parts)
                 + f" (tolerance {FLASH_ROW_TOL[tag]:.3e}, lse {FLASH_LSE_TOL:g}); "
                 "padding exactly 0")
@@ -2333,11 +2358,12 @@ PUSH_REQUESTS = 8
 # multiproc and episodes phases' model: qwen2-1.5B at full width, cut in
 # depth (push and episodes to 14 since the async phase came; all seven to
 # 7 since the multiproc phase came, and multiproc too since the fabric
-# phase came: their decode steps are host-bound, a launch sequence a
-# layer, and their weight pushes scale with the depth, so fewer layers
-# take about proportionally less time; the checks count by the model's
-# layers and are the same).
-CUT_LAYERS = 7
+# phase came; to 4 since the gemma phase came, when a slow card's whole
+# smoke read 1,223 s: their decode steps are host-bound, a launch
+# sequence a layer, and their weight pushes scale with the depth, so
+# fewer layers take about proportionally less time; the checks count by
+# the model's layers and are the same).
+CUT_LAYERS = 4
 
 
 def phase_push(report, seed):
@@ -9963,18 +9989,25 @@ def _family_checkpoint(tag, work, cfg, seed, model_type):
     return ckpt, params, write_s, nbytes, files
 
 
-def _family_agreement(tag, cfg, params, prompts, serving, static, dense_run, dense_cfg):
-    """(c)'s holds: free-running greedy agreement of the static path and
-    of the dense-oracle engine with the serving plane (printed), and the
-    teacher-forced logits along the serving run's responses: the dense
-    window (the static path's forwards, K1f + K4) and the dense-oracle
-    dispatch against the paged forwards (K2's kernel), each's median row
-    error within FAMILY_LOGIT_TOL and argmax agreement >= INT8_AGREEMENT."""
+def _family_agreement(tag, cfg, params, prompts, serving, others, envelope=False):
+    """(c)'s holds: free-running greedy agreement of each of `others`
+    ({name: (run, config, paged)}: the static path, the dense-oracle
+    engine) with the serving plane (printed), and the teacher-forced
+    logits along the serving run's responses: the dense window (the
+    static path's forwards, K1f + K4) and the dense-oracle dispatch
+    against the paged forwards (K2's kernel), each's median row error
+    within FAMILY_LOGIT_TOL and argmax agreement >= INT8_AGREEMENT.
+    With `envelope` (a deep dense model, whose bf16 rounding grows with
+    depth), the bf16 bound is instead the larger of FAMILY_LOGIT_TOL and
+    the median row error of the bf16 paged forwards against the model's
+    in fp32 (the two bf16 paths share every GEMM's rounding, so they
+    differ by less than either differs from fp32), and the same two
+    paths in fp32 are held within FP32_PAIR_TOL (`_fp32_holds`)."""
     import numpy as np
     import torch
 
     out = {}
-    for name, other in (("static", static), ("dense_oracle", dense_run)):
+    for name, (other, _, _) in others.items():
         packed, resp, flips = _agreement(list(zip(prompts, serving["outputs"])),
                                          other["outputs"])
         out[f"{name}_free_running"] = resp
@@ -9985,7 +10018,12 @@ def _family_agreement(tag, cfg, params, prompts, serving, static, dense_run, den
     base = _teacher_forced_logits(cfg, params, prompts, resp_ids, True, torch.bfloat16)
     run = torch.tensor([r[: base.shape[1]] for r in resp_ids], device=base.device)
     out["serving_reproduced"] = float((base.argmax(-1) == run).float().mean())
-    for name, c, paged in (("static", cfg, False), ("dense_oracle", dense_cfg, True)):
+    tol = FAMILY_LOGIT_TOL
+    if envelope:
+        out.update(_fp32_holds(tag, cfg, params, prompts, resp_ids, base))
+        tol = max(FAMILY_LOGIT_TOL, out["bf16_envelope"])
+    out["logit_row_tol"] = tol
+    for name, (_, c, paged) in others.items():
         other = _teacher_forced_logits(c, params, prompts, resp_ids, paged, torch.bfloat16)
         err = (other - base).abs().amax(-1) / base.abs().amax(-1)
         q = torch.quantile(err.flatten(), torch.tensor([0.5, 0.9, 1.0], device=err.device))
@@ -9994,13 +10032,57 @@ def _family_agreement(tag, cfg, params, prompts, serving, static, dense_run, den
         out[f"{name}_logit_row_err"] = [float(x) for x in q]
         log(f"{tag} {name} against the paged forwards, teacher-forced along the serving "
             f"run's responses: argmax agreement {agree:.4f} (bound {INT8_AGREEMENT}); logits "
-            f"row error median {float(q[0]):.3e} (tolerance {FAMILY_LOGIT_TOL:.3e}), p90 "
+            f"row error median {float(q[0]):.3e} (tolerance {tol:.3e}), p90 "
             f"{float(q[1]):.3e}, max {float(q[2]):.3e}")
-        check(agree >= INT8_AGREEMENT and float(q[0]) <= FAMILY_LOGIT_TOL,
+        check(agree >= INT8_AGREEMENT and float(q[0]) <= tol,
               f"{tag} {name}: teacher-forced logits disagree with the paged forwards")
         del other
     log(f"{tag} the serving run's own tokens reproduced teacher-forced at "
         f"{out['serving_reproduced']:.4f}")
+    return out
+
+
+# The static path's forwards (K1f, K4) against the paged ones (K2) of one
+# fp32 model, teacher-forced: each kernel's fp32 output is within 1e-4
+# of its row (FLASH_ROW_TOL), and the bf16 pair's reading on an H100
+# shows 18 layers amplifying a kernel's error ~10x (3.5e-2 against ~4e-3
+# a kernel): 1e-3 on the median row.
+FP32_PAIR_TOL = 1e-3
+
+
+def _fp32_holds(tag, cfg, params, prompts, resp_ids, base):
+    """The model with its weights in fp32 (fp32 caches; K1f, K2 and K4 in
+    fp32), teacher-forced along the same responses on the paged and the
+    dense path: their median row error within FP32_PAIR_TOL; and the
+    bf16 paged forwards `base` against the fp32 paged ones (the bf16
+    rounding the model carries at its depth: `bf16_envelope`)."""
+    import torch
+
+    p32 = {k: ({n: w.float() for n, w in v.items()} if isinstance(v, dict) else v.float())
+           for k, v in params.items()}
+    c32 = dataclasses.replace(cfg, param_dtype="float32")
+    ref = _teacher_forced_logits(c32, p32, prompts, resp_ids, True, torch.float32)
+    out = {}
+
+    def row_err(got, want):
+        err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+        q = torch.quantile(err.flatten(), torch.tensor([0.5, 0.9, 1.0], device=err.device))
+        return [float(x) for x in q], float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    (med, p90, mx), agree = row_err(base, ref)
+    out["bf16_envelope"], out["bf16_fp32_agreement"] = med, agree
+    log(f"{tag} the bf16 paged forwards against the fp32 model's, teacher-forced: argmax "
+        f"agreement {agree:.4f}; logits row error median {med:.3e}, p90 {p90:.3e}, max {mx:.3e}")
+    dense = _teacher_forced_logits(c32, p32, prompts, resp_ids, False, torch.float32)
+    del p32
+    (med, p90, mx), agree = row_err(dense, ref)
+    out["fp32_pair_row_err"], out["fp32_pair_agreement"] = [med, p90, mx], agree
+    log(f"{tag} fp32: the static path's forwards against the paged ones, teacher-forced: argmax "
+        f"agreement {agree:.4f}; logits row error median {med:.3e} (tolerance "
+        f"{FP32_PAIR_TOL:g}), p90 {p90:.3e}, max {mx:.3e}")
+    check(med <= FP32_PAIR_TOL, f"{tag} fp32: the static path's forwards disagree with the "
+          "paged ones")
+    del ref, dense
     return out
 
 
@@ -10101,9 +10183,11 @@ def phase_families(report, seed):
                                        serving, seed + 263)
             add(runs[name]["launches"])
         out["mixtral_serve"] = dict(
-            agreement=_family_agreement("[families] (c) mixtral", cfg, params, prompts,
-                                        runs["serving"], runs["static"], runs["dense_oracle"],
-                                        dataclasses.replace(cfg, moe_dispatch="dense")),
+            agreement=_family_agreement(
+                "[families] (c) mixtral", cfg, params, prompts, runs["serving"],
+                {"static": (runs["static"], cfg, False),
+                 "dense_oracle": (runs["dense_oracle"],
+                                  dataclasses.replace(cfg, moe_dispatch="dense"), True)}),
             **{name: {k: v for k, v in r.items() if k != "outputs"} for name, r in runs.items()})
         del params, runs
         shutil.rmtree(work, ignore_errors=True)
@@ -10135,6 +10219,568 @@ def phase_families(report, seed):
     log(f"[families] {card}: parts " + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()))
     log(f"[families] the phase's launches (the main paths of (b)-(d)): {launches}")
     report["families"] = out
+
+
+GEMMA_DIR = os.path.join(REPO, ".gemma_tmp")
+# google/gemma-2b's and google/gemma-7b's config.json (their model-shape keys).
+GEMMA_2B = {
+    "model_type": "gemma", "architectures": ["GemmaForCausalLM"], "hidden_size": 2048,
+    "intermediate_size": 16384, "num_hidden_layers": 18, "num_attention_heads": 8,
+    "num_key_value_heads": 1, "head_dim": 256, "vocab_size": 256000,
+    "max_position_embeddings": 8192, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "hidden_act": "gelu", "hidden_activation": None, "tie_word_embeddings": True,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0, "torch_dtype": "bfloat16",
+}
+GEMMA_7B = dict(GEMMA_2B, hidden_size=3072, intermediate_size=24576, num_hidden_layers=28,
+                num_attention_heads=16, num_key_value_heads=16)
+GEMMA_LAYOUTS = {"gemma2b": (8, 1, 256), "gemma7b": (16, 16, 256)}  # n_q, n_kv, head_dim
+
+
+def _gemma_times(tag, fns, bound, key=None):
+    """Device and eager times of a kernel's wrapper, its plain version and
+    its SDPA yardstick (`fns` as `timings` takes them), printed beside the
+    bound."""
+    t = timings(*fns, iters=10)
+    log(f"[gemma] (a) {tag}: kernel_ms={t['kernel_ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+        f"library_ms={t['library_ms']:.4f} (device, graph replays); eager calls "
+        f"kernel={t['kernel_eager_ms']:.4f} plain={t['plain_eager_ms']:.4f} "
+        f"library={t['library_eager_ms']:.4f}; bound_ms={bound[0]:.5f} ({bound[1]})")
+    return dict(bound_ms=bound[0], bound_by=bound[1], **t)
+
+
+def _gemma_flash(seed, lname, heads, timed):
+    """K1f, K1dq, K1dkv at D=256: fp32 and bf16 against their plain
+    versions at B=2 x S=2048 (segments of 64-640), the edge rows of
+    _flash_edges at this layout (causal and not; bf16 also against the
+    kernels' models); with `timed`, the table's B=4 x S=2048 in bf16 (and
+    the fp32 kernels' device times) beside the bound and SDPA."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.ops.attention import make_packed_mask, packed_attention_reference
+
+    dev = torch.device("cuda")
+    hq, hkv, d = heads
+    rng = np.random.default_rng(seed + 280)
+    errs, times = {}, {}
+    b, s = 2, 2048
+    seg = torch.from_numpy(_packed_rows(rng, b, s)[0]).to(dev)
+    base = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(dev)
+            for h in (hq, hkv, hkv, hq)]
+    for dtype, tname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = (x.to(dtype) for x in base)
+        held = _hold_flash(f"gemma {lname} {hq}/{hkv} D={d} {tname}", q, k, v, seg, do,
+                           FLASH_ROW_TOL[tname])
+        for o, (rel, _) in held.items():
+            errs[f"{tname}_{o}_row"] = rel
+    del base, q, k, v, do
+    edges = _flash_edges(seed + 281, [("seg256", hq, hkv, d, True), ("seg256", hq, hkv, d, False),
+                                      ("seg40", hq, hkv, d, True)], tag="[gemma] (a)")
+    errs.update({f"edges_{key}": val for key, val in edges.items()})
+    if not timed:
+        return errs, times
+    b = 4
+    seg_np, lens = _packed_rows(rng, b, s)
+    seg = torch.from_numpy(seg_np).to(dev)
+    seg32 = seg.to(torch.int32).contiguous()
+    base = [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(dev)
+            for h in (hq, hkv, hkv, hq)]
+    bounds = _flash_bounds(lens, b, s, hq, hkv, d, 2)
+    for dtype, tname in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, v, do = (x.to(dtype) for x in base)
+        o, lse = fa.flash_fwd(q, k, v, seg32, True)
+        delta = fa.flash_delta(o, do)
+        kernels = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, seg32, True),
+            "dq": lambda: fa.flash_dq(q, k, v, seg32, do, lse, delta, True),
+            "dkv": lambda: fa.flash_dkv(q, k, v, seg32, do, lse, delta, True),
+        }
+        if tname == "fp32":  # the card-vs-CPU kernels: device time only
+            for name, fn in kernels.items():
+                times[f"fp32_{name}_ms"] = time_graph(fn, iters=10)
+            log(f"[gemma] (a) K1 fp32 {lname} B={b} S={s}: device ms "
+                + ", ".join(f"{n} {times[f'fp32_{n}_ms']:.4f}" for n in kernels))
+            continue
+        for name, fn in kernels.items():
+            no_host_sync(f"K1{name} {lname} D={d}", fn, tag="[gemma] (a)")
+        mask = make_packed_mask(seg)
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+        def plain_bwd():
+            return fa.flash_bwd_reference(q, k, v, seg, do, delta)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qs, ks, vs), dos)
+
+        plains = {"fwd": lambda: packed_attention_reference(q, k, v, seg), "dq": plain_bwd,
+                  "dkv": plain_bwd}
+        libs = {"fwd": sdpa, "dq": sdpa_fwd_bwd, "dkv": sdpa_fwd_bwd}
+        for name in ("fwd", "dq", "dkv"):
+            times[name] = _gemma_times(f"K1{name} bf16 {lname} B={b} S={s}",
+                                       (kernels[name], plains[name], libs[name]), bounds[name])
+        for name in ("dq", "dkv"):  # SDPA's backward: forward + backward less the forward
+            for key in ("library_ms", "library_eager_ms"):
+                times[name][key] -= times["fwd"][key]
+        log(f"[gemma] (a) K1 {lname}: library dq/dkv = SDPA's backward (dq+dk+dv) "
+            f"{times['dq']['library_ms']:.4f} ms; {len(lens)} segments, {sum(lens)} real tokens")
+        del qs, ks, vs, dos
+    return errs, times
+
+
+def _gemma_split_kernels(seed, lname, heads, timed):
+    """K2 (the 96-lane stream: fp32, bf16, fp32 q over int8, bf16 q over
+    int8 via _hold_k2, then fp32 q over a bf16 pool and bf16 q over an
+    fp32 pool against the plain version on fp32 copies), K3's chunk form
+    (the replay's slots, or the Q=13 edge slots where the pool would be
+    large; _hold_k3: fp32, bf16, fp32 q over int8, bf16 q over int8) and
+    its Q=1 entry point (16 slots, equal to K2's wrapper), and K4 (the
+    static decode step's 32 rows of S=1024 at Q=1, fp32, bf16, int8 and
+    bf16 q over int8; Q=5 in bf16 and bf16 q over int8) at D=256; with
+    `timed`, the bf16 and bf16q-int8 forms' times beside bound and SDPA."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import decode_attention as da
+    from areal_tpu_torch.kernels import paged_chunk_attention as pca
+    from areal_tpu_torch.kernels import ragged_paged_attention as rpa
+    from areal_tpu_torch.ops.attention import (
+        decode_attention_chunk,
+        paged_decode_attention,
+        paged_gather_layer,
+    )
+    from areal_tpu_torch.ops.quant import kv_dequant
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    n_q, n_kv, d = heads
+    errs, times = {}, {}
+    tag = f"gemma {lname} {n_q}/{n_kv} D={d}"
+    # ---- K2
+    st = _stream(seed + 282, mp=16 if timed else 2, heads=heads)  # 7B: a 2-page table
+    e, t, cases = _hold_k2(tag, st, poison=True)
+    errs.update({f"k2_{key}": val for key, val in e.items()})
+    for name, (q, k, v) in (("fp32q_bf16", (t["q"], t["k"].to(bf), t["v"].to(bf))),
+                            ("bf16q_fp32", (t["q"].to(bf), t["k"], t["v"]))):
+        out = rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"])
+        ref = rpa.ragged_paged_attention_reference(q.float(), k.float(), v.float(), t["pt"],
+                                                   t["vt"])
+        tol = FLASH_ROW_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+        rel, err = _row_err(out, ref)
+        errs[f"k2_{name}_row"] = rel
+        log(f"[kernel] K2 {tag} {name}: row_err={rel:.3e} (tolerance {tol:.3e}) "
+            f"max_abs_err={err:.3e}")
+        check(bool(torch.isfinite(out).all()) and rel <= tol,
+              f"K2 {tag} {name} disagrees with the plain version")
+    if timed:
+        q, k, v = cases["bf16"][:3]
+        T = q.shape[0]
+        kc = paged_gather_layer(k, t["pt"]).transpose(1, 2)
+        vc = paged_gather_layer(v, t["pt"]).transpose(1, 2)
+        kc = kc.repeat_interleave(n_q // n_kv, dim=1).contiguous()
+        vc = vc.repeat_interleave(n_q // n_kv, dim=1).contiguous()
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :] < t["vt"][:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        times["k2"] = _gemma_times(f"K2 bf16 {lname} T={T}", (
+            lambda: rpa.ragged_paged_attention_kernel(q, k, v, t["pt"], t["vt"]),
+            lambda: rpa.ragged_paged_attention_reference(q, k, v, t["pt"], t["vt"]),
+            lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)), _bound(st, 2))
+        q8, k8, v8, ks8, vs8 = cases["bf16q_int8"]
+        kd = kv_dequant(paged_gather_layer(k8, t["pt"]), paged_gather_layer(ks8, t["pt"]), bf)
+        vd = kv_dequant(paged_gather_layer(v8, t["pt"]), paged_gather_layer(vs8, t["pt"]), bf)
+        kd = kd.transpose(1, 2).repeat_interleave(n_q // n_kv, dim=1).contiguous()
+        vd = vd.transpose(1, 2).repeat_interleave(n_q // n_kv, dim=1).contiguous()
+        times["k2_bf16q_int8"] = _gemma_times(f"K2 bf16q_int8 {lname} T={T}", (
+            lambda: rpa.ragged_paged_attention_kernel(q8, k8, v8, t["pt"], t["vt"], ks8, vs8),
+            lambda: rpa.ragged_paged_attention_reference(q8, k8, v8, t["pt"], t["vt"], ks8, vs8),
+            lambda: F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)),
+            _bound(st, 2, kv_bytes=d + 2))
+        del kc, vc, kd, vd
+    del t, cases
+    # ---- K3, chunk form
+    s3 = _replay_slots(seed + 283, heads) if timed else _k3_edge_slots(seed + 283, 13, heads)
+    e, cases, t = _hold_k3(f"{tag} {'replay' if timed else 'edges Q=13'}", s3)
+    errs.update({f"k3_{key}": val for key, val in e.items()})
+    if timed:
+        e, _, _ = _hold_k3(f"{tag} edges Q=13", _k3_edge_slots(seed + 284, 13, heads))
+        errs.update({f"k3_edges13_{key}": val for key, val in e.items()})
+        pt, hi0, ql = t["pt"], t["hi0"], t["ql"]
+        b, nq_tok = s3["q"].shape[:2]
+        dead = torch.arange(nq_tok, device=dev)[None, :] >= ql[:, None]
+        pos = torch.arange(pt.shape[1] * s3["k"].shape[1], device=dev)
+        qi = torch.arange(nq_tok, device=dev)
+        mask = (pos[None, None, :] < (hi0[:, None] + qi[None, :])[:, :, None]) & ~dead[:, :, None]
+        for name, kvb in (("bf16", None), ("bf16q_int8", d + 2)):
+            q, k, v, ksc, vsc = cases[name][:5]
+            kc, vc = paged_gather_layer(k, pt), paged_gather_layer(v, pt)
+            if ksc is not None:
+                kc = kv_dequant(kc, paged_gather_layer(ksc, pt), bf)
+                vc = kv_dequant(vc, paged_gather_layer(vsc, pt), bf)
+            kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+            q4 = q.transpose(1, 2).contiguous()
+            times[f"k3_{name}"] = _gemma_times(f"K3 {name} {lname} B={b} Q={nq_tok}", (
+                lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql, ksc, vsc),
+                lambda: pca.paged_chunk_attention_reference(q, k, v, pt, hi0, ql, ksc, vsc),
+                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask[:, None],
+                                                       enable_gqa=True)),
+                _k3_bound(s3, 2, kv_bytes=kvb))
+            del kc, vc
+        q, k, v = cases["fp32"][:3]
+        times["k3_fp32_ms"] = time_graph(
+            lambda: pca.paged_decode_attention_chunk(q, k, v, pt, hi0, ql), iters=10)
+        log(f"[gemma] (a) K3 fp32 {lname}: device {times['k3_fp32_ms']:.4f} ms")
+    del t, cases
+    # ---- K3's Q=1 entry point (K2's kernel)
+    rng = np.random.default_rng(seed + 285)
+    b = 16
+    L = rng.integers(64, 641, b)
+    L[:2] = (64, 640)
+    s1 = _k3_slots(rng, 1, L, np.ones(b, np.int32), [-(-int(x) // 128) for x in L], 6,
+                   n_q=n_q, n_kv=n_kv, d=d)
+    t1 = {key: torch.from_numpy(val).to(dev) for key, val in s1.items()}
+    ks1, vs1 = t1["ks"].to(bf), t1["vs"].to(bf)
+    for name, (q, k, v, ksc, vsc) in {
+            "fp32": (t1["q"], t1["k"], t1["v"], None, None),
+            "bf16": (t1["q"].to(bf), t1["k"].to(bf), t1["v"].to(bf), None, None),
+            "bf16q_int8": (t1["q"].to(bf), t1["k8"], t1["v8"], ks1, vs1)}.items():
+        got = pca.paged_decode_attention_kernel(q, k, v, t1["pt"], t1["hi0"], ksc, vsc)
+        k2 = rpa.ragged_paged_attention_kernel(q[:, 0], k, v, t1["pt"], t1["hi0"], ksc,
+                                               vsc)[:, None]
+        f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+        plain = paged_decode_attention(q.float(), f32(k), f32(v), t1["pt"], t1["hi0"], ksc, vsc)
+        rel, _ = _row_err(got, plain)
+        tol = FLASH_ROW_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+        errs[f"k3q1_{name}_row"] = rel
+        log(f"[kernel] K3 Q=1 {tag} B={b} {name}: the wrapper is K2's kernel (equal); "
+            f"row_err={rel:.3e} against paged_decode_attention (tolerance {tol:.3e})")
+        check(torch.equal(got, k2), f"K3 Q=1 {tag} {name}: not K2's kernel on the same inputs")
+        check(rel <= tol, f"K3 Q=1 {tag} {name} disagrees with paged_decode_attention")
+        if timed and name == "bf16":
+            kc = paged_gather_layer(k, t1["pt"]).transpose(1, 2).contiguous()
+            vc = paged_gather_layer(v, t1["pt"]).transpose(1, 2).contiguous()
+            mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                    < t1["hi0"][:, None])[:, None, None, :]
+            q4 = q.transpose(1, 2).contiguous()
+            times["k3_q1"] = _gemma_times(f"K3 Q=1 bf16 {lname} B={b}", (
+                lambda: pca.paged_decode_attention_kernel(q, k, v, t1["pt"], t1["hi0"]),
+                lambda: paged_decode_attention(q, k, v, t1["pt"], t1["hi0"]),
+                lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                       enable_gqa=True)),
+                _k3_bound(s1, 2))
+    del t1
+    # ---- K4
+    rng = np.random.default_rng(seed + 286)
+    for fname, b, nq, S in (("decode", 32 if timed else 8, 1, 1024),
+                            ("q5", 16 if timed else 4, 5, 1024)):
+        if fname == "decode":  # the static decode step: prompts right-aligned at 512
+            plen = rng.integers(64, 513, b)
+            vf_np, vt_np = (512 - plen).astype(np.int32), np.full(b, 576, np.int32)
+        else:  # decode_step_spec's verify chunk: windows [0, L + j)
+            vf_np, vt_np = np.zeros(b, np.int32), rng.integers(64, 641, b).astype(np.int32)
+        shape = (b, S, n_kv, d)
+        q32 = torch.from_numpy(rng.standard_normal((b, nq, n_q, d)).astype(np.float32)).to(dev)
+        k32, v32 = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                    for _ in range(2))
+        k8, v8 = (torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+                  for _ in range(2))
+        ks, vs = (torch.from_numpy(np.abs(rng.standard_normal(shape[:3])) * 0.01 + 0.002)
+                  .to(dev).to(bf) for _ in range(2))
+        vf, vt = torch.from_numpy(vf_np).to(dev), torch.from_numpy(vt_np).to(dev)
+        full = torch.full((b,), nq, dtype=torch.long, device=dev)
+        span = da.split_plan(S)[0]
+        forms = {"bf16": (q32.to(bf), k32.to(bf), v32.to(bf), None, None),
+                 "bf16q_int8": (q32.to(bf), k8, v8, ks, vs)}
+        if fname == "decode":
+            forms.update(fp32=(q32, k32, v32, None, None), int8=(q32, k8, v8, ks, vs))
+        for tname, (q, k, v, ksc, vsc) in forms.items():
+            got = da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc)
+            f32 = (lambda x: x) if k.dtype == torch.int8 else (lambda x: x.float())
+            plain = decode_attention_chunk(q.float(), f32(k), f32(v), vf.long(), vt.long(), full,
+                                           ksc, vsc)
+            rel, err = _row_err(got, plain)
+            tol = FLASH_ROW_TOL["fp32" if q.dtype == torch.float32 else "bf16"]
+            errs[f"k4_{fname}_{tname}_row"] = rel
+            line = f"row_err={rel:.3e} (tolerance {tol:.3e}) max_abs_err={err:.3e}"
+            if tname == "bf16q_int8":
+                rel_m = _model_err(got, da.decode_attention_chunk_split_reference(
+                    q, k, v, vf, vt, ksc, vsc, span=span))
+                errs[f"k4_{fname}_{tname}_model"] = rel_m
+                line += f"; against the split reference {rel_m:.3e} (tolerance {MODEL_TOL:g})"
+                check(rel_m <= MODEL_TOL, f"K4 {tag} {fname} {tname} disagrees with the split "
+                      "reference")
+            log(f"[kernel] K4 {tag} {fname} {tname} B={b} Q={nq} S={S}: {line}")
+            check(bool(torch.isfinite(got).all()) and rel <= tol,
+                  f"K4 {tag} {fname} {tname} disagrees with the plain version")
+            if timed and tname in ("bf16", "bf16q_int8"):
+                kd = kv_dequant(k, ksc, bf) if ksc is not None else k
+                vd = kv_dequant(v, vsc, bf) if vsc is not None else v
+                kc, vc = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+                mask = _k4_windows(vf, vt, nq, S)[:, None]
+                q4 = q.transpose(1, 2).contiguous()
+                times[f"k4_{fname}_{tname}"] = _gemma_times(
+                    f"K4 {fname} {tname} {lname} B={b} Q={nq}", (
+                        lambda: da.decode_attention_chunk_kernel(q, k, v, vf, vt, ksc, vsc),
+                        lambda: decode_attention_chunk(q, k, v, vf.long(), vt.long(), full,
+                                                       ksc, vsc),
+                        lambda: F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                                               enable_gqa=True)),
+                    _k4_bound(vf_np, vt_np, nq, S, n_q, n_kv, d, 2,
+                              kv_bytes=d + 2 if ksc is not None else None))
+                del kc, vc
+    return errs, times
+
+
+def _gemma_holds(seed):
+    """(a) Every kernel form at D=256 against its plain version on the
+    card, at Gemma-2B's 8 q heads over 1 kv head and Gemma-7B's 16 over
+    16; times at Gemma-2B's."""
+    import torch
+
+    out = {}
+    for lname, heads in GEMMA_LAYOUTS.items():
+        t0 = time.monotonic()
+        timed = lname == "gemma2b"
+        ferrs, ftimes = _gemma_flash(seed, lname, heads, timed)
+        t1 = time.monotonic()
+        serrs, stimes = _gemma_split_kernels(seed, lname, heads, timed)
+        out[lname] = dict(errs={**ferrs, **serrs}, times={**ftimes, **stimes})
+        log(f"[gemma] (a) {lname}: flash {t1 - t0:.1f} s, K2/K3/K4 {time.monotonic() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# (b)'s depth: 4 of Gemma-2B's 18 layers (963.6 M parameters: a 3.85 GB fp32
+# checkpoint, against 10.0 GB at full depth).
+GEMMA_TRIAL_LAYERS = 4
+GEMMA_7B_LAYERS = 2  # (d): 1,337.2 M parameters, q width 4096 over hidden 3072
+GEMMA_PUSH_REQUESTS = 4  # (c)'s push burst: the burst's first 4 requests, as push_int8's
+
+
+def _gemma_push(tag, cfg, params, prompts, seed):
+    """(c)'s push: the burst's first GEMMA_PUSH_REQUESTS requests (n=4, 128
+    new tokens) on the serving plane, with an in-memory push of seeded new
+    weights once generation has run two chunks: parked requests replay
+    their tails through K3's chunk form.  Counts are set to 0 just before
+    the burst and read just after: K3 = L x replays, K2 = L x inner steps,
+    K1f = L x prefill dispatches."""
+    import torch
+
+    from areal_tpu_torch.base import integrity
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.gen_server import GenerationServer
+
+    eos = GEMMA_2B["eos_token_id"]
+    engine = GeneratorEngine(cfg, params, eos_token_id=eos)
+    engine.static_path_max_new = 0  # the serving plane, which can park
+    chunk_t = 32
+    new = init_params(cfg, seed + 1, device="cuda")
+    checksum = integrity.params_checksum(new)
+    server = GenerationServer(engine, host="127.0.0.1", port=0, max_wait_ms=500.0)
+    try:
+        torch.cuda.synchronize()
+        replays0, steps0, pre0 = (engine.resume_replays, engine.steps_total,
+                                  engine.prefill_dispatches)
+        _reset_counts()
+        t0 = time.monotonic()
+        threads, replies, errors = _burst(server.url, prompts[:GEMMA_PUSH_REQUESTS], 4,
+                                          FAMILIES_NEW_TOKENS, seed + 2, greedy=True)
+        deadline = time.monotonic() + 600.0
+        while time.monotonic() < deadline:
+            live = json.loads(urllib.request.urlopen(server.url + "/health").read())["live_slots"]
+            if live > 0 and engine.steps_total - steps0 >= 2 * chunk_t:
+                break
+            time.sleep(0.01)
+        steps_at_push = engine.steps_total - steps0
+        t_push = time.monotonic()
+        version = server.update_weights_inmem(new, checksum=checksum)
+        push_s = time.monotonic() - t_push
+        for th in threads:
+            th.join(timeout=900.0)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = _trial_counts()
+    finally:
+        server.close()
+    replays = engine.resume_replays - replays0
+    steps = engine.steps_total - steps0
+    L = cfg.n_layers
+    want = dict(fwd=L * (engine.prefill_dispatches - pre0), dq=0, dkv=0, k2=L * steps,
+                k3=L * replays, k4=0)
+    spanned = sum(r is not None and r["version_start"] == 0 and r["version"] == 1
+                  for r in replies)
+    log(f"{tag}: {GEMMA_PUSH_REQUESTS} requests x n=4, push after {steps_at_push} inner steps "
+        f"took {push_s:.3f} s; burst {wall:.2f} s, {steps} inner steps, resume_replays "
+        f"{replays}, {spanned} requests spanned the push; launches {counts}")
+    check(not errors and all(r is not None for r in replies), f"{tag}: requests failed: "
+          f"{errors[:3]}")
+    check(steps_at_push >= 2 * chunk_t, f"{tag}: generation never ran two chunks")
+    check(version == 1 and spanned >= 1 and replays >= 1,
+          f"{tag}: version {version}, {spanned} spanned, {replays} replays")
+    for r in replies:
+        for ids, lps in zip(r["output_ids"], r["output_logprobs"]):
+            check(len(lps) == len(ids) and all(math.isfinite(x) for x in lps),
+                  f"{tag}: bad logprobs")
+    check(counts == want, f"{tag}: launches {counts} != {want}")
+    del server, engine, new
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=counts, push_s=push_s, wall_s=wall, inner_steps=steps,
+                resume_replays=replays, spanned=spanned, steps_at_push=steps_at_push)
+
+
+def phase_gemma(report, seed):
+    """The gemma family on the card, at published widths with seeded
+    random weights: google/gemma-2b (hidden 2048, 8 q heads over 1 kv head
+    of 256, FFN 16384, vocab 256000) and google/gemma-7b (hidden 3072, 16
+    heads of 256: a q width of 4096, not the hidden width):
+    (a) every attention kernel form at head_dim 256 against its plain
+        version, at 8/1 and 16/16 (`_gemma_holds`), with times at 8/1;
+    (b) a Gemma-2B checkpoint of GEMMA_TRIAL_LAYERS layers written through
+        the gemma family (the reload bit for bit), then `quickstart
+        ppo-math` from it: 2 GRPO steps with --master-dtype bfloat16 and
+        an offloaded ref, finite stats, exact K1f/K1dq/K1dkv/K4 launches,
+        each MFC's MFU;
+    (c) Gemma-2B at its full 18 layers (bf16) serving the serve cell's
+        16-request burst on the serving plane (K2) and as one static
+        chunk (K1f, K4), held against each other teacher-forced
+        (`_family_agreement`); then a burst with an in-memory weight push
+        mid-way (`_gemma_push`: K3's chunk form replays at D=256);
+    (d) Gemma-7B at GEMMA_7B_LAYERS layers: a checkpoint, one quickstart
+        step and a serving-plane burst."""
+    import shutil
+
+    import torch
+
+    from areal_tpu_torch.models.transformer import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card()
+    t_phase = time.monotonic()
+    secs, out = {}, {}
+    launches = dict(fwd=0, dq=0, dkv=0, k2=0, k3=0, k4=0)
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    def done(part, t0):
+        secs[part] = time.monotonic() - t0
+        log(f"[gemma] ({part}) {secs[part]:.1f} s")
+
+    t0 = time.monotonic()
+    out["holds"] = _gemma_holds(seed)
+    done("a", t0)
+    os.makedirs(GEMMA_DIR, exist_ok=True)
+    try:
+        t0 = time.monotonic()
+        work = tempfile.mkdtemp(prefix="run-", dir=GEMMA_DIR)
+        cfg = _family_cfg(GEMMA_2B, GEMMA_TRIAL_LAYERS)
+        _check_disk("[gemma]", work, _fp32_model_bytes(cfg) + 2 * 2**30)
+        ckpt, params, write_s, nbytes, _ = _family_checkpoint(
+            "[gemma] (b)", work, cfg, seed + 290, "gemma")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        trial = _family_trial("[gemma] (b) gemma-2b", work, ckpt, cfg, seed + 291, 2,
+                              ("--master-dtype", "bfloat16"))
+        add(trial["launches"])
+        out["gemma2b_trial"] = dict(trial, ckpt_write_s=write_s, ckpt_bytes=nbytes)
+        shutil.rmtree(work, ignore_errors=True)
+        done("b", t0)
+
+        t0 = time.monotonic()
+        cfg = _family_cfg(GEMMA_2B)
+        params = init_params(cfg, seed + 292, device="cuda")
+        prompts = _family_prompts(cfg, seed + 293)
+        runs = {}
+        for name, serving in (("serving", True), ("static", False)):
+            runs[name] = _family_burst(f"[gemma] (c) gemma-2b {name}", cfg, params, prompts, 4,
+                                       FAMILIES_NEW_TOKENS, GEMMA_2B["eos_token_id"], serving,
+                                       seed + 294)
+            add(runs[name]["launches"])
+        agreement = _family_agreement("[gemma] (c) gemma-2b", cfg, params, prompts,
+                                      runs["serving"], {"static": (runs["static"], cfg, False)},
+                                      envelope=True)
+        push = _gemma_push("[gemma] (c) gemma-2b push", cfg, params, prompts, seed + 295)
+        add(push["launches"])
+        out["gemma2b_serve"] = dict(
+            agreement=agreement, push=push,
+            **{name: {k: v for k, v in r.items() if k != "outputs"} for name, r in runs.items()})
+        del params, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        done("c", t0)
+
+        t0 = time.monotonic()
+        work = tempfile.mkdtemp(prefix="run-", dir=GEMMA_DIR)
+        g7 = _family_cfg(GEMMA_7B, GEMMA_7B_LAYERS)
+        check(g7.q_dim == 4096 and g7.hidden_dim == 3072, f"[gemma] (d) {g7}")
+        _check_disk("[gemma]", work, _fp32_model_bytes(g7) + 2 * 2**30)
+        ckpt, params, write_s, nbytes, _ = _family_checkpoint(
+            "[gemma] (d)", work, g7, seed + 296, "gemma")
+        serve = _family_burst("[gemma] (d) gemma-7b serving", g7, params,
+                              _family_prompts(g7, seed + 297), 4, FAMILIES_NEW_TOKENS,
+                              GEMMA_7B["eos_token_id"], True, seed + 298)
+        add(serve["launches"])
+        serve.pop("outputs")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        trial = _family_trial("[gemma] (d) gemma-7b", work, ckpt, g7, seed + 299, 1)
+        add(trial["launches"])
+        out["gemma7b"] = dict(trial=trial, serve=serve, ckpt_write_s=write_s, ckpt_bytes=nbytes)
+        done("d", t0)
+    finally:
+        shutil.rmtree(GEMMA_DIR, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["phase"] = time.monotonic() - t_phase
+    out.update(launches=launches, seconds=secs)
+    log(f"[gemma] {card}: parts " + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items()))
+    log(f"[gemma] the phase's launches (the main paths of (b)-(d)): {launches}")
+    report["gemma"] = out
+
+
+def _gemma_entries(report, kernel):
+    """The D=256 numbers of one row of the kernels line: the gemma
+    phase's launches, the worst row error of each form at Gemma-2B's and
+    Gemma-7B's heads, and each timed form's device ms, plain, library and
+    bound at Gemma-2B's (`d256_<form>_*`)."""
+    g = report.get("gemma", {})
+    holds = g.get("holds", {})
+    errs = [h["errs"] for h in holds.values()]
+    times = holds.get("gemma2b", {}).get("times", {})
+    prefix = {"fwd": ("fwd", "o"), "dq": ("dq", "dq"), "dkv": ("dkv", "dk", "dv"),
+              "k2": ("k2",), "k3": ("k3",), "k4": ("k4",)}[kernel]
+    out = {"launches_gemma": g.get("launches", {}).get(kernel)}
+    if kernel in ("fwd", "dq", "dkv"):
+        keys = [f"{t}_{o}_row" for t in ("fp32", "bf16") for o in prefix[1:]]
+        keys += [f"edges_{t}_{o}{m}" for t in ("fp32", "bf16") for o in prefix[1:]
+                 for m in ("", "_model")]
+        out["d256_row_err"] = _worst(e.get(k) for e in errs for k in keys)
+        out["d256_fp32_ms"] = times.get(f"fp32_{kernel}_ms")
+        forms = {"": times.get(kernel)}
+    else:
+        out["d256_row_err"] = _worst(v for e in errs for k, v in e.items()
+                                     if k.startswith(prefix[0] + "_") and k.endswith("_row"))
+        forms = {f"{k[len(kernel) + 1:]}_" if k != kernel else "": v for k, v in times.items()
+                 if (k == kernel or k.startswith(kernel + "_")) and isinstance(v, dict)}
+        if kernel == "k3":
+            out["d256_fp32_ms"] = times.get("k3_fp32_ms")
+    for name, t in forms.items():
+        if t:
+            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+                out[f"d256_{name}{key.replace('kernel_ms', 'ms')}"] = t[key]
+    return out
 
 
 def _kernels_line(report):
@@ -10190,6 +10836,7 @@ def _kernels_line(report):
         "bound_by": k.get("bound_by"),
         "library_ms": k.get("library_ms"),
         "library_eager_ms": k.get("library_eager_ms"),
+        **_gemma_entries(report, "k2"),
     }]
     k8 = k.get("bf16q_int8")
     if k8:  # bf16 q over an int8 pool: the tensor-core int8 path
@@ -10255,6 +10902,7 @@ def _kernels_line(report):
             "bound_by": bound[1],
             "library_ms": t.get("library_ms"),
             "library_eager_ms": t.get("library_eager_ms"),
+            **_gemma_entries(report, name),
         }
         if name == "fwd":  # lse against the dense logsumexp and the model
             entry["lse_err_edges"] = _worst(errs.get(f"edges_{d}_lse") for d in ("bf16", "fp32"))
@@ -10299,6 +10947,7 @@ def _kernels_line(report):
         "bound_by": k3.get("bound_by"),
         "library_ms": k3.get("library_ms"),
         "library_eager_ms": k3.get("library_eager_ms"),
+        **_gemma_entries(report, "k3"),
     })
     c8 = k3.get("bf16q_int8")
     if c8:  # the chunk form, bf16 q over an int8 pool, at the replay shape
@@ -10376,6 +11025,7 @@ def _kernels_line(report):
         "bound_by": k4.get("bound_by"),
         "library_ms": k4.get("library_ms"),
         "library_eager_ms": k4.get("library_eager_ms"),
+        **_gemma_entries(report, "k4"),
         "b64_ms": k4.get("b64", {}).get("kernel_ms"),
         "b64_library_ms": k4.get("b64", {}).get("library_ms"),
         "b64_bound_ms": k4.get("b64", {}).get("bound_ms"),
@@ -10550,6 +11200,7 @@ def main() -> int:
         "supervisor": lambda: phase_supervisor(report, args.seed),
         "chaos": lambda: phase_chaos(report, args.seed),
         "families": lambda: phase_families(report, args.seed),
+        "gemma": lambda: phase_gemma(report, args.seed),
         "episodes": lambda: phase_episodes(report, args.seed),
         "parity": lambda: phase_parity(args.seed),
         "train_parity": lambda: phase_train_parity(args.seed),

@@ -240,19 +240,33 @@ def test_interface_save_writes_a_checkpoint_jax_reads(tmp_path, critic):
     assert ("value_head" in back) == critic
 
 
-@pytest.mark.parametrize("family", sorted(hf.UNPORTED_FAMILIES))
-def test_other_families_raise(tmp_path, family):
-    assert hf.UNPORTED_FAMILIES == ("gemma",)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
-        hf.get_family(family)
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_unknown_model_type_raises(tmp_path, package):
+    """Every HF family of the JAX package is ported; a `model_type` that
+    neither package knows raises KeyError in both, from the family
+    lookup, the loader and the writer."""
+    assert set(hf.HF_FAMILIES) == set(jhf.HF_FAMILIES)
     with open(tmp_path / "config.json", "w") as f:
-        json.dump({"model_type": family}, f)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
-        hf.load_hf_checkpoint(str(tmp_path), device="cpu")
-    cfg = ttiny()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
-        hf.save_hf_checkpoint(str(tmp_path / "out"), cfg, tfm.init_params(cfg, 0, device="cpu"),
-                              model_type=family)
+        json.dump({"model_type": "falcon"}, f)
+    out = str(tmp_path / "out")
+    if package == "jax":
+        jcfg = jtiny()
+        with pytest.raises(KeyError):
+            jhf.HF_FAMILIES["falcon"]
+        with pytest.raises(KeyError):
+            jhf.load_hf_checkpoint(str(tmp_path))
+        with pytest.raises(KeyError):
+            jhf.save_hf_checkpoint(out, jcfg, jtfm.init_params(jcfg, jax.random.PRNGKey(0)),
+                                   model_type="falcon")
+    else:
+        cfg = ttiny()
+        with pytest.raises(KeyError, match="falcon"):
+            hf.get_family("falcon")
+        with pytest.raises(KeyError, match="falcon"):
+            hf.load_hf_checkpoint(str(tmp_path), device="cpu")
+        with pytest.raises(KeyError, match="falcon"):
+            hf.save_hf_checkpoint(out, cfg, tfm.init_params(cfg, 0, device="cpu"),
+                                  model_type="falcon")
 
 
 def test_loader_runs_on_the_card_unless_told(tmp_path):

@@ -1,4 +1,4 @@
-"""The port's mistral, mixtral and gpt2 HF families against the JAX
+"""The port's mistral, gemma, mixtral and gpt2 HF families against the JAX
 package's and against `transformers` (installed here; the port needs
 neither), fp32 on the CPU:
 
@@ -12,7 +12,7 @@ neither), fp32 on the CPU:
 - the port's forward within 2e-4 of the tiny `transformers` models of
   tests/test_model.py:345-427 (mixtral on the dense oracle, as there;
   the grouped dispatch within 2e-4 too);
-- one tiny `quickstart ppo-math` step from a mixtral and from a gpt2
+- one tiny `quickstart ppo-math` step from a gemma, a mixtral and a gpt2
   checkpoint through both packages' CLI, with a critic: graded tokens
   equal, every actor_train and critic_train stat within rtol 1e-4, atol
   1e-6 (the parity case of tests/test_torch_experiments.py)."""
@@ -38,7 +38,7 @@ from tests.test_model import _tiny_hf_model
 
 torch.set_num_threads(2)
 
-FAMILIES = ("mistral", "mixtral", "gpt2")
+FAMILIES = ("mistral", "gemma", "mixtral", "gpt2")
 HF_TOL = 2e-4
 
 
@@ -151,6 +151,11 @@ def _tiny(family):
         return dataclasses.replace(base, qkv_bias=False)
     if family == "mixtral":
         return dataclasses.replace(jtiny(n_experts=4), qkv_bias=False)
+    if family == "gemma":  # tests/test_torch_gemma.py runs its head_dim of 256
+        return dataclasses.replace(jhf.HF_FAMILIES["gemma"].config_from_hf(dict(
+            num_hidden_layers=2, hidden_size=64, num_attention_heads=4, num_key_value_heads=2,
+            head_dim=16, intermediate_size=128, vocab_size=512, max_position_embeddings=256)),
+            param_dtype="float32")
     return dataclasses.replace(jhf.HF_FAMILIES["gpt2"].config_from_hf(dict(
         n_layer=2, n_embd=64, n_head=4, n_inner=128, vocab_size=512, n_positions=256,
         layer_norm_epsilon=1e-5)), param_dtype="float32")
@@ -195,7 +200,8 @@ def test_mixtral_sharded_checkpoint_streams(tmp_path):
 
 
 @pytest.mark.parametrize("family,dispatch", [
-    ("mistral", None), ("mixtral", "dense"), ("mixtral", "grouped"), ("gpt2", None)])
+    ("mistral", None), ("gemma", None), ("mixtral", "dense"), ("mixtral", "grouped"),
+    ("gpt2", None)])
 def test_forward_matches_transformers(hf_models, rng, family, dispatch):
     m = hf_models[family]
     cfg = hf.get_family(family).config_from_hf(_hf_config(m))
@@ -219,7 +225,7 @@ def data_path(tmp_path_factory):
     return str(path)
 
 
-@pytest.mark.parametrize("family", ["mixtral", "gpt2"])
+@pytest.mark.parametrize("family", ["gemma", "mixtral", "gpt2"])
 def test_quickstart_step_matches_jax(tmp_path, data_path, monkeypatch, capsys, family):
     """One ppo-math step from a JAX-written checkpoint of the family, with
     a ref model and KL control, greedy, the query-id reward and a critic
