@@ -3,8 +3,14 @@ areal_tpu/api/data_api.py that generation, the train step, the master's
 buffer and the data loader use: `MicroBatchSpec`, `SequenceSample`'s
 construction, lengths, selection, key merging, gathering, splitting and
 metadata-only copies, and `DatasetAbstraction` with its registry).  Host
-data stays numpy; the engines move it to the device.  One device: there
-are no data-plane shards."""
+data stays numpy; the engines move it to the device.
+
+The sharded data plane: a member of an SPMD group that was shipped only
+its own rows carries per-id `shard_of = (rank, n)` metadata tags, which
+survive `select_idx`, `split` and `gather` like any metadata.
+`shard_blocks` reads them back as per-shard index blocks, and
+`split_balanced` splits each shard on its own so that every member
+derives the same minibatches from the tags alone."""
 
 import dataclasses
 import itertools
@@ -237,13 +243,48 @@ class SequenceSample:
     def split(self, mb_spec: MicroBatchSpec) -> List["SequenceSample"]:
         return [self.select_idx(g) for g in self.split_groups(mb_spec) if g]
 
+    def shard_blocks(self) -> Optional[List[List[int]]]:
+        """The data-plane shard layout, if any: per-shard lists of batch
+        indices from the per-id `shard_of = (rank, n)` tags.  A block may
+        be empty (that shard still gets its own, empty, row block).  None
+        when untagged or single-shard."""
+        tags = self.metadata.get("shard_of")
+        if not tags:
+            return None
+        n = int(tags[0][1])
+        if n <= 1:
+            return None
+        if any(int(t[1]) != n for t in tags):
+            raise ValueError(f"inconsistent shard_of tags: {tags}")
+        return [[i for i, t in enumerate(tags) if int(t[0]) == s] for s in range(n)]
+
     def split_balanced(self, k: int) -> List["SequenceSample"]:
-        """Exactly k token-balanced, non-empty parts (bs >= k)."""
+        """Exactly k token-balanced, non-empty parts (bs >= k).  A sharded
+        sample (`shard_blocks`) splits each shard into k parts on its own,
+        and part j joins every shard's j-th part; when every shard holds
+        fewer than k elements, k shrinks to the largest shard's size (from
+        the tags alone, so every member shrinks alike)."""
         if self.bs < k:
             raise ValueError(f"cannot split bs={self.bs} into {k} parts")
         key = self.main_key()
         lens = [sum(self.seqlens[key][i]) for i in range(self.bs)]
-        return [self.select_idx(g) for g in datapack.partition_balanced(lens, k)]
+        blocks = self.shard_blocks()
+        if blocks is None:
+            return [self.select_idx(g) for g in datapack.partition_balanced(lens, k)]
+        k = min(k, max(len(b) for b in blocks))
+        per = [
+            datapack.partition_balanced([lens[i] for i in b], k)
+            if len(b) >= k
+            else [[j] for j in range(len(b))] + [[] for _ in range(k - len(b))]
+            for b in blocks
+        ]
+        out = []
+        for j in range(k):
+            idx = [b[i] for b, parts in zip(blocks, per) for i in parts[j]]
+            if not idx:
+                raise ValueError(f"sharded split produced an empty minibatch {j}/{k}")
+            out.append(self.select_idx(idx))
+        return out
 
 
 # ---------------- dataset registry ----------------

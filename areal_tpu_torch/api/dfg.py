@@ -3,8 +3,9 @@ areal_tpu/api/dfg.py): an RL algorithm is a DAG whose nodes are
 generate/inference/train calls on named models and whose edges are
 inferred from which node produces the data keys another consumes.
 
-One device, so no `shard_keys` (the sharded data plane of ROADMAP
-queue 1, item 8)."""
+No `shard_keys` yet: it comes with the master's shard-exact dispatch to
+an SPMD worker group (ROADMAP queue 1, item 8.6a), the field's one
+reader."""
 
 import dataclasses
 from typing import Dict, List, Optional, Set, Tuple

@@ -55,7 +55,7 @@ _UNPORTED_FLAGS = {
     "eval_max_new_tokens": "item 10 (scheduler/evaluator.py)",
     "eval_protocol": "item 10 (scheduler/evaluator.py)",
     # ppo-math
-    "gen_allocation": "item 8 (multi-GPU layouts)",
+    "gen_allocation": "item 8.6b (generation on a sharded layout)",
 }
 
 
@@ -244,7 +244,8 @@ def _refuse_unported(defaults, args) -> None:
                              "(ROADMAP queue 1, item 7.8: the ZMQ transport)")
     if args.allocation != "d1":
         raise SystemExit(f"--allocation {args.allocation}: only d1 (one device) is ported "
-                         "(ROADMAP queue 1, item 8: multi-GPU layouts)")
+                         "(ROADMAP queue 1, item 8.6a: the trainer models over an SPMD "
+                         "worker group)")
 
 
 def _apply_yaml_config(parser: argparse.ArgumentParser, argv):

@@ -1,22 +1,26 @@
 """Forward-only inference engine for the reference model's logprobs
-(port of areal_tpu/engines/inference.py, one device).
+(port of areal_tpu/engines/inference.py).
 
 Frozen params in the compute dtype (bf16 on the card, fp32 on the CPU,
 as `TrainEngine` computes), no optimizer state; `forward` has
 `TrainEngine.forward`'s packing contract (`engines/train.forward_sample`)
 and runs the same packed forward (K1f on the card).  `offload()` parks
-the params in host memory between calls.
+the params in host memory between calls.  On a device mesh (`mesh=`)
+the params are DTensors placed by the sharding rules and the forward is
+`TrainEngine.forward`'s over the mesh.
 """
 
 from typing import Any, Callable, Dict, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines.offload import HostOffloadMixin, buffers_alias
-from areal_tpu_torch.engines.train import _map_tree, forward_sample, model_out
+from areal_tpu_torch.engines.train import _map_tree, compute_tree, forward_sample, model_out
 from areal_tpu_torch.models.config import ModelConfig
+from areal_tpu_torch.parallel import sharding as shd
 
 Params = Dict[str, Any]
 
@@ -28,9 +32,16 @@ class InferenceEngine(HostOffloadMixin):
         params: Params,
         device=None,
         compute_dtype: torch.dtype = torch.bfloat16,
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an engine on {self.device}")
+            shd.check_layout(cfg, mesh, params)
+            shd.attn_dispatch(mesh, cfg)
         self.compute_dtype = torch.float32 if self.device.type == "cpu" else compute_dtype
         self.set_params(params)
 
@@ -44,11 +55,14 @@ class InferenceEngine(HostOffloadMixin):
         self._host_offload = None
 
         def private(x: torch.Tensor) -> torch.Tensor:
+            if isinstance(x, DTensor):
+                x = x.full_tensor()
             dtype = self.compute_dtype if x.is_floating_point() else x.dtype
             y = x.detach().to(self.device, dtype)
             return y.clone() if buffers_alias(y, x) else y
 
-        self.params = _map_tree(private, params)
+        params = _map_tree(private, params)
+        self.params = params if self.mesh is None else shd.shard_params(params, self.mesh)
 
     def get_params(self) -> Params:
         self._ensure_loaded()
@@ -70,7 +84,9 @@ class InferenceEngine(HostOffloadMixin):
         micro-batch, re-packed token-aligned under `output_key` in the
         sample's id order."""
         self._ensure_loaded()
+        with torch.no_grad():
+            pc = compute_tree(self.params, self.compute_dtype, self.mesh)
         return forward_sample(
-            lambda b: post_fn(model_out(self.params, self.cfg, b, remat=False), b),
-            self.device, sample, mb_spec, output_key, token_key, extra_keys,
+            lambda b: post_fn(model_out(pc, self.cfg, b, remat=False, mesh=self.mesh), b),
+            self.device, sample, mb_spec, output_key, token_key, extra_keys, self.mesh,
         )

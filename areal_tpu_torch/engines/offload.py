@@ -6,12 +6,17 @@ is free while the model is idle; `_ensure_loaded()` copies it back on the
 engine's next call.  The round trip is exact (a copy, no cast).  The
 host copies of a card's tensors are page-locked, and kept so that later
 offloads reuse them: a device-to-host copy into pageable memory ran at
-2.6 GB/s on an H100's host (`chip_smoke.py`'s ppo phase).
+2.6 GB/s on an H100's host (`chip_smoke.py`'s ppo phase).  A DTensor
+(an engine on a device mesh) offloads its rank's own shard and comes
+back as the same DTensor.
 """
 
 from typing import Any, Dict, Optional, Tuple
 
+import dataclasses
+
 import torch
+from torch.distributed.tensor import DTensor
 
 
 def buffers_alias(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -27,6 +32,16 @@ def buffers_alias(a: torch.Tensor, b: torch.Tensor) -> bool:
     sa, sb = a.untyped_storage(), b.untyped_storage()
     a0, b0 = sa.data_ptr(), sb.data_ptr()
     return a0 < b0 + sb.nbytes() and b0 < a0 + sa.nbytes()
+
+
+@dataclasses.dataclass
+class _Shard:
+    """Where an offloaded DTensor's local shard goes back to."""
+
+    mesh: Any
+    placements: Tuple
+    shape: Tuple[int, ...]
+    stride: Tuple[int, ...]
 
 
 def _map_state(fn, state, path=()):
@@ -64,10 +79,14 @@ class HostOffloadMixin:
         bufs = self._host_buffers
 
         def to_host(path, x):
+            shard = None
+            if isinstance(x, DTensor):  # a rank keeps its own shard
+                shard, x = _Shard(x.device_mesh, x.placements, x.shape, x.stride()), x.to_local()
             buf = bufs.get(path)
             if buf is None or buf.shape != x.shape or buf.dtype != x.dtype:
                 buf = bufs[path] = torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
-            return buf.copy_(x, non_blocking=True)
+            buf.copy_(x, non_blocking=True)
+            return buf if shard is None else [shard, buf]
 
         with torch.no_grad():
             self._host_offload = _map_state(to_host, self._offload_state())
@@ -78,8 +97,14 @@ class HostOffloadMixin:
     def _ensure_loaded(self) -> None:
         if self._host_offload is None:
             return
-        state = _map_state(
-            lambda _, x: x.to(self.device, non_blocking=True), self._host_offload
-        )
+        def back(_, x):
+            if isinstance(x, list):
+                shard, buf = x
+                return DTensor.from_local(buf.to(self.device, non_blocking=True), shard.mesh,
+                                          shard.placements, run_check=False, shape=shard.shape,
+                                          stride=shard.stride)
+            return x.to(self.device, non_blocking=True)
+
+        state = _map_state(back, self._host_offload)
         self._host_offload = None
         self._restore_state(state)

@@ -1,4 +1,4 @@
-"""Training engine (port of areal_tpu/engines/train.py, one device).
+"""Training engine (port of areal_tpu/engines/train.py).
 
 - Master parameters and AdamW's `mu`/`nu` in `master_dtype` (fp32 by
   default, or bf16: 6 bytes a parameter instead of 12, and no compute
@@ -55,7 +55,23 @@
   on the device, just before the guarded step of `train_batch` and
   `train_stream_end` (`_poison_grads`), so the step's own guard
   quarantines it; the step's one host read stays its only sync.
-- Pipeline schedules (a mesh's pipe axis) are not ported.
+- On a device mesh (`mesh=`, `base/topology.make_mesh`) the masters and
+  Adam's moments are DTensors placed by the sharding rules
+  (`parallel/sharding`), and each micro-batch runs on this rank's own
+  rows (`pack_sample` pads the rows to the batch-sharding degree; a
+  sample tagged `shard_of` packs each shard into its own row block) with
+  the params gathered to their compute layout
+  (`models/transformer.hidden_states_sharded`).  The loss function sees
+  this rank's rows; the loss and the `_sum` stats are summed over the
+  batch axes, the other stats averaged over them.  The guarded step runs
+  on each rank's shards, with the global gradient and update norms and
+  the loss all-reduced over the mesh first, so the verdict is the same on
+  every rank; the step's one host read stays its only synchronizing
+  call.  `masked_moments` is a local masked sum and an all-reduce over
+  the batch axes.  Offload keeps each rank's shards.
+- Pipeline schedules and sequence parallelism (a mesh's pipe and seq
+  axes, ROADMAP queue 1, item 8.5) are not ported; `check_layout`
+  refuses them.
 """
 
 import math
@@ -63,16 +79,20 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import FinetuneSpec, OptimizerConfig
 from areal_tpu_torch.base import faults, integrity
+from areal_tpu_torch.base.distributed import is_primary
+from areal_tpu_torch.base.topology import batch_sharding_degree
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.engines import packing
 from areal_tpu_torch.engines.offload import HostOffloadMixin
 from areal_tpu_torch.models import transformer as tfm
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.models.hf import safetensors_io
+from areal_tpu_torch.parallel import sharding as shd
 
 Params = Dict[str, Any]
 
@@ -143,13 +163,6 @@ def _weak(x: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-def _global_norm(leaves) -> torch.Tensor:
-    """optax.global_norm in the leaves' dtype: each leaf's sum of squares
-    (accumulated in fp32 and rounded, as jnp.sum rounds a bf16 sum), the
-    leaf sums added in that dtype, the root in that dtype."""
-    return torch.sqrt(sum(torch.sum(torch.square(x)) for x in leaves))
-
-
 def _cast_tree(tree: Params, dtype: torch.dtype) -> Params:
     """Floating leaves to `dtype`, differentiably (the cast's backward
     widens the gradient back to the leaf's dtype)."""
@@ -157,10 +170,19 @@ def _cast_tree(tree: Params, dtype: torch.dtype) -> Params:
 
 
 def model_out_with_aux(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                       remat) -> Tuple[torch.Tensor, torch.Tensor]:
+                       remat, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-token model output [B, S] fp32 of a packed batch (a
     critic's values, else next-token logprobs: `per_token_output`) and
-    the MoE aux loss summed over layers (0 for a dense model)."""
+    the MoE aux loss summed over layers (0 for a dense model).  On a
+    mesh, `params` are DTensors in their compute layout and `batch` this
+    rank's rows, and so is the output."""
+    if mesh is not None:
+        x, aux = tfm.hidden_states_sharded(
+            params, cfg, batch["tokens"], batch["segment_ids"], batch["positions"], mesh,
+            remat=remat,
+        )
+        return tfm.per_token_output_sharded(
+            params, cfg, x, batch["tokens"], batch["segment_ids"], mesh), aux
     x, aux = tfm.hidden_states_with_aux(
         params, cfg, batch["tokens"], batch["segment_ids"],
         positions=batch["positions"], remat=remat,
@@ -169,27 +191,37 @@ def model_out_with_aux(params: Params, cfg: ModelConfig, batch: Dict[str, torch.
 
 
 def model_out(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-              remat) -> torch.Tensor:
+              remat, mesh=None) -> torch.Tensor:
     """The per-token model output alone (the forward-only calls)."""
-    return model_out_with_aux(params, cfg, batch, remat)[0]
+    return model_out_with_aux(params, cfg, batch, remat, mesh)[0]
+
+
+def compute_tree(params: Params, dtype: torch.dtype, mesh=None) -> Params:
+    """The masters as the forward takes them: cast to the compute dtype,
+    and on a mesh gathered to their compute layout (differentiably)."""
+    pc = _cast_tree(params, dtype)
+    return pc if mesh is None else shd.compute_params(pc, mesh)
 
 
 def _train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], remat,
-                loss_fn: Callable):
+                loss_fn: Callable, mesh=None):
     """The loss a train step differentiates, `loss_fn`'s loss plus
     `moe_aux_loss_coef` x the aux for a MoE model (as the JAX engine's),
     and `loss_fn`'s stats unchanged."""
-    out, aux = model_out_with_aux(params, cfg, batch, remat)
+    out, aux = model_out_with_aux(params, cfg, batch, remat, mesh)
     loss, stats = loss_fn(out, batch)
     if cfg.is_moe:
         loss = loss + cfg.moe_aux_loss_coef * aux
     return loss, stats
 
 
-def device_batch(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A packed batch on `device`.  On the card each array goes through
+def device_batch(arrays: Dict[str, np.ndarray], device, mesh=None) -> Dict[str, torch.Tensor]:
+    """A packed batch on `device` (on a mesh, this rank's own rows,
+    `parallel/sharding.local_rows`).  On the card each array goes through
     pinned memory with a non-blocking copy, so moving a batch never
     synchronises the host with the card (the step's one host read does)."""
+    if mesh is not None:
+        arrays = {k: shd.local_rows(mesh, v) for k, v in arrays.items()}
     if torch.device(device).type != "cuda":
         return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
@@ -205,17 +237,23 @@ def forward_sample(
     output_key: str,
     token_key: str,
     extra_keys: Sequence[str],
+    mesh=None,
 ) -> SequenceSample:
     """The engines' forward contract: `run(batch) -> [B, S]` per packed
     micro-batch, re-packed token-aligned under `output_key`, in the
-    sample's id order."""
+    sample's id order.  On a mesh `run` sees this rank's rows, and every
+    rank gathers the whole output (as the JAX engine's `to_host`)."""
     outs = []
-    for mb in sample.split(mb_spec):
+    rows = 1 if mesh is None else batch_sharding_degree(mesh)
+    for mb, blocks in packing.split_sharded(sample, mb_spec):
         pk = packing.pack_sample(
             mb, token_key, extra_keys=extra_keys,
             max_tokens_per_row=mb_spec.max_tokens_per_mb,
+            n_rows_multiple=rows, shard_blocks=blocks,
         )
-        dense = run(device_batch(pk.arrays, device))
+        dense = run(device_batch(pk.arrays, device, mesh))
+        if mesh is not None:
+            dense = shd.rows_dtensor(dense, mesh).full_tensor()
         outs.append(SequenceSample(
             keys={output_key},
             ids=list(mb.ids),
@@ -228,7 +266,8 @@ def forward_sample(
 
 
 class TrainEngine(HostOffloadMixin):
-    """Master params + AdamW state (fp32 or bf16) on one device."""
+    """Master params + AdamW state (fp32 or bf16) on one device, or
+    sharded over a device mesh."""
 
     def __init__(
         self,
@@ -251,6 +290,9 @@ class TrainEngine(HostOffloadMixin):
         anomaly_grad_norm_mult: float = 0.0,
         anomaly_update_norm_max: float = 0.0,
         anomaly_ewma_warmup: int = 5,
+        # A `torch.distributed` DeviceMesh (`base/topology.make_mesh`):
+        # the masters, moments and batch sharded by the rules.
+        mesh=None,
     ):
         if 0.0 < anomaly_grad_norm_mult <= 1.0:
             raise ValueError(
@@ -261,6 +303,13 @@ class TrainEngine(HostOffloadMixin):
         self.master_dtype = _master_dtype(master_dtype)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.batch_shard = 1
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an engine on {self.device}")
+            shd.check_layout(cfg, mesh, params)
+            _, self.batch_shard = shd.attn_dispatch(mesh, cfg)
         # bf16 products on the CPU are slow and loose: fp32 there, as the
         # JAX package does on its CPU backend.
         self.compute_dtype = torch.float32 if self.device.type == "cpu" else compute_dtype
@@ -292,13 +341,20 @@ class TrainEngine(HostOffloadMixin):
 
     def set_params(self, params: Params) -> None:
         """Replace the masters (copies in the master dtype on the
-        engine's device); the optimizer state is kept (restored first if
-        offloaded)."""
+        engine's device, on a mesh placed by the rules; a DTensor leaf is
+        gathered whole first); the optimizer state is kept (restored
+        first if offloaded)."""
         self._ensure_loaded()
-        self.params = _map_tree(
-            lambda x: x.detach().to(self.device, self.master_dtype).clone().requires_grad_(True),
+        tree = _map_tree(
+            lambda x: (x.full_tensor() if isinstance(x, DTensor) else x)
+            .detach().to(self.device, self.master_dtype).clone(),
             params,
         )
+        if self.mesh is not None:
+            tree = shd.shard_params(tree, self.mesh)
+            self._replication = {n: shd.replication(t.placements, self.mesh)
+                                 for n, t in _leaves(tree)}
+        self.params = _map_tree(lambda x: x.requires_grad_(True), tree)
 
     # ---------------- optimizer state ----------------
 
@@ -307,8 +363,14 @@ class TrainEngine(HostOffloadMixin):
         dtype) and the update count (metadata `opt_count`) to `path`.  An
         offloaded engine is reloaded first, as every engine call does."""
         self._ensure_loaded()
-        tensors = {f"mu.{n}": t for n, t in _leaves(self._mu)}
-        tensors.update({f"nu.{n}": t for n, t in _leaves(self._nu)})
+
+        def whole(t):  # on a mesh a collective: every rank calls it
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        tensors = {f"mu.{n}": whole(t) for n, t in _leaves(self._mu)}
+        tensors.update({f"nu.{n}": whole(t) for n, t in _leaves(self._nu)})
+        if self.mesh is not None and not is_primary():
+            return
         safetensors_io.save_file(tensors, path, metadata={"opt_count": str(self.opt_count)})
 
     def load_optimizer_state(self, path: str) -> None:
@@ -333,7 +395,12 @@ class TrainEngine(HostOffloadMixin):
         with torch.no_grad():
             for kind, tree in (("mu", self._mu), ("nu", self._nu)):
                 for n, t in _leaves(tree):
-                    t.copy_(saved[f"{kind}.{n}"])
+                    src = saved[f"{kind}.{n}"]
+                    if isinstance(t, DTensor):
+                        t.to_local().copy_(shd.distribute(src.to(t.to_local().device),
+                                                          t.device_mesh, t.placements).to_local())
+                    else:
+                        t.copy_(src)
         del saved
         self.opt_count = int(header["__metadata__"]["opt_count"])
 
@@ -351,9 +418,29 @@ class TrainEngine(HostOffloadMixin):
 
     # ---------------- steps ----------------
 
+    def _norm(self, sumsqs: Dict[str, torch.Tensor], extra=None):
+        """optax.global_norm from the leaves' sums of squares (`sumsqs`, in
+        leaf order, each in its leaf's dtype: a leaf's sum accumulates in
+        fp32 and rounds, as jnp.sum rounds a bf16 sum; the sums are added
+        in that dtype and the root taken in it), and `extra` (a local
+        loss sum) summed over the batch axes.  On a mesh the sums are of
+        each rank's shards: each is divided by the number of ranks holding
+        that leaf's elements, and one all-reduce over the mesh adds them
+        (and the loss shares) up."""
+        if self.mesh is None:
+            return torch.sqrt(sum(sumsqs.values())), extra
+        dt = self.master_dtype
+        vec = torch.stack([(sq / self._replication[n]).float() for n, sq in sumsqs.items()])
+        if extra is not None:
+            share = self.mesh.size() // self.batch_shard  # ranks holding one row block
+            vec = torch.cat([vec, (extra.float() / share).reshape(1)])
+        red = shd.mesh_sum(vec, self.mesh)
+        norm = torch.sqrt(sum(red[i].to(dt) for i in range(len(sumsqs))))
+        return norm, (red[-1] if extra is not None else None)
+
     @torch.no_grad()
     def _guarded_step(self, loss_sum: torch.Tensor, scale: Optional[float] = None,
-                      ext_trip: bool = False) -> torch.Tensor:
+                      ext_trip: bool = False, loss_is_local: bool = True) -> torch.Tensor:
         """Clip, AdamW, and commit only on a clean verdict with no
         external trip; `scale` multiplies the gradients first (the
         streamed step).  Returns [loss_sum, grad_norm, update_norm,
@@ -363,20 +450,33 @@ class TrainEngine(HostOffloadMixin):
         apply_updates) in the masters' dtype: every op rounds to it, and
         each Python scalar is rounded to it first (`_weak`), as JAX's
         weak typing does; the bias corrections are fp32 powers rounded
-        to it, the norms `_global_norm`s."""
+        to it, the norms optax's global norms (`_norm`).  On a mesh the
+        update runs on each rank's shards, the norms and (when
+        `loss_is_local`) the loss sum reduced over the mesh first."""
         oc = self.optimizer_config
         dt = self.master_dtype
         names = [n for n, _ in _leaves(self.params)]
-        params = dict(_leaves(self.params))
-        mus, nus = dict(_leaves(self._mu)), dict(_leaves(self._nu))
+        leaves = dict(_leaves(self.params))
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)
-            for n, p in params.items()
+            for n, p in leaves.items()
         }
+        for p in leaves.values():
+            p.grad = None
+        # On a mesh: each rank's own shards (views of the DTensors).
+        local = (lambda t: t.to_local()) if self.mesh is not None else (lambda t: t)
+        params = {n: local(t) for n, t in leaves.items()}
+        grads = {n: local(t) for n, t in grads.items()}
+        mus = {n: local(t) for n, t in _leaves(self._mu)}
+        nus = {n: local(t) for n, t in _leaves(self._nu)}
         if scale is not None:  # in place: the gradients die with the step
             for g in grads.values():
                 g.mul_(scale)
-        gnorm = _global_norm(grads[n] for n in names)
+        gnorm, loss_red = self._norm(
+            {n: torch.sum(torch.square(grads[n])) for n in names},
+            loss_sum if loss_is_local and self.mesh is not None else None)
+        if loss_red is not None:
+            loss_sum = loss_red
         count = self.opt_count + 1
         f32 = torch.float32
         bc1 = _weak(float(1.0 - torch.tensor(oc.beta1, dtype=f32) ** count), dt)
@@ -409,25 +509,23 @@ class TrainEngine(HostOffloadMixin):
         unorm = None
         if self.anomaly_update_norm_max > 0.0:
             # The ceiling must be judged before anything is written.
-            unorm = _global_norm(adamw(n)[2] for n in names)
+            unorm, _ = self._norm({n: torch.sum(torch.square(adamw(n)[2])) for n in names})
             ceil = finite & (unorm > _weak(self.anomaly_update_norm_max, dt))
             verdict = verdict + torch.where(ceil, float(integrity.UPDATE_NORM), 0.0)
         ok = verdict == 0.0
         if ext_trip:
             ok = torch.zeros_like(ok)
-        usq = None
+        usq = {}
         for n in names:
             p, mu, nu = params[n], mus[n], nus[n]
             mu_new, nu_new, upd = adamw(n)
             if unorm is None:
-                sq = torch.sum(torch.square(upd))
-                usq = sq if usq is None else usq + sq
+                usq[n] = torch.sum(torch.square(upd))
             p.copy_(torch.where(ok, p + upd, p))
             mu.copy_(torch.where(ok, mu_new, mu))
             nu.copy_(torch.where(ok, nu_new, nu))
-            p.grad = None
         if unorm is None:
-            unorm = torch.sqrt(usq)
+            unorm = self._norm(usq)[0]
         # The EWMA follows CLEAN steps only: a quarantined spike must not
         # drag the baseline up.
         new_ewma = torch.where(
@@ -468,8 +566,9 @@ class TrainEngine(HostOffloadMixin):
             packing.pack_sample(
                 mb, token_key, extra_keys=extra_keys,
                 max_tokens_per_row=mb_spec.max_tokens_per_mb,
+                n_rows_multiple=self.batch_shard, shard_blocks=blocks,
             ).arrays
-            for mb in sample.split(mb_spec)
+            for mb, blocks in packing.split_sharded(sample, mb_spec)
         ]
         total_weight = max(float(sum(loss_weight_fn(c) for c in chunks)), 1.0)
         real = sum(int((c["segment_ids"] > 0).sum()) for c in chunks)
@@ -485,10 +584,11 @@ class TrainEngine(HostOffloadMixin):
         for _, p in _leaves(self.params):
             p.grad = None
         for arrays in chunks:
-            batch = device_batch(arrays, self.device)
+            batch = device_batch(arrays, self.device, self.mesh)
             with torch.enable_grad():
-                pc = _cast_tree(self.params, self.compute_dtype)
-                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn)
+                pc = compute_tree(self.params, self.compute_dtype, self.mesh)
+                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn,
+                                          self.mesh)
                 (loss * scale).backward()
             losses.append(loss.detach().float() * scale)
             all_stats.append({k: v.detach().float() for k, v in stats.items()})
@@ -497,12 +597,12 @@ class TrainEngine(HostOffloadMixin):
         keys = list(all_stats[0]) if all_stats else []
         vec = [packed]
         if keys:
-            vec.append(torch.stack([
+            vec.append(self._batch_stats(torch.stack([
                 torch.stack([s[k] for s in all_stats]).sum()
                 if k.endswith("_sum")
                 else torch.stack([s[k] for s in all_stats]).mean()
                 for k in keys
-            ]))
+            ]), keys))
         host = torch.cat(vec).double().cpu().numpy()  # the one host sync
         self.host_transfers += 1
         verdict = float(host[3])
@@ -525,6 +625,17 @@ class TrainEngine(HostOffloadMixin):
             else:
                 out[k] = v
         return out
+
+    def _batch_stats(self, vec: torch.Tensor, keys) -> torch.Tensor:
+        """A rank's loss-function stats made global on a mesh: the `_sum`
+        stats summed over the batch axes, the others averaged over them
+        (the loss function sees this rank's rows only)."""
+        if self.mesh is None:
+            return vec
+        red = shd.batch_sum(vec, self.mesh)
+        mean = torch.tensor([0.0 if k.endswith("_sum") else 1.0 for k in keys],
+                            dtype=red.dtype, device=red.device)
+        return red / (1.0 + mean * (self.batch_shard - 1))
 
     # ---------------- streamed accumulation ----------------
     #
@@ -563,20 +674,26 @@ class TrainEngine(HostOffloadMixin):
         suffix), `chunk_weight`, `chunk_loss_sum` and
         `chunk_micro_batches`, after one host transfer."""
         self._ensure_loaded()
+        if self.mesh is not None and sample.shard_blocks() is not None:
+            # As the JAX engine: a stream's chunks go to every member whole.
+            raise ValueError("streamed accumulation does not compose with shard-exact data "
+                             "placement (shard_of tags): send the chunks whole")
         chunks = [
             packing.pack_sample(
                 mb, token_key, extra_keys=extra_keys,
                 max_tokens_per_row=mb_spec.max_tokens_per_mb,
+                n_rows_multiple=self.batch_shard,
             ).arrays
             for mb in sample.split(mb_spec)
         ]
         chunk_weight = float(sum(loss_weight_fn(c) for c in chunks))
         losses, all_stats = [], []
         for arrays in chunks:
-            batch = device_batch(arrays, self.device)
+            batch = device_batch(arrays, self.device, self.mesh)
             with torch.enable_grad():
-                pc = _cast_tree(self.params, self.compute_dtype)
-                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn)
+                pc = compute_tree(self.params, self.compute_dtype, self.mesh)
+                loss, stats = _train_loss(pc, self.cfg, batch, self.remat_policy, loss_fn,
+                                          self.mesh)
                 loss.backward()
             losses.append(loss.detach().float())
             all_stats.append({k: v.detach().float() for k, v in stats.items()})
@@ -585,9 +702,12 @@ class TrainEngine(HostOffloadMixin):
         chunk_loss, chunk_stats = 0.0, {}
         if losses:
             keys = list(all_stats[0])
-            host = torch.stack([torch.stack(losses).sum()] + [
+            vec = torch.stack([torch.stack(losses).sum()] + [
                 torch.stack([s[k] for s in all_stats]).sum() for k in keys
-            ]).double().cpu().numpy()  # the chunk's one host sync
+            ])
+            if self.mesh is not None:
+                vec = shd.batch_sum(vec, self.mesh)
+            host = vec.double().cpu().numpy()  # the chunk's one host sync
             self.host_transfers += 1
             chunk_loss = float(host[0])
             chunk_stats = {k: float(host[1 + i]) for i, k in enumerate(keys)}
@@ -615,7 +735,8 @@ class TrainEngine(HostOffloadMixin):
         total_weight = max(state["weight"], 1.0)
         loss_sum = torch.full((), sum(state["loss_sums"]), dtype=torch.float32, device=self.device)
         self._poison_grads()
-        packed = self._guarded_step(loss_sum, scale=1.0 / total_weight, ext_trip=quarantine)
+        packed = self._guarded_step(loss_sum, scale=1.0 / total_weight, ext_trip=quarantine,
+                                    loss_is_local=False)
         self.last_pack_stats = {
             "real_tokens": state["real_tokens"],
             "grid_tokens": state["grid_tokens"],
@@ -659,8 +780,52 @@ class TrainEngine(HostOffloadMixin):
         to the compute dtype."""
         self._ensure_loaded()
         with torch.no_grad():
-            pc = _cast_tree(self.params, self.compute_dtype)
+            pc = compute_tree(self.params, self.compute_dtype, self.mesh)
         return forward_sample(
-            lambda b: post_fn(model_out(pc, self.cfg, b, remat=False), b),
-            self.device, sample, mb_spec, output_key, token_key, extra_keys,
+            lambda b: post_fn(model_out(pc, self.cfg, b, remat=False, mesh=self.mesh), b),
+            self.device, sample, mb_spec, output_key, token_key, extra_keys, self.mesh,
         )
+
+    @torch.no_grad()
+    def masked_moments(
+        self,
+        sample: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        value_keys: Sequence[str],
+        mask_key: str = "loss_mask",
+        token_key: str = "packed_input_ids",
+    ) -> Dict[str, Any]:
+        """Exact batch-global masked reductions, on the device: {"count":
+        N} and, per value key, a float64 vector [masked sum, masked sum of
+        squares, masked abs sum].  Values and mask are token-aligned with
+        `token_key`.  On a mesh each rank reduces its own rows (under the
+        sharded data plane its host arrays are real for those rows only)
+        and an all-reduce over the batch axes adds the ranks up, so every
+        rank gets the same global numbers: PPO's advantage moments,
+        ref-KL and the value norm's running moments ride this."""
+        self._ensure_loaded()
+        value_keys = tuple(value_keys)
+        count = 0.0
+        acc = {k: np.zeros(3, np.float64) for k in value_keys}
+        for mb, blocks in packing.split_sharded(sample, mb_spec):
+            pk = packing.pack_sample(
+                mb, token_key, extra_keys=value_keys + (mask_key,),
+                max_tokens_per_row=mb_spec.max_tokens_per_mb,
+                n_rows_multiple=self.batch_shard, shard_blocks=blocks,
+            )
+            b = device_batch({k: pk.arrays[k] for k in value_keys + (mask_key,)},
+                             self.device, self.mesh)
+            mask = b[mask_key] > 0
+            parts = [mask.sum().float().reshape(1)]
+            for k in value_keys:
+                v = torch.where(mask, b[k].float(), 0.0)
+                parts.append(torch.stack([v.sum(), (v * v).sum(), torch.abs(v).sum()]))
+            vec = torch.cat(parts)
+            if self.mesh is not None:
+                vec = shd.batch_sum(vec, self.mesh)
+            host = vec.double().cpu().numpy()
+            count += float(host[0])
+            for i, k in enumerate(value_keys):
+                acc[k] += host[1 + 3 * i: 4 + 3 * i]
+        acc["count"] = count
+        return acc

@@ -59,7 +59,8 @@ def unported_options(cfg):
         (any(not u.startswith(("http://", "https://")) for u in urls),
          "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.8"),
         (any(isinstance(w, list) for w in cfg.placement.values()),
-         "placement over several workers a model (model replicas)", "queue 1, item 8"),
+         "placement over several workers a model (model replicas)",
+         "queue 1, item 8.6a (the SPMD worker group)"),
     )
     return [(name, item) for bad, name, item in checks if bad]
 

@@ -353,6 +353,14 @@ class PPOActorInterface(ModelInterface):
         if self.generation_size is not None and self.generation_size > self.gconfig.n:
             sample = self._filter_best_of_k(sample)
         klv = self._kl_ctl.value
+        # The sharded data plane: the heavy per-token inputs are real only
+        # for this member's own rows (the layout and the per-sequence keys
+        # are whole).  Per-row math stays the same on every member; the
+        # batch-global statistics (the advantage moments of a batch
+        # `adv_norm`, the policy-ref KL) come from the engine's exact
+        # reduction over the placed rows (`masked_moments`), the same on
+        # every member, so the adaptive KL controller moves in lockstep.
+        sharded = sample.shard_blocks() is not None
         layout, group_of = _extract_layout(sample)
         total = sum(L for (_, L, _) in layout)
 
@@ -460,10 +468,36 @@ class PPOActorInterface(ModelInterface):
 
         # Normalized over the whole batch, or per group with a critic
         # (`group_adv_norm` does not act on GRPO advantages, which are
-        # group-normalized already).
+        # group-normalized already).  Sharded, the batch moments and the
+        # ref-KL come from one `masked_moments` pass.
+        ref_kl = None
+        batch_norm = self.adv_norm and not (self.group_adv_norm and not self.disable_value)
+        if sharded and (batch_norm or ref_logp is not None):
+            probe = sample.select_keys({"packed_input_ids"})
+            arrays = {"loss_mask": loss_mask}
+            vkeys = []
+            if batch_norm:
+                arrays["adv_probe"] = adv_full
+                vkeys.append("adv_probe")
+            if ref_logp is not None:
+                arrays["klterm"] = (old_logp - ref_logp) * loss_mask
+                vkeys.append("klterm")
+            _add_aligned_keys(probe, arrays)
+            mom = model.engine.masked_moments(probe, mb_spec, vkeys, mask_key="loss_mask")
+            cnt = mom["count"]
+            if batch_norm and cnt > 0:
+                s_, ssq, _ = mom["adv_probe"]
+                mean = s_ / cnt
+                std = float(np.sqrt(max(ssq / cnt - mean * mean, 0.0)))
+                mk = loss_mask > 0
+                adv_full[mk] = (adv_full[mk] - mean) / (std + 1e-5)
+            if ref_logp is not None and cnt > 0:
+                ref_kl = float(mom["klterm"][0] / cnt)
         m = loss_mask > 0
         if self.adv_norm:
-            if self.group_adv_norm and not self.disable_value:
+            if not batch_norm:
+                # Per group: a group is one batch element, never split
+                # across shards, so each member normalizes its own rows.
                 for gi in set(group_of):
                     gm = np.zeros_like(m)
                     for si, (lo, hi) in enumerate(seq_slices):
@@ -472,7 +506,7 @@ class PPOActorInterface(ModelInterface):
                     if gm.any():
                         vals = adv_full[gm]
                         adv_full[gm] = (vals - vals.mean()) / (vals.std() + 1e-5)
-            elif m.any():
+            elif not sharded and m.any():
                 vals = adv_full[m]
                 adv_full[m] = (vals - vals.mean()) / (vals.std() + 1e-5)
 
@@ -500,6 +534,7 @@ class PPOActorInterface(ModelInterface):
             "ref_logp": ref_logp,
             "scores": scores,
             "no_eos": no_eos,
+            "ref_kl": ref_kl,
             "kl_abs_mean": kl_abs_mean,
             "behav_imp_mean": behav_imp_mean,
             "degenerate_var": degenerate_var,
@@ -556,9 +591,14 @@ class PPOActorInterface(ModelInterface):
         model.inc_version()
 
         out = {k: float(np.mean([s[k] for s in all_stats])) for k in all_stats[0]}
-        ref_kl = 0.0
+        # Sharded, ref_kl was reduced over the mesh above (the host formula
+        # would read the other members' zero-filled rows).
+        ref_kl = aux["ref_kl"]
+        if ref_kl is None:
+            ref_kl = 0.0
+            if ref_logp is not None and loss_mask.sum() > 0:
+                ref_kl = float(((old_logp - ref_logp) * loss_mask).sum() / loss_mask.sum())
         if ref_logp is not None and loss_mask.sum() > 0:
-            ref_kl = float(((old_logp - ref_logp) * loss_mask).sum() / loss_mask.sum())
             self._kl_ctl.update(ref_kl, n_steps=aux["n_seqs"])
         out.update(
             task_reward=float(aux["scores"].mean()),
@@ -604,6 +644,9 @@ class PPOActorInterface(ModelInterface):
         if state["stopped"]:
             state["n_chunks_skipped"] += 1
             return {"n_chunks_skipped": 1.0}
+        if sample.shard_blocks() is not None:
+            raise ValueError("pipeline overlap does not compose with shard-exact dispatch; "
+                             "chunk inputs must go to every member whole")
         train_sample, extra_keys, aux = self._prepare_train_sample(model, sample, mb_spec)
         verdict = self._batch_verdict(aux)
         if verdict:
@@ -728,6 +771,9 @@ class PPOCriticInterface(ModelInterface):
     ) -> Dict[str, float]:
         """One retired chunk's returns (the value-norm moments updated
         with the chunk's) and its gradients."""
+        if sample.shard_blocks() is not None:
+            raise ValueError("pipeline overlap does not compose with shard-exact dispatch; "
+                             "chunk inputs must go to every member whole")
         train_sample = self._prepare_train_sample(model, sample, mb_spec)
         stats = _stream_chunk_stats(model.engine.train_stream_chunk(
             state["engine"], train_sample, mb_spec, loss_fn=self._loss_fn,
@@ -798,8 +844,21 @@ class PPOCriticInterface(ModelInterface):
         )
         if self.value_norm:
             # The old values are normalized too, so the clip window lives
-            # in the targets' space.
-            self.rms.update(returns, mask=loss_mask)
+            # in the targets' space.  Sharded, the host returns are wrong
+            # on the other members' rows (their values are zero-filled):
+            # the batch moments come from the engine's reduction over the
+            # placed rows, the same on every member.
+            if sample.shard_blocks() is not None:
+                probe = sample.select_keys({"packed_input_ids"})
+                _add_aligned_keys(probe, {"ret_probe": returns, "loss_mask": loss_mask})
+                mom = model.engine.masked_moments(probe, mb_spec, ("ret_probe",),
+                                                  mask_key="loss_mask")
+                cnt = mom["count"]
+                if cnt > 0:
+                    s_, ssq, _ = mom["ret_probe"]
+                    self.rms.update_moments(s_ / cnt, ssq / cnt, cnt)
+            else:
+                self.rms.update(returns, mask=loss_mask)
             returns = self.rms.normalize(returns)
             values = self.rms.normalize(values)
 

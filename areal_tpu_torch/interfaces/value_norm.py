@@ -2,10 +2,10 @@
 areal_tpu/interfaces/value_norm.py; host-side numpy, the port's own copy).
 
 The critic head learns NORMALIZED returns; its predictions are
-denormalized before GAE.  float64 accumulators with debiasing.  One
-device: the moments live with the critic interface; `update_moments`
-(batch moments from a sharded reduction) and the broadcast to
-inference-only replicas come with multi-GPU.
+denormalized before GAE.  float64 accumulators with debiasing.
+`update_moments` takes a batch's moments from elsewhere: under the
+sharded data plane, the engine's exact reduction over the placed rows
+(`TrainEngine.masked_moments`), the same on every member.
 """
 
 from typing import Dict, Optional
@@ -36,8 +36,15 @@ class ExponentialRunningMeanStd:
         else:
             bm = float(x.mean())
             bmsq = float(np.square(x).mean())
-        self._mean = self.beta * self._mean + (1.0 - self.beta) * bm
-        self._mean_sq = self.beta * self._mean_sq + (1.0 - self.beta) * bmsq
+        self.update_moments(bm, bmsq, 1.0)
+
+    def update_moments(self, mean: float, mean_sq: float, count: float):
+        """Update from a batch's moments (its masked mean and mean of
+        squares over `count` > 0 elements)."""
+        if count <= 0:
+            return
+        self._mean = self.beta * self._mean + (1.0 - self.beta) * mean
+        self._mean_sq = self.beta * self._mean_sq + (1.0 - self.beta) * mean_sq
         self._debias = self.beta * self._debias + (1.0 - self.beta)
 
     def mean_std(self):
@@ -91,6 +98,14 @@ class MovingAverageRunningMeanStd:
             self._sum += float(x.sum())
             self._sum_sq += float(np.square(x).sum())
             self._count += float(x.size)
+
+    def update_moments(self, mean: float, mean_sq: float, count: float):
+        """See ExponentialRunningMeanStd.update_moments."""
+        if count <= 0:
+            return
+        self._sum += mean * count
+        self._sum_sq += mean_sq * count
+        self._count += count
 
     def mean_std(self):
         if self._count == 0.0:

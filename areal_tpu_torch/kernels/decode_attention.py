@@ -19,8 +19,9 @@ the same C entry point combines their partials.
 PyTorch, for the tests and `chip_smoke.py`.
 
 On a CPU tensor the wrapper computes the plain version
-(`ops/attention.decode_attention_chunk` with every query live); on a
-CUDA tensor it launches the kernel or raises — there is no fallback.
+(`ops/attention.decode_attention_chunk` with every query live) over the
+span of the rows' windows; on a CUDA tensor it launches the kernel or
+raises — there is no fallback.
 """
 
 import ctypes
@@ -123,8 +124,21 @@ def decode_attention_chunk_kernel(
     device on the host."""
     if q.device.type == "cpu":
         b, nq_tok = q.shape[:2]
+        # Only the span of the rows' windows enters the plain version: a
+        # slot outside every window takes weight exactly 0, and a dense
+        # cache is mostly such slots (a burst's prompt padding and its
+        # undecoded tail), which the plain products would otherwise copy
+        # and multiply at every step.
+        vf, vt = valid_from.long(), valid_to0.long()
+        lo = min(max(int(vf.min()), 0), k_cache.shape[1] - 1)
+        hi = min(max(int(vt.max()) + nq_tok - 1, lo + 1), k_cache.shape[1])
+        if (lo, hi) != (0, k_cache.shape[1]):
+            k_cache, v_cache = k_cache[:, lo:hi], v_cache[:, lo:hi]
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[:, lo:hi], v_scale[:, lo:hi]
+            vf, vt = vf - lo, vt - lo
         return decode_attention_chunk(
-            q, k_cache, v_cache, valid_from.long(), valid_to0.long(),
+            q, k_cache, v_cache, vf, vt,
             torch.full((b,), nq_tok, dtype=torch.long), k_scale, v_scale,
         )
     if q.device.type != "cuda":

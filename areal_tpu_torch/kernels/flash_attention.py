@@ -342,3 +342,41 @@ def flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(),
         segment_ids.to(torch.int32).contiguous(), bool(causal),
     )
+
+
+def flash_attention_sharded(q, k, v, segment_ids, mesh, causal: bool = True):
+    """`flash_attention` over a device mesh (the JAX package's
+    `shard_map` wrapper, `flash_attention.py:483`): q/k/v [B, S, H, d]
+    and segment_ids [B, S] are DTensors on `mesh`; the batch is sharded
+    over (data, fsdp), the heads over `model` and the sequence is whole.
+    Each rank runs the kernels (K1f forward, K1dq/K1dkv backward) on its
+    local rows and heads, with no collective; the result is a DTensor of
+    q's layout.  Contiguous head slices keep each q-head group with its
+    kv head, so the model axis must divide both head counts: a layout
+    where it does not is refused (the JAX package falls back to XLA's
+    attention there), and so is a seq axis above 1 (ring attention,
+    ROADMAP queue 1, item 8.5)."""
+    from torch.distributed.tensor import DTensor
+
+    from areal_tpu_torch.base.topology import MODEL_AXIS, SEQ_AXIS, mesh_sizes
+    from areal_tpu_torch.parallel.sharding import BATCH, spec_placements
+
+    sizes = mesh_sizes(mesh)
+    if sizes[SEQ_AXIS] != 1:
+        raise ValueError("flash_attention_sharded: the seq axis must be 1 (ring attention "
+                         "owns it, ROADMAP queue 1, item 8.5)")
+    m = sizes[MODEL_AXIS]
+    if k.shape[2] % m or q.shape[2] % m:
+        raise ValueError(
+            f"flash_attention_sharded: the model axis ({m}) must divide both head counts "
+            f"({q.shape[2]}q/{k.shape[2]}kv)"
+        )
+    qkv = list(spec_placements((BATCH, None, MODEL_AXIS, None), mesh))
+    seg = list(spec_placements((BATCH, None), mesh))
+
+    def local(x, placements):
+        return x.redistribute(mesh, placements).to_local(grad_placements=placements)
+
+    o = flash_attention(local(q, qkv), local(k, qkv), local(v, qkv),
+                        segment_ids.redistribute(mesh, seg).to_local(), causal=causal)
+    return DTensor.from_local(o, mesh, qkv, run_check=False)

@@ -23,6 +23,13 @@ paged KV pool.
 - Packed rows: [B, S] tokens with segment ids (0 = padding) run through
   `flash_attention` (the flash kernels on the card), under a remat
   policy ("none", "full", "dots" or "dots_small"; `_layer`).
+- Over a device mesh (`hidden_states_sharded`, `per_token_output_sharded`)
+  the same layers run on DTensors: the params in their compute layout
+  (`parallel/sharding.compute_params`), the rows sharded over (data,
+  fsdp), q/k/v heads and the MLP hidden over `model`, and the attention
+  through `flash_attention_sharded` (the JAX package's `packed_attention`
+  with `use_flash` a mesh).  The embedding, RoPE tables and the head run
+  on each rank's own rows with their tables gathered whole.
 - The LM head gives fp32 logits, and the value head fp32 values, of the
   product in the weights' dtype (`ops/functional.matmul_fp32_out`), as
   the JAX package asks XLA for.
@@ -59,6 +66,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -68,7 +76,7 @@ from torch.utils.checkpoint import (
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
 from areal_tpu_torch.kernels.decode_attention import decode_attention_kernel
-from areal_tpu_torch.kernels.flash_attention import flash_attention
+from areal_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_sharded
 from areal_tpu_torch.kernels.decode_attention import decode_attention_chunk_kernel
 from areal_tpu_torch.kernels.paged_chunk_attention import (
     paged_decode_attention_chunk,
@@ -397,6 +405,16 @@ def _attn_mlp(
 # --------------------------------------------------------------------------
 
 
+def packed_attention(q, k, v, segment_ids) -> torch.Tensor:
+    """Causal segment attention over packed rows: K1 through
+    `flash_attention`, or, on DTensors, `flash_attention_sharded` over
+    their mesh (the JAX package's `packed_attention` with `use_flash` a
+    mesh)."""
+    if isinstance(q, DTensor):
+        return flash_attention_sharded(q, k, v, segment_ids, q.device_mesh, causal=True)
+    return flash_attention(q, k, v, segment_ids, causal=True)
+
+
 def positions_from_segments(segment_ids: torch.Tensor) -> torch.Tensor:
     """Within-segment positions for packed rows [B, S]: segments are
     contiguous runs, and the position resets to 0 at each boundary."""
@@ -419,7 +437,7 @@ def _attn_branch(
     flash attention, output projection (the JAX package's "attn_out")."""
     h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
     q, k, v = _block_kv(h, blk, cfg, cos, sin)
-    attn = flash_attention(q, k, v, segment_ids, causal=True)
+    attn = packed_attention(q, k, v, segment_ids)
     return _attn_out(attn, blk, cfg, x.shape[:-1])
 
 
@@ -526,6 +544,58 @@ def _backbone(
     aux = (torch.sum(torch.stack(auxes)) if auxes
            else torch.zeros((), dtype=torch.float32, device=x.device))
     return _norm(x, params["final_ln"], params.get("final_ln_b"), cfg), aux
+
+
+def hidden_states_sharded(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B_local, S] int: this rank's own rows
+    segment_ids: torch.Tensor,
+    positions: torch.Tensor,
+    mesh,
+    remat=False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`hidden_states_with_aux` over a device mesh: `params` are DTensors
+    in their compute layout (`parallel/sharding.compute_params`), the
+    batch arrays this rank's own rows.  The embedding lookup and the RoPE
+    tables run on the local rows (the table gathered whole,
+    `local_replica`); the layers and the final norm run on DTensors, the
+    rows sharded over (data, fsdp).  Returns this rank's final-normed
+    hidden states [B_local, S, D] (local; their gradient comes back
+    batch-sharded) and the MoE aux."""
+    from areal_tpu_torch.parallel import sharding as shd
+
+    policy = _remat_layers(remat) if torch.is_grad_enabled() else "none"
+    positions = positions.long()
+    tables = {k: shd.local_replica(params[k], mesh) for k in ("embed", "pos_embed") if k in params}
+    x = _embed(tables, cfg, tokens.long(), positions)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    x, seg, cos, sin = (shd.rows_dtensor(t, mesh) for t in (x, segment_ids, cos, sin))
+    layers = {name: w.unbind(0) for name, w in params["blocks"].items()}
+    auxes = []
+    for li in range(cfg.n_layers):
+        blk = {name: ws[li] for name, ws in layers.items()}
+        x, aux = _layer(x, blk, cfg, seg, cos, sin, policy)
+        if aux is not None:
+            auxes.append(aux)
+    aux = (torch.sum(torch.stack(auxes)) if auxes
+           else torch.zeros((), dtype=torch.float32, device=tokens.device))
+    x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
+    return shd.rows_local(x), aux
+
+
+def per_token_output_sharded(
+    params: Params, cfg: ModelConfig, x: torch.Tensor, tokens: torch.Tensor,
+    segment_ids: torch.Tensor, mesh,
+) -> torch.Tensor:
+    """`per_token_output` of this rank's rows (`hidden_states_sharded`'s
+    local x), the head's table gathered whole (`local_replica`)."""
+    from areal_tpu_torch.parallel import sharding as shd
+
+    keys = ("value_head",) if cfg.is_critic else (
+        ("embed",) if cfg.tied_embeddings else ("lm_head",))
+    head = {k: shd.local_replica(params[k], mesh) for k in keys}
+    return per_token_output(head, cfg, x, tokens, segment_ids)
 
 
 def hidden_states(

@@ -1255,6 +1255,28 @@ def _register_overlap_reward():
     register_interface(OVERLAP_REWARD, OverlapCheckReward)
 
 
+def generate_split(trace) -> Dict[int, Dict[str, float]]:
+    """The generate stage's calls split by the tracer's spans, by the rows
+    of the call's static burst: calls, the burst's mean wall
+    (`gen_chunk`: the prefill and the decode loop) and the mean per-call
+    set-up outside it (`generate` less its `gen_chunk`), in ms."""
+    spans = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    calls = sorted((e for e in spans if e["name"] == "generate"), key=lambda e: e["ts"])
+    out: Dict[int, Dict[str, float]] = {}
+    for e in spans:
+        if e["name"] != "gen_chunk":
+            continue
+        outer = [c for c in calls if c["ts"] <= e["ts"] and e["ts"] + e["dur"] <= c["ts"] + c["dur"]]
+        row = out.setdefault(int(e["args"]["b"]), {"calls": 0, "burst_ms": 0.0, "setup_ms": 0.0})
+        row["calls"] += 1
+        row["burst_ms"] += e["dur"] / 1e3
+        row["setup_ms"] += (outer[-1]["dur"] - e["dur"]) / 1e3 if outer else 0.0
+    for row in out.values():
+        row["burst_ms"] /= row["calls"]
+        row["setup_ms"] /= row["calls"]
+    return out
+
+
 def check_overlap(cfg, device, fileroot: str, n_long: int = 48, n_short: int = 16,
                   group_n: int = 2, max_new_tokens: int = 64) -> List[str]:
     """The barrier against the streamed executor, with trace-level stall
@@ -1370,6 +1392,11 @@ def check_overlap(cfg, device, fileroot: str, n_long: int = 48, n_short: int = 1
     if uneven:
         failures.append(f"builds or launches a step differ between the {n_l}-step and the "
                         f"{n_s}-step overlapped runs: {uneven}")
+    # The generate stage's cost by burst size (the split behind fault 4).
+    for leg, tr in (("window=1", tr_ser), ("window=3", tr_ovl)):
+        split = {b: {k: round(v, 2) for k, v in row.items()}
+                 for b, row in sorted(generate_split(tr).items())}
+        print(f"generate split, {leg}, by burst rows: {split}")
     _print("overlap", failures,
            f"window=1 == barrier exactly over {len(s_bar)} steps (max param diff {diff}); "
            f"steady step {wall_bar:.3f}s -> {wall_ovl:.3f}s "

@@ -1021,7 +1021,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="areal_tpu_torch.system.gen_server")
     p.add_argument("--path", required=True, help="HF checkpoint dir")
     p.add_argument("--parallel", default="d1",
-                   help="only d1 (ROADMAP queue 1 item 8: other layouts)")
+                   help="only d1 (ROADMAP queue 1 item 8.6b: generation on a sharded "
+                        "layout)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8091)
     p.add_argument("--eos-token-id", type=int, default=None)
@@ -1056,7 +1057,7 @@ def main(argv=None) -> None:
                          "transport)")
     if args.parallel != "d1":
         raise SystemExit(f"--parallel {args.parallel} is not yet ported (ROADMAP queue 1, "
-                         "item 8: multi-GPU); only d1 runs")
+                         "item 8.6b: generation on a sharded layout); only d1 runs")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     tracer.configure(role="gen_server", rank=args.port)

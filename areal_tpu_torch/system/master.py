@@ -100,7 +100,8 @@ until every worker is back, and a rollback of every worker to the last
 recover checkpoint, within the `max_recoveries` budget that quarantine
 rollbacks share.  A model over several workers (`model_groups`,
 replicas) and every layout other than d1 come with ROADMAP queue 1,
-item 8.
+items 8.6a (the trainer models over an SPMD worker group) and 8.6b
+(generation on a sharded layout).
 """
 
 import asyncio
@@ -297,7 +298,7 @@ class MasterWorker:
             raise ValueError(
                 f"placement names workers {outside} outside the pool's {pool.n_workers} "
                 "(each model lives on exactly one worker; a model over several workers "
-                "comes with ROADMAP queue 1, item 8)"
+                "comes with ROADMAP queue 1, item 8.6a)"
             )
         self.dfg = dfg
         self.pool = pool
@@ -904,7 +905,8 @@ class MasterWorker:
         the reference model, then a TRAIN node's gradient accumulation),
         `overlap_window` chunks in flight.  A lock per node keeps one
         engine's calls apart, so stages overlap across chunks, never
-        within one.  TRAIN nodes open a stream at their first chunk,
+        within one; a generate node runs the admitted chunks waiting on
+        it as one call.  TRAIN nodes open a stream at their first chunk,
         accumulate each chunk, and take their one optimizer step after
         the last; post-hooks (the weight sync) run once, after it.
         Window 1 runs the whole batch through the unchanged per-node
@@ -930,6 +932,14 @@ class MasterWorker:
         locks = {n.name: asyncio.Lock() for n in order}
         started: set = set()
         node_stats: Dict[str, List[Dict]] = {n.name: [] for n in order}
+        # A generate node serves every admitted chunk waiting on it in one
+        # call: a chunk that takes the node's lock takes the waiting
+        # chunks' prompts with its own (`waiting`), and they find their
+        # rollouts made (`served`).  The generate call's per-step host cost
+        # does not shrink with its rows, so one call for the window's
+        # chunks costs about what one chunk's call does.
+        waiting: Dict[str, Dict[int, List[str]]] = {n.name: {} for n in order}
+        served: Dict[str, set] = {n.name: set() for n in order}
 
         async def run_chunk(ci: int, chunk_ids: List[str]) -> None:
             async with sem:
@@ -937,7 +947,16 @@ class MasterWorker:
                     key = str(node.model_name)
                     worker = self.placement[key]
                     is_train = node.interface_type == ModelInterfaceType.TRAIN_STEP
+                    merge = node.interface_type == ModelInterfaceType.GENERATE
+                    waiting[node.name][ci] = chunk_ids
                     async with locks[node.name]:
+                        if merge:
+                            # One turn of the loop: the chunks the window
+                            # admitted with this one queue on the lock.
+                            await asyncio.sleep(0)
+                        del waiting[node.name][ci]
+                        if ci in served[node.name]:
+                            continue
                         if node.name not in started:
                             started.add(node.name)
                             for hook in node.pre_hooks:
@@ -947,9 +966,14 @@ class MasterWorker:
                                     "type": "mfc_stream_begin", "model_name": key,
                                     "mb_spec": node.mb_spec,
                                 })
-                        t0 = time.monotonic()
-                        with tracer.span(f"pipe:{node.name}", stage=node.name, chunk=ci,
-                                         n=len(chunk_ids)):
+                        call_ids, merged = list(chunk_ids), [ci]
+                        if merge:
+                            for cj in sorted(waiting[node.name]):
+                                call_ids += waiting[node.name][cj]
+                                merged.append(cj)
+                            served[node.name].update(merged)
+                        t0, t0_ns = time.monotonic(), time.monotonic_ns()
+                        try:
                             if is_train:
                                 await self._ensure_data(node, chunk_ids, worker)
                                 resp = await self.pool.request(worker, {
@@ -959,9 +983,15 @@ class MasterWorker:
                                     "mb_spec": node.mb_spec,
                                 })
                             else:
-                                resp = await self._dispatch_mfc(node, chunk_ids)
+                                resp = await self._dispatch_mfc(node, call_ids)
+                        finally:
+                            # Each chunk the call served occupied the stage
+                            # for the whole call: one span a chunk.
+                            for cj in merged:
+                                tracer.complete(f"pipe:{node.name}", t0_ns, stage=node.name,
+                                                chunk=cj, n=len(chunks[cj]), call_n=len(call_ids))
                         node_stats[node.name].append(resp.get("stats") or {})
-                        spans[node.name].append((t0, time.monotonic()))
+                        spans[node.name].extend((t0, time.monotonic()) for _ in merged)
             self._m_pipe_chunks.inc()
 
         await asyncio.gather(*[run_chunk(ci, c) for ci, c in enumerate(chunks)])

@@ -112,6 +112,23 @@ ppo          — two full PPO steps of ppo-math at qwen2-1.5B with all four
                than at step 1.  K1 launches per model call = 28 x its
                micro-batches (x (2, 1, 1) for a train step); each call's
                seconds, peak memory and the value-norm moments printed.
+sharded      — the trainer over a device mesh at qwen2-1.5B's width
+               (CUT_LAYERS layers, bf16): a real NCCL world of one rank
+               and a one-rank DeviceMesh (the card is one GPU; NCCL
+               takes no two ranks on one).  (a) The actor and the critic
+               as DTensors placed by the sharding rules take two PPO
+               train steps through PPOActorInterface / PPOCriticInterface
+               beside unsharded engines from the same weights on the same
+               batch: loss and grad norm within SHARDED_STAT_RTOL, the
+               params after both steps within SHARDED_PARAM_ATOL (and
+               whether bit for bit), every leaf placed by its rule, and
+               masked_moments through NCCL against numpy.  (b)
+               flash_attention_sharded's per-rank body for a model axis
+               of 2 (6q/1kv heads a rank): one launch of K1f, K1dq and
+               K1dkv a head shard, the shards concatenated against K1
+               over all heads and the plain version, and the two shards'
+               forward times.  (c) K1's launches: n_layers x (2, 1, 1) a
+               train call in (a), 2 of each form in (b).
 quickstart   — the system's own entry point at qwen2-1.5B: a seeded random
                checkpoint written by the port's save_hf_checkpoint (fp32,
                two shards and an index; free disk checked first), 64 math
@@ -468,7 +485,7 @@ import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
-          "train", "ppo", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
+          "train", "ppo", "sharded", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
           "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "families",
           "gemma", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -3435,6 +3452,285 @@ def phase_ppo(report, seed):
 
 
 # --------------------------------------------------------------------------
+# Phase: the trainer over a device mesh (ROADMAP queue 1, items 8.1-8.4)
+# --------------------------------------------------------------------------
+
+# The sharded engines against the unsharded ones on the same card: the
+# train step's stats within IMP_WEIGHT_TOL's scale, and the params after
+# two steps within one AdamW update of lr 2e-5.
+SHARDED_STAT_RTOL = 1e-3
+SHARDED_PARAM_ATOL = 2e-5
+
+
+def _sharded_rollout(rng, cfg, n_prompts, n):
+    """A post-rollout PPO batch (random tokens, logprobs near -1, values,
+    rewards +-5): what the actor's and the critic's train_step consume."""
+    import numpy as np
+
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    seqlens = [[int(rng.integers(64, 257)) + int(rng.integers(32, 129)) for _ in range(n)]
+               for _ in range(n_prompts)]
+    plens = [[int(rng.integers(16, 64)) for _ in range(n)] for _ in range(n_prompts)]
+    flat = [l for r in seqlens for l in r]
+    total, n_seqs = sum(flat), n_prompts * n
+    pmask = np.concatenate([np.arange(l) < p for r, pr in zip(seqlens, plens)
+                            for l, p in zip(r, pr)])
+    data = {
+        "packed_input_ids": rng.integers(0, cfg.vocab_size, total).astype(np.int32),
+        "prompt_mask": pmask,
+        "packed_logprobs": rng.normal(-1.0, 0.3, total - n_seqs).astype(np.float32),
+        "packed_ref_logprobs": rng.normal(-1.1, 0.3, total - n_seqs).astype(np.float32),
+        "values": rng.normal(0.0, 1.0, total).astype(np.float32),
+        "rewards": rng.choice([-5.0, 5.0], n_seqs).astype(np.float32),
+        "seq_no_eos_mask": np.zeros(n_seqs, np.float32),
+    }
+    return SequenceSample(
+        keys=set(data), ids=[f"q{i}" for i in range(n_prompts)],
+        seqlens={
+            "packed_input_ids": [list(r) for r in seqlens],
+            "prompt_mask": [list(r) for r in seqlens],
+            "values": [list(r) for r in seqlens],
+            "packed_logprobs": [[l - 1 for l in r] for r in seqlens],
+            "packed_ref_logprobs": [[l - 1 for l in r] for r in seqlens],
+            "rewards": [[1] * n] * n_prompts,
+            "seq_no_eos_mask": [[1] * n] * n_prompts,
+        },
+        data=data,
+    )
+
+
+def _sharded_train(cfg, mesh, seed):
+    """(a): the actor and the critic as DTensors placed by the rules take
+    two PPO train steps through PPOActorInterface / PPOCriticInterface,
+    beside unsharded engines from the same weights on the same batch."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import (
+        FinetuneSpec, GenerationHyperparameters, Model, OptimizerConfig,
+    )
+    from areal_tpu_torch.engines.train import TrainEngine, _leaves
+    from areal_tpu_torch.interfaces.ppo import PPOActorInterface, PPOCriticInterface
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.parallel import sharding
+
+    oc = OptimizerConfig(lr=2e-5, warmup_steps_proportion=0.0)
+    ft = FinetuneSpec(1, 64, 8)
+    mb = MicroBatchSpec()
+    rng = np.random.default_rng(seed + 41)
+    rollout = _sharded_rollout(rng, cfg, 8, 4)
+    n_mbs = len(rollout.split(mb))
+    logp_noise = {"packed_logprobs": 0.02, "packed_ref_logprobs": 0.05}
+    rec = {"launches": {"fwd": 0, "dq": 0, "dkv": 0}, "bitwise": True}
+    roles = (
+        ("actor", cfg, "actor_loss", lambda: PPOActorInterface(
+            gconfig=GenerationHyperparameters(n=4, max_new_tokens=128), n_minibatches=1,
+            disable_value=False, adv_norm=True, kl_ctl=0.1)),
+        ("critic", cfg.as_critic(), "value_loss", lambda: PPOCriticInterface(
+            n_minibatches=1, value_norm=True, value_norm_type="exp", kl_ctl=0.1)),
+    )
+    for i, (role, rcfg, loss_key, make_if) in enumerate(roles):
+        params = init_params(rcfg, seed + 42 + i, device="cuda")
+        plain = TrainEngine(rcfg, params, optimizer_config=oc, ftspec=ft, remat_policy="full")
+        shard = TrainEngine(rcfg, params, optimizer_config=oc, ftspec=ft, remat_policy="full",
+                            mesh=mesh)
+        del params
+        if role == "actor":
+            # Behaviour and ref logprobs near the policy's own, so the
+            # importance ratios are near 1 and the clipped loss has a
+            # gradient (random ones far from it clip every token).
+            for key, sd in logp_noise.items():
+                out = make_if().inference(Model(role, plain, None, rcfg), rollout, mb)
+                lp = out.data["logprobs"]
+                out.data["logprobs"] = (lp + rng.normal(0.0, sd, lp.shape)).astype(np.float32)
+                out.remap_keys_({"logprobs": key})
+                rollout.update_(out)
+        want = sharding.param_placements(plain.params, mesh)
+        for name, p in _leaves(shard.params):
+            check(isinstance(p, DTensor) and p.is_cuda and tuple(p.placements)
+                  == tuple(dict(_leaves(want))[name]), f"{role} {name}: not placed by its rule")
+        ifs = {"plain": make_if(), "sharded": make_if()}
+        models = {"plain": Model(role, plain, None, rcfg), "sharded": Model(role, shard, None, rcfg)}
+        for step in range(2):
+            outs = {}
+            for tag in ("plain", "sharded"):
+                torch.cuda.synchronize()
+                fa.reset_launches()
+                t0 = time.monotonic()
+                outs[tag] = ifs[tag].train_step(models[tag], rollout, mb)
+                torch.cuda.synchronize()
+                rec[f"{role}_{tag}_step{step + 1}_s"] = time.monotonic() - t0
+                _k1_check(f"[sharded] {role} {tag} step {step + 1}", dict(fa.LAUNCHES),
+                          rcfg.n_layers, n_mbs, train=True)
+                if tag == "sharded":
+                    for k in rec["launches"]:
+                        rec["launches"][k] += fa.LAUNCHES[k]
+            p, s = outs["plain"], outs["sharded"]
+            for key in (loss_key, "grad_norm"):
+                # The actor loss is a cancelling sum near 0: relative to
+                # max(|loss|, 1).
+                scale = max(abs(p[key]), 1.0 if key == loss_key else 1e-30)
+                rel = abs(s[key] - p[key]) / scale
+                rec[f"{role}_step{step + 1}_{key}_rel"] = rel
+                rec["bitwise"] &= s[key] == p[key]
+                log(f"[sharded] {role} step {step + 1}: {key} sharded={s[key]!r} "
+                    f"unsharded={p[key]!r} rel={rel:.3e} (tolerance {SHARDED_STAT_RTOL:g})")
+                check(np.isfinite(s[key]) and rel <= SHARDED_STAT_RTOL,
+                      f"{role} step {step + 1}: sharded {key} disagrees")
+        with torch.no_grad():
+            diff = max(float((a.full_tensor().float() - b.float()).abs().max())
+                       for (_, a), (_, b) in zip(_leaves(shard.params), _leaves(plain.params)))
+        rec[f"{role}_param_max_abs_diff"] = diff
+        rec["bitwise"] &= diff == 0.0
+        log(f"[sharded] {role} params after two steps: max |sharded - unsharded| = {diff:.3e} "
+            f"(tolerance {SHARDED_PARAM_ATOL:g})")
+        check(diff <= SHARDED_PARAM_ATOL, f"{role}: sharded params disagree after two steps")
+        if role == "actor":
+            # masked_moments through NCCL's all-reduce, against the
+            # unsharded engine and numpy.
+            vals = np.asarray(rollout.data["values"], np.float64)
+            mask = np.asarray(rollout.data["prompt_mask"], np.float32) < 0.5
+            probe = SequenceSample(
+                keys={"packed_input_ids", "values", "loss_mask"}, ids=list(rollout.ids),
+                seqlens={k: rollout.seqlens["packed_input_ids"]
+                         for k in ("packed_input_ids", "values", "loss_mask")},
+                data={"packed_input_ids": rollout.data["packed_input_ids"],
+                      "values": rollout.data["values"], "loss_mask": mask.astype(np.float32)},
+            )
+            got = shard.masked_moments(probe, mb, ("values",))
+            ref = plain.masked_moments(probe, mb, ("values",))
+            v = vals[mask]
+            oracle = np.array([v.sum(), (v * v).sum(), np.abs(v).sum()])
+            err = float(np.max(np.abs(got["values"] - oracle) / np.abs(oracle)))
+            rec["moments_rel_err"] = err
+            log(f"[sharded] masked_moments over NCCL: count {got['count']:.0f} (numpy "
+                f"{mask.sum()}), [sum, sum sq, abs sum] {got['values'].tolist()} against "
+                f"numpy rel {err:.2e}, the unsharded engine's equal: "
+                f"{bool(np.array_equal(got['values'], ref['values']))}")
+            check(got["count"] == mask.sum() and err <= 1e-5,
+                  "masked_moments over the mesh disagrees with numpy")
+        del plain, shard, models
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _sharded_heads(seed):
+    """(b): flash_attention_sharded's per-rank body for a model axis of
+    2 (each head shard one launch of K1f, K1dq and K1dkv) concatenated
+    against K1 over all heads and against the plain version."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from areal_tpu_torch.kernels import flash_attention as fa
+    from areal_tpu_torch.ops.attention import make_packed_mask, packed_attention_reference
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 43)
+    b, s, hq, hkv, d, m = 4, 2048, 12, 2, 128, 2
+    seg_np, lens = _packed_rows(rng, b, s)
+    seg = torch.from_numpy(seg_np).to(dev)
+    q, k, v, do = (
+        torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, torch.bfloat16)
+        for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d))
+    )
+
+    def run(qq, kk, vv, dd):
+        qq, kk, vv = (x.detach().clone().requires_grad_(True) for x in (qq, kk, vv))
+        o = fa.flash_attention(qq, kk, vv, seg)
+        o.backward(dd)
+        return o.detach(), qq.grad, kk.grad, vv.grad
+
+    def heads(x, j):  # rank j's contiguous slice of x's heads (Shard(2) over m)
+        h = x.shape[2] // m
+        return x[:, :, j * h: (j + 1) * h]
+
+    full = run(q, k, v, do)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    parts = [run(*(heads(x, j) for x in (q, k, v, do))) for j in range(m)]
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    check(launches == {"fwd": m, "dq": m, "dkv": m},
+          f"head shards: K1 launches {launches}, want {m} of each form")
+    got = [torch.cat([p[i] for p in parts], dim=2) for i in range(4)]
+    names = ("o", "dq", "dk", "dv")
+    bitwise = {n: bool(torch.equal(g, f)) for n, g, f in zip(names, got, full)}
+    vs_full = {n: _row_err(g, f)[0] for n, g, f in zip(names, got, full)}
+    plain = packed_attention_reference(q.float(), k.float(), v.float(), seg)
+    rel, err = _row_err(got[0], plain)
+    log(f"[sharded] head shards (m={m}: {hq // m}q/{hkv // m}kv a rank) concatenated "
+        f"against K1 over all heads: bit for bit {bitwise}, row_err {vs_full} (tolerance "
+        f"{FLASH_ROW_TOL['bf16']:.3e}); o against the plain version: row_err={rel:.3e}")
+    check(max(vs_full.values()) <= FLASH_ROW_TOL["bf16"] and rel <= FLASH_ROW_TOL["bf16"],
+          "the head shards disagree with K1 over all heads")
+    seg32 = seg.to(torch.int32).contiguous()
+    shards = [tuple(heads(x, j).contiguous() for x in (q, k, v)) for j in range(m)]
+
+    def sharded_fwd():
+        return [fa.flash_fwd(*sh, seg32, True) for sh in shards]
+
+    mask = make_packed_mask(seg)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    times = timings(
+        sharded_fwd, lambda: packed_attention_reference(q, k, v, seg),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True),
+        iters=10)
+    bound = _flash_bounds(lens, b, s, hq, hkv, d, 2)["fwd"]
+    log(f"[sharded] K1f over 2 head shards (both ranks' bodies, one card): "
+        f"kernel_ms={times['kernel_ms']:.4f} plain_ms={times['plain_ms']:.4f} "
+        f"library_ms={times['library_ms']:.4f} (device, graph replays); eager "
+        f"kernel={times['kernel_eager_ms']:.4f}; bound_ms={bound[0]:.5f} ({bound[1]})")
+    return dict(launches=launches, bitwise=bitwise, row_err_vs_full=vs_full, row_err=rel,
+                max_abs_err=err, times=times, bound=bound)
+
+
+def phase_sharded(report, seed):
+    """The trainer over a device mesh at qwen2-1.5B's width (CUT_LAYERS
+    layers, bf16 compute): a real NCCL world of one rank and a one-rank
+    DeviceMesh; (a) the sharded actor and critic against unsharded
+    engines over two PPO train steps, masked_moments through NCCL;
+    (b) flash_attention_sharded's per-rank body for a model axis of 2;
+    (c) K1's launches counted exactly."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from areal_tpu_torch.base import distributed, network
+    from areal_tpu_torch.base.topology import ParallelConfig, make_mesh
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
+    distributed.initialize("chip_smoke", "sharded", 0, 1, device="cuda",
+                           init_method=f"tcp://127.0.0.1:{network.find_free_port()}")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"world: {dist.get_backend()} x {dist.get_world_size()}")
+        mesh = make_mesh(ParallelConfig(), device="cuda")
+        log(f"[sharded] NCCL world of 1 rank, mesh {mesh}; qwen2-1.5b at {cfg.n_layers} "
+            f"layers ({cfg.n_q_heads}q/{cfg.n_kv_heads}kv heads, head_dim {cfg.head_dim})")
+        t0 = time.monotonic()
+        a = _sharded_train(cfg, mesh, seed)
+        a["s"] = time.monotonic() - t0
+        log(f"[sharded] (a) {a['s']:.1f} s; K1 launches of the sharded engines {a['launches']} "
+            f"(= {cfg.n_layers} layers x (2, 1, 1) x 4 train calls); bit for bit against "
+            f"the unsharded engines: {a['bitwise']}")
+        t0 = time.monotonic()
+        b = _sharded_heads(seed)
+        b["s"] = time.monotonic() - t0
+    finally:
+        distributed.shutdown()
+    report["sharded"] = {"train": a, "heads": b}
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
 # quickstart: the system's own entry point
 # --------------------------------------------------------------------------
 
@@ -3663,15 +3959,17 @@ def _record_trial_steps(wrap, rec, cur):
     wrap(TrainEngine, "train_batch", on_train_batch)
 
 
-def _check_step_launches(tag, step, st, nodes, n_layers, max_new, gen_chunks=1):
+def _check_step_launches(tag, step, st, nodes, n_layers, max_new, gen_chunks=(1, 1)):
     """A step's launches (st: one record of _record_trial_steps) against
     the launches each MFC of the DFG `nodes` must make, from the engines'
     own calls: generate one prefill (K1f) a static chunk and one K4 a
     decode step; ref_inf one K1f a forward micro-batch; each train_batch
     (or streamed chunk) of actor_train two forwards (remat "full"), one
     dq and one dkv a micro-batch.  K2 and K3 (the serving plane) run no
-    time.  Generation takes `gen_chunks` static chunks (one a pipeline
-    chunk), the K1f launches of every thread summed."""
+    time.  Generation takes between gen_chunks[0] and gen_chunks[1]
+    static chunks (the streamed step's generate node serves the pipeline
+    chunks waiting on it in one burst), the K1f launches of every thread
+    summed."""
     from areal_tpu_torch.api.config import ModelInterfaceType
 
     L = n_layers
@@ -3692,8 +3990,9 @@ def _check_step_launches(tag, step, st, nodes, n_layers, max_new, gen_chunks=1):
         f"{st['ref_fwd_mbs']} ref micro-batch(es), {len(st['train_calls'])} minibatch "
         f"train_batch call(s) of {train_mbs} micro-batch(es))")
     check(st["launches"] == want, f"{tag} step {step}: launches {st['launches']} != {want}")
-    check(st["gen_chunks"] == gen_chunks
-          and gen_chunks <= st["decode_steps"] <= gen_chunks * (max_new - 1),
+    lo, hi = gen_chunks
+    check(lo <= st["gen_chunks"] <= hi
+          and st["gen_chunks"] <= st["decode_steps"] <= st["gen_chunks"] * (max_new - 1),
           f"{tag} step {step}: generate took {st['gen_chunks']} static chunks, "
           f"{st['decode_steps']} decode steps")
 
@@ -4287,7 +4586,8 @@ def phase_overlap(report, seed):
     --pipeline-overlap --overlap-window 1 (its train stats and the actor's
     weights after each step equal the barrier's bit for bit), and
     --overlap-window 2 --pipeline-chunk-seqs 2 (4 chunks of 8 requests,
-    each generated as its own static burst; stream begin, 4 chunks of
+    generated in 2 to 4 static bursts, the chunks waiting on the generate
+    node sharing one; stream begin, 4 chunks of
     gradient accumulation and one optimizer step: importance weight 1,
     approx-KL 0 and a loss within OVERLAP_LOSS_TOL of 0).  Each step's
     launches equal L x the engines' calls summed over the MFCs of all
@@ -4397,8 +4697,10 @@ def phase_overlap(report, seed):
                       f"{mode} step {i + 1}: non-finite stats "
                       f"{[k for k, v in s.items() if not math.isfinite(v)]}")
                 check(s["actor_train/quarantined"] == 0.0, f"{mode} step {i + 1} quarantined")
+                # Window 2 admits two chunks at a time, so the generate
+                # node serves the four in two to four bursts.
                 _check_step_launches(f"[overlap] {mode}", i + 1, st, rec["plan_nodes"], L, max_new,
-                                     gen_chunks=chunks)
+                                     gen_chunks=(2, 4) if mode == "window2" else (1, 1))
                 pipe = {k[len("pipeline/"):]: v for k, v in s.items() if k.startswith("pipeline/")}
                 if mode != "barrier":
                     check(pipe.get("n_chunks") == chunks,
@@ -6168,7 +6470,7 @@ def _async_ahead(report, seed, cfg, ckpt, data, work):
         check(all(math.isfinite(v) for v in s.values()), f"(a) step {i + 1}: non-finite stats")
         check(s["actor_train/quarantined"] == 0.0, f"(a) step {i + 1} was quarantined")
         _check_step_launches("[async] (a)", i + 1, st, nodes, cfg.n_layers, max_new,
-                             gen_chunks=(2, 1, 0)[i])
+                             gen_chunks=((2, 2), (1, 1), (0, 0))[i])
         walls.append(s["time/step_s"])
     check(total == {k: sum(st["launches"][k] for st in rec["steps"]) for k in total},
           f"(a) launches outside the steps: {total}")
@@ -10850,6 +11152,8 @@ def _kernels_line(report):
             "bf16q_int8_bound_ms": k8["bound_ms"], "bf16q_int8_bound_by": k8["bound_by"],
         })
     f = report.get("flash", {})
+    sh_train = report.get("sharded", {}).get("train", {})
+    sh_heads = report.get("sharded", {}).get("heads", {})
     train = report.get("train", {})
     launches = train.get("launches", {})
     ppo_launches = report.get("ppo", {}).get("launches", {})
@@ -10881,6 +11185,8 @@ def _kernels_line(report):
             "launches_supervisor": sv_launches.get(name),
             "launches_chaos": ch_launches.get(name),
             "launches_families": fm_launches.get(name),
+            "launches_sharded": sh_train.get("launches", {}).get(name),
+            "launches_sharded_heads": sh_heads.get("launches", {}).get(name),
             "row_err_families": _worst(fm_holds.get(f"{m}_flash_{o}_row")
                                        for m in ("mixtral", "gpt2") for o in outputs[name]),
             "max_abs_err": _worst(errs.get(f"bf16_{o}") for o in outputs[name]),
@@ -10908,6 +11214,29 @@ def _kernels_line(report):
             entry["lse_err_edges"] = _worst(errs.get(f"edges_{d}_lse") for d in ("bf16", "fp32"))
             entry["lse_err_model"] = errs.get("bf16_lse_model")
         kernels.append(entry)
+    t = sh_heads.get("times", {})
+    bound = sh_heads.get("bound", (None, None))
+    kernels.append({
+        "name": "flash_attention_sharded",
+        "route": "cuda",
+        "source": "areal_tpu_torch/kernels/flash_attention.py",
+        "replaces": "areal_tpu/ops/pallas/flash_attention.py:483",
+        "launches": sh_heads.get("launches", {}).get("fwd"),
+        "launches_by_form": sh_heads.get("launches"),
+        "launches_train": sh_train.get("launches"),
+        "max_abs_err": sh_heads.get("max_abs_err"),
+        "row_err": sh_heads.get("row_err"),
+        "row_err_vs_full_heads": sh_heads.get("row_err_vs_full"),
+        "bit_for_bit_vs_full_heads": sh_heads.get("bitwise"),
+        "ms": t.get("kernel_ms"),
+        "eager_ms": t.get("kernel_eager_ms"),
+        "plain_ms": t.get("plain_ms"),
+        "plain_eager_ms": t.get("plain_eager_ms"),
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
+        "library_ms": t.get("library_ms"),
+        "library_eager_ms": t.get("library_eager_ms"),
+    })
     k3 = report.get("k3", {})
     errs = k3.get("max_abs_err", {})
     kernels.append({
@@ -11187,6 +11516,7 @@ def main() -> int:
         "resume_parity": lambda: phase_resume_parity(report, args.seed),
         "train": lambda: phase_train(report, args.seed),
         "ppo": lambda: phase_ppo(report, args.seed),
+        "sharded": lambda: phase_sharded(report, args.seed),
         "quickstart": lambda: phase_quickstart(report, args.seed),
         "sft": lambda: phase_sft(report, args.seed),
         "overlap": lambda: phase_overlap(report, args.seed),

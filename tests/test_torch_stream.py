@@ -210,6 +210,28 @@ def test_window_one_is_the_barrier_bit_for_bit(tmp_path, ckpt):
                 np.testing.assert_array_equal(gw[m][k], ww[m][k], err_msg=f"{m} {k}")
 
 
+def test_waiting_chunks_share_one_generate_call(tmp_path, ckpt, monkeypatch):
+    """Window 2 admits both chunks of a step at once, so the generate
+    node serves them in one static burst (its rows both chunks'), while
+    the stream still takes two chunks a step."""
+    from areal_tpu_torch.engines.generator import GeneratorEngine
+
+    rows = []
+    orig = GeneratorEngine._static_program
+
+    def counted(self, prompt_tok, *args, **kw):
+        rows.append(prompt_tok.shape[0])
+        return orig(self, prompt_tok, *args, **kw)
+
+    monkeypatch.setattr(GeneratorEngine, "_static_program", counted)
+    _, tcfg = _configs(tmp_path, ckpt, pipeline_overlap=True, overlap_window=2,
+                       pipeline_chunk_seqs=2)
+    stats, _ = _run_port(tcfg)
+    assert len(stats) == 2 and rows == [8, 8]  # 2 chunks x 2 prompts x n=2, a step
+    for s in stats:
+        assert s["pipeline/n_chunks"] == 2.0 and s["actor_train/n_stream_chunks"] == 2.0
+
+
 def test_window_two_matches_jax(tmp_path, ckpt):
     """Window 2, two prompts a chunk (two chunks a step) through both
     packages' streamed step: the graded tokens equal chunk by chunk, both
