@@ -51,6 +51,13 @@ class MFCDef:
     mb_spec: MicroBatchSpec = dataclasses.field(default_factory=MicroBatchSpec)
     pre_hooks: List = dataclasses.field(default_factory=list)
     post_hooks: List = dataclasses.field(default_factory=list)
+    # Input keys the master ships shard-exactly to an SPMD group whose
+    # mesh splits the batch over its processes: each member receives only
+    # the rows it places (`system/master.py _dispatch_mfc`), the others'
+    # rows zero-filled from the metadata.  A key whose values feed
+    # batch-global host logic (prompt_mask, the rewards) stays broadcast,
+    # as does every key when this is empty.
+    shard_keys: Tuple[str, ...] = ()
 
     # Filled by build_graph:
     children: List["MFCDef"] = dataclasses.field(default_factory=list, repr=False)

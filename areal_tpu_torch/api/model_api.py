@@ -10,7 +10,7 @@ import json
 import os
 import urllib.error
 import urllib.request
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.models.config import ModelConfig
@@ -343,6 +343,20 @@ class Model:
 
     def inc_version(self):
         self.version += 1
+
+
+def data_shard_info(engine) -> Tuple[int, int]:
+    """(shard_rank, n_shards) of the batch rows this process places for
+    `engine`: the master's shard-exact dispatch ships an SPMD group
+    member only its own row block when n_shards > 1.  An engine without a
+    device mesh (or whose mesh does not split the batch) reports (0, 1),
+    "ship me everything"."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return (0, 1)
+    from areal_tpu_torch.base.topology import local_batch_shard
+
+    return local_batch_shard(mesh)
 
 
 ALL_INTERFACES: Dict[str, type] = {}

@@ -4,7 +4,9 @@ Two ways to run a plan:
 - `run_experiment_inproc(plan)`: every worker in this process
   (`experiments/common.run_experiment`: an `InProcessPool`, the workers
   joined by `InProcTransfer`).
-- `run_experiment(plan)`: one worker process a `WorkerConfig`, started by
+- `run_experiment(plan)`: one worker process a `WorkerConfig` (an SPMD
+  worker group's members each one, rank r on card r; model replicas
+  are independent processes and may share a card), started by
   the local scheduler (`python -m areal_tpu_torch.apps.worker`, through
   subprocess: fork then exec, never a bare fork of a process whose CUDA
   is initialised), the master in this process over a `ConnWorkerPool`.
@@ -58,6 +60,8 @@ def make_master(plan: ExperimentPlan, pool) -> MasterWorker:
         fileroot=plan.fileroot,
         experiment_name=plan.experiment_name,
         trial_name=plan.trial_name,
+        model_groups=plan.model_groups,
+        model_replicas=plan.model_replicas,
         difficulty_filter=plan.difficulty_filter,
         max_recoveries=plan.max_recoveries,
         max_consecutive_quarantines=plan.max_consecutive_quarantines,
@@ -199,12 +203,15 @@ def run_experiment(
         metrics_server = metrics.MetricsServer(
             announce=(plan.experiment_name, plan.trial_name, "master")
         )
+        # A fresh rendezvous key an attempt: a worker group's members must
+        # never meet at an earlier attempt's (or run's) stale address.
+        rendezvous = f"attempt{attempt}-{os.urandom(4).hex()}"
         for i in range(len(plan.worker_configs)):
             sched.submit(f"model_worker/{i}", [
                 sys.executable, "-m", "areal_tpu_torch.apps.worker",
                 "--config", plan_dir, "--index", str(i),
                 "--experiment", plan.experiment_name, "--trial", plan.trial_name,
-                "--device", dev,
+                "--device", dev, "--rendezvous", rendezvous,
             ], env=(worker_envs or {}).get(i))
         try:
             stats = asyncio.run(_run_master(plan, sched, on_finish, timeline))

@@ -10,6 +10,13 @@
         --tokenizer-path char:151936 --ref-path /ckpts/qwen2-1.5b --kl-ctl 0.1 \\
         --pipeline-overlap --overlap-window 2 --pipeline-chunk-seqs 2
 
+`--allocation` lays the trainer models over the devices: above d1 each
+device is a worker process of its own, one card a process, the ranks
+of one `torch.distributed` world (the SPMD worker group), so the trial
+runs on the multi-process runtime; `ppo-math`'s generator then runs one
+engine a rank over its own prompts.  A model axis above 1 for
+`ppo-math`, and `--gen-allocation`, come with item 8.6b.
+
 The flags are the JAX package's, and `--config <yaml>` sets their
 defaults from a file (keys spelled as the flags, e.g. `model.path`,
 `batch-size`; flags on the command line win).  The trial runs on the
@@ -67,7 +74,9 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--dataset.path", dest="dataset_path", required=True,
                    help="jsonl dataset path")
     p.add_argument("--allocation", default="d1",
-                   help="parallel layout; the port runs d1 (one device)")
+                   help="parallel layout of the trainer models, e.g. d4, f4, d2m2 (sft): "
+                        "above d1, one worker process a card (the SPMD worker group, the "
+                        "multi-process runtime)")
     p.add_argument("--chip", default="v5e", help="not yet ported")
     p.add_argument("--search-devices", type=int, default=None, help="not yet ported")
     p.add_argument("--tokenizer-path", default=None,
@@ -242,10 +251,19 @@ def _refuse_unported(defaults, args) -> None:
         if url.strip() and not url.strip().startswith(("http://", "https://")):
             raise SystemExit(f"--gen-server-url {url.strip()}: only http:// is ported "
                              "(ROADMAP queue 1, item 7.8: the ZMQ transport)")
-    if args.allocation != "d1":
-        raise SystemExit(f"--allocation {args.allocation}: only d1 (one device) is ported "
-                         "(ROADMAP queue 1, item 8.6a: the trainer models over an SPMD "
-                         "worker group)")
+    if args.exp == "ppo-math" and _layout(args).model > 1:
+        raise SystemExit(f"--allocation {args.allocation}: a model axis above 1 for ppo-math "
+                         "is not yet ported (ROADMAP queue 1, item 8.6b: generation on a "
+                         "sharded layout)")
+
+
+def _layout(args):
+    from areal_tpu_torch.base.topology import ParallelConfig
+
+    try:
+        return ParallelConfig.from_str(args.allocation)
+    except ValueError as e:
+        raise SystemExit(f"--allocation {args.allocation}: {e}")
 
 
 def _apply_yaml_config(parser: argparse.ArgumentParser, argv):
@@ -297,7 +315,7 @@ def _run(plan, args, device):
 
     for wc in plan.worker_configs:
         wc.tokenizer_path = args.tokenizer_path or args.model_path
-    if args.multiprocess:
+    if args.multiprocess or plan.model_groups:
         stats = runner.run_experiment(plan, recover_retries=args.recover_retries, device=device)
     else:
         stats = runner.run_experiment_inproc(plan, device=device)
@@ -311,6 +329,8 @@ def cmd_sft(args, device=None):
         dataset=DatasetAbstraction(
             "prompt_answer", {"dataset_path": args.dataset_path, "max_length": args.max_seqlen}
         ),
+        n_hosts=_layout(args).world_size,
+        parallel=_layout(args),
         optimizer=OptimizerConfig(lr=args.lr),
         batch_size=args.batch_size,
         total_train_epochs=args.epochs,
@@ -371,6 +391,7 @@ def cmd_ppo_math(args, device=None):
         },
         fuse_rew_ref=args.fuse_rew_ref,
         dataset=DatasetAbstraction("math_code_prompt", {"dataset_path": args.dataset_path}),
+        actor_parallel=_layout(args),
         optimizer=OptimizerConfig(lr=args.lr),
         gconfig=GenerationHyperparameters(
             n=args.group_size, max_new_tokens=args.max_new_tokens,

@@ -18,6 +18,13 @@ passes `--device cpu`: a worker never moves to the CPU because it found
 no card.  Besides the built-in control commands, the worker answers
 `runtime_stats`: its pid, device, kernel launch counts and peak device
 memory.
+
+A member of an SPMD worker group (`WorkerConfig.dist_num_processes` >
+0) first joins the group's `torch.distributed` world
+(`base/distributed.initialize`, the rendezvous key tagged with the
+launch attempt's `--rendezvous`, the collective timeout the plan's
+`mfc_timeout_s`): NCCL on the card, whose rank r drives `cuda:<r>`, gloo
+on the CPU.  It leaves the world on exit.
 """
 
 import argparse
@@ -56,6 +63,8 @@ def main(argv=None):
     p.add_argument("--experiment", required=True)
     p.add_argument("--trial", required=True)
     p.add_argument("--device", default="cuda", help="torch device the models live on")
+    p.add_argument("--rendezvous", default="",
+                   help="the launch attempt's tag of the worker group's rendezvous key")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s worker{args.index} %(name)s: %(message)s")
@@ -77,7 +86,22 @@ def main(argv=None):
     )
     with open(os.path.join(args.config, f"worker_{args.index}.pkl"), "rb") as f:
         config = pickle.load(f)
-    seeding.set_random_seed(config.seed, config.worker_index)
+    # The ranks of a group seed alike (ModelWorker._setup does too).
+    seeding.set_random_seed(config.seed, config.worker_index - config.dist_process_id)
+    if config.dist_num_processes > 0:
+        # A member of an SPMD worker group: one rank of the group's world,
+        # NCCL on its own card (cuda:<rank>), gloo on the CPU; the models'
+        # device is resolved after `set_device`.
+        from areal_tpu_torch.base import distributed
+
+        distributed.initialize(
+            args.experiment, args.trial, config.dist_process_id, config.dist_num_processes,
+            device=device, timeout=config.dist_timeout_s or 300.0, rendezvous=args.rendezvous,
+        )
+        if device.type == "cuda":
+            import torch
+
+            device = torch.device("cuda", torch.cuda.current_device())
     control = WorkerServer(args.experiment, args.trial, f"model_worker/{args.index}")
     transfer = ConnTransfer(args.experiment, args.trial, args.index)
     try:
@@ -91,6 +115,10 @@ def main(argv=None):
         transfer.close()
         control.stop()
         metrics_server.close()
+        if config.dist_num_processes > 0:
+            from areal_tpu_torch.base import distributed
+
+            distributed.shutdown()
     logger.info(f"worker {args.index} exiting")
 
 

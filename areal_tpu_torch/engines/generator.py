@@ -1069,6 +1069,7 @@ class GeneratorEngine:
             lanes = torch.arange(Wmax, device=dev)
             lane_ids = torch.arange(T, device=dev)
             zero = torch.zeros((), dtype=torch.long, device=dev)
+            layers = tfm.layer_views(params)
             if g.min_new_tokens > 0:
                 eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
             if K > 0:
@@ -1162,6 +1163,7 @@ class GeneratorEngine:
                 stream_pos = torch.where(lane_live, cache_len[rid] + qv, zero)
                 logits_pk, _ = tfm.decode_step_ragged_paged(
                     params, cfg, stream_tok, stream_pos, pool, page_table, row_of,
+                    layers=layers,
                 )  # [T, V]
                 # Next-step carry = each granted row's LAST lane logits;
                 # zero-lane rows keep theirs.
@@ -1861,7 +1863,7 @@ class GeneratorEngine:
     def _plain_decode_chunk(self, sig, n_slots: int, chunk_t: int,
                             g: GenerationHyperparameters, forward):
         """A plain (one token a row) decode chunk: chunk_t steps of sample
-        -> `forward(params, tokens, cache_len, kv, *aux)` on the device,
+        -> `forward(params, tokens, cache_len, kv, *aux, layers=)` on the device,
         done rows masked (they re-write their current position with EOS,
         past their window), the logits buffer carried in place.  The
         dense window and the two-program paged path differ only in
@@ -1874,6 +1876,7 @@ class GeneratorEngine:
                 out_logps = torch.zeros((n_slots, chunk_t), dtype=torch.float32, device=dev)
                 logits = logits_buf
                 eos_col = torch.arange(cfg.vocab_size, device=dev) == eos
+                layers = tfm.layer_views(params)
                 for t in range(chunk_t):
                     lg = logits
                     if g.min_new_tokens > 0:
@@ -1887,7 +1890,9 @@ class GeneratorEngine:
                     )
                     out_toks[:, t] = torch.where(done, -1, tok)
                     out_logps[:, t] = torch.where(done, 0.0, logp)
-                    logits, _ = forward(params, torch.where(done, eos, tok), cache_len, kv, *aux)
+                    logits, _ = forward(
+                        params, torch.where(done, eos, tok), cache_len, kv, *aux, layers=layers
+                    )
                     live = (~done).long()
                     done = done | (tok == eos)
                     cache_len = cache_len + live
@@ -1911,11 +1916,11 @@ class GeneratorEngine:
         build per window width."""
         cfg = self.cfg
 
-        def forward(params, tok, cache_len, cache):
+        def forward(params, tok, cache_len, cache, layers=None):
             return tfm.decode_step_inflight(
                 params, cfg, tok, cache_len, cache,
                 slots=torch.clamp(cache_len, max=s_max - 1),
-                valid_to=torch.clamp(cache_len + 1, max=s_max),
+                valid_to=torch.clamp(cache_len + 1, max=s_max), layers=layers,
             )
 
         return self._plain_decode_chunk(("inflight", s_max), n_slots, chunk_t, g, forward)
@@ -2079,6 +2084,7 @@ class GeneratorEngine:
                 rows = torch.arange(n_slots, device=dev)
                 qi = torch.arange(K + 1, device=dev)
                 pending = pending_buf
+                layers = tfm.layer_views(params)
                 for _ in range(n_steps):
                     drafts = propose_ngram(
                         tokens_buf[:, :buf_w], cache_len + 1, K, g.spec_ngram
@@ -2087,7 +2093,7 @@ class GeneratorEngine:
                     slots0 = torch.clamp(cache_len, max=s_max - 1 - K)
                     logits, _ = tfm.decode_step_spec(
                         params, cfg, torch.where(done[:, None], eos, inputs),
-                        slots0[:, None] + qi[None, :], cache, slots0,
+                        slots0[:, None] + qi[None, :], cache, slots0, layers=layers,
                     )  # [B, K+1, V]
                     pending, cache_len, gen_count, done, out_fill = _spec_emit(
                         cfg, g, eos, rows, logits, drafts, generator, pending,
@@ -2284,9 +2290,10 @@ class GeneratorEngine:
         Its shape depends only on the pool: one build per call."""
         cfg = self.cfg
 
-        def forward(params, tok, cache_len, pool, page_table):
+        def forward(params, tok, cache_len, pool, page_table, layers=None):
             return tfm.decode_step_paged(
-                params, cfg, tok, cache_len, pool, page_table, cache_len, cache_len + 1
+                params, cfg, tok, cache_len, pool, page_table, cache_len, cache_len + 1,
+                layers=layers,
             )
 
         return self._plain_decode_chunk(
@@ -2345,6 +2352,7 @@ class GeneratorEngine:
         counts [B])."""
         cfg, dev, eos = self.cfg, self.device, self.eos_token_id
         params = self.params
+        layers = tfm.layer_views(params)
         max_new = g.max_new_tokens
         b = prompt_tok.shape[0]
         tok_in = torch.from_numpy(prompt_tok).to(dev)
@@ -2382,7 +2390,7 @@ class GeneratorEngine:
                 all_done.copy_(done.all(), non_blocking=True)
                 flag_ready.record()
             logits, cache = tfm.decode_step(
-                params, cfg, tok, plen + step, cache, sp + step, valid_from
+                params, cfg, tok, plen + step, cache, sp + step, valid_from, layers=layers
             )
             self.static_decode_steps += 1
             if on_card:

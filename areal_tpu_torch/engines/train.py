@@ -216,12 +216,13 @@ def _train_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 
 def device_batch(arrays: Dict[str, np.ndarray], device, mesh=None) -> Dict[str, torch.Tensor]:
-    """A packed batch on `device` (on a mesh, this rank's own rows,
-    `parallel/sharding.local_rows`).  On the card each array goes through
-    pinned memory with a non-blocking copy, so moving a batch never
-    synchronises the host with the card (the step's one host read does)."""
+    """A packed batch on `device` (on a mesh, this rank's own rows: the
+    local blocks of `parallel/sharding.place_rows`).  On the card each
+    array goes through pinned memory with a non-blocking copy, so moving a
+    batch never synchronises the host with the card (the step's one host
+    read does)."""
     if mesh is not None:
-        arrays = {k: shd.local_rows(mesh, v) for k, v in arrays.items()}
+        return {k: shd.place_rows(mesh, v, device).to_local() for k, v in arrays.items()}
     if torch.device(device).type != "cuda":
         return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
     return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)

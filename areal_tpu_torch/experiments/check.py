@@ -55,14 +55,31 @@ def unported_options(cfg):
     """(option, ROADMAP item) for each option the config sets that the
     port does not have yet."""
     urls = [u.strip() for u in (cfg.gen_server_url or "").split(",") if u.strip()]
+    group = cfg.actor_parallel.world_size > 1
+    item_86b = "queue 1, item 8.6b (generation on a sharded layout)"
     checks = (
         (any(not u.startswith(("http://", "https://")) for u in urls),
          "gen_server_url other than http:// (the ZMQ transport)", "queue 1, item 7.8"),
-        (any(isinstance(w, list) for w in cfg.placement.values()),
-         "placement over several workers a model (model replicas)",
-         "queue 1, item 8.6a (the SPMD worker group)"),
+        (cfg.gen_parallel is not None, "gen_parallel (a generator layout of its own)", item_86b),
+        (cfg.actor_parallel.model > 1,
+         f"actor_parallel {cfg.actor_parallel.to_str()} (a model axis above 1: the "
+         "generator would run tensor-parallel)", item_86b),
+        (group and bool(urls),
+         "gen_server_url with a worker group (actor_parallel above one device)", item_86b),
     )
     return [(name, item) for bad, name, item in checks if bad]
+
+
+def check_layout(name: str, parallel, n_processes: int) -> None:
+    """A layout the worker group can run: one process a card, so a mesh
+    spans exactly the group's processes; pipe and seq come with item
+    8.5."""
+    from areal_tpu_torch.base.topology import check_ported
+
+    check_ported(parallel)
+    if parallel.world_size not in (1, n_processes):
+        _fail(f"{name} {parallel.to_str()} spans {parallel.world_size} devices, but the "
+              f"worker group has {n_processes} processes (one card a process)")
 
 
 def check_liveness(cfg) -> None:
@@ -114,6 +131,9 @@ def check_sft(cfg) -> None:
     check_liveness(cfg)
     check_anomaly(cfg)
     check_model_path("model", cfg.model)
+    if cfg.n_hosts < 1:
+        _fail(f"n_hosts must be >= 1, got {cfg.n_hosts}")
+    check_layout("parallel", cfg.parallel, cfg.n_hosts)
 
 
 def check_ppo_math(cfg) -> None:
@@ -201,9 +221,21 @@ def check_ppo_math(cfg) -> None:
         _fail("gen_backend_args/kv_paged/kv_page_size/kv_pool_pages/prefill_chunk_tokens/"
               "kv_share_prefix apply to the in-process GeneratorEngine and are ignored "
               "under gen_server_url (configure the generation server instead)")
-    for role, widx in cfg.placement.items():
-        if not isinstance(widx, int) or isinstance(widx, bool) or widx < 0:
-            _fail(f"placement[{role!r}] must be a worker index, got {widx!r}")
+    for role, where in cfg.placement.items():
+        ws = where if isinstance(where, list) else [where]
+        if not ws or any(not isinstance(w, int) or isinstance(w, bool) or w < 0 for w in ws):
+            _fail(f"placement[{role!r}] must be a worker index or a list of them (replicas), "
+                  f"got {where!r}")
+        if len(set(ws)) != len(ws):
+            _fail(f"placement[{role!r}] names a worker twice: {where!r}")
+    world = cfg.actor_parallel.world_size
+    for name, par in (("actor_parallel", cfg.actor_parallel),
+                      ("ref_parallel", cfg.ref_parallel or cfg.actor_parallel),
+                      ("critic_parallel", cfg.critic_parallel)):
+        check_layout(name, par, world)
+    if world > 1 and cfg.placement:
+        _fail("placement with a worker group (actor_parallel above one device): the group's "
+              "layout places the models")
     if cfg.dataset_filter:
         lo = cfg.dataset_filter.get("min_accuracy", 0.0)
         hi = cfg.dataset_filter.get("max_accuracy", 1.0)

@@ -19,12 +19,19 @@ step modes (a positive cap turns on decoupled PPO through
 weightless client of generation servers (`_remote_gen_shard`, the
 `remote_generator` backend), its weights pushed from disk after each
 train step (paused around the push with `inmem_weight_sync`).
-`placement` puts a model role on another worker (each model on exactly
-one; the datasets on worker 0), and `mfc_timeout_s` and
-`worker_heartbeat_s` reach the plan for the multi-process runtime
-(`apps/main.py run_experiment`).  The options the port does not
-have yet stay in `PPOMathConfig` with their "off" defaults and fail
-`check_ppo_math` when set (see `experiments/check.unported_options`).
+`placement` puts a model role on another worker (the datasets on
+worker 0), or with a list of workers makes it independent replicas
+(`model_replicas`: the master splits its forwards among them), and
+`mfc_timeout_s` and `worker_heartbeat_s` reach the plan for the
+multi-process runtime (`apps/main.py run_experiment`).  A layout above
+one device (`SFTConfig.n_hosts` with `parallel`, `PPOMathConfig.
+actor_parallel`) is an SPMD worker group, one process a card
+(`model_groups`): the trainer models on a mesh over its ranks, each
+`WorkerConfig` carrying its rank (`dist_process_id`) and the world's
+size, and ppo-math's generator one engine a member.  The options the
+port does not have yet stay in `PPOMathConfig` with their "off"
+defaults and fail `check_ppo_math` when set (see
+`experiments/check.unported_options`).
 """
 
 import asyncio
@@ -45,6 +52,7 @@ from areal_tpu_torch.api.model_api import (
     GenerationHyperparameters,
     OptimizerConfig,
 )
+from areal_tpu_torch.base.topology import ParallelConfig
 from areal_tpu_torch.system.master import ExperimentSaveEvalControl
 from areal_tpu_torch.system.worker import ModelShardSpec, WorkerConfig
 
@@ -84,12 +92,23 @@ class ExperimentPlan:
     # workers' heartbeat period.
     mfc_timeout_s: Optional[float] = None
     worker_heartbeat_s: float = 5.0
+    # Model key -> every worker of its SPMD group (one world, one card a
+    # member; group[0] the primary), and model key -> the workers holding
+    # its independent replicas (see system/master.py).  A group needs
+    # the multi-process runtime (apps/main.py run_experiment).
+    model_groups: Optional[Dict[str, List[int]]] = None
+    model_replicas: Optional[Dict[str, List[int]]] = None
 
 
 @dataclasses.dataclass
 class SFTConfig:
     model: ModelAbstraction
     dataset: DatasetAbstraction
+    # > 1: the model over this many worker processes, one card each, the
+    # ranks of one world (the SPMD worker group); `parallel` is its mesh
+    # over them, so its world size must equal n_hosts.
+    n_hosts: int = 1
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
     batch_size: int = 8
     total_train_epochs: int = 1
@@ -127,25 +146,36 @@ def build_sft(cfg: SFTConfig, tokenizer=None) -> ExperimentPlan:
         interface_type=ModelInterfaceType.TRAIN_STEP,
         interface_impl=sft_if,
         input_keys=("packed_input_ids", "prompt_mask"),
+        # The tokens feed the device only; prompt_mask stays broadcast
+        # (its host-side counts set the global loss weight).
+        shard_keys=("packed_input_ids",),
         n_seqs=cfg.batch_size,
         mb_spec=cfg.mb_spec,
     )
+    group = cfg.n_hosts > 1
     shard = ModelShardSpec(
         name=model_name, model=cfg.model,
         backend=ModelBackendAbstraction("train", _anomaly_backend_args(cfg)),
         interface=sft_if, optimizer=cfg.optimizer,
+        parallel=cfg.parallel if group else None,
     )
     ftspec = FinetuneSpec(total_train_epochs=cfg.total_train_epochs,
                           train_batch_size=cfg.batch_size)
-    worker = WorkerConfig(
-        worker_index=0, shards=[shard], datasets=[cfg.dataset], batch_size=cfg.batch_size,
-        seed=cfg.seed, ftspec=ftspec,
-    )
+    workers = [
+        WorkerConfig(
+            worker_index=w, shards=[shard], datasets=[cfg.dataset] if w == 0 else [],
+            batch_size=cfg.batch_size, seed=cfg.seed, ftspec=ftspec,
+            dist_process_id=w, dist_num_processes=cfg.n_hosts if group else 0,
+            dist_timeout_s=cfg.mfc_timeout_s,
+        )
+        for w in range(cfg.n_hosts)
+    ]
     cfg.ctrl.total_train_epochs = cfg.total_train_epochs
     return ExperimentPlan(
         dfg=build_graph([node]),
-        worker_configs=[worker],
+        worker_configs=workers,
         model_placement={str(model_name): 0},
+        model_groups={str(model_name): list(range(cfg.n_hosts))} if group else None,
         data_worker_ids=[0],
         ctrl=cfg.ctrl,
         experiment_name=cfg.experiment_name,
@@ -182,6 +212,17 @@ class PPOMathConfig:
     # reward_interface_args).
     reward_interface: Optional[ModelInterfaceAbstraction] = None
     critic_interface_args: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # The trainer models' layouts.  Above one device the actor's is a
+    # worker group, one process a card: the actor and the ref (and the
+    # critic, given the same world size) run on its mesh over the group,
+    # and the generator runs as one engine a member over its own prompts
+    # (replicas of the actor's gathered weights).  A model axis above 1,
+    # and gen_parallel, need generation on a sharded layout (ROADMAP
+    # queue 1, item 8.6b).
+    actor_parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    gen_parallel: Optional[ParallelConfig] = None  # None = the actor's
+    critic_parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+    ref_parallel: Optional[ParallelConfig] = None  # None = the actor's
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=lambda: OptimizerConfig(lr=2e-5)
     )
@@ -234,7 +275,10 @@ class PPOMathConfig:
     weight_push_checksum: bool = True
     # Model role -> worker index (e.g. {"actor_gen": 1, "reward": 1}: the
     # generator and the reward on a second worker, the data and param
-    # planes moving what crosses).  Roles not listed run on worker 0.
+    # planes moving what crosses), or a list of indices: independent
+    # replicas, the first the primary (e.g. {"ref": [0, 1]}: the ref's
+    # forwards split between two workers).  Roles not listed run on
+    # worker 0.
     placement: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # The pipeline-overlapped step: chunks of pipeline_chunk_seqs prompts
     # stream through generate -> reward/ref -> train grad accumulation,
@@ -394,6 +438,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             interface_type=ModelInterfaceType.INFERENCE,
             interface_impl=ModelInterfaceAbstraction("ppo_actor"),
             input_keys=("packed_input_ids",),
+            shard_keys=("packed_input_ids",),
             output_keys=("packed_ref_logprobs",),
             output_key_remap={"logprobs": "packed_ref_logprobs"},
             n_seqs=cfg.batch_size,
@@ -409,11 +454,19 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             interface_type=ModelInterfaceType.INFERENCE,
             interface_impl=critic_if,
             input_keys=("packed_input_ids", "prompt_mask"),
+            shard_keys=("packed_input_ids",),
             output_keys=("values",),
             n_seqs=cfg.batch_size,
             mb_spec=cfg.mb_spec,
         ))
         train_inputs.append("values")
+    # The train steps ship their per-token keys shard-exactly: per-row
+    # math reads only a member's own rows, and the batch-global moments
+    # (advantages, the ref KL, the value norm) come from reductions over
+    # the mesh.  prompt_mask and the per-sequence keys stay broadcast:
+    # every member derives the sequence layout from them.
+    heavy = ("packed_input_ids", "packed_logprobs", "packed_ref_logprobs", "values",
+             "dense_rewards")
     # After training, the generator takes the fresh weights.
     train_post_hooks = [ParamReallocHook(target=actor_gen)]
     if cfg.ref_ema_eta is not None:
@@ -430,6 +483,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         interface_type=ModelInterfaceType.TRAIN_STEP,
         interface_impl=actor_if,
         input_keys=tuple(train_inputs),
+        shard_keys=tuple(k for k in train_inputs if k in heavy),
         n_seqs=cfg.batch_size,
         mb_spec=cfg.mb_spec,
         post_hooks=train_post_hooks,
@@ -442,6 +496,7 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             interface_impl=critic_if,
             input_keys=("packed_input_ids", "prompt_mask", "packed_logprobs",
                         "seq_no_eos_mask", "rewards", "values"),
+            shard_keys=("packed_input_ids", "packed_logprobs", "values"),
             n_seqs=cfg.batch_size,
             mb_spec=cfg.mb_spec,
         ))
@@ -456,11 +511,19 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
             ("kv_share_prefix", cfg.kv_share_prefix),
         ) if v is not None
     }
+    # The worker group: the actor's layout over `world` processes.
+    world = cfg.actor_parallel.world_size
+    members = list(range(world))
+
+    def mesh_of(parallel: Optional[ParallelConfig]) -> Optional[ParallelConfig]:
+        parallel = parallel or cfg.actor_parallel
+        return parallel if world > 1 and parallel.world_size > 1 else None
+
     shards = [
         ModelShardSpec(
             name=actor, model=cfg.actor,
             backend=ModelBackendAbstraction("train", dict(train_backend_args)),
-            interface=actor_if, optimizer=cfg.optimizer,
+            interface=actor_if, optimizer=cfg.optimizer, parallel=mesh_of(cfg.actor_parallel),
         ),
         _remote_gen_shard(cfg, actor_gen, actor_if) if cfg.gen_server_url else ModelShardSpec(
             name=actor_gen, model=cfg.actor,
@@ -477,25 +540,46 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         shards.append(ModelShardSpec(
             name=ref, model=cfg.ref, backend=ModelBackendAbstraction("inference"),
             interface=fused_if if fuse else ModelInterfaceAbstraction("ppo_actor"),
+            parallel=mesh_of(cfg.ref_parallel),
         ))
     if critic is not None:
         shards.append(ModelShardSpec(
             name=critic, model=cfg.critic,
             backend=ModelBackendAbstraction("train", dict(train_backend_args)),
             interface=critic_if, optimizer=cfg.optimizer,
+            parallel=mesh_of(cfg.critic_parallel),
         ))
     ftspec = FinetuneSpec(total_train_epochs=cfg.total_train_epochs,
                           train_batch_size=cfg.batch_size)
-    placement = {str(s.name): int(cfg.placement.get(s.name.role, 0)) for s in shards}
-    n_workers = max(placement.values()) + 1
+    workers_of: Dict[str, List[int]] = {}
+    groups: Dict[str, List[int]] = {}
+    replicas: Dict[str, List[int]] = {}
+    for sh in shards:
+        key = str(sh.name)
+        if sh.parallel is not None:
+            workers_of[key] = groups[key] = list(members)
+        elif world > 1 and sh.name == actor_gen:
+            # One generator a member, over its own prompts, from the
+            # actor's gathered weights: no weights cross processes.
+            workers_of[key] = replicas[key] = list(members)
+        else:
+            where = cfg.placement.get(sh.name.role, 0)
+            workers_of[key] = [where] if isinstance(where, int) else list(where)
+            if len(workers_of[key]) > 1:
+                replicas[key] = list(workers_of[key])
+    placement = {k: ws[0] for k, ws in workers_of.items()}
+    n_workers = max(w for ws in workers_of.values() for w in ws) + 1
     worker_configs = [
         WorkerConfig(
             worker_index=w,
-            shards=[s for s in shards if placement[str(s.name)] == w],
+            shards=[sh for sh in shards if w in workers_of[str(sh.name)]],
             # The datasets live on worker 0; what other workers need moves
             # over the master's data plane.
             datasets=[cfg.dataset] if w == 0 else [],
             batch_size=cfg.batch_size, seed=cfg.seed, ftspec=ftspec,
+            dist_process_id=w if groups and w < world else 0,
+            dist_num_processes=world if groups and w < world else 0,
+            dist_timeout_s=cfg.mfc_timeout_s,
         )
         for w in range(n_workers)
     ]
@@ -509,6 +593,8 @@ def build_ppo_math(cfg: PPOMathConfig, tokenizer=None) -> ExperimentPlan:
         experiment_name=cfg.experiment_name,
         trial_name=cfg.trial_name,
         fileroot=cfg.fileroot,
+        model_groups=groups or None,
+        model_replicas=replicas or None,
         difficulty_filter=cfg.dataset_filter,
         max_recoveries=cfg.max_recoveries,
         max_consecutive_quarantines=cfg.max_consecutive_quarantines,
@@ -566,6 +652,11 @@ def run_experiment(plan: ExperimentPlan, tokenizer=None, device=None):
     from areal_tpu_torch.system.transfer import InProcTransfer
     from areal_tpu_torch.system.worker import ModelWorker
 
+    if plan.model_groups:
+        raise ValueError(
+            "a worker group runs one process a member (one card each): run the plan "
+            "with the multi-process runtime, apps/main.py run_experiment"
+        )
     # One process hosts everything: every span lands in the master's
     # shard (threads are its lanes); the dir is set before any component
     # configures the tracer.

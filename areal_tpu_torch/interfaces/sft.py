@@ -43,11 +43,17 @@ class SFTInterface(ModelInterface):
 
     def save(self, model: Model, save_dir: str) -> None:
         """An HF checkpoint dir of the engine's weights (a TrainEngine's
-        fp32 masters), in the model's own family."""
+        fp32 masters), in the model's own family.  On a worker group every
+        member gathers the leaves and rank 0 alone writes."""
+        from areal_tpu_torch.base.distributed import is_primary
         from areal_tpu_torch.models.hf import registry as hf
+        from areal_tpu_torch.system.worker import whole_params
 
+        params = whole_params(model.engine)
+        if getattr(model.engine, "mesh", None) is not None and not is_primary():
+            return
         hf.save_hf_checkpoint(
-            save_dir, model.config, model.engine.get_params(),
+            save_dir, model.config, params,
             model_type=hf.infer_model_type(model.config), tokenizer=model.tokenizer,
         )
         logger.info(f"saved checkpoint to {save_dir}")

@@ -18,13 +18,15 @@ the same C entry point combines their partials.
 `decode_attention_chunk_split_reference` is that arithmetic in plain
 PyTorch, for the tests and `chip_smoke.py`.
 
-On a CPU tensor the wrapper computes the plain version
-(`ops/attention.decode_attention_chunk` with every query live) over the
-span of the rows' windows; on a CUDA tensor it launches the kernel or
-raises — there is no fallback.
+On a CPU tensor the wrapper computes the plain version (the function of
+`ops/attention.decode_attention_chunk` with every query live) over the
+span of the rows' windows, as two batched matmuls under a mask that
+`decode_window` builds once for every layer of a decode step; on a CUDA
+tensor it launches the kernel or raises — there is no fallback.
 """
 
 import ctypes
+import dataclasses
 import functools
 import os
 from typing import Optional
@@ -36,7 +38,8 @@ from areal_tpu_torch.kernels.ragged_paged_attention import (
     check_aligned,
     check_paged_inputs,
 )
-from areal_tpu_torch.ops.attention import decode_attention_chunk, split_window_attention
+from areal_tpu_torch.ops.attention import NEG_INF, split_window_attention
+from areal_tpu_torch.ops.quant import kv_dequant
 
 SOURCE = os.path.join(build.CSRC_DIR, "decode_attention.cu")
 
@@ -78,6 +81,73 @@ def decode_attention_chunk_split_reference(
     )
 
 
+@dataclasses.dataclass
+class DecodeWindow:
+    """What the CPU's plain version needs of a step's windows, built once
+    for all its layers (`decode_window`): the span [lo, hi) of the cache
+    that holds every row's window, `masked` [B, 1, Q, 1, hi - lo] (True
+    outside query i's window [valid_from, valid_to0 + i)) and `live`
+    [B, 1, Q, 1, 1] (0.0 for a query with an empty window, else 1.0)."""
+
+    lo: int
+    hi: int
+    masked: torch.Tensor
+    live: torch.Tensor
+
+
+def decode_window(
+    valid_from: torch.Tensor, valid_to0: torch.Tensor, n_queries: int, s: int
+) -> Optional[DecodeWindow]:
+    """The plain version's window over an S-position cache for Q =
+    `n_queries` queries a row, or None on the card, whose kernel reads
+    the windows itself.  Only the span of the rows' windows enters the
+    products: a slot outside every window takes weight exactly 0, and a
+    dense cache is mostly such slots (a burst's prompt padding and its
+    undecoded tail).  Reads the windows' bounds on the host."""
+    if valid_from.device.type != "cpu":
+        return None
+    vf, vt = valid_from.long(), valid_to0.long()
+    lo = min(max(int(vf.min()), 0), s - 1)
+    hi = min(max(int(vt.max()) + n_queries - 1, lo + 1), s)
+    idx = torch.arange(lo, hi)
+    qi = torch.arange(n_queries)
+    valid = (idx[None, None, :] >= vf[:, None, None]) & (
+        idx[None, None, :] < (vt[:, None] + qi[None, :])[:, :, None]
+    )  # [B, Q, hi - lo]
+    live = valid.any(dim=-1).to(torch.float32)
+    return DecodeWindow(lo, hi, ~valid[:, None, :, None, :], live[:, None, :, None, None])
+
+
+def _float(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.float32 else x.float()
+
+
+def _plain_over_window(q, k_cache, v_cache, k_scale, v_scale, win: DecodeWindow):
+    """`ops/attention.decode_attention_chunk` with every query live, on
+    the span of `win`, as two batched matmuls: q [B, n_kv, Q * rep, d]
+    against k [B, n_kv, d, span], the mask and the empty-window zeros
+    from `win`.  An int8 cache is dequantized to q's dtype first, and the
+    probabilities meet v in v's dtype, as in the plain version."""
+    k_cache, v_cache = k_cache[:, win.lo:win.hi], v_cache[:, win.lo:win.hi]
+    if k_scale is not None:
+        k_cache = kv_dequant(k_cache, k_scale[:, win.lo:win.hi], q.dtype)
+        v_cache = kv_dequant(v_cache, v_scale[:, win.lo:win.hi], q.dtype)
+    b, nq_tok, n_q, d = q.shape
+    span, n_kv = k_cache.shape[1], k_cache.shape[2]
+    rep = n_q // n_kv
+    qh = _float(q).reshape(b, nq_tok, n_kv, rep, d).transpose(1, 2)
+    kt = _float(k_cache.to(q.dtype)).permute(0, 2, 3, 1)  # [B, n_kv, d, span]
+    logits = torch.matmul(qh.reshape(b, n_kv, nq_tok * rep, d), kt) * d**-0.5
+    logits = logits.view(b, n_kv, nq_tok, rep, span).masked_fill(win.masked, NEG_INF)
+    probs = torch.softmax(logits, dim=-1) * win.live
+    if v_cache.dtype != torch.float32:
+        probs = probs.to(v_cache.dtype).float()
+    out = torch.matmul(
+        probs.view(b, n_kv, nq_tok * rep, span), _float(v_cache).transpose(1, 2)
+    )  # [B, n_kv, Q * rep, d]
+    return out.view(b, n_kv, nq_tok, rep, d).transpose(1, 2).reshape(b, nq_tok, n_q, d).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = ctypes.CDLL(build.build_library(SOURCE))
@@ -116,31 +186,19 @@ def decode_attention_chunk_kernel(
     valid_to0: torch.Tensor,  # [B] int32 — one past query 0's window
     k_scale: Optional[torch.Tensor] = None,  # [B, S, n_kv] bf16 (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
+    window: Optional["DecodeWindow"] = None,  # decode_window(valid_from, valid_to0, Q, S)
 ) -> torch.Tensor:
-    """[B, Q, n_q, d] in q's dtype.  CPU tensors: the plain version.  CUDA
-    tensors: the sm_90a kernel, on the current stream, or an error.
+    """[B, Q, n_q, d] in q's dtype.  CPU tensors: the plain version, over
+    `window` when the caller built it once for all its layers.  CUDA
+    tensors: the sm_90a kernel, on the current stream, or an error (the
+    kernel reads valid_from and valid_to0 itself; `window` is unused).
     One call adds one to LAUNCHES: the split pass and, when S takes more
     than one span, the merge launched after it.  Nothing is read from the
     device on the host."""
     if q.device.type == "cpu":
-        b, nq_tok = q.shape[:2]
-        # Only the span of the rows' windows enters the plain version: a
-        # slot outside every window takes weight exactly 0, and a dense
-        # cache is mostly such slots (a burst's prompt padding and its
-        # undecoded tail), which the plain products would otherwise copy
-        # and multiply at every step.
-        vf, vt = valid_from.long(), valid_to0.long()
-        lo = min(max(int(vf.min()), 0), k_cache.shape[1] - 1)
-        hi = min(max(int(vt.max()) + nq_tok - 1, lo + 1), k_cache.shape[1])
-        if (lo, hi) != (0, k_cache.shape[1]):
-            k_cache, v_cache = k_cache[:, lo:hi], v_cache[:, lo:hi]
-            if k_scale is not None:
-                k_scale, v_scale = k_scale[:, lo:hi], v_scale[:, lo:hi]
-            vf, vt = vf - lo, vt - lo
-        return decode_attention_chunk(
-            q, k_cache, v_cache, vf, vt,
-            torch.full((b,), nq_tok, dtype=torch.long), k_scale, v_scale,
-        )
+        if window is None:
+            window = decode_window(valid_from, valid_to0, q.shape[1], k_cache.shape[1])
+        return _plain_over_window(q, k_cache, v_cache, k_scale, v_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode_attention for device {q.device}")
     _check(q, k_cache, v_cache, valid_from, valid_to0, k_scale, v_scale)
@@ -181,11 +239,12 @@ def decode_attention_kernel(
     valid_to: torch.Tensor,  # [B] int32 — one past the last valid position
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    window: Optional["DecodeWindow"] = None,
 ) -> torch.Tensor:
     """Single-token decode attention: the chunk kernel at Q=1, whose
     query 0 sees [valid_from, valid_to)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"want q [B, 1, n_q, d], got {tuple(q.shape)}")
     return decode_attention_chunk_kernel(
-        q, k_cache, v_cache, valid_from, valid_to, k_scale, v_scale
+        q, k_cache, v_cache, valid_from, valid_to, k_scale, v_scale, window
     )

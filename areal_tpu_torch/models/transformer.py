@@ -75,7 +75,7 @@ from torch.utils.checkpoint import (
 
 from areal_tpu_torch.base.device import resolve_device
 from areal_tpu_torch.models.config import ModelConfig
-from areal_tpu_torch.kernels.decode_attention import decode_attention_kernel
+from areal_tpu_torch.kernels.decode_attention import decode_attention_kernel, decode_window
 from areal_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_sharded
 from areal_tpu_torch.kernels.decode_attention import decode_attention_chunk_kernel
 from areal_tpu_torch.kernels.paged_chunk_attention import (
@@ -776,6 +776,15 @@ def prefill(
     return _head(params, cfg, x_last), cache
 
 
+def layer_views(params: Params):
+    """Each layer's dict of weight views ({name: w[li]}), for a caller
+    that runs many decode steps on one set of weights to bind once
+    instead of at every step."""
+    blocks = params["blocks"]
+    n = len(next(iter(blocks.values())))
+    return [{name: w[li] for name, w in blocks.items()} for li in range(n)]
+
+
 def decode_step(
     params: Params,
     cfg: ModelConfig,
@@ -784,12 +793,14 @@ def decode_step(
     cache: KVCache,
     slot: int,  # cache slot written for ALL rows
     valid_from: torch.Tensor,  # [B] int — first valid cache slot per row
+    layers=None,  # layer_views(params), bound once a burst
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: write each row's new K/V at cache slot `slot`
     (the same for every row: prompts are right-aligned), attend over the
     live window [valid_from, slot] through `decode_attention_kernel` (K4
     on the card), and return fp32 logits [B, V] and the cache — the same
-    object, updated in place."""
+    object, updated in place.  The step's windows (and, on the CPU, the
+    plain version's mask) are built once for all layers."""
     b = tokens.shape[0]
     slot = int(slot)
     positions = positions.long()
@@ -798,16 +809,15 @@ def decode_step(
     # The attention kernel takes int32 windows.
     vf = valid_from.to(torch.int32).contiguous()
     vt = torch.full((b,), slot + 1, dtype=torch.int32, device=tokens.device)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    window = decode_window(vf, vt, 1, cache.k.shape[2])
+    k_layers, v_layers = cache.k.unbind(0), cache.v.unbind(0)
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
-        cache.k[li, :, slot] = k[:, 0].to(cache.k.dtype)
-        cache.v[li, :, slot] = v[:, 0].to(cache.v.dtype)
-        attn = decode_attention_kernel(
-            q.contiguous(), cache.k[li], cache.v[li], vf, vt
-        )
+        k_l, v_l = k_layers[li], v_layers[li]
+        k_l[:, slot] = k[:, 0].to(k_l.dtype)
+        v_l[:, slot] = v[:, 0].to(v_l.dtype)
+        attn = decode_attention_kernel(q.contiguous(), k_l, v_l, vf, vt, window=window)
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
     return _head(params, cfg, x)[:, 0], cache
@@ -839,6 +849,7 @@ def decode_step_inflight(
     cache: KVCache,
     slots: torch.Tensor,  # [B] int — per-row cache write slot
     valid_to: torch.Tensor,  # [B] int — one past the last valid slot (incl. new)
+    layers=None,  # layer_views(params), bound once a chunk
 ) -> Tuple[torch.Tensor, KVCache]:
     """Decode step with PER-ROW write slots (left-aligned rows at their
     own depths, the inflight window): each row's new K/V is written at
@@ -856,14 +867,13 @@ def decode_step_inflight(
     # The attention kernel takes int32 windows.
     vf = torch.zeros((b,), dtype=torch.int32, device=tokens.device)
     vt = valid_to.to(torch.int32)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    window = decode_window(vf, vt, 1, cache.k.shape[2])
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
         k_l, v_l, ks_l, vs_l = _dense_update_read(cache, k[:, 0], v[:, 0], li, idx)
         attn = decode_attention_kernel(
-            q.contiguous(), k_l, v_l, vf, vt, k_scale=ks_l, v_scale=vs_l
+            q.contiguous(), k_l, v_l, vf, vt, k_scale=ks_l, v_scale=vs_l, window=window
         )
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
@@ -877,6 +887,7 @@ def decode_step_spec(
     positions: torch.Tensor,  # [B, Q] int — RoPE positions
     cache: KVCache,
     slots0: torch.Tensor,  # [B] int — write slot of tokens[:, 0]
+    layers=None,  # layer_views(params), bound once a chunk
 ) -> Tuple[torch.Tensor, KVCache]:
     """Speculative decode step: Q consecutive tokens per row in one
     forward, their K/V written at slots0 .. slots0 + Q - 1 (in range: the
@@ -900,14 +911,13 @@ def decode_step_spec(
     )
     vf = torch.zeros((b,), dtype=torch.int32, device=dev)
     vt0 = (slots0 + 1).to(torch.int32)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    window = decode_window(vf, vt0, q_len, cache.k.shape[2])
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, Q, h, d]
         k_l, v_l, ks_l, vs_l = _dense_update_read(cache, k, v, li, idx)
         attn = decode_attention_chunk_kernel(
-            q.contiguous(), k_l, v_l, vf, vt0, k_scale=ks_l, v_scale=vs_l
+            q.contiguous(), k_l, v_l, vf, vt0, k_scale=ks_l, v_scale=vs_l, window=window
         )
         x = _attn_mlp(x, attn, blk, cfg)
     x = _norm(x, params["final_ln"], params.get("final_ln_b"), cfg)
@@ -1081,6 +1091,7 @@ def decode_step_ragged_paged(
     cache: PagedKVCache,
     page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
     row_of: torch.Tensor,  # [T] int — owning slot per token; >= B = dead lane
+    layers=None,  # layer_views(params), bound once a chunk
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One forward of a packed [T] stream of query lanes with per-token
     windows.  Token t writes its K/V at flat position `positions[t]` of
@@ -1104,9 +1115,7 @@ def decode_step_ragged_paged(
     valid_to = torch.where(
         live, positions + 1, torch.zeros_like(positions)
     ).to(torch.int32)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [T, h, d]
         k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
@@ -1130,6 +1139,7 @@ def decode_step_spec_paged(
     page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
     write_pos0: torch.Tensor,  # [B] int — flat position of tokens[:, 0]
     q_lens: torch.Tensor,  # [B] int — live queries per row
+    layers=None,  # layer_views(params), bound once a chunk
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Q consecutive tokens per row in one forward: k/v written at flat
     positions write_pos0 .. write_pos0 + Q - 1 through the page table,
@@ -1156,9 +1166,7 @@ def decode_step_spec_paged(
     pt_attn = page_table.to(torch.int32).contiguous()
     valid_to0 = (write_pos0 + 1).to(torch.int32)
     ql_attn = q_lens.to(torch.int32).contiguous()
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, Q, h, d]
         k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(
@@ -1183,6 +1191,7 @@ def decode_step_paged(
     page_table: torch.Tensor,  # [B, max_pages] int, sentinel = n_pages
     write_pos: torch.Tensor,  # [B] int — flat cache position to write
     valid_to: torch.Tensor,  # [B] int — one past the last valid position
+    layers=None,  # layer_views(params), bound once a chunk
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """`decode_step_inflight` over the paged pool (the two-program admit
     path's decode step): each row's K/V written at (page_table[row,
@@ -1197,9 +1206,7 @@ def decode_step_paged(
     # The attention kernel takes int32 tables and windows.
     pt_attn = page_table.to(torch.int32).contiguous()
     vt = valid_to.to(torch.int32)
-    blocks = params["blocks"]
-    for li in range(cfg.n_layers):
-        blk = {name: w[li] for name, w in blocks.items()}
+    for li, blk in enumerate(layers if layers is not None else layer_views(params)):
         h = _norm(x, blk["ln1"], blk.get("ln1_b"), cfg)
         q, k, v = _block_kv(h, blk, cfg, cos, sin)  # [B, 1, h, d]
         k_pool_l, v_pool_l, ks_l, vs_l = _cache_update_read(

@@ -234,6 +234,38 @@ def local_rows(mesh, value: np.ndarray, rank: Optional[int] = None) -> np.ndarra
     return np.ascontiguousarray(value[lo: lo + b // n])
 
 
+def place_rows(mesh, value: np.ndarray, device):
+    """A row-major [B, ...] host batch array as the batch-sharded DTensor
+    [B, ...]: each rank places only its own row block (`local_rows`),
+    the JAX package's `place_rows` through
+    `make_array_from_process_local_data`.  Under the shard-exact dispatch
+    the other blocks of `value` are placeholders, never read.  On the
+    card the block goes through pinned memory with a non-blocking copy."""
+    local = torch.from_numpy(local_rows(mesh, value))
+    if torch.device(device).type == "cuda":
+        local = local.pin_memory().to(device, non_blocking=True)
+    else:
+        local = local.to(device)
+    return rows_dtensor(local, mesh)
+
+
+def replicate(tree: Any, mesh) -> Any:
+    """Every leaf of `tree` replicated over the mesh, as DTensors: a
+    DTensor leaf gathered (a collective: every rank calls it), a plain
+    tensor (the same on every rank) placed with no collective.  Its
+    `to_local()` is the whole tensor on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * mesh.ndim
+
+    def one(x):
+        if isinstance(x, DTensor):
+            return x.redistribute(mesh, rep)
+        return distribute(x, mesh, rep)
+
+    return _map(one, tree) if isinstance(tree, dict) else one(tree)
+
+
 def mesh_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """The sum over every rank of the mesh (which spans the world,
     `base/topology.make_mesh`) of each rank's `t`, the same on every rank

@@ -491,15 +491,17 @@ def check_trainer_plane(cfg, device, fileroot: str) -> List[str]:
 
 
 def check_chaos(cfg, device, n_prompts: int = 40, kill_after_s: float = 1.5,
-                max_new_tokens: int = 256, params=None, engine_kw=None, on_engine=None,
+                max_new_tokens: int = 512, params=None, engine_kw=None, on_engine=None,
                 report: Optional[Dict] = None) -> List[str]:
     """Three announced servers, the first killed mid-decode by
     ``kill@t=kill_after_s`` from its environment; zero lost prompts.
     Traced: the victim leaves a flight dump with its last dispatch, and
     >= 95% of the consumed trajectories join dispatch -> trained.  The
     port's decode on the CPU is faster than the JAX package's, so its
-    requests run 256 new tokens (the JAX leg's 64 finish before a kill
-    at 2.5 s): the kill lands while the victim decodes."""
+    requests run 512 new tokens (the JAX leg's 64 finish before a kill
+    at 2.5 s; at 256, since a decode step's host work was cut, the
+    consumer's throttle could hold the servers idle by the kill): the
+    kill lands while the victim decodes."""
     from areal_tpu_torch.api.model_api import GenerationHyperparameters
     from areal_tpu_torch.apps import trace_report
     from areal_tpu_torch.base import name_resolve, tracer

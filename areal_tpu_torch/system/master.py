@@ -98,10 +98,28 @@ absorbs it (`_recover_from_worker_death`): a fault report, the step
 aborted, the `worker_relauncher` (if any) called with the dead, a wait
 until every worker is back, and a rollback of every worker to the last
 recover checkpoint, within the `max_recoveries` budget that quarantine
-rollbacks share.  A model over several workers (`model_groups`,
-replicas) and every layout other than d1 come with ROADMAP queue 1,
-items 8.6a (the trainer models over an SPMD worker group) and 8.6b
-(generation on a sharded layout).
+rollbacks share.
+
+Worker groups and replicas.  A model over several workers is either an
+SPMD group (`model_groups`: the members are the ranks of one
+`torch.distributed` world, one card each, and the model's mesh spans
+them) or a set of independent replicas (`model_replicas`).  Every
+member of a group gets each of the model's calls in one
+`asyncio.gather`, and the requests that run collectives on a group (its
+MFCs, the weight syncs and saves from it) go out under the group's lock,
+so every member sees them in one order.  An MFC whose node declares
+`shard_keys` ships those keys shard-exactly when the members' meshes
+split the batch over them (`_shard_infos`, `_dispatch_mfc`): each member
+gets its own rows of them and every row of the other keys, tagged
+`shard_of`; the group's first member answers for it.  A GENERATE or
+INFERENCE call over replicas is token-balance-split among them
+(`_run_mfc_split`), and a train step's interface state is copied to the
+other replicas after it (`_sync_interface_state`).  A weight sync
+between two models on the same members is a local copy on each; across
+member sets every source member gathers and the first ships.  A member's
+death takes its whole group down (a world cannot go on without a rank):
+the relauncher is handed every member.  Layouts with a model axis
+above 1 for generation come with ROADMAP queue 1, item 8.6b.
 """
 
 import asyncio
@@ -249,12 +267,19 @@ class MasterWorker:
         self,
         dfg: DFG,
         pool: WorkerPool,
-        model_placement: Dict[str, int],  # model key -> worker id
+        model_placement: Dict[str, int],  # model key -> (primary) worker id
         data_worker_ids: List[int],
         ctrl: ExperimentSaveEvalControl,
         fileroot: str = "/tmp/areal_tpu_torch/trial",
         experiment_name: str = "exp",
         trial_name: str = "trial",
+        # Model key -> every worker of its SPMD group (the ranks of one
+        # world; group[0] is the primary).  A model not listed runs on
+        # its placement worker alone.
+        model_groups: Optional[Dict[str, List[int]]] = None,
+        # Model key -> the workers each holding an independent replica;
+        # its GENERATE and INFERENCE calls are split among them.
+        model_replicas: Optional[Dict[str, List[int]]] = None,
         # Dynamic difficulty filtering: after each step, prompts whose
         # group accuracy falls outside [min_accuracy, max_accuracy] are
         # removed from the datasets.
@@ -290,16 +315,21 @@ class MasterWorker:
         # The replay buffer's capacity in batches (at least cap + 1).
         replay_capacity: int = 4,
     ):
+        self.groups = {k: list(v) for k, v in (model_groups or {}).items()}
+        self.replicas = {k: list(v) for k, v in (model_replicas or {}).items()}
+        named = [*model_placement.values(), *data_worker_ids,
+                 *(w for ws in (*self.groups.values(), *self.replicas.values()) for w in ws)]
         outside = sorted({
-            w for w in [*model_placement.values(), *data_worker_ids]
-            if not (isinstance(w, int) and 0 <= w < pool.n_workers)
+            w for w in named if not (isinstance(w, int) and 0 <= w < pool.n_workers)
         }, key=str)
         if outside:
             raise ValueError(
-                f"placement names workers {outside} outside the pool's {pool.n_workers} "
-                "(each model lives on exactly one worker; a model over several workers "
-                "comes with ROADMAP queue 1, item 8.6a)"
+                f"placement names workers {outside} outside the pool's {pool.n_workers}"
             )
+        for key, group in self.groups.items():
+            if group[0] != model_placement.get(key, group[0]):
+                raise ValueError(f"model {key!r}: its group {group} must start with its "
+                                 f"placement worker {model_placement[key]}")
         self.dfg = dfg
         self.pool = pool
         self.placement = model_placement
@@ -409,6 +439,11 @@ class MasterWorker:
         # This step's transfers (bytes and seconds by kind), reported as
         # the step's transfer/* stats.
         self._xfer_acc: Dict[str, float] = {}
+        # Each group's members' (shard rank, n shards), by model key.
+        self._shard_info_cache: Dict[str, List[Tuple[int, int]]] = {}
+        # One lock a group of more than one member: its collective
+        # requests go out one call at a time (created lazily).
+        self._group_locks: Dict[frozenset, asyncio.Lock] = {}
         reg = metrics.default_registry()
         self._m_steps = reg.counter("areal_master_steps_total", "train steps completed")
         self._m_step_seconds = reg.histogram(
@@ -601,7 +636,13 @@ class MasterWorker:
             )
         await self._abort_step()
         if self.worker_relauncher is not None:
-            ret = self.worker_relauncher(sorted(self.pool.dead_workers))
+            # A group's world cannot go on without a rank: every member of
+            # a group with a dead member is relaunched.
+            dead = set(self.pool.dead_workers)
+            for group in self.groups.values():
+                if dead & set(group):
+                    dead |= set(group)
+            ret = self.worker_relauncher(sorted(dead))
             if inspect.isawaitable(ret):
                 await ret
         await self.pool.wait_workers()
@@ -713,6 +754,7 @@ class MasterWorker:
         self._inflight.clear()
         self._owners.clear()
         self._xfer_acc.clear()
+        self._shard_info_cache.clear()
 
     # ---------------- one step ----------------
 
@@ -945,7 +987,7 @@ class MasterWorker:
             async with sem:
                 for node in order:
                     key = str(node.model_name)
-                    worker = self.placement[key]
+                    group = self._group(key)
                     is_train = node.interface_type == ModelInterfaceType.TRAIN_STEP
                     merge = node.interface_type == ModelInterfaceType.GENERATE
                     waiting[node.name][ci] = chunk_ids
@@ -962,7 +1004,7 @@ class MasterWorker:
                             for hook in node.pre_hooks:
                                 await self._run_hook(hook, node)
                             if is_train:
-                                await self.pool.request(worker, {
+                                await self._group_request(group, {
                                     "type": "mfc_stream_begin", "model_name": key,
                                     "mb_spec": node.mb_spec,
                                 })
@@ -975,8 +1017,10 @@ class MasterWorker:
                         t0, t0_ns = time.monotonic(), time.monotonic_ns()
                         try:
                             if is_train:
-                                await self._ensure_data(node, chunk_ids, worker)
-                                resp = await self.pool.request(worker, {
+                                await asyncio.gather(*[
+                                    self._ensure_data(node, chunk_ids, w) for w in group
+                                ])
+                                resp = await self._group_request(group, {
                                     "type": "mfc_stream_chunk", "model_name": key,
                                     "ids": chunk_ids, "input_keys": list(node.input_keys),
                                     "input_key_remap": dict(node.input_key_remap),
@@ -1004,11 +1048,13 @@ class MasterWorker:
             if node.interface_type == ModelInterfaceType.TRAIN_STEP:
                 t0 = time.monotonic()
                 with tracer.span(f"pipe:{node.name}", stage=node.name, chunk=-1, apply=True):
-                    resp = await self.pool.request(self.placement[key], {
+                    resp = await self._group_request(self._group(key), {
                         "type": "mfc_stream_end", "model_name": key, "mb_spec": node.mb_spec,
                     })
                 spans[node.name].append((t0, time.monotonic()))
                 results[node.name] = resp.get("stats") or {}
+                if len(self.replicas.get(key) or ()) > 1:
+                    await self._sync_interface_state(key)
             else:
                 results[node.name] = merge_stats(node_stats[node.name])
             for hook in node.post_hooks:
@@ -1056,17 +1102,133 @@ class MasterWorker:
         batch = await self.buffer.get_batch_for_rpc(node, timeout=600)
         for hook in node.pre_hooks:
             await self._run_hook(hook, node)
-        resp = await self._dispatch_mfc(node, list(batch.ids))
-        results[node.name] = resp.get("stats") or {}
+        key = str(node.model_name)
+        replicas = self.replicas.get(key) or []
+        if (len(replicas) > 1 and len(batch.ids) >= len(replicas)
+                and node.interface_type in (ModelInterfaceType.GENERATE,
+                                            ModelInterfaceType.INFERENCE)):
+            # Token-weighted where a replica reports `<key>_denominator`.
+            results[node.name] = merge_stats(
+                [st or {} for st in await self._run_mfc_split(node, batch, replicas)]
+            )
+        else:
+            resp = await self._dispatch_mfc(node, list(batch.ids), meta=batch)
+            results[node.name] = resp.get("stats") or {}
+        if node.interface_type == ModelInterfaceType.TRAIN_STEP and len(replicas) > 1:
+            # The interface state (the value-norm moments, the KL
+            # controller) advanced on the trained replica only.
+            await self._sync_interface_state(key)
         for hook in node.post_hooks:
             await self._run_hook(hook, node)
 
-    async def _dispatch_mfc(self, node: MFCDef, ids: List[str]) -> Dict:
-        worker = self.placement[str(node.model_name)]
-        await self._ensure_data(node, ids, worker)
+    def _group(self, model_key: str) -> List[int]:
+        """The workers that run each call of the model together: its SPMD
+        group, or its placement worker alone."""
+        return self.groups.get(model_key, [self.placement[model_key]])
+
+    def _hook_target_set(self, model_key: str) -> List[int]:
+        """The workers that take a weight sync or an offload of the
+        model: every replica, or its group."""
+        return self.replicas.get(model_key) or self._group(model_key)
+
+    async def _group_request(self, group: List[int], payload: Dict, payloads=None) -> Dict:
+        """Send `payload` (or `payloads[i]` to member i) to every member of
+        a group in one gather; returns the first member's reply.  A group
+        of several members takes its lock first: their collectives must
+        run in one order on every rank."""
+        reqs = payloads or [payload] * len(group)
+        if len(group) == 1:
+            return await self.pool.request(group[0], reqs[0])
+        lock = self._group_locks.setdefault(frozenset(group), asyncio.Lock())
+        async with lock:
+            resps = await asyncio.gather(*[self.pool.request(w, r) for w, r in zip(group, reqs)])
+        return resps[0]
+
+    async def _sync_interface_state(self, model_key: str) -> None:
+        """Copy the trained replica's interface state to the others."""
+        primary = self._group(model_key)[0]
+        state = await self.pool.request(primary, {"type": "interface_state"})
+        sd = (state.get("states") or {}).get(model_key)
+        if not sd:
+            return
+        await asyncio.gather(*[
+            self.pool.request(w, {"type": "load_interface_state", "states": {model_key: sd}})
+            for w in self.replicas[model_key] if w != primary
+        ])
+
+    async def _run_mfc_split(self, node: MFCDef, batch, replicas: List[int]) -> List[Dict]:
+        """The DP dispatch over independent replicas: the batch split into
+        token-balanced parts (`base/datapack.partition_balanced`), one a
+        replica, run at once; returns each part's stats."""
+        from areal_tpu_torch.base.datapack import partition_balanced
+
+        key = next(iter(set(node.input_keys) & set(batch.keys)), None) or next(iter(batch.keys))
+        sizes = [int(sum(s)) for s in batch.seqlens[key]]
+        parts = [[batch.ids[i] for i in b] for b in partition_balanced(sizes, len(replicas))]
+        resps = await asyncio.gather(*[
+            self._dispatch_mfc(node, ids, [w]) for ids, w in zip(parts, replicas) if ids
+        ])
+        return [r.get("stats") for r in resps]
+
+    async def _shard_infos(self, node: MFCDef, group: List[int]) -> Optional[List[Tuple[int, int]]]:
+        """Each member's (shard rank, n shards) of the model's batch rows,
+        asked once a model.  None where the shard-exact dispatch cannot
+        apply: the members disagree on n, n is 1, or a shard has no
+        member to place it (then every key is broadcast)."""
+        key = str(node.model_name)
+        infos = self._shard_info_cache.get(key)
+        if infos is None:
+            resps = await asyncio.gather(*[
+                self.pool.request(w, {"type": "shard_info", "model_name": key}) for w in group
+            ])
+            infos = [(int(r["rank"]), int(r["n"])) for r in resps]
+            self._shard_info_cache[key] = infos
+        ns = {n for _, n in infos}
+        if len(ns) != 1:
+            return None
+        n = ns.pop()
+        if n <= 1 or {r for r, _ in infos} != set(range(n)):
+            return None
+        return infos
+
+    async def _dispatch_mfc(self, node: MFCDef, ids: List[str], group: Optional[List[int]] = None,
+                            meta=None) -> Dict:
+        """Move the inputs and run one call on every worker of `group`
+        (default: the model's group).  With the node's `shard_keys`, a
+        group whose members split the batch rows and the batch's `meta`,
+        those keys go shard-exactly: each member its own rows of them
+        (blocks of `partition_balanced` over the rows' lengths, one a
+        shard), every row of the rest, and the call carries `shard_of`
+        (id -> (shard, n)) and the metadata to zero-fill the others."""
+        key = str(node.model_name)
+        group = self._group(key) if group is None else group
+        shard_keys = set(node.shard_keys) & set(node.input_keys)
+        bcast_keys = set(node.input_keys) - shard_keys
+        plan = None
+        if meta is not None and shard_keys and (len(group) > 1 or key in self.groups):
+            # (A group of one asks too: its member reports (0, 1).)
+            infos = await self._shard_infos(node, group)
+            if infos is not None:
+                from areal_tpu_torch.base.datapack import partition_balanced
+
+                main = meta.main_key()
+                index = {sid: i for i, sid in enumerate(meta.ids)}
+                sizes = [int(sum(meta.seqlens[main][index[sid]])) for sid in ids]
+                plan = {"blocks": partition_balanced(sizes, infos[0][1]), "infos": infos}
+        if plan is None:
+            await asyncio.gather(*[self._ensure_data(node, ids, w) for w in group])
+        else:
+            coros = []
+            for w, (rank, _) in zip(group, plan["infos"]):
+                mine = [ids[i] for i in plan["blocks"][rank]]
+                if mine:
+                    coros.append(self._ensure_data(node, mine, w, keys=shard_keys))
+                if bcast_keys:
+                    coros.append(self._ensure_data(node, ids, w, keys=bcast_keys))
+            await asyncio.gather(*coros)
         payload = {
             "type": "mfc",
-            "model_name": str(node.model_name),
+            "model_name": key,
             "interface_type": node.interface_type.value,
             "ids": ids,
             "input_keys": list(node.input_keys),
@@ -1074,14 +1236,23 @@ class MasterWorker:
             "output_key_remap": dict(node.output_key_remap),
             "mb_spec": node.mb_spec,
         }
+        if plan is not None:
+            n = plan["infos"][0][1]
+            payload["shard_of"] = {ids[i]: [s, n] for s, block in enumerate(plan["blocks"])
+                                   for i in block}
+            payload["shard_meta"] = meta.select_idx(
+                [meta.ids.index(sid) for sid in ids]).select_keys(set(node.input_keys) & meta.keys)
         # Uncategorized: the master waits here on the worker's compute,
         # which the worker's own track attributes.
-        with tracer.span(f"mfc:{node.name}", model=str(node.model_name), n=len(ids)):
-            resp = await self.pool.request(worker, payload)
-        meta = resp.get("meta")
-        if meta is not None:
-            self._record_owner(meta, worker, replace=True)
-            await self.buffer.amend_batch(meta)
+        with tracer.span(f"mfc:{node.name}", model=key, n=len(ids)):
+            resp = await self._group_request(group, payload)
+        meta_out = resp.get("meta")
+        if meta_out is not None:
+            # Every member computed the whole outputs: the first member's
+            # copy is the one of record, the others are extra sources.
+            for i, w in enumerate(group):
+                self._record_owner(meta_out, w, replace=(i == 0))
+            await self.buffer.amend_batch(meta_out)
         return resp
 
     # ---------------- the cross-worker data plane ----------------
@@ -1095,11 +1266,13 @@ class MasterWorker:
                 else:
                     km.setdefault(key, set()).add(worker)
 
-    async def _ensure_data(self, node: MFCDef, ids, dst: int):
+    async def _ensure_data(self, node: MFCDef, ids, dst: int, keys=None):
         """Move each input (id, key) not yet on `dst` there from a worker
         that holds it: one tagged data_send/data_recv pair a source and
         key set.  A copy another MFC already has in flight to `dst` is
-        awaited, not sent twice."""
+        awaited, not sent twice.  `keys` narrows the input keys moved
+        (the shard-exact dispatch moves the shard keys of a member's own
+        rows only)."""
         plans: Dict[int, Dict[str, list]] = {}  # src -> key -> [ids]
         waits = set()
         started: list = []
@@ -1107,7 +1280,7 @@ class MasterWorker:
         # coroutines.
         for sid in ids:
             km = self._owners.get(sid, {})
-            for key in node.input_keys:
+            for key in node.input_keys if keys is None else sorted(keys):
                 holders = km.get(key)
                 if holders is None:
                     raise KeyError(f"MFC {node.name}: no worker holds {key!r} for data id {sid!r}")
@@ -1178,33 +1351,38 @@ class MasterWorker:
             acc[f"{kind}_count"] = acc.get(f"{kind}_count", 0.0) + 1.0
 
     async def _run_hook(self, hook, node: MFCDef):
+        group = self._group(str(node.model_name))
         if isinstance(hook, OffloadHook):
             target = str(hook.target or node.model_name)
+            targets = self.replicas.get(target) or (
+                self._hook_target_set(target) if hook.target else group)
             with tracer.span(f"offload:{target}", cat="host"):
-                await self.pool.request(
-                    self.placement[target], {"type": "offload", "model_name": target}
-                )
+                await asyncio.gather(*[
+                    self.pool.request(w, {"type": "offload", "model_name": target})
+                    for w in targets
+                ])
         elif isinstance(hook, ParamReallocHook):
             if (self._ahead_task is not None and not _IN_PREFETCH.get()
                     and str(hook.target) in {str(n.model_name) for n in self._source_nodes}):
                 # One-step-ahead rollout: never swap a generator's weights
                 # under its prefetch (one weight version a batch).
                 await self._ahead_task
-            src_w = self.placement[str(node.model_name)]
-            dst_w = self.placement[str(hook.target)]
-            if src_w == dst_w:
-                # Both models on one worker: a local copy (or EMA).
+            targets = self._hook_target_set(str(hook.target))
+            if targets == group:
+                # The same member set: a local copy (or EMA) on each; a
+                # meshed source gathers its leaves over the group first.
                 with tracer.span(f"param_sync:{hook.target}", cat="comms"):
-                    await self.pool.request(src_w, {
+                    await self._group_request(group, {
                         "type": "param_sync",
                         "src": str(node.model_name),
                         "dst": str(hook.target),
                         "eta": hook.eta,
                     })
                 return
-            # Across workers over the transfer plane: the source gathers
-            # its weights on the host and ships them with their checksum;
-            # the target verifies before it swaps.  A rejected push is
+            # Across workers over the transfer plane: every source member
+            # gathers the weights on the host (a collective on a group),
+            # the first ships them with their checksum to each target, and
+            # each target verifies before it swaps.  A rejected push is
             # sent again once (the sender's serialize-once cache reships
             # the same encoding).  One observation of the push's wall a
             # hook, in the fabric's histogram.
@@ -1212,21 +1390,22 @@ class MasterWorker:
 
             push_t0 = time.monotonic()
             for attempt in (1, 2):
-                xfer_id = self._xfer_id
-                self._xfer_id += 1
+                xfer_ids = list(range(self._xfer_id, self._xfer_id + len(targets)))
+                self._xfer_id += len(targets)
+                sends = [{
+                    "type": "param_send", "model_name": str(node.model_name),
+                    "dsts": targets, "xfer_ids": xfer_ids, "sender": i == 0,
+                    "checksum": self.weight_push_checksum,
+                } for i in range(len(group))]
                 try:
                     with tracer.span(f"param_realloc:{hook.target}", cat="comms",
-                                     n_dst=1) as realloc_args:
-                        send_r, recv_r = await asyncio.gather(
-                            self.pool.request(src_w, {
-                                "type": "param_send", "model_name": str(node.model_name),
-                                "dsts": [dst_w], "xfer_ids": [xfer_id],
-                                "checksum": self.weight_push_checksum,
-                            }),
-                            self.pool.request(dst_w, {
+                                     n_dst=len(targets)) as realloc_args:
+                        send_r, *recv_rs = await asyncio.gather(
+                            self._group_request(group, None, payloads=sends),
+                            *[self.pool.request(w, {
                                 "type": "param_recv", "model_name": str(hook.target),
-                                "xfer_id": xfer_id, "eta": hook.eta,
-                            }),
+                                "xfer_id": xid, "eta": hook.eta,
+                            }) for w, xid in zip(targets, xfer_ids)],
                         )
                         realloc_args["bytes"] = int(send_r.get("bytes", 0) or 0)
                     break
@@ -1236,7 +1415,9 @@ class MasterWorker:
                     logger.warning(f"weight push to {hook.target} rejected by the receiver's "
                                    f"checksum ({e}); retrying once")
             M_PUSH_SECONDS.observe(time.monotonic() - push_t0)
-            self._acc_xfer("param", send_r, recv_r)
+            self._acc_xfer("param", send_r, recv_rs[0])
+            for r in recv_rs[1:]:
+                self._acc_xfer("param", None, r, count=False)
         else:
             raise TypeError(f"unknown hook {hook!r}")
 
@@ -1300,7 +1481,8 @@ class MasterWorker:
             return
         for node in self._train_rpcs:
             key = str(node.model_name)
-            await self.pool.request(self.placement[key], {
+            # Every member of a group gathers; its first rank writes.
+            await self._group_request(self._group(key), {
                 "type": "save", "model_name": key, "save_dir": self._ckpt_dir(node, f"step_{step}"),
             })
         logger.info(f"saved ({kind}) at step {step}")
@@ -1329,11 +1511,11 @@ class MasterWorker:
             base = self._ckpt_dir(node, "recover_checkpoint")
             recover.clean_stale_stages(base)
             staged = recover.stage_dir(base, step)
-            worker = self.placement[key]
-            await self.pool.request(worker, {"type": "save", "model_name": key,
-                                             "save_dir": staged})
-            await self.pool.request(worker, {"type": "save_optimizer", "model_name": key,
-                                             "path": os.path.join(staged, OPTIMIZER_FILE)})
+            group = self._group(key)
+            await self._group_request(group, {"type": "save", "model_name": key,
+                                              "save_dir": staged})
+            await self._group_request(group, {"type": "save_optimizer", "model_name": key,
+                                              "path": os.path.join(staged, OPTIMIZER_FILE)})
             recover.write_manifest(staged, step, {key: model_versions.get(key, 0)})
             staged_dirs.append((staged, base))
         # A kill here must leave the previous current checkpoint intact.
@@ -1410,6 +1592,8 @@ class MasterWorker:
         info = self._restore_pending
         self._restore_pending = None
         t0 = time.monotonic()
+        # The workers were (re)built: ask their shard layout again.
+        self._shard_info_cache.clear()
         for node in self._train_rpcs:
             key = str(node.model_name)
             base = self._ckpt_dir(node, "recover_checkpoint")
@@ -1430,7 +1614,7 @@ class MasterWorker:
                     f"{self.step_info.global_step} for {key!r} (a crash between the flip "
                     "and the recover-info rewrite); restoring anyway"
                 )
-            await self.pool.request(self.placement[key], {
+            await self._group_request(self._group(key), {
                 "type": "load_model", "model_name": key, "ckpt_dir": d,
                 "optimizer_path": os.path.join(d, OPTIMIZER_FILE),
             })

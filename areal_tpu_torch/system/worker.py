@@ -35,6 +35,19 @@ dumps the flight ring and exits the process with status 43; a
 ``corrupt_push@point=weight_push`` poisons one `param_send`, which the
 receiver's checksum refuses.
 
+A member of an SPMD worker group (`WorkerConfig.dist_num_processes`,
+its rank `dist_process_id`) builds each shard whose `parallel` is set
+on a DeviceMesh over the group's world (`apps/worker.py` formed it), and
+seeds as the group's first worker, so every member starts from the same
+weights.  `shard_info` reports the rows it places
+(`api/model_api.data_shard_info`); an MFC shipped shard-exactly
+(`shard_of`, `shard_meta`) zero-fills the rows other members place
+(`_assemble_sample`).  Weight syncs, pushes and saves from a meshed
+model gather its leaves over the group first (`whole_params`, a
+collective every member runs); rank 0 alone writes a checkpoint.
+With ``AREAL_MFC_DUMP_DIR`` set, each MFC's outputs are written there
+(`_dump_outputs`), to hold one layout's rows against another's.
+
 Each MFC is a ``mfc:<model>:<type>`` compute span (`base/tracer.py`)
 carrying its tokens, TFLOPs and MFU; the call returns host data, so the
 span ends where the card's work has finished.  The streamed step's
@@ -59,6 +72,7 @@ is no aliased generator to release before a train step.
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -82,9 +96,16 @@ from areal_tpu_torch.api.data_api import (
     SequenceSample,
     make_dataset,
 )
-from areal_tpu_torch.api.model_api import FinetuneSpec, Model, OptimizerConfig, make_interface
+from areal_tpu_torch.api.model_api import (
+    FinetuneSpec,
+    Model,
+    OptimizerConfig,
+    data_shard_info,
+    make_interface,
+)
 from areal_tpu_torch.base import faults, integrity, metrics, monitor, seeding, tracer
 from areal_tpu_torch.base.device import resolve_device
+from areal_tpu_torch.base.topology import ParallelConfig
 from areal_tpu_torch.data.datasets import PackedDataLoader
 from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
 
@@ -107,6 +128,10 @@ class ModelShardSpec:
     backend: ModelBackendAbstraction  # train | inference | generator | remote_generator | null
     interface: ModelInterfaceAbstraction
     optimizer: Optional[OptimizerConfig] = None
+    # The model's layout over the worker group's `torch.distributed` world
+    # (one rank a process, one card a rank): its engine is built on a
+    # DeviceMesh of it.  None: an engine of this process alone, no mesh.
+    parallel: Optional[ParallelConfig] = None
 
 
 @dataclasses.dataclass
@@ -118,6 +143,16 @@ class WorkerConfig:
     batch_size: int = 8
     seed: int = 1
     ftspec: FinetuneSpec = dataclasses.field(default_factory=FinetuneSpec)
+    # The SPMD worker group: this worker is rank `dist_process_id` of a
+    # world of `dist_num_processes` worker processes (`apps/worker.py`
+    # forms it, `base/distributed.initialize`, before the models are
+    # built); its meshed models span the world.  0 processes: no world.
+    dist_process_id: int = 0
+    dist_num_processes: int = 0
+    # The world's collective timeout (the plan's mfc_timeout_s; None: the
+    # rendezvous default), so a hung collective fails inside the trial's
+    # own deadline.
+    dist_timeout_s: Optional[float] = None
 
 
 def _build_params_and_config(spec: ModelAbstraction, seed: int, device: torch.device):
@@ -138,19 +173,25 @@ def _build_params_and_config(spec: ModelAbstraction, seed: int, device: torch.de
     raise ValueError(f"unknown model abstraction {spec.type_!r}")
 
 
-def _build_engine(shard: ModelShardSpec, cfg, params, device, config: WorkerConfig, tokenizer):
+def _build_engine(shard: ModelShardSpec, cfg, params, device, config: WorkerConfig, tokenizer,
+                  mesh=None):
     from areal_tpu_torch.engines.generator import GeneratorEngine
     from areal_tpu_torch.engines.inference import InferenceEngine
     from areal_tpu_torch.engines.train import TrainEngine
 
     btype, args = shard.backend.type_, shard.backend.args
+    if mesh is not None and btype not in ("train", "inference"):
+        raise NotImplementedError(
+            f"a {btype} engine on a device mesh ({shard.parallel.to_str()}) is not ported "
+            "(ROADMAP queue 1, item 8.6b: generation on a sharded layout)"
+        )
     if btype == "train":
         return TrainEngine(
             cfg, params, device, optimizer_config=shard.optimizer or OptimizerConfig(),
-            ftspec=config.ftspec, **args,
+            ftspec=config.ftspec, mesh=mesh, **args,
         )
     if btype == "inference":
-        return InferenceEngine(cfg, params, device, **args)
+        return InferenceEngine(cfg, params, device, mesh=mesh, **args)
     if btype == "generator":
         return GeneratorEngine(
             cfg, params, device, eos_token_id=tokenizer.eos_token_id,
@@ -174,6 +215,48 @@ def ema_mix(a: torch.Tensor, b: torch.Tensor, eta: float) -> torch.Tensor:
     `set_params` would.  Not `torch.lerp`, which rounds differently."""
     scaled = torch.tensor(1 - eta, dtype=b.dtype) * b
     return (torch.tensor(eta, dtype=a.dtype) * a + scaled).to(b.dtype)
+
+
+def _zero_filled(meta_row: SequenceSample, keys) -> SequenceSample:
+    """Placeholders for the keys a group member was not shipped under the
+    shard-exact dispatch: the layout (lengths, dtype, trailing shape) of
+    `meta_row` with zero values.  The real values live on the member
+    that places those rows; this member never reads them
+    (`parallel/sharding.place_rows`)."""
+    data, seqlens = {}, {}
+    for k in keys:
+        sls = meta_row.seqlens[k]
+        dt = meta_row.dtypes.get(k)
+        if dt is None:
+            # A silent float default would corrupt integer token ids.
+            raise ValueError(f"cannot zero-fill {k!r} for {meta_row.ids}: the shipped "
+                             "metadata carries no dtype")
+        n = sum(sum(x) for x in sls)
+        data[k] = np.zeros((n, *tuple(meta_row.trailing_shapes.get(k) or ())), dtype=dt)
+        seqlens[k] = [list(x) for x in sls]
+    # The row's metadata too: the gathered sample's tags stay one a row.
+    return SequenceSample(keys=set(keys), ids=list(meta_row.ids), seqlens=seqlens, data=data,
+                          metadata={k: list(v) for k, v in meta_row.metadata.items()})
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def whole_params(engine):
+    """The engine's weights as whole tensors on this process: on a device
+    mesh each leaf is gathered over the group (`parallel/sharding.
+    replicate`, a collective every member calls), else the engine's own
+    tree."""
+    params = engine.get_params()
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return params
+    from areal_tpu_torch.parallel import sharding as shd
+
+    return _map_tree(lambda t: t.to_local(), shd.replicate(params, mesh))
 
 
 def _host_tree(tree):
@@ -269,11 +352,15 @@ class ModelWorker:
         self._faults = faults.FaultInjector.from_env()
         self.models: Dict[str, Model] = {}
         self.interfaces: Dict[str, Any] = {}
+        # Each model's layout ("d2f2"; "d1" without a mesh), on its spans.
+        self._layouts: Dict[str, str] = {}
         self.data_cache: Dict[str, SequenceSample] = {}
         # MFCs in two threads read and amend the cache's entries at once.
         self._cache_lock = threading.Lock()
         # Open train streams, by model key.
         self._streams: Dict[str, Dict[str, Any]] = {}
+        # The call number of `_dump_outputs`' files.
+        self._dump_seq = itertools.count(1)
         self.datasets = []
         self.dataloaders = []
         self._setup()
@@ -286,20 +373,37 @@ class ModelWorker:
     # ---------------- setup ----------------
 
     def _setup(self):
-        seeding.set_random_seed(self.config.seed, self.config.worker_index)
+        # The ranks of a group seed alike (as its first worker): the same
+        # host draws, the same initial weights on every member.
+        seeding.set_random_seed(self.config.seed,
+                                self.config.worker_index - self.config.dist_process_id)
         if self.tokenizer is None and self.config.tokenizer_path:
             self.tokenizer = load_hf_tokenizer(self.config.tokenizer_path)
+        meshes: Dict[ParallelConfig, Any] = {}
         with self._on_device():
             for shard in self.config.shards:
+                mesh = None
+                if shard.parallel is not None:
+                    # Over the world `apps/worker.py` formed; every member
+                    # builds the same shards in the same order, as the
+                    # mesh's sub-groups need.
+                    from areal_tpu_torch.base.topology import make_mesh
+
+                    if shard.parallel not in meshes:
+                        meshes[shard.parallel] = make_mesh(shard.parallel, self.device)
+                    mesh = meshes[shard.parallel]
                 cfg, params = _build_params_and_config(shard.model, self.config.seed, self.device)
-                engine = _build_engine(shard, cfg, params, self.device, self.config, self.tokenizer)
+                engine = _build_engine(shard, cfg, params, self.device, self.config, self.tokenizer,
+                                       mesh=mesh)
                 del params  # the engine holds its own copy
                 key = str(shard.name)
                 self.models[key] = Model(name=key, engine=engine, tokenizer=self.tokenizer,
                                          config=cfg)
+                self._layouts[key] = shard.parallel.to_str() if shard.parallel else "d1"
                 self.interfaces[key] = make_interface(shard.interface.type_, **shard.interface.args)
                 logger.info(f"worker {self.config.worker_index}: built model {key} "
-                            f"({shard.backend.type_} on {self.device})")
+                            f"({shard.backend.type_} on {self.device}, layout "
+                            f"{self._layouts[key]})")
         for ds_spec in self.config.datasets:
             ds = make_dataset(ds_spec, seed=self.config.seed, dp_rank=0, world_size=1,
                               tokenizer=self.tokenizer)
@@ -375,19 +479,53 @@ class ModelWorker:
                 self.data_cache[one.ids[0]] = one
         return {"meta": batch.meta()}
 
-    def _assemble_sample(self, ids, input_keys, remap_in) -> SequenceSample:
+    def _handle_shard_info(self, req):
+        """(shard_rank, n_shards) of the batch rows this process places
+        for the named model (`api/model_api.data_shard_info`): the
+        master's shard-exact dispatch ships only that block when n > 1."""
+        engine = self.models[req["model_name"]].engine
+        rank, n = data_shard_info(engine) if engine is not None else (0, 1)
+        return {"rank": int(rank), "n": int(n)}
+
+    def _assemble_sample(self, ids, input_keys, remap_in, shard_of=None,
+                         shard_meta=None) -> SequenceSample:
+        """The cached entries of `ids` as one packed sample.  Under the
+        shard-exact dispatch (`shard_of`: id -> (rank, n)) a key this
+        member was not shipped for a row is zero-filled from `shard_meta`
+        (another member places that row), and the rows carry their
+        `shard_of` tags."""
         parts = []
         with self._cache_lock:
-            for sid in ids:
+            for idx, sid in enumerate(ids):
                 entry = self.data_cache.get(sid)
                 have = input_keys & entry.keys if entry is not None else set()
-                if have != input_keys:
+                part = entry.select_keys(have) if have else None
+                missing = input_keys - have
+                if missing and shard_of:
+                    row = shard_meta.select_idx([idx])
+                    unknown = missing - row.keys
+                    if unknown:
+                        # Fail at the cause, not as a bewildering KeyError
+                        # deep in the packer or the interface.
+                        raise KeyError(
+                            f"worker {self.config.worker_index}: input key(s) "
+                            f"{sorted(unknown)} for {sid!r} are in neither the data cache "
+                            "nor the shard metadata"
+                        )
+                    zero = _zero_filled(row, missing)
+                    if part is None:
+                        part = zero
+                    else:
+                        part.update_(zero)
+                elif missing:
                     raise KeyError(
                         f"worker {self.config.worker_index}: no data for {sid!r} "
-                        f"(keys {sorted(input_keys - have)})"
+                        f"(keys {sorted(missing)})"
                     )
-                parts.append(entry.select_keys(have))
+                parts.append(part)
         sample = SequenceSample.gather(parts)
+        if shard_of:
+            sample.metadata["shard_of"] = [list(shard_of[sid]) for sid in ids]
         sample.remap_keys_(remap_in)
         return sample
 
@@ -396,8 +534,11 @@ class ModelWorker:
         model_key: str = req["model_name"]
         itype = ModelInterfaceType(req["interface_type"])
         mb_spec: MicroBatchSpec = req.get("mb_spec") or MicroBatchSpec()
+        # Shard-exact dispatch: the shard keys arrived for this member's
+        # own rows only (`api/dfg.py MFCDef.shard_keys`).
         sample = self._assemble_sample(
-            req["ids"], set(req["input_keys"]), req.get("input_key_remap", {})
+            req["ids"], set(req["input_keys"]), req.get("input_key_remap", {}),
+            req.get("shard_of") or {}, req.get("shard_meta"),
         )
         model = self.models[model_key]
         fn = getattr(self.interfaces[model_key], itype.value)
@@ -440,6 +581,8 @@ class ModelWorker:
                 self._span_profile_fields(model, targs)
         if out_sample is None:
             return {"meta": None, "stats": {**dict(result or {}), **perf}}
+        if os.environ.get("AREAL_MFC_DUMP_DIR"):
+            self._dump_outputs(os.environ["AREAL_MFC_DUMP_DIR"], model_key, itype, out_sample)
         with self._cache_lock:
             for one in out_sample.unpack():
                 sid = one.ids[0]
@@ -448,6 +591,22 @@ class ModelWorker:
                 else:
                     self.data_cache[sid] = one
         return {"meta": out_sample.meta(), "stats": perf}
+
+    def _dump_outputs(self, root: str, model_key: str, itype, out: SequenceSample) -> None:
+        """With ``AREAL_MFC_DUMP_DIR`` set, each MFC's outputs are written
+        to ``<root>/<model>_<type>_w<worker>_<call>.npz`` (the ids, and
+        each key's flat data and per-sequence lengths): a layout's outputs
+        can then be held against another layout's row by row."""
+        n = next(self._dump_seq)
+        arrays = {"ids": np.asarray([str(i) for i in out.ids])}
+        for k in out.keys:
+            if out.data is not None and out.data.get(k) is not None:
+                arrays[f"data.{k}"] = np.asarray(out.data[k])
+                arrays[f"lens.{k}"] = np.asarray([len(s) for s in out.seqlens[k]])
+                arrays[f"seqlens.{k}"] = np.asarray([x for s in out.seqlens[k] for x in s])
+        os.makedirs(root, exist_ok=True)
+        name = f"{model_key.replace('@', '-')}_{itype.value}_w{self.config.worker_index}_{n}.npz"
+        np.savez(os.path.join(root, name), **arrays)
 
     # ---------------- the streamed train step ----------------
 
@@ -538,9 +697,9 @@ class ModelWorker:
         return {"meta": None, "stats": {**dict(result or {}), **perf}}
 
     def _span_profile_fields(self, model, targs) -> None:
-        """The profile's keys on an MFC span: the layout (the port runs
-        d1) and the model's shape."""
-        targs["layout"] = "d1"
+        """The profile's keys on an MFC span: the layout and the model's
+        shape."""
+        targs["layout"] = self._layouts.get(model.name, "d1")
         cfg = model.config
         if cfg is not None:
             targs["model_shape"] = (f"l{cfg.n_layers}h{cfg.hidden_dim}q{cfg.n_q_heads}"
@@ -593,10 +752,12 @@ class ModelWorker:
         src = self.models[req["src"]].engine
         dst = self.models[req["dst"]].engine
         eta = float(req.get("eta", 1.0))
+        # On a group the meshed leaves are gathered whole first (every
+        # member runs this request; `set_params` places them again).
         if eta >= 1.0:
-            dst.set_params(src.get_params())
+            dst.set_params(whole_params(src))
             return {}
-        sp, dp = src.get_params(), dst.get_params()
+        sp, dp = whole_params(src), whole_params(dst)
 
         def mix(a, b):
             if isinstance(b, dict):
@@ -692,7 +853,11 @@ class ModelWorker:
         t0 = time.monotonic()
         key = req["model_name"]
         eng = self.models[key].engine
-        params = eng.get_params()
+        # Every member of a group gathers (a collective); only the sender
+        # (the group's first member) ships.
+        params = whole_params(eng)
+        if not req.get("sender", True):
+            return {"bytes": 0, "seconds": time.monotonic() - t0}
         leaves = integrity._leaves(params)
         state = (getattr(eng, "opt_count", None),
                  tuple((x.data_ptr(), x._version) for x in leaves))

@@ -486,7 +486,7 @@ import urllib.request
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernel", "flash", "serve", "static", "push", "resume_parity",
           "train", "ppo", "sharded", "quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes",
-          "async", "multiproc", "fabric", "verifiers", "supervisor", "chaos", "families",
+          "async", "multiproc", "group", "fabric", "verifiers", "supervisor", "chaos", "families",
           "gemma", "episodes", "parity", "train_parity")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate
@@ -4206,7 +4206,7 @@ def phase_quickstart(report, seed):
 # after the last phase that uses them.
 SHARED_CKPTS = {}
 CKPT_PHASES = ("quickstart", "sft", "overlap", "trainmodes", "recover", "genmodes", "async",
-               "multiproc", "fabric", "verifiers", "supervisor", "chaos")
+               "multiproc", "group", "fabric", "verifiers", "supervisor", "chaos")
 
 
 def _shared_checkpoint(tag, cfg, seed):
@@ -7935,6 +7935,245 @@ def _fabric_probe(urls, prompts):
     return out
 
 
+GROUP_DIR = os.path.join(REPO, ".group_tmp")
+GROUP_PROMPT_BYTES = 192  # every prompt the same length: the micro-batches are predictable
+GROUP_REF_TOL = 0.05  # max |ref logprob| difference a token, replicas against one (bf16 forward)
+
+
+def _equal_math_rows(rng, n, nbytes):
+    """n math rows whose prompts are all `nbytes` bytes (char tokens)."""
+    rows = _math_rows(rng, n)
+    for r in rows:
+        r["prompt"] = (r["prompt"] + " pad" * nbytes)[:nbytes]
+    return rows
+
+
+def _group_ppo_plan(cfg, ckpt, data, work, seed, trial, placement, mb_tokens):
+    """The multiproc phase's ppo-math trial (a ref, 8 prompts x 4,
+    MULTIPROC_NEW_TOKENS new tokens, the seeded null reward), greedy,
+    with `placement` (e.g. the ref as replicas) and a token cap a
+    micro-batch.  kl_ctl 0: the ref's logprobs are held directly, and the
+    actor's update (so step 2's tokens) does not move with them."""
+    from areal_tpu_torch.api.config import ModelAbstraction, ModelInterfaceAbstraction
+    from areal_tpu_torch.api.data_api import DatasetAbstraction, MicroBatchSpec
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters, OptimizerConfig
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.system.master import ExperimentSaveEvalControl
+
+    pc = exps.PPOMathConfig(
+        actor=ModelAbstraction("hf", {"path": ckpt}),
+        ref=ModelAbstraction("hf", {"path": ckpt}),
+        dataset=DatasetAbstraction("math_code_prompt", {"dataset_path": data}),
+        reward_interface=ModelInterfaceAbstraction("null", {"seed": seed + 52}),
+        ppo_kwargs={"kl_ctl": 0.0},
+        optimizer=OptimizerConfig(lr=2e-5),
+        gconfig=GenerationHyperparameters(n=4, max_new_tokens=MULTIPROC_NEW_TOKENS, greedy=True),
+        batch_size=8, total_train_epochs=1,
+        mb_spec=MicroBatchSpec(max_tokens_per_mb=mb_tokens),
+        ctrl=ExperimentSaveEvalControl(benchmark_steps=2),
+        seed=seed + 53, experiment_name="group", trial_name=trial,
+        fileroot=os.path.join(work, trial), placement=dict(placement),
+    )
+    plan = exps.build_ppo_math(pc)
+    for wc in plan.worker_configs:
+        wc.tokenizer_path = f"char:{cfg.vocab_size}"
+    return plan
+
+
+def _read_dumps(root, prefix, key):
+    """The MFC outputs `AREAL_MFC_DUMP_DIR` collected under `root` in
+    files starting `prefix`: (id, flat data, per-sequence lengths) of
+    `key`, across every worker's files, in call order."""
+    import numpy as np
+
+    out = []
+    for name in sorted(os.listdir(root), key=lambda n: int(n.rsplit("_", 1)[1][:-4])):
+        if not name.startswith(prefix):
+            continue
+        z = np.load(os.path.join(root, name))
+        data, lens, seqlens = z[f"data.{key}"], z[f"lens.{key}"], z[f"seqlens.{key}"]
+        pos, seq = 0, 0
+        for sid, n in zip(z["ids"], lens):
+            sl = seqlens[seq:seq + n]
+            out.append((str(sid), data[pos:pos + sl.sum()], sl))
+            pos, seq = pos + sl.sum(), seq + n
+    return out
+
+
+def phase_group(report, seed):
+    """The SPMD worker group's runtime on the one card (ROADMAP item
+    8.6a; the four-card layouts run in scripts/group_check.py):
+    (a) model replicas: the multiproc phase's ppo-math trial at qwen2-1.5B's
+        width and CUT_LAYERS layers, greedy, with the ref as two replicas
+        in two worker processes sharing the card (R, through
+        apps.main.run_experiment), against the one-replica trial in this
+        process (S).  Every prompt is GROUP_PROMPT_BYTES long and the
+        token cap a micro-batch is 16 sequences' worth, so S's ref call
+        takes two micro-batches of four prompts and each replica's half
+        one.  Held: the greedy tokens of every sequence equal; each
+        token's ref logprob within GROUP_REF_TOL of S's (the replicas
+        pack other rows into their bf16 forwards); the generation and
+        reward stats equal; K1f, K1dq, K1dkv and K4 launches summed over
+        R's two processes equal to S's.
+    (b) `quickstart sft --allocation d1` through the group path: its plan
+        made a worker group of one (a world of one rank over NCCL, the
+        model on a DeviceMesh), two steps in a worker process; the master
+        asked the member's shard layout ((0, 1): the call broadcast) and
+        dispatched each step to the group; loss, grad and update norms
+        against the plain one-process trial in this process (no world)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from areal_tpu_torch.apps import main as runner
+    from areal_tpu_torch.apps import quickstart
+    from areal_tpu_torch.base.topology import ParallelConfig
+    from areal_tpu_torch.data.tokenizer import load_hf_tokenizer
+    from areal_tpu_torch.experiments import common as exps
+    from areal_tpu_torch.models.config import qwen2_config
+
+    cfg = dataclasses.replace(qwen2_config("1.5b"), n_layers=CUT_LAYERS)
+    os.makedirs(GROUP_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="run-", dir=GROUP_DIR)
+    card = _card()
+    out = {"seconds": {}}
+    try:
+        _check_disk("[group]", work, 2**30)
+        ckpt, _, _ = _shared_checkpoint("[group]", cfg, seed + 21)
+        data = os.path.join(work, "math.jsonl")
+        rows = _equal_math_rows(np.random.default_rng(seed + 91), 64, GROUP_PROMPT_BYTES)
+        with open(data, "w") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+        tok = load_hf_tokenizer(f"char:{cfg.vocab_size}")
+        plen = len(tok.encode(rows[0]["prompt"]))
+        seq_len = plen + MULTIPROC_NEW_TOKENS
+        mb_tokens = 16 * seq_len
+
+        # (a) S: one ref, in this process; its outputs dumped here.
+        dump_s, dump_r = os.path.join(work, "dump_S"), os.path.join(work, "dump_R")
+        os.environ["AREAL_MFC_DUMP_DIR"] = dump_s
+        _reset_counts()
+        t0 = time.monotonic()
+        try:
+            stats_s = runner.run_experiment_inproc(
+                _group_ppo_plan(cfg, ckpt, data, work, seed, "S", {}, mb_tokens))
+        finally:
+            del os.environ["AREAL_MFC_DUMP_DIR"]
+        torch.cuda.synchronize()
+        out["seconds"]["a_one_replica"] = time.monotonic() - t0
+        counts_s = _trial_counts()
+        # (a) R: the ref as replicas on workers 0 and 1, two processes.
+        plan_r = _group_ppo_plan(cfg, ckpt, data, work, seed, "R", {"ref": [0, 1]}, mb_tokens)
+        check(plan_r.model_replicas == {"ref@0": [0, 1]}, f"[group] (a) {plan_r.model_replicas}")
+        seen = {}
+        t0 = time.monotonic()
+        stats_r = runner.run_experiment(plan_r, on_finish=_worker_stats(plan_r, seen),
+                                        worker_env={"AREAL_MFC_DUMP_DIR": dump_r})
+        out["seconds"]["a_replicas"] = time.monotonic() - t0
+        check(len(stats_s) == len(stats_r) == 2, f"[group] (a) steps {len(stats_s)}, {len(stats_r)}")
+        gen_s = _read_dumps(dump_s, "actor_gen", "packed_input_ids")
+        gen_r = _read_dumps(dump_r, "actor_gen", "packed_input_ids")
+        check(len(gen_s) == len(gen_r) == 16, f"[group] (a) generated {len(gen_s)} / {len(gen_r)} ids")
+        for (ids, ts, ls), (idr, tr, lr) in zip(gen_s, gen_r):
+            check(ids == idr and np.array_equal(ls, lr) and np.array_equal(ts, tr),
+                  f"[group] (a) greedy tokens of {ids} differ between the trials")
+        ref_s = {sid: (v, sl) for sid, v, sl in _read_dumps(dump_s, "ref", "packed_ref_logprobs")}
+        ref_r = _read_dumps(dump_r, "ref", "packed_ref_logprobs")
+        check(sorted(sid for sid, _, _ in ref_r) == sorted(ref_s),
+              f"[group] (a) the replicas' ref outputs cover {len(ref_r)} ids, not {len(ref_s)}")
+        by_worker = {f.split("_w")[1].split("_")[0] for f in os.listdir(dump_r) if f.startswith("ref")}
+        check(by_worker == {"0", "1"}, f"[group] (a) ref outputs from workers {by_worker}")
+        err = 0.0
+        for sid, v, sl in ref_r:
+            vs, sls = ref_s[sid]
+            check(np.array_equal(sl, sls), f"[group] (a) ref lengths of {sid}")
+            err = max(err, float(np.abs(v.astype(np.float64) - vs).max()))
+        check(err <= GROUP_REF_TOL, f"[group] (a) ref logprobs {err:.4g} from S's (tol {GROUP_REF_TOL})")
+        for i, (a, b) in enumerate(zip(stats_s, stats_r)):
+            for k in ("actor_train/n_response_tokens", "actor_train/no_eos_ratio",
+                      "actor_train/task_reward"):
+                check(a[k] == b[k], f"[group] (a) step {i + 1} {k}: {a[k]} vs {b[k]}")
+            log(f"[group] (a) step {i + 1}: S {a['time/step_s']:.2f} s, R {b['time/step_s']:.2f} s; "
+                f"ref_inf {a['ref_inf/perf/time_s']:.3f} / {b['ref_inf/perf/time_s']:.3f} s; ref_kl "
+                f"{a['actor_train/ref_kl']:.6g} / {b['actor_train/ref_kl']:.6g}")
+        workers = seen["workers"]
+        summed = {k: sum(w["launches"][k] for w in workers.values()) for k in counts_s}
+        for name, w in sorted(workers.items()):
+            check(w["device"].startswith("cuda") and w["max_memory_allocated"] > 0,
+                  f"[group] (a) {name} is not on the card: {w}")
+            log(f"[group] (a) R {name}: pid {w['pid']} on {w['device']}, launches {w['launches']}, "
+                f"peak {w['max_memory_allocated'] / 2**30:.2f} GiB")
+        check(all(summed[k] == counts_s[k] for k in ("fwd", "dq", "dkv", "k4")),
+              f"[group] (a) R's summed launches {summed} != S's {counts_s}")
+        log(f"[group] (a) replicas: greedy tokens of {len(gen_r)} prompt groups identical, ref "
+            f"logprobs within {err:.4g} of one replica's (tol {GROUP_REF_TOL}) over {len(ref_r)} "
+            f"ids from workers {sorted(by_worker)}; launches S {counts_s}, R summed {summed}; "
+            f"S {out['seconds']['a_one_replica']:.1f} s, R {out['seconds']['a_replicas']:.1f} s "
+            f"({card})")
+        out["launches"] = counts_s
+        out["ref_err"] = err
+
+        # (b) quickstart sft --allocation d1 through the group path.
+        sft_data = os.path.join(work, "sft.jsonl")
+        with open(sft_data, "w") as f:
+            for row in _sft_rows(np.random.default_rng(seed + 92), 32):
+                f.write(json.dumps(row) + "\n")
+        argv = ["sft", "--model.path", ckpt, "--dataset.path", sft_data, "--tokenizer-path",
+                f"char:{cfg.vocab_size}", "--batch-size", "8", "--seed", str(seed + 93),
+                "--benchmark-steps", "2", "--allocation", "d1"]
+        masters, seen_b = [], {}
+        real_build, real_run = exps.build_sft, runner.run_experiment
+
+        def group_of_one(sft_cfg):
+            plan = real_build(sft_cfg)
+            wc = plan.worker_configs[0]
+            wc.dist_process_id, wc.dist_num_processes = 0, 1
+            wc.shards[0].parallel = ParallelConfig()
+            plan.model_groups = {"default@0": [0]}
+            return plan
+
+        def run_group(plan, **kw):
+            def on_finish(master):
+                masters.append(master)
+                _worker_stats(plan, seen_b)(master)
+            return real_run(plan, on_finish=on_finish, **kw)
+
+        exps.build_sft, runner.run_experiment = group_of_one, run_group
+        t0 = time.monotonic()
+        try:
+            stats_g = quickstart.main(argv + ["--multiprocess", "--fileroot",
+                                              os.path.join(work, "sft_group")])
+        finally:
+            exps.build_sft, runner.run_experiment = real_build, real_run
+        out["seconds"]["b_group"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        stats_p = quickstart.main(argv + ["--fileroot", os.path.join(work, "sft_plain")])
+        out["seconds"]["b_plain"] = time.monotonic() - t0
+        (master,) = masters
+        check(master.groups == {"default@0": [0]}
+              and master._shard_info_cache == {"default@0": [(0, 1)]},
+              f"[group] (b) groups {master.groups}, shard infos {master._shard_info_cache}")
+        (w,) = seen_b["workers"].values()
+        check(w["device"] == "cuda:0" and w["launches"]["fwd"] > 0,
+              f"[group] (b) the member's runtime {w}")
+        diffs = {}
+        for i, (g, p) in enumerate(zip(stats_g, stats_p)):
+            for k in ("loss", "grad_norm", "update_norm"):
+                d = abs(g[k] - p[k]) / max(abs(p[k]), 1e-30)
+                diffs[f"step{i + 1}/{k}"] = d
+                check(d <= 1e-5, f"[group] (b) step {i + 1} {k}: {g[k]} vs {p[k]}")
+        log(f"[group] (b) quickstart sft --allocation d1 as a group of one (NCCL world of 1, "
+            f"shard info (0, 1)): 2 steps in {out['seconds']['b_group']:.1f} s, the plain trial "
+            f"{out['seconds']['b_plain']:.1f} s; largest relative difference "
+            f"{max(diffs.values()):.3g} ({'bit for bit' if not any(diffs.values()) else 'within 1e-5'}); "
+            f"the member's launches {w['launches']} ({card})")
+        report["group"] = out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_fabric(report, seed):
     """The param store and the broadcast-tree weight push over a fleet of
     three generation servers at qwen2-1.5B's full width (FABRIC_LAYERS
@@ -11096,6 +11335,7 @@ def _kernels_line(report):
     tm_launches = report.get("trainmodes", {}).get("launches", {})
     as_launches = report.get("async", {}).get("launches", {})
     mp_launches = report.get("multiproc", {}).get("launches", {})
+    gp_launches = report.get("group", {}).get("launches", {})
     fb_launches = report.get("fabric", {}).get("launches", {})
     vf_launches = report.get("verifiers", {}).get("launches", {})
     sv_launches = report.get("supervisor", {}).get("launches", {})
@@ -11120,6 +11360,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k2"),
         "launches_async": as_launches.get("k2"),
         "launches_multiproc": mp_launches.get("k2"),
+        "launches_group": gp_launches.get("k2"),
         "launches_fabric": fb_launches.get("k2"),
         "launches_verifiers": vf_launches.get("k2"),
         "launches_supervisor": sv_launches.get("k2"),
@@ -11180,6 +11421,7 @@ def _kernels_line(report):
             "launches_trainmodes": tm_launches.get(name),
             "launches_async": as_launches.get(name),
             "launches_multiproc": mp_launches.get(name),
+            "launches_group": gp_launches.get(name),
             "launches_fabric": fb_launches.get(name),
             "launches_verifiers": vf_launches.get(name),
             "launches_supervisor": sv_launches.get(name),
@@ -11255,6 +11497,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k3"),
         "launches_async": as_launches.get("k3"),
         "launches_multiproc": mp_launches.get("k3"),
+        "launches_group": gp_launches.get("k3"),
         "launches_fabric": fb_launches.get("k3"),
         "launches_verifiers": vf_launches.get("k3"),
         "launches_supervisor": sv_launches.get("k3"),
@@ -11327,6 +11570,7 @@ def _kernels_line(report):
         "launches_trainmodes": tm_launches.get("k4"),
         "launches_async": as_launches.get("k4"),
         "launches_multiproc": mp_launches.get("k4"),
+        "launches_group": gp_launches.get("k4"),
         "launches_fabric": fb_launches.get("k4"),
         "launches_verifiers": vf_launches.get("k4"),
         "launches_supervisor": sv_launches.get("k4"),
@@ -11525,6 +11769,7 @@ def main() -> int:
         "genmodes": lambda: phase_genmodes(report, args.seed),
         "async": lambda: phase_async(report, args.seed),
         "multiproc": lambda: phase_multiproc(report, args.seed),
+        "group": lambda: phase_group(report, args.seed),
         "fabric": lambda: phase_fabric(report, args.seed),
         "verifiers": lambda: phase_verifiers(report, args.seed),
         "supervisor": lambda: phase_supervisor(report, args.seed),

@@ -29,6 +29,7 @@ from areal_tpu.models.config import tiny_config as jtiny
 from areal_tpu.models.hf import registry as jhf
 from areal_tpu.system.master import ExperimentSaveEvalControl as JCtrl
 from areal_tpu_torch.api import model_api
+from areal_tpu_torch.base.topology import ParallelConfig
 from areal_tpu_torch.api.config import ModelAbstraction, ModelInterfaceAbstraction
 from areal_tpu_torch.api.data_api import DatasetAbstraction, SequenceSample
 from areal_tpu_torch.api.dfg import ParamReallocHook
@@ -60,6 +61,7 @@ def _graph(plan):
             name=n.name, model=str(n.model_name), itype=n.interface_type.value,
             interface=n.interface_impl.type_, inputs=n.input_keys, outputs=n.output_keys,
             in_remap=n.input_key_remap, out_remap=n.output_key_remap, n_seqs=n.n_seqs,
+            shard_keys=tuple(n.shard_keys),
             pre=[hook(h) for h in n.pre_hooks], post=[hook(h) for h in n.post_hooks],
             parents=[p.name for p in n.parents], children=[c.name for c in n.children],
         ))
@@ -170,7 +172,7 @@ def test_offload_ref_e2e(tmp_path):
 @pytest.mark.parametrize("option,value,item", [
     ("gen_server_url", "tcp://localhost:1", "item 7.8"),
     ("gen_server_url", "http://localhost:1,zmq://localhost:2", "item 7.8"),
-    ("placement", {"actor_gen": [1, 2]}, "item 8"),
+    ("gen_parallel", ParallelConfig(data=2), "item 8.6b"),
 ])
 def test_unported_options_raise(tmp_path, option, value, item):
     cfg = dataclasses.replace(_e2e_cfg(tmp_path, "grpo"), **{option: value})
@@ -445,12 +447,11 @@ def _assert_options_change_nothing(tmp_path, package, options):
 
 
 def test_master_refuses_more_than_one_worker(tmp_path):
-    """A placement naming a worker the pool does not have is refused
-    (a model over several workers comes with item 8); a pool of two
-    workers, once refused, is taken, and so are recover checkpoints
-    (`ckpt_freq_steps`)."""
+    """A placement naming a worker the pool does not have is refused; a
+    pool of two workers, once refused, is taken, and so are recover
+    checkpoints (`ckpt_freq_steps`)."""
     plan = exps.build_ppo_math(_e2e_cfg(tmp_path, "grpo"))
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(ValueError, match="outside the pool"):
         MasterWorker(plan.dfg, InProcessPool([object()]),
                      {**plan.model_placement, "actor_gen@0": 1}, [0], plan.ctrl,
                      fileroot=str(tmp_path))

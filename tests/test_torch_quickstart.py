@@ -77,7 +77,7 @@ def test_quickstart_defaults_to_the_card(tmp_path, ckpt_dir, data_path):
 
 
 UNPORTED = [
-    (["--allocation", "d2"], "item 8"),
+    (["--allocation", "d1m2"], "item 8.6b"),
     (["--allocation", "search"], "item 10"),
     (["--chip", "v5p"], "item 10"),
     (["--search-devices", "8"], "item 10"),
@@ -85,7 +85,7 @@ UNPORTED = [
     (["--tpu-name", "x"], "item 10"),
     (["--eval-data", "x.jsonl"], "item 10"),
     (["--eval-protocol", "avg@4"], "item 10"),
-    (["--gen-allocation", "d1"], "item 8"),
+    (["--gen-allocation", "d1"], "item 8.6b"),
     (["--gen-server-url", "tcp://localhost:1"], "item 7.8"),
     (["--gen-server-url", "zmq://localhost:1"], "item 7.8"),
 ]

@@ -394,6 +394,29 @@ def body_ppo(rank, world, workdir, args):
              kl_after=iface._kl_ctl.value, shard=shard)
 
 
+def body_place_rows(rank, world, workdir, args):
+    """`place_rows` and `replicate` on one layout: a [B, 3] host batch
+    (every rank holds it alike) placed as batch-sharded rows, and a tree
+    of a plain leaf and a row-sharded DTensor leaf replicated."""
+    import torch
+
+    from areal_tpu_torch.parallel import sharding as shd
+
+    mesh = _world(rank, world, workdir, args["layout"])
+    value = np.arange(args["rows"] * 3, dtype=np.float32).reshape(args["rows"], 3)
+    rows = shd.place_rows(mesh, value, "cpu")
+    tree = {"plain": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+            "nested": {"rows": shd.rows_dtensor(torch.from_numpy(
+                shd.local_rows(mesh, value)), mesh)}}
+    rep = shd.replicate(tree, mesh)
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"),
+             local=rows.to_local().numpy(), full=rows.full_tensor().numpy(),
+             rep_plain=rep["plain"].to_local().numpy(),
+             rep_rows=rep["nested"]["rows"].to_local().numpy(),
+             rep_replicated=np.asarray([p.is_replicate() for p in rep["nested"]["rows"].placements]
+                                       + [p.is_replicate() for p in rep["plain"].placements]))
+
+
 if __name__ == "__main__":
     import faulthandler
 
